@@ -14,6 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    spots), bit-exact against its plain version, timed against its bound;
 3. the hex-corrector kernels on 4 random 78 x 64 x 7 grids, logits within
    1e-4 and labels equal (up to near-tie flips) against the plain version;
+   each kernel is timed three ways: CUDA events around back-to-back wrapper
+   calls, the host's time to issue one call, and the device time of its
+   kernels alone from a torch.profiler trace;
 4. the main path at full width, as a model directory serves: positions
    files read by ``io.read_positions``, ``modeldir.image_registrar_from_meta``
    for the default ``TpuPatchClassifier`` (stages (256,2),(512,2), stem 16,
@@ -26,7 +29,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    registrar's up to near-ties, and ``register_logits`` must match a direct
    GridNetHex forward on the same patch grid; then the time of
    ``register_batch`` (kernels and plain in turns) and a torch.profiler
-   table of one call;
+   table of one call, with the ported kernels' device time in it;
 5. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -70,19 +73,70 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> tuple:
+    """(ms per call on the stream between CUDA events, ms per call the host
+    took to issue it) of ``fn``, over ``iters`` back-to-back calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+
+
+# CUDA kernel of each ported function, as the profiler names it
+KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
+                  "fused_hex_corrector": ("hex_layer_kernel",),
+                  "fused_hex_corrector_labels": ("hex_layer_kernel",
+                                                 "hex_labels_kernel")}
+
+
+def traced_kernels(prof, symbols, calls: int) -> dict:
+    """{symbol: (launches per call, device ms per call)} of the CUDA kernels
+    named ``symbols`` in a torch.profiler trace of ``calls`` calls."""
+    found = {}
+    for evt in prof.key_averages():
+        for sym in symbols:
+            if f"{sym}(" in evt.key:
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = evt.self_cuda_time_total
+                n, t = found.get(sym, (0, 0.0))
+                found[sym] = (n + evt.count, t + us)
+    missing = [s for s in symbols if s not in found or found[s][1] <= 0]
+    if missing:
+        names = [e.key[:60] for e in prof.key_averages()][:30]
+        raise AssertionError(f"no device time for {missing} in the trace; "
+                             f"events: {names}")
+    return {s: (n / calls, us / 1e3 / calls) for s, (n, us) in found.items()}
+
+
+def device_ms(torch, fn, iters: int, symbols) -> dict:
+    """:func:`traced_kernels` of ``iters`` back-to-back calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return traced_kernels(prof, symbols, iters)
+
+
+def kernel_line(per_symbol: dict) -> tuple:
+    """(device ms per call, text) of :func:`traced_kernels`' result."""
+    total = sum(ms for _, ms in per_symbol.values())
+    parts = ", ".join(f"{s} {n:g} x {ms / n * 1e3:.2f} us" for s, (n, ms)
+                      in per_symbol.items())
+    return total, parts
 
 
 def lattice(geometry):
@@ -130,16 +184,22 @@ def phase_gather(torch, slides, geometry, gather):
     if not torch.equal(out, plain):
         raise AssertionError(f"gather kernel differs from plain (max abs {err})")
     del plain
-    ms = cuda_ms(torch, lambda: gather.gather_patches(slides, args[0], args[1],
-                                                      PATCH, args[2]), iters=20)
-    plain_ms = cuda_ms(torch, lambda: gather.gather_patches_plain(
+    def kernel():
+        return gather.gather_patches(slides, args[0], args[1], PATCH, args[2])
+
+    ms, host_ms = cuda_ms(torch, kernel, iters=20)
+    dev_ms, parts = kernel_line(device_ms(torch, kernel, 10,
+                                          KERNEL_SYMBOLS["gather_patches"]))
+    plain_ms, _ = cuda_ms(torch, lambda: gather.gather_patches_plain(
         slides, args[0], args[1], PATCH, args[2]), iters=3, warmup=1)
     nbytes = 2 * n * PATCH * PATCH * 3 + 3 * n * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"gather: N={n} window={PATCH}: bit-exact; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {nbytes})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes"}
+    log(f"gather: N={n} window={PATCH}: bit-exact; kernel {ms:.4f} ms per call "
+        f"(events; host issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} "
+        f"ms ({parts}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes {nbytes})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
 def corrector_work(b, c_in, n_classes, width=32, h=78, w=64):
@@ -189,15 +249,18 @@ def phase_corrector(torch, corr, serving, dev):
              lambda: corr.fused_hex_corrector_labels(x, fg, kernels, biases, flags),
              lambda: corr.hex_corrector_labels_plain(x, fg, kernels, biases, flags),
              N_SLIDES * 78 * 64 * 4 * 2)):   # fg in + labels out
-        ms = cuda_ms(torch, fn, iters=50)
-        plain_ms = cuda_ms(torch, plain_fn, iters=10)
+        ms, host_ms = cuda_ms(torch, fn, iters=50)
+        dev_ms, parts = kernel_line(device_ms(torch, fn, 50, KERNEL_SYMBOLS[name]))
+        plain_ms, _ = cuda_ms(torch, plain_fn, iters=10)
         t_ops = flops / FP32_FLOPS_PER_S * 1e3
         t_bytes = (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        res[name] = {"ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        log(f"{name}: B={N_SLIDES}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {max(t_ops, t_bytes):.5f} ms ({flops / 1e6:.1f} MFLOP, "
-            f"{nbytes + out_bytes} bytes)")
+        log(f"{name}: B={N_SLIDES}: kernel {ms:.4f} ms per call (events; host "
+            f"issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} ms "
+            f"({parts}), plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.5f} "
+            f"ms ({flops / 1e6:.1f} MFLOP, {nbytes + out_bytes} bytes)")
     res["fused_hex_corrector"]["max_abs_err"] = err
     res["fused_hex_corrector_labels"]["max_abs_err"] = label_err
     log(f"corrector: logits max abs err {err:.3g} (<= 1e-4), labels equal up to "
@@ -321,14 +384,32 @@ def phase_main_path(torch, slides, port, card, tmp):
     log(f"Loupe CSV of slide 0: {n_spots[0]} spots, classes match the label grid")
 
     # the same model through the same weight bridge, with the plain versions
+    class PlainRegistrar(serving.SlideRegistrar):
+        """The registrar with each kernel's plain version in its place."""
+
+        def _extract_flat(self, wsis, y_c, x_c, slide):
+            w = self.window_size
+            return gather.gather_patches_plain(wsis, y_c - w // 2, x_c - w // 2, w,
+                                               slide)
+
+        def _labels_from_grid(self, grid, fg):
+            return corr.hex_corrector_labels_plain(grid, fg, self.kernels,
+                                                   self.biases, self.relu_flags)
+
+        def _register_logits(self, wsi, oy, ox, y_px, x_px):
+            grid, fg = self._grid_fg(wsi[None], oy[None], ox[None], y_px[None],
+                                     x_px[None])
+            logits = corr.hex_corrector_plain(grid, self.kernels, self.biases,
+                                              self.relu_flags)
+            return logits[0].float(), fg[0]
+
     f = models.TpuPatchClassifier(n_classes=N_CLASSES,
                                   **models.tpu_f_arch_kwargs(meta["tpu_f"]))
     model = from_jax.load_gridnet_hex(
         models.GridNetHex(f, n_classes=N_CLASSES, f_dim=N_CLASSES), variables)
     model = model.to(dev).eval()
-    plain = serving.SlideRegistrar.from_gridnet(model, patch_size=PATCH,
-                                                patch_chunk=624, normalize=None,
-                                                device=dev, kernels=False)
+    plain = PlainRegistrar.from_gridnet(model, patch_size=PATCH, patch_chunk=624,
+                                        normalize=None, device=dev)
     plain_logits = [plain.register_logits(slides[i], positions[i])[0]
                     for i in range(N_SLIDES)]
     flips = serving.label_parity_report(plain(slides[0], positions[0]), labels0,
@@ -388,6 +469,9 @@ def profile_batch(torch, reg, slides, positions):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reg.register_batch(slides, positions)
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    for name in ("gather_patches", "fused_hex_corrector_labels"):
+        dev_ms, parts = kernel_line(traced_kernels(prof, KERNEL_SYMBOLS[name], 1))
+        log(f"register_batch trace: {name} device {dev_ms:.4f} ms ({parts})")
 
 
 def main() -> int:
@@ -408,7 +492,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    built = _cuda.build(ptxas_verbose=True)
+    built = _cuda.build()
     for name, info in built.items():
         log(f"built {name}.cu in {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -442,7 +526,8 @@ def main() -> int:
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
-                "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
+                "ms": res[name]["ms"], "device_ms": res[name]["device_ms"],
+                "host_ms": res[name]["host_ms"], "plain_ms": res[name]["plain_ms"],
                 "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
                 # no single PyTorch call computes either function
                 "library_ms": None}

@@ -5,7 +5,7 @@ library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``gridnext_tpu_torch/_build/`` (ignored by git); the library
 name carries a hash of its source, so an edited kernel rebuilds and a stale
 one is never loaded. :func:`build` compiles several sources at once, one
-``nvcc`` process each.
+``nvcc`` process each, and returns ``ptxas``'s register and spill report.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -71,12 +71,12 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names=None, ptxas_verbose: bool = False) -> dict:
+def build(names=None) -> dict:
     """Compile the named kernels (default: all) that are not built yet.
 
     All ``nvcc`` processes start together and are waited for. Returns
-    ``{name: {"seconds": s, "log": compiler stderr}}`` for each source
-    compiled now. Raises ``RuntimeError`` with the compiler output when a
+    ``{name: {"seconds": s, "log": compiler output}}`` for each source
+    compiled now (the log holds ``ptxas -v``'s registers and spills). Raises ``RuntimeError`` with the compiler output when a
     build fails.
     """
     names = list(SIGNATURES) if names is None else list(names)
@@ -88,8 +88,8 @@ def build(names=None, ptxas_verbose: bool = False) -> dict:
         if os.path.exists(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-               "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

@@ -28,9 +28,8 @@ import torch
 from gridnext_tpu_torch import geometry
 from gridnext_tpu_torch.ops.hexcorrector_cuda import (
     CORRECTOR_RELU_FLAGS, as_f32_tensors, fused_hex_corrector,
-    fused_hex_corrector_labels, hex_corrector_labels_plain, hex_corrector_plain)
-from gridnext_tpu_torch.ops.patch_gather_cuda import (gather_patches,
-                                                      gather_patches_plain)
+    fused_hex_corrector_labels)
+from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
 from gridnext_tpu_torch.pipeline import _spot_pixel_boxes, imagenet_normalize
 
 # Padded spot arrays round up to a multiple of this (the JAX package's
@@ -97,9 +96,6 @@ class SlideRegistrar:
       normalize: 'imagenet' or None (``/255`` only).
       patch_chunk: f runs over the spot axis in chunks of this size.
       device: where registration runs; 'cuda' (default) raises without CUDA.
-      kernels: True runs the CUDA gather and corrector kernels (on a CUDA
-        device); False runs their plain PyTorch versions on the same device,
-        the yardstick the kernels are checked against.
     """
 
     def __init__(self, f_apply: Callable, corrector_kernels, corrector_biases,
@@ -107,7 +103,7 @@ class SlideRegistrar:
                  window_size: Optional[int] = None,
                  normalize: Optional[str] = "imagenet",
                  patch_chunk: Optional[int] = 624,
-                 device="cuda", kernels: bool = True):
+                 device="cuda"):
         self.device = resolve_device(device)
         if window_size not in (None, patch_size):
             raise NotImplementedError(
@@ -127,7 +123,6 @@ class SlideRegistrar:
         self.normalize = normalize
         self.patch_chunk = patch_chunk
         self.h_st, self.w_st = geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
-        self.use_kernels = kernels
 
     @classmethod
     def from_gridnet(cls, model, *, patch_size: int = 128,
@@ -153,8 +148,7 @@ class SlideRegistrar:
         """(B, H, W, 3) uint8 slides + (N,) centers/slide ids -> (N, P, P, 3)
         uint8 crops."""
         w = self.window_size
-        gather = gather_patches if self.use_kernels else gather_patches_plain
-        return gather(wsis, y_c - w // 2, x_c - w // 2, w, slide)
+        return gather_patches(wsis, y_c - w // 2, x_c - w // 2, w, slide)
 
     def _apply_f(self, crops: torch.Tensor) -> torch.Tensor:
         """uint8 crops -> (N, f_dim); normalizes and runs f chunk by chunk,
@@ -173,9 +167,8 @@ class SlideRegistrar:
 
     def _labels_from_grid(self, grid, fg):
         """(B, H, W, f_dim) grid + (B, H, W) fg mask -> (B, H, W) labels."""
-        fn = (fused_hex_corrector_labels if self.use_kernels
-              else hex_corrector_labels_plain)
-        return fn(grid, fg, self.kernels, self.biases, self.relu_flags)
+        return fused_hex_corrector_labels(grid, fg, self.kernels, self.biases,
+                                          self.relu_flags)
 
     def _grid_fg(self, wsis, oy, ox, y_px, x_px):
         """(B, H, W, 3) slides + (B, S) spot arrays -> ((B, h_st, w_st, f_dim)
@@ -208,8 +201,8 @@ class SlideRegistrar:
         """((H, W, C) float32 logits, (H, W) int32 fg mask) of one slide."""
         grid, fg = self._grid_fg(wsi[None], oy[None], ox[None], y_px[None],
                                  x_px[None])
-        fn = fused_hex_corrector if self.use_kernels else hex_corrector_plain
-        logits = fn(grid, self.kernels, self.biases, self.relu_flags)
+        logits = fused_hex_corrector(grid, self.kernels, self.biases,
+                                     self.relu_flags)
         return logits[0].float(), fg[0]
 
     def _register_batch(self, wsis, oy, ox, y_px, x_px):
