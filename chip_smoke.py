@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card::
 
-    python3 chip_smoke.py     # ~1 minute, builds the kernels itself
+    python3 chip_smoke.py     # ~2 minutes, builds the kernels itself
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -30,7 +30,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    GridNetHex forward on the same patch grid; then the time of
    ``register_batch`` (kernels and plain in turns) and a torch.profiler
    table of one call, with the ported kernels' device time in it;
-5. a ``{"kernels": [...]}`` line, then the last line
+5. the dense-block kernel at DenseNet-121's four block shapes with B = 624
+   (128-px patches), folded from random weights (numpy seed): within
+   rtol = atol = 3e-2 of its plain version with a correlation above 0.999,
+   each block timed as phases 2-3 time theirs, beside its bound and, as a
+   yardstick the port never calls, the same block as eager bf16 cuDNN
+   convolutions in channels-last;
+6. DenseNet-121 at full width on the same 4 slides and positions files: the
+   model-directory route (``image_registrar_from_meta``, f32 module, TF32
+   off) with ``__call__``, ``register_logits`` and ``register_batch``, held
+   against the masks and a direct ``GridNetHex(DenseNet)`` forward; the
+   fused route (``SlideRegistrar`` on ``build_densenet_fused_infer``, the
+   dense-block kernel, the same folded corrector) with ``register_batch``,
+   its counts set to 0 just before and read just after, its labels equal
+   to the f32 route's up to near-ties within the bf16 budget; the fused
+   f's logits against the f32 module's on one 624-patch chunk; both
+   routes' ``register_batch`` timed in turns, and a torch.profiler table of
+   one fused call;
+7. the window resize on slide 0 through a ``window_px = 160``,
+   ``patch_px = 128`` DenseNet-121 model directory: ``__call__`` and
+   ``register_logits`` with the gather and corrector counts set to 0 just
+   before and read just after; the gather at 160 px bit-exact against its
+   plain version on the registrar's corners; the resize on the card within
+   1 of a float64 product; logits within 1e-3 of, and labels equal (up to
+   near-ties) to, the plain-version registrar on the same f;
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -52,6 +76,7 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12      # f32 on the CUDA cores (no tensor cores)
+BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
 
 N_SLIDES = 4
 PATCH = 128
@@ -60,6 +85,15 @@ MARGIN = PATCH
 N_CLASSES = 7
 SEED = 0
 TISSUE_FRACTIONS = (0.95, 0.8, 0.65, 0.5)   # elliptical masks, one per slide
+CHUNK = 624                   # f's patch chunk (the JAX bench's)
+WINDOW = 160                  # crop window of the resize phase
+# DenseNet-121's dense blocks at 128-px patches: (side, c_in0, layers)
+DENSE_BLOCKS = ((32, 64, 6), (16, 128, 12), (8, 256, 24), (4, 512, 16))
+GROWTH = 32
+# Label near-tie budget of the bf16 fused f against the f32 module: a flip
+# is tolerated where the f32 route's top-2 corrector logits are within 5 %
+# (the CPU tests' budget for the fused f against JAX's)
+BF16_REL_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -95,7 +129,9 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> tuple:
 KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
                   "fused_hex_corrector": ("hex_layer_kernel",),
                   "fused_hex_corrector_labels": ("hex_layer_kernel",
-                                                 "hex_labels_kernel")}
+                                                 "hex_labels_kernel"),
+                  "fused_dense_block": ("dense_bottleneck_kernel",
+                                        "dense_conv3x3_kernel")}
 
 
 def traced_kernels(prof, symbols, calls: int) -> dict:
@@ -292,13 +328,14 @@ def write_spaceranger_dir(root, geometry, frac: float, idx: int):
     return sr_dir, in_tissue.reshape(geometry.VISIUM_H_ST, geometry.VISIUM_W_ST)
 
 
-def random_variables(models, from_jax):
-    """A variables tree in the JAX package's layout for the default-width
-    GridNetHex(TpuPatchClassifier) with the BatchNorm corrector, filled from
-    a numpy seed (what a JAX model directory's checkpoint holds)."""
-    model = models.GridNetHex(models.TpuPatchClassifier(n_classes=N_CLASSES),
-                              n_classes=N_CLASSES, f_dim=N_CLASSES, use_bn=True)
-    rng = np.random.default_rng(SEED + 2)
+def random_variables(models, from_jax, f=None, seed=SEED + 2):
+    """A variables tree in the JAX package's layout for a GridNetHex with the
+    BatchNorm corrector and f (default: the default-width
+    TpuPatchClassifier), filled from a numpy seed (what a JAX model
+    directory's checkpoint holds)."""
+    f = f if f is not None else models.TpuPatchClassifier(n_classes=N_CLASSES)
+    model = models.GridNetHex(f, n_classes=N_CLASSES, f_dim=N_CLASSES, use_bn=True)
+    rng = np.random.default_rng(seed)
 
     def fill(tree):
         out = {}
@@ -332,6 +369,30 @@ def check_loupe_csv(path, labels, classes, n_spots):
         if annot != classes[labels[y, x] - 1]:
             raise AssertionError(f"Loupe CSV: {barcode} is {annot!r}, label "
                                  f"{labels[y, x]}")
+
+
+def plain_registrar_class(serving, gather, corr):
+    """A ``SlideRegistrar`` subclass with each kernel's plain version in its
+    place."""
+
+    class PlainRegistrar(serving.SlideRegistrar):
+        def _extract_flat(self, wsis, y_c, x_c, slide):
+            w = self.window_size
+            return gather.gather_patches_plain(wsis, y_c - w // 2, x_c - w // 2, w,
+                                               slide)
+
+        def _labels_from_grid(self, grid, fg):
+            return corr.hex_corrector_labels_plain(grid, fg, self.kernels,
+                                                   self.biases, self.relu_flags)
+
+        def _register_logits(self, wsi, oy, ox, y_px, x_px):
+            grid, fg = self._grid_fg(wsi[None], oy[None], ox[None], y_px[None],
+                                     x_px[None])
+            logits = corr.hex_corrector_plain(grid, self.kernels, self.biases,
+                                              self.relu_flags)
+            return logits[0].float(), fg[0]
+
+    return PlainRegistrar
 
 
 def phase_main_path(torch, slides, port, card, tmp):
@@ -384,25 +445,7 @@ def phase_main_path(torch, slides, port, card, tmp):
     log(f"Loupe CSV of slide 0: {n_spots[0]} spots, classes match the label grid")
 
     # the same model through the same weight bridge, with the plain versions
-    class PlainRegistrar(serving.SlideRegistrar):
-        """The registrar with each kernel's plain version in its place."""
-
-        def _extract_flat(self, wsis, y_c, x_c, slide):
-            w = self.window_size
-            return gather.gather_patches_plain(wsis, y_c - w // 2, x_c - w // 2, w,
-                                               slide)
-
-        def _labels_from_grid(self, grid, fg):
-            return corr.hex_corrector_labels_plain(grid, fg, self.kernels,
-                                                   self.biases, self.relu_flags)
-
-        def _register_logits(self, wsi, oy, ox, y_px, x_px):
-            grid, fg = self._grid_fg(wsi[None], oy[None], ox[None], y_px[None],
-                                     x_px[None])
-            logits = corr.hex_corrector_plain(grid, self.kernels, self.biases,
-                                              self.relu_flags)
-            return logits[0].float(), fg[0]
-
+    PlainRegistrar = plain_registrar_class(serving, gather, corr)
     f = models.TpuPatchClassifier(n_classes=N_CLASSES,
                                   **models.tpu_f_arch_kwargs(meta["tpu_f"]))
     model = from_jax.load_gridnet_hex(
@@ -459,19 +502,306 @@ def phase_main_path(torch, slides, port, card, tmp):
         f"{[round(x * 1e3, 2) for x in times['kernels']]} ms); "
         f"{t_plain * 1e3 / N_SLIDES:.2f} ms/slide with "
         f"the plain versions [{card}]")
-    return launches, reg, positions
+    return launches, reg, positions, masks
 
 
-def profile_batch(torch, reg, slides, positions):
+def profile_batch(torch, reg, slides, positions,
+                  names=("gather_patches", "fused_hex_corrector_labels")):
     from torch.profiler import ProfilerActivity, profile
 
     reg.register_batch(slides, positions)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reg.register_batch(slides, positions)
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    for name in ("gather_patches", "fused_hex_corrector_labels"):
+    for name in names:
         dev_ms, parts = kernel_line(traced_kernels(prof, KERNEL_SYMBOLS[name], 1))
         log(f"register_batch trace: {name} device {dev_ms:.4f} ms ({parts})")
+
+
+def dense_block_work(b, side, c0, n_layers, cb, growth=GROWTH):
+    """(flops, bytes) of one dense block on b patches: written channels only;
+    bytes = bf16 input and output once, plus the bf16 weights and f32
+    affines the layers read."""
+    m = b * side * side
+    c_ins = [c0 + l * growth for l in range(n_layers)]
+    flops = sum(2 * m * c * cb + 2 * m * 9 * cb * growth for c in c_ins)
+    weights = sum(2 * c * cb + 8 * c + 2 * 9 * cb * growth + 8 * cb for c in c_ins)
+    c_max = c0 + n_layers * growth
+    return flops, 2 * m * (c0 + c_max) + weights
+
+
+def folded_blocks(dense, f_vars):
+    """The four blocks' folded params of a DenseNet-121 tree (numpy)."""
+    params, stats = f_vars["params"], f_vars["batch_stats"]
+    out, k = [], 0
+    for side, c0, n_layers in DENSE_BLOCKS:
+        names = [f"_DenseLayer_{k + j}" for j in range(n_layers)]
+        k += n_layers
+        out.append(dense.fold_dense_block_params([params[n] for n in names],
+                                                 [stats[n] for n in names], c0, GROWTH))
+    return out
+
+
+def cudnn_block(torch, F, x, w1, w2, a1, b1, a2, b2, c0, growth):
+    """The same block as eager bf16 cuDNN convolutions in channels-last, one
+    ``F.conv2d`` per conv and a concat per layer: a yardstick only. ``w1``,
+    ``w2``: per-layer OIHW bf16 weights; the affines are bf16 too."""
+    buf = x.permute(0, 3, 1, 2)                      # NCHW view, NHWC memory
+    for l, (k1, k3) in enumerate(zip(w1, w2)):
+        c_in = c0 + l * growth
+        t = torch.relu(buf * a1[l, :c_in, None, None] + b1[l, :c_in, None, None])
+        u = torch.relu(F.conv2d(t, k1) * a2[l, :, None, None] + b2[l, :, None, None])
+        buf = torch.cat([buf, F.conv2d(u, k3, padding=1)], dim=1)
+    return buf
+
+
+def phase_dense_block(torch, dense, f_vars, dev):
+    import torch.nn.functional as F
+
+    log(f"== phase 5: dense-block kernel, DenseNet-121 blocks at B = {CHUNK}")
+    rng = np.random.default_rng(SEED + 3)
+    res = {}
+    for bi, ((side, c0, n_layers), fold) in enumerate(
+            zip(DENSE_BLOCKS, folded_blocks(dense, f_vars)), start=1):
+        a1, b1, a2, b2 = (torch.as_tensor(fold[k], device=dev)
+                          for k in ("A1", "B1", "A2", "B2"))
+        w1, w2 = (torch.as_tensor(fold[k], device=dev).to(torch.bfloat16)
+                  for k in ("W1", "W2"))
+        x = torch.as_tensor(rng.normal(size=(CHUNK, side, side, c0)).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+        args = (x, a1, b1, w1, a2, b2, w2)
+
+        def kernel():
+            return dense.fused_dense_block(*args, c_in0=c0, growth=GROWTH)
+
+        def plain():
+            return dense.fused_dense_block_plain(*args, c_in0=c0, growth=GROWTH)
+
+        got, want = kernel().float(), plain().float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max().item())
+        differ = float((got != want).float().mean().item())
+        close = torch.allclose(got, want, rtol=3e-2, atol=3e-2)
+        corr = float(np.corrcoef(got.cpu().numpy().ravel()[::7],
+                                 want.cpu().numpy().ravel()[::7])[0, 1])
+        if not (close and corr > 0.999 and torch.isfinite(got).all()):
+            raise AssertionError(f"dense block {bi}: kernel differs from plain (max "
+                                 f"abs {err}, corr {corr})")
+        del got, want
+        iters = 20 if bi > 1 else 10
+        ms, host_ms = cuda_ms(torch, kernel, iters=iters)
+        dev_ms, parts = kernel_line(device_ms(torch, kernel, iters,
+                                              KERNEL_SYMBOLS["fused_dense_block"]))
+        plain_ms, _ = cuda_ms(torch, plain, iters=2, warmup=1)
+        # the yardstick: OIHW channels-last bf16 weights, bf16 affines
+        w1c = [w1[l, :c0 + GROWTH * l].t().contiguous()[:, :, None, None]
+               for l in range(n_layers)]
+        w2c = [w2[l].reshape(3, 3, -1, GROWTH).permute(3, 2, 0, 1)
+               .contiguous(memory_format=torch.channels_last) for l in range(n_layers)]
+        aff = [t.to(torch.bfloat16) for t in (a1, b1, a2, b2)]
+        cudnn_ms, _ = cuda_ms(torch, lambda: cudnn_block(
+            torch, F, x, w1c, w2c, *aff, c0, GROWTH), iters=iters)
+        flops, nbytes = dense_block_work(CHUNK, side, c0, n_layers, w1.shape[-1])
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[bi] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                   "host_ms": host_ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "cudnn_ms": cudnn_ms}
+        log(f"dense block {bi} ({side}x{side}, {c0} -> {c0 + GROWTH * n_layers}, L = "
+            f"{n_layers}): max abs err {err:.4g}, {differ * 100:.2f} % of elements "
+            f"differ, corr {corr:.6f}; kernel {ms:.4f} ms per call (events; host "
+            f"issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} ms ({parts}), "
+            f"plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> "
+            f"{t_bytes:.4f} ms); yardstick: eager bf16 cuDNN sequence {cudnn_ms:.4f} ms")
+    return res
+
+
+def phase_densenet(torch, slides, positions, masks, port, variables, card):
+    """Both DenseNet-121 routes at full width. Returns the fused route's
+    kernel launches and the model directory's meta."""
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr, dense = port
+    log("== phase 6: DenseNet-121 at full width (TF32 off for the f32 route)")
+    dev = slides.device
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    meta = {"model": "GridNetHex+DenseNet121", "classes": classes,
+            "patch_px": PATCH, "patch_chunk": CHUNK}
+    f_vars = {c: variables[c]["patch_classifier"] for c in ("params", "batch_stats")}
+    n_spots = [int(m.sum()) for m in masks]
+
+    # 1. the model-directory route: f32 module
+    reg = modeldir.image_registrar_from_meta(meta, classes, variables, device=dev)
+    dense.launches = 0
+    labels0 = reg(slides[0], positions[0])
+    labels_f32 = reg.register_batch(slides, positions)
+    logits_f32 = [reg.register_logits(slides[i], positions[i])[0]
+                  for i in range(N_SLIDES)]
+    torch.cuda.synchronize()
+    if dense.launches:
+        raise AssertionError("the f32 route launched the dense-block kernel")
+    for got, mask in [(labels0 > 0, masks[0])] + [
+            (labels_f32[i] > 0, masks[i]) for i in range(N_SLIDES)]:
+        if not np.array_equal(got, mask > 0):
+            raise AssertionError("f32 route: foreground differs from the tissue mask")
+    if not all(np.isfinite(x).all() for x in logits_f32) or labels_f32.max() > N_CLASSES:
+        raise AssertionError("f32 route: non-finite logits or labels out of range")
+    serving.label_parity_report(labels_f32[0], labels0, logits_f32[0])
+    # a direct GridNetHex(DenseNet-121) forward on slide 1's patch grid
+    model = from_jax.load_gridnet_hex(models.GridNetHex(
+        models.densenet121(num_classes=N_CLASSES), n_classes=N_CLASSES,
+        f_dim=N_CLASSES), variables).to(dev).eval()
+    model.patch_chunk = CHUNK
+    oy, ox, y_px, x_px = serving.spot_pixel_arrays(positions[1])
+    crops = gather.gather_patches_plain(
+        slides[1], torch.as_tensor(y_px - PATCH // 2, device=dev),
+        torch.as_tensor(x_px - PATCH // 2, device=dev), PATCH)
+    grid = torch.zeros((78, 64, PATCH, PATCH, 3), device=dev)
+    grid[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
+        crops.float() / 255.0
+    with torch.inference_mode():
+        ref = model(grid[None])[0].cpu().numpy()
+    ref_err = float(np.abs(ref - logits_f32[1]).max())
+    if not ref_err <= 1e-3:
+        raise AssertionError(f"f32 route: register_logits differs from the "
+                             f"GridNetHex forward by {ref_err}")
+    log(f"f32 route: foreground equals every mask; register_logits vs GridNetHex "
+        f"forward: max abs err {ref_err:.3g}")
+    del grid
+
+    # 2. the fused route: bf16 blocks through the kernel, the same corrector
+    fused = serving.SlideRegistrar(
+        dense.build_densenet_fused_infer(f_vars, device=dev), reg.kernels, reg.biases,
+        reg.relu_flags, patch_size=PATCH, normalize=None, patch_chunk=CHUNK,
+        device=dev)
+    gather.launches = 0
+    dense.launches = 0
+    for k in corr.launches:
+        corr.launches[k] = 0
+    labels_bf16 = fused.register_batch(slides, positions)
+    torch.cuda.synchronize()
+    launches = {"gather_patches": gather.launches, **corr.launches,
+                "fused_dense_block": dense.launches}
+    log(f"fused-route kernel launches: {launches}")
+    for name in ("gather_patches", "fused_hex_corrector_labels", "fused_dense_block"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the fused route")
+    flips = 0
+    for i in range(N_SLIDES):
+        if not np.array_equal(labels_bf16[i] > 0, masks[i] > 0):
+            raise AssertionError("fused route: foreground differs from the tissue mask")
+        flips += serving.label_parity_report(labels_f32[i], labels_bf16[i],
+                                             logits_f32[i], rel_tol=BF16_REL_TOL)
+    log(f"fused route vs f32 route: labels equal up to {flips} near-tie flips of "
+        f"{sum(n_spots)} spots (rel_tol {BF16_REL_TOL})")
+
+    # 3. one 624-patch chunk: fused f against the f32 module
+    chunk = crops[:CHUNK].float() / 255.0
+    with torch.inference_mode():
+        want = reg.f_apply(chunk)
+        got = fused.f_apply(chunk)
+    scale = float(want.abs().max().item())
+    rel = float((got - want).abs().max().item()) / scale
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean().item())
+    if not (torch.isfinite(got).all() and rel <= BF16_REL_TOL):
+        raise AssertionError(f"fused f differs from the f32 module by {rel:.4g} of "
+                             f"the largest logit")
+    log(f"fused f vs f32 module on {CHUNK} patches of slide 1: max abs diff "
+        f"{rel:.4g} of the largest logit ({scale:.4g}), argmax agreement "
+        f"{agree * 100:.2f} %")
+    del crops, chunk
+
+    # 4. register_batch of both routes in turns: k p p k k p p k
+    times = {"fused": [], "f32": []}
+    for name in ("fused", "f32", "f32", "fused") * 2:
+        r = fused if name == "fused" else reg
+        t0 = time.perf_counter()
+        r.register_batch(slides, positions)
+        times[name].append(time.perf_counter() - t0)
+    t, t32 = (float(np.median(times[k])) for k in ("fused", "f32"))
+    log(f"DenseNet-121 register_batch of {N_SLIDES} slides ({sum(n_spots)} spots), "
+        f"median of 4: fused bf16 route {t * 1e3 / N_SLIDES:.2f} ms/slide, "
+        f"{sum(n_spots) / t:.0f} spots/s (runs {[round(x * 1e3, 2) for x in times['fused']]} "
+        f"ms); f32 route without TF32 {t32 * 1e3 / N_SLIDES:.2f} ms/slide, "
+        f"{sum(n_spots) / t32:.0f} spots/s (runs "
+        f"{[round(x * 1e3, 2) for x in times['f32']]} ms) [{card}]")
+    profile_batch(torch, fused, slides, positions,
+                  ("gather_patches", "fused_dense_block", "fused_hex_corrector_labels"))
+    return launches, meta
+
+
+def phase_resize(torch, slides, positions, masks, port, meta, variables):
+    """The resized-window path on slide 0: its kernels' launches, the gather
+    at the window size, the resize, and the labels and logits against the
+    plain-version registrar on the same f."""
+    from gridnext_tpu_torch import pipeline
+
+    modeldir, serving, gather, corr = port[4], port[6], port[7], port[8]
+    log(f"== phase 7: window resize (window_px = {WINDOW}, patch_px = {PATCH}, "
+        f"DenseNet-121 f32 model directory, TF32 off)")
+    dev = slides.device
+    reg = modeldir.image_registrar_from_meta(dict(meta, window_px=WINDOW),
+                                             meta["classes"], variables, device=dev)
+    if (reg.window_size, reg.patch_size) != (WINDOW, PATCH):
+        raise AssertionError(f"window {reg.window_size}, patch {reg.patch_size}")
+    gather.launches = 0
+    for k in corr.launches:
+        corr.launches[k] = 0
+    labels = reg(slides[0], positions[0])
+    logits, fg = reg.register_logits(slides[0], positions[0])
+    torch.cuda.synchronize()
+    launches = {"gather_patches": gather.launches, **corr.launches}
+    log(f"resized-window kernel launches: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched on the resized-window path")
+    for got in (labels > 0, fg > 0):
+        if not np.array_equal(got, masks[0] > 0):
+            raise AssertionError("resized window: foreground differs from the tissue mask")
+    if not np.isfinite(logits).all() or logits.shape != (78, 64, N_CLASSES):
+        raise AssertionError("resized window: non-finite or misshapen logits")
+
+    # the gather at the window size, bit-exact on the registrar's own corners
+    _, _, _, y_px, x_px = reg._prepared_inputs(slides[0], positions[0], 0)
+    args = (slides, y_px - WINDOW // 2, x_px - WINDOW // 2, WINDOW,
+            torch.zeros_like(y_px))
+    got, want = gather.gather_patches(*args), gather.gather_patches_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        err = int((got.int() - want.int()).abs().max().item())
+        raise AssertionError(f"gather at window {WINDOW} differs from plain (max "
+                             f"abs {err})")
+    # the resize on the card against a float64 product on the host with the
+    # same weights; a requantisation at .5 may round either way
+    crops = want[:128]
+    resized = pipeline.resize_patches(crops, PATCH).cpu()
+    wm = torch.from_numpy(pipeline.cubic_resize_weights(WINDOW, PATCH)).double()
+    ref = torch.einsum("nhwc,hp,wq->npqc", crops.cpu().double(), wm, wm)
+    ref = torch.clamp(torch.round(ref), 0, 255)
+    diff = (resized.double() - ref).abs()
+    if resized.dtype != torch.uint8 or not float(diff.max()) <= 1:
+        raise AssertionError(f"resize on the card differs from the float64 product "
+                             f"by {float(diff.max())}")
+    del got, want, crops
+
+    # the same f and corrector with the plain gather and corrector
+    plain = plain_registrar_class(serving, gather, corr)(
+        reg.f_apply, reg.kernels, reg.biases, reg.relu_flags, patch_size=PATCH,
+        window_size=WINDOW, normalize=reg.normalize, patch_chunk=reg.patch_chunk,
+        device=dev)
+    plain_logits, _ = plain.register_logits(slides[0], positions[0])
+    logit_err = float(np.abs(logits - plain_logits).max())
+    if not logit_err <= 1e-3:
+        raise AssertionError(f"resized window: register_logits differs from the "
+                             f"plain registrar by {logit_err}")
+    flips = serving.label_parity_report(plain(slides[0], positions[0]), labels,
+                                        plain_logits)
+    log(f"resized window on slide 0: {launches} launches, foreground equals the "
+        f"mask ({int((labels > 0).sum())} spots); gather at {WINDOW} px bit-exact "
+        f"({len(y_px)} crops); resize of 128 crops vs float64: "
+        f"{int((diff > 0).sum())} of {diff.numel()} values off by 1; vs the plain "
+        f"registrar: logits max abs err {logit_err:.3g}, {flips} near-tie flips")
 
 
 def main() -> int:
@@ -483,6 +813,7 @@ def main() -> int:
     from gridnext_tpu_torch import evaluate, geometry, io, modeldir, models, serving
     from gridnext_tpu_torch.compat import from_jax
     from gridnext_tpu_torch.ops import _cuda
+    from gridnext_tpu_torch.ops import denseblock_cuda as dense
     from gridnext_tpu_torch.ops import hexcorrector_cuda as corr
     from gridnext_tpu_torch.ops import patch_gather_cuda as gather
 
@@ -510,11 +841,25 @@ def main() -> int:
 
     res = {"gather_patches": phase_gather(torch, slides, geometry, gather)}
     res.update(phase_corrector(torch, corr, serving, dev))
+    port = (geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr)
     with tempfile.TemporaryDirectory() as tmp:   # positions files, Loupe CSV
-        launches, reg, positions = phase_main_path(
-            torch, slides, (geometry, io, models, from_jax, modeldir, evaluate,
-                            serving, gather, corr), card, tmp)
+        launches, reg, positions, masks = phase_main_path(torch, slides, port, card, tmp)
     profile_batch(torch, reg, slides, positions)
+    del reg
+
+    # DenseNet-121 with random weights from a numpy seed, in the JAX layout
+    dn_vars = random_variables(models, from_jax,
+                               models.densenet121(num_classes=N_CLASSES), SEED + 4)
+    blocks = phase_dense_block(
+        torch, dense, {c: dn_vars[c]["patch_classifier"]
+                       for c in ("params", "batch_stats")}, dev)
+    for b, r in blocks.items():
+        log(f"dense block {b}: {json.dumps(r)}")
+    res["fused_dense_block"] = blocks[1]          # the kernels line: block 1's shape
+    dn_launches, dn_meta = phase_densenet(torch, slides, positions, masks,
+                                          port + (dense,), dn_vars, card)
+    launches["fused_dense_block"] = dn_launches["fused_dense_block"]
+    phase_resize(torch, slides, positions, masks, port, dn_meta, dn_vars)
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -523,13 +868,16 @@ def main() -> int:
                                 "gridnext_tpu/ops/hexcorrector_pallas.py:182"),
         "fused_hex_corrector_labels": ("gridnext_tpu_torch/csrc/hexcorrector.cu",
                                        "gridnext_tpu/ops/hexcorrector_pallas.py:197"),
+        "fused_dense_block": ("gridnext_tpu_torch/csrc/denseblock.cu",
+                              "gridnext_tpu/ops/denseblock_pallas.py:116"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
                 "ms": res[name]["ms"], "device_ms": res[name]["device_ms"],
                 "host_ms": res[name]["host_ms"], "plain_ms": res[name]["plain_ms"],
                 "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
-                # no single PyTorch call computes either function
+                # no single PyTorch call computes any of these functions (the
+                # dense block's cuDNN sequence is a yardstick of many calls)
                 "library_ms": None}
                for name, (src, rep) in meta.items()]
     print(card)

@@ -22,6 +22,15 @@
   creation order (``Conv_0``, ``RMSNorm_0``, ...; the downsample convs take
   ``Conv_i`` slots too), so the bridge walks f in that same order
   (:meth:`TpuPatchClassifier.jax_order`).
+* :func:`load_densenet` does the same for a flax ``DenseNet`` (``params``
+  and ``batch_stats``): ``conv0``; the stem's ``BatchNorm_0``;
+  ``_DenseLayer_{k}`` numbered across all blocks, each with ``BatchNorm_0``,
+  ``Conv_0`` (1x1), ``BatchNorm_1``, ``Conv_1`` (3x3); ``_Transition_{k}``
+  with ``BatchNorm_0``, ``Conv_0``; the final norm ``BatchNorm_1``
+  (``BatchNorm_0`` with ``small_inputs``, which has no stem norm); and
+  ``classifier`` unless ``classify=False``. The convs have no bias. These
+  are the names ``compat/torch_convert.densenet_from_torch`` of the JAX
+  package gives the reference's torch checkpoints.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from gridnext_tpu_torch.models.densenet import DenseNet
 from gridnext_tpu_torch.models.tpu_f import ChannelNorm, TpuPatchClassifier
 
 _NORM_NAMES = {"rms": "RMSNorm", "layer": "LayerNorm"}
@@ -124,12 +134,49 @@ def _tpu_f_entries(f: TpuPatchClassifier, prefix=("params",)):
     yield prefix + ("head", "bias"), f.head.bias, "same"
 
 
+def _batchnorm_entries(bn, params, stats, name):
+    yield params + (name, "scale"), bn.weight, "same"
+    yield params + (name, "bias"), bn.bias, "same"
+    yield stats + (name, "mean"), bn.running_mean, "same"
+    yield stats + (name, "var"), bn.running_var, "same"
+
+
+def _densenet_entries(f: DenseNet, params=("params",), stats=("batch_stats",)):
+    yield params + ("conv0", "kernel"), f.conv0.weight, "conv"
+    if f.norm0 is not None:
+        yield from _batchnorm_entries(f.norm0, params, stats, "BatchNorm_0")
+    k = 0
+    for block in f.blocks:
+        for layer in block:
+            p, s = params + (f"_DenseLayer_{k}",), stats + (f"_DenseLayer_{k}",)
+            yield from _batchnorm_entries(layer.norm1, p, s, "BatchNorm_0")
+            yield p + ("Conv_0", "kernel"), layer.conv1.weight, "conv"
+            yield from _batchnorm_entries(layer.norm2, p, s, "BatchNorm_1")
+            yield p + ("Conv_1", "kernel"), layer.conv2.weight, "conv"
+            k += 1
+    for k, trans in enumerate(f.transitions):
+        p, s = params + (f"_Transition_{k}",), stats + (f"_Transition_{k}",)
+        yield from _batchnorm_entries(trans.norm, p, s, "BatchNorm_0")
+        yield p + ("Conv_0", "kernel"), trans.conv.weight, "conv"
+    final = "BatchNorm_0" if f.norm0 is None else "BatchNorm_1"
+    yield from _batchnorm_entries(f.norm_final, params, stats, final)
+    if f.classifier is not None:
+        yield params + ("classifier", "kernel"), f.classifier.weight, "dense"
+        yield params + ("classifier", "bias"), f.classifier.bias, "same"
+
+
+def _f_entries(f, params, stats):
+    if isinstance(f, TpuPatchClassifier):
+        return _tpu_f_entries(f, params)
+    if isinstance(f, DenseNet):
+        return _densenet_entries(f, params, stats)
+    raise NotImplementedError(f"the weight bridge maps TpuPatchClassifier and "
+                              f"DenseNet, not {type(f).__name__}")
+
+
 def _gridnet_hex_entries(model):
-    f = model.patch_classifier
-    if not isinstance(f, TpuPatchClassifier):
-        raise NotImplementedError(
-            f"the weight bridge maps TpuPatchClassifier only, not {type(f).__name__}")
-    yield from _tpu_f_entries(f, ("params", "patch_classifier"))
+    yield from _f_entries(model.patch_classifier, ("params", "patch_classifier"),
+                          ("batch_stats", "patch_classifier"))
     for collection, layer, leaf, tensor in model.corrector.jax_entries():
         yield (collection, "corrector", layer, leaf), tensor, "same"
 
@@ -194,12 +241,19 @@ def load_tpu_f(f: TpuPatchClassifier, params: dict) -> TpuPatchClassifier:
     return f
 
 
+def load_densenet(f: DenseNet, variables: dict) -> DenseNet:
+    """Copy a flax ``DenseNet`` variables tree (``params`` and
+    ``batch_stats``) into ``f`` (in place)."""
+    _load(_densenet_entries(f), variables, [("params",), ("batch_stats",)])
+    return f
+
+
 def load_gridnet_hex(model, variables: dict):
-    """Copy a JAX ``GridNetHex(TpuPatchClassifier)`` variables tree
-    (``params`` and, with BatchNorm, ``batch_stats``) into ``model`` (in
-    place) and return it."""
+    """Copy a JAX ``GridNetHex`` variables tree, with a
+    ``TpuPatchClassifier`` or ``DenseNet`` f (``params`` and, with
+    BatchNorm, ``batch_stats``), into ``model`` (in place) and return it."""
     roots = [("params", "patch_classifier"), ("params", "corrector"),
-             ("batch_stats", "corrector")]
+             ("batch_stats", "patch_classifier"), ("batch_stats", "corrector")]
     _load(_gridnet_hex_entries(model), variables, roots)
     return model
 

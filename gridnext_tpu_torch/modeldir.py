@@ -14,26 +14,30 @@ from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex
 def image_registrar_from_meta(meta, classes, variables, device="cuda"):
     """SlideRegistrar for a trained image model directory's metadata.
 
-    Ported: the Visium hex lattice with a ``*TpuPatchClassifier`` f. The
-    DenseNet-121 f and the square-lattice (``grid_dims``) models raise
-    ``NotImplementedError`` until their slices are ported. As in the JAX
-    package, model directories serve with ``normalize=None`` (``/255``).
+    Ported: the Visium hex lattice with a ``*TpuPatchClassifier`` or a
+    ``*DenseNet121`` f (f32 modules; the window resized to the patch size
+    where ``window_px`` differs). The square-lattice (``grid_dims``) models
+    raise ``NotImplementedError`` until their slice is ported. As in the
+    JAX package, model directories serve with ``normalize=None`` (``/255``).
     """
     from gridnext_tpu_torch.models import (GridNetHex, TpuPatchClassifier,
-                                           tpu_f_arch_kwargs)
+                                           densenet121, tpu_f_arch_kwargs)
     from gridnext_tpu_torch.serving import SlideRegistrar, resolve_device
 
     device = resolve_device(device)
     model_name = meta.get("model", "")
-    if not model_name.endswith("TpuPatchClassifier"):
-        raise NotImplementedError(
-            f"model {model_name!r}: only *TpuPatchClassifier image models are "
-            "ported so far (DenseNet-121 is a later slice)")
+    n = len(classes)
+    if model_name.endswith("TpuPatchClassifier"):
+        f = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
+    elif model_name.endswith("DenseNet121"):
+        f = densenet121(num_classes=n)
+    else:
+        raise ValueError(f"not an image model dir (model={model_name!r}); the "
+                         "registrar needs a GridNetHex+DenseNet121 or "
+                         "+TpuPatchClassifier directory")
     if meta.get("grid_dims") is not None:
         raise NotImplementedError("square-lattice (grid_dims) image models are "
                                   "a later slice of the port")
-    n = len(classes)
-    f = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
     use_bn = "batch_stats" in variables and "corrector" in variables["batch_stats"]
     g = load_gridnet_hex(GridNetHex(f, n_classes=n, f_dim=n, use_bn=use_bn),
                          variables)

@@ -47,6 +47,13 @@ SIGNATURES = {
         "hex_layer_labels_f32": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                   _VP, _VP], _I),
     },
+    "denseblock": {
+        **_ERROR_STRING,
+        # buf, a1, b1, w1, a2, b2, w2, nb, h, w, c_in0, growth, n_layers, cb,
+        # u, stream
+        "dense_block_bf16": ([_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
+                              _I, _I, _I, _VP, _VP], _I),
+    },
 }
 
 

@@ -1,8 +1,10 @@
-"""Patch preprocessing: ImageNet normalization and spot pixel boxes.
+"""Patch preprocessing: ImageNet normalization, the window resize and spot
+pixel boxes.
 
-The window == patch crop is the only extraction of this port so far (the
-crop itself is :mod:`gridnext_tpu_torch.ops.patch_gather_cuda`); the cubic
-antialiased resize of ``window != patch`` is not ported yet.
+The crop itself is :mod:`gridnext_tpu_torch.ops.patch_gather_cuda`; when
+the crop window differs from the patch size, :func:`resize_patches`
+resamples it as ``jax.image.resize(method="cubic")`` does in the JAX
+package (``pipeline.resize_patches_device``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,64 @@ def imagenet_normalize(img):
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
     std = torch.as_tensor(IMAGENET_STD, device=img.device)
     return (img - mean) / std
+
+
+def cubic_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 resampling matrix of
+    ``jax.image.resize(..., method="cubic")`` along one axis.
+
+    ``jax.image.scale_and_translate``'s formulas: the Keys cubic kernel with
+    a = -0.5 (``F.interpolate(mode="bicubic")`` uses a = -0.75), half-pixel
+    centres, and when downsampling the kernel widened by 1/scale
+    (antialias); each output's weights are normalised to sum to 1, and an
+    output whose sample falls outside the input gets none. Computed in
+    float32, as JAX computes it.
+    """
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))   # antialias: widen when downsampling
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    w = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0), w)
+    w = np.where(x >= 2.0, f32(0.0), w).astype(f32)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_matrices(h: int, w: int, patch_size: int, device) -> tuple:
+    """(rows, columns) :func:`cubic_resize_weights` of an (h, w) window as
+    float32 tensors on ``device``, for :func:`resize_patches`."""
+    return tuple(torch.from_numpy(cubic_resize_weights(n, patch_size)).to(device)
+                 for n in (h, w))
+
+
+def resize_patches(crops: torch.Tensor, patch_size: int,
+                   matrices: tuple | None = None) -> torch.Tensor:
+    """(N, w, w, C) crops -> (N, patch_size, patch_size, C).
+
+    A no-op when the crops are patch-sized. Otherwise the cubic antialiased
+    resize of the JAX package's ``resize_patches_device``: two float32
+    matrix products with :func:`cubic_resize_weights` (rows, then
+    columns), and for integer crops a requantisation (round half to even,
+    clip to [0, 255]) to the input type. With TF32 matmuls enabled the
+    products lose precision; run with TF32 off for parity.
+
+    ``matrices``: the crops' :func:`resize_matrices`, built once by a
+    caller that resizes many chunks; built here when None.
+    """
+    n, h, w, _ = crops.shape
+    if h == patch_size and w == patch_size:
+        return crops
+    wy, wx = matrices or resize_matrices(h, w, patch_size, crops.device)
+    out = torch.einsum("nhwc,hp->npwc", crops.float(), wy)
+    out = torch.einsum("npwc,wq->npqc", out, wx)
+    if not crops.dtype.is_floating_point:
+        out = torch.clamp(torch.round(out), 0, 255).to(crops.dtype)
+    return out
 
 
 def _spot_pixel_boxes(positions, window: int):

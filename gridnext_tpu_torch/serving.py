@@ -1,7 +1,9 @@
 """Slide registration on the card: slide image -> label grid.
 
 The main path of the port: crop one window per in-tissue spot
-(:func:`~gridnext_tpu_torch.ops.patch_gather_cuda.gather_patches`), run the
+(:func:`~gridnext_tpu_torch.ops.patch_gather_cuda.gather_patches`), resize
+it to the patch size where the window is larger or smaller
+(:func:`~gridnext_tpu_torch.pipeline.resize_patches`), run the
 spot classifier f in chunks, scatter its outputs into the 78x64 odd-right
 grid with f(zero patch) on background cells, and run the folded hex
 corrector with the argmax and background mask
@@ -30,7 +32,8 @@ from gridnext_tpu_torch.ops.hexcorrector_cuda import (
     CORRECTOR_RELU_FLAGS, as_f32_tensors, fused_hex_corrector,
     fused_hex_corrector_labels)
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
-from gridnext_tpu_torch.pipeline import _spot_pixel_boxes, imagenet_normalize
+from gridnext_tpu_torch.pipeline import (_spot_pixel_boxes, imagenet_normalize,
+                                         resize_matrices, resize_patches)
 
 # Padded spot arrays round up to a multiple of this (the JAX package's
 # compile-sharing bucket; kept so both pad the same way).
@@ -87,12 +90,15 @@ class SlideRegistrar:
 
     Args:
       f_apply: ``f_apply(patches (N, P, P, 3) float) -> (N, f_dim)``: the
-        spot classifier (a module or any callable) on ``device``.
+        spot classifier (a module or any callable, such as
+        :func:`~gridnext_tpu_torch.ops.denseblock_cuda.build_densenet_fused_infer`'s
+        ``infer``) on ``device``.
       corrector_kernels/biases/relu_flags: folded hex-corrector weights
         (:func:`~gridnext_tpu_torch.ops.hexcorrector_cuda.fold_corrector_params`).
       patch_size: patch side in pixels.
-      window_size: crop window side; only ``window_size == patch_size`` (the
-        default) is ported so far.
+      window_size: crop window side (default ``patch_size``); other sizes
+        are resized to ``patch_size`` (cubic, antialiased, as the JAX
+        package's ``jax.image.resize``).
       normalize: 'imagenet' or None (``/255`` only).
       patch_chunk: f runs over the spot axis in chunks of this size.
       device: where registration runs; 'cuda' (default) raises without CUDA.
@@ -105,10 +111,6 @@ class SlideRegistrar:
                  patch_chunk: Optional[int] = 624,
                  device="cuda"):
         self.device = resolve_device(device)
-        if window_size not in (None, patch_size):
-            raise NotImplementedError(
-                "window_size != patch_size needs the cubic antialiased "
-                "resize, which is not ported yet")
         if not corrector_kernels:
             raise ValueError("the hex corrector needs corrector_kernels/"
                              "corrector_biases (fold_corrector_params or "
@@ -119,7 +121,11 @@ class SlideRegistrar:
         self.kernels = as_f32_tensors(corrector_kernels, self.device)
         self.biases = as_f32_tensors(corrector_biases, self.device)
         self.relu_flags = tuple(relu_flags)
-        self.patch_size = self.window_size = patch_size
+        self.patch_size = patch_size
+        self.window_size = window_size or patch_size
+        # the resize's weight matrices, built once (None: no resize)
+        self._resize = (None if self.window_size == patch_size else resize_matrices(
+            self.window_size, self.window_size, patch_size, self.device))
         self.normalize = normalize
         self.patch_chunk = patch_chunk
         self.h_st, self.w_st = geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
@@ -145,17 +151,20 @@ class SlideRegistrar:
         return patches
 
     def _extract_flat(self, wsis, y_c, x_c, slide):
-        """(B, H, W, 3) uint8 slides + (N,) centers/slide ids -> (N, P, P, 3)
-        uint8 crops."""
+        """(B, H, W, 3) uint8 slides + (N,) centers/slide ids -> (N, w, w, 3)
+        uint8 crops of the window size."""
         w = self.window_size
         return gather_patches(wsis, y_c - w // 2, x_c - w // 2, w, slide)
 
     def _apply_f(self, crops: torch.Tensor) -> torch.Tensor:
-        """uint8 crops -> (N, f_dim); normalizes and runs f chunk by chunk,
-        so only one chunk of float patches is alive at a time."""
+        """uint8 window crops -> (N, f_dim); resizes, normalizes and runs f
+        chunk by chunk, so only one chunk of float patches is alive at a
+        time."""
         chunk = self.patch_chunk or crops.shape[0]
-        return torch.cat([self.f_apply(self._normalize(part))
-                          for part in torch.split(crops, chunk)])
+        return torch.cat([
+            self.f_apply(self._normalize(
+                resize_patches(part, self.patch_size, self._resize)))
+            for part in torch.split(crops, chunk)])
 
     def _bg_vec(self) -> torch.Tensor:
         # Background cells carry f(zero patch): in training grids background

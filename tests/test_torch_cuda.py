@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gridnext_tpu_torch.ops import denseblock_cuda as dense
 from gridnext_tpu_torch.ops import hexcorrector_cuda as corr
 from gridnext_tpu_torch.ops import patch_gather_cuda as gather
 from gridnext_tpu_torch.serving import label_parity_report
@@ -38,7 +39,8 @@ def _gather_case(dev, b, h, w, n, win, seed):
 
 
 @pytest.mark.parametrize("b,h,w,n,win", [(2, 150, 300, 64, 24), (1, 97, 131, 33, 97),
-                                         (3, 400, 260, 500, 128)])
+                                         (3, 400, 260, 500, 128),
+                                         (2, 500, 420, 200, 160)])
 def test_gather_kernel_bit_exact(dev, b, h, w, n, win):
     imgs, y0, x0, slide = _gather_case(dev, b, h, w, n, win, seed=n)
     before = gather.launches
@@ -101,3 +103,57 @@ def test_corrector_labels_kernel_ties_and_class_limit(dev):
         corr.fused_hex_corrector_labels(
             x, fg, [torch.zeros((7, 3, 33), device=dev)],
             [torch.zeros(33, device=dev)], (False,))
+
+
+def _dense_case(dev, b, h, w, c0, n_layers, growth=32, cb=128, seed=0):
+    """Folded params of one dense block from a numpy seed (BatchNorm affines
+    near 1 / 0, convs scaled by fan-in) and a (b, h, w, c0) input."""
+    rng = np.random.default_rng(seed)
+    layers, stats = [], []
+    for l in range(n_layers):
+        c_in = c0 + l * growth
+        layers.append({
+            "BatchNorm_0": {"scale": rng.uniform(0.8, 1.2, c_in), "bias": rng.normal(size=c_in) * 0.1},
+            "Conv_0": {"kernel": rng.normal(size=(1, 1, c_in, cb)) / np.sqrt(c_in)},
+            "BatchNorm_1": {"scale": rng.uniform(0.8, 1.2, cb), "bias": rng.normal(size=cb) * 0.1},
+            "Conv_1": {"kernel": rng.normal(size=(3, 3, cb, growth)) / np.sqrt(9 * cb)}})
+        stats.append({
+            "BatchNorm_0": {"mean": rng.normal(size=c_in) * 0.1, "var": rng.uniform(0.5, 1.5, c_in)},
+            "BatchNorm_1": {"mean": rng.normal(size=cb) * 0.1, "var": rng.uniform(0.5, 1.5, cb)}})
+    folded = dense.fold_dense_block_params(layers, stats, c0, growth)
+    arrays = [torch.as_tensor(folded[k], device=dev) for k in ("A1", "B1", "A2", "B2")]
+    a1, b1, a2, b2 = arrays
+    w1, w2 = (torch.as_tensor(folded[k], device=dev).to(torch.bfloat16) for k in ("W1", "W2"))
+    x = torch.as_tensor(rng.normal(size=(b, h, w, c0)).astype(np.float32), device=dev)
+    return x, (a1, b1, w1, a2, b2, w2)
+
+
+@pytest.mark.parametrize("b,hw,c0,n_layers,growth,cb", [
+    (3, 32, 64, 6, 32, 128), (5, 16, 128, 12, 32, 128), (7, 8, 256, 24, 32, 128),
+    (9, 4, 512, 16, 32, 128),                        # DenseNet-121's four blocks
+    (2, 12, 16, 3, 8, 32),                           # a small width
+    (13, 8, 64, 2, 32, 128),                         # a ragged batch (13 * 64 px)
+    (3, 9, 24, 3, 16, 48), (4, 7, 40, 2, 8, 24),     # odd sizes: 9x9, 7x7
+    (1, 150, 16, 2, 8, 16)],                         # rows wider than a tile
+    ids=["block1", "block2", "block3", "block4", "small", "ragged", "9x9", "7x7",
+         "wide"])
+def test_dense_block_kernel_matches_plain(dev, b, hw, c0, n_layers, growth, cb):
+    x, arrays = _dense_case(dev, b, hw, hw, c0, n_layers, growth, cb, seed=hw)
+    before = dense.launches
+    got = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
+    want = dense.fused_dense_block_plain(x, *arrays, c_in0=c0, growth=growth)
+    torch.cuda.synchronize()
+    assert dense.launches == before + 2 * n_layers
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hw, hw, c0 + n_layers * growth)
+    got, want = got.float(), want.float()
+    assert torch.equal(got[..., :c0], want[..., :c0])     # the input, unchanged
+    # bf16 buffer, t rounded to bf16 in the kernel only: 3e-2 and correlation
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+    corr_ = np.corrcoef(got.cpu().numpy().ravel(), want.cpu().numpy().ravel())[0, 1]
+    assert corr_ > 0.999
+
+
+def test_dense_block_kernel_refuses_unaligned_widths(dev):
+    x, arrays = _dense_case(dev, 1, 4, 4, 12, 2, growth=8, cb=16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        dense.fused_dense_block(x, *arrays, c_in0=12, growth=8)

@@ -125,11 +125,16 @@ def test_registrar_default_device_needs_cuda(monkeypatch, model):
 
 
 def test_registrar_rejects_resize_and_bad_slides(model, wsis, sims):
+    """A window other than the patch size is resized now (no longer
+    rejected); bad slide inputs still are."""
     g = _port_model(model[1])
-    with pytest.raises(NotImplementedError, match="resize"):
-        SlideRegistrar.from_gridnet(g, patch_size=PATCH, window_size=2 * PATCH,
-                                    device="cpu")
+    resized = SlideRegistrar.from_gridnet(g, patch_size=PATCH, window_size=2 * PATCH,
+                                          device="cpu")
+    assert (resized.window_size, resized.patch_size) == (2 * PATCH, PATCH)
+    # the resize's weight matrices are built once, with the registrar
+    assert [tuple(m.shape) for m in resized._resize] == [(2 * PATCH, PATCH)] * 2
     reg = SlideRegistrar.from_gridnet(g, patch_size=PATCH, device="cpu")
+    assert reg.window_size == PATCH and reg._resize is None
     pos = read_positions(sims[0]["spaceranger_dir"])
     with pytest.raises(ValueError, match="uint8"):
         reg(wsis[0].astype(np.float32), pos)
@@ -181,10 +186,34 @@ def test_image_registrar_from_meta_matches_jax(model_dir, sims, wsis):
     label_parity_report(want, got, jax_logits)
 
 
-def test_image_registrar_from_meta_unported_models(model_dir):
+@pytest.mark.parametrize("window", [40, 24])
+def test_image_registrar_from_meta_resized_window_matches_jax(model_dir, sims, wsis,
+                                                               window):
+    """``window_px`` != ``patch_px``: crops resized (cubic, antialiased when
+    downsampling) as the JAX registrar resizes them."""
     meta, classes, variables = load_model_dir(model_dir)
-    with pytest.raises(NotImplementedError, match="DenseNet"):
-        modeldir.image_registrar_from_meta(dict(meta, model="GridNetHex+DenseNet121"),
+    meta = dict(meta, window_px=window)
+    jax_reg = jax_modeldir.image_registrar_from_meta(meta, classes, variables)
+    port_reg = modeldir.image_registrar_from_meta(meta, classes, variables,
+                                                  device="cpu")
+    assert port_reg.window_size == window
+    jpos = jax_read_positions(sims[0]["spaceranger_dir"])
+    pos = read_positions(sims[0]["spaceranger_dir"])
+    jax_logits, jax_fg = jax_reg.register_logits(jnp.asarray(wsis[0]), jpos)
+    logits, fg = port_reg.register_logits(wsis[0], pos)
+    np.testing.assert_array_equal(fg, jax_fg)
+    # a pixel may round the other way at .5 (within 1 on uint8); f32 otherwise
+    np.testing.assert_allclose(logits, jax_logits, atol=1e-3, rtol=0)
+    got = port_reg(wsis[0], pos)
+    label_parity_report(jax_reg(jnp.asarray(wsis[0]), jpos), got, jax_logits)
+
+
+def test_image_registrar_from_meta_unported_models(model_dir):
+    """Square lattices are not ported yet; a model that is no image model
+    is refused. (DenseNet-121 directories serve: test_torch_densenet.py.)"""
+    meta, classes, variables = load_model_dir(model_dir)
+    with pytest.raises(ValueError, match="not an image model"):
+        modeldir.image_registrar_from_meta(dict(meta, model="GridNetHex+CountMLP"),
                                            classes, variables, device="cpu")
     with pytest.raises(NotImplementedError, match="grid_dims"):
         modeldir.image_registrar_from_meta(dict(meta, grid_dims=[10, 10]),
