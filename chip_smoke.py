@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card::
 
-    python3 chip_smoke.py     # ~2 minutes, builds the kernels itself
+    python3 chip_smoke.py     # a few minutes, builds the kernels itself
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -54,8 +54,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version on the registrar's corners; the resize on the card within
    1 of a float64 product; logits within 1e-3 of, and labels equal (up to
    near-ties) to, the plain-version registrar on the same f;
-8. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. the FAVOR kernel at scBERT's shape (B 8, H 10, N 16,907, d 64, m 266)
+   and at a ragged N with m = 37, inputs from a numpy seed and an
+   orthogonal Gaussian projection, within rtol 2e-4 / atol 2e-5 of its plain
+   version; timed at scBERT's shape as phases 2-3 time theirs, beside its
+   FLOP bound;
+9. one multimodal request at full width: a ``GridNetHexMM`` model
+   directory (scBERT over the 16,906 gene2vec genes at its checkpoint
+   widths, count_chunk 8, and DenseNet-121, f32) with random weights from
+   a numpy seed through the weight bridge (orthogonal Gaussian FAVOR
+   projections) registers slide 0: its image grid (``/255`` crops at the
+   spots, zeros elsewhere) and a sparse Poisson count grid over the
+   gene2vec genes go through ``modeldir.scbert_transform`` and
+   ``serving.register_mm_grid``, the FAVOR count set to 0 just before and
+   required to be 3,744 just after (624 count chunks x 6 layers); the
+   foreground must equal the mask, the labels the plain-version route's
+   (the same model with FastAttention through the kernel's plain version)
+   up to near-ties, and the count f's logits on three chunks must lie
+   within 1e-3 of the plain route's; then ms/slide, spots/s and a
+   torch.profiler table of one count chunk;
+10. a ``{"kernels": [...]}`` line, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
 port, torch and numpy.
@@ -63,6 +82,7 @@ port, torch and numpy.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -90,6 +110,13 @@ WINDOW = 160                  # crop window of the resize phase
 # DenseNet-121's dense blocks at 128-px patches: (side, c_in0, layers)
 DENSE_BLOCKS = ((32, 64, 6), (16, 128, 12), (8, 256, 24), (4, 512, 16))
 GROWTH = 32
+# scBERT at its checkpoint widths as train-mm builds it (generalized ReLU
+# attention, m = 266 features), over the 16,906 gene2vec genes
+MM_VOCAB = 16906
+MM_DIM, MM_DEPTH, MM_HEADS, MM_DIM_HEAD = 200, 6, 10, 64
+COUNT_CHUNK = 8               # train-mm's count_chunk for an scBERT count f
+COUNT_RATE = 0.05             # Poisson mean per gene of the count grid (~845 a spot)
+FAVOR_RTOL, FAVOR_ATOL = 2e-4, 2e-5   # tests/test_favor_pallas.py's tolerance
 # Label near-tie budget of the bf16 fused f against the f32 module: a flip
 # is tolerated where the f32 route's top-2 corrector logits are within 5 %
 # (the CPU tests' budget for the fused f against JAX's)
@@ -131,16 +158,21 @@ KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
                   "fused_hex_corrector_labels": ("hex_layer_kernel",
                                                  "hex_labels_kernel"),
                   "fused_dense_block": ("dense_bottleneck_kernel",
-                                        "dense_conv3x3_kernel")}
+                                        "dense_conv3x3_kernel"),
+                  "fused_generalized_linear_attention": (
+                      "favor_accum_kernel", "favor_reduce_kernel", "favor_apply_kernel")}
 
 
 def traced_kernels(prof, symbols, calls: int) -> dict:
     """{symbol: (launches per call, device ms per call)} of the CUDA kernels
-    named ``symbols`` in a torch.profiler trace of ``calls`` calls."""
+    named ``symbols`` (plain or templated) in a torch.profiler trace of
+    ``calls`` calls. A long trace may drop a kernel event, so a call's time
+    is the mean time of a launch times the launches per call (the traced
+    count over ``calls``, rounded)."""
     found = {}
     for evt in prof.key_averages():
         for sym in symbols:
-            if f"{sym}(" in evt.key:
+            if f"{sym}(" in evt.key or f"{sym}<" in evt.key:
                 us = getattr(evt, "self_device_time_total", None)
                 if us is None:
                     us = evt.self_cuda_time_total
@@ -151,7 +183,8 @@ def traced_kernels(prof, symbols, calls: int) -> dict:
         names = [e.key[:60] for e in prof.key_averages()][:30]
         raise AssertionError(f"no device time for {missing} in the trace; "
                              f"events: {names}")
-    return {s: (n / calls, us / 1e3 / calls) for s, (n, us) in found.items()}
+    per_call = {s: max(1, round(n / calls)) for s, (n, _) in found.items()}
+    return {s: (per_call[s], us / n / 1e3 * per_call[s]) for s, (n, us) in found.items()}
 
 
 def device_ms(torch, fn, iters: int, symbols) -> dict:
@@ -328,13 +361,23 @@ def write_spaceranger_dir(root, geometry, frac: float, idx: int):
     return sr_dir, in_tissue.reshape(geometry.VISIUM_H_ST, geometry.VISIUM_W_ST)
 
 
-def random_variables(models, from_jax, f=None, seed=SEED + 2):
-    """A variables tree in the JAX package's layout for a GridNetHex with the
-    BatchNorm corrector and f (default: the default-width
-    TpuPatchClassifier), filled from a numpy seed (what a JAX model
-    directory's checkpoint holds)."""
-    f = f if f is not None else models.TpuPatchClassifier(n_classes=N_CLASSES)
-    model = models.GridNetHex(f, n_classes=N_CLASSES, f_dim=N_CLASSES, use_bn=True)
+def random_variables(models, from_jax, f=None, seed=SEED + 2, model=None):
+    """A variables tree in the JAX package's layout, filled from a numpy
+    seed (what a JAX model directory's checkpoint holds), for ``model``
+    (default: a GridNetHex with the BatchNorm corrector and f, by default
+    the default-width TpuPatchClassifier). FAVOR projections are orthogonal
+    Gaussian matrices, as a checkpoint's ``favor`` collection holds. Token
+    embeddings are unit normals (torch's ``nn.Embedding`` init): at 0.1
+    scale the linear attention's near-global average swamps the tokens,
+    every position of scBERT's last LayerNorm is the same vector and its
+    classifier outputs constant logits, blind to the attention."""
+    import torch
+
+    from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
+
+    if model is None:
+        f = f if f is not None else models.TpuPatchClassifier(n_classes=N_CLASSES)
+        model = models.GridNetHex(f, n_classes=N_CLASSES, f_dim=N_CLASSES, use_bn=True)
     rng = np.random.default_rng(seed)
 
     def fill(tree):
@@ -342,6 +385,11 @@ def random_variables(models, from_jax, f=None, seed=SEED + 2):
         for key, val in tree.items():
             if isinstance(val, dict):
                 out[key] = fill(val)
+            elif key == "projection":
+                gen = torch.Generator().manual_seed(int(rng.integers(2 ** 31)))
+                out[key] = orthogonal_gaussian_matrix(*val.shape, generator=gen).numpy()
+            elif key == "embedding":
+                out[key] = rng.normal(size=val.shape).astype(np.float32)
             elif key == "kernel":
                 fan_in = int(np.prod(val.shape[:-1]))
                 out[key] = (rng.normal(size=val.shape) / np.sqrt(fan_in)).astype(np.float32)
@@ -804,6 +852,227 @@ def phase_resize(torch, slides, positions, masks, port, meta, variables):
         f"registrar: logits max abs err {logit_err:.3g}, {flips} near-tie flips")
 
 
+def phase_favor(torch, favor_cuda, dev):
+    """The FAVOR kernel against its plain version at scBERT's shape and at a
+    ragged N with m not a multiple of 32; timed at scBERT's shape."""
+    from gridnext_tpu_torch.models.performer import default_nb_features
+    from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
+
+    log("== phase 8: FAVOR kernel (TF32 off)")
+    name = "fused_generalized_linear_attention"
+    m_full = default_nb_features(MM_DIM_HEAD)
+    rng = np.random.default_rng(SEED + 5)
+    res = None
+    for b, h, n, d, m in ((COUNT_CHUNK, MM_HEADS, MM_VOCAB + 1, MM_DIM_HEAD, m_full),
+                          (3, 7, 1000, MM_DIM_HEAD, 37)):
+        q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d), dtype=np.float32),
+                                   device=dev) for _ in range(3))
+        proj = orthogonal_gaussian_matrix(
+            m, d, generator=torch.Generator().manual_seed(SEED + m)).to(dev)
+
+        def kernel():
+            return favor_cuda.fused_generalized_linear_attention(q, k, v, proj)
+
+        def plain():
+            return favor_cuda.favor_attention_plain(q, k, v, proj)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max().item())
+        worst = float((diff / (FAVOR_ATOL + FAVOR_RTOL * want.abs())).max().item())
+        if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+            raise AssertionError(f"FAVOR kernel at {(b, h, n, d, m)} differs from plain: "
+                                 f"max abs {err}, {worst:.3g} x the tolerance")
+        log(f"favor B={b} H={h} N={n} d={d} m={m}: max abs err {err:.3g}, worst "
+            f"|diff| / (atol + rtol |plain|) {worst:.3g} (rtol {FAVOR_RTOL}, atol "
+            f"{FAVOR_ATOL})")
+        del got, want, diff
+        if res is None:        # scBERT's shape: the kernels line's numbers
+            ms, host_ms = cuda_ms(torch, kernel, iters=20)
+            dev_ms, parts = kernel_line(device_ms(torch, kernel, 10, KERNEL_SYMBOLS[name]))
+            plain_ms, _ = cuda_ms(torch, plain, iters=5, warmup=1)
+            flops = 4 * 2 * b * h * n * d * m + 2 * b * h * n * m
+            nbytes = 4 * (4 * b * h * n * d + m * d)
+            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            res = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            log(f"favor B={b} H={h} N={n} d={d} m={m}: kernel {ms:.4f} ms per call "
+                f"(events; host issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} "
+                f"ms ({parts}), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+                f"({flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e9:.3f} GB -> "
+                f"{t_bytes:.4f} ms)")
+        del q, k, v
+    return res
+
+
+@contextlib.contextmanager
+def plain_favor(performer, favor_cuda):
+    """FastAttention through the FAVOR kernel's plain version, for the
+    plain-version route of phase 9."""
+    kernel = performer.fused_generalized_linear_attention
+    performer.fused_generalized_linear_attention = favor_cuda.favor_attention_plain
+    try:
+        yield
+    finally:
+        performer.fused_generalized_linear_attention = kernel
+
+
+def device_total_ms(prof) -> float:
+    """Device time of every CUDA kernel in a torch.profiler trace, ms (the
+    ``ProfilerStep*`` rows of a scheduled trace span the steps' kernels and
+    are left out)."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and not evt.key.startswith("ProfilerStep"):
+            us = getattr(evt, "self_device_time_total", None)
+            total += evt.self_cuda_time_total if us is None else us
+    return total / 1e3
+
+
+def phase_mm(torch, slides, positions, masks, port, card):
+    """One multimodal request at full width: an scBERT + DenseNet-121 model
+    directory registers slide 0. Returns the FAVOR kernel's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridnext_tpu_torch.models import performer
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log(f"== phase 9: multimodal registration at full width: scBERT over {MM_VOCAB} "
+        f"genes (dim {MM_DIM}, depth {MM_DEPTH}, heads {MM_HEADS}, dim_head "
+        f"{MM_DIM_HEAD}, count_chunk {COUNT_CHUNK}) + DenseNet-121, f32, TF32 off")
+    dev = slides.device
+    h_st, w_st = geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    meta = {"model": "GridNetHexMM", "classes": classes, "patch_px": PATCH,
+            "window_px": None, "patch_chunk": CHUNK, "count_chunk": COUNT_CHUNK,
+            "log1p": False, "count_f": "scbert", "scbert_vocab": MM_VOCAB,
+            "scbert_dim": MM_DIM, "scbert_depth": MM_DEPTH, "scbert_heads": MM_HEADS,
+            "scbert_dim_head": MM_DIM_HEAD, "scbert_features": None, "hd_binning": None,
+            "grid_dims": None, "image_f": "densenet", "dense_ingest": False}
+    template = models.GridNetHexMM(
+        models.densenet121(num_classes=N_CLASSES),
+        models.scBERT(n_genes=MM_VOCAB, dim=MM_DIM, depth=MM_DEPTH, heads=MM_HEADS,
+                      dim_head=MM_DIM_HEAD, n_classes=N_CLASSES,
+                      generalized_attention=True), N_CLASSES)
+    variables = random_variables(models, from_jax, seed=SEED + 6, model=template)
+    del template
+    model = modeldir.mm_model_from_meta(meta, classes, variables, device=dev)
+
+    # the request: slide 0's image grid (/255 crops at its spots, zeros
+    # elsewhere) and a raw count grid over the gene2vec genes
+    mask = masks[0] > 0
+    oy, ox, y_px, x_px = serving.spot_pixel_arrays(positions[0])
+    oy_t, ox_t = torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)
+    crops = gather.gather_patches_plain(
+        slides[0], torch.as_tensor(y_px - PATCH // 2, device=dev),
+        torch.as_tensor(x_px - PATCH // 2, device=dev), PATCH)
+    x_image = torch.zeros((h_st, w_st, PATCH, PATCH, 3), device=dev)
+    x_image[oy_t, ox_t] = crops.float() / 255.0
+    del crops
+    genes = load_gene2vec_names()[:MM_VOCAB]
+    raw = np.zeros((h_st, w_st, len(genes)), np.float32)
+    raw[mask] = np.random.default_rng(SEED + 7).poisson(COUNT_RATE,
+                                                        (int(mask.sum()), len(genes)))
+    transform = modeldir.scbert_transform(genes, MM_VOCAB)
+    t0 = time.perf_counter()
+    x_count = transform(raw)
+    t_transform = time.perf_counter() - t0
+
+    # the kernel route: the entry point, its FAVOR launches counted
+    favor_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = serving.register_mm_grid(model, x_image, raw, transform, device=dev)
+    t_kernel = time.perf_counter() - t0
+    launches = favor_cuda.launches
+    want_launches = -(-h_st * w_st // COUNT_CHUNK) * MM_DEPTH
+    log(f"multimodal register_mm_grid: {launches} FAVOR launches "
+        f"({want_launches} expected: {h_st * w_st} cells / {COUNT_CHUNK} x {MM_DEPTH} "
+        f"layers)")
+    if launches != want_launches:
+        raise AssertionError(f"FAVOR launched {launches} times, not {want_launches}")
+    if labels.shape != (h_st, w_st) or not np.array_equal(labels > 0, mask):
+        raise AssertionError("multimodal: foreground differs from the tissue mask")
+    if labels.max() > N_CLASSES:
+        raise AssertionError(f"multimodal: label {labels.max()} out of range")
+
+    # the plain-version route: the same model, FastAttention through the
+    # FAVOR kernel's plain version
+    xc = torch.as_tensor(x_count, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_favor(performer, favor_cuda), torch.no_grad():
+        plain_logits = model((x_image[None], xc[None]))[0].cpu().numpy()
+    t_plain = time.perf_counter() - t0
+    if favor_cuda.launches != launches:
+        raise AssertionError("the plain-version route launched the FAVOR kernel")
+    if not np.isfinite(plain_logits).all():
+        raise AssertionError("multimodal: non-finite plain-route logits")
+    flips = serving.label_parity_report(
+        np.where(mask, plain_logits.argmax(-1) + 1, 0), labels, plain_logits)
+
+    # the count f's logits on three 8-cell chunks of the tissue
+    cells = xc[oy_t, ox_t]
+    count_err, count_scale, wants = 0.0, 0.0, []
+    with torch.no_grad():
+        for start in (0, len(oy) // 2, len(oy) - COUNT_CHUNK):
+            chunk = cells[start:start + COUNT_CHUNK]
+            before = favor_cuda.launches
+            got = model.count_classifier(chunk)
+            with plain_favor(performer, favor_cuda):
+                want = model.count_classifier(chunk)
+            if favor_cuda.launches != before + MM_DEPTH:
+                raise AssertionError("the count chunks did not take one route each")
+            count_err = max(count_err, float((got - want).abs().max().item()))
+            count_scale = max(count_scale, float(want.abs().max().item()))
+            wants.append(want)
+    if not count_err <= 1e-3:
+        raise AssertionError(f"count f logits differ from the plain route by {count_err}")
+    wants = torch.cat(wants)
+    spread = float((wants.amax(0) - wants.amin(0)).max().item())
+    if not spread > 1e-2:
+        raise AssertionError(f"the count f gives every cell the same logits (spread "
+                             f"{spread}): the comparison would not see the attention")
+    n_spots = int(mask.sum())
+    hist = np.bincount(labels[mask], minlength=N_CLASSES + 1)[1:].tolist()
+    log(f"multimodal vs the plain-version route: labels equal up to {flips} near-tie "
+        f"flips of {n_spots} spots (spots per class {hist}); count-f logits on 3 "
+        f"chunks max abs err {count_err:.3g} (<= 1e-3; largest logit {count_scale:.3g}, "
+        f"spread across the {len(wants)} cells {spread:.3g})")
+    log(f"multimodal registration of slide 0 ({n_spots} spots, {h_st * w_st} cells through "
+        f"each f), one request: register_mm_grid {t_kernel * 1e3:.2f} ms/slide, "
+        f"{n_spots / t_kernel:.1f} spots/s (host count transform {t_transform * 1e3:.2f} ms "
+        f"of it); plain-version route's forward {t_plain * 1e3:.2f} ms/slide [{card}]")
+
+    # where the device time of a count chunk goes: two chunks traced after an
+    # untraced warm-up step (a trace can lose its first kernel events)
+    chunk = cells[:COUNT_CHUNK]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                  schedule=schedule) as prof:
+        for _ in range(3):
+            model.count_classifier(chunk)
+            torch.cuda.synchronize()
+            prof.step()
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+    total = device_total_ms(prof) / 2
+    traced = traced_kernels(prof, KERNEL_SYMBOLS["fused_generalized_linear_attention"], 2)
+    fav_ms, parts = kernel_line(traced)
+    log(f"count-chunk trace ({COUNT_CHUNK} cells, mean of 2 chunks): device {total:.4f} ms, "
+        f"FAVOR kernels {fav_ms:.4f} ms ({fav_ms / total * 100:.1f} %; {parts})")
+    if any(n != MM_DEPTH for n, _ in traced.values()):
+        raise AssertionError(f"the count-chunk trace holds {traced}, not {MM_DEPTH} "
+                             f"launches of each FAVOR kernel per chunk")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -814,6 +1083,7 @@ def main() -> int:
     from gridnext_tpu_torch.compat import from_jax
     from gridnext_tpu_torch.ops import _cuda
     from gridnext_tpu_torch.ops import denseblock_cuda as dense
+    from gridnext_tpu_torch.ops import favor_cuda
     from gridnext_tpu_torch.ops import hexcorrector_cuda as corr
     from gridnext_tpu_torch.ops import patch_gather_cuda as gather
 
@@ -860,6 +1130,10 @@ def main() -> int:
                                           port + (dense,), dn_vars, card)
     launches["fused_dense_block"] = dn_launches["fused_dense_block"]
     phase_resize(torch, slides, positions, masks, port, dn_meta, dn_vars)
+    del dn_vars
+    res["fused_generalized_linear_attention"] = phase_favor(torch, favor_cuda, dev)
+    launches["fused_generalized_linear_attention"] = phase_mm(
+        torch, slides, positions, masks, port, card)
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -870,6 +1144,8 @@ def main() -> int:
                                        "gridnext_tpu/ops/hexcorrector_pallas.py:197"),
         "fused_dense_block": ("gridnext_tpu_torch/csrc/denseblock.cu",
                               "gridnext_tpu/ops/denseblock_pallas.py:116"),
+        "fused_generalized_linear_attention": ("gridnext_tpu_torch/csrc/favor.cu",
+                                               "gridnext_tpu/ops/favor_pallas.py:110"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
@@ -877,7 +1153,8 @@ def main() -> int:
                 "host_ms": res[name]["host_ms"], "plain_ms": res[name]["plain_ms"],
                 "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
                 # no single PyTorch call computes any of these functions (the
-                # dense block's cuDNN sequence is a yardstick of many calls)
+                # dense block's cuDNN sequence is a yardstick of many calls;
+                # FAVOR is not the softmax attention of a fused attention call)
                 "library_ms": None}
                for name, (src, rep) in meta.items()]
     print(card)

@@ -31,6 +31,20 @@
   ``classifier`` unless ``classify=False``. The convs have no bias. These
   are the names ``compat/torch_convert.densenet_from_torch`` of the JAX
   package gives the reference's torch checkpoints.
+* :func:`load_performer` does the same for scBERT and its parts
+  (``FastAttention``, ``SelfAttention``, ``Performer``, ``PerformerLM``,
+  ``AttentionClassifier``): ``params`` hold ``performer_lm/token_emb``
+  (``embedding``), ``performer_lm/performer/layers_{i}_attn`` (``to_q``,
+  ``to_k``, ``to_v``, ``to_out`` Dense layers), ``layers_{i}_ff`` (``w1``,
+  ``w2``), the pre-norms ``wrap_{i}_attn_norm`` / ``wrap_{i}_ff_norm``,
+  ``performer_lm/norm``, and the classifier at scBERT's root ``to_out``
+  (``conv1``, ``fc1``-``fc3``); the ``favor`` collection holds each
+  layer's ``fast_attention/projection``, which fills the module's
+  ``projection`` buffer.
+* :func:`load_gridnet_hex_mm` copies a ``GridNetHexMM`` tree: the count f
+  under ``params``/``favor`` ``count_classifier``, the image f under
+  ``params``/``batch_stats`` ``image_classifier``, the corrector as in
+  ``GridNetHex``.
 """
 
 from __future__ import annotations
@@ -42,6 +56,10 @@ import numpy as np
 import torch
 
 from gridnext_tpu_torch.models.densenet import DenseNet
+from gridnext_tpu_torch.models.gridnet import GridNetHexMM
+from gridnext_tpu_torch.models.performer import (FastAttention, Performer, PerformerLM,
+                                                 SelfAttention)
+from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
 from gridnext_tpu_torch.models.tpu_f import ChannelNorm, TpuPatchClassifier
 
 _NORM_NAMES = {"rms": "RMSNorm", "layer": "LayerNorm"}
@@ -174,11 +192,102 @@ def _f_entries(f, params, stats):
                               f"DenseNet, not {type(f).__name__}")
 
 
+def _dense_entries(linear, path):
+    yield path + ("kernel",), linear.weight, "dense"
+    if linear.bias is not None:
+        yield path + ("bias",), linear.bias, "same"
+
+
+def _layer_norm_entries(norm, path):
+    yield path + ("scale",), norm.weight, "same"
+    yield path + ("bias",), norm.bias, "same"
+
+
+def _fast_attention_entries(fa: FastAttention, favor):
+    if not fa.no_projection:
+        yield favor + ("projection",), fa.projection, "same"
+
+
+def _self_attention_entries(attn: SelfAttention, params, favor):
+    for name in ("to_q", "to_k", "to_v", "to_out"):
+        yield from _dense_entries(getattr(attn, name), params + (name,))
+    yield from _fast_attention_entries(attn.fast_attention, favor + ("fast_attention",))
+
+
+def _performer_entries(perf: Performer, params, favor):
+    for i, (attn_norm, attn, ff_norm, ff) in enumerate(zip(
+            perf.attn_norms, perf.attns, perf.ff_norms, perf.ffs)):
+        yield from _layer_norm_entries(attn_norm, params + (f"wrap_{i}_attn_norm",))
+        yield from _self_attention_entries(attn, params + (f"layers_{i}_attn",),
+                                           favor + (f"layers_{i}_attn",))
+        yield from _layer_norm_entries(ff_norm, params + (f"wrap_{i}_ff_norm",))
+        yield from _dense_entries(ff.w1, params + (f"layers_{i}_ff", "w1"))
+        yield from _dense_entries(ff.w2, params + (f"layers_{i}_ff", "w2"))
+
+
+def _attention_classifier_entries(head: AttentionClassifier, params):
+    for name in ("conv1", "fc1", "fc2", "fc3"):
+        yield from _dense_entries(getattr(head, name), params + (name,))
+
+
+def _performer_lm_entries(lm: PerformerLM, params, favor):
+    """A PerformerLM's own weights; a ``head_module``'s live elsewhere (at
+    scBERT's root)."""
+    yield params + ("token_emb", "embedding"), lm.token_emb.weight, "same"
+    yield from _performer_entries(lm.performer, params + ("performer",),
+                                  favor + ("performer",))
+    yield from _layer_norm_entries(lm.norm, params + ("norm",))
+    if lm.head_module is None:
+        yield from _dense_entries(lm.to_out, params + ("to_out",))
+
+
+def _scbert_entries(f: scBERT, params, favor):
+    lm = f.performer_lm
+    yield from _performer_lm_entries(lm, params + ("performer_lm",),
+                                     favor + ("performer_lm",))
+    if lm.head_module is not None:
+        yield from _attention_classifier_entries(lm.head_module, params + ("to_out",))
+
+
+_PERFORMER_FAMILY = (
+    (scBERT, _scbert_entries),
+    (PerformerLM, _performer_lm_entries),
+    (Performer, _performer_entries),
+    (SelfAttention, _self_attention_entries),
+    (FastAttention, lambda m, params, favor: _fast_attention_entries(m, favor)),
+    (AttentionClassifier, lambda m, params, favor: _attention_classifier_entries(m, params)),
+)
+
+
+def _performer_family_entries(module, params=("params",), favor=("favor",)):
+    for cls, entries in _PERFORMER_FAMILY:
+        if isinstance(module, cls):
+            return entries(module, params, favor)
+    raise NotImplementedError(f"the weight bridge maps scBERT and its parts, not "
+                              f"{type(module).__name__}")
+
+
 def _gridnet_hex_entries(model):
     yield from _f_entries(model.patch_classifier, ("params", "patch_classifier"),
                           ("batch_stats", "patch_classifier"))
     for collection, layer, leaf, tensor in model.corrector.jax_entries():
         yield (collection, "corrector", layer, leaf), tensor, "same"
+
+
+def _gridnet_hex_mm_entries(model: GridNetHexMM):
+    yield from _performer_family_entries(model.count_classifier,
+                                         ("params", "count_classifier"),
+                                         ("favor", "count_classifier"))
+    yield from _f_entries(model.image_classifier, ("params", "image_classifier"),
+                          ("batch_stats", "image_classifier"))
+    for collection, layer, leaf, tensor in model.corrector.jax_entries():
+        yield (collection, "corrector", layer, leaf), tensor, "same"
+
+
+def _model_entries(model):
+    if isinstance(model, GridNetHexMM):
+        return _gridnet_hex_mm_entries(model)
+    return _gridnet_hex_entries(model)
 
 
 def _to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
@@ -258,12 +367,34 @@ def load_gridnet_hex(model, variables: dict):
     return model
 
 
+def load_performer(module, variables: dict):
+    """Copy a flax scBERT (or ``PerformerLM``, ``Performer``,
+    ``SelfAttention``, ``FastAttention``, ``AttentionClassifier``)
+    variables tree (``params`` and, with projections, ``favor``) into
+    ``module`` (in place) and return it."""
+    _load(_performer_family_entries(module), variables, [("params",), ("favor",)])
+    return module
+
+
+def load_gridnet_hex_mm(model: GridNetHexMM, variables: dict) -> GridNetHexMM:
+    """Copy a JAX ``GridNetHexMM`` variables tree (an scBERT count f, a
+    ``TpuPatchClassifier`` or ``DenseNet`` image f, the hex corrector) into
+    ``model`` (in place) and return it. Every leaf under the model's roots
+    must be used."""
+    roots = [("params", "count_classifier"), ("params", "image_classifier"),
+             ("params", "corrector"), ("batch_stats", "image_classifier"),
+             ("batch_stats", "corrector"), ("favor", "count_classifier")]
+    _load(_gridnet_hex_mm_entries(model), variables, roots)
+    return model
+
+
 def jax_variables(model) -> dict:
     """The variables tree in the JAX package's layout that
-    :func:`load_gridnet_hex` reads back into ``model`` (nested dicts of
+    :func:`load_gridnet_hex` (or, for a ``GridNetHexMM``,
+    :func:`load_gridnet_hex_mm`) reads back into ``model`` (nested dicts of
     numpy arrays). Its shapes are those a JAX checkpoint must have."""
     tree: dict = {}
-    for path, tensor, layout in _gridnet_hex_entries(model):
+    for path, tensor, layout in _model_entries(model):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -1,14 +1,22 @@
-"""Trained-model directories: model.json metadata -> a live registrar.
+"""Trained-model directories: model.json metadata -> a live model.
 
-A model directory written by the JAX package's ``train-image`` command
-(``model.json`` beside ``g_state.msgpack``) serves here unchanged: read it
-with :func:`gridnext_tpu_torch.compat.from_jax.load_model_dir` and build the
-registrar with :func:`image_registrar_from_meta`.
+A model directory written by the JAX package's ``train-image`` or
+``train-mm`` command (``model.json`` beside ``g_state.msgpack``) serves
+here unchanged: read it with
+:func:`gridnext_tpu_torch.compat.from_jax.load_model_dir`, then build the
+image registrar with :func:`image_registrar_from_meta` or the multimodal
+model with :func:`mm_model_from_meta` (registered by
+:func:`gridnext_tpu_torch.serving.register_mm_grid`, its counts mapped into
+scBERT's gene space by :func:`scbert_transform`).
 """
 
 from __future__ import annotations
 
-from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex
+from typing import Callable, Sequence
+
+import numpy as np
+
+from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex, load_gridnet_hex_mm
 
 
 def image_registrar_from_meta(meta, classes, variables, device="cuda"):
@@ -38,10 +46,80 @@ def image_registrar_from_meta(meta, classes, variables, device="cuda"):
     if meta.get("grid_dims") is not None:
         raise NotImplementedError("square-lattice (grid_dims) image models are "
                                   "a later slice of the port")
-    use_bn = "batch_stats" in variables and "corrector" in variables["batch_stats"]
-    g = load_gridnet_hex(GridNetHex(f, n_classes=n, f_dim=n, use_bn=use_bn),
-                         variables)
+    g = load_gridnet_hex(GridNetHex(f, n_classes=n, f_dim=n,
+                                    use_bn=_has_bn_corrector(variables)), variables)
     return SlideRegistrar.from_gridnet(
         g, patch_size=meta.get("patch_px", 128),
         window_size=meta.get("window_px"),
         patch_chunk=meta.get("patch_chunk", 624), normalize=None, device=device)
+
+
+def _has_bn_corrector(variables) -> bool:
+    return "batch_stats" in variables and "corrector" in variables["batch_stats"]
+
+
+def mm_model_from_meta(meta, classes, variables, device="cuda"):
+    """The ``GridNetHexMM`` of a trained multimodal model directory, with
+    its weights loaded, in eval mode on ``device``.
+
+    Ported: the Visium hex lattice with an scBERT count f (generalized ReLU
+    attention, as ``train-mm`` builds it) and a ``TpuPatchClassifier``
+    (``image_f: "tpu"``) or DenseNet-121 image f, chunked as in training
+    (``patch_chunk``, ``count_chunk``). The ``CountMLP`` count f and the
+    square lattice (``grid_dims``, ``GridNetMM``) raise
+    ``NotImplementedError`` until their slices (``ROADMAP.md`` Queue 1
+    items 9 and 11).
+    """
+    from gridnext_tpu_torch.models import (GridNetHexMM, TpuPatchClassifier,
+                                           densenet121, scBERT, tpu_f_arch_kwargs)
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(device)
+    if meta.get("model") == "GridNetMM" or meta.get("grid_dims") is not None:
+        raise NotImplementedError("square-lattice (grid_dims) multimodal models are a "
+                                  "later slice of the port (ROADMAP.md Queue 1 item 11)")
+    if meta.get("count_f") != "scbert":
+        raise NotImplementedError(f"count_f={meta.get('count_f')!r}: the CountMLP count "
+                                  "f is a later slice of the port (ROADMAP.md Queue 1 "
+                                  "item 9)")
+    n = len(classes)
+    f_count = scBERT(n_genes=meta["scbert_vocab"], dim=meta["scbert_dim"],
+                     depth=meta["scbert_depth"], heads=meta["scbert_heads"],
+                     dim_head=meta.get("scbert_dim_head", 64),
+                     nb_features=meta.get("scbert_features"), n_classes=n,
+                     generalized_attention=True)
+    if meta.get("image_f") == "tpu":
+        f_image = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
+    else:
+        f_image = densenet121(num_classes=n)
+    g = GridNetHexMM(f_image, f_count, n_classes=n, use_bn=_has_bn_corrector(variables),
+                     patch_chunk=meta.get("patch_chunk", 624),
+                     count_chunk=meta.get("count_chunk"))
+    return load_gridnet_hex_mm(g, variables).to(device).eval()
+
+
+def scbert_transform(symbols: Sequence[str], vocab: int) -> Callable:
+    """Count preprocessing into scBERT's gene space.
+
+    ``symbols`` name the cohort's genes (the count grids' last axis);
+    ``vocab`` is the model's ``scbert_vocab`` (the first ``vocab`` gene2vec
+    names). The returned transform maps any ``(..., n_cohort_genes)`` raw
+    count array to ``(..., vocab)`` float32: reindexed into gene2vec order,
+    depth-normalized to 1e4 and ``log2(1 + x)``. Raises ``ValueError`` when
+    no cohort gene is in the vocabulary.
+    """
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names, preprocess_scbert
+
+    symbols = [str(s) for s in symbols]
+    target = load_gene2vec_names()[:vocab]
+    if not set(symbols) & set(target):
+        raise ValueError("no cohort gene symbols found in the gene2vec vocabulary: "
+                         "scBERT inputs would be all zeros")
+
+    def transform(x):
+        x = np.asarray(x, np.float32)
+        out, _ = preprocess_scbert(x.reshape(-1, x.shape[-1]), symbols,
+                                   target_genes=target)
+        return out.reshape(x.shape[:-1] + (len(target),))
+
+    return transform

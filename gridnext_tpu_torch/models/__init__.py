@@ -1,9 +1,15 @@
-"""Models of the port: the spot classifier f and the GridNet composition."""
+"""Models of the port: the spot classifiers f and the GridNet compositions."""
 
 from gridnext_tpu_torch.models.densenet import DenseNet, densenet121
-from gridnext_tpu_torch.models.gridnet import GridNetHex, apply_f_chunked
+from gridnext_tpu_torch.models.gridnet import (GridNetHex, GridNetHexMM, GridNetMM,
+                                               apply_f_chunked)
 from gridnext_tpu_torch.models.layers import HexConv
+from gridnext_tpu_torch.models.performer import (FastAttention, FeedForward, Performer,
+                                                 PerformerLM, SelfAttention)
+from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
 from gridnext_tpu_torch.models.tpu_f import TpuPatchClassifier, tpu_f_arch_kwargs
 
-__all__ = ["DenseNet", "GridNetHex", "HexConv", "TpuPatchClassifier", "apply_f_chunked",
-           "densenet121", "tpu_f_arch_kwargs"]
+__all__ = ["AttentionClassifier", "DenseNet", "FastAttention", "FeedForward",
+           "GridNetHex", "GridNetHexMM", "GridNetMM", "HexConv", "Performer",
+           "PerformerLM", "SelfAttention", "TpuPatchClassifier", "apply_f_chunked",
+           "densenet121", "scBERT", "tpu_f_arch_kwargs"]

@@ -1,8 +1,10 @@
-"""GridNetHex: spot classifier f composed with the hex grid corrector g.
+"""GridNetHex and GridNetHexMM: spot classifiers f composed with the hex
+grid corrector g.
 
 Port of ``gridnext_tpu/models/gridnet.py`` (hex branch). Tensors are
-channels-last: image grids ``(B, H, W, P, P, 3)`` in, ``(B, H, W,
-n_classes)`` logits out.
+channels-last: image grids ``(B, H, W, P, P, 3)`` and count grids
+``(B, H, W, G)`` in, ``(B, H, W, n_classes)`` logits out. The
+square-lattice ``GridNet`` and ``GridNetMM`` are a later slice.
 """
 
 from __future__ import annotations
@@ -87,6 +89,19 @@ def apply_f_chunked(f: nn.Module, flat: torch.Tensor, chunk: Optional[int]) -> t
     return torch.cat([f(part) for part in torch.split(flat, chunk)])
 
 
+def apply_f_grid(f: nn.Module, x: torch.Tensor, chunk: Optional[int],
+                 f_dim: Optional[int] = None, what: str = "patch classifier"
+                 ) -> torch.Tensor:
+    """(B, H, W, *spot_shape) -> (B, H, W, f_dim): flatten, run f chunked
+    over every cell, re-grid; shared by the unimodal and MM models."""
+    b, h, w = x.shape[:3]
+    out = apply_f_chunked(f, x.reshape((b * h * w,) + tuple(x.shape[3:])), chunk)
+    if f_dim is not None and out.shape[-1] != f_dim:
+        raise ValueError(f"{what} produced {out.shape[-1]} features, but "
+                         f"f_dim={f_dim} was declared")
+    return out.reshape(b, h, w, out.shape[-1])
+
+
 class _GridNetBase(nn.Module):
     """Shared f-application machinery; subclasses define the corrector.
 
@@ -110,14 +125,7 @@ class _GridNetBase(nn.Module):
 
     def patch_predictions(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, *spot_shape) -> (B, H, W, f_dim) grid of f outputs."""
-        b, h, w = x.shape[:3]
-        out = apply_f_chunked(self.patch_classifier,
-                              x.reshape((b * h * w,) + tuple(x.shape[3:])),
-                              self.patch_chunk)
-        if self.f_dim is not None and out.shape[-1] != self.f_dim:
-            raise ValueError(f"patch classifier produced {out.shape[-1]} "
-                             f"features, but f_dim={self.f_dim} was declared")
-        return out.reshape(b, h, w, out.shape[-1])
+        return apply_f_grid(self.patch_classifier, x, self.patch_chunk, self.f_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.corrector(self.patch_predictions(x))
@@ -134,3 +142,60 @@ class GridNetHex(_GridNetBase):
                  use_bn: bool = True, patch_chunk: Optional[int] = None):
         super().__init__(patch_classifier, n_classes, f_dim, patch_chunk)
         self.corrector = _HexCorrector(f_dim, n_classes, use_bn)
+
+
+class GridNetHexMM(nn.Module):
+    """Multimodal GridNet: an f per modality, channel-concat fusion, the
+    hex corrector.
+
+    ``forward((x_image, x_count))`` with ``x_image`` ``(B, H, W, P, P, 3)``
+    and ``x_count`` ``(B, H, W, G)``. Each f runs over every cell of the
+    grid (the count f in chunks of ``count_chunk``, default
+    ``patch_chunk``); the outputs concatenate count first, then image, and
+    the corrector takes ``count_f_dim + image_f_dim`` channels (each
+    defaults to ``n_classes``). Both f stay in eval mode, as in
+    :class:`GridNetHex`.
+    """
+
+    def __init__(self, image_classifier: nn.Module, count_classifier: nn.Module,
+                 n_classes: int, image_f_dim: Optional[int] = None,
+                 count_f_dim: Optional[int] = None, use_bn: bool = True,
+                 patch_chunk: Optional[int] = None, count_chunk: Optional[int] = None):
+        super().__init__()
+        self.image_classifier = image_classifier.eval()
+        self.count_classifier = count_classifier.eval()
+        self.n_classes = n_classes
+        self.image_f_dim = n_classes if image_f_dim is None else image_f_dim
+        self.count_f_dim = n_classes if count_f_dim is None else count_f_dim
+        self.patch_chunk = patch_chunk
+        self.count_chunk = count_chunk
+        self.corrector = _HexCorrector(self.count_f_dim + self.image_f_dim, n_classes,
+                                       use_bn)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.image_classifier.eval()
+        self.count_classifier.eval()
+        return self
+
+    def patch_predictions(self, x) -> torch.Tensor:
+        """(x_image, x_count) -> (B, H, W, count_f_dim + image_f_dim)."""
+        x_image, x_count = x
+        cc = self.patch_chunk if self.count_chunk is None else self.count_chunk
+        count = apply_f_grid(self.count_classifier, x_count, cc, self.count_f_dim,
+                             "count classifier")
+        image = apply_f_grid(self.image_classifier, x_image, self.patch_chunk,
+                             self.image_f_dim, "image classifier")
+        return torch.cat([count, image], dim=-1)
+
+    def forward(self, x) -> torch.Tensor:
+        return self.corrector(self.patch_predictions(x))
+
+
+class GridNetMM:
+    """The square-lattice multimodal GridNet (Cartesian corrector): not
+    ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("the square-lattice GridNetMM is a later slice of "
+                                  "the port (ROADMAP.md Queue 1 item 11)")

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # C entry points of each library: name -> (argtypes, restype)
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ERROR_STRING = {"error_string": ([_I], ctypes.c_char_p)}
 SIGNATURES = {
     "patch_gather": {
@@ -53,6 +53,16 @@ SIGNATURES = {
         # u, stream
         "dense_block_bf16": ([_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
                               _I, _I, _I, _VP, _VP], _I),
+    },
+    "favor": {
+        **_ERROR_STRING,
+        # bh, splits, m, d
+        "favor_workspace_floats": ([_I, _I, _I, _I], _LL),
+        # q, q strides (b, h, n), k, k strides, v, v strides, batch, heads, n,
+        # d, proj, m, splits, scale, work, out, stream
+        "favor_attention_f32": ([_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _VP, _LL,
+                                 _LL, _LL, _I, _I, _I, _I, _VP, _I, _I, _F, _VP,
+                                 _VP, _VP], _I),
     },
 }
 

@@ -1,0 +1,91 @@
+"""FAVOR+ linear attention primitives (Performer), plain PyTorch.
+
+Port of ``gridnext_tpu/ops/favor.py``: softmax and generalized random
+features, Gaussian orthogonal projections and non-causal linear attention,
+all accumulated in float32. Shapes are ``(..., heads, seq, dim)``
+throughout. The ReLU-feature composition that the CUDA kernel fuses is
+:func:`gridnext_tpu_torch.ops.favor_cuda.favor_attention_plain`.
+
+Causal linear attention and the implicit attention weights wait for a
+later slice of the port (``ROADMAP.md`` Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+
+def orthogonal_gaussian_matrix(nb_rows: int, nb_columns: int, scaling: int = 0,
+                               generator: Optional[torch.Generator] = None
+                               ) -> torch.Tensor:
+    """Stacked orthogonal blocks of Gaussian directions (QR per block).
+
+    ``scaling=0``: rows rescaled to the chi-distributed norms of true
+    Gaussian rows; ``scaling=1``: every row scaled to ``sqrt(nb_columns)``.
+    Draws from ``generator`` (default: torch's global generator) on the CPU;
+    the JAX package's random stream cannot be reproduced, only its
+    distribution. Returns ``(nb_rows, nb_columns)`` float32.
+    """
+    def normal(*shape):
+        return torch.randn(*shape, generator=generator, dtype=torch.float64)
+
+    n_full, rem = divmod(nb_rows, nb_columns)
+    blocks = [torch.linalg.qr(normal(nb_columns, nb_columns))[0].T
+              for _ in range(n_full)]
+    if rem > 0:
+        blocks.append(torch.linalg.qr(normal(nb_columns, nb_columns))[0].T[:rem])
+    final = torch.cat(blocks, dim=0)
+    if scaling == 0:
+        multiplier = torch.linalg.norm(normal(nb_rows, nb_columns), dim=1)
+    elif scaling == 1:
+        multiplier = torch.full((nb_rows,), math.sqrt(float(nb_columns)),
+                                dtype=torch.float64)
+    else:
+        raise ValueError(f"Invalid scaling {scaling}")
+    return (multiplier[:, None] * final).float()
+
+
+def softmax_kernel_features(data: torch.Tensor, projection: torch.Tensor,
+                            is_query: bool, normalize_data: bool = True,
+                            eps: float = 1e-4) -> torch.Tensor:
+    """Positive random features phi(x) approximating the softmax kernel.
+
+    Queries subtract a per-row max, keys a max over each (batch, head)
+    slice, for numerical stability (as the JAX package does).
+    """
+    data_normalizer = data.shape[-1] ** -0.25 if normalize_data else 1.0
+    ratio = projection.shape[0] ** -0.5
+    data_dash = torch.einsum("...id,jd->...ij", data_normalizer * data, projection)
+    diag_data = (data ** 2).sum(-1, keepdim=True) / 2.0 * data_normalizer ** 2
+    if is_query:
+        stab = data_dash.amax(dim=-1, keepdim=True)
+    else:
+        stab = data_dash.amax(dim=(-2, -1), keepdim=True)
+    return ratio * (torch.exp(data_dash - diag_data - stab) + eps)
+
+
+def generalized_kernel_features(data: torch.Tensor, projection=None,
+                                kernel_fn: Callable = torch.relu,
+                                kernel_epsilon: float = 1e-3,
+                                normalize_data: bool = True) -> torch.Tensor:
+    """Generalized (e.g. ReLU) random features ``kernel_fn(x' @ proj^T) + eps``."""
+    data_normalizer = data.shape[-1] ** -0.25 if normalize_data else 1.0
+    if projection is None:
+        return kernel_fn(data_normalizer * data) + kernel_epsilon
+    data_dash = torch.einsum("...id,jd->...ij", data_normalizer * data, projection)
+    return kernel_fn(data_dash) + kernel_epsilon
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal linear attention over feature maps, float32 throughout.
+
+    q, k: ``(..., n, r)`` feature maps; v: ``(..., n, d)``.
+    """
+    q, k, v = q.float(), k.float(), v.float()
+    k_sum = k.sum(dim=-2)                                        # (..., r)
+    d_inv = 1.0 / torch.einsum("...nd,...d->...n", q, k_sum)
+    context = torch.einsum("...nd,...ne->...de", k, v)           # (..., r, d)
+    return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)

@@ -1,0 +1,159 @@
+"""ReLU-FAVOR linear attention with the feature maps kept on chip.
+
+:func:`fused_generalized_linear_attention` replaces the TPU kernel
+``gridnext_tpu/ops/favor_pallas.py::fused_generalized_linear_attention``.
+For ``q, k, v`` of shape ``(B, H, N, d)`` and a projection ``proj (m, d)``
+it computes, per (b, h)::
+
+    phi(x) = relu((d^-1/4 x) @ proj^T) + 1e-3
+    out_n  = (phi(q_n) @ sum_n phi(k_n) v_n^T) / (phi(q_n) . sum_n phi(k_n))
+
+which is :func:`favor_attention_plain` (``generalized_kernel_features``
+twice, then ``linear_attention``). On a CUDA tensor it launches the kernels
+of ``csrc/favor.cu`` (accumulate, reduce, apply: one call of the C entry
+point, counted once in :data:`launches`); on a CPU tensor it runs
+:func:`favor_attention_plain`. There is no fallback from one to the other:
+a CUDA call the kernel does not take raises.
+
+What bounds the kernel on the card: f32 operations. At scBERT's shape
+(B 8, H 10, N 16,907, d 64, m 266) one call is 1.85e11 FLOP (2.76 ms at the
+67 TFLOP/s CUDA-core peak) against 1.39 GB of q, k, v and output (0.41 ms
+at 3.35 TB/s). The (B, H, N, m) feature maps, 1.44 GB each at that
+shape, never reach device memory (design notes in ``csrc/favor.cu``).
+The sequence is split across blocks and the partial sums are reduced in a
+fixed order, so a call gives the same bits every time.
+
+Only the forward is a kernel. On CUDA the call sits in a
+``torch.autograd.Function`` whose backward differentiates the plain
+version, as the JAX op's custom VJP differentiates its einsum path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gridnext_tpu_torch.ops import _cuda
+from gridnext_tpu_torch.ops.favor import generalized_kernel_features, linear_attention
+
+# Calls of the C entry point made by fused_generalized_linear_attention (one
+# per call, three kernels each); a plain integer that a run resets and reads
+# to show the kernel was used.
+launches = 0
+
+HEAD_DIMS = (16, 32, 64)   # head widths the kernel is compiled for
+_TILE_N = 64               # csrc/favor.cu kTileN: sequence rows per tile
+_TILE_M = 64               # csrc/favor.cu kTileM: features per chunk
+_BLOCKS_PER_SM = 8         # accumulate-pass blocks to aim for, per SM
+
+
+def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          proj: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ReLU-FAVOR attention (the JAX module's
+    ``_einsum_reference``): ``(B, H, N, d)`` float32."""
+    qf = generalized_kernel_features(q, proj, torch.relu)
+    kf = generalized_kernel_features(k, proj, torch.relu)
+    return linear_attention(qf, kf, v)
+
+
+def _check_shapes(q, k, v, proj):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one (B, H, N, d) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if proj.dim() != 2 or proj.shape[1] != q.shape[-1]:
+        raise ValueError(f"proj {tuple(proj.shape)} is not (m, {q.shape[-1]})")
+
+
+def _kernel_operand(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as the kernel reads it, or ValueError: float32, last dim
+    contiguous, 16-byte aligned, element strides multiples of 4."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"the FAVOR kernel takes float32, got {name} {t.dtype}")
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % 4 for s in t.stride()[:-1])):
+        raise ValueError(f"{name} must be 16-byte aligned with a contiguous last "
+                         f"dim and strides that are multiples of 4, got strides "
+                         f"{t.stride()}")
+    return t
+
+
+def _splits(bh: int, n: int, m: int, device) -> int:
+    """Sequence ranges per (b, h) of the accumulate pass: enough blocks to
+    fill the card, at most one per 64-row tile."""
+    tiles = -(-n // _TILE_N)
+    m_chunks = -(-m // _TILE_M)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-_BLOCKS_PER_SM * sms // (m_chunks * bh))
+    return max(1, min(tiles, want))
+
+
+def _launch(q, k, v, proj):
+    global launches
+    b, h, n, d = q.shape
+    m = proj.shape[0]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the FAVOR kernel takes head widths {HEAD_DIMS}, got {d}")
+    if n == 0 or m == 0 or b * h == 0:
+        raise ValueError(f"empty FAVOR call: q {tuple(q.shape)}, proj {tuple(proj.shape)}")
+    dev = q.device
+    if any(t.device != dev for t in (k, v, proj)):
+        raise ValueError("q, k, v and proj must be on one device")
+    q, k, v = (_kernel_operand(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v")))
+    proj = _kernel_operand(proj.contiguous(), "proj")
+    lib = _cuda.library("favor")
+    splits = _splits(b * h, n, m, dev)
+    work = torch.empty(int(lib.favor_workspace_floats(b * h, splits, m, d)),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.favor_attention_f32(
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3], b, h, n, d, proj.data_ptr(), m, splits,
+            float(d) ** -0.25, work.data_ptr(), out.data_ptr(), stream)
+    _cuda.check(lib, err, "fused_generalized_linear_attention")
+    launches += 1
+    return out
+
+
+class _FusedFavor(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, proj):
+        ctx.save_for_backward(q, k, v, proj)
+        return _launch(q, k, v, proj)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            out = favor_attention_plain(*ins)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, need in zip(ins, needs) if need], grad.float()))
+        return tuple(next(grads) if need else None for need in needs)
+
+
+def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, proj: torch.Tensor
+                                       ) -> torch.Tensor:
+    """ReLU-FAVOR linear attention: ``(B, H, N, d)`` float32.
+
+    Args:
+      q, k, v: ``(B, H, N, d)`` float32; on CUDA they may be strided views
+        (the last dim contiguous, strides multiples of 4), d 16, 32 or 64.
+      proj: ``(m, d)`` projection (a FastAttention's ``projection``).
+
+    CUDA tensors launch the kernel of ``csrc/favor.cu`` (and raise if it
+    cannot run them); CPU tensors run :func:`favor_attention_plain`.
+    Replaces the TPU kernel ``gridnext_tpu/ops/favor_pallas.py::
+    fused_generalized_linear_attention``; bound by f32 operations, with the
+    feature maps made and consumed in shared memory (module docstring).
+    """
+    _check_shapes(q, k, v, proj)
+    if q.device.type == "cpu":
+        return favor_attention_plain(q, k, v, proj)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _FusedFavor.apply(q, k, v, proj)

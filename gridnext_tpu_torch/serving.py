@@ -16,6 +16,9 @@ Typical use::
     labels_b = registrar.register_batch(wsis, positions_list)   # (N, 78, 64)
     to_loupe_annots(labels, position_file, out_csv, annot_names=classes)
 
+Multimodal model directories (an scBERT count f beside an image f) register
+pre-built image and count grids with :func:`register_mm_grid`.
+
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise rather than carry on on the CPU.
 """
@@ -309,6 +312,37 @@ class SlideRegistrar:
             raise ValueError(f"{wsis.shape[0]} slides vs {n} position sets")
         spots = self._padded_spots(wsis.shape[1:], positions_list, pad_offset)
         return self._register_batch(wsis, *spots).cpu().numpy()
+
+
+def register_mm_grid(model, x_image, x_count_raw, count_transform: Optional[Callable] = None,
+                     device="cuda") -> np.ndarray:
+    """Register one slide with a multimodal ``GridNetHexMM``.
+
+    Args:
+      model: a ``GridNetHexMM`` (e.g. from ``modeldir.mm_model_from_meta``);
+        it is moved to ``device`` (in place).
+      x_image: ``(H, W, P, P, 3)`` float32 patch grid, ``/255`` patches at
+        the spots' cells and zeros elsewhere (as the JAX datasets build it).
+      x_count_raw: ``(H, W, G)`` raw count grid (numpy).
+      count_transform: maps raw counts to the count f's input
+        (``modeldir.scbert_transform`` for an scBERT count f), or None.
+      device: where the forward runs; 'cuda' (default) raises without CUDA.
+
+    Returns:
+      (H, W) int32 labels: argmax + 1 of the corrector's logits where the
+      raw counts of a cell are nonzero (the tissue), 0 elsewhere.
+    """
+    device = resolve_device(device)
+    x_count_raw = np.asarray(x_count_raw, np.float32)
+    fg = x_count_raw.sum(-1) > 0
+    x_count = count_transform(x_count_raw) if count_transform is not None else x_count_raw
+    model.to(device)
+    with torch.no_grad():
+        xi = torch.as_tensor(x_image, dtype=torch.float32, device=device)
+        xc = torch.as_tensor(x_count, dtype=torch.float32, device=device)
+        logits = model((xi[None], xc[None]))[0]
+        labels = (torch.argmax(logits, dim=-1) + 1).to(torch.int32).cpu().numpy()
+    return np.where(fg, labels, 0).astype(np.int32)
 
 
 def label_parity_report(want, got, logits, *, rel_tol: float = 1e-2,

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from gridnext_tpu_torch.ops import denseblock_cuda as dense
+from gridnext_tpu_torch.ops import favor_cuda as favor
+from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
 from gridnext_tpu_torch.ops import hexcorrector_cuda as corr
 from gridnext_tpu_torch.ops import patch_gather_cuda as gather
 from gridnext_tpu_torch.serving import label_parity_report
@@ -157,3 +159,73 @@ def test_dense_block_kernel_refuses_unaligned_widths(dev):
     x, arrays = _dense_case(dev, 1, 4, 4, 12, 2, growth=8, cb=16)
     with pytest.raises(ValueError, match="multiples of 8"):
         dense.fused_dense_block(x, *arrays, c_in0=12, growth=8)
+
+
+def _favor_case(dev, b, h, n, d, m, seed=0):
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in full f32
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d)).astype(np.float32),
+                               device=dev) for _ in range(3))
+    proj = orthogonal_gaussian_matrix(m, d, generator=torch.Generator().manual_seed(seed))
+    return q, k, v, proj.to(dev)
+
+
+@pytest.mark.parametrize("b,h,n,d,m", [
+    (8, 10, 16907, 64, 266),     # scBERT's shape: B H = 80 < 132 SMs, ragged N
+    (2, 3, 700, 16, 37),         # d 16, m not a multiple of 32
+    (4, 40, 1030, 64, 37),       # B H = 160 > 132
+    (3, 2, 45, 64, 266),         # N smaller than one 64-row tile
+    (1, 1, 512, 32, 64),         # d 32, whole tiles
+    (2, 5, 3001, 16, 266)],
+    ids=["scbert", "d16-m37", "bh160", "short", "d32", "d16-m266"])
+def test_favor_kernel_matches_plain(dev, b, h, n, d, m):
+    q, k, v, proj = _favor_case(dev, b, h, n, d, m, seed=n)
+    before = favor.launches
+    got = favor.fused_generalized_linear_attention(q, k, v, proj)
+    want = favor.favor_attention_plain(q, k, v, proj)
+    again = favor.fused_generalized_linear_attention(q, k, v, proj)
+    torch.cuda.synchronize()
+    assert favor.launches == before + 2
+    assert got.shape == (b, h, n, d) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert torch.equal(got, again)          # fixed reduction order: same bits
+
+
+def test_favor_kernel_takes_head_split_views(dev):
+    """q, k, v as SelfAttention makes them: (B, N, H d) viewed as (B, H, N, d)."""
+    b, n, h, d, m = 2, 333, 3, 64, 100
+    rng = np.random.default_rng(5)
+    qkv = [torch.as_tensor(rng.standard_normal((b, n, h * d)).astype(np.float32),
+                           device=dev).reshape(b, n, h, d).transpose(1, 2)
+           for _ in range(3)]
+    proj = orthogonal_gaussian_matrix(m, d, generator=torch.Generator().manual_seed(5))
+    proj = proj.to(dev)
+    assert not qkv[0].is_contiguous()
+    got = favor.fused_generalized_linear_attention(*qkv, proj)
+    want = favor.favor_attention_plain(*(t.contiguous() for t in qkv), proj)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_favor_kernel_gradients_match_plain(dev):
+    q, k, v, proj = _favor_case(dev, 2, 3, 260, 16, 20, seed=3)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    qp = [t.clone().requires_grad_() for t in (q, k, v)]
+    (favor.fused_generalized_linear_attention(*qk, proj) ** 2).sum().backward()
+    (favor.favor_attention_plain(*qp, proj) ** 2).sum().backward()
+    for a, b in zip(qk, qp):
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-4, atol=2e-5)
+
+
+def test_favor_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v, proj = _favor_case(dev, 1, 2, 100, 48, 30)
+    before = favor.launches
+    with pytest.raises(ValueError, match="head widths"):
+        favor.fused_generalized_linear_attention(q, k, v, proj)
+    q, k, v, proj = _favor_case(dev, 1, 2, 100, 16, 30)
+    with pytest.raises(ValueError, match="float32"):
+        favor.fused_generalized_linear_attention(q.double(), k.double(), v.double(),
+                                                 proj.double())
+    wide = torch.zeros((3, 1, 2, 100, 17), device=dev)    # row stride 17
+    with pytest.raises(ValueError, match="strides"):
+        favor.fused_generalized_linear_attention(*wide[..., 1:], proj)
+    assert favor.launches == before
