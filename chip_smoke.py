@@ -9,6 +9,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. setup: the card's name and power limit, versions, and an ``nvcc`` build
    of every kernel in ``gridnext_tpu_torch/csrc/`` (all started together);
+   the FAVOR library's SASS must hold tensor-core (HMMA) instructions;
 2. the patch-gather kernel on 4 random 9,325 x 8,892 x 3 uint8 slides with
    4 x 4,992 lattice spots (+ edge-clamped, parked and out-of-range-slide
    spots), bit-exact against its plain version, timed against its bound;
@@ -58,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and at a ragged N with m = 37, inputs from a numpy seed and an
    orthogonal Gaussian projection, within rtol 2e-4 / atol 2e-5 of its plain
    version; timed at scBERT's shape as phases 2-3 time theirs, beside its
-   FLOP bound;
+   split-TF32 bound (three TF32 tensor-core products per f32 product), the
+   f32-FMA bound and the bytes bound;
 9. one multimodal request at full width: a ``GridNetHexMM`` model
    directory (scBERT over the 16,906 gene2vec genes at its checkpoint
    widths, count_chunk 8, and DenseNet-121, f32) with random weights from
@@ -96,6 +98,7 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12      # f32 on the CUDA cores (no tensor cores)
+TF32_FLOPS_PER_S = 495e12     # TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
 
 N_SLIDES = 4
@@ -161,6 +164,17 @@ KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
                                         "dense_conv3x3_kernel"),
                   "fused_generalized_linear_attention": (
                       "favor_accum_kernel", "favor_reduce_kernel", "favor_apply_kernel")}
+
+
+def sass_count(path: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of the built library ``path``
+    (``cuobjdump`` from ``nvcc``'s toolkit)."""
+    from gridnext_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    return sum(f" {opcode}." in line or f" {opcode} " in line for line in out.splitlines())
 
 
 def traced_kernels(prof, symbols, calls: int) -> dict:
@@ -894,7 +908,9 @@ def phase_favor(torch, favor_cuda, dev):
             plain_ms, _ = cuda_ms(torch, plain, iters=5, warmup=1)
             flops = 4 * 2 * b * h * n * d * m + 2 * b * h * n * m
             nbytes = 4 * (4 * b * h * n * d + m * d)
-            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            # the kernel's products run as three TF32 products each (split TF32)
+            t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+            t_f32 = flops / FP32_FLOPS_PER_S * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             res = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
                    "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
@@ -902,8 +918,8 @@ def phase_favor(torch, favor_cuda, dev):
             log(f"favor B={b} H={h} N={n} d={d} m={m}: kernel {ms:.4f} ms per call "
                 f"(events; host issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} "
                 f"ms ({parts}), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-                f"({flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e9:.3f} GB -> "
-                f"{t_bytes:.4f} ms)")
+                f"({flops / 1e9:.1f} GFLOP: split TF32 {t_ops:.4f} ms, f32 FMA "
+                f"{t_f32:.4f} ms; {nbytes / 1e9:.3f} GB -> {t_bytes:.4f} ms)")
         del q, k, v
     return res
 
@@ -1100,6 +1116,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {line.strip()}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    hmma = sass_count(_cuda.library_path("favor"), "HMMA")
+    log(f"favor library SASS: {hmma} HMMA (tensor-core) instructions")
+    if hmma == 0:
+        raise AssertionError("the FAVOR library has no tensor-core instructions")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")

@@ -9,38 +9,67 @@
 // Replaces the TPU kernel gridnext_tpu/ops/favor_pallas.py
 // fused_generalized_linear_attention (pallas_call at :142 accumulates,
 // :161 applies). Like it, the (N, m) feature maps never reach device
-// memory: each is made tile by tile in shared memory and consumed there.
+// memory: here they never leave registers.
 //
 // Bound: operations. At scBERT's shape (B 8, H 10, N 16,907, d 64, m 266)
 // the four products (phi(k), ctx, phi(q), out) are 2 B H N d m FLOP each,
-// 1.85e11 FLOP per call: 2.76 ms at the 67 TFLOP/s f32 CUDA-core peak,
-// against 0.41 ms to read q, k, v and write out once at 3.35 TB/s. This
-// first version multiplies in f32 on the CUDA cores (no tensor cores), so
-// the FLOP bound is the one it can approach.
+// 1.85e11 FLOP per call. The products run on the tensor cores in split
+// TF32, three TF32 products per f32 product: 3 x 1.85e11 FLOP at the
+// 495 TFLOP/s TF32 peak is 1.12 ms, against 2.76 ms for the same work as
+// f32 FMA on the CUDA cores (67 TFLOP/s) and 0.41 ms to read q, k, v and
+// write out once at 3.35 TB/s.
 //
-// Design (three launches on the caller's stream):
-// 1. favor_accum_kernel: one block per (64-feature chunk of m, split of the
-//    sequence, (b, h)). The TPU kernel carried ksum/ctx across a sequential
-//    grid; Hopper blocks run in parallel, so the sequence is split into
-//    `splits` ranges (enough blocks to fill 132 SMs even at B H = 80) and
-//    each block writes its own partial ctx/ksum. A block keeps its
-//    64 x d slice of ctx in registers while it walks its row tiles:
-//    load 64 rows of k (scaled by d^-1/4) and v, phi = relu(k proj^T) + eps
-//    into shared memory (rows >= N and features >= m set to exactly 0:
-//    the +eps would otherwise leak into ksum and ctx), then ctx += phi^T v.
+// Why split TF32 and not one pass: the contract is the JAX tests' rtol
+// 2e-4 / atol 2e-5 against the f32 plain version. Emulating the kernel's
+// operand rounding at the card tests' shapes (with standard-normal inputs),
+// one TF32 pass (10-bit mantissa) reaches 5.2 times that tolerance rounded
+// to nearest and 7.1 times toward zero (worst at N 45, m 266); the split
+//   a_hi = tf32(a), a_lo = tf32(a - a_hi),
+//   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi   (f32 sums)
+// stays within 1 % of it (tests/test_torch_favor_precision.py pins both;
+// on the card it comes within 3 %). The split is made once per operand
+// value as it lands in registers (proj and q once per block, k, v, phi and
+// ctx once per fragment load), never once per product (split()).
+//
+// Design (three launches on the caller's stream), mma.sync.m16n8k8 TF32:
+// 1. favor_accum_kernel: one block per (group of 16-feature tiles of m,
+//    split of the sequence, (b, h)). Each warp owns 16 features: their
+//    rows of (d^-1/4 proj) sit in registers as split A fragments for the
+//    whole kernel, and their 16 x d slice of ctx is its accumulator. The
+//    block walks its rows in tiles of 32, copied by cp.async into a
+//    double-buffered shared tile of k and v. Per tile a warp forms
+//    S^T = proj k^T (16 features x 32 rows, four accumulators), applies
+//    ReLU, +eps and the masks (rows >= N and features >= m exactly 0: the
+//    +eps would otherwise leak into ksum and ctx), and feeds the result
+//    straight back as the A operand of ctx += phi^T v: the C fragment of
+//    one m16n8k8 product is the A fragment of the next once the 8 rows of
+//    the k step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7), and v's
+//    B fragment reads its rows in the same order. ksum is summed from the
+//    same registers. Each block writes its partial ctx/ksum; Hopper
+//    blocks run in parallel, where the TPU kernel carried them across a
+//    sequential grid. Blocks of at most 6 warps, two to an SM (the launch
+//    bounds hold a thread to 168 registers): one block an SM, at 173
+//    registers, took 47 % more time.
 // 2. favor_reduce_kernel sums the partials over the splits in a fixed
 //    order, so the result does not depend on the schedule (no atomics).
-// 3. favor_apply_kernel: one block per (64-row tile of the sequence, (b, h));
-//    it holds its q tile in shared memory and walks the feature chunks,
-//    loading each chunk of proj, ctx and ksum, making phi(q) for the chunk
-//    and accumulating phi(q) ctx and phi(q) . ksum in registers.
-// Shared memory per block is ~70 KB at d = 64 (four 64 x (d+4) tiles):
-// the 266 x 64 proj and ctx (68 KB each) are never held whole, the m axis
-// is tiled instead. Register tiles are 4 x 4 per thread at d = 64; smem
-// rows are padded by 4 floats so the float4 reads of a quarter-warp hit
-// eight distinct 16-byte bank groups. Sums run in a fixed order: d
+// 3. favor_apply_kernel: one block per (kApplyWarps x 16 rows, (b, h)).
+//    Each warp holds its 16 rows of d^-1/4 q as split A fragments; the
+//    block walks m in chunks of 32 features (proj, ctx and ksum copied by
+//    cp.async, double-buffered). Per chunk a warp forms S = q proj^T
+//    (16 rows x 32 features), phi of it, the denominator phi . ksum in f32
+//    FMA, and out += phi ctx with phi's C fragment reused as A as above.
+// Shared rows are padded to d + 4 floats, so every fragment load of a
+// warp hits 32 distinct banks. What holds the kernel back is the
+// instruction mix, not the tensor cores: mma.sync TF32 alone reaches
+// ~315 TFLOP/s on an H100, ~210 with this split of a fresh B operand
+// beside each product and ~175 with its shared-memory loads as well
+// (tools/time_favor.py --peak); the kernel runs at ~160. Splitting k, v,
+// proj and ctx once per block into (hi, lo) pairs in shared memory, read
+// 8 bytes at a time, was 27 % slower (more shared traffic, a third
+// barrier per tile, fewer blocks an SM). Sums run in a fixed order: d
 // ascending in phi, rows ascending within a split and splits ascending in
-// ctx/ksum, features ascending in the output.
+// ctx/ksum, features ascending in the output; a call gives the same bits
+// every time.
 // q, k and v may be strided views (the heads split of a (B, N, H d)
 // projection): their element strides over b, h and n are arguments, the
 // last dimension must be contiguous, and the strides multiples of 4.
@@ -51,186 +80,229 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileN = 64;             // sequence rows per tile
-constexpr int kTileM = 64;             // features per chunk
-constexpr int kPadM = kTileM + 4;      // shared row stride of feature tiles
+constexpr int kAccWarpsMax = 6;        // 16-feature tiles (warps) per accumulate block, at most
+constexpr int kRows = 32;              // sequence rows per accumulate tile (four k steps of 8)
+constexpr int kApplyWarps = 4;         // 16-row tiles (warps) per apply block
+constexpr int kApplyRows = 16 * kApplyWarps;
+constexpr int kFeat = 32;              // features per apply chunk (four k steps of 8)
+constexpr int kFeatTile = 16;          // m pads to a multiple of this
 constexpr float kEps = 1e-3f;          // generalized_kernel_features kernel_epsilon
 
-template <int D>
-struct Geo {
-  static constexpr int kPadD = D + 4;                        // smem row stride of (rows, d) tiles
-  static constexpr int kEG = D / 4;                          // float4 groups along d
-  static constexpr int kFW = kTileM * kEG / kThreads;        // features per thread in ctx
-  static constexpr int kRW = kTileN * kEG / kThreads;        // rows per thread in out
-  static_assert(kFW >= 1 && kRW >= 1, "d must be 16, 32 or 64");
-};
+// x = hi + lo exactly, as TF32 operands: hi is x with its low 13 mantissa
+// bits cleared (TF32 toward zero), lo = x - hi is exact in f32 (|lo| <
+// 2^-10 |x|), and the tensor core reads lo as TF32 by dropping its own low
+// 13 bits, so a product loses at most ~2^-20 of each operand. One AND and
+// one subtract: cvt.rna.tf32.f32 for each half took 26 % more time at
+// scBERT's shape, and rounding hi to nearest in integer operations 5 %.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-// Rows [row0, row0 + 64) of one (rows, D) slice with row stride `stride`
-// into a (64, D + 4) shared tile, times `scale`; rows >= n read as zeros.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[i] += a b_i in split TF32 for N products that share the A fragment
+// (b_i's fragment is b[i][0], b[i][1]): the two small cross products first,
+// each of the three terms issued over all N accumulators before the next,
+// so that no product waits on the one issued before it.
+template <int N>
+__device__ __forceinline__ void mma3(float (*c)[4], const uint32_t (&a_hi)[4],
+                                     const uint32_t (&a_lo)[4], const float (&b)[N][2]) {
+  uint32_t b_hi[N][2], b_lo[N][2];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    split(b[i][0], b_hi[i][0], b_lo[i][0]);
+    split(b[i][1], b_hi[i][1], b_lo[i][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], a_lo, b_hi[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], a_hi, b_lo[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], a_hi, b_hi[i]);
+}
+
+// relu(s) + eps, or exactly 0 where masked
+__device__ __forceinline__ float phi(float s, bool keep) {
+  return keep ? fmaxf(s, 0.f) + kEps : 0.f;
+}
+
+// The A fragment of a product over 8 phi values per row, from the C
+// fragment c of the product that made them (columns 2t, 2t+1 of rows g,
+// g+8): logical k = t is column 2t and k = t + 4 is column 2t + 1.
+__device__ __forceinline__ void phi_as_a(const float (&p)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[2], hi[1], lo[1]);
+  split(p[1], hi[2], lo[2]);
+  split(p[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + rows) of one (n, D) slice with row stride `stride`
+// into a (rows, D + 4) shared tile by cp.async; rows >= n are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_rows(const float* __restrict__ base, int64_t stride,
-                                          int row0, int n, float scale, float* dst) {
-  constexpr int EG = Geo<D>::kEG;
-  for (int idx = threadIdx.x; idx < kTileN * EG; idx += kThreads) {
+__device__ __forceinline__ void stage_rows(const float* __restrict__ base, int64_t stride,
+                                           int row0, int rows, int n, float* dst) {
+  constexpr int EG = D / 4;
+  for (int idx = threadIdx.x; idx < rows * EG; idx += blockDim.x) {
     const int r = idx / EG, c4 = idx % EG;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) {
-      val = __ldg(reinterpret_cast<const float4*>(base + (row0 + r) * stride) + c4);
-      val.x *= scale;
-      val.y *= scale;
-      val.z *= scale;
-      val.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * Geo<D>::kPadD + 4 * c4) = val;
-  }
-}
-
-// phi tile (64 rows x 64 features) of x_s (rows) against p_s (features):
-// thread (a = tid % 16, b = tid / 16) owns rows 4b..4b+3 and features
-// a, a+16, a+32, a+48; the products are stored with the ReLU, the +eps and
-// the masks (row0 + r >= n or j0 + j >= m gives exactly 0).
-template <int D>
-__device__ __forceinline__ void feature_tile(const float* x_s, const float* p_s, int row0,
-                                             int n, int j0, int m, float* phi_s) {
-  constexpr int PD = Geo<D>::kPadD;
-  const int a = threadIdx.x & 15, b = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 xv[4], pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      xv[i] = *reinterpret_cast<const float4*>(x_s + (4 * b + i) * PD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      pv[c] = *reinterpret_cast<const float4*>(p_s + (a + 16 * c) * PD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[i][c] = fmaf(xv[i].x, pv[c].x, acc[i][c]);
-        acc[i][c] = fmaf(xv[i].y, pv[c].y, acc[i][c]);
-        acc[i][c] = fmaf(xv[i].z, pv[c].z, acc[i][c]);
-        acc[i][c] = fmaf(xv[i].w, pv[c].w, acc[i][c]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * b + i;
-    const bool row_ok = row0 + r < n;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = a + 16 * c;
-      phi_s[r * kPadM + j] = (row_ok && j0 + j < m) ? fmaxf(acc[i][c], 0.f) + kEps : 0.f;
-    }
-  }
-}
-
-// W consecutive floats of shared memory (W = 1, 2 or 4; 4W-byte aligned).
-template <int W>
-__device__ __forceinline__ void load_w(const float* src, float (&dst)[W]) {
-  if constexpr (W == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x;
-    dst[1] = t.y;
-    dst[2] = t.z;
-    dst[3] = t.w;
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x;
-    dst[1] = t.y;
-  } else {
-    dst[0] = src[0];
+    const bool ok = row0 + r < n;
+    const float* src = ok ? base + (row0 + r) * stride + 4 * c4 : base;
+    cp_async16(dst + r * (D + 4) + 4 * c4, src, ok);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kAccWarpsMax * 32, 2)
 favor_accum_kernel(const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                    const float* __restrict__ v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
-                   int heads, const float* __restrict__ proj, int n, int m, int m_chunks,
+                   int heads, const float* __restrict__ proj, int n, int m, int groups,
                    int splits, int tiles_per_split, float scale,
                    float* __restrict__ part_ctx, float* __restrict__ part_ks) {
-  constexpr int PD = Geo<D>::kPadD, EG = Geo<D>::kEG, FW = Geo<D>::kFW;
+  constexpr int KS = D / 8, PD = D + 4;
+  constexpr int kGroup = KS;                       // ctx n tiles issued together
   extern __shared__ float4 smem4[];
-  float* p_s = reinterpret_cast<float*>(smem4);
-  float* k_s = p_s + kTileM * PD;
-  float* v_s = k_s + kTileN * PD;
-  float* phi_s = v_s + kTileN * PD;
+  float* smem = reinterpret_cast<float*>(smem4);   // stage i: k tile, then v tile
 
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
   int blk = blockIdx.x;
-  const int mc = blk % m_chunks;       // fastest: the chunks of one row range share k, v in L2
-  blk /= m_chunks;
+  const int grp = blk % groups;       // fastest: the groups of one row range share k, v in L2
+  blk /= groups;
   const int s = blk % splits;
   const int bh = blk / splits;
   const int b = bh / heads, h = bh % heads;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-  const int j0 = mc * kTileM;
-  load_rows<D>(proj, D, j0, m, 1.f, p_s);
+  const int m_tiles = (m + kFeatTile - 1) / kFeatTile;
+  const int mt = grp * warps + warp;
+  const bool active = mt < m_tiles;   // the last group may have a warp to spare
+  const int f0 = mt * kFeatTile;
+  const bool f_lo = f0 + g < m, f_hi = f0 + g + 8 < m;
 
-  const int e = threadIdx.x % EG, f = threadIdx.x / EG;
-  float acc[FW][4], ks[FW];
+  // A fragments of d^-1/4 proj for this warp's 16 features, split once
+  uint32_t p_hi[KS][4], p_lo[KS][4];
 #pragma unroll
-  for (int u = 0; u < FW; ++u) {
-    ks[u] = 0.f;
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
-  }
-  const int tiles = (n + kTileN - 1) / kTileN;
+    for (int i = 0; i < 4; ++i) {
+      const int row = f0 + g + (i & 1) * 8, col = ks * 8 + t + (i >> 1) * 4;
+      const float x = (active && row < m) ? scale * __ldg(proj + row * D + col) : 0.f;
+      split(x, p_hi[ks][i], p_lo[ks][i]);
+    }
+  float ctx[KS][4], ks_lo = 0.f, ks_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < KS; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ctx[nt][i] = 0.f;
+
+  const int tiles = (n + kRows - 1) / kRows;
   const int t0 = s * tiles_per_split;
   const int t1 = min(t0 + tiles_per_split, tiles);
-  for (int t = t0; t < t1; ++t) {
-    const int row0 = t * kTileN;
-    __syncthreads();                   // the previous tile's readers are done
-    load_rows<D>(kb, k_sn, row0, n, scale, k_s);
-    load_rows<D>(vb, v_sn, row0, n, 1.f, v_s);
+  auto stage = [&](int tile, int buf) {
+    float* dst = smem + buf * 2 * kRows * PD;
+    stage_rows<D>(kb, k_sn, tile * kRows, kRows, n, dst);
+    stage_rows<D>(vb, v_sn, tile * kRows, kRows, n, dst + kRows * PD);
+    cp_async_commit();
+  };
+  if (t0 < t1) stage(t0, 0);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int buf = (tile - t0) & 1;
+    if (tile + 1 < t1) {
+      stage(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    feature_tile<D>(k_s, p_s, row0, n, j0, m, phi_s);
-    __syncthreads();
-    // ctx[j][4e..4e+3] += sum_r phi[r][j] v[r][4e..4e+3], j = f FW + u
-#pragma unroll 4
-    for (int r = 0; r < kTileN; ++r) {
-      const float4 vv = *reinterpret_cast<const float4*>(v_s + r * PD + 4 * e);
-      float pf[FW];
-      load_w<FW>(phi_s + r * kPadM + f * FW, pf);
+    if (active) {
+      const float* k_s = smem + buf * 2 * kRows * PD;
+      const float* v_s = k_s + kRows * PD;
+      // S^T (16 features x 8 rows) for each 8-row step c of the tile
+      float acc[4][4];
 #pragma unroll
-      for (int u = 0; u < FW; ++u) {
-        acc[u][0] = fmaf(pf[u], vv.x, acc[u][0]);
-        acc[u][1] = fmaf(pf[u], vv.y, acc[u][1]);
-        acc[u][2] = fmaf(pf[u], vv.z, acc[u][2]);
-        acc[u][3] = fmaf(pf[u], vv.w, acc[u][3]);
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        float bk[4][2];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float* kr = k_s + (c * 8 + g) * PD + ks * 8 + t;
+          bk[c][0] = kr[0];
+          bk[c][1] = kr[4];
+        }
+        mma3<4>(acc, p_hi[ks], p_lo[ks], bk);
+      }
+      const int row0 = tile * kRows;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = row0 + c * 8 + 2 * t;
+        const float p[4] = {phi(acc[c][0], r < n && f_lo), phi(acc[c][1], r + 1 < n && f_lo),
+                            phi(acc[c][2], r < n && f_hi), phi(acc[c][3], r + 1 < n && f_hi)};
+        ks_lo += p[0];
+        ks_lo += p[1];
+        ks_hi += p[2];
+        ks_hi += p[3];
+        uint32_t a_hi[4], a_lo[4];
+        phi_as_a(p, a_hi, a_lo);
+        const float* vr = v_s + (c * 8 + 2 * t) * PD + g;
+#pragma unroll
+        for (int nt = 0; nt < KS; nt += kGroup) {
+          float bv[kGroup][2];
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i) {
+            bv[i][0] = vr[(nt + i) * 8];
+            bv[i][1] = vr[PD + (nt + i) * 8];
+          }
+          mma3<kGroup>(ctx + nt, a_hi, a_lo, bv);
+        }
       }
     }
-    // ksum: this thread's rows are e, e + EG, ...; lanes are summed below
-    for (int r = e; r < kTileN; r += EG) {
-      float pf[FW];
-      load_w<FW>(phi_s + r * kPadM + f * FW, pf);
-#pragma unroll
-      for (int u = 0; u < FW; ++u) ks[u] += pf[u];
-    }
+    __syncthreads();                   // this buffer's readers are done before it refills
   }
-  const int m_pad = m_chunks * kTileM;
+  if (!active) return;
+  const int m_pad = m_tiles * kFeatTile;
   const int64_t part = static_cast<int64_t>(bh) * splits + s;
+  float* pc = part_ctx + (part * m_pad + f0 + g) * D + 2 * t;
 #pragma unroll
-  for (int u = 0; u < FW; ++u) {
-    const int j = j0 + f * FW + u;
-    *reinterpret_cast<float4*>(part_ctx + (part * m_pad + j) * D + 4 * e) =
-        make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-    // the EG lanes of a feature group are consecutive lanes of one warp
-    for (int off = EG / 2; off > 0; off >>= 1)
-      ks[u] += __shfl_xor_sync(0xffffffffu, ks[u], off);
-    if (e == 0) part_ks[part * m_pad + j] = ks[u];
+  for (int nt = 0; nt < KS; ++nt) {
+    *reinterpret_cast<float2*>(pc + nt * 8) = make_float2(ctx[nt][0], ctx[nt][1]);
+    *reinterpret_cast<float2*>(pc + 8 * D + nt * 8) = make_float2(ctx[nt][2], ctx[nt][3]);
+  }
+  // the four lanes of a feature pair hold its row partial sums
+  ks_lo += __shfl_xor_sync(0xffffffffu, ks_lo, 1);
+  ks_lo += __shfl_xor_sync(0xffffffffu, ks_lo, 2);
+  ks_hi += __shfl_xor_sync(0xffffffffu, ks_hi, 1);
+  ks_hi += __shfl_xor_sync(0xffffffffu, ks_hi, 2);
+  if (t == 0) {
+    part_ks[part * m_pad + f0 + g] = ks_lo;
+    part_ks[part * m_pad + f0 + g + 8] = ks_hi;
   }
 }
 
 // ctx[bh] = sum over splits of part_ctx[bh][s], ksum likewise, splits in order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 favor_reduce_kernel(const float* __restrict__ part_ctx, const float* __restrict__ part_ks,
                     int bh_total, int splits, int m_pad, int d, float* __restrict__ ctx,
                     float* __restrict__ ks) {
@@ -253,93 +325,127 @@ favor_reduce_kernel(const float* __restrict__ part_ctx, const float* __restrict_
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kApplyWarps * 32)
 favor_apply_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
                    int heads, const float* __restrict__ proj, const float* __restrict__ ctx,
-                   const float* __restrict__ ks, int n, int m, int m_chunks, float scale,
+                   const float* __restrict__ ks, int n, int m, int m_pad, float scale,
                    float* __restrict__ out) {
-  constexpr int PD = Geo<D>::kPadD, EG = Geo<D>::kEG, RW = Geo<D>::kRW;
+  constexpr int KS = D / 8, PD = D + 4;
+  constexpr int kGroup = KS < 4 ? KS : 4;          // out n tiles issued together
+  constexpr int kStage = 2 * kFeat * PD + kFeat;   // proj chunk, ctx chunk, ksum chunk
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* p_s = q_s + kTileN * PD;
-  float* c_s = p_s + kTileM * PD;
-  float* phi_s = c_s + kTileM * PD;
-  float* ks_s = phi_s + kTileN * kPadM;
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int tiles = (n + kTileN - 1) / kTileN;
-  const int t = blockIdx.x % tiles;    // fastest: the tiles of one (b, h) share ctx in L2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (n + kApplyRows - 1) / kApplyRows;
+  const int tile = blockIdx.x % tiles;  // fastest: the tiles of one (b, h) share ctx in L2
   const int bh = blockIdx.x / tiles;
   const int b = bh / heads, h = bh % heads;
-  const int row0 = t * kTileN;
-  const int m_pad = m_chunks * kTileM;
+  const float* qb = q + b * q_sb + h * q_sh;
   const float* ctx_bh = ctx + static_cast<int64_t>(bh) * m_pad * D;
-  load_rows<D>(q + b * q_sb + h * q_sh, q_sn, row0, n, scale, q_s);
+  const float* ks_bh = ks + static_cast<int64_t>(bh) * m_pad;
+  const int r0 = tile * kApplyRows + warp * 16;   // this warp's first row
 
-  const int e = threadIdx.x % EG, g = threadIdx.x / EG;
-  float acc[RW][4], den[RW];
+  // A fragments of d^-1/4 q for this warp's 16 rows, split once
+  uint32_t q_hi[KS][4], q_lo[KS][4];
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    den[i] = 0.f;
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  }
-  for (int mc = 0; mc < m_chunks; ++mc) {
-    const int j0 = mc * kTileM;
-    __syncthreads();                   // the previous chunk's readers are done
-    load_rows<D>(proj, D, j0, m, 1.f, p_s);
-    load_rows<D>(ctx_bh, D, j0, m_pad, 1.f, c_s);
-    for (int j = threadIdx.x; j < kTileM; j += kThreads)
-      ks_s[j] = ks[static_cast<int64_t>(bh) * m_pad + j0 + j];
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + (i & 1) * 8, col = kk * 8 + t + (i >> 1) * 4;
+      const float x = row < n ? scale * __ldg(qb + row * q_sn + col) : 0.f;
+      split(x, q_hi[kk][i], q_lo[kk][i]);
+    }
+  float acc[KS][4], den_lo = 0.f, den_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < KS; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  const int chunks = (m_pad + kFeat - 1) / kFeat;
+  auto stage = [&](int chunk, int buf) {
+    float* dst = smem + buf * kStage;
+    const int j0 = chunk * kFeat;
+    stage_rows<D>(proj, D, j0, kFeat, m, dst);
+    stage_rows<D>(ctx_bh, D, j0, kFeat, m_pad, dst + kFeat * PD);
+    for (int i = threadIdx.x; i < kFeat / 4; i += blockDim.x) {
+      const bool ok = j0 + 4 * i < m_pad;            // m_pad is a multiple of 4
+      cp_async16(dst + 2 * kFeat * PD + 4 * i, ok ? ks_bh + j0 + 4 * i : ks_bh, ok);
+    }
+    cp_async_commit();
+  };
+  stage(0, 0);
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    const int buf = chunk & 1;
+    if (chunk + 1 < chunks) {
+      stage(chunk + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    feature_tile<D>(q_s, p_s, row0, n, j0, m, phi_s);
-    __syncthreads();
-    // out[r][4e..4e+3] += sum_j phi[r][j] ctx[j][4e..4e+3], r = g RW + i
-#pragma unroll 2
-    for (int j = 0; j < kTileM; j += 4) {
-      float4 cv[4], pf[RW];
+    const float* p_s = smem + buf * kStage;
+    const float* c_s = p_s + kFeat * PD;
+    const float* k_s = c_s + kFeat * PD;
+    // S (16 rows x 8 features) for each 8-feature step c of the chunk
+    float sacc[4][4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        cv[jj] = *reinterpret_cast<const float4*>(c_s + (j + jj) * PD + 4 * e);
+    for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int i = 0; i < RW; ++i)
-        pf[i] = *reinterpret_cast<const float4*>(phi_s + (g * RW + i) * kPadM + j);
+      for (int i = 0; i < 4; ++i) sacc[c][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        acc[i][0] = fmaf(pf[i].x, cv[0].x, acc[i][0]);
-        acc[i][1] = fmaf(pf[i].x, cv[0].y, acc[i][1]);
-        acc[i][2] = fmaf(pf[i].x, cv[0].z, acc[i][2]);
-        acc[i][3] = fmaf(pf[i].x, cv[0].w, acc[i][3]);
-        acc[i][0] = fmaf(pf[i].y, cv[1].x, acc[i][0]);
-        acc[i][1] = fmaf(pf[i].y, cv[1].y, acc[i][1]);
-        acc[i][2] = fmaf(pf[i].y, cv[1].z, acc[i][2]);
-        acc[i][3] = fmaf(pf[i].y, cv[1].w, acc[i][3]);
-        acc[i][0] = fmaf(pf[i].z, cv[2].x, acc[i][0]);
-        acc[i][1] = fmaf(pf[i].z, cv[2].y, acc[i][1]);
-        acc[i][2] = fmaf(pf[i].z, cv[2].z, acc[i][2]);
-        acc[i][3] = fmaf(pf[i].z, cv[2].w, acc[i][3]);
-        acc[i][0] = fmaf(pf[i].w, cv[3].x, acc[i][0]);
-        acc[i][1] = fmaf(pf[i].w, cv[3].y, acc[i][1]);
-        acc[i][2] = fmaf(pf[i].w, cv[3].z, acc[i][2]);
-        acc[i][3] = fmaf(pf[i].w, cv[3].w, acc[i][3]);
+    for (int kk = 0; kk < KS; ++kk) {
+      float bp[4][2];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float* pr = p_s + (c * 8 + g) * PD + kk * 8 + t;
+        bp[c][0] = pr[0];
+        bp[c][1] = pr[4];
+      }
+      mma3<4>(sacc, q_hi[kk], q_lo[kk], bp);
+    }
+    // features >= m: proj rows are 0 (phi = eps), ctx rows and ksum exactly 0
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p[4] = {phi(sacc[c][0], true), phi(sacc[c][1], true),
+                          phi(sacc[c][2], true), phi(sacc[c][3], true)};
+      const float k0 = k_s[c * 8 + 2 * t], k1 = k_s[c * 8 + 2 * t + 1];
+      den_lo = fmaf(p[0], k0, den_lo);
+      den_lo = fmaf(p[1], k1, den_lo);
+      den_hi = fmaf(p[2], k0, den_hi);
+      den_hi = fmaf(p[3], k1, den_hi);
+      uint32_t a_hi[4], a_lo[4];
+      phi_as_a(p, a_hi, a_lo);
+      const float* cr = c_s + (c * 8 + 2 * t) * PD + g;
+#pragma unroll
+      for (int nt = 0; nt < KS; nt += kGroup) {
+        float bc[kGroup][2];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          bc[i][0] = cr[(nt + i) * 8];
+          bc[i][1] = cr[PD + (nt + i) * 8];
+        }
+        mma3<kGroup>(acc + nt, a_hi, a_lo, bc);
       }
     }
-    // denominator: this thread's features are e, e + EG, ...; lanes summed below
-    for (int j = e; j < kTileM; j += EG) {
-      const float kv = ks_s[j];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) den[i] = fmaf(phi_s[(g * RW + i) * kPadM + j], kv, den[i]);
-    }
+    __syncthreads();                   // this buffer's readers are done before it refills
   }
+  den_lo += __shfl_xor_sync(0xffffffffu, den_lo, 1);
+  den_lo += __shfl_xor_sync(0xffffffffu, den_lo, 2);
+  den_hi += __shfl_xor_sync(0xffffffffu, den_hi, 1);
+  den_hi += __shfl_xor_sync(0xffffffffu, den_hi, 2);
+  const float inv_lo = 1.f / den_lo, inv_hi = 1.f / den_hi;
+  float* o = out + (static_cast<int64_t>(bh) * n + r0 + g) * D + 2 * t;
+  const bool lo_ok = r0 + g < n, hi_ok = r0 + g + 8 < n;
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    for (int off = EG / 2; off > 0; off >>= 1)
-      den[i] += __shfl_xor_sync(0xffffffffu, den[i], off);
-    const int r = g * RW + i;
-    if (row0 + r < n) {
-      const float inv = 1.f / den[i];
-      *reinterpret_cast<float4*>(out + (static_cast<int64_t>(bh) * n + row0 + r) * D + 4 * e) =
-          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
-    }
+  for (int nt = 0; nt < KS; ++nt) {
+    if (lo_ok)
+      *reinterpret_cast<float2*>(o + nt * 8) =
+          make_float2(acc[nt][0] * inv_lo, acc[nt][1] * inv_lo);
+    if (hi_ok)
+      *reinterpret_cast<float2*>(o + 8 * D + nt * 8) =
+          make_float2(acc[nt][2] * inv_hi, acc[nt][3] * inv_hi);
   }
 }
 
@@ -349,29 +455,32 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+int m_padded(int m) { return (m + kFeatTile - 1) / kFeatTile * kFeatTile; }
+
 template <int D>
 int launch(const float* q, const int64_t* qs, const float* k, const int64_t* ks_,
            const float* v, const int64_t* vs, int batch, int heads, int n, const float* proj,
            int m, int splits, float scale, float* work, float* out, cudaStream_t stream) {
-  constexpr int PD = Geo<D>::kPadD;
-  const int m_chunks = (m + kTileM - 1) / kTileM;
-  const int m_pad = m_chunks * kTileM;
+  constexpr int PD = D + 4;
+  const int m_tiles = (m + kFeatTile - 1) / kFeatTile;
+  const int m_pad = m_padded(m);
+  const int groups = (m_tiles + kAccWarpsMax - 1) / kAccWarpsMax;
+  const int warps = (m_tiles + groups - 1) / groups;
   const int bh = batch * heads;
-  const int tiles = (n + kTileN - 1) / kTileN;
+  const int tiles = (n + kRows - 1) / kRows;
   const int tiles_per_split = (tiles + splits - 1) / splits;
   float* part_ctx = work;
   float* part_ks = part_ctx + static_cast<int64_t>(bh) * splits * m_pad * D;
   float* ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
   float* ksum = ctx + static_cast<int64_t>(bh) * m_pad * D;
 
-  const size_t smem_accum = sizeof(float) * ((kTileM + 2 * kTileN) * PD + kTileN * kPadM);
-  const size_t smem_apply =
-      sizeof(float) * ((kTileN + 2 * kTileM) * PD + kTileN * kPadM + kTileM);
+  const size_t smem_accum = sizeof(float) * 2 * 2 * kRows * PD;
+  const size_t smem_apply = sizeof(float) * 2 * (2 * kFeat * PD + kFeat);
   if (cudaError_t err = set_smem(favor_accum_kernel<D>, smem_accum)) return err;
   if (cudaError_t err = set_smem(favor_apply_kernel<D>, smem_apply)) return err;
 
-  favor_accum_kernel<D><<<m_chunks * splits * bh, kThreads, smem_accum, stream>>>(
-      k, ks_[0], ks_[1], ks_[2], v, vs[0], vs[1], vs[2], heads, proj, n, m, m_chunks, splits,
+  favor_accum_kernel<D><<<groups * splits * bh, warps * 32, smem_accum, stream>>>(
+      k, ks_[0], ks_[1], ks_[2], v, vs[0], vs[1], vs[2], heads, proj, n, m, groups, splits,
       tiles_per_split, scale, part_ctx, part_ks);
   if (cudaError_t err = cudaGetLastError()) return err;
 
@@ -379,14 +488,15 @@ int launch(const float* q, const int64_t* qs, const float* k, const int64_t* ks_
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int64_t items = static_cast<int64_t>(bh) * m_pad * (D + 1);
-  const int64_t want = (items + kThreads - 1) / kThreads;
+  const int64_t want = (items + 255) / 256;
   const int reduce_blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
-  favor_reduce_kernel<<<reduce_blocks, kThreads, 0, stream>>>(part_ctx, part_ks, bh, splits,
-                                                              m_pad, D, ctx, ksum);
+  favor_reduce_kernel<<<reduce_blocks, 256, 0, stream>>>(part_ctx, part_ks, bh, splits, m_pad,
+                                                         D, ctx, ksum);
   if (cudaError_t err = cudaGetLastError()) return err;
 
-  favor_apply_kernel<D><<<tiles * bh, kThreads, smem_apply, stream>>>(
-      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_chunks, scale, out);
+  const int apply_tiles = (n + kApplyRows - 1) / kApplyRows;
+  favor_apply_kernel<D><<<apply_tiles * bh, kApplyWarps * 32, smem_apply, stream>>>(
+      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_pad, scale, out);
   return cudaGetLastError();
 }
 
@@ -399,8 +509,7 @@ extern "C" const char* error_string(int err) {
 // Floats of scratch that favor_attention_f32 needs (partial and reduced
 // ctx/ksum) for b*h = bh, the given splits, m features and head width d.
 extern "C" long long favor_workspace_floats(int bh, int splits, int m, int d) {
-  const long long m_pad = (m + kTileM - 1) / kTileM * static_cast<long long>(kTileM);
-  return static_cast<long long>(bh) * m_pad * (d + 1) * (splits + 1);
+  return static_cast<long long>(bh) * m_padded(m) * (d + 1) * (splits + 1);
 }
 
 // out (batch, heads, n, d) contiguous f32 = ReLU-FAVOR attention of q, k, v

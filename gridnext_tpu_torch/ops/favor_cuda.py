@@ -15,11 +15,14 @@ point, counted once in :data:`launches`); on a CPU tensor it runs
 :func:`favor_attention_plain`. There is no fallback from one to the other:
 a CUDA call the kernel does not take raises.
 
-What bounds the kernel on the card: f32 operations. At scBERT's shape
-(B 8, H 10, N 16,907, d 64, m 266) one call is 1.85e11 FLOP (2.76 ms at the
-67 TFLOP/s CUDA-core peak) against 1.39 GB of q, k, v and output (0.41 ms
-at 3.35 TB/s). The (B, H, N, m) feature maps, 1.44 GB each at that
-shape, never reach device memory (design notes in ``csrc/favor.cu``).
+What bounds the kernel on the card: operations. At scBERT's shape (B 8,
+H 10, N 16,907, d 64, m 266) one call is 1.85e11 FLOP. The kernel runs its
+four products on the tensor cores in split TF32 (three TF32 products per
+f32 product, which keeps the f32 tolerance that one TF32 pass misses):
+1.12 ms at the 495 TFLOP/s TF32 peak, against 2.76 ms as f32 FMA on the
+CUDA cores and 0.41 ms to move the 1.39 GB of q, k, v and output at
+3.35 TB/s. The (B, H, N, m) feature maps, 1.44 GB each at that shape, never
+reach device memory (design notes in ``csrc/favor.cu``).
 The sequence is split across blocks and the partial sums are reduced in a
 fixed order, so a call gives the same bits every time.
 
@@ -41,9 +44,10 @@ from gridnext_tpu_torch.ops.favor import generalized_kernel_features, linear_att
 launches = 0
 
 HEAD_DIMS = (16, 32, 64)   # head widths the kernel is compiled for
-_TILE_N = 64               # csrc/favor.cu kTileN: sequence rows per tile
-_TILE_M = 64               # csrc/favor.cu kTileM: features per chunk
-_BLOCKS_PER_SM = 8         # accumulate-pass blocks to aim for, per SM
+_ROWS = 32                 # csrc/favor.cu kRows: sequence rows per accumulate tile
+_FEAT_TILE = 16            # csrc/favor.cu kFeatTile: features per warp
+_ACC_WARPS_MAX = 6         # csrc/favor.cu kAccWarpsMax: feature tiles per block
+_BLOCKS_PER_SM = 16        # accumulate-pass blocks to aim for, per SM
 
 
 def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,11 +82,12 @@ def _kernel_operand(t: torch.Tensor, name: str) -> torch.Tensor:
 
 def _splits(bh: int, n: int, m: int, device) -> int:
     """Sequence ranges per (b, h) of the accumulate pass: enough blocks to
-    fill the card, at most one per 64-row tile."""
-    tiles = -(-n // _TILE_N)
-    m_chunks = -(-m // _TILE_M)
+    fill the card, at most one per 32-row tile."""
+    tiles = -(-n // _ROWS)
+    m_tiles = -(-m // _FEAT_TILE)
+    groups = -(-m_tiles // _ACC_WARPS_MAX)     # blocks per (b, h) and split
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-_BLOCKS_PER_SM * sms // (m_chunks * bh))
+    want = -(-_BLOCKS_PER_SM * sms // (groups * bh))
     return max(1, min(tiles, want))
 
 
@@ -148,8 +153,9 @@ def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
     CUDA tensors launch the kernel of ``csrc/favor.cu`` (and raise if it
     cannot run them); CPU tensors run :func:`favor_attention_plain`.
     Replaces the TPU kernel ``gridnext_tpu/ops/favor_pallas.py::
-    fused_generalized_linear_attention``; bound by f32 operations, with the
-    feature maps made and consumed in shared memory (module docstring).
+    fused_generalized_linear_attention``; bound by operations (split-TF32
+    tensor-core products), with the feature maps made and consumed in
+    registers (module docstring).
     """
     _check_shapes(q, k, v, proj)
     if q.device.type == "cpu":

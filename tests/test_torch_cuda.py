@@ -161,25 +161,36 @@ def test_dense_block_kernel_refuses_unaligned_widths(dev):
         dense.fused_dense_block(x, *arrays, c_in0=12, growth=8)
 
 
-def _favor_case(dev, b, h, n, d, m, seed=0):
+def _favor_case(dev, b, h, n, d, m, seed=0, scale=1.0):
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain version in full f32
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d)).astype(np.float32),
+    q, k, v = (torch.as_tensor(scale * rng.standard_normal((b, h, n, d)).astype(np.float32),
                                device=dev) for _ in range(3))
     proj = orthogonal_gaussian_matrix(m, d, generator=torch.Generator().manual_seed(seed))
     return q, k, v, proj.to(dev)
 
 
-@pytest.mark.parametrize("b,h,n,d,m", [
-    (8, 10, 16907, 64, 266),     # scBERT's shape: B H = 80 < 132 SMs, ragged N
-    (2, 3, 700, 16, 37),         # d 16, m not a multiple of 32
-    (4, 40, 1030, 64, 37),       # B H = 160 > 132
-    (3, 2, 45, 64, 266),         # N smaller than one 64-row tile
-    (1, 1, 512, 32, 64),         # d 32, whole tiles
-    (2, 5, 3001, 16, 266)],
-    ids=["scbert", "d16-m37", "bh160", "short", "d32", "d16-m266"])
-def test_favor_kernel_matches_plain(dev, b, h, n, d, m):
-    q, k, v, proj = _favor_case(dev, b, h, n, d, m, seed=n)
+@pytest.mark.parametrize("b,h,n,d,m,scale", [
+    (8, 10, 16907, 64, 266, 1),  # scBERT's shape: B H = 80 < 132 SMs, ragged N
+    (2, 3, 700, 16, 37, 1),      # d 16, m not a multiple of 16
+    (4, 40, 1030, 64, 37, 1),    # B H = 160 > 132
+    (3, 2, 45, 64, 266, 1),      # N smaller than one apply tile
+    (1, 1, 512, 32, 64, 1),      # d 32, whole tiles
+    (2, 5, 3001, 16, 266, 1),
+    (2, 3, 100, 64, 1, 1),       # m = 1: one feature
+    (1, 2, 257, 64, 8, 1),       # m at one MMA n tile
+    (1, 2, 257, 32, 9, 1),       # m one past it
+    (2, 2, 999, 64, 264, 1),     # m a multiple of 8, not of 16
+    (2, 2, 999, 64, 272, 1),     # m a multiple of 16
+    (2, 3, 1, 64, 266, 1),       # N = 1
+    (1, 4, 33, 64, 266, 1),      # N one past an accumulate tile (32 rows)
+    (2, 2, 65, 32, 100, 1),      # N one past an apply tile (64 rows)
+    (2, 3, 700, 64, 266, 30),    # inputs scaled by 30: the hi/lo split's range
+    (2, 3, 2000, 32, 266, 1)],   # d 32 at scBERT's m
+    ids=["scbert", "d16-m37", "bh160", "short", "d32", "d16-m266", "m1", "m8", "m9",
+         "m264", "m272", "n1", "n33", "n65", "x30", "d32-m266"])
+def test_favor_kernel_matches_plain(dev, b, h, n, d, m, scale):
+    q, k, v, proj = _favor_case(dev, b, h, n, d, m, seed=n, scale=scale)
     before = favor.launches
     got = favor.fused_generalized_linear_attention(q, k, v, proj)
     want = favor.favor_attention_plain(q, k, v, proj)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-PIL or msgpack. The package and ``chip_smoke.py`` must import none of the
-first four, and ``msgpack`` only inside the model-directory loader. Also
+PIL or msgpack. The package, ``chip_smoke.py`` and ``tools/time_favor.py``
+must import none of the first four, and ``msgpack`` only inside the model-directory loader. Also
 here: the port's own geometry equals the JAX package's.
 """
 
@@ -60,7 +60,8 @@ def _imports(tree):
     yield from walk(tree, None)
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                              REPO / "tools" / "time_favor.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), str(path))
