@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. setup: the card's name and power limit, versions, and an ``nvcc`` build
    of every kernel in ``gridnext_tpu_torch/csrc/`` (all started together);
-   the FAVOR library's SASS must hold tensor-core (HMMA) instructions;
+   the FAVOR library's SASS must hold tensor-core (HMMA) instructions and
+   the dense-block library's warpgroup (HGMMA) ones; ptxas's register and
+   spill report of the dense-layer kernel is logged;
 2. the patch-gather kernel on 4 random 9,325 x 8,892 x 3 uint8 slides with
    4 x 4,992 lattice spots (+ edge-clamped, parked and out-of-range-slide
    spots), bit-exact against its plain version, timed against its bound;
@@ -34,8 +36,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. the dense-block kernel at DenseNet-121's four block shapes with B = 624
    (128-px patches), folded from random weights (numpy seed): within
    rtol = atol = 3e-2 of its plain version with a correlation above 0.999,
-   each block timed as phases 2-3 time theirs, beside its bound and, as a
-   yardstick the port never calls, the same block as eager bf16 cuDNN
+   each block timed as phases 2-3 time theirs, beside its bound, its
+   layer-at-a-time floor (the larger of the FLOP time and the bytes of
+   reading each layer's ``c_in`` channels and writing its ``growth``) and,
+   as a yardstick the port never calls, the same block as eager bf16 cuDNN
    convolutions in channels-last;
 6. DenseNet-121 at full width on the same 4 slides and positions files: the
    model-directory route (``image_registrar_from_meta``, f32 module, TF32
@@ -43,7 +47,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the masks and a direct ``GridNetHex(DenseNet)`` forward; the
    fused route (``SlideRegistrar`` on ``build_densenet_fused_infer``, the
    dense-block kernel, the same folded corrector) with ``register_batch``,
-   its counts set to 0 just before and read just after, its labels equal
+   its counts set to 0 just before and read just after (one dense-block
+   launch per layer of every block call), its labels equal
    to the f32 route's up to near-ties within the bf16 budget; the fused
    f's logits against the f32 module's on one 624-patch chunk; both
    routes' ``register_batch`` timed in turns, and a torch.profiler table of
@@ -160,8 +165,7 @@ KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
                   "fused_hex_corrector": ("hex_layer_kernel",),
                   "fused_hex_corrector_labels": ("hex_layer_kernel",
                                                  "hex_labels_kernel"),
-                  "fused_dense_block": ("dense_bottleneck_kernel",
-                                        "dense_conv3x3_kernel"),
+                  "fused_dense_block": ("dense_layer_kernel",),
                   "fused_generalized_linear_attention": (
                       "favor_accum_kernel", "favor_reduce_kernel", "favor_apply_kernel")}
 
@@ -580,6 +584,13 @@ def profile_batch(torch, reg, slides, positions,
         log(f"register_batch trace: {name} device {dev_ms:.4f} ms ({parts})")
 
 
+def dense_layer_floor_bytes(b, side, c0, n_layers, growth=GROWTH):
+    """Bytes a layer-at-a-time block must move on b patches: each layer reads
+    its c_in bf16 channels and writes its growth."""
+    m = b * side * side
+    return sum(2 * m * (c0 + l * growth + growth) for l in range(n_layers))
+
+
 def dense_block_work(b, side, c0, n_layers, cb, growth=GROWTH):
     """(flops, bytes) of one dense block on b patches: written channels only;
     bytes = bf16 input and output once, plus the bf16 weights and f32
@@ -666,18 +677,22 @@ def phase_dense_block(torch, dense, f_vars, dev):
         flops, nbytes = dense_block_work(CHUNK, side, c0, n_layers, w1.shape[-1])
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        floor_bytes = dense_layer_floor_bytes(CHUNK, side, c0, n_layers)
+        t_floor = max(t_ops, floor_bytes / HBM_BYTES_PER_S * 1e3)
         res[bi] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                    "host_ms": host_ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "cudnn_ms": cudnn_ms}
+                   "layer_floor_ms": t_floor, "cudnn_ms": cudnn_ms}
         log(f"dense block {bi} ({side}x{side}, {c0} -> {c0 + GROWTH * n_layers}, L = "
             f"{n_layers}): max abs err {err:.4g}, {differ * 100:.2f} % of elements "
             f"differ, corr {corr:.6f}; kernel {ms:.4f} ms per call (events; host "
             f"issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} ms ({parts}), "
             f"plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
             f"({flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> "
-            f"{t_bytes:.4f} ms); yardstick: eager bf16 cuDNN sequence {cudnn_ms:.4f} ms")
+            f"{t_bytes:.4f} ms); layer-at-a-time floor {t_floor:.4f} ms ({floor_bytes / 1e9:.3f} "
+            f"GB read and written -> {floor_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+            f"yardstick: eager bf16 cuDNN sequence {cudnn_ms:.4f} ms")
     return res
 
 
@@ -737,18 +752,33 @@ def phase_densenet(torch, slides, positions, masks, port, variables, card):
         dense.build_densenet_fused_infer(f_vars, device=dev), reg.kernels, reg.biases,
         reg.relu_flags, patch_size=PATCH, normalize=None, patch_chunk=CHUNK,
         device=dev)
-    gather.launches = 0
-    dense.launches = 0
-    for k in corr.launches:
-        corr.launches[k] = 0
-    labels_bf16 = fused.register_batch(slides, positions)
-    torch.cuda.synchronize()
+    layers = []          # layers of each dense-block call the fused f makes
+    block_fn = dense.fused_dense_block
+
+    def counted_block(x, A1, *args, **kwargs):
+        layers.append(int(A1.shape[0]))
+        return block_fn(x, A1, *args, **kwargs)
+
+    dense.fused_dense_block = counted_block
+    try:
+        gather.launches = 0
+        dense.launches = 0
+        for k in corr.launches:
+            corr.launches[k] = 0
+        labels_bf16 = fused.register_batch(slides, positions)
+        torch.cuda.synchronize()
+    finally:
+        dense.fused_dense_block = block_fn
     launches = {"gather_patches": gather.launches, **corr.launches,
                 "fused_dense_block": dense.launches}
-    log(f"fused-route kernel launches: {launches}")
+    log(f"fused-route kernel launches: {launches} ({len(layers)} dense-block calls, "
+        f"{sum(layers)} layers)")
     for name in ("gather_patches", "fused_hex_corrector_labels", "fused_dense_block"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the fused route")
+    if launches["fused_dense_block"] != sum(layers):
+        raise AssertionError(f"{launches['fused_dense_block']} dense-block launches for "
+                             f"{sum(layers)} layers: not one launch per layer")
     flips = 0
     for i in range(N_SLIDES):
         if not np.array_equal(labels_bf16[i] > 0, masks[i] > 0):
@@ -1113,13 +1143,18 @@ def main() -> int:
     for name, info in built.items():
         log(f"built {name}.cu in {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error", "warning",
+                                       "dense_layer_kernel")):
                 log(f"  {line.strip()}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     hmma = sass_count(_cuda.library_path("favor"), "HMMA")
     log(f"favor library SASS: {hmma} HMMA (tensor-core) instructions")
     if hmma == 0:
         raise AssertionError("the FAVOR library has no tensor-core instructions")
+    hgmma = sass_count(_cuda.library_path("denseblock"), "HGMMA")
+    log(f"denseblock library SASS: {hgmma} HGMMA (warpgroup tensor-core) instructions")
+    if hgmma == 0:
+        raise AssertionError("the dense-block library has no wgmma (HGMMA) instructions")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")

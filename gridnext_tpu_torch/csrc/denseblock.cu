@@ -1,53 +1,71 @@
 // Fused DenseNet-BC block, inference mode: per layer a 1x1 bottleneck and a
 // 3x3 convolution over a bf16 concat buffer (B, H, W, Cmax) that grows in
-// place by `growth` channels per layer.
+// place by `growth` channels per layer. One launch of dense_layer_kernel
+// per layer.
 //
 // Replaces the TPU kernel gridnext_tpu/ops/denseblock_pallas.py
 // fused_dense_block (_block_kernel, pallas_call at :150), which held a batch
 // tile's whole concat buffer in VMEM across all layers. On Hopper one
-// patch's buffer is too large for a block's 227 KB of shared memory in the
-// first two blocks of DenseNet-121 at 128 px (32x32x256 bf16 = 512 KB,
-// 16x16x512 = 256 KB), so here the buffer stays in device memory (and the
-// 50 MB L2) and each layer is two launches:
+// patch's buffer does not fit a block's 227 KB of shared memory in the first
+// two blocks of DenseNet-121 at 128 px (32x32x256 bf16 = 512 KB, 16x16x512 =
+// 256 KB), so the buffer stays in device memory and each layer reads its
+// c_in written channels and appends `growth`. What stays on chip is the
+// bottleneck's output u:
 //
-//   dense_bottleneck_kernel: u = bf16(relu((bf16(relu(buf*a1 + b1)) @ W1) * a2 + b2))
-//     over the layer's written channels c_in only (the folded tails are
-//     zero, so the result is the same and the work smaller). A CTA takes 128
-//     rows of the flat (B*H*W) axis and 128 of the Cb outputs.
-//   dense_conv3x3_kernel: buf[..., c_in:c_in+growth] = bf16(sum_taps shift(u) @ W2[tap])
-//     an implicit GEMM with K = 9*Cb and N = growth. A CTA takes whole
-//     image rows (about 256 pixels, 32 per warp) of the flat (B*H) row
-//     axis, stages them with a one-pixel halo in shared memory once per
-//     32-channel slice, and reads all 9 taps from there. Zero padding works
-//     per patch and per row: halo pixels outside the image row are zero
-//     when staged, and a tap row that would cross into the previous or next
-//     patch (y +- 1 outside [0, H)) reads a row of zeros instead.
+//   t = bf16(relu(buf * a1 + b1))                    registers
+//   u = bf16(relu((t @ W1) * a2 + b2))               shared memory, never HBM
+//   buf[..., c_in:c_in+growth] = bf16(sum_taps shift(u) @ W2[tap])
+//
+// A CTA owns the pixels it appends to and the u they need:
+//   - whole patches (blocks 2-4 of DenseNet-121): `patches` consecutive
+//     patches; the 3x3's zero padding is the patch edge, no halo;
+//   - row bands (block 1, or any patch whose u is too large): `band_rows`
+//     whole image rows of one patch, with u recomputed for the row above and
+//     below inside the patch.
+// The Python planner (ops/denseblock_cuda.py, plan_dense_block) picks the
+// mode, the warpgroups (1-4, one 64-pixel wgmma tile each per round) and the
+// ring depth; dense_block_bf16 checks the shared-memory size.
+//
+// Products: wgmma with A from registers and B from shared memory.
+//   - 1x1: m64n128k16 per warpgroup tile, K = c_in in 32-channel stages of a
+//     2-4 slot cp.async ring (the buffer tile, W1's [k][n] slice and the
+//     stage's a1, b1). Each warp loads its A fragment with ldmatrix, applies
+//     relu(x * a1 + b1) and rounds to bf16; W1 stays in the JAX layout
+//     ([k][n], N-major: the transposed-B form of wgmma) as 8x8 core
+//     matrices. The next stage's copies are issued while the wgmma runs.
+//   - 3x3: m64n32k16, K = 9 taps x Cb, with all of W2 copied into the ring
+//     once the 1x1 is done (while u's epilogue runs). A is the shifted u rows
+//     through ldmatrix (a one-pixel shift breaks the core-matrix layout a
+//     shared-memory descriptor needs); a tap that falls outside the patch
+//     reads a row of zeros. Each half tap (64 channels) is one wgmma group;
+//     the next half's A fragments load while it runs, in a second set of
+//     registers (a whole tap's two sets spilled at 128 registers).
+// cp.async, not TMA: A passes through registers for its affine anyway, the
+// rows are padded to 80 bytes for ldmatrix without a swizzle, and no
+// driver-API tensor map is encoded per call.
 //
 // Rounding points, as the JAX function's on the TPU: the buffer and u are
 // bf16; both products take bf16 operands (t is rounded to bf16, as the TPU's
-// default-precision f32 dot rounds it) and accumulate in f32 (mma.sync
-// m16n8k16); the affines multiply and add in separate f32 roundings
-// (__fmul_rn, __fadd_rn: no FMA contraction), as the plain version does.
-// The plain version keeps t in f32; the difference is about one bf16
-// rounding of u.
+// default-precision f32 dot rounds it) and accumulate in f32; the affines
+// multiply and add in separate f32 roundings (__fmul_rn, __fadd_rn: no FMA
+// contraction), as the plain version does. The plain version keeps t in
+// f32; the difference is about one bf16 rounding of u. Channels >= c_in are
+// never read (zero-filled copies) and t is zeroed there, so whatever the
+// unwritten buffer channels hold cannot reach the product. No atomics and no
+// split K: the same inputs give the same bits.
 //
 // Bound: operations. Counting written channels only, a 624-patch chunk of
 // DenseNet-121 at 128 px does 424 / 291 / 224 / 43 GFLOP in blocks 1-4:
-// 0.43 / 0.29 / 0.23 / 0.043 ms at the 989 TFLOP/s bf16 tensor-core peak,
-// against 0.12 / 0.06 / 0.03 / 0.01 ms to read each block's input and write
-// its output once at 3.35 TB/s. What the design does about it: bf16
-// tensor-core products (mma.sync m16n8k16) with f32 accumulation; two
-// shared-memory stages per kernel, the next 32-channel slice arriving by
-// cp.async while the warps multiply this one (the bottleneck's activations,
-// which need their affine, wait in registers instead); fragments loaded
-// with ldmatrix (.trans for the [k][n] weights) from rows padded to 80 or
-// 272 bytes, so the loads are free of bank conflicts; the 3x3's input read
-// once per CTA with its halo instead of once per tap, and each warp's
-// weight fragments reused for 32 pixels. Measured on an H100 (PERF.md) it
-// runs at 5-15 % of the bound. Later work: wgmma with TMA-fed multi-stage
-// pipelines, the bottleneck fused into the 3x3 (u kept on chip), more CTAs
-// for the small late blocks, and patch groups whose whole buffer stays in
-// the 50 MB L2 across the block's layers.
+// 0.43 / 0.29 / 0.23 / 0.043 ms at the 989 TFLOP/s bf16 tensor-core peak.
+// A layer-at-a-time design must still read each layer's c_in channels and
+// write its growth (3.7 GB read, 0.44 GB written a chunk, 1.24 ms at 3.35
+// TB/s); keeping u on chip removes the other half of the old kernel's
+// traffic (4.1 GB a chunk) and one launch per layer. What holds this kernel
+// (measured on an H100, PERF.md): each 1x1 ring stage costs some 3,000-4,500
+// SM clocks against 512 of tensor work, in its barrier, the per-thread
+// cp.async issue of the next stage, the affine and one wgmma group waited
+// for. A copy warp beside four warpgroups (544 threads) lost: 96 registers
+// and serialised wgmma. TMA for the ring is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,23 +74,32 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kBK = 32;         // channels (K) per shared-memory stage
-constexpr int kAStride = kBK + 8;  // bf16 per A row in smem: 80 bytes, conflict-free
+constexpr int kTile = 64;            // wgmma M: pixels per warpgroup tile
+constexpr int kMaxWarpgroups = 4;
+constexpr int kBK = 32;              // 1x1 channels (K) per ring stage
+constexpr int kAStride = kBK + 8;    // bf16 per A row in a stage: 80 bytes, conflict-free
+constexpr int kCbMax = 128;          // the 1x1's N (wgmma n128); Cb is at most this
+constexpr int kGrowthMax = 32;       // the 3x3's N (wgmma n32); growth is at most this
+constexpr int kW1StageBytes = kBK * kCbMax * 2;
+constexpr int kAffineStageBytes = 2 * kBK * 4;  // a1, b1 of the stage's channels (f32)
+constexpr int kSmemLimit = 232448;   // a block's dynamic shared memory on sm_90
 
-// bottleneck tile: 128 rows x 128 outputs; warps 4 (rows) x 2 (cols), 32 x 64 each
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBStride = kBN + 8;  // bf16 per B row (k) in smem
+struct Layer {
+  uint16_t* buf;
+  const float* a1;
+  const float* b1;
+  const uint16_t* w1;  // [c_max][cb] of this layer
+  const float* a2;
+  const float* b2;
+  const uint16_t* w2;  // [9][cb][growth] of this layer
+  long long m;         // pixels: nb * h * w
+  int h, w, c_max, c_in, cb, cbp, growth;
+  int band_rows;       // > 0: a band of rows of one patch per CTA; 0: whole patches
+  int patches;         // patches per CTA when band_rows == 0
+  int u_pix;           // u pixels a CTA holds at most
+  int stages;          // ring depth, 2..4
+};
 
-// 3x3 tile: up to 256 output pixels (two m16 fragments per warp) x 32 outputs
-constexpr int kConvPix = 256;
-constexpr int kConvN = 32;
-constexpr int kCStride = kConvN + 8;
-
-// Four 8x8 bf16 matrices from shared memory, one row address per lane (lanes
-// 8i..8i+7 give matrix i's rows): an A fragment of m16n8k16, or with .trans
-// the B fragments of two n8 tiles from a [k][n] tile.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -80,44 +107,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p)
                : "r"(a));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
-}
-
-__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(v);
-  return *reinterpret_cast<const uint16_t*>(&b);
-}
-
-// relu(x * a + b) with separate f32 roundings.
-__device__ __forceinline__ float affine_relu(float x, float a, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(x, a), b), 0.f);
-}
-
-__device__ __forceinline__ void store_pair(uint16_t* dst, float v0, float v1) {
-  const uint32_t packed = static_cast<uint32_t>(float_to_bf16_bits(v0)) |
-                          (static_cast<uint32_t>(float_to_bf16_bits(v1)) << 16);
-  *reinterpret_cast<uint32_t*>(dst) = packed;
-}
-
 // 16-byte asynchronous copy global -> shared; zero-fills when !ok (no read).
-__device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(ok ? 16 : 0));
@@ -125,284 +116,389 @@ __device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src, b
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// Wait until at most `pending` (0..2) committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The bottleneck's A operand for one stage, held in registers between its
-// global load and its shared-memory store: 2 x 8 channels of one row each.
-struct AStage {
-  uint4 raw[2];
-  bool ok[2];
-};
+// Shared memory written by cp.async (generic proxy), read by wgmma's
+// descriptors (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-__device__ __forceinline__ void load_a(AStage& st, const uint16_t* __restrict__ buf,
-                                       int64_t row0, int64_t m, int c_max, int c_in, int k0) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across an
+// asynchronous wgmma that uses them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * kThreads;
-    const int r = v / (kBK / 8), k = k0 + (v % (kBK / 8)) * 8;
-    const int64_t row = row0 + r;
-    st.ok[i] = row < m && k < c_in;  // c_in % 8 == 0: 8 channels all in or all out
-    if (st.ok[i]) st.raw[i] = *reinterpret_cast<const uint4*>(buf + row * c_max + k);
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// t = bf16(relu(x * a1 + b1)) into the A tile (zeros outside the matrix);
-// a1 and b1 of the stage's 32 channels are the same for every row (L1 hits).
-__device__ __forceinline__ void store_a(const AStage& st, const float* __restrict__ a1,
-                                        const float* __restrict__ b1, int k0, uint16_t* As) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int v = threadIdx.x + i * kThreads;
-    const int r = v / (kBK / 8), kv = (v % (kBK / 8)) * 8;
-    uint4 packed = make_uint4(0, 0, 0, 0);
-    if (st.ok[i]) {
-      float a[8], b[8];
-      *reinterpret_cast<float4*>(a) = __ldg(reinterpret_cast<const float4*>(a1 + k0 + kv));
-      *reinterpret_cast<float4*>(a + 4) =
-          __ldg(reinterpret_cast<const float4*>(a1 + k0 + kv + 4));
-      *reinterpret_cast<float4*>(b) = __ldg(reinterpret_cast<const float4*>(b1 + k0 + kv));
-      *reinterpret_cast<float4*>(b + 4) =
-          __ldg(reinterpret_cast<const float4*>(b1 + k0 + kv + 4));
-      const uint16_t* x = reinterpret_cast<const uint16_t*>(&st.raw[i]);
-      uint16_t* t = reinterpret_cast<uint16_t*>(&packed);
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        t[j] = float_to_bf16_bits(affine_relu(bf16_bits_to_float(x[j]), a[j], b[j]));
-    }
-    *reinterpret_cast<uint4*>(&As[r * kAStride + kv]) = packed;
-  }
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// W1[k0:k0+32, n0:n0+128] as [k][n], asynchronously.
-__device__ __forceinline__ void load_b(const uint16_t* __restrict__ w1, int c_in, int cb,
-                                       int k0, int n0, uint16_t* Bs) {
-  for (int v = threadIdx.x; v < kBK * (kBN / 8); v += kThreads) {
-    const int kk = v / (kBN / 8), nv = (v % (kBN / 8)) * 8;
-    const int k = k0 + kk, n = n0 + nv;
-    const bool ok = k < c_in && n < cb;
-    cp_async16(&Bs[kk * kBStride + nv], ok ? w1 + static_cast<int64_t>(k) * cb + n : w1, ok);
-  }
+// Shared-memory matrix descriptor, no swizzle: 8x8 core matrices of 128
+// contiguous bytes; lbo = byte stride between core matrices along K, sbo =
+// along N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// Two shared-memory stages: while the warps multiply stage s, stage s + 1's
-// weights arrive by cp.async and its activations wait in registers.
-__global__ void __launch_bounds__(kThreads, 2)
-dense_bottleneck_kernel(const uint16_t* __restrict__ buf, int64_t m, int c_max, int c_in,
-                        const float* __restrict__ a1, const float* __restrict__ b1,
-                        const uint16_t* __restrict__ w1, const float* __restrict__ a2,
-                        const float* __restrict__ b2, int cb, uint16_t* __restrict__ u) {
-  __shared__ __align__(16) uint16_t As[2][kBM * kAStride];
-  __shared__ __align__(16) uint16_t Bs[2][kBK * kBStride];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// D(64 x 128, f32) += A(64 x 16, bf16 registers) * B(16 x 128, bf16 shared,
+// N-major: the transposed-B form).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D(64 x 32, f32) += A(64 x 16, bf16 registers) * B(16 x 32, bf16 shared, N-major).
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(v);
+  return *reinterpret_cast<const uint16_t*>(&b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(float_to_bf16_bits(lo)) |
+         (static_cast<uint32_t>(float_to_bf16_bits(hi)) << 16);
+}
+
+// relu(x * a + b) with separate f32 roundings.
+__device__ __forceinline__ float affine_relu(float x, float a, float b) {
+  return fmaxf(__fadd_rn(__fmul_rn(x, a), b), 0.f);
+}
+
+// Two bf16 buffer values (channels k, k + 1; kk = k within the stage) ->
+// bf16 t; zero at k >= c_in (c_in is a multiple of 8 and k even: both
+// channels are in or both out). aff holds the stage's a1 then b1.
+__device__ __forceinline__ uint32_t bottleneck_input(uint32_t x, int k, int kk, int c_in,
+                                                     const float* aff) {
+  if (k >= c_in) return 0u;
+  const float2 a = *reinterpret_cast<const float2*>(aff + kk);
+  const float2 b = *reinterpret_cast<const float2*>(aff + kBK + kk);
+  return pack_bf16(affine_relu(__uint_as_float(x << 16), a.x, b.x),
+                   affine_relu(__uint_as_float(x & 0xffff0000u), a.y, b.y));
+}
+
+// A ring of `stages` shared-memory slots: stage s + stages - 1 is copied in
+// while stage s is multiplied. load(s, slot) issues the cp.async of stage s;
+// compute(s, slot, issue) multiplies stage s, calls issue() (which copies the
+// next stage in) while its wgmma runs, and waits for the wgmma.
+template <class Load, class Compute>
+__device__ __forceinline__ void pipeline(int n, int stages, int slot_bytes, uint8_t* ring,
+                                         Load&& load, Compute&& compute) {
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < n) load(s, ring + s * slot_bytes);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    cp_async_wait(stages - 2);
+    fence_proxy_async();
+    __syncthreads();  // stage s landed; every warpgroup is done with stage s - 1
+    compute(s, ring + (s % stages) * slot_bytes, [&] {
+      const int next = s + stages - 1;
+      if (next < n) load(next, ring + (next % stages) * slot_bytes);
+      cp_async_commit();
+    });
+  }
+  cp_async_wait(0);
+  __syncthreads();  // the ring is free for the next pipeline
+}
+
+__device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// One layer. blockDim.x = 128 * warpgroups; dynamic shared memory:
+// [ring: stages slots, later W2][u: u_pix rounded to 64 rows][a zero row].
+__global__ void __launch_bounds__(kMaxWarpgroups * 128, 1) dense_layer_kernel(const Layer p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int nwg = blockDim.x / 128;
+  const int tid = threadIdx.x, wg = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int a_bytes = nwg * kTile * kAStride * 2;
+  const int slot_bytes = a_bytes + kW1StageBytes + kAffineStageBytes;
+  const int ustride = p.cbp + 8;  // bf16 per u row: an odd number of 16-byte units
+  const int w2_tap_bytes = p.cbp * kGrowthMax * 2;
+  const int ring_bytes = max(p.stages * slot_bytes, 9 * w2_tap_bytes);
+  uint16_t* u = reinterpret_cast<uint16_t*>(smem + ring_bytes);
+  uint16_t* zero = u + ceil_div(p.u_pix, kTile) * kTile * ustride;
+  for (int i = tid; i < ustride; i += blockDim.x) zero[i] = 0;
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // This CTA's u pixels [base, base + n_u) of the flat (B*H*W) axis; its
+  // outputs are n_out of them from out_off, the first opx0 pixels into its patch.
+  const int hw = p.h * p.w;
+  long long base;
+  int n_u, out_off, n_out, opx0;
+  if (p.band_rows > 0) {
+    const int bands = ceil_div(p.h, p.band_rows);
+    const long long patch = blockIdx.x / bands;
+    const int y0 = static_cast<int>(blockIdx.x % bands) * p.band_rows;
+    const int rows = min(p.band_rows, p.h - y0);
+    base = (patch * p.h + y0 - 1) * p.w;  // the row above (another patch's, or none)
+    n_u = (rows + 2) * p.w;
+    out_off = p.w;
+    n_out = rows * p.w;
+    opx0 = y0 * p.w;
+  } else {
+    base = static_cast<long long>(blockIdx.x) * p.patches * hw;
+    n_u = p.patches * hw;
+    out_off = 0;
+    n_out = static_cast<int>(min(static_cast<long long>(n_u), p.m - base));
+    opx0 = 0;
+  }
 
-  AStage st;
-  load_a(st, buf, row0, m, c_max, c_in, 0);
-  load_b(w1, c_in, cb, 0, n0, Bs[0]);
-  cp_async_commit();
-  store_a(st, a1, b1, 0, As[0]);
-  const int n_stages = (c_in + kBK - 1) / kBK;
-  for (int s = 0; s < n_stages; ++s) {
-    const int cur = s & 1;
-    cp_async_wait_all();
-    __syncthreads();  // stage s is in smem; every warp is done with stage s - 1
-    const bool more = s + 1 < n_stages;
-    if (more) {
-      load_a(st, buf, row0, m, c_max, c_in, (s + 1) * kBK);
-      load_b(w1, c_in, cb, (s + 1) * kBK, n0, Bs[cur ^ 1]);
+  // ---- 1x1 bottleneck: u = bf16(relu((t @ W1) * a2 + b2)) into shared memory
+  const int tiles_u = ceil_div(n_u, kTile);
+  const int k_stages = ceil_div(p.c_in, kBK);
+  for (int t0 = 0; t0 < tiles_u; t0 += nwg) {
+    const int tile = t0 + wg;
+    const bool active = tile < tiles_u;
+    const int row0 = t0 * kTile;  // first u row of this round
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    auto load = [&](int s, uint8_t* slot) {
+      const int k0 = s * kBK;
+      uint16_t* as = reinterpret_cast<uint16_t*>(slot);
+      for (int v = tid; v < nwg * kTile * (kBK / 8); v += blockDim.x) {
+        const int r = v / (kBK / 8), kc = (v % (kBK / 8)) * 8;
+        const int lr = row0 + r;
+        const long long q = base + lr;
+        const bool ok = lr < n_u && q >= 0 && q < p.m && k0 + kc < p.c_in;
+        cp_async16(as + r * kAStride + kc, ok ? p.buf + q * p.c_max + k0 + kc : p.buf, ok);
+      }
+      // W1[k0:k0+32, 0:128] as core matrices (k/8, n/8); eight neighbouring
+      // threads take eight k rows of one core matrix (distinct banks)
+      uint8_t* bs = slot + a_bytes;
+      for (int v = tid; v < kBK * (kCbMax / 8); v += blockDim.x) {
+        const int k = (v >> 7) * 8 + (v & 7), nc = (v >> 3) & 15;
+        const bool ok = k0 + k < p.c_in && nc * 8 < p.cb;
+        cp_async16(bs + ((k >> 3) * (kCbMax / 8) + nc) * 128 + (k & 7) * 16,
+                   ok ? p.w1 + static_cast<long long>(k0 + k) * p.cb + nc * 8 : p.w1, ok);
+      }
+      if (tid < kAffineStageBytes / 16) {  // a1[k0:k0+32], b1[k0:k0+32]
+        const int kk = (tid % (kBK / 4)) * 4;
+        const float* src = (tid < kBK / 4 ? p.a1 : p.b1) + k0 + kk;
+        cp_async16(bs + kW1StageBytes + tid * 16, src, k0 + kk < p.c_in);
+      }
+    };
+    auto compute = [&](int s, const uint8_t* slot, auto&& issue) {
+      if (!active) {
+        issue();
+        return;
+      }
+      const uint16_t* as = reinterpret_cast<const uint16_t*>(slot);
+      const float* aff = reinterpret_cast<const float*>(slot + a_bytes + kW1StageBytes);
+      const int k0 = s * kBK;
+      uint32_t a[kBK / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t x[4];  // rows g, g + 8 of the warp's 16; channels 2tg, 2tg + 8
+        ldmatrix_x4(x, as + (wg * kTile + wi * 16 + (lane & 15)) * kAStride + ks * 16 +
+                           (lane >> 4) * 8);
+        const int kk = ks * 16 + 2 * tg;
+        a[ks][0] = bottleneck_input(x[0], k0 + kk, kk, p.c_in, aff);
+        a[ks][1] = bottleneck_input(x[1], k0 + kk, kk, p.c_in, aff);
+        a[ks][2] = bottleneck_input(x[2], k0 + kk + 8, kk + 8, p.c_in, aff);
+        a[ks][3] = bottleneck_input(x[3], k0 + kk + 8, kk + 8, p.c_in, aff);
+      }
+      const uint8_t* bs = slot + a_bytes;
+      fence_regs(acc);
+      fence_regs(a);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks)
+        wgmma_n128(acc, a[ks], smem_desc(bs + ks * 2 * (kCbMax / 8) * 128,
+                                         (kCbMax / 8) * 128, 128));
+      wgmma_commit();
+      issue();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a);
+    };
+    pipeline(k_stages, p.stages, slot_bytes, smem, load, compute);
+    if (t0 + nwg >= tiles_u) {
+      // the ring is free: W2 of all nine taps, as core matrices (k/8, n/8)
+      // per tap, arrives while the last round's epilogue writes u
+      for (int v = tid; v < 9 * p.cbp * (kGrowthMax / 8); v += blockDim.x) {
+        const int tap = v / (p.cbp * (kGrowthMax / 8)), r = v % (p.cbp * (kGrowthMax / 8));
+        const int k = (r >> 5) * 8 + (r & 7), nc = (r >> 3) & 3;
+        const bool ok = k < p.cb && nc * 8 < p.growth;
+        cp_async16(smem + tap * w2_tap_bytes + ((k >> 3) * (kGrowthMax / 8) + nc) * 128 +
+                       (k & 7) * 16,
+                   ok ? p.w2 + static_cast<long long>(tap * p.cb + k) * p.growth + nc * 8
+                      : p.w2,
+                   ok);
+      }
       cp_async_commit();
     }
+
+    if (active) {  // accumulator: rows g, g + 8 of the warp's 16; columns 8j + 2tg, +1
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      // lane l addresses row (l & 15), column block (l >> 4) of the 16 x 16 tile
-      uint32_t af[2][4];
+      for (int j = 0; j < kCbMax / 8; ++j) {
+        const int n = j * 8 + 2 * tg;
+        if (n >= p.cbp) continue;
+        const bool real = n < p.cb;  // cb % 8 == 0: n and n + 1 together
+        const float s0 = real ? p.a2[n] : 0.f, s1 = real ? p.a2[n + 1] : 0.f;
+        const float o0 = real ? p.b2[n] : 0.f, o1 = real ? p.b2[n + 1] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(af[i], As[cur] + (wm * 32 + i * 16 + (lane & 15)) * kAStride + ks +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];  // b0, b1 of n-tile j, then of n-tile j + 1
-        ldmatrix_x4_trans(b, Bs[cur] + (ks + (lane & 15)) * kBStride + wn * 64 + j * 8 +
-                                 (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], af[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], af[i], b[2], b[3]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = tile * kTile + wi * 16 + g + hh * 8;
+          *reinterpret_cast<uint32_t*>(u + row * ustride + n) =
+              real ? pack_bf16(affine_relu(acc[4 * j + 2 * hh], s0, o0),
+                               affine_relu(acc[4 * j + 2 * hh + 1], s1, o1))
+                   : 0u;
         }
       }
     }
-    if (more) store_a(st, a1, b1, (s + 1) * kBK, As[cur ^ 1]);
   }
 
-  // epilogue: u = bf16(relu(acc * a2 + b2)); accumulator (row g | g+8, cols 2tg, 2tg+1)
+  // ---- 3x3: buf[..., c_in:c_in+growth] = bf16(sum_taps shift(u) @ W2[tap])
+  cp_async_wait(0);
+  fence_proxy_async();
+  __syncthreads();  // u and W2 are in shared memory
+  const int tiles_o = ceil_div(n_out, kTile);
+  const int k_steps = p.cbp / 16;
+  for (int t0 = 0; t0 < tiles_o; t0 += nwg) {
+    const int tile = t0 + wg;
+    const bool active = tile < tiles_o;
+    // the output pixel whose u row this lane addresses in ldmatrix, and a
+    // bit per tap (3 (dy + 1) + dx + 1) that stays inside its patch
+    const int jp = tile * kTile + wi * 16 + (lane & 15);
+    int taps = 0;
+    if (active && jp < n_out) {
+      const int q = (opx0 + jp) % hw;
+      const int y = q / p.w, x = q % p.w;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + wn * 64 + j * 8 + tg * 2;
-    if (n >= cb) continue;  // cb % 8 == 0: n and n + 1 are both in or both out
-    const float s0 = a2[n], s1 = a2[n + 1], o0 = b2[n], o1 = b2[n + 1];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int64_t row = row0 + wm * 32 + i * 16 + g + hh * 8;
-        if (row >= m) continue;
-        store_pair(u + row * cb + n, affine_relu(acc[i][j][2 * hh], s0, o0),
-                   affine_relu(acc[i][j][2 * hh + 1], s1, o1));
+      for (int t = 0; t < 9; ++t) {
+        const int yy = y + t / 3 - 1, xx = x + t % 3 - 1;
+        if (yy >= 0 && yy < p.h && xx >= 0 && xx < p.w) taps |= 1 << t;
       }
     }
-  }
-}
-
-// One 32-channel slice of the 3x3's operands, asynchronously: the tile's u
-// with its one-pixel halo (zero outside the image rows and columns) and
-// W2[tap, c0:c0+32, n0:n0+32] as [tap*32 + k][n].
-__device__ __forceinline__ void load_conv_stage(
-    const uint16_t* __restrict__ u, const uint16_t* __restrict__ w2, int64_t n_rows, int w,
-    int cb, int growth, int64_t r0, int x0, int halo_w, int halo_pix, int c0, int n0,
-    uint16_t* halo, uint16_t* Bs) {
-  for (int v = threadIdx.x; v < halo_pix * (kBK / 8); v += kThreads) {
-    const int q = v / (kBK / 8), cv = (v % (kBK / 8)) * 8;
-    const int j = q / halo_w, xc = q % halo_w;
-    const int64_t r = r0 - 1 + j;
-    const int x = x0 - 1 + xc;
-    const int c = c0 + cv;
-    const bool ok = r >= 0 && r < n_rows && x >= 0 && x < w && c < cb;
-    cp_async16(&halo[q * kAStride + cv], ok ? u + (r * w + x) * cb + c : u, ok);
-  }
-  for (int v = threadIdx.x; v < 9 * kBK * (kConvN / 8); v += kThreads) {
-    const int kt = v / (kConvN / 8), nv = (v % (kConvN / 8)) * 8;
-    const int tap = kt / kBK, kk = kt % kBK;
-    const int c = c0 + kk, n = n0 + nv;
-    const bool ok = c < cb && n < growth;
-    cp_async16(&Bs[kt * kCStride + nv],
-               ok ? w2 + (static_cast<int64_t>(tap) * cb + c) * growth + n : w2, ok);
-  }
-}
-
-// One CTA: `rows` image rows (flat over (b, y)) starting at r0, columns
-// [x0, x0 + tile_w), 32 output channels from n0; each warp takes 32 of the
-// tile's pixels (two m16 fragments). Two shared-memory stages of 32 channels
-// each: the next slice arrives by cp.async during this one's products. A tap
-// row that falls outside its patch (y +- 1 outside [0, H)), or a pixel past
-// the tile, reads a row of zeros.
-__global__ void __launch_bounds__(kThreads)
-dense_conv3x3_kernel(const uint16_t* __restrict__ u, int64_t n_rows, int h, int w, int cb,
-                     const uint16_t* __restrict__ w2, int growth, int rows, int tile_w,
-                     uint16_t* __restrict__ out, int c_max, int c_off) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  __shared__ __align__(16) uint16_t zero_row[kAStride];
-  const int halo_w = tile_w + 2;
-  const int halo_pix = (rows + 2) * halo_w;
-  const int stage_elems = halo_pix * kAStride + 9 * kBK * kCStride;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const int col_tiles = (w + tile_w - 1) / tile_w;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x / col_tiles) * rows;
-  const int x0 = static_cast<int>(blockIdx.x % col_tiles) * tile_w;
-  const int n0 = blockIdx.y * kConvN;
-  const int n_pix = rows * tile_w;
-  const bool active = warp * 32 < n_pix;
-  if (threadIdx.x < kAStride) zero_row[threadIdx.x] = 0;
-
-  // the pixel whose row this lane addresses in each fragment's ldmatrix:
-  // its halo offset (-1: none) and a bit mask of the tap rows dy = -1, 0, +1
-  // that stay inside its patch
-  int base[2], tap_rows[2];
+    const uint16_t* urow = u + (out_off + jp) * ustride + (lane >> 4) * 8;
+    const uint16_t* zrow = zero + (lane >> 4) * 8;
+    float acc[16];
 #pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    const int p = warp * 32 + f * 16 + (lane & 15);
-    const int i = p / tile_w, xl = p % tile_w;
-    const int y = static_cast<int>((r0 + i) % h);
-    base[f] = (i + 1) * halo_w + xl + 1;
-    tap_rows[f] = p < n_pix ? ((y > 0) | 2 | ((y < h - 1) << 2)) : 0;
-  }
-
-  float acc[2][4][4];
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    if (active) {
+      // nine taps with W2 resident: each tap's eight products are one wgmma
+      // group; the next tap's A fragments load while it runs (two register sets)
+      uint32_t a[2][kCbMax / 32][4] = {};
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+      for (int half = 0; half < 18; ++half) {
+        const int tap = half >> 1, k_half = (half & 1) * (kCbMax / 32);
+        uint32_t(&at)[kCbMax / 32][4] = a[half & 1];
+        const uint16_t* src =
+            (taps >> tap) & 1 ? urow + ((tap / 3 - 1) * p.w + tap % 3 - 1) * ustride : zrow;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+        for (int ks = 0; ks < kCbMax / 32; ++ks)
+          if (k_half + ks < k_steps) ldmatrix_x4(at[ks], src + (k_half + ks) * 16);
+        fence_regs(acc);
+        fence_regs(at);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
-
-  const int n_stages = (cb + kBK - 1) / kBK;
-  load_conv_stage(u, w2, n_rows, w, cb, growth, r0, x0, halo_w, halo_pix, 0, n0, smem,
-                  smem + halo_pix * kAStride);
-  cp_async_commit();
-  for (int s = 0; s < n_stages; ++s) {
-    const uint16_t* halo = smem + (s & 1) * stage_elems;
-    const uint16_t* Bs = halo + halo_pix * kAStride;
-    cp_async_wait_all();
-    __syncthreads();  // slice s is in smem; every warp is done with slice s - 1
-    if (s + 1 < n_stages) {
-      uint16_t* nxt = smem + ((s + 1) & 1) * stage_elems;
-      load_conv_stage(u, w2, n_rows, w, cb, growth, r0, x0, halo_w, halo_pix,
-                      (s + 1) * kBK, n0, nxt, nxt + halo_pix * kAStride);
-      cp_async_commit();
+        for (int ks = 0; ks < kCbMax / 32; ++ks)
+          if (k_half + ks < k_steps)
+            wgmma_n32(acc, at[ks],
+                      smem_desc(smem + tap * w2_tap_bytes + (k_half + ks) * 2 * (kGrowthMax / 8) * 128,
+                                (kGrowthMax / 8) * 128, 128));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(a[(half + 1) & 1]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
     }
-    if (!active) continue;
+
+    if (active) {
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-      const uint16_t* rowp[2];
+      for (int j = 0; j < kGrowthMax / 8; ++j) {
+        const int n = j * 8 + 2 * tg;
+        if (n >= p.growth) continue;  // growth % 8 == 0
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
-        rowp[f] = ((tap_rows[f] >> (dy + 1)) & 1)
-                      ? halo + (base[f] + dy * halo_w + dx) * kAStride + (lane >> 4) * 8
-                      : zero_row + (lane >> 4) * 8;
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int f = 0; f < 2; ++f)
-          ldmatrix_x4(a[f], rowp[f] + ks);  // the zero row is kAStride wide too
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, Bs + (tap * kBK + ks + (lane & 15)) * kCStride + j * 8 +
-                                   (lane >> 4) * 8);
-#pragma unroll
-          for (int f = 0; f < 2; ++f) {
-            mma_bf16(acc[f][j], a[f], b[0], b[1]);
-            mma_bf16(acc[f][j + 1], a[f], b[2], b[3]);
-          }
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = tile * kTile + wi * 16 + g + hh * 8;
+          if (row >= n_out) continue;
+          *reinterpret_cast<uint32_t*>(p.buf + (base + out_off + row) * p.c_max + p.c_in + n) =
+              pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
         }
       }
     }
   }
+}
 
-  // epilogue: accumulator rows g and g + 8 of each fragment, columns 2tg, 2tg+1
-#pragma unroll
-  for (int f = 0; f < 2; ++f) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = warp * 32 + f * 16 + g + hh * 8;
-      const int64_t r = r0 + p / tile_w;
-      const int x = x0 + p % tile_w;
-      if (p >= n_pix || r >= n_rows || x >= w) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + j * 8 + tg * 2;
-        if (n >= growth) continue;  // growth % 8 == 0
-        store_pair(out + (r * w + x) * c_max + c_off + n, acc[f][j][2 * hh],
-                   acc[f][j][2 * hh + 1]);
-      }
-    }
-  }
+// Dynamic shared memory of one CTA (the planner in ops/denseblock_cuda.py
+// repeats this sum).
+long long dense_block_smem_bytes(int u_pix, int cb, int warpgroups, int stages) {
+  const long long cbp = (cb + 15) / 16 * 16;
+  const long long slot = static_cast<long long>(warpgroups) * kTile * kAStride * 2 +
+                         kW1StageBytes + kAffineStageBytes;
+  const long long u_rows = (u_pix + kTile - 1) / kTile * kTile;
+  const long long ring = stages * slot > 9 * cbp * kGrowthMax * 2 ? stages * slot
+                                                                  : 9 * cbp * kGrowthMax * 2;
+  return ring + (u_rows + 1) * (cbp + 8) * 2;
 }
 
 }  // namespace
@@ -414,55 +510,54 @@ extern "C" const char* error_string(int err) {
 // All layers of one block over buf (nb, h, w, c_in0 + n_layers * growth)
 // bf16, whose first c_in0 channels hold the input; the layers append in
 // place. a1, b1 (n_layers, c_max) and a2, b2 (n_layers, cb) f32; w1
-// (n_layers, c_max, cb) and w2 (n_layers, 9, cb, growth) bf16; u is
-// (nb * h * w, cb) bf16 scratch. c_in0, growth and cb are multiples of 8 and
-// every pointer is 16-byte aligned. Launches 2 * n_layers kernels on
-// `stream`; returns the first launch error (cudaGetLastError) or 0.
+// (n_layers, c_max, cb) and w2 (n_layers, 9, cb, growth) bf16. c_in0, growth
+// and cb are multiples of 8, growth <= 32, cb <= 128, every pointer 16-byte
+// aligned. The tile plan: band_rows > 0 gives each CTA that many rows of one
+// patch, else `patches` whole patches; warpgroups (1-4) and stages (2-4)
+// size the CTA. Launches n_layers kernels on `stream`; returns the first
+// launch error (cudaGetLastError) or 0.
 extern "C" int dense_block_bf16(void* buf, const void* a1, const void* b1, const void* w1,
                                 const void* a2, const void* b2, const void* w2, long long nb,
                                 int h, int w, int c_in0, int growth, int n_layers, int cb,
-                                void* u, void* stream) {
-  if (c_in0 % 8 || growth % 8 || cb % 8 || h < 1 || w < 1 || nb < 0)
+                                int band_rows, int patches, int warpgroups, int stages,
+                                void* stream) {
+  if (c_in0 % 8 || growth % 8 || cb % 8 || growth > kGrowthMax || cb > kCbMax || h < 1 ||
+      w < 1 || nb < 0 || band_rows < 0 || (band_rows == 0 && patches < 1) ||
+      warpgroups < 1 || warpgroups > kMaxWarpgroups || stages < 2 || stages > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const int c_max = c_in0 + n_layers * growth;
-  const int64_t n_rows = static_cast<int64_t>(nb) * h;
-  const int64_t m = n_rows * w;
+  const long long m = nb * h * w;
   if (m == 0 || n_layers == 0) return 0;
-  const int tile_w = w < kConvPix ? w : kConvPix;
-  const int rows = kConvPix / tile_w;
-  const size_t smem =  // two stages
-      2 * (static_cast<size_t>(rows + 2) * (tile_w + 2) * kAStride + 9 * kBK * kCStride) *
-      sizeof(uint16_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dense_conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t row_tiles = (n_rows + rows - 1) / rows;
-  const int64_t conv_tiles = row_tiles * ((w + tile_w - 1) / tile_w);
-  const int64_t mm_tiles = (m + kBM - 1) / kBM;
-  if (conv_tiles > 0x7fffffff || mm_tiles > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid_mm(static_cast<unsigned>(mm_tiles), (cb + kBN - 1) / kBN);
-  const dim3 grid_conv(static_cast<unsigned>(conv_tiles), (growth + kConvN - 1) / kConvN);
+  Layer p{};
+  p.buf = static_cast<uint16_t*>(buf);
+  p.m = m;
+  p.h = h;
+  p.w = w;
+  p.c_max = c_max;
+  p.cb = cb;
+  p.cbp = (cb + 15) / 16 * 16;
+  p.growth = growth;
+  p.band_rows = band_rows;
+  p.patches = band_rows > 0 ? 1 : patches;
+  p.u_pix = band_rows > 0 ? ((band_rows < h ? band_rows : h) + 2) * w : patches * h * w;
+  p.stages = stages;
+  const long long smem = dense_block_smem_bytes(p.u_pix, cb, warpgroups, stages);
+  const long long ctas =
+      band_rows > 0 ? nb * ((h + band_rows - 1) / band_rows) : (nb + patches - 1) / patches;
+  if (smem > kSmemLimit || ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint16_t* out = static_cast<uint16_t*>(buf);
-  uint16_t* scratch = static_cast<uint16_t*>(u);
   for (int l = 0; l < n_layers; ++l) {
-    const int c_in = c_in0 + l * growth;
-    dense_bottleneck_kernel<<<grid_mm, kThreads, 0, s>>>(
-        out, m, c_max, c_in, static_cast<const float*>(a1) + static_cast<int64_t>(l) * c_max,
-        static_cast<const float*>(b1) + static_cast<int64_t>(l) * c_max,
-        static_cast<const uint16_t*>(w1) + static_cast<int64_t>(l) * c_max * cb,
-        static_cast<const float*>(a2) + static_cast<int64_t>(l) * cb,
-        static_cast<const float*>(b2) + static_cast<int64_t>(l) * cb, cb, scratch);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dense_conv3x3_kernel<<<grid_conv, kThreads, smem, s>>>(
-        scratch, n_rows, h, w, cb,
-        static_cast<const uint16_t*>(w2) + static_cast<int64_t>(l) * 9 * cb * growth, growth,
-        rows, tile_w, out, c_max, c_in);
+    p.c_in = c_in0 + l * growth;
+    p.a1 = static_cast<const float*>(a1) + static_cast<long long>(l) * c_max;
+    p.b1 = static_cast<const float*>(b1) + static_cast<long long>(l) * c_max;
+    p.w1 = static_cast<const uint16_t*>(w1) + static_cast<long long>(l) * c_max * cb;
+    p.a2 = static_cast<const float*>(a2) + static_cast<long long>(l) * cb;
+    p.b2 = static_cast<const float*>(b2) + static_cast<long long>(l) * cb;
+    p.w2 = static_cast<const uint16_t*>(w2) + static_cast<long long>(l) * 9 * cb * growth;
+    dense_layer_kernel<<<static_cast<unsigned>(ctas), 128 * warpgroups, smem, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -50,9 +50,9 @@ SIGNATURES = {
     "denseblock": {
         **_ERROR_STRING,
         # buf, a1, b1, w1, a2, b2, w2, nb, h, w, c_in0, growth, n_layers, cb,
-        # u, stream
+        # band_rows, patches, warpgroups, stages, stream
         "dense_block_bf16": ([_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
-                              _I, _I, _I, _VP, _VP], _I),
+                              _I, _I, _I, _I, _I, _I, _I, _VP], _I),
     },
     "favor": {
         **_ERROR_STRING,

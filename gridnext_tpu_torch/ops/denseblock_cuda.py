@@ -2,10 +2,10 @@
 
 :func:`fused_dense_block` replaces the TPU kernel
 ``gridnext_tpu/ops/denseblock_pallas.py::fused_dense_block``. On a CUDA
-tensor it launches the kernels of ``csrc/denseblock.cu``, two per layer; on
-a CPU tensor it runs :func:`fused_dense_block_plain`. There is no fallback
-from one to the other. :func:`build_densenet_fused_infer` runs a whole
-DenseNet on it (stem, transitions and head in plain PyTorch).
+tensor it launches ``csrc/denseblock.cu``'s ``dense_layer_kernel``, one
+launch per layer; on a CPU tensor it runs :func:`fused_dense_block_plain`.
+There is no fallback from one to the other. :func:`build_densenet_fused_infer`
+runs a whole DenseNet on it (stem, transitions and head in plain PyTorch).
 
 Per layer, with eval-mode BatchNorm folded to per-channel affines
 (:func:`fold_dense_block_params`), both versions compute, at the JAX
@@ -22,22 +22,27 @@ rounds ``t`` to bf16 before the 1x1 product, as the TPU's default-precision
 f32 dot does; at DenseNet-121's widths the two differ by about one bf16
 rounding of ``u`` (``chip_smoke.py`` holds them within 3e-2).
 
-What bounds the kernel on the card: operations. A 624-patch chunk of
-DenseNet-121 at 128 px does 424 / 291 / 224 / 43 GFLOP in blocks 1-4
-(written channels only), 0.43 / 0.29 / 0.23 / 0.043 ms at 989 TFLOP/s
-bf16, against 0.12 / 0.06 / 0.03 / 0.01 ms to move each block's input and
-output once. The TPU kernel kept a batch tile's whole concat buffer in
-VMEM; on Hopper one patch's buffer (512 KB in block 1) exceeds a block's
-227 KB of shared memory, so the buffer stays in device memory and L2 and
-each layer appends its ``growth`` channels in place: a 1x1 bottleneck
-launch and a 3x3 implicit-GEMM launch per layer, both bf16 tensor-core
-products fed by double-buffered ``cp.async`` and ``ldmatrix`` (design notes
-in ``csrc/denseblock.cu``).
+What bounds the kernel on the card: operations and, layer by layer, device
+memory. A 624-patch chunk of DenseNet-121 at 128 px does 424 / 291 / 224 /
+43 GFLOP in blocks 1-4 (written channels only), 0.43 / 0.29 / 0.23 / 0.043
+ms at 989 TFLOP/s bf16, and each layer must read its ``c_in`` written
+channels and write ``growth`` (1.24 ms a chunk at 3.35 TB/s). The TPU kernel
+kept a batch tile's whole concat buffer in VMEM; on Hopper one patch's
+buffer (512 KB in block 1) exceeds a block's 227 KB of shared memory, so the
+buffer stays in device memory. What the design keeps on chip is the
+bottleneck's output ``u``: one launch per layer computes the 1x1 product
+into shared memory and the 3x3 from there, both with ``wgmma`` (A from
+registers, B from shared memory, a ``cp.async`` ring). :func:`plan_dense_block`
+chooses which pixels a CTA owns: whole patches where a patch's ``u`` fits
+four 64-pixel tiles (no halo), else bands of whole rows of one patch with
+``u`` recomputed for the row above and below (design notes in
+``csrc/denseblock.cu``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,11 +50,119 @@ import torch.nn.functional as F
 
 from gridnext_tpu_torch.ops import _cuda
 
-# Kernel launches (two per layer) made by fused_dense_block; a plain integer
+# Kernel launches (one per layer) made by fused_dense_block; a plain integer
 # that a run resets and reads to show the kernel was used.
 launches = 0
 
 _ALIGN = 8  # c_in0, growth and Cb must be multiples of this (16-byte vectors)
+CB_MAX, GROWTH_MAX = 128, 32  # the products' N: wgmma n128 (1x1) and n32 (3x3)
+TILE = 64                # wgmma M: pixels per warpgroup tile
+MAX_WARPGROUPS = 4       # tiles a CTA multiplies at once
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on sm_90
+NUM_SMS = 132            # H100 SXM; steers the patches per CTA only
+_BAND_U_TILES = 8        # a band's u holds at most 8 tiles (two rounds of 4)
+_BK = 32                 # 1x1 channels per ring stage (csrc/denseblock.cu kBK)
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """How one block's layers tile the pixels over CTAs.
+
+    ``band_rows > 0``: each CTA appends to ``band_rows`` whole rows of one
+    patch (the last band of a patch may be shorter) and holds ``u`` for those
+    rows plus the row above and below. ``band_rows == 0``: each CTA holds
+    ``patches`` whole patches, no halo. ``u_pix`` is the most ``u`` pixels a
+    CTA holds; ``smem_bytes`` its dynamic shared memory.
+    """
+    band_rows: int
+    patches: int
+    warpgroups: int
+    stages: int
+    ctas: int
+    u_pix: int
+    smem_bytes: int
+
+
+def smem_bytes(u_pix: int, cb: int, warpgroups: int, stages: int) -> int:
+    """A CTA's dynamic shared memory (``csrc/denseblock.cu``'s
+    dense_block_smem_bytes): the ring (per stage a 64-row tile of 32 channels
+    per warpgroup, rows padded to 80 bytes, W1's 32 x 128 bf16 slice and the
+    32 channels' f32 a1, b1), which later holds W2's nine taps; u in whole
+    64-row tiles with rows of Cb (rounded up to 16) + 8 bf16; a zero row."""
+    cbp = -(-cb // 16) * 16
+    slot = warpgroups * TILE * (_BK + 8) * 2 + _BK * CB_MAX * 2 + 2 * _BK * 4
+    u_rows = -(-u_pix // TILE) * TILE
+    return max(stages * slot, 9 * cbp * GROWTH_MAX * 2) + (u_rows + 1) * (cbp + 8) * 2
+
+
+def _fit(u_pix: int, cb: int, warpgroups: int) -> Optional[int]:
+    """The deepest ring (4, 3 or 2 stages) that fits, or None."""
+    for stages in (4, 3, 2):
+        if smem_bytes(u_pix, cb, warpgroups, stages) <= SMEM_LIMIT:
+            return stages
+    return None
+
+
+def plan_dense_block(b: int, h: int, w: int, cb: int, *, band_rows: Optional[int] = None,
+                     patches: Optional[int] = None) -> DensePlan:
+    """The tile plan of a block on ``b`` patches of ``h x w`` with bottleneck
+    width ``cb``.
+
+    Rule: where a patch's u fits four 64-pixel tiles (``h * w <= 256``) a
+    CTA takes whole patches, the largest power of two of them that fits four
+    tiles while the grid keeps at least half of ``NUM_SMS`` CTAs (one patch
+    when no count reaches it),
+    with one warpgroup per tile (on an H100, block 4 ran fastest at 78
+    CTAs of two warpgroups: ``PERF.md`` §6). Otherwise a CTA takes a band of rows of one patch,
+    the most rows whose u (band plus the row above and below) fits eight
+    tiles, with four warpgroups; a row whose u alone exceeds eight tiles
+    still makes a band of one row. ``band_rows`` or ``patches`` override the
+    rule (for timing other plans). The ring is the deepest of 4, 3, 2
+    stages that fits :data:`SMEM_LIMIT`; raises ``ValueError`` when none does.
+    """
+    hw = h * w
+    if band_rows is None and (patches is not None or hw <= MAX_WARPGROUPS * TILE):
+        if patches is None:
+            fits = [1 << i for i in range(8, -1, -1) if (1 << i) * hw <= MAX_WARPGROUPS * TILE]
+            patches = next((k for k in fits if -(-b // k) >= NUM_SMS // 2), 1)
+        u_pix = patches * hw
+        warpgroups = min(MAX_WARPGROUPS, -(-u_pix // TILE))
+        stages = _fit(u_pix, cb, warpgroups)
+        if stages is not None:
+            return DensePlan(0, patches, warpgroups, stages, -(-b // patches), u_pix,
+                             smem_bytes(u_pix, cb, warpgroups, stages))
+    if band_rows is None:
+        band_rows = max(1, min(h, _BAND_U_TILES * TILE // w - 2))
+        while band_rows > 1 and _fit((band_rows + 2) * w, cb, MAX_WARPGROUPS) is None:
+            band_rows -= 1
+    band_rows = min(band_rows, h)
+    u_pix = (band_rows + 2) * w
+    stages = _fit(u_pix, cb, MAX_WARPGROUPS)
+    if stages is None:
+        raise ValueError(f"the dense-block kernel cannot hold u for one row of {w} "
+                         f"pixels at Cb = {cb} in {SMEM_LIMIT} bytes of shared memory")
+    return DensePlan(band_rows, 1, MAX_WARPGROUPS, stages, b * -(-h // band_rows), u_pix,
+                     smem_bytes(u_pix, cb, MAX_WARPGROUPS, stages))
+
+
+def plan_ctas(plan: DensePlan, b: int, h: int, w: int) -> Iterator[tuple]:
+    """``(u_first, u_count, out_first, out_count)`` flat pixel ranges of each
+    CTA, in grid order, as ``dense_layer_kernel`` derives them from its block
+    index (u_first may be negative or reach past the batch: those pixels are
+    zero and never read)."""
+    hw, m = h * w, b * h * w
+    if plan.band_rows:
+        bands = -(-h // plan.band_rows)
+        for cta in range(plan.ctas):
+            patch, y0 = divmod(cta, bands)
+            y0 *= plan.band_rows
+            rows = min(plan.band_rows, h - y0)
+            base = (patch * h + y0 - 1) * w
+            yield base, (rows + 2) * w, base + w, rows * w
+    else:
+        for cta in range(plan.ctas):
+            base = cta * plan.patches * hw
+            yield base, plan.patches * hw, base, min(plan.patches * hw, m - base)
 
 
 def _bn_affine(bn_params, bn_stats, eps: float = 1e-5):
@@ -151,43 +264,62 @@ def fused_dense_block(x: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int,
     The arrays come from :func:`fold_dense_block_params` (numpy arrays or
     tensors; pass them already on the device, ``A*``/``B*`` in float32 and
     ``W*`` in bf16, to skip the conversion on every call). ``x`` is cast to
-    bf16. On a CUDA tensor this launches the kernels of
-    ``csrc/denseblock.cu`` (a 1x1 bottleneck and a 3x3 implicit GEMM per
-    layer), and raises unless c_in0, growth and Cb are multiples of 8; on a
-    CPU tensor it runs :func:`fused_dense_block_plain`. The JAX function's
+    bf16. On a CUDA tensor this launches ``csrc/denseblock.cu``'s
+    ``dense_layer_kernel`` once per layer, tiled by :func:`plan_dense_block`,
+    and raises unless c_in0, growth and Cb are multiples of 8 with growth
+    at most 32 and Cb at most 128 (DenseNet-BC's 32 and 4 x 32); on a CPU
+    tensor it runs :func:`fused_dense_block_plain`. The JAX function's
     ``batch_tile`` and ``interpret`` exist only for the TPU and are not
     taken. Replaces the TPU kernel
     ``gridnext_tpu/ops/denseblock_pallas.py::fused_dense_block``; bound by
     operations (module docstring).
     """
-    global launches
     if x.device.type == "cpu":
         return fused_dense_block_plain(x, A1, B1, W1, A2, B2, W2, c_in0=c_in0,
                                        growth=growth)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n_layers, c_max, cb = _check(x, A1, W1, A2, W2, c_in0, growth)
+    b, h, w, _ = x.shape
+    buf = torch.empty((b, h, w, c_max), dtype=torch.bfloat16, device=x.device)
+    buf[..., :c_in0] = x
+    return _launch(buf, A1, B1, W1, A2, B2, W2, c_in0=c_in0, growth=growth)
+
+
+def _launch(buf: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int, growth: int,
+            plan: Optional[DensePlan] = None) -> torch.Tensor:
+    """Run the block's layers in place on a contiguous bf16 CUDA ``buf``
+    (B, H, W, Cmax) whose first ``c_in0`` channels hold the input; the other
+    channels may hold anything. ``plan`` defaults to
+    :func:`plan_dense_block`'s."""
+    global launches
+    n_layers, c_max, cb = _check(buf[..., :c_in0], A1, W1, A2, W2, c_in0, growth)
     if c_in0 % _ALIGN or growth % _ALIGN or cb % _ALIGN:
         raise ValueError(f"the dense-block kernel takes c_in0, growth and Cb in "
                          f"multiples of {_ALIGN}, got {c_in0}, {growth}, {cb}")
-    dev = x.device
+    if growth > GROWTH_MAX or cb > CB_MAX:
+        raise ValueError(f"the dense-block kernel takes growth <= {GROWTH_MAX} and "
+                         f"Cb <= {CB_MAX}, got {growth}, {cb}")
+    if (buf.dtype != torch.bfloat16 or not buf.is_contiguous() or buf.shape[-1] != c_max
+            or buf.data_ptr() % 16):
+        raise ValueError("buf must be a contiguous, 16-byte aligned bf16 (B, H, W, Cmax) tensor")
+    dev = buf.device
     a1, b1, a2, b2 = (_aligned(_as(a, dev, torch.float32)) for a in (A1, B1, A2, B2))
     w1, w2 = (_aligned(_as(a, dev, torch.bfloat16)) for a in (W1, W2))
-    b, h, w, _ = x.shape
-    buf = torch.empty((b, h, w, c_max), dtype=torch.bfloat16, device=dev)
-    buf[..., :c_in0] = x
+    b, h, w, _ = buf.shape
     if buf.numel() == 0 or n_layers == 0:
         return buf
-    u = torch.empty((b * h * w, cb), dtype=torch.bfloat16, device=dev)
+    plan = plan or plan_dense_block(b, h, w, cb)
     lib = _cuda.library("denseblock")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dense_block_bf16(
             buf.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1.data_ptr(),
             a2.data_ptr(), b2.data_ptr(), w2.data_ptr(), b, h, w, c_in0, growth,
-            n_layers, cb, u.data_ptr(), stream)
+            n_layers, cb, plan.band_rows, plan.patches, plan.warpgroups, plan.stages,
+            stream)
     _cuda.check(lib, err, "fused_dense_block")
-    launches += 2 * n_layers
+    launches += n_layers
     return buf
 
 

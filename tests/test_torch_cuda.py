@@ -136,17 +136,24 @@ def _dense_case(dev, b, h, w, c0, n_layers, growth=32, cb=128, seed=0):
     (2, 12, 16, 3, 8, 32),                           # a small width
     (13, 8, 64, 2, 32, 128),                         # a ragged batch (13 * 64 px)
     (3, 9, 24, 3, 16, 48), (4, 7, 40, 2, 8, 24),     # odd sizes: 9x9, 7x7
-    (1, 150, 16, 2, 8, 16)],                         # rows wider than a tile
+    (1, 150, 16, 2, 8, 16),                          # rows wider than a tile
+    (1, 32, 64, 6, 32, 128), (2, 32, 64, 6, 32, 128),  # block 1's bands in 1, 2 patches
+    (5, 4, 512, 16, 32, 128),                        # block 4 at B = 5
+    (3, 16, 8, 4, 32, 128)],                         # c_in0 8: a partial first K stage
     ids=["block1", "block2", "block3", "block4", "small", "ragged", "9x9", "7x7",
-         "wide"])
+         "wide", "block1-b1", "block1-b2", "block4-b5", "c8"])
 def test_dense_block_kernel_matches_plain(dev, b, hw, c0, n_layers, growth, cb):
     x, arrays = _dense_case(dev, b, hw, hw, c0, n_layers, growth, cb, seed=hw)
     before = dense.launches
     got = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
     want = dense.fused_dense_block_plain(x, *arrays, c_in0=c0, growth=growth)
     torch.cuda.synchronize()
-    assert dense.launches == before + 2 * n_layers
+    assert dense.launches == before + n_layers
     assert got.dtype == torch.bfloat16 and got.shape == (b, hw, hw, c0 + n_layers * growth)
+    _assert_dense_close(got, want, c0)
+
+
+def _assert_dense_close(got, want, c0):
     got, want = got.float(), want.float()
     assert torch.equal(got[..., :c0], want[..., :c0])     # the input, unchanged
     # bf16 buffer, t rounded to bf16 in the kernel only: 3e-2 and correlation
@@ -155,10 +162,53 @@ def test_dense_block_kernel_matches_plain(dev, b, hw, c0, n_layers, growth, cb):
     assert corr_ > 0.999
 
 
+@pytest.mark.parametrize("b,hw,c0,n_layers,override", [
+    (2, 32, 64, 3, {"band_rows": 6}), (2, 32, 64, 3, {"band_rows": 8}),
+    (2, 32, 64, 3, {"band_rows": 16}),               # 4, 4 and 2 ring stages
+    (5, 4, 512, 4, {"patches": 4}), (7, 8, 256, 4, {"patches": 4})],  # ragged last CTA
+    ids=["band6", "band8", "band16", "block4-b5-p4", "block3-b7-p4"])
+def test_dense_block_kernel_other_plans(dev, b, hw, c0, n_layers, override):
+    x, arrays = _dense_case(dev, b, hw, hw, c0, n_layers, seed=hw + 1)
+    plan = dense.plan_dense_block(b, hw, hw, 128, **override)
+    buf = torch.empty((b, hw, hw, c0 + 32 * n_layers), dtype=torch.bfloat16, device=dev)
+    buf[..., :c0] = x
+    got = dense._launch(buf, *arrays, c_in0=c0, growth=32, plan=plan)
+    want = dense.fused_dense_block_plain(x, *arrays, c_in0=c0, growth=32)
+    torch.cuda.synchronize()
+    _assert_dense_close(got, want, c0)
+
+
+@pytest.mark.parametrize("b,hw,c0,n_layers", [(2, 32, 64, 6), (9, 4, 512, 16), (3, 9, 24, 3)],
+                         ids=["block1", "block4", "9x9"])
+def test_dense_block_kernel_ignores_unwritten_channels(dev, b, hw, c0, n_layers):
+    """Channels not yet written hold NaN before the call (as torch.empty may
+    leave them); the kernel gives the same bits as on a clean buffer, and the
+    same bits on every call."""
+    growth = 16 if c0 == 24 else 32
+    cb = 48 if c0 == 24 else 128
+    x, arrays = _dense_case(dev, b, hw, hw, c0, n_layers, growth, cb, seed=7)
+    buf = torch.full((b, hw, hw, c0 + growth * n_layers), float("nan"),
+                     dtype=torch.bfloat16, device=dev)
+    buf[..., :c0] = x
+    got = dense._launch(buf, *arrays, c_in0=c0, growth=growth)
+    again = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
+    third = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again) and torch.equal(again, third)
+    _assert_dense_close(got, dense.fused_dense_block_plain(x, *arrays, c_in0=c0,
+                                                           growth=growth), c0)
+
+
 def test_dense_block_kernel_refuses_unaligned_widths(dev):
     x, arrays = _dense_case(dev, 1, 4, 4, 12, 2, growth=8, cb=16)
     with pytest.raises(ValueError, match="multiples of 8"):
         dense.fused_dense_block(x, *arrays, c_in0=12, growth=8)
+    x, arrays = _dense_case(dev, 1, 4, 4, 16, 1, growth=48, cb=192)
+    before = dense.launches
+    with pytest.raises(ValueError, match="growth <= 32"):
+        dense.fused_dense_block(x, *arrays, c_in0=16, growth=48)
+    assert dense.launches == before
 
 
 def _favor_case(dev, b, h, n, d, m, seed=0, scale=1.0):

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-PIL or msgpack. The package, ``chip_smoke.py`` and ``tools/time_favor.py``
+PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py`` timers
 must import none of the first four, and ``msgpack`` only inside the model-directory loader. Also
 here: the port's own geometry equals the JAX package's.
 """
@@ -61,7 +61,8 @@ def _imports(tree):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                              REPO / "tools" / "time_favor.py"],
+                                                              REPO / "tools" / "time_favor.py",
+                                                              REPO / "tools" / "time_denseblock.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), str(path))
