@@ -14,12 +14,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    spill report of the dense-layer kernel is logged;
 2. the patch-gather kernel on 4 random 9,325 x 8,892 x 3 uint8 slides with
    4 x 4,992 lattice spots (+ edge-clamped, parked and out-of-range-slide
-   spots), bit-exact against its plain version, timed against its bound;
-3. the hex-corrector kernels on 4 random 78 x 64 x 7 grids, logits within
-   1e-4 and labels equal (up to near-tie flips) against the plain version;
-   each kernel is timed three ways: CUDA events around back-to-back wrapper
-   calls, the host's time to issue one call, and the device time of its
-   kernels alone from a torch.profiler trace;
+   spots), bit-exact against its plain version, timed against its bound and
+   against the crop as one PyTorch call (``aten::index`` on an unfold view,
+   the library time); also windows 24 and 97 (the byte path) and 128 and
+   160 (the bulk-copy path) at every source offset mod 16, bit-exact;
+3. the hex-corrector kernel on 4 random 78 x 64 x 7 grids, logits within
+   1e-4 and labels equal (up to near-tie flips) against the plain version,
+   one launch a wrapper call; the same at 33 classes and at c_in 1024 with
+   64 classes; each wrapper is timed three ways: CUDA events around
+   back-to-back wrapper calls, the host's time to issue one call, and the
+   device time of its kernel alone from a torch.profiler trace;
 4. the main path at full width, as a model directory serves: positions
    files read by ``io.read_positions``, ``modeldir.image_registrar_from_meta``
    for the default ``TpuPatchClassifier`` (stages (256,2),(512,2), stem 16,
@@ -40,7 +44,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    layer-at-a-time floor (the larger of the FLOP time and the bytes of
    reading each layer's ``c_in`` channels and writing its ``growth``) and,
    as a yardstick the port never calls, the same block as eager bf16 cuDNN
-   convolutions in channels-last;
+   convolutions in channels-last; then a growth-12 block (widths padded to
+   multiples of 8) and a growth-48, Cb-192 block (the general route), each
+   against its plain version with its launches counted;
 6. DenseNet-121 at full width on the same 4 slides and positions files: the
    model-directory route (``image_registrar_from_meta``, f32 module, TF32
    off) with ``__call__``, ``register_logits`` and ``register_batch``, held
@@ -60,8 +66,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version on the registrar's corners; the resize on the card within
    1 of a float64 product; logits within 1e-3 of, and labels equal (up to
    near-ties) to, the plain-version registrar on the same f;
-8. the FAVOR kernel at scBERT's shape (B 8, H 10, N 16,907, d 64, m 266)
-   and at a ragged N with m = 37, inputs from a numpy seed and an
+8. the FAVOR kernel at scBERT's shape (B 8, H 10, N 16,907, d 64, m 266),
+   at a ragged N with m = 37 and at head widths 48 and 128, inputs from a
+   numpy seed and an
    orthogonal Gaussian projection, within rtol 2e-4 / atol 2e-5 of its plain
    version; timed at scBERT's shape as phases 2-3 time theirs, beside its
    split-TF32 bound (three TF32 tensor-core products per f32 product), the
@@ -161,10 +168,9 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> tuple:
 
 
 # CUDA kernel of each ported function, as the profiler names it
-KERNEL_SYMBOLS = {"gather_patches": ("gather_patches_kernel",),
-                  "fused_hex_corrector": ("hex_layer_kernel",),
-                  "fused_hex_corrector_labels": ("hex_layer_kernel",
-                                                 "hex_labels_kernel"),
+KERNEL_SYMBOLS = {"gather_patches": ("gather_bulk_kernel",),
+                  "fused_hex_corrector": ("hex_corrector_kernel",),
+                  "fused_hex_corrector_labels": ("hex_corrector_kernel",),
                   "fused_dense_block": ("dense_layer_kernel",),
                   "fused_generalized_linear_attention": (
                       "favor_accum_kernel", "favor_reduce_kernel", "favor_apply_kernel")}
@@ -250,6 +256,62 @@ def make_slides(torch, n, h, w, device):
     return slides
 
 
+def library_gather(view, s, yy, xx):
+    """The crop as one PyTorch call: indexing ``view``, the zero-copy
+    ``(B, H', W', w, w, 3)`` window view of :func:`window_view`, at clamped
+    slides ``s`` and corners ``yy``, ``xx`` (a yardstick the port never
+    calls)."""
+    return view[s, yy, xx]
+
+
+def window_view(imgs, window: int):
+    """Every ``window x window`` crop of ``(B, H, W, 3)`` slides as a strided
+    view (no copy)."""
+    return imgs.unfold(1, window, 1).unfold(2, window, 1).permute(0, 1, 2, 4, 5, 3)
+
+
+def clamped(y0, x0, slide, b, h, w, window):
+    """Corners and slide ids clamped as the kernel clamps them (int64)."""
+    return (y0.long().clamp(0, h - window), x0.long().clamp(0, w - window),
+            slide.long().clamp(0, b - 1))
+
+
+def gather_cases(torch, gather, slides):
+    """Every source offset mod 16 at windows of the byte path (24, 97) and
+    the bulk-copy path (128, 160), from the stack and from a slide view that
+    starts off a 16-byte boundary; bit-exact. Returns the windows checked."""
+    b, h, w, _ = slides.shape
+    dev = slides.device
+    for win in (24, 97, PATCH, WINDOW):
+        offsets = set()
+        for imgs in (slides, slides[1:]):
+            nb = imgs.shape[0]
+            # 16 consecutive corners of one row (3 x0 runs through every
+            # residue mod 16), then corners spread over the slides
+            i = torch.arange(48, device=dev, dtype=torch.int32)
+            x0 = torch.where(i < 16, 100 + i, i * 37 + 11)
+            y0 = torch.where(i < 16, 200, (i * 191) % (h - win))
+            s = torch.where(i < 16, 1 % nb, i % nb)
+            y0 = torch.cat([y0, torch.tensor([-7, h, 3], dtype=torch.int32, device=dev)])
+            x0 = torch.cat([x0, torch.tensor([w, -1, w - win - 3], dtype=torch.int32,
+                                             device=dev)])
+            s = torch.cat([s, torch.tensor([nb + 2, -1, 0], dtype=torch.int32, device=dev)])
+            yy, xx, ss = clamped(y0, x0, s, nb, h, w, win)
+            offsets |= {(imgs.data_ptr() + 3 * ((a * h + c) * w + d)) % 16
+                        for a, c, d in zip(ss.tolist(), yy.tolist(), xx.tolist())}
+            before = gather.byte_launches
+            got = gather.gather_patches(imgs, y0, x0, win, s)
+            want = gather.gather_patches_plain(imgs, y0, x0, win, s)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather kernel at window {win} differs from plain")
+            if gather.byte_launches - before != (not gather.bulk(win)):
+                raise AssertionError(f"gather at window {win} took the wrong path")
+        if offsets != set(range(16)):
+            raise AssertionError(f"window {win}: source offsets {sorted(offsets)}")
+    log("gather: windows 24, 97 (byte path), 128, 160 (bulk-copy path) bit-exact at every "
+        "source offset mod 16, aligned and offset slide views, clamped corners and ids")
+
+
 def phase_gather(torch, slides, geometry, gather):
     log("== phase 2: patch-gather kernel")
     b, h, w, _ = slides.shape
@@ -270,7 +332,15 @@ def phase_gather(torch, slides, geometry, gather):
     err = int((out.int() - plain.int()).abs().max().item())
     if not torch.equal(out, plain):
         raise AssertionError(f"gather kernel differs from plain (max abs {err})")
+    # the single-call library form, clamped outside the timed call
+    view = window_view(slides, PATCH)
+    yy, xx, ss = clamped(*args, b, h, w, PATCH)
+    idx = (ss, yy, xx)
+    if not torch.equal(library_gather(view, *idx), plain):
+        raise AssertionError("the library form of the crop differs from plain")
     del plain
+    gather_cases(torch, gather, slides)
+
     def kernel():
         return gather.gather_patches(slides, args[0], args[1], PATCH, args[2])
 
@@ -279,14 +349,17 @@ def phase_gather(torch, slides, geometry, gather):
                                           KERNEL_SYMBOLS["gather_patches"]))
     plain_ms, _ = cuda_ms(torch, lambda: gather.gather_patches_plain(
         slides, args[0], args[1], PATCH, args[2]), iters=3, warmup=1)
+    library_ms, _ = cuda_ms(torch, lambda: library_gather(view, *idx), iters=20)
     nbytes = 2 * n * PATCH * PATCH * 3 + 3 * n * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"gather: N={n} window={PATCH}: bit-exact; kernel {ms:.4f} ms per call "
         f"(events; host issues a call in {host_ms:.4f} ms), device {dev_ms:.4f} "
-        f"ms ({parts}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {nbytes})")
+        f"ms ({parts}), plain {plain_ms:.4f} ms, library (one aten::index on the "
+        f"unfold view) {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {nbytes}); "
+        f"{bound_ms / ms * 100:.1f} % of the bound")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
 
 
 def corrector_work(b, c_in, n_classes, width=32, h=78, w=64):
@@ -312,11 +385,15 @@ def phase_corrector(torch, corr, serving, dev):
                         .astype(np.float32), device=dev)
     fg = torch.as_tensor((rng.random((N_SLIDES, 78, 64)) < 0.7).astype(np.int32),
                          device=dev)
+    for k in corr.launches:
+        corr.launches[k] = 0
     logits = corr.fused_hex_corrector(x, kernels, biases, flags)
     plain = corr.hex_corrector_plain(x, kernels, biases, flags)
     labels = corr.fused_hex_corrector_labels(x, fg, kernels, biases, flags)
     plain_labels = corr.hex_corrector_labels_plain(x, fg, kernels, biases, flags)
     torch.cuda.synchronize()
+    if dict(corr.launches) != {"fused_hex_corrector": 1, "fused_hex_corrector_labels": 1}:
+        raise AssertionError(f"corrector launches per wrapper call: {corr.launches}")
     err = float((logits - plain).abs().max().item())
     if not err <= 1e-4:
         raise AssertionError(f"corrector logits differ from plain by {err}")
@@ -325,6 +402,36 @@ def phase_corrector(torch, corr, serving, dev):
                                             plain[i].cpu().numpy())
                 for i in range(N_SLIDES))
     label_err = int((labels - plain_labels).abs().max().item())
+    # beyond the per-layer kernel's limits: 33 and 64 classes, c_in 1024 (layer 0's weights
+    # 917 KB), each in one launch a call
+    for c_in, n_cls in ((N_CLASSES, 33), (1024, 64)):
+        wide = (c_in, 32, 32, 32, 32, n_cls)
+        ks = corr.as_f32_tensors([rng.normal(size=(7, wide[i], wide[i + 1])).astype(np.float32)
+                                  / np.sqrt(7 * wide[i]) for i in range(5)], dev)
+        bs = corr.as_f32_tensors([rng.normal(size=(wide[i + 1],)).astype(np.float32) * 0.1
+                                  for i in range(5)], dev)
+        xw = torch.as_tensor(rng.normal(size=(N_SLIDES, 78, 64, c_in)).astype(np.float32),
+                             device=dev)
+        before = dict(corr.launches)
+        got = corr.fused_hex_corrector(xw, ks, bs, flags)
+        got_labels = corr.fused_hex_corrector_labels(xw, fg, ks, bs, flags)
+        want = corr.hex_corrector_plain(xw, ks, bs, flags)
+        want_labels = corr.hex_corrector_labels_plain(xw, fg, ks, bs, flags)
+        torch.cuda.synchronize()
+        if {k: corr.launches[k] - before[k] for k in before} != {
+                "fused_hex_corrector": 1, "fused_hex_corrector_labels": 1}:
+            raise AssertionError(f"corrector at c_in {c_in}, {n_cls} classes: launches "
+                                 f"{corr.launches} from {before}")
+        e = float((got - want).abs().max().item())
+        if not e <= 1e-4:
+            raise AssertionError(f"corrector at c_in {c_in}, {n_cls} classes: logits "
+                                 f"differ from plain by {e}")
+        f = sum(serving.label_parity_report(want_labels[i].cpu().numpy(),
+                                            got_labels[i].cpu().numpy(),
+                                            want[i].cpu().numpy())
+                for i in range(N_SLIDES))
+        log(f"corrector c_in {c_in}, {n_cls} classes: logits max abs err {e:.3g}, labels "
+            f"equal up to {f} near-tie flips, one launch a call")
     flops, nbytes = corrector_work(N_SLIDES, N_CLASSES, N_CLASSES)
     res = {}
     for name, fn, plain_fn, out_bytes in (
@@ -693,6 +800,47 @@ def phase_dense_block(torch, dense, f_vars, dev):
             f"{t_bytes:.4f} ms); layer-at-a-time floor {t_floor:.4f} ms ({floor_bytes / 1e9:.3f} "
             f"GB read and written -> {floor_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
             f"yardstick: eager bf16 cuDNN sequence {cudnn_ms:.4f} ms")
+    # shapes the wgmma kernel alone refused: growth 12 (the JAX DenseNet's default;
+    # widths padded to multiples of 8) and growth 48 / Cb 192 (the general route)
+    for side, c0, n_layers, growth, cb in ((16, 24, 6, 12, 48), (8, 64, 4, 48, 192)):
+        wr = np.random.default_rng(SEED + 6 + growth)
+        c_max = c0 + n_layers * growth
+        a1 = wr.uniform(0.8, 1.2, (n_layers, c_max)).astype(np.float32)
+        b1 = (wr.normal(size=(n_layers, c_max)) * 0.1).astype(np.float32)
+        w1 = (wr.normal(size=(n_layers, c_max, cb)) / np.sqrt(c_max)).astype(np.float32)
+        for l in range(n_layers):              # zero beyond each layer's input channels
+            c_in = c0 + l * growth
+            a1[l, c_in:] = b1[l, c_in:] = w1[l, c_in:] = 0
+        a2 = wr.uniform(0.8, 1.2, (n_layers, cb)).astype(np.float32)
+        b2 = (wr.normal(size=(n_layers, cb)) * 0.1).astype(np.float32)
+        w2 = (wr.normal(size=(n_layers, 9, cb, growth)) / np.sqrt(9 * cb)).astype(np.float32)
+        arrays = [torch.as_tensor(a, device=dev) for a in (a1, b1)] + \
+            [torch.as_tensor(w1, device=dev).to(torch.bfloat16)] + \
+            [torch.as_tensor(a, device=dev) for a in (a2, b2)] + \
+            [torch.as_tensor(w2, device=dev).to(torch.bfloat16)]
+        x = torch.as_tensor(wr.normal(size=(CHUNK, side, side, c0)).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+        route = dense.route(c0, growth, cb)
+        before = dense.launches
+        got = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth).float()
+        want = dense.fused_dense_block_plain(x, *arrays, c_in0=c0, growth=growth).float()
+        torch.cuda.synchronize()
+        per_layer = 1 if route == "wgmma" else 2
+        if dense.launches - before != per_layer * n_layers:
+            raise AssertionError(f"dense block growth {growth}: {dense.launches - before} "
+                                 f"launches for {n_layers} layers on the {route} route")
+        err = float((got - want).abs().max().item())
+        corr = float(np.corrcoef(got.cpu().numpy().ravel()[::7],
+                                 want.cpu().numpy().ravel()[::7])[0, 1])
+        if not (torch.allclose(got, want, rtol=3e-2, atol=3e-2) and corr > 0.999
+                and got.shape[-1] == c_max):
+            raise AssertionError(f"dense block growth {growth}, Cb {cb}: kernel differs "
+                                 f"from plain (max abs {err}, corr {corr})")
+        ms, _ = cuda_ms(torch, lambda: dense.fused_dense_block(
+            x, *arrays, c_in0=c0, growth=growth), iters=5)
+        log(f"dense block {side}x{side}, {c0} -> {c_max}, growth {growth}, Cb {cb} "
+            f"({route} route, {per_layer} launches a layer): max abs err {err:.4g}, corr "
+            f"{corr:.6f}; kernel {ms:.4f} ms per call (events)")
     return res
 
 
@@ -897,8 +1045,9 @@ def phase_resize(torch, slides, positions, masks, port, meta, variables):
 
 
 def phase_favor(torch, favor_cuda, dev):
-    """The FAVOR kernel against its plain version at scBERT's shape and at a
-    ragged N with m not a multiple of 32; timed at scBERT's shape."""
+    """The FAVOR kernel against its plain version at scBERT's shape, at a
+    ragged N with m not a multiple of 32 and at head widths 48 and 128;
+    timed at scBERT's shape."""
     from gridnext_tpu_torch.models.performer import default_nb_features
     from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
 
@@ -907,8 +1056,12 @@ def phase_favor(torch, favor_cuda, dev):
     m_full = default_nb_features(MM_DIM_HEAD)
     rng = np.random.default_rng(SEED + 5)
     res = None
+    # scBERT's shape, a ragged one, and head widths 48 (a compiled instance)
+    # and 128 (the general kernels) that the wrapper once refused
     for b, h, n, d, m in ((COUNT_CHUNK, MM_HEADS, MM_VOCAB + 1, MM_DIM_HEAD, m_full),
-                          (3, 7, 1000, MM_DIM_HEAD, 37)):
+                          (3, 7, 1000, MM_DIM_HEAD, 37),
+                          (2, 10, 4000, 48, default_nb_features(48)),
+                          (2, 10, 4000, 128, default_nb_features(128))):
         q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d), dtype=np.float32),
                                    device=dev) for _ in range(3))
         proj = orthogonal_gaussian_matrix(
@@ -1207,10 +1360,11 @@ def main() -> int:
                 "ms": res[name]["ms"], "device_ms": res[name]["device_ms"],
                 "host_ms": res[name]["host_ms"], "plain_ms": res[name]["plain_ms"],
                 "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
-                # no single PyTorch call computes any of these functions (the
-                # dense block's cuDNN sequence is a yardstick of many calls;
-                # FAVOR is not the softmax attention of a fused attention call)
-                "library_ms": None}
+                # one aten::index on the unfold view computes the crop; no
+                # single PyTorch call computes the others (the dense block's
+                # cuDNN sequence is a yardstick of many calls; FAVOR is not the
+                # softmax attention of a fused attention call)
+                "library_ms": res[name].get("library_ms")}
                for name, (src, rep) in meta.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -501,6 +501,128 @@ long long dense_block_smem_bytes(int u_pix, int cb, int warpgroups, int stages) 
   return ring + (u_rows + 1) * (cbp + 8) * 2;
 }
 
+// The general route, for blocks the wgmma kernel does not take (growth
+// above 32 or Cb above 128 after the wrapper pads widths to multiples of
+// 8): two plain f32-FMA tile products a layer, any widths, no alignment.
+// dense_bottleneck_general_kernel writes u (m, cb) bf16 to a device
+// scratch, dense_conv3x3_general_kernel appends the 3x3 from it. t stays in
+// f32 here, as the plain version keeps it; the rounding points are
+// otherwise the wgmma kernel's. Each block: 64 pixels x 64 outputs, K in
+// stages of 32 through shared memory, a thread 4 x 4 outputs.
+constexpr int kGenThreads = 256;
+constexpr int kGenPix = 64;
+constexpr int kGenN = 64;
+constexpr int kGenK = 32;
+
+__device__ __forceinline__ float bf16_to_float(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// acc[i][j] += sum_k a_s[k][tp + i] b_s[k][tn + j]
+__device__ __forceinline__ void tile_fma(float (&acc)[4][4], float (*a_s)[kGenPix + 4],
+                                         float (*b_s)[kGenN + 4], int tp, int tn) {
+#pragma unroll 8
+  for (int k = 0; k < kGenK; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(&a_s[k][tp]);
+    const float4 b = *reinterpret_cast<const float4*>(&b_s[k][tn]);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// u[p][n] = bf16(relu((sum_c relu(buf[p][c] a1[c] + b1[c]) w1[c][n]) a2[n] + b2[n])), c < c_in
+__global__ void __launch_bounds__(kGenThreads)
+dense_bottleneck_general_kernel(const uint16_t* __restrict__ buf, long long m, int c_max,
+                                int c_in, const float* __restrict__ a1,
+                                const float* __restrict__ b1, const uint16_t* __restrict__ w1,
+                                const float* __restrict__ a2, const float* __restrict__ b2,
+                                int cb, uint16_t* __restrict__ u) {
+  __shared__ __align__(16) float a_s[kGenK][kGenPix + 4];
+  __shared__ __align__(16) float b_s[kGenK][kGenN + 4];
+  const long long p0 = static_cast<long long>(blockIdx.x) * kGenPix;
+  const int n0 = blockIdx.y * kGenN;
+  const int tid = threadIdx.x, tp = (tid % 16) * 4, tn = (tid / 16) * 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < c_in; k0 += kGenK) {
+    __syncthreads();
+    for (int i = tid; i < kGenK * kGenPix; i += kGenThreads) {
+      const int kk = i % kGenK, pp = i / kGenK;       // channels fastest: contiguous reads
+      const long long p = p0 + pp;
+      const int c = k0 + kk;
+      a_s[kk][pp] = (p < m && c < c_in)
+                        ? affine_relu(bf16_to_float(buf[p * c_max + c]), a1[c], b1[c])
+                        : 0.f;
+    }
+    for (int i = tid; i < kGenK * kGenN; i += kGenThreads) {
+      const int nn = i % kGenN, kk = i / kGenN;
+      b_s[kk][nn] = (k0 + kk < c_in && n0 + nn < cb)
+                        ? bf16_to_float(w1[static_cast<long long>(k0 + kk) * cb + n0 + nn])
+                        : 0.f;
+    }
+    __syncthreads();
+    tile_fma(acc, a_s, b_s, tp, tn);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long p = p0 + tp + i;
+    if (p >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tn + j;
+      if (n < cb) u[p * cb + n] = float_to_bf16_bits(affine_relu(acc[i][j], a2[n], b2[n]));
+    }
+  }
+}
+
+// buf[p][c_in + g] = bf16(sum over the 9 taps (dr, dc) and n < cb of
+// u[p shifted by (dr, dc)][n] w2[tap][n][g]), zero outside the patch
+__global__ void __launch_bounds__(kGenThreads)
+dense_conv3x3_general_kernel(const uint16_t* __restrict__ u, long long m, int h, int w, int cb,
+                             const uint16_t* __restrict__ w2, int growth,
+                             uint16_t* __restrict__ buf, int c_max, int c_in) {
+  __shared__ __align__(16) float a_s[kGenK][kGenPix + 4];
+  __shared__ __align__(16) float b_s[kGenK][kGenN + 4];
+  const long long p0 = static_cast<long long>(blockIdx.x) * kGenPix;
+  const int n0 = blockIdx.y * kGenN;
+  const int tid = threadIdx.x, tp = (tid % 16) * 4, tn = (tid / 16) * 4;
+  float acc[4][4] = {};
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dr = tap / 3 - 1, dc = tap % 3 - 1;
+    for (int k0 = 0; k0 < cb; k0 += kGenK) {
+      __syncthreads();
+      for (int i = tid; i < kGenK * kGenPix; i += kGenThreads) {
+        const int kk = i % kGenK, pp = i / kGenK;
+        const long long p = p0 + pp;
+        const int y = static_cast<int>((p / w) % h) + dr, x = static_cast<int>(p % w) + dc;
+        const bool ok = p < m && k0 + kk < cb && y >= 0 && y < h && x >= 0 && x < w;
+        a_s[kk][pp] = ok ? bf16_to_float(u[(p + dr * w + dc) * cb + k0 + kk]) : 0.f;
+      }
+      for (int i = tid; i < kGenK * kGenN; i += kGenThreads) {
+        const int nn = i % kGenN, kk = i / kGenN;
+        b_s[kk][nn] =
+            (k0 + kk < cb && n0 + nn < growth)
+                ? bf16_to_float(w2[(static_cast<long long>(tap) * cb + k0 + kk) * growth + n0 + nn])
+                : 0.f;
+      }
+      __syncthreads();
+      tile_fma(acc, a_s, b_s, tp, tn);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long p = p0 + tp + i;
+    if (p >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tn + j;
+      if (n < growth) buf[p * c_max + c_in + n] = float_to_bf16_bits(acc[i][j]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
@@ -558,6 +680,49 @@ extern "C" int dense_block_bf16(void* buf, const void* a1, const void* b1, const
     p.b2 = static_cast<const float*>(b2) + static_cast<long long>(l) * cb;
     p.w2 = static_cast<const uint16_t*>(w2) + static_cast<long long>(l) * 9 * cb * growth;
     dense_layer_kernel<<<static_cast<unsigned>(ctas), 128 * warpgroups, smem, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The general route: the same block as dense_block_bf16 at any widths, two
+// launches a layer (bottleneck into u, then the 3x3), on `stream`. u holds
+// nb * h * w * cb bf16. No alignment needed. Returns the first launch error
+// (cudaGetLastError) or 0.
+extern "C" int dense_block_general_bf16(void* buf, const void* a1, const void* b1,
+                                        const void* w1, const void* a2, const void* b2,
+                                        const void* w2, long long nb, int h, int w, int c_in0,
+                                        int growth, int n_layers, int cb, void* u,
+                                        void* stream) {
+  if (c_in0 < 1 || growth < 1 || cb < 1 || h < 1 || w < 1 || nb < 0 || n_layers < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int c_max = c_in0 + n_layers * growth;
+  const long long m = nb * h * w;
+  if (m == 0 || n_layers == 0) return 0;
+  const long long pix_blocks = (m + kGenPix - 1) / kGenPix;
+  if (pix_blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* bp = static_cast<uint16_t*>(buf);
+  auto* up = static_cast<uint16_t*>(u);
+  for (int l = 0; l < n_layers; ++l) {
+    const int c_in = c_in0 + l * growth;
+    dense_bottleneck_general_kernel<<<dim3(static_cast<unsigned>(pix_blocks),
+                                           (cb + kGenN - 1) / kGenN),
+                                      kGenThreads, 0, s>>>(
+        bp, m, c_max, c_in, static_cast<const float*>(a1) + static_cast<long long>(l) * c_max,
+        static_cast<const float*>(b1) + static_cast<long long>(l) * c_max,
+        static_cast<const uint16_t*>(w1) + static_cast<long long>(l) * c_max * cb,
+        static_cast<const float*>(a2) + static_cast<long long>(l) * cb,
+        static_cast<const float*>(b2) + static_cast<long long>(l) * cb, cb, up);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dense_conv3x3_general_kernel<<<dim3(static_cast<unsigned>(pix_blocks),
+                                        (growth + kGenN - 1) / kGenN),
+                                   kGenThreads, 0, s>>>(
+        up, m, h, w, cb,
+        static_cast<const uint16_t*>(w2) + static_cast<long long>(l) * 9 * cb * growth, growth,
+        bp, c_max, c_in);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -331,7 +331,8 @@ favor_apply_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int6
                    const float* __restrict__ ks, int n, int m, int m_pad, float scale,
                    float* __restrict__ out) {
   constexpr int KS = D / 8, PD = D + 4;
-  constexpr int kGroup = KS < 4 ? KS : 4;          // out n tiles issued together
+  // out n tiles issued together: a divisor of KS (KS 2, 4, 6, 8: 2, 4, 3, 4)
+  constexpr int kGroup = KS % 4 == 0 ? 4 : (KS % 3 == 0 ? 3 : (KS < 4 ? KS : 1));
   constexpr int kStage = 2 * kFeat * PD + kFeat;   // proj chunk, ctx chunk, ksum chunk
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -449,6 +450,177 @@ favor_apply_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int6
   }
 }
 
+// The general path, for head widths above the largest compiled instance
+// (64): plain f32 FMA, every width d >= 1. The x proj^T contraction is
+// staged in chunks of kGenCols columns, and each block owns kGenVal of the
+// independent ctx/out columns, so neither is bounded by registers or shared
+// memory; phi is formed once per block and value chunk. Same partials, the
+// same reduce and the same fixed orders as the tensor-core path.
+constexpr int kGenThreads = 256;
+constexpr int kGenFeat = 32;           // features per block (one per lane)
+constexpr int kGenRows = 32;           // sequence rows per accumulate tile
+constexpr int kGenCols = 32;           // contraction columns per staged chunk
+constexpr int kGenVal = 64;            // ctx/out columns per block
+constexpr int kGenApplyRows = 64;      // sequence rows per apply block
+
+// grid: (feature block, value chunk, split, (b, h)), feature block fastest
+__global__ void __launch_bounds__(kGenThreads)
+favor_accum_general_kernel(const float* __restrict__ k, int64_t k_sb, int64_t k_sh,
+                           int64_t k_sn, const float* __restrict__ v, int64_t v_sb,
+                           int64_t v_sh, int64_t v_sn, int heads, const float* __restrict__ proj,
+                           int n, int m, int m_pad, int d, int fblocks, int vchunks, int splits,
+                           int tiles_per_split, float scale, float* __restrict__ part_ctx,
+                           float* __restrict__ part_ks) {
+  __shared__ float k_s[kGenRows][kGenCols + 1];
+  __shared__ float p_s[kGenFeat][kGenCols + 1];
+  __shared__ float phi_s[kGenRows][kGenFeat + 1];
+  __shared__ float v_s[kGenRows][kGenVal];
+  int blk = blockIdx.x;
+  const int fb = blk % fblocks;
+  blk /= fblocks;
+  const int vc = blk % vchunks;
+  blk /= vchunks;
+  const int s = blk % splits;
+  const int bh = blk / splits;
+  const int b = bh / heads, hh = bh % heads;
+  const float* kb = k + b * k_sb + hh * k_sh;
+  const float* vb = v + b * v_sb + hh * v_sh;
+  const int f0 = fb * kGenFeat, j0 = vc * kGenVal;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int sr = warp * 4;               // S: this lane's feature, rows sr .. sr + 3
+  const int cj = warp * 8;               // ctx: this lane's feature, columns cj .. cj + 7
+  float ctx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float ksum = 0.f;
+  const int tiles = (n + kGenRows - 1) / kGenRows;
+  const int t0 = s * tiles_per_split, t1 = min(t0 + tiles_per_split, tiles);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int row0 = tile * kGenRows;
+    float sacc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < d; c0 += kGenCols) {
+      __syncthreads();                 // the last tile's readers are done
+      for (int i = tid; i < kGenRows * kGenCols; i += kGenThreads) {
+        const int r = i / kGenCols, c = i % kGenCols;
+        const bool in_c = c0 + c < d;
+        k_s[r][c] = (row0 + r < n && in_c) ? scale * kb[(row0 + r) * k_sn + c0 + c] : 0.f;
+        p_s[r][c] = (f0 + r < m && in_c) ? proj[static_cast<int64_t>(f0 + r) * d + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kGenCols; ++c) {
+        const float pv = p_s[lane][c];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sacc[q] = fmaf(k_s[sr + q][c], pv, sacc[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      phi_s[sr + q][lane] = phi(sacc[q], row0 + sr + q < n && f0 + lane < m);
+    for (int i = tid; i < kGenRows * kGenVal; i += kGenThreads) {
+      const int r = i / kGenVal, j = i % kGenVal;
+      v_s[r][j] = (row0 + r < n && j0 + j < d) ? vb[(row0 + r) * v_sn + j0 + j] : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < kGenRows; ++r) {
+      const float p = phi_s[r][lane];
+      ksum += p;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ctx[e] = fmaf(p, v_s[r][cj + e], ctx[e]);
+    }
+  }
+  if (f0 + lane >= m_pad) return;
+  const int64_t part = static_cast<int64_t>(bh) * splits + s;
+  float* pc = part_ctx + (part * m_pad + f0 + lane) * d;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (j0 + cj + e < d) pc[j0 + cj + e] = ctx[e];
+  if (vc == 0 && warp == 0) part_ks[part * m_pad + f0 + lane] = ksum;
+}
+
+// grid: (row tile, value chunk, (b, h)), row tile fastest
+__global__ void __launch_bounds__(kGenThreads)
+favor_apply_general_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh,
+                           int64_t q_sn, int heads, const float* __restrict__ proj,
+                           const float* __restrict__ ctx, const float* __restrict__ ks, int n,
+                           int m, int m_pad, int d, int vchunks, float scale,
+                           float* __restrict__ out) {
+  __shared__ float q_s[kGenApplyRows][kGenCols + 1];
+  __shared__ float p_s[kGenFeat][kGenCols + 1];
+  __shared__ float phi_s[kGenApplyRows][kGenFeat + 1];
+  __shared__ __align__(16) float c_s[kGenFeat][kGenVal];
+  __shared__ float k_s[kGenFeat];
+  const int tiles = (n + kGenApplyRows - 1) / kGenApplyRows;
+  int blk = blockIdx.x;
+  const int tile = blk % tiles;
+  blk /= tiles;
+  const int vc = blk % vchunks;
+  const int bh = blk / vchunks;
+  const int b = bh / heads, hh = bh % heads;
+  const float* qb = q + b * q_sb + hh * q_sh;
+  const float* ctx_bh = ctx + static_cast<int64_t>(bh) * m_pad * d;
+  const float* ks_bh = ks + static_cast<int64_t>(bh) * m_pad;
+  const int row0 = tile * kGenApplyRows, j0 = vc * kGenVal;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int sr = warp * 8;               // S: this lane's feature, rows sr .. sr + 7
+  const int orow = tid / 4, oq = (tid % 4) * 4;   // out: columns 16 kk + oq + e
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  float den = 0.f;
+  for (int f0 = 0; f0 < m_pad; f0 += kGenFeat) {
+    float sacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < d; c0 += kGenCols) {
+      __syncthreads();                 // the last chunk's readers are done
+      for (int i = tid; i < kGenApplyRows * kGenCols; i += kGenThreads) {
+        const int r = i / kGenCols, c = i % kGenCols;
+        q_s[r][c] = (row0 + r < n && c0 + c < d) ? scale * qb[(row0 + r) * q_sn + c0 + c] : 0.f;
+      }
+      for (int i = tid; i < kGenFeat * kGenCols; i += kGenThreads) {
+        const int f = i / kGenCols, c = i % kGenCols;
+        p_s[f][c] =
+            (f0 + f < m && c0 + c < d) ? proj[static_cast<int64_t>(f0 + f) * d + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kGenCols; ++c) {
+        const float pv = p_s[lane][c];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) sacc[r] = fmaf(q_s[sr + r][c], pv, sacc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) phi_s[sr + r][lane] = phi(sacc[r], f0 + lane < m);
+    for (int i = tid; i < kGenFeat * kGenVal; i += kGenThreads) {
+      const int f = i / kGenVal, j = i % kGenVal;
+      c_s[f][j] = (f0 + f < m_pad && j0 + j < d) ? ctx_bh[static_cast<int64_t>(f0 + f) * d + j0 + j]
+                                                 : 0.f;
+    }
+    if (tid < kGenFeat) k_s[tid] = f0 + tid < m_pad ? ks_bh[f0 + tid] : 0.f;
+    __syncthreads();
+    for (int f = 0; f < kGenFeat; ++f) {
+      const float p = phi_s[orow][f];
+      den = fmaf(p, k_s[f], den);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 c4 = *reinterpret_cast<const float4*>(&c_s[f][16 * kk + oq]);
+        acc[4 * kk + 0] = fmaf(p, c4.x, acc[4 * kk + 0]);
+        acc[4 * kk + 1] = fmaf(p, c4.y, acc[4 * kk + 1]);
+        acc[4 * kk + 2] = fmaf(p, c4.z, acc[4 * kk + 2]);
+        acc[4 * kk + 3] = fmaf(p, c4.w, acc[4 * kk + 3]);
+      }
+    }
+  }
+  if (row0 + orow >= n) return;
+  const float inv = 1.f / den;
+  float* o = out + (static_cast<int64_t>(bh) * n + row0 + orow) * d;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + 16 * kk + oq + e;
+      if (j < d) o[j] = acc[4 * kk + e] * inv;
+    }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -500,6 +672,42 @@ int launch(const float* q, const int64_t* qs, const float* k, const int64_t* ks_
   return cudaGetLastError();
 }
 
+int launch_general(const float* q, const int64_t* qs, const float* k, const int64_t* ks_,
+                   const float* v, const int64_t* vs, int batch, int heads, int n, int d,
+                   const float* proj, int m, int splits, float scale, float* work, float* out,
+                   cudaStream_t stream) {
+  const int m_pad = m_padded(m);
+  const int bh = batch * heads;
+  const int fblocks = (m_pad + kGenFeat - 1) / kGenFeat;
+  const int vchunks = (d + kGenVal - 1) / kGenVal;
+  const int tiles = (n + kGenRows - 1) / kGenRows;
+  const int tiles_per_split = (tiles + splits - 1) / splits;
+  float* part_ctx = work;
+  float* part_ks = part_ctx + static_cast<int64_t>(bh) * splits * m_pad * d;
+  float* ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
+  float* ksum = ctx + static_cast<int64_t>(bh) * m_pad * d;
+
+  favor_accum_general_kernel<<<fblocks * vchunks * splits * bh, kGenThreads, 0, stream>>>(
+      k, ks_[0], ks_[1], ks_[2], v, vs[0], vs[1], vs[2], heads, proj, n, m, m_pad, d, fblocks,
+      vchunks, splits, tiles_per_split, scale, part_ctx, part_ks);
+  if (cudaError_t err = cudaGetLastError()) return err;
+
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t items = static_cast<int64_t>(bh) * m_pad * (d + 1);
+  const int64_t want = (items + 255) / 256;
+  const int reduce_blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
+  favor_reduce_kernel<<<reduce_blocks, 256, 0, stream>>>(part_ctx, part_ks, bh, splits, m_pad,
+                                                         d, ctx, ksum);
+  if (cudaError_t err = cudaGetLastError()) return err;
+
+  const int apply_tiles = (n + kGenApplyRows - 1) / kGenApplyRows;
+  favor_apply_general_kernel<<<apply_tiles * vchunks * bh, kGenThreads, 0, stream>>>(
+      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_pad, d, vchunks, scale, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
@@ -514,8 +722,9 @@ extern "C" long long favor_workspace_floats(int bh, int splits, int m, int d) {
 
 // out (batch, heads, n, d) contiguous f32 = ReLU-FAVOR attention of q, k, v
 // (element strides over batch, heads and rows in q_s/k_s/v_s; the last
-// dimension contiguous) with proj (m, d) contiguous. d is 16, 32 or 64;
-// pointers 16-byte aligned and strides multiples of 4. `work` holds
+// dimension contiguous) with proj (m, d) contiguous. d 16, 32, 48 or 64
+// runs the tensor-core kernels (pointers 16-byte aligned, strides multiples
+// of 4); any other d >= 1 the general f32 kernels. `work` holds
 // favor_workspace_floats(batch * heads, splits, m, d) floats. Returns
 // cudaGetLastError() after the last launch (or the first failure).
 extern "C" int favor_attention_f32(const void* q, long long q_sb, long long q_sh,
@@ -525,7 +734,7 @@ extern "C" int favor_attention_f32(const void* q, long long q_sb, long long q_sh
                                    int heads, int n, int d, const void* proj, int m,
                                    int splits, float scale, void* work, void* out,
                                    void* stream) {
-  if (batch < 1 || heads < 1 || n < 1 || m < 1 || splits < 1)
+  if (batch < 1 || heads < 1 || n < 1 || m < 1 || d < 1 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t qs[3] = {q_sb, q_sh, q_sn}, ks[3] = {k_sb, k_sh, k_sn},
                 vs[3] = {v_sb, v_sh, v_sn};
@@ -541,9 +750,12 @@ extern "C" int favor_attention_f32(const void* q, long long q_sb, long long q_sh
       return launch<16>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
     case 32:
       return launch<32>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
+    case 48:
+      return launch<48>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
     case 64:
       return launch<64>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_general(qf, qs, kf, ks, vf, vs, batch, heads, n, d, pf, m, splits, scale, wf,
+                            of, st);
   }
 }

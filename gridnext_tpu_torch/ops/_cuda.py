@@ -34,18 +34,19 @@ _ERROR_STRING = {"error_string": ([_I], ctypes.c_char_p)}
 SIGNATURES = {
     "patch_gather": {
         **_ERROR_STRING,
-        # imgs, b, h, w, y0, x0, slide, n, window, out, stream
-        "gather_patches_u8": ([_VP, _LL, _LL, _LL, _VP, _VP, _VP, _LL, _I,
+        # imgs, b, h, w, y0, x0, slide, n, window, bulk, out, stream
+        "gather_patches_u8": ([_VP, _LL, _LL, _LL, _VP, _VP, _VP, _LL, _I, _I,
                                _VP, _VP], _I),
     },
     "hexcorrector": {
         **_ERROR_STRING,
-        # x, weight, bias, nb, h, w, c_in, c_out, relu, out, stream
-        "hex_layer_f32": ([_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
-                          _I),
-        # x, weight, bias, fg, nb, h, w, c_in, c_out, relu, out, stream
-        "hex_layer_labels_f32": ([_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                                  _VP, _VP], _I),
+        "hex_corrector_prepare": ([], _I),
+        # cluster, smem bytes, smem_bands
+        "hex_corrector_max_clusters": ([_I, _LL, _I], _I),
+        # x, fg, out, scratch, layers, n_layers, nb, h, w, cluster, band_rows,
+        # tile_rows, tile_cols, kc, buf_c, smem_bands, stream
+        "hex_corrector_f32": ([_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _VP], _I),
     },
     "denseblock": {
         **_ERROR_STRING,
@@ -53,6 +54,10 @@ SIGNATURES = {
         # band_rows, patches, warpgroups, stages, stream
         "dense_block_bf16": ([_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _VP], _I),
+        # buf, a1, b1, w1, a2, b2, w2, nb, h, w, c_in0, growth, n_layers, cb, u,
+        # stream
+        "dense_block_general_bf16": ([_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I,
+                                      _I, _I, _I, _I, _VP, _VP], _I),
     },
     "favor": {
         **_ERROR_STRING,

@@ -37,6 +37,15 @@ chooses which pixels a CTA owns: whole patches where a patch's ``u`` fits
 four 64-pixel tiles (no halo), else bands of whole rows of one patch with
 ``u`` recomputed for the row above and below (design notes in
 ``csrc/denseblock.cu``).
+
+Shapes: the ``wgmma`` kernel takes c_in0, growth and Cb in multiples of 8
+with growth <= 32 and Cb <= 128 (DenseNet-BC's widths). Other widths up to
+those limits are zero-padded to multiples of 8 (:func:`pad_dense_block`:
+zero affines and weight rows and columns make t and u exactly 0 there), run
+through it and sliced back. Blocks wider than the limits take the general
+route of the same source, two plain f32-FMA launches a layer. The wrapper
+chooses by shape (:func:`route`) and counts every launch in
+:data:`launches`, the general route's also in :data:`general_launches`.
 """
 
 from __future__ import annotations
@@ -50,9 +59,11 @@ import torch.nn.functional as F
 
 from gridnext_tpu_torch.ops import _cuda
 
-# Kernel launches (one per layer) made by fused_dense_block; a plain integer
-# that a run resets and reads to show the kernel was used.
+# Kernel launches made by fused_dense_block (one a layer on the wgmma route,
+# two on the general route), and those of the general route alone; plain
+# integers that a run resets and reads to show the kernels were used.
 launches = 0
+general_launches = 0
 
 _ALIGN = 8  # c_in0, growth and Cb must be multiples of this (16-byte vectors)
 CB_MAX, GROWTH_MAX = 128, 32  # the products' N: wgmma n128 (1x1) and n32 (3x3)
@@ -252,6 +263,49 @@ def fused_dense_block_plain(x: torch.Tensor, A1, B1, W1, A2, B2, W2, *,
     return buf
 
 
+def _up8(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def route(c_in0: int, growth: int, cb: int) -> str:
+    """``"wgmma"`` when the block's widths, padded to multiples of 8, fit the
+    ``wgmma`` kernel (growth <= 32, Cb <= 128), else ``"general"``."""
+    return "wgmma" if _up8(growth) <= GROWTH_MAX and _up8(cb) <= CB_MAX else "general"
+
+
+def pad_dense_block(A1, B1, W1, A2, B2, W2, *, c_in0: int, growth: int):
+    """The block's folded arrays with c_in0, growth and Cb zero-padded to
+    multiples of 8, for the ``wgmma`` kernel.
+
+    Returns ``(arrays, c_in0_p, growth_p, keep)``: the six padded tensors
+    (same dtypes and device), the padded widths, and ``keep``, the padded
+    buffer's channel of each original channel (``buf_p[..., keep]`` is the
+    unpadded buffer). Padded channels get zero ``a1``/``b1`` rows of ``W1``,
+    padded Cb columns zero ``W1`` columns, ``a2``/``b2`` and ``W2`` rows,
+    padded growth columns zero ``W2`` columns, so t and u are exactly 0
+    there and every padded channel the block writes is 0.
+    """
+    n_layers, c_max = A1.shape
+    cb = A2.shape[1]
+    c0p, gp, cbp = _up8(c_in0), _up8(growth), _up8(cb)
+    keep = torch.tensor([c if c < c_in0 else c0p + (c - c_in0) // growth * gp + (c - c_in0) % growth
+                         for c in range(c_max)], device=A1.device)
+    c_max_p = c0p + n_layers * gp
+
+    def padded(t, shape):
+        return t.new_zeros(shape)
+
+    a1, b1 = padded(A1, (n_layers, c_max_p)), padded(B1, (n_layers, c_max_p))
+    a1[:, keep], b1[:, keep] = A1, B1
+    w1 = padded(W1, (n_layers, c_max_p, cbp))
+    w1[:, keep, :cb] = W1
+    a2, b2 = padded(A2, (n_layers, cbp)), padded(B2, (n_layers, cbp))
+    a2[:, :cb], b2[:, :cb] = A2, B2
+    w2 = padded(W2, (n_layers, 9, cbp, gp))
+    w2[:, :, :cb, :growth] = W2
+    return (a1, b1, w1, a2, b2, w2), c0p, gp, keep
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data is not 16-byte aligned."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -265,12 +319,13 @@ def fused_dense_block(x: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int,
     tensors; pass them already on the device, ``A*``/``B*`` in float32 and
     ``W*`` in bf16, to skip the conversion on every call). ``x`` is cast to
     bf16. On a CUDA tensor this launches ``csrc/denseblock.cu``'s
-    ``dense_layer_kernel`` once per layer, tiled by :func:`plan_dense_block`,
-    and raises unless c_in0, growth and Cb are multiples of 8 with growth
-    at most 32 and Cb at most 128 (DenseNet-BC's 32 and 4 x 32); on a CPU
-    tensor it runs :func:`fused_dense_block_plain`. The JAX function's
-    ``batch_tile`` and ``interpret`` exist only for the TPU and are not
-    taken. Replaces the TPU kernel
+    ``dense_layer_kernel`` once per layer, tiled by :func:`plan_dense_block`
+    (widths that are not multiples of 8 zero-padded by
+    :func:`pad_dense_block`), or, where growth exceeds 32 or Cb 128, the
+    general route's two kernels a layer (:func:`route`); on a CPU tensor it
+    runs :func:`fused_dense_block_plain`. Every shape runs. The JAX
+    function's ``batch_tile`` and ``interpret`` exist only for the TPU and
+    are not taken. Replaces the TPU kernel
     ``gridnext_tpu/ops/denseblock_pallas.py::fused_dense_block``; bound by
     operations (module docstring).
     """
@@ -281,9 +336,50 @@ def fused_dense_block(x: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int,
         raise ValueError(f"unsupported device {x.device}")
     n_layers, c_max, cb = _check(x, A1, W1, A2, W2, c_in0, growth)
     b, h, w, _ = x.shape
-    buf = torch.empty((b, h, w, c_max), dtype=torch.bfloat16, device=x.device)
+    if route(c_in0, growth, cb) == "general":
+        buf = torch.empty((b, h, w, c_max), dtype=torch.bfloat16, device=x.device)
+        buf[..., :c_in0] = x
+        return _launch_general(buf, A1, B1, W1, A2, B2, W2, c_in0=c_in0, growth=growth)
+    if (_up8(c_in0), _up8(growth), _up8(cb)) == (c_in0, growth, cb):
+        buf = torch.empty((b, h, w, c_max), dtype=torch.bfloat16, device=x.device)
+        buf[..., :c_in0] = x
+        return _launch(buf, A1, B1, W1, A2, B2, W2, c_in0=c_in0, growth=growth)
+    dev = x.device
+    arrays = [_as(a, dev, torch.float32) for a in (A1, B1)] + [_as(W1, dev, torch.bfloat16)] \
+        + [_as(a, dev, torch.float32) for a in (A2, B2)] + [_as(W2, dev, torch.bfloat16)]
+    padded, c0p, gp, keep = pad_dense_block(*arrays, c_in0=c_in0, growth=growth)
+    buf = torch.zeros((b, h, w, c0p + n_layers * gp), dtype=torch.bfloat16, device=dev)
     buf[..., :c_in0] = x
-    return _launch(buf, A1, B1, W1, A2, B2, W2, c_in0=c_in0, growth=growth)
+    _launch(buf, *padded, c_in0=c0p, growth=gp)
+    return buf[..., keep]
+
+
+def _launch_general(buf: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int,
+                    growth: int) -> torch.Tensor:
+    """The general route on a contiguous bf16 CUDA ``buf`` (B, H, W, Cmax)
+    whose first ``c_in0`` channels hold the input: two launches a layer."""
+    global launches, general_launches
+    n_layers, c_max, cb = _check(buf[..., :c_in0], A1, W1, A2, W2, c_in0, growth)
+    if buf.dtype != torch.bfloat16 or not buf.is_contiguous() or buf.shape[-1] != c_max:
+        raise ValueError("buf must be a contiguous bf16 (B, H, W, Cmax) tensor")
+    dev = buf.device
+    a1, b1, a2, b2 = (_as(a, dev, torch.float32) for a in (A1, B1, A2, B2))
+    w1, w2 = (_as(a, dev, torch.bfloat16) for a in (W1, W2))
+    b, h, w, _ = buf.shape
+    if buf.numel() == 0 or n_layers == 0:
+        return buf
+    u = torch.empty((b * h * w, cb), dtype=torch.bfloat16, device=dev)
+    lib = _cuda.library("denseblock")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dense_block_general_bf16(
+            buf.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1.data_ptr(),
+            a2.data_ptr(), b2.data_ptr(), w2.data_ptr(), b, h, w, c_in0, growth,
+            n_layers, cb, u.data_ptr(), stream)
+    _cuda.check(lib, err, "fused_dense_block (general route)")
+    launches += 2 * n_layers
+    general_launches += 2 * n_layers
+    return buf
 
 
 def _launch(buf: torch.Tensor, A1, B1, W1, A2, B2, W2, *, c_in0: int, growth: int,

@@ -26,6 +26,16 @@ reach device memory (design notes in ``csrc/favor.cu``).
 The sequence is split across blocks and the partial sums are reduced in a
 fixed order, so a call gives the same bits every time.
 
+Head widths: the tensor-core kernels are compiled for d in
+:data:`HEAD_DIMS`; a narrower d is zero-padded to the next of them (the
+padded columns add 0 to ``x @ proj^T`` and give zero output columns, which
+are sliced away; the scale stays ``d^-1/4`` of the true d). A d above 64
+runs the general f32 kernels of the same source, which stage the
+contraction in chunks of 32 columns and own 64 output columns a block, so
+every d >= 1 runs. Inputs of another dtype are cast to float32, and an
+operand whose layout the kernel cannot read is copied to a contiguous
+float32 tensor, as the JAX wrapper casts; the output is float32.
+
 Only the forward is a kernel. On CUDA the call sits in a
 ``torch.autograd.Function`` whose backward differentiates the plain
 version, as the JAX op's custom VJP differentiates its einsum path.
@@ -43,7 +53,7 @@ from gridnext_tpu_torch.ops.favor import generalized_kernel_features, linear_att
 # to show the kernel was used.
 launches = 0
 
-HEAD_DIMS = (16, 32, 64)   # head widths the kernel is compiled for
+HEAD_DIMS = (16, 32, 48, 64)   # head widths the tensor-core kernels are compiled for
 _ROWS = 32                 # csrc/favor.cu kRows: sequence rows per accumulate tile
 _FEAT_TILE = 16            # csrc/favor.cu kFeatTile: features per warp
 _ACC_WARPS_MAX = 6         # csrc/favor.cu kAccWarpsMax: feature tiles per block
@@ -54,6 +64,7 @@ def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           proj: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ReLU-FAVOR attention (the JAX module's
     ``_einsum_reference``): ``(B, H, N, d)`` float32."""
+    q, k, v, proj = (t.float() for t in (q, k, v, proj))
     qf = generalized_kernel_features(q, proj, torch.relu)
     kf = generalized_kernel_features(k, proj, torch.relu)
     return linear_attention(qf, kf, v)
@@ -67,25 +78,38 @@ def _check_shapes(q, k, v, proj):
         raise ValueError(f"proj {tuple(proj.shape)} is not (m, {q.shape[-1]})")
 
 
-def _kernel_operand(t: torch.Tensor, name: str) -> torch.Tensor:
-    """``t`` as the kernel reads it, or ValueError: float32, last dim
-    contiguous, 16-byte aligned, element strides multiples of 4."""
+def kernel_width(d: int) -> int:
+    """The width the kernel runs a head width ``d`` at: the smallest of
+    :data:`HEAD_DIMS` that holds it, or ``d`` itself above them (the
+    general kernels)."""
+    return next((w for w in HEAD_DIMS if w >= d), d)
+
+
+def _kernel_operand(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (``(..., d)``) as the kernel reads it: float32 with ``width``
+    columns, the last dim contiguous and, for the tensor-core kernels,
+    16-byte aligned with element strides that are multiples of 4. ``t``
+    itself where it already is, else a contiguous copy (zero-padded to
+    ``width``)."""
+    d = t.shape[-1]
+    if width != d:
+        return torch.nn.functional.pad(t.float(), (0, width - d)).contiguous()
     if t.dtype != torch.float32:
-        raise ValueError(f"the FAVOR kernel takes float32, got {name} {t.dtype}")
-    if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s % 4 for s in t.stride()[:-1])):
-        raise ValueError(f"{name} must be 16-byte aligned with a contiguous last "
-                         f"dim and strides that are multiples of 4, got strides "
-                         f"{t.stride()}")
-    return t
+        return t.float().contiguous()
+    aligned = (t.data_ptr() % 16 == 0 and not any(s % 4 for s in t.stride()[:-1])
+               if width in HEAD_DIMS else True)
+    return t if t.stride(-1) == 1 and aligned else t.contiguous()
 
 
-def _splits(bh: int, n: int, m: int, device) -> int:
+def _splits(bh: int, n: int, m: int, d: int, device) -> int:
     """Sequence ranges per (b, h) of the accumulate pass: enough blocks to
     fill the card, at most one per 32-row tile."""
     tiles = -(-n // _ROWS)
     m_tiles = -(-m // _FEAT_TILE)
-    groups = -(-m_tiles // _ACC_WARPS_MAX)     # blocks per (b, h) and split
+    if d in HEAD_DIMS:
+        groups = -(-m_tiles // _ACC_WARPS_MAX)     # blocks per (b, h) and split
+    else:                                          # general: 32 features x 64 columns a block
+        groups = -(-m_tiles * _FEAT_TILE // 32) * -(-d // 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-_BLOCKS_PER_SM * sms // (groups * bh))
     return max(1, min(tiles, want))
@@ -95,29 +119,28 @@ def _launch(q, k, v, proj):
     global launches
     b, h, n, d = q.shape
     m = proj.shape[0]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the FAVOR kernel takes head widths {HEAD_DIMS}, got {d}")
-    if n == 0 or m == 0 or b * h == 0:
+    if n == 0 or m == 0 or b * h == 0 or d == 0:
         raise ValueError(f"empty FAVOR call: q {tuple(q.shape)}, proj {tuple(proj.shape)}")
     dev = q.device
     if any(t.device != dev for t in (k, v, proj)):
         raise ValueError("q, k, v and proj must be on one device")
-    q, k, v = (_kernel_operand(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v")))
-    proj = _kernel_operand(proj.contiguous(), "proj")
+    width = kernel_width(d)
+    q, k, v = (_kernel_operand(t, width) for t in (q, k, v))
+    proj = _kernel_operand(proj.contiguous(), width).contiguous()
     lib = _cuda.library("favor")
-    splits = _splits(b * h, n, m, dev)
-    work = torch.empty(int(lib.favor_workspace_floats(b * h, splits, m, d)),
+    splits = _splits(b * h, n, m, width, dev)
+    work = torch.empty(int(lib.favor_workspace_floats(b * h, splits, m, width)),
                        dtype=torch.float32, device=dev)
-    out = torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, n, width), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.favor_attention_f32(
             q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-            v.data_ptr(), *v.stride()[:3], b, h, n, d, proj.data_ptr(), m, splits,
+            v.data_ptr(), *v.stride()[:3], b, h, n, width, proj.data_ptr(), m, splits,
             float(d) ** -0.25, work.data_ptr(), out.data_ptr(), stream)
     _cuda.check(lib, err, "fused_generalized_linear_attention")
     launches += 1
-    return out
+    return out if width == d else out[..., :d].contiguous()
 
 
 class _FusedFavor(torch.autograd.Function):
@@ -132,7 +155,7 @@ class _FusedFavor(torch.autograd.Function):
     def backward(ctx, grad):
         needs = ctx.needs_input_grad
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
+            ins = [t.detach().float().requires_grad_(need)
                    for t, need in zip(ctx.saved_tensors, needs)]
             out = favor_attention_plain(*ins)
             grads = iter(torch.autograd.grad(
@@ -146,12 +169,14 @@ def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
     """ReLU-FAVOR linear attention: ``(B, H, N, d)`` float32.
 
     Args:
-      q, k, v: ``(B, H, N, d)`` float32; on CUDA they may be strided views
-        (the last dim contiguous, strides multiples of 4), d 16, 32 or 64.
+      q, k, v: ``(B, H, N, d)``, any head width d >= 1 and any floating
+        dtype (cast to float32); on CUDA they may be strided views, read in
+        place where the kernel takes their layout and copied otherwise.
       proj: ``(m, d)`` projection (a FastAttention's ``projection``).
 
-    CUDA tensors launch the kernel of ``csrc/favor.cu`` (and raise if it
-    cannot run them); CPU tensors run :func:`favor_attention_plain`.
+    CUDA tensors launch the kernels of ``csrc/favor.cu`` (and raise on an
+    empty call or mismatched shapes); CPU tensors run
+    :func:`favor_attention_plain`.
     Replaces the TPU kernel ``gridnext_tpu/ops/favor_pallas.py::
     fused_generalized_linear_attention``; bound by operations (split-TF32
     tensor-core products), with the feature maps made and consumed in

@@ -7,12 +7,17 @@ tensor it runs :func:`gather_patches_plain`, the same crop in plain
 PyTorch indexing. There is no fallback from one to the other.
 
 What bounds the kernel on the card: bytes. Every crop is read once and
-written once (2 * N * window^2 * 3 bytes) with no arithmetic; the kernel
-runs one block per (spot, 8-row group) with consecutive threads on
-consecutive bytes of each row, so each warp moves whole 32-byte sectors.
-The TPU kernel's RGBX int32 packing and its ``window % 128`` limit existed
-only for the TPU's lanes, so this port reads the raw ``(B, H, W, 3)``
-uint8 slide stack directly and takes any window.
+written once (2 * N * window^2 * 3 bytes) with no arithmetic. Where a row
+is a multiple of 16 bytes (``window % 16 == 0``, as the 128- and 160-px
+windows are) the wrapper launches ``gather_bulk_kernel``: one CTA per
+crop, each row's 16-byte-aligned covering span copied into shared memory
+by a Hopper 1D bulk copy (a source row starts at any byte, so no TMA
+tensor map can describe the slide, but a bulk copy needs none), realigned
+there by the row's source offset and written with 16-byte stores, rows in
+double-buffered stages of 32. Other windows launch
+``gather_bytes_kernel``, consecutive threads on consecutive bytes. The TPU kernel's RGBX int32 packing and its
+``window % 128`` limit existed only for the TPU's lanes, so this port reads
+the raw ``(B, H, W, 3)`` uint8 slide stack directly and takes any window.
 """
 
 from __future__ import annotations
@@ -22,8 +27,21 @@ import torch
 from gridnext_tpu_torch.ops import _cuda
 
 # Number of kernel launches made by gather_patches (a plain integer; a run
-# resets it and reads it to show the kernel was used).
+# resets it and reads it to show the kernel was used), and how many of them
+# took the byte path.
 launches = 0
+byte_launches = 0
+
+_STAGE_ROWS = 32              # csrc/patch_gather.cu kStageRows
+_MAX_SMEM = 200 * 1024        # csrc/patch_gather.cu kMaxSmem
+
+
+def bulk(window: int) -> bool:
+    """Whether ``window`` takes the bulk-copy kernel (rows of a multiple of
+    16 bytes whose two stages of 32 rows fit its shared memory; csrc's
+    bulk_ok); other windows take the byte kernel."""
+    row = window * 3
+    return row % 16 == 0 and 2 * _STAGE_ROWS * (row // 16 + 1) * 16 <= _MAX_SMEM
 
 
 def _checked(imgs: torch.Tensor, y0, x0, window: int, slide):
@@ -85,10 +103,10 @@ def gather_patches(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     (and raises if it cannot); on a CPU tensor it runs
     :func:`gather_patches_plain`. Replaces the TPU kernel
     ``gridnext_tpu/ops/patch_gather_pallas.py::gather_patches``; bound by
-    bytes, with one block per (spot, 8 rows) copying whole rows (module
-    docstring).
+    bytes, with bulk copies into shared memory and 16-byte stores where the
+    row allows (module docstring).
     """
-    global launches
+    global launches, byte_launches
     if imgs.device.type == "cpu":
         return gather_patches_plain(imgs, y0, x0, window, slide)
     if imgs.device.type != "cuda":
@@ -105,13 +123,15 @@ def gather_patches(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     y0 = y0.to(dev, torch.int32).contiguous()
     x0 = x0.to(dev, torch.int32).contiguous()
     slide = None if slide is None else slide.to(dev, torch.int32).contiguous()
+    use_bulk = bulk(window) and out.data_ptr() % 16 == 0
     lib = _cuda.library("patch_gather")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_patches_u8(
             imgs.data_ptr(), b, h, w, y0.data_ptr(), x0.data_ptr(),
             None if slide is None else slide.data_ptr(), n, int(window),
-            out.data_ptr(), stream)
+            int(use_bulk), out.data_ptr(), stream)
     _cuda.check(lib, err, "gather_patches")
     launches += 1
+    byte_launches += not use_bulk
     return out

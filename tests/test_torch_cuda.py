@@ -62,9 +62,37 @@ def test_gather_kernel_single_slide_and_empty(dev):
         gather.gather_patches(imgs, y0, x0, 121)
 
 
-def _corrector_case(dev, c_in, n_classes, b=2, seed=0):
+@pytest.mark.parametrize("win", [24, 97, 128, 160])
+def test_gather_kernel_every_source_residue(dev, win):
+    """Source rows starting at every byte offset mod 16, from an aligned
+    stack and from a slide view that starts 12 bytes past a 16-byte
+    boundary, clamped corners and slide ids included: bit-exact, and the
+    bulk-copy path exactly where a row is a multiple of 16 bytes."""
+    b, h, w = 3, 2 * win + 7, 2 * win + 41
+    rng = np.random.default_rng(win)
+    stack = torch.as_tensor(rng.integers(0, 256, (b + 1, h, w, 3), dtype=np.uint8),
+                            device=dev)
+    # 16 consecutive corners of one row: 3 x0 runs through every residue mod 16
+    x0 = np.concatenate([np.arange(16) + 5, [-3, w, w - win - 1]]).astype(np.int32)
+    y0 = np.concatenate([np.full(16, 3), [h, -9, 2]]).astype(np.int32)
+    slide = np.concatenate([np.full(16, 1), [b + 4, -2, 1]]).astype(np.int32)
+    y0, x0, slide = (torch.as_tensor(a, device=dev) for a in (y0, x0, slide))
+    offsets = set()
+    for imgs in (stack[:b], stack[1:]):
+        for yy, xx, ss in zip(y0[:16].tolist(), x0[:16].tolist(), slide[:16].tolist()):
+            offsets.add((imgs.data_ptr() + 3 * ((ss * h + yy) * w + xx)) % 16)
+        before, before_bytes = gather.launches, gather.byte_launches
+        got = gather.gather_patches(imgs, y0, x0, win, slide)
+        torch.cuda.synchronize()
+        assert gather.launches == before + 1
+        assert gather.byte_launches == before_bytes + (not gather.bulk(win))
+        assert torch.equal(got, gather.gather_patches_plain(imgs, y0, x0, win, slide))
+    assert offsets == set(range(16))
+
+
+def _corrector_case(dev, c_in, n_classes, b=2, seed=0, width=32):
     rng = np.random.default_rng(seed)
-    dims = (c_in, 32, 32, 32, 32, n_classes)
+    dims = (c_in, width, width, width, width, n_classes)
     kernels = [rng.normal(size=(7, dims[i], dims[i + 1])).astype(np.float32)
                / np.sqrt(7 * dims[i]) for i in range(5)]
     biases = [rng.normal(size=(dims[i + 1],)).astype(np.float32) * 0.1 for i in range(5)]
@@ -73,18 +101,23 @@ def _corrector_case(dev, c_in, n_classes, b=2, seed=0):
     return x, fg, corr.as_f32_tensors(kernels, dev), corr.as_f32_tensors(biases, dev)
 
 
-@pytest.mark.parametrize("c_in,n_classes", [(7, 7), (3, 5), (64, 32)])
-def test_corrector_kernels_match_plain(dev, c_in, n_classes):
-    x, fg, kernels, biases = _corrector_case(dev, c_in, n_classes)
+@pytest.mark.parametrize("c_in,n_classes,width", [
+    (7, 7, 32), (3, 5, 32), (64, 32, 32),
+    (7, 33, 32), (14, 64, 32), (1024, 64, 32),   # above 32 classes; c_in beyond shared memory
+    (300, 33, 32), (7, 7, 128), (5, 9, 12)],     # hidden bands in device scratch; narrow
+    ids=["7-7", "3-5", "64-32", "7-33", "14-64", "1024-64", "300-33", "hidden128", "hidden12"])
+def test_corrector_kernels_match_plain(dev, c_in, n_classes, width):
+    x, fg, kernels, biases = _corrector_case(dev, c_in, n_classes, width=width)
     before = dict(corr.launches)
     logits = corr.fused_hex_corrector(x, kernels, biases)
     labels = corr.fused_hex_corrector_labels(x, fg, kernels, biases)
     plain = corr.hex_corrector_plain(x, kernels, biases)
     plain_labels = corr.hex_corrector_labels_plain(x, fg, kernels, biases)
     torch.cuda.synchronize()
-    assert corr.launches["fused_hex_corrector"] == before["fused_hex_corrector"] + 5
+    # one launch a call, all layers
+    assert corr.launches["fused_hex_corrector"] == before["fused_hex_corrector"] + 1
     assert (corr.launches["fused_hex_corrector_labels"]
-            == before["fused_hex_corrector_labels"] + 5)
+            == before["fused_hex_corrector_labels"] + 1)
     assert (logits - plain).abs().max().item() <= 1e-4
     for i in range(x.shape[0]):
         label_parity_report(plain_labels[i].cpu().numpy(), labels[i].cpu().numpy(),
@@ -92,6 +125,9 @@ def test_corrector_kernels_match_plain(dev, c_in, n_classes):
 
 
 def test_corrector_labels_kernel_ties_and_class_limit(dev):
+    """Ties take the first class, within one output group, across groups and
+    across 32-class tiles; 33 and 70 classes compute (the 32-class limit is
+    gone) with the tie at the tile boundary."""
     x = torch.zeros((1, 4, 4, 3), device=dev)
     kernels = [torch.zeros((7, 3, 3), device=dev)]
     biases = [torch.tensor([1.0, 1.0, 0.5], device=dev)]
@@ -101,10 +137,51 @@ def test_corrector_labels_kernel_ties_and_class_limit(dev):
     want = torch.ones((1, 4, 4), dtype=torch.int32)
     want[0, 0, 0] = 0
     assert torch.equal(got.cpu(), want)   # ties take the first class
-    with pytest.raises(ValueError, match="at most 32"):
-        corr.fused_hex_corrector_labels(
-            x, fg, [torch.zeros((7, 3, 33), device=dev)],
-            [torch.zeros(33, device=dev)], (False,))
+    for n, top in ((33, (9, 32)), (70, (40, 63, 64)), (20, (12, 19))):
+        bias = torch.zeros(n, device=dev)
+        bias[list(top)] = 2.0             # a tie between groups or tiles
+        before = corr.launches["fused_hex_corrector_labels"]
+        got = corr.fused_hex_corrector_labels(x, fg, [torch.zeros((7, 3, n), device=dev)],
+                                              [bias], (False,))
+        torch.cuda.synchronize()
+        assert corr.launches["fused_hex_corrector_labels"] == before + 1
+        want = torch.full((1, 4, 4), top[0] + 1, dtype=torch.int32)
+        want[0, 0, 0] = 0
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,h,w,dims", [
+    (2, 78, 64, (7,) + (32,) * 9 + (7,)),            # 10 layers (once at most 8)
+    (70_000, 2, 2, (3, 4, 4, 5)),                     # more grids than gridDim.y's 65,535
+    (1, 1920, 500, (7, 32, 32, 32, 32, 7)),           # bands in tiles of whole rows
+    (1, 32, 20_000, (7, 32, 32, 32, 32, 7))],         # bands in tiles of part rows
+    ids=["layers10", "grids70000", "tall", "wide"])
+def test_corrector_kernel_any_depth_batch_and_grid(dev, b, h, w, dims):
+    """Layer counts, batches and grid shapes the kernel once refused, one
+    launch a call, against the plain version."""
+    rng = np.random.default_rng(len(dims) + h)
+    n = len(dims) - 1
+    kernels = corr.as_f32_tensors([rng.normal(size=(7, dims[i], dims[i + 1])).astype(
+        np.float32) / np.sqrt(7 * dims[i]) for i in range(n)], dev)
+    biases = corr.as_f32_tensors([rng.normal(size=(dims[i + 1],)).astype(np.float32) * 0.1
+                                  for i in range(n)], dev)
+    flags = tuple(i % 2 == 1 for i in range(n))
+    x = torch.as_tensor(rng.normal(size=(b, h, w, dims[0])).astype(np.float32), device=dev)
+    fg = torch.as_tensor((rng.random((b, h, w)) < 0.6).astype(np.int32), device=dev)
+    before = dict(corr.launches)
+    logits = corr.fused_hex_corrector(x, kernels, biases, flags)
+    labels = corr.fused_hex_corrector_labels(x, fg, kernels, biases, flags)
+    plain = corr.hex_corrector_plain(x, kernels, biases, flags)
+    plain_labels = corr.hex_corrector_labels_plain(x, fg, kernels, biases, flags)
+    torch.cuda.synchronize()
+    assert corr.launches["fused_hex_corrector"] == before["fused_hex_corrector"] + 1
+    assert (corr.launches["fused_hex_corrector_labels"]
+            == before["fused_hex_corrector_labels"] + 1)
+    assert (logits - plain).abs().max().item() <= 1e-4
+    flips = (labels != plain_labels).nonzero()
+    for i in flips[:, 0].unique().tolist():
+        label_parity_report(plain_labels[i].cpu().numpy(), labels[i].cpu().numpy(),
+                            plain[i].cpu().numpy())
 
 
 def _dense_case(dev, b, h, w, c0, n_layers, growth=32, cb=128, seed=0):
@@ -200,15 +277,37 @@ def test_dense_block_kernel_ignores_unwritten_channels(dev, b, hw, c0, n_layers)
                                                            growth=growth), c0)
 
 
-def test_dense_block_kernel_refuses_unaligned_widths(dev):
-    x, arrays = _dense_case(dev, 1, 4, 4, 12, 2, growth=8, cb=16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        dense.fused_dense_block(x, *arrays, c_in0=12, growth=8)
-    x, arrays = _dense_case(dev, 1, 4, 4, 16, 1, growth=48, cb=192)
-    before = dense.launches
-    with pytest.raises(ValueError, match="growth <= 32"):
-        dense.fused_dense_block(x, *arrays, c_in0=16, growth=48)
-    assert dense.launches == before
+@pytest.mark.parametrize("b,hw,c0,n_layers,growth,cb,route", [
+    (1, 4, 12, 2, 8, 16, "wgmma"),            # c_in0 not a multiple of 8
+    (3, 9, 24, 3, 12, 48, "wgmma"),           # growth 12, as the JAX DenseNet's default
+    (2, 8, 20, 2, 6, 20, "wgmma"),            # every width unaligned
+    (1, 4, 16, 1, 48, 192, "general"),        # growth above 32, Cb above 128
+    (2, 7, 30, 3, 48, 192, "general"),
+    (3, 5, 9, 2, 40, 136, "general")],        # unaligned and wide
+    ids=["c12", "g12", "unaligned", "g48-b1", "g48", "wide-unaligned"])
+def test_dense_block_kernel_refuses_unaligned_widths(dev, b, hw, c0, n_layers, growth, cb,
+                                                     route):
+    """Widths the wgmma kernel does not take compute: zero-padded to
+    multiples of 8 up to growth 32 / Cb 128, the general route above; one
+    launch a layer on the first, two on the second."""
+    x, arrays = _dense_case(dev, b, hw, hw, c0, n_layers, growth, cb, seed=c0)
+    assert dense.route(c0, growth, cb) == route
+    before, before_general = dense.launches, dense.general_launches
+    got = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
+    want = dense.fused_dense_block_plain(x, *arrays, c_in0=c0, growth=growth)
+    again = dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth)
+    torch.cuda.synchronize()
+    per_layer = 1 if route == "wgmma" else 2
+    assert dense.launches == before + 2 * per_layer * n_layers
+    assert dense.general_launches == before_general + (2 * per_layer * n_layers
+                                                       if route == "general" else 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hw, hw, c0 + n_layers * growth)
+    assert torch.equal(got, again)
+    _assert_dense_close(got, want, c0)
+    # mismatched shapes still refuse, before any launch
+    with pytest.raises(ValueError):
+        dense.fused_dense_block(x, *arrays, c_in0=c0, growth=growth + 1)
+    assert dense.launches == before + 2 * per_layer * n_layers
 
 
 def _favor_case(dev, b, h, n, d, m, seed=0, scale=1.0):
@@ -277,16 +376,39 @@ def test_favor_kernel_gradients_match_plain(dev):
         torch.testing.assert_close(a.grad, b.grad, rtol=2e-4, atol=2e-5)
 
 
-def test_favor_kernel_refuses_what_it_does_not_take(dev):
-    q, k, v, proj = _favor_case(dev, 1, 2, 100, 48, 30)
+@pytest.mark.parametrize("d", [8, 48, 100, 128, 200])
+def test_favor_kernel_refuses_what_it_does_not_take(dev, d):
+    """Head widths outside the compiled ones (padded, or the general kernels
+    above 64), bf16 inputs and strided views that the tensor-core kernels
+    cannot read all compute within the f32 tolerance; an empty call and
+    mismatched shapes still refuse, before any launch."""
+    q, k, v, proj = _favor_case(dev, 2, 3, 333, d, 70, seed=d)
     before = favor.launches
-    with pytest.raises(ValueError, match="head widths"):
-        favor.fused_generalized_linear_attention(q, k, v, proj)
-    q, k, v, proj = _favor_case(dev, 1, 2, 100, 16, 30)
-    with pytest.raises(ValueError, match="float32"):
-        favor.fused_generalized_linear_attention(q.double(), k.double(), v.double(),
-                                                 proj.double())
-    wide = torch.zeros((3, 1, 2, 100, 17), device=dev)    # row stride 17
-    with pytest.raises(ValueError, match="strides"):
-        favor.fused_generalized_linear_attention(*wide[..., 1:], proj)
-    assert favor.launches == before
+    got = favor.fused_generalized_linear_attention(q, k, v, proj)
+    again = favor.fused_generalized_linear_attention(q, k, v, proj)
+    want = favor.favor_attention_plain(q, k, v, proj)
+    torch.cuda.synchronize()
+    assert favor.launches == before + 2
+    assert got.shape == (2, 3, 333, d) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert torch.equal(got, again)
+    # bf16 inputs: cast to f32, as the JAX wrapper casts
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = favor.fused_generalized_linear_attention(qb, kb, vb, proj)
+    want = favor.favor_attention_plain(qb.float(), kb.float(), vb.float(), proj)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    # strided views: rows of d + 1 floats (misaligned for the tensor cores)
+    wide = torch.as_tensor(np.random.default_rng(d).standard_normal((3, 2, 3, 333, d + 1))
+                           .astype(np.float32), device=dev)
+    got = favor.fused_generalized_linear_attention(*wide[..., 1:], proj)
+    want = favor.favor_attention_plain(*(t.contiguous() for t in wide[..., 1:]), proj)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    assert favor.launches == before + 4
+    with pytest.raises(ValueError, match="empty"):
+        favor.fused_generalized_linear_attention(q[:, :, :0], k[:, :, :0], v[:, :, :0], proj)
+    with pytest.raises(ValueError):
+        favor.fused_generalized_linear_attention(q, k[:, :, 1:], v, proj)
+    with pytest.raises(ValueError):
+        favor.fused_generalized_linear_attention(q, k, v, proj[:, 1:])
+    assert favor.launches == before + 4

@@ -62,7 +62,8 @@ def _imports(tree):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
                                                               REPO / "tools" / "time_favor.py",
-                                                              REPO / "tools" / "time_denseblock.py"],
+                                                              REPO / "tools" / "time_denseblock.py",
+                                                              REPO / "tools" / "time_gather_corrector.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), str(path))
