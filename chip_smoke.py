@@ -87,7 +87,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up to near-ties, and the count f's logits on three chunks must lie
    within 1e-3 of the plain route's; then ms/slide, spots/s and a
    torch.profiler table of one count chunk;
-10. a ``{"kernels": [...]}`` line, then the last line
+10. the ``register`` command's path at full width: phase 4's model
+    directory written to disk by the port's ``save_model_dir`` and read back
+    bit-equal; six slides saved as ``.npy`` in the order A A B A A B (A the
+    4 slides, B slides 0 and 1 cut to 9,000 rows) through
+    ``serving.register_slides`` with ``slide_batch`` 4 (the card has no PIL:
+    ``SlideSource(decode=np.load)``), its counts set to 0 just before and
+    read just after (the gather and the labels corrector must have
+    launched), the yield order and ``stats`` those of the grouping rule,
+    each slide's labels equal to ``reg(slide)`` up to near-ties and its
+    foreground equal to the mask; then ``cli.main(["register", ...])`` over
+    slides 0-3 (``ingest.decode_slide`` swapped for ``np.load``), each
+    Loupe CSV naming phase 4's ``register_batch`` labels up to near-ties;
+    the loop's wall ms/slide beside its stage times and phase 4's;
+11. the count route at full width: a unified count cache of slide 0 over
+    the 16,906 gene2vec genes (Poisson counts, written with ``gzip``) and a
+    ``GridNetHex+CountMLP`` model directory through the ``register``
+    command, the CSV's labels equal to the same model's forward on the CPU
+    up to near-ties and the card's logits within 1e-3 of the CPU's; the
+    cache's read time on the host and the forward's device time;
+12. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -131,6 +150,7 @@ MM_VOCAB = 16906
 MM_DIM, MM_DEPTH, MM_HEADS, MM_DIM_HEAD = 200, 6, 10, 64
 COUNT_CHUNK = 8               # train-mm's count_chunk for an scBERT count f
 COUNT_RATE = 0.05             # Poisson mean per gene of the count grid (~845 a spot)
+B_ROWS = 9000                 # rows of the cut slides of phase 10's mixed-shape cohort
 FAVOR_RTOL, FAVOR_ATOL = 2e-4, 2e-5   # tests/test_favor_pallas.py's tolerance
 # Label near-tie budget of the bf16 fused f against the f32 module: a flip
 # is tolerated where the f32 route's top-2 corrector logits are within 5 %
@@ -675,7 +695,8 @@ def phase_main_path(torch, slides, port, card, tmp):
         f"{[round(x * 1e3, 2) for x in times['kernels']]} ms); "
         f"{t_plain * 1e3 / N_SLIDES:.2f} ms/slide with "
         f"the plain versions [{card}]")
-    return launches, reg, positions, masks
+    return launches, reg, positions, masks, {"labels_b": labels_b,
+                                             "ms_per_slide": t * 1e3 / N_SLIDES}
 
 
 def profile_batch(torch, reg, slides, positions,
@@ -1272,6 +1293,320 @@ def phase_mm(torch, slides, positions, masks, port, card):
     return launches
 
 
+def tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def loupe_grid(path, shape, classes):
+    """The label grid a Loupe CSV of the bench lattice names (spot ``i`` of
+    the positions file is cell ``divmod(i, 64)``) and its row count."""
+    grid = np.zeros(shape, np.int64)
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    if rows[0] != ["Barcode", "AARs"]:
+        raise AssertionError(f"Loupe CSV header {rows[0]}")
+    for barcode, annot in rows[1:]:
+        y, x = divmod(int(barcode.split("BC")[1].split("-")[0]), shape[1])
+        grid[y, x] = classes.index(annot) + 1
+    return grid, len(rows) - 1
+
+
+def merged(spans):
+    """The union of (start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def staging_overlap(prof, path) -> dict:
+    """From a torch.profiler trace (exported to ``path`` as a Chrome trace):
+    the pinned host-to-card copies' count and device ms, the share of that
+    time during which a kernel ran, and the device's busy ms (the union of
+    kernels and copies)."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    copies, kernels = [], []
+    for e in events:
+        if "dur" not in e or "ts" not in e:
+            continue
+        name, cat = str(e.get("name", "")), str(e.get("cat", ""))
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if "HtoD" in name and "Pinned" in name:
+            copies.append(span)
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kernels.append(span)
+    busy = merged(kernels)
+    copy_us = sum(b - a for a, b in copies)
+    hidden_us = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in copies for ka, kb in busy)
+    return {"h2d_copies": len(copies), "h2d_ms": copy_us / 1e3,
+            "h2d_under_kernels": hidden_us / copy_us if copy_us else None,
+            "device_busy_ms": sum(b - a for a, b in merged(copies + kernels)) / 1e3}
+
+
+def phase_register_slides(torch, slides, port, card, tmp, batch4):
+    """The ``register`` command's path at full width: a model directory on
+    disk, six slide files through ``register_slides``, four through the CLI.
+    Returns the Spaceranger dirs, tissue masks and positions it wrote."""
+    from gridnext_tpu_torch import cli, ingest
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 10: register_slides and the register command at full width "
+        "(TpuPatchClassifier model directory on disk, TF32 off)")
+    dev = slides.device
+    meta = {"model": "GridNetHex+TpuPatchClassifier",
+            "classes": [f"Class_{i + 1}" for i in range(N_CLASSES)],
+            "tpu_f": {"stages": [[256, 2], [512, 2]], "stem_patch": 16, "norm": "rms"},
+            "patch_px": PATCH, "patch_chunk": CHUNK}
+    variables = random_variables(models, from_jax)      # phase 4's weights
+    model_dir = os.path.join(tmp, "model")
+    from_jax.save_model_dir(model_dir, meta, variables)
+    meta2, classes, loaded = from_jax.load_model_dir(model_dir)
+    want = dict(tree_leaves(variables))
+    got = dict(tree_leaves(loaded))
+    if meta2 != meta or set(got) != set(want) or not all(
+            np.asarray(got[k]).dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want):
+        raise AssertionError("the model directory did not read back bit-equal")
+    log(f"model directory written and read back bit-equal: {len(want)} arrays, "
+        f"{os.path.getsize(os.path.join(model_dir, 'g_state.msgpack')) / 1e6:.1f} MB")
+
+    dirs_masks = [write_spaceranger_dir(tmp, geometry, f, i)
+                  for i, f in enumerate(TISSUE_FRACTIONS)]
+    # A A B A A B: A is a full slide (0-3), B slide 0 or 1 cut to B_ROWS rows
+    order = [("A", 0), ("A", 1), ("B", 0), ("A", 2), ("A", 3), ("B", 1)]
+    files, dirs, masks, refs = [], [], [], []
+    t0 = time.perf_counter()
+    for k, (kind, i) in enumerate(order):
+        wsi = slides[i] if kind == "A" else slides[i][:B_ROWS]
+        files.append(os.path.join(tmp, f"slide{k}_{kind}{i}.npy"))
+        np.save(files[-1], wsi.cpu().numpy())
+        dirs.append(dirs_masks[i][0])
+        masks.append(dirs_masks[i][1])
+        refs.append(wsi)
+    log(f"wrote {len(files)} slides as .npy in the order A A B A A B "
+        f"({sum(os.path.getsize(f) for f in files) / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s); the card has no PIL, so they decode "
+        f"with np.load")
+    reg = modeldir.image_registrar_from_meta(meta2, classes, loaded, device=dev)
+
+    # the serving loop, its counts set to 0 just before and read just after
+    batch = 4
+    source = ingest.SlideSource(files, dirs, prefetch=batch + 1, decode=np.load,
+                                device=dev)
+    stats = {}
+    torch.cuda.synchronize()
+    gather.launches = 0
+    for k in corr.launches:
+        corr.launches[k] = 0
+    t0 = time.perf_counter()
+    results = list(serving.register_slides(reg, files, dirs, slide_batch=batch,
+                                           source=source, stats=stats))
+    wall = time.perf_counter() - t0
+    launches = {"gather_patches": gather.launches, **corr.launches}
+    log(f"register_slides kernel launches: {launches}")
+    for name in ("gather_patches", "fused_hex_corrector_labels"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by register_slides")
+    # the cap flushes A A _ A (three slides), then B B and the last A alone
+    got_order = [i for i, _, _ in results]
+    if got_order != [0, 1, 3, 2, 5, 4] or stats != {"batched": 5}:
+        raise AssertionError(f"register_slides yielded {got_order}, stats {stats} "
+                             f"(want [0, 1, 3, 2, 5, 4] and 5 slides batched)")
+
+    flips, logits = 0, {}
+    for i, labels, pos in results:
+        lg, fg = reg.register_logits(refs[i], pos)
+        logits[i] = lg
+        flips += serving.label_parity_report(reg(refs[i], pos), labels, lg)
+        if not (np.array_equal(labels > 0, masks[i] > 0) and np.array_equal(fg > 0, masks[i] > 0)):
+            raise AssertionError(f"slide {i}: foreground differs from the tissue mask")
+    t = source.timer.summary()
+    n = len(files)
+    per = {k: v * 1e3 / n for k, v in t.items()}
+    log(f"register_slides over {n} slides (A A B A A B, slide_batch {batch}): yield order "
+        f"{got_order}, stats {stats}; labels equal reg(slide) up to {flips} near-tie flips, "
+        f"foreground equal to the masks")
+    log(f"register_slides wall {wall * 1e3 / n:.2f} ms/slide (host clock, first next() "
+        f"to the last labels on the host); stage ms/slide {json.dumps(per)}; throughput "
+        f"{json.dumps(source.throughput())}; max(decode, register) "
+        f"{max(per['decode'], per['register']):.2f}, sum "
+        f"{per['decode'] + per['register']:.2f} ms/slide; decode thread (decode + pin + "
+        f"stage + positions) {per['decode'] + per.get('pin', 0) + per['stage'] + per['positions']:.2f} ms/slide; "
+        f"phase 4's register_batch {batch4['ms_per_slide']:.2f} ms/slide [{card}]")
+
+    # the same loop again: the first pass allocated its pinned buffers, this
+    # one takes them from PyTorch's pinned-memory cache
+    warm = ingest.SlideSource(files, dirs, prefetch=batch + 1, decode=np.load, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_order = [i for i, _, _ in serving.register_slides(reg, files, dirs, slide_batch=batch,
+                                                           source=warm)]
+    warm_wall = time.perf_counter() - t0
+    if warm_order != got_order:
+        raise AssertionError(f"the second pass yielded {warm_order}")
+    wper = {k: v * 1e3 / n for k, v in warm.timer.summary().items()}
+    log(f"register_slides again (pinned and card memory from the caches): wall "
+        f"{warm_wall * 1e3 / n:.2f} ms/slide; stage ms/slide {json.dumps(wper)}; decode "
+        f"thread (decode + pin + stage + positions) "
+        f"{wper['decode'] + wper.get('pin', 0) + wper['stage'] + wper['positions']:.2f} "
+        f"ms/slide against register {wper['register']:.2f} [{card}]")
+
+    # a third pass under torch.profiler: do the copies to the card run while
+    # the registration's kernels run?
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = ingest.SlideSource(files, dirs, prefetch=batch + 1, decode=np.load, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in serving.register_slides(reg, files, dirs, slide_batch=batch, source=traced):
+            pass
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    ov = staging_overlap(prof, os.path.join(tmp, "register_slides_trace.json"))
+    idle = (1 - ov["device_busy_ms"] / (traced_wall * 1e3)) if traced_wall else None
+    log(f"register_slides traced: {json.dumps(ov)}; wall {traced_wall * 1e3:.1f} ms, device "
+        f"idle share {idle if idle is None else round(idle, 4)} [{card}]")
+    # the copies and the CUDA runtime calls of the loop (host ms), e.g. the
+    # allocations and synchronisations that staging may wait on
+    rows = [(e.key, e.count, e.cpu_time_total / 1e3,
+             getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3)
+            for e in prof.key_averages()
+            if e.key.startswith(("cuda", "Memcpy")) or "emcpy" in e.key]
+    for key, count, cpu, devt in sorted(rows, key=lambda r: -r[2])[:8]:
+        log(f"  traced {key[:48]:48s} x{count:<6d} host {cpu:9.3f} ms  device {devt:9.3f} ms")
+
+    # the register command over slides 0-3, decode swapped for np.load
+    out = os.path.join(tmp, "loupe")
+    a_files = [files[k] for k, (kind, _) in enumerate(order) if kind == "A"]
+    a_logits = [logits[k] for k, (kind, _) in enumerate(order) if kind == "A"]
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", model_dir, "--images", *a_files,
+                  "--spaceranger", *[d for d, _ in dirs_masks], "--out", out,
+                  "--device", str(dev)])
+        t_cli = time.perf_counter() - t0
+    finally:
+        ingest.decode_slide = decode
+    cli_flips = 0
+    for i, (d, mask) in enumerate(dirs_masks):
+        grid, n_rows = loupe_grid(os.path.join(out, f"slide{i}_loupe.csv"), mask.shape,
+                                  classes)
+        if n_rows != int(mask.sum()):
+            raise AssertionError(f"CLI CSV of slide {i}: {n_rows} rows, {mask.sum()} spots")
+        cli_flips += serving.label_parity_report(batch4["labels_b"][i], grid, a_logits[i])
+    log(f"register command over slides 0-3: {t_cli:.2f} s with the model load; the CSVs "
+        f"name phase 4's register_batch labels up to {cli_flips} near-tie flips")
+    return dirs_masks
+
+
+def write_unified_cache(path, genes, columns, counts):
+    """A unified count cache as the JAX package's ``prepare`` writes it:
+    gzip TSV, a ``Gene`` header over the spot columns, a row of integer
+    counts per gene (single-digit counts written as bytes)."""
+    import gzip
+
+    if counts.max() > 9:
+        raise ValueError("the byte writer takes single-digit counts")
+    n_genes, n_spots = counts.shape
+    body = np.full((n_genes, 2 * n_spots), ord("\t"), np.uint8)
+    body[:, 0::2] = counts.astype(np.uint8) + ord("0")
+    body[:, -1] = ord("\n")
+    with gzip.open(path, "wb", compresslevel=1) as fh:
+        fh.write(("Gene\t" + "\t".join(columns) + "\n").encode())
+        for g, row in zip(genes, body):
+            fh.write(g.encode() + b"\t" + row.tobytes())
+
+
+def phase_count(torch, port, card, tmp, dirs_masks, dev):
+    """The count route at full width: a unified cache of slide 0 over the
+    gene2vec genes and a CountMLP model directory through the register
+    command."""
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.data import CountGridDataset
+    from gridnext_tpu_torch.io.unify import unified_cache_path
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    genes = load_gene2vec_names()[:MM_VOCAB]
+    srd, mask = dirs_masks[0]
+    log(f"== phase 11: the count route at full width: a GridNetHex+CountMLP model "
+        f"directory over {len(genes)} genes, slide 0's unified cache (f32, TF32 off)")
+    pos = io.read_positions(srd)
+    keep = pos["in_tissue"] == 1
+    columns = [f"{c}_{r}" for c, r in zip(pos["array_col"][keep], pos["array_row"][keep])]
+    counts = np.random.default_rng(SEED + 8).poisson(COUNT_RATE, (len(genes), len(columns)))
+    cfile = unified_cache_path(srd)
+    t0 = time.perf_counter()
+    write_unified_cache(cfile, genes, columns, counts)
+    log(f"unified cache: {len(genes)} genes x {len(columns)} spots, "
+        f"{os.path.getsize(cfile) / 1e6:.1f} MB gzip, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    meta = {"model": "GridNetHex+CountMLP", "classes": classes, "n_genes": len(genes),
+            "genes": genes, "log1p": True, "hd_binning": None, "grid_dims": None}
+    template = models.GridNetHex(models.CountMLP(len(genes), N_CLASSES), N_CLASSES,
+                                 f_dim=N_CLASSES)
+    variables = random_variables(models, from_jax, seed=SEED + 9, model=template)
+    model_dir = os.path.join(tmp, "model_count")
+    from_jax.save_model_dir(model_dir, meta, variables)
+
+    t0 = time.perf_counter()
+    x, _ = CountGridDataset([cfile])[0]
+    t_read = time.perf_counter() - t0
+    out = os.path.join(tmp, "count_loupe.csv")
+    t0 = time.perf_counter()
+    cli.main(["register", "--model", model_dir, "--spaceranger", srd, "--out", out,
+              "--device", str(dev)])
+    t_cli = time.perf_counter() - t0
+
+    # the same model on the CPU, f32
+    fg = x.sum(-1) > 0
+    if not np.array_equal(fg, mask > 0):
+        raise AssertionError("count route: the cache's spots differ from the tissue mask")
+    xl = np.log1p(x)
+    cpu_model = modeldir.grid_model_from_meta(meta, classes, variables, device="cpu")
+    with torch.no_grad():
+        logits = cpu_model(torch.from_numpy(xl[None]))[0].numpy()
+    want = np.where(fg, logits.argmax(-1) + 1, 0)
+    spread = float((logits[fg].max(0) - logits[fg].min(0)).max())
+    if not spread > 1e-2:
+        raise AssertionError(f"count route: every spot has the same logits (spread "
+                             f"{spread}): the comparison would not see the counts")
+    grid, n_rows = loupe_grid(out, mask.shape, classes)
+    if n_rows != int(mask.sum()):
+        raise AssertionError(f"count CSV: {n_rows} rows for {mask.sum()} spots")
+    flips = serving.label_parity_report(want, grid, logits)
+
+    # the forward's device time on the card
+    model = modeldir.grid_model_from_meta(meta, classes, variables, device=dev)
+    xd = torch.as_tensor(xl[None], device=dev)
+    with torch.no_grad():
+        dev_logits = model(xd)[0].cpu().numpy()
+        fwd_ms, fwd_host_ms = cuda_ms(torch, lambda: model(xd), 5)
+    err = float(np.abs(dev_logits - logits).max())
+    if not err <= 1e-3:
+        raise AssertionError(f"count route: card logits differ from the CPU's by {err}")
+    hist = np.bincount(grid[mask > 0], minlength=N_CLASSES + 1)[1:].tolist()
+    log(f"count route: the CSV names the CPU forward's labels up to {flips} near-tie flips "
+        f"of {n_rows} spots (spots per class {hist}, logit spread across the tissue "
+        f"{spread:.3g}); card logits within {err:.3g} of the "
+        f"CPU's; cache read on the host {t_read * 1e3:.1f} ms, GridNetHex+CountMLP forward "
+        f"{fwd_ms:.4f} ms on the card (CUDA events, host issue {fwd_host_ms:.4f} ms), "
+        f"register command {t_cli * 1e3:.1f} ms with the model load [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1321,7 +1656,8 @@ def main() -> int:
     res.update(phase_corrector(torch, corr, serving, dev))
     port = (geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr)
     with tempfile.TemporaryDirectory() as tmp:   # positions files, Loupe CSV
-        launches, reg, positions, masks = phase_main_path(torch, slides, port, card, tmp)
+        launches, reg, positions, masks, batch4 = phase_main_path(torch, slides, port,
+                                                                  card, tmp)
     profile_batch(torch, reg, slides, positions)
     del reg
 
@@ -1342,6 +1678,9 @@ def main() -> int:
     res["fused_generalized_linear_attention"] = phase_favor(torch, favor_cuda, dev)
     launches["fused_generalized_linear_attention"] = phase_mm(
         torch, slides, positions, masks, port, card)
+    with tempfile.TemporaryDirectory() as tmp:   # model dirs, slides, caches, CSVs
+        dirs_masks = phase_register_slides(torch, slides, port, card, tmp, batch4)
+        phase_count(torch, port, card, tmp, dirs_masks, dev)
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",

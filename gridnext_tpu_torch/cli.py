@@ -1,0 +1,163 @@
+"""Command line of the port: ``python -m gridnext_tpu_torch register ...``.
+
+The ``register`` command of the JAX package's CLI, on the card: a trained
+model directory (``model.json`` + ``g_state.msgpack``, as the JAX package's
+``train-*`` commands write it) registers each Spaceranger directory and
+writes a Loupe CSV (``Barcode,AARs``).
+
+* Image models (``*TpuPatchClassifier``, ``*DenseNet121``) register the
+  fullres slides (``--images``, one per ``--spaceranger`` directory) through
+  :func:`~gridnext_tpu_torch.serving.register_slides`: decode and staging
+  overlap registration, same-shape slides batch per call (``--slide-batch``).
+* Count models (``GridNetHex+CountMLP``, as ``train-count`` writes them)
+  register each directory's unified count cache (``prepare``'s
+  ``<dir>.unified.tsv.gz``).
+
+``--device`` (default ``cuda``) is where registration runs; ``--device cpu``
+takes the kernels' plain versions. Model kinds not ported yet (the
+multimodal directories' slide route, HexGCN, square ``grid_dims`` lattices,
+Visium HD) exit with an error that names the ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _require_one_image_per_dir(images, spaceranger_dirs):
+    if not images or len(images) != len(spaceranger_dirs):
+        sys.exit("error: --images must list one fullres image per "
+                 "--spaceranger directory")
+
+
+def _not_ported(what: str, item: int):
+    sys.exit(f"error: registering {what} is not ported to gridnext_tpu_torch yet "
+             f"(ROADMAP.md Queue 1 item {item}); use python -m gridnext_tpu register")
+
+
+def _validated_count_cache(srd, meta):
+    """Path of ``srd``'s unified count cache, verified to exist and to carry
+    the model's gene axis (mapped to a CLI exit)."""
+    from gridnext_tpu_torch.io.unify import validated_unified_cache
+
+    try:
+        return validated_unified_cache(srd, meta.get("hd_binning"),
+                                       genes=meta.get("genes"))
+    except (FileNotFoundError, ValueError) as e:
+        sys.exit(f"error: {e}")
+
+
+def _write_loupe(label_grid, srd, args, classes, index=None):
+    """Loupe-CSV export of one array: a single file for one array, else
+    ``<out>/<name>_loupe.csv``; directories that share a basename (the
+    standard '.../outs' layout) get an ``NN_`` index prefix."""
+    from gridnext_tpu_torch.evaluate import to_loupe_annots
+    from gridnext_tpu_torch.io import find_position_file
+    from gridnext_tpu_torch.io.unify import array_name
+
+    name = array_name(srd)
+    names = [array_name(s) for s in args.spaceranger]
+    if index is not None and names.count(name) > 1:
+        name = f"{index:02d}_{name}"
+    out_csv = (args.out if len(args.spaceranger) == 1
+               else os.path.join(args.out, f"{name}_loupe.csv"))
+    if len(args.spaceranger) > 1:
+        os.makedirs(args.out, exist_ok=True)
+    to_loupe_annots(label_grid, find_position_file(srd), out_csv, annot_names=classes)
+    print(f"registered {name} -> {out_csv}")
+
+
+def _register_images(args, meta, classes, variables):
+    from gridnext_tpu_torch.modeldir import image_registrar_from_meta
+    from gridnext_tpu_torch.serving import register_slides
+
+    _require_one_image_per_dir(args.images, args.spaceranger)
+    registrar = image_registrar_from_meta(meta, classes, variables, device=args.device)
+    # decode and staging overlap registration; same-shape slides batch
+    for i, label_grid, _pos in register_slides(registrar, args.images, args.spaceranger,
+                                               slide_batch=args.slide_batch):
+        _write_loupe(label_grid, args.spaceranger[i], args, classes, index=i)
+
+
+def _register_counts(args, meta, classes, variables):
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex
+    from gridnext_tpu_torch.data import CountGridDataset
+    from gridnext_tpu_torch.modeldir import _count_mlp, _has_bn_corrector
+    from gridnext_tpu_torch.models import GridNetHex
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(args.device)
+    n = len(classes)
+    # CountMLP with BatchNorm, as the JAX package's register builds it
+    g = GridNetHex(_count_mlp(variables, "patch_classifier", n), n_classes=n, f_dim=n,
+                   use_bn=_has_bn_corrector(variables))
+    g = load_gridnet_hex(g, variables).to(device).eval()
+    for i, srd in enumerate(args.spaceranger):
+        cfile = _validated_count_cache(srd, meta)
+        x, _ = CountGridDataset([cfile])[0]
+        fg = x.sum(-1) > 0              # tissue from the raw counts
+        if meta.get("log1p"):
+            x = np.log1p(x)
+        with torch.no_grad():
+            logits = g(torch.as_tensor(x[None], device=device))[0]
+            labels = (torch.argmax(logits, -1) + 1).cpu().numpy()
+        _write_loupe(np.where(fg, labels, 0), srd, args, classes, index=i)
+
+
+def _cmd_register(args):
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+
+    meta, classes, variables = load_model_dir(args.model)
+    model_name = meta.get("model", "")
+    if meta.get("grid_dims") is not None or meta.get("hd_binning"):
+        _not_ported("square-lattice (grid_dims) and Visium HD models", 3)
+    if model_name in ("GridNetHexMM", "GridNetMM"):
+        _not_ported(f"multimodal {model_name} directories from slides and "
+                    "Spaceranger directories", 4)
+    if model_name.endswith(("DenseNet121", "TpuPatchClassifier")):
+        return _register_images(args, meta, classes, variables)
+    if model_name == "HexGCN":
+        _not_ported("HexGCN graph models", 8)
+    if not model_name.endswith("CountMLP"):
+        sys.exit(f"error: don't know how to register model "
+                 f"{model_name or '<missing>'!r} (expected GridNet[Hex]"
+                 f"[MM]+CountMLP / *DenseNet121 / *TpuPatchClassifier / "
+                 f"HexGCN)")
+    return _register_counts(args, meta, classes, variables)
+
+
+def build_parser():
+    """The port's argument parser (one subparser per ported command)."""
+    ap = argparse.ArgumentParser(prog="gridnext_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("register", help="write Loupe CSVs from a trained model")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--model", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--images", nargs="*", default=None,
+                   help="fullres slide images (required for image models)")
+    s.add_argument("--slide-batch", type=int, default=4,
+                   help="image models: same-shape slides registered per "
+                        "register_batch call, with decode/stage/register "
+                        "overlapped (serving.register_slides)")
+    s.add_argument("--device", default="cuda",
+                   help="where registration runs: 'cuda' (default; fails "
+                        "without a card) or 'cpu' (the kernels' plain versions)")
+    s.set_defaults(fn=_cmd_register)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

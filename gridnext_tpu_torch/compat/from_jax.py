@@ -1,13 +1,13 @@
 """Weight bridge from the JAX package's model directories to the port.
 
 * :func:`load_checkpoint` reads a ``g_state.msgpack`` that flax's
-  ``msgpack_serialize`` wrote, without flax: msgpack ext type 1 is an
-  ndarray packed as ``(shape, dtype name, C-order bytes)``, type 3 a numpy
-  scalar the same way, type 2 a complex; arrays over 1 GiB come as
-  ``__msgpack_chunked_array__`` dicts. ``msgpack`` is imported inside the
-  function: the serving path never needs it.
+  ``msgpack_serialize`` wrote, and :func:`save_checkpoint` writes one as
+  the JAX package's ``save_checkpoint`` does (``params``, ``batch_stats``,
+  ``extra_vars``, ``step``), both without flax or ``msgpack``
+  (:mod:`~gridnext_tpu_torch.compat.flax_msgpack`).
 * :func:`load_model_dir` returns ``(meta, classes, variables)`` like the JAX
-  package's ``modeldir.load_model_dir``.
+  package's ``modeldir.load_model_dir``; :func:`save_model_dir` writes
+  ``model.json`` and ``g_state.msgpack``.
 * :func:`load_gridnet_hex` copies a variables tree (nested dicts of numpy
   arrays) into a :class:`~gridnext_tpu_torch.models.GridNetHex`:
 
@@ -45,6 +45,9 @@
   under ``params``/``favor`` ``count_classifier``, the image f under
   ``params``/``batch_stats`` ``image_classifier``, the corrector as in
   ``GridNetHex``.
+* A ``CountMLP`` f (as ``GridNetHex``'s f or ``GridNetHexMM``'s count f)
+  holds ``Dense_0``..``Dense_4`` and, with BatchNorm, ``BatchNorm_0`` and
+  ``BatchNorm_1``.
 """
 
 from __future__ import annotations
@@ -55,8 +58,10 @@ import os
 import numpy as np
 import torch
 
+from gridnext_tpu_torch.compat import flax_msgpack
 from gridnext_tpu_torch.models.densenet import DenseNet
 from gridnext_tpu_torch.models.gridnet import GridNetHexMM
+from gridnext_tpu_torch.models.mlp import CountMLP
 from gridnext_tpu_torch.models.performer import (FastAttention, Performer, PerformerLM,
                                                  SelfAttention)
 from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
@@ -65,49 +70,28 @@ from gridnext_tpu_torch.models.tpu_f import ChannelNorm, TpuPatchClassifier
 _NORM_NAMES = {"rms": "RMSNorm", "layer": "LayerNorm"}
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    import msgpack
-
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    if dtype_name == b"bfloat16":
-        # bfloat16 is the high half of a float32: widen without ml_dtypes
-        bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
-        return bits.view(np.float32).reshape(shape, order="C")
-    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()),
-                         count=-1).reshape(shape, order="C")
-
-
-def _ext_hook(code, data):
-    import msgpack
-
-    if code == 1:   # ndarray
-        return _ndarray_from_bytes(data)
-    if code == 2:   # native complex
-        re, im = msgpack.unpackb(data)
-        return complex(re, im)
-    if code == 3:   # numpy scalar
-        return _ndarray_from_bytes(data)[()]
-    return msgpack.ExtType(code, data)
-
-
-def _unchunk(tree):
-    if isinstance(tree, dict):
-        if "__msgpack_chunked_array__" in tree:
-            shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
-            chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
-            return np.concatenate(chunks).reshape(shape)
-        return {k: _unchunk(v) for k, v in tree.items()}
-    return tree
-
-
 def load_checkpoint(path):
     """Read a checkpoint payload dict (params/batch_stats/extra_vars/step,
     optionally opt_state) from a flax msgpack file."""
-    import msgpack
-
     with open(path, "rb") as fh:
-        payload = msgpack.unpackb(fh.read(), ext_hook=_ext_hook, raw=False)
-    return _unchunk(payload)
+        return flax_msgpack.unpackb(fh.read())
+
+
+def save_checkpoint(path, variables: dict, step: int = 0):
+    """Write ``variables`` (a tree in the JAX layout, as :func:`jax_variables`
+    gives it) as the JAX package's ``save_checkpoint`` writes a model
+    directory's payload: ``params``, ``batch_stats`` (None without),
+    ``extra_vars`` (every other collection, e.g. ``favor``) and ``step``.
+    The file is written beside and renamed into place."""
+    payload = {"params": variables["params"],
+               "batch_stats": variables.get("batch_stats"),
+               "extra_vars": {k: v for k, v in variables.items()
+                              if k not in ("params", "batch_stats")},
+               "step": int(step)}
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as fh:
+        fh.write(flax_msgpack.packb(payload))
+    os.replace(tmp, path)
 
 
 def load_model_dir(model_dir):
@@ -121,6 +105,16 @@ def load_model_dir(model_dir):
         variables["batch_stats"] = payload["batch_stats"]
     variables.update(payload.get("extra_vars") or {})
     return meta, meta["classes"], variables
+
+
+def save_model_dir(model_dir, meta: dict, variables: dict):
+    """Write a model directory :func:`load_model_dir` (and the JAX package)
+    reads: ``model.json`` from ``meta`` (with its ``classes``) and
+    ``g_state.msgpack`` from ``variables``."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "model.json"), "w") as fh:
+        json.dump(meta, fh)
+    save_checkpoint(os.path.join(model_dir, "g_state.msgpack"), variables)
 
 
 # -- module <-> tree mapping ---------------------------------------------------
@@ -183,13 +177,24 @@ def _densenet_entries(f: DenseNet, params=("params",), stats=("batch_stats",)):
         yield params + ("classifier", "bias"), f.classifier.bias, "same"
 
 
+def _count_mlp_entries(f: CountMLP, params=("params",), stats=("batch_stats",)):
+    for i, linear in enumerate(f.dense):
+        yield params + (f"Dense_{i}", "kernel"), linear.weight, "dense"
+        yield params + (f"Dense_{i}", "bias"), linear.bias, "same"
+    if f.batch_norm:
+        for j, bn in enumerate(f.norms):
+            yield from _batchnorm_entries(bn, params, stats, f"BatchNorm_{j}")
+
+
 def _f_entries(f, params, stats):
     if isinstance(f, TpuPatchClassifier):
         return _tpu_f_entries(f, params)
     if isinstance(f, DenseNet):
         return _densenet_entries(f, params, stats)
-    raise NotImplementedError(f"the weight bridge maps TpuPatchClassifier and "
-                              f"DenseNet, not {type(f).__name__}")
+    if isinstance(f, CountMLP):
+        return _count_mlp_entries(f, params, stats)
+    raise NotImplementedError(f"the weight bridge maps TpuPatchClassifier, "
+                              f"DenseNet and CountMLP, not {type(f).__name__}")
 
 
 def _dense_entries(linear, path):
@@ -275,9 +280,14 @@ def _gridnet_hex_entries(model):
 
 
 def _gridnet_hex_mm_entries(model: GridNetHexMM):
-    yield from _performer_family_entries(model.count_classifier,
-                                         ("params", "count_classifier"),
-                                         ("favor", "count_classifier"))
+    if isinstance(model.count_classifier, CountMLP):
+        yield from _count_mlp_entries(model.count_classifier,
+                                      ("params", "count_classifier"),
+                                      ("batch_stats", "count_classifier"))
+    else:
+        yield from _performer_family_entries(model.count_classifier,
+                                             ("params", "count_classifier"),
+                                             ("favor", "count_classifier"))
     yield from _f_entries(model.image_classifier, ("params", "image_classifier"),
                           ("batch_stats", "image_classifier"))
     for collection, layer, leaf, tensor in model.corrector.jax_entries():
@@ -357,9 +367,16 @@ def load_densenet(f: DenseNet, variables: dict) -> DenseNet:
     return f
 
 
+def load_count_mlp(f: CountMLP, variables: dict) -> CountMLP:
+    """Copy a flax ``CountMLP`` variables tree (``params`` and, with
+    BatchNorm, ``batch_stats``) into ``f`` (in place)."""
+    _load(_count_mlp_entries(f), variables, [("params",), ("batch_stats",)])
+    return f
+
+
 def load_gridnet_hex(model, variables: dict):
     """Copy a JAX ``GridNetHex`` variables tree, with a
-    ``TpuPatchClassifier`` or ``DenseNet`` f (``params`` and, with
+    ``TpuPatchClassifier``, ``DenseNet`` or ``CountMLP`` f (``params`` and, with
     BatchNorm, ``batch_stats``), into ``model`` (in place) and return it."""
     roots = [("params", "patch_classifier"), ("params", "corrector"),
              ("batch_stats", "patch_classifier"), ("batch_stats", "corrector")]
@@ -377,13 +394,14 @@ def load_performer(module, variables: dict):
 
 
 def load_gridnet_hex_mm(model: GridNetHexMM, variables: dict) -> GridNetHexMM:
-    """Copy a JAX ``GridNetHexMM`` variables tree (an scBERT count f, a
-    ``TpuPatchClassifier`` or ``DenseNet`` image f, the hex corrector) into
-    ``model`` (in place) and return it. Every leaf under the model's roots
-    must be used."""
+    """Copy a JAX ``GridNetHexMM`` variables tree (an scBERT or
+    ``CountMLP`` count f, a ``TpuPatchClassifier`` or ``DenseNet`` image f,
+    the hex corrector) into ``model`` (in place) and return it. Every leaf
+    under the model's roots must be used."""
     roots = [("params", "count_classifier"), ("params", "image_classifier"),
-             ("params", "corrector"), ("batch_stats", "image_classifier"),
-             ("batch_stats", "corrector"), ("favor", "count_classifier")]
+             ("params", "corrector"), ("batch_stats", "count_classifier"),
+             ("batch_stats", "image_classifier"), ("batch_stats", "corrector"),
+             ("favor", "count_classifier")]
     _load(_gridnet_hex_mm_entries(model), variables, roots)
     return model
 

@@ -1,13 +1,14 @@
 """Trained-model directories: model.json metadata -> a live model.
 
-A model directory written by the JAX package's ``train-image`` or
-``train-mm`` command (``model.json`` beside ``g_state.msgpack``) serves
-here unchanged: read it with
+A model directory written by the JAX package's ``train-count``,
+``train-image`` or ``train-mm`` command (``model.json`` beside
+``g_state.msgpack``) serves here unchanged: read it with
 :func:`gridnext_tpu_torch.compat.from_jax.load_model_dir`, then build the
-image registrar with :func:`image_registrar_from_meta` or the multimodal
+image registrar with :func:`image_registrar_from_meta`, the multimodal
 model with :func:`mm_model_from_meta` (registered by
 :func:`gridnext_tpu_torch.serving.register_mm_grid`, its counts mapped into
-scBERT's gene space by :func:`scbert_transform`).
+scBERT's gene space by :func:`scbert_transform`), or the grid model of any
+directory with :func:`grid_model_from_meta`.
 """
 
 from __future__ import annotations
@@ -63,12 +64,13 @@ def mm_model_from_meta(meta, classes, variables, device="cuda"):
     its weights loaded, in eval mode on ``device``.
 
     Ported: the Visium hex lattice with an scBERT count f (generalized ReLU
-    attention, as ``train-mm`` builds it) and a ``TpuPatchClassifier``
-    (``image_f: "tpu"``) or DenseNet-121 image f, chunked as in training
-    (``patch_chunk``, ``count_chunk``). The ``CountMLP`` count f and the
-    square lattice (``grid_dims``, ``GridNetMM``) raise
-    ``NotImplementedError`` until their slices (``ROADMAP.md`` Queue 1
-    items 9 and 11).
+    attention, as ``train-mm`` builds it) or a ``CountMLP`` count f
+    (``count_mlp_bn: false`` marks the distilled student without
+    BatchNorm), and a ``TpuPatchClassifier`` (``image_f: "tpu"``) or
+    DenseNet-121 image f, chunked as in training (``patch_chunk``,
+    ``count_chunk``). The square lattice (``grid_dims``, ``GridNetMM``)
+    raises ``NotImplementedError`` until its slice (``ROADMAP.md`` Queue 1
+    item 3).
     """
     from gridnext_tpu_torch.models import (GridNetHexMM, TpuPatchClassifier,
                                            densenet121, scBERT, tpu_f_arch_kwargs)
@@ -77,17 +79,17 @@ def mm_model_from_meta(meta, classes, variables, device="cuda"):
     device = resolve_device(device)
     if meta.get("model") == "GridNetMM" or meta.get("grid_dims") is not None:
         raise NotImplementedError("square-lattice (grid_dims) multimodal models are a "
-                                  "later slice of the port (ROADMAP.md Queue 1 item 11)")
-    if meta.get("count_f") != "scbert":
-        raise NotImplementedError(f"count_f={meta.get('count_f')!r}: the CountMLP count "
-                                  "f is a later slice of the port (ROADMAP.md Queue 1 "
-                                  "item 9)")
+                                  "later slice of the port (ROADMAP.md Queue 1 item 3)")
     n = len(classes)
-    f_count = scBERT(n_genes=meta["scbert_vocab"], dim=meta["scbert_dim"],
-                     depth=meta["scbert_depth"], heads=meta["scbert_heads"],
-                     dim_head=meta.get("scbert_dim_head", 64),
-                     nb_features=meta.get("scbert_features"), n_classes=n,
-                     generalized_attention=True)
+    if meta.get("count_f") == "scbert":
+        f_count = scBERT(n_genes=meta["scbert_vocab"], dim=meta["scbert_dim"],
+                         depth=meta["scbert_depth"], heads=meta["scbert_heads"],
+                         dim_head=meta.get("scbert_dim_head", 64),
+                         nb_features=meta.get("scbert_features"), n_classes=n,
+                         generalized_attention=True)
+    else:
+        f_count = _count_mlp(variables, "count_classifier", n,
+                             meta.get("count_mlp_bn", True))
     if meta.get("image_f") == "tpu":
         f_image = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
     else:
@@ -96,6 +98,50 @@ def mm_model_from_meta(meta, classes, variables, device="cuda"):
                      patch_chunk=meta.get("patch_chunk", 624),
                      count_chunk=meta.get("count_chunk"))
     return load_gridnet_hex_mm(g, variables).to(device).eval()
+
+
+def _count_mlp(variables, name: str, n_classes: int, batch_norm: bool = True):
+    """A ``CountMLP`` whose input width is that of the checkpoint's first
+    layer (flax infers it from the data; torch needs it up front)."""
+    from gridnext_tpu_torch.models import CountMLP
+
+    n_genes = np.shape(variables["params"][name]["Dense_0"]["kernel"])[0]
+    return CountMLP(n_genes, n_classes, batch_norm=batch_norm)
+
+
+def grid_model_from_meta(meta, classes, variables, device="cuda"):
+    """The grid model of any trained model directory (count, image or
+    multimodal), with its weights loaded, in eval mode on ``device``.
+
+    Ported: the Visium hex lattice (``GridNetHex`` over a
+    ``TpuPatchClassifier``, DenseNet-121 or ``CountMLP`` f, or a
+    ``GridNetHexMM`` through :func:`mm_model_from_meta`). The square
+    lattice (``grid_dims``) raises ``NotImplementedError`` until its slice
+    (``ROADMAP.md`` Queue 1 item 3).
+    """
+    from gridnext_tpu_torch.models import (GridNetHex, TpuPatchClassifier, densenet121,
+                                           tpu_f_arch_kwargs)
+    from gridnext_tpu_torch.serving import resolve_device
+
+    model_name = meta.get("model", "")
+    if model_name in ("GridNetHexMM", "GridNetMM"):
+        return mm_model_from_meta(meta, classes, variables, device=device)
+    device = resolve_device(device)
+    if meta.get("grid_dims") is not None:
+        raise NotImplementedError("square-lattice (grid_dims) models are a later slice "
+                                  "of the port (ROADMAP.md Queue 1 item 3)")
+    n = len(classes)
+    chunk = meta.get("patch_chunk", 624)
+    if model_name.endswith("TpuPatchClassifier"):
+        f = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
+    elif model_name.endswith("DenseNet121"):
+        f = densenet121(num_classes=n)
+    else:
+        f = _count_mlp(variables, "patch_classifier", n, meta.get("count_mlp_bn", True))
+        chunk = None
+    g = GridNetHex(f, n_classes=n, f_dim=n, use_bn=_has_bn_corrector(variables),
+                   patch_chunk=chunk)
+    return load_gridnet_hex(g, variables).to(device).eval()
 
 
 def scbert_transform(symbols: Sequence[str], vocab: int) -> Callable:

@@ -198,4 +198,4 @@ class GridNetMM:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("the square-lattice GridNetMM is a later slice of "
-                                  "the port (ROADMAP.md Queue 1 item 11)")
+                                  "the port (ROADMAP.md Queue 1 item 3)")

@@ -9,7 +9,7 @@ embedding, an optional head module, the final LayerNorm). Modules run in
 eval mode: dropout is zero in every model directory the port serves.
 
 Causal attention, local heads, rotary embeddings and ``sow_attention``
-wait for a later slice (``ROADMAP.md`` Queue 1 item 13) and raise
+wait for a later slice (``ROADMAP.md`` Queue 1 item 6) and raise
 ``NotImplementedError``; ScaleNorm/ReZero residuals and positional
 embeddings are absent.
 
@@ -40,7 +40,7 @@ from gridnext_tpu_torch.ops.favor import (generalized_kernel_features,
 from gridnext_tpu_torch.ops.favor_cuda import fused_generalized_linear_attention
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm's default
-_LATER = "a later slice of the port (ROADMAP.md Queue 1 item 13)"
+_LATER = "a later slice of the port (ROADMAP.md Queue 1 item 6)"
 
 
 def default_nb_features(dim_head: int) -> int:

@@ -7,7 +7,7 @@ throughout. The ReLU-feature composition that the CUDA kernel fuses is
 :func:`gridnext_tpu_torch.ops.favor_cuda.favor_attention_plain`.
 
 Causal linear attention and the implicit attention weights wait for a
-later slice of the port (``ROADMAP.md`` Queue 1 item 13).
+later slice of the port (``ROADMAP.md`` Queue 1 item 6).
 """
 
 from __future__ import annotations

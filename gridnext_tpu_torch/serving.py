@@ -16,7 +16,10 @@ Typical use::
     labels_b = registrar.register_batch(wsis, positions_list)   # (N, 78, 64)
     to_loupe_annots(labels, position_file, out_csv, annot_names=classes)
 
-Multimodal model directories (an scBERT count f beside an image f) register
+A cohort of slide files registers through :func:`register_slides`, which
+overlaps decoding and staging (:class:`~gridnext_tpu_torch.ingest.SlideSource`)
+with registration and batches same-shape slides (:func:`dispatch_group`).
+Multimodal model directories (a count f beside an image f) register
 pre-built image and count grids with :func:`register_mm_grid`.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
@@ -312,6 +315,114 @@ class SlideRegistrar:
             raise ValueError(f"{wsis.shape[0]} slides vs {n} position sets")
         spots = self._padded_spots(wsis.shape[1:], positions_list, pad_offset)
         return self._register_batch(wsis, *spots).cpu().numpy()
+
+
+def _tctx(timer, stage: str):
+    """``timer(stage)``, or a no-op context without a timer."""
+    if timer is None:
+        import contextlib
+
+        return contextlib.nullcontext()
+    return timer(stage)
+
+
+def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, stats=None):
+    """Register one same-shape group of slides.
+
+    A single slide goes through ``registrar(wsi, positions)``; a larger group
+    is stacked on the device into one :meth:`SlideRegistrar.register_batch`.
+    (The JAX package also routes square-lattice slides through its dense
+    tiling path here; the port's registrar has no square lattice yet,
+    ``ROADMAP.md`` Queue 1 item 3.)
+
+    Args:
+      items: sequence of ``(key, wsi, positions)``; ``key`` passes through
+        untouched (a slide index, a request handle, ...).
+      timer: optional :class:`~gridnext_tpu_torch.observability.StageTimer`;
+        registration runs under ``timer("register")``.
+      stats: optional dict; ``stats['batched']`` grows by the number of
+        slides that went through ``register_batch``.
+
+    Returns:
+      list of ``(key, labels, positions)`` per item, in order.
+    """
+    if len(items) == 1:
+        key, wsi, pos = items[0]
+        with _tctx(timer, "register"):
+            return [(key, registrar(wsi, pos), pos)]
+    keys, wsis, poss = zip(*items)
+    with _tctx(timer, "register"):
+        labels = registrar.register_batch(torch.stack(
+            [torch.as_tensor(w, device=registrar.device) for w in wsis]), list(poss))
+    if stats is not None:
+        stats["batched"] = stats.get("batched", 0) + len(keys)
+    return [(k, labels[j], p) for j, (k, p) in enumerate(zip(keys, poss))]
+
+
+def register_slides(registrar: SlideRegistrar, image_files: Sequence,
+                    spaceranger_dirs: Sequence, *, hd_binning=None,
+                    slide_batch: int = 4, prefetch: Optional[int] = None,
+                    source=None, stats=None):
+    """Register a cohort of slide files with decode, staging and
+    registration overlapped: the serving loop of the ``register`` command.
+
+    Drives a :class:`~gridnext_tpu_torch.ingest.SlideSource` (decode on a
+    background thread, pinned memory, an asynchronous copy to the card on a
+    stream of its own) into the registrar, grouping same-shape slides into
+    :meth:`SlideRegistrar.register_batch` calls of up to ``slide_batch``
+    slides, so the card registers one batch while the host decodes and
+    stages the next.
+
+    Yields ``(index, label_grid, positions)`` per slide as each dispatch
+    completes. Shape grouping may reorder slides across groups: ``index``
+    (the position in ``image_files``) identifies each result. Per-stage
+    seconds land in ``source.timer`` (decode / pin / positions / stage /
+    register).
+
+    Args:
+      registrar: a :class:`SlideRegistrar` (hex lattice).
+      image_files: fullres slide images, one per array.
+      spaceranger_dirs: matching Spaceranger dirs (positions per slide).
+      hd_binning: Visium HD binned outputs (not ported yet: raises).
+      slide_batch: most slides per ``register_batch`` call, and the cap on
+        slides held across shape groups: at the cap the largest partial
+        group registers even though it is not full. Leftover groups register
+        at their size (a single slide through ``registrar(wsi, pos)``).
+      prefetch: SlideSource queue depth (default ``slide_batch + 1``, so the
+        next full batch decodes behind the current one).
+      source: a pre-built SlideSource (image_files / spaceranger_dirs /
+        hd_binning / prefetch are then ignored).
+      stats: optional dict, passed to :func:`dispatch_group`.
+    """
+    if source is None:
+        from gridnext_tpu_torch.ingest import SlideSource
+
+        source = SlideSource(image_files, spaceranger_dirs, hd_binning=hd_binning,
+                             prefetch=prefetch or slide_batch + 1,
+                             device=registrar.device)
+    timer = source.timer
+
+    # Shape grouping must not hold unbounded device memory: a mixed-shape
+    # cohort may never fill any one group, so the slides held across groups
+    # are capped at slide_batch; at the cap the largest partial group goes.
+    groups: dict = {}
+    held = 0
+    for i, wsi, pos in source:
+        key = tuple(wsi.shape)
+        groups.setdefault(key, []).append((i, wsi, pos))
+        held += 1
+        if len(groups[key]) >= slide_batch:
+            key_to_flush = key
+        elif held >= slide_batch:
+            key_to_flush = max(groups, key=lambda k: len(groups[k]))
+        else:
+            continue
+        group = groups.pop(key_to_flush)
+        held -= len(group)
+        yield from dispatch_group(registrar, group, timer=timer, stats=stats)
+    for group in groups.values():
+        if group:
+            yield from dispatch_group(registrar, group, timer=timer, stats=stats)
 
 
 def register_mm_grid(model, x_image, x_count_raw, count_transform: Optional[Callable] = None,

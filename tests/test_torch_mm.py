@@ -218,11 +218,10 @@ def test_mm_model_from_meta_densenet_image_f():
 
 def test_mm_unported_branches_raise(mm_model_dir):
     meta, classes, variables = load_model_dir(mm_model_dir)
-    for change, item in (({"count_f": "mlp"}, "item 9"), ({"grid_dims": [50, 50]}, "item 11"),
-                         ({"model": "GridNetMM"}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for change in ({"grid_dims": [50, 50]}, {"model": "GridNetMM"}):
+        with pytest.raises(NotImplementedError, match="item 3"):
             modeldir.mm_model_from_meta({**meta, **change}, classes, variables, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         GridNetMM(None, None, N_CLASSES)
     with pytest.raises(ValueError, match="no cohort gene"):
         modeldir.scbert_transform(["NOT_A_GENE"], GENES)
