@@ -9,14 +9,18 @@ writes a Loupe CSV (``Barcode,AARs``).
   fullres slides (``--images``, one per ``--spaceranger`` directory) through
   :func:`~gridnext_tpu_torch.serving.register_slides`: decode and staging
   overlap registration, same-shape slides batch per call (``--slide-batch``).
+  Square-lattice image models (``grid_dims``, Visium HD with
+  ``hd_binning``) read each array's positions parquet, register dense
+  lattices of a fractional pitch by resampling (``register_dense``) and the
+  rest bin by bin, and write Loupe CSVs indexed by (array_row, array_col).
 * Count models (``GridNetHex+CountMLP``, as ``train-count`` writes them)
   register each directory's unified count cache (``prepare``'s
   ``<dir>.unified.tsv.gz``).
 
 ``--device`` (default ``cuda``) is where registration runs; ``--device cpu``
 takes the kernels' plain versions. Model kinds not ported yet (the
-multimodal directories' slide route, HexGCN, square ``grid_dims`` lattices,
-Visium HD) exit with an error that names the ``ROADMAP.md`` item.
+multimodal directories' slide route, square-lattice count models, HexGCN)
+exit with an error that names the ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -49,10 +53,12 @@ def _validated_count_cache(srd, meta):
         sys.exit(f"error: {e}")
 
 
-def _write_loupe(label_grid, srd, args, classes, index=None):
+def _write_loupe(label_grid, srd, args, classes, hd_binning=None, hex_coords=True,
+                 index=None):
     """Loupe-CSV export of one array: a single file for one array, else
     ``<out>/<name>_loupe.csv``; directories that share a basename (the
-    standard '.../outs' layout) get an ``NN_`` index prefix."""
+    standard '.../outs' layout) get an ``NN_`` index prefix. ``hd_binning``
+    picks the HD positions parquet, ``hex_coords=False`` a square grid."""
     from gridnext_tpu_torch.evaluate import to_loupe_annots
     from gridnext_tpu_torch.io import find_position_file
     from gridnext_tpu_torch.io.unify import array_name
@@ -65,7 +71,8 @@ def _write_loupe(label_grid, srd, args, classes, index=None):
                else os.path.join(args.out, f"{name}_loupe.csv"))
     if len(args.spaceranger) > 1:
         os.makedirs(args.out, exist_ok=True)
-    to_loupe_annots(label_grid, find_position_file(srd), out_csv, annot_names=classes)
+    to_loupe_annots(label_grid, find_position_file(srd, hd_binning), out_csv,
+                    annot_names=classes, hex_coords=hex_coords)
     print(f"registered {name} -> {out_csv}")
 
 
@@ -75,17 +82,21 @@ def _register_images(args, meta, classes, variables):
 
     _require_one_image_per_dir(args.images, args.spaceranger)
     registrar = image_registrar_from_meta(meta, classes, variables, device=args.device)
-    # decode and staging overlap registration; same-shape slides batch
+    hd_binning = meta.get("hd_binning")
+    # decode and staging overlap registration; same-shape slides batch, and
+    # dense square lattices register without the per-bin gather
     for i, label_grid, _pos in register_slides(registrar, args.images, args.spaceranger,
+                                               hd_binning=hd_binning,
                                                slide_batch=args.slide_batch):
-        _write_loupe(label_grid, args.spaceranger[i], args, classes, index=i)
+        _write_loupe(label_grid, args.spaceranger[i], args, classes, hd_binning=hd_binning,
+                     hex_coords=meta.get("grid_dims") is None, index=i)
 
 
 def _register_counts(args, meta, classes, variables):
     import numpy as np
     import torch
 
-    from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex
+    from gridnext_tpu_torch.compat.from_jax import load_gridnet
     from gridnext_tpu_torch.data import CountGridDataset
     from gridnext_tpu_torch.modeldir import _count_mlp, _has_bn_corrector
     from gridnext_tpu_torch.models import GridNetHex
@@ -96,7 +107,7 @@ def _register_counts(args, meta, classes, variables):
     # CountMLP with BatchNorm, as the JAX package's register builds it
     g = GridNetHex(_count_mlp(variables, "patch_classifier", n), n_classes=n, f_dim=n,
                    use_bn=_has_bn_corrector(variables))
-    g = load_gridnet_hex(g, variables).to(device).eval()
+    g = load_gridnet(g, variables).to(device).eval()
     for i, srd in enumerate(args.spaceranger):
         cfile = _validated_count_cache(srd, meta)
         x, _ = CountGridDataset([cfile])[0]
@@ -106,7 +117,8 @@ def _register_counts(args, meta, classes, variables):
         with torch.no_grad():
             logits = g(torch.as_tensor(x[None], device=device))[0]
             labels = (torch.argmax(logits, -1) + 1).cpu().numpy()
-        _write_loupe(np.where(fg, labels, 0), srd, args, classes, index=i)
+        _write_loupe(np.where(fg, labels, 0), srd, args, classes,
+                     hd_binning=meta.get("hd_binning"), index=i)
 
 
 def _cmd_register(args):
@@ -114,8 +126,6 @@ def _cmd_register(args):
 
     meta, classes, variables = load_model_dir(args.model)
     model_name = meta.get("model", "")
-    if meta.get("grid_dims") is not None or meta.get("hd_binning"):
-        _not_ported("square-lattice (grid_dims) and Visium HD models", 3)
     if model_name in ("GridNetHexMM", "GridNetMM"):
         _not_ported(f"multimodal {model_name} directories from slides and "
                     "Spaceranger directories", 4)
@@ -128,6 +138,8 @@ def _cmd_register(args):
                  f"{model_name or '<missing>'!r} (expected GridNet[Hex]"
                  f"[MM]+CountMLP / *DenseNet121 / *TpuPatchClassifier / "
                  f"HexGCN)")
+    if meta.get("grid_dims") is not None:
+        _not_ported("square-lattice (grid_dims) count models", 4)
     return _register_counts(args, meta, classes, variables)
 
 

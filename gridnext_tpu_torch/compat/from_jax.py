@@ -8,7 +8,7 @@
 * :func:`load_model_dir` returns ``(meta, classes, variables)`` like the JAX
   package's ``modeldir.load_model_dir``; :func:`save_model_dir` writes
   ``model.json`` and ``g_state.msgpack``.
-* :func:`load_gridnet_hex` copies a variables tree (nested dicts of numpy
+* :func:`load_gridnet` copies a variables tree (nested dicts of numpy
   arrays) into a :class:`~gridnext_tpu_torch.models.GridNetHex`:
 
   - flax ``Conv`` kernels are HWIO, torch's OIHW;
@@ -45,6 +45,11 @@
   under ``params``/``favor`` ``count_classifier``, the image f under
   ``params``/``batch_stats`` ``image_classifier``, the corrector as in
   ``GridNetHex``.
+* The square-lattice models (``GridNet``, ``GridNetMM``) hold the
+  Cartesian corrector under ``corrector``: ``Conv_0``..``Conv_3`` (flax
+  HWIO kernels, torch OIHW) and, with BatchNorm, ``BatchNorm_0``..``_2``;
+  ``ConcatGridNet`` holds the four convs at the root of ``params``.
+  :func:`load_gridnet` loads any grid model.
 * A ``CountMLP`` f (as ``GridNetHex``'s f or ``GridNetHexMM``'s count f)
   holds ``Dense_0``..``Dense_4`` and, with BatchNorm, ``BatchNorm_0`` and
   ``BatchNorm_1``.
@@ -60,7 +65,7 @@ import torch
 
 from gridnext_tpu_torch.compat import flax_msgpack
 from gridnext_tpu_torch.models.densenet import DenseNet
-from gridnext_tpu_torch.models.gridnet import GridNetHexMM
+from gridnext_tpu_torch.models.gridnet import ConcatGridNet, GridNetHexMM
 from gridnext_tpu_torch.models.mlp import CountMLP
 from gridnext_tpu_torch.models.performer import (FastAttention, Performer, PerformerLM,
                                                  SelfAttention)
@@ -272,14 +277,18 @@ def _performer_family_entries(module, params=("params",), favor=("favor",)):
                               f"{type(module).__name__}")
 
 
-def _gridnet_hex_entries(model):
+def _corrector_entries(corrector, scope=("corrector",)):
+    for collection, layer, leaf, tensor, layout in corrector.jax_entries():
+        yield (collection, *scope, layer, leaf), tensor, layout
+
+
+def _gridnet_entries(model):
     yield from _f_entries(model.patch_classifier, ("params", "patch_classifier"),
                           ("batch_stats", "patch_classifier"))
-    for collection, layer, leaf, tensor in model.corrector.jax_entries():
-        yield (collection, "corrector", layer, leaf), tensor, "same"
+    yield from _corrector_entries(model.corrector)
 
 
-def _gridnet_hex_mm_entries(model: GridNetHexMM):
+def _gridnet_mm_entries(model: GridNetHexMM):
     if isinstance(model.count_classifier, CountMLP):
         yield from _count_mlp_entries(model.count_classifier,
                                       ("params", "count_classifier"),
@@ -290,14 +299,15 @@ def _gridnet_hex_mm_entries(model: GridNetHexMM):
                                              ("favor", "count_classifier"))
     yield from _f_entries(model.image_classifier, ("params", "image_classifier"),
                           ("batch_stats", "image_classifier"))
-    for collection, layer, leaf, tensor in model.corrector.jax_entries():
-        yield (collection, "corrector", layer, leaf), tensor, "same"
+    yield from _corrector_entries(model.corrector)
 
 
 def _model_entries(model):
-    if isinstance(model, GridNetHexMM):
-        return _gridnet_hex_mm_entries(model)
-    return _gridnet_hex_entries(model)
+    if isinstance(model, GridNetHexMM):          # and GridNetMM
+        return _gridnet_mm_entries(model)
+    if isinstance(model, ConcatGridNet):         # flax names its convs at the root
+        return _corrector_entries(model.corrector, ())
+    return _gridnet_entries(model)
 
 
 def _to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
@@ -374,13 +384,23 @@ def load_count_mlp(f: CountMLP, variables: dict) -> CountMLP:
     return f
 
 
-def load_gridnet_hex(model, variables: dict):
-    """Copy a JAX ``GridNetHex`` variables tree, with a
-    ``TpuPatchClassifier``, ``DenseNet`` or ``CountMLP`` f (``params`` and, with
-    BatchNorm, ``batch_stats``), into ``model`` (in place) and return it."""
-    roots = [("params", "patch_classifier"), ("params", "corrector"),
-             ("batch_stats", "patch_classifier"), ("batch_stats", "corrector")]
-    _load(_gridnet_hex_entries(model), variables, roots)
+def load_gridnet(model, variables: dict):
+    """Copy a JAX grid model's variables tree into ``model`` (in place) and
+    return it: a ``GridNetHex`` or ``GridNet`` (a ``TpuPatchClassifier``,
+    ``DenseNet`` or ``CountMLP`` f; ``params`` and, with BatchNorm,
+    ``batch_stats``), a ``GridNetHexMM`` or ``GridNetMM``
+    (:func:`load_gridnet_hex_mm`) or a ``ConcatGridNet`` (its four convs at
+    the root of ``params``). The Cartesian corrector's ``Conv_i`` kernels
+    go from flax's (kh, kw, in, out) to torch's (out, in, kh, kw). Every
+    leaf under the model's roots must be used."""
+    if isinstance(model, GridNetHexMM):
+        return load_gridnet_hex_mm(model, variables)
+    if isinstance(model, ConcatGridNet):
+        roots = [("params",)]
+    else:
+        roots = [("params", "patch_classifier"), ("params", "corrector"),
+                 ("batch_stats", "patch_classifier"), ("batch_stats", "corrector")]
+    _load(_model_entries(model), variables, roots)
     return model
 
 
@@ -394,23 +414,22 @@ def load_performer(module, variables: dict):
 
 
 def load_gridnet_hex_mm(model: GridNetHexMM, variables: dict) -> GridNetHexMM:
-    """Copy a JAX ``GridNetHexMM`` variables tree (an scBERT or
-    ``CountMLP`` count f, a ``TpuPatchClassifier`` or ``DenseNet`` image f,
-    the hex corrector) into ``model`` (in place) and return it. Every leaf
-    under the model's roots must be used."""
+    """Copy a JAX ``GridNetHexMM`` or ``GridNetMM`` variables tree (an scBERT
+    or ``CountMLP`` count f, a ``TpuPatchClassifier`` or ``DenseNet`` image
+    f, the hex or Cartesian corrector) into ``model`` (in place) and return
+    it. Every leaf under the model's roots must be used."""
     roots = [("params", "count_classifier"), ("params", "image_classifier"),
              ("params", "corrector"), ("batch_stats", "count_classifier"),
              ("batch_stats", "image_classifier"), ("batch_stats", "corrector"),
              ("favor", "count_classifier")]
-    _load(_gridnet_hex_mm_entries(model), variables, roots)
+    _load(_gridnet_mm_entries(model), variables, roots)
     return model
 
 
 def jax_variables(model) -> dict:
     """The variables tree in the JAX package's layout that
-    :func:`load_gridnet_hex` (or, for a ``GridNetHexMM``,
-    :func:`load_gridnet_hex_mm`) reads back into ``model`` (nested dicts of
-    numpy arrays). Its shapes are those a JAX checkpoint must have."""
+    :func:`load_gridnet` reads back into ``model`` (nested dicts of numpy
+    arrays). Its shapes are those a JAX checkpoint must have."""
     tree: dict = {}
     for path, tensor, layout in _model_entries(model):
         node = tree

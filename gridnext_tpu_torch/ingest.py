@@ -134,7 +134,9 @@ class SlideSource:
       spaceranger_dirs: optional matching Spaceranger dirs; when given, each
         item carries the array's :class:`~gridnext_tpu_torch.io.Positions`
         (else None), read on the decode thread.
-      hd_binning: Visium HD binned outputs are not ported yet (raises).
+      hd_binning: the Visium HD binning whose positions parquet each item
+        carries (e.g. ``"square_016um"``; the parquet is parsed on the decode
+        thread); None for Visium positions CSVs.
       prefetch: staged-slide queue depth (2 = double buffering); the
         pinned pool holds ``prefetch + 1`` buffers.
       decode: override the decode function (image_file -> (H, W, 3) uint8).
@@ -157,12 +159,10 @@ class SlideSource:
 
         if spaceranger_dirs is not None and len(spaceranger_dirs) != len(image_files):
             raise ValueError("need one spaceranger dir per image file")
-        if hd_binning is not None:
-            raise NotImplementedError("Visium HD binned outputs are a later slice of "
-                                      "the port (ROADMAP.md Queue 1 item 3)")
         self.image_files = [str(f) for f in image_files]
         self.spaceranger_dirs = ([str(s) for s in spaceranger_dirs]
                                  if spaceranger_dirs is not None else None)
+        self.hd_binning = hd_binning
         self.prefetch = max(1, int(prefetch))
         self.decode = decode or decode_slide
         self.timer = timer if timer is not None else StageTimer()
@@ -177,7 +177,7 @@ class SlideSource:
             return None
         from gridnext_tpu_torch.io import read_positions
 
-        return read_positions(self.spaceranger_dirs[i])
+        return read_positions(self.spaceranger_dirs[i], self.hd_binning)
 
     def _stage(self, arr: np.ndarray, pool, stream, stop: threading.Event):
         """``(staged tensor, event or None)`` of one decoded slide, or None

@@ -1,8 +1,8 @@
 """Host-side readers of Spaceranger outputs."""
 
-from gridnext_tpu_torch.io.spaceranger import (Positions, find_position_file,
-                                               read_positions,
-                                               read_positions_file)
+from gridnext_tpu_torch.io.spaceranger import (Positions, cohort_hd_lattice_dims,
+                                               find_position_file, hd_lattice_dims,
+                                               read_positions, read_positions_file)
 
-__all__ = ["Positions", "find_position_file", "read_positions",
-           "read_positions_file"]
+__all__ = ["Positions", "cohort_hd_lattice_dims", "find_position_file",
+           "hd_lattice_dims", "read_positions", "read_positions_file"]

@@ -1,0 +1,508 @@
+"""Parquet files in the standard library and numpy: Visium HD positions.
+
+Spaceranger writes a Visium HD array's bin positions as
+``outs/binned_outputs/<binning>/spatial/tissue_positions.parquet``. The
+JAX package reads it with ``pandas.read_parquet``; the card has neither
+pandas nor pyarrow, so the port reads it here.
+
+:func:`read_parquet` reads flat tables (one leaf column per field, no
+nesting):
+
+* the ``PAR1`` footer and the Thrift compact protocol of ``FileMetaData``
+  and ``PageHeader`` (fields this reader does not use are skipped);
+* dictionary pages and data pages v1 and v2, over several row groups;
+* the PLAIN, PLAIN_DICTIONARY and RLE_DICTIONARY encodings, with
+  RLE/bit-packed definition levels for optional columns (pandas writes
+  every column as optional);
+* the physical types INT32, INT64, DOUBLE and BYTE_ARRAY (UTF-8 strings
+  where the schema says so, else ``bytes``);
+* the UNCOMPRESSED, SNAPPY (:func:`snappy_decompress`) and GZIP codecs.
+
+Anything else (ZSTD, LZ4 or BROTLI pages, other encodings, nested or
+repeated columns) raises an error that names it, and so does a null value.
+
+:func:`write_parquet` writes one row group of required columns, PLAIN and
+UNCOMPRESSED, which pandas and pyarrow read back.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+MAGIC = b"PAR1"
+
+# Parquet's enums (parquet.thrift)
+BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY = range(8)
+_TYPE_NAMES = ("BOOLEAN", "INT32", "INT64", "INT96", "FLOAT", "DOUBLE", "BYTE_ARRAY",
+               "FIXED_LEN_BYTE_ARRAY")
+_CODEC_NAMES = {0: "UNCOMPRESSED", 1: "SNAPPY", 2: "GZIP", 3: "LZO", 4: "BROTLI",
+                5: "LZ4", 6: "ZSTD", 7: "LZ4_RAW"}
+_ENCODING_NAMES = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE", 4: "BIT_PACKED",
+                   5: "DELTA_BINARY_PACKED", 6: "DELTA_LENGTH_BYTE_ARRAY",
+                   7: "DELTA_BYTE_ARRAY", 8: "RLE_DICTIONARY", 9: "BYTE_STREAM_SPLIT"}
+PLAIN, PLAIN_DICTIONARY, RLE, RLE_DICTIONARY = 0, 2, 3, 8
+DATA_PAGE, INDEX_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = range(4)
+REQUIRED, OPTIONAL, REPEATED = range(3)
+UTF8 = 0                       # ConvertedType
+
+_PLAIN_DTYPES = {INT32: "<i4", INT64: "<i8", DOUBLE: "<f8"}
+
+# Thrift compact protocol type ids
+_T_STOP, _T_TRUE, _T_FALSE, _T_BYTE, _T_I16, _T_I32, _T_I64 = range(7)
+_T_DOUBLE, _T_BINARY, _T_LIST, _T_SET, _T_MAP, _T_STRUCT = range(7, 13)
+
+
+class ParquetError(ValueError):
+    """A file this reader cannot read, or a malformed one."""
+
+
+# -- Thrift compact protocol --------------------------------------------------
+
+
+def _varint(buf, pos: int):
+    out = shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        out |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return out, pos
+        shift += 7
+
+
+def _unzigzag(n: int) -> int:
+    return (n >> 1) ^ -(n & 1)
+
+
+class _CompactReader:
+    """Thrift compact-protocol structs as ``{field id: value}`` dicts."""
+
+    def __init__(self, buf, pos: int = 0):
+        self.buf = buf
+        self.pos = pos
+
+    def struct(self) -> dict:
+        out, last = {}, 0
+        while True:
+            head = self.buf[self.pos]
+            self.pos += 1
+            if head == _T_STOP:
+                return out
+            ttype, delta = head & 0x0F, head >> 4
+            if delta:
+                fid = last + delta
+            else:
+                raw, self.pos = _varint(self.buf, self.pos)
+                fid = _unzigzag(raw)
+            last = fid
+            out[fid] = (ttype == _T_TRUE) if ttype in (_T_TRUE, _T_FALSE) else self.value(ttype)
+
+    def value(self, ttype: int):
+        buf = self.buf
+        if ttype == _T_BYTE:
+            self.pos += 1
+            return struct.unpack_from("<b", buf, self.pos - 1)[0]
+        if ttype in (_T_I16, _T_I32, _T_I64):
+            raw, self.pos = _varint(buf, self.pos)
+            return _unzigzag(raw)
+        if ttype == _T_DOUBLE:
+            self.pos += 8
+            return struct.unpack_from("<d", buf, self.pos - 8)[0]
+        if ttype == _T_BINARY:
+            n, self.pos = _varint(buf, self.pos)
+            self.pos += n
+            return bytes(buf[self.pos - n:self.pos])
+        if ttype in (_T_LIST, _T_SET):
+            head = buf[self.pos]
+            self.pos += 1
+            size, etype = head >> 4, head & 0x0F
+            if size == 15:
+                size, self.pos = _varint(buf, self.pos)
+            if etype in (_T_TRUE, _T_FALSE):      # a byte each: 1 true, 2 false
+                self.pos += size
+                return [b == _T_TRUE for b in buf[self.pos - size:self.pos]]
+            return [self.value(etype) for _ in range(size)]
+        if ttype == _T_MAP:
+            size, self.pos = _varint(buf, self.pos)
+            if not size:
+                return {}
+            kv = buf[self.pos]
+            self.pos += 1
+            return {self.value(kv >> 4): self.value(kv & 0x0F) for _ in range(size)}
+        if ttype == _T_STRUCT:
+            return self.struct()
+        raise ParquetError(f"corrupt Thrift metadata: type id {ttype}")
+
+
+def _zigzag(n: int) -> int:
+    return n << 1 if n >= 0 else ((-n) << 1) - 1
+
+
+def _uvarint(n: int) -> bytes:
+    out = bytearray()
+    while n > 0x7F:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _encode_struct(fields) -> bytes:
+    """Compact-protocol bytes of a struct given as ``[(field id, type id,
+    value)]`` in ascending field order; a struct value is such a list, a
+    list value ``(element type id, [values])``."""
+    out = bytearray()
+    last = 0
+    for fid, ttype, value in fields:
+        delta = fid - last
+        if 0 < delta <= 15:
+            out.append((delta << 4) | ttype)
+        else:
+            out.append(ttype)
+            out += _uvarint(_zigzag(fid))
+        last = fid
+        out += _encode_value(ttype, value)
+    out.append(_T_STOP)
+    return bytes(out)
+
+
+def _encode_value(ttype: int, value) -> bytes:
+    if ttype in (_T_I32, _T_I64):
+        return _uvarint(_zigzag(int(value)))
+    if ttype == _T_BINARY:
+        value = value.encode() if isinstance(value, str) else bytes(value)
+        return _uvarint(len(value)) + value
+    if ttype == _T_STRUCT:
+        return _encode_struct(value)
+    if ttype == _T_LIST:
+        etype, items = value
+        head = (bytes([(len(items) << 4) | etype]) if len(items) < 15
+                else bytes([0xF0 | etype]) + _uvarint(len(items)))
+        return head + b"".join(_encode_value(etype, v) for v in items)
+    raise ValueError(f"the writer does not encode Thrift type {ttype}")
+
+
+# -- codecs ---------------------------------------------------------------------
+
+
+def snappy_decompress(buf) -> bytes:
+    """Decompress one raw Snappy block (the format of Parquet's SNAPPY
+    pages: the uncompressed length as a varint, then literals and
+    back-references)."""
+    buf = memoryview(buf)
+    n, pos = _varint(buf, 0)
+    out = bytearray()
+    end = len(buf)
+    while pos < end:
+        tag = buf[pos]
+        pos += 1
+        kind = tag & 3
+        if kind == 0:                                  # literal
+            ln = tag >> 2
+            if ln >= 60:
+                nb = ln - 59
+                ln = int.from_bytes(buf[pos:pos + nb], "little")
+                pos += nb
+            ln += 1
+            out += buf[pos:pos + ln]
+            pos += ln
+            continue
+        if kind == 1:                                  # copy, 1-byte offset
+            ln = ((tag >> 2) & 7) + 4
+            off = ((tag >> 5) << 8) | buf[pos]
+            pos += 1
+        elif kind == 2:                                # copy, 2-byte offset
+            ln = (tag >> 2) + 1
+            off = buf[pos] | (buf[pos + 1] << 8)
+            pos += 2
+        else:                                          # copy, 4-byte offset
+            ln = (tag >> 2) + 1
+            off = int.from_bytes(buf[pos:pos + 4], "little")
+            pos += 4
+        start = len(out) - off
+        if off <= 0 or start < 0:
+            raise ParquetError("corrupt SNAPPY page: a copy before the start")
+        if off >= ln:
+            out += out[start:start + ln]
+        else:                                          # overlapping: a repeated pattern
+            out += (out[start:] * (ln // off + 1))[:ln]
+    if len(out) != n:
+        raise ParquetError(f"corrupt SNAPPY page: {len(out)} bytes, header says {n}")
+    return bytes(out)
+
+
+def _decompress(codec: int, body, size: int):
+    if codec == 0:
+        return body
+    if codec == 1:
+        out = snappy_decompress(body)
+    elif codec == 2:
+        out = zlib.decompressobj(wbits=47).decompress(bytes(body))  # gzip or zlib
+    else:
+        raise ParquetError(f"parquet codec {_CODEC_NAMES.get(codec, codec)} is not "
+                           "supported (UNCOMPRESSED, SNAPPY and GZIP are)")
+    if len(out) != size:
+        raise ParquetError(f"page decompressed to {len(out)} bytes, header says {size}")
+    return out
+
+
+# -- encodings ------------------------------------------------------------------
+
+
+def _rle_hybrid(buf, bit_width: int, count: int) -> np.ndarray:
+    """``count`` values of the RLE/bit-packed hybrid encoding (levels and
+    dictionary indices), as int64."""
+    out = np.zeros(count, np.int64)
+    if bit_width == 0 or count == 0:
+        return out
+    weights = np.left_shift(np.int64(1), np.arange(bit_width, dtype=np.int64))
+    byte_width = (bit_width + 7) // 8
+    pos = n = 0
+    while n < count:
+        header, pos = _varint(buf, pos)
+        if header & 1:                                 # bit-packed groups of 8
+            nbytes = (header >> 1) * bit_width
+            bits = np.unpackbits(np.frombuffer(buf, np.uint8, nbytes, pos),
+                                 bitorder="little")
+            pos += nbytes
+            vals = bits.reshape(-1, bit_width).astype(np.int64) @ weights
+            take = min(len(vals), count - n)
+            out[n:n + take] = vals[:take]
+        else:                                          # a run of one value
+            value = int.from_bytes(buf[pos:pos + byte_width], "little")
+            pos += byte_width
+            take = min(header >> 1, count - n)
+            out[n:n + take] = value
+        n += take
+    return out
+
+
+def _byte_arrays(buf, count: int) -> list:
+    """``count`` PLAIN BYTE_ARRAY values (each a 4-byte length and its
+    bytes), one at a time."""
+    buf = memoryview(buf)
+    vals, pos = [], 0
+    for _ in range(count):
+        ln = int.from_bytes(buf[pos:pos + 4], "little")
+        vals.append(bytes(buf[pos + 4:pos + 4 + ln]))
+        pos += 4 + ln
+    return vals
+
+
+def _fixed_byte_arrays(buf, count: int):
+    """The values of :func:`_byte_arrays` when all ``count`` have one length
+    (HD barcodes), read as one array; None otherwise.
+    ``tools/time_parquet.py`` times the two."""
+    if not count or len(buf) < 4:
+        return None
+    rows = np.frombuffer(buf, np.uint8)
+    ln = int.from_bytes(bytes(rows[:4]), "little")
+    if len(rows) != count * (4 + ln):
+        return None
+    rows = rows.reshape(count, 4 + ln)
+    if not (rows[:, :4].copy().view("<u4") == ln).all():
+        return None
+    flat = rows[:, 4:].tobytes()
+    return [flat[i:i + ln] for i in range(0, count * ln, ln)]
+
+
+def _plain(buf, ptype: int, count: int, column: str):
+    if ptype in _PLAIN_DTYPES:
+        return np.frombuffer(buf, _PLAIN_DTYPES[ptype], count).copy()
+    if ptype == BYTE_ARRAY:
+        vals = _fixed_byte_arrays(buf, count)
+        return _byte_arrays(buf, count) if vals is None else vals
+    raise ParquetError(f"column {column!r}: physical type {_TYPE_NAMES[ptype]} is not "
+                       "supported")
+
+
+def _take(values, idx: np.ndarray):
+    if isinstance(values, list):
+        return [values[i] for i in idx.tolist()]
+    return values[idx]
+
+
+class _Column:
+    """One leaf column of the schema."""
+
+    def __init__(self, element: dict):
+        self.name = element[4].decode()
+        self.ptype = element.get(1)
+        rep = element.get(3, REQUIRED)
+        if element.get(5) or self.ptype is None:
+            raise ParquetError(f"column {self.name!r} is nested; only flat tables are read")
+        if rep == REPEATED:
+            raise ParquetError(f"column {self.name!r} is repeated; only flat tables are read")
+        self.max_def = int(rep == OPTIONAL)
+        logical = element.get(10) or {}
+        self.utf8 = element.get(6) == UTF8 or 1 in logical
+
+    def values(self, buf, encoding: int, count: int, dictionary):
+        if encoding == PLAIN:
+            return _plain(buf, self.ptype, count, self.name)
+        if encoding in (PLAIN_DICTIONARY, RLE_DICTIONARY):
+            if dictionary is None:
+                raise ParquetError(f"column {self.name!r}: dictionary-encoded page "
+                                   "without a dictionary page")
+            idx = _rle_hybrid(memoryview(buf)[1:], buf[0], count)
+            return _take(dictionary, idx)
+        raise ParquetError(f"column {self.name!r}: encoding "
+                           f"{_ENCODING_NAMES.get(encoding, encoding)} is not supported "
+                           "(PLAIN, PLAIN_DICTIONARY and RLE_DICTIONARY are)")
+
+    def check_levels(self, levels):
+        if (levels != self.max_def).any():
+            raise ParquetError(f"column {self.name!r} holds "
+                               f"{int((levels != self.max_def).sum())} null values; "
+                               "positions must have none")
+
+    def chunk(self, data, meta: dict) -> list:
+        """The values of one column chunk, page by page."""
+        codec = meta.get(4, 0)
+        total = meta[5]
+        pos = min(o for o in (meta.get(9), meta.get(11)) if o is not None and o > 0)
+        dictionary, parts, seen = None, [], 0
+        while seen < total:
+            reader = _CompactReader(data, pos)
+            header = reader.struct()
+            body = memoryview(data)[reader.pos:reader.pos + header[3]]
+            pos = reader.pos + header[3]
+            ptype, size = header[1], header[2]
+            if ptype == DICTIONARY_PAGE:
+                dph = header[7]
+                if dph.get(2, PLAIN) not in (PLAIN, PLAIN_DICTIONARY):
+                    raise ParquetError(f"column {self.name!r}: dictionary encoding "
+                                       f"{_ENCODING_NAMES.get(dph[2], dph[2])}")
+                dictionary = _plain(_decompress(codec, body, size), self.ptype, dph[1],
+                                    self.name)
+            elif ptype == DATA_PAGE:
+                dph = header[5]
+                n = dph[1]
+                raw = _decompress(codec, body, size)
+                off = 0
+                if self.max_def:
+                    if dph.get(3, RLE) != RLE:
+                        raise ParquetError(f"column {self.name!r}: definition levels "
+                                           f"encoded {_ENCODING_NAMES.get(dph[3], dph[3])}")
+                    ln = int.from_bytes(raw[:4], "little")
+                    self.check_levels(_rle_hybrid(memoryview(raw)[4:4 + ln], 1, n))
+                    off = 4 + ln
+                parts.append(self.values(memoryview(raw)[off:], dph[2], n, dictionary))
+                seen += n
+            elif ptype == DATA_PAGE_V2:
+                dph = header[8]
+                n, nulls, rl, dl = dph[1], dph.get(2, 0), dph.get(6, 0), dph.get(5, 0)
+                if nulls:
+                    raise ParquetError(f"column {self.name!r} holds {nulls} null values; "
+                                       "positions must have none")
+                if self.max_def:
+                    self.check_levels(_rle_hybrid(body[rl:rl + dl], 1, n))
+                vals = body[rl + dl:]
+                if dph.get(7, True):
+                    vals = _decompress(codec, vals, size - rl - dl)
+                parts.append(self.values(vals, dph[4], n, dictionary))
+                seen += n
+            elif ptype != INDEX_PAGE:
+                raise ParquetError(f"column {self.name!r}: unknown page type {ptype}")
+        return parts
+
+
+def _joined(parts, utf8: bool):
+    if parts and isinstance(parts[0], list):
+        out = [v for part in parts for v in part]
+        return [v.decode("utf-8") for v in out] if utf8 else out
+    return np.concatenate(parts) if parts else np.zeros(0)
+
+
+def read_parquet(path, columns=None) -> dict:
+    """Read a flat Parquet table: ``{column name: values}`` in schema order.
+
+    Numeric columns come back as numpy arrays of their physical type
+    (INT32 int32, INT64 int64, DOUBLE float64), string columns as lists of
+    ``str`` (other BYTE_ARRAY columns as lists of ``bytes``), each in file
+    order over every row group.
+    ``columns``: read only these (default all).
+    """
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if len(data) < 12 or data[:4] != MAGIC or data[-4:] != MAGIC:
+        raise ParquetError(f"{path} is not a Parquet file (no PAR1 magic)")
+    meta_len = int.from_bytes(data[-8:-4], "little")
+    meta = _CompactReader(data, len(data) - 8 - meta_len).struct()
+    schema = meta[2]
+    leaves = [_Column(e) for e in schema[1:]]
+    if len(leaves) != schema[0].get(5, len(leaves)):
+        raise ParquetError("nested schema; only flat tables are read")
+    names = [c.name for c in leaves]
+    want = names if columns is None else list(columns)
+    missing = [c for c in want if c not in names]
+    if missing:
+        raise ParquetError(f"{path} has no column(s) {missing}; it has {names}")
+    parts = {c: [] for c in want}
+    for group in meta.get(4, []):
+        for leaf, chunk in zip(leaves, group[1]):
+            if leaf.name in parts:
+                if chunk.get(1):
+                    raise ParquetError("column chunks in other files are not read")
+                parts[leaf.name] += leaf.chunk(data, chunk[3])
+    by_name = dict(zip(names, leaves))
+    return {c: _joined(parts[c], by_name[c].utf8) for c in want}
+
+
+# -- writer -----------------------------------------------------------------------
+
+
+def _column_bytes(name: str, values):
+    """(physical type, PLAIN bytes, extra schema fields) of one column."""
+    if isinstance(values, np.ndarray) and values.dtype.kind in "iuf":
+        kinds = {np.dtype(np.int32): INT32, np.dtype(np.int64): INT64,
+                 np.dtype(np.float64): DOUBLE}
+        if values.dtype not in kinds:
+            raise ValueError(f"column {name!r}: dtype {values.dtype} (int32, int64, "
+                             "float64 and strings are written)")
+        ptype = kinds[values.dtype]
+        return ptype, np.ascontiguousarray(values, _PLAIN_DTYPES[ptype]).tobytes(), []
+    encoded = [str(v).encode("utf-8") for v in values]
+    lengths = np.array([len(v) for v in encoded], "<u4")
+    body = b"".join(ln.tobytes() + v for ln, v in zip(lengths, encoded))
+    return BYTE_ARRAY, body, [(6, _T_I32, UTF8), (10, _T_STRUCT, [(1, _T_STRUCT, [])])]
+
+
+def write_parquet(path, columns: dict) -> None:
+    """Write ``{name: values}`` as one row group of required columns, PLAIN
+    encoded and UNCOMPRESSED. Values: int32, int64 or float64 numpy arrays,
+    or sequences of strings, all of one length."""
+    lengths = {len(v) for v in columns.values()}
+    if len(lengths) != 1:
+        raise ValueError(f"columns of different lengths: {sorted(lengths)}")
+    n_rows = lengths.pop()
+    out = bytearray(MAGIC)
+    chunks, schema = [], [[(4, _T_BINARY, "schema"), (5, _T_I32, len(columns))]]
+    total = 0
+    for name, values in columns.items():
+        ptype, body, extra = _column_bytes(name, values)
+        page = [(1, _T_I32, DATA_PAGE), (2, _T_I32, len(body)), (3, _T_I32, len(body)),
+                (5, _T_STRUCT, [(1, _T_I32, n_rows), (2, _T_I32, PLAIN), (3, _T_I32, RLE),
+                                (4, _T_I32, RLE)])]
+        header = _encode_struct(page)
+        offset = len(out)
+        out += header + body
+        size = len(header) + len(body)
+        total += size
+        chunks.append([(2, _T_I64, offset), (3, _T_STRUCT, [
+            (1, _T_I32, ptype), (2, _T_LIST, (_T_I32, [PLAIN, RLE])),
+            (3, _T_LIST, (_T_BINARY, [name])), (4, _T_I32, 0), (5, _T_I64, n_rows),
+            (6, _T_I64, size), (7, _T_I64, size), (9, _T_I64, offset)])])
+        schema.append(sorted([(1, _T_I32, ptype), (3, _T_I32, REQUIRED),
+                              (4, _T_BINARY, name)] + extra))
+    row_group = [(1, _T_LIST, (_T_STRUCT, chunks)), (2, _T_I64, total),
+                 (3, _T_I64, n_rows)]
+    meta = _encode_struct([(1, _T_I32, 1), (2, _T_LIST, (_T_STRUCT, schema)),
+                           (3, _T_I64, n_rows), (4, _T_LIST, (_T_STRUCT, [row_group])),
+                           (6, _T_BINARY, "gridnext_tpu_torch")])
+    out += meta + len(meta).to_bytes(4, "little") + MAGIC
+    with open(path, "wb") as fh:
+        fh.write(out)

@@ -1,11 +1,13 @@
-"""Spaceranger tissue-position readers (v1 and v2 CSV), pandas-free.
+"""Spaceranger tissue-position readers, pandas-free.
 
 * v1: headerless ``tissue_positions_list.csv``;
-* v2: headered ``tissue_positions.csv`` (Spaceranger >= 2.0).
+* v2: headered ``tissue_positions.csv`` (Spaceranger >= 2.0);
+* Visium HD: ``outs/binned_outputs/<binning>/spatial/tissue_positions.parquet``
+  (:mod:`~gridnext_tpu_torch.io.parquet`).
 
-The version is sniffed from the first line, as the JAX package does. Rows
-keep file order; ``Positions`` holds the barcodes and one numpy column per
-field.
+The CSV version is sniffed from the first line, as the JAX package does.
+Rows keep file order; ``Positions`` holds the barcodes and one numpy column
+per field.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ import csv
 import glob
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
+
+from gridnext_tpu_torch.io.parquet import read_parquet
 
 _V1_COLUMNS = ("in_tissue", "array_row", "array_col",
                "pxl_row_in_fullres", "pxl_col_in_fullres")
@@ -37,12 +42,21 @@ class Positions:
         return self.columns[name]
 
 
-def find_position_file(spaceranger_dir) -> str:
-    """Locate the tissue-positions CSV below a Spaceranger directory.
+def find_position_file(spaceranger_dir, hd_binning: Optional[str] = None) -> str:
+    """Locate the tissue-positions file of a Spaceranger directory.
 
-    Sorted glob: when a directory holds both layouts, v2's
-    ``tissue_positions.csv`` sorts before v1's ``tissue_positions_list.csv``.
+    With ``hd_binning`` (e.g. ``"square_016um"``): the Visium HD parquet of
+    that binning. Else the CSV below the directory, by sorted glob: when a
+    directory holds both layouts, v2's ``tissue_positions.csv`` sorts
+    before v1's ``tissue_positions_list.csv``.
     """
+    if hd_binning is not None:
+        pos_path = os.path.join(str(spaceranger_dir), "outs", "binned_outputs",
+                                hd_binning, "spatial", "tissue_positions.parquet")
+        if not os.path.exists(pos_path):
+            raise ValueError(f"Cannot locate position file for {hd_binning} binning "
+                             f"of {spaceranger_dir}")
+        return pos_path
     for pos_path in sorted(glob.glob(os.path.join(str(spaceranger_dir),
                                                   "**", "*.csv"),
                                      recursive=True)):
@@ -52,7 +66,14 @@ def find_position_file(spaceranger_dir) -> str:
 
 
 def read_positions_file(position_file) -> Positions:
-    """Read a v1 or v2 positions CSV into :class:`Positions`."""
+    """Read a v1 or v2 positions CSV, or a Visium HD positions parquet, into
+    :class:`Positions`."""
+    if str(position_file).endswith(".parquet"):
+        table = read_parquet(str(position_file), ("barcode",) + _V1_COLUMNS)
+        columns = {name: np.asarray(table[name],
+                                    np.int64 if name in _INT_COLUMNS else np.float64)
+                   for name in _V1_COLUMNS}
+        return Positions(list(table["barcode"]), columns)
     with open(str(position_file), newline="") as fh:
         rows = [r for r in csv.reader(fh) if r]
     if rows and rows[0][0].startswith("barcode"):  # Spaceranger >= 2.0
@@ -70,6 +91,23 @@ def read_positions_file(position_file) -> Positions:
     return Positions(barcodes, columns)
 
 
-def read_positions(spaceranger_dir) -> Positions:
+def read_positions(spaceranger_dir, hd_binning: Optional[str] = None) -> Positions:
     """Positions of an array: find + read in one call."""
-    return read_positions_file(find_position_file(spaceranger_dir))
+    return read_positions_file(find_position_file(spaceranger_dir, hd_binning))
+
+
+def hd_lattice_dims(spaceranger_dir, hd_binning: str) -> tuple:
+    """(h, w) of an HD square bin lattice: (max row + 1, max col + 1) over
+    every position, in tissue or not (the JAX package's grid dims for
+    ``grid_dims='auto'``)."""
+    pos = read_positions(spaceranger_dir, hd_binning)
+    return int(pos["array_row"].max()) + 1, int(pos["array_col"].max()) + 1
+
+
+def cohort_hd_lattice_dims(spaceranger_dirs, hd_binning: str) -> tuple:
+    """Cohort-max (h, w) over every array's :func:`hd_lattice_dims`."""
+    h = w = 0
+    for srd in spaceranger_dirs:
+        hh, ww = hd_lattice_dims(srd, hd_binning)
+        h, w = max(h, hh), max(w, ww)
+    return h, w

@@ -17,19 +17,20 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex, load_gridnet_hex_mm
+from gridnext_tpu_torch.compat.from_jax import load_gridnet
 
 
 def image_registrar_from_meta(meta, classes, variables, device="cuda"):
     """SlideRegistrar for a trained image model directory's metadata.
 
-    Ported: the Visium hex lattice with a ``*TpuPatchClassifier`` or a
-    ``*DenseNet121`` f (f32 modules; the window resized to the patch size
-    where ``window_px`` differs). The square-lattice (``grid_dims``) models
-    raise ``NotImplementedError`` until their slice is ported. As in the
-    JAX package, model directories serve with ``normalize=None`` (``/255``).
+    A ``*TpuPatchClassifier`` or ``*DenseNet121`` f (f32 modules; the window
+    resized to the patch size where ``window_px`` differs) under the hex
+    corrector (Visium) or, where ``grid_dims`` is set, the Cartesian
+    corrector of a square ``GridNet`` whose grid is ``grid_dims`` (Visium
+    HD bins, indexed by (array_row, array_col)). As in the JAX package,
+    model directories serve with ``normalize=None`` (``/255``).
     """
-    from gridnext_tpu_torch.models import (GridNetHex, TpuPatchClassifier,
+    from gridnext_tpu_torch.models import (GridNet, GridNetHex, TpuPatchClassifier,
                                            densenet121, tpu_f_arch_kwargs)
     from gridnext_tpu_torch.serving import SlideRegistrar, resolve_device
 
@@ -42,17 +43,19 @@ def image_registrar_from_meta(meta, classes, variables, device="cuda"):
         f = densenet121(num_classes=n)
     else:
         raise ValueError(f"not an image model dir (model={model_name!r}); the "
-                         "registrar needs a GridNetHex+DenseNet121 or "
+                         "registrar needs a GridNet[Hex]+DenseNet121 or "
                          "+TpuPatchClassifier directory")
-    if meta.get("grid_dims") is not None:
-        raise NotImplementedError("square-lattice (grid_dims) image models are "
-                                  "a later slice of the port")
-    g = load_gridnet_hex(GridNetHex(f, n_classes=n, f_dim=n,
-                                    use_bn=_has_bn_corrector(variables)), variables)
+    grid_dims = meta.get("grid_dims")
+    lattice = {}
+    if grid_dims is not None:
+        lattice = {"h_st": int(grid_dims[0]), "w_st": int(grid_dims[1])}
+    cls = GridNetHex if grid_dims is None else GridNet
+    g = load_gridnet(cls(f, n_classes=n, f_dim=n, use_bn=_has_bn_corrector(variables)),
+                     variables)
     return SlideRegistrar.from_gridnet(
-        g, patch_size=meta.get("patch_px", 128),
-        window_size=meta.get("window_px"),
-        patch_chunk=meta.get("patch_chunk", 624), normalize=None, device=device)
+        g, patch_size=meta.get("patch_px", 128), window_size=meta.get("window_px"),
+        patch_chunk=meta.get("patch_chunk", 624), normalize=None, device=device,
+        **lattice)
 
 
 def _has_bn_corrector(variables) -> bool:
@@ -60,26 +63,22 @@ def _has_bn_corrector(variables) -> bool:
 
 
 def mm_model_from_meta(meta, classes, variables, device="cuda"):
-    """The ``GridNetHexMM`` of a trained multimodal model directory, with
-    its weights loaded, in eval mode on ``device``.
+    """The multimodal grid model of a trained model directory, with its
+    weights loaded, in eval mode on ``device``: a ``GridNetHexMM`` on the
+    Visium hex lattice or a ``GridNetMM`` (``model: "GridNetMM"``, with
+    ``grid_dims``) on a square HD lattice.
 
-    Ported: the Visium hex lattice with an scBERT count f (generalized ReLU
-    attention, as ``train-mm`` builds it) or a ``CountMLP`` count f
-    (``count_mlp_bn: false`` marks the distilled student without
-    BatchNorm), and a ``TpuPatchClassifier`` (``image_f: "tpu"``) or
-    DenseNet-121 image f, chunked as in training (``patch_chunk``,
-    ``count_chunk``). The square lattice (``grid_dims``, ``GridNetMM``)
-    raises ``NotImplementedError`` until its slice (``ROADMAP.md`` Queue 1
-    item 3).
+    The count f is scBERT (generalized ReLU attention, as ``train-mm``
+    builds it) or a ``CountMLP`` (``count_mlp_bn: false`` marks the
+    distilled student without BatchNorm); the image f a
+    ``TpuPatchClassifier`` (``image_f: "tpu"``) or DenseNet-121, chunked as
+    in training (``patch_chunk``, ``count_chunk``).
     """
-    from gridnext_tpu_torch.models import (GridNetHexMM, TpuPatchClassifier,
+    from gridnext_tpu_torch.models import (GridNetHexMM, GridNetMM, TpuPatchClassifier,
                                            densenet121, scBERT, tpu_f_arch_kwargs)
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(device)
-    if meta.get("model") == "GridNetMM" or meta.get("grid_dims") is not None:
-        raise NotImplementedError("square-lattice (grid_dims) multimodal models are a "
-                                  "later slice of the port (ROADMAP.md Queue 1 item 3)")
     n = len(classes)
     if meta.get("count_f") == "scbert":
         f_count = scBERT(n_genes=meta["scbert_vocab"], dim=meta["scbert_dim"],
@@ -94,10 +93,10 @@ def mm_model_from_meta(meta, classes, variables, device="cuda"):
         f_image = TpuPatchClassifier(n_classes=n, **tpu_f_arch_kwargs(meta.get("tpu_f")))
     else:
         f_image = densenet121(num_classes=n)
-    g = GridNetHexMM(f_image, f_count, n_classes=n, use_bn=_has_bn_corrector(variables),
-                     patch_chunk=meta.get("patch_chunk", 624),
-                     count_chunk=meta.get("count_chunk"))
-    return load_gridnet_hex_mm(g, variables).to(device).eval()
+    cls = GridNetMM if meta.get("model") == "GridNetMM" else GridNetHexMM
+    g = cls(f_image, f_count, n_classes=n, use_bn=_has_bn_corrector(variables),
+            patch_chunk=meta.get("patch_chunk", 624), count_chunk=meta.get("count_chunk"))
+    return load_gridnet(g, variables).to(device).eval()
 
 
 def _count_mlp(variables, name: str, n_classes: int, batch_norm: bool = True):
@@ -111,25 +110,19 @@ def _count_mlp(variables, name: str, n_classes: int, batch_norm: bool = True):
 
 def grid_model_from_meta(meta, classes, variables, device="cuda"):
     """The grid model of any trained model directory (count, image or
-    multimodal), with its weights loaded, in eval mode on ``device``.
-
-    Ported: the Visium hex lattice (``GridNetHex`` over a
-    ``TpuPatchClassifier``, DenseNet-121 or ``CountMLP`` f, or a
-    ``GridNetHexMM`` through :func:`mm_model_from_meta`). The square
-    lattice (``grid_dims``) raises ``NotImplementedError`` until its slice
-    (``ROADMAP.md`` Queue 1 item 3).
+    multimodal), with its weights loaded, in eval mode on ``device``:
+    ``GridNetHex`` (Visium) or ``GridNet`` (``grid_dims``: square HD bins)
+    over a ``TpuPatchClassifier``, DenseNet-121 or ``CountMLP`` f, or a
+    multimodal model through :func:`mm_model_from_meta`.
     """
-    from gridnext_tpu_torch.models import (GridNetHex, TpuPatchClassifier, densenet121,
-                                           tpu_f_arch_kwargs)
+    from gridnext_tpu_torch.models import (GridNet, GridNetHex, TpuPatchClassifier,
+                                           densenet121, tpu_f_arch_kwargs)
     from gridnext_tpu_torch.serving import resolve_device
 
     model_name = meta.get("model", "")
     if model_name in ("GridNetHexMM", "GridNetMM"):
         return mm_model_from_meta(meta, classes, variables, device=device)
     device = resolve_device(device)
-    if meta.get("grid_dims") is not None:
-        raise NotImplementedError("square-lattice (grid_dims) models are a later slice "
-                                  "of the port (ROADMAP.md Queue 1 item 3)")
     n = len(classes)
     chunk = meta.get("patch_chunk", 624)
     if model_name.endswith("TpuPatchClassifier"):
@@ -139,9 +132,10 @@ def grid_model_from_meta(meta, classes, variables, device="cuda"):
     else:
         f = _count_mlp(variables, "patch_classifier", n, meta.get("count_mlp_bn", True))
         chunk = None
-    g = GridNetHex(f, n_classes=n, f_dim=n, use_bn=_has_bn_corrector(variables),
-                   patch_chunk=chunk)
-    return load_gridnet_hex(g, variables).to(device).eval()
+    cls = GridNetHex if meta.get("grid_dims") is None else GridNet
+    g = cls(f, n_classes=n, f_dim=n, use_bn=_has_bn_corrector(variables),
+            patch_chunk=chunk)
+    return load_gridnet(g, variables).to(device).eval()
 
 
 def scbert_transform(symbols: Sequence[str], vocab: int) -> Callable:

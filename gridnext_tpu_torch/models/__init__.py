@@ -1,8 +1,8 @@
 """Models of the port: the spot classifiers f and the GridNet compositions."""
 
 from gridnext_tpu_torch.models.densenet import DenseNet, densenet121
-from gridnext_tpu_torch.models.gridnet import (GridNetHex, GridNetHexMM, GridNetMM,
-                                               apply_f_chunked)
+from gridnext_tpu_torch.models.gridnet import (ConcatGridNet, GridNet, GridNetHex,
+                                               GridNetHexMM, GridNetMM, apply_f_chunked)
 from gridnext_tpu_torch.models.layers import HexConv
 from gridnext_tpu_torch.models.mlp import CountMLP
 from gridnext_tpu_torch.models.performer import (FastAttention, FeedForward, Performer,
@@ -10,7 +10,7 @@ from gridnext_tpu_torch.models.performer import (FastAttention, FeedForward, Per
 from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
 from gridnext_tpu_torch.models.tpu_f import TpuPatchClassifier, tpu_f_arch_kwargs
 
-__all__ = ["AttentionClassifier", "CountMLP", "DenseNet", "FastAttention", "FeedForward",
-           "GridNetHex", "GridNetHexMM", "GridNetMM", "HexConv", "Performer",
+__all__ = ["AttentionClassifier", "ConcatGridNet", "CountMLP", "DenseNet", "FastAttention",
+           "FeedForward", "GridNet", "GridNetHex", "GridNetHexMM", "GridNetMM", "HexConv", "Performer",
            "PerformerLM", "SelfAttention", "TpuPatchClassifier", "apply_f_chunked",
            "densenet121", "scBERT", "tpu_f_arch_kwargs"]

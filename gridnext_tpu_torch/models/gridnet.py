@@ -1,10 +1,12 @@
-"""GridNetHex and GridNetHexMM: spot classifiers f composed with the hex
-grid corrector g.
+"""The GridNet family: spot classifiers f composed with a grid corrector g.
 
-Port of ``gridnext_tpu/models/gridnet.py`` (hex branch). Tensors are
-channels-last: image grids ``(B, H, W, P, P, 3)`` and count grids
-``(B, H, W, G)`` in, ``(B, H, W, n_classes)`` logits out. The
-square-lattice ``GridNet`` and ``GridNetMM`` are a later slice.
+Port of ``gridnext_tpu/models/gridnet.py``. Tensors are channels-last:
+image grids ``(B, H, W, P, P, 3)`` and count grids ``(B, H, W, G)`` in,
+``(B, H, W, n_classes)`` logits out. Visium's pseudo-hex lattice takes the
+hex corrector (:class:`GridNetHex`, :class:`GridNetHexMM`); square
+lattices (Visium HD bins) take the Cartesian conv corrector
+(:class:`GridNet`, :class:`GridNetMM`); :class:`ConcatGridNet` is the
+Cartesian corrector alone over concatenated feature grids.
 """
 
 from __future__ import annotations
@@ -17,6 +19,55 @@ from torch.utils.checkpoint import checkpoint
 
 from gridnext_tpu_torch.models.layers import HexConv
 from gridnext_tpu_torch.ops.hexcorrector_cuda import fold_corrector_params
+
+
+class _CartesianCorrector(nn.Module):
+    """The square-lattice corrector: 3x3, 5x5, 5x5, 3x3 convs at
+    ``n_classes`` channels (zero padding 1, 2, 2, 1), each of the first
+    three followed by BatchNorm (with ``use_bn``) and ReLU.
+
+    Channels-last ``(B, H, W, C)`` in and out, like the JAX package's
+    ``nn.Conv`` stack (a cross-correlation, as ``conv2d``); BatchNorm runs
+    over (B, H, W) with flax's momentum 0.9 (torch's 0.1) and epsilon 1e-5.
+    ``width`` is the hidden channel count (default ``n_classes``; the
+    concat fusion corrector holds its input width).
+    """
+
+    def __init__(self, in_features: int, n_classes: int, use_bn: bool = True,
+                 width: Optional[int] = None):
+        super().__init__()
+        width = n_classes if width is None else width
+        dims = (in_features, width, width, width, n_classes)
+        self.use_bn = use_bn
+        self.convs = nn.ModuleList(nn.Conv2d(dims[i], dims[i + 1], k, padding=k // 2)
+                                   for i, k in enumerate((3, 5, 5, 3)))
+        if use_bn:
+            self.bns = nn.ModuleList(nn.BatchNorm2d(width, eps=1e-5, momentum=0.1)
+                                     for _ in range(3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(3):
+            x = self.convs[i](x)
+            if self.use_bn:
+                x = self.bns[i](x)
+            x = torch.relu(x)
+        return self.convs[3](x).permute(0, 2, 3, 1)
+
+    def jax_entries(self):
+        """(collection, layer, leaf, tensor, layout) of every weight, named
+        as in the JAX package (``Conv_i`` kernel/bias, ``BatchNorm_j``
+        scale/bias and batch_stats mean/var); ``layout`` is 'conv' for the
+        kernels (flax HWIO, torch OIHW)."""
+        for i, conv in enumerate(self.convs):
+            yield "params", f"Conv_{i}", "kernel", conv.weight, "conv"
+            yield "params", f"Conv_{i}", "bias", conv.bias, "same"
+        if self.use_bn:
+            for j, bn in enumerate(self.bns):
+                yield "params", f"BatchNorm_{j}", "scale", bn.weight, "same"
+                yield "params", f"BatchNorm_{j}", "bias", bn.bias, "same"
+                yield "batch_stats", f"BatchNorm_{j}", "mean", bn.running_mean, "same"
+                yield "batch_stats", f"BatchNorm_{j}", "var", bn.running_var, "same"
 
 
 class _HexCorrector(nn.Module):
@@ -50,25 +101,25 @@ class _HexCorrector(nn.Module):
         return self.convs[4](x)
 
     def jax_entries(self):
-        """(collection, layer, leaf, tensor) of every weight, named as in the
-        JAX package's corrector (``HexConv_i`` kernel/bias, ``BatchNorm_j``
-        scale/bias and batch_stats mean/var); the weight bridge and
-        :meth:`folded` both read it."""
+        """(collection, layer, leaf, tensor, layout) of every weight, named
+        as in the JAX package's corrector (``HexConv_i`` kernel/bias,
+        ``BatchNorm_j`` scale/bias and batch_stats mean/var); the weight
+        bridge and :meth:`folded` both read it."""
         for i, conv in enumerate(self.convs):
-            yield "params", f"HexConv_{i}", "kernel", conv.kernel
-            yield "params", f"HexConv_{i}", "bias", conv.bias
+            yield "params", f"HexConv_{i}", "kernel", conv.kernel, "same"
+            yield "params", f"HexConv_{i}", "bias", conv.bias, "same"
         if self.use_bn:
             for j, bn in enumerate(self.bns):
-                yield "params", f"BatchNorm_{j}", "scale", bn.weight
-                yield "params", f"BatchNorm_{j}", "bias", bn.bias
-                yield "batch_stats", f"BatchNorm_{j}", "mean", bn.running_mean
-                yield "batch_stats", f"BatchNorm_{j}", "var", bn.running_var
+                yield "params", f"BatchNorm_{j}", "scale", bn.weight, "same"
+                yield "params", f"BatchNorm_{j}", "bias", bn.bias, "same"
+                yield "batch_stats", f"BatchNorm_{j}", "mean", bn.running_mean, "same"
+                yield "batch_stats", f"BatchNorm_{j}", "var", bn.running_var, "same"
 
     def folded(self):
         """(kernels, biases, relu_flags) with eval-mode BatchNorm folded in,
         for the serving corrector kernels."""
         tree = {"params": {}, "batch_stats": {}}
-        for collection, layer, leaf, tensor in self.jax_entries():
+        for collection, layer, leaf, tensor, _ in self.jax_entries():
             tree[collection].setdefault(layer, {})[leaf] = tensor.detach().cpu().numpy()
         return fold_corrector_params(tree["params"], tree["batch_stats"] or None)
 
@@ -144,6 +195,37 @@ class GridNetHex(_GridNetBase):
         self.corrector = _HexCorrector(f_dim, n_classes, use_bn)
 
 
+class GridNet(_GridNetBase):
+    """Square-lattice GridNet (Visium HD bins): the Cartesian conv
+    corrector over f's ``(B, H, W, f_dim)`` output grid."""
+
+    def __init__(self, patch_classifier: nn.Module, n_classes: int, f_dim: int,
+                 use_bn: bool = True, patch_chunk: Optional[int] = None):
+        super().__init__(patch_classifier, n_classes, f_dim, patch_chunk)
+        self.corrector = _CartesianCorrector(f_dim, n_classes, use_bn)
+
+
+class ConcatGridNet(nn.Module):
+    """Feature-concat fusion g: the corrector alone, over pre-computed
+    ``(B, H, W, in_features)`` feature or logit grids (e.g. a count model's
+    logits concatenated with an image model's). A Cartesian 3/5/5/3 conv
+    stack held at the input width, ReLUs and no BatchNorm;
+    ``patch_predictions`` is the identity. ``in_features`` is the concat
+    width (flax reads it from the input; torch needs it up front)."""
+
+    def __init__(self, in_features: int, n_classes: int):
+        super().__init__()
+        self.n_classes = n_classes
+        self.corrector = _CartesianCorrector(in_features, n_classes, use_bn=False,
+                                             width=in_features)
+
+    def patch_predictions(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.corrector(x)
+
+
 class GridNetHexMM(nn.Module):
     """Multimodal GridNet: an f per modality, channel-concat fusion, the
     hex corrector.
@@ -157,6 +239,8 @@ class GridNetHexMM(nn.Module):
     :class:`GridNetHex`.
     """
 
+    _corrector = _HexCorrector
+
     def __init__(self, image_classifier: nn.Module, count_classifier: nn.Module,
                  n_classes: int, image_f_dim: Optional[int] = None,
                  count_f_dim: Optional[int] = None, use_bn: bool = True,
@@ -169,8 +253,8 @@ class GridNetHexMM(nn.Module):
         self.count_f_dim = n_classes if count_f_dim is None else count_f_dim
         self.patch_chunk = patch_chunk
         self.count_chunk = count_chunk
-        self.corrector = _HexCorrector(self.count_f_dim + self.image_f_dim, n_classes,
-                                       use_bn)
+        self.corrector = self._corrector(self.count_f_dim + self.image_f_dim, n_classes,
+                                         use_bn)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -192,10 +276,8 @@ class GridNetHexMM(nn.Module):
         return self.corrector(self.patch_predictions(x))
 
 
-class GridNetMM:
-    """The square-lattice multimodal GridNet (Cartesian corrector): not
-    ported yet."""
+class GridNetMM(GridNetHexMM):
+    """Square-lattice multimodal GridNet (Visium HD bins): the same concat
+    fusion as :class:`GridNetHexMM` before the Cartesian conv corrector."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the square-lattice GridNetMM is a later slice of "
-                                  "the port (ROADMAP.md Queue 1 item 3)")
+    _corrector = _CartesianCorrector

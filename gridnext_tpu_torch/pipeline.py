@@ -1,10 +1,13 @@
-"""Patch preprocessing: ImageNet normalization, the window resize and spot
-pixel boxes.
+"""Patch preprocessing: ImageNet normalization, the window resize, the
+lattice resample and spot pixel boxes.
 
 The crop itself is :mod:`gridnext_tpu_torch.ops.patch_gather_cuda`; when
 the crop window differs from the patch size, :func:`resize_patches`
 resamples it as ``jax.image.resize(method="cubic")`` does in the JAX
-package (``pipeline.resize_patches_device``).
+package (``pipeline.resize_patches_device``). Visium HD lattices of a
+fractional pixel pitch resample straight to patch scale with
+:func:`scale_and_translate_linear` (``jax.image.scale_and_translate``,
+linear).
 """
 
 from __future__ import annotations
@@ -84,18 +87,91 @@ def resize_patches(crops: torch.Tensor, patch_size: int,
     return out
 
 
-def _spot_pixel_boxes(positions, window: int):
+def linear_taps(in_size: int, out_size: int, scale: float, translation):
+    """Sparse taps of ``jax.image.scale_and_translate(method="linear",
+    antialias=True)`` along one axis: ``(indices, weights)``, each
+    ``(..., out_size, T)``, int64 and float64, one set per translation
+    (``translation`` a scalar or an array, in output pixels).
+
+    Input coordinate u maps to ``scale * u + translation``. Each output
+    pixel's sample position is ``(o + 1/2) / scale - translation / scale -
+    1/2``; its weights are the triangle ``max(0, 1 - |sample - i| / k)``
+    over the input pixels i, with ``k = max(1/scale, 1)`` (widened when
+    downsampling), normalised to sum to 1 over the pixels inside the input,
+    and zero where the sample falls outside the input. These are the
+    formulas of the float64 oracle that the JAX package's tests hold its
+    resample against, evaluated in float64; only the pixels the triangle
+    reaches are kept (``T = ceil(2k) + 1`` taps, zero-weight taps point at
+    pixel 0).
+    """
+    inv = 1.0 / float(scale)
+    ks = max(inv, 1.0)
+    tr = np.asarray(translation, np.float64)[..., None]
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv - tr * inv - 0.5
+    n_taps = int(np.ceil(2 * ks)) + 1
+    idx = np.floor(sample - ks)[..., None].astype(np.int64) + 1 + np.arange(n_taps)
+    w = np.maximum(0.0, 1.0 - np.abs(sample[..., None] - idx) / ks)
+    w = np.where((idx >= 0) & (idx < in_size), w, 0.0)
+    total = w.sum(-1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    w = np.where(inside[..., None], w, 0.0)
+    return np.where(w > 0, idx, 0), w
+
+
+def scale_and_translate_linear(images: torch.Tensor, out_hw, scale, translation_y,
+                               translation_x: float) -> torch.Tensor:
+    """``(B, H, W, C)`` images -> ``(B, oh, ow, C)`` float32: what
+    ``jax.image.scale_and_translate(image, (oh, ow, C), (0, 1), scale,
+    (ty, tx), method="linear")`` computes for each image (antialiased),
+    with the weights of :func:`linear_taps`.
+
+    ``scale``: (sy, sx); ``translation_y``: one ty per image, or one for
+    all; ``translation_x``: one tx for all (the images are bands of one
+    slide: each starts at its own row, all at the same column). The
+    weights are applied as sparse taps, columns first (an ``index_select``
+    of the shared column taps), then rows, float32 products accumulated tap
+    by tap; integer images are read as they are and become float32 after
+    the column gather.
+    """
+    b, h, w, _ = images.shape
+    dev = images.device
+    ty = np.broadcast_to(np.asarray(translation_y, np.float64), (b,))
+    iy, wy = linear_taps(h, out_hw[0], scale[0], ty)           # (B, oh, Ty)
+    ix, wx = linear_taps(w, out_hw[1], scale[1], translation_x)  # (ow, Tx)
+    iy, ix = torch.as_tensor(iy, device=dev), torch.as_tensor(ix, device=dev)
+    wy = torch.as_tensor(wy, dtype=torch.float32, device=dev)
+    wx = torch.as_tensor(wx, dtype=torch.float32, device=dev)
+    cols = None
+    for t in range(ix.shape[-1]):                             # (B, H, ow, C) per tap
+        term = images.index_select(2, ix[:, t]).float() * wx[:, t, None]
+        cols = term if cols is None else cols + term
+    bidx = torch.arange(b, device=dev)[:, None]
+    out = None
+    for t in range(iy.shape[-1]):                             # (B, oh, ow, C) per tap
+        term = cols[bidx, iy[..., t]] * wy[..., t, None, None]
+        out = term if out is None else out + term
+    return out
+
+
+def _spot_pixel_boxes(positions, window: int, hex_coords: bool = True):
     """In-tissue spots -> (oddr_x, oddr_y, x_px, y_px) int arrays.
 
     Pixel coords are rounded (fractional coords occur rarely) and offset by
     the edge padding of ``window//2``. ``positions`` is a
     :class:`~gridnext_tpu_torch.io.spaceranger.Positions` (any table whose
-    ``positions[name]`` gives a column works).
+    ``positions[name]`` gives a column works). ``hex_coords=False`` (Visium
+    HD square bins) indexes the grid directly by (array_row, array_col)
+    instead of the pseudo-hex -> odd-right map.
     """
     keep = np.asarray(positions["in_tissue"]).astype(int) == 1
-    x_ind, y_ind = geometry.pseudo_hex_to_oddr(
-        np.asarray(positions["array_col"])[keep],
-        np.asarray(positions["array_row"])[keep])
+    col = np.asarray(positions["array_col"])[keep]
+    row = np.asarray(positions["array_row"])[keep]
+    if hex_coords:
+        x_ind, y_ind = geometry.pseudo_hex_to_oddr(col, row)
+    else:
+        x_ind, y_ind = col.astype(int), row.astype(int)
     x_px = np.rint(np.asarray(positions["pxl_col_in_fullres"])[keep]
                    .astype(float)).astype(int) + window // 2
     y_px = np.rint(np.asarray(positions["pxl_row_in_fullres"])[keep]

@@ -16,6 +16,14 @@ Typical use::
     labels_b = registrar.register_batch(wsis, positions_list)   # (N, 78, 64)
     to_loupe_annots(labels, position_file, out_csv, annot_names=classes)
 
+Square-lattice models (Visium HD bins, ``GridNet``) index the grid by
+(array_row, array_col) and run the Cartesian conv corrector; where the
+bins form a dense regular lattice, :meth:`SlideRegistrar.register_dense`
+takes them: through the per-bin gather when the pitch is the integer window
+(``"exact"``: the crops tile the lattice), through a banded linear resample
+of the exact bin extents when it is fractional (``"resample"``;
+:func:`fit_dense_lattice` decides).
+
 A cohort of slide files registers through :func:`register_slides`, which
 overlaps decoding and staging (:class:`~gridnext_tpu_torch.ingest.SlideSource`)
 with registration and batches same-shape slides (:func:`dispatch_group`).
@@ -39,11 +47,16 @@ from gridnext_tpu_torch.ops.hexcorrector_cuda import (
     fused_hex_corrector_labels)
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
 from gridnext_tpu_torch.pipeline import (_spot_pixel_boxes, imagenet_normalize,
-                                         resize_matrices, resize_patches)
+                                         resize_matrices, resize_patches,
+                                         scale_and_translate_linear)
 
 # Padded spot arrays round up to a multiple of this (the JAX package's
 # compile-sharing bucket; kept so both pad the same way).
 _SPOT_BUCKET = 128
+
+# Floats in one band chunk's largest resample intermediate (bands x band
+# rows x output columns x 3): 2^27 floats, 0.5 GB.
+_RESAMPLE_CHUNK_FLOATS = 1 << 27
 
 
 def resolve_device(device) -> torch.device:
@@ -57,10 +70,12 @@ def resolve_device(device) -> torch.device:
 
 
 def spot_pixel_arrays(positions, h_st: int = geometry.VISIUM_H_ST,
-                      w_st: int = geometry.VISIUM_W_ST):
+                      w_st: int = geometry.VISIUM_W_ST, hex_coords: bool = True):
     """Positions -> (oddr_y, oddr_x, y_px, x_px) arrays over in-tissue spots
-    inside the lattice (pixel coords not yet offset for padding)."""
-    ox, oy, x_px, y_px = _spot_pixel_boxes(positions, window=0)
+    inside the lattice (pixel coords not yet offset for padding).
+    ``hex_coords=False`` (Visium HD square bins) indexes the grid directly
+    by (array_row, array_col)."""
+    ox, oy, x_px, y_px = _spot_pixel_boxes(positions, window=0, hex_coords=hex_coords)
     # lower bounds too: a malformed-parity spot's odd-right x of -1 must not
     # land on the last grid column
     keep = (oy >= 0) & (ox >= 0) & (oy < h_st) & (ox < w_st)
@@ -91,6 +106,77 @@ def _parked_spots(n: int, h_st: int, p2: int):
             np.full((n,), p2, np.int32), np.full((n,), p2, np.int32))
 
 
+def fit_dense_lattice(positions, h_st: int, w_st: int, window: int,
+                      wsi_shape=None, pad_offset: int = 0):
+    """Dense-lattice analysis of square-lattice positions: a plan or None.
+
+    Fits ``center = origin + (idx + 1/2) * pitch`` per axis by least
+    squares over the in-tissue bins inside the ``(h_st, w_st)`` lattice.
+    Returns ``("exact", oy0, ox0, fg, ey, ex)`` when the pitch is exactly
+    the integer ``window`` (the per-bin crops tile the lattice);
+    ``("resample", y0, x0, py, px, fg, h_band, ey, ex)`` when the lattice
+    is regular to 0.5 px with a fractional pitch (real Spaceranger HD: 16
+    um over the microns per pixel) and ``window`` means the whole bin
+    (|pitch - window| <= 1); None when the positions
+    are not a dense regular lattice, or its in-tissue extent leaves the
+    image. ``fg`` is the (h_st, w_st) int32 in-tissue mask and ``(ey, ex)``
+    the in-tissue bin extent (largest index + 1): only that extent is
+    read, so a slide smaller than a cohort-max ``(h_st, w_st)`` still plans
+    and its extra rows and columns are background. The JAX package's
+    ``fit_dense_lattice``, float64 throughout.
+    """
+    oy, ox, y_px, x_px = spot_pixel_arrays(positions, h_st, w_st, hex_coords=False)
+    if len(oy) == 0 or len(np.unique(oy)) < 2 or len(np.unique(ox)) < 2:
+        return None
+    y_px = y_px.astype(np.float64) + pad_offset
+    x_px = x_px.astype(np.float64) + pad_offset
+
+    def fit(idx, px):
+        a = np.stack([np.ones_like(idx, np.float64), idx], axis=1)
+        (b0, pitch), *_ = np.linalg.lstsq(a, px, rcond=None)
+        res = np.abs(px - (b0 + pitch * idx)).max()
+        return b0, pitch, res
+
+    by, pitch_y, res_y = fit(oy.astype(np.float64), y_px)
+    bx, pitch_x, res_x = fit(ox.astype(np.float64), x_px)
+    if max(res_y, res_x) > 0.5 or pitch_y <= 1 or pitch_x <= 1:
+        return None
+    fg = np.zeros((h_st, w_st), np.int32)
+    fg[oy, ox] = 1
+    ey, ex = int(oy.max()) + 1, int(ox.max()) + 1
+    w = window
+    h_img, w_img = ((wsi_shape[0], wsi_shape[1]) if wsi_shape is not None
+                    else (np.inf, np.inf))
+    # exact tiling when the fitted lattice is the integer window pitch; the
+    # centers are already rounded to integers, and the per-bin crop origin
+    # is center - w//2, so an integer intercept and pitch is exactness (a
+    # least-squares fit of exact integer data leaves ~1e-12 of residue)
+    tol = 1e-6
+    int_pitch = (abs(pitch_y - w) < tol and abs(pitch_x - w) < tol
+                 and res_y < tol and res_x < tol
+                 and abs(by - round(by)) < tol and abs(bx - round(bx)) < tol)
+    if int_pitch:
+        oy0, ox0 = round(by) - w // 2, round(bx) - w // 2
+        if oy0 >= 0 and ox0 >= 0 and oy0 + ey * w <= h_img and ox0 + ex * w <= w_img:
+            return ("exact", oy0, ox0, fg, ey, ex)
+        return None
+    # a fractional (or shifted) regular lattice resamples, but only where
+    # the window means the whole bin: a window far from the pitch asks for
+    # center crops, which only the per-bin gather takes; an extent that
+    # leaves the image (origin included) also stays per-bin, whose corner
+    # clamp handles borders
+    if abs(pitch_y - w) > 1.0 or abs(pitch_x - w) > 1.0:
+        return None
+    y0 = by - pitch_y / 2
+    x0 = bx - pitch_x / 2
+    h_band = int(np.ceil(pitch_y)) + 3
+    if (y0 < 0 or x0 < 0 or y0 + ey * pitch_y > h_img
+            or x0 + ex * pitch_x > w_img or h_band > h_img):
+        return None
+    return ("resample", float(y0), float(x0), float(pitch_y), float(pitch_x), fg,
+            h_band, ey, ex)
+
+
 class SlideRegistrar:
     """Full-slide registration: image -> label grid.
 
@@ -100,32 +186,43 @@ class SlideRegistrar:
         :func:`~gridnext_tpu_torch.ops.denseblock_cuda.build_densenet_fused_infer`'s
         ``infer``) on ``device``.
       corrector_kernels/biases/relu_flags: folded hex-corrector weights
-        (:func:`~gridnext_tpu_torch.ops.hexcorrector_cuda.fold_corrector_params`).
+        (:func:`~gridnext_tpu_torch.ops.hexcorrector_cuda.fold_corrector_params`);
+        None with ``corrector_apply``.
       patch_size: patch side in pixels.
       window_size: crop window side (default ``patch_size``); other sizes
         are resized to ``patch_size`` (cubic, antialiased, as the JAX
         package's ``jax.image.resize``).
       normalize: 'imagenet' or None (``/255`` only).
       patch_chunk: f runs over the spot axis in chunks of this size.
+      h_st, w_st: the label grid (default Visium's 78 x 64).
+      hex_coords: True for Visium pseudo-hex positions; False for square
+        bin lattices (Visium HD), indexed by (array_row, array_col).
+      corrector_apply: ``corrector_apply(grid (B, H, W, f_dim)) -> (B, H,
+        W, C)`` logits, in place of the hex-corrector kernels (the
+        Cartesian conv corrector of square ``GridNet`` models).
       device: where registration runs; 'cuda' (default) raises without CUDA.
     """
 
-    def __init__(self, f_apply: Callable, corrector_kernels, corrector_biases,
+    def __init__(self, f_apply: Callable, corrector_kernels=None, corrector_biases=None,
                  relu_flags=CORRECTOR_RELU_FLAGS, *, patch_size: int = 128,
                  window_size: Optional[int] = None,
                  normalize: Optional[str] = "imagenet",
                  patch_chunk: Optional[int] = 624,
+                 h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
+                 hex_coords: bool = True, corrector_apply: Optional[Callable] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        if not corrector_kernels:
+        if corrector_apply is None and not corrector_kernels:
             raise ValueError("the hex corrector needs corrector_kernels/"
                              "corrector_biases (fold_corrector_params or "
-                             "from_gridnet)")
+                             "from_gridnet); pass corrector_apply for another "
+                             "corrector")
         if normalize not in (None, "imagenet"):
             raise ValueError(f"unknown normalize {normalize!r}")
         self.f_apply = f_apply
-        self.kernels = as_f32_tensors(corrector_kernels, self.device)
-        self.biases = as_f32_tensors(corrector_biases, self.device)
+        self.corrector_apply = corrector_apply
+        self.kernels = as_f32_tensors(corrector_kernels or [], self.device)
+        self.biases = as_f32_tensors(corrector_biases or [], self.device)
         self.relu_flags = tuple(relu_flags)
         self.patch_size = patch_size
         self.window_size = window_size or patch_size
@@ -134,17 +231,30 @@ class SlideRegistrar:
             self.window_size, self.window_size, patch_size, self.device))
         self.normalize = normalize
         self.patch_chunk = patch_chunk
-        self.h_st, self.w_st = geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
+        self.h_st, self.w_st = h_st, w_st
+        self.hex_coords = hex_coords
 
     @classmethod
     def from_gridnet(cls, model, *, patch_size: int = 128,
                      normalize: Optional[str] = "imagenet", device="cuda", **kw):
-        """Build from a :class:`~gridnext_tpu_torch.models.GridNetHex` with
-        its weights loaded. The corrector's BatchNorm folds into its hex
-        weights; f moves to ``device`` and into eval mode (in place)."""
+        """Build from a :class:`~gridnext_tpu_torch.models.GridNetHex` or a
+        square :class:`~gridnext_tpu_torch.models.GridNet` with its weights
+        loaded; f moves to ``device`` and into eval mode (in place).
+
+        A hex corrector's BatchNorm folds into its hex weights for the
+        corrector kernels. A Cartesian corrector runs as its module (eval
+        mode, on ``device``) with ``hex_coords=False`` by default; pass the
+        lattice as ``h_st``/``w_st``.
+        """
+        from gridnext_tpu_torch.models.gridnet import _CartesianCorrector
+
         device = resolve_device(device)
-        kernels, biases, relu_flags = model.corrector.folded()
         f = model.patch_classifier.to(device).eval()
+        if isinstance(model.corrector, _CartesianCorrector):
+            kw.setdefault("hex_coords", False)
+            return cls(f, corrector_apply=model.corrector.to(device).eval(),
+                       patch_size=patch_size, normalize=normalize, device=device, **kw)
+        kernels, biases, relu_flags = model.corrector.folded()
         return cls(f, kernels, biases, relu_flags, patch_size=patch_size,
                    normalize=normalize, device=device, **kw)
 
@@ -182,8 +292,11 @@ class SlideRegistrar:
 
     def _labels_from_grid(self, grid, fg):
         """(B, H, W, f_dim) grid + (B, H, W) fg mask -> (B, H, W) labels."""
-        return fused_hex_corrector_labels(grid, fg, self.kernels, self.biases,
-                                          self.relu_flags)
+        if self.corrector_apply is None:
+            return fused_hex_corrector_labels(grid, fg, self.kernels, self.biases,
+                                              self.relu_flags)
+        labels = torch.argmax(self.corrector_apply(grid), dim=-1).to(torch.int32) + 1
+        return torch.where(fg > 0, labels, 0)
 
     def _grid_fg(self, wsis, oy, ox, y_px, x_px):
         """(B, H, W, 3) slides + (B, S) spot arrays -> ((B, h_st, w_st, f_dim)
@@ -191,7 +304,13 @@ class SlideRegistrar:
         b, s = oy.shape
         slide = torch.arange(b, device=self.device).repeat_interleave(s)
         crops = self._extract_flat(wsis, y_px.reshape(-1), x_px.reshape(-1), slide)
-        feats = self._apply_f(crops).reshape(b, s, -1)
+        return self._scatter(self._apply_f(crops).reshape(b, s, -1), oy, ox)
+
+    def _scatter(self, feats, oy, ox):
+        """(B, S, f_dim) spot features at (B, S) grid cells -> ((B, h_st,
+        w_st, f_dim) grid with f(zero patch) on the other cells, (B, h_st,
+        w_st) int32 fg mask)."""
+        b, s = oy.shape
         bg_vec = self._bg_vec().to(feats.dtype)
         # Spots outside the lattice (the parked padding, oy == h_st) are
         # dropped explicitly: they scatter into an extra row h_st that is
@@ -216,14 +335,145 @@ class SlideRegistrar:
         """((H, W, C) float32 logits, (H, W) int32 fg mask) of one slide."""
         grid, fg = self._grid_fg(wsi[None], oy[None], ox[None], y_px[None],
                                  x_px[None])
-        logits = fused_hex_corrector(grid, self.kernels, self.biases,
-                                     self.relu_flags)
+        if self.corrector_apply is None:
+            logits = fused_hex_corrector(grid, self.kernels, self.biases, self.relu_flags)
+        else:
+            logits = self.corrector_apply(grid)
         return logits[0].float(), fg[0]
 
     def _register_batch(self, wsis, oy, ox, y_px, x_px):
         """(B, H, W, 3) slides + (B, S) padded spot arrays -> (B, h, w)."""
         grid, fg = self._grid_fg(wsis, oy, ox, y_px, x_px)
         return self._labels_from_grid(grid, fg)
+
+    # -- dense square lattices ---------------------------------------------
+
+    def _band_plan(self, h_img: int, y0: float, x0: float, py: float, px: float,
+                   h_band: int, ey: int):
+        """(band tops, (ey,) row translations, column translation) of the
+        lattice resample.
+
+        The band tops are the JAX package's: ``sy = y0 + r * py`` and
+        ``floor(sy) - 1`` in float32 (clipped into the slide), so each band
+        reads the same rows. The translations map input pixels to patch
+        pixels, ``-(sy - top) * P / py`` down the band and ``-x0 * P / px``
+        across the slide, in float64 from the float64 fit: every bin
+        samples its exact extent (float32 sample positions drift by ~1.5e-3
+        px across a 22,577-px slide).
+        """
+        f32 = np.float32
+        p = self.patch_size
+        r = np.arange(ey)
+        sy32 = f32(y0) + r.astype(f32) * f32(py)
+        top = np.clip(np.floor(sy32).astype(np.int64) - 1, 0, h_img - h_band)
+        sy = y0 + r * py
+        return top, -(sy - top) * (p / py), -x0 * (p / px)
+
+    def _resampled_bands(self, wsi, y0: float, x0: float, py: float, px: float,
+                         h_band: int, ey: int, ex: int):
+        """The banded lattice resample, chunk by chunk: yields raw (n * ex, P,
+        P, 3) float32 patches of consecutive bin rows.
+
+        Bin row r reads the ``h_band`` slide rows from its band top and
+        resamples them (linear, antialiased: ``jax.image.scale_and_translate``
+        through :func:`~gridnext_tpu_torch.pipeline.scale_and_translate_linear`)
+        straight to ``(P, ex * P)``: the exact fractional bin extents at
+        patch scale, with no gather and no per-bin resize. The weights are
+        local to the band (renormalised inside it), as the JAX package's
+        are. Bands go in chunks whose largest intermediate holds about
+        ``_RESAMPLE_CHUNK_FLOATS`` floats.
+        """
+        p = self.patch_size
+        top, ty, tx = self._band_plan(wsi.shape[0], y0, x0, py, px, h_band, ey)
+        per = max(1, _RESAMPLE_CHUNK_FLOATS // (h_band * ex * p * wsi.shape[-1]))
+        offs = torch.arange(h_band, device=wsi.device)
+        for r0 in range(0, ey, per):
+            r1 = min(ey, r0 + per)
+            tops = torch.as_tensor(top[r0:r1], device=wsi.device)
+            bands = wsi[tops[:, None] + offs]                  # (n, h_band, W, 3)
+            out = scale_and_translate_linear(bands, (p, ex * p), (p / py, p / px),
+                                             ty[r0:r1], tx)
+            yield out.reshape(r1 - r0, p, ex, p, -1).permute(0, 2, 1, 3, 4).reshape(
+                (r1 - r0) * ex, p, p, -1)
+
+    def _resampled_patches(self, wsi, y0, x0, py, px, h_band: int, ey: int, ex: int):
+        """All (ey * ex, P, P, 3) float32 patches of the lattice resample."""
+        return torch.cat(list(self._resampled_bands(wsi, y0, x0, py, px, h_band, ey, ex)))
+
+    def _register_dense_resampled(self, wsi, y0, x0, py, px, fg, h_band: int,
+                                  ey: int, ex: int):
+        """Fractional-pitch dense registration: banded resample -> f ->
+        labels. The float patches go to f unrounded (``/255``). f runs on
+        the in-tissue bins only; the background bins of the extent are
+        resampled with their band but carry f(zero patch), as in the
+        per-bin scatter."""
+        inside = np.asarray(fg)[:ey, :ex].reshape(-1) > 0
+        feats, r0 = [], 0
+        for patches in self._resampled_bands(wsi, y0, x0, py, px, h_band, ey, ex):
+            keep = np.flatnonzero(inside[r0:r0 + patches.shape[0]])
+            r0 += patches.shape[0]
+            if len(keep):
+                feats.append(self._apply_f(patches[torch.as_tensor(keep, device=wsi.device)]))
+        oy, ox = (torch.as_tensor(a, device=self.device)[None]
+                  for a in np.nonzero(inside.reshape(ey, ex)))
+        grid, fg = self._scatter(torch.cat(feats)[None], oy, ox)
+        return self._labels_from_grid(grid, fg)[0]
+
+    def _dense_plan(self, wsi_shape, positions, pad_offset: int = 0):
+        """:func:`fit_dense_lattice` for this registrar's lattice and window."""
+        return fit_dense_lattice(positions, self.h_st, self.w_st, self.window_size,
+                                 wsi_shape, pad_offset)
+
+    def dense_plan(self, wsi, positions, pad_offset: int = 0):
+        """The dense-lattice plan for these inputs, or None when
+        :meth:`register_dense` would not take them (a hex registrar, or a
+        lattice that is irregular, sparse or leaves the image). Pass it back
+        as ``register_dense(plan=...)`` to skip the refit (two least-squares
+        fits over every in-tissue bin)."""
+        if self.hex_coords:
+            return None
+        return self._dense_plan(tuple(wsi.shape), positions, pad_offset)
+
+    def dense_applicable(self, wsi, positions, pad_offset: int = 0) -> bool:
+        """True when :meth:`register_dense` takes these inputs."""
+        return self.dense_plan(wsi, positions, pad_offset) is not None
+
+    @torch.inference_mode()
+    def register_dense(self, wsi, positions, pad_offset: int = 0,
+                       plan=None) -> np.ndarray:
+        """Register a dense square bin lattice (Visium HD).
+
+        Integer-pitch lattices (pitch == ``window_size``: the bins' crops
+        tile the lattice) register through the per-bin route (``__call__``);
+        fractional-pitch lattices through the banded resample of the exact
+        bin extents, with no per-bin gather. Bins missing from
+        ``positions`` are background.
+
+        Needs ``hex_coords=False``; raises ValueError for positions that are
+        not a dense regular lattice (use ``__call__`` there, or
+        :meth:`dense_applicable` first). ``plan``: a :meth:`dense_plan`
+        result, which skips the refit.
+
+        Returns:
+          (h_st, w_st) int32 label grid.
+        """
+        if self.hex_coords:
+            raise ValueError("register_dense needs a square lattice (hex_coords=False)")
+        wsi = self._to_device_slides(wsi, 3)
+        if plan is None:
+            plan = self._dense_plan(tuple(wsi.shape), positions, pad_offset)
+        if plan is None:
+            raise ValueError("positions are not a dense regular lattice (or it leaves "
+                             "the image); use the per-bin registration path "
+                             "(__call__) instead")
+        if plan[0] == "exact":
+            # the pitch is the window: the per-bin crops tile the lattice;
+            # the gather takes them in a small share of f's time, and f
+            # runs on the in-tissue bins only
+            return self(wsi, positions, pad_offset)
+        _, y0, x0, py, px, fg, h_band, ey, ex = plan
+        labels = self._register_dense_resampled(wsi, y0, x0, py, px, fg, h_band, ey, ex)
+        return labels.cpu().numpy()
 
     # -- host-side preparation ---------------------------------------------
 
@@ -236,7 +486,8 @@ class SlideRegistrar:
         return wsi.contiguous()
 
     def _spot_arrays(self, wsi_shape, positions, pad_offset):
-        oy, ox, y_px, x_px = spot_pixel_arrays(positions, self.h_st, self.w_st)
+        oy, ox, y_px, x_px = spot_pixel_arrays(positions, self.h_st, self.w_st,
+                                               self.hex_coords)
         y_px, x_px = _clamp_centers(y_px, x_px, wsi_shape, self.window_size,
                                     pad_offset)
         return oy, ox, y_px, x_px
@@ -326,37 +577,57 @@ def _tctx(timer, stage: str):
     return timer(stage)
 
 
-def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, stats=None):
+def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, plans=None,
+                   stats=None):
     """Register one same-shape group of slides.
 
-    A single slide goes through ``registrar(wsi, positions)``; a larger group
-    is stacked on the device into one :meth:`SlideRegistrar.register_batch`.
-    (The JAX package also routes square-lattice slides through its dense
-    tiling path here; the port's registrar has no square lattice yet,
-    ``ROADMAP.md`` Queue 1 item 3.)
+    On a square lattice, slides with a dense plan register one at a time
+    through :meth:`SlideRegistrar.register_dense` and come out first; the
+    plan (:meth:`SlideRegistrar.dense_plan`), not an exception, decides.
+    Of the rest, a single slide goes through ``registrar(wsi, positions)``
+    and a larger group is stacked on the device into one
+    :meth:`SlideRegistrar.register_batch`.
 
     Args:
       items: sequence of ``(key, wsi, positions)``; ``key`` passes through
         untouched (a slide index, a request handle, ...).
       timer: optional :class:`~gridnext_tpu_torch.observability.StageTimer`;
         registration runs under ``timer("register")``.
+      plans: optional ``{key: dense plan or None}`` fitted by the caller;
+        keys present skip the fit here (None: not a dense lattice). Read
+        on square lattices only.
       stats: optional dict; ``stats['batched']`` grows by the number of
         slides that went through ``register_batch``.
 
     Returns:
-      list of ``(key, labels, positions)`` per item, in order.
+      list of ``(key, labels, positions)`` per item: the dense-routed items
+      first, then the rest, each in order.
     """
+    out = []
+    if not registrar.hex_coords:
+        rest = []
+        for key, wsi, pos in items:
+            plan = (plans[key] if plans is not None and key in plans
+                    else registrar.dense_plan(wsi, pos))
+            if plan is None:
+                rest.append((key, wsi, pos))
+                continue
+            with _tctx(timer, "register"):
+                out.append((key, registrar.register_dense(wsi, pos, plan=plan), pos))
+        items = rest
+        if not items:
+            return out
     if len(items) == 1:
         key, wsi, pos = items[0]
         with _tctx(timer, "register"):
-            return [(key, registrar(wsi, pos), pos)]
+            return out + [(key, registrar(wsi, pos), pos)]
     keys, wsis, poss = zip(*items)
     with _tctx(timer, "register"):
         labels = registrar.register_batch(torch.stack(
             [torch.as_tensor(w, device=registrar.device) for w in wsis]), list(poss))
     if stats is not None:
         stats["batched"] = stats.get("batched", 0) + len(keys)
-    return [(k, labels[j], p) for j, (k, p) in enumerate(zip(keys, poss))]
+    return out + [(k, labels[j], p) for j, (k, p) in enumerate(zip(keys, poss))]
 
 
 def register_slides(registrar: SlideRegistrar, image_files: Sequence,
@@ -380,10 +651,13 @@ def register_slides(registrar: SlideRegistrar, image_files: Sequence,
     register).
 
     Args:
-      registrar: a :class:`SlideRegistrar` (hex lattice).
+      registrar: a :class:`SlideRegistrar`; on a square lattice, slides with
+        a dense plan register through :meth:`SlideRegistrar.register_dense`
+        (:func:`dispatch_group`).
       image_files: fullres slide images, one per array.
       spaceranger_dirs: matching Spaceranger dirs (positions per slide).
-      hd_binning: Visium HD binned outputs (not ported yet: raises).
+      hd_binning: the Visium HD binning whose positions parquet to read
+        (e.g. ``"square_016um"``); None for Visium positions CSVs.
       slide_batch: most slides per ``register_batch`` call, and the cap on
         slides held across shape groups: at the cap the largest partial
         group registers even though it is not full. Leftover groups register

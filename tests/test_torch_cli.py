@@ -204,8 +204,8 @@ def test_register_unported_kinds_exit(count_dir, cohort, tmp_path):
     _, dirs, _ = cohort
     meta = json.loads(Path(count_dir, "model.json").read_text())
     for change, item in (({"model": "HexGCN"}, "item 8"), ({"model": "GridNetHexMM"}, "item 4"),
-                         ({"grid_dims": [40, 40]}, "item 3"),
-                         ({"hd_binning": "square_008um"}, "item 3")):
+                         ({"model": "GridNetMM", "grid_dims": [40, 40]}, "item 4"),
+                         ({"grid_dims": [40, 40], "hd_binning": "square_008um"}, "item 4")):
         d = tmp_path / f"m_{item.replace(' ', '')}_{len(os.listdir(tmp_path))}"
         d.mkdir()
         (d / "g_state.msgpack").write_bytes(Path(count_dir, "g_state.msgpack").read_bytes())

@@ -12,7 +12,7 @@ moved off init by numpy noise. Covered:
   ``CountGridDataset`` arrays equal to JAX's, an array without spots an
   empty grid;
 - ``grid_model_from_meta`` against JAX's for a count and an image model
-  directory (logits within 1e-4);
+  directory, and a square (``grid_dims``) count model (logits within 1e-4);
 - a ``count_f: mlp`` multimodal directory through ``register_mm_grid``
   against JAX's ``g.apply`` (labels equal up to near-ties), with BatchNorm
   and as the distilled student (``count_mlp_bn: false``,
@@ -35,6 +35,7 @@ from gridnext_tpu.io.annotations import read_annotated_starray as jax_read_starr
 from gridnext_tpu.io.unify import read_unified_genes as jax_read_genes
 from gridnext_tpu.io.unify import validated_unified_cache as jax_validated
 from gridnext_tpu.models import CountMLP as JaxCountMLP
+from gridnext_tpu.models import GridNet as JaxGridNet
 from gridnext_tpu.models import GridNetHex as JaxGridNetHex
 from gridnext_tpu.models import GridNetHexMM as JaxGridNetHexMM
 from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
@@ -174,9 +175,17 @@ def test_grid_model_from_meta_matches_jax():
         with torch.no_grad():
             got = model(torch.from_numpy(x))
         _assert_close(got, want)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        modeldir.grid_model_from_meta({**cases[0][0], "grid_dims": [40, 40]}, CLASSES,
-                                      count_vars, device="cpu")
+    # grid_dims: the square GridNet (Cartesian corrector) over the same f
+    x = cases[0][2]
+    jg = JaxGridNet(patch_classifier=JaxCountMLP(n_classes=N_CLASSES), n_classes=N_CLASSES)
+    square_vars = _moved(jg.init(jax.random.key(2), jnp.zeros((1, 4, 4, GENES))))
+    meta = {**cases[0][0], "model": "GridNet+CountMLP", "grid_dims": [6, 5]}
+    want = jax_modeldir.grid_model_from_meta(meta, CLASSES).apply(square_vars, jnp.asarray(x))
+    model = modeldir.grid_model_from_meta(meta, CLASSES, square_vars, device="cpu")
+    with torch.no_grad():
+        _assert_close(model(torch.from_numpy(x)), want)
+    with pytest.raises(ValueError, match="corrector"):      # a hex checkpoint
+        modeldir.grid_model_from_meta(meta, CLASSES, count_vars, device="cpu")
 
 
 @pytest.mark.parametrize("student", [False, True], ids=["batchnorm", "distilled"])

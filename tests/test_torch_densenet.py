@@ -40,7 +40,7 @@ from gridnext_tpu.pipeline import resize_patches_device
 from gridnext_tpu.serving import SlideRegistrar as JaxSlideRegistrar
 from gridnext_tpu_torch import modeldir
 from gridnext_tpu_torch.compat.from_jax import (jax_variables, load_densenet,
-                                                load_gridnet_hex)
+                                                load_gridnet)
 from gridnext_tpu_torch.io import read_positions
 from gridnext_tpu_torch.models import DenseNet, GridNetHex, densenet121
 from gridnext_tpu_torch.ops import denseblock_cuda as dense
@@ -139,7 +139,7 @@ def test_densenet_bridge_round_trip_and_torch_names():
                 t.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, t.shape)
                                          .astype(np.float32)))
     tree = jax_variables(g)
-    g2 = load_gridnet_hex(GridNetHex(DenseNet(**SMALL, small_inputs=False),
+    g2 = load_gridnet(GridNetHex(DenseNet(**SMALL, small_inputs=False),
                                      n_classes=5, f_dim=5), tree)
     for (name, a), (_, b) in zip(g.state_dict().items(), g2.state_dict().items()):
         assert torch.equal(a, b), name

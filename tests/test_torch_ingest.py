@@ -82,8 +82,18 @@ def test_slide_source_matches_jax(tmp_path):
     assert src.timer.counts == {"decode": 4, "positions": 4, "stage": 4}
     with pytest.raises(ValueError, match="one spaceranger dir"):
         SlideSource(files, dirs[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SlideSource(files, dirs, hd_binning="square_008um", device="cpu")
+    # Visium HD: each item's positions come from the binning's parquet
+    hd = simulate_spaceranger_dir(tmp_path / "hd", seed=5, n_genes=4, n_classes=3,
+                                  image=True, spaceranger_version="hd", hd_grid=(9, 7),
+                                  hd_binning="square_016um", spot_spacing_px=8)
+    jpos = JaxSlideSource([hd["image_file"]], [hd["spaceranger_dir"]],
+                          hd_binning="square_016um")._positions(0)
+    (_, wsi, pos), = SlideSource([hd["image_file"]], [hd["spaceranger_dir"]],
+                                 hd_binning="square_016um", device="cpu")
+    assert pos.barcodes == list(jpos.index) and len(pos.barcodes) == 63
+    for col in ("in_tissue", "array_row", "array_col", "pxl_row_in_fullres",
+                "pxl_col_in_fullres"):
+        np.testing.assert_array_equal(pos[col], jpos[col].to_numpy())
 
 
 @pytest.mark.parametrize("prefetch", [1, 3])

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
+pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
 (the slide decoder, never called on the card). Also here: the port's own
 geometry equals the JAX package's.
@@ -21,7 +21,7 @@ from gridnext_tpu_torch import geometry
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gridnext_tpu_torch"
-FORBIDDEN = ("jax", "flax", "pandas", "msgpack", "gridnext_tpu")
+FORBIDDEN = ("jax", "flax", "pandas", "pyarrow", "msgpack", "gridnext_tpu")
 
 
 def _modules():
@@ -36,7 +36,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             f"for m in {list(_modules())!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'gridnext_tpu', 'pandas', 'PIL', 'msgpack'))\n"
+            "('jax', 'flax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', 'msgpack'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -217,12 +217,16 @@ def test_mm_model_from_meta_densenet_image_f():
 
 
 def test_mm_unported_branches_raise(mm_model_dir):
+    """The square lattice (``GridNetMM``) is ported: its meta builds the
+    Cartesian-corrector model, which refuses this hex directory's corrector
+    weights (parity with JAX is in ``test_torch_square.py``); a cohort
+    without scBERT genes still raises."""
     meta, classes, variables = load_model_dir(mm_model_dir)
-    for change in ({"grid_dims": [50, 50]}, {"model": "GridNetMM"}):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            modeldir.mm_model_from_meta({**meta, **change}, classes, variables, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        GridNetMM(None, None, N_CLASSES)
+    square = {**meta, "model": "GridNetMM", "grid_dims": [50, 50]}
+    with pytest.raises(ValueError, match="corrector/Conv_0"):
+        modeldir.mm_model_from_meta(square, classes, variables, device="cpu")
+    assert isinstance(GridNetMM(densenet121(num_classes=N_CLASSES), scBERT(**SCBERT_KW),
+                                N_CLASSES).corrector.convs[0], torch.nn.Conv2d)
     with pytest.raises(ValueError, match="no cohort gene"):
         modeldir.scbert_transform(["NOT_A_GENE"], GENES)
 

@@ -16,7 +16,7 @@ from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
 from gridnext_tpu.models.layers import HexConv as JaxHexConv
 from gridnext_tpu.models.tpu_f import tpu_f_arch_kwargs as jax_arch_kwargs
 from gridnext_tpu.ops.hexcorrector_pallas import fold_corrector_params as jax_fold
-from gridnext_tpu_torch.compat.from_jax import (jax_variables, load_gridnet_hex,
+from gridnext_tpu_torch.compat.from_jax import (jax_variables, load_gridnet,
                                                 load_tpu_f)
 from gridnext_tpu_torch.models import (GridNetHex, HexConv, TpuPatchClassifier,
                                        tpu_f_arch_kwargs)
@@ -113,7 +113,7 @@ def _gridnet_pair(use_bn, seed=0, n_classes=3, p=16):
     tg = GridNetHex(TpuPatchClassifier(n_classes=n_classes, **f_kw),
                     n_classes=n_classes, f_dim=n_classes, use_bn=use_bn,
                     patch_chunk=7)
-    load_gridnet_hex(tg, variables)
+    load_gridnet(tg, variables)
     return jg, variables, tg
 
 

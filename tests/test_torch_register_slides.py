@@ -26,7 +26,7 @@ from gridnext_tpu.io import read_positions as jax_read_positions
 from gridnext_tpu.models import GridNetHex as JaxGridNetHex
 from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
 from gridnext_tpu_torch import serving
-from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex
+from gridnext_tpu_torch.compat.from_jax import load_gridnet
 from gridnext_tpu_torch.ingest import SlideSource
 from gridnext_tpu_torch.io import read_positions
 from gridnext_tpu_torch.models import GridNetHex, TpuPatchClassifier
@@ -67,7 +67,7 @@ def registrars():
         bn["var"] = rng.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
     jax_reg = jax_serving.SlideRegistrar.from_gridnet(
         jg, variables, patch_size=PATCH, normalize=None, patch_chunk=512, extractor="xla")
-    g = load_gridnet_hex(GridNetHex(TpuPatchClassifier(n_classes=N_CLASSES, **F_KW),
+    g = load_gridnet(GridNetHex(TpuPatchClassifier(n_classes=N_CLASSES, **F_KW),
                                     n_classes=N_CLASSES, f_dim=N_CLASSES), variables)
     port_reg = serving.SlideRegistrar.from_gridnet(g, patch_size=PATCH, normalize=None,
                                                    patch_chunk=512, device="cpu")

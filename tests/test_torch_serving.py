@@ -29,7 +29,7 @@ from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
 from gridnext_tpu.serving import SlideRegistrar as JaxSlideRegistrar
 from gridnext_tpu.serving import label_parity_report as jax_parity
 from gridnext_tpu_torch import evaluate, modeldir
-from gridnext_tpu_torch.compat.from_jax import load_gridnet_hex, load_model_dir
+from gridnext_tpu_torch.compat.from_jax import load_gridnet, load_model_dir
 from gridnext_tpu_torch.io import find_position_file, read_positions, read_positions_file
 from gridnext_tpu_torch.models import GridNetHex, TpuPatchClassifier
 from gridnext_tpu_torch.serving import SlideRegistrar, label_parity_report
@@ -69,7 +69,7 @@ def model():
 def _port_model(variables):
     g = GridNetHex(TpuPatchClassifier(n_classes=N_CLASSES, **F_KW),
                    n_classes=N_CLASSES, f_dim=N_CLASSES)
-    return load_gridnet_hex(g, variables)
+    return load_gridnet(g, variables)
 
 
 @pytest.fixture(scope="module", params=["imagenet", None])
@@ -209,13 +209,15 @@ def test_image_registrar_from_meta_resized_window_matches_jax(model_dir, sims, w
 
 
 def test_image_registrar_from_meta_unported_models(model_dir):
-    """Square lattices are not ported yet; a model that is no image model
-    is refused. (DenseNet-121 directories serve: test_torch_densenet.py.)"""
+    """A model that is no image model is refused. Square lattices
+    (``grid_dims``) are ported (test_torch_square.py): they build the
+    Cartesian corrector, which refuses this hex directory's weights.
+    (DenseNet-121 directories serve: test_torch_densenet.py.)"""
     meta, classes, variables = load_model_dir(model_dir)
     with pytest.raises(ValueError, match="not an image model"):
         modeldir.image_registrar_from_meta(dict(meta, model="GridNetHex+CountMLP"),
                                            classes, variables, device="cpu")
-    with pytest.raises(NotImplementedError, match="grid_dims"):
+    with pytest.raises(ValueError, match="corrector/Conv_0"):
         modeldir.image_registrar_from_meta(dict(meta, grid_dims=[10, 10]),
                                            classes, variables, device="cpu")
 
