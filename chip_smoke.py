@@ -128,7 +128,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     table of each dense route; ``register_slides`` over E F J E
     (``slide_batch`` 4) and over F, and ``cli.main(["register", ...])``
     over E and F, their labels those of the direct calls;
-13. a ``{"kernels": [...]}`` line, then the last line
+13. the ``register`` command for every model kind, in-process
+    (``cli.main(["register", ...])``, decode swapped for ``np.load``),
+    the gather's and FAVOR's counts set to 0 just before each command and
+    read just after: (a) phase 9's scBERT + DenseNet-121 directory over
+    slide 0's Spaceranger directory (phase 4's positions, a unified cache
+    of phase 9's raw counts under feature IDs, a MEX whose
+    ``features.tsv.gz`` maps them to the gene2vec symbols): 1 gather
+    launch, 3,744 FAVOR launches, the CSV naming phase 9's labels up to
+    near-ties; (b) a CountMLP + TpuPatchClassifier directory at
+    ``window_px`` 160 with ``log1p``, the labels those of a direct forward
+    on the plain crop of the edge-padded slide plus the resize; (c) a 64 x
+    64 lattice of 16 um bins at 32 px (a positions parquet, a binned
+    unified cache) through ``GridNetMM`` per bin and with
+    ``dense_ingest`` (labels equal) and ``GridNet+CountMLP``; (d) a
+    ``HexGCN`` (hidden 128, depth 3) over slide 0's MEX, the labels those
+    of the same weights on the CPU up to near-ties; every foreground equal
+    to the tissue; each command's ms/slide, stage split and spots/s;
+14. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -1186,7 +1203,9 @@ def device_total_ms(prof) -> float:
 
 def phase_mm(torch, slides, positions, masks, port, card):
     """One multimodal request at full width: an scBERT + DenseNet-121 model
-    directory registers slide 0. Returns the FAVOR kernel's launches."""
+    directory registers slide 0. Returns the FAVOR kernel's launches and the
+    request: its meta, variables, raw count grid, labels and the plain
+    route's logits (phase 13 registers the same through the command)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gridnext_tpu_torch.models import performer
@@ -1320,7 +1339,8 @@ def phase_mm(torch, slides, positions, masks, port, card):
     if any(n != MM_DEPTH for n, _ in traced.values()):
         raise AssertionError(f"the count-chunk trace holds {traced}, not {MM_DEPTH} "
                              f"launches of each FAVOR kernel per chunk")
-    return launches
+    return launches, {"meta": meta, "variables": variables, "raw": raw, "labels": labels,
+                      "logits": plain_logits, "ms": t_kernel * 1e3}
 
 
 def tree_leaves(tree, prefix=()):
@@ -1661,16 +1681,16 @@ HD_AGREE = 0.9                # resample vs per-bin labels: different pixels by 
 HD_BLOCK, HD_NOISE = 64, 32
 
 
-def write_hd_dir(root, name, pitch, margin, jitter_seed=None):
+def write_hd_dir(root, name, pitch, margin, jitter_seed=None, n=None):
     """A Visium HD Spaceranger directory: the ``square_016um`` positions
-    parquet of an HD_BINS x HD_BINS lattice of ``pitch`` px bins from
+    parquet of an n x n lattice (default HD_BINS) of ``pitch`` px bins from
     ``margin``, written by the port's parquet writer (float pixel centers,
     as Spaceranger writes them), with an elliptical tissue mask; centers
     moved by up to HD_JITTER px with ``jitter_seed``. Returns (directory,
     mask)."""
     from gridnext_tpu_torch.io.parquet import write_parquet
 
-    n = HD_BINS
+    n = HD_BINS if n is None else n
     row = np.repeat(np.arange(n, dtype=np.int64), n)
     col = np.tile(np.arange(n, dtype=np.int64), n)
     y = margin + (row + 0.5) * pitch
@@ -1779,29 +1799,36 @@ def resample_logits(torch, reg, wsi, plan):
         return reg.corrector_apply(grid)[0].float().cpu().numpy()
 
 
-def calibrated_corrector(torch, modeldir, variables, meta, wsi, positions):
-    """``variables`` with the corrector's BatchNorm statistics set to those
-    of ``wsi``'s feature grid, as training leaves them: with random weights
-    f's outputs vary little from bin to bin, and uncalibrated statistics
-    let one class take nearly every bin, so that label checks would see
-    little. The grid is the per-bin route's (f on every in-tissue bin,
-    f(zero patch) on background bins)."""
-    reg = modeldir.image_registrar_from_meta(meta, meta["classes"], variables,
-                                             device=wsi.device)
-    corr = reg.corrector_apply
+def calibrated_bns(torch, corrector, grid, variables):
+    """``variables`` with ``corrector``'s BatchNorm statistics set to those of
+    the feature grid ``grid`` (one pass over every cell), as training
+    leaves them: with random weights f's outputs vary little from cell to
+    cell, and uncalibrated statistics let one class take nearly every
+    cell, so that label checks would see little."""
     with torch.no_grad():
-        wsi_d, *spots = reg._prepared_inputs(wsi, positions, 0)
-        grid, _ = reg._grid_fg(wsi_d[None], *(t[None] for t in spots))
-        for bn in corr.bns:
+        for bn in corrector.bns:
             bn.reset_running_stats()
             bn.momentum = None                     # a cumulative average: this batch's
-        corr.train()(grid)
+        corrector.train()(grid)
+        corrector.eval()
     out = {c: {k: dict(v) for k, v in tree.items()} for c, tree in variables.items()}
-    for j, bn in enumerate(corr.bns):
+    for j, bn in enumerate(corrector.bns):
         out["batch_stats"]["corrector"][f"BatchNorm_{j}"] = {
             "mean": bn.running_mean.cpu().numpy().astype(np.float32),
             "var": bn.running_var.cpu().numpy().astype(np.float32)}
     return out
+
+
+def calibrated_corrector(torch, modeldir, variables, meta, wsi, positions):
+    """:func:`calibrated_bns` of an HD image directory's Cartesian corrector
+    on ``wsi``'s per-bin feature grid (f on every in-tissue bin, f(zero
+    patch) on background bins)."""
+    reg = modeldir.image_registrar_from_meta(meta, meta["classes"], variables,
+                                             device=wsi.device)
+    with torch.no_grad():
+        wsi_d, *spots = reg._prepared_inputs(wsi, positions, 0)
+        grid, _ = reg._grid_fg(wsi_d[None], *(t[None] for t in spots))
+    return calibrated_bns(torch, reg.corrector_apply, grid, variables)
 
 
 def host_ms(fn, runs: int = 3) -> tuple:
@@ -1816,10 +1843,11 @@ def host_ms(fn, runs: int = 3) -> tuple:
     return float(np.median(times)), [round(t, 2) for t in times]
 
 
-def hd_grid_from_csv(path, classes):
-    """The (HD_BINS, HD_BINS) label grid a Loupe CSV of an HD lattice names
-    (the barcode holds the bin's row and column), and its row count."""
-    grid = np.zeros((HD_BINS, HD_BINS), np.int64)
+def hd_grid_from_csv(path, classes, n=None):
+    """The (n, n) label grid (default HD_BINS) a Loupe CSV of an HD lattice
+    names (the barcode holds the bin's row and column), and its row count."""
+    n = HD_BINS if n is None else n
+    grid = np.zeros((n, n), np.int64)
     with open(path, newline="") as fh:
         rows = list(csv.reader(fh))
     if rows[0] != ["Barcode", "AARs"]:
@@ -2134,6 +2162,270 @@ def phase_hd(torch, port, card, tmp, dev) -> None:
         ingest.decode_slide = decode
 
 
+# -- phase 13: the register command for every model kind --------------------------
+
+SQ_BINS = 64                  # (c)'s lattice, cut from HD_BINS (PERF.md section 4)
+SQ_PITCH, SQ_MARGIN = 32, 32  # 16 um bins at 32 px: an exact plan at 32-px patches
+GCN_HIDDEN, GCN_DEPTH = 128, 3   # train-graph's defaults
+
+
+def ascii_digits(values, width: int) -> np.ndarray:
+    """(N, width) uint8 zero-padded decimal digits of non-negative ints."""
+    return ((values[:, None] // 10 ** np.arange(width - 1, -1, -1)) % 10
+            + ord("0")).astype(np.uint8)
+
+
+def write_mex(mat_dir, ids, symbols, barcodes=None, counts=None):
+    """A feature-barcode matrix directory as Spaceranger writes it:
+    ``features.tsv.gz`` (ID, symbol, type) and, with ``barcodes``,
+    ``barcodes.tsv.gz`` and ``matrix.mtx.gz`` of the (genes, barcodes)
+    single-digit integer ``counts`` in coordinate form (indices zero-padded
+    to one width, so the lines are written as bytes)."""
+    import gzip
+
+    os.makedirs(mat_dir, exist_ok=True)
+    with gzip.open(os.path.join(mat_dir, "features.tsv.gz"), "wt", compresslevel=1) as fh:
+        fh.writelines(f"{i}\t{s}\tGene Expression\n" for i, s in zip(ids, symbols))
+    if barcodes is None:
+        return
+    with gzip.open(os.path.join(mat_dir, "barcodes.tsv.gz"), "wt", compresslevel=1) as fh:
+        fh.write("\n".join(barcodes) + "\n")
+    if counts.max() > 9:
+        raise ValueError("the byte writer takes single-digit counts")
+    g, b = np.nonzero(counts)
+    w = len(str(max(counts.shape)))
+    sep = np.full((len(g), 1), ord(" "), np.uint8)
+    body = np.concatenate([ascii_digits(g + 1, w), sep, ascii_digits(b + 1, w), sep,
+                           ascii_digits(counts[g, b], 1),
+                           np.full((len(g), 1), ord("\n"), np.uint8)], axis=1)
+    with gzip.open(os.path.join(mat_dir, "matrix.mtx.gz"), "wb", compresslevel=1) as fh:
+        fh.write(b"%%MatrixMarket matrix coordinate integer general\n%\n")
+        fh.write(f"{counts.shape[0]} {counts.shape[1]} {len(g)}\n".encode())
+        fh.write(body.tobytes())
+
+
+def phase_kinds(torch, slides, mask, port, card, tmp, mm):
+    """The register command for every model kind at full width: hex
+    multimodal (scBERT + DenseNet-121; CountMLP + TpuPatchClassifier at
+    window 160), square multimodal (per bin and dense ingest), square
+    counts, HexGCN. ``mm`` is phase 9's request, ``mask`` slide 0's tissue."""
+    from gridnext_tpu_torch import cli, ingest, pipeline
+    from gridnext_tpu_torch.data import graph_data
+    from gridnext_tpu_torch.io.unify import unified_cache_path
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    dev = slides.device
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    tpu_f = {"stages": [[256, 2], [512, 2]], "stem_patch": 16, "norm": "rms"}
+    log(f"== phase 13: the register command for every model kind at full width ({MM_VOCAB} "
+        f"genes; TF32 off)")
+
+    # slide 0's Spaceranger directory: phase 4's positions, a unified cache of
+    # phase 9's raw counts under feature IDs, and a MEX whose features.tsv.gz
+    # maps the IDs to the gene2vec symbols
+    t0 = time.perf_counter()
+    srd, mask_w = write_spaceranger_dir(tmp, geometry, TISSUE_FRACTIONS[0], 0)
+    if not np.array_equal(mask_w, mask):
+        raise AssertionError("slide 0's positions differ from phase 4's")
+    pos = io.read_positions(srd)
+    keep = pos["in_tissue"] == 1
+    y, x = np.divmod(np.flatnonzero(keep), geometry.VISIUM_W_ST)
+    ids = [f"ENSG{i:011d}" for i in range(MM_VOCAB)]
+    symbols = load_gene2vec_names()[:MM_VOCAB]
+    counts = mm["raw"][y, x].T.astype(np.int64)               # (genes, spots)
+    write_unified_cache(unified_cache_path(srd), ids,
+                        [f"{c}_{r}" for c, r in zip(pos["array_col"][keep],
+                                                    pos["array_row"][keep])], counts)
+    write_mex(os.path.join(srd, "outs", "filtered_feature_bc_matrix"), ids, symbols,
+              [b for b, k in zip(pos.barcodes, keep) if k], counts)
+    slide0 = os.path.join(tmp, "slide0.npy")
+    np.save(slide0, slides[0].cpu().numpy())
+    n_spots = int(mask.sum())
+    log(f"slide 0's directory: unified cache {os.path.getsize(unified_cache_path(srd)) / 1e6:.1f}"
+        f" MB, MEX {np.count_nonzero(counts)} nonzeros, slide .npy, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def route(name, args, n):
+        """``cli.main(args)`` with decode swapped for np.load and the counts
+        of the gather and FAVOR set to 0 just before and read just after:
+        logs the wall time and stage split, returns the launches."""
+        decode = ingest.decode_slide
+        ingest.decode_slide = np.load
+        try:
+            torch.cuda.synchronize()
+            gather.launches = favor_cuda.launches = 0
+            t0 = time.perf_counter()
+            stages = cli.main(["register", *args, "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"gather": gather.launches, "favor": favor_cuda.launches}
+        finally:
+            ingest.decode_slide = decode
+        per = {k: round(v * 1e3, 2) for k, v in (stages or {}).items()}
+        log(f"phase 13 {name}: register command {wall * 1e3:.2f} ms/slide with the model "
+            f"load ({wall * 1e3 - sum(per.values()):.2f} ms outside the stages), stage ms "
+            f"{json.dumps(per)}, {n / wall:.1f} in-tissue spots/s; launches "
+            f"{json.dumps(launches)} [{card}]")
+        return launches
+
+    def check_launches(name, got, want):
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+
+    # (a) scBERT + DenseNet-121: phase 9's model directory and counts
+    dir_a = os.path.join(tmp, "model_mm_scbert")
+    from_jax.save_model_dir(dir_a, {**mm["meta"], "genes": ids, "n_genes": MM_VOCAB},
+                            mm["variables"])
+    out_a = os.path.join(tmp, "a.csv")
+    got = route("(a) GridNetHexMM scBERT + DenseNet-121",
+                ["--model", dir_a, "--images", slide0, "--spaceranger", srd, "--out", out_a],
+                n_spots)
+    want_favor = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_DEPTH
+    check_launches("(a)", got, {"gather": 1, "favor": want_favor})
+    grid, n_rows = loupe_grid(out_a, mask.shape, classes)
+    if n_rows != n_spots or not np.array_equal(grid > 0, mask > 0):
+        raise AssertionError("(a): the CSV's spots differ from the tissue")
+    flips = serving.label_parity_report(mm["labels"], grid, mm["logits"])
+    log(f"(a): the CSV names phase 9's register_mm_grid labels up to {flips} near-tie "
+        f"flips of {n_rows} spots; phase 9's request {mm['ms']:.2f} ms")
+
+    # (b) CountMLP + TpuPatchClassifier at window 160, log1p, the same
+    # directory. The reference: the plain crop of the edge-padded slide, the
+    # resize, a direct forward; the corrector's statistics are those of its
+    # feature grid
+    template = models.GridNetHexMM(models.TpuPatchClassifier(n_classes=N_CLASSES),
+                                   models.CountMLP(MM_VOCAB, N_CLASSES), N_CLASSES)
+    vars_b = random_variables(models, from_jax, seed=SEED + 12, model=template)
+    del template
+    meta_b = {"model": "GridNetHexMM", "classes": classes, "patch_px": PATCH,
+              "window_px": WINDOW, "patch_chunk": CHUNK, "count_chunk": None, "genes": ids,
+              "n_genes": MM_VOCAB, "log1p": True, "count_f": "mlp", "image_f": "tpu",
+              "tpu_f": tpu_f, "hd_binning": None, "grid_dims": None, "dense_ingest": False}
+    oy, ox, y_px, x_px = serving.spot_pixel_arrays(pos)
+    crops = gather.gather_patches_plain(pipeline.edge_pad(slides[0], WINDOW // 2),
+                                        torch.as_tensor(y_px, device=dev),
+                                        torch.as_tensor(x_px, device=dev), WINDOW)
+    x_image = torch.zeros((geometry.VISIUM_H_ST, geometry.VISIUM_W_ST, PATCH, PATCH, 3),
+                          device=dev)
+    x_image[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
+        pipeline.resize_patches(crops, PATCH).float() / 255.0
+    del crops
+    x = (x_image[None], torch.as_tensor(np.log1p(mm["raw"]), device=dev)[None])
+    model_b = modeldir.mm_model_from_meta(meta_b, classes, vars_b, device=dev)
+    with torch.no_grad():
+        vars_b = calibrated_bns(torch, model_b.corrector, model_b.patch_predictions(x),
+                                vars_b)
+        model_b = modeldir.mm_model_from_meta(meta_b, classes, vars_b, device=dev)
+        logits_b = model_b(x)[0].cpu().numpy()
+    del x_image, x, model_b
+    dir_b = os.path.join(tmp, "model_mm_mlp")
+    from_jax.save_model_dir(dir_b, meta_b, vars_b)
+    out_b = os.path.join(tmp, "b.csv")
+    got = route(f"(b) GridNetHexMM CountMLP + TpuPatchClassifier, window {WINDOW}",
+                ["--model", dir_b, "--images", slide0, "--spaceranger", srd, "--out", out_b],
+                n_spots)
+    check_launches("(b)", got, {"gather": 1, "favor": 0})
+    want_b = np.where(mask > 0, logits_b.argmax(-1) + 1, 0)
+    grid, n_rows = loupe_grid(out_b, mask.shape, classes)
+    if n_rows != n_spots:
+        raise AssertionError(f"(b): {n_rows} CSV rows for {n_spots} spots")
+    flips = serving.label_parity_report(want_b, grid, logits_b)
+    hist = np.bincount(grid[mask > 0], minlength=N_CLASSES + 1)[1:].tolist()
+    log(f"(b): the CSV names the labels of a direct forward on the plain crop + resize up "
+        f"to {flips} near-tie flips (spots per class {hist})")
+
+    # (d) HexGCN over slide 0's in-tissue spots, the MEX of phase 9's counts
+    template = models.HexGCN(MM_VOCAB, N_CLASSES, GCN_HIDDEN, GCN_DEPTH)
+    vars_d = random_variables(models, from_jax, seed=SEED + 16, model=template)
+    del template
+    meta_d = {"model": "HexGCN", "classes": classes, "hidden": GCN_HIDDEN,
+              "depth": GCN_DEPTH, "log1p": True, "n_genes": MM_VOCAB,
+              "feature_axis": graph_data.feature_axis_signature(srd)}
+    dir_d = os.path.join(tmp, "model_graph")
+    from_jax.save_model_dir(dir_d, meta_d, vars_d)
+    out_d = os.path.join(tmp, "d.csv")
+    got = route(f"(d) HexGCN hidden {GCN_HIDDEN}, depth {GCN_DEPTH}",
+                ["--model", dir_d, "--spaceranger", srd, "--out", out_d], n_spots)
+    check_launches("(d)", got, {"gather": 0, "favor": 0})
+    gd = graph_data.visium_to_graphdata([srd])
+    cpu_model = modeldir.graph_model_from_meta(meta_d, classes, vars_d, device="cpu")
+    with torch.no_grad():
+        node_logits = cpu_model(torch.from_numpy(np.log1p(gd["nodes"])),
+                                torch.from_numpy(gd["edges"])).numpy()
+    ox, oy = geometry.pseudo_hex_to_oddr(gd["pos"][:, 0], gd["pos"][:, 1])
+    logits_d = np.zeros(mask.shape + (N_CLASSES,), np.float32)
+    logits_d[oy, ox] = node_logits
+    want_d = np.zeros(mask.shape, np.int64)
+    want_d[oy, ox] = node_logits.argmax(-1) + 1
+    grid, n_rows = loupe_grid(out_d, mask.shape, classes)
+    if n_rows != n_spots or not np.array_equal(want_d > 0, mask > 0):
+        raise AssertionError(f"(d): {n_rows} CSV rows / graph nodes for {n_spots} spots")
+    flips = serving.label_parity_report(want_d, grid, logits_d)
+    hist = np.bincount(grid[mask > 0], minlength=N_CLASSES + 1)[1:].tolist()
+    log(f"(d): {gd['nodes'].shape[0]} nodes, {gd['edges'].shape[1]} edges; the CSV names "
+        f"the CPU forward's labels up to {flips} near-tie flips (spots per class {hist})")
+
+    # (c) a 64 x 64 square lattice of 16 um bins at 32 px
+    srd_c, mask_c = write_hd_dir(tmp, "sq0", SQ_PITCH, SQ_MARGIN, n=SQ_BINS)
+    side = 2 * SQ_MARGIN + SQ_BINS * SQ_PITCH
+    slide_c = os.path.join(tmp, "sq0.npy")
+    np.save(slide_c, make_slides(torch, 1, side, side, dev, HD_BLOCK, HD_NOISE)[0].cpu().numpy())
+    pos_c = io.read_positions(srd_c, HD_BINNING)
+    keep = pos_c["in_tissue"] == 1
+    n_bins = int(keep.sum())
+    write_unified_cache(unified_cache_path(srd_c, HD_BINNING), ids,
+                        [f"{c}_{r}" for c, r in zip(pos_c["array_col"][keep],
+                                                    pos_c["array_row"][keep])],
+                        np.random.default_rng(SEED + 13).poisson(COUNT_RATE,
+                                                                 (MM_VOCAB, n_bins)))
+    write_mex(os.path.join(srd_c, "outs", "binned_outputs", HD_BINNING,
+                           "filtered_feature_bc_matrix"), ids, symbols)
+    square = {"classes": classes, "genes": ids, "n_genes": MM_VOCAB, "log1p": True,
+              "hd_binning": HD_BINNING, "grid_dims": [SQ_BINS, SQ_BINS]}
+    template = models.GridNetMM(models.TpuPatchClassifier(n_classes=N_CLASSES),
+                                models.CountMLP(MM_VOCAB, N_CLASSES), N_CLASSES)
+    vars_c = random_variables(models, from_jax, seed=SEED + 14, model=template)
+    template = models.GridNet(models.CountMLP(MM_VOCAB, N_CLASSES), N_CLASSES,
+                              f_dim=N_CLASSES)
+    vars_n = random_variables(models, from_jax, seed=SEED + 15, model=template)
+    del template
+    labels_c = {}
+    for name, meta, variables, args, want in (
+            ("GridNetMM per bin", {**square, "model": "GridNetMM", "patch_px": SQ_PITCH,
+                                   "window_px": None, "patch_chunk": HD_CHUNK,
+                                   "count_chunk": None, "count_f": "mlp", "image_f": "tpu",
+                                   "tpu_f": tpu_f, "dense_ingest": False},
+             vars_c, ["--images", slide_c], {"gather": 1, "favor": 0}),
+            ("GridNetMM dense ingest", {**square, "model": "GridNetMM", "patch_px": SQ_PITCH,
+                                        "window_px": None, "patch_chunk": HD_CHUNK,
+                                        "count_chunk": None, "count_f": "mlp",
+                                        "image_f": "tpu", "tpu_f": tpu_f,
+                                        "dense_ingest": True},
+             vars_c, ["--images", slide_c], {"gather": 1, "favor": 0}),
+            ("GridNet+CountMLP", {**square, "model": "GridNet+CountMLP"}, vars_n, [],
+             {"gather": 0, "favor": 0})):
+        model_dir = os.path.join(tmp, "model_" + name.replace(" ", "_").replace("+", "_"))
+        from_jax.save_model_dir(model_dir, meta, variables)
+        out = os.path.join(tmp, f"c_{len(labels_c)}.csv")
+        got = route(f"(c) {name}, {SQ_BINS} x {SQ_BINS} bins",
+                    ["--model", model_dir, *args, "--spaceranger", srd_c, "--out", out],
+                    n_bins)
+        check_launches(f"(c) {name}", got, want)
+        grid, n_rows = hd_grid_from_csv(out, classes, SQ_BINS)
+        if n_rows != n_bins or not np.array_equal(grid > 0, mask_c > 0):
+            raise AssertionError(f"(c) {name}: the CSV's bins differ from the tissue")
+        labels_c[name] = grid
+    if not np.array_equal(labels_c["GridNetMM dense ingest"], labels_c["GridNetMM per bin"]):
+        n = int((labels_c["GridNetMM dense ingest"] != labels_c["GridNetMM per bin"]).sum())
+        raise AssertionError(f"(c): dense-ingest labels differ from per-bin at {n} bins")
+    hist = {k: np.bincount(v[mask_c > 0], minlength=N_CLASSES + 1)[1:].tolist()
+            for k, v in labels_c.items()}
+    log(f"(c): {n_bins} in-tissue bins; dense-ingest labels equal the per-bin labels; bins "
+        f"per class {json.dumps(hist)}")
+
+
 def main() -> int:
     import torch
 
@@ -2203,7 +2495,7 @@ def main() -> int:
     phase_resize(torch, slides, positions, masks, port, dn_meta, dn_vars)
     del dn_vars
     res["fused_generalized_linear_attention"] = phase_favor(torch, favor_cuda, dev)
-    launches["fused_generalized_linear_attention"] = phase_mm(
+    launches["fused_generalized_linear_attention"], mm = phase_mm(
         torch, slides, positions, masks, port, card)
     with tempfile.TemporaryDirectory() as tmp:   # model dirs, slides, caches, CSVs
         dirs_masks = phase_register_slides(torch, slides, port, card, tmp, batch4)
@@ -2212,6 +2504,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_hd(torch, port, card, tmp, dev)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:   # Spaceranger dirs, caches, model dirs
+        t0 = time.perf_counter()
+        phase_kinds(torch, slides, masks[0], port, card, tmp, mm)
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    del mm
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",

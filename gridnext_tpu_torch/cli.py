@@ -13,14 +13,21 @@ writes a Loupe CSV (``Barcode,AARs``).
   ``hd_binning``) read each array's positions parquet, register dense
   lattices of a fractional pitch by resampling (``register_dense``) and the
   rest bin by bin, and write Loupe CSVs indexed by (array_row, array_col).
-* Count models (``GridNetHex+CountMLP``, as ``train-count`` writes them)
-  register each directory's unified count cache (``prepare``'s
-  ``<dir>.unified.tsv.gz``).
+* Count models (``GridNet[Hex]+CountMLP``, as ``train-count`` writes
+  them) register each directory's unified count cache (``prepare``'s
+  ``<dir>.unified.tsv.gz``); with ``grid_dims`` on the square lattice.
+* Multimodal models (``GridNetHexMM``, and ``GridNetMM`` with
+  ``grid_dims``, as ``train-mm`` writes them) register each slide's patch
+  grid, cropped on the card (or, for ``dense_ingest`` directories, tiled
+  from the slide), beside the count grid of the directory's validated
+  unified cache, mapped into the count f's input (scBERT's gene2vec space,
+  or ``log1p``); the tissue comes from the raw counts.
+* Graph models (``HexGCN``, as ``train-graph`` writes them) register each
+  array's in-tissue spots as one hex graph over its MEX counts.
 
 ``--device`` (default ``cuda``) is where registration runs; ``--device cpu``
-takes the kernels' plain versions. Model kinds not ported yet (the
-multimodal directories' slide route, square-lattice count models, HexGCN)
-exit with an error that names the ``ROADMAP.md`` item.
+takes the kernels' plain versions. Exits and messages follow the JAX
+package's ``register``.
 """
 
 from __future__ import annotations
@@ -34,11 +41,6 @@ def _require_one_image_per_dir(images, spaceranger_dirs):
     if not images or len(images) != len(spaceranger_dirs):
         sys.exit("error: --images must list one fullres image per "
                  "--spaceranger directory")
-
-
-def _not_ported(what: str, item: int):
-    sys.exit(f"error: registering {what} is not ported to gridnext_tpu_torch yet "
-             f"(ROADMAP.md Queue 1 item {item}); use python -m gridnext_tpu register")
 
 
 def _validated_count_cache(srd, meta):
@@ -99,18 +101,22 @@ def _register_counts(args, meta, classes, variables):
     from gridnext_tpu_torch.compat.from_jax import load_gridnet
     from gridnext_tpu_torch.data import CountGridDataset
     from gridnext_tpu_torch.modeldir import _count_mlp, _has_bn_corrector
-    from gridnext_tpu_torch.models import GridNetHex
+    from gridnext_tpu_torch.models import GridNet, GridNetHex
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(args.device)
     n = len(classes)
+    grid_dims = meta.get("grid_dims")       # square HD lattices (GridNet g)
+    cls = GridNetHex if grid_dims is None else GridNet
     # CountMLP with BatchNorm, as the JAX package's register builds it
-    g = GridNetHex(_count_mlp(variables, "patch_classifier", n), n_classes=n, f_dim=n,
-                   use_bn=_has_bn_corrector(variables))
+    g = cls(_count_mlp(variables, "patch_classifier", n), n_classes=n, f_dim=n,
+            use_bn=_has_bn_corrector(variables))
     g = load_gridnet(g, variables).to(device).eval()
+    lattice = {} if grid_dims is None else {
+        "Visium": False, "h_st": int(grid_dims[0]), "w_st": int(grid_dims[1])}
     for i, srd in enumerate(args.spaceranger):
         cfile = _validated_count_cache(srd, meta)
-        x, _ = CountGridDataset([cfile])[0]
+        x, _ = CountGridDataset([cfile], **lattice)[0]
         fg = x.sum(-1) > 0              # tissue from the raw counts
         if meta.get("log1p"):
             x = np.log1p(x)
@@ -118,7 +124,103 @@ def _register_counts(args, meta, classes, variables):
             logits = g(torch.as_tensor(x[None], device=device))[0]
             labels = (torch.argmax(logits, -1) + 1).cpu().numpy()
         _write_loupe(np.where(fg, labels, 0), srd, args, classes,
-                     hd_binning=meta.get("hd_binning"), index=i)
+                     hd_binning=meta.get("hd_binning"), hex_coords=grid_dims is None,
+                     index=i)
+
+
+def _scbert_count_transform(spaceranger_dirs, hd_binning, vocab: int):
+    """modeldir.scbert_count_transform, its zero-overlap error mapped to a
+    CLI exit."""
+    from gridnext_tpu_torch.modeldir import scbert_count_transform
+
+    try:
+        return scbert_count_transform(spaceranger_dirs, hd_binning, vocab)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+
+
+def _register_mm(args, meta, classes, variables):
+    """Multimodal directories: each slide's patch grid on the card beside
+    its count grid, through ``register_mm_grid``. Returns the stage seconds
+    (decode, count read, crop + grid, count transform, forward, csv)."""
+    import numpy as np
+
+    from gridnext_tpu_torch.data import (DenseWSIGridDataset, MMStackDataset,
+                                         create_visium_dataset)
+    from gridnext_tpu_torch.modeldir import mm_model_from_meta
+    from gridnext_tpu_torch.observability import StageTimer
+    from gridnext_tpu_torch.serving import register_mm_grid, resolve_device
+
+    _require_one_image_per_dir(args.images, args.spaceranger)
+    # every cache must exist and carry the training gene axis before any
+    # grid is built
+    for srd in args.spaceranger:
+        _validated_count_cache(srd, meta)
+    hd_binning = meta.get("hd_binning")
+    if meta.get("count_f") == "scbert":
+        count_transform, _ = _scbert_count_transform(args.spaceranger, hd_binning,
+                                                     meta["scbert_vocab"])
+    else:
+        count_transform = np.log1p if meta.get("log1p") else None
+    device = resolve_device(args.device)
+    grid_dims = tuple(meta["grid_dims"]) if meta.get("grid_dims") else None
+    g = mm_model_from_meta(meta, classes, variables, device=device)
+    timer = StageTimer()
+    patch_px = meta.get("patch_px", 128)
+    if meta.get("dense_ingest") and grid_dims:
+        # dense-ingest models tile the image modality straight off the slides
+        mm = MMStackDataset(
+            DenseWSIGridDataset(args.images, args.spaceranger, patch_size=patch_px,
+                                hd_binning=hd_binning, grid_dims=grid_dims,
+                                device=device, timer=timer),
+            create_visium_dataset(args.spaceranger, use_image=False,
+                                  hd_binning=hd_binning, grid_dims=grid_dims,
+                                  timer=timer))
+    else:
+        mm = create_visium_dataset(args.spaceranger, fullres_image_files=args.images,
+                                   patch_size_px=patch_px,
+                                   window_size_px=meta.get("window_px"),
+                                   hd_binning=hd_binning, grid_dims=grid_dims,
+                                   device=device, timer=timer)
+    for i, srd in enumerate(args.spaceranger):
+        (xi, xc), _ = mm[i]
+        labels = register_mm_grid(g, xi, xc, count_transform, device=device, timer=timer)
+        del xi, xc                      # this slide's grids go before the next's are built
+        with timer("csv"):
+            _write_loupe(labels, srd, args, classes, hd_binning=hd_binning,
+                         hex_coords=grid_dims is None, index=i)
+    return timer.summary()
+
+
+def _register_graph(args, meta, classes, variables):
+    """HexGCN directories: each array's in-tissue spots as one hex graph;
+    the node labels scatter back onto the odd-right lattice."""
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.data.graph_data import visium_to_graphdata
+    from gridnext_tpu_torch.geometry import VISIUM_H_ST, VISIUM_W_ST, pseudo_hex_to_oddr
+    from gridnext_tpu_torch.modeldir import (graph_model_from_meta,
+                                             validate_graph_feature_axis)
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(args.device)
+    model = graph_model_from_meta(meta, classes, variables, device=device)
+    for i, srd in enumerate(args.spaceranger):
+        try:
+            validate_graph_feature_axis(meta, srd)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+        gd = visium_to_graphdata([srd])
+        x = np.log1p(gd["nodes"]) if meta.get("log1p") else gd["nodes"]
+        with torch.no_grad():
+            logits = model(torch.as_tensor(x, device=device),
+                           torch.as_tensor(gd["edges"], device=device))
+            labels = (torch.argmax(logits, -1) + 1).cpu().numpy()
+        label_grid = np.zeros((VISIUM_H_ST, VISIUM_W_ST), np.int64)
+        ox, oy = pseudo_hex_to_oddr(gd["pos"][:, 0], gd["pos"][:, 1])
+        label_grid[oy, ox] = labels
+        _write_loupe(label_grid, srd, args, classes, index=i)
 
 
 def _cmd_register(args):
@@ -127,19 +229,16 @@ def _cmd_register(args):
     meta, classes, variables = load_model_dir(args.model)
     model_name = meta.get("model", "")
     if model_name in ("GridNetHexMM", "GridNetMM"):
-        _not_ported(f"multimodal {model_name} directories from slides and "
-                    "Spaceranger directories", 4)
+        return _register_mm(args, meta, classes, variables)
     if model_name.endswith(("DenseNet121", "TpuPatchClassifier")):
         return _register_images(args, meta, classes, variables)
     if model_name == "HexGCN":
-        _not_ported("HexGCN graph models", 8)
+        return _register_graph(args, meta, classes, variables)
     if not model_name.endswith("CountMLP"):
         sys.exit(f"error: don't know how to register model "
                  f"{model_name or '<missing>'!r} (expected GridNet[Hex]"
                  f"[MM]+CountMLP / *DenseNet121 / *TpuPatchClassifier / "
                  f"HexGCN)")
-    if meta.get("grid_dims") is not None:
-        _not_ported("square-lattice (grid_dims) count models", 4)
     return _register_counts(args, meta, classes, variables)
 
 
@@ -167,8 +266,10 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run one command; returns what it returns (the multimodal
+    ``register``'s stage seconds, else None)."""
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -53,6 +53,10 @@
 * A ``CountMLP`` f (as ``GridNetHex``'s f or ``GridNetHexMM``'s count f)
   holds ``Dense_0``..``Dense_4`` and, with BatchNorm, ``BatchNorm_0`` and
   ``BatchNorm_1``.
+* :func:`load_hexgcn` copies a ``HexGCN`` (``params`` only), named by
+  creation order: layer k's self ``Dense_{2k}`` (kernel, bias), its
+  neighbour ``Dense_{2k+1}`` (kernel, no bias) and ``LayerNorm_k``, then
+  the head ``Dense_{2 depth}``.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ import torch
 
 from gridnext_tpu_torch.compat import flax_msgpack
 from gridnext_tpu_torch.models.densenet import DenseNet
+from gridnext_tpu_torch.models.graph import HexGCN
 from gridnext_tpu_torch.models.gridnet import ConcatGridNet, GridNetHexMM
 from gridnext_tpu_torch.models.mlp import CountMLP
 from gridnext_tpu_torch.models.performer import (FastAttention, Performer, PerformerLM,
@@ -302,7 +307,18 @@ def _gridnet_mm_entries(model: GridNetHexMM):
     yield from _corrector_entries(model.corrector)
 
 
+def _hexgcn_entries(model: HexGCN, params=("params",)):
+    for k, (self_dense, nbr_dense, norm) in enumerate(zip(
+            model.self_dense, model.nbr_dense, model.norms)):
+        yield from _dense_entries(self_dense, params + (f"Dense_{2 * k}",))
+        yield from _dense_entries(nbr_dense, params + (f"Dense_{2 * k + 1}",))
+        yield from _layer_norm_entries(norm, params + (f"LayerNorm_{k}",))
+    yield from _dense_entries(model.out, params + (f"Dense_{2 * len(model.norms)}",))
+
+
 def _model_entries(model):
+    if isinstance(model, HexGCN):
+        return _hexgcn_entries(model)
     if isinstance(model, GridNetHexMM):          # and GridNetMM
         return _gridnet_mm_entries(model)
     if isinstance(model, ConcatGridNet):         # flax names its convs at the root
@@ -401,6 +417,13 @@ def load_gridnet(model, variables: dict):
         roots = [("params", "patch_classifier"), ("params", "corrector"),
                  ("batch_stats", "patch_classifier"), ("batch_stats", "corrector")]
     _load(_model_entries(model), variables, roots)
+    return model
+
+
+def load_hexgcn(model: HexGCN, variables: dict) -> HexGCN:
+    """Copy a flax ``HexGCN`` variables tree (``params``) into ``model`` (in
+    place) and return it. Every leaf under ``params`` must be used."""
+    _load(_hexgcn_entries(model), variables, [("params",)])
     return model
 
 

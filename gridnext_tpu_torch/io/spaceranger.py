@@ -8,12 +8,19 @@
 The CSV version is sniffed from the first line, as the JAX package does.
 Rows keep file order; ``Positions`` holds the barcodes and one numpy column
 per field.
+
+The feature-barcode matrix (the MEX triplet ``matrix.mtx.gz``,
+``features.tsv.gz``, ``barcodes.tsv.gz``) is found below the directory (or
+under ``binned_outputs/<binning>/filtered_feature_bc_matrix`` for Visium
+HD) and read with the standard library's ``gzip``/``csv`` and
+``scipy.io.mmread``.
 """
 
 from __future__ import annotations
 
 import csv
 import glob
+import gzip
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -111,3 +118,75 @@ def cohort_hd_lattice_dims(spaceranger_dirs, hd_binning: str) -> tuple:
         hh, ww = hd_lattice_dims(srd, hd_binning)
         h, w = max(h, hh), max(w, ww)
     return h, w
+
+
+_MEX_FILES = {"matrix": "matrix.mtx.gz", "features": "features.tsv.gz",
+              "barcodes": "barcodes.tsv.gz"}
+
+
+def find_feature_matrix_files(spaceranger_dir, hd_binning: Optional[str] = None) -> dict:
+    """Locate the ``{matrix, features, barcodes}`` MEX files of an array.
+
+    With ``hd_binning``: that binning's ``filtered_feature_bc_matrix``.
+    Else the first match below the directory in sorted order, paths under
+    a ``filtered_feature_bc_matrix`` first (a real ``outs/`` also holds the
+    raw matrix, whose out-of-tissue barcodes must not shadow the filtered
+    one). Raises ValueError when a file is missing.
+    """
+    found = {}
+    if hd_binning is not None:
+        mat_dir = os.path.join(str(spaceranger_dir), "outs", "binned_outputs",
+                               hd_binning, "filtered_feature_bc_matrix")
+        for key, name in _MEX_FILES.items():
+            path = os.path.join(mat_dir, name)
+            if os.path.exists(path):
+                found[key] = path
+    else:
+        paths = sorted(glob.glob(os.path.join(str(spaceranger_dir), "**"), recursive=True),
+                       key=lambda s: ("filtered_feature_bc_matrix" not in s, s))
+        for key, name in _MEX_FILES.items():
+            match = next((p for p in paths if name in p), None)
+            if match is not None:
+                found[key] = match
+    if len(found) == len(_MEX_FILES):
+        return found
+    raise ValueError(f"Cannot locate matrix files for {spaceranger_dir}")
+
+
+def _tsv_rows(path) -> list:
+    with gzip.open(str(path), "rt", newline="") as fh:
+        return [row for row in csv.reader(fh, delimiter="\t")]
+
+
+def read_feature_names(spaceranger_dir=None, individual_files=None,
+                       hd_binning: Optional[str] = None) -> dict:
+    """Feature ID -> gene symbol, from the first two columns of
+    ``features.tsv.gz`` (a repeated ID keeps its last symbol)."""
+    if individual_files is None:
+        individual_files = find_feature_matrix_files(spaceranger_dir, hd_binning)
+    return {row[0]: row[1] for row in _tsv_rows(individual_files["features"])}
+
+
+def read_feature_matrix(spaceranger_dir=None, individual_files=None,
+                        hd_binning: Optional[str] = None, barcodes=None):
+    """``(counts, feature_ids, barcodes)`` of an array's MEX matrix: the
+    dense (genes, barcodes) counts in the matrix's dtype, the feature IDs
+    and the column barcodes.
+
+    ``barcodes``: the columns to keep, in that order (only they are made
+    dense); a barcode the matrix lacks raises KeyError. Default: every
+    column in file order.
+    """
+    import scipy.io
+
+    if individual_files is None:
+        individual_files = find_feature_matrix_files(spaceranger_dir, hd_binning)
+    mat = scipy.io.mmread(individual_files["matrix"]).tocsc()
+    feature_ids = [row[0] for row in _tsv_rows(individual_files["features"])]
+    columns = [row[0] for row in _tsv_rows(individual_files["barcodes"])]
+    if barcodes is None:
+        return mat.toarray(), feature_ids, columns
+    index = {b: j for j, b in enumerate(columns)}
+    barcodes = list(barcodes)
+    keep = [index[b] for b in barcodes]
+    return mat[:, keep].toarray(), feature_ids, barcodes

@@ -7,8 +7,10 @@ A model directory written by the JAX package's ``train-count``,
 image registrar with :func:`image_registrar_from_meta`, the multimodal
 model with :func:`mm_model_from_meta` (registered by
 :func:`gridnext_tpu_torch.serving.register_mm_grid`, its counts mapped into
-scBERT's gene space by :func:`scbert_transform`), or the grid model of any
-directory with :func:`grid_model_from_meta`.
+scBERT's gene space by :func:`scbert_transform`, or from a cohort's
+Spaceranger directories by :func:`scbert_count_transform`), the grid model
+of any directory with :func:`grid_model_from_meta`, or the ``HexGCN`` of a
+graph directory (``train-graph``) with :func:`graph_model_from_meta`.
 """
 
 from __future__ import annotations
@@ -163,3 +165,72 @@ def scbert_transform(symbols: Sequence[str], vocab: int) -> Callable:
         return out.reshape(x.shape[:-1] + (len(target),))
 
     return transform
+
+
+def scbert_count_transform(spaceranger_dirs, hd_binning, vocab: int):
+    """:func:`scbert_transform` for a cohort's unified count caches:
+    ``(transform, n_tokens)``.
+
+    The caches index genes by feature ID; gene2vec uses symbols, so the
+    genes of the first cache are mapped to symbols through the first
+    array's ``features.tsv.gz`` (IDs without a symbol, or every ID when the
+    features file cannot be read, stay as they are). Raises ``ValueError``
+    with the JAX package's message when no cohort gene maps into the
+    vocabulary.
+    """
+    import csv
+
+    from gridnext_tpu_torch.io.spaceranger import read_feature_names
+    from gridnext_tpu_torch.io.unify import read_unified_genes, unified_cache_path
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+
+    # the first cache only: register validated every cache's gene axis
+    genes = read_unified_genes(unified_cache_path(spaceranger_dirs[0], hd_binning))
+    try:
+        names = read_feature_names(spaceranger_dirs[0], hd_binning=hd_binning)
+        symbols = [str(names.get(g, g)) for g in genes]
+    except (OSError, EOFError, ValueError, IndexError, csv.Error):
+        symbols = [str(g) for g in genes]
+    target = load_gene2vec_names()[:vocab]
+    overlap = len(set(symbols) & set(target))
+    if overlap == 0:
+        raise ValueError(
+            "no cohort gene symbols found in the gene2vec vocabulary -- "
+            "scBERT inputs would be all zeros (check features.tsv.gz "
+            "symbols / --scbert-vocab)")
+    print(f"scBERT input space: {len(target)} gene2vec tokens, "
+          f"{overlap}/{len(symbols)} cohort genes mapped")
+    return scbert_transform(symbols, vocab), len(target)
+
+
+def graph_model_from_meta(meta, classes, variables, device="cuda"):
+    """The ``HexGCN`` node classifier of a graph model directory
+    (``train-graph``: ``hidden`` and ``depth`` in ``model.json``), its
+    input width that of the checkpoint's first layer, with its weights
+    loaded, in eval mode on ``device``."""
+    from gridnext_tpu_torch.compat.from_jax import load_hexgcn
+    from gridnext_tpu_torch.models import HexGCN
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(device)
+    n_genes = np.shape(variables["params"]["Dense_0"]["kernel"])[0]
+    model = HexGCN(n_genes, len(classes), hidden=int(meta.get("hidden", 128)),
+                   depth=int(meta.get("depth", 3)))
+    return load_hexgcn(model, variables).to(device).eval()
+
+
+def validate_graph_feature_axis(meta, spaceranger_dir):
+    """Refuse an array whose MEX gene axis differs from the one the graph
+    model trained on (``meta["feature_axis"]``), with the JAX package's
+    ``ValueError``."""
+    from gridnext_tpu_torch.data.graph_data import feature_axis_signature
+
+    want = meta.get("feature_axis")
+    if not want:
+        return
+    got = feature_axis_signature(spaceranger_dir)
+    if got != want:
+        raise ValueError(
+            f"{spaceranger_dir}: feature axis {got} does not match the "
+            f"model's training axis {want}; graph node features need the "
+            "exact transcriptome ordering the model trained on")

@@ -9,6 +9,8 @@ import contextlib
 import threading
 import time
 
+import torch
+
 
 class StageTimer:
     """Accumulating named wall-clock stages.
@@ -46,3 +48,17 @@ class StageTimer:
         lines = [f"{k}: {v:.3f}s ({v / total * 100:.1f}%, n={self.counts[k]})"
                  for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])]
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def stage(timer, name: str, device=None):
+    """``timer(name)`` around the block, or nothing without a timer. With a
+    CUDA ``device`` the card is synchronised before the stage closes, so the
+    work the block queued is timed in it."""
+    if timer is None:
+        yield
+        return
+    with timer(name):
+        yield
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)

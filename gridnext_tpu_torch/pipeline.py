@@ -1,5 +1,5 @@
 """Patch preprocessing: ImageNet normalization, the window resize, the
-lattice resample and spot pixel boxes.
+lattice resample, spot pixel boxes and the patch grids of whole slides.
 
 The crop itself is :mod:`gridnext_tpu_torch.ops.patch_gather_cuda`; when
 the crop window differs from the patch size, :func:`resize_patches`
@@ -7,7 +7,9 @@ resamples it as ``jax.image.resize(method="cubic")`` does in the JAX
 package (``pipeline.resize_patches_device``). Visium HD lattices of a
 fractional pixel pitch resample straight to patch scale with
 :func:`scale_and_translate_linear` (``jax.image.scale_and_translate``,
-linear).
+linear). :func:`patch_grid` builds an array's ``(H, W, P, P, 3)`` float
+grid on the slide's device, as the JAX package's ``grid_from_wsi_visium``
+builds it on the host.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import numpy as np
 import torch
 
 from gridnext_tpu_torch import geometry
+from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
+
+# Crops resized at a time in crop_grid (a chunk's float intermediates stay
+# near 0.6 GB at 160-px windows).
+_RESIZE_CHUNK = 1024
 
 # ImageNet normalization used with pretrained image classifiers
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -177,3 +184,68 @@ def _spot_pixel_boxes(positions, window: int, hex_coords: bool = True):
     y_px = np.rint(np.asarray(positions["pxl_row_in_fullres"])[keep]
                    .astype(float)).astype(int) + window // 2
     return np.asarray(x_ind), np.asarray(y_ind), x_px, y_px
+
+
+def spot_pixel_arrays(positions, h_st: int = geometry.VISIUM_H_ST,
+                      w_st: int = geometry.VISIUM_W_ST, hex_coords: bool = True):
+    """Positions -> (oddr_y, oddr_x, y_px, x_px) arrays over in-tissue spots
+    inside the lattice (pixel coords not yet offset for padding).
+    ``hex_coords=False`` (Visium HD square bins) indexes the grid directly
+    by (array_row, array_col)."""
+    ox, oy, x_px, y_px = _spot_pixel_boxes(positions, window=0, hex_coords=hex_coords)
+    # lower bounds too: a malformed-parity spot's odd-right x of -1 must not
+    # land on the last grid column
+    keep = (oy >= 0) & (ox >= 0) & (oy < h_st) & (ox < w_st)
+    return (oy[keep], ox[keep],
+            y_px[keep].astype(np.int32), x_px[keep].astype(np.int32))
+
+
+def edge_pad(wsi: torch.Tensor, pad: int) -> torch.Tensor:
+    """(H, W, C) -> (H + 2 pad, W + 2 pad, C), repeating the edge pixels
+    (``np.pad(mode="edge")``), on the slide's device."""
+    h, w = wsi.shape[:2]
+    rows = torch.arange(-pad, h + pad, device=wsi.device).clamp_(0, h - 1)
+    cols = torch.arange(-pad, w + pad, device=wsi.device).clamp_(0, w - 1)
+    return wsi.index_select(0, rows).index_select(1, cols)
+
+
+def crop_grid(wsi: torch.Tensor, oy, ox, y0, x0, window: int, patch_size: int,
+              h_st: int, w_st: int) -> torch.Tensor:
+    """(h_st, w_st, P, P, 3) float32 grid on the slide's device: the
+    ``window`` crop at each corner (y0, x0) of the (H, W, 3) uint8 slide
+    (:func:`~gridnext_tpu_torch.ops.patch_gather_cuda.gather_patches`),
+    resized to ``patch_size`` where they differ (:func:`resize_patches`,
+    requantised to uint8), ``/255`` at its cell (oy, ox), zeros elsewhere.
+    """
+    dev = wsi.device
+    crops = gather_patches(wsi, torch.as_tensor(y0, device=dev),
+                           torch.as_tensor(x0, device=dev), window)
+    if window != patch_size:
+        mats = resize_matrices(window, window, patch_size, dev)
+        crops = torch.cat([resize_patches(part, patch_size, mats)
+                           for part in torch.split(crops, _RESIZE_CHUNK)])
+    grid = torch.zeros((h_st, w_st, patch_size, patch_size, 3), dtype=torch.float32,
+                       device=dev)
+    grid[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
+        crops.float() / 255.0
+    return grid
+
+
+def patch_grid(wsi: torch.Tensor, positions, patch_size: int, window_size=None,
+               h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
+               hex_coords: bool = True) -> torch.Tensor:
+    """The ``(h_st, w_st, P, P, 3)`` float32 patch grid of one array on the
+    slide's device: the JAX package's ``grid_from_wsi_visium`` (``/255``)
+    for an (H, W, 3) uint8 slide tensor.
+
+    The slide is edge-padded by ``window // 2`` (``window_size``, default
+    ``patch_size``) and each in-tissue spot inside the lattice cropped
+    from its rounded center, so a spot near the border reads repeated edge
+    pixels (a clamped corner would read other pixels), then resized to
+    ``patch_size`` where the window differs. ``hex_coords=False`` (Visium
+    HD square bins) indexes the grid by (array_row, array_col).
+    """
+    w = window_size or patch_size
+    oy, ox, y_px, x_px = spot_pixel_arrays(positions, h_st, w_st, hex_coords)
+    # padded by w // 2, the slide's window around a center starts at it
+    return crop_grid(edge_pad(wsi, w // 2), oy, ox, y_px, x_px, w, patch_size, h_st, w_st)

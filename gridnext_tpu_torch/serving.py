@@ -27,8 +27,10 @@ of the exact bin extents when it is fractional (``"resample"``;
 A cohort of slide files registers through :func:`register_slides`, which
 overlaps decoding and staging (:class:`~gridnext_tpu_torch.ingest.SlideSource`)
 with registration and batches same-shape slides (:func:`dispatch_group`).
-Multimodal model directories (a count f beside an image f) register
-pre-built image and count grids with :func:`register_mm_grid`.
+Multimodal model directories (a count f beside an image f) register an
+image grid and a count grid with :func:`register_mm_grid`; the ``register``
+command builds them from the slides and the unified count caches
+(:func:`gridnext_tpu_torch.data.create_visium_dataset`).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise rather than carry on on the CPU.
@@ -42,13 +44,14 @@ import numpy as np
 import torch
 
 from gridnext_tpu_torch import geometry
+from gridnext_tpu_torch.observability import stage
 from gridnext_tpu_torch.ops.hexcorrector_cuda import (
     CORRECTOR_RELU_FLAGS, as_f32_tensors, fused_hex_corrector,
     fused_hex_corrector_labels)
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
-from gridnext_tpu_torch.pipeline import (_spot_pixel_boxes, imagenet_normalize,
-                                         resize_matrices, resize_patches,
-                                         scale_and_translate_linear)
+from gridnext_tpu_torch.pipeline import (imagenet_normalize, resize_matrices,
+                                         resize_patches, scale_and_translate_linear,
+                                         spot_pixel_arrays)
 
 # Padded spot arrays round up to a multiple of this (the JAX package's
 # compile-sharing bucket; kept so both pad the same way).
@@ -67,20 +70,6 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: the port runs on the GPU by default; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return device
-
-
-def spot_pixel_arrays(positions, h_st: int = geometry.VISIUM_H_ST,
-                      w_st: int = geometry.VISIUM_W_ST, hex_coords: bool = True):
-    """Positions -> (oddr_y, oddr_x, y_px, x_px) arrays over in-tissue spots
-    inside the lattice (pixel coords not yet offset for padding).
-    ``hex_coords=False`` (Visium HD square bins) indexes the grid directly
-    by (array_row, array_col)."""
-    ox, oy, x_px, y_px = _spot_pixel_boxes(positions, window=0, hex_coords=hex_coords)
-    # lower bounds too: a malformed-parity spot's odd-right x of -1 must not
-    # land on the last grid column
-    keep = (oy >= 0) & (ox >= 0) & (oy < h_st) & (ox < w_st)
-    return (oy[keep], ox[keep],
-            y_px[keep].astype(np.int32), x_px[keep].astype(np.int32))
 
 
 def _clamp_centers(y_px, x_px, wsi_shape, window_size: int,
@@ -568,15 +557,6 @@ class SlideRegistrar:
         return self._register_batch(wsis, *spots).cpu().numpy()
 
 
-def _tctx(timer, stage: str):
-    """``timer(stage)``, or a no-op context without a timer."""
-    if timer is None:
-        import contextlib
-
-        return contextlib.nullcontext()
-    return timer(stage)
-
-
 def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, plans=None,
                    stats=None):
     """Register one same-shape group of slides.
@@ -612,17 +592,17 @@ def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, plans=None,
             if plan is None:
                 rest.append((key, wsi, pos))
                 continue
-            with _tctx(timer, "register"):
+            with stage(timer, "register"):
                 out.append((key, registrar.register_dense(wsi, pos, plan=plan), pos))
         items = rest
         if not items:
             return out
     if len(items) == 1:
         key, wsi, pos = items[0]
-        with _tctx(timer, "register"):
+        with stage(timer, "register"):
             return out + [(key, registrar(wsi, pos), pos)]
     keys, wsis, poss = zip(*items)
-    with _tctx(timer, "register"):
+    with stage(timer, "register"):
         labels = registrar.register_batch(torch.stack(
             [torch.as_tensor(w, device=registrar.device) for w in wsis]), list(poss))
     if stats is not None:
@@ -700,18 +680,24 @@ def register_slides(registrar: SlideRegistrar, image_files: Sequence,
 
 
 def register_mm_grid(model, x_image, x_count_raw, count_transform: Optional[Callable] = None,
-                     device="cuda") -> np.ndarray:
-    """Register one slide with a multimodal ``GridNetHexMM``.
+                     device="cuda", timer=None) -> np.ndarray:
+    """Register one slide with a multimodal ``GridNetHexMM`` (Visium hex) or
+    ``GridNetMM`` (a square lattice).
 
     Args:
-      model: a ``GridNetHexMM`` (e.g. from ``modeldir.mm_model_from_meta``);
-        it is moved to ``device`` (in place).
+      model: a ``GridNetHexMM`` or ``GridNetMM`` (e.g. from
+        ``modeldir.mm_model_from_meta``); it is moved to ``device`` (in
+        place).
       x_image: ``(H, W, P, P, 3)`` float32 patch grid, ``/255`` patches at
-        the spots' cells and zeros elsewhere (as the JAX datasets build it).
+        the spots' cells and zeros elsewhere (as the JAX datasets build it);
+        a tensor already on ``device`` is used as it is, without a copy.
       x_count_raw: ``(H, W, G)`` raw count grid (numpy).
       count_transform: maps raw counts to the count f's input
-        (``modeldir.scbert_transform`` for an scBERT count f), or None.
+        (``modeldir.scbert_transform`` for an scBERT count f, ``np.log1p``),
+        or None.
       device: where the forward runs; 'cuda' (default) raises without CUDA.
+      timer: optional StageTimer: ``"count transform"`` and ``"forward"``
+        (the labels back on the host).
 
     Returns:
       (H, W) int32 labels: argmax + 1 of the corrector's logits where the
@@ -719,10 +705,12 @@ def register_mm_grid(model, x_image, x_count_raw, count_transform: Optional[Call
     """
     device = resolve_device(device)
     x_count_raw = np.asarray(x_count_raw, np.float32)
-    fg = x_count_raw.sum(-1) > 0
-    x_count = count_transform(x_count_raw) if count_transform is not None else x_count_raw
+    fg = x_count_raw.sum(-1) > 0        # the tissue, from the raw counts
+    with stage(timer, "count transform"):
+        x_count = (count_transform(x_count_raw) if count_transform is not None
+                   else x_count_raw)
     model.to(device)
-    with torch.no_grad():
+    with stage(timer, "forward"), torch.no_grad():
         xi = torch.as_tensor(x_image, dtype=torch.float32, device=device)
         xc = torch.as_tensor(x_count, dtype=torch.float32, device=device)
         logits = model((xi[None], xc[None]))[0]

@@ -12,9 +12,12 @@ moved off init by numpy noise:
   JAX's logits, ``label_parity_report``), foreground equal;
 - a ``GridNetHex+CountMLP`` directory (``train-count``'s meta) through
   ``python -m gridnext_tpu_torch register --device cpu``: CSVs byte-identical;
-- a missing cache and a wrong gene axis exit with JAX's messages; model
-  kinds not ported exit with the ROADMAP item; the default device raises
-  without CUDA.
+- a missing cache and a wrong gene axis exit with JAX's messages; the
+  other model kinds (``HexGCN``, ``GridNetHexMM``, square ``GridNetMM`` and
+  square ``GridNet+CountMLP``, held against JAX in
+  ``test_torch_register_mm.py`` and ``test_torch_graph.py``) register and
+  write a CSV naming each in-tissue spot; the default device raises
+  without CUDA, for a multimodal directory too.
 """
 
 import csv
@@ -27,6 +30,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from PIL import Image
@@ -38,10 +42,16 @@ from gridnext_tpu.geometry import pseudo_hex_to_oddr
 from gridnext_tpu.io import prepare_count_files
 from gridnext_tpu.io import read_positions as jax_read_positions
 from gridnext_tpu.io.unify import read_unified_genes
+from gridnext_tpu.data.graph_data import feature_axis_signature
 from gridnext_tpu.models import CountMLP as JaxCountMLP
+from gridnext_tpu.models import GridNet as JaxGridNet
 from gridnext_tpu.models import GridNetHex as JaxGridNetHex
+from gridnext_tpu.models import GridNetHexMM as JaxGridNetHexMM
+from gridnext_tpu.models import GridNetMM as JaxGridNetMM
+from gridnext_tpu.models import HexGCN as JaxHexGCN
 from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
-from gridnext_tpu.train import create_train_state, make_gridwise_optimizer, save_checkpoint
+from gridnext_tpu.train import (TrainState, create_train_state, make_gridwise_optimizer,
+                                save_checkpoint)
 from gridnext_tpu_torch.cli import main
 from gridnext_tpu_torch.serving import label_parity_report
 
@@ -49,6 +59,7 @@ REPO = Path(__file__).resolve().parents[1]
 N_CLASSES, PATCH, GENES = 3, 16, 20
 CLASSES = ["A", "B", "C"]
 TPU_F = {"stages": [[32, 1]], "stem_patch": 8, "norm": "rms"}
+BINNING, HD_GRID, HD_PITCH = "square_016um", (10, 12), 12
 
 
 def _moved(variables, seed=1):
@@ -200,27 +211,105 @@ def test_register_errors_match_jax(cohort, count_dir, image_dir, tmp_path):
         assert _exit_code(main, args + ["--device", "cpu"]) == want
 
 
-def test_register_unported_kinds_exit(count_dir, cohort, tmp_path):
-    _, dirs, _ = cohort
-    meta = json.loads(Path(count_dir, "model.json").read_text())
-    for change, item in (({"model": "HexGCN"}, "item 8"), ({"model": "GridNetHexMM"}, "item 4"),
-                         ({"model": "GridNetMM", "grid_dims": [40, 40]}, "item 4"),
-                         ({"grid_dims": [40, 40], "hd_binning": "square_008um"}, "item 4")):
-        d = tmp_path / f"m_{item.replace(' ', '')}_{len(os.listdir(tmp_path))}"
+@pytest.fixture(scope="module")
+def hd_dir(tmp_path_factory):
+    """A Visium HD array (10 x 12 bins at 12 px) with its slide and binned
+    unified cache."""
+    sim = simulate_spaceranger_dir(tmp_path_factory.mktemp("torch_cli_hd") / "hd0", seed=4,
+                                   n_genes=GENES, n_classes=N_CLASSES,
+                                   spaceranger_version="hd", hd_grid=HD_GRID,
+                                   hd_binning=BINNING, image=True, spot_spacing_px=HD_PITCH)
+    prepare_count_files([sim["spaceranger_dir"]], verbose=False, hd_binning=BINNING)
+    return sim["spaceranger_dir"], sim["image_file"]
+
+
+@pytest.fixture(scope="module")
+def mm_dir(cohort):
+    """A GridNetHexMM directory (CountMLP count f, TpuPatchClassifier image f)
+    with ``train-mm``'s meta."""
+    root, dirs, _ = cohort
+    genes = read_unified_genes(os.path.join(dirs[0], "outs.unified.tsv.gz"))
+    g = JaxGridNetHexMM(image_classifier=JaxTpuF(n_classes=N_CLASSES, stages=((32, 1),),
+                                                 stem_patch=8),
+                        count_classifier=JaxCountMLP(n_classes=N_CLASSES),
+                        n_classes=N_CLASSES, patch_chunk=256)
+    meta = {"patch_px": PATCH, "window_px": None, "patch_chunk": 256, "count_chunk": None,
+            "n_genes": len(genes), "genes": genes, "log1p": True, "count_f": "mlp",
+            "hd_binning": None, "grid_dims": None, "image_f": "tpu", "tpu_f": TPU_F,
+            "dense_ingest": False, "model": "GridNetHexMM"}
+    return _write_model_dir(root / "model_mm", g, (jnp.zeros((1, 2, 2, PATCH, PATCH, 3)),
+                                                   jnp.zeros((1, 2, 2, len(genes)))), meta)
+
+
+def _kind_dir(kind, root, dirs, hd_dir):
+    """A model directory of ``kind`` as the JAX package's trainers write it,
+    and the ``register`` arguments of its Spaceranger directory."""
+    hd_srd, hd_image = hd_dir
+    hd_genes = read_unified_genes(os.path.join(hd_srd, f"hd0.{BINNING}.unified.tsv.gz"))
+    square = {"hd_binning": BINNING, "grid_dims": list(HD_GRID), "genes": hd_genes,
+              "n_genes": len(hd_genes), "log1p": True}
+    if kind == "HexGCN":
+        g = JaxHexGCN(n_classes=N_CLASSES, hidden=16, depth=2)
+        params = g.init(jax.random.key(0), jnp.zeros((12, GENES)),
+                        jnp.zeros((2, 4), jnp.int32))["params"]
+        params = _moved({"params": params})["params"]
+        state = TrainState(params=params, batch_stats=None,
+                           opt_state=optax.adam(1e-3).init(params),
+                           step=jnp.asarray(1, jnp.int32), extra_vars={})
+        d = root / "kind_HexGCN"
         d.mkdir()
-        (d / "g_state.msgpack").write_bytes(Path(count_dir, "g_state.msgpack").read_bytes())
-        (d / "model.json").write_text(json.dumps({**meta, **change}))
-        code = _exit_code(main, ["register", "--model", str(d), "--spaceranger", dirs[0],
-                                 "--out", str(tmp_path / "u.csv"), "--device", "cpu"])
-        assert isinstance(code, str) and code.startswith("error:") and item in code
+        save_checkpoint(str(d / "g_state.msgpack"), state)
+        (d / "model.json").write_text(json.dumps({
+            "classes": CLASSES, "model": "HexGCN", "hidden": 16, "depth": 2, "log1p": True,
+            "n_genes": GENES, "feature_axis": feature_axis_signature(dirs[0])}))
+        return str(d), ["--spaceranger", dirs[0]]
+    if kind == "GridNetMM":
+        g = JaxGridNetMM(image_classifier=JaxTpuF(n_classes=N_CLASSES, stages=((16, 1),),
+                                                  stem_patch=4),
+                         count_classifier=JaxCountMLP(n_classes=N_CLASSES),
+                         n_classes=N_CLASSES, patch_chunk=64)
+        meta = {**square, "model": "GridNetMM", "patch_px": HD_PITCH, "window_px": None,
+                "patch_chunk": 64, "count_f": "mlp", "image_f": "tpu",
+                "tpu_f": {"stages": [[16, 1]], "stem_patch": 4, "norm": "rms"},
+                "dense_ingest": False}
+        sample = (jnp.zeros((1, 2, 2, HD_PITCH, HD_PITCH, 3)),
+                  jnp.zeros((1, 2, 2, len(hd_genes))))
+        return (_write_model_dir(root / "kind_GridNetMM", g, sample, meta),
+                ["--spaceranger", hd_srd, "--images", hd_image])
+    g = JaxGridNet(patch_classifier=JaxCountMLP(n_classes=N_CLASSES), n_classes=N_CLASSES)
+    meta = {**square, "model": "GridNet+CountMLP"}
+    return (_write_model_dir(root / "kind_count", g, jnp.zeros((1, 4, 4, len(hd_genes))), meta),
+            ["--spaceranger", hd_srd])
+
+
+@pytest.mark.parametrize("kind", ["HexGCN", "GridNetHexMM", "GridNetMM", "GridNet+CountMLP"])
+def test_register_formerly_unported_kinds(kind, cohort, mm_dir, hd_dir, tmp_path):
+    """Each model kind that ``register`` refused before registers and writes a
+    CSV naming every in-tissue spot with a class."""
+    root, dirs, images = cohort
+    if kind == "GridNetHexMM":
+        model, args = mm_dir, ["--spaceranger", dirs[0], "--images", images[0]]
+    else:
+        model, args = _kind_dir(kind, tmp_path, dirs, hd_dir)
+    out = tmp_path / "u.csv"
+    main(["register", "--model", model, *args, "--out", str(out), "--device", "cpu"])
+    hd = args[1] == hd_dir[0]
+    pos = jax_read_positions(args[1], hd_binning=BINNING if hd else None)
+    with open(out, newline="") as fh:
+        rows = list(csv.reader(fh))
+    assert rows[0] == ["Barcode", "AARs"]
+    assert sorted(r[0] for r in rows[1:]) == sorted(pos.index[pos["in_tissue"] == 1])
+    assert {r[1] for r in rows[1:]} <= set(CLASSES)
 
 
 def test_register_default_device_needs_cuda(monkeypatch, cohort, count_dir, image_dir,
-                                            tmp_path):
+                                            mm_dir, tmp_path):
     _, dirs, images = cohort
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for args in (["register", "--model", count_dir, "--spaceranger", dirs[0]],
                  ["register", "--model", image_dir, "--spaceranger", dirs[0],
+                  "--images", images[0]],
+                 ["register", "--model", mm_dir, "--spaceranger", dirs[0],
                   "--images", images[0]]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(args + ["--out", str(tmp_path / "d.csv")])
