@@ -145,7 +145,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``HexGCN`` (hidden 128, depth 3) over slide 0's MEX, the labels those
     of the same weights on the CPU up to near-ties; every foreground equal
     to the tissue; each command's ms/slide, stage split and spots/s;
-14. a ``{"kernels": [...]}`` line, then the last line
+14. training at full width: (a) ``cli.main(["train-image", ...])`` with
+    DenseNet-121 f and a GridNetHex g (128-px patches, batch 32,
+    patch_chunk 624, grid batch 1) over phase 4's four slides as a cohort
+    (8,514 in-tissue spots; each spot's window tinted by its class, 7-class
+    Loupe CSVs of the tissue's angular sectors with 10 % of the labels
+    redrawn from a numpy seed; slides as ``.npy``, decode swapped for
+    ``np.load``), ``--epochs 1`` and then ``--resume --epochs 2``, the
+    gather's count set to 0 before each and required to be one launch per
+    spot batch and per grid; the written directory registered by the
+    ``register`` command, its labels equal (up to near-ties) to a CPU
+    forward of the same weights, and ``g_state.msgpack`` read back
+    bit-equal; a spotwise epoch timed, and a traced epoch of 20 batches
+    for the device time a step of the crop, forward + backward and the
+    optimiser (each kernel by the range its launch fell in) and the busy
+    time a step, which split the untraced epoch (the device's idle time
+    the host's) and give its idle share; the grid step timed; (b) one spotwise DenseNet-121 step
+    (batch 32) and one GridNetHex grid step with the frozen DenseNet-121 f
+    over a 32 x 32 window of slide 0's grid (the CPU's f over a whole grid
+    takes a minute), on the card and on the CPU from the same weights, and in float64 on
+    the card as the reference: loss within 1e-4 relative and the updated
+    BatchNorm statistics within 1e-4 absolute, card vs CPU; the card's
+    gradients as exact as the CPU's against float64 (worst relative error
+    at most twice the CPU's), and its updated parameters more than 1e-4
+    from the float64 step no more often than twice the CPU's (float32
+    resolves some BatchNorm-cancelled gradients only to ~1e-2 on either
+    device, and Adam's first step moves those elements by up to lr; the
+    elements more than 1e-4 apart, card vs CPU, are counted); (c)
+    ``train_spotwise`` of scBERT at full width (16,906 genes, dim 200, depth
+    6, 10 heads, dim_head 64, m 266; batch 8, 8 steps; weights from a numpy
+    seed, the head's token scores centred on their mean), FAVOR's wrapper
+    required to run 6 times a step (3 CUDA kernels each); one step's q/k/v
+    projection gradients, kernel route against plain route, within 3x the
+    gap that the plain route with FAVOR's output perturbed by 2e-4 relative
+    (the kernel's forward tolerance) gives, and a planted forward wrong by
+    1e-2 relative required to exceed that limit; then
+    one ``train_gridwise`` step of phase 9's GridNetHexMM (scBERT +
+    DenseNet-121, both frozen) over a full grid, 3,744 FAVOR calls; the
+    phase's seconds and peak device memory, each number beside the card's
+    name and power limit;
+15. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -1402,6 +1441,32 @@ def staging_overlap(prof, path) -> dict:
             "device_busy_ms": sum(b - a for a, b in merged(copies + kernels)) / 1e3}
 
 
+def device_ms_by_range(path, names) -> dict:
+    """From a Chrome trace at ``path``: each device event's ms, summed by the
+    innermost of the ``record_function`` ranges ``names`` (host spans, on
+    any thread) that its launch fell in; ``"other"`` for the rest."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans, launched, device = [], {}, []
+    for e in events:
+        if "dur" not in e or "ts" not in e:
+            continue
+        cat, args = str(e.get("cat", "")), e.get("args") or {}
+        if cat == "user_annotation" and e.get("name") in names:
+            spans.append((float(e["dur"]), float(e["ts"]), e["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launched[args["correlation"]] = float(e["ts"])
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((args.get("correlation"), float(e["dur"])))
+    spans.sort()                                   # the innermost (shortest) first
+    out = dict.fromkeys((*names, "other"), 0.0)
+    for corr, dur in device:
+        t = launched.get(corr)
+        name = next((n for d, a, n in spans if t is not None and a <= t <= a + d), "other")
+        out[name] += dur / 1e3
+    return out
+
+
 def phase_register_slides(torch, slides, port, card, tmp, batch4):
     """The ``register`` command's path at full width: a model directory on
     disk, six slide files through ``register_slides``, four through the CLI.
@@ -1807,8 +1872,7 @@ def calibrated_bns(torch, corrector, grid, variables):
     cell, so that label checks would see little."""
     with torch.no_grad():
         for bn in corrector.bns:
-            bn.reset_running_stats()
-            bn.momentum = None                     # a cumulative average: this batch's
+            bn.momentum = 0.0                      # the running statistics := this batch's
         corrector.train()(grid)
         corrector.eval()
     out = {c: {k: dict(v) for k, v in tree.items()} for c, tree in variables.items()}
@@ -1862,7 +1926,7 @@ def phase_hd(torch, port, card, tmp, dev) -> None:
     """Visium HD at full width: a GridNet(TpuPatchClassifier) model directory
     over a 384 x 384 lattice of 16 um bins, slides E (exact tiling), F
     (fractional pitch) and J (jittered: per bin)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from gridnext_tpu_torch import cli, ingest
 
@@ -2426,6 +2490,485 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
         f"per class {json.dumps(hist)}")
 
 
+
+TRAIN_BATCH = 32              # train-image's --batch-size
+TRAIN_LR = 1e-3               # train-image's --f-lr and --g-lr
+TRAIN_TRACE_BATCHES = 20      # spotwise batches in the traced epoch (640 spots)
+SCBERT_BATCH, SCBERT_STEPS = 8, 8
+TRAIN_TINT = 48               # +- intensity of a class's colour tint in its spots' windows
+TRAIN_NOISE = 0.1             # share of spots whose annotation is another class
+GRID_WINDOW = (24, 16)        # top-left cell of (b)'s 32 x 32 grid window
+
+
+def annotated_training_cohort(torch, slides, geometry, tmp):
+    """Phase 4's four slides as a training cohort: Spaceranger dirs, the
+    slides as ``.npy`` with each in-tissue spot's window tinted by its
+    class's colour, and 7-class Loupe CSVs. The classes are the 7 angular
+    sectors of each tissue ellipse (a spatial pattern the corrector can
+    use), with ``TRAIN_NOISE`` of the spots relabelled from a numpy seed."""
+    rng = np.random.default_rng(SEED + 20)
+    tints = rng.integers(-TRAIN_TINT, TRAIN_TINT + 1, (N_CLASSES, 3))
+    dirs, npys, csvs, masks, labels = [], [], [], [], []
+    rows, cols, y_px, x_px = lattice(geometry)
+    cx, cy = geometry.oddr_to_cartesian(cols, rows)
+    sector = ((np.arctan2(cy - cy.mean(), cx - cx.mean()) + np.pi)
+              / (2 * np.pi) * N_CLASSES).astype(np.int64) % N_CLASSES
+    for i, frac in enumerate(TISSUE_FRACTIONS[:len(slides)]):
+        root = os.path.join(tmp, f"cohort{i}")
+        srd, mask = write_spaceranger_dir(root, geometry, frac, i)
+        keep = mask.reshape(-1) > 0
+        lab = sector.copy()
+        noisy = rng.random(lab.shape) < TRAIN_NOISE
+        lab[noisy] = rng.integers(0, N_CLASSES, int(noisy.sum()))
+        wsi = slides[i].clone()
+        half = PATCH // 2
+        for c in range(N_CLASSES):
+            sel = np.flatnonzero(keep & (lab == c))
+            ys = torch.as_tensor(y_px[sel] - half, device=wsi.device)
+            xs = torch.as_tensor(x_px[sel] - half, device=wsi.device)
+            offs = torch.arange(PATCH, device=wsi.device)
+            win = (ys[:, None, None] + offs[None, :, None],
+                   xs[:, None, None] + offs[None, None, :])
+            tinted = wsi[win].to(torch.int16) + torch.as_tensor(tints[c], device=wsi.device,
+                                                               dtype=torch.int16)
+            wsi[win] = tinted.clamp(0, 255).to(torch.uint8)
+        npy = os.path.join(tmp, f"train_slide{i}.npy")
+        np.save(npy, wsi.cpu().numpy())
+        del wsi
+        pos_barcodes = [f"S{i}BC{j:05d}-1" for j in range(len(keep))]
+        csv_path = os.path.join(tmp, f"slide{i}_annotations.csv")
+        with open(csv_path, "w", newline="") as fh:
+            out = csv.writer(fh)
+            out.writerow(["Barcode", "AARs"])
+            out.writerows([pos_barcodes[j], f"Class_{lab[j] + 1}"] for j in np.flatnonzero(keep))
+        dirs.append(srd)
+        npys.append(npy)
+        csvs.append(csv_path)
+        masks.append(mask)
+        labels.append(np.where(mask.reshape(-1) > 0, lab + 1, 0).reshape(mask.shape))
+    return dirs, npys, csvs, masks, labels
+
+
+def step_parity(torch, tl, from_jax, make_model, variables, x, y, loss_kind, dev):
+    """One ``make_steps`` train step of the same weights on the card and on
+    the CPU (float32), and on the card in float64 as the reference.
+
+    Float32 cannot fix every gradient element: where BatchNorm's batch
+    statistics cancel most of a gradient, its float32 value carries a
+    relative error of up to ~1e-2 on either device (measured against
+    float64), and Adam's first step moves an element by ``lr * g / (|g| +
+    eps)``, so an element whose gradient float32 cannot resolve moves by up
+    to lr either way. The check is that the card is as exact as the CPU:
+    returns the loss's relative error and the BatchNorm statistics' max
+    abs error (card vs CPU); per device, the worst relative error of a
+    parameter's gradient against float64 (tensors whose float64 gradient
+    is below 1e-6 of the largest, a zero true gradient, left out and
+    counted) and the count of updated
+    parameter elements more than 1e-4 from the float64 step; and the count
+    of updated parameter elements more than 1e-4 apart, card vs CPU."""
+    out = {}
+    for where, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                         (dev, torch.float64)):
+        model = make_model().to(dtype)
+        tx = tl.make_adam(TRAIN_LR) if loss_kind == "spot" else \
+            tl.make_gridwise_optimizer(TRAIN_LR)
+        state = tl.create_train_state(model, tx, device=where, init=False)
+        from_jax.load_variables(model, variables)
+        grads = {}
+        step = state.optimizer.step
+
+        def capture(step=step, grads=grads, state=state):
+            for path, t, _ in state.optimizer.entries:
+                if t.grad is not None:
+                    grads[path] = t.grad.detach().double().cpu()
+            step()
+
+        state.optimizer.step = capture
+        train_step, _ = tl.make_steps(state, loss_kind)
+        m = train_step(x.to(where, dtype), torch.as_tensor(y, device=where))
+        params = {path: t.detach().double().cpu() for path, t, _ in state.optimizer.entries}
+        stats = {path: t.detach().double().cpu() for path, t, _ in from_jax.model_entries(model)
+                 if path[0] == "batch_stats"}
+        out[(where.type, dtype)] = (float(m["loss"]), grads, params, stats)
+        del model, state
+    (l_card, g_card, p_card, s_card), (l_cpu, g_cpu, p_cpu, s_cpu), (_, g64, p64, _) = (
+        out[(dev.type, torch.float32)], out[("cpu", torch.float32)],
+        out[(dev.type, torch.float64)])
+    res = {"loss": abs(l_card - l_cpu) / abs(l_cpu), "stats": 0.0, "apart": 0,
+           "grad_card": 0.0, "grad_cpu": 0.0, "far_card": 0, "far_cpu": 0, "n": 0}
+    top = max(float(g.norm()) for g in g64.values())
+    res["zero_grad"] = 0
+    for path, g in g64.items():
+        scale = float(g.norm())
+        if scale > 1e-6 * top:
+            res["grad_card"] = max(res["grad_card"], float((g_card[path] - g).norm()) / scale)
+            res["grad_cpu"] = max(res["grad_cpu"], float((g_cpu[path] - g).norm()) / scale)
+        else:           # a zero true gradient (a bias before a BatchNorm)
+            res["zero_grad"] += 1
+        res["far_card"] += int(((p_card[path] - p64[path]).abs() > 1e-4).sum())
+        res["far_cpu"] += int(((p_cpu[path] - p64[path]).abs() > 1e-4).sum())
+        res["apart"] += int(((p_card[path] - p_cpu[path]).abs() > 1e-4).sum())
+        res["n"] += g.numel()
+    for path, t in s_cpu.items():
+        res["stats"] = max(res["stats"], float((s_card[path] - t).abs().max()))
+    return res
+
+
+def check_step_parity(name, res):
+    log(f"(b) {name}, card vs CPU (float32; float64 on the card the reference): loss rel err "
+        f"{res['loss']:.3g}, updated BatchNorm statistics max abs err {res['stats']:.3g}; "
+        f"worst gradient rel err against float64: card {res['grad_card']:.3g}, CPU "
+        f"{res['grad_cpu']:.3g} ({res['zero_grad']} tensors of zero true gradient left "
+        f"out); updated parameters more than 1e-4 from the float64 step: "
+        f"card {res['far_card']}, CPU {res['far_cpu']} of {res['n']}; more than 1e-4 apart, "
+        f"card vs CPU: {res['apart']}")
+    if not (res["loss"] <= 1e-4 and res["stats"] <= 1e-4
+            and res["grad_card"] <= 2 * res["grad_cpu"] + 1e-6
+            and res["far_card"] <= 2 * res["far_cpu"] + 10):
+        raise AssertionError(f"{name}: the card's step is less exact than the CPU's")
+
+
+def phase_train(torch, slides, port, card, tmp, mm):
+    """Phase 14: training at full width (module docstring), the cohort's
+    slides ``.npy`` files (decode swapped for np.load)."""
+    from gridnext_tpu_torch import ingest
+
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        train_phase(torch, slides, port, card, tmp, mm)
+    finally:
+        ingest.decode_slide = decode
+
+
+def train_phase(torch, slides, port, card, tmp, mm):
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.data import create_visium_dataset
+    from gridnext_tpu_torch.models import performer
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+    from gridnext_tpu_torch.ops import favor_cuda
+    from gridnext_tpu_torch.train import loops as tl
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    dev = slides.device
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    t_phase = time.perf_counter()
+    laps = {}
+    log(f"== phase 14: training at full width: train-image (DenseNet-121 f, GridNetHex g, "
+        f"{PATCH}-px patches, batch {TRAIN_BATCH}, patch_chunk {CHUNK}), one step on the "
+        f"card against the CPU, scBERT spotwise and one multimodal grid step (TF32 off)")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the train-image command, then --resume, then register
+    dirs, npys, csvs, masks, truth = annotated_training_cohort(torch, slides, geometry, tmp)
+    n_spots = int(sum(int(m.sum()) for m in masks))
+    out = os.path.join(tmp, "model_train_image")
+    argv = ["train-image", "--spaceranger", *dirs, "--annots", *csvs, "--images", *npys,
+            "--out", out, "--batch-size", str(TRAIN_BATCH), "--patch-px", str(PATCH),
+            "--patch-chunk", str(CHUNK), "--device", str(dev)]
+    n_val = max(1, n_spots // 5)
+    want_gather = (-(-(n_spots - n_val) // TRAIN_BATCH) + -(-n_val // TRAIN_BATCH)
+                   + len(dirs))
+    walls = []
+    for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"]):
+        torch.cuda.synchronize()
+        gather.launches = 0
+        t0 = time.perf_counter()
+        cli.main(argv + extra)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        log(f"train-image {' '.join(extra)}: {walls[-1]:.2f} s, {gather.launches} "
+            f"gather launches ({want_gather} expected: one per spot batch and grid)")
+        if gather.launches != want_gather:
+            raise AssertionError(f"train-image: {gather.launches} gather launches, "
+                                 f"want {want_gather}")
+    latest = from_jax.load_checkpoint(os.path.join(out, "g_state.msgpack.latest"))
+    if latest["epochs_done"] != 2 or latest["step"] != 2 * 3:
+        raise AssertionError(f"the resumed run ended at epoch {latest['epochs_done']}, "
+                             f"step {latest['step']}")
+    # register slide 3 with the trained directory through the command
+    csv_out = os.path.join(tmp, "trained.csv")
+    cli.main(["register", "--model", out, "--spaceranger", dirs[3], "--images", npys[3],
+              "--out", csv_out, "--device", str(dev)])
+    meta, classes_m, variables = from_jax.load_model_dir(out)
+    if list(classes_m) != classes or meta["model"] != "GridNetHex+DenseNet121":
+        raise AssertionError(f"trained directory: classes {classes_m}, model {meta['model']}")
+    grid, n_rows = loupe_grid(csv_out, masks[3].shape, classes)
+    if n_rows != int(masks[3].sum()) or not np.array_equal(grid > 0, masks[3] > 0):
+        raise AssertionError("trained register: the CSV's spots differ from the tissue")
+    # the same weights on the CPU: the registrar's f32 modules, plain crop
+    reg_cpu = modeldir.image_registrar_from_meta(meta, classes_m, variables, device="cpu")
+    pos3 = io.read_positions(dirs[3])
+    wsi3 = torch.from_numpy(np.load(npys[3]))
+    t0 = time.perf_counter()
+    logits_cpu, fg_cpu = reg_cpu.register_logits(wsi3, pos3)
+    t_cpu = time.perf_counter() - t0
+    want = np.where(fg_cpu > 0, logits_cpu.argmax(-1) + 1, 0)
+    flips = serving.label_parity_report(want, grid, logits_cpu)
+    acc = float((grid[masks[3] > 0] == truth[3][masks[3] > 0]).mean())
+    # g_state.msgpack reads back bit-equal through the bridge
+    g = modeldir.grid_model_from_meta(meta, classes_m, variables, device="cpu")
+    back = from_jax.jax_variables(g)
+    for path, a in tree_leaves(back):
+        b = variables
+        for k in path:
+            b = b[k]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"g_state.msgpack: {'/'.join(path)} does not read back")
+    log(f"(a) train-image over {len(dirs)} arrays, {n_spots} annotated spots: epoch 1 "
+        f"{walls[0]:.2f} s, --resume to epoch 2 {walls[1]:.2f} s; register of slide 3: "
+        f"labels equal to the CPU forward of the same weights ({t_cpu:.1f} s) up to {flips} "
+        f"near-tie flips of {n_rows} spots; accuracy against the annotations {acc:.4f} "
+        f"(chance {1 / N_CLASSES:.3f}); g_state.msgpack reads back bit-equal [{card}]")
+    laps["(a)"] = time.perf_counter()
+
+    # the spotwise epoch's numbers, on the command's dataset and split
+    spots = create_visium_dataset(dirs, spatial=False, use_count=False, annot_files=csvs,
+                                  fullres_image_files=npys, patch_size_px=PATCH,
+                                  device=dev)
+    order = np.random.default_rng(0).permutation(len(spots))[n_val:]
+    batches = [order[i:i + TRAIN_BATCH] for i in range(0, len(order), TRAIN_BATCH)]
+    f = models.densenet121(num_classes=N_CLASSES)
+    state = tl.create_train_state(f, tl.make_adam(TRAIN_LR), device=dev)
+    train_step, _ = tl.make_steps(state, "spot")
+    spots.batch(batches[0])                       # decode and stack the slides
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        x, y = tl._pad_batch(*spots.batch(b), TRAIN_BATCH, "spot")
+        train_step(x, torch.as_tensor(y, device=dev))
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    n_steps = len(batches)
+    # a traced spotwise epoch over TRAIN_TRACE_BATCHES batches: the device
+    # time a step of each part (the kernels by the range their launch fell
+    # in) and the device's busy time a step, against the untraced epoch's
+    # wall time a step (the tracer slows the host)
+    optimiser_step = state.optimizer.step
+
+    def ranged_optimiser_step():
+        with record_function("optimiser"):
+            optimiser_step()
+
+    state.optimizer.step = ranged_optimiser_step
+    traced = batches[:TRAIN_TRACE_BATCHES]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in traced:
+            with record_function("crop"):
+                xc, yc = spots.batch(b)
+            x, y = tl._pad_batch(xc, yc, TRAIN_BATCH, "spot")
+            y = torch.as_tensor(y, device=dev)
+            with record_function("forward + backward"):
+                train_step(x, y)
+        torch.cuda.synchronize()
+        t_traced = time.perf_counter() - t0
+    trace = os.path.join(tmp, "train_trace.json")
+    busy = staging_overlap(prof, trace)["device_busy_ms"] / len(traced)
+    part = {k: v / len(traced) for k, v in device_ms_by_range(
+        trace, ("crop", "forward + backward", "optimiser")).items()}
+    step_ms = t_epoch * 1e3 / n_steps
+    log(f"spotwise epoch ({n_steps} steps of {TRAIN_BATCH}): {t_epoch:.2f} s, "
+        f"{n_steps / t_epoch:.2f} steps/s, {len(order) / t_epoch:.1f} patches/s [{card}]")
+    log(f"traced spotwise epoch ({len(traced)} batches): device ms a step: crop "
+        f"{part['crop']:.3f}, forward + backward {part['forward + backward']:.3f}, "
+        f"optimiser {part['optimiser']:.3f}, the rest {part['other']:.3f}; busy "
+        f"{busy:.3f} ms a step. Epoch split ({n_steps} steps at the untraced "
+        f"{step_ms:.3f} ms a step): crop {part['crop'] * n_steps / 1e3:.3f} s, forward + "
+        f"backward {part['forward + backward'] * n_steps / 1e3:.3f} s, optimiser "
+        f"{part['optimiser'] * n_steps / 1e3:.3f} s, device idle (the host) "
+        f"{t_epoch - busy * n_steps / 1e3:.3f} s; idle share {1 - busy / step_ms:.3f} "
+        f"untraced ({1 - busy * len(traced) / (t_traced * 1e3):.3f} against the traced "
+        f"wall, {t_traced * 1e3 / len(traced):.3f} ms a step) [{card}]")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+    del spots, state, f, prof
+
+    # a grid step: the grid model as the command trains it (f frozen)
+    grids = create_visium_dataset(dirs[:1], use_count=False, annot_files=csvs[:1],
+                                  fullres_image_files=npys[:1], patch_size_px=PATCH,
+                                  device=dev)
+    gx, gy = grids[0]
+    gmodel = models.GridNetHex(models.densenet121(num_classes=N_CLASSES), N_CLASSES,
+                               N_CLASSES, patch_chunk=CHUNK)
+    gstate = tl.create_train_state(gmodel, tl.make_gridwise_optimizer(TRAIN_LR), device=dev)
+    from_jax.load_variables(gmodel, variables)
+    grid_step, _ = tl.make_steps(gstate, "grid")
+    gyt = torch.as_tensor(gy[None], device=dev)
+    grid_ms = cuda_ms(torch, lambda: grid_step(gx[None], gyt), 3, warmup=1)[0]
+    log(f"grid step (GridNetHex, frozen DenseNet-121 over {gx.shape[0] * gx.shape[1]} cells, "
+        f"no_grad f): {grid_ms:.1f} ms, {1e3 / grid_ms:.3f} grid steps/s [{card}]")
+    laps["timings"] = time.perf_counter()
+    del gstate, gmodel
+
+    # (b) one step on the card against the same step on the CPU
+    dn_vars = random_variables(models, from_jax, seed=SEED + 21,
+                               model=models.densenet121(num_classes=N_CLASSES))
+    sel = np.flatnonzero(gy.reshape(-1) > 0)[:TRAIN_BATCH]
+    xb = gx.reshape((-1,) + tuple(gx.shape[2:]))[torch.as_tensor(sel, device=dev)]
+    check_step_parity(f"DenseNet-121 spotwise step (batch {TRAIN_BATCH})", step_parity(
+        torch, tl, from_jax, lambda: models.densenet121(num_classes=N_CLASSES), dn_vars,
+        xb, gy.reshape(-1)[sel] - 1, "spot", dev))
+    g_vars = random_variables(models, from_jax, seed=SEED + 22, model=models.GridNetHex(
+        models.densenet121(num_classes=N_CLASSES), N_CLASSES, N_CLASSES))
+    # a 32 x 32 window of the grid (from an even row: the odd-right parity
+    # holds): the CPU's f over 4,992 cells would take a minute
+    win = (slice(GRID_WINDOW[0], GRID_WINDOW[0] + 32), slice(GRID_WINDOW[1], GRID_WINDOW[1] + 32))
+    check_step_parity("GridNetHex grid step (frozen DenseNet-121 f, 32 x 32 cells)", step_parity(
+        torch, tl, from_jax, lambda: models.GridNetHex(
+            models.densenet121(num_classes=N_CLASSES), N_CLASSES, N_CLASSES,
+            patch_chunk=CHUNK), g_vars, gx[win][None].cpu(), gy[win][None], "grid", dev))
+    laps["(b)"] = time.perf_counter()
+    del gx, grids
+
+    # (c) scBERT spotwise at full width through the FAVOR kernel
+    genes = load_gene2vec_names()[:MM_VOCAB]
+    rng = np.random.default_rng(SEED + 23)
+    n_items = SCBERT_BATCH * SCBERT_STEPS
+    xs = np.minimum(rng.poisson(0.4, (n_items, MM_VOCAB)), 7).astype(np.float32)
+    ys = rng.integers(0, N_CLASSES, n_items)
+    sc_kw = dict(n_genes=MM_VOCAB, dim=MM_DIM, depth=MM_DEPTH, heads=MM_HEADS,
+                 dim_head=MM_DIM_HEAD, n_classes=N_CLASSES, generalized_attention=True)
+    # weights from a numpy seed (random_variables: from flax's init, with
+    # embeddings of scale dim^-1/2, every position of the last LayerNorm can
+    # be the same vector)
+    sc = models.scBERT(**sc_kw)
+    sc_state = tl.create_train_state(sc, tl.make_adam(TRAIN_LR), device=dev, init=False)
+    from_jax.load_variables(sc, random_variables(models, from_jax, seed=SEED + 24, model=sc))
+    xb = torch.as_tensor(xs[:SCBERT_BATCH], device=dev)
+    yb = torch.as_tensor(ys[:SCBERT_BATCH], device=dev)
+    # the head's token scores (conv1, then a ReLU) can all take one sign with
+    # random weights, and then no gradient reaches the attention: centre
+    # conv1's bias on the first batch's mean score (not the median: most
+    # tokens are the zero token and share one score, which the median would
+    # put on the ReLU's kink, where the two routes' rounding picks the side)
+    conv1 = sc.performer_lm.head_module.conv1
+    scores = []
+    hook = conv1.register_forward_hook(lambda m, i, o: scores.append(o.detach()))
+    with torch.no_grad():
+        sc.eval()(xb)
+    hook.remove()
+    with torch.no_grad():
+        conv1.bias -= scores[0].mean()
+    # FAVOR's autograd at full width: the weights' q/k/v projection gradients
+    # of one step through the kernel route against the plain route. The
+    # kernel's forward may differ from the plain version's within its
+    # tolerance (2e-4 relative), and the step amplifies that: the limit is 3x
+    # the gap that the plain route's output perturbed by 2e-4 relative gives,
+    # and a forward wrong by 1e-2 relative (a planted fault) must exceed it
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def perturbed(rel_err):
+        def route(q, k, v, proj):
+            out = favor_cuda.favor_attention_plain(q, k, v, proj)
+            return out * (1 + rel_err * torch.randn(out.shape, generator=gen,
+                                                    device=out.device))
+        return route
+
+    def weight_grads(route):
+        performer.fused_generalized_linear_attention = route
+        try:
+            sc.zero_grad(set_to_none=True)
+            tl._spot_loss(sc(xb), yb)[0].backward()
+        finally:
+            performer.fused_generalized_linear_attention = kernel
+        return {n: p.grad.detach().clone() for n, p in sc.named_parameters()
+                if any(k in n for k in ("to_q", "to_k", "to_v"))}
+
+    kernel = performer.fused_generalized_linear_attention
+    sc.train()
+    favor_cuda.launches = 0
+    g_kernel = weight_grads(kernel)
+    if favor_cuda.launches != MM_DEPTH:
+        raise AssertionError(f"the gradient check's step made {favor_cuda.launches} FAVOR "
+                             f"calls, want {MM_DEPTH}")
+    g_plain = weight_grads(favor_cuda.favor_attention_plain)
+    g_pert = weight_grads(perturbed(2e-4))
+    g_wrong = weight_grads(perturbed(1e-2))
+    sc.zero_grad(set_to_none=True)
+    if min(float(g.norm()) for g in g_plain.values()) == 0.0:
+        raise AssertionError("a q/k/v projection takes no gradient: the check would be void")
+
+    def rel(a):
+        return max(float((a[n] - g_plain[n]).norm() / g_plain[n].norm()) for n in g_plain)
+
+    gap, limit, planted = rel(g_kernel), 3 * rel(g_pert), rel(g_wrong)
+    log(f"(c) the step's q/k/v projection gradients over {MM_DEPTH} FAVOR calls at "
+        f"({SCBERT_BATCH}, {MM_HEADS}, {MM_VOCAB + 1}, {MM_DIM_HEAD}), kernel route vs plain "
+        f"route: max relative error {gap:.3g} (<= {limit:.3g}: 3x the plain route's with "
+        f"FAVOR's output perturbed by 2e-4 relative, {rel(g_pert):.3g}); a forward wrong by "
+        f"1e-2 relative gives {planted:.3g} (> the limit)")
+    if not gap <= limit:
+        raise AssertionError(f"FAVOR's training gradients differ from the plain route's by "
+                             f"{gap} (limit {limit})")
+    if not planted > limit:
+        raise AssertionError(f"a forward wrong by 1e-2 relative passes the gradient check "
+                             f"({planted} <= {limit}): the check is void")
+    del g_kernel, g_plain, g_pert, g_wrong
+    favor_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc_state, _, hist = tl.train_spotwise(sc, {"train": (xs, ys)}, num_epochs=1,
+                                          batch_size=SCBERT_BATCH, state=sc_state,
+                                          verbose=False, device=dev)
+    torch.cuda.synchronize()
+    t_sc = time.perf_counter() - t0
+    want_favor = SCBERT_STEPS * MM_DEPTH
+    log(f"(c) scBERT train_spotwise ({SCBERT_STEPS} steps of {SCBERT_BATCH}): {t_sc:.2f} s, "
+        f"{SCBERT_STEPS / t_sc:.3f} steps/s, loss {hist[0]:.4f}; {favor_cuda.launches} FAVOR "
+        f"wrapper calls ({want_favor} expected: {MM_DEPTH} per step, 3 CUDA kernels each)")
+    if favor_cuda.launches != want_favor or not np.isfinite(hist[0]):
+        raise AssertionError(f"scBERT training: {favor_cuda.launches} FAVOR calls, loss "
+                             f"{hist[0]}")
+    del sc, sc_state
+    laps["(c) scBERT"] = time.perf_counter()
+
+    # one gridwise step of GridNetHexMM (scBERT + DenseNet-121, both frozen)
+    mm_model = modeldir.mm_model_from_meta(mm["meta"], classes, mm["variables"], device=dev)
+    mm_state = tl.create_train_state(mm_model, tl.make_gridwise_optimizer(TRAIN_LR),
+                                     device=dev, init=False)
+    if any(p.requires_grad for p in mm_model.image_classifier.parameters()) or any(
+            p.requires_grad for p in mm_model.count_classifier.parameters()):
+        raise AssertionError("a frozen f takes gradients")
+    mask0 = masks[0] > 0
+    oy, ox, y_px, x_px = serving.spot_pixel_arrays(io.read_positions(dirs[0]))
+    crops = gather.gather_patches_plain(
+        slides[0], torch.as_tensor(y_px - PATCH // 2, device=dev),
+        torch.as_tensor(x_px - PATCH // 2, device=dev), PATCH)
+    x_image = torch.zeros((geometry.VISIUM_H_ST, geometry.VISIUM_W_ST, PATCH, PATCH, 3),
+                          device=dev)
+    x_image[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
+        crops.float() / 255.0
+    del crops
+    x_count = torch.as_tensor(modeldir.scbert_transform(genes, MM_VOCAB)(mm["raw"]),
+                              device=dev)
+    mm_step, _ = tl.make_steps(mm_state, "grid")
+    favor_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = mm_step((x_image[None], x_count[None]),
+                torch.as_tensor(np.where(mask0, truth[0], 0)[None], device=dev))
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    t_mm = time.perf_counter() - t0
+    want_mm = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_DEPTH
+    log(f"(c) GridNetHexMM grid step (scBERT + DenseNet-121 frozen, {geometry.VISIUM_H_ST} x "
+        f"{geometry.VISIUM_W_ST} cells): {t_mm:.2f} s, loss {loss:.4f}, {favor_cuda.launches} "
+        f"FAVOR calls ({want_mm} expected) [{card}]")
+    if favor_cuda.launches != want_mm or not np.isfinite(loss):
+        raise AssertionError("the multimodal grid step did not run through the kernel")
+    laps["(c) GridNetHexMM"] = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prev, parts = t_phase, []
+    for name, t in laps.items():
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)} s), peak device "
+        f"memory {peak:.2f} GiB [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2508,6 +3051,8 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_kinds(torch, slides, masks[0], port, card, tmp, mm)
         log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dir, trace
+        phase_train(torch, slides, port, card, tmp, mm)
     del mm
 
     meta = {

@@ -7,9 +7,12 @@ in, label grids and Loupe CSVs out, decode and staging overlapped
 Visium HD's square bin lattices (``GridNet``, positions parquets, dense
 lattices of a fractional pitch resampled), with a ``CountMLP`` count
 model over unified count caches, and with a multimodal scBERT or CountMLP
-+ image model directory (image and count grids in, label grid out). The
-patch gather, the hex corrector, the dense block and the FAVOR linear
-attention are CUDA C++ kernels (``csrc/``). Entry points run on CUDA unless asked for the CPU.
++ image model directory (image and count grids in, label grid out); and
+training those models (``train-count``, ``train-image``, ``train-mm``:
+spotwise f, then gridwise g, writing model directories both packages
+read). The patch gather, the hex corrector, the dense block and the FAVOR
+linear attention are CUDA C++ kernels (``csrc/``). Entry points run on
+CUDA unless asked for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -152,8 +152,9 @@ def _tpu_f_entries(f: TpuPatchClassifier, prefix=("params",)):
             counts["Conv"] += 1
         yield prefix + (name, "kernel"), mod.weight, "conv"
         yield prefix + (name, "bias"), mod.bias, "same"
-    yield prefix + ("head", "kernel"), f.head.weight, "dense"
-    yield prefix + ("head", "bias"), f.head.bias, "same"
+    if f.head is not None:
+        yield prefix + ("head", "kernel"), f.head.weight, "dense"
+        yield prefix + ("head", "bias"), f.head.bias, "same"
 
 
 def _batchnorm_entries(bn, params, stats, name):
@@ -274,6 +275,9 @@ _PERFORMER_FAMILY = (
 )
 
 
+_PERFORMER_CLASSES = tuple(cls for cls, _ in _PERFORMER_FAMILY)
+
+
 def _performer_family_entries(module, params=("params",), favor=("favor",)):
     for cls, entries in _PERFORMER_FAMILY:
         if isinstance(module, cls):
@@ -317,6 +321,14 @@ def _hexgcn_entries(model: HexGCN, params=("params",)):
 
 
 def _model_entries(model):
+    """(path, tensor, layout) of every weight of ``model``: a grid model,
+    a ``HexGCN``, or a model that trains alone (an f: ``TpuPatchClassifier``,
+    ``DenseNet``, ``CountMLP``, scBERT and its parts) with its collections
+    at the root of the tree."""
+    if isinstance(model, (TpuPatchClassifier, DenseNet, CountMLP)):
+        return _f_entries(model, ("params",), ("batch_stats",))
+    if isinstance(model, _PERFORMER_CLASSES):
+        return _performer_family_entries(model)
     if isinstance(model, HexGCN):
         return _hexgcn_entries(model)
     if isinstance(model, GridNetHexMM):          # and GridNetMM
@@ -326,7 +338,9 @@ def _model_entries(model):
     return _gridnet_entries(model)
 
 
-def _to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+def to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+    """A torch weight (or a tensor shaped like it: a gradient, an Adam
+    moment) as the JAX tree holds it."""
     a = t.detach().cpu().numpy()
     if layout == "conv":
         return a.transpose(2, 3, 1, 0)   # OIHW -> HWIO
@@ -335,7 +349,8 @@ def _to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
     return a
 
 
-def _from_jax_layout(a: np.ndarray, layout: str) -> np.ndarray:
+def from_jax_layout(a: np.ndarray, layout: str) -> np.ndarray:
+    """A JAX tree's array in the layout of the torch weight it maps to."""
     a = np.asarray(a)
     if layout == "conv":
         return a.transpose(3, 2, 0, 1)   # HWIO -> OIHW
@@ -363,7 +378,7 @@ def _load(entries, variables, roots):
                 if not isinstance(node, dict) or key not in node:
                     raise ValueError(f"variables tree has no {'/'.join(path)}")
                 node = node[key]
-            value = _from_jax_layout(node, layout)
+            value = from_jax_layout(node, layout)
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} does not "
                                  f"fit {tuple(tensor.shape)} after layout "
@@ -388,9 +403,10 @@ def load_tpu_f(f: TpuPatchClassifier, params: dict) -> TpuPatchClassifier:
 
 def load_densenet(f: DenseNet, variables: dict) -> DenseNet:
     """Copy a flax ``DenseNet`` variables tree (``params`` and
-    ``batch_stats``) into ``f`` (in place)."""
+    ``batch_stats``) into ``f`` (in place) and return it in eval mode, as a
+    checkpoint serves (``f.train()`` trains it)."""
     _load(_densenet_entries(f), variables, [("params",), ("batch_stats",)])
-    return f
+    return f.eval()
 
 
 def load_count_mlp(f: CountMLP, variables: dict) -> CountMLP:
@@ -449,14 +465,36 @@ def load_gridnet_hex_mm(model: GridNetHexMM, variables: dict) -> GridNetHexMM:
     return model
 
 
+def load_variables(model, variables: dict):
+    """Copy a JAX variables tree into any model :func:`jax_variables` maps
+    (in place) and return it: a grid model (:func:`load_gridnet`), a
+    ``HexGCN``, or an f alone (its collections at the root). Every leaf
+    under the model's roots must be used."""
+    if isinstance(model, HexGCN):
+        return load_hexgcn(model, variables)
+    if isinstance(model, (TpuPatchClassifier, DenseNet, CountMLP) + _PERFORMER_CLASSES):
+        entries = list(_model_entries(model))
+        _load(entries, variables, sorted({path[:1] for path, _, _ in entries}))
+        return model
+    return load_gridnet(model, variables)
+
+
+def model_entries(model):
+    """``(path, tensor, layout)`` of every weight of ``model``, as a list:
+    ``path`` the key path in the JAX variables tree (collection first),
+    ``layout`` 'conv', 'dense' or 'same' (:func:`to_jax_layout`)."""
+    return list(_model_entries(model))
+
+
 def jax_variables(model) -> dict:
     """The variables tree in the JAX package's layout that
-    :func:`load_gridnet` reads back into ``model`` (nested dicts of numpy
-    arrays). Its shapes are those a JAX checkpoint must have."""
+    :func:`load_variables` reads back into ``model`` (nested dicts of numpy
+    arrays): a grid model, a ``HexGCN`` or any f that trains alone. Its
+    shapes are those a JAX checkpoint must have."""
     tree: dict = {}
     for path, tensor, layout in _model_entries(model):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = _to_jax_layout(tensor, layout)
+        node[path[-1]] = to_jax_layout(tensor, layout)
     return tree

@@ -1,57 +1,180 @@
-"""Grid datasets for ``register``: count grids from unified count caches,
-patch grids cropped from fullres slides on the card, and the two paired.
+"""Datasets of the port: annotated count and patch grids and spots, and the
+factory that builds them for a cohort.
 
-:class:`CountGridDataset` is the JAX package's ``data/datasets.py``
-``CountGridDataset`` without annotations; :class:`SlideGridDataset` builds
-what the JAX package's ``PatchGridDataset`` reads from its ``_patches*``
-JPEG caches, but crops the slide losslessly on the card and writes no
-file; :class:`MMStackDataset` pairs them, and
-:func:`create_visium_dataset` is the JAX package's factory for the grids
-``register`` reads. The annotated grids and the spot datasets wait for
-the training slice.
+The counterparts of the JAX package's ``data/datasets.py``:
+
+* :class:`CountGridDataset` -- per-array ``(H, W, n_genes)`` count grids
+  from unified count caches, with ``(H, W)`` label grids (0 background,
+  1..N the classes of the cohort's annotations);
+* :class:`CountSpotDataset` -- the annotated spots' ``(n_genes,)`` count
+  vectors with labels in ``[0, N)``;
+* :class:`SlideGridDataset` and :class:`SlideSpotDataset` -- the patch
+  grids and annotated spot patches the JAX package reads from its
+  ``_patches*`` JPEG caches (``PatchGridDataset``, ``PatchSpotDataset``),
+  cropped losslessly from the fullres slides on the card by the gather
+  kernel instead: a grid in one launch, a batch of spots in one launch
+  (:meth:`SlideSpotDataset.batch`). No file is written;
+* :class:`MMStackDataset` pairs an image and a count grid dataset,
+  :class:`Subset` is a split's view, and :func:`create_visium_dataset`
+  is the factory.
+
+Labels follow the JAX package: Loupe CSVs joined to the positions by
+barcode, classes the sorted union over the cohort. The spot datasets keep
+the JAX package's item order (each array's spots in the sorted order of
+their cache file names). One difference by design: the JAX caches skip a
+spot whose patch is all zero pixels; the slide datasets keep it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from gridnext_tpu_torch import geometry, ingest
-from gridnext_tpu_torch.io.annotations import read_annotated_starray
-from gridnext_tpu_torch.io.spaceranger import read_positions
-from gridnext_tpu_torch.io.unify import unified_cache_path
+from gridnext_tpu_torch.io.annotations import (encode_annot_grid, encode_labels,
+                                               read_annotated_starray, read_annotfile,
+                                               union_classes)
+from gridnext_tpu_torch.io.spaceranger import find_position_file, read_positions
+from gridnext_tpu_torch.io.unify import read_count_matrix, unified_cache_path
 from gridnext_tpu_torch.observability import stage
-from gridnext_tpu_torch.pipeline import patch_grid
+from gridnext_tpu_torch.pipeline import (edge_pad, patch_grid, resize_matrices,
+                                         resize_patches, spot_pixel_arrays)
+from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
+
+_MATRICES: dict = {}     # (path, mtime, size) -> read_count_matrix tuple
+_MATRICES_MAX = 4
 
 
-class CountGridDataset:
-    """Per-array (H, W, n_genes) float32 count grids, with (H, W) int64 zero
-    label grids beside them. ``timer``: an optional
+def _count_matrix(path):
+    """``read_count_matrix`` of ``path``, the last few kept (epochs re-read
+    each array; a rewritten file is read anew)."""
+    st = os.stat(path)
+    key = (str(path), st.st_mtime_ns, st.st_size)
+    if key not in _MATRICES:
+        if len(_MATRICES) >= _MATRICES_MAX:
+            _MATRICES.pop(next(iter(_MATRICES)))
+        _MATRICES[key] = read_count_matrix(path)
+    return _MATRICES[key]
+
+
+def _annot_codes(annot_file, position_file, classes) -> dict:
+    """{'{col}_{row}': class code} of one array's Loupe annotations."""
+    coords, names = read_annotfile(annot_file, position_file=position_file)
+    return dict(zip(coords, encode_labels(names, classes) if len(names) else names))
+
+
+class _GridBase:
+    """One item per array: ``source_ids()`` names each item's source path
+    (the array's directory or count cache), which lets a split route whole
+    arrays (the CLI's ``--val-arrays``)."""
+
+    def __len__(self):
+        return len(self.source_ids())
+
+    def source_ids(self):
+        return list(self.spaceranger_dirs)
+
+    def materialize(self):
+        xs, ys = zip(*(self[i] for i in range(len(self))))
+        stack = torch.stack if torch.is_tensor(xs[0]) else np.stack
+        return stack(list(xs)), np.stack(ys)
+
+
+class CountGridDataset(_GridBase):
+    """Per-array (H, W, n_genes) float32 count grids and (H, W) int64 label
+    grids (zeros without ``annot_files``).
+
+    ``annot_files`` with ``position_files``: Loupe CSVs, classes the sorted
+    union over the arrays (:attr:`classes`); without ``position_files``:
+    Splotch one-hot TSVs. ``timer``: an optional
     :class:`~gridnext_tpu_torch.observability.StageTimer` that times each
-    cache read as ``"count read"``."""
+    cache read as ``"count read"``.
+    """
 
     def __init__(self, count_files: Sequence, Visium: bool = True,
                  select_genes: Optional[Sequence[str]] = None,
                  h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
-                 timer=None):
-        self.count_files = list(count_files)
+                 timer=None, annot_files: Optional[Sequence] = None,
+                 position_files: Optional[Sequence] = None):
+        if annot_files is not None and len(annot_files) != len(count_files):
+            raise ValueError("Length of data files and annot_files must match.")
+        self.count_files = [str(c) for c in count_files]
         self.Visium = Visium
         self.select_genes = select_genes
         self.h_st, self.w_st = h_st, w_st
         self.timer = timer
+        self.annot_files = list(annot_files) if annot_files is not None else None
+        self.position_files = list(position_files) if position_files is not None else None
+        self.classes = None
+        if self.annot_files is not None and self.position_files is not None:
+            self.classes = union_classes(self.annot_files, self.position_files)
 
-    def __len__(self):
-        return len(self.count_files)
+    def source_ids(self):
+        return list(self.count_files)
 
     def __getitem__(self, idx):
         with stage(self.timer, "count read"):
+            af = self.annot_files[idx] if self.annot_files is not None else None
+            pf = self.position_files[idx] if self.position_files is not None else None
             counts, annots = read_annotated_starray(
-                self.count_files[idx], select_genes=self.select_genes,
-                h_st=self.h_st, w_st=self.w_st, Visium=self.Visium)
+                _count_matrix(self.count_files[idx]), af, select_genes=self.select_genes,
+                h_st=self.h_st, w_st=self.w_st, Visium=self.Visium, position_file=pf)
+            if annots.dtype.kind not in "iu":
+                annots = encode_annot_grid(annots, self.classes)
             return counts.astype(np.float32), annots.astype(np.int64)
+
+
+class CountSpotDataset:
+    """The annotated spots: ``(n_genes,)`` float32 count vectors with int64
+    labels in ``[0, N)`` (every spot of the caches, label 0, without
+    ``annot_files``). Items in file order, each file's in column order."""
+
+    def __init__(self, count_files: Sequence, annot_files: Optional[Sequence] = None,
+                 position_files: Optional[Sequence] = None,
+                 select_genes: Optional[Sequence[str]] = None):
+        self.count_files = [str(c) for c in count_files]
+        self.select_genes = select_genes
+        self.classes = None
+        if annot_files is not None:
+            self.classes = union_classes(annot_files, position_files)
+        self._index, self.annotations = [], []     # (file, column), label
+        for i, cf in enumerate(self.count_files):
+            _, columns, _ = _count_matrix(cf)
+            codes = (_annot_codes(annot_files[i], position_files[i], self.classes)
+                     if annot_files is not None else None)
+            for j, c in enumerate(columns):
+                if codes is None:
+                    self._index.append((cf, j))
+                elif c in codes:
+                    self._index.append((cf, j))
+                    self.annotations.append(int(codes[c]))
+
+    def __len__(self):
+        return len(self._index)
+
+    def _vector(self, cf, j):
+        genes, _, values = _count_matrix(cf)
+        col = values[:, j]
+        if self.select_genes is not None:
+            row = {g: i for i, g in enumerate(genes)}
+            col = col[[row[g] for g in self.select_genes]]
+        return col.astype(np.float32)
+
+    def __getitem__(self, idx):
+        label = self.annotations[idx] if self.annotations else 0
+        return self._vector(*self._index[idx]), np.int64(label)
+
+    def materialize(self):
+        xs = np.stack([self._vector(cf, j) for cf, j in self._index])
+        ys = np.array(self.annotations if self.annotations else np.zeros(len(self)),
+                      dtype=np.int64)
+        return xs, ys
+
+    def source_ids(self):
+        return [cf for cf, _ in self._index]
 
 
 def to_device_slide(wsi: np.ndarray, device) -> torch.Tensor:
@@ -60,25 +183,40 @@ def to_device_slide(wsi: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.require(wsi, requirements="W")).to(device)
 
 
-class SlideGridDataset:
+def _grid_labels(annot_file, position_file, classes, oy, ox, hex_coords, h_st, w_st):
+    """(h_st, w_st) int64 labels: code + 1 at each annotated cell (oy, ox)."""
+    labels = np.zeros((h_st, w_st), np.int64)
+    if annot_file is None:
+        return labels
+    codes = _annot_codes(annot_file, position_file, classes)
+    cols, rows = (geometry.oddr_to_pseudo_hex(ox, oy) if hex_coords else (ox, oy))
+    for y, x, c, r in zip(oy, ox, np.asarray(cols), np.asarray(rows)):
+        code = codes.get(f"{int(c)}_{int(r)}")
+        if code is not None:
+            labels[y, x] = int(code) + 1
+    return labels
+
+
+class SlideGridDataset(_GridBase):
     """Per-array ``(H, W, P, P, 3)`` float32 patch grids on ``device``,
     cropped from the fullres slides
-    (:func:`~gridnext_tpu_torch.pipeline.patch_grid`: edge padding, the
-    gather kernel, the cubic resize where ``window_size`` differs from
-    ``patch_size``, ``/255``), with (H, W) int64 zero label grids beside
-    them.
+    (:func:`~gridnext_tpu_torch.pipeline.patch_grid`: edge padding, one
+    gather launch, the cubic resize where ``window_size`` differs from
+    ``patch_size``, ``/255``), with (H, W) int64 label grids from
+    ``annot_files`` (Loupe CSVs; zeros without).
 
     Slides decode with :func:`gridnext_tpu_torch.ingest.decode_slide` and
-    are freed once cropped. ``hd_binning`` reads that binning's positions
-    parquet and indexes the grid by (array_row, array_col); pass the
-    square lattice as ``h_st``/``w_st``. ``timer`` times ``"decode"`` and
-    ``"crop + grid"`` (the card synchronised at its end).
+    are freed once cropped. ``hd_binning`` reads that binning's positions parquet and
+    indexes the grid by (array_row, array_col); pass the square lattice as
+    ``h_st``/``w_st``. ``timer`` times ``"decode"`` and ``"crop + grid"``
+    (the card synchronised at its end).
     """
 
     def __init__(self, image_files: Sequence, spaceranger_dirs: Sequence, *,
                  patch_size: int, window_size: Optional[int] = None,
                  hd_binning: Optional[str] = None, h_st: int = geometry.VISIUM_H_ST,
-                 w_st: int = geometry.VISIUM_W_ST, device="cuda", timer=None):
+                 w_st: int = geometry.VISIUM_W_ST, device="cuda", timer=None,
+                 annot_files: Optional[Sequence] = None):
         if len(image_files) != len(spaceranger_dirs):
             raise ValueError("need one spaceranger dir per image file")
         self.image_files = [str(f) for f in image_files]
@@ -88,22 +226,130 @@ class SlideGridDataset:
         self.h_st, self.w_st = int(h_st), int(w_st)
         self.device = torch.device(device)
         self.timer = timer
-
-    def __len__(self):
-        return len(self.image_files)
+        self.annot_files = list(annot_files) if annot_files is not None else None
+        self.position_files = [find_position_file(s, hd_binning)
+                               for s in self.spaceranger_dirs]
+        self.classes = (union_classes(self.annot_files, self.position_files)
+                        if self.annot_files is not None else None)
 
     def __getitem__(self, idx):
         with stage(self.timer, "decode"):
             wsi = ingest.decode_slide(self.image_files[idx])
+        hex_coords = self.hd_binning is None
         with stage(self.timer, "crop + grid", self.device):
             positions = read_positions(self.spaceranger_dirs[idx], self.hd_binning)
             grid = patch_grid(to_device_slide(wsi, self.device), positions,
                               self.patch_size, self.window_size, self.h_st, self.w_st,
-                              hex_coords=self.hd_binning is None)
-        return grid, np.zeros((self.h_st, self.w_st), np.int64)
+                              hex_coords=hex_coords)
+        oy, ox, _, _ = spot_pixel_arrays(positions, self.h_st, self.w_st, hex_coords)
+        af = self.annot_files[idx] if self.annot_files is not None else None
+        return grid, _grid_labels(af, self.position_files[idx], self.classes, oy, ox,
+                                  hex_coords, self.h_st, self.w_st)
 
 
-class MMStackDataset:
+class SlideSpotDataset:
+    """The annotated spots' ``(P, P, 3)`` float32 patches on ``device``,
+    cropped from the fullres slides, with int64 labels in ``[0, N)``.
+
+    The spots are each array's in-tissue spots inside the lattice that
+    ``annot_files`` labels (every such spot, label 0, without), in the
+    order of the JAX package's cache file names. The slides decode once,
+    on first use, into one edge-padded ``(S, H, W, 3)`` uint8 stack on the
+    device (padded by ``window // 2`` and to the largest slide), so
+    :meth:`batch` crops any batch of spots in one gather launch (resized
+    to ``patch_size`` where ``window_size`` differs, ``/255``).
+    """
+
+    def __init__(self, image_files: Sequence, spaceranger_dirs: Sequence, *,
+                 patch_size: int, window_size: Optional[int] = None,
+                 annot_files: Optional[Sequence] = None, hd_binning: Optional[str] = None,
+                 h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
+                 device="cuda", timer=None):
+        if len(image_files) != len(spaceranger_dirs):
+            raise ValueError("need one spaceranger dir per image file")
+        self.image_files = [str(f) for f in image_files]
+        self.spaceranger_dirs = [str(s) for s in spaceranger_dirs]
+        self.patch_size = int(patch_size)
+        self.window = int(window_size or patch_size)
+        self.device = torch.device(device)
+        self.timer = timer
+        position_files = [find_position_file(s, hd_binning) for s in self.spaceranger_dirs]
+        self.classes = (union_classes(annot_files, position_files)
+                        if annot_files is not None else None)
+        hex_coords = hd_binning is None
+        slide, ys, xs, labels, sources = [], [], [], [], []
+        for i, srd in enumerate(self.spaceranger_dirs):
+            positions = read_positions(srd, hd_binning)
+            oy, ox, y_px, x_px = spot_pixel_arrays(positions, h_st, w_st, hex_coords)
+            cols, rows = geometry.oddr_to_pseudo_hex(ox, oy) if hex_coords else (ox, oy)
+            keys = [f"{int(c)}_{int(r)}" for c, r in zip(np.asarray(cols), np.asarray(rows))]
+            codes = (_annot_codes(annot_files[i], position_files[i], self.classes)
+                     if annot_files is not None else None)
+            stem = os.path.splitext(os.path.basename(os.path.normpath(srd)))[0]
+            for j in sorted(range(len(keys)), key=lambda j: f"{stem}_{keys[j]}.jpg"):
+                if codes is not None and keys[j] not in codes:
+                    continue
+                slide.append(i)
+                ys.append(y_px[j])
+                xs.append(x_px[j])
+                labels.append(int(codes[keys[j]]) if codes is not None else 0)
+                sources.append(srd)
+        self.slide = np.asarray(slide, np.int64)
+        self.y0, self.x0 = np.asarray(ys, np.int64), np.asarray(xs, np.int64)
+        self.annotations = labels
+        self._sources = sources
+        self._stack = None
+        self._matrices = None
+
+    def __len__(self):
+        return len(self.slide)
+
+    def source_ids(self):
+        return list(self._sources)
+
+    def _slides(self) -> torch.Tensor:
+        if self._stack is None:
+            pad = self.window // 2
+            with stage(self.timer, "decode"):
+                wsis = [ingest.decode_slide(f) for f in self.image_files]
+            h = max(w.shape[0] for w in wsis) + 2 * pad
+            w_ = max(w.shape[1] for w in wsis) + 2 * pad
+            stack = torch.zeros((len(wsis), h, w_, 3), dtype=torch.uint8, device=self.device)
+            for i, wsi in enumerate(wsis):
+                padded = edge_pad(to_device_slide(wsi, self.device), pad)
+                stack[i, :padded.shape[0], :padded.shape[1]] = padded
+            self._stack = stack
+            if self.window != self.patch_size:
+                self._matrices = resize_matrices(self.window, self.window, self.patch_size,
+                                                 self.device)
+        return self._stack
+
+    def batch(self, indices):
+        """``((n, P, P, 3) float32 patches on the device, (n,) int64 labels)``
+        of the spots ``indices``, cropped in one gather launch."""
+        idx = np.asarray(indices, np.int64)
+        slides = self._slides()
+        dev = self.device
+        with stage(self.timer, "crop", dev):
+            crops = gather_patches(slides, torch.as_tensor(self.y0[idx], device=dev),
+                                   torch.as_tensor(self.x0[idx], device=dev), self.window,
+                                   torch.as_tensor(self.slide[idx], device=dev))
+            if self.window != self.patch_size:
+                crops = resize_patches(crops, self.patch_size, self._matrices)
+            x = crops.float() / 255.0
+        y = (np.asarray(self.annotations, np.int64)[idx] if self.annotations
+             else np.zeros(len(idx), np.int64))
+        return x, y
+
+    def __getitem__(self, idx):
+        x, y = self.batch([idx])
+        return x[0], y[0]
+
+    def materialize(self):
+        return self.batch(np.arange(len(self)))
+
+
+class MMStackDataset(_GridBase):
     """Pairs an image and a count grid dataset: items ``((x_image,
     x_count), y)``, the labels zeroed where the two disagree."""
 
@@ -112,14 +358,58 @@ class MMStackDataset:
             raise ValueError("Datasets must be of the same length!")
         self.image_dataset = image_dataset
         self.count_dataset = count_dataset
-
-    def __len__(self):
-        return len(self.count_dataset)
+        self.classes = getattr(image_dataset, "classes", None)
 
     def __getitem__(self, idx):
         x1, y1 = self.image_dataset[idx]
         x2, y2 = self.count_dataset[idx]
         return (x1, x2), np.where(y1 != y2, 0, y1)
+
+    def source_ids(self):
+        return self.count_dataset.source_ids()
+
+    def materialize(self):
+        items = [self[i] for i in range(len(self))]
+        xi = [x[0] for x, _ in items]
+        stack = torch.stack if torch.is_tensor(xi[0]) else np.stack
+        return ((stack(xi), np.stack([x[1] for x, _ in items])),
+                np.stack([y for _, y in items]))
+
+
+class Subset:
+    """Index-subset view of a map-style dataset, with an optional transform
+    of the inputs: the trainers stream a split through it. A dataset with
+    ``batch`` keeps it (one call per batch)."""
+
+    def __init__(self, dataset, indices, transform: Optional[Callable] = None):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.transform = transform
+        if hasattr(dataset, "batch"):
+            self.batch = self._batch
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        x, y = self.dataset[int(self.indices[i])]
+        return (self.transform(x) if self.transform is not None else x), y
+
+    def _batch(self, idx):
+        x, y = self.dataset.batch(self.indices[np.asarray(idx, np.int64)])
+        return (self.transform(x) if self.transform is not None else x), y
+
+
+def _lattice_dims(spaceranger_dirs, hd_binning, grid_dims):
+    if grid_dims is None:
+        return geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
+    if isinstance(grid_dims, str):
+        if grid_dims != "auto":
+            raise ValueError(f"grid_dims must be 'auto' or (h, w); got {grid_dims!r}")
+        from gridnext_tpu_torch.io.spaceranger import cohort_hd_lattice_dims
+
+        return cohort_hd_lattice_dims(spaceranger_dirs, hd_binning)
+    return int(grid_dims[0]), int(grid_dims[1])
 
 
 def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
@@ -127,22 +417,28 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
                           patch_size_px: Optional[int] = None,
                           window_size_px: Optional[int] = None,
                           hd_binning: Optional[str] = None, grid_dims=None,
-                          device="cuda", timer=None):
-    """The grid datasets of a cohort: the JAX package's
-    ``create_visium_dataset(spatial=True)`` without annotations.
+                          device="cuda", timer=None, *, use_count: bool = True,
+                          spatial: bool = True, annot_files: Optional[Sequence] = None,
+                          select_genes: Optional[Sequence[str]] = None):
+    """The datasets of a cohort: the JAX package's factory.
 
-    Returns a :class:`MMStackDataset` of image and count grids, or with
-    ``use_image=False`` the :class:`CountGridDataset`. ``grid_dims`` (an
-    ``(h, w)``, with ``hd_binning``) indexes the grids of a square Visium
-    HD lattice by (array_row, array_col).
+    ``spatial=True`` (grids): a :class:`MMStackDataset` of image and count
+    grids, or the :class:`SlideGridDataset` (``use_count=False``) or the
+    :class:`CountGridDataset` (``use_image=False``). ``spatial=False``
+    (spots): the :class:`SlideSpotDataset` (``use_count=False``) or the
+    :class:`CountSpotDataset` (``use_image=False``). ``annot_files``: one
+    Loupe CSV per directory. ``grid_dims`` (``(h, w)`` or ``'auto'``, with
+    ``hd_binning``) indexes the grids of a square Visium HD lattice by
+    (array_row, array_col).
 
     Unlike the JAX factory, nothing is written into the Spaceranger
     directories: a missing unified count cache raises FileNotFoundError
-    (run ``python -m gridnext_tpu prepare`` first), the caches are read as
-    they are (``register`` validates their gene axis first), and the image
-    grids are cropped from the slides on ``device`` each time, with no
-    ``_patches*`` JPEG cache.
+    (run ``python -m gridnext_tpu prepare`` first), and the image grids and
+    spots are cropped from the slides on ``device``, with no ``_patches*``
+    JPEG cache.
     """
+    if not (use_count or use_image):
+        raise ValueError("Must utilize at least one data modality")
     if use_image and not patch_size_px:
         raise ValueError("Must specify patch size in pixels")
     if grid_dims is not None and hd_binning is None:
@@ -151,27 +447,37 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
         raise NotImplementedError(
             "hd_binning with use_image=True needs grid_dims (the square "
             "HD bin lattice the patch grid is indexed by)")
+    if not spatial and use_image and use_count:
+        raise NotImplementedError("multimodal spot datasets are not ported; "
+                                  "build the image and count spots separately")
     spaceranger_dirs = [str(s) for s in spaceranger_dirs]
     square = grid_dims is not None
-    h_st, w_st = ((int(grid_dims[0]), int(grid_dims[1])) if square
-                  else (geometry.VISIUM_H_ST, geometry.VISIUM_W_ST))
-    count_files = [unified_cache_path(srd, hd_binning) for srd in spaceranger_dirs]
-    for srd, cfile in zip(spaceranger_dirs, count_files):
-        if not os.path.exists(cfile):
-            raise FileNotFoundError(
-                f"{cfile} not found -- run `python -m gridnext_tpu prepare "
-                f"--spaceranger {srd}` first")
-    counts = CountGridDataset(count_files, Visium=not square, h_st=h_st, w_st=w_st,
-                              timer=timer)
-    if not use_image:
-        return counts
+    h_st, w_st = _lattice_dims(spaceranger_dirs, hd_binning, grid_dims)
+    position_files = [find_position_file(s, hd_binning) for s in spaceranger_dirs]
+    counts = None
+    if use_count:
+        count_files = [unified_cache_path(srd, hd_binning) for srd in spaceranger_dirs]
+        for srd, cfile in zip(spaceranger_dirs, count_files):
+            if not os.path.exists(cfile):
+                raise FileNotFoundError(
+                    f"{cfile} not found -- run `python -m gridnext_tpu prepare "
+                    f"--spaceranger {srd}` first")
+        if not spatial:
+            return CountSpotDataset(count_files, annot_files, position_files, select_genes)
+        counts = CountGridDataset(count_files, Visium=not square, select_genes=select_genes,
+                                  h_st=h_st, w_st=w_st, timer=timer,
+                                  annot_files=annot_files,
+                                  position_files=position_files if annot_files else None)
+        if not use_image:
+            return counts
     if fullres_image_files is None:
         raise ValueError("Must provide fullres_image_files to extract image patches")
     for imfile in fullres_image_files:
         if not os.path.exists(imfile):
             raise ValueError(f"Could not find image file: {imfile}")
-    return MMStackDataset(
-        SlideGridDataset(fullres_image_files, spaceranger_dirs, patch_size=patch_size_px,
-                         window_size=window_size_px, hd_binning=hd_binning, h_st=h_st,
-                         w_st=w_st, device=device, timer=timer),
-        counts)
+    kw = dict(patch_size=patch_size_px, window_size=window_size_px, hd_binning=hd_binning,
+              h_st=h_st, w_st=w_st, device=device, timer=timer, annot_files=annot_files)
+    if not spatial:
+        return SlideSpotDataset(fullres_image_files, spaceranger_dirs, **kw)
+    images = SlideGridDataset(fullres_image_files, spaceranger_dirs, **kw)
+    return MMStackDataset(images, counts) if counts is not None else images

@@ -1,4 +1,4 @@
-"""DenseNet-BC spot classifier f over image patches, in f32 and eval mode.
+"""DenseNet-BC spot classifier f over image patches.
 
 Port of ``gridnext_tpu/models/densenet.py``: the same blocks, bottleneck
 widths, compression, stem variants (``small_inputs``) and ``classify=False``
@@ -15,40 +15,63 @@ Numerics follow flax: BatchNorm epsilon 1e-5 (not the 1e-6 of the norms in
 ``MaxPool2d(3, 2, padding=1)``; the transitions' 2x2 VALID ``avg_pool``
 floors odd sizes (9x9 pools to 4x4), as ``AvgPool2d(2, 2)`` does.
 
-Serving only: the module runs in eval mode (BatchNorm on running
-statistics). The JAX module's ``dtype``, ``efficient`` (rematerialisation)
-and ``drop_rate`` options serve training and are not ported yet.
+Training follows the JAX module too: BatchNorm is the flax-exact
+:class:`~gridnext_tpu_torch.models.layers.BatchNorm` (batch statistics and
+the biased running update in train mode), ``drop_rate`` drops the new
+features of each dense layer in train mode, ``efficient`` recomputes each
+bottleneck (BN-ReLU-1x1 conv) in the backward pass
+(``torch.utils.checkpoint``, the JAX module's ``nn.remat``; the running
+statistics move once, before the checkpointed part), and ``dtype`` (e.g.
+``torch.bfloat16``) computes the convolutions in that type under autocast
+while the parameters stay float32, as flax's ``dtype``; the pooled features
+return to float32 before the classifier.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from gridnext_tpu_torch.models.layers import BatchNorm, Dropout
 
 BN_EPS = 1e-5  # flax BatchNorm epsilon in the JAX DenseNet
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.1)
+def _bn(channels: int) -> BatchNorm:
+    return BatchNorm(channels, axis=1, eps=BN_EPS)
 
 
 class _DenseLayer(nn.Module):
-    """BN-ReLU-1x1 conv to ``bn_size * growth``, BN-ReLU-3x3 conv to ``growth``."""
+    """BN-ReLU-1x1 conv to ``bn_size * growth``, BN-ReLU-3x3 conv to ``growth``,
+    then dropout at ``drop_rate``; ``efficient`` recomputes the bottleneck in
+    the backward pass."""
 
-    def __init__(self, c_in: int, growth_rate: int, bn_size: int):
+    def __init__(self, c_in: int, growth_rate: int, bn_size: int, drop_rate: float = 0.0,
+                 efficient: bool = False):
         super().__init__()
         width = bn_size * growth_rate
+        self.efficient = efficient
         self.norm1 = _bn(c_in)
         self.conv1 = nn.Conv2d(c_in, width, 1, bias=False)
         self.norm2 = _bn(width)
         self.conv2 = nn.Conv2d(width, growth_rate, 3, padding=1, bias=False)
+        self.dropout = Dropout(drop_rate)
+
+    def _bottleneck(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        return self.conv1(torch.relu(self.norm1(x, update_stats)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(torch.relu(self.norm1(x)))
-        return self.conv2(torch.relu(self.norm2(h)))
+        if self.efficient and torch.is_grad_enabled():
+            if self.training:
+                self.norm1.update_stats(x)      # once, outside the recomputed part
+            h = checkpoint(self._bottleneck, x, False, use_reentrant=False)
+        else:
+            h = self._bottleneck(x)
+        return self.dropout(self.conv2(torch.relu(self.norm2(h))))
 
 
 class _Transition(nn.Module):
@@ -73,15 +96,16 @@ class DenseNet(nn.Module):
 
     ``forward(x)`` returns ``(N, num_classes)`` logits, or
     ``(N, num_features)`` pooled features with ``classify=False``. Arguments
-    as the flax module's (``drop_rate``, ``efficient`` and ``dtype`` are
-    not ported).
+    as the flax module's; ``dtype`` is a torch dtype (or None for float32).
     """
 
     def __init__(self, growth_rate: int = 12, block_config: Sequence[int] = (16, 16, 16),
                  compression: float = 0.5, num_init_features: int = 24,
                  bn_size: int = 4, num_classes: int = 10, small_inputs: bool = True,
-                 classify: bool = True):
+                 classify: bool = True, drop_rate: float = 0.0, efficient: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if not 0 < compression <= 1:
             raise ValueError(f"compression must be in (0, 1], got {compression}")
         if small_inputs:
@@ -96,7 +120,7 @@ class DenseNet(nn.Module):
         c = num_init_features
         for i, n_layers in enumerate(block_config):
             self.blocks.append(nn.ModuleList(
-                _DenseLayer(c + j * growth_rate, growth_rate, bn_size)
+                _DenseLayer(c + j * growth_rate, growth_rate, bn_size, drop_rate, efficient)
                 for j in range(n_layers)))
             c += n_layers * growth_rate
             if i != len(block_config) - 1:
@@ -106,10 +130,16 @@ class DenseNet(nn.Module):
         self.num_features = c   # width of the pooled features (classify=False)
         self.norm_final = _bn(c)
         self.classifier = nn.Linear(c, num_classes) if classify else None
-        self.eval()   # serving only: BatchNorm on running statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv0(x.float().permute(0, 3, 1, 2))   # NHWC -> NCHW
+        with torch.autocast(x.device.type, dtype=self.dtype or torch.bfloat16,
+                            enabled=self.dtype is not None):
+            x = self._features(x)
+        x = x.to(self.conv0.weight.dtype)
+        return self.classifier(x) if self.classifier is not None else x
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv0(x.to(self.conv0.weight.dtype).permute(0, 3, 1, 2))   # NHWC -> NCHW
         if self.norm0 is not None:
             x = F.max_pool2d(torch.relu(self.norm0(x)), 3, 2, padding=1)
         for i, block in enumerate(self.blocks):
@@ -117,8 +147,7 @@ class DenseNet(nn.Module):
                 x = torch.cat([x, layer(x)], dim=1)
             if i < len(self.transitions):
                 x = self.transitions[i](x)
-        x = torch.relu(self.norm_final(x)).mean(dim=(2, 3))
-        return self.classifier(x) if self.classifier is not None else x
+        return torch.relu(self.norm_final(x)).mean(dim=(2, 3))
 
 
 def densenet121(num_classes: int, **kw) -> DenseNet:

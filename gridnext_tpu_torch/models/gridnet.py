@@ -17,7 +17,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from gridnext_tpu_torch.models.layers import HexConv
+from gridnext_tpu_torch.models.layers import BatchNorm, HexConv
 from gridnext_tpu_torch.ops.hexcorrector_cuda import fold_corrector_params
 
 
@@ -27,8 +27,8 @@ class _CartesianCorrector(nn.Module):
     three followed by BatchNorm (with ``use_bn``) and ReLU.
 
     Channels-last ``(B, H, W, C)`` in and out, like the JAX package's
-    ``nn.Conv`` stack (a cross-correlation, as ``conv2d``); BatchNorm runs
-    over (B, H, W) with flax's momentum 0.9 (torch's 0.1) and epsilon 1e-5.
+    ``nn.Conv`` stack (a cross-correlation, as ``conv2d``); flax's BatchNorm
+    runs over (B, H, W).
     ``width`` is the hidden channel count (default ``n_classes``; the
     concat fusion corrector holds its input width).
     """
@@ -42,8 +42,7 @@ class _CartesianCorrector(nn.Module):
         self.convs = nn.ModuleList(nn.Conv2d(dims[i], dims[i + 1], k, padding=k // 2)
                                    for i, k in enumerate((3, 5, 5, 3)))
         if use_bn:
-            self.bns = nn.ModuleList(nn.BatchNorm2d(width, eps=1e-5, momentum=0.1)
-                                     for _ in range(3))
+            self.bns = nn.ModuleList(BatchNorm(width, axis=1) for _ in range(3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
@@ -73,9 +72,8 @@ class _CartesianCorrector(nn.Module):
 class _HexCorrector(nn.Module):
     """Five radius-1 hex convs: f_dim->32->32 [BN,ReLU] ->32->32 [BN,ReLU] ->n_classes.
 
-    BatchNorm runs over every cell of the (B, H, W, C) grid (flax
-    ``BatchNorm`` over all axes but the last): momentum 0.1 in torch's
-    convention is flax's 0.9, epsilon 1e-5 in both.
+    flax's BatchNorm runs over every cell of the (B, H, W, C) grid (all axes
+    but the last).
     """
 
     def __init__(self, in_features: int, n_classes: int, use_bn: bool = True,
@@ -85,13 +83,10 @@ class _HexCorrector(nn.Module):
         dims = (in_features, width, width, width, width, n_classes)
         self.convs = nn.ModuleList(HexConv(dims[i], dims[i + 1]) for i in range(5))
         if use_bn:
-            self.bns = nn.ModuleList(nn.BatchNorm1d(width, eps=1e-5, momentum=0.1)
-                                     for _ in range(2))
+            self.bns = nn.ModuleList(BatchNorm(width) for _ in range(2))
 
     def _bn(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        if not self.use_bn:
-            return x
-        return self.bns[i](x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        return self.bns[i](x) if self.use_bn else x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.convs[1](self.convs[0](x))
@@ -128,16 +123,21 @@ def apply_f_chunked(f: nn.Module, flat: torch.Tensor, chunk: Optional[int]) -> t
     """Apply spot classifier ``f`` over a flattened spot batch.
 
     ``chunk=None``: one batched call. Otherwise chunks of ``chunk`` spots;
-    when gradients are on, each chunk runs under activation checkpointing
-    (the reference's ``atonce_patch_limit``), and under ``torch.no_grad()``
-    (serving) it is a plain loop.
+    when f trains (gradients on and some f parameter requires one), each
+    chunk runs under activation checkpointing (the reference's
+    ``atonce_patch_limit``). An f with no trainable parameter (frozen: no
+    optimizer of its own) runs under ``torch.no_grad()`` as a plain loop,
+    as serving does: JAX computes and discards its gradients, which XLA
+    drops as dead work, so here none are built.
     """
-    if chunk is None or flat.shape[0] <= chunk:
-        return f(flat)
-    if torch.is_grad_enabled():
-        return torch.cat([checkpoint(f, part, use_reentrant=False)
-                          for part in torch.split(flat, chunk)])
-    return torch.cat([f(part) for part in torch.split(flat, chunk)])
+    trains = torch.is_grad_enabled() and any(p.requires_grad for p in f.parameters())
+    with torch.set_grad_enabled(trains):
+        if chunk is None or flat.shape[0] <= chunk:
+            return f(flat)
+        if trains:
+            return torch.cat([checkpoint(f, part, use_reentrant=False)
+                              for part in torch.split(flat, chunk)])
+        return torch.cat([f(part) for part in torch.split(flat, chunk)])
 
 
 def apply_f_grid(f: nn.Module, x: torch.Tensor, chunk: Optional[int],

@@ -1,10 +1,13 @@
-"""Shared layers: the hex convolution module."""
+"""Shared layers: the hex convolution, flax's BatchNorm and a dropout that
+draws from an explicit generator."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gridnext_tpu_torch.ops.hexconv import hex_conv, num_taps
@@ -30,3 +33,106 @@ class HexConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return hex_conv(x, self.kernel, self.bias, radius=self.radius)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over every axis of the input but ``axis``.
+
+    Train mode normalises with the batch's mean and its **biased** variance
+    and moves the running statistics as flax does: ``running = momentum *
+    running + (1 - momentum) * batch`` (flax's momentum, 0.9; torch's
+    ``BatchNorm`` would take 0.1 and move the variance by the unbiased
+    estimate, ``n / (n - 1)`` larger). The statistics are reduced in
+    float32 or wider. Eval mode normalises with the running statistics. The
+    weights keep ``nn.BatchNorm``'s names (``weight``, ``bias``,
+    ``running_mean``, ``running_var``), which the weight bridge maps to
+    flax's ``scale``, ``bias``, ``mean`` and ``var``.
+    """
+
+    def __init__(self, num_features: int, axis: int = -1, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.axis, self.momentum, self.eps = axis, momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def _channels_second(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its channel axis at 1 (a view), as ``F.batch_norm`` wants."""
+        axis = self.axis % x.dim()
+        if axis == 1:
+            return x
+        if axis == x.dim() - 1:
+            return x.reshape(-1, x.shape[axis])
+        return x.movedim(axis, 1)
+
+    def _moved(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = momentum * running + (1 - momentum) * batch``."""
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), 1.0 - self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), 1.0 - self.momentum)
+
+    def update_stats(self, x: torch.Tensor) -> None:
+        """Move the running statistics by the batch's (no gradient); for a
+        caller that normalises under activation checkpointing, where the
+        forward would run twice."""
+        with torch.no_grad():
+            xc = self._channels_second(x)
+            xc = xc.to(torch.promote_types(xc.dtype, torch.float32))
+            var, mean = torch.var_mean(xc, [d for d in range(xc.dim()) if d != 1],
+                                       correction=0)
+        self._moved(mean, var)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        """Normalised ``x``: with the batch's statistics in train mode (moving
+        the running ones unless ``update_stats`` is False), the running ones
+        in eval mode."""
+        xc = self._channels_second(x)
+        if self.training:
+            # one reduction gives the output and the batch's mean and
+            # 1 / sqrt(biased variance + eps)
+            y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
+                                                      True, 0.0, self.eps)
+            if update_stats:
+                self._moved(mean, invstd.double().pow(-2) - self.eps)
+        else:
+            y = F.batch_norm(xc, self.running_mean, self.running_var, self.weight,
+                             self.bias, training=False, eps=self.eps)
+        axis = self.axis % x.dim()
+        if axis == 1:
+            return y
+        return y.reshape(x.shape) if axis == x.dim() - 1 else y.movedim(1, axis)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    ``1 - rate`` and scale the kept by ``1 / (1 - rate)``; eval mode and
+    ``rate == 0`` are the identity.
+
+    The mask is drawn from :attr:`generator` (a ``torch.Generator`` on the
+    input's device, or None for torch's default one); the trainers set it
+    to a generator seeded by the step (:func:`set_dropout_generator`), so a
+    resumed run draws the masks of an uninterrupted one.
+    """
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=self.generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every :class:`Dropout` of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator

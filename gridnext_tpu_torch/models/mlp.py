@@ -15,6 +15,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from gridnext_tpu_torch.models.layers import BatchNorm
+
 
 class CountMLP(nn.Module):
     """Spot classifier ``f`` over 1-D expression vectors.
@@ -26,7 +28,8 @@ class CountMLP(nn.Module):
       hidden: widths of the four hidden linear layers.
       batch_norm: BatchNorm after the 2nd and 4th linear layer (the
         tutorial's topology); False is the stateless distilled student.
-        Momentum 0.1 in torch's convention is flax's 0.9, eps 1e-5 in both.
+        flax's BatchNorm (:class:`~gridnext_tpu_torch.models.layers.BatchNorm`:
+        momentum 0.9, eps 1e-5, the biased running variance in train mode).
     """
 
     def __init__(self, n_genes: int, n_classes: int,
@@ -37,8 +40,8 @@ class CountMLP(nn.Module):
         self.dense = nn.ModuleList(nn.Linear(i, o) for i, o in
                                    ((n_genes, h1), (h1, h2), (h2, h3), (h3, h4),
                                     (h4, n_classes)))
-        self.norms = (nn.ModuleList(nn.BatchNorm1d(w, eps=1e-5, momentum=0.1)
-                                    for w in (h2, h4)) if batch_norm else None)
+        self.norms = (nn.ModuleList(BatchNorm(w) for w in (h2, h4))
+                      if batch_norm else None)
 
     def _norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
         return self.norms[i](x) if self.batch_norm else x

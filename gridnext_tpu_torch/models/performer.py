@@ -5,8 +5,10 @@ multimodal model directory needs it: ``FastAttention`` (generalized and
 softmax random features, ``no_projection``), ``SelfAttention`` with global
 heads only, ``FeedForward`` (exact GELU, GLU, chunks), ``Performer`` with
 pre-LayerNorm residuals and ``PerformerLM`` (token embedding, no positional
-embedding, an optional head module, the final LayerNorm). Modules run in
-eval mode: dropout is zero in every model directory the port serves.
+embedding, an optional head module, the final LayerNorm). The dropouts of
+the JAX modules (``emb_dropout``, ``attn_dropout`` after the attention's
+output projection, ``ff_dropout`` after the feed-forward's GELU) act in
+train mode, through :class:`~gridnext_tpu_torch.models.layers.Dropout`.
 
 Causal attention, local heads, rotary embeddings and ``sow_attention``
 wait for a later slice (``ROADMAP.md`` Queue 1 item 6) and raise
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gridnext_tpu_torch.models.layers import Dropout
 from gridnext_tpu_torch.ops.favor import (generalized_kernel_features,
                                           linear_attention,
                                           orthogonal_gaussian_matrix,
@@ -95,7 +98,7 @@ class SelfAttention(nn.Module):
                  nb_features: Optional[int] = None,
                  generalized_attention: bool = False,
                  kernel_fn: Callable = torch.relu, no_projection: bool = False,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, dropout: float = 0.0):
         super().__init__()
         if local_heads:
             raise NotImplementedError(f"local attention heads are {_LATER}")
@@ -110,6 +113,7 @@ class SelfAttention(nn.Module):
             dim_head, nb_features, generalized_attention=generalized_attention,
             kernel_fn=kernel_fn, no_projection=no_projection)
         self.to_out = nn.Linear(inner, dim)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -120,18 +124,20 @@ class SelfAttention(nn.Module):
         out = self.fast_attention(heads(self.to_q(x)), heads(self.to_k(x)),
                                   heads(self.to_v(x)))
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return self.to_out(out)
+        return self.dropout(self.to_out(out))
 
 
 class FeedForward(nn.Module):
     """Dense -> exact GELU (optionally gated) -> Dense, over ``chunks``
-    pieces of the sequence."""
+    pieces of the sequence, with ``dropout`` after the GELU."""
 
-    def __init__(self, dim: int, mult: int = 4, glu: bool = False, chunks: int = 1):
+    def __init__(self, dim: int, mult: int = 4, glu: bool = False, chunks: int = 1,
+                 dropout: float = 0.0):
         super().__init__()
         self.glu, self.chunks = glu, chunks
         self.w1 = nn.Linear(dim, dim * mult * (2 if glu else 1))
         self.w2 = nn.Linear(dim * mult, dim)
+        self.dropout = Dropout(dropout)
 
     def _ff(self, x):
         h = self.w1(x)
@@ -140,7 +146,7 @@ class FeedForward(nn.Module):
             h = F.gelu(a, approximate="none") * gate
         else:
             h = F.gelu(h, approximate="none")
-        return self.w2(h)
+        return self.w2(self.dropout(h))
 
     def forward(self, x):
         if self.chunks <= 1:
@@ -157,18 +163,20 @@ class Performer(nn.Module):
                  nb_features: Optional[int] = None, ff_chunks: int = 1,
                  generalized_attention: bool = False,
                  kernel_fn: Callable = torch.relu, ff_glu: bool = False,
-                 no_projection: bool = False, qkv_bias: bool = True):
+                 no_projection: bool = False, qkv_bias: bool = True,
+                 ff_dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
         self.attn_norms = nn.ModuleList(nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
                                         for _ in range(depth))
         self.attns = nn.ModuleList(SelfAttention(
             dim, heads, dim_head, nb_features=nb_features,
             generalized_attention=generalized_attention, kernel_fn=kernel_fn,
-            no_projection=no_projection, qkv_bias=qkv_bias)
+            no_projection=no_projection, qkv_bias=qkv_bias, dropout=attn_dropout)
             for _ in range(depth))
         self.ff_norms = nn.ModuleList(nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
                                       for _ in range(depth))
-        self.ffs = nn.ModuleList(FeedForward(dim, glu=ff_glu, chunks=ff_chunks)
+        self.ffs = nn.ModuleList(FeedForward(dim, glu=ff_glu, chunks=ff_chunks,
+                                             dropout=ff_dropout)
                                  for _ in range(depth))
 
     def forward(self, x):
@@ -190,14 +198,18 @@ class PerformerLM(nn.Module):
                  ff_chunks: int = 1, ff_glu: bool = False,
                  generalized_attention: bool = False,
                  kernel_fn: Callable = torch.relu, no_projection: bool = False,
-                 qkv_bias: bool = False, head_module: Optional[nn.Module] = None):
+                 qkv_bias: bool = False, head_module: Optional[nn.Module] = None,
+                 emb_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.max_seq_len = max_seq_len
         self.token_emb = nn.Embedding(num_tokens, dim)
+        self.emb_dropout = Dropout(emb_dropout)
         self.performer = Performer(
             dim, depth, heads, dim_head, nb_features=nb_features, ff_chunks=ff_chunks,
             generalized_attention=generalized_attention, kernel_fn=kernel_fn,
-            ff_glu=ff_glu, no_projection=no_projection, qkv_bias=qkv_bias)
+            ff_glu=ff_glu, no_projection=no_projection, qkv_bias=qkv_bias,
+            ff_dropout=ff_dropout, attn_dropout=attn_dropout)
         self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.head_module = head_module
         self.to_out = nn.Linear(dim, num_tokens) if head_module is None else None
@@ -206,5 +218,5 @@ class PerformerLM(nn.Module):
         if x.shape[1] > self.max_seq_len:
             raise ValueError(f"{x.shape[1]} tokens exceed max_seq_len "
                              f"{self.max_seq_len}")
-        h = self.norm(self.performer(self.token_emb(x)))
+        h = self.norm(self.performer(self.emb_dropout(self.token_emb(x))))
         return self.head_module(h) if self.head_module is not None else self.to_out(h)

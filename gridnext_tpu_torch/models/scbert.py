@@ -1,6 +1,6 @@
 """scBERT: a PerformerLM over the gene2vec vocabulary, as a count-spot f.
 
-Port of ``gridnext_tpu/models/scbert.py`` for inference: expression binned
+Port of ``gridnext_tpu/models/scbert.py``: expression binned
 into ``bin_num`` tokens with an appended zero token, the
 ``AttentionClassifier`` head, the count preprocessing recipe
 (:func:`preprocess_scbert`, numpy and scipy only) and the 16,906-symbol
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gridnext_tpu_torch.models.layers import Dropout
 from gridnext_tpu_torch.models.performer import PerformerLM
 
 SCBERT_N_GENES = 16906  # gene2vec vocabulary size
@@ -27,12 +28,13 @@ GENE2VEC_NAMES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__
 class AttentionClassifier(nn.Module):
     """Token-embedding pooling head: Dense(dim -> 1) over each token, then
     an MLP over the ``seq_len`` token scores (fc1 -> 512 -> ``h_dim`` ->
-    ``out_dim``, ReLUs between)."""
+    ``out_dim``, ReLUs between, ``dropout`` after the first two)."""
 
     def __init__(self, dim: int, seq_len: int = SCBERT_N_GENES + 1, h_dim: int = 128,
-                 out_dim: int = 10):
+                 out_dim: int = 10, dropout: float = 0.0):
         super().__init__()
         self.seq_len = seq_len
+        self.dropout = Dropout(dropout)
         self.conv1 = nn.Linear(dim, 1)
         self.fc1 = nn.Linear(seq_len, 512)
         self.fc2 = nn.Linear(512, h_dim)
@@ -43,8 +45,8 @@ class AttentionClassifier(nn.Module):
             raise ValueError(f"AttentionClassifier built for seq_len={self.seq_len} "
                              f"but got {x.shape[1]} tokens")
         h = torch.relu(self.conv1(x)[..., 0])        # (B, seq_len)
-        h = torch.relu(self.fc1(h))
-        h = torch.relu(self.fc2(h))
+        h = self.dropout(torch.relu(self.fc1(h)))
+        h = self.dropout(torch.relu(self.fc2(h)))
         return self.fc3(h)
 
 
@@ -55,13 +57,15 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
     are clipped to ``bin_num`` and truncated to integer tokens, a zero token
     is appended, and the LM runs over ``n_genes + 1`` tokens. With
     ``n_classes``: ``(B, n_classes)`` logits (the count-f of
-    ``GridNetHexMM``); without: per-token logits.
+    ``GridNetHexMM``); without: per-token logits. ``ff_dropout`` and
+    ``attn_dropout`` act in train mode, as the JAX module's.
     """
 
     def __init__(self, n_genes: int = SCBERT_N_GENES, bin_num: int = 5, dim: int = 200,
                  depth: int = 6, heads: int = 10, dim_head: int = 64,
                  nb_features: Optional[int] = None, n_classes: Optional[int] = None,
-                 generalized_attention: bool = False):
+                 generalized_attention: bool = False, ff_dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.bin_num = bin_num
         head = (None if n_classes is None else
@@ -69,7 +73,8 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
         self.performer_lm = PerformerLM(
             num_tokens=bin_num + 2, max_seq_len=n_genes + 1, dim=dim, depth=depth,
             heads=heads, dim_head=dim_head, nb_features=nb_features,
-            generalized_attention=generalized_attention, head_module=head)
+            generalized_attention=generalized_attention, head_module=head,
+            ff_dropout=ff_dropout, attn_dropout=attn_dropout)
 
     def forward(self, x):
         tokens = torch.clamp(x, max=self.bin_num).to(torch.int64)   # truncation

@@ -11,6 +11,10 @@ follow flax: LayerNorm/RMSNorm over channels with epsilon 1e-6 (flax's
 default; the stats use the one-pass ``E[x^2] - E[x]^2`` variance, as flax's
 ``use_fast_variance``), ``"SAME"`` 3x3 convs (pad 1), and ``"SAME"`` 2x2/2
 downsamples (no pad on even sizes; one pad row/column at the end on odd).
+``dtype`` (e.g. ``torch.bfloat16``) computes the convolutions and the head
+in that type under autocast with float32 parameters, as flax's ``dtype``
+(the norms reduce in float32); ``dropout`` drops the pooled features before
+the head in train mode.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gridnext_tpu_torch.models.layers import Dropout
 
 NORM_EPS = 1e-6  # flax LayerNorm / RMSNorm default epsilon
 
@@ -42,14 +48,15 @@ class ChannelNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "none":
             return x
+        dtype, x = x.dtype, x.float()
         mean2 = (x * x).mean(dim=1, keepdim=True)
         if self.kind == "rms":
             y = x * torch.rsqrt(mean2 + self.eps)
-            return y * self.scale.view(1, -1, 1, 1)
+            return (y * self.scale.view(1, -1, 1, 1)).to(dtype)
         mean = x.mean(dim=1, keepdim=True)
         var = (mean2 - mean * mean).clamp_min(0.0)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return (y * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)).to(dtype)
 
 
 class _Block(nn.Module):
@@ -86,14 +93,16 @@ class TpuPatchClassifier(nn.Module):
     """Residual ConvNet with 128-multiple channels everywhere.
 
     ``forward(x)`` maps ``(N, P, P, 3)`` floats to ``(N, n_classes)``
-    logits. float32 only; the JAX module's ``dtype``, ``dropout`` and
-    ``classify=False`` options are not ported (serving uses none of them).
+    float32 logits, or ``(N, width)`` pooled features with
+    ``classify=False``.
     """
 
     def __init__(self, n_classes: int = 7,
                  stages: Sequence[Tuple[int, int]] = ((256, 2), (512, 2)),
-                 stem_patch: int = 16, norm: str = "rms"):
+                 stem_patch: int = 16, norm: str = "rms", classify: bool = True,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.stages_spec = tuple((int(w), int(d)) for w, d in stages)
         self.stem_patch = int(stem_patch)
         w0 = self.stages_spec[0][0]
@@ -106,7 +115,8 @@ class TpuPatchClassifier(nn.Module):
             self.downs.append(_Downsample(c, width) if c != width else nn.Identity())
             self.blocks.append(nn.ModuleList(_Block(width, norm) for _ in range(depth)))
             c = width
-        self.head = nn.Linear(c, n_classes)
+        self.dropout = Dropout(dropout)
+        self.head = nn.Linear(c, n_classes) if classify else None
 
     def jax_order(self):
         """Convs and norms in the order flax creates them in
@@ -129,13 +139,18 @@ class TpuPatchClassifier(nn.Module):
                 f"input patches {tuple(x.shape[-3:-1])} too small for "
                 f"stem_patch={self.stem_patch} with {len(self.stages_spec)} "
                 f"stages: use patches of at least {min_px}px")
-        x = x.float().permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = self.stem_norm(self.stem(x))
-        for down, blocks in zip(self.downs, self.blocks):
-            x = down(x)
-            for blk in blocks:
-                x = blk(x)
-        return self.head(x.mean(dim=(2, 3)))  # global average pool -> head
+        with torch.autocast(x.device.type, dtype=self.dtype or torch.bfloat16,
+                            enabled=self.dtype is not None):
+            x = x.float().permute(0, 3, 1, 2)  # NHWC -> NCHW
+            x = self.stem_norm(self.stem(x))
+            for down, blocks in zip(self.downs, self.blocks):
+                x = down(x)
+                for blk in blocks:
+                    x = blk(x)
+            x = x.mean(dim=(2, 3))              # global average pool
+            if self.head is None:
+                return x.float()
+            return self.head(self.dropout(x)).float()
 
 
 def tpu_f_arch_kwargs(meta: Optional[dict]) -> dict:

@@ -9,7 +9,8 @@ fractional pixel pitch resample straight to patch scale with
 :func:`scale_and_translate_linear` (``jax.image.scale_and_translate``,
 linear). :func:`patch_grid` builds an array's ``(H, W, P, P, 3)`` float
 grid on the slide's device, as the JAX package's ``grid_from_wsi_visium``
-builds it on the host.
+builds it on the host. :func:`augment_patches` draws one of the 8
+flips/rotations per patch on the card for training (``--augment``).
 """
 
 from __future__ import annotations
@@ -249,3 +250,83 @@ def patch_grid(wsi: torch.Tensor, positions, patch_size: int, window_size=None,
     oy, ox, y_px, x_px = spot_pixel_arrays(positions, h_st, w_st, hex_coords)
     # padded by w // 2, the slide's window around a center starts at it
     return crop_grid(edge_pad(wsi, w // 2), oy, ox, y_px, x_px, w, patch_size, h_st, w_st)
+
+
+def _dihedral(patches: torch.Tensor, transpose, flip_r, flip_c) -> torch.Tensor:
+    """Per-patch (transpose?, flip rows?, flip columns?) of ``(..., P, P, C)``
+    patches, the bits broadcast over the leading axes, applied in that
+    order."""
+    def bit(b):
+        return torch.as_tensor(b, device=patches.device)[(...,) + (None,) * 3]
+
+    out = torch.where(bit(transpose), patches.transpose(-2, -3), patches)
+    out = torch.where(bit(flip_r), out.flip(-3), out)
+    return torch.where(bit(flip_c), out.flip(-2), out)
+
+
+def dihedral_transform(patches: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k``-th (0..7) dihedral transform of ``(..., P, P, C)`` patches:
+    bit 0 transposes, bit 1 flips the rows, bit 2 the columns (the JAX
+    package's convention)."""
+    if not 0 <= k < 8:
+        raise ValueError(f"dihedral k must be in 0..7; got {k}")
+    if patches.dim() < 3 or patches.shape[-2] != patches.shape[-3]:
+        raise ValueError("dihedral_transform wants (..., P, P, C) square "
+                         f"patches; got shape {tuple(patches.shape)}")
+    return _dihedral(patches, bool(k & 1), bool(k & 2), bool(k & 4))
+
+
+def augment_patches(generator: torch.Generator, patches: torch.Tensor, *,
+                    flips: bool = True, rotations: bool = True,
+                    brightness: float = 0.0, contrast: float = 0.0) -> torch.Tensor:
+    """Random augmentation of ``(..., P, P, C)`` float patches on their
+    device: each patch draws one of the 8 dihedral transforms (flips and
+    rotations; the 4 rotations alone or the 4 flips alone when one is
+    off) from ``generator`` (a generator on the patches' device), and
+    optionally a brightness shift ``u * brightness`` and a contrast scale
+    ``1 + u * contrast`` around the patch mean, u ~ U[-1, 1]. The JAX
+    package's ``augment_patches``; torch draws other bits than JAX."""
+    if patches.dim() < 3 or patches.shape[-2] != patches.shape[-3]:
+        raise ValueError("augment_patches wants (..., P, P, C) square "
+                         f"patches; got shape {tuple(patches.shape)}")
+    lead = tuple(patches.shape[:-3])
+    dev = patches.device
+
+    def coin():
+        return torch.rand(lead, generator=generator, device=dev) < 0.5
+
+    zeros = torch.zeros(lead, dtype=torch.bool, device=dev)
+    transpose = flip_r = flip_c = zeros
+    if flips and rotations:
+        transpose, flip_r, flip_c = coin(), coin(), coin()
+    elif flips:
+        flip_r, flip_c = coin(), coin()
+    elif rotations:
+        k90 = torch.randint(0, 4, lead, generator=generator, device=dev)
+        transpose, flip_r, flip_c = k90 % 2 == 1, k90 >= 2, (k90 == 1) | (k90 == 2)
+    out = _dihedral(patches, transpose, flip_r, flip_c)
+
+    def expand(v):
+        return v[(...,) + (None,) * 3].to(out.dtype)
+
+    if brightness:
+        u = torch.rand(lead, generator=generator, device=dev) * 2 - 1
+        out = out + expand(u * brightness)
+    if contrast:
+        u = torch.rand(lead, generator=generator, device=dev) * 2 - 1
+        mean = out.mean(dim=(-1, -2, -3), keepdim=True)
+        out = (out - mean) * expand(1.0 + u * contrast) + mean
+    return out
+
+
+def make_train_augment(brightness: float = 0.0, contrast: float = 0.0):
+    """The trainers' augmentation hook ``fn(generator, x)``: a bare patch
+    batch augments whole; a multimodal ``(image, counts)`` pair augments
+    its image only (``--augment``)."""
+    def augment(generator, x):
+        if isinstance(x, (tuple, list)):
+            return type(x)((augment_patches(generator, x[0], brightness=brightness,
+                                            contrast=contrast),) + tuple(x[1:]))
+        return augment_patches(generator, x, brightness=brightness, contrast=contrast)
+
+    return augment

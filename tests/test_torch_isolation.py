@@ -21,7 +21,7 @@ from gridnext_tpu_torch import geometry
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gridnext_tpu_torch"
-FORBIDDEN = ("jax", "flax", "pandas", "pyarrow", "msgpack", "gridnext_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu")
 
 
 def _modules():
@@ -36,7 +36,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             f"for m in {list(_modules())!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', 'msgpack'))\n"
+            "('jax', 'flax', 'optax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', "
+            "'msgpack'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
