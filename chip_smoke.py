@@ -184,7 +184,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
     DenseNet-121, both frozen) over a full grid, 3,744 FAVOR calls; the
     phase's seconds and peak device memory, each number beside the card's
     name and power limit;
-15. a ``{"kernels": [...]}`` line, then the last line
+15. the count data tier at full transcriptome width: (a) the ``simulate``
+    command (``cli.main``) makes a cohort of ``TIER_ARRAYS`` arrays at 16,906
+    genes named by gene2vec symbols, timed; (b) the ``prepare`` command
+    writes their unified caches, timed with its stage split (MEX read,
+    union and filter, write); (c) each cache read three ways, median of 3
+    on the host clock: the package's former line reader (kept here as
+    ``line_reader``: ``gzip`` and one ``np.fromstring`` a row), the codec on
+    the ``GX`` member chain, and the codec on a single-member copy written
+    by ``write_unified_cache``, all three required equal; (d) the
+    ``train-count`` command on the card, 2 epochs, its spot and grid
+    stages timed, the grid stage's training loss required to fall from
+    epoch 1 to epoch 2; (e) the ``register`` command for each array through
+    the trained directory, the CSV's labels equal to a direct forward of
+    the directory's model on the ``CountGridDataset`` grid up to near-ties,
+    and the foreground accuracy against the simulated annotations printed;
+    (f) two caches with reversed gene axes required to make the factory
+    raise the gene-axis ``ValueError``; every number beside the card's name
+    and power limit;
+16. a ``{"kernels": [...]}`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -195,6 +213,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import json
 import os
 import subprocess
@@ -309,24 +328,39 @@ def traced_kernels(prof, symbols, calls: int) -> dict:
     return {s: (per_call[s], us / n / 1e3 * per_call[s]) for s, (n, us) in found.items()}
 
 
-def device_ms(torch, fn, iters: int, symbols) -> dict:
-    """:func:`traced_kernels` of ``iters`` back-to-back calls of ``fn``,
-    recorded in the second of two profiler steps. The first step's record
-    is discarded: it takes the tracer's activity-buffer requests, and in a
-    process that has traced before, a short trace that takes one itself
-    has come back with the launches but no kernel records."""
+def profiled(torch, fn, iters: int, symbol_sets, tries: int = 3) -> tuple:
+    """(prof, [:func:`traced_kernels` of each of ``symbol_sets``]) of
+    ``iters`` back-to-back calls of ``fn``, recorded in the second of two
+    profiler steps. The first step's record is discarded: it takes the
+    tracer's activity-buffer requests, and in a process that has traced
+    before, a short trace that takes one itself has come back with the
+    launches but no kernel records. A trace that still lacks a kernel's
+    records is taken again, at most ``tries`` times in all, and each loss is
+    logged: the launch counters, not the trace, show that a kernel ran."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return traced_kernels(prof, symbols, iters)
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        try:
+            return prof, [traced_kernels(prof, symbols, iters) for symbols in symbol_sets]
+        except AssertionError as err:
+            if attempt == tries:
+                raise
+            log(f"trace {attempt} of {tries} lost kernel records, tracing again: {err}")
+
+
+def device_ms(torch, fn, iters: int, symbols) -> dict:
+    """:func:`traced_kernels` of ``iters`` back-to-back calls of ``fn``
+    (:func:`profiled`)."""
+    return profiled(torch, fn, iters, [symbols])[1][0]
 
 
 def kernel_line(per_symbol: dict) -> tuple:
@@ -787,14 +821,11 @@ def phase_main_path(torch, slides, port, card, tmp):
 
 def profile_batch(torch, reg, slides, positions,
                   names=("gather_patches", "fused_hex_corrector_labels")):
-    from torch.profiler import ProfilerActivity, profile
-
-    reg.register_batch(slides, positions)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reg.register_batch(slides, positions)
+    prof, traced = profiled(torch, lambda: reg.register_batch(slides, positions), 1,
+                            [KERNEL_SYMBOLS[name] for name in names])
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    for name in names:
-        dev_ms, parts = kernel_line(traced_kernels(prof, KERNEL_SYMBOLS[name], 1))
+    for name, per_symbol in zip(names, traced):
+        dev_ms, parts = kernel_line(per_symbol)
         log(f"register_batch trace: {name} device {dev_ms:.4f} ms ({parts})")
 
 
@@ -1626,21 +1657,17 @@ def phase_register_slides(torch, slides, port, card, tmp, batch4):
 
 
 def write_unified_cache(path, genes, columns, counts):
-    """A unified count cache as the JAX package's ``prepare`` writes it:
-    gzip TSV, a ``Gene`` header over the spot columns, a row of integer
-    counts per gene (single-digit counts written as bytes)."""
+    """A unified count cache in the single-member framing (one gzip stream,
+    level 1, as pandas or ``gzip.open`` write it, not the ``GX`` member
+    chain the package's ``prepare`` writes): a ``Gene`` header over the
+    spot columns, a row of integer counts per gene."""
     import gzip
 
-    if counts.max() > 9:
-        raise ValueError("the byte writer takes single-digit counts")
-    n_genes, n_spots = counts.shape
-    body = np.full((n_genes, 2 * n_spots), ord("\t"), np.uint8)
-    body[:, 0::2] = counts.astype(np.uint8) + ord("0")
-    body[:, -1] = ord("\n")
+    from gridnext_tpu_torch.io.tsv_codec import format_int_rows
+
     with gzip.open(path, "wb", compresslevel=1) as fh:
         fh.write(("Gene\t" + "\t".join(columns) + "\n").encode())
-        for g, row in zip(genes, body):
-            fh.write(g.encode() + b"\t" + row.tobytes())
+        fh.write(format_int_rows(np.asarray(counts, np.int64), [g.encode() for g in genes]))
 
 
 def phase_count(torch, port, card, tmp, dirs_masks, dev):
@@ -2969,6 +2996,253 @@ def train_phase(torch, slides, port, card, tmp, mm):
         f"memory {peak:.2f} GiB [{card}]")
 
 
+# -- phase 15: the count data tier ------------------------------------------------
+
+TIER_ARRAYS = 4               # the cohort of JAX's simulate default (--arrays 4)
+TIER_GENES = 16906            # the gene2vec vocabulary: never cut
+TIER_EPOCHS = 2               # train-count's --epochs (JAX's default 10)
+TIER_READS = 3                # host-clock reads a reader and cache (median)
+
+
+def _row_values(fields: bytes, n: int) -> np.ndarray:
+    """One row's tab-separated numbers (the former line reader's)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        try:
+            values = np.fromstring(fields, dtype=np.float64, sep="\t")
+        except (DeprecationWarning, ValueError):
+            values = None
+    if values is not None and len(values) == n:
+        return values
+    cells = fields.split(b"\t")
+    if len(cells) != n:
+        raise ValueError(f"a row has {len(cells)} values for {n} columns")
+    return np.array([float(c) if c.strip() else np.nan for c in cells], np.float64)
+
+
+def line_reader(count_file):
+    """The package's former unified-cache reader, the yardstick of the codec:
+    ``gzip`` on one thread and one ``np.fromstring`` a row."""
+    import gzip
+
+    with gzip.open(str(count_file), "rb") as fh:
+        header = fh.readline().rstrip(b"\r\n").split(b"\t")
+        columns = [c.decode() for c in header[1:]]
+        genes, rows = [], []
+        for line in fh:
+            line = line.rstrip(b"\r\n")
+            if not line:
+                continue
+            name, _, fields = line.partition(b"\t")
+            genes.append(name.decode())
+            rows.append(_row_values(fields, len(columns)))
+    return genes, columns, np.stack(rows)
+
+
+def csv_label_grid(path, positions, classes, shape):
+    """The (78, 64) label grid a Loupe CSV names through ``positions``
+    (class code + 1; 0 where no row names a spot) and its row count."""
+    from gridnext_tpu_torch import geometry
+
+    where = {b: i for i, b in enumerate(positions.barcodes)}
+    grid = np.zeros(shape, np.int64)
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))[1:]
+    for barcode, annot in rows:
+        i = where[barcode]
+        x, y = geometry.pseudo_hex_to_oddr(positions["array_col"][i], positions["array_row"][i])
+        grid[y, x] = classes.index(annot) + 1
+    return grid, len(rows)
+
+
+def phase_count_tier(torch, card, tmp, dev) -> dict:
+    """Phase 15: simulate, prepare, the three readers, train-count and
+    register through the port's commands at 16,906 genes; returns the
+    numbers it printed."""
+    import shutil
+
+    from gridnext_tpu_torch import cli, modeldir, serving
+    from gridnext_tpu_torch.compat import from_jax
+    from gridnext_tpu_torch.data import CountGridDataset, create_visium_dataset
+    from gridnext_tpu_torch.io import read_positions, tsv_codec, unify
+    from gridnext_tpu_torch.observability import StageTimer
+    from gridnext_tpu_torch.train import loops as tl
+
+    t_phase = time.perf_counter()
+    log(f"== phase 15: the count data tier at full width: simulate, prepare, the cache "
+        f"readers, train-count and register over {TIER_ARRAYS} arrays of {TIER_GENES} genes")
+    out = {}
+    root = os.path.join(tmp, "cohort")
+    t0 = time.perf_counter()
+    cli.main(["simulate", "--out", root, "--arrays", str(TIER_ARRAYS), "--genes",
+              str(TIER_GENES), "--gene2vec-names", "--seed", str(SEED)])
+    out["simulate_s"] = time.perf_counter() - t0
+    dirs = [os.path.join(root, f"a{i}") for i in range(TIER_ARRAYS)]
+    mex = sum(os.path.getsize(os.path.join(d, "outs", "filtered_feature_bc_matrix",
+                                           "matrix.mtx.gz")) for d in dirs)
+    log(f"(a) simulate: {out['simulate_s']:.2f} s for {TIER_ARRAYS} arrays "
+        f"({mex / 1e6:.1f} MB of gzip MEX) [{card}]")
+
+    # (b) prepare, with the stage split of prepare_count_files
+    timer = StageTimer()
+    prepare = unify.prepare_count_files
+    unify.prepare_count_files = functools.partial(prepare, timer=timer)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["prepare", "--spaceranger", *dirs])
+        out["prepare_s"] = time.perf_counter() - t0
+    finally:
+        unify.prepare_count_files = prepare
+    laps = out["prepare_split_s"] = timer.summary()
+    caches = [unify.unified_cache_path(d) for d in dirs]
+    log(f"(b) prepare: {out['prepare_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in laps.items()) + f" s) [{card}]")
+
+    # (c) three readers, median of TIER_READS host-clock reads each
+    reads = []
+    for i, cfile in enumerate(caches):
+        if tsv_codec.gzip_member_format(cfile) != "native":
+            raise AssertionError(f"{cfile}: prepare did not write the GX member chain")
+        single = os.path.join(tmp, f"single{i}.unified.tsv.gz")
+        genes, columns, values = tsv_codec.read_tsv_matrix(cfile)
+        write_unified_cache(single, genes, columns, values)
+        if tsv_codec.gzip_member_format(single) != "foreign":
+            raise AssertionError("write_unified_cache wrote a GX member chain")
+        row = {"array": i, "genes": len(genes), "spots": len(columns),
+               "gzip_mb": os.path.getsize(cfile) / 1e6,
+               "single_gzip_mb": os.path.getsize(single) / 1e6}
+        results = {}
+        for name, fn, path in (("line_reader", line_reader, cfile),
+                               ("codec_gx", tsv_codec.read_tsv_matrix, cfile),
+                               ("codec_single", tsv_codec.read_tsv_matrix, single)):
+            times = []
+            for _ in range(TIER_READS):
+                t0 = time.perf_counter()
+                results[name] = fn(path)
+                times.append(time.perf_counter() - t0)
+            row[f"{name}_s"] = float(np.median(times))
+        for name, (g, c, v) in results.items():
+            if g != genes or c != columns or not np.array_equal(v, values):
+                raise AssertionError(f"array {i}: {name} reads other (genes, columns, "
+                                     "values) than the codec")
+        del results
+        row["speedup_gx"] = row["line_reader_s"] / row["codec_gx_s"]
+        row["speedup_single"] = row["line_reader_s"] / row["codec_single_s"]
+        reads.append(row)
+        log(f"(c) array {i}: {len(genes)} genes x {len(columns)} spots, "
+            f"{row['gzip_mb']:.1f} MB GX gzip; median of {TIER_READS}: line reader "
+            f"{row['line_reader_s']:.3f} s, codec on the GX chain {row['codec_gx_s']:.3f} s "
+            f"({row['speedup_gx']:.2f}x), codec on the single member "
+            f"{row['codec_single_s']:.3f} s ({row['speedup_single']:.2f}x); all three "
+            f"equal ({tsv_codec.workers()} codec threads) [{card}]")
+    out["reads"] = reads
+
+    # (d) train-count on the card: the stages timed, the grid loss falls
+    annots = [os.path.join(d, f"a{i}_annotations.csv") for i, d in enumerate(dirs)]
+    model = os.path.join(tmp, "model_count_tier")
+    stages, histories = {}, []
+    spot_stage, grid_stage, train_gridwise = cli._spot_stage, cli._grid_stage, tl.train_gridwise
+    import gridnext_tpu_torch.train as train_pkg
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                stages[name] = time.perf_counter() - t0
+        return run
+
+    def recorded(*a, **kw):
+        res = train_gridwise(*a, **kw)
+        histories.append(list(res[2]))
+        return res
+
+    cli._spot_stage, cli._grid_stage = timed("spot", spot_stage), timed("grid", grid_stage)
+    train_pkg.train_gridwise = recorded
+    try:
+        t0 = time.perf_counter()
+        cli.main(["train-count", "--spaceranger", *dirs, "--annots", *annots, "--out", model,
+                  "--epochs", str(TIER_EPOCHS), "--device", str(dev)])
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        cli._spot_stage, cli._grid_stage = spot_stage, grid_stage
+        train_pkg.train_gridwise = train_gridwise
+    grid_loss = histories[0]
+    if not (len(grid_loss) == TIER_EPOCHS and grid_loss[1] < grid_loss[0]):
+        raise AssertionError(f"train-count: the grid stage's training loss {grid_loss} "
+                             "did not fall from epoch 1 to epoch 2")
+    out.update(spot_stage_s=stages["spot"], grid_stage_s=stages["grid"], grid_loss=grid_loss)
+    log(f"(d) train-count, {TIER_EPOCHS} epochs: {out['train_s']:.2f} s, spot stage "
+        f"{stages['spot']:.2f} s, grid stage {stages['grid']:.2f} s; grid training loss "
+        f"{grid_loss[0]:.4f} -> {grid_loss[1]:.4f} [{card}]")
+
+    # (e) register each array through the trained directory
+    meta, classes, variables = from_jax.load_model_dir(model)
+    classes = list(classes)
+    n_genes = len(tsv_codec.read_row_names(caches[0]))
+    if meta["model"] != "GridNetHex+CountMLP" or meta["n_genes"] != n_genes:
+        raise AssertionError(f"train-count wrote {meta['model']} over {meta['n_genes']} genes "
+                             f"(the caches hold {n_genes})")
+    net = modeldir.grid_model_from_meta(meta, classes, variables, device=dev)
+    out["register"] = []
+    for i, (srd, cfile) in enumerate(zip(dirs, caches)):
+        csv_out = os.path.join(tmp, f"tier{i}.csv")
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", model, "--spaceranger", srd, "--out", csv_out,
+                  "--device", str(dev)])
+        t_reg = time.perf_counter() - t0
+        x, _ = CountGridDataset([cfile])[0]
+        fg = x.sum(-1) > 0
+        with torch.no_grad():
+            logits = net(torch.as_tensor(np.log1p(x)[None], device=dev))[0].float().cpu().numpy()
+        want = np.where(fg, logits.argmax(-1) + 1, 0)
+        positions = read_positions(srd)
+        got, n_rows = csv_label_grid(csv_out, positions, classes, fg.shape)
+        if n_rows != int(fg.sum()) or not np.array_equal(got > 0, fg):
+            raise AssertionError(f"register of array {i}: the CSV's spots differ from the "
+                                 "cache's")
+        flips = serving.label_parity_report(want, got, logits)
+        truth, _ = csv_label_grid(annots[i], positions, classes, fg.shape)
+        acc = float((got[fg] == truth[fg]).mean())
+        out["register"].append({"array": i, "s": t_reg, "flips": flips, "accuracy": acc,
+                                "spots": n_rows})
+        log(f"(e) register of array {i}: {t_reg:.2f} s with the model load; labels equal "
+            f"to the directory's forward on the CountGridDataset grid up to {flips} "
+            f"near-tie flips of {n_rows} spots; foreground accuracy against the simulated "
+            f"annotations {acc:.4f} (chance {1 / len(classes):.3f}) [{card}]")
+
+    # (f) two caches with reversed gene axes: the factory raises
+    bad = []
+    for i in range(2):
+        d = os.path.join(tmp, "misaligned", f"m{i}")
+        os.makedirs(os.path.join(d, "outs", "spatial"))
+        shutil.copy(os.path.join(dirs[i], "outs", "spatial", "tissue_positions.csv"),
+                    os.path.join(d, "outs", "spatial"))
+        genes, columns, values = tsv_codec.read_tsv_matrix(caches[i])
+        if i == 1:
+            genes, values = genes[::-1], values[::-1]
+        tsv_codec.write_tsv_matrix(unify.unified_cache_path(d), genes, columns, values,
+                                   force_int=True)
+        bad.append(d)
+    try:
+        create_visium_dataset(bad, use_image=False, annot_files=None, device=dev)
+    except ValueError as e:
+        if "count files do not share a gene axis" not in str(e):
+            raise
+        log(f"(f) reversed gene axes: the factory raised ValueError: {str(e)[:96]}...")
+    else:
+        raise AssertionError("the factory took two caches with reversed gene axes")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['phase_s']:.1f} s [{card}]")
+    log(json.dumps({"count_tier": out}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3054,6 +3328,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dir, trace
         phase_train(torch, slides, port, card, tmp, mm)
     del mm
+    with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dir, CSVs
+        phase_count_tier(torch, card, tmp, dev)
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",

@@ -1,5 +1,12 @@
 """Command line of the port: ``python -m gridnext_tpu_torch <command> ...``.
 
+Data (``simulate``, ``prepare``): the JAX package's commands on the host.
+``simulate`` writes Spaceranger-shaped fixtures (positions, MEX counts,
+Loupe annotations, optionally a fullres JPEG with PIL); ``prepare`` writes
+each directory's unified count cache over the cohort's union gene axis
+(``--images``, the JPEG patch caches, is not ported: the port crops
+patches from the slides on the card).
+
 Training (``train-count``, ``train-image``, ``train-mm``): the JAX
 package's commands with its flags and defaults, on the card. Each trains
 its f spotwise on the cohort's annotated spots, then g (the hex corrector,
@@ -9,8 +16,8 @@ writes a model directory (``model.json``, ``f_*state.msgpack``,
 ``g_state.msgpack``) that this package's and the JAX package's
 ``register`` read. Every epoch end writes ``<stage>.msgpack.latest``;
 ``--resume`` continues from it, and SIGTERM checkpoints at the next batch
-boundary and exits 75. The unified count caches must exist (the JAX
-package's ``prepare`` writes them). ``--mesh`` (multi-card training) and
+boundary and exits 75. Missing unified count caches are written first
+(``--min-detection``), as ``prepare`` writes them. ``--mesh`` (multi-card training) and
 ``--scbert-ckpt`` / ``--scbert-finetune`` are not ported yet and exit.
 
 Registration: the ``register`` command of the JAX package's CLI, on the card: a trained
@@ -48,6 +55,59 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+
+def _cmd_simulate(args):
+    from gridnext_tpu_torch.data import simulate_spaceranger_dir
+
+    kw = {}
+    if args.gene2vec_names:
+        # the FIRST n gene2vec symbols, so any --scbert-vocab >= --genes
+        # maps every simulated gene
+        from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+
+        kw["gene_names"] = list(load_gene2vec_names()[:args.genes])
+    if args.hd_grid is not None:
+        kw.update(spaceranger_version="hd", hd_grid=tuple(args.hd_grid),
+                  hd_binning=args.hd_binning)
+    if args.barcodes != "synthetic":
+        if args.hd_grid is not None:
+            sys.exit("error: --barcodes visium_v1 applies to the 78x64 "
+                     "Visium lattice, not HD bin grids")
+        kw["barcodes"] = args.barcodes
+    os.makedirs(args.out, exist_ok=True)
+    for i in range(args.arrays):
+        sim = simulate_spaceranger_dir(
+            os.path.join(args.out, f"a{i}"), seed=args.seed + i,
+            n_genes=args.genes, n_classes=args.classes, image=args.image, **kw)
+        print(f"simulated {sim['spaceranger_dir']} "
+              f"(annotations: {sim['annot_file']})")
+
+
+_MIN_DETECTION_DEFAULT = 0.02
+
+
+def _min_detection(args):
+    """--min-detection's effective value (its argparse default is None, so
+    that a flag the caches ignore can be told from the default)."""
+    v = getattr(args, "min_detection", None)
+    return _MIN_DETECTION_DEFAULT if v is None else v
+
+
+def _warn_existing_caches(args, caches):
+    if args.min_detection is not None and all(os.path.exists(c) for c in caches):
+        print("note: unified count caches already exist -- --min-detection "
+              "has no effect on them (delete *.unified.tsv.gz to refilter)")
+
+
+def _cmd_prepare(args):
+    from gridnext_tpu_torch.io.unify import prepare_count_files, unified_count_suffix
+
+    written = prepare_count_files(args.spaceranger, unified_count_suffix(args.hd_binning),
+                                  minimum_detection_rate=_min_detection(args),
+                                  hd_binning=args.hd_binning)
+    for w in written:
+        print(f"wrote {w}")
 
 
 def _require_one_image_per_dir(images, spaceranger_dirs):
@@ -314,10 +374,6 @@ def _check_train_args(args):
         sys.exit(_LATER_MESH)
     if getattr(args, "scbert_ckpt", None) or getattr(args, "scbert_finetune", False):
         sys.exit(_LATER_SCBERT)
-    if getattr(args, "min_detection", None) is not None:
-        # the JAX command's note where the caches exist; here they always do
-        print("note: unified count caches already exist -- --min-detection "
-              "has no effect on them (delete *.unified.tsv.gz to refilter)")
 
 
 def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None):
@@ -456,7 +512,9 @@ def _cmd_train_count(args):
 
     _check_train_args(args)
     hd_binning, grid_dims = _parse_hd_args(args, require_dims=False)
-    kw = dict(annot_files=args.annots, use_image=False, hd_binning=hd_binning)
+    _warn_existing_caches(args, [unified_cache_path(s, hd_binning) for s in args.spaceranger])
+    kw = dict(annot_files=args.annots, use_image=False, hd_binning=hd_binning,
+              minimum_detection_rate=_min_detection(args))
     try:
         spots = create_visium_dataset(args.spaceranger, spatial=False, **kw)
         grids = create_visium_dataset(args.spaceranger, spatial=True, grid_dims=grid_dims,
@@ -524,7 +582,9 @@ def _cmd_train_mm(args):
     _check_image_args(args)
     hd_binning, grid_dims = _parse_hd_args(args, require_dims=True,
                                            what="multimodal training")
-    count_kw = dict(annot_files=args.annots, use_image=False, hd_binning=hd_binning)
+    _warn_existing_caches(args, [unified_cache_path(s, hd_binning) for s in args.spaceranger])
+    count_kw = dict(annot_files=args.annots, use_image=False, hd_binning=hd_binning,
+                    minimum_detection_rate=_min_detection(args))
     try:
         if args.dense_ingest:
             _check_dense_ingest_args(args, grid_dims)
@@ -537,7 +597,8 @@ def _cmd_train_mm(args):
         else:
             kw = dict(annot_files=args.annots, fullres_image_files=args.images,
                       patch_size_px=args.patch_px, window_size_px=args.window_px,
-                      hd_binning=hd_binning, grid_dims=grid_dims, device=args.device)
+                      hd_binning=hd_binning, grid_dims=grid_dims, device=args.device,
+                      minimum_detection_rate=_min_detection(args))
             mm_grids = create_visium_dataset(args.spaceranger, spatial=True, **kw)
             image_spots = create_visium_dataset(args.spaceranger, spatial=False,
                                                 use_count=False, **kw)
@@ -619,6 +680,35 @@ def build_parser():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    s = sub.add_parser("simulate", help="fabricate pseudo-Visium data")
+    s.add_argument("--out", required=True)
+    s.add_argument("--arrays", type=int, default=4)
+    s.add_argument("--genes", type=int, default=60)
+    s.add_argument("--classes", type=int, default=4)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--image", action="store_true",
+                   help="also write a fullres JPEG a directory (needs PIL)")
+    s.add_argument("--gene2vec-names", action="store_true",
+                   help="name the simulated genes from the gene2vec vocabulary "
+                        "(so the cohort feeds scBERT count models)")
+    s.add_argument("--barcodes", choices=("synthetic", "visium_v1"), default="synthetic",
+                   help="'visium_v1' stamps the real Visium v1 slide whitelist onto "
+                        "the lattice; default: self-describing SYN names")
+    s.add_argument("--hd-grid", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="emit square-lattice Visium HD binned outputs on an HxW bin "
+                        "grid instead of the 78x64 Visium lattice")
+    s.add_argument("--hd-binning", default="square_008um",
+                   help="binning name for --hd-grid output layout")
+    s.set_defaults(fn=_cmd_simulate)
+
+    s = sub.add_parser("prepare", help="generate the unified count caches")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--min-detection", type=float, default=None,
+                   help="gene detection-rate filter (default 0.02)")
+    s.add_argument("--hd-binning", default=None,
+                   help="Visium HD binned output to read (e.g. square_008um)")
+    s.set_defaults(fn=_cmd_prepare)
+
     s = sub.add_parser("register", help="write Loupe CSVs from a trained model")
     s.add_argument("--spaceranger", nargs="+", required=True)
     s.add_argument("--model", required=True)
@@ -645,8 +735,8 @@ def build_parser():
     s.add_argument("--g-lr", type=float, default=1e-3)
     s.add_argument("--finetune-f", action="store_true")
     s.add_argument("--min-detection", type=float, default=None,
-                   help="gene detection-rate filter of the JAX package's prepare; "
-                        "the port reads the unified caches as prepared")
+                   help="gene detection-rate filter for caches this command "
+                        "generates (default 0.02)")
     _add_train_args(s)
     s.set_defaults(fn=_cmd_train_count)
 
@@ -665,8 +755,8 @@ def build_parser():
     s = sub.add_parser("train-mm", help="train multimodal GridNetHexMM (count + image)")
     _add_image_train_args(s)
     s.add_argument("--min-detection", type=float, default=None,
-                   help="gene detection-rate filter of the JAX package's prepare; "
-                        "the port reads the unified caches as prepared")
+                   help="gene detection-rate filter for caches this command "
+                        "generates (default 0.02)")
     s.add_argument("--count-f", choices=("mlp", "scbert"), default="mlp",
                    help="count classifier: 'mlp' (CountMLP) or 'scbert' (counts "
                         "reindexed into the gene2vec space, Performer over the "

@@ -47,6 +47,27 @@ def oddr_to_pseudo_hex(col, row):
     return x.astype(np.int64), row.astype(np.int64)
 
 
+def pseudo_to_true_hex(col, row):
+    """Pseudo-hex -> Cartesian with unit neighbour spacing (x = col / 2,
+    y = row * sqrt(3) / 2)."""
+    col = np.asarray(col, dtype=np.float64)
+    row = np.asarray(row, dtype=np.float64)
+    x = col / 2.0
+    y = row * SQRT3_OVER_2
+    if x.ndim == 0:
+        return float(x), float(y)
+    return x, y
+
+
+def pairwise_distances(points) -> np.ndarray:
+    """Condensed upper-triangle pairwise Euclidean distances of (n, d)
+    points, in (i < j) row-major order."""
+    points = np.asarray(points, dtype=np.float64)
+    iu, ju = np.triu_indices(len(points), k=1)
+    diff = points[iu] - points[ju]
+    return np.sqrt((diff * diff).sum(axis=-1))
+
+
 def oddr_to_cartesian(col, row):
     """Odd-right -> Cartesian (odd rows shifted +0.5; rows scaled sqrt(3)/2)."""
     col = np.asarray(col, dtype=np.float64)

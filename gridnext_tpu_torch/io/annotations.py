@@ -15,12 +15,13 @@ The port of ``gridnext_tpu/io/annotations.py``:
 :func:`read_annotated_starray` places one array's unified counts into the
 (H, W, n_genes) odd-right grid beside its annotation grid: strings (bg
 ``''``) for Loupe annotations, ints (bg 0, labels 1..N) for Splotch.
+:func:`to_splotch_annots` converts Loupe CSVs to Splotch TSVs.
 """
 
 from __future__ import annotations
 
 import csv
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -185,3 +186,50 @@ def read_annotated_starray(count_file, annot_file=None, select_genes=None,
         lbls = lbls + 1                                   # 0 = background
     annots_grid[y[keep], x[keep]] = lbls
     return counts_grid, annots_grid
+
+
+def to_splotch_annots(loupe_annotations: Sequence, spaceranger_dirs: Sequence, dest_dir,
+                      include_annots: Optional[Sequence[str]] = None) -> None:
+    """Convert Loupe annotation CSVs to Splotch one-hot TSVs
+    (``io/annotations.py:216-257``): one ``<csv stem>.tsv`` per CSV in
+    ``dest_dir``, rows the classes ``include_annots`` (default: the sorted
+    union of the labels, 'undefined' aside), columns every CSV barcode's
+    ``'{array_col}_{array_row}'``, 1 where the barcode carries the class.
+    A barcode without a position row raises ValueError."""
+    from pathlib import Path
+
+    from gridnext_tpu_torch.io.spaceranger import read_positions
+
+    def labels(rows):
+        present = [r[1] for r in rows if len(r) > 1 and r[1] not in _NA]
+        rendered = iter(_label_strings(present))
+        return [next(rendered) if len(r) > 1 and r[1] not in _NA else None for r in rows]
+
+    tables = [_read_table(afile, ",") for afile in loupe_annotations]
+    if include_annots is None:
+        found = {a for _, rows in tables for a in labels(rows)
+                 if a and a.lower() != "undefined"}
+        include_annots = sorted(found)
+    include_annots = list(include_annots)
+    for afile, srd, (_, rows) in zip(loupe_annotations, spaceranger_dirs, tables):
+        pos = read_positions(srd)
+        where = {b: i for i, b in enumerate(pos.barcodes)}
+        missing = [r[0] for r in rows if r[0] not in where]
+        if missing:
+            raise ValueError(
+                f"{len(missing)} annotation barcodes in {afile} have no row "
+                f"in {srd}'s positions file (first: {missing[0]!r}) -- the "
+                "Loupe export and Spaceranger dir are mismatched")
+        mat = np.zeros((len(include_annots), len(rows)), dtype=int)
+        coords = []
+        for i, (r, a) in enumerate(zip(rows, labels(rows))):
+            j = where[r[0]]
+            coords.append(coord_string(pos["array_col"][j], pos["array_row"][j]))
+            if a in include_annots:
+                mat[include_annots.index(a), i] = 1
+        outfile = Path(dest_dir) / Path(afile).with_suffix(".tsv").name
+        with open(outfile, "w", newline="") as fh:
+            writer = csv.writer(fh, delimiter="\t", lineterminator="\n")
+            writer.writerow([""] + coords)
+            for name, line in zip(include_annots, mat.tolist()):
+                writer.writerow([name] + line)

@@ -11,6 +11,8 @@ linear). :func:`patch_grid` builds an array's ``(H, W, P, P, 3)`` float
 grid on the slide's device, as the JAX package's ``grid_from_wsi_visium``
 builds it on the host. :func:`augment_patches` draws one of the 8
 flips/rotations per patch on the card for training (``--augment``).
+:func:`distance_um_to_px` converts a distance on the tissue to pixels of
+an array's fullres image (the patch size of ``patch_size_um``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,48 @@ _RESIZE_CHUNK = 1024
 # ImageNet normalization used with pretrained image classifiers
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def hd_bin_um(hd_binning: str) -> float:
+    """Bin edge length in um of a Visium HD binning name
+    (``'square_008um'`` -> 8.0)."""
+    import re
+
+    m = re.search(r"(\d+(?:\.\d+)?)\s*um$", str(hd_binning))
+    if m is None:
+        raise ValueError(f"Cannot parse bin size from binning {hd_binning!r}")
+    return float(m.group(1))
+
+
+def distance_um_to_px(spaceranger_dir, distance_um: float, hd_binning=None) -> int:
+    """Pixels spanning ``distance_um`` on the fullres image of an array.
+
+    The pixel distance per lattice step is the mean ratio of pixel to
+    lattice distances over 10 positions (Visium spots are 100 um apart;
+    HD bins ``hd_bin_um(hd_binning)`` um, on direct row/col indices). The
+    10 rows are those pandas' ``DataFrame.sample(n=10, random_state=0)``
+    picks in the JAX package (``pipeline.py:85-112``):
+    ``RandomState(0).choice(n, 10, replace=False)``; all rows where there
+    are at most 10.
+    """
+    from gridnext_tpu_torch.io.spaceranger import read_positions
+
+    pos = read_positions(spaceranger_dir, hd_binning)
+    rows = np.arange(len(pos.barcodes))
+    if len(rows) > 10:
+        rows = np.random.RandomState(0).choice(len(rows), 10, replace=False)
+    col = pos["array_col"][rows].astype(np.float64)
+    row = pos["array_row"][rows].astype(np.float64)
+    if hd_binning is not None:
+        cart = np.stack([col, row], axis=1)
+        lattice_um = hd_bin_um(hd_binning)
+    else:
+        cart = np.stack(geometry.pseudo_to_true_hex(col, row), axis=1)
+        lattice_um = 100.0
+    px = np.stack([pos["pxl_col_in_fullres"][rows], pos["pxl_row_in_fullres"][rows]],
+                  axis=1).astype(float)
+    d_unit = np.mean(geometry.pairwise_distances(px) / geometry.pairwise_distances(cart))
+    return int(np.rint(distance_um * d_unit / lattice_um))
 
 
 def imagenet_normalize(img):

@@ -185,6 +185,13 @@ def _exit_code(fn, args):
     return e.value.code
 
 
+def _port_command(message):
+    """A JAX command's message as the port words it: its advice names the
+    port's own ``prepare``."""
+    return message.replace("python -m gridnext_tpu prepare",
+                           "python -m gridnext_tpu_torch prepare")
+
+
 def test_register_errors_match_jax(cohort, count_dir, image_dir, tmp_path):
     root, dirs, images = cohort
     bare = tmp_path / "bare" / "outs"
@@ -195,7 +202,7 @@ def test_register_errors_match_jax(cohort, count_dir, image_dir, tmp_path):
                   "--spaceranger", *dirs, "--images", images[0]]):
         want = _exit_code(jax_main, args)
         assert isinstance(want, str) and want.startswith("error:")
-        assert _exit_code(main, args + ["--device", "cpu"]) == want
+        assert _exit_code(main, args + ["--device", "cpu"]) == _port_command(want)
 
     # a wrong gene axis, and a model kind neither package knows
     for change in ({"genes": ["NOT_A_GENE"] * GENES}, {"model": "Mystery"}):
@@ -208,7 +215,7 @@ def test_register_errors_match_jax(cohort, count_dir, image_dir, tmp_path):
                 "--out", str(tmp_path / "z.csv")]
         want = _exit_code(jax_main, args)
         assert isinstance(want, str) and want.startswith("error:")
-        assert _exit_code(main, args + ["--device", "cpu"]) == want
+        assert _exit_code(main, args + ["--device", "cpu"]) == _port_command(want)
 
 
 @pytest.fixture(scope="module")
