@@ -131,12 +131,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. the ``register`` command for every model kind, in-process
     (``cli.main(["register", ...])``, decode swapped for ``np.load``),
     the gather's and FAVOR's counts set to 0 just before each command and
-    read just after: (a) phase 9's scBERT + DenseNet-121 directory over
-    slide 0's Spaceranger directory (phase 4's positions, a unified cache
-    of phase 9's raw counts under feature IDs, a MEX whose
-    ``features.tsv.gz`` maps them to the gene2vec symbols): 1 gather
-    launch, 3,744 FAVOR launches, the CSV naming phase 9's labels up to
-    near-ties; (b) a CountMLP + TpuPatchClassifier directory at
+    read just after: (a) phase 9's scBERT + DenseNet-121 directory with
+    its scBERT cut to ``MM_STEP_DEPTH`` = 2 of its 6 layers (phase 9 runs
+    all 6; the cut keeps the script inside its time limit) over slide 0's
+    Spaceranger directory (phase 4's positions, a unified cache of phase
+    9's raw counts under feature IDs, a MEX whose ``features.tsv.gz`` maps
+    them to the gene2vec symbols): 1 gather launch, 1,248 FAVOR launches,
+    the CSV naming the labels of the same model's direct forward on phase
+    9's request inputs up to near-ties; (b) a CountMLP + TpuPatchClassifier directory at
     ``window_px`` 160 with ``log1p``, the labels those of a direct forward
     on the plain crop of the edge-padded slide plus the resize; (c) a 64 x
     64 lattice of 16 um bins at 32 px (a positions parquet, a binned
@@ -156,8 +158,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     spot batch and per grid; the written directory registered by the
     ``register`` command, its labels equal (up to near-ties) to a CPU
     forward of the same weights, and ``g_state.msgpack`` read back
-    bit-equal; a spotwise epoch timed, and a traced epoch of 20 batches
-    for the device time a step of the crop, forward + backward and the
+    bit-equal; a spotwise epoch timed, and a traced epoch of 8 batches (cut
+    from 20 for the time limit) for the device time a step of the crop, forward + backward and the
     optimiser (each kernel by the range its launch fell in) and the busy
     time a step, which split the untraced epoch (the device's idle time
     the host's) and give its idle share; the grid step timed; (b) one spotwise DenseNet-121 step
@@ -176,20 +178,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     6, 10 heads, dim_head 64, m 266; batch 8, 8 steps; weights from a numpy
     seed, the head's token scores centred on their mean), FAVOR's wrapper
     required to run 6 times a step (3 CUDA kernels each); one step's q/k/v
-    projection gradients, kernel route against plain route, within 3x the
-    gap that the plain route with FAVOR's output perturbed by 2e-4 relative
-    (the kernel's forward tolerance) gives, and a planted forward wrong by
-    1e-2 relative required to exceed that limit; then
+    projection gradients, kernel route against plain route: their median
+    relative gap within the gap that the plain route with FAVOR's output
+    perturbed by its forward tolerance (2e-4 relative) gives, a planted
+    forward wrong by 1e-2 relative required to read at least twice that,
+    and no projection further off than the planted fault's worst
+    (``favor_gradient_gate``); then
     one ``train_gridwise`` step of phase 9's GridNetHexMM (scBERT +
-    DenseNet-121, both frozen) over a full grid, 3,744 FAVOR calls; the
-    phase's seconds and peak device memory, each number beside the card's
-    name and power limit;
+    DenseNet-121, both frozen) over a full grid with its scBERT cut to
+    ``MM_STEP_DEPTH`` = 2 of its 6 layers (phase 9 runs all 6 on the same
+    weights; the cut keeps the script inside its time limit), 1,248 FAVOR
+    calls; the phase's seconds and peak device memory, each number beside
+    the card's name and power limit;
 15. the count data tier at full transcriptome width: (a) the ``simulate``
     command (``cli.main``) makes a cohort of ``TIER_ARRAYS`` arrays at 16,906
     genes named by gene2vec symbols, timed; (b) the ``prepare`` command
     writes their unified caches, timed with its stage split (MEX read,
-    union and filter, write); (c) each cache read three ways, median of 3
-    on the host clock: the package's former line reader (kept here as
+    union and filter, write); (c) the caches of the first
+    ``TIER_READ_ARRAYS`` = 2 arrays (cut from 4) read three ways on the
+    host clock, the codec's the median of 3, the yardstick's one read (cut
+    from 3; both cuts for the time limit): the package's former line reader (kept here as
     ``line_reader``: ``gzip`` and one ``np.fromstring`` a row), the codec on
     the ``GX`` member chain, and the codec on a single-member copy written
     by ``write_unified_cache``, all three required equal; (d) the
@@ -202,7 +210,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (f) two caches with reversed gene axes required to make the factory
     raise the gene-axis ``ValueError``; every number beside the card's name
     and power limit;
-16. a ``{"kernels": [...]}`` line, then the last line
+16. scBERT pretraining, fine-tuning and ``train-graph`` in phase 15's
+    directory: (a) the ``pretrain-scbert`` command on array 0 (1,386
+    spots, 16,906 gene2vec genes) at the checkpoint widths (dim 200, depth
+    6, 10 heads, dim_head 64, m 266, N 16,907 tokens), batch 4, one epoch,
+    ``--redraw-every 100``, no remat: FAVOR's wrapper count, set to 0 just
+    before and read just after, required to be 6 x (train + val forwards);
+    every projection buffer changed at each of the >= 2 redraws; the mean
+    loss of the last 20 steps below that of the first 20;
+    ``scbert_lm.msgpack`` read back bit-equal through ``_load_scbert_ckpt``;
+    steps/s, tokens/s, the epoch's seconds and peak memory; (b) one MLM
+    step on weights from a numpy seed and a corrupted batch of (a)'s
+    corpus, kernel route against plain route: the loss within 1e-4
+    relative, the q/k/v projection gradients within phase 14 (c)'s gate;
+    the same step under remat: 12 FAVOR calls (6 layers x 2) and the
+    gradients within 1e-6 relative of the step without remat; the gate's
+    readings on (a)'s pretrained weights, logged and held to nothing; a traced
+    window of 6 MLM steps for the device time of the FAVOR kernels, the
+    GEMMs and the rest, and the device's idle share against (a)'s step;
+    (c) the ``train-mm --scbert-ckpt --scbert-finetune`` start
+    (``_load_scbert_ckpt`` + ``_merge_matching_params``) on a full-width
+    scBERT: every checkpoint leaf bit-equal, only the head reported
+    re-initialised; one finetune spot step (batch 8): every ``frozen`` leaf
+    bit-unchanged, every ``train`` leaf moved (phase 14 (c) runs before (a)
+    writes the checkpoint, so this is its own step); (d) the
+    ``train-graph`` command over phase 15's 4 arrays (5,544 nodes, 16,906
+    genes; 200 steps, hidden 64, depth 3): the loss falls, steps/s, and
+    ``register`` of array 0 through the written directory equal to a
+    direct forward up to near-ties; every number beside the card's name
+    and power limit;
+17. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+    ``launches_pretrain_scbert``, phase 16 (a)'s count), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -1274,8 +1312,8 @@ def device_total_ms(prof) -> float:
 def phase_mm(torch, slides, positions, masks, port, card):
     """One multimodal request at full width: an scBERT + DenseNet-121 model
     directory registers slide 0. Returns the FAVOR kernel's launches and the
-    request: its meta, variables, raw count grid, labels and the plain
-    route's logits (phase 13 registers the same through the command)."""
+    request: its meta, variables, raw count grid and ms (phases 13 and 14
+    build their depth-cut models from them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gridnext_tpu_torch.models import performer
@@ -1409,8 +1447,8 @@ def phase_mm(torch, slides, positions, masks, port, card):
     if any(n != MM_DEPTH for n, _ in traced.values()):
         raise AssertionError(f"the count-chunk trace holds {traced}, not {MM_DEPTH} "
                              f"launches of each FAVOR kernel per chunk")
-    return launches, {"meta": meta, "variables": variables, "raw": raw, "labels": labels,
-                      "logits": plain_logits, "ms": t_kernel * 1e3}
+    return launches, {"meta": meta, "variables": variables, "raw": raw,
+                      "ms": t_kernel * 1e3}
 
 
 def tree_leaves(tree, prefix=()):
@@ -2365,22 +2403,34 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
         if got != want:
             raise AssertionError(f"{name}: launches {got}, want {want}")
 
-    # (a) scBERT + DenseNet-121: phase 9's model directory and counts
+    # (a) scBERT + DenseNet-121: phase 9's model directory with its scBERT cut
+    # to MM_STEP_DEPTH of its layers (phase 9 runs all of them), over phase
+    # 9's counts; the reference is the same directory's model on phase 9's
+    # request inputs
+    meta_a = {**mm["meta"], "genes": ids, "n_genes": MM_VOCAB, "scbert_depth": MM_STEP_DEPTH}
+    vars_a = scbert_depth_cut(mm["variables"], MM_STEP_DEPTH)
     dir_a = os.path.join(tmp, "model_mm_scbert")
-    from_jax.save_model_dir(dir_a, {**mm["meta"], "genes": ids, "n_genes": MM_VOCAB},
-                            mm["variables"])
+    from_jax.save_model_dir(dir_a, meta_a, vars_a)
     out_a = os.path.join(tmp, "a.csv")
-    got = route("(a) GridNetHexMM scBERT + DenseNet-121",
+    got = route(f"(a) GridNetHexMM scBERT (depth {MM_STEP_DEPTH}) + DenseNet-121",
                 ["--model", dir_a, "--images", slide0, "--spaceranger", srd, "--out", out_a],
                 n_spots)
-    want_favor = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_DEPTH
+    want_favor = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_STEP_DEPTH
     check_launches("(a)", got, {"gather": 1, "favor": want_favor})
     grid, n_rows = loupe_grid(out_a, mask.shape, classes)
     if n_rows != n_spots or not np.array_equal(grid > 0, mask > 0):
         raise AssertionError("(a): the CSV's spots differ from the tissue")
-    flips = serving.label_parity_report(mm["labels"], grid, mm["logits"])
-    log(f"(a): the CSV names phase 9's register_mm_grid labels up to {flips} near-tie "
-        f"flips of {n_rows} spots; phase 9's request {mm['ms']:.2f} ms")
+    model_a = modeldir.mm_model_from_meta(meta_a, classes, vars_a, device=dev)
+    x_count = modeldir.scbert_transform(symbols, MM_VOCAB)(mm["raw"])
+    with torch.no_grad():
+        logits_a = model_a((slide_grid(torch, slides[0], pos, port)[None],
+                            torch.as_tensor(x_count, device=dev)[None]))[0].cpu().numpy()
+    del model_a, x_count
+    flips = serving.label_parity_report(np.where(mask > 0, logits_a.argmax(-1) + 1, 0), grid,
+                                        logits_a)
+    log(f"(a): the CSV names the same model's direct forward on phase 9's request inputs up "
+        f"to {flips} near-tie flips of {n_rows} spots; phase 9's request (depth "
+        f"{MM_DEPTH}) {mm['ms']:.2f} ms")
 
     # (b) CountMLP + TpuPatchClassifier at window 160, log1p, the same
     # directory. The reference: the plain crop of the edge-padded slide, the
@@ -2520,11 +2570,45 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
 
 TRAIN_BATCH = 32              # train-image's --batch-size
 TRAIN_LR = 1e-3               # train-image's --f-lr and --g-lr
-TRAIN_TRACE_BATCHES = 20      # spotwise batches in the traced epoch (640 spots)
+TRAIN_TRACE_BATCHES = 8       # spotwise batches in the traced epoch (256 spots; cut from 20)
 SCBERT_BATCH, SCBERT_STEPS = 8, 8
+MM_STEP_DEPTH = 2             # scBERT layers in (c)'s GridNetHexMM grid step (cut from 6)
 TRAIN_TINT = 48               # +- intensity of a class's colour tint in its spots' windows
 TRAIN_NOISE = 0.1             # share of spots whose annotation is another class
 GRID_WINDOW = (24, 16)        # top-left cell of (b)'s 32 x 32 grid window
+
+
+def scbert_depth_cut(variables, depth: int, key: str = "count_classifier") -> dict:
+    """A GridNetHexMM variables tree whose scBERT count f keeps its first
+    ``depth`` performer layers (the ``layers_i_*`` and ``wrap_i_*`` entries
+    of ``params`` and ``favor`` for i >= depth dropped)."""
+    def keep(name):
+        parts = name.split("_")
+        return not (parts[0] in ("layers", "wrap") and int(parts[1]) >= depth)
+
+    out = dict(variables)
+    for coll in ("params", "favor"):
+        perf = variables[coll][key]["performer_lm"]["performer"]
+        lm = {**variables[coll][key]["performer_lm"],
+              "performer": {k: v for k, v in perf.items() if keep(k)}}
+        out[coll] = {**variables[coll], key: {**variables[coll][key], "performer_lm": lm}}
+    return out
+
+
+def slide_grid(torch, slide, positions, port):
+    """Phase 9's image grid of ``slide``: the /255 plain crops at its spots
+    on the 78 x 64 lattice, zeros elsewhere."""
+    geometry, _, _, _, _, _, serving, gather, _ = port
+    dev = slide.device
+    oy, ox, y_px, x_px = serving.spot_pixel_arrays(positions)
+    crops = gather.gather_patches_plain(
+        slide, torch.as_tensor(y_px - PATCH // 2, device=dev),
+        torch.as_tensor(x_px - PATCH // 2, device=dev), PATCH)
+    grid = torch.zeros((geometry.VISIUM_H_ST, geometry.VISIUM_W_ST, PATCH, PATCH, 3),
+                       device=dev)
+    grid[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
+        crops.float() / 255.0
+    return grid
 
 
 def annotated_training_cohort(torch, slides, geometry, tmp):
@@ -2655,6 +2739,113 @@ def check_step_parity(name, res):
         raise AssertionError(f"{name}: the card's step is less exact than the CPU's")
 
 
+def centre_head(torch, sc, xb) -> None:
+    """Centre an scBERT classifier's ``conv1`` bias on the mean token score
+    of the batch ``xb``. With fresh head weights the token scores (conv1,
+    then a ReLU) can all take one sign, and then no gradient reaches the
+    attention; the mean, not the median: most tokens are the zero token
+    and share one score, which the median would put on the ReLU's kink,
+    where two routes' rounding picks the side."""
+    conv1 = sc.performer_lm.head_module.conv1
+    scores = []
+    hook = conv1.register_forward_hook(lambda m, i, o: scores.append(o.detach()))
+    with torch.no_grad():
+        sc.eval()(xb)
+    hook.remove()
+    with torch.no_grad():
+        conv1.bias -= scores[0].mean()
+
+
+def favor_gradient_readings(torch, model, loss_of, dev, calls: int) -> dict:
+    """The q/k/v projection gradients of ``loss_of()`` (a scalar from
+    ``model``'s forward) through the kernel route, the plain route
+    (FastAttention through ``favor_attention_plain``), the plain route with
+    its output perturbed by FAVOR's forward tolerance (``FAVOR_RTOL``, 2e-4
+    relative) and by 1e-2 (a planted fault). Each route is read against the
+    plain one as the median over the projections of each one's relative
+    gap (|g - g_plain| / |g_plain|), and as the worst projection's. The
+    median grows with the forward error and barely moves from one draw of
+    a perturbation to the next; the worst projection saturates (its
+    gradient passes ReLU features whose kinks any forward change flips).
+    The kernel route must make ``calls`` wrapper calls. Returns the losses
+    of the kernel and plain routes, the readings (``limit``: the
+    tolerance's median) and the kernel route's gradients."""
+    from gridnext_tpu_torch.models import performer
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    kernel = performer.fused_generalized_linear_attention
+
+    def perturbed(rel_err):
+        def route(q, k, v, proj):
+            out = favor_cuda.favor_attention_plain(q, k, v, proj)
+            return out * (1 + rel_err * torch.randn(out.shape, generator=gen,
+                                                    device=out.device))
+        return route
+
+    losses = []
+
+    def weight_grads(route):
+        performer.fused_generalized_linear_attention = route
+        try:
+            model.zero_grad(set_to_none=True)
+            loss = loss_of()
+            loss.backward()
+            losses.append(float(loss.detach()))
+        finally:
+            performer.fused_generalized_linear_attention = kernel
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                if any(k in n for k in ("to_q", "to_k", "to_v"))}
+
+    favor_cuda.launches = 0
+    g_kernel = weight_grads(kernel)
+    if favor_cuda.launches != calls:
+        raise AssertionError(f"the gradient check's step made {favor_cuda.launches} FAVOR "
+                             f"calls, want {calls}")
+    g_plain = weight_grads(favor_cuda.favor_attention_plain)
+    g_tol = weight_grads(perturbed(FAVOR_RTOL))
+    g_wrong = weight_grads(perturbed(1e-2))
+    model.zero_grad(set_to_none=True)
+    if min(float(g.norm()) for g in g_plain.values()) == 0.0:
+        raise AssertionError("a q/k/v projection takes no gradient: the check would be void")
+
+    def gaps(a):
+        return [float((a[n] - g_plain[n]).norm() / g_plain[n].norm()) for n in g_plain]
+
+    gap, worst = (float(f(gaps(g_kernel))) for f in (np.median, max))
+    planted, planted_worst = (float(f(gaps(g_wrong))) for f in (np.median, max))
+    return {"loss_kernel": losses[0], "loss_plain": losses[1], "gap": gap,
+            "limit": float(np.median(gaps(g_tol))), "worst": worst, "planted": planted,
+            "planted_worst": planted_worst, "n": len(g_plain), "grads": g_kernel}
+
+
+def favor_gradient_gate(torch, model, loss_of, dev, what: str, calls: int) -> dict:
+    """FAVOR's autograd at full width (:func:`favor_gradient_readings`):
+    the kernel route's median gap within the limit, the kernel's forward
+    tolerance carried through the step with no further factor; the planted
+    fault's median at least twice the limit; no projection of the kernel
+    route further off than the planted fault's worst (a wrong gradient in
+    one projection). Returns the readings."""
+    r = favor_gradient_readings(torch, model, loss_of, dev, calls)
+    gap, limit, planted = r["gap"], r["limit"], r["planted"]
+    log(f"{what}, kernel route vs plain route: median relative gap over the {r['n']} "
+        f"projections {gap:.3g} (<= {limit:.3g}: the plain route's with FAVOR's output "
+        f"perturbed by its tolerance, {FAVOR_RTOL:g} relative), worst projection "
+        f"{r['worst']:.3g} (<= {r['planted_worst']:.3g}, the planted fault's worst); a "
+        f"forward wrong by 1e-2 relative reads {planted:.3g} (>= 2x the limit)")
+    if not gap <= limit:
+        raise AssertionError(f"FAVOR's training gradients differ from the plain route's by a "
+                             f"median {gap} (limit {limit})")
+    if not r["worst"] <= r["planted_worst"]:
+        raise AssertionError(f"a projection's gradient differs from the plain route's by "
+                             f"{r['worst']}, more than a forward wrong by 1e-2 moves any "
+                             f"({r['planted_worst']})")
+    if not planted >= 2 * limit:
+        raise AssertionError(f"a forward wrong by 1e-2 relative reads {planted}, under twice "
+                             f"the limit {limit}: the check is void")
+    return r
+
+
 def phase_train(torch, slides, port, card, tmp, mm):
     """Phase 14: training at full width (module docstring), the cohort's
     slides ``.npy`` files (decode swapped for np.load)."""
@@ -2673,7 +2864,6 @@ def train_phase(torch, slides, port, card, tmp, mm):
 
     from gridnext_tpu_torch import cli
     from gridnext_tpu_torch.data import create_visium_dataset
-    from gridnext_tpu_torch.models import performer
     from gridnext_tpu_torch.models.scbert import load_gene2vec_names
     from gridnext_tpu_torch.ops import favor_cuda
     from gridnext_tpu_torch.train import loops as tl
@@ -2794,12 +2984,15 @@ def train_phase(torch, slides, port, card, tmp, mm):
         torch.cuda.synchronize()
         t_traced = time.perf_counter() - t0
     trace = os.path.join(tmp, "train_trace.json")
+    t0 = time.perf_counter()
     busy = staging_overlap(prof, trace)["device_busy_ms"] / len(traced)
     part = {k: v / len(traced) for k, v in device_ms_by_range(
         trace, ("crop", "forward + backward", "optimiser")).items()}
+    t_parse = time.perf_counter() - t0
     step_ms = t_epoch * 1e3 / n_steps
     log(f"spotwise epoch ({n_steps} steps of {TRAIN_BATCH}): {t_epoch:.2f} s, "
-        f"{n_steps / t_epoch:.2f} steps/s, {len(order) / t_epoch:.1f} patches/s [{card}]")
+        f"{n_steps / t_epoch:.2f} steps/s, {len(order) / t_epoch:.1f} patches/s; the traced "
+        f"epoch {t_traced:.2f} s, its trace's export and parse {t_parse:.2f} s [{card}]")
     log(f"traced spotwise epoch ({len(traced)} batches): device ms a step: crop "
         f"{part['crop']:.3f}, forward + backward {part['forward + backward']:.3f}, "
         f"optimiser {part['optimiser']:.3f}, the rest {part['other']:.3f}; busy "
@@ -2866,74 +3059,12 @@ def train_phase(torch, slides, port, card, tmp, mm):
     from_jax.load_variables(sc, random_variables(models, from_jax, seed=SEED + 24, model=sc))
     xb = torch.as_tensor(xs[:SCBERT_BATCH], device=dev)
     yb = torch.as_tensor(ys[:SCBERT_BATCH], device=dev)
-    # the head's token scores (conv1, then a ReLU) can all take one sign with
-    # random weights, and then no gradient reaches the attention: centre
-    # conv1's bias on the first batch's mean score (not the median: most
-    # tokens are the zero token and share one score, which the median would
-    # put on the ReLU's kink, where the two routes' rounding picks the side)
-    conv1 = sc.performer_lm.head_module.conv1
-    scores = []
-    hook = conv1.register_forward_hook(lambda m, i, o: scores.append(o.detach()))
-    with torch.no_grad():
-        sc.eval()(xb)
-    hook.remove()
-    with torch.no_grad():
-        conv1.bias -= scores[0].mean()
-    # FAVOR's autograd at full width: the weights' q/k/v projection gradients
-    # of one step through the kernel route against the plain route. The
-    # kernel's forward may differ from the plain version's within its
-    # tolerance (2e-4 relative), and the step amplifies that: the limit is 3x
-    # the gap that the plain route's output perturbed by 2e-4 relative gives,
-    # and a forward wrong by 1e-2 relative (a planted fault) must exceed it
-    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
-
-    def perturbed(rel_err):
-        def route(q, k, v, proj):
-            out = favor_cuda.favor_attention_plain(q, k, v, proj)
-            return out * (1 + rel_err * torch.randn(out.shape, generator=gen,
-                                                    device=out.device))
-        return route
-
-    def weight_grads(route):
-        performer.fused_generalized_linear_attention = route
-        try:
-            sc.zero_grad(set_to_none=True)
-            tl._spot_loss(sc(xb), yb)[0].backward()
-        finally:
-            performer.fused_generalized_linear_attention = kernel
-        return {n: p.grad.detach().clone() for n, p in sc.named_parameters()
-                if any(k in n for k in ("to_q", "to_k", "to_v"))}
-
-    kernel = performer.fused_generalized_linear_attention
+    centre_head(torch, sc, xb)
     sc.train()
-    favor_cuda.launches = 0
-    g_kernel = weight_grads(kernel)
-    if favor_cuda.launches != MM_DEPTH:
-        raise AssertionError(f"the gradient check's step made {favor_cuda.launches} FAVOR "
-                             f"calls, want {MM_DEPTH}")
-    g_plain = weight_grads(favor_cuda.favor_attention_plain)
-    g_pert = weight_grads(perturbed(2e-4))
-    g_wrong = weight_grads(perturbed(1e-2))
-    sc.zero_grad(set_to_none=True)
-    if min(float(g.norm()) for g in g_plain.values()) == 0.0:
-        raise AssertionError("a q/k/v projection takes no gradient: the check would be void")
-
-    def rel(a):
-        return max(float((a[n] - g_plain[n]).norm() / g_plain[n].norm()) for n in g_plain)
-
-    gap, limit, planted = rel(g_kernel), 3 * rel(g_pert), rel(g_wrong)
-    log(f"(c) the step's q/k/v projection gradients over {MM_DEPTH} FAVOR calls at "
-        f"({SCBERT_BATCH}, {MM_HEADS}, {MM_VOCAB + 1}, {MM_DIM_HEAD}), kernel route vs plain "
-        f"route: max relative error {gap:.3g} (<= {limit:.3g}: 3x the plain route's with "
-        f"FAVOR's output perturbed by 2e-4 relative, {rel(g_pert):.3g}); a forward wrong by "
-        f"1e-2 relative gives {planted:.3g} (> the limit)")
-    if not gap <= limit:
-        raise AssertionError(f"FAVOR's training gradients differ from the plain route's by "
-                             f"{gap} (limit {limit})")
-    if not planted > limit:
-        raise AssertionError(f"a forward wrong by 1e-2 relative passes the gradient check "
-                             f"({planted} <= {limit}): the check is void")
-    del g_kernel, g_plain, g_pert, g_wrong
+    favor_gradient_gate(torch, sc, lambda: tl._spot_loss(sc(xb), yb)[0], dev,
+                        f"(c) the step's q/k/v projection gradients over {MM_DEPTH} FAVOR "
+                        f"calls at ({SCBERT_BATCH}, {MM_HEADS}, {MM_VOCAB + 1}, "
+                        f"{MM_DIM_HEAD})", MM_DEPTH)
     favor_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2952,23 +3083,18 @@ def train_phase(torch, slides, port, card, tmp, mm):
     del sc, sc_state
     laps["(c) scBERT"] = time.perf_counter()
 
-    # one gridwise step of GridNetHexMM (scBERT + DenseNet-121, both frozen)
-    mm_model = modeldir.mm_model_from_meta(mm["meta"], classes, mm["variables"], device=dev)
+    # one gridwise step of GridNetHexMM (scBERT + DenseNet-121, both frozen),
+    # its scBERT cut to MM_STEP_DEPTH layers (phase 9 runs the full depth)
+    mm_model = modeldir.mm_model_from_meta(
+        {**mm["meta"], "scbert_depth": MM_STEP_DEPTH}, classes,
+        scbert_depth_cut(mm["variables"], MM_STEP_DEPTH), device=dev)
     mm_state = tl.create_train_state(mm_model, tl.make_gridwise_optimizer(TRAIN_LR),
                                      device=dev, init=False)
     if any(p.requires_grad for p in mm_model.image_classifier.parameters()) or any(
             p.requires_grad for p in mm_model.count_classifier.parameters()):
         raise AssertionError("a frozen f takes gradients")
     mask0 = masks[0] > 0
-    oy, ox, y_px, x_px = serving.spot_pixel_arrays(io.read_positions(dirs[0]))
-    crops = gather.gather_patches_plain(
-        slides[0], torch.as_tensor(y_px - PATCH // 2, device=dev),
-        torch.as_tensor(x_px - PATCH // 2, device=dev), PATCH)
-    x_image = torch.zeros((geometry.VISIUM_H_ST, geometry.VISIUM_W_ST, PATCH, PATCH, 3),
-                          device=dev)
-    x_image[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
-        crops.float() / 255.0
-    del crops
+    x_image = slide_grid(torch, slides[0], io.read_positions(dirs[0]), port)
     x_count = torch.as_tensor(modeldir.scbert_transform(genes, MM_VOCAB)(mm["raw"]),
                               device=dev)
     mm_step, _ = tl.make_steps(mm_state, "grid")
@@ -2980,8 +3106,9 @@ def train_phase(torch, slides, port, card, tmp, mm):
     loss = float(m["loss"])
     torch.cuda.synchronize()
     t_mm = time.perf_counter() - t0
-    want_mm = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_DEPTH
-    log(f"(c) GridNetHexMM grid step (scBERT + DenseNet-121 frozen, {geometry.VISIUM_H_ST} x "
+    want_mm = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_STEP_DEPTH
+    log(f"(c) GridNetHexMM grid step (scBERT at depth {MM_STEP_DEPTH} + DenseNet-121 frozen, "
+        f"{geometry.VISIUM_H_ST} x "
         f"{geometry.VISIUM_W_ST} cells): {t_mm:.2f} s, loss {loss:.4f}, {favor_cuda.launches} "
         f"FAVOR calls ({want_mm} expected) [{card}]")
     if favor_cuda.launches != want_mm or not np.isfinite(loss):
@@ -3001,7 +3128,9 @@ def train_phase(torch, slides, port, card, tmp, mm):
 TIER_ARRAYS = 4               # the cohort of JAX's simulate default (--arrays 4)
 TIER_GENES = 16906            # the gene2vec vocabulary: never cut
 TIER_EPOCHS = 2               # train-count's --epochs (JAX's default 10)
-TIER_READS = 3                # host-clock reads a reader and cache (median)
+TIER_READS = 3                # host-clock reads of the codec a cache (median)
+TIER_LINE_READS = 1           # reads of the former line reader (the yardstick), cut from 3
+TIER_READ_ARRAYS = 2          # arrays whose cache (c) reads three ways, cut from 4
 
 
 def _row_values(fields: bytes, n: int) -> np.ndarray:
@@ -3102,7 +3231,7 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
 
     # (c) three readers, median of TIER_READS host-clock reads each
     reads = []
-    for i, cfile in enumerate(caches):
+    for i, cfile in enumerate(caches[:TIER_READ_ARRAYS]):
         if tsv_codec.gzip_member_format(cfile) != "native":
             raise AssertionError(f"{cfile}: prepare did not write the GX member chain")
         single = os.path.join(tmp, f"single{i}.unified.tsv.gz")
@@ -3118,7 +3247,7 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
                                ("codec_gx", tsv_codec.read_tsv_matrix, cfile),
                                ("codec_single", tsv_codec.read_tsv_matrix, single)):
             times = []
-            for _ in range(TIER_READS):
+            for _ in range(TIER_LINE_READS if name == "line_reader" else TIER_READS):
                 t0 = time.perf_counter()
                 results[name] = fn(path)
                 times.append(time.perf_counter() - t0)
@@ -3132,7 +3261,8 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
         row["speedup_single"] = row["line_reader_s"] / row["codec_single_s"]
         reads.append(row)
         log(f"(c) array {i}: {len(genes)} genes x {len(columns)} spots, "
-            f"{row['gzip_mb']:.1f} MB GX gzip; median of {TIER_READS}: line reader "
+            f"{row['gzip_mb']:.1f} MB GX gzip; median of {TIER_READS} (line reader "
+            f"{TIER_LINE_READS}): line reader "
             f"{row['line_reader_s']:.3f} s, codec on the GX chain {row['codec_gx_s']:.3f} s "
             f"({row['speedup_gx']:.2f}x), codec on the single member "
             f"{row['codec_single_s']:.3f} s ({row['speedup_single']:.2f}x); all three "
@@ -3240,6 +3370,362 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 15: {out['phase_s']:.1f} s [{card}]")
     log(json.dumps({"count_tier": out}))
+    out["dirs"] = dirs
+    return out
+
+
+# -- phase 16: scBERT pretraining, fine-tuning and train-graph ----------------------
+
+PRETRAIN_BATCH = 4            # pretrain-scbert's --batch-size (its default)
+PRETRAIN_REDRAW = 100         # --redraw-every: ~278 train steps give 2 redraws
+PRETRAIN_TRACE_STEPS = 6      # MLM steps in (b)'s traced window
+FINETUNE_LR = 1e-4            # train-mm's --f-lr default for the scBERT count f
+GRAPH_STEPS = 200             # train-graph's --steps default
+
+
+def device_ms_by_kernel(path) -> dict:
+    """From a Chrome trace at ``path``: device ms of the FAVOR kernels, of
+    the matrix products (cuBLAS / CUTLASS GEMM kernels) and of every other
+    device event, and the device's busy ms (their union)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {"favor": 0.0, "gemm": 0.0, "other": 0.0}
+    spans = []
+    for e in events:
+        if "dur" not in e or str(e.get("cat", "")) not in ("kernel", "gpu_memcpy",
+                                                            "gpu_memset"):
+            continue
+        name = str(e.get("name", ""))
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        if any(sym in name for sym in KERNEL_SYMBOLS["fused_generalized_linear_attention"]):
+            group = "favor"
+        elif any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas")):
+            group = "gemm"
+        else:
+            group = "other"
+        out[group] += float(e["dur"]) / 1e3
+    out["busy"] = sum(b - a for a, b in merged(spans)) / 1e3
+    return out
+
+
+def phase_pretrain(torch, card, tmp, dirs, dev) -> dict:
+    """Phase 16: ``pretrain-scbert`` at full width on phase 15's array 0,
+    one MLM step kernel route against plain route, fine-tuning from the
+    checkpoint, and ``train-graph`` over phase 15's cohort."""
+    import argparse
+    import io as stdio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gridnext_tpu_torch import cli, geometry, modeldir, models, serving
+    from gridnext_tpu_torch.compat import from_jax
+    from gridnext_tpu_torch.data import graph_data
+    from gridnext_tpu_torch.io import read_positions
+    from gridnext_tpu_torch.models import performer
+    from gridnext_tpu_torch.ops import favor_cuda
+    from gridnext_tpu_torch.train import loops as tl
+
+    t_phase = time.perf_counter()
+    out, laps = {}, {}
+    n_tokens = MM_VOCAB + 1
+    log(f"== phase 16: pretrain-scbert at full width (dim {MM_DIM}, depth {MM_DEPTH}, "
+        f"heads {MM_HEADS}, dim_head {MM_DIM_HEAD}, N {n_tokens}, batch {PRETRAIN_BATCH}, "
+        f"--redraw-every {PRETRAIN_REDRAW}), an MLM step kernel vs plain, fine-tuning from "
+        f"its checkpoint, train-graph over {len(dirs)} arrays (TF32 off)")
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the pretrain-scbert command, its steps and redraws recorded
+    rec = {"train": [], "eval": 0, "redraws": [], "state": None, "t_train": None,
+           "t_eval": None, "y0": None}
+    make_mlm, redraw = tl.make_mlm_steps, performer.redraw_projections
+
+    def recording_steps(state, **kw):
+        train_step, eval_step = make_mlm(state, **kw)
+        rec["state"] = state
+
+        def train(x, y):
+            if rec["t_train"] is None:
+                torch.cuda.synchronize()
+                rec["t_train"], rec["y0"] = time.perf_counter(), y.clone()
+            m = train_step(x, y)
+            rec["train"].append(m["loss"])
+            return m
+
+        def evaluate(x, y):
+            if rec["t_eval"] is None:
+                torch.cuda.synchronize()
+                rec["t_eval"] = time.perf_counter()
+            rec["eval"] += 1
+            return eval_step(x, y)
+
+        return train, evaluate
+
+    def recording_redraw(model, generator):
+        before = [fa.projection.clone() for fa in performer.fast_attentions(model)]
+        n = redraw(model, generator)
+        after = performer.fast_attentions(model)
+        rec["redraws"].append(n == MM_DEPTH and len(before) == n and all(
+            not torch.equal(b, fa.projection) for b, fa in zip(before, after)))
+        return n
+
+    lm_dir = os.path.join(tmp, "pretrain")
+    tl.make_mlm_steps, performer.redraw_projections = recording_steps, recording_redraw
+    try:
+        torch.cuda.synchronize()
+        favor_cuda.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["pretrain-scbert", "--spaceranger", dirs[0], "--out", lm_dir, "--epochs", "1",
+                  "--batch-size", str(PRETRAIN_BATCH), "--redraw-every", str(PRETRAIN_REDRAW),
+                  "--scbert-vocab", str(MM_VOCAB), "--scbert-dim", str(MM_DIM),
+                  "--scbert-depth", str(MM_DEPTH), "--scbert-heads", str(MM_HEADS),
+                  "--scbert-dim-head", str(MM_DIM_HEAD), "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = favor_cuda.launches
+    finally:
+        tl.make_mlm_steps, performer.redraw_projections = make_mlm, redraw
+    t_end = time.perf_counter()
+    losses = np.asarray([float(v) for v in rec["train"]])
+    n_train, n_eval = len(losses), rec["eval"]
+    want = MM_DEPTH * (n_train + n_eval)
+    t_train = rec["t_eval"] - rec["t_train"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    out["pretrain"] = {"wall_s": wall, "train_steps": n_train, "val_steps": n_eval,
+                       "favor_launches": launches, "redraws": len(rec["redraws"]),
+                       "train_s": t_train, "epoch_s": t_end - rec["t_train"],
+                       "steps_per_s": n_train / t_train,
+                       "tokens_per_s": n_train * PRETRAIN_BATCH * n_tokens / t_train,
+                       "loss_first20": first, "loss_last20": last, "peak_gib": peak}
+    log(f"(a) pretrain-scbert: {wall:.2f} s with the corpus build, {n_train} train steps in "
+        f"{t_train:.2f} s ({n_train / t_train:.3f} steps/s, "
+        f"{n_train * PRETRAIN_BATCH * n_tokens / t_train:.0f} tokens/s), epoch (train + "
+        f"{n_eval} val steps + checkpoints) {t_end - rec['t_train']:.2f} s; {launches} FAVOR "
+        f"wrapper calls ({want} expected: {MM_DEPTH} a forward, no remat); "
+        f"{len(rec['redraws'])} redraws; mean loss of the first 20 steps {first:.4f}, of the "
+        f"last 20 {last:.4f}; peak device memory {peak:.2f} GiB [{card}]")
+    if launches != want:
+        raise AssertionError(f"pretrain-scbert: {launches} FAVOR calls, want {want}")
+    if len(rec["redraws"]) != n_train // PRETRAIN_REDRAW or len(rec["redraws"]) < 2 \
+            or not all(rec["redraws"]):
+        raise AssertionError(f"pretrain-scbert: redraws {rec['redraws']} over {n_train} steps")
+    if not last < first:
+        raise AssertionError(f"pretrain-scbert: the loss did not fall ({first} -> {last})")
+    lm = rec["state"].model
+    path = os.path.join(lm_dir, "scbert_lm.msgpack")
+    loaded = cli._load_scbert_ckpt(path, MM_DEPTH)
+    held = from_jax.jax_variables(lm)
+    n_leaves = 0
+    for coll, tree in held.items():
+        for leaf_path, a in tree_leaves(tree):
+            b = loaded[coll]["performer_lm"]
+            for k in leaf_path:
+                b = b[k]
+            if not np.array_equal(a, b):
+                raise AssertionError(f"scbert_lm.msgpack: {coll}/{'/'.join(leaf_path)} does "
+                                     "not read back bit-equal")
+            n_leaves += 1
+    log(f"(a) scbert_lm.msgpack ({os.path.getsize(path) / 1e6:.1f} MB): {n_leaves} leaves read "
+        f"back bit-equal through _load_scbert_ckpt [{card}]")
+    laps["(a)"] = time.perf_counter()
+
+    # (b) one MLM step, kernel route against plain route, on a batch of (a)'s
+    # corpus. The weights come from a numpy seed (random_variables: unit-normal
+    # token embeddings): on (a)'s weights the attention near-averages the
+    # tokens and the q/k/v gradients are mostly float noise (PERF.md §7)
+    y = rec["y0"]
+    mask = tl._mlm_mask(torch.Generator(device=dev).manual_seed(SEED + 30), y.shape, 0.15, dev)
+    tokens = torch.where(mask, torch.full_like(y, 6), y.clamp_min(0)).long()
+    lm_b = models.PerformerLM(num_tokens=7, max_seq_len=n_tokens, dim=MM_DIM, depth=MM_DEPTH,
+                              heads=MM_HEADS, dim_head=MM_DIM_HEAD, generalized_attention=True)
+    from_jax.load_variables(lm_b, random_variables(models, from_jax, seed=SEED + 32,
+                                                   model=lm_b))
+    lm_b.to(dev).train()
+    res = favor_gradient_gate(
+        torch, lm_b, lambda: tl.mlm_loss(lm_b(tokens), y, mask)[0], dev,
+        f"(b) one MLM step's q/k/v projection gradients over {MM_DEPTH} FAVOR calls at "
+        f"({PRETRAIN_BATCH}, {MM_HEADS}, {n_tokens}, {MM_DIM_HEAD})", MM_DEPTH)
+    g_kernel = res.pop("grads")
+    rel_loss = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
+    log(f"(b) MLM loss kernel route {res['loss_kernel']:.6f}, plain route "
+        f"{res['loss_plain']:.6f}: relative difference {rel_loss:.3g} (<= 1e-4) [{card}]")
+    if not rel_loss <= 1e-4:
+        raise AssertionError(f"the MLM loss differs by {rel_loss} between the routes")
+    # the same step under --remat: each block's forward runs again in the
+    # backward, FAVOR's wrapper with it (2 calls a layer), and the
+    # recomputation must give the kernel route's gradients without remat
+    lm_b.performer.remat = True
+    lm_b.zero_grad(set_to_none=True)
+    favor_cuda.launches = 0
+    tl.mlm_loss(lm_b(tokens), y, mask)[0].backward()
+    remat_launches = favor_cuda.launches
+    lm_b.performer.remat = False
+    grads = dict(lm_b.named_parameters())
+    remat_gap = max(float((grads[n].grad - g).norm() / g.norm()) for n, g in g_kernel.items())
+    bit_equal = all(torch.equal(grads[n].grad, g) for n, g in g_kernel.items())
+    log(f"(b) the step under remat: {remat_launches} FAVOR calls ({2 * MM_DEPTH} expected: "
+        f"{MM_DEPTH} layers x 2, the forward and its recomputation); q/k/v projection "
+        f"gradients against the kernel route without remat: max relative gap {remat_gap:.3g} "
+        f"(<= 1e-6), bit-equal {bit_equal} [{card}]")
+    if remat_launches != 2 * MM_DEPTH or not remat_gap <= 1e-6:
+        raise AssertionError(f"remat: {remat_launches} FAVOR calls, gradients {remat_gap} "
+                             "from the step without remat")
+    out["mlm_step"] = {**res, "loss_rel": rel_loss, "remat_launches": remat_launches,
+                       "remat_gap": remat_gap, "remat_bit_equal": bit_equal}
+    del g_kernel, grads
+    lm_b.zero_grad(set_to_none=True)
+    # the same readings on (a)'s pretrained weights, held to nothing: there
+    # the kernel's median sits at the tolerance's (PERF.md §7)
+    lm.train()
+    pre = favor_gradient_readings(torch, lm, lambda: tl.mlm_loss(lm(tokens), y, mask)[0], dev,
+                                  MM_DEPTH)
+    del pre["grads"]
+    lm.zero_grad(set_to_none=True)
+    log(f"(b) the same step on (a)'s pretrained weights (a reading, not a gate): median gap "
+        f"{pre['gap']:.3g}, the tolerance's {pre['limit']:.3g}, the planted fault's "
+        f"{pre['planted']:.3g}; worst projection {pre['worst']:.3g} (planted "
+        f"{pre['planted_worst']:.3g}) [{card}]")
+    out["mlm_step_pretrained"] = pre
+    # a traced window of MLM steps: the device's busy time and its split
+    state = tl.create_train_state(lm, tl.make_adam(1e-4), device=dev, init=False)
+    step, _ = tl.make_mlm_steps(state, mask_id=6)
+    x = torch.zeros((PRETRAIN_BATCH, 1), dtype=torch.int8, device=dev)
+    step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PRETRAIN_TRACE_STEPS):
+            step(x, y)
+        torch.cuda.synchronize()
+        t_traced = (time.perf_counter() - t0) * 1e3 / PRETRAIN_TRACE_STEPS
+    trace = os.path.join(tmp, "pretrain_trace.json")
+    prof.export_chrome_trace(trace)
+    split = {k: v / PRETRAIN_TRACE_STEPS for k, v in device_ms_by_kernel(trace).items()}
+    step_ms = t_train * 1e3 / n_train
+    out["mlm_trace"] = {**split, "traced_step_ms": t_traced, "untraced_step_ms": step_ms,
+                        "idle_share": 1 - split["busy"] / step_ms}
+    log(f"(b) traced MLM steps ({PRETRAIN_TRACE_STEPS}): device ms a step: FAVOR kernels "
+        f"{split['favor']:.2f}, GEMM {split['gemm']:.2f}, other {split['other']:.2f}, busy "
+        f"{split['busy']:.2f}; (a)'s untraced step {step_ms:.2f} ms: device idle share "
+        f"{1 - split['busy'] / step_ms:.3f} ({1 - split['busy'] / t_traced:.3f} against the "
+        f"traced {t_traced:.2f} ms a step) [{card}]")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
+    del state, step, prof, lm, lm_b, rec
+    laps["(b)"] = time.perf_counter()
+
+    # (c) fine-tuning from (a)'s checkpoint: the command's start, one
+    # --scbert-finetune spot step (phase 14 (c) runs before (a) exists)
+    sc = models.scBERT(n_genes=MM_VOCAB, dim=MM_DIM, depth=MM_DEPTH, heads=MM_HEADS,
+                       dim_head=MM_DIM_HEAD, n_classes=N_CLASSES, generalized_attention=True)
+    args = argparse.Namespace(scbert_ckpt=path, scbert_finetune=True, scbert_depth=MM_DEPTH,
+                              f_lr=FINETUNE_LR, device=dev)
+    printed = stdio.StringIO()
+    with contextlib.redirect_stdout(printed):
+        state, frozen_f = cli._scbert_start(args, sc)
+    report = printed.getvalue().strip()
+    log(f"(c) {report}")
+    if "1 entries re-initialized" not in report or "'/to_out (missing)'" not in report \
+            or frozen_f is None:
+        raise AssertionError(f"fine-tuning start: {report}")
+    mine = from_jax.jax_variables(sc)
+    for coll, tree in loaded.items():
+        for leaf_path, a in tree_leaves(tree):
+            if leaf_path[:2] == ("performer_lm", "to_out"):
+                continue                  # the LM's own token head: scBERT has none
+            b = mine[coll]
+            for k in leaf_path:
+                b = b[k]
+            if not np.array_equal(a, b):
+                raise AssertionError(f"fine-tuning start: {coll}/{'/'.join(leaf_path)} is not "
+                                     "the checkpoint's")
+    rng = np.random.default_rng(SEED + 31)
+    xb = torch.as_tensor(np.minimum(rng.poisson(0.4, (SCBERT_BATCH, MM_VOCAB)), 7)
+                         .astype(np.float32), device=dev)
+    yb = torch.as_tensor(rng.integers(0, N_CLASSES, SCBERT_BATCH), device=dev)
+    centre_head(torch, sc, xb)
+    entries = [(p[1:], t) for p, t, _ in from_jax.model_entries(sc) if p[0] == "params"]
+    before = {p: t.detach().clone() for p, t in entries}
+    labels = state.optimizer.labels
+    train_step, _ = tl.make_steps(state, "spot")
+    favor_cuda.launches = 0
+    m = train_step(xb, yb)
+    step_launches = favor_cuda.launches
+    frozen = [p for p in before if labels[p] == "frozen"]
+    trained = [p for p in before if labels[p] == "train"]
+    changed = {p for p, t in entries if not torch.equal(t.detach(), before[p])}
+    log(f"(c) one --scbert-finetune spot step (batch {SCBERT_BATCH}): loss "
+        f"{float(m['loss']):.4f}, {step_launches} FAVOR calls; {len(frozen)} frozen leaves "
+        f"bit-unchanged: {not (changed & set(frozen))}, {len(trained)} train leaves moved: "
+        f"{len(changed & set(trained))} [{card}]")
+    if changed & set(frozen):
+        raise AssertionError(f"frozen leaves moved: {sorted(changed & set(frozen))[:3]}")
+    if set(trained) - changed or not trained or step_launches != MM_DEPTH:
+        raise AssertionError(f"train leaves that did not move: "
+                             f"{sorted(set(trained) - changed)[:3]}; {step_launches} calls")
+    del sc, state, before, loaded, mine
+    laps["(c)"] = time.perf_counter()
+
+    # (d) train-graph over the cohort, then register array 0 through its directory
+    annots = [os.path.join(d, f"a{i}_annotations.csv") for i, d in enumerate(dirs)]
+    gdir = os.path.join(tmp, "model_graph")
+    graph = {}
+    fit = cli.fit_graph
+
+    def recorded_fit(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(*a, **kw)
+        torch.cuda.synchronize()
+        graph["fit_s"] = time.perf_counter() - t0
+        graph["losses"] = [float(v) for v in res]
+        return res
+
+    cli.fit_graph = recorded_fit
+    try:
+        t0 = time.perf_counter()
+        cli.main(["train-graph", "--spaceranger", *dirs, "--annots", *annots, "--out", gdir,
+                  "--device", str(dev)])
+        graph_wall = time.perf_counter() - t0
+    finally:
+        cli.fit_graph = fit
+    gl = graph["losses"]
+    csv_out = os.path.join(tmp, "graph0.csv")
+    cli.main(["register", "--model", gdir, "--spaceranger", dirs[0], "--out", csv_out,
+              "--device", str(dev)])
+    meta, classes, variables = from_jax.load_model_dir(gdir)
+    net = modeldir.graph_model_from_meta(meta, classes, variables, device=dev)
+    gd = graph_data.visium_to_graphdata([dirs[0]])
+    with torch.no_grad():
+        node_logits = net(torch.as_tensor(np.log1p(gd["nodes"]), device=dev),
+                          torch.as_tensor(gd["edges"], device=dev)).cpu().numpy()
+    shape = (geometry.VISIUM_H_ST, geometry.VISIUM_W_ST)
+    ox, oy = geometry.pseudo_hex_to_oddr(gd["pos"][:, 0], gd["pos"][:, 1])
+    logits = np.zeros(shape + (len(classes),), np.float32)
+    logits[oy, ox] = node_logits
+    want_grid = np.zeros(shape, np.int64)
+    want_grid[oy, ox] = node_logits.argmax(-1) + 1
+    got, n_rows = csv_label_grid(csv_out, read_positions(dirs[0]), list(classes), shape)
+    if n_rows != gd["nodes"].shape[0] or not np.array_equal(got > 0, want_grid > 0):
+        raise AssertionError(f"train-graph register: {n_rows} CSV rows for "
+                             f"{gd['nodes'].shape[0]} nodes")
+    flips = serving.label_parity_report(want_grid, got, logits)
+    out["train_graph"] = {"wall_s": graph_wall, "fit_s": graph["fit_s"],
+                          "steps_per_s": GRAPH_STEPS / graph["fit_s"], "loss_first": gl[0],
+                          "loss_last": gl[-1], "flips": flips}
+    log(f"(d) train-graph ({GRAPH_STEPS} steps, hidden 64, depth 3): {graph_wall:.2f} s with "
+        f"the graph build, fit {graph['fit_s']:.2f} s ({GRAPH_STEPS / graph['fit_s']:.1f} "
+        f"steps/s), loss {gl[0]:.4f} -> {gl[-1]:.4f}; register of array 0: the CSV names a "
+        f"direct forward's labels up to {flips} near-tie flips of {n_rows} nodes [{card}]")
+    if not (len(gl) == GRAPH_STEPS and np.mean(gl[-20:]) < np.mean(gl[:20])):
+        raise AssertionError(f"train-graph: the loss did not fall ({gl[0]} -> {gl[-1]})")
+    laps["(d)"] = time.perf_counter()
+    prev, parts = t_phase, []
+    for name, t in laps.items():
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['phase_s']:.1f} s ({', '.join(parts)} s) [{card}]")
+    log(json.dumps({"phase16": out}))
     return out
 
 
@@ -3328,8 +3814,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dir, trace
         phase_train(torch, slides, port, card, tmp, mm)
     del mm
-    with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dir, CSVs
-        phase_count_tier(torch, card, tmp, dev)
+    with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dirs, CSVs
+        tier = phase_count_tier(torch, card, tmp, dev)
+        pretrain = phase_pretrain(torch, card, tmp, tier["dirs"], dev)
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -3354,6 +3841,9 @@ def main() -> int:
                 # softmax attention of a fused attention call)
                 "library_ms": res[name].get("library_ms")}
                for name, (src, rep) in meta.items()]
+    # phase 16's path: pretrain-scbert's FAVOR calls, its counts set to 0 just
+    # before the command and read just after
+    kernels[-1]["launches_pretrain_scbert"] = pretrain["pretrain"]["favor_launches"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,29 @@ each directory's unified count cache over the cohort's union gene axis
 (``--images``, the JPEG patch caches, is not ported: the port crops
 patches from the slides on the card).
 
-Training (``train-count``, ``train-image``, ``train-mm``): the JAX
-package's commands with its flags and defaults, on the card. Each trains
-its f spotwise on the cohort's annotated spots, then g (the hex corrector,
-or the Cartesian one on a square ``--grid-dims`` lattice) gridwise with f
-frozen (``--finetune-f`` trains f too, and dense ingest always does), and
-writes a model directory (``model.json``, ``f_*state.msgpack``,
-``g_state.msgpack``) that this package's and the JAX package's
-``register`` read. Every epoch end writes ``<stage>.msgpack.latest``;
+Training (``train-count``, ``train-image``, ``train-mm``,
+``train-graph``, ``pretrain-scbert``): the JAX package's commands with its
+flags and defaults, on the card. ``train-count``, ``train-image`` and
+``train-mm`` train f spotwise on the cohort's annotated spots, then g (the
+hex corrector, or the Cartesian one on a square ``--grid-dims`` lattice)
+gridwise with f frozen (``--finetune-f`` trains f too, and dense ingest
+always does), and write a model directory (``model.json``,
+``f_*state.msgpack``, ``g_state.msgpack``) that this package's and the JAX
+package's ``register`` read. ``train-mm --count-f scbert --scbert-ckpt``
+starts the scBERT count f from a checkpoint (a reference torch ``.pth``,
+or a flax msgpack such as ``pretrain-scbert`` writes; mismatched entries,
+the classifier head first, re-initialise), and ``--scbert-finetune``
+freezes all but the final norm, layer ``depth - 2`` and the head, in both
+stages. ``pretrain-scbert`` pretrains a ``PerformerLM`` with the
+masked-LM objective over a cohort's spots (no annotations; FAVOR
+projections redrawn every ``--redraw-every`` steps) and writes
+``scbert_lm.msgpack`` and ``pretrain.json``. ``train-graph`` trains a
+``HexGCN`` full-batch over the cohort's hex graph and writes a model
+directory. Every epoch end writes ``<stage>.msgpack.latest``;
 ``--resume`` continues from it, and SIGTERM checkpoints at the next batch
 boundary and exits 75. Missing unified count caches are written first
-(``--min-detection``), as ``prepare`` writes them. ``--mesh`` (multi-card training) and
-``--scbert-ckpt`` / ``--scbert-finetune`` are not ported yet and exit.
+(``--min-detection``), as ``prepare`` writes them. ``--mesh`` (multi-card
+training) is not ported yet and exits.
 
 Registration: the ``register`` command of the JAX package's CLI, on the card: a trained
 model directory (``model.json`` + ``g_state.msgpack``, as the JAX package's
@@ -300,8 +311,6 @@ def _register_graph(args, meta, classes, variables):
 
 _LATER_MESH = ("error: --mesh (multi-card training) is not ported yet "
                "(ROADMAP.md Queue 1 item 9)")
-_LATER_SCBERT = ("error: --scbert-ckpt / --scbert-finetune are not ported yet "
-                 "(ROADMAP.md Queue 1 item 6)")
 
 
 def _resume_path(args, outfile):
@@ -372,13 +381,13 @@ def _train_augment(args):
 def _check_train_args(args):
     if getattr(args, "mesh", None) is not None:
         sys.exit(_LATER_MESH)
-    if getattr(args, "scbert_ckpt", None) or getattr(args, "scbert_finetune", False):
-        sys.exit(_LATER_SCBERT)
 
 
-def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None):
-    """Train ``f`` spotwise on ``spots``; returns its variables (JAX layout),
-    taken before g's initialisation redraws the shared module."""
+def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None,
+                state=None):
+    """Train ``f`` spotwise on ``spots`` (from ``state`` when given, else from
+    a fresh initialisation); returns its variables (JAX layout), taken
+    before g's initialisation redraws the shared module."""
     from gridnext_tpu_torch.train import train_spotwise
 
     out = os.path.join(args.out, f"{name}.msgpack")
@@ -387,20 +396,22 @@ def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None
                       val_arrays=args.val_arrays),
         learning_rate=args.f_lr, num_epochs=args.epochs, batch_size=args.batch_size,
         verbose=True, outfile=out, resume=_resume_path(args, out), augment=augment,
-        device=args.device)
+        state=state, device=args.device)
     return state.variables()
 
 
-def _grid_stage(args, g, grids, transform, stream, joint_f, f_vars):
-    """Train g gridwise (f frozen unless ``joint_f``) after loading the
-    spotwise f variables ``{key: variables}``; writes ``g_state.msgpack``."""
+def _grid_stage(args, g, grids, transform, stream, joint_f, f_vars, frozen_f=None):
+    """Train g gridwise (f frozen unless ``joint_f``; ``frozen_f`` carries a
+    per-leaf freeze of an f subtree) after loading the spotwise f variables
+    ``{key: variables}``; writes ``g_state.msgpack``."""
     import torch
 
     from gridnext_tpu_torch.train import (create_train_state, load_f_params,
                                           make_gridwise_optimizer, save_checkpoint,
                                           train_gridwise)
 
-    tx = make_gridwise_optimizer(args.g_lr, f_lr=args.f_lr if joint_f else None)
+    tx = make_gridwise_optimizer(args.g_lr, f_lr=args.f_lr if joint_f else None,
+                                 frozen_f_labels=frozen_f)
     dls = _split_dls(grids, 4, stream, transform, val_if_single=False,
                      seed=args.split_seed, val_arrays=args.val_arrays)
     state = create_train_state(g, tx, generator=torch.Generator().manual_seed(0),
@@ -501,6 +512,93 @@ def _image_f(args, n_classes):
         return f, "TpuPatchClassifier", {"stages": [list(s) for s in f.stages_spec],
                                          "stem_patch": f.stem_patch, "norm": f.stem_norm.kind}
     return densenet121(num_classes=n_classes, dtype=dtype), "DenseNet121", None
+
+
+def _load_scbert_ckpt(path, depth: int) -> dict:
+    """scBERT starting weights as a variables tree (the JAX layout): a
+    reference torch ``.pth`` / ``.pt`` (read without running pickled code,
+    a ``model_state_dict`` wrapper unwrapped, converted by
+    :mod:`~gridnext_tpu_torch.compat.scbert_convert`) or a flax msgpack
+    file: a raw variables dict, a checkpoint payload (``params`` and
+    ``extra_vars``) or a raw ``PerformerLM`` tree (``pretrain-scbert``'s),
+    which is nested under scBERT's ``performer_lm`` (its own head then has
+    no place and drops away)."""
+    if str(path).endswith((".pth", ".pt")):
+        from gridnext_tpu_torch.compat.scbert_convert import (read_torch_checkpoint,
+                                                              scbert_from_torch)
+
+        variables, _ = scbert_from_torch(read_torch_checkpoint(path), depth=depth)
+        return variables
+    from gridnext_tpu_torch.compat.from_jax import load_checkpoint
+
+    payload = load_checkpoint(path)
+    variables = {"params": payload["params"]}
+    variables.update(payload.get("extra_vars") or {})
+    if "favor" in payload:                      # the raw variables-dict form
+        variables["favor"] = payload["favor"]
+    params = variables.get("params") or {}
+    if "performer_lm" not in params and ("token_emb" in params or "performer" in params):
+        variables = {k: {"performer_lm": v} for k, v in variables.items()}
+    return variables
+
+
+def _merge_matching_params(dst, src, skipped, path=""):
+    """``dst`` (a fresh tree) with every leaf of ``src`` whose path and
+    shape match; the rest keep their fresh values and are recorded in
+    ``skipped`` (a different classifier head, a truncated vocabulary)."""
+    import numpy as np
+
+    if isinstance(dst, dict):
+        out = {}
+        for k, v in dst.items():
+            if isinstance(src, dict) and k in src:
+                out[k] = _merge_matching_params(v, src[k], skipped, f"{path}/{k}")
+            else:
+                skipped.append(f"{path}/{k} (missing)")
+                out[k] = v
+        return out
+    if np.shape(dst) == np.shape(src):
+        return np.asarray(src)
+    skipped.append(f"{path} (shape {np.shape(src)} != {np.shape(dst)})")
+    return dst
+
+
+def _scbert_start(args, f_count):
+    """The ``--scbert-ckpt`` / ``--scbert-finetune`` start of an scBERT count
+    f: ``(train state, frozen_f)``. The weights are drawn fresh, then every
+    checkpoint leaf that fits replaces its fresh value (the re-initialised
+    ones are reported); ``--scbert-finetune`` trains only the leaves
+    ``finetune_param_labels`` marks, here and (``frozen_f``) in g's stage."""
+    import torch
+
+    from gridnext_tpu_torch.compat.from_jax import jax_variables, load_variables
+    from gridnext_tpu_torch.models.scbert import finetune_param_labels
+    from gridnext_tpu_torch.train import create_train_state, make_adam, make_masked_adam
+    from gridnext_tpu_torch.train.init import flax_init_
+
+    tx, frozen_f = make_adam(args.f_lr), None
+    if args.scbert_finetune:
+        def labels(params):
+            return finetune_param_labels(params, args.scbert_depth)
+
+        tx, frozen_f = make_masked_adam(args.f_lr, labels), {"count_classifier": labels}
+    flax_init_(f_count, torch.Generator().manual_seed(0))
+    if args.scbert_ckpt:
+        loaded = _load_scbert_ckpt(args.scbert_ckpt, args.scbert_depth)
+        fresh, skipped = jax_variables(f_count), []
+        merged = {"params": _merge_matching_params(fresh["params"], loaded.get("params", {}),
+                                                   skipped)}
+        for k, v in fresh.items():
+            if k != "params":
+                merged[k] = (_merge_matching_params(v, loaded[k], skipped, path=f"[{k}]")
+                             if k in loaded else v)
+        load_variables(f_count, merged)
+        print("scBERT checkpoint: "
+              + ("all parameters loaded" if not skipped else
+                 f"{len(skipped)} entries re-initialized "
+                 "(head swap / vocab or attention-geometry "
+                 f"mismatch): {skipped[:3]}"))
+    return create_train_state(f_count, tx, device=args.device, init=False), frozen_f
 
 
 def _cmd_train_count(args):
@@ -615,6 +713,7 @@ def _cmd_train_mm(args):
           + (" [streaming]" if stream else ""))
     os.makedirs(args.out, exist_ok=True)
     genes = read_unified_genes(unified_cache_path(args.spaceranger[0], hd_binning))
+    f_count_state = frozen_f = None
     if args.count_f == "scbert":
         count_transform, vocab = _scbert_count_transform(args.spaceranger, hd_binning,
                                                          args.scbert_vocab)
@@ -623,13 +722,15 @@ def _cmd_train_mm(args):
                          nb_features=args.scbert_features, n_classes=n_classes,
                          generalized_attention=True)
         count_chunk = 8 if args.count_chunk is None else args.count_chunk
+        if args.scbert_ckpt or args.scbert_finetune:
+            f_count_state, frozen_f = _scbert_start(args, f_count)
     else:
         count_transform, vocab = np.log1p, None
         f_count = CountMLP(len(genes), n_classes=n_classes)
         count_chunk = args.count_chunk
     # count spots always materialize (small in RAM); image spots stream
     f_vars = {"count_classifier": _spot_stage(args, f_count, count_spots, "f_count_state",
-                                              count_transform)}
+                                              count_transform, state=f_count_state)}
     f_image, f_name, tpu_f_meta = _image_f(args, n_classes)
     if image_spots is not None:
         f_vars["image_classifier"] = _spot_stage(args, f_image, image_spots,
@@ -640,7 +741,7 @@ def _cmd_train_mm(args):
         f_image, f_count, n_classes=n_classes, patch_chunk=args.patch_chunk,
         count_chunk=count_chunk)
     _grid_stage(args, g, mm_grids, lambda x: (x[0], count_transform(x[1])), stream,
-                args.finetune_f or image_spots is None, f_vars)
+                args.finetune_f or image_spots is None, f_vars, frozen_f=frozen_f)
     _write_meta(args, {
         "classes": classes, "patch_px": args.patch_px, "window_px": args.window_px,
         "patch_chunk": args.patch_chunk, "count_chunk": count_chunk,
@@ -653,6 +754,135 @@ def _cmd_train_mm(args):
                       if square else None),
         "image_f": args.f, "tpu_f": tpu_f_meta, "dense_ingest": bool(args.dense_ingest),
         "model": "GridNetMM" if square else "GridNetHexMM"})
+
+
+def _cmd_pretrain_scbert(args):
+    """Masked-expression pretraining of an scBERT-scale ``PerformerLM`` on a
+    cohort's spots (no annotations). ``scbert_lm.msgpack`` holds the
+    best-validation weights and projections (no optimiser state) and feeds
+    ``train-mm --count-f scbert --scbert-ckpt`` (matching
+    ``--scbert-vocab/dim/depth/heads``), which loads every LM weight and
+    re-initialises the classifier head; ``pretrain.json`` describes it."""
+    import json
+
+    import numpy as np
+
+    from gridnext_tpu_torch.data import create_visium_dataset
+    from gridnext_tpu_torch.models import PerformerLM
+    from gridnext_tpu_torch.train import mlm_token_len, save_checkpoint, train_mlm
+
+    _check_train_args(args)
+    try:
+        spots = create_visium_dataset(args.spaceranger, spatial=False, use_count=True,
+                                      use_image=False,
+                                      minimum_detection_rate=_min_detection(args),
+                                      hd_binning=args.hd_binning)
+    except FileNotFoundError as e:
+        sys.exit(f"error: {e}")
+    transform, vocab = _scbert_count_transform(args.spaceranger, args.hd_binning,
+                                               args.scbert_vocab)
+    dls = _split_dls(spots, 5, stream=False, seed=args.split_seed,
+                     val_arrays=args.val_arrays)
+
+    def tokens_of(pair):
+        """(N, vocab + 1) int16 tokens: the gene2vec transform clipped to
+        [0, bin_num], then the zero token scBERT appends."""
+        if pair is None:
+            return None
+        binned = np.minimum(transform(pair[0]), args.bin_num).astype(np.int16)
+        return np.concatenate([binned, np.zeros((len(binned), 1), np.int16)], axis=1)
+
+    token_dls = {k: tokens_of(v) for k, v in dls.items()}
+    del dls, spots              # the float cohort dwarfs the int16 corpus
+    n_val = 0 if token_dls.get("val") is None else len(token_dls["val"])
+    print(f"MLM corpus: {len(token_dls['train'])} train / {n_val} val spots "
+          f"x {vocab} gene2vec tokens, bins 0..{args.bin_num}")
+    # no positional embedding: the weights do not depend on the token count,
+    # so the LM loads into scBERT at any n_genes
+    lm = PerformerLM(num_tokens=args.bin_num + 2, max_seq_len=mlm_token_len(vocab + 1),
+                     dim=args.scbert_dim, depth=args.scbert_depth, heads=args.scbert_heads,
+                     dim_head=args.scbert_dim_head, nb_features=args.scbert_features,
+                     remat=args.remat, generalized_attention=not args.softmax_features)
+    os.makedirs(args.out, exist_ok=True)
+    outfile = os.path.join(args.out, "scbert_lm.msgpack")
+    state, val_hist, _ = train_mlm(
+        lm, token_dls, mask_id=args.bin_num + 1, mask_prob=args.mask_prob,
+        learning_rate=args.lr, num_epochs=args.epochs, batch_size=args.batch_size,
+        outfile=outfile, shuffle_seed=args.split_seed, redraw_every=args.redraw_every or None,
+        resume=_resume_path(args, outfile), device=args.device)
+    save_checkpoint(outfile, state, include_opt_state=False)
+    with open(os.path.join(args.out, "pretrain.json"), "w") as fh:
+        json.dump({"model": "PerformerLM-MLM", "vocab": vocab, "dim": args.scbert_dim,
+                   "depth": args.scbert_depth, "heads": args.scbert_heads,
+                   "dim_head": args.scbert_dim_head, "nb_features": args.scbert_features,
+                   "bin_num": args.bin_num, "mask_prob": args.mask_prob,
+                   # the checkpoint holds the best-validation weights
+                   "val_loss": float(min(val_hist)) if val_hist else None}, fh)
+    print(f"saved pretrained LM to {outfile}")
+
+
+def fit_graph(state, nodes, edges, y, node_mask, steps: int, log=print) -> list:
+    """``steps`` full-batch Adam updates of the ``HexGCN`` in ``state`` on one
+    graph (the masked node loss); logs step 0, every 50th and the last, and
+    returns every step's loss (device scalars)."""
+    from gridnext_tpu_torch.models import graph_node_loss
+
+    model, losses = state.model, []
+    model.train()
+    for i in range(steps):
+        loss, correct, n = graph_node_loss(model(nodes, edges), y, node_mask)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        losses.append(loss.detach())
+        if i % 50 == 0 or i == steps - 1:
+            log(f"step {i}: loss {float(losses[-1]):.4f} "
+                f"node acc {float(correct) / max(int(n), 1):.3f}")
+    return losses
+
+
+def _cmd_train_graph(args):
+    """Node classification over the cohort's hex graph (``HexGCN``): every
+    in-tissue spot of every array is a node of one node-offset graph
+    (unannotated spots unlabeled, so the adjacency is the one ``register``
+    serves), padded as the JAX command pads it, trained full-batch for
+    ``--steps`` Adam updates on log1p counts; writes ``g_state.msgpack``
+    and ``model.json`` (with the gene axis's ``feature_axis``)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.data.graph_data import (feature_axis_signature, pad_graph,
+                                                    visium_to_graphdata)
+    from gridnext_tpu_torch.models import HexGCN
+    from gridnext_tpu_torch.train import create_train_state, make_adam, save_checkpoint
+
+    if len(args.annots) != len(args.spaceranger):
+        sys.exit("error: need one --annots file per --spaceranger dir")
+    gd = visium_to_graphdata(args.spaceranger, annot_files=args.annots,
+                             keep_unannotated=True)
+    classes = [str(c) for c in gd["classes"]]
+    n_real, n_real_edges = gd["nodes"].shape[0], gd["edges"].shape[1]
+    n_labeled = int((gd["y"] >= 0).sum())
+    gd = pad_graph(gd, ((n_real + 127) // 128) * 128 + 128)
+    print(f"{n_labeled} annotated of {n_real} in-tissue spots across "
+          f"{len(args.spaceranger)} arrays, {n_real_edges} edges, classes: {classes}")
+    dev = args.device
+    nodes = torch.as_tensor(np.log1p(gd["nodes"]), device=dev)
+    model = HexGCN(nodes.shape[1], len(classes), hidden=args.hidden, depth=args.depth)
+    state = create_train_state(model, make_adam(args.lr),
+                               generator=torch.Generator().manual_seed(args.seed), device=dev)
+    fit_graph(state, nodes, torch.as_tensor(gd["edges"], device=dev),
+              torch.as_tensor(gd["y"], device=dev),
+              torch.as_tensor(gd["node_mask"], device=dev), args.steps)
+    os.makedirs(args.out, exist_ok=True)
+    save_checkpoint(os.path.join(args.out, "g_state.msgpack"), state)
+    with open(os.path.join(args.out, "model.json"), "w") as fh:
+        json.dump({"classes": classes, "model": "HexGCN", "hidden": args.hidden,
+                   "depth": args.depth, "log1p": True, "n_genes": int(nodes.shape[1]),
+                   "feature_axis": feature_axis_signature(args.spaceranger[0])}, fh)
+    print(f"saved model to {args.out}")
 
 
 def _cmd_register(args):
@@ -770,8 +1000,14 @@ def build_parser():
                    help="per-head attention width (64 = the reference checkpoint shape)")
     s.add_argument("--scbert-features", type=int, default=None,
                    help="FAVOR random features m per head (default dim_head*ln(dim_head))")
-    s.add_argument("--scbert-ckpt", default=None, help="not ported yet (exits)")
-    s.add_argument("--scbert-finetune", action="store_true", help="not ported yet (exits)")
+    s.add_argument("--scbert-ckpt", default=None,
+                   help="start the scBERT count f from a checkpoint: a torch .pth "
+                        "(converted on the fly) or a flax msgpack (pretrain-scbert's "
+                        "scbert_lm.msgpack); mismatched entries (the classifier head, a "
+                        "truncated vocabulary) re-initialise")
+    s.add_argument("--scbert-finetune", action="store_true",
+                   help="freeze all but the final norm, the last-but-one performer "
+                        "layer and the head, in the spot and the grid stage")
     s.add_argument("--count-chunk", type=int, default=None,
                    help="spots per count-f chunk in g (default: patch-chunk "
                         "for mlp, 8 for scbert)")
@@ -784,6 +1020,69 @@ def build_parser():
     _add_hd_args(s, "GridNetMM")
     _add_train_args(s)
     s.set_defaults(fn=_cmd_train_mm)
+
+    s = sub.add_parser("train-graph",
+                       help="train the HexGCN node classifier over the cohort hex graph")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--annots", nargs="+", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--steps", type=int, default=200,
+                   help="full-batch optimizer updates over the cohort graph")
+    s.add_argument("--lr", type=float, default=5e-3)
+    s.add_argument("--hidden", type=int, default=64, help="graph-conv hidden width")
+    s.add_argument("--depth", type=int, default=3, help="message-passing layers")
+    s.add_argument("--seed", type=int, default=0)
+    _add_device_arg(s, "training")
+    s.set_defaults(fn=_cmd_train_graph)
+
+    s = sub.add_parser("pretrain-scbert",
+                       help="masked-expression (MLM) pretraining of an scBERT-scale "
+                            "PerformerLM on a cohort (no annotations needed); feed the "
+                            "checkpoint to train-mm --count-f scbert --scbert-ckpt")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--epochs", type=int, default=10)
+    s.add_argument("--batch-size", type=int, default=4, help="sequences per step")
+    s.add_argument("--lr", type=float, default=1e-4)
+    s.add_argument("--mask-prob", type=float, default=0.15)
+    s.add_argument("--bin-num", type=int, default=5,
+                   help="expression bins (tokens 0..bin_num; mask id bin_num+1; "
+                        "vocabulary bin_num+2)")
+    s.add_argument("--min-detection", type=float, default=None,
+                   help="gene detection-rate filter (default 0.02)")
+    s.add_argument("--hd-binning", default=None,
+                   help="Visium HD binned output to read (e.g. square_008um)")
+    s.add_argument("--scbert-vocab", type=int, default=16906,
+                   help="gene2vec tokens (full vocabulary = 16,906; truncate for small runs)")
+    s.add_argument("--scbert-dim", type=int, default=200,
+                   help="model width (200 = the reference checkpoint shape)")
+    s.add_argument("--scbert-depth", type=int, default=6)
+    s.add_argument("--scbert-heads", type=int, default=10)
+    s.add_argument("--scbert-dim-head", type=int, default=64,
+                   help="per-head attention width (64 = the reference checkpoint shape)")
+    s.add_argument("--scbert-features", type=int, default=None,
+                   help="FAVOR random features m per head (default dim_head*ln(dim_head)); "
+                        "must match between pretrain-scbert and train-mm")
+    s.add_argument("--remat", action="store_true",
+                   help="recompute each performer layer's activations in the backward "
+                        "(less device memory; FAVOR's kernel runs twice a layer)")
+    s.add_argument("--softmax-features", action="store_true",
+                   help="softmax FAVOR features instead of the default generalized (ReLU) "
+                        "ones, which run through the card's FAVOR kernel; the checkpoint "
+                        "serves either")
+    s.add_argument("--redraw-every", type=int, default=1000,
+                   help="FAVOR+ projection redraw interval in steps (0 disables)")
+    s.add_argument("--mesh", default=None, help="not ported yet (exits)")
+    s.add_argument("--split-seed", type=int, default=0,
+                   help="seed for the random train/val split")
+    s.add_argument("--val-arrays", nargs="+", default=None,
+                   help="hold out these whole arrays (dir basenames) for "
+                        "validation instead of a random split")
+    s.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run from the '.latest' "
+                        "checkpoint in --out (--epochs is the TOTAL count)")
+    _add_device_arg(s, "training")
+    s.set_defaults(fn=_cmd_pretrain_scbert)
     return ap
 
 
@@ -833,8 +1132,12 @@ def _add_train_args(s):
     s.add_argument("--resume", action="store_true",
                    help="continue an interrupted run from the '.latest' "
                         "checkpoints in --out (--epochs is the TOTAL count)")
+    _add_device_arg(s, "training")
+
+
+def _add_device_arg(s, what: str):
     s.add_argument("--device", default="cuda",
-                   help="where training runs: 'cuda' (default; fails without a "
+                   help=f"where {what} runs: 'cuda' (default; fails without a "
                         "card) or 'cpu' (the kernels' plain versions)")
 
 
@@ -843,7 +1146,7 @@ def main(argv=None):
     ``register``'s stage seconds, else None). A training command that
     SIGTERM preempts exits 75 after its batch-boundary checkpoint."""
     args = build_parser().parse_args(argv)
-    if not args.cmd.startswith("train-"):
+    if not args.cmd.startswith(("train-", "pretrain-")):
         return args.fn(args)
     from gridnext_tpu_torch.serving import resolve_device
     from gridnext_tpu_torch.train.preempt import (TrainingPreempted,

@@ -40,7 +40,11 @@
   ``performer_lm/norm``, and the classifier at scBERT's root ``to_out``
   (``conv1``, ``fc1``-``fc3``); the ``favor`` collection holds each
   layer's ``fast_attention/projection``, which fills the module's
-  ``projection`` buffer.
+  ``projection`` buffer (a layer of local heads only has none). ScaleNorm
+  pre-norms hold ``wrap_{i}_{attn,ff}_norm/g``, ReZero gains sit under
+  ``performer`` as ``wrap_{i}_{attn,ff}_rezero_g``, a learned absolute
+  positional table is ``pos_emb/embedding``, and a raw ``PerformerLM``
+  holds its ``to_out`` head unless it ties the token embedding.
 * :func:`load_gridnet_hex_mm` copies a ``GridNetHexMM`` tree: the count f
   under ``params``/``favor`` ``count_classifier``, the image f under
   ``params``/``batch_stats`` ``image_classifier``, the corrector as in
@@ -73,7 +77,7 @@ from gridnext_tpu_torch.models.graph import HexGCN
 from gridnext_tpu_torch.models.gridnet import ConcatGridNet, GridNetHexMM
 from gridnext_tpu_torch.models.mlp import CountMLP
 from gridnext_tpu_torch.models.performer import (FastAttention, Performer, PerformerLM,
-                                                 SelfAttention)
+                                                 ScaleNorm, SelfAttention)
 from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
 from gridnext_tpu_torch.models.tpu_f import ChannelNorm, TpuPatchClassifier
 
@@ -227,18 +231,30 @@ def _fast_attention_entries(fa: FastAttention, favor):
 def _self_attention_entries(attn: SelfAttention, params, favor):
     for name in ("to_q", "to_k", "to_v", "to_out"):
         yield from _dense_entries(getattr(attn, name), params + (name,))
-    yield from _fast_attention_entries(attn.fast_attention, favor + ("fast_attention",))
+    if attn.fast_attention is not None:
+        yield from _fast_attention_entries(attn.fast_attention, favor + ("fast_attention",))
+
+
+def _pre_norm_entries(norm, path):
+    if isinstance(norm, ScaleNorm):
+        yield path + ("g",), norm.g, "same"
+    elif isinstance(norm, torch.nn.LayerNorm):
+        yield from _layer_norm_entries(norm, path)
 
 
 def _performer_entries(perf: Performer, params, favor):
     for i, (attn_norm, attn, ff_norm, ff) in enumerate(zip(
             perf.attn_norms, perf.attns, perf.ff_norms, perf.ffs)):
-        yield from _layer_norm_entries(attn_norm, params + (f"wrap_{i}_attn_norm",))
+        yield from _pre_norm_entries(attn_norm, params + (f"wrap_{i}_attn_norm",))
         yield from _self_attention_entries(attn, params + (f"layers_{i}_attn",),
                                            favor + (f"layers_{i}_attn",))
-        yield from _layer_norm_entries(ff_norm, params + (f"wrap_{i}_ff_norm",))
+        yield from _pre_norm_entries(ff_norm, params + (f"wrap_{i}_ff_norm",))
         yield from _dense_entries(ff.w1, params + (f"layers_{i}_ff", "w1"))
         yield from _dense_entries(ff.w2, params + (f"layers_{i}_ff", "w2"))
+        if perf.use_rezero:
+            for part in ("attn", "ff"):
+                yield (params + (f"wrap_{i}_{part}_rezero_g",),
+                       perf.rezero_gain(i, part), "same")
 
 
 def _attention_classifier_entries(head: AttentionClassifier, params):
@@ -250,10 +266,12 @@ def _performer_lm_entries(lm: PerformerLM, params, favor):
     """A PerformerLM's own weights; a ``head_module``'s live elsewhere (at
     scBERT's root)."""
     yield params + ("token_emb", "embedding"), lm.token_emb.weight, "same"
+    if lm.pos_emb is not None:
+        yield params + ("pos_emb", "embedding"), lm.pos_emb.embedding, "same"
     yield from _performer_entries(lm.performer, params + ("performer",),
                                   favor + ("performer",))
     yield from _layer_norm_entries(lm.norm, params + ("norm",))
-    if lm.head_module is None:
+    if lm.to_out is not None:
         yield from _dense_entries(lm.to_out, params + ("to_out",))
 
 
@@ -340,13 +358,14 @@ def _model_entries(model):
 
 def to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
     """A torch weight (or a tensor shaped like it: a gradient, an Adam
-    moment) as the JAX tree holds it."""
+    moment) as the JAX tree holds it: a copy, never a view of a CPU
+    tensor's memory (which a later in-place update would change)."""
     a = t.detach().cpu().numpy()
     if layout == "conv":
-        return a.transpose(2, 3, 1, 0)   # OIHW -> HWIO
-    if layout == "dense":
-        return a.T
-    return a
+        a = a.transpose(2, 3, 1, 0)      # OIHW -> HWIO
+    elif layout == "dense":
+        a = a.T
+    return np.array(a)
 
 
 def from_jax_layout(a: np.ndarray, layout: str) -> np.ndarray:

@@ -1,11 +1,11 @@
 """Graph node classifier over Visium hex graphs.
 
-Port of ``gridnext_tpu/models/graph.py``'s ``HexGCN`` for inference: a
-graph is the ``nodes`` (N, F) and ``edges`` (2, E) arrays of
-:func:`~gridnext_tpu_torch.data.graph_data.visium_to_graphdata`. Message
-passing is ``index_add_`` over the edge list (atomic adds on the card, so
-the sum order is not fixed). The loss (``graph_node_loss``) comes with
-training.
+Port of ``gridnext_tpu/models/graph.py``: ``HexGCN`` over the ``nodes``
+(N, F) and ``edges`` (2, E) arrays of
+:func:`~gridnext_tpu_torch.data.graph_data.visium_to_graphdata`, and the
+masked node loss :func:`graph_node_loss` that ``train-graph`` minimises.
+Message passing is ``index_add_`` over the edge list (atomic adds on the
+card, so the sum order is not fixed).
 """
 
 from __future__ import annotations
@@ -46,3 +46,20 @@ class HexGCN(nn.Module):
             agg = h.new_zeros(h.shape).index_add_(0, recv, h[send]) * inv_deg[:, None]
             h = torch.relu(norm(self_dense(h) + nbr_dense(agg)))
         return self.out(h)
+
+
+def graph_node_loss(logits: torch.Tensor, y: torch.Tensor, node_mask=None):
+    """Masked node-classification CE: ``(mean loss, n_correct, n)``.
+
+    ``y`` in ``[0, C)``, -1 for unlabeled and padding nodes; ``node_mask``
+    (optional, bool) leaves out padding nodes. The mean is over labeled
+    nodes (at least 1); ``n`` is their raw count (0 when none is labeled).
+    """
+    valid = y >= 0
+    if node_mask is not None:
+        valid = valid & node_mask
+    safe = torch.where(valid, y, torch.zeros_like(y))
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, safe[:, None])[:, 0]
+    loss = -torch.where(valid, ll, torch.zeros_like(ll)).sum() / valid.sum().clamp_min(1)
+    correct = (logits.argmax(-1) == safe) & valid
+    return loss, correct.sum(), valid.sum()

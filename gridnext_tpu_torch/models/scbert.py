@@ -2,7 +2,8 @@
 
 Port of ``gridnext_tpu/models/scbert.py``: expression binned
 into ``bin_num`` tokens with an appended zero token, the
-``AttentionClassifier`` head, the count preprocessing recipe
+``AttentionClassifier`` head, the fine-tuning freeze policy
+(:func:`finetune_param_labels`), the count preprocessing recipe
 (:func:`preprocess_scbert`, numpy and scipy only) and the 16,906-symbol
 gene2vec vocabulary, kept in the port's own copy
 (``gridnext_tpu_torch/assets/gene2vec_names.csv``).
@@ -57,15 +58,20 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
     are clipped to ``bin_num`` and truncated to integer tokens, a zero token
     is appended, and the LM runs over ``n_genes + 1`` tokens. With
     ``n_classes``: ``(B, n_classes)`` logits (the count-f of
-    ``GridNetHexMM``); without: per-token logits. ``ff_dropout`` and
-    ``attn_dropout`` act in train mode, as the JAX module's.
+    ``GridNetHexMM``); without: per-token logits. ``g2v_weights`` selects
+    the gene2vec positional embedding (else none); ``local_attn_heads``,
+    ``remat`` and ``sow_attention`` as in
+    :class:`~gridnext_tpu_torch.models.performer.PerformerLM`.
+    ``ff_dropout`` and ``attn_dropout`` act in train mode, as the JAX
+    module's.
     """
 
     def __init__(self, n_genes: int = SCBERT_N_GENES, bin_num: int = 5, dim: int = 200,
                  depth: int = 6, heads: int = 10, dim_head: int = 64,
-                 nb_features: Optional[int] = None, n_classes: Optional[int] = None,
+                 nb_features: Optional[int] = None, local_attn_heads: int = 0,
+                 n_classes: Optional[int] = None, g2v_weights=None, remat: bool = False,
                  generalized_attention: bool = False, ff_dropout: float = 0.0,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, sow_attention: bool = False):
         super().__init__()
         self.bin_num = bin_num
         head = (None if n_classes is None else
@@ -73,13 +79,33 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
         self.performer_lm = PerformerLM(
             num_tokens=bin_num + 2, max_seq_len=n_genes + 1, dim=dim, depth=depth,
             heads=heads, dim_head=dim_head, nb_features=nb_features,
+            local_attn_heads=local_attn_heads,
+            pos_emb_kind="gene2vec" if g2v_weights is not None else "none",
+            g2v_weights=g2v_weights, remat=remat,
             generalized_attention=generalized_attention, head_module=head,
-            ff_dropout=ff_dropout, attn_dropout=attn_dropout)
+            ff_dropout=ff_dropout, attn_dropout=attn_dropout, sow_attention=sow_attention)
 
     def forward(self, x):
         tokens = torch.clamp(x, max=self.bin_num).to(torch.int64)   # truncation
         cls = torch.zeros((tokens.shape[0], 1), dtype=torch.int64, device=x.device)
         return self.performer_lm(torch.cat([tokens, cls], dim=-1))
+
+
+def finetune_param_labels(params: dict, depth: int) -> dict:
+    """The fine-tuning freeze policy as a label tree congruent with an
+    scBERT ``params`` tree (the JAX layout, nested dicts): 'train' for the
+    root ``to_out`` classifier head, the final ``performer_lm/norm`` and
+    performer layer ``depth - 2`` (its attention, feed-forward and their
+    ``wrap_`` norms or gains); 'frozen' for every other leaf."""
+    def label(tree, keys):
+        if isinstance(tree, dict):
+            return {k: label(v, keys + (str(k),)) for k, v in tree.items()}
+        joined = "/".join(keys)
+        trainable = (keys[0] == "to_out" or "performer_lm/norm" in joined
+                     or f"layers_{depth - 2}_" in joined or f"wrap_{depth - 2}_" in joined)
+        return "train" if trainable else "frozen"
+
+    return label(params, ())
 
 
 def preprocess_scbert(X, var_names: Sequence[str], *, target_genes: Sequence[str],

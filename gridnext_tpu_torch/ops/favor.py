@@ -1,13 +1,12 @@
 """FAVOR+ linear attention primitives (Performer), plain PyTorch.
 
 Port of ``gridnext_tpu/ops/favor.py``: softmax and generalized random
-features, Gaussian orthogonal projections and non-causal linear attention,
-all accumulated in float32. Shapes are ``(..., heads, seq, dim)``
-throughout. The ReLU-feature composition that the CUDA kernel fuses is
-:func:`gridnext_tpu_torch.ops.favor_cuda.favor_attention_plain`.
-
-Causal linear attention and the implicit attention weights wait for a
-later slice of the port (``ROADMAP.md`` Queue 1 item 6).
+features, Gaussian orthogonal projections, non-causal linear attention,
+causal linear attention as a chunked prefix scan and the implicit
+attention weights, all accumulated in float32. Shapes are ``(..., heads,
+seq, dim)`` throughout. The ReLU-feature composition that the CUDA kernel
+fuses is :func:`gridnext_tpu_torch.ops.favor_cuda.favor_attention_plain`;
+the causal scan has no kernel (XLA in the JAX package, plain torch here).
 """
 
 from __future__ import annotations
@@ -89,3 +88,51 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     d_inv = 1.0 / torch.einsum("...nd,...d->...n", q, k_sum)
     context = torch.einsum("...nd,...ne->...de", k, v)           # (..., r, d)
     return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)
+
+
+def implicit_attention_weights(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """The implicit attention matrix ``D^-1 q' k'^T``: ``(..., n, n)``
+    row-normalised weights from ``(..., n, r)`` feature maps (a row whose
+    scores sum to 0 is divided by 1). O(n^2) memory: for interpretation on
+    token subsets."""
+    scores = torch.einsum("...nr,...mr->...nm", qf, kf)
+    denom = scores.sum(dim=-1, keepdim=True)
+    return scores / torch.where(denom == 0, torch.ones_like(denom), denom)
+
+
+def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            chunk_size: int = 128, eps: float = 1e-6) -> torch.Tensor:
+    """Causal linear attention as a chunked prefix scan.
+
+    The sequence is zero-padded to whole chunks of ``chunk_size``; within a
+    chunk the causal part is a lower-triangular-masked product, and the
+    running context ``sum k v^T`` and key sum of the chunks before it are
+    carried in float32. ``out_n = (q_n . sum_{m<=n} k_m v_m^T) / (q_n .
+    sum_{m<=n} k_m + eps)``. q, k: ``(..., n, r)`` feature maps; v:
+    ``(..., n, d)``. O(n) memory.
+    """
+    q, k, v = q.float(), k.float(), v.float()
+    n = q.shape[-2]
+    pad = (-n) % chunk_size
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    n_chunks = q.shape[-2] // chunk_size
+
+    def chunked(x):
+        return x.reshape(x.shape[:-2] + (n_chunks, chunk_size, x.shape[-1]))
+
+    qc, kc, vc = chunked(q), chunked(k), chunked(v)
+    tri = torch.tril(torch.ones((chunk_size, chunk_size), dtype=torch.bool, device=q.device))
+    ctx = q.new_zeros(q.shape[:-2] + (q.shape[-1], v.shape[-1]))
+    ksum = q.new_zeros(q.shape[:-2] + (q.shape[-1],))
+    outs = []
+    for c in range(n_chunks):
+        qi, ki, vi = qc[..., c, :, :], kc[..., c, :, :], vc[..., c, :, :]
+        scores = torch.einsum("...nr,...mr->...nm", qi, ki).masked_fill(~tri, 0.0)
+        num = torch.einsum("...nm,...md->...nd", scores, vi) + qi @ ctx
+        den = scores.sum(-1) + torch.einsum("...nr,...r->...n", qi, ksum)
+        outs.append(num / (den + eps)[..., None])
+        ctx = ctx + torch.einsum("...mr,...md->...rd", ki, vi)
+        ksum = ksum + ki.sum(-2)
+    out = torch.stack(outs, dim=-3).reshape(q.shape[:-2] + (n_chunks * chunk_size, v.shape[-1]))
+    return out[..., :n, :]

@@ -11,9 +11,10 @@ from another generator):
   ``2 / (out * kh * kw)``;
 * the Cartesian corrector's convolutions (``GridNet``, ``ConcatGridNet``)
   and ``HexConv``: xavier-uniform over the full fan, biases zero;
-* token embeddings: a normal of variance ``1 / dim`` (``nn.Embed``);
+* token embeddings: a normal of variance ``1 / dim`` (``nn.Embed``); a
+  learned absolute positional table: a normal of stddev 0.02;
 * BatchNorm, LayerNorm and RMSNorm: scale one, bias zero, running mean
-  zero and variance one;
+  zero and variance one; ScaleNorm gains one; ReZero gains 1e-3;
 * FAVOR projections: a fresh orthogonal Gaussian draw.
 """
 
@@ -27,7 +28,8 @@ from torch import nn
 from gridnext_tpu_torch.models.densenet import DenseNet
 from gridnext_tpu_torch.models.gridnet import ConcatGridNet, _CartesianCorrector
 from gridnext_tpu_torch.models.layers import BatchNorm, HexConv
-from gridnext_tpu_torch.models.performer import FastAttention
+from gridnext_tpu_torch.models.performer import (REZERO_INIT, AbsolutePositionalEmbedding,
+                                                 FastAttention, Performer, ScaleNorm)
 from gridnext_tpu_torch.models.tpu_f import ChannelNorm
 from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
 
@@ -99,5 +101,13 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, FastAttention) and not m.no_projection:
                 m.projection.copy_(orthogonal_gaussian_matrix(
-                    *m.projection.shape, generator=generator))
+                    *m.projection.shape, m.ortho_scaling, generator=generator))
+            elif isinstance(m, AbsolutePositionalEmbedding):
+                put(m.embedding, lambda w: w.normal_(0.0, 0.02, generator=generator))
+            elif isinstance(m, ScaleNorm):
+                m.g.fill_(1.0)
+            elif isinstance(m, Performer) and m.use_rezero:
+                for name, p in m.named_parameters(recurse=False):
+                    if name.endswith("_rezero_g"):
+                        p.fill_(REZERO_INIT)
     return model

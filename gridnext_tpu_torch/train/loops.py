@@ -4,11 +4,19 @@ PyTorch, step for step.
 * ``train_spotwise`` trains a spot classifier f with plain CE (or MSE);
   ``train_gridwise`` trains a grid model's corrector g (and, with
   ``f_lr``, its f) with the foreground-masked CE over ``(B, H, W, C)``
-  logits: background (label 0) masked out, labels shifted to ``[0, N)``.
+  logits: background (label 0) masked out, labels shifted to ``[0, N)``;
+  ``train_mlm`` pretrains a token LM (``PerformerLM``) with the masked-LM
+  objective (:func:`make_mlm_steps`).
+* FAVOR+ projections are redrawn every ``redraw_every`` train steps
+  (``train_spotwise`` and ``train_mlm``), redraw r from a generator seeded
+  by r; checkpoints record ``redraws_done``.
 * The optimiser is ``torch.optim.Adam`` with optax's defaults (b1 0.9, b2
   0.999, eps 1e-8 outside the square root, bias correction) over parameter
   groups: :func:`make_gridwise_optimizer` gives g ``lr``, f ``f_lr`` or no
-  update at all, and ``frozen_f_labels`` subtrees no update; ``accum_iters
+  update at all, and ``frozen_f_labels`` subtrees no update;
+  :func:`make_masked_adam` trains the leaves a label function marks
+  'train' and freezes the rest (optax's ``multi_transform`` with
+  ``set_to_zero``, scBERT's fine-tuning); ``accum_iters
   > 1`` applies the mean of k gradients every k-th step as
   ``optax.MultiSteps`` does. A parameter that takes no update takes no
   gradient either (``requires_grad`` off), so a frozen f runs under
@@ -58,9 +66,9 @@ from gridnext_tpu_torch.train.init import flax_init_
 # f-network collections inside the GridNet models
 _F_KEYS = ("patch_classifier", "image_classifier", "count_classifier")
 
-# seeds of the per-step generators (the JAX loop folds the step into keys 11
-# and 19)
-_DROPOUT_SEED, _AUGMENT_SEED = 11, 19
+# seeds of the per-step generators (the JAX loop folds the step into keys 11,
+# 19 and 13, uses key 17 for the MLM eval mask and splits key 7 per redraw)
+_DROPOUT_SEED, _AUGMENT_SEED, _MLM_SEED, _MLM_EVAL_SEED, _REDRAW_SEED = 11, 19, 13, 17, 7
 
 
 # -- the optimiser ---------------------------------------------------------------
@@ -69,13 +77,15 @@ _DROPOUT_SEED, _AUGMENT_SEED = 11, 19
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     """What the JAX trainers' optax transformation is, before it meets a
-    model: ``kind`` 'adam' (``optax.adam(lr)`` over every parameter) or
-    'gridwise' (:func:`make_gridwise_optimizer`)."""
+    model: ``kind`` 'adam' (``optax.adam(lr)`` over every parameter),
+    'gridwise' (:func:`make_gridwise_optimizer`) or 'masked'
+    (:func:`make_masked_adam`)."""
     kind: str
     lr: float
     f_lr: Optional[float] = None
     accum_iters: int = 1
     frozen_f_labels: Optional[Mapping[str, Callable]] = None
+    param_labels: Optional[Callable] = None
 
 
 def make_adam(lr: float) -> OptimizerSpec:
@@ -98,6 +108,15 @@ def make_gridwise_optimizer(lr: float = 1e-3, f_lr: Optional[float] = None,
                          int(accum_iters), frozen_f_labels)
 
 
+def make_masked_adam(lr: float, param_labels: Callable) -> OptimizerSpec:
+    """``optax.multi_transform({'train': adam(lr), 'frozen': set_to_zero()},
+    param_labels)``: ``param_labels`` maps the params tree (JAX layout) to a
+    congruent tree of 'train' / 'frozen' labels (e.g.
+    ``models.scbert.finetune_param_labels``); 'frozen' leaves take no
+    update and no gradient."""
+    return OptimizerSpec("masked", float(lr), param_labels=param_labels)
+
+
 def _tree_set(tree: dict, path, value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
@@ -115,6 +134,9 @@ def _labels(spec: OptimizerSpec, params_tree: dict, paths) -> dict:
     leading 'params')."""
     if spec.kind == "adam":
         return {p: "adam" for p in paths}
+    if spec.kind == "masked":
+        tree = spec.param_labels(params_tree)
+        return {p: "train" if _tree_get(tree, p) == "train" else "frozen" for p in paths}
     frozen = dict(spec.frozen_f_labels or {})
     trees = {k: fn(params_tree[k]) for k, fn in frozen.items() if k in params_tree}
     out = {}
@@ -147,7 +169,8 @@ class Optimizer:
         for path, t, layout in entries:
             _tree_set(shapes, path, to_jax_layout(t, layout))
         self.labels = _labels(spec, shapes, [p for p, _, _ in entries])
-        lrs = {"adam": spec.lr, "g": spec.lr, "f": spec.f_lr, "frozen": None}
+        lrs = {"adam": spec.lr, "g": spec.lr, "train": spec.lr, "f": spec.f_lr,
+               "frozen": None}
         self.groups = {}                    # label -> [param]
         for path, t, _ in entries:
             label = self.labels[path]
@@ -220,6 +243,9 @@ class Optimizer:
         counts as numpy int32 scalars."""
         if self.spec.kind == "adam":
             return self._adam_state("adam")
+        if self.spec.kind == "masked":
+            return {"inner_states": {"train": {"inner_state": self._adam_state("train")},
+                                     "frozen": {"inner_state": {}}}}
         inner = {"g": {"inner_state": self._adam_state("g")},
                  "f": {"inner_state": self._adam_state("f")
                        if self.spec.f_lr is not None else {}},
@@ -256,7 +282,7 @@ class Optimizer:
             adams = {"adam": tree}
         else:
             adams = {k: v["inner_state"] for k, v in tree["inner_states"].items()
-                     if k in ("g", "f")}
+                     if k in ("g", "f", "train")}
         for label, st in adams.items():
             if not st:
                 continue
@@ -407,6 +433,67 @@ def make_steps(state: TrainState, loss_kind: str, augment: Optional[Callable] = 
         model.eval()
         with torch.no_grad():
             loss, n_correct, n = loss_fn(model(x), y)
+        return {"loss": loss, "n_correct": n_correct, "n": n}
+
+    return train_step, eval_step
+
+
+def _mlm_mask(generator: torch.Generator, shape, mask_prob: float, device) -> torch.Tensor:
+    """The positions an MLM step corrupts: each with probability
+    ``mask_prob``, drawn from ``generator``."""
+    return torch.rand(tuple(shape), generator=generator, device=device) < mask_prob
+
+
+def mlm_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+    """Masked-LM CE over ``(B, n, V)`` logits at the corrupted positions
+    ``mask`` whose clean token ``y`` is not padding (-1): (mean CE,
+    n_correct, n)."""
+    valid = mask & (y >= 0)
+    safe = y.clamp_min(0).long()
+    logits = _at_least_f32(logits)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1),
+                         reduction="none").reshape(y.shape)
+    n = valid.sum()
+    loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / n.clamp_min(1)
+    n_correct = (valid & (logits.argmax(-1) == safe)).sum()
+    return loss, n_correct, n
+
+
+def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15):
+    """(train_step, eval_step) for masked-LM pretraining: the JAX
+    package's ``make_mlm_steps``.
+
+    Batches are (x, y) with x a per-row dummy and y the clean ``(B, n)``
+    integer tokens, -1 marking padding rows. Each step corrupts a
+    ``mask_prob`` share of the tokens to ``mask_id`` (pad rows clamped to
+    token 0 for the forward and left out of the loss) and minimises the CE
+    of the clean token at the corrupted positions. The train mask is drawn
+    from a generator seeded by the step, the eval mask from a fixed one
+    (:func:`_mlm_mask` draws both), so validation losses compare across
+    epochs.
+    """
+    model = state.model
+
+    def corrupt(generator, y):
+        mask = _mlm_mask(generator, y.shape, mask_prob, y.device)
+        return torch.where(mask, torch.full_like(y, mask_id), y.clamp_min(0)).long(), mask
+
+    def train_step(x, y):
+        dev = y.device
+        model.train()
+        set_dropout_generator(model, _step_generator(_DROPOUT_SEED, state.step, dev))
+        tokens, mask = corrupt(_step_generator(_MLM_SEED, state.step, dev), y)
+        loss, n_correct, n = mlm_loss(model(tokens), y, mask)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(), "n_correct": n_correct, "n": n}
+
+    def eval_step(x, y):
+        model.eval()
+        tokens, mask = corrupt(_step_generator(_MLM_EVAL_SEED, 0, y.device), y)
+        with torch.no_grad():
+            loss, n_correct, n = mlm_loss(model(tokens), y, mask)
         return {"loss": loss, "n_correct": n_correct, "n": n}
 
     return train_step, eval_step
@@ -646,11 +733,18 @@ def _snapshot(model: nn.Module) -> dict:
 
 def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_size,
                   outfile, shuffle_seed, verbose, device, metrics_logger=None,
-                  resume=None, augment=None):
-    train_step, eval_step = make_steps(state, loss_kind, augment=augment)
-    rng = np.random.default_rng(shuffle_seed)
+                  resume=None, augment=None, redraw_every: Optional[int] = None,
+                  mlm: Optional[Mapping] = None):
+    from gridnext_tpu_torch.models.performer import fast_attentions, redraw_projections
 
-    start_epoch = start_batch = 0
+    if loss_kind == "mlm":
+        train_step, eval_step = make_mlm_steps(state, **(mlm or {}))
+    else:
+        train_step, eval_step = make_steps(state, loss_kind, augment=augment)
+    rng = np.random.default_rng(shuffle_seed)
+    redraws = bool(redraw_every) and bool(fast_attentions(state.model))
+
+    start_epoch = start_batch = redraws_done = 0
     resumed_best = None
     if resume is not None:
         payload = load_checkpoint(resume)
@@ -674,6 +768,11 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
         n_train = _num_items(dataloaders.get("train"))
         for _ in range(start_epoch):
             rng.permutation(max(n_train, 1))     # replay the epochs' shuffles
+        if redraw_every:
+            # a warm-started run fires its first redraw at the next boundary,
+            # so the count is recorded rather than derived from the step
+            done = payload.get("redraws_done")
+            redraws_done = int(state.step) // redraw_every if done is None else int(done)
 
     ckpt_writer = None
     if outfile is not None:
@@ -709,7 +808,7 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
             ckpt_writer.save(ckpt, state, extra_meta={
                 "epochs_done": epoch, "batches_done": batches_done,
                 "batch_size": batch_size, "shuffle_seed": shuffle_seed,
-                "best_val_loss": best_meta()})
+                "redraws_done": redraws_done, "best_val_loss": best_meta()})
         if guard is not None:
             guard.reset()          # the trigger belongs to this run
         raise preempt.TrainingPreempted(ckpt)
@@ -734,6 +833,13 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                 step_fn = train_step if phase == "train" else eval_step
                 for x, y, n_real in batches:
                     m = step_fn(x, y)
+                    if (phase == "train" and redraws
+                            and state.step % redraw_every == 0):
+                        # periodic FAVOR+ projection redraw, redraw r from
+                        # its own generator (a resumed run draws the same)
+                        redraw_projections(state.model, _step_generator(
+                            _REDRAW_SEED, redraws_done, "cpu"))
+                        redraws_done += 1
                     losses.append(m["loss"])
                     corrs.append(m["n_correct"])
                     ns.append(m["n"])
@@ -775,7 +881,8 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
             if ckpt_writer is not None:
                 # the resume point: the latest state at each epoch end
                 ckpt_writer.save(str(outfile) + ".latest", state, extra_meta={
-                    "epochs_done": epoch + 1, "best_val_loss": best_meta()})
+                    "epochs_done": epoch + 1, "redraws_done": redraws_done,
+                    "best_val_loss": best_meta()})
     except BaseException:
         # drain enqueued writes (the best-val file may hold what the user
         # wants back) without masking the exception in flight
@@ -804,7 +911,8 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
                    num_epochs: int = 10, batch_size: int = 128, outfile=None,
                    state: Optional[TrainState] = None, tx: Optional[OptimizerSpec] = None,
                    generator: Optional[torch.Generator] = None, shuffle_seed: int = 0,
-                   verbose: bool = True, loss: str = "ce", metrics_logger=None,
+                   verbose: bool = True, redraw_every: Optional[int] = None,
+                   loss: str = "ce", metrics_logger=None,
                    resume=None, augment=None, device="cuda"):
     """Train a spot classifier f: the JAX package's ``train_spotwise``.
 
@@ -812,7 +920,9 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
     labels in ``[0, n_classes)`` (float targets with ``loss='mse'``) or to
     map-style datasets. Without ``state`` the model's weights are drawn
     from flax's initialisers with ``generator`` and bound to Adam
-    (``learning_rate``, or ``tx``). ``resume=<outfile>.latest`` continues
+    (``learning_rate``, or ``tx``). ``redraw_every`` redraws a Performer
+    f's FAVOR+ projections every that many steps (each at its layer's
+    ``ortho_scaling``). ``resume=<outfile>.latest`` continues
     an interrupted run (``num_epochs`` is the total). Runs on ``device``
     (default CUDA). Returns (state, val_history, train_history).
     """
@@ -827,7 +937,7 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
     kind = {"ce": "spot", "mse": "spot_mse"}[loss]
     return _run_training(state, dataloaders, kind, num_epochs, batch_size, outfile,
                          shuffle_seed, verbose, device, metrics_logger=metrics_logger,
-                         resume=resume, augment=augment)
+                         resume=resume, augment=augment, redraw_every=redraw_every)
 
 
 def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: float = 1e-3,
@@ -860,7 +970,57 @@ def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
                          resume=resume, augment=augment)
 
 
+def mlm_token_len(n_tokens: int, mesh_shape=None) -> int:
+    """The token-axis length ``train_mlm`` runs: ``n_tokens`` (the JAX
+    package pads it for a sequence-parallel mesh; meshes are not ported,
+    ``ROADMAP.md`` Queue 1 item 9)."""
+    if mesh_shape is not None:
+        raise NotImplementedError("device meshes are not ported yet "
+                                  "(ROADMAP.md Queue 1 item 9)")
+    return int(n_tokens)
+
+
+def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
+              mask_prob: float = 0.15, learning_rate: float = 1e-4, num_epochs: int = 10,
+              batch_size: int = 4, outfile=None, state: Optional[TrainState] = None,
+              tx: Optional[OptimizerSpec] = None, generator: Optional[torch.Generator] = None,
+              shuffle_seed: int = 0, verbose: bool = True, redraw_every: Optional[int] = None,
+              metrics_logger=None, resume=None, device="cuda"):
+    """Masked-LM pretraining of a token LM: the JAX package's ``train_mlm``.
+
+    ``dataloaders`` maps 'train'/'val' to clean integer token arrays
+    ``(N, n)`` (binned expression in ``[0, bin_num]``, ``mask_id = bin_num +
+    1``), to (dummy, tokens) pairs or to map-style datasets of them. Each
+    step corrupts a fresh ``mask_prob`` share of the tokens
+    (:func:`make_mlm_steps`); ``redraw_every`` redraws the FAVOR+
+    projections every that many steps. Resume, preemption and the best-val
+    snapshot (projections included) as in :func:`train_spotwise`. Returns
+    (state, val_history, train_history).
+    """
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(device)
+
+    def as_pair(tokens):
+        if tokens is None or isinstance(tokens, tuple) or _is_dataset(tokens):
+            return tokens
+        tokens = np.asarray(tokens)
+        return np.zeros((len(tokens), 1), np.int8), tokens
+
+    pairs = {k: as_pair(v) for k, v in dataloaders.items()}
+    if state is None:
+        state = create_train_state(model, tx or make_adam(learning_rate),
+                                   generator=generator, device=device)
+    else:
+        state.model.to(device)
+    return _run_training(state, pairs, "mlm", num_epochs, batch_size, outfile, shuffle_seed,
+                         verbose, device, metrics_logger=metrics_logger, resume=resume,
+                         redraw_every=redraw_every,
+                         mlm={"mask_id": mask_id, "mask_prob": mask_prob})
+
+
 __all__ = ["Optimizer", "OptimizerSpec", "TrainState", "create_train_state",
            "load_checkpoint", "load_f_params", "make_adam", "make_gridwise_optimizer",
-           "make_steps", "masked_cross_entropy", "restore_train_state",
-           "save_checkpoint", "train_gridwise", "train_spotwise"]
+           "make_masked_adam", "make_mlm_steps", "make_steps", "masked_cross_entropy",
+           "mlm_loss", "mlm_token_len", "restore_train_state", "save_checkpoint",
+           "train_gridwise", "train_mlm", "train_spotwise"]

@@ -5,8 +5,11 @@ pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.p
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
 (the slide decoder, never called on the card) and inside the image writers
 of ``data/simulate.py`` (``simulate_spaceranger_dir(image=True)`` and
-``pseudo_visium_from_image``), as the JAX package writes its fixtures. Also here: the port's own
-geometry equals the JAX package's.
+``pseudo_visium_from_image``), as the JAX package writes its fixtures. The
+training commands that need no image (``pretrain-scbert``, ``train-graph``)
+run end to end with ``--device cpu`` in a process that imports none of
+them, and without a card their default ``cuda`` raises. Also here: the
+port's own geometry equals the JAX package's.
 """
 
 import ast
@@ -97,3 +100,46 @@ def test_geometry_matches_jax():
     assert geometry.HEX_TAPS_R1 == jax_geometry.HEX_TAPS_R1
     assert (geometry.VISIUM_H_ST, geometry.VISIUM_W_ST) == \
         (jax_geometry.VISIUM_H_ST, jax_geometry.VISIUM_W_ST)
+
+
+def test_training_commands_run_without_jax(tmp_path):
+    """``simulate``, ``prepare``, ``pretrain-scbert`` (tiny widths) and
+    ``train-graph`` with ``--device cpu`` in one process that fails if any
+    forbidden module is imported."""
+    sc = ["--scbert-vocab", "30", "--scbert-dim", "8", "--scbert-depth", "1",
+          "--scbert-heads", "2", "--scbert-dim-head", "4", "--scbert-features", "4"]
+    runs = [["simulate", "--out", "sim", "--arrays", "1", "--genes", "20", "--classes", "3",
+             "--gene2vec-names"],
+            ["prepare", "--spaceranger", "sim/a0"],
+            ["pretrain-scbert", "--spaceranger", "sim/a0", "--out", "lm", "--epochs", "1",
+             "--batch-size", "256", "--redraw-every", "2", "--device", "cpu", *sc],
+            ["train-graph", "--spaceranger", "sim/a0", "--annots", "sim/a0/a0_annotations.csv",
+             "--out", "graph", "--steps", "3", "--device", "cpu"]]
+    code = ("import sys\n"
+            "from gridnext_tpu_torch import cli\n"
+            f"for argv in {runs!r}:\n"
+            "    cli.main(argv)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('PIL',)!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "saved pretrained LM to lm/scbert_lm.msgpack" in res.stdout
+    assert "saved model to graph" in res.stdout
+    assert (tmp_path / "lm" / "pretrain.json").exists()
+
+
+def test_training_commands_default_to_cuda(monkeypatch, tmp_path):
+    import torch
+
+    from gridnext_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["pretrain-scbert", "--spaceranger", "x", "--out", str(tmp_path / "lm")],
+                 ["train-graph", "--spaceranger", "x", "--annots", "x.csv", "--out",
+                  str(tmp_path / "g")]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert not any(tmp_path.iterdir())

@@ -15,10 +15,22 @@ their init values by numpy noise (so LayerNorm scales and biases are not
   ``dim_head`` 16, m 24, 50 genes, against ``model.apply``: the largest
   difference within 1e-4 of the largest output (f32, other summation
   orders);
+- the causal scan (N 33 and 300: one ragged chunk, three chunks and a
+  ragged tail) and ``implicit_attention_weights`` (a zero row) against
+  ``ops/favor.py`` within 1e-5 abs / 1e-4 rel; both rotary conventions;
+  ``local_block_attention`` (causal or not, masked, rows with every key
+  masked) against JAX's and against the float64 oracle
+  ``compat/local_attention_ref.py``; ``SelfAttention`` with local and
+  rotary global heads and a mask; a causal, a ScaleNorm and a ReZero
+  ``Performer`` and causal ``no_projection``; ``PerformerLM`` with
+  absolute and gene2vec positional embeddings and ``tie_embed``;
+  ``sow_attention``'s per-layer maps against JAX's ``intermediates``;
+  ``remat`` giving the gradients (dropout on) of the plain forward;
+  ``redraw_projections``' distribution (rows orthogonal, norms as
+  ``orthogonal_gaussian_matrix``'s, each layer distinct);
 - ``preprocess_scbert`` and the gene2vec vocabulary (the port's copy
   byte-equal to the JAX asset); ``orthogonal_gaussian_matrix``'s
-  properties (JAX's random stream cannot be reproduced);
-- the branches that wait for a later slice raise ``NotImplementedError``.
+  properties (JAX's random stream cannot be reproduced).
 
 The FAVOR CUDA kernel is held against the plain version in
 ``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py`` at full size.
@@ -292,15 +304,192 @@ def test_bridge_refuses_extra_and_missing_leaves():
         load_performer(ts.scBERT(**kw), missing)
 
 
-def test_unported_performer_options_raise():
-    cases = [lambda: tp.FastAttention(DH, causal=True),
-             lambda: tp.FastAttention(DH, sow_attention=True),
-             lambda: tp.SelfAttention(DIM, HEADS, DH, local_heads=1),
-             lambda: tp.SelfAttention(DIM, HEADS, DH, rotary=True)]
-    for make in cases:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make()
+def test_performer_option_checks():
+    """Local heads beyond the head count raise as in JAX; m = d ln d."""
+    with pytest.raises(ValueError, match="local_heads"):
+        tp.SelfAttention(DIM, HEADS, DH, local_heads=HEADS + 1)
+    with pytest.raises(ValueError, match="local_heads"):
+        jp.SelfAttention(dim=DIM, heads=HEADS, dim_head=DH, local_heads=HEADS + 1).init(
+            jax.random.key(0), jnp.zeros((1, 4, DIM)))
     assert tp.default_nb_features(64) == jp.default_nb_features(64) == 266
+
+
+def _close(got, want, atol=1e-5, rtol=1e-4):
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("n", [33, 300])
+def test_causal_linear_attention_matches_jax(n):
+    q, k, v = _qkv(b=2, h=2, n=n, d=8, seed=n)
+    proj = _proj(12, 8)
+    qf, kf = (np.asarray(jfavor.generalized_kernel_features(jnp.asarray(x), jnp.asarray(proj)))
+              for x in (q, k))
+    want = jfavor.causal_linear_attention(jnp.asarray(qf), jnp.asarray(kf), jnp.asarray(v))
+    _close(favor.causal_linear_attention(*_t(qf, kf, v)), want)
+
+
+def test_implicit_attention_weights_matches_jax():
+    rng = np.random.default_rng(12)
+    qf, kf = (rng.uniform(0, 1, (2, 3, 20, 6)).astype(np.float32) for _ in range(2))
+    qf[0, 1, 4] = 0.0                               # a row of zero scores: denom 1
+    want = jfavor.implicit_attention_weights(jnp.asarray(qf), jnp.asarray(kf))
+    got = favor.implicit_attention_weights(*_t(qf, kf))
+    _close(got, want)
+    assert float(got[0, 1, 4].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["half", "interleaved"])
+def test_rotary_conventions_match_jax(kind):
+    q, k, _ = _qkv(b=1, h=2, n=23, d=8, seed=13)
+    if kind == "half":
+        jf, tf = (jp.sinusoidal_rotary_freqs(23, 8), tp.sinusoidal_rotary_freqs(23, 8))
+        want = jp.apply_rotary_pos_emb(jnp.asarray(q), jnp.asarray(k), jf)
+        got = tp.apply_rotary_pos_emb(*_t(q, k), tf)
+    else:
+        jf, tf = (jp.interleaved_rotary_angles(23, 8), tp.interleaved_rotary_angles(23, 8))
+        want = jp.apply_rotary_interleaved(jnp.asarray(q), jnp.asarray(k), jf)
+        got = tp.apply_rotary_interleaved(*_t(q, k), tf)
+    _close(tf, jf, atol=1e-6)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("causal,masked,rel_pos", [(False, False, True), (True, False, True),
+                                                   (False, True, False), (True, True, True)])
+def test_local_block_attention_matches_jax_and_oracle(causal, masked, rel_pos):
+    from gridnext_tpu.compat.local_attention_ref import local_attention_ref
+
+    q, k, v = _qkv(b=2, h=2, n=37, d=8, seed=14)
+    mask = None
+    if masked:
+        mask = np.random.default_rng(15).random((2, 37)) > 0.3
+        mask[0, :9] = False              # with causal: rows whose keys are all masked
+        mask[1, 20:30] = False
+    args = dict(window=8, causal=causal, rel_pos=rel_pos)
+    want = jp.local_block_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    mask=None if mask is None else jnp.asarray(mask), **args)
+    got = tp.local_block_attention(*_t(q, k, v), mask=None if mask is None
+                                   else torch.from_numpy(mask), **args)
+    _close(got, want)
+    _close(got, local_attention_ref(q, k, v, mask=mask, **args))
+    if masked and causal:
+        assert float(got[0, :, :9].abs().max()) == 0.0     # all-masked rows give zeros
+
+
+def test_self_attention_local_and_rotary_heads_match_jax():
+    x = _self_attention_input(n=37, seed=16)
+    mask = np.ones((2, 37), bool)
+    mask[1, 30:] = False
+    kw = dict(local_window_size=8, nb_features=M, generalized_attention=True, qkv_bias=True)
+    jm = jp.SelfAttention(dim=DIM, heads=4, dim_head=8, local_heads=2, rotary=True, **kw)
+    variables = _perturbed(jm.init(jax.random.key(8), jnp.asarray(x)))
+    want = jm.apply(variables, jnp.asarray(x), mask=jnp.asarray(mask))
+    tm = load_performer(tp.SelfAttention(DIM, 4, 8, local_heads=2, rotary=True, **kw),
+                        variables)
+    with torch.no_grad():
+        _assert_rel(tm(torch.from_numpy(x), mask=torch.from_numpy(mask)), want)
+    local_only = tp.SelfAttention(DIM, 2, 8, local_heads=2)
+    assert local_only.fast_attention is None
+
+
+@pytest.mark.parametrize("kind", ["causal", "scalenorm", "rezero", "causal_noproj"])
+def test_performer_variants_match_jax(kind):
+    x = _self_attention_input(n=40, seed=17)
+    kw = dict(nb_features=M, generalized_attention=kind != "causal_noproj",
+              causal=kind.startswith("causal"), no_projection=kind == "causal_noproj",
+              use_scalenorm=kind == "scalenorm", use_rezero=kind == "rezero")
+    jm = jp.Performer(dim=DIM, depth=1, heads=HEADS, dim_head=DH, **kw)
+    variables = _perturbed(jm.init(jax.random.key(9), jnp.asarray(x)))
+    want = jm.apply(variables, jnp.asarray(x))
+    tm = load_performer(tp.Performer(DIM, 1, HEADS, DH, **kw), variables)
+    with torch.no_grad():
+        _assert_rel(tm(torch.from_numpy(x)), want)
+
+
+@pytest.mark.parametrize("kind", ["absolute", "gene2vec", "tied"])
+def test_performer_lm_embeddings_match_jax(kind):
+    tokens = np.random.default_rng(18).integers(0, 7, (2, 30))
+    g2v = np.random.default_rng(19).standard_normal((GENES - 1, DIM)).astype(np.float32)
+    kw = dict(num_tokens=7, max_seq_len=GENES, dim=DIM, depth=1, heads=HEADS, dim_head=DH,
+              nb_features=M, generalized_attention=True, tie_embed=kind == "tied",
+              pos_emb_kind={"tied": "none"}.get(kind, kind),
+              g2v_weights=g2v if kind == "gene2vec" else None)
+    jm = jp.PerformerLM(**kw)
+    variables = _perturbed(jm.init(jax.random.key(10), jnp.asarray(tokens)))
+    want = jm.apply(variables, jnp.asarray(tokens))
+    tm = load_performer(tp.PerformerLM(**kw), variables)
+    assert (tm.to_out is None) == (kind == "tied")
+    with torch.no_grad():
+        _assert_rel(tm(torch.from_numpy(tokens)), want)
+        if kind == "absolute":
+            enc = jm.apply(variables, jnp.asarray(tokens), return_encodings=True)
+            _assert_rel(tm(torch.from_numpy(tokens), return_encodings=True), enc)
+
+
+def test_sow_attention_matches_jax():
+    x = _expression(b=2)
+    kw = dict(n_genes=GENES, dim=DIM, depth=1, heads=HEADS, dim_head=DH, nb_features=M,
+              n_classes=3, generalized_attention=True, sow_attention=True)
+    jm = js.scBERT(**kw)
+    variables = _perturbed({k: v for k, v in jm.init(jax.random.key(11), jnp.asarray(x)).items()
+                            if k != "intermediates"})
+    want, inter = jm.apply(variables, jnp.asarray(x), mutable=["intermediates"])
+    tm = load_performer(ts.scBERT(**kw), variables)
+    with torch.no_grad():
+        _assert_rel(tm(torch.from_numpy(x)), want)
+    perf = inter["intermediates"]["performer_lm"]["performer"]
+    for i, attn in enumerate(tm.performer_lm.performer.attns):
+        jmap = perf[f"layers_{i}_attn"]["fast_attention"]["attention"][0]
+        assert attn.fast_attention.attention.shape == (2, GENES + 1, GENES + 1)
+        _close(attn.fast_attention.attention, jmap)
+
+
+def test_remat_gives_the_plain_gradients():
+    """Under ``remat`` the backward reruns each block; the dropout masks
+    are drawn again from the rewound generator, so the gradients equal the
+    plain forward's."""
+    from gridnext_tpu_torch.models.layers import set_dropout_generator
+
+    tokens = torch.from_numpy(np.random.default_rng(20).integers(0, 7, (2, 30)))
+    grads = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        lm = tp.PerformerLM(num_tokens=7, max_seq_len=GENES, dim=DIM, depth=DEPTH,
+                            heads=HEADS, dim_head=DH, nb_features=M, remat=remat,
+                            generalized_attention=True, ff_dropout=0.2, attn_dropout=0.2)
+        set_dropout_generator(lm, torch.Generator().manual_seed(5))
+        lm.train()(tokens).square().mean().backward()
+        grads.append({n: p.grad.clone() for n, p in lm.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=1e-6, atol=1e-7)
+
+
+def test_redraw_projections_distribution():
+    lm = tp.Performer(DIM, 3, HEADS, DH, nb_features=40, generalized_attention=True)
+    before = [fa.projection.clone() for fa in tp.fast_attentions(lm)]
+    assert tp.redraw_projections(lm, torch.Generator().manual_seed(4)) == 3
+    after = [fa.projection for fa in tp.fast_attentions(lm)]
+    for a, b in zip(before, after):
+        assert b.shape == (40, DH) and not torch.equal(a, b)
+    for i in range(3):
+        for j in range(i):
+            assert not torch.allclose(after[i], after[j])          # each layer its own
+    for w in after:
+        w = w.double()
+        norms = w.norm(dim=1)
+        unit = w / norms[:, None]
+        for start in range(0, 40, DH):
+            blk = unit[start:start + DH]
+            torch.testing.assert_close(blk @ blk.T, torch.eye(len(blk), dtype=torch.float64),
+                                       atol=1e-5, rtol=0)
+        assert norms.std() > 0.1 and abs(norms.mean().item() - (DH - 0.5) ** 0.5) < 0.8
+    for fa in tp.fast_attentions(lm):
+        fa.ortho_scaling = 1                    # as built with ortho_scaling=1
+    tp.redraw_projections(lm, torch.Generator().manual_seed(4))
+    for fa in tp.fast_attentions(lm):
+        torch.testing.assert_close(fa.projection.double().norm(dim=1),
+                                   torch.full((40,), DH ** 0.5, dtype=torch.float64))
 
 
 # -- count preprocessing -----------------------------------------------------------

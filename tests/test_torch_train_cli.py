@@ -6,17 +6,21 @@ tissue ellipses, 3 classes) with unified count caches from its
 ``prepare_count_files``. Each command trains from the port's own
 initialisation; the model directory it writes must be read by the JAX
 package's ``register`` and give exactly the CSV the port's ``register``
-writes (the same labels, byte for byte):
+writes (the same labels, byte for byte), except the scBERT multimodal
+directory, which JAX's command reads through JPEG patches (``ROADMAP.md``
+Queue 3 item 4): its CSV is held against JAX's model on JAX's lossless
+grid, up to near-ties of JAX's logits:
 
-- ``train-count`` (hex), with ``--resume`` after one epoch, and after
-  SIGTERM's guard stops the f stage mid-epoch (exit 75), equal to an
-  uninterrupted two-epoch run (``g_state.msgpack`` bit for bit);
+- ``train-count`` (hex), with ``--resume`` after SIGTERM's guard stops the
+  g stage mid-epoch and after it stops the f stage mid-epoch (exit 75),
+  equal to an uninterrupted two-epoch run (``g_state.msgpack`` bit for
+  bit);
 - ``train-image --f tpu --augment`` on 32-px patches;
 - ``train-mm --count-f mlp --f tpu``, and ``--count-f scbert`` (a tiny
   scBERT) on a cohort named with gene2vec symbols;
 - ``train-image --dense-ingest`` on a square Visium HD lattice;
-- ``--mesh`` and ``--scbert-ckpt`` exit naming the Queue 1 item that
-  ports them.
+- ``--mesh`` exits naming the Queue 1 item that ports it (``train-mm`` and
+  ``pretrain-scbert``).
 """
 
 import json
@@ -55,6 +59,41 @@ def _registers_alike(model, srd, tmp_path, images=None):
     assert len(want.splitlines()) > 20
 
 
+def _registers_like_jax_lossless(model, srd, image, tmp_path):
+    """The port's register CSV names the labels of JAX's model on JAX's
+    lossless grid (the uint8 crops / 255 and JAX's count grid through its
+    scBERT transform) up to near-ties of JAX's logits."""
+    import jax.numpy as jnp
+    from gridnext_tpu import modeldir as jax_modeldir
+    from gridnext_tpu.data import CountGridDataset as JaxCountGridDataset
+    from gridnext_tpu.geometry import pseudo_hex_to_oddr
+    from gridnext_tpu.io import read_positions as jax_read_positions
+    from gridnext_tpu.io.unify import unified_cache_path
+    from gridnext_tpu.pipeline import grid_from_wsi_visium
+    from gridnext_tpu_torch.serving import label_parity_report
+
+    meta, classes, variables = jax_modeldir.load_model_dir(str(model))
+    g = jax_modeldir.mm_model_from_meta(meta, classes)
+    xi = grid_from_wsi_visium(image, srd, patch_size=meta["patch_px"], dtype=np.uint8)
+    xc, _ = JaxCountGridDataset([unified_cache_path(srd)])[0]
+    transform, _ = jax_modeldir.scbert_count_transform([srd], None, meta["scbert_vocab"])
+    logits = np.asarray(g.apply(variables, (jnp.asarray(xi[None].astype(np.float32) / 255.0),
+                                            jnp.asarray(transform(xc)[None])), train=False))[0]
+    want = np.where(xc.sum(-1) > 0, logits.argmax(-1) + 1, 0)
+    cli.main(["register", "--spaceranger", srd, "--model", str(model), "--out",
+              str(tmp_path / "port.csv"), "--device", "cpu", "--images", image])
+    pos = jax_read_positions(srd)
+    got = np.zeros(want.shape, np.int64)
+    with open(tmp_path / "port.csv") as fh:
+        rows = [line.rstrip("\n").split(",") for line in fh][1:]
+    for barcode, annot in rows:
+        x, y = pseudo_hex_to_oddr(int(pos.loc[barcode, "array_col"]),
+                                  int(pos.loc[barcode, "array_row"]))
+        got[y, x] = list(classes).index(annot) + 1
+    label_parity_report(want, got, logits)
+    assert len(rows) == int((want > 0).sum()) > 20
+
+
 def _train(cmd, cohort, out, *extra, images=True):
     argv = [cmd, "--spaceranger", *cohort["dirs"], "--annots", *cohort["annots"],
             "--out", str(out), "--device", "cpu", *extra]
@@ -63,7 +102,9 @@ def _train(cmd, cohort, out, *extra, images=True):
     cli.main(argv)
 
 
-def test_train_count_cli_and_resume(cohort, tmp_path):
+def test_train_count_cli_and_resume(cohort, tmp_path, monkeypatch):
+    from gridnext_tpu_torch.train import loops, preempt
+
     _train("train-count", cohort, tmp_path / "m", "--epochs", "2", images=False)
     meta = json.loads((tmp_path / "m" / "model.json").read_text())
     assert meta["model"] == "GridNetHex+CountMLP" and meta["n_genes"] == 20
@@ -72,8 +113,25 @@ def test_train_count_cli_and_resume(cohort, tmp_path):
     assert set(payload["opt_state"]["inner_states"]) == {"f", "frozen", "g"}
     _registers_alike(tmp_path / "m", cohort["dirs"][0], tmp_path)
 
-    # one epoch, then --resume to two: the uninterrupted run's bits
-    _train("train-count", cohort, tmp_path / "r", "--epochs", "1", images=False)
+    # stopped in g's second epoch, then --resume: the uninterrupted run's bits
+    # (a resume continues the run that wrote the .latest files; g's carries
+    # the f it was trained with)
+    plain, grid_batches = loops._iter_batches, [0]
+
+    def tripping(*args, **kwargs):
+        for batch in plain(*args, **kwargs):
+            if kwargs.get("pad_kind") == "grid":
+                grid_batches[0] += 1
+                if grid_batches[0] == 4:         # epoch 2's second train batch
+                    preempt.active().trigger()
+            yield batch
+
+    monkeypatch.setattr(loops, "_iter_batches", tripping)
+    with pytest.raises(SystemExit) as exit_info:
+        _train("train-count", cohort, tmp_path / "r", "--epochs", "2", images=False)
+    assert exit_info.value.code == 75
+    assert load_checkpoint(tmp_path / "r" / "g_state.msgpack.latest")["epochs_done"] == 1
+    monkeypatch.setattr(loops, "_iter_batches", plain)
     _train("train-count", cohort, tmp_path / "r", "--epochs", "2", "--resume", images=False)
     a = load_checkpoint(tmp_path / "m" / "g_state.msgpack")
     b = load_checkpoint(tmp_path / "r" / "g_state.msgpack")
@@ -158,7 +216,8 @@ def test_train_mm_scbert_cli(tmp_path):
     meta = json.loads((tmp_path / "m" / "model.json").read_text())
     assert meta["count_f"] == "scbert" and meta["scbert_vocab"] == 60
     assert "favor" in load_checkpoint(tmp_path / "m" / "g_state.msgpack")["extra_vars"]
-    _registers_alike(tmp_path / "m", cohort["dirs"][0], tmp_path, cohort["images"][0])
+    _registers_like_jax_lossless(tmp_path / "m", cohort["dirs"][0], cohort["images"][0],
+                                 tmp_path)
 
 
 def test_train_image_dense_ingest_square(tmp_path):
@@ -180,8 +239,13 @@ def test_train_image_dense_ingest_square(tmp_path):
     _registers_alike(tmp_path / "m", cohort["dirs"][0], tmp_path, cohort["images"][0])
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "data=2"], "item 9"),
-                                       (["--scbert-ckpt", "x.pth"], "item 6")])
-def test_unported_training_flags_exit(cohort, tmp_path, flag, item):
+@pytest.mark.parametrize("cmd,item", [("train-mm", "item 9"), ("pretrain-scbert", "item 9")])
+def test_unported_training_flags_exit(cohort, tmp_path, cmd, item):
+    """``--mesh`` exits naming its Queue 1 item (``--scbert-ckpt`` is
+    ported: ``test_torch_pretrain.py``)."""
     with pytest.raises(SystemExit, match=item):
-        _train("train-mm", cohort, tmp_path / "m", "--count-f", "scbert", *flag)
+        if cmd == "train-mm":
+            _train(cmd, cohort, tmp_path / "m", "--count-f", "scbert", "--mesh", "data=2")
+        else:
+            cli.main([cmd, "--spaceranger", *cohort["dirs"], "--out", str(tmp_path / "m"),
+                      "--device", "cpu", "--mesh", "data=2"])
