@@ -239,8 +239,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``register`` of array 0 through the written directory equal to a
     direct forward up to near-ties; every number beside the card's name
     and power limit;
-17. a ``{"kernels": [...]}`` line (FAVOR's row also carries
-    ``launches_pretrain_scbert``, phase 16 (a)'s count), then the last line
+17. the ``evaluate`` and ``distill`` commands, run right after phase 14
+    in its directory (its 4-array cohort, 8,514 annotated spots, 7
+    classes, ``.npy`` slides, and its trained DenseNet-121 directory); the
+    counts of the gather, the corrector and FAVOR set to 0 just before each
+    command and read just after: (a) ``evaluate`` over the 4 arrays, one
+    gather launch and one f call an array, its per-array label grids (taken
+    from ``all_fgd_predictions``) equal to the registrar's labels on the
+    same slides up to ``label_parity_report``'s near-ties, its truth grids
+    equal to the annotations, its accuracy the grids', s per array;
+    ``--tta`` (f run 8 times) and ``--f-only`` on
+    array 0; (b) ``distill`` into the default bf16 ``TpuPatchClassifier``
+    at batch 256 and the 15 % holdout, ``DISTILL_STEPS`` = 300 steps (cut
+    from 2,000): steps/s and patches/s of the loop, the last 100-step
+    chunk's loss below the first, the recorded ``label_agreement`` equal to
+    the two registrars' recomputed, 1 + 2 x 4 gather and 2 x 4
+    labels-corrector launches; ``register`` of the student directory (the
+    CSVs its registrar's labels up to near-ties) and ``evaluate`` of both
+    directories (consensus); (c) ``distill`` of phase 13 (a)'s scBERT (depth
+    ``MM_STEP_DEPTH`` = 2) + DenseNet-121 directory over array 0's
+    16,906-gene cache, 50 steps of batch 64 (cut from 2,000 of 256): FAVOR's
+    count 2 x the teacher forwards (steps + the holdout's batches of 64), the
+    written directory ``count_f: "mlp"`` with its image f and corrector
+    bit-equal to the teacher's; the teacher on a 64-row chunk of the pool
+    through the FAVOR kernel and through its plain version (its first
+    layer's attention within FAVOR's tolerance of the float64 value on
+    the 8 sequences farthest from the plain version, its logits within
+    1e-3),
+    and one 256-row chunk (the default ``--batch-size``, which also sets
+    the holdout chunk) through the kernel, its peak memory and its first
+    64 rows against the plain route; ``evaluate`` of teacher + student over
+    array 0 (1,248 FAVOR calls); every number beside the card's name and
+    power limit;
+18. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+    ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
+    labels-corrector and FAVOR rows ``launches_evaluate`` and
+    ``launches_distill``, phase 17's counts), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -1295,6 +1329,25 @@ def plain_favor(performer, favor_cuda):
         performer.fused_generalized_linear_attention = kernel
 
 
+def count_f_routes(torch, count_f, chunk, depth: int):
+    """An scBERT count f's logits on ``chunk`` through the FAVOR kernel and
+    through its plain version, without gradients: ``(kernel, plain)``.
+    Fails unless the kernel route launched FAVOR ``depth`` times and the
+    plain route not at all."""
+    from gridnext_tpu_torch.models import performer
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    with torch.no_grad():
+        before = favor_cuda.launches
+        got = count_f(chunk)
+        with plain_favor(performer, favor_cuda):
+            want = count_f(chunk)
+    if favor_cuda.launches != before + depth:
+        raise AssertionError(f"the count f launched FAVOR {favor_cuda.launches - before} "
+                             f"times over the two routes, not {depth}")
+    return got, want
+
+
 def device_total_ms(prof) -> float:
     """Device time of every CUDA kernel in a torch.profiler trace, ms (the
     ``ProfilerStep*`` rows of a scheduled trace span the steps' kernels and
@@ -1398,18 +1451,12 @@ def phase_mm(torch, slides, positions, masks, port, card):
     # the count f's logits on three 8-cell chunks of the tissue
     cells = xc[oy_t, ox_t]
     count_err, count_scale, wants = 0.0, 0.0, []
-    with torch.no_grad():
-        for start in (0, len(oy) // 2, len(oy) - COUNT_CHUNK):
-            chunk = cells[start:start + COUNT_CHUNK]
-            before = favor_cuda.launches
-            got = model.count_classifier(chunk)
-            with plain_favor(performer, favor_cuda):
-                want = model.count_classifier(chunk)
-            if favor_cuda.launches != before + MM_DEPTH:
-                raise AssertionError("the count chunks did not take one route each")
-            count_err = max(count_err, float((got - want).abs().max().item()))
-            count_scale = max(count_scale, float(want.abs().max().item()))
-            wants.append(want)
+    for start in (0, len(oy) // 2, len(oy) - COUNT_CHUNK):
+        got, want = count_f_routes(torch, model.count_classifier,
+                                   cells[start:start + COUNT_CHUNK], MM_DEPTH)
+        count_err = max(count_err, float((got - want).abs().max().item()))
+        count_scale = max(count_scale, float(want.abs().max().item()))
+        wants.append(want)
     if not count_err <= 1e-3:
         raise AssertionError(f"count f logits differ from the plain route by {count_err}")
     wants = torch.cat(wants)
@@ -2848,13 +2895,15 @@ def favor_gradient_gate(torch, model, loss_of, dev, what: str, calls: int) -> di
 
 def phase_train(torch, slides, port, card, tmp, mm):
     """Phase 14: training at full width (module docstring), the cohort's
-    slides ``.npy`` files (decode swapped for np.load)."""
+    slides ``.npy`` files (decode swapped for np.load). Returns the cohort
+    (``dirs``, ``npys``, ``csvs``, ``masks``, ``truth``) and the trained
+    directory (``model``) for phase 17."""
     from gridnext_tpu_torch import ingest
 
     decode = ingest.decode_slide
     ingest.decode_slide = np.load
     try:
-        train_phase(torch, slides, port, card, tmp, mm)
+        return train_phase(torch, slides, port, card, tmp, mm)
     finally:
         ingest.decode_slide = decode
 
@@ -3121,6 +3170,8 @@ def train_phase(torch, slides, port, card, tmp, mm):
         prev = t
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)} s), peak device "
         f"memory {peak:.2f} GiB [{card}]")
+    return {"dirs": dirs, "npys": npys, "csvs": csvs, "masks": masks, "truth": truth,
+            "model": out}
 
 
 # -- phase 15: the count data tier ------------------------------------------------
@@ -3729,6 +3780,393 @@ def phase_pretrain(torch, card, tmp, dirs, dev) -> dict:
     return out
 
 
+# -- phase 17: the evaluate and distill commands ------------------------------------
+
+DISTILL_STEPS = 300           # (b)'s distill --steps (default 2,000; cut)
+MM_DISTILL_STEPS, MM_DISTILL_BATCH = 50, 64   # (c)'s --steps / --batch-size (2,000 / 256; cut)
+DISTILL_BATCH = 256           # distill's default --batch-size (also its scBERT holdout chunk)
+
+
+def tree_equal(a, b) -> bool:
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(tree_equal(a[k], b[k]) for k in a))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def favor_float64(q, k, v, proj):
+    """The plain ReLU-FAVOR attention (``favor_attention_plain``'s steps)
+    in float64: the exact value both float32 routes are held to."""
+    from gridnext_tpu_torch.ops.favor import generalized_kernel_features
+
+    q, k, v, proj = (t.double() for t in (q, k, v, proj))
+    qf = generalized_kernel_features(q, proj)
+    kf = generalized_kernel_features(k, proj)
+    d_inv = 1.0 / (qf * kf.sum(dim=-2)[..., None, :]).sum(-1)
+    return (qf @ (kf.transpose(-1, -2) @ v)) * d_inv[..., None]
+
+
+def teacher_routes(torch, performer, favor_cuda, teacher, pool, card) -> dict:
+    """(c)'s scBERT teacher on its own pool, where the distill command runs
+    it: a ``MM_DISTILL_BATCH``-row chunk through the FAVOR kernel and its
+    plain version (the logits within 1e-3, as phase 9's count chunks; the
+    first layer's attention within FAVOR's tolerance of its float64 value
+    on the 8 sequences where the kernel departs most from the float32
+    plain version, that departure a reading), then a ``DISTILL_BATCH``-row
+    chunk through the kernel: its time, its peak device memory and its
+    first rows against the plain route, or the out-of-memory error it
+    raised."""
+    kernel, first = performer.fused_generalized_linear_attention, {}
+
+    def first_call(q, k, v, proj):
+        out = kernel(q, k, v, proj)
+        if not first:
+            first.update(q=q, k=k, v=v, proj=proj, out=out)
+        return out
+
+    torch.cuda.empty_cache()
+    performer.fused_generalized_linear_attention = first_call
+    try:
+        got, want = count_f_routes(torch, teacher, pool[:MM_DISTILL_BATCH], MM_STEP_DEPTH)
+    finally:
+        performer.fused_generalized_linear_attention = kernel
+    q, k, v, proj, out = (first.pop(n) for n in ("q", "k", "v", "proj", "out"))
+    plain = favor_cuda.favor_attention_plain(q, k, v, proj)
+    diff = (out - plain).abs()
+    gap = diff / (FAVOR_ATOL + FAVOR_RTOL * plain.abs())
+    seqs = gap.flatten(1).amax(1).topk(min(8, len(gap))).indices
+    exact = favor_float64(q[seqs], k[seqs], v[seqs], proj)
+
+    def vs_exact(x):
+        return float(((x[seqs].double() - exact).abs()
+                      / (FAVOR_ATOL + FAVOR_RTOL * exact.abs())).max().item())
+
+    res = {"attention_max_abs_err": float(diff.max().item()),
+           "attention_worst": float(gap.max().item()),
+           "kernel_vs_float64": vs_exact(out), "plain_vs_float64": vs_exact(plain),
+           "scale": float(exact.abs().max().item()),
+           "logits_max_abs_err": float((got - want).abs().max().item()),
+           "logits_spread": float((want.amax(0) - want.amin(0)).max().item())}
+    shape = tuple(q.shape)
+    del q, k, v, out, plain, diff, gap, exact, got
+    if not (res["kernel_vs_float64"] <= 1.0 and res["logits_max_abs_err"] <= 1e-3
+            and res["logits_spread"] > 1e-2):
+        raise AssertionError(f"(c): the teacher's kernel route against its plain route "
+                             f"at {shape}: {res}")
+    log(f"(c) the teacher on {MM_DISTILL_BATCH} rows of its pool, kernel vs plain route: "
+        f"first layer's attention at {shape} (largest |value| {res['scale']:.3g}): against "
+        f"float64 on the 8 sequences farthest apart, kernel {res['kernel_vs_float64']:.3g} x, "
+        f"float32 plain {res['plain_vs_float64']:.3g} x FAVOR's tolerance (rtol {FAVOR_RTOL}, "
+        f"atol {FAVOR_ATOL}; <= 1 for the kernel); kernel vs float32 plain max abs err "
+        f"{res['attention_max_abs_err']:.3g}, {res['attention_worst']:.3g} x the tolerance; "
+        f"logits max abs err {res['logits_max_abs_err']:.3g} (<= 1e-3; spread across the "
+        f"rows {res['logits_spread']:.3g}) [{card}]")
+
+    rows = min(DISTILL_BATCH, len(pool))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            big = teacher(pool[:rows])
+        torch.cuda.synchronize()
+        res.update(big_rows=rows, big_s=time.perf_counter() - t0,
+                   big_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   resident_gib=resident,
+                   big_max_abs_err=float((big[:len(want)] - want).abs().max().item()))
+        del big
+    except torch.cuda.OutOfMemoryError as e:
+        res.update(big_rows=rows, big_oom=str(e).splitlines()[0], resident_gib=resident)
+        log(f"(c) the teacher on {rows} rows (distill's default --batch-size): out of device "
+            f"memory with {resident:.2f} GiB resident before it: {res['big_oom']} [{card}]")
+        return res
+    if not res["big_max_abs_err"] <= 1e-3:
+        raise AssertionError(f"(c): the teacher's first {len(want)} of {rows} rows differ "
+                             f"from the plain route by {res['big_max_abs_err']}")
+    log(f"(c) the teacher on {rows} rows (distill's default --batch-size, its holdout chunk): "
+        f"{res['big_s']:.3f} s, peak device memory {res['big_peak_gib']:.2f} GiB "
+        f"({resident:.2f} GiB resident before it); its first {len(want)} rows within "
+        f"{res['big_max_abs_err']:.3g} of the plain route's (<= 1e-3) [{card}]")
+    return res
+
+
+def phase_eval_distill(torch, port, card, tmp, cohort, mm, dev) -> dict:
+    """Phase 17 (module docstring) in phase 14's cohort and directory, the
+    slides ``.npy`` files (decode swapped for np.load). Returns each
+    kernel's launches on the evaluate and the distill commands' paths."""
+    from gridnext_tpu_torch import ingest
+
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        return eval_distill_phase(torch, port, card, tmp, cohort, mm, dev)
+    finally:
+        ingest.decode_slide = decode
+
+
+def eval_distill_phase(torch, port, card, tmp, cohort, mm, dev) -> dict:
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.data.datasets import to_device_slide
+    from gridnext_tpu_torch.io.unify import unified_cache_path
+    from gridnext_tpu_torch.models import gridnet, performer
+    from gridnext_tpu_torch.models.scbert import load_gene2vec_names
+    from gridnext_tpu_torch.ops import favor_cuda
+    from gridnext_tpu_torch.train import distill
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    dirs, npys, csvs, masks, truth, model_dir = (cohort[k] for k in (
+        "dirs", "npys", "csvs", "masks", "truth", "model"))
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    n_spots = [int(m.sum()) for m in masks]
+    kernels = ("gather_patches", "fused_hex_corrector", "fused_hex_corrector_labels",
+               "fused_generalized_linear_attention")
+    totals = {"evaluate": dict.fromkeys(kernels, 0), "distill": dict.fromkeys(kernels, 0)}
+    t_phase = time.perf_counter()
+    laps = {}
+    log(f"== phase 17: the evaluate and distill commands over phase 14's cohort "
+        f"({len(dirs)} arrays, {sum(n_spots)} annotated spots) and trained DenseNet-121 "
+        f"directory (TF32 off)")
+
+    def counted(argv):
+        """``cli.main(argv)`` with the counts of the gather, the corrector and
+        FAVOR set to 0 just before and read just after (added to the
+        command's totals): (result, wall s, launches)."""
+        torch.cuda.synchronize()
+        gather.launches = favor_cuda.launches = 0
+        for k in corr.launches:
+            corr.launches[k] = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"gather_patches": gather.launches, **corr.launches,
+               "fused_generalized_linear_attention": favor_cuda.launches}
+        for k in kernels:
+            if argv[0] in totals:
+                totals[argv[0]][k] += got[k]
+        return res, wall, got
+
+    def check(name, got, want):
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"{name}: launches {got}, want {want}")
+
+    f_calls, eval_labels = [], []
+    patch_predictions = gridnet._GridNetBase.patch_predictions
+    fgd_predictions = evaluate.all_fgd_predictions
+
+    def counted_f(self, x):
+        f_calls.append(1)
+        return patch_predictions(self, x)
+
+    def kept_labels(*args, **kwargs):
+        """``all_fgd_predictions``, keeping each array's truth grid and
+        evaluate's own labels (its foreground argmax) as a grid."""
+        out = fgd_predictions(*args, **kwargs)
+        y_true, y_pred, _, grids = out
+        (y_grid, _), = grids
+        pred = np.zeros(y_grid.shape, np.int64)
+        pred.reshape(-1)[y_grid.reshape(-1) > 0] = y_pred + 1
+        eval_labels.append((y_grid, pred))
+        return out
+
+    gridnet._GridNetBase.patch_predictions = counted_f
+    evaluate.all_fgd_predictions = kept_labels
+    try:
+        # (a) evaluate over the 4 arrays, then --tta and --f-only on one each
+        base = ["--spaceranger", *dirs, "--annots", *csvs, "--images", *npys]
+        f_calls.clear()
+        m_a, wall, got = counted(["evaluate", "--model", model_dir, *base,
+                                  "--out", os.path.join(tmp, "eval_a.json")])
+        check("(a) evaluate", got, {"gather_patches": len(dirs), "fused_hex_corrector_labels": 0,
+                                    "fused_generalized_linear_attention": 0})
+        if len(f_calls) != len(dirs) or len(eval_labels) != len(dirs):
+            raise AssertionError(f"(a): f ran {len(f_calls)} times, all_fgd_predictions "
+                                 f"{len(eval_labels)} times over {len(dirs)} arrays")
+        # evaluate's labels against the registrar's on the same slides
+        meta, classes_m, variables = from_jax.load_model_dir(model_dir)
+        reg = modeldir.image_registrar_from_meta(meta, classes_m, variables, device=dev)
+        correct = n_right = flips = 0
+        for i, (npy, srd, mask, tr, (y_grid, pred)) in enumerate(
+                zip(npys, dirs, masks, truth, eval_labels)):
+            fg = mask > 0
+            if not np.array_equal(y_grid, tr):
+                raise AssertionError(f"(a): evaluate's truth grid of array {i} differs from "
+                                     f"the annotations")
+            wsi = to_device_slide(np.load(npy), dev)
+            pos = io.read_positions(srd)
+            labels = reg(wsi, pos)
+            logits, _ = reg.register_logits(wsi, pos)
+            del wsi
+            flips += serving.label_parity_report(np.where(fg, labels, 0), pred, logits)
+            correct += int((labels[fg] == tr[fg]).sum())
+            n_right += int((pred[fg] == tr[fg]).sum())
+        n_fg = sum(n_spots)
+        if m_a["n_foreground_spots"] != n_fg or abs(m_a["accuracy"] - n_right / n_fg) > 1e-12:
+            raise AssertionError(f"(a): evaluate's accuracy {m_a['accuracy']} over "
+                                 f"{m_a['n_foreground_spots']} spots; its labels' "
+                                 f"{n_right / n_fg} over {n_fg}")
+        log(f"(a) evaluate over {len(dirs)} arrays ({n_fg} spots): {wall:.2f} s, "
+            f"{wall / len(dirs):.2f} s per array, accuracy {m_a['accuracy']:.4f}; its labels "
+            f"equal to the registrar's up to {flips} near-tie flips (the registrar's accuracy "
+            f"{correct / n_fg:.4f}), macro AUROC {m_a['macro_auroc']:.4f}, macro AUPRC "
+            f"{m_a['macro_auprc']:.4f}; launches {json.dumps(got)} [{card}]")
+        one = ["--spaceranger", dirs[0], "--annots", csvs[0], "--images", npys[0]]
+        walls = {}
+        for flag, want_f in (("--tta", 8), ("--f-only", 1)):
+            f_calls.clear()
+            m, walls[flag], got = counted(["evaluate", "--model", model_dir, *one, flag,
+                                           "--out", os.path.join(tmp, f"eval{flag}.json")])
+            check(f"(a) {flag}", got, {"gather_patches": 1})
+            if len(f_calls) != want_f:
+                raise AssertionError(f"(a) {flag}: f ran {len(f_calls)} times, want {want_f}")
+            log(f"(a) evaluate {flag} of array 0 ({n_spots[0]} spots): {walls[flag]:.2f} s, "
+                f"f run {len(f_calls)} times, accuracy {m['accuracy']:.4f} [{card}]")
+    finally:
+        gridnet._GridNetBase.patch_predictions = patch_predictions
+        evaluate.all_fgd_predictions = fgd_predictions
+    laps["(a)"] = time.perf_counter()
+
+    # (b) distill the trained directory into the default bf16 student
+    timed = {}
+    loop = distill.distill_patch_classifier
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed.update(s=time.perf_counter() - t0, losses=out[1], steps=kwargs["steps"],
+                     batch=kwargs["batch_size"], pool=len(args[2]), teacher=args[0],
+                     teacher_inputs=kwargs.get("teacher_inputs"))
+        return out
+
+    student_dir = os.path.join(tmp, "model_distilled")
+    distill.distill_patch_classifier = timed_loop
+    try:
+        info, wall, got = counted(["distill", "--model", model_dir, "--spaceranger", *dirs,
+                                   "--images", *npys, "--out", student_dir,
+                                   "--steps", str(DISTILL_STEPS)])
+    finally:
+        distill.distill_patch_classifier = loop
+    check("(b) distill", got, {"gather_patches": 1 + 2 * len(dirs),
+                               "fused_hex_corrector_labels": 2 * len(dirs)})
+    losses = timed["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(b): the distillation loss did not fall: {losses}")
+    s_meta, s_classes, s_vars = from_jax.load_model_dir(student_dir)
+    reg_s = modeldir.image_registrar_from_meta(s_meta, s_classes, s_vars, device=dev)
+    agrs, student_labels = [], []
+    for npy, srd in zip(npys, dirs):
+        wsi = to_device_slide(np.load(npy), dev)
+        pos = io.read_positions(srd)
+        labels_s = reg_s(wsi, pos)
+        agrs.append(distill.label_agreement(reg(wsi, pos), labels_s))
+        student_labels.append((labels_s, reg_s.register_logits(wsi, pos)[0]))
+        del wsi
+    if abs(float(np.mean(agrs)) - info["label_agreement"]) > 1e-12:
+        raise AssertionError(f"(b): recorded label agreement {info['label_agreement']}, "
+                             f"the registrars' {float(np.mean(agrs))}")
+    rate = timed["steps"] / timed["s"]
+    log(f"(b) distill {meta['model']} -> {s_meta['model']} (bf16, stages "
+        f"{s_meta['tpu_f']['stages']}): {wall:.2f} s; the loop {timed['s']:.2f} s over "
+        f"{timed['pool']} patches, {rate:.2f} steps/s, {rate * timed['batch']:.1f} patches/s "
+        f"at batch {timed['batch']}; chunk losses {[round(v, 5) for v in losses]}; holdout "
+        f"patch agreement {info['patch_agreement']:.4f}, label agreement "
+        f"{info['label_agreement']:.4f} (per array {[round(a, 4) for a in agrs]}, equal to "
+        f"the registrars'); launches {json.dumps(got)} [{card}]")
+    # register reads the student directory; evaluate scores both (consensus)
+    out_csv = os.path.join(tmp, "distilled_csv")
+    counted(["register", "--model", student_dir, "--spaceranger", *dirs, "--images", *npys,
+             "--out", out_csv])
+    flips = 0
+    for i, (mask, (labels_s, logits_s)) in enumerate(zip(masks, student_labels)):
+        grid, n_rows = loupe_grid(os.path.join(out_csv, f"slide{i}_loupe.csv"), mask.shape,
+                                  classes)
+        if n_rows != n_spots[i]:
+            raise AssertionError(f"(b) register: {n_rows} rows for {n_spots[i]} spots")
+        flips += serving.label_parity_report(labels_s, grid, logits_s)
+    m_b, wall, got = counted(["evaluate", "--model", model_dir, student_dir, *base,
+                              "--out", os.path.join(tmp, "eval_b.json")])
+    check("(b) evaluate", got, {"gather_patches": 2 * len(dirs)})
+    log(f"(b) register of the student directory: the CSVs name its registrar's labels up to "
+        f"{flips} near-tie flips; evaluate of teacher + student: {wall:.2f} s, accuracy "
+        f"teacher {m_b['models'][model_dir]['accuracy']:.4f}, student "
+        f"{m_b['models'][student_dir]['accuracy']:.4f}, consensus "
+        f"{m_b['consensus']['accuracy']:.4f} [{card}]")
+    laps["(b)"] = time.perf_counter()
+
+    # (c) an scBERT + DenseNet-121 multimodal directory (phase 13 (a)'s: its
+    # scBERT cut to MM_STEP_DEPTH layers) over array 0's 16,906-gene cache
+    srd = dirs[0]
+    pos = io.read_positions(srd)
+    keep = pos["in_tissue"] == 1
+    y, x = np.divmod(np.flatnonzero(keep), geometry.VISIUM_W_ST)
+    ids = [f"ENSG{i:011d}" for i in range(MM_VOCAB)]
+    counts = mm["raw"][y, x].T.astype(np.int64)                # (genes, spots)
+    write_unified_cache(unified_cache_path(srd), ids,
+                        [f"{c}_{r}" for c, r in zip(pos["array_col"][keep],
+                                                    pos["array_row"][keep])], counts)
+    write_mex(os.path.join(srd, "outs", "filtered_feature_bc_matrix"), ids,
+              load_gene2vec_names()[:MM_VOCAB], [b for b, k in zip(pos.barcodes, keep) if k],
+              counts)
+    meta_c = {**mm["meta"], "genes": ids, "n_genes": MM_VOCAB, "scbert_depth": MM_STEP_DEPTH}
+    vars_c = scbert_depth_cut(mm["variables"], MM_STEP_DEPTH)
+    dir_c = os.path.join(tmp, "model_mm_scbert")
+    from_jax.save_model_dir(dir_c, meta_c, vars_c)
+    student_c = os.path.join(tmp, "model_mm_distilled")
+    timed.clear()
+    distill.distill_patch_classifier = timed_loop
+    try:
+        info_c, wall, got = counted(["distill", "--model", dir_c, "--spaceranger", srd,
+                                     "--out", student_c, "--steps", str(MM_DISTILL_STEPS),
+                                     "--batch-size", str(MM_DISTILL_BATCH)])
+    finally:
+        distill.distill_patch_classifier = loop
+    n_items = int(keep.sum())
+    n_hold = max(1, int(n_items * 0.15))
+    forwards = MM_DISTILL_STEPS + -(-n_hold // MM_DISTILL_BATCH)   # the holdout by batches
+    check("(c) distill", got, {"gather_patches": 0,
+                               "fused_generalized_linear_attention": MM_STEP_DEPTH * forwards})
+    c_meta, _, c_vars = from_jax.load_model_dir(student_c)
+    if c_meta["count_f"] != "mlp" or "favor" in c_vars:
+        raise AssertionError(f"(c): count_f {c_meta['count_f']}, collections {sorted(c_vars)}")
+    for coll in ("params", "batch_stats"):
+        for key in ("image_classifier", "corrector"):
+            if not tree_equal(c_vars[coll][key], vars_c[coll][key]):
+                raise AssertionError(f"(c): {coll}/{key} differs from the teacher's")
+    log(f"(c) distill scBERT (depth {MM_STEP_DEPTH}, {MM_VOCAB} genes) -> CountMLP over "
+        f"{n_items} spots ({n_hold} held out): {wall:.2f} s, the loop {timed['s']:.2f} s "
+        f"({MM_DISTILL_STEPS / timed['s']:.2f} steps/s at batch {MM_DISTILL_BATCH}), "
+        f"chunk losses {[round(v, 5) for v in timed['losses']]}, count-f agreement "
+        f"{info_c['count_f_agreement']:.4f}; {got['fused_generalized_linear_attention']} FAVOR "
+        f"calls = {MM_STEP_DEPTH} x {forwards} teacher forwards; image f and corrector "
+        f"bit-equal to the teacher's [{card}]")
+    teacher_c = teacher_routes(torch, performer, favor_cuda, timed["teacher"],
+                               timed["teacher_inputs"], card)
+    timed.pop("teacher"), timed.pop("teacher_inputs")
+    m_c, wall, got = counted(["evaluate", "--model", dir_c, student_c, "--spaceranger", srd,
+                              "--annots", csvs[0], "--images", npys[0],
+                              "--out", os.path.join(tmp, "eval_c.json")])
+    want_favor = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_STEP_DEPTH
+    check("(c) evaluate", got, {"gather_patches": 2,
+                                "fused_generalized_linear_attention": want_favor})
+    log(f"(c) evaluate of the multimodal teacher + student over array 0: {wall:.2f} s, "
+        f"accuracy teacher {m_c['models'][dir_c]['accuracy']:.4f}, student "
+        f"{m_c['models'][student_c]['accuracy']:.4f}; launches {json.dumps(got)} [{card}]")
+    laps["(c)"] = time.perf_counter()
+    prev, parts = t_phase, []
+    for name, t in laps.items():
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    out = {"phase_s": time.perf_counter() - t_phase, "launches": totals,
+           "teacher": teacher_c}
+    log(f"phase 17: {out['phase_s']:.1f} s ({', '.join(parts)} s) [{card}]")
+    log(json.dumps({"phase17": out}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3811,9 +4249,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_kinds(torch, slides, masks[0], port, card, tmp, mm)
         log(f"phase 13: {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dir, trace
-        phase_train(torch, slides, port, card, tmp, mm)
-    del mm
+    with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dirs, trace
+        cohort = phase_train(torch, slides, port, card, tmp, mm)
+        evald = phase_eval_distill(torch, port, card, tmp, cohort, mm, dev)
+    del mm, cohort
     with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dirs, CSVs
         tier = phase_count_tier(torch, card, tmp, dev)
         pretrain = phase_pretrain(torch, card, tmp, tier["dirs"], dev)
@@ -3844,6 +4283,13 @@ def main() -> int:
     # phase 16's path: pretrain-scbert's FAVOR calls, its counts set to 0 just
     # before the command and read just after
     kernels[-1]["launches_pretrain_scbert"] = pretrain["pretrain"]["favor_launches"]
+    # phase 17's paths: every evaluate and distill command's launches, each
+    # command's counts set to 0 just before it and read just after
+    for k in kernels:
+        if k["name"] in ("gather_patches", "fused_hex_corrector_labels",
+                         "fused_generalized_linear_attention"):
+            for command in ("evaluate", "distill"):
+                k[f"launches_{command}"] = evald["launches"][command][k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,24 @@ writes a Loupe CSV (``Barcode,AARs``).
 * Graph models (``HexGCN``, as ``train-graph`` writes them) register each
   array's in-tissue spots as one hex graph over its MEX counts.
 
+Evaluation (``evaluate``): the JAX package's command on the card. One or
+more trained model directories of any kind ``register`` serves are scored
+over annotated arrays (``--annots``): foreground accuracy, per-class and
+macro AUROC / AUPRC, the classification report and the confusion matrix,
+written as JSON (the metrics in numpy, :mod:`~gridnext_tpu_torch.metrics`);
+several directories also score their consensus (mean softmax).
+``--f-only`` scores f alone, ``--tta`` averages the 8 dihedral
+orientations of each patch, ``--plots`` / ``--maps`` render figures with
+matplotlib (and exit at once where it is missing).
+
+Distillation (``distill``): an image directory's f (DenseNet-121 or
+``TpuPatchClassifier``) distils into a ``TpuPatchClassifier`` student
+(bf16 unless ``--f32``) over a pool of spot patches cropped from the
+slides, the teacher's corrector carried over verbatim; a multimodal
+directory's scBERT count f distils into a stateless ``CountMLP`` on log1p
+counts. The holdout agreement and the registrations' label agreement are
+written into the student directory's ``model.json``.
+
 ``--device`` (default ``cuda``) is where a command runs; ``--device cpu``
 takes the kernels' plain versions. Exits and messages follow the JAX
 package's commands.
@@ -904,6 +922,570 @@ def _cmd_register(args):
     return _register_counts(args, meta, classes, variables)
 
 
+# -- evaluation ----------------------------------------------------------------------
+
+
+def _array_names(spaceranger_dirs):
+    """Per-array output names for map files: colliding basenames (every
+    standard Spaceranger directory is 'outs') get an index prefix."""
+    from gridnext_tpu_torch.io.unify import array_name
+
+    names = [array_name(s) for s in spaceranger_dirs]
+    if len(set(names)) < len(names):
+        names = [f"{i:02d}_{n}" for i, n in enumerate(names)]
+    return names
+
+
+def _evaluate_graph(meta, classes, variables, args):
+    """HexGCN directories: the annotated cohort as one hex graph (every
+    in-tissue spot a node; metrics over the annotated ones), with per-array
+    label and softmax grids for ``--maps`` (node outputs scattered back onto
+    the odd-right lattice)."""
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.data.graph_data import visium_to_graphdata
+    from gridnext_tpu_torch.geometry import VISIUM_H_ST, VISIUM_W_ST, pseudo_hex_to_oddr
+    from gridnext_tpu_torch.modeldir import graph_model_from_meta, validate_graph_feature_axis
+
+    if args.f_only:
+        sys.exit("error: --f-only does not apply to graph models (HexGCN "
+                 "has no separate spot classifier f)")
+    if args.tta:
+        sys.exit("error: --tta applies to image-patch models only")
+    if len(args.annots) != len(args.spaceranger):
+        sys.exit("error: need one --annots file per --spaceranger dir")
+    for srd in args.spaceranger:
+        try:
+            validate_graph_feature_axis(meta, srd)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+    gd = visium_to_graphdata(args.spaceranger, annot_files=args.annots, keep_unannotated=True)
+    ds_classes = [str(c) for c in gd["classes"]]
+    unseen = [c for c in ds_classes if c not in classes]
+    if unseen:
+        sys.exit(f"error: annotations contain classes the model never "
+                 f"trained on: {unseen} (model classes: {classes})")
+    remap = np.asarray([classes.index(c) for c in ds_classes])
+
+    model = graph_model_from_meta(meta, classes, variables, device=args.device)
+    x = np.log1p(gd["nodes"]) if meta.get("log1p") else gd["nodes"]
+    with torch.no_grad():
+        logits = model(torch.as_tensor(x, device=args.device),
+                       torch.as_tensor(gd["edges"], device=args.device))
+        smax_all = torch.softmax(logits.float(), -1).cpu().numpy()
+    y_enc = np.asarray(gd["y"])
+    labeled = y_enc >= 0
+    if not labeled.any():
+        sys.exit("error: no annotated spots to evaluate")
+    y_true = remap[y_enc[labeled]]
+    smax = smax_all[labeled]
+    y_pred = np.argmax(smax, -1)
+
+    grids = []
+    if args.maps:
+        off = 0
+        for n in gd["n_node"]:
+            n = int(n)
+            pos = gd["pos"][off:off + n]
+            lab = labeled[off:off + n]
+            ox, oy = pseudo_hex_to_oddr(pos[:, 0], pos[:, 1])
+            tg = np.zeros((VISIUM_H_ST, VISIUM_W_ST), np.int64)
+            sg = np.zeros((VISIUM_H_ST, VISIUM_W_ST, len(classes)))
+            tg[oy[lab], ox[lab]] = remap[y_enc[off:off + n][lab]] + 1
+            sg[oy, ox] = smax_all[off:off + n]
+            grids.append((tg, sg))
+            off += n
+    return ("HexGCN", classes, len(args.spaceranger), y_true, y_pred, smax,
+            {"grids": grids, "names": _array_names(args.spaceranger), "hex": True})
+
+
+def _evaluate_one(model_dir, args):
+    """Foreground predictions of one trained model directory over the
+    annotated arrays: ``(model_name, classes, n_arrays, y_true, y_pred,
+    smax, extras)``; image grids are cropped on the device, one gather
+    launch a grid."""
+    import numpy as np
+
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+    from gridnext_tpu_torch.data import (DenseWSIGridDataset, MMStackDataset,
+                                         create_visium_dataset)
+    from gridnext_tpu_torch.evaluate import all_fgd_predictions
+    from gridnext_tpu_torch.modeldir import grid_model_from_meta
+
+    meta, classes, variables = load_model_dir(model_dir)
+    model_name = meta.get("model", "")
+    if model_name == "HexGCN":
+        return _evaluate_graph(meta, classes, variables, args)
+    hd_binning = meta.get("hd_binning")
+    grid_dims = tuple(meta["grid_dims"]) if meta.get("grid_dims") else None
+    mm = model_name in ("GridNetHexMM", "GridNetMM")
+    if mm and args.f_only:
+        # the multimodal patch predictions concatenate both modalities' f
+        # outputs (2C channels), not a per-class softmax
+        sys.exit("error: --f-only is ambiguous for multimodal models "
+                 "(patch predictions concatenate both modalities); "
+                 "evaluate the single-modality models instead")
+    use_image = mm or model_name.endswith(("DenseNet121", "TpuPatchClassifier"))
+    use_count = mm or not use_image
+    if len(args.annots) != len(args.spaceranger):
+        sys.exit("error: need one --annots file per --spaceranger dir")
+    if use_image:
+        _require_one_image_per_dir(args.images, args.spaceranger)
+    if use_count:
+        for srd in args.spaceranger:
+            _validated_count_cache(srd, meta)
+
+    transform = None
+    if use_count:
+        if meta.get("count_f") == "scbert":
+            transform, _ = _scbert_count_transform(args.spaceranger, hd_binning,
+                                                   meta["scbert_vocab"])
+        elif meta.get("log1p"):
+            transform = np.log1p
+
+    if meta.get("dense_ingest") and use_image and grid_dims:
+        # dense-ingest HD models: patch grids tiled off the slides, the labels
+        # riding the image grids
+        ds = DenseWSIGridDataset(args.images, args.spaceranger, args.annots,
+                                 patch_size=meta.get("patch_px", 128), hd_binning=hd_binning,
+                                 grid_dims=grid_dims, device=args.device)
+        if mm:
+            ds = MMStackDataset(ds, create_visium_dataset(
+                args.spaceranger, use_image=False, annot_files=args.annots,
+                hd_binning=hd_binning, grid_dims=grid_dims, minimum_detection_rate=None))
+    else:
+        kw = dict(annot_files=args.annots, hd_binning=hd_binning, grid_dims=grid_dims,
+                  minimum_detection_rate=None, device=args.device)
+        if use_image:
+            kw.update(fullres_image_files=args.images, patch_size_px=meta.get("patch_px", 128),
+                      window_size_px=meta.get("window_px"))
+        ds = create_visium_dataset(args.spaceranger, use_count=use_count, use_image=use_image,
+                                   **kw)
+
+    # the cohort's label encoding (sorted over ITS annotation union) remapped
+    # onto the model's training classes
+    ds_classes = [] if ds.classes is None else [str(c) for c in ds.classes]
+    unseen = [c for c in ds_classes if c not in classes]
+    if unseen:
+        sys.exit(f"error: annotations contain classes the model never "
+                 f"trained on: {unseen} (model classes: {classes})")
+    lut = np.zeros(len(ds_classes) + 1, np.int64)
+    for i, name in enumerate(ds_classes):
+        lut[i + 1] = classes.index(name) + 1
+
+    g = grid_model_from_meta(meta, classes, variables, device=args.device)
+    trues, preds, smaxes, grids = [], [], [], []
+    for i in range(len(ds)):
+        x, y = ds[i]
+        y = lut[np.asarray(y).astype(np.int64)]
+        if mm:
+            xi, xc = x
+            if transform is not None:
+                xc = transform(np.asarray(xc))
+            x = (xi[None], np.asarray(xc)[None])
+        else:
+            if transform is not None:
+                x = transform(np.asarray(x))
+            x = x[None]
+        t, p, sm, gr = all_fgd_predictions((x, y[None]), g, f_only=args.f_only,
+                                           return_grids=True, tta=args.tta)
+        del x
+        trues.append(t)
+        preds.append(p)
+        smaxes.append(sm)
+        if args.maps:
+            grids.extend(gr)
+    y_true = np.concatenate(trues)
+    if not len(y_true):
+        sys.exit("error: no annotated foreground spots to evaluate")
+    return (model_name, classes, len(ds), y_true, np.concatenate(preds),
+            np.concatenate(smaxes),
+            {"grids": grids, "names": _array_names(args.spaceranger),
+             "hex": grid_dims is None})
+
+
+def _fgd_metrics(model_name, classes, n_arrays, y_true, y_pred, smax, f_only=False):
+    """Foreground metrics: accuracy, per-class and macro AUROC / AUPRC
+    (one-vs-rest; None for a class absent or alone), the classification
+    report and the confusion counts."""
+    import numpy as np
+
+    from gridnext_tpu_torch.metrics import (average_precision_score, classification_report,
+                                            confusion_matrix, roc_auc_score)
+
+    n_c = len(classes)
+    auroc, auprc = {}, {}
+    for c in range(n_c):
+        pos = y_true == c
+        if pos.any() and not pos.all():
+            auroc[classes[c]] = float(roc_auc_score(pos, smax[:, c]))
+            auprc[classes[c]] = float(average_precision_score(pos, smax[:, c]))
+        else:
+            auroc[classes[c]] = auprc[classes[c]] = None
+    present_roc = [v for v in auroc.values() if v is not None]
+    present_pr = [v for v in auprc.values() if v is not None]
+    return {
+        "model": model_name, "classes": list(classes), "f_only": bool(f_only),
+        "n_arrays": n_arrays, "n_foreground_spots": int(len(y_true)),
+        "accuracy": float((y_true == y_pred).mean()),
+        "macro_auroc": float(np.mean(present_roc)) if present_roc else None,
+        "macro_auprc": float(np.mean(present_pr)) if present_pr else None,
+        "auroc_per_class": auroc, "auprc_per_class": auprc,
+        "report": classification_report(y_true, y_pred, labels=list(range(n_c)),
+                                        target_names=classes, zero_division=0),
+        "confusion": confusion_matrix(y_true, y_pred, labels=list(range(n_c))).tolist(),
+    }
+
+
+def _save_eval_maps(maps_dir, names, grids, classes, hex_coords):
+    """Per array: the true and predicted label maps (hex-aware scatter) and
+    the misclassification-density heatmap."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import numpy as np
+    from matplotlib import pyplot as plt
+
+    from gridnext_tpu_torch.plotting import misclass_density, plot_label_tensor
+
+    os.makedirs(maps_dir, exist_ok=True)
+    for name, (true_grid, smax_grid) in zip(names, grids):
+        pred_grid = (np.argmax(smax_grid, -1) + 1) * (true_grid > 0)
+        for tag, grid in (("true", true_grid), ("pred", pred_grid)):
+            fig, ax = plt.subplots(figsize=(10, 8))
+            plot_label_tensor(grid, class_names=classes, Visium=hex_coords, ax=ax)
+            fig.savefig(os.path.join(maps_dir, f"{name}_{tag}.png"), dpi=120,
+                        bbox_inches="tight")
+            plt.close(fig)
+        fig, ax = plt.subplots(figsize=(10, 8))
+        im = ax.imshow(misclass_density(smax_grid, true_grid), cmap="magma", vmin=0.0,
+                       vmax=1.0)
+        ax.axis("off")
+        fig.colorbar(im, ax=ax, shrink=0.8, label="1 - p(true class)")
+        fig.savefig(os.path.join(maps_dir, f"{name}_misclass.png"), dpi=120,
+                    bbox_inches="tight")
+        plt.close(fig)
+    print(f"label/misclass maps -> {maps_dir} ({len(names)} arrays x 3)")
+
+
+def _save_eval_plots(plots_dir, y_true, y_pred, smax, classes, prefix=""):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    from gridnext_tpu_torch.plotting import performance_curves, plot_confusion
+
+    os.makedirs(plots_dir, exist_ok=True)
+    fig, _, _, _ = performance_curves(y_true, smax, class_names=classes)
+    fig.savefig(os.path.join(plots_dir, f"{prefix}curves.png"), dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    fig, _ = plot_confusion(y_true, y_pred, class_names=classes)
+    fig.savefig(os.path.join(plots_dir, f"{prefix}confusion.png"), dpi=120,
+                bbox_inches="tight")
+    plt.close(fig)
+    print(f"figures -> {plots_dir}/{prefix}curves.png, {prefix}confusion.png")
+
+
+def _cmd_evaluate(args):
+    """Metrics of trained model(s) over annotated arrays: foreground
+    accuracy, per-class and macro AUROC / AUPRC, the classification report
+    and the confusion matrix, as JSON (``--plots`` / ``--maps``: figures).
+    Several ``--model`` directories also score their consensus (mean
+    softmax, then argmax). Returns the metrics dict."""
+    import json
+
+    import numpy as np
+
+    from gridnext_tpu_torch.serving import resolve_device
+
+    if args.plots or args.maps:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            sys.exit("error: --plots / --maps need matplotlib, which is not installed "
+                     "(evaluate without them writes the metrics JSON alone)")
+    args.device = resolve_device(args.device)
+    per_model = [_evaluate_one(m, args) for m in args.model]
+    if len(per_model) == 1:
+        model_name, classes, n_arrays, y_true, y_pred, smax, extra = per_model[0]
+        metrics = _fgd_metrics(model_name, classes, n_arrays, y_true, y_pred, smax,
+                               f_only=args.f_only)
+        if args.plots:
+            _save_eval_plots(args.plots, y_true, y_pred, smax, classes)
+        if args.maps:
+            _save_eval_maps(args.maps, extra["names"], extra["grids"], classes, extra["hex"])
+    else:
+        families = {"graph" if pm[0] == "HexGCN" else "grid" for pm in per_model}
+        if len(families) > 1:
+            # graph models flatten the foreground in positions-file node
+            # order, grid models in raster order: a mean would mix spots
+            sys.exit("error: consensus cannot mix graph (HexGCN) and grid "
+                     "models -- their foreground orderings differ; "
+                     "evaluate them separately")
+        base = per_model[0]
+        for other in per_model[1:]:
+            if list(other[1]) != list(base[1]):
+                sys.exit(f"error: models disagree on classes: {other[1]} "
+                         f"vs {base[1]} -- consensus needs a shared label "
+                         "space")
+            if not np.array_equal(other[3], base[3]):
+                sys.exit("error: models disagree on the foreground truth "
+                         "vector; evaluate them over the same arrays and "
+                         "annotations")
+        classes, y_true = base[1], base[3]
+        from gridnext_tpu_torch.evaluate import consensus_softmax
+
+        smax_c = consensus_softmax([pm[5] for pm in per_model])
+        pred_c = np.argmax(smax_c, axis=1)
+        metrics = {
+            "models": {m: _fgd_metrics(pm[0], classes, pm[2], pm[3], pm[4], pm[5],
+                                       f_only=args.f_only)
+                       for m, pm in zip(args.model, per_model)},
+            "consensus": _fgd_metrics("consensus(" + "+".join(pm[0] for pm in per_model)
+                                      + ")", classes, base[2], y_true, pred_c, smax_c,
+                                      f_only=args.f_only),
+        }
+        if args.plots:
+            _save_eval_plots(args.plots, y_true, pred_c, smax_c, classes, prefix="consensus_")
+        if args.maps:
+            # consensus maps: the same true grids, the mean softmax of the models
+            extras = [pm[6] for pm in per_model]
+            grids = [(t, np.mean([e["grids"][i][1] for e in extras], axis=0))
+                     for i, (t, _) in enumerate(extras[0]["grids"])]
+            _save_eval_maps(args.maps, extras[0]["names"], grids, classes, extras[0]["hex"])
+
+    with open(args.out, "w") as fh:
+        json.dump(metrics, fh, indent=1)
+    for label, m in ([("", metrics)] if len(per_model) == 1 else
+                     [(f"[{k}] ", v) for k, v in metrics["models"].items()]
+                     + [("[consensus] ", metrics["consensus"])]):
+        print(f"{label}{m['n_foreground_spots']} foreground spots over "
+              f"{m['n_arrays']} arrays: acc {m['accuracy']:.4f}, "
+              f"mAUROC {m['macro_auroc']}, mAUPRC {m['macro_auprc']}")
+    print(f"metrics -> {args.out}")
+    return metrics
+
+
+# -- distillation --------------------------------------------------------------------
+
+
+def _distill_count_mm(args, meta, classes, tvars):
+    """``distill`` of a multimodal directory with an scBERT count f: the
+    count f distils into a stateless ``CountMLP`` on raw log1p counts (the
+    teacher reads gene2vec tokens of the same spots), the image f and the
+    corrector carry over verbatim, and a multimodal directory with
+    ``count_f: "mlp"`` is written. Returns the distillation info."""
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+    from gridnext_tpu_torch.data import create_visium_dataset
+    from gridnext_tpu_torch.modeldir import mm_model_from_meta
+    from gridnext_tpu_torch.models import CountMLP
+    from gridnext_tpu_torch.train.distill import (distill_patch_classifier, label_agreement,
+                                                  write_count_distilled_mm_dir)
+
+    dev = args.device
+    for srd in args.spaceranger:
+        _validated_count_cache(srd, meta)
+    grid_dims = tuple(meta["grid_dims"]) if meta.get("grid_dims") else None
+    spots = create_visium_dataset(args.spaceranger, spatial=False, use_count=True,
+                                  use_image=False, hd_binning=meta.get("hd_binning"),
+                                  grid_dims=grid_dims, minimum_detection_rate=None)
+    raw, _ = spots.materialize()
+    rng = np.random.default_rng(args.split_seed)
+    if len(raw) > args.max_patches:
+        # the resident pool's cap; the gene2vec view stays float32 (scBERT
+        # floors its continuous values into bins: bf16 would flip bins)
+        pick = np.sort(rng.choice(len(raw), size=args.max_patches, replace=False))
+        print(f"sampling {args.max_patches} of {len(raw)} spots (--max-patches)")
+        raw = raw[pick]
+    transform, _ = _scbert_count_transform(args.spaceranger, meta.get("hd_binning"),
+                                           meta["scbert_vocab"])
+    t_pool = transform(raw)
+    s_pool = np.log1p(raw)
+
+    mm = mm_model_from_meta(meta, classes, tvars, device=dev)
+    teacher = mm.count_classifier
+    order = rng.permutation(len(raw))
+    n_hold = max(1, int(len(raw) * args.holdout))
+    hold_idx, train_idx = order[:n_hold], order[n_hold:]
+    if not len(train_idx):
+        sys.exit("error: no training spots left after the holdout split")
+    print(f"distilling scBERT count-f -> CountMLP on {len(train_idx)} "
+          f"spots ({n_hold} held out), {args.steps} steps x batch "
+          f"{args.batch_size}")
+    student = CountMLP(raw.shape[1], len(classes), batch_norm=False)
+    batch = min(args.batch_size, len(train_idx))
+    svars, losses = distill_patch_classifier(
+        teacher, student, torch.as_tensor(s_pool[train_idx], device=dev),
+        teacher_inputs=torch.as_tensor(t_pool[train_idx], device=dev), steps=args.steps,
+        batch_size=batch, learning_rate=args.lr, temperature=args.temperature,
+        kl_weight=args.kl_weight, verbose=True)
+
+    # the holdout's teacher logits in chunks of the training batch, which
+    # the loop has shown to fit (the JAX package's 512 would not: at 16,907
+    # tokens q, k and v alone take 66 GB in float32)
+    t_hold = t_pool[hold_idx]
+    with torch.no_grad():
+        t_lab = torch.cat([torch.argmax(teacher(torch.as_tensor(t_hold[i:i + batch],
+                                                                device=dev)), -1)
+                           for i in range(0, len(t_hold), batch)])
+        s_lab = torch.argmax(student(torch.as_tensor(s_pool[hold_idx], device=dev)), -1)
+    agr_f = float((t_lab == s_lab).float().mean())
+    print(f"holdout count-f agreement (argmax): {agr_f:.4f}")
+    info = {"count_f_agreement": agr_f, "steps": args.steps, "final_loss": losses[-1]}
+    write_count_distilled_mm_dir(args.out, meta, classes, tvars, svars, info)
+
+    if args.images is not None:
+        # full-MM label agreement over the arrays: both models on the same
+        # grids, each with its own count preprocessing
+        _require_one_image_per_dir(args.images, args.spaceranger)
+        s_meta, s_classes, s_vars = load_model_dir(args.out)
+        mm_student = mm_model_from_meta(s_meta, s_classes, s_vars, device=dev)
+        grids = create_visium_dataset(
+            args.spaceranger, use_count=True, use_image=True,
+            fullres_image_files=args.images, patch_size_px=meta.get("patch_px", 128),
+            window_size_px=meta.get("window_px"), hd_binning=meta.get("hd_binning"),
+            grid_dims=grid_dims, minimum_detection_rate=None, device=dev)
+        agrs = []
+        for i in range(len(args.spaceranger)):
+            (xi, xc), _ = grids[i]
+            fg = xc.sum(-1) > 0
+            with torch.no_grad():
+                lt = torch.argmax(mm((xi[None], torch.as_tensor(
+                    transform(xc)[None], device=dev)))[0], -1).cpu().numpy() + 1
+                ls = torch.argmax(mm_student((xi[None], torch.as_tensor(
+                    np.log1p(xc)[None], device=dev)))[0], -1).cpu().numpy() + 1
+            del xi
+            agrs.append(label_agreement(np.where(fg, lt, 0), np.where(fg, ls, 0)))
+        agr_label = float(np.mean(agrs))
+        print(f"full-MM label agreement (teacher vs student): "
+              f"{agr_label:.4f} over {len(agrs)} arrays")
+        info["label_agreement"] = agr_label
+        write_count_distilled_mm_dir(args.out, meta, classes, tvars, svars, info)
+    if (args.min_agreement is not None
+            and info.get("label_agreement", info["count_f_agreement"]) < args.min_agreement):
+        sys.exit(f"error: agreement below --min-agreement "
+                 f"{args.min_agreement}: {info}")
+    print(f"distilled multimodal model dir written to {args.out} "
+          "(count_f=mlp, image f + corrector carried verbatim)")
+    return info
+
+
+def _cmd_distill(args):
+    """Distil a trained image model's spot classifier f into the
+    ``TpuPatchClassifier`` student (bf16 by default) over a pool of the
+    cohort's spot patches, cropped from the slides (``--images``) on the
+    device in one gather launch; the teacher's corrector carries over
+    verbatim. Records the holdout patch agreement and the full-slide label
+    agreement of the two directories' registrars in ``model.json``. A multimodal directory
+    with an scBERT count f distils that f (:func:`_distill_count_mm`).
+    Returns the distillation info."""
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch import ingest
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+    from gridnext_tpu_torch.data import create_visium_dataset
+    from gridnext_tpu_torch.data.datasets import to_device_slide
+    from gridnext_tpu_torch.io import read_positions
+    from gridnext_tpu_torch.modeldir import image_f_from_meta, image_registrar_from_meta
+    from gridnext_tpu_torch.models import TpuPatchClassifier
+    from gridnext_tpu_torch.serving import resolve_device
+    from gridnext_tpu_torch.train.distill import (distill_patch_classifier, label_agreement,
+                                                  patch_agreement, write_distilled_model_dir)
+
+    args.device = dev = resolve_device(args.device)
+    meta, classes, tvars = load_model_dir(args.model)
+    if meta.get("model") in ("GridNetHexMM", "GridNetMM"):
+        if meta.get("count_f") != "scbert":
+            sys.exit("error: this multimodal dir's count-f is already an "
+                     "MLP; distillation targets scBERT count classifiers "
+                     "(count_f='scbert') or image models")
+        return _distill_count_mm(args, meta, classes, tvars)
+    try:
+        teacher_f, _ = image_f_from_meta(meta, classes, tvars, device=dev)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    # the port crops the pool from the slides (it keeps no patch caches)
+    _require_one_image_per_dir(args.images, args.spaceranger)
+
+    patch_px = meta.get("patch_px", 128)
+    grid_dims = tuple(meta["grid_dims"]) if meta.get("grid_dims") else None
+    ds = create_visium_dataset(args.spaceranger, use_count=False, use_image=True,
+                               spatial=False, fullres_image_files=args.images,
+                               patch_size_px=patch_px, window_size_px=meta.get("window_px"),
+                               hd_binning=meta.get("hd_binning"), grid_dims=grid_dims,
+                               device=dev)
+    rng = np.random.default_rng(args.split_seed)
+    if len(ds) > args.max_patches:
+        # the resident pool's cap: a uniform sample across all arrays
+        pick = np.sort(rng.choice(len(ds), size=args.max_patches, replace=False))
+        print(f"sampling {args.max_patches} of {len(ds)} patches (--max-patches)")
+        patches, _ = ds.batch(pick)
+    else:
+        patches, _ = ds.materialize()
+    order = torch.as_tensor(rng.permutation(len(patches)), device=dev)
+    n_hold = max(1, int(len(patches) * args.holdout))
+    hold, train = patches[order[:n_hold]], patches[order[n_hold:]]
+    del patches
+    if not len(train):
+        sys.exit("error: no training patches left after the holdout split")
+    print(f"distilling {meta.get('model')} -> TpuPatchClassifier on "
+          f"{len(train)} patches ({n_hold} held out) @ {patch_px}px, "
+          f"{args.steps} steps x batch {args.batch_size}")
+
+    arch = {}
+    if args.student_stages:
+        try:
+            arch["stages"] = tuple((int(w), int(d)) for w, d in
+                                   (part.split(":") for part in args.student_stages.split(",")))
+        except ValueError:
+            sys.exit("error: --student-stages must look like '256:2,512:2' "
+                     "(width:depth pairs)")
+    if args.student_stem:
+        arch["stem_patch"] = args.student_stem
+    student = TpuPatchClassifier(n_classes=len(classes),
+                                 dtype=None if args.f32 else torch.bfloat16, **arch)
+    svars, losses = distill_patch_classifier(
+        teacher_f, student, train, steps=args.steps,
+        batch_size=min(args.batch_size, len(train)), learning_rate=args.lr,
+        temperature=args.temperature, kl_weight=args.kl_weight, verbose=True)
+    del train
+
+    agr_patch = patch_agreement(teacher_f, student, hold)
+    del hold, teacher_f
+    print(f"holdout patch agreement (f argmax): {agr_patch:.4f}")
+    info = {"patch_agreement": agr_patch, "steps": args.steps, "final_loss": losses[-1]}
+    write_distilled_model_dir(args.out, meta, classes, tvars, svars, student, info)
+
+    # the end-to-end parity: the teacher's registrar against the written
+    # student directory's, per array
+    reg_t = image_registrar_from_meta(meta, classes, tvars, device=dev)
+    s_meta, s_classes, s_vars = load_model_dir(args.out)
+    reg_s = image_registrar_from_meta(s_meta, s_classes, s_vars, device=dev)
+    agrs = []
+    for srd, im in zip(args.spaceranger, args.images):
+        wsi = to_device_slide(ingest.decode_slide(im), dev)
+        pos = read_positions(srd, meta.get("hd_binning"))
+        agrs.append(label_agreement(reg_t(wsi, pos), reg_s(wsi, pos)))
+        del wsi
+    agr_label = float(np.mean(agrs))
+    print(f"full-slide label agreement (teacher g vs student g): "
+          f"{agr_label:.4f} over {len(agrs)} arrays")
+    info["label_agreement"] = agr_label
+    out_meta = write_distilled_model_dir(args.out, meta, classes, tvars, svars, student, info)
+    if (args.min_agreement is not None
+            and info.get("label_agreement", info["patch_agreement"]) < args.min_agreement):
+        sys.exit(f"error: agreement below --min-agreement "
+                 f"{args.min_agreement}: {info}")
+    print(f"distilled model dir written to {args.out} (model {out_meta['model']})")
+    return info
+
+
 def build_parser():
     """The port's argument parser (one subparser per ported command)."""
     ap = argparse.ArgumentParser(prog="gridnext_tpu_torch", description=__doc__,
@@ -1083,6 +1665,76 @@ def build_parser():
                         "checkpoint in --out (--epochs is the TOTAL count)")
     _add_device_arg(s, "training")
     s.set_defaults(fn=_cmd_pretrain_scbert)
+
+    s = sub.add_parser(
+        "evaluate",
+        help="metrics (acc / AUROC / AUPRC / confusion) for a trained "
+             "model over annotated arrays")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--annots", nargs="+", required=True,
+                   help="Loupe annotation CSVs, one per array (the ground truth)")
+    s.add_argument("--model", nargs="+", required=True,
+                   help="trained model dir(s); several dirs also score their "
+                        "cross-modality consensus (mean softmax)")
+    s.add_argument("--out", required=True, help="metrics JSON path")
+    s.add_argument("--images", nargs="*", default=None,
+                   help="fullres slide images (required for image/MM models)")
+    s.add_argument("--plots", default=None, metavar="DIR",
+                   help="also render ROC/PR curve grid + confusion heatmap PNGs "
+                        "into DIR (needs matplotlib)")
+    s.add_argument("--maps", default=None, metavar="DIR",
+                   help="also render per-array true/predicted label maps and "
+                        "misclassification-density heatmaps into DIR (consensus "
+                        "maps when several models are given; needs matplotlib)")
+    s.add_argument("--f-only", action="store_true",
+                   help="evaluate the spot classifier f alone (patch_predictions) "
+                        "instead of the corrected grid")
+    s.add_argument("--tta", action="store_true",
+                   help="dihedral test-time augmentation: average softmax over all "
+                        "8 flip/rotation orientations of each patch (image/MM "
+                        "models; 8x compute per array)")
+    _add_device_arg(s, "evaluation")
+    s.set_defaults(fn=_cmd_evaluate)
+
+    s = sub.add_parser(
+        "distill",
+        help="distill a trained image model's f into the TpuPatchClassifier "
+             "student (g carried verbatim), or an scBERT count f into a "
+             "CountMLP; agreement is measured and recorded in model.json")
+    s.add_argument("--model", required=True,
+                   help="teacher: a trained IMAGE model dir (DenseNet-121 or "
+                        "TpuPatchClassifier f), or a multimodal dir with an scBERT "
+                        "count f")
+    s.add_argument("--spaceranger", nargs="+", required=True,
+                   help="arrays supplying the distillation pool")
+    s.add_argument("--images", nargs="+", default=None,
+                   help="fullres slides (image teachers crop their pool from them; "
+                        "required for the full-slide agreement report)")
+    s.add_argument("--out", required=True, help="student model dir")
+    s.add_argument("--steps", type=int, default=2000)
+    s.add_argument("--batch-size", type=int, default=256)
+    s.add_argument("--lr", type=float, default=3e-4)
+    s.add_argument("--temperature", type=float, default=2.0)
+    s.add_argument("--kl-weight", type=float, default=0.1)
+    s.add_argument("--holdout", type=float, default=0.15,
+                   help="pool fraction held out for the agreement report")
+    s.add_argument("--max-patches", type=int, default=20000,
+                   help="cap on the resident distillation pool (uniformly sampled "
+                        "across arrays); 20k 128px f32 patches are ~3.9 GB of device "
+                        "memory, count pools (N, 16907) f32 in the gene2vec view")
+    s.add_argument("--split-seed", type=int, default=0)
+    s.add_argument("--f32", action="store_true",
+                   help="float32 student (default: bfloat16 compute, the served "
+                        "configuration)")
+    s.add_argument("--student-stages", default=None,
+                   help="student architecture as width:depth pairs, e.g. '256:2,512:2'")
+    s.add_argument("--student-stem", type=int, default=None,
+                   help="student patchify-stem size (default 16; use 8 for patches "
+                        "under 32px)")
+    s.add_argument("--min-agreement", type=float, default=None,
+                   help="fail (exit nonzero) if measured agreement is below this bound")
+    _add_device_arg(s, "distillation")
+    s.set_defaults(fn=_cmd_distill)
     return ap
 
 
@@ -1143,7 +1795,8 @@ def _add_device_arg(s, what: str):
 
 def main(argv=None):
     """Run one command; returns what it returns (the multimodal
-    ``register``'s stage seconds, else None). A training command that
+    ``register``'s stage seconds, ``evaluate``'s metrics, ``distill``'s
+    agreement info, else None). A training command that
     SIGTERM preempts exits 75 after its batch-boundary checkpoint."""
     args = build_parser().parse_args(argv)
     if not args.cmd.startswith(("train-", "pretrain-")):

@@ -47,7 +47,8 @@
 //    B fragment reads its rows in the same order. ksum is summed from the
 //    same registers. Each block writes its partial ctx/ksum; Hopper
 //    blocks run in parallel, where the TPU kernel carried them across a
-//    sequential grid. Blocks of at most 6 warps, two to an SM (the launch
+//    sequential grid. A split sums at most 32 tiles (the host's
+//    _SPLIT_TILES): the f32 chain's rounding grows with its length. Blocks of at most 6 warps, two to an SM (the launch
 //    bounds hold a thread to 168 registers): one block an SM, at 173
 //    registers, took 47 % more time.
 // 2. favor_reduce_kernel sums the partials over the splits in a fixed

@@ -11,6 +11,9 @@ scBERT's gene space by :func:`scbert_transform`, or from a cohort's
 Spaceranger directories by :func:`scbert_count_transform`), the grid model
 of any directory with :func:`grid_model_from_meta`, or the ``HexGCN`` of a
 graph directory (``train-graph``) with :func:`graph_model_from_meta`.
+:func:`image_f_from_meta` gives an image directory's spot classifier f
+alone (the teacher of ``distill``), :func:`submodule_variables` one
+submodule's variables out of a composed model's tree.
 """
 
 from __future__ import annotations
@@ -58,6 +61,44 @@ def image_registrar_from_meta(meta, classes, variables, device="cuda"):
         g, patch_size=meta.get("patch_px", 128), window_size=meta.get("window_px"),
         patch_chunk=meta.get("patch_chunk", 624), normalize=None, device=device,
         **lattice)
+
+
+def submodule_variables(variables, key: str) -> dict:
+    """One submodule's variables out of a composed model's tree (JAX
+    layout): ``params[key]`` and ``key``'s entry of every other collection
+    that has one (``batch_stats``, scBERT's ``favor``), each collection at
+    the root of the result."""
+    out = {"params": variables["params"][key]}
+    for col, sub in variables.items():
+        if col != "params" and sub is not None and key in sub:
+            out[col] = sub[key]
+    return out
+
+
+def image_f_from_meta(meta, classes, variables, device="cuda"):
+    """``(f, f_variables)`` of a trained image model directory: its spot
+    classifier (a ``TpuPatchClassifier`` from ``tpu_f``, or DenseNet-121;
+    the f32 module) with its weights loaded, in eval mode on ``device``, and
+    its variables (``params`` and, with BatchNorm, ``batch_stats``) out of
+    the ``patch_classifier`` subtree. Raises ``ValueError`` for any other
+    directory."""
+    from gridnext_tpu_torch.compat.from_jax import load_variables
+    from gridnext_tpu_torch.models import TpuPatchClassifier, densenet121, tpu_f_arch_kwargs
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(device)
+    model_name = meta.get("model", "")
+    if model_name.endswith("TpuPatchClassifier"):
+        f = TpuPatchClassifier(n_classes=len(classes), **tpu_f_arch_kwargs(meta.get("tpu_f")))
+    elif model_name.endswith("DenseNet121"):
+        f = densenet121(num_classes=len(classes))
+    else:
+        raise ValueError(
+            f"not an image model dir (model={model_name!r}); the f "
+            "extractor needs a GridNet[Hex]+DenseNet121 or "
+            "+TpuPatchClassifier directory")
+    f_vars = submodule_variables(variables, "patch_classifier")
+    return load_variables(f, f_vars).to(device).eval(), f_vars
 
 
 def _has_bn_corrector(variables) -> bool:

@@ -11,10 +11,11 @@ from gridnext_tpu_torch.models.performer import (FastAttention, FeedForward, Per
                                                  PerformerLM, SelfAttention,
                                                  redraw_projections)
 from gridnext_tpu_torch.models.scbert import AttentionClassifier, scBERT
-from gridnext_tpu_torch.models.tpu_f import TpuPatchClassifier, tpu_f_arch_kwargs
+from gridnext_tpu_torch.models.tpu_f import (TpuPatchClassifier, tpu_f_arch_kwargs,
+                                             tpu_f_arch_meta)
 
 __all__ = ["AttentionClassifier", "ConcatGridNet", "CountMLP", "DenseNet", "FastAttention",
            "FeedForward", "GridNet", "GridNetHex", "GridNetHexMM", "GridNetMM", "HexConv",
            "HexGCN", "Performer", "PerformerLM", "SelfAttention", "TpuPatchClassifier",
            "apply_f_chunked", "densenet121", "graph_node_loss", "redraw_projections",
-           "scBERT", "tpu_f_arch_kwargs"]
+           "scBERT", "tpu_f_arch_kwargs", "tpu_f_arch_meta"]

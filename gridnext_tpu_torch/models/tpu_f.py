@@ -153,6 +153,13 @@ class TpuPatchClassifier(nn.Module):
             return self.head(self.dropout(x)).float()
 
 
+def tpu_f_arch_meta(f: TpuPatchClassifier) -> dict:
+    """Architecture fields for model.json: what reconstructs this exact f at
+    register time whatever the class defaults become."""
+    return {"stages": [list(s) for s in f.stages_spec],
+            "stem_patch": int(f.stem_patch), "norm": f.stem_norm.kind}
+
+
 def tpu_f_arch_kwargs(meta: Optional[dict]) -> dict:
     """model.json ``tpu_f`` dict -> TpuPatchClassifier constructor kwargs.
 

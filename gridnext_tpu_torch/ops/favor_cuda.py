@@ -58,6 +58,7 @@ _ROWS = 32                 # csrc/favor.cu kRows: sequence rows per accumulate t
 _FEAT_TILE = 16            # csrc/favor.cu kFeatTile: features per warp
 _ACC_WARPS_MAX = 6         # csrc/favor.cu kAccWarpsMax: feature tiles per block
 _BLOCKS_PER_SM = 16        # accumulate-pass blocks to aim for, per SM
+_SPLIT_TILES = 32          # accumulate tiles one split sums in sequence, at most
 
 
 def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,7 +104,13 @@ def _kernel_operand(t: torch.Tensor, width: int) -> torch.Tensor:
 
 def _splits(bh: int, n: int, m: int, d: int, device) -> int:
     """Sequence ranges per (b, h) of the accumulate pass: enough blocks to
-    fill the card, at most one per 32-row tile."""
+    fill the card, at most one per 32-row tile, and at least one per
+    :data:`_SPLIT_TILES` tiles. A split sums its rows' ctx and ksum in one
+    f32 chain, whose rounding grows with its length: filling the card alone
+    gave 2 splits of 265 tiles at B 64, H 10, N 16,907, and scBERT's
+    attention there missed FAVOR's tolerance of its float64 value (rtol
+    2e-4, atol 2e-5); 32 tiles a split keep it well inside at every batch
+    (``tools/favor_split_precision.py``)."""
     tiles = -(-n // _ROWS)
     m_tiles = -(-m // _FEAT_TILE)
     if d in HEAD_DIMS:
@@ -112,7 +119,7 @@ def _splits(bh: int, n: int, m: int, d: int, device) -> int:
         groups = -(-m_tiles * _FEAT_TILE // 32) * -(-d // 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = -(-_BLOCKS_PER_SM * sms // (groups * bh))
-    return max(1, min(tiles, want))
+    return max(-(-tiles // _SPLIT_TILES), min(tiles, want))
 
 
 def _launch(q, k, v, proj):
