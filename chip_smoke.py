@@ -271,10 +271,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
     64 rows against the plain route; ``evaluate`` of teacher + student over
     array 0 (1,248 FAVOR calls); every number beside the card's name and
     power limit;
-18. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+18. the serving surfaces, each path with the counts of the gather, the
+    labels corrector and FAVOR set to 0 just before it and read just after:
+    (a) ``serve``: phase 4's model directory (written by phase 10) in a
+    ``RegistrationService`` behind ``make_server`` on 127.0.0.1 (port 0),
+    a warm-up request and the metrics reset, then 2 rounds of 4
+    concurrent ``POST /register`` (the 4 full-width slides, decode swapped
+    for ``np.load``): every response 200, the micro-batcher required to
+    have batched slides, one gather and one corrector launch a dispatch,
+    the labels phase 4's up to near-ties, ``GET /metrics`` 200 and a
+    request without ``spaceranger`` 400; warm ms per request (p50, max)
+    and requests/s; in phase 15's directory a count request through the
+    trained ``train-count`` directory, its labels the directory's forward
+    up to near-ties; (b) ``export --wsi-shape`` of the same directory
+    (the CLI default ``--n-spots`` 8192), the artifact loaded by
+    ``load_artifact`` and called on the 4 slides: labels phase 4's up to
+    near-ties, exactly one gather and one labels-corrector launch a call
+    (the kernels, not the plain versions, inside the exported graph);
+    the artifact's ms/slide against the live registrar's; ``serve-artifact``
+    over 2 slides, its CSVs the ``register`` command's up to near-ties;
+    (c) in phase 12's directory, ``export --dense`` of slide E's
+    exact-pitch lattice (384 x 384 bins): labels ``register_dense``'s up to
+    near-ties, one gather launch a call, its ms/slide against
+    ``register_dense``'s; (d) in phase 13's directory, ``export`` of (a)'s
+    scBERT (depth ``MM_STEP_DEPTH``) + DenseNet-121 directory, the
+    artifact over slide 0 with the tissue mask as an input: labels phase
+    13 (a)'s up to near-ties (no second live pass), FAVOR launched once a
+    layer for each of the 624 count chunks; every time beside the card's
+    name and power limit;
+19. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
-    ``launches_distill``, phase 17's counts), then the last line
+    ``launches_distill``, phase 17's counts, and ``launches_serve`` and
+    ``launches_artifact``, phase 18's), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
@@ -1586,7 +1615,9 @@ def device_ms_by_range(path, names) -> dict:
 def phase_register_slides(torch, slides, port, card, tmp, batch4):
     """The ``register`` command's path at full width: a model directory on
     disk, six slide files through ``register_slides``, four through the CLI.
-    Returns the Spaceranger dirs, tissue masks and positions it wrote."""
+    Returns the Spaceranger dirs and tissue masks it wrote, and the model
+    directory, the slide files of slides 0-3, the register command's CSVs
+    and the registrar (phase 18 serves them)."""
     from gridnext_tpu_torch import cli, ingest
 
     geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
@@ -1738,7 +1769,8 @@ def phase_register_slides(torch, slides, port, card, tmp, batch4):
         cli_flips += serving.label_parity_report(batch4["labels_b"][i], grid, a_logits[i])
     log(f"register command over slides 0-3: {t_cli:.2f} s with the model load; the CSVs "
         f"name phase 4's register_batch labels up to {cli_flips} near-tie flips")
-    return dirs_masks
+    return dirs_masks, {"model_dir": model_dir, "files": a_files, "csv_dir": out,
+                        "classes": classes, "registrar": reg}
 
 
 def write_unified_cache(path, genes, columns, counts):
@@ -2034,10 +2066,11 @@ def hd_grid_from_csv(path, classes, n=None):
     return grid, len(rows) - 1
 
 
-def phase_hd(torch, port, card, tmp, dev) -> None:
+def phase_hd(torch, port, card, tmp, dev) -> dict:
     """Visium HD at full width: a GridNet(TpuPatchClassifier) model directory
     over a 384 x 384 lattice of 16 um bins, slides E (exact tiling), F
-    (fractional pitch) and J (jittered: per bin)."""
+    (fractional pitch) and J (jittered: per bin). Returns slide E's model
+    directory, slide, labels and logits (phase 18 (c) exports them)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from gridnext_tpu_torch import cli, ingest
@@ -2336,6 +2369,8 @@ def phase_hd(torch, port, card, tmp, dev) -> None:
                 f"names register_dense's labels up to {flips} near-tie flips")
     finally:
         ingest.decode_slide = decode
+    return {"model_dir": dir_e, "srd": srd_e, "wsi": wsi_e, "labels": labels_e,
+            "logits": logits_e, "registrar": reg_e, "plan": plan_e, "positions": pos_e}
 
 
 # -- phase 13: the register command for every model kind --------------------------
@@ -2384,7 +2419,9 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
     """The register command for every model kind at full width: hex
     multimodal (scBERT + DenseNet-121; CountMLP + TpuPatchClassifier at
     window 160), square multimodal (per bin and dense ingest), square
-    counts, HexGCN. ``mm`` is phase 9's request, ``mask`` slide 0's tissue."""
+    counts, HexGCN. ``mm`` is phase 9's request, ``mask`` slide 0's tissue.
+    Returns (a)'s directory, slide 0's positions, the gene symbols, and (a)'s
+    labels and logits (phase 18 (d) exports the directory)."""
     from gridnext_tpu_torch import cli, ingest, pipeline
     from gridnext_tpu_torch.data import graph_data
     from gridnext_tpu_torch.io.unify import unified_cache_path
@@ -2473,6 +2510,7 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
         logits_a = model_a((slide_grid(torch, slides[0], pos, port)[None],
                             torch.as_tensor(x_count, device=dev)[None]))[0].cpu().numpy()
     del model_a, x_count
+    grid_a = grid
     flips = serving.label_parity_report(np.where(mask > 0, logits_a.argmax(-1) + 1, 0), grid,
                                         logits_a)
     log(f"(a): the CSV names the same model's direct forward on phase 9's request inputs up "
@@ -2612,6 +2650,8 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
             for k, v in labels_c.items()}
     log(f"(c): {n_bins} in-tissue bins; dense-ingest labels equal the per-bin labels; bins "
         f"per class {json.dumps(hist)}")
+    return {"model_dir": dir_a, "positions": pos, "symbols": symbols, "labels": grid_a,
+            "logits": logits_a}
 
 
 
@@ -3240,7 +3280,8 @@ def csv_label_grid(path, positions, classes, shape):
 def phase_count_tier(torch, card, tmp, dev) -> dict:
     """Phase 15: simulate, prepare, the three readers, train-count and
     register through the port's commands at 16,906 genes; returns the
-    numbers it printed."""
+    numbers it printed, the cohort's directories, the trained directory
+    and array 0's reference labels, logits and CSV (phase 18 serves it)."""
     import shutil
 
     from gridnext_tpu_torch import cli, modeldir, serving
@@ -3392,6 +3433,8 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
         acc = float((got[fg] == truth[fg]).mean())
         out["register"].append({"array": i, "s": t_reg, "flips": flips, "accuracy": acc,
                                 "spots": n_rows})
+        if i == 0:
+            ref0 = {"labels": want, "logits": logits, "csv": csv_out}
         log(f"(e) register of array {i}: {t_reg:.2f} s with the model load; labels equal "
             f"to the directory's forward on the CountGridDataset grid up to {flips} "
             f"near-tie flips of {n_rows} spots; foreground accuracy against the simulated "
@@ -3421,7 +3464,7 @@ def phase_count_tier(torch, card, tmp, dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 15: {out['phase_s']:.1f} s [{card}]")
     log(json.dumps({"count_tier": out}))
-    out["dirs"] = dirs
+    out.update(dirs=dirs, model=model, ref0=ref0)
     return out
 
 
@@ -4167,6 +4210,325 @@ def eval_distill_phase(torch, port, card, tmp, cohort, mm, dev) -> dict:
     return out
 
 
+# -- phase 18: the serving surfaces ------------------------------------------------
+
+SERVE_ROUNDS = 2              # rounds of N_SLIDES concurrent POST /register requests
+SERVED = ("gather_patches", "fused_hex_corrector_labels", "fused_generalized_linear_attention")
+
+
+def http_json(url, body=None):
+    """(status, JSON body) of a GET (``body`` None) or a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def counted(torch, port, tally=None):
+    """The counts of the gather, the labels corrector and FAVOR set to 0
+    just before the block and read just after, into the dict yielded (and
+    added to ``tally``)."""
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    gather, corr = port[7], port[8]
+    torch.cuda.synchronize()
+    gather.launches = favor_cuda.launches = 0
+    for k in corr.launches:
+        corr.launches[k] = 0
+    got = {}
+    yield got
+    torch.cuda.synchronize()
+    got.update(zip(SERVED, (gather.launches, corr.launches["fused_hex_corrector_labels"],
+                            favor_cuda.launches)))
+    if tally is not None:
+        for k, v in got.items():
+            tally[k] = tally.get(k, 0) + v
+
+
+def turns_ms(torch, calls: dict, rounds: int = 2) -> dict:
+    """Host ms of each of ``calls`` (synchronised), run in turns a b b a
+    ``rounds`` times after one warm call each: the median per name."""
+    times = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    order = list(calls) + list(calls)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def phase_serve(torch, slides, port, card, tmp, dirs_masks, image, batch4, launches) -> float:
+    """Phase 18 (a)-(b) in phase 10's directory: phase 4's model directory
+    served over HTTP, exported and registered through ``serve-artifact``.
+    Returns the seconds taken."""
+    import threading
+
+    from gridnext_tpu_torch import cli, ingest, server
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    dev = slides.device
+    log("== phase 18 (a)-(b): serve, export and serve-artifact at full width (phase 4's "
+        "TpuPatchClassifier model directory, the 4 slides as .npy; TF32 off)")
+    t_phase = time.perf_counter()
+    srds = [d for d, _ in dirs_masks]
+    masks = [m for _, m in dirs_masks]
+    files, reg = image["files"], image["registrar"]
+    positions = [io.read_positions(d) for d in srds]
+    logits = [reg.register_logits(slides[i], positions[i])[0] for i in range(N_SLIDES)]
+    want = batch4["labels_b"]
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load          # the card has no PIL: .npy slides
+    try:
+        # (a) the resident server: POST /register from N_SLIDES threads at once
+        t0 = time.perf_counter()
+        service = server.RegistrationService.from_model_dir(image["model_dir"], device=dev)
+        t_load = time.perf_counter() - t0
+        httpd = server.make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        responses, latencies, walls = {}, [], []
+        try:
+            t0 = time.perf_counter()
+            service.register(srds[0], image=files[0])      # serve --warmup
+            t_warm = time.perf_counter() - t0
+            service.reset_metrics()
+
+            def post(r, i):
+                t = time.perf_counter()
+                responses[r, i] = http_json(base + "/register", {
+                    "image": files[i], "spaceranger": srds[i], "loupe": True})
+                latencies.append(time.perf_counter() - t)
+
+            with counted(torch, port, launches["serve"]) as n_serve:
+                for r in range(SERVE_ROUNDS):
+                    threads = [threading.Thread(target=post, args=(r, i))
+                               for i in range(N_SLIDES)]
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    walls.append(time.perf_counter() - t0)
+            code_m, metrics = http_json(base + "/metrics")
+            code_bad, bad = http_json(base + "/register", {"image": files[0]})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        failed = {k: v for k, v in responses.items() if v[0] != 200}
+        if failed or len(responses) != SERVE_ROUNDS * N_SLIDES:
+            raise AssertionError(f"serve: {len(responses)} responses, failed {failed}")
+        if code_m != 200 or metrics["requests"] != SERVE_ROUNDS * N_SLIDES:
+            raise AssertionError(f"serve: GET /metrics {code_m} {metrics}")
+        if metrics["batched_slides"] < 2:
+            raise AssertionError(f"serve: the micro-batcher grouped no requests: {metrics}")
+        if code_bad != 400 or "spaceranger" not in bad.get("error", ""):
+            raise AssertionError(f"serve: a request without 'spaceranger' gave {code_bad} {bad}")
+        if not (n_serve["gather_patches"] == n_serve["fused_hex_corrector_labels"]
+                == metrics["dispatches"] > 0):
+            raise AssertionError(f"serve: launches {n_serve}, {metrics['dispatches']} "
+                                 "dispatches (one gather and one corrector a dispatch)")
+        flips = same_csv = 0
+        for (r, i), (_, resp) in sorted(responses.items()):
+            got = np.asarray(resp["labels"])
+            flips += serving.label_parity_report(want[i], got, logits[i])
+            if resp["n_foreground"] != int(masks[i].sum()):
+                raise AssertionError(f"serve: slide {i} has {resp['n_foreground']} "
+                                     f"foreground spots, the mask {masks[i].sum()}")
+            with open(os.path.join(image["csv_dir"], f"slide{i}_loupe.csv")) as fh:
+                same_csv += resp["loupe_csv"] == fh.read()
+        lat = np.asarray(latencies) * 1e3
+        n_req = SERVE_ROUNDS * N_SLIDES
+        log(f"(a) serve: model directory loaded in {t_load:.2f} s, warm-up request "
+            f"{t_warm:.2f} s; {n_req} requests in {SERVE_ROUNDS} rounds of {N_SLIDES} "
+            f"concurrent: {metrics['dispatches']} dispatches, {metrics['batched_slides']} "
+            f"slides batched; warm ms per request p50 {np.median(lat):.1f}, max "
+            f"{lat.max():.1f}; {n_req / sum(walls):.2f} requests/s (rounds "
+            f"{[round(w, 3) for w in walls]} s); stage s "
+            f"{json.dumps({k: round(v, 3) for k, v in metrics['stage_seconds'].items()})}; "
+            f"labels phase 4's up to {flips} near-tie flips, {same_csv}/{n_req} Loupe texts "
+            f"equal to the register command's CSVs; launches {json.dumps(n_serve)}; "
+            f"GET /metrics 200, a bad request 400 [{card}]")
+
+        # (b) export: the artifact in-process, then serve-artifact
+        art = os.path.join(tmp, "reg.pt2")
+        h, w = slides.shape[1:3]
+        t0 = time.perf_counter()
+        cli.main(["export", "--model", image["model_dir"], "--out", art, "--wsi-shape",
+                  str(h), str(w), "--device", str(dev)])
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn, side = server.load_artifact(art, dev)
+        t_art = time.perf_counter() - t0
+        ins = [serving.artifact_spot_inputs(tuple(slides.shape[1:]), positions[i],
+                                            side["n_spots"], window_size=side["window_px"],
+                                            h_st=side["h_st"], w_st=side["w_st"])
+               for i in range(N_SLIDES)]
+        with counted(torch, port, launches["artifact"]) as n_art:
+            art_labels = [server.run_artifact(fn, slides[i], ins[i], dev)
+                          for i in range(N_SLIDES)]
+        with counted(torch, port) as n_one:
+            server.run_artifact(fn, slides[0], ins[0], dev)
+        one = {"gather_patches": 1, "fused_hex_corrector_labels": 1,
+               "fused_generalized_linear_attention": 0}
+        if n_one != one or n_art != {k: v * N_SLIDES for k, v in one.items()}:
+            raise AssertionError(f"artifact launches: one call {n_one}, {N_SLIDES} calls "
+                                 f"{n_art} (want {one} a call)")
+        art_flips = sum(serving.label_parity_report(want[i], art_labels[i], logits[i])
+                        for i in range(N_SLIDES))
+        ms = turns_ms(torch, {"artifact": lambda: server.run_artifact(fn, slides[0], ins[0], dev),
+                              "live": lambda: reg(slides[0], positions[0])})
+        out = os.path.join(tmp, "served")
+        with counted(torch, port, launches["artifact"]) as n_cli:
+            t0 = time.perf_counter()
+            cli.main(["serve-artifact", "--artifact", art, "--spaceranger", *srds[:2],
+                      "--images", *files[:2], "--out", out, "--device", str(dev)])
+            t_cli = time.perf_counter() - t0
+        if n_cli["gather_patches"] != 2 or n_cli["fused_hex_corrector_labels"] != 2:
+            raise AssertionError(f"serve-artifact over 2 slides: launches {n_cli}")
+        cli_flips = same = 0
+        for i in range(2):
+            name = f"slide{i}_loupe.csv"
+            grid, n_rows = loupe_grid(os.path.join(out, name), masks[i].shape,
+                                      image["classes"])
+            if n_rows != int(masks[i].sum()):
+                raise AssertionError(f"serve-artifact CSV of slide {i}: {n_rows} rows")
+            reg_grid, _ = loupe_grid(os.path.join(image["csv_dir"], name), masks[i].shape,
+                                     image["classes"])
+            cli_flips += serving.label_parity_report(reg_grid, grid, logits[i])
+            with open(os.path.join(out, name)) as a, \
+                    open(os.path.join(image["csv_dir"], name)) as b:
+                same += a.read() == b.read()
+        log(f"(b) export: {t_export:.2f} s (the command, model load included; "
+            f"{os.path.getsize(art) / 1e6:.1f} MB, n_spots {side['n_spots']}), load "
+            f"{t_art:.2f} s; the artifact's labels phase 4's up to {art_flips} near-tie flips "
+            f"over {N_SLIDES} slides; one call launches {json.dumps(n_one)}; ms/slide "
+            f"artifact {ms['artifact']:.2f} against the live registrar's {ms['live']:.2f} "
+            f"(slide 0, median of 4 in turns); serve-artifact over 2 slides {t_cli:.2f} s, "
+            f"its CSVs the register command's up to {cli_flips} near-tie flips ({same}/2 "
+            f"byte-equal) [{card}]")
+    finally:
+        ingest.decode_slide = decode
+    return time.perf_counter() - t_phase
+
+
+def phase_export_dense(torch, port, card, tmp, hd, launches) -> float:
+    """Phase 18 (c) in phase 12's directory: ``export --dense`` of slide E's
+    exact-pitch lattice, the artifact against ``register_dense``."""
+    from gridnext_tpu_torch import cli, server
+
+    serving = port[6]
+    dev = hd["wsi"].device
+    t_phase = time.perf_counter()
+    art = os.path.join(tmp, "hd.pt2")
+    h, w = hd["wsi"].shape[:2]
+    t0 = time.perf_counter()
+    cli.main(["export", "--model", hd["model_dir"], "--dense", "--spaceranger", hd["srd"],
+              "--wsi-shape", str(h), str(w), "--out", art, "--device", str(dev)])
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, side = server.load_artifact(art, dev)
+    t_art = time.perf_counter() - t0
+    _, oy0, ox0, fg, ey, ex = hd["plan"]
+    if side["kind"] != "dense" or side["extent"] != [ey, ex]:
+        raise AssertionError(f"export --dense wrote {side}")
+    with counted(torch, port, launches["artifact"]) as n_art:
+        labels = server.run_artifact(fn, hd["wsi"], (oy0, ox0, fg), dev)
+    if n_art["gather_patches"] != 1:
+        raise AssertionError(f"the dense artifact's launches {n_art} (one gather a call)")
+    flips = serving.label_parity_report(hd["labels"], labels, hd["logits"])
+    reg = hd["registrar"]
+    ms = turns_ms(torch, {
+        "artifact": lambda: server.run_artifact(fn, hd["wsi"], (oy0, ox0, fg), dev),
+        "register_dense": lambda: reg.register_dense(hd["wsi"], hd["positions"],
+                                                     plan=hd["plan"])})
+    log(f"(c) export --dense of slide E ({ey} x {ex} bins): {t_export:.2f} s, load "
+        f"{t_art:.2f} s; labels register_dense's up to {flips} near-tie flips; launches "
+        f"{json.dumps(n_art)}; ms/slide artifact {ms['artifact']:.2f} against "
+        f"register_dense's {ms['register_dense']:.2f} (median of 4 in turns) [{card}]")
+    return time.perf_counter() - t_phase
+
+
+def phase_export_mm(torch, slides, port, card, tmp, kinds, mm, launches) -> float:
+    """Phase 18 (d) in phase 13's directory: ``export`` of (a)'s scBERT +
+    DenseNet-121 directory (depth ``MM_STEP_DEPTH``), its artifact over slide
+    0 with the tissue mask as an input, against (a)'s labels."""
+    from gridnext_tpu_torch import cli, geometry, modeldir
+    from gridnext_tpu_torch.serving import label_parity_report, load_exported_registration
+
+    dev = slides.device
+    t_phase = time.perf_counter()
+    art = os.path.join(tmp, "mm.pt2")
+    t0 = time.perf_counter()
+    cli.main(["export", "--model", kinds["model_dir"], "--out", art, "--device", str(dev)])
+    t_export = time.perf_counter() - t0
+    with open(art + ".json") as fh:
+        side = json.load(fh)
+    t0 = time.perf_counter()
+    with open(art, "rb") as fh:
+        fn = load_exported_registration(fh.read())
+    t_art = time.perf_counter() - t0
+    if not side["explicit_fg"] or side["grid_shapes"][1][-1] != MM_VOCAB:
+        raise AssertionError(f"export of the scBERT directory wrote {side}")
+    xi = slide_grid(torch, slides[0], kinds["positions"], port)[None]
+    xc = torch.as_tensor(modeldir.scbert_transform(kinds["symbols"], MM_VOCAB)(mm["raw"]),
+                         device=dev)[None]
+    fg = torch.as_tensor((mm["raw"].sum(-1) > 0).astype(np.int32), device=dev)[None]
+    with counted(torch, port, launches["artifact"]) as n_art:
+        t0 = time.perf_counter()
+        labels = fn(xi, xc, fg)[0].cpu().numpy()
+        t_run = time.perf_counter() - t0
+    want = -(-geometry.VISIUM_H_ST * geometry.VISIUM_W_ST // COUNT_CHUNK) * MM_STEP_DEPTH
+    if n_art["fused_generalized_linear_attention"] != want or n_art["gather_patches"]:
+        raise AssertionError(f"the scBERT artifact's launches {n_art} (want {want} FAVOR "
+                             "calls: a layer each count chunk)")
+    flips = label_parity_report(kinds["labels"], labels, kinds["logits"])
+    log(f"(d) export of (a)'s scBERT (depth {MM_STEP_DEPTH}) + DenseNet-121 directory: "
+        f"{t_export:.2f} s, {os.path.getsize(art) / 1e6:.1f} MB, load {t_art:.2f} s; slide 0 "
+        f"through the artifact {t_run:.2f} s, its labels phase 13 (a)'s up to {flips} "
+        f"near-tie flips; launches {json.dumps(n_art)} [{card}]")
+    del xi, xc
+    return time.perf_counter() - t_phase
+
+
+def phase_serve_count(torch, port, card, tier, dev) -> float:
+    """Phase 18 (a), a count request in phase 15's directory: the trained
+    train-count directory served, array 0 registered through it."""
+    from gridnext_tpu_torch import server
+
+    serving = port[6]
+    t_phase = time.perf_counter()
+    service = server.RegistrationService.from_model_dir(tier["model"], device=dev)
+    body = {"spaceranger": tier["dirs"][0], "loupe": True}
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        resp = service.handle_register(body)
+        times.append(time.perf_counter() - t0)
+    ref = tier["ref0"]
+    flips = serving.label_parity_report(ref["labels"], np.asarray(resp["labels"]),
+                                        ref["logits"])
+    with open(ref["csv"]) as fh:
+        same = resp["loupe_csv"] == fh.read()
+    log(f"(a) serve of the train-count directory, array 0 ({TIER_GENES} genes): "
+        f"{times[0]:.2f} s the first request, {times[1]:.2f} s warm (the cache read "
+        f"included); labels the directory's forward up to {flips} near-tie flips, Loupe "
+        f"text {'equal to' if same else 'other than'} the register command's [{card}]")
+    return time.perf_counter() - t_phase
+
+
 def main() -> int:
     import torch
 
@@ -4238,24 +4600,39 @@ def main() -> int:
     res["fused_generalized_linear_attention"] = phase_favor(torch, favor_cuda, dev)
     launches["fused_generalized_linear_attention"], mm = phase_mm(
         torch, slides, positions, masks, port, card)
+    # phase 18's paths, each driven with its counts set to 0 just before and
+    # read just after: the served requests and the artifacts' calls
+    served = {"serve": {}, "artifact": {}}
+    t18 = []
     with tempfile.TemporaryDirectory() as tmp:   # model dirs, slides, caches, CSVs
-        dirs_masks = phase_register_slides(torch, slides, port, card, tmp, batch4)
+        dirs_masks, image_dir = phase_register_slides(torch, slides, port, card, tmp, batch4)
         phase_count(torch, port, card, tmp, dirs_masks, dev)
+        t18.append(phase_serve(torch, slides, port, card, tmp, dirs_masks, image_dir, batch4,
+                               served))
+        del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
-        phase_hd(torch, port, card, tmp, dev)
+        hd = phase_hd(torch, port, card, tmp, dev)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+        t18.append(phase_export_dense(torch, port, card, tmp, hd, served))
+        del hd
     with tempfile.TemporaryDirectory() as tmp:   # Spaceranger dirs, caches, model dirs
         t0 = time.perf_counter()
-        phase_kinds(torch, slides, masks[0], port, card, tmp, mm)
+        kinds = phase_kinds(torch, slides, masks[0], port, card, tmp, mm)
         log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+        t18.append(phase_export_mm(torch, slides, port, card, tmp, kinds, mm, served))
+        del kinds
     with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dirs, trace
         cohort = phase_train(torch, slides, port, card, tmp, mm)
         evald = phase_eval_distill(torch, port, card, tmp, cohort, mm, dev)
     del mm, cohort
     with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dirs, CSVs
         tier = phase_count_tier(torch, card, tmp, dev)
+        t18.append(phase_serve_count(torch, port, card, tier, dev))
         pretrain = phase_pretrain(torch, card, tmp, tier["dirs"], dev)
+    log(f"phase 18: {sum(t18):.1f} s ((a)-(b) {t18[0]:.1f}, (c) {t18[1]:.1f}, (d) "
+        f"{t18[2]:.1f}, the count request {t18[3]:.1f}); launches {json.dumps(served)} "
+        f"[{card}]")
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -4290,6 +4667,9 @@ def main() -> int:
                          "fused_generalized_linear_attention"):
             for command in ("evaluate", "distill"):
                 k[f"launches_{command}"] = evald["launches"][command][k["name"]]
+            # phase 18's paths: the served requests and the artifacts' calls
+            for path in ("serve", "artifact"):
+                k[f"launches_{path}"] = served[path].get(k["name"], 0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,17 @@ directory's scBERT count f distils into a stateless ``CountMLP`` on log1p
 counts. The holdout agreement and the registrations' label agreement are
 written into the student directory's ``model.json``.
 
+Serving (``serve``, ``export``, ``serve-artifact``): ``serve`` keeps a
+model directory (or an exported artifact) on the card behind an HTTP
+server (:mod:`~gridnext_tpu_torch.server`; ``--mesh`` is not ported yet and
+exits). ``export`` writes a directory's registration as a ``torch.export``
+artifact (``.pt2``, weights inside, the kernels as ``gridnext::`` custom
+ops) and its JSON sidecar: slide -> labels for image directories
+(``--wsi-shape``; ``--dense`` for an exact Visium HD lattice), the grid
+forward for count and multimodal ones. ``serve-artifact`` registers slides
+through an artifact with no model code and writes Loupe CSVs. An artifact
+runs on the device type it was exported on.
+
 ``--device`` (default ``cuda``) is where a command runs; ``--device cpu``
 takes the kernels' plain versions. Exits and messages follow the JAX
 package's commands.
@@ -327,7 +338,7 @@ def _register_graph(args, meta, classes, variables):
 
 # -- training ----------------------------------------------------------------------
 
-_LATER_MESH = ("error: --mesh (multi-card training) is not ported yet "
+_LATER_MESH = ("error: --mesh (multi-card training and serving) is not ported yet "
                "(ROADMAP.md Queue 1 item 9)")
 
 
@@ -1486,6 +1497,192 @@ def _cmd_distill(args):
     return info
 
 
+# -- serving surfaces: export, serve-artifact, serve ---------------------------------
+
+
+def _cmd_export(args):
+    """A trained model's registration as a ``torch.export`` artifact (the
+    bytes of a ``.pt2``, weights inside, the kernels as ``gridnext::`` ops;
+    reload with ``serving.load_exported_registration``, no model code) and
+    its JSON sidecar. Image models export slide -> labels (``--wsi-shape``;
+    ``--dense``: an exact HD lattice); count and multimodal models their
+    grid -> labels forward (shapes from model.json). The artifact runs on
+    ``--device``'s type only."""
+    import json
+
+    from gridnext_tpu_torch import geometry
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+    from gridnext_tpu_torch.modeldir import grid_model_from_meta, image_registrar_from_meta
+    from gridnext_tpu_torch.server import ARTIFACT_FORMAT
+    from gridnext_tpu_torch.serving import export_grid_forward, resolve_device
+
+    device = resolve_device(args.device)
+    meta, classes, variables = load_model_dir(args.model)
+    model_name = meta.get("model", "")
+    grid_dims = meta.get("grid_dims")
+    h_st, w_st = (tuple(grid_dims) if grid_dims
+                  else (geometry.VISIUM_H_ST, geometry.VISIUM_W_ST))
+    sidecar = {"classes": classes, "h_st": int(h_st), "w_st": int(w_st),
+               "platforms": args.platforms, "model": model_name,
+               "format": ARTIFACT_FORMAT, "device": device.type}
+    try:
+        if model_name.endswith(("DenseNet121", "TpuPatchClassifier")):
+            if args.wsi_shape is None:
+                sys.exit("error: image-model export needs --wsi-shape H W")
+            registrar = image_registrar_from_meta(meta, classes, variables, device=device)
+            h, w = args.wsi_shape
+            shape = (int(h), int(w), 3)
+            sidecar.update(wsi_shape=list(shape), window_px=registrar.window_size,
+                           hex_coords=registrar.hex_coords,
+                           hd_binning=meta.get("hd_binning"))
+            if args.dense:
+                # an exact integer-pitch lattice only: the fractional-pitch
+                # resample stays a live-registrar path
+                if not args.spaceranger:
+                    sys.exit("error: export --dense needs --spaceranger SRD (a "
+                             "representative array to fit the bin lattice)")
+                from gridnext_tpu_torch.io import read_positions
+                from gridnext_tpu_torch.serving import fit_dense_lattice
+
+                pos = read_positions(args.spaceranger[0], meta.get("hd_binning"))
+                plan = fit_dense_lattice(pos, registrar.h_st, registrar.w_st,
+                                         registrar.window_size, shape)
+                if plan is None or plan[0] != "exact":
+                    sys.exit("error: --dense needs an exact integer-pitch lattice "
+                             "within --wsi-shape; fractional-pitch HD lattices use the "
+                             "banded resample (a live-registrar path) -- use "
+                             "`register`, or export the per-spot artifact with a "
+                             "large-enough --n-spots")
+                _, _, _, _, ey, ex = plan
+                blob = registrar.export_dense(shape, ey, ex, platforms=args.platforms)
+                sidecar.update(kind="dense", extent=[int(ey), int(ex)],
+                               inputs="(wsi, oy0, ox0, fg) from an exact "
+                                      "serving.fit_dense_lattice plan")
+            else:
+                blob = registrar.export(shape, n_spots=args.n_spots,
+                                        platforms=args.platforms)
+                sidecar.update(n_spots=args.n_spots,
+                               inputs="(wsi, oy, ox, y_px, x_px); see "
+                                      "serving.artifact_spot_inputs")
+        elif model_name in ("GridNetHexMM", "GridNetMM"):
+            g = grid_model_from_meta(meta, classes, variables, device=device)
+            p = meta.get("patch_px", 128)
+            scbert = meta.get("count_f") == "scbert"
+            n_c = meta["scbert_vocab"] if scbert else meta["n_genes"]
+            shapes = ((h_st, w_st, p, p, 3), (h_st, w_st, n_c))
+            # scBERT's gene2vec reindex zeroes unmapped genes, so the tissue
+            # comes in as a mask (from the raw counts, as register takes it)
+            blob = export_grid_forward(g, shapes, platforms=args.platforms,
+                                       explicit_fg=scbert)
+            if scbert:
+                inputs = ("(image_grid, count_grid, fg_mask) batched (1, ...); "
+                          "counts gene2vec-transformed (preprocess_scbert), "
+                          "fg_mask int32 from RAW counts (raw.sum(-1) > 0)")
+            elif meta.get("log1p"):
+                inputs = "(image_grid, count_grid) batched (1, ...); counts log1p-transformed"
+            else:
+                inputs = "(image_grid, count_grid) batched (1, ...)"
+            sidecar.update(grid_shapes=[list(s) for s in shapes], explicit_fg=scbert,
+                           inputs=inputs)
+        elif model_name.endswith("CountMLP"):
+            g = grid_model_from_meta(meta, classes, variables, device=device)
+            shape = (h_st, w_st, meta["n_genes"])
+            blob = export_grid_forward(g, shape, platforms=args.platforms)
+            inputs = "(count_grid,) batched (1, H, W, n_genes)"
+            if meta.get("log1p"):
+                inputs += "; log1p-transformed"
+            sidecar.update(grid_shapes=[list(shape)], inputs=inputs)
+        else:
+            sys.exit(f"error: don't know how to export model {model_name!r}")
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    with open(args.out, "wb") as fh:
+        fh.write(blob)
+    with open(args.out + ".json", "w") as fh:
+        json.dump(sidecar, fh, indent=1)
+    print(f"wrote {args.out} ({len(blob) / 1e6:.1f} MB) + sidecar {args.out}.json")
+
+
+def _cmd_serve_artifact(args):
+    """Register slides through an exported artifact: decode and staging on
+    ``SlideSource``'s thread, the fixed-shape inputs from the sidecar, one
+    artifact call a slide, a Loupe CSV each. Builds no model."""
+    from gridnext_tpu_torch.ingest import SlideSource
+    from gridnext_tpu_torch.server import artifact_inputs, load_artifact, run_artifact
+    from gridnext_tpu_torch.serving import resolve_device
+
+    _require_one_image_per_dir(args.images, args.spaceranger)
+    device = resolve_device(args.device)
+    try:
+        fn, side = load_artifact(args.artifact, device)
+    except (FileNotFoundError, ValueError) as e:
+        sys.exit(f"error: {e}")
+    hexc = side.get("hex_coords", True)
+    source = SlideSource(args.images, args.spaceranger, hd_binning=side.get("hd_binning"),
+                         device=device)
+    for i, wsi, pos in source:
+        try:
+            inputs = artifact_inputs(side, wsi.shape, pos, args.images[i], args.spaceranger[i])
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+        labels = run_artifact(fn, wsi, inputs, device)
+        _write_loupe(labels, args.spaceranger[i], args, side["classes"],
+                     hd_binning=side.get("hd_binning"), hex_coords=hexc, index=i)
+
+
+def _cmd_serve(args):
+    """The resident registration server (``server.py``): the model (or
+    artifact) loaded once onto ``--device``, then one registration per HTTP
+    request."""
+    import time
+
+    from gridnext_tpu_torch.server import RegistrationService, make_server
+
+    if args.mesh is not None:
+        sys.exit(_LATER_MESH)
+    try:
+        if args.artifact:
+            service = RegistrationService.from_artifact(args.artifact, device=args.device)
+        else:
+            service = RegistrationService.from_model_dir(
+                args.model, max_batch=args.max_batch, device=args.device)
+    except (ValueError, FileNotFoundError) as e:
+        sys.exit(f"error: {e}")
+
+    if args.warmup:
+        # the first request's set-up (kernel builds, the allocator's first
+        # blocks) before listening
+        if service.needs_image and len(args.warmup) != 2:
+            sys.exit("error: --warmup needs IMAGE SPACERANGER for this model "
+                     "(it registers slides)")
+        if not service.needs_image and len(args.warmup) != 1:
+            sys.exit("error: --warmup needs just SPACERANGER for a count model")
+        image, srd = ((args.warmup[0], args.warmup[1]) if service.needs_image
+                      else (None, args.warmup[0]))
+        t0 = time.perf_counter()
+        try:
+            service.register(srd, image=image)
+        except (ValueError, FileNotFoundError) as e:
+            sys.exit(f"error: warmup failed: {e}")
+        print(f"warmup register: {time.perf_counter() - t0:.1f}s (includes the "
+              "kernels' first use); subsequent requests skip it")
+        # /metrics describes steady serving, not the warm-up request
+        service.reset_metrics()
+
+    httpd = make_server(service, args.host, args.port, verbose=args.verbose)
+    host, port = httpd.server_address[:2]
+    info = service.info()
+    print(f"serving {info['model']} ({len(service.classes)} classes, backend "
+          f"{info['backend']}, {info['device_name']}) on http://{host}:{port} -- "
+          "GET /healthz | /metrics, POST /register", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        httpd.server_close()
+
+
 def build_parser():
     """The port's argument parser (one subparser per ported command)."""
     ap = argparse.ArgumentParser(prog="gridnext_tpu_torch", description=__doc__,
@@ -1735,6 +1932,72 @@ def build_parser():
                    help="fail (exit nonzero) if measured agreement is below this bound")
     _add_device_arg(s, "distillation")
     s.set_defaults(fn=_cmd_distill)
+
+    s = sub.add_parser(
+        "export",
+        help="write a trained model's registration as a torch.export artifact (.pt2, "
+             "weights inside, the kernels as gridnext:: custom ops; reload with "
+             "serving.load_exported_registration)")
+    s.add_argument("--model", required=True, help="trained model directory")
+    s.add_argument("--out", required=True, help="output artifact path")
+    s.add_argument("--wsi-shape", nargs=2, type=int, default=None, metavar=("H", "W"),
+                   help="image models: fullres slide pixel dims the artifact is "
+                        "specialized to (shapes are static); count/MM models export "
+                        "the grid->labels forward and don't need it")
+    s.add_argument("--n-spots", type=int, default=8192,
+                   help="fixed spot-axis length; pad real spot arrays with "
+                        "SlideRegistrar.spot_inputs (HD bin lattices run ~147k "
+                        "in-tissue bins -- raise this, or prefer --dense)")
+    s.add_argument("--dense", action="store_true",
+                   help="square-HD image models: export the dense-tiling registration "
+                        "(register_dense) instead of the per-spot gather; needs "
+                        "--spaceranger and an exact integer-pitch lattice")
+    s.add_argument("--spaceranger", nargs="*", default=None,
+                   help="--dense: representative array dir(s) to fit the bin lattice "
+                        "extent from")
+    s.add_argument("--platforms", nargs="*", default=None,
+                   help="target device types (cuda/gpu or cpu); an artifact runs on "
+                        "the device type it is exported on (--device), and naming "
+                        "another raises")
+    _add_device_arg(s, "the export (and the artifact)")
+    s.set_defaults(fn=_cmd_export)
+
+    s = sub.add_parser(
+        "serve-artifact",
+        help="register slides through an exported artifact (no model code; pair of "
+             "`export`)")
+    s.add_argument("--artifact", required=True,
+                   help="artifact path (its .json sidecar must sit beside it)")
+    s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--images", nargs="+", required=True)
+    s.add_argument("--out", required=True)
+    _add_device_arg(s, "the artifact")
+    s.set_defaults(fn=_cmd_serve_artifact)
+
+    s = sub.add_parser(
+        "serve",
+        help="resident HTTP registration server: the model loaded once, slides "
+             "registered per request (JSON; see server.py)")
+    src = s.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model", help="trained model directory (image, count, or "
+                                     "multimodal)")
+    src.add_argument("--artifact",
+                     help="exported artifact (+ .json sidecar); serves with no model "
+                          "code constructed")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000,
+                   help="0 picks a free port (printed at startup)")
+    s.add_argument("--mesh", default=None, help="not ported yet (exits)")
+    s.add_argument("--warmup", nargs="+", default=None, metavar="PATH",
+                   help="register one sample before listening: IMAGE SPACERANGER for "
+                        "image/MM models, SPACERANGER for count models")
+    s.add_argument("--max-batch", type=int, default=8,
+                   help="image models: concurrent requests that queue while a dispatch "
+                        "runs micro-batch into one register_batch of up to this many "
+                        "same-shape slides (1 disables)")
+    s.add_argument("--verbose", action="store_true", help="log every HTTP request")
+    _add_device_arg(s, "serving")
+    s.set_defaults(fn=_cmd_serve)
     return ap
 
 

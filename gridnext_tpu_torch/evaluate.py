@@ -9,6 +9,7 @@ augmentation), :func:`consensus_softmax`, :func:`flatten_foreground` and
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 from typing import Optional, Sequence
@@ -178,7 +179,8 @@ def to_loupe_annots(annot_grid, position_file, output_file,
                 "lattice is larger than the model's grid_dims (retrain with "
                 "grid_dims='auto' over a cohort that covers this array)")
 
-    with open(output_file, "w", newline="", encoding="utf-8") as fh:
+    with (contextlib.nullcontext(output_file) if hasattr(output_file, "write")
+          else open(output_file, "w", newline="", encoding="utf-8")) as fh:
         writer = csv.writer(fh, lineterminator=os.linesep)
         writer.writerow(["Barcode", "AARs"])
         for bc, xi, yi in zip(barcodes, x, y):

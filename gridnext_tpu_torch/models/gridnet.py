@@ -11,7 +11,7 @@ Cartesian corrector alone over concatenated feature grids.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -119,6 +119,34 @@ class _HexCorrector(nn.Module):
         return fold_corrector_params(tree["params"], tree["batch_stats"] or None)
 
 
+# Under torch.export, fewer chunks than this unroll: a map's body is slow to
+# trace (an scBERT + DenseNet-121 grid exported in 2.9x the time with its 8
+# image chunks mapped as with them unrolled; tools/time_export.py, PERF.md
+# section 6)
+MAP_MIN_CHUNKS = 16
+
+
+def map_chunks(fn: Callable, flat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``fn`` over the rows of ``flat`` in chunks of ``chunk``, concatenated.
+
+    Under ``torch.export``, :data:`MAP_MIN_CHUNKS` chunks or more are
+    zero-padded to whole chunks and mapped over as one ``(n_chunks, chunk,
+    ...)`` stack by ``torch._higher_order_ops.map``, so the exported graph
+    holds ``fn`` once, as JAX's ``lax.map`` does, and not a copy a chunk
+    (624 scBERT chunks a grid); ``fn`` must then treat rows independently,
+    as an eval-mode f does."""
+    n = flat.shape[0]
+    k = -(-n // chunk)
+    if not torch.compiler.is_exporting() or k < MAP_MIN_CHUNKS:
+        return torch.cat([fn(part) for part in torch.split(flat, chunk)])
+    from torch._higher_order_ops.map import map as map_op
+
+    if k * chunk != n:
+        flat = torch.cat([flat, flat.new_zeros((k * chunk - n,) + tuple(flat.shape[1:]))])
+    out = map_op(fn, flat.reshape((k, chunk) + tuple(flat.shape[1:])))
+    return out.reshape((k * chunk,) + tuple(out.shape[2:]))[:n]
+
+
 def apply_f_chunked(f: nn.Module, flat: torch.Tensor, chunk: Optional[int]) -> torch.Tensor:
     """Apply spot classifier ``f`` over a flattened spot batch.
 
@@ -137,7 +165,7 @@ def apply_f_chunked(f: nn.Module, flat: torch.Tensor, chunk: Optional[int]) -> t
         if trains:
             return torch.cat([checkpoint(f, part, use_reentrant=False)
                               for part in torch.split(flat, chunk)])
-        return torch.cat([f(part) for part in torch.split(flat, chunk)])
+        return map_chunks(f, flat, chunk)
 
 
 def apply_f_grid(f: nn.Module, x: torch.Tensor, chunk: Optional[int],

@@ -7,8 +7,13 @@ name carries a hash of its source, so an edited kernel rebuilds and a stale
 one is never loaded. :func:`build` compiles several sources at once, one
 ``nvcc`` process each, and returns ``ptxas``'s register and spill report.
 
-Nothing here runs at import time: the CPU tests import every module of the
-package on a machine without ``nvcc``.
+:func:`custom_op` registers a kernel's wrapper as a ``torch.library``
+custom op in the ``gridnext::`` namespace, so that ``torch.export`` records
+each kernel as one node of an exported program (``serving.py``'s
+artifacts) and a loaded program launches it.
+
+Nothing here builds or loads a kernel at import time: the CPU tests import
+every module of the package on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -147,3 +154,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def custom_op(name: str, schema: str, *, cpu, cuda, fake):
+    """Register the custom op ``gridnext::<name>`` with ``schema``: ``cpu``
+    (a kernel's plain version) for CPU tensors, ``cuda`` (its launch) for
+    CUDA tensors, and ``fake``, which gives only the output's shape and
+    dtype (what ``torch.export`` traces with). Tensors of any other device
+    raise. Returns the op (call it like a function; ``register_autograd``
+    adds a backward)."""
+    def unsupported(*args):
+        raise ValueError(f"gridnext::{name} takes CPU or CUDA tensors")
+
+    op = torch.library.custom_op(f"gridnext::{name}", unsupported, mutates_args=(),
+                                 schema=schema)
+    op.register_kernel("cpu")(cpu)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op

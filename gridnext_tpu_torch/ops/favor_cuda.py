@@ -36,9 +36,10 @@ every d >= 1 runs. Inputs of another dtype are cast to float32, and an
 operand whose layout the kernel cannot read is copied to a contiguous
 float32 tensor, as the JAX wrapper casts; the output is float32.
 
-Only the forward is a kernel. On CUDA the call sits in a
-``torch.autograd.Function`` whose backward differentiates the plain
-version, as the JAX op's custom VJP differentiates its einsum path.
+Only the forward is a kernel. The call is the custom op
+``gridnext::favor_attention``, whose registered backward differentiates
+the plain version, as the JAX op's custom VJP differentiates its einsum
+path.
 """
 
 from __future__ import annotations
@@ -150,24 +151,33 @@ def _launch(q, k, v, proj):
     return out if width == d else out[..., :d].contiguous()
 
 
-class _FusedFavor(torch.autograd.Function):
-    """The kernel forward; the backward differentiates the plain version."""
+# The wrapper as the custom op ``gridnext::favor_attention``: torch.export
+# records each call as one node. CPU tensors take the plain version, CUDA
+# tensors the kernels.
+favor_attention_op = _cuda.custom_op(
+    "favor_attention", "(Tensor q, Tensor k, Tensor v, Tensor proj) -> Tensor",
+    cpu=favor_attention_plain, cuda=_launch,
+    fake=lambda q, k, v, proj: q.new_empty(tuple(q.shape), dtype=torch.float32))
 
-    @staticmethod
-    def forward(ctx, q, k, v, proj):
-        ctx.save_for_backward(q, k, v, proj)
-        return _launch(q, k, v, proj)
 
-    @staticmethod
-    def backward(ctx, grad):
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            ins = [t.detach().float().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors, needs)]
-            out = favor_attention_plain(*ins)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, need in zip(ins, needs) if need], grad.float()))
-        return tuple(next(grads) if need else None for need in needs)
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _plain_vjp(ctx, grad):
+    """The backward: the plain version's VJP at the saved inputs, as the
+    JAX op's custom VJP differentiates its einsum path."""
+    needs = ctx.needs_input_grad
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, needs)]
+        out = favor_attention_plain(*ins)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, need in zip(ins, needs) if need], grad.float()))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+favor_attention_op.register_autograd(_plain_vjp, setup_context=_save_inputs)
 
 
 def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
@@ -183,15 +193,13 @@ def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
 
     CUDA tensors launch the kernels of ``csrc/favor.cu`` (and raise on an
     empty call or mismatched shapes); CPU tensors run
-    :func:`favor_attention_plain`.
+    :func:`favor_attention_plain`; both through the custom op
+    ``gridnext::favor_attention``, whose backward differentiates the plain
+    version.
     Replaces the TPU kernel ``gridnext_tpu/ops/favor_pallas.py::
     fused_generalized_linear_attention``; bound by operations (split-TF32
     tensor-core products), with the feature maps made and consumed in
     registers (module docstring).
     """
     _check_shapes(q, k, v, proj)
-    if q.device.type == "cpu":
-        return favor_attention_plain(q, k, v, proj)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _FusedFavor.apply(q, k, v, proj)
+    return favor_attention_op(q, k, v, proj)

@@ -247,7 +247,8 @@ def _layer_table(device_index: int, weights: tuple, biases: tuple, widths: tuple
 
 
 def _launch(x, kernels, biases, relu_flags, fg):
-    """One launch of the kernel over all layers; labels when ``fg`` is given."""
+    """One launch of the kernel over all layers; labels when ``fg`` is given.
+    Its plan and layer table are computed here, behind the op boundary."""
     dev = x.device
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the CUDA corrector takes contiguous float32 grids")
@@ -281,6 +282,35 @@ def _launch(x, kernels, biases, relu_flags, fg):
     return out
 
 
+# The two wrappers as the custom ops ``gridnext::fused_hex_corrector`` and
+# ``gridnext::fused_hex_corrector_labels`` (weights as ``Tensor[]``, ReLU
+# flags as ``bool[]``): torch.export records each call as one node. CPU
+# tensors take the plain versions, CUDA tensors the kernel.
+_LAYERS = "Tensor[] kernels, Tensor[] biases, bool[] relu_flags"
+hex_corrector_op = _cuda.custom_op(
+    "fused_hex_corrector", f"(Tensor x, {_LAYERS}) -> Tensor",
+    cpu=hex_corrector_plain,
+    cuda=lambda x, kernels, biases, relu_flags: _launch(x, kernels, biases, relu_flags,
+                                                         None),
+    fake=lambda x, kernels, biases, relu_flags: x.new_empty(
+        (*x.shape[:3], kernels[-1].shape[2]), dtype=torch.float32))
+hex_corrector_labels_op = _cuda.custom_op(
+    "fused_hex_corrector_labels", f"(Tensor x, Tensor fg, {_LAYERS}) -> Tensor",
+    cpu=hex_corrector_labels_plain,
+    cuda=lambda x, fg, kernels, biases, relu_flags: _launch(
+        x, kernels, biases, relu_flags, fg.to(torch.int32).contiguous()),
+    fake=lambda x, fg, kernels, biases, relu_flags: x.new_empty(
+        tuple(x.shape[:3]), dtype=torch.int32))
+
+
+def _layers(x, kernels, biases, relu_flags):
+    """The checked layers as the ops take them: float32 tensors on x's
+    device and a list of bools."""
+    _check_inputs(x, kernels, biases, relu_flags)
+    return (as_f32_tensors(kernels, x.device), as_f32_tensors(biases, x.device),
+            [bool(r) for r in relu_flags])
+
+
 def fused_hex_corrector(x: torch.Tensor, kernels: Sequence, biases: Sequence,
                         relu_flags: Sequence[bool] = CORRECTOR_RELU_FLAGS) -> torch.Tensor:
     """Apply the folded corrector to (B, H, W, C_in) f-output grids.
@@ -288,17 +318,13 @@ def fused_hex_corrector(x: torch.Tensor, kernels: Sequence, biases: Sequence,
     Returns (B, H, W, n_classes) float32 logits. Inputs come from
     :func:`fold_corrector_params`. CUDA tensors launch the kernel (one
     launch per call for all layers), CPU tensors run
-    :func:`hex_corrector_plain`. Replaces the TPU kernel
+    :func:`hex_corrector_plain`, both through the custom op
+    ``gridnext::fused_hex_corrector``. Replaces the TPU kernel
     ``gridnext_tpu/ops/hexcorrector_pallas.py::fused_hex_corrector``; bound
     by f32 operations, with each grid's layers in one thread-block cluster
     (module docstring).
     """
-    _check_inputs(x, kernels, biases, relu_flags)
-    if x.device.type == "cpu":
-        return hex_corrector_plain(x, kernels, biases, relu_flags)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, kernels, biases, relu_flags, None)
+    return hex_corrector_op(x, *_layers(x, kernels, biases, relu_flags))
 
 
 def fused_hex_corrector_labels(x: torch.Tensor, fg: torch.Tensor, kernels: Sequence,
@@ -310,18 +336,14 @@ def fused_hex_corrector_labels(x: torch.Tensor, fg: torch.Tensor, kernels: Seque
     ``fg``: (B, H, W) foreground mask (nonzero = in-tissue spot). Labels
     are 0 on background and 1..n_classes on foreground; ties take the
     first class, as ``jnp.argmax`` does. CUDA tensors launch the kernel,
-    CPU tensors run :func:`hex_corrector_labels_plain`. Replaces the TPU
+    CPU tensors run :func:`hex_corrector_labels_plain`, both through the
+    custom op ``gridnext::fused_hex_corrector_labels``. Replaces the TPU
     kernel ``gridnext_tpu/ops/hexcorrector_pallas.py::
     fused_hex_corrector_labels``; the last layer keeps a running argmax per
     cell and writes only the label, at any class count (module docstring).
     """
-    _check_inputs(x, kernels, biases, relu_flags)
+    layers = _layers(x, kernels, biases, relu_flags)
     if tuple(fg.shape) != tuple(x.shape[:3]):
         raise ValueError(f"fg {tuple(fg.shape)} does not match grids "
                          f"{tuple(x.shape[:3])}")
-    if x.device.type == "cpu":
-        return hex_corrector_labels_plain(x, fg, kernels, biases, relu_flags)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    fg = fg.to(x.device, torch.int32).contiguous()
-    return _launch(x, kernels, biases, relu_flags, fg)
+    return hex_corrector_labels_op(x, fg.to(x.device), *layers)

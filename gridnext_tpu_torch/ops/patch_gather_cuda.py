@@ -86,31 +86,10 @@ def gather_patches_plain(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     return imgs.reshape(b * h * w, 3)[lin]                     # (N, w, w, 3)
 
 
-def gather_patches(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
-                   window: int, slide: torch.Tensor | None = None) -> torch.Tensor:
-    """Gather ``(N, window, window, 3)`` uint8 patches.
-
-    Args:
-      imgs: ``(B, H, W, 3)`` uint8 slides (a single ``(H, W, 3)`` slide is
-        promoted to B=1).
-      y0, x0: ``(N,)`` integer top-left corners in pixel coordinates,
-        clamped into the slide like ``lax.dynamic_slice``.
-      window: crop side in pixels.
-      slide: ``(N,)`` slide index per spot, clamped into ``[0, B-1]``
-        (default: all 0).
-
-    On a CUDA tensor this launches the CUDA kernel ``csrc/patch_gather.cu``
-    (and raises if it cannot); on a CPU tensor it runs
-    :func:`gather_patches_plain`. Replaces the TPU kernel
-    ``gridnext_tpu/ops/patch_gather_pallas.py::gather_patches``; bound by
-    bytes, with bulk copies into shared memory and 16-byte stores where the
-    row allows (module docstring).
-    """
+def _gather_patches_cuda(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                         window: int, slide: torch.Tensor | None) -> torch.Tensor:
+    """One launch of ``csrc/patch_gather.cu`` (the op's CUDA implementation)."""
     global launches, byte_launches
-    if imgs.device.type == "cpu":
-        return gather_patches_plain(imgs, y0, x0, window, slide)
-    if imgs.device.type != "cuda":
-        raise ValueError(f"unsupported device {imgs.device}")
     imgs, b, h, w = _checked(imgs, y0, x0, window, slide)
     if not imgs.is_contiguous():
         raise ValueError("imgs must be contiguous")
@@ -135,3 +114,43 @@ def gather_patches(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     launches += 1
     byte_launches += not use_bulk
     return out
+
+
+# The crop as the custom op ``gridnext::gather_patches``: torch.export records
+# it as one node, so an exported registration program launches the kernel.
+# CPU tensors take the plain version, CUDA tensors the kernel; the fake
+# implementation gives only the output's shape and dtype.
+gather_patches_op = _cuda.custom_op(
+    "gather_patches", "(Tensor imgs, Tensor y0, Tensor x0, int window, Tensor? slide) -> Tensor",
+    cpu=gather_patches_plain, cuda=_gather_patches_cuda,
+    fake=lambda imgs, y0, x0, window, slide: imgs.new_empty(
+        (y0.shape[0], window, window, 3), dtype=torch.uint8))
+
+
+def gather_patches(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                   window: int, slide: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather ``(N, window, window, 3)`` uint8 patches.
+
+    Args:
+      imgs: ``(B, H, W, 3)`` uint8 slides (a single ``(H, W, 3)`` slide is
+        promoted to B=1).
+      y0, x0: ``(N,)`` integer top-left corners in pixel coordinates,
+        clamped into the slide like ``lax.dynamic_slice``.
+      window: crop side in pixels.
+      slide: ``(N,)`` slide index per spot, clamped into ``[0, B-1]``
+        (default: all 0).
+
+    On a CUDA tensor this launches the CUDA kernel ``csrc/patch_gather.cu``
+    (and raises if it cannot); on a CPU tensor it runs
+    :func:`gather_patches_plain`. Both go through the custom op
+    ``gridnext::gather_patches``. Replaces the TPU kernel
+    ``gridnext_tpu/ops/patch_gather_pallas.py::gather_patches``; bound by
+    bytes, with bulk copies into shared memory and 16-byte stores where the
+    row allows (module docstring).
+    """
+    if imgs.dim() == 3:
+        imgs = imgs.unsqueeze(0)
+    dev = imgs.device
+    y0, x0 = y0.to(dev), x0.to(dev)
+    slide = None if slide is None else slide.to(dev)
+    return gather_patches_op(imgs, y0, x0, int(window), slide)

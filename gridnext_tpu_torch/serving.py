@@ -32,6 +32,13 @@ image grid and a count grid with :func:`register_mm_grid`; the ``register``
 command builds them from the slides and the unified count caches
 (:func:`gridnext_tpu_torch.data.create_visium_dataset`).
 
+:meth:`SlideRegistrar.export`, :meth:`SlideRegistrar.export_dense` and
+:func:`export_grid_forward` write the registration as a ``torch.export``
+artifact (the JAX package's ``jax.export`` deployment unit): the weights
+inside, the kernels as ``gridnext::`` custom ops, f's chunks as one
+``map`` (:func:`~gridnext_tpu_torch.models.gridnet.map_chunks`);
+:func:`load_exported_registration` runs it with no model code.
+
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise rather than carry on on the CPU.
 """
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from gridnext_tpu_torch import geometry
+from gridnext_tpu_torch.models.gridnet import map_chunks
 from gridnext_tpu_torch.observability import stage
 from gridnext_tpu_torch.ops.hexcorrector_cuda import (
     CORRECTOR_RELU_FLAGS, as_f32_tensors, fused_hex_corrector,
@@ -93,6 +101,104 @@ def _parked_spots(n: int, h_st: int, p2: int):
     """
     return (np.full((n,), h_st, np.int32), np.zeros((n,), np.int32),
             np.full((n,), p2, np.int32), np.full((n,), p2, np.int32))
+
+
+def artifact_spot_inputs(wsi_shape, positions, n_spots: int, *, window_size: int,
+                         h_st: int, w_st: int, hex_coords: bool = True,
+                         pad_offset: int = 0):
+    """Fixed-length ``(oy, ox, y_px, x_px)`` int32 inputs of an exported
+    registration artifact (:meth:`SlideRegistrar.export`), built from its
+    sidecar's fields alone (``window_px``, ``h_st``, ``w_st``,
+    ``hex_coords``), with no registrar or model.
+
+    The live path's conventions: centers clamp so the window stays in the
+    slide, and the padding spots park outside the lattice (``oy == h_st``,
+    dropped by the scatter) and crop a harmless corner. Raises ValueError
+    when the slide has more in-tissue spots than ``n_spots``.
+    """
+    oy_a, ox_a, y_a, x_a = spot_pixel_arrays(positions, h_st, w_st, hex_coords)
+    y_a, x_a = _clamp_centers(y_a, x_a, wsi_shape, window_size, pad_offset)
+    k = len(oy_a)
+    if k > n_spots:
+        raise ValueError(f"{k} in-tissue spots exceed n_spots={n_spots}")
+    oy, ox, y_px, x_px = _parked_spots(n_spots, h_st, window_size // 2)
+    oy[:k], ox[:k], y_px[:k], x_px[:k] = oy_a, ox_a, y_a, x_a
+    return oy, ox, y_px, x_px
+
+
+# Names of the device types an artifact may be exported for, by the device
+# it is traced on (the JAX package's ``--platforms`` names included).
+_PLATFORM_NAMES = {"cuda": ("cuda", "gpu"), "cpu": ("cpu",)}
+
+
+def check_export_platforms(device, platforms) -> None:
+    """Raise ValueError when ``platforms`` names a device type other than
+    ``device``'s: an artifact holds the ops of the device it was traced on
+    (its kernels, or their plain versions on the CPU) and runs there only,
+    as the JAX package's Pallas artifacts run on their backend only.
+    Export on the target device instead."""
+    if not platforms:
+        return
+    here = torch.device(device).type
+    mismatched = [p for p in platforms
+                  if str(p).lower() not in _PLATFORM_NAMES.get(here, (here,))]
+    if mismatched:
+        raise ValueError(
+            f"cannot export for platforms {mismatched} from a {here!r} device: an "
+            "artifact runs the ops of the device it was traced on. Export on the "
+            "target device (--device)")
+
+
+class _Program(torch.nn.Module):
+    """``fn`` as the module ``torch.export`` traces: the modules it runs
+    are submodules (their weights the program's parameters and buffers);
+    other tensors it reads (folded corrector weights, resize matrices) are
+    lifted as constants."""
+
+    def __init__(self, fn: Callable, modules=()):
+        super().__init__()
+        self.fn = fn
+        self.parts = torch.nn.ModuleList([m for m in modules
+                                          if isinstance(m, torch.nn.Module)])
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _export(fn: Callable, modules, args) -> bytes:
+    """``torch.export`` of ``fn`` at the example ``args`` (their shapes and
+    dtypes are the program's), saved with ``torch.export.save``: the bytes
+    of one ``.pt2`` file. Chunk loops trace as one ``map``
+    (:func:`~gridnext_tpu_torch.models.gridnet.map_chunks`)."""
+    import io as _io
+
+    program = _Program(fn, modules).eval()
+    with torch.no_grad():
+        exported = torch.export.export(program, tuple(args), strict=False)
+    exported.example_inputs = None     # else the file keeps them (a whole slide)
+    buf = _io.BytesIO()
+    torch.export.save(exported, buf)
+    return buf.getvalue()
+
+
+def load_exported_registration(blob: bytes) -> Callable:
+    """Load an exported artifact (:meth:`SlideRegistrar.export`,
+    :meth:`SlideRegistrar.export_dense`, :func:`export_grid_forward`): the
+    bytes of its ``.pt2`` file. Returns ``fn(*inputs) -> labels``
+    (a tensor on the artifact's device), which runs the saved program,
+    weights included, with no model code; its ``gridnext::`` ops are
+    registered by importing :mod:`gridnext_tpu_torch.ops`. Inputs must have
+    the exported shapes (:meth:`SlideRegistrar.spot_inputs`)."""
+    import io as _io
+
+    exported = torch.export.load(_io.BytesIO(bytes(blob)))
+    module = exported.module()
+
+    def call(*inputs):
+        with torch.no_grad():
+            return module(*inputs)
+
+    return call
 
 
 def fit_dense_lattice(positions, h_st: int, w_st: int, window: int,
@@ -266,10 +372,8 @@ class SlideRegistrar:
         chunk by chunk, so only one chunk of float patches is alive at a
         time."""
         chunk = self.patch_chunk or crops.shape[0]
-        return torch.cat([
-            self.f_apply(self._normalize(
-                resize_patches(part, self.patch_size, self._resize)))
-            for part in torch.split(crops, chunk)])
+        return map_chunks(lambda part: self.f_apply(self._normalize(
+            resize_patches(part, self.patch_size, self._resize))), crops, chunk)
 
     def _bg_vec(self) -> torch.Tensor:
         # Background cells carry f(zero patch): in training grids background
@@ -556,6 +660,77 @@ class SlideRegistrar:
         spots = self._padded_spots(wsis.shape[1:], positions_list, pad_offset)
         return self._register_batch(wsis, *spots).cpu().numpy()
 
+    # -- exported artifacts --------------------------------------------------
+
+    def spot_inputs(self, wsi_shape, positions, n_spots: int, pad_offset: int = 0):
+        """Fixed-length ``(oy, ox, y_px, x_px)`` int32 numpy inputs of one
+        slide for an :meth:`export` artifact, padded to exactly ``n_spots``
+        with parked spots, as :meth:`register_batch` pads."""
+        return artifact_spot_inputs(
+            wsi_shape, positions, n_spots, window_size=self.window_size, h_st=self.h_st,
+            w_st=self.w_st, hex_coords=self.hex_coords, pad_offset=pad_offset)
+
+    def export(self, wsi_shape, n_spots: int, platforms=None) -> bytes:
+        """The registration of one slide as a ``torch.export`` artifact.
+
+        Returns the bytes of a ``.pt2`` file (``torch.export.save``) of
+        ``(wsi, oy, ox, y_px, x_px) -> (h_st, w_st) int32 labels``: the
+        crop, f, the scatter and the corrector with the labels, the weights
+        in the file and the kernels as ``gridnext::`` custom ops. Reload it
+        with :func:`load_exported_registration`, which builds no model.
+        Shapes are static: ``wsi_shape`` = (H, W, 3) uint8 and ``n_spots``
+        int32 spots (:meth:`spot_inputs`). The artifact runs on this
+        registrar's device only (``platforms`` naming another raises).
+        """
+        check_export_platforms(self.device, platforms)
+        if len(wsi_shape) != 3 or wsi_shape[-1] != 3:
+            raise ValueError(f"wsi_shape must be (H, W, 3); got {wsi_shape}")
+        # distinct example tensors: export would take aliased ones for one input
+        spots = [torch.zeros((int(n_spots),), dtype=torch.int32, device=self.device)
+                 for _ in range(4)]
+        args = (torch.zeros(tuple(map(int, wsi_shape)), dtype=torch.uint8,
+                            device=self.device), *spots)
+        return _export(lambda wsi, oy, ox, y, x: self._register(
+            wsi, oy.long(), ox.long(), y.long(), x.long()),
+            (self.f_apply, self.corrector_apply), args)
+
+    def _register_dense(self, wsi, oy0, ox0, fg, ey: int, ex: int):
+        """An exact integer-pitch lattice: the ``(ey, ex)`` extent's bins
+        crop at ``(oy0, ox0) + index * window`` in one gather, f runs on
+        them all, and bins outside the in-tissue mask ``fg`` take f(zero
+        patch), as in the per-bin scatter. The JAX package's
+        ``_register_dense`` (a slice of the extent there)."""
+        w = self.window_size
+        iy = torch.arange(ey, device=self.device).repeat_interleave(ex)
+        ix = torch.arange(ex, device=self.device).repeat(ey)
+        crops = gather_patches(wsi[None], oy0 + iy * w, ox0 + ix * w, w)
+        feats = self._apply_f(crops).reshape(ey, ex, -1)
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, self.w_st - ex, 0, self.h_st - ey))
+        fg = fg.to(torch.int32)
+        grid = torch.where(fg[..., None] > 0, feats, self._bg_vec().to(feats.dtype))
+        return self._labels_from_grid(grid[None].contiguous(), fg[None])[0]
+
+    def export_dense(self, wsi_shape, ey: int, ex: int, platforms=None) -> bytes:
+        """The exact-pitch dense registration of :meth:`register_dense` as a
+        ``torch.export`` artifact for a fixed ``wsi_shape`` and in-tissue bin
+        extent ``(ey, ex)`` (from :meth:`dense_plan`'s ``("exact", oy0, ox0,
+        fg, ey, ex)``). The loaded program takes ``(wsi, oy0, ox0, fg)``:
+        the slide, the top-left pixel of bin (0, 0) as int32 scalars, and
+        the (h_st, w_st) int32 in-tissue mask."""
+        check_export_platforms(self.device, platforms)
+        if self.hex_coords:
+            raise ValueError("export_dense needs a square-lattice registrar "
+                             "(hex_coords=False)")
+        if len(wsi_shape) != 3 or wsi_shape[-1] != 3:
+            raise ValueError(f"wsi_shape must be (H, W, 3); got {wsi_shape}")
+        oy0, ox0 = (torch.zeros((), dtype=torch.int32, device=self.device) for _ in range(2))
+        args = (torch.zeros(tuple(map(int, wsi_shape)), dtype=torch.uint8,
+                            device=self.device), oy0, ox0,
+                torch.zeros((self.h_st, self.w_st), dtype=torch.int32, device=self.device))
+        ey, ex = int(ey), int(ex)
+        return _export(lambda wsi, oy0, ox0, fg: self._register_dense(
+            wsi, oy0.long(), ox0.long(), fg, ey, ex), (self.f_apply, self.corrector_apply), args)
+
 
 def dispatch_group(registrar: SlideRegistrar, items, *, timer=None, plans=None,
                    stats=None):
@@ -716,6 +891,46 @@ def register_mm_grid(model, x_image, x_count_raw, count_transform: Optional[Call
         logits = model((xi[None], xc[None]))[0]
         labels = (torch.argmax(logits, dim=-1) + 1).to(torch.int32).cpu().numpy()
     return np.where(fg, labels, 0).astype(np.int32)
+
+
+def export_grid_forward(model, grid_shapes, platforms=None,
+                        explicit_fg: bool = False) -> bytes:
+    """A count or multimodal grid model's registration forward as a
+    ``torch.export`` artifact: ``argmax(model(x)) + 1`` where the tissue
+    is, 0 elsewhere, over fixed-shape float32 input grids, the weights in
+    the file (the bytes of one ``.pt2``; reload with
+    :func:`load_exported_registration`).
+
+    ``model``: a grid model with its weights (``GridNet[Hex]`` of a count
+    f, ``GridNetHexMM`` / ``GridNetMM``), in eval mode on the device the
+    artifact targets. ``grid_shapes``: one ``(H, W, C)`` tuple, or a
+    sequence of them (image, count) for the multimodal models; the program
+    takes them batched as ``(1, H, W, ...)``. The tissue is any nonzero
+    feature of the (last) count grid, or, with ``explicit_fg``, a trailing
+    ``(1, H, W)`` int32 mask input: needed where the counts come
+    pre-transformed by a map that zeroes a tissue cell (scBERT's gene2vec
+    reindex), as in the JAX package's ``export_grid_forward``.
+    """
+    device = next(model.parameters()).device
+    check_export_platforms(device, platforms)
+    single = bool(len(grid_shapes)) and np.ndim(grid_shapes[0]) == 0
+    shapes = (grid_shapes,) if single else tuple(grid_shapes)
+    args = [torch.zeros((1,) + tuple(map(int, s)), dtype=torch.float32, device=device)
+            for s in shapes]
+    n_grids = len(args)
+    if explicit_fg:
+        args.append(torch.zeros((1, int(shapes[0][0]), int(shapes[0][1])),
+                                dtype=torch.int32, device=device))
+    model.eval()
+
+    def forward(*xs):
+        grids = xs[:n_grids]
+        logits = model(grids[0] if single else tuple(grids))
+        labels = torch.argmax(logits, dim=-1).to(torch.int32) + 1
+        fg = (xs[-1] > 0) if explicit_fg else (grids[-1] != 0).any(dim=-1)
+        return torch.where(fg, labels, torch.zeros_like(labels))
+
+    return _export(forward, (model,), args)
 
 
 def label_parity_report(want, got, logits, *, rel_tol: float = 1e-2,

@@ -412,3 +412,78 @@ def test_favor_kernel_refuses_what_it_does_not_take(dev, d):
     with pytest.raises(ValueError):
         favor.fused_generalized_linear_attention(q, k, v, proj[:, 1:])
     assert favor.launches == before + 4
+
+
+# -- exported artifacts: the kernels inside torch.export programs --------------------
+
+
+def test_exported_registration_launches_the_kernels(dev):
+    """An ``export`` artifact of a registrar on the card runs the gather and
+    the labels corrector as its ``gridnext::`` ops: one launch each a call,
+    and the live registrar's labels (up to near-ties)."""
+    from gridnext_tpu_torch.models import GridNetHex, TpuPatchClassifier
+    from gridnext_tpu_torch.serving import SlideRegistrar, load_exported_registration
+
+    torch.manual_seed(0)
+    g = GridNetHex(TpuPatchClassifier(n_classes=5, stages=((32, 1),), stem_patch=8),
+                   n_classes=5, f_dim=5)
+    reg = SlideRegistrar.from_gridnet(g, patch_size=32, normalize=None, patch_chunk=200,
+                                      device=dev)
+    rng = np.random.default_rng(0)
+    wsi = torch.as_tensor(rng.integers(0, 256, (900, 800, 3), dtype=np.uint8), device=dev)
+    n, k = 512, 300
+    oy = np.full(n, 78, np.int32)
+    ox = np.zeros(n, np.int32)
+    y_px = np.full(n, 16, np.int32)
+    x_px = np.full(n, 16, np.int32)
+    cells = rng.choice(78 * 64, k, replace=False)
+    oy[:k], ox[:k] = divmod(cells, 64)
+    y_px[:k] = rng.integers(16, 900 - 16, k)
+    x_px[:k] = rng.integers(16, 800 - 16, k)
+    ins = [torch.as_tensor(a, device=dev) for a in (oy, ox, y_px, x_px)]
+    with torch.inference_mode():
+        live = reg._register(wsi, *(t.long() for t in ins)).cpu().numpy()
+        logits, _ = reg._register_logits(wsi, *(t.long() for t in ins))
+    fn = load_exported_registration(reg.export(tuple(wsi.shape), n_spots=n))
+    before = (gather.launches, corr.launches["fused_hex_corrector_labels"])
+    got = fn(wsi, *ins).cpu().numpy()
+    torch.cuda.synchronize()
+    assert (gather.launches, corr.launches["fused_hex_corrector_labels"]) == (
+        before[0] + 1, before[1] + 1)
+    label_parity_report(live, got, logits.cpu().numpy())
+    assert int((got > 0).sum()) == k
+    with pytest.raises(ValueError, match="cannot export for platforms"):
+        reg.export(tuple(wsi.shape), n_spots=n, platforms=["cpu"])
+
+
+def test_exported_scbert_grid_forward_launches_favor(dev):
+    """A multimodal grid artifact with a 2-layer scBERT count f: the count
+    chunks are one ``map`` in the graph, FAVOR's op runs once a layer for
+    each chunk, and the labels are the live model's (up to near-ties)."""
+    from gridnext_tpu_torch.models import GridNetHexMM, TpuPatchClassifier, scBERT
+    from gridnext_tpu_torch.serving import export_grid_forward, load_exported_registration
+
+    torch.manual_seed(1)
+    h, w, vocab, depth, chunk = 6, 5, 40, 2, 1
+    g = GridNetHexMM(TpuPatchClassifier(n_classes=3, stages=((16, 1),), stem_patch=4),
+                     scBERT(n_genes=vocab, dim=16, depth=depth, heads=2, dim_head=16,
+                            nb_features=12, n_classes=3, generalized_attention=True),
+                     n_classes=3, patch_chunk=16, count_chunk=chunk).to(dev).eval()
+    rng = np.random.default_rng(2)
+    imgs = torch.as_tensor(rng.uniform(size=(1, h, w, 8, 8, 3)).astype(np.float32), device=dev)
+    counts = torch.as_tensor(np.log2(1 + rng.poisson(2.0, (1, h, w, vocab)))
+                             .astype(np.float32), device=dev)
+    fg = torch.ones((1, h, w), dtype=torch.int32, device=dev)
+    blob = export_grid_forward(g, ((h, w, 8, 8, 3), (h, w, vocab)), explicit_fg=True)
+    import io
+
+    ep = torch.export.load(io.BytesIO(blob))
+    assert any(str(n.target) == "map_impl" for n in ep.graph.nodes)    # chunks: one map
+    fn = load_exported_registration(blob)
+    before = favor.launches
+    got = fn(imgs, counts, fg).cpu().numpy()
+    torch.cuda.synchronize()
+    assert favor.launches - before == depth * -(-h * w // chunk)
+    with torch.no_grad():
+        logits = g((imgs, counts)).cpu().numpy()
+    label_parity_report(logits.argmax(-1)[0] + 1, got[0], logits[0])

@@ -74,7 +74,8 @@ def _imports(tree):
                                                               REPO / "tools" / "time_favor.py",
                                                               REPO / "tools" / "time_denseblock.py",
                                                               REPO / "tools" / "time_gather_corrector.py",
-                                                              REPO / "tools" / "time_register_slides.py"],
+                                                              REPO / "tools" / "time_register_slides.py",
+                                                              REPO / "tools" / "time_export.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), str(path))
