@@ -158,11 +158,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     spot batch and per grid; the written directory registered by the
     ``register`` command, its labels equal (up to near-ties) to a CPU
     forward of the same weights, and ``g_state.msgpack`` read back
-    bit-equal; a spotwise epoch timed, and a traced epoch of 8 batches (cut
-    from 20 for the time limit) for the device time a step of the crop, forward + backward and the
-    optimiser (each kernel by the range its launch fell in) and the busy
-    time a step, which split the untraced epoch (the device's idle time
-    the host's) and give its idle share; the grid step timed; (b) one spotwise DenseNet-121 step
+    bit-equal; the epoch's first 64 spotwise steps timed (cut from the
+    epoch's 213 for the time limit), and a traced epoch of 8 batches (cut
+    from 20) for the device time a step of the crop, forward + backward and
+    the optimiser (each kernel by the range its launch fell in) and the busy
+    time a step, which split the untraced steps (the device's idle time
+    the host's) and give their idle share; the grid step timed; (b) one spotwise DenseNet-121 step
     (batch 32) and one GridNetHex grid step with the frozen DenseNet-121 f
     over a 32 x 32 window of slide 0's grid (the CPU's f over a whole grid
     takes a minute), on the card and on the CPU from the same weights, and in float64 on
@@ -250,7 +251,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     equal to the annotations, its accuracy the grids', s per array;
     ``--tta`` (f run 8 times) and ``--f-only`` on
     array 0; (b) ``distill`` into the default bf16 ``TpuPatchClassifier``
-    at batch 256 and the 15 % holdout, ``DISTILL_STEPS`` = 300 steps (cut
+    at batch 256 and the 15 % holdout, ``DISTILL_STEPS`` = 200 steps (cut
     from 2,000): steps/s and patches/s of the loop, the last 100-step
     chunk's loss below the first, the recorded ``label_agreement`` equal to
     the two registrars' recomputed, 1 + 2 x 4 gather and 2 x 4
@@ -299,12 +300,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
     13 (a)'s up to near-ties (no second live pass), FAVOR launched once a
     layer for each of the 624 count chunks; every time beside the card's
     name and power limit;
-19. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+19. the parallel tier and the cohort workflows: (a) in phase 15's
+    directory, ``train-count --mesh data=1`` over a 1-rank NCCL process
+    group (``--coordinator 127.0.0.1:<free port>,1,0``, in-process), 1
+    epoch over the 4-array 16,906-gene cohort, its files byte-equal to the
+    same command's without a mesh, the parallel module's count of gradient
+    all-reduces above 0 (apart from the host's stop flags; every count 0
+    without a mesh); (b) in phase 14's directory, four processes at once
+    on the card (cuDNN's deterministic algorithms): 2 gloo ranks, the
+    single-process reference, and the witness, one process that runs the
+    ranks' arithmetic without collectives (each step's two 16-row halves
+    apart, their gradients summed). A ``TpuPatchClassifier`` spot stage
+    (batch ``TRAIN_BATCH``, ``MESH_STEPS`` = 8 steps, slide 0's spots):
+    the ranks bit-equal to each other; within 1e-6 relative (losses) and
+    1e-6 abs + 1e-5 rel (every weight and first-step gradient) of the
+    witness; against the reference, the first step's loss within 1e-6 and
+    its gradients within 1e-4 of each tensor's largest, the 8 losses within
+    1e-4 and at most ``MESH_WEIGHTS_OUT`` of the weights beyond 1e-4 abs +
+    1e-3 rel; one gather launch a batch on each rank, and only rank 0's
+    checkpoint directory written. Then one GridNetHex grid step (frozen
+    TpuPatchClassifier f; g's BatchNorm over the global batch, one 32 x 32
+    window a rank): loss within 1e-5, g's gradients within 1e-4 of each
+    tensor's norm (zero true gradients left out), BatchNorm statistics
+    within 1e-5 of the reference's. Then ``train_mlm`` of a PerformerLM at
+    scBERT's widths (depth cut to 2), 2 steps of 4 rows with a FAVOR
+    redraw after each, also in the witness: against the witness, losses
+    within 1e-6 and step-1 gradients and projections within 1e-6 abs +
+    1e-5 rel; against the reference (FAVOR's other split plan at 4 rows),
+    both losses within 1e-5, the step-1 gradients within 1e-3 of each
+    tensor's largest and the projections equal; FAVOR launched once a
+    layer a step on each rank (a gloo refusal of a CUDA collective is
+    printed and leaves (b) out); (c) in phase 10's directory, phase 4's
+    model directory as a ``SlideRegistrar(mesh=...)`` with 2 spot shards on
+    the card over the 4 slides: one gather launch a shard and one labels
+    corrector, labels phase 4's up to ``label_parity_report``'s near-ties,
+    ms/slide against the unsharded registrar's; (d) in phase 15's
+    directory, the PCA workflow: 2,000 highly variable genes over the 4
+    caches, the cohort scaler, ``fit_pca`` on the card against a float64
+    fit on the host: ``n_pcs`` at 0.5 variance equal, the leading ``n_pcs``
+    components' cosines at least 1 - 1e-4 and ``explained_variance_ratio_``
+    within 1e-5, each step's seconds; every number beside the card's name
+    and power limit;
+20. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
-    ``launches_distill``, phase 17's counts, and ``launches_serve`` and
-    ``launches_artifact``, phase 18's), then the last line
-    ``{"ok": true, "device": {...}}``.
+    ``launches_distill``, phase 17's counts, ``launches_serve`` and
+    ``launches_artifact``, phase 18's, and ``launches_mesh``, phase 19's),
+    then the last line ``{"ok": true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
 port, torch and numpy.
@@ -2658,6 +2700,7 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
 TRAIN_BATCH = 32              # train-image's --batch-size
 TRAIN_LR = 1e-3               # train-image's --f-lr and --g-lr
 TRAIN_TRACE_BATCHES = 8       # spotwise batches in the traced epoch (256 spots; cut from 20)
+TRAIN_TIMED_BATCHES = 64      # spotwise batches timed untraced (cut from the epoch's 213)
 SCBERT_BATCH, SCBERT_STEPS = 8, 8
 MM_STEP_DEPTH = 2             # scBERT layers in (c)'s GridNetHexMM grid step (cut from 6)
 TRAIN_TINT = 48               # +- intensity of a class's colour tint in its spots' windows
@@ -3035,7 +3078,8 @@ def train_phase(torch, slides, port, card, tmp, mm):
                                   fullres_image_files=npys, patch_size_px=PATCH,
                                   device=dev)
     order = np.random.default_rng(0).permutation(len(spots))[n_val:]
-    batches = [order[i:i + TRAIN_BATCH] for i in range(0, len(order), TRAIN_BATCH)]
+    batches = [order[i:i + TRAIN_BATCH]
+               for i in range(0, len(order), TRAIN_BATCH)][:TRAIN_TIMED_BATCHES]
     f = models.densenet121(num_classes=N_CLASSES)
     state = tl.create_train_state(f, tl.make_adam(TRAIN_LR), device=dev)
     train_step, _ = tl.make_steps(state, "spot")
@@ -3079,8 +3123,9 @@ def train_phase(torch, slides, port, card, tmp, mm):
         trace, ("crop", "forward + backward", "optimiser")).items()}
     t_parse = time.perf_counter() - t0
     step_ms = t_epoch * 1e3 / n_steps
-    log(f"spotwise epoch ({n_steps} steps of {TRAIN_BATCH}): {t_epoch:.2f} s, "
-        f"{n_steps / t_epoch:.2f} steps/s, {len(order) / t_epoch:.1f} patches/s; the traced "
+    log(f"spotwise steps (the epoch's first {n_steps} of {TRAIN_BATCH}): {t_epoch:.2f} s, "
+        f"{n_steps / t_epoch:.2f} steps/s, {n_steps * TRAIN_BATCH / t_epoch:.1f} patches/s; "
+        f"the traced "
         f"epoch {t_traced:.2f} s, its trace's export and parse {t_parse:.2f} s [{card}]")
     log(f"traced spotwise epoch ({len(traced)} batches): device ms a step: crop "
         f"{part['crop']:.3f}, forward + backward {part['forward + backward']:.3f}, "
@@ -3825,7 +3870,7 @@ def phase_pretrain(torch, card, tmp, dirs, dev) -> dict:
 
 # -- phase 17: the evaluate and distill commands ------------------------------------
 
-DISTILL_STEPS = 300           # (b)'s distill --steps (default 2,000; cut)
+DISTILL_STEPS = 200           # (b)'s distill --steps (default 2,000; cut)
 MM_DISTILL_STEPS, MM_DISTILL_BATCH = 50, 64   # (c)'s --steps / --batch-size (2,000 / 256; cut)
 DISTILL_BATCH = 256           # distill's default --batch-size (also its scBERT holdout chunk)
 
@@ -4529,6 +4574,565 @@ def phase_serve_count(torch, port, card, tier, dev) -> float:
     return time.perf_counter() - t_phase
 
 
+# -- phase 19: the parallel tier and the cohort workflows ----------------------------
+
+MESH_STEPS = 8                # (b)'s spotwise steps of batch TRAIN_BATCH
+MESH_LR = 1e-3                # (b)'s learning rate (train-image's --f-lr)
+MESH_GRID = 32                # (b)'s grid step: 2 windows of 32 x 32 cells, one a rank
+MESH_MLM_DEPTH = 2            # (b)'s PerformerLM layers at scBERT's widths (cut from 6)
+MESH_MLM_STEPS = 2            # (b)'s MLM steps of PRETRAIN_BATCH rows, a redraw after each
+MESH_WEIGHTS_OUT = 3e-3       # (b): share of weights beyond 1e-4 abs + 1e-3 rel of the
+#                               32-row run (read 9.80e-4 and 9.86e-4 in PR 15's runs)
+HVG_GENES = 2000              # (d)'s highly variable genes
+PCA_VARIANCE = 0.5            # (d)'s variance target for n_pcs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_spot_worker(argv) -> int:
+    """Phase 19 (b)'s process: ``coordinator world rank out_dir srd npy
+    csv``. ``world`` 2: one of two gloo ranks; 0: the single-process
+    reference; -1: the witness, one process that does the ranks' arithmetic
+    without collectives (:func:`witness_spot_steps`).
+
+    Trains a TpuPatchClassifier spotwise over slide 0's first
+    ``TRAIN_BATCH`` spots for ``MESH_STEPS`` steps (one an epoch: the epoch
+    losses are the step losses) with its checkpoint in ``out_dir/<tag>``;
+    then, except in the witness, one GridNetHex grid step
+    (:func:`mesh_grid_step`) and ``MESH_MLM_STEPS`` MLM steps through FAVOR
+    (:func:`mesh_mlm_steps`). Saves the losses, the kernels' launches, the
+    first step's summed gradients and the final variables in
+    ``out_dir/result_<tag>.npz`` (tag ``r<rank>``, ``ref`` or ``wit``).
+    Exit 3: gloo refused a CUDA collective (printed)."""
+    import torch
+    import torch.distributed as dist
+
+    from gridnext_tpu_torch import ingest, models
+    from gridnext_tpu_torch.data import Subset, create_visium_dataset
+    from gridnext_tpu_torch.ops import patch_gather_cuda as gather
+    from gridnext_tpu_torch.parallel import initialize_multihost
+    from gridnext_tpu_torch.train import loops as tl
+
+    coord, world, rank, out_dir, srd, npy, csv_file = argv
+    world, rank = int(world), int(rank)
+    tag = {0: "ref", -1: "wit"}.get(world, f"r{rank}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # one algorithm a shape, run to run: the witness holds the ranks to
+    # the same arithmetic, not to the rounding of another algorithm
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0)
+    if world > 0:
+        initialize_multihost(coord, world, rank, backend="gloo", device=dev, timeout=300)
+        for name, probe in (("all_reduce SUM", lambda t: dist.all_reduce(t)),
+                            ("all_reduce MAX", lambda t: dist.all_reduce(
+                                t, op=dist.ReduceOp.MAX)),
+                            ("broadcast", lambda t: dist.broadcast(t, 0))):
+            try:
+                probe(torch.ones(4, device=dev))
+            except RuntimeError as e:
+                print(f"gloo refused {name} on a CUDA tensor: {e}", flush=True)
+                return 3
+    ingest.decode_slide = np.load
+    spots = create_visium_dataset([srd], spatial=False, use_count=False, annot_files=[csv_file],
+                                  fullres_image_files=[npy], patch_size_px=PATCH, device=dev)
+    f = models.TpuPatchClassifier(n_classes=N_CLASSES)
+    out = os.path.join(out_dir, tag)
+    os.makedirs(out, exist_ok=True)
+    state = tl.create_train_state(f, tl.make_adam(MESH_LR),
+                                  generator=torch.Generator().manual_seed(SEED), device=dev)
+    grads0 = {}
+    apply = state.optimizer.step
+
+    def step():                      # the first step's (summed) gradients
+        if not grads0:
+            grads0.update({f"grad0/{n}": p.grad.detach().cpu().numpy()
+                           for n, p in f.named_parameters() if p.grad is not None})
+        apply()
+
+    state.optimizer.step = step
+    gather.launches = 0
+    if world >= 0:
+        state, _, losses = tl.train_spotwise(
+            f, {"train": Subset(spots, np.arange(TRAIN_BATCH))}, state=state,
+            num_epochs=MESH_STEPS, batch_size=TRAIN_BATCH,
+            outfile=os.path.join(out, "f.msgpack"), verbose=False, device=dev,
+            mesh_shape={"data": world} if world else None)
+    else:
+        losses = witness_spot_steps(torch, tl, state, spots, dev)
+    torch.cuda.synchronize()
+    flat = {"/".join(k): v for k, v in tree_leaves(state.variables())}
+    result = {"losses": np.asarray(losses), "gather_launches": gather.launches,
+              **flat, **grads0}
+    del state, f, spots
+    if world >= 0:
+        result.update(mesh_grid_step(torch, tl, models, dev, world))
+        result.update(mesh_mlm_steps(torch, tl, models, dev, world))
+    else:
+        result.update(witness_mlm_steps(torch, tl, models, dev))
+    np.savez(os.path.join(out_dir, f"result_{tag}.npz"), **result)
+    if world > 0:
+        dist.destroy_process_group()
+    return 0
+
+
+def witness_spot_steps(torch, tl, state, spots, dev) -> list:
+    """The two ranks' spot stage in one process, without collectives: each
+    step's shuffled batch (``train_spotwise``'s shuffle) in its two halves,
+    each forward and backward apart as on its rank (its loss over the
+    global count, its rows of the step's random draws), the halves'
+    gradients summed in float32 (what gloo's SUM of two gives), one Adam
+    step. Returns the step losses, each the halves' sum."""
+    from gridnext_tpu_torch.models.layers import set_dropout_generator
+    from gridnext_tpu_torch.parallel import collectives
+
+    model, params = state.model, state.optimizer.trainable
+    rng = np.random.default_rng(0)            # train_spotwise's shuffle_seed
+    half = TRAIN_BATCH // 2
+    losses = []
+    for _ in range(MESH_STEPS):
+        order = rng.permutation(TRAIN_BATCH)
+        model.train()
+        total, summed = None, None
+        for r in range(2):
+            x, y = spots.batch(order[r * half:(r + 1) * half])
+            set_dropout_generator(model, tl._step_generator(tl._DROPOUT_SEED, state.step, dev))
+            with collectives.sharded(rows=collectives.RowShard(r * half, (r + 1) * half,
+                                                               TRAIN_BATCH)):
+                loss, _, _ = tl._spot_loss(model(x), torch.as_tensor(y, device=dev),
+                                           lambda n: torch.full_like(n, TRAIN_BATCH))
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                params, torch.autograd.grad(loss, params, allow_unused=True))]
+            summed = grads if summed is None else [a + b for a, b in zip(summed, grads)]
+            total = loss.detach().double() if total is None else total + loss.detach().double()
+        for p, g in zip(params, summed):
+            p.grad = g
+        state.optimizer.step()
+        state.step += 1
+        losses.append(float(total.float()))
+    return losses
+
+
+def _mesh_rows(torch, tl, kind: str, batch: int, world: int):
+    """(this process's rows of a global batch, its mesh step or None)."""
+    if not world:
+        return slice(None), None
+    mesh = tl._resolve_mesh(None, {"data": world})
+    rows = tl._mesh_placement(mesh, kind, batch)(np.arange(batch))
+    return slice(int(rows[0]), int(rows[-1]) + 1), tl._MeshStep(rows, batch)
+
+
+def mesh_grid_step(torch, tl, models, dev, world) -> dict:
+    """One GridNetHex grid step (TpuPatchClassifier f frozen, g with its
+    BatchNorm layers in train mode) over two ``MESH_GRID`` x ``MESH_GRID``
+    windows of random 128-px patches and labels from a seed: on 2 ranks one
+    window each, g's BatchNorm over the global batch through gloo's
+    all-reduce of CUDA tensors. Returns the loss, g's gradients and its
+    updated BatchNorm statistics."""
+    from gridnext_tpu_torch.compat.from_jax import model_entries
+
+    g = models.GridNetHex(models.TpuPatchClassifier(n_classes=N_CLASSES), N_CLASSES,
+                          N_CLASSES)
+    state = tl.create_train_state(g, tl.make_gridwise_optimizer(MESH_LR),
+                                  generator=torch.Generator().manual_seed(SEED + 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.rand((2, MESH_GRID, MESH_GRID, PATCH, PATCH, 3), generator=gen, device=dev)
+    y = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, N_CLASSES + 1, (2, MESH_GRID, MESH_GRID)), device=dev)
+    rows, ms = _mesh_rows(torch, tl, "grid", 2, world)
+    grads = {}
+    apply = state.optimizer.step
+
+    def capture():
+        grads.update({f"grid_grad/{n}": p.grad.detach().cpu().numpy()
+                      for n, p in g.named_parameters() if p.grad is not None})
+        apply()
+
+    state.optimizer.step = capture
+    step, _ = tl.make_steps(state, "grid", mesh_step=ms)
+    m = step(x[rows], y[rows])
+    torch.cuda.synchronize()
+    stats = {"grid_stats/" + "/".join(path): t.detach().cpu().numpy()
+             for path, t, _ in model_entries(g) if path[0] == "batch_stats"}
+    return {"grid_loss": float(m["loss"]), **grads, **stats}
+
+
+def _mesh_lm(torch, tl, models, dev):
+    """(a PerformerLM at scBERT's widths (16,907 tokens, dim 200, 10 heads,
+    dim_head 64, m 266; depth cut to ``MESH_MLM_DEPTH``) with its state
+    from a seed, ``PRETRAIN_BATCH`` rows of random bins, the dict its
+    optimizer's first step fills with the gradients)."""
+    lm = models.PerformerLM(num_tokens=7, max_seq_len=MM_VOCAB + 1, dim=MM_DIM,
+                            depth=MESH_MLM_DEPTH, heads=MM_HEADS, dim_head=MM_DIM_HEAD,
+                            nb_features=266, generalized_attention=True)
+    state = tl.create_train_state(lm, tl.make_adam(1e-4),
+                                  generator=torch.Generator().manual_seed(SEED + 2), device=dev)
+    tokens = np.random.default_rng(SEED + 2).integers(0, 6, (PRETRAIN_BATCH, MM_VOCAB + 1))
+    grads = {}
+    apply = state.optimizer.step
+
+    def capture():
+        if not grads:
+            grads.update({f"mlm_grad0/{n}": p.grad.detach().cpu().numpy()
+                          for n, p in lm.named_parameters() if p.grad is not None})
+        apply()
+
+    state.optimizer.step = capture
+    return lm, state, tokens, grads
+
+
+def _mlm_result(lm, losses, grads, launches) -> dict:
+    proj = {f"mlm_proj/{k}": v.cpu().numpy() for k, v in lm.state_dict().items()
+            if k.endswith("fast_attention.projection")}
+    return {"mlm_losses": np.asarray(losses), "favor_launches": launches, **grads, **proj}
+
+
+def mesh_mlm_steps(torch, tl, models, dev, world) -> dict:
+    """``train_mlm`` of :func:`_mesh_lm`'s model over its rows,
+    ``MESH_MLM_STEPS`` epochs of one step, the FAVOR projections redrawn
+    after every step: on 2 ranks 2 rows each, the MLM mask drawn for the
+    global batch. Returns the step losses, the first step's gradients, the
+    final projections and FAVOR's launches."""
+    from gridnext_tpu_torch.ops import favor_cuda
+
+    lm, state, tokens, grads = _mesh_lm(torch, tl, models, dev)
+    favor_cuda.launches = 0
+    _, _, losses = tl.train_mlm(lm, {"train": tokens}, mask_id=6, num_epochs=MESH_MLM_STEPS,
+                                batch_size=PRETRAIN_BATCH, state=state, redraw_every=1,
+                                verbose=False, device=dev,
+                                mesh_shape={"data": world} if world else None)
+    torch.cuda.synchronize()
+    return _mlm_result(lm, losses, grads, favor_cuda.launches)
+
+
+def witness_mlm_steps(torch, tl, models, dev) -> dict:
+    """:func:`mesh_mlm_steps` on 2 ranks, in one process without
+    collectives: each step's shuffled rows in two halves, each half's MLM
+    mask its rows of the global batch's draw and its loss over the global
+    count, forward and backward apart (FAVOR on 2 rows, as on a rank), the
+    gradients summed, one Adam step, then the redraw."""
+    from gridnext_tpu_torch.models.layers import set_dropout_generator
+    from gridnext_tpu_torch.models.performer import redraw_projections
+    from gridnext_tpu_torch.ops import favor_cuda
+    from gridnext_tpu_torch.parallel import collectives
+
+    lm, state, tokens, grads = _mesh_lm(torch, tl, models, dev)
+    params = state.optimizer.trainable
+    rng = np.random.default_rng(0)            # train_mlm's shuffle_seed
+    half = PRETRAIN_BATCH // 2
+    losses = []
+    favor_cuda.launches = 0
+    for redraw in range(MESH_MLM_STEPS):
+        y = torch.as_tensor(tokens[rng.permutation(PRETRAIN_BATCH)], device=dev)
+        mask = tl._mlm_mask(tl._step_generator(tl._MLM_SEED, state.step, dev), y.shape, 0.15,
+                            dev)
+        count = int((mask & (y >= 0)).sum())
+        lm.train()
+        total, summed = None, None
+        for r in range(2):
+            rows = slice(r * half, (r + 1) * half)
+            set_dropout_generator(lm, tl._step_generator(tl._DROPOUT_SEED, state.step, dev))
+            with collectives.sharded(rows=collectives.RowShard(rows.start, rows.stop,
+                                                               PRETRAIN_BATCH)):
+                x = torch.where(mask[rows], torch.full_like(y[rows], 6), y[rows].clamp_min(0))
+                loss, _, _ = tl.mlm_loss(lm(x.long()), y[rows], mask[rows],
+                                         lambda n: torch.full_like(n, count))
+            g = [torch.zeros_like(p) if t is None else t for p, t in zip(
+                params, torch.autograd.grad(loss, params, allow_unused=True))]
+            summed = g if summed is None else [a + b for a, b in zip(summed, g)]
+            total = loss.detach().double() if total is None else total + loss.detach().double()
+        for p, t in zip(params, summed):
+            p.grad = t
+        state.optimizer.step()
+        state.step += 1
+        redraw_projections(lm, tl._step_generator(tl._REDRAW_SEED, redraw, "cpu"))
+        losses.append(float(total.float()))
+    torch.cuda.synchronize()
+    return _mlm_result(lm, losses, grads, favor_cuda.launches)
+
+
+def _rel_to_largest(got: dict, want: dict, keys) -> float:
+    """The worst ``max |got - want|`` over a tensor's largest ``|want|``."""
+    return max((float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+                for k in keys), default=0.0)
+
+
+def phase_mesh_ranks(torch, card, tmp, cohort) -> dict:
+    """Phase 19 (b): two gloo ranks on the one card against the witness and
+    the single-process reference, four processes at once."""
+    log("== phase 19 (b): a TpuPatchClassifier spot stage on 2 gloo ranks sharing the card "
+        f"(batch {TRAIN_BATCH}, {MESH_STEPS} steps) against the witness (one process, the "
+        "halves summed) and one process; a GridNetHex grid step and "
+        f"{MESH_MLM_STEPS} MLM steps through FAVOR on the same ranks")
+    t0 = time.perf_counter()
+    # the workers share the card: hand back this process's cached blocks
+    # (phase 17 (c) peaks at 66 GiB)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "mesh_b")
+    os.makedirs(out_dir)
+    coord = f"127.0.0.1:{free_port()}"
+    args = [out_dir, cohort["dirs"][0], cohort["npys"][0], cohort["csvs"][0]]
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.mesh_spot_worker(sys.argv[1:]))")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", code, coord, str(world), str(rank), *args],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for world, rank in ((0, 0), (-1, 0), (2, 0), (2, 1))]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    codes = [p.returncode for p in procs]
+    if codes[2:] == [3, 3]:
+        log(f"(b) left out: {outs[2].strip().splitlines()[-1]}")
+        return {"refused": outs[2].strip().splitlines()[-1]}
+    if codes != [0, 0, 0, 0]:
+        raise AssertionError(f"(b) workers exited {codes}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    ref, wit, r0, r1 = (dict(np.load(os.path.join(out_dir, f"result_{t}.npz")))
+                        for t in ("ref", "wit", "r0", "r1"))
+    written = {t: sorted(os.listdir(os.path.join(out_dir, t))) for t in ("r0", "r1")}
+    if written["r1"] or "f.msgpack" not in written["r0"]:
+        raise AssertionError(f"(b) files written by rank: {written}")
+    launches = [int(r["gather_launches"]) for r in (ref, r0, r1)]
+    if launches != [MESH_STEPS] * 3:
+        raise AssertionError(f"(b) gather launches (reference, rank 0, rank 1) {launches}, "
+                             f"want one a batch ({MESH_STEPS})")
+    favor = [int(r["favor_launches"]) for r in (ref, r0, r1)]
+    if favor != [MESH_MLM_DEPTH * MESH_MLM_STEPS] * 3:
+        raise AssertionError(f"(b) FAVOR launches (reference, rank 0, rank 1) {favor}, want "
+                             f"one a layer a step ({MESH_MLM_DEPTH * MESH_MLM_STEPS})")
+    if sorted(r0) != sorted(r1) or any(not np.array_equal(r0[k], r1[k]) for k in r0):
+        raise AssertionError("(b) the two ranks' weights, gradients, losses or statistics "
+                             "differ")
+    # the spot stage. Against the witness (the same arithmetic): every loss,
+    # gradient and weight within about 1e-6. Against the 32-row process
+    # (other rounding: convolutions over 16 rows against 32, which Adam
+    # turns into +-lr on elements of near-zero gradient): the first step's
+    # loss within 1e-6 and gradients within 1e-4 of each tensor's largest,
+    # the 8 losses within 1e-4, the share of weights off bounded
+    keys = [k for k in wit if k not in ("losses", "gather_launches", "favor_launches")
+            and not k.startswith("mlm_")]
+    weights = [k for k in keys if not k.startswith("grad0/")]
+    grads = [k for k in keys if k.startswith("grad0/")]
+    wit_loss = float(np.max(np.abs(r0["losses"] / wit["losses"] - 1)))
+    wit_worst = max(float((np.abs(r0[k].astype(np.float64) - wit[k])
+                           / (1e-6 + 1e-5 * np.abs(wit[k].astype(np.float64)))).max())
+                    for k in keys)
+    grad_rel = _rel_to_largest(r0, ref, grads)
+    loss0_rel = float(abs(r0["losses"][0] / ref["losses"][0] - 1))
+    loss_rel = float(np.max(np.abs(r0["losses"] / ref["losses"] - 1)))
+    n_total = n_out = 0
+    for k in weights:
+        d = np.abs(r0[k].astype(np.float64) - ref[k])
+        n_total += d.size
+        n_out += int((d > 1e-4 + 1e-3 * np.abs(ref[k])).sum())
+    share = n_out / max(n_total, 1)
+    log(f"(b) spot stage: losses {np.round(ref['losses'], 5).tolist()} (one process); 2 ranks "
+        f"against the witness: losses within {wit_loss:.2e} relative, every weight and "
+        f"first-step gradient within {wit_worst:.3g} x (1e-6 abs + 1e-5 rel); against one "
+        f"process: the first step's loss within {loss0_rel:.2e} and its gradients within "
+        f"{grad_rel:.2e} of each tensor's largest, the {MESH_STEPS} losses within {loss_rel:.2e} "
+        f"relative, {n_out} of {n_total} weights ({share:.2e}) beyond 1e-4 abs + 1e-3 rel "
+        f"(limit {MESH_WEIGHTS_OUT:.0e}); the ranks bit-equal; {MESH_STEPS} gather launches a "
+        f"rank; only rank 0 wrote {written['r0']} [{card}]")
+    if wit_loss > 1e-6 or wit_worst > 1:
+        raise AssertionError("(b) the 2 ranks left the witness's arithmetic")
+    if loss0_rel > 1e-6 or grad_rel > 1e-4 or loss_rel > 1e-4 or share > MESH_WEIGHTS_OUT:
+        raise AssertionError("(b) the 2-rank trajectory left the single-process one")
+    # the grid step: g's BatchNorm over the global batch of 2 windows
+    g_loss = float(abs(r0["grid_loss"] / ref["grid_loss"] - 1))
+    g_keys = [k for k in ref if k.startswith("grid_grad/")]
+    top = max(float(np.linalg.norm(ref[k])) for k in g_keys)
+    live = [k for k in g_keys if np.linalg.norm(ref[k]) > 1e-6 * top]
+    g_grad = max(float(np.linalg.norm(r0[k] - ref[k]) / np.linalg.norm(ref[k])) for k in live)
+    g_stats = max(float(np.abs(r0[k] - ref[k]).max()) for k in ref if k.startswith("grid_stats/"))
+    log(f"(b) GridNetHex grid step over 2 windows of {MESH_GRID} x {MESH_GRID} cells (one a "
+        f"rank): loss {float(ref['grid_loss']):.5f}, 2 ranks within {g_loss:.2e} relative; g's "
+        f"gradients within {g_grad:.2e} of each tensor's norm ({len(g_keys) - len(live)} "
+        f"tensors of zero true gradient left out); updated BatchNorm statistics within "
+        f"{g_stats:.2e} [{card}]")
+    if g_loss > 1e-5 or g_grad > 1e-4 or g_stats > 1e-5:
+        raise AssertionError("(b) the 2-rank grid step left the single-process one")
+    # the MLM steps: FAVOR on each rank's rows, the redraws alike. The
+    # witness runs FAVOR on 2 rows as the ranks do; the 4-row process takes
+    # another split plan (FAVOR splits its sums by the batch x heads), so
+    # it is held to FAVOR's forward tolerance (2e-4 relative): the loss
+    # within 1e-5, the step-1 gradients within 1e-3 of each tensor's
+    # largest
+    m_keys = [k for k in wit if k.startswith(("mlm_grad0/", "mlm_proj/"))]
+    m_wit_loss = float(np.max(np.abs(r0["mlm_losses"] / wit["mlm_losses"] - 1)))
+    m_wit = max(float((np.abs(r0[k].astype(np.float64) - wit[k])
+                       / (1e-6 + 1e-5 * np.abs(wit[k].astype(np.float64)))).max())
+                for k in m_keys)
+    m_loss0 = float(abs(r0["mlm_losses"][0] / ref["mlm_losses"][0] - 1))
+    m_loss = float(np.max(np.abs(r0["mlm_losses"] / ref["mlm_losses"] - 1)))
+    m_grad = _rel_to_largest(r0, ref, [k for k in ref if k.startswith("mlm_grad0/")])
+    projs = [k for k in ref if k.startswith("mlm_proj/")]
+    same_proj = len(projs) == MESH_MLM_DEPTH and all(np.array_equal(r0[k], ref[k])
+                                                     for k in projs)
+    log(f"(b) {MESH_MLM_STEPS} MLM steps (PerformerLM at scBERT's widths, depth "
+        f"{MESH_MLM_DEPTH}, {PRETRAIN_BATCH} rows, a redraw after each step): losses "
+        f"{np.round(ref['mlm_losses'], 5).tolist()} (one process); 2 ranks against the "
+        f"witness: losses within {m_wit_loss:.2e}, step-1 gradients and projections within "
+        f"{m_wit:.3g} x (1e-6 abs + 1e-5 rel); against one process: the first loss within "
+        f"{m_loss0:.2e} and its gradients within {m_grad:.2e} of each tensor's largest, both "
+        f"losses within {m_loss:.2e}, projections after the redraws equal: {same_proj}; FAVOR "
+        f"launches {favor[1]} a rank; phase 19 (b) {time.perf_counter() - t0:.1f} s [{card}]")
+    if m_wit_loss > 1e-6 or m_wit > 1:
+        raise AssertionError("(b) the 2 ranks' MLM steps left the witness's arithmetic")
+    if m_loss > 1e-5 or m_grad > 1e-3 or not same_proj:
+        raise AssertionError("(b) the 2-rank MLM steps left the single-process ones")
+    return {"witness_loss_rel": wit_loss, "witness_worst": wit_worst, "loss0_rel": loss0_rel,
+            "grad_rel": grad_rel, "loss_rel": loss_rel, "weights_out": n_out,
+            "weights": n_total, "grid_loss_rel": g_loss, "grid_grad_rel": g_grad,
+            "grid_stats": g_stats, "mlm_witness_loss_rel": m_wit_loss,
+            "mlm_witness_worst": m_wit, "mlm_loss0_rel": m_loss0, "mlm_grad_rel": m_grad,
+            "mlm_loss_rel": m_loss, "gather_launches_per_rank": MESH_STEPS,
+            "favor_launches_per_rank": favor[1], "s": time.perf_counter() - t0}
+
+
+def phase_mesh_register(torch, slides, port, card, image, dirs_masks, batch4) -> dict:
+    """Phase 19 (c): phase 4's model directory registered with the flat
+    spot axis split over 2 shards on the one card, against the unsharded
+    registrar."""
+    from gridnext_tpu_torch.compat.from_jax import load_model_dir
+    from gridnext_tpu_torch.parallel import make_mesh
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    dev = slides.device
+    log("== phase 19 (c): SlideRegistrar(mesh) with 2 spot shards on the card over the 4 "
+        "full-width slides (phase 4's TpuPatchClassifier model directory)")
+    meta, classes, variables = load_model_dir(image["model_dir"])
+    reg = image["registrar"]
+    sharded = modeldir.image_registrar_from_meta(
+        meta, classes, variables, device=dev, mesh=make_mesh({"spot": 2}, devices=[dev, dev]))
+    positions = [io.read_positions(d) for d, _ in dirs_masks]
+    with counted(torch, port) as got:
+        labels = sharded.register_batch(slides, positions)
+    if got["gather_patches"] != 2 or got["fused_hex_corrector_labels"] != 1:
+        raise AssertionError(f"(c) launches {got}: want one gather a shard (2) and one "
+                             "labels corrector")
+    flips = []
+    for i in range(N_SLIDES):
+        logits = reg.register_logits(slides[i], positions[i])[0]
+        flips.append(serving.label_parity_report(batch4["labels_b"][i], labels[i], logits))
+    ms = turns_ms(torch, {"one device": lambda: reg.register_batch(slides, positions),
+                          "2 shards": lambda: sharded.register_batch(slides, positions)})
+    per = {k: v / N_SLIDES for k, v in ms.items()}
+    log(f"(c) labels equal to the unsharded registrar's up to {flips} near-tie flips; "
+        f"launches {got}; register_batch {per['one device']:.2f} ms/slide on one device, "
+        f"{per['2 shards']:.2f} ms/slide over 2 shards of the card [{card}]")
+    return {"flips": flips, "launches": got, "ms_per_slide": per}
+
+
+def phase_mesh_count_tier(torch, card, tmp, tier, dev) -> dict:
+    """Phase 19 (a) and (d) in phase 15's directory: train-count over a
+    1-rank NCCL process group against the same command without one, and the
+    PCA workflow on the card against a float64 fit on the host."""
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.io import unify
+    from gridnext_tpu_torch.parallel import collectives
+    from gridnext_tpu_torch.workflows import (CountTable, filtered_norm_logcounts, fit_pca,
+                                              n_pcs_for_variance, scale_logcounts,
+                                              select_hvgs_from_count_files)
+    from gridnext_tpu_torch.workflows.pca import _scaler_from_normed
+
+    out = {}
+    dirs = tier["dirs"]
+    annots = [os.path.join(d, f"a{i}_annotations.csv") for i, d in enumerate(dirs)]
+    log(f"== phase 19 (a): train-count --mesh data=1 over a 1-rank NCCL process group, "
+        f"1 epoch over phase 15's {len(dirs)} arrays, against the same command without a mesh")
+    command = ["train-count", "--spaceranger", *dirs, "--annots", *annots, "--epochs", "1",
+               "--device", str(dev)]
+    runs = {}
+    for name, pre, post in (("plain", [], []),
+                            ("mesh", ["--coordinator", f"127.0.0.1:{free_port()},1,0"],
+                             ["--mesh", "data=1"])):
+        model = os.path.join(tmp, f"mesh_a_{name}")
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        cli.main(pre + command + ["--out", model] + post)
+        torch.cuda.synchronize()
+        runs[name] = {"s": time.perf_counter() - t0, "counts": dict(collectives.COUNTS),
+                      "dir": model}
+    files = sorted(os.listdir(runs["plain"]["dir"]))
+    same = {f: open(os.path.join(runs["plain"]["dir"], f), "rb").read()
+            == open(os.path.join(runs["mesh"]["dir"], f), "rb").read() for f in files}
+    counts = runs["mesh"]["counts"]
+    log(f"(a) without a mesh {runs['plain']['s']:.2f} s, --mesh data=1 {runs['mesh']['s']:.2f} "
+        f"s; collectives {counts} ('grads' the gradient all-reduces, 'stop_flag' the host "
+        f"flags; without a mesh {runs['plain']['counts']}); files "
+        f"byte-equal: {same} [{card}]")
+    if sorted(os.listdir(runs["mesh"]["dir"])) != files or not all(same.values()):
+        raise AssertionError("(a) the 1-rank mesh run's checkpoints differ from the run "
+                             "without a mesh")
+    if counts["grads"] <= 0 or any(runs["plain"]["counts"].values()):
+        raise AssertionError("(a) the mesh run reduced no gradient (or the run without a "
+                             "mesh launched a collective)")
+    out["a"] = {"plain_s": runs["plain"]["s"], "mesh_s": runs["mesh"]["s"], "counts": counts}
+
+    log(f"== phase 19 (d): the PCA workflow over the {len(dirs)} arrays' caches: "
+        f"{HVG_GENES} highly variable genes, the cohort scaler, fit_pca on the card against "
+        "a float64 fit on the host")
+    caches = [unify.unified_cache_path(d) for d in dirs]
+    t0 = time.perf_counter()
+    hvgs = select_hvgs_from_count_files(caches, n_top_genes=HVG_GENES)
+    t_hvg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    normed = [filtered_norm_logcounts(c) for c in caches]
+    rows = np.asarray([normed[0].genes.index(g) for g in hvgs])
+    normed = [CountTable(t.values[rows], hvgs, t.barcodes) for t in normed]
+    mean, std = _scaler_from_normed(normed, caches)
+    X = np.vstack([scale_logcounts(t, mean, std).values.T for t in normed])
+    t_scale = time.perf_counter() - t0
+    x = torch.as_tensor(X.astype(np.float32), device=dev)
+    fit_pca(x)                                   # the solver's first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = fit_pca(x)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xc = X - X.mean(0)
+    _, sv, vt = np.linalg.svd(xc, full_matrices=False)
+    vt *= np.sign(vt[np.arange(len(vt)), np.abs(vt).argmax(1)])[:, None]
+    var = sv ** 2 / (len(X) - 1)
+    ratio64 = var / var.sum()
+    t_host = time.perf_counter() - t0
+    n_pcs = n_pcs_for_variance(pca, PCA_VARIANCE)
+    n64 = int(np.flatnonzero(np.cumsum(ratio64) > PCA_VARIANCE)[0]) + 1
+    comp = pca.components_.double().cpu().numpy()
+    cos = np.sum(comp[:n64] * vt[:n64], axis=1)
+    ratio_err = float(np.abs(pca.explained_variance_ratio_.double().cpu().numpy()
+                             - ratio64).max())
+    log(f"(d) {X.shape[0]} spots x {X.shape[1]} HVGs: HVG selection {t_hvg:.2f} s, scaler "
+        f"{t_scale:.2f} s on the host; fit_pca on the card {t_card:.3f} s, the float64 fit on "
+        f"the host {t_host:.3f} s; n_pcs at {PCA_VARIANCE} variance {n_pcs} (float64 {n64}); "
+        f"the leading {n64} components' cosines with float64's in [{cos.min():.8f}, "
+        f"{cos.max():.8f}]; "
+        f"explained_variance_ratio_ within {ratio_err:.2e} [{card}]")
+    if n_pcs != n64 or np.abs(cos - 1).max() > 1e-4 or ratio_err > 1e-5:
+        raise AssertionError("(d) the card's PCA left the float64 fit")
+    out["d"] = {"spots": int(X.shape[0]), "genes": int(X.shape[1]), "hvg_s": t_hvg,
+                "scale_s": t_scale, "fit_card_s": t_card, "fit_host_f64_s": t_host,
+                "n_pcs": n_pcs, "min_cos": float(cos.min()), "ratio_err": ratio_err}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4609,6 +5213,7 @@ def main() -> int:
         phase_count(torch, port, card, tmp, dirs_masks, dev)
         t18.append(phase_serve(torch, slides, port, card, tmp, dirs_masks, image_dir, batch4,
                                served))
+        mesh_c = phase_mesh_register(torch, slides, port, card, image_dir, dirs_masks, batch4)
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
@@ -4625,14 +5230,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:   # cohort, slides, model dirs, trace
         cohort = phase_train(torch, slides, port, card, tmp, mm)
         evald = phase_eval_distill(torch, port, card, tmp, cohort, mm, dev)
+        mesh_b = phase_mesh_ranks(torch, card, tmp, cohort)
     del mm, cohort
     with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dirs, CSVs
         tier = phase_count_tier(torch, card, tmp, dev)
         t18.append(phase_serve_count(torch, port, card, tier, dev))
         pretrain = phase_pretrain(torch, card, tmp, tier["dirs"], dev)
+        mesh_ad = phase_mesh_count_tier(torch, card, tmp, tier, dev)
     log(f"phase 18: {sum(t18):.1f} s ((a)-(b) {t18[0]:.1f}, (c) {t18[1]:.1f}, (d) "
         f"{t18[2]:.1f}, the count request {t18[3]:.1f}); launches {json.dumps(served)} "
         f"[{card}]")
+
+    # phase 19's paths: (b)'s crops and FAVOR calls on each rank and (c)'s
+    # shards ((a) and (d) launch no kernel: train-count crops nothing, PCA is
+    # a library call)
+    mesh_launches = {"gather_patches": mesh_c["launches"]["gather_patches"]
+                     + 2 * mesh_b.get("gather_launches_per_rank", 0),
+                     "fused_hex_corrector_labels": mesh_c["launches"]["fused_hex_corrector_labels"],
+                     "fused_generalized_linear_attention":
+                         2 * mesh_b.get("favor_launches_per_rank", 0)}
+    log(f"phase 19: {json.dumps({'a': mesh_ad['a'], 'b': mesh_b, 'c': mesh_c, 'd': mesh_ad['d']})}"
+        f"; launches {json.dumps(mesh_launches)} [{card}]")
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -4670,6 +5288,8 @@ def main() -> int:
             # phase 18's paths: the served requests and the artifacts' calls
             for path in ("serve", "artifact"):
                 k[f"launches_{path}"] = served[path].get(k["name"], 0)
+            # phase 19's paths: the mesh's ranks and shards
+            k["launches_mesh"] = mesh_launches[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,13 @@ projections redrawn every ``--redraw-every`` steps) and writes
 directory. Every epoch end writes ``<stage>.msgpack.latest``;
 ``--resume`` continues from it, and SIGTERM checkpoints at the next batch
 boundary and exits 75. Missing unified count caches are written first
-(``--min-detection``), as ``prepare`` writes them. ``--mesh`` (multi-card
-training) is not ported yet and exits.
+(``--min-detection``), as ``prepare`` writes them. ``--mesh`` trains over
+several cards, one process a card over ``torch.distributed``: launch with
+``torchrun --nproc-per-node N -m gridnext_tpu_torch --multihost <command>
+--mesh data=N ...`` or wire each process with ``--coordinator
+host:port,N,rank`` (NCCL on the card, gloo under ``--device cpu``); the
+replicas start from rank 0's weights, the batches shard over the ranks,
+BatchNorm normalises over the global batch, and only rank 0 writes.
 
 Registration: the ``register`` command of the JAX package's CLI, on the card: a trained
 model directory (``model.json`` + ``g_state.msgpack``, as the JAX package's
@@ -76,8 +81,10 @@ written into the student directory's ``model.json``.
 
 Serving (``serve``, ``export``, ``serve-artifact``): ``serve`` keeps a
 model directory (or an exported artifact) on the card behind an HTTP
-server (:mod:`~gridnext_tpu_torch.server`; ``--mesh`` is not ported yet and
-exits). ``export`` writes a directory's registration as a ``torch.export``
+server (:mod:`~gridnext_tpu_torch.server`). ``register --mesh`` and ``serve
+--mesh`` split an image model's flat spot axis over the visible cards in one
+process (``SlideRegistrar(mesh=...)``). ``export`` writes a directory's
+registration as a ``torch.export``
 artifact (``.pt2``, weights inside, the kernels as ``gridnext::`` custom
 ops) and its JSON sidecar: slide -> labels for image directories
 (``--wsi-shape``; ``--dense`` for an exact Visium HD lattice), the grid
@@ -196,7 +203,8 @@ def _register_images(args, meta, classes, variables):
     from gridnext_tpu_torch.serving import register_slides
 
     _require_one_image_per_dir(args.images, args.spaceranger)
-    registrar = image_registrar_from_meta(meta, classes, variables, device=args.device)
+    registrar = image_registrar_from_meta(meta, classes, variables, device=args.device,
+                                          mesh=_serving_mesh(args))
     hd_binning = meta.get("hd_binning")
     # decode and staging overlap registration; same-shape slides batch, and
     # dense square lattices register without the per-bin gather
@@ -338,8 +346,86 @@ def _register_graph(args, meta, classes, variables):
 
 # -- training ----------------------------------------------------------------------
 
-_LATER_MESH = ("error: --mesh (multi-card training and serving) is not ported yet "
-               "(ROADMAP.md Queue 1 item 9)")
+_LATER_MESH = ("error: the 'seq' mesh axis (sequence-parallel MLM) is not ported yet "
+               "(ROADMAP.md Queue 1 item 9, its remainder)")
+
+
+def _parse_mesh(args):
+    """--mesh 'data=4,spot=2' | 'auto' -> the trainers' mesh_shape value."""
+    spec = getattr(args, "mesh", None)
+    if spec is None:
+        return None
+    spec = spec.lower()
+    if spec == "auto":
+        return "auto"
+    try:
+        shape = {}
+        for part in spec.split(","):
+            name, size = part.split("=")
+            shape[name.strip()] = int(size)
+        if not shape or any(s <= 0 for s in shape.values()):
+            raise ValueError
+    except ValueError:
+        sys.exit(f"error: --mesh must be 'auto' or like 'data=4,spot=2' "
+                 f"(positive axis sizes); got {spec!r}")
+    if "seq" in shape:
+        sys.exit(_LATER_MESH)
+    return shape
+
+
+def _checked_mesh(args, *, spot_batch=None, grid_batch=None, mlm_batch=None):
+    """Build the training mesh of --mesh over the process group and fail
+    fast on batch / mesh divisibility, before any stage trains (the g
+    stage starts only after f has trained). The mesh is kept on ``args``
+    for the stages."""
+    mesh_shape = _parse_mesh(args)
+    args.train_mesh = None
+    if mesh_shape is None:
+        return None
+    from gridnext_tpu_torch.train.loops import _mesh_placement, _resolve_mesh
+
+    try:
+        mesh = _resolve_mesh(None, mesh_shape)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    try:
+        for kind, batch in (("spot", spot_batch), ("grid", grid_batch), ("mlm", mlm_batch)):
+            if batch is not None:
+                _mesh_placement(mesh, kind, batch)
+    except ValueError as e:
+        sys.exit(f"error: {e} (adjust --batch-size / --grid-batch-size "
+                 "before training starts)")
+    args.train_mesh = mesh
+    return mesh
+
+
+def _serving_mesh(args):
+    """The device mesh of register / serve --mesh: the flat spot axis over
+    the visible cards of this process (``--device cpu``: that many CPU
+    shards)."""
+    mesh_shape = _parse_mesh(args)
+    if mesh_shape is None:
+        return None
+    import numpy as np
+    import torch
+
+    from gridnext_tpu_torch.parallel import default_mesh_shape, make_mesh
+    from gridnext_tpu_torch.serving import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        n = 1 if mesh_shape == "auto" else int(np.prod(list(mesh_shape.values())))
+        devices = [device] * n
+    if mesh_shape == "auto":
+        mesh_shape = default_mesh_shape(len(devices))
+    try:
+        mesh = make_mesh(mesh_shape, devices=devices)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    print(f"serving over mesh {mesh.shape}")
+    return mesh
 
 
 def _resume_path(args, outfile):
@@ -407,11 +493,6 @@ def _train_augment(args):
     return make_train_augment()
 
 
-def _check_train_args(args):
-    if getattr(args, "mesh", None) is not None:
-        sys.exit(_LATER_MESH)
-
-
 def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None,
                 state=None):
     """Train ``f`` spotwise on ``spots`` (from ``state`` when given, else from
@@ -425,7 +506,7 @@ def _spot_stage(args, f, spots, name, transform=None, stream=False, augment=None
                       val_arrays=args.val_arrays),
         learning_rate=args.f_lr, num_epochs=args.epochs, batch_size=args.batch_size,
         verbose=True, outfile=out, resume=_resume_path(args, out), augment=augment,
-        state=state, device=args.device)
+        state=state, device=args.device, mesh=getattr(args, "train_mesh", None))
     return state.variables()
 
 
@@ -435,6 +516,7 @@ def _grid_stage(args, g, grids, transform, stream, joint_f, f_vars, frozen_f=Non
     ``{key: variables}``; writes ``g_state.msgpack``."""
     import torch
 
+    from gridnext_tpu_torch.parallel import is_primary
     from gridnext_tpu_torch.train import (create_train_state, load_f_params,
                                           make_gridwise_optimizer, save_checkpoint,
                                           train_gridwise)
@@ -451,13 +533,19 @@ def _grid_stage(args, g, grids, transform, stream, joint_f, f_vars, frozen_f=Non
     state, *_ = train_gridwise(g, dls, state=state, num_epochs=args.epochs, verbose=True,
                                batch_size=args.grid_batch_size, outfile=g_out,
                                resume=_resume_path(args, g_out),
-                               augment=_train_augment(args), device=args.device)
-    save_checkpoint(g_out, state)
+                               augment=_train_augment(args), device=args.device,
+                               mesh=getattr(args, "train_mesh", None))
+    if is_primary():
+        save_checkpoint(g_out, state)
 
 
 def _write_meta(args, meta):
     import json
 
+    from gridnext_tpu_torch.parallel import is_primary
+
+    if not is_primary():
+        return
     with open(os.path.join(args.out, "model.json"), "w") as fh:
         json.dump(meta, fh)
     print(f"saved model to {args.out}")
@@ -470,9 +558,13 @@ def _train_fg(args, f, grids, spots, meta_extra, patch_chunk=None, transform=Non
     from gridnext_tpu_torch.models import GridNet, GridNetHex
 
     classes = list(grids.classes)
+    # dense ingest has no spotwise stage: --batch-size is not checked there
+    mesh = _checked_mesh(args, spot_batch=args.batch_size if spots is not None else None,
+                         grid_batch=args.grid_batch_size)
     spot_desc = "joint f+g (dense ingest)" if spots is None else f"{len(spots)} spots"
     print(f"{spot_desc}, {len(grids)} arrays, classes: {classes}"
-          + (" [streaming]" if stream else ""))
+          + (" [streaming]" if stream else "")
+          + (f" [mesh {mesh.shape}]" if mesh is not None else ""))
     os.makedirs(args.out, exist_ok=True)
     f_vars = {}
     if spots is not None:
@@ -637,7 +729,6 @@ def _cmd_train_count(args):
     from gridnext_tpu_torch.io.unify import read_unified_genes, unified_cache_path
     from gridnext_tpu_torch.models import CountMLP
 
-    _check_train_args(args)
     hd_binning, grid_dims = _parse_hd_args(args, require_dims=False)
     _warn_existing_caches(args, [unified_cache_path(s, hd_binning) for s in args.spaceranger])
     kw = dict(annot_files=args.annots, use_image=False, hd_binning=hd_binning,
@@ -662,7 +753,6 @@ def _cmd_train_count(args):
 def _cmd_train_image(args):
     from gridnext_tpu_torch.data import DenseWSIGridDataset, create_visium_dataset
 
-    _check_train_args(args)
     _check_image_args(args)
     hd_binning, grid_dims = _parse_hd_args(args, require_dims=True, what="image training")
     if args.dense_ingest:
@@ -705,7 +795,6 @@ def _cmd_train_mm(args):
     from gridnext_tpu_torch.io.unify import read_unified_genes, unified_cache_path
     from gridnext_tpu_torch.models import CountMLP, GridNetHexMM, GridNetMM, scBERT
 
-    _check_train_args(args)
     _check_image_args(args)
     hd_binning, grid_dims = _parse_hd_args(args, require_dims=True,
                                            what="multimodal training")
@@ -735,11 +824,13 @@ def _cmd_train_mm(args):
     classes = list(mm_grids.classes)
     n_classes = len(classes)
     stream = not args.no_stream
+    mesh = _checked_mesh(args, spot_batch=args.batch_size, grid_batch=args.grid_batch_size)
     print(f"{len(count_spots)} count spots, "
           + (f"{len(image_spots)} image spots, " if image_spots is not None
              else "dense image ingest, ")
           + f"{len(mm_grids)} arrays, classes: {classes}"
-          + (" [streaming]" if stream else ""))
+          + (" [streaming]" if stream else "")
+          + (f" [mesh {mesh.shape}]" if mesh is not None else ""))
     os.makedirs(args.out, exist_ok=True)
     genes = read_unified_genes(unified_cache_path(args.spaceranger[0], hd_binning))
     f_count_state = frozen_f = None
@@ -798,9 +889,10 @@ def _cmd_pretrain_scbert(args):
 
     from gridnext_tpu_torch.data import create_visium_dataset
     from gridnext_tpu_torch.models import PerformerLM
+    from gridnext_tpu_torch.parallel import is_primary
     from gridnext_tpu_torch.train import mlm_token_len, save_checkpoint, train_mlm
 
-    _check_train_args(args)
+    mesh = _checked_mesh(args, mlm_batch=args.batch_size)
     try:
         spots = create_visium_dataset(args.spaceranger, spatial=False, use_count=True,
                                       use_image=False,
@@ -825,10 +917,12 @@ def _cmd_pretrain_scbert(args):
     del dls, spots              # the float cohort dwarfs the int16 corpus
     n_val = 0 if token_dls.get("val") is None else len(token_dls["val"])
     print(f"MLM corpus: {len(token_dls['train'])} train / {n_val} val spots "
-          f"x {vocab} gene2vec tokens, bins 0..{args.bin_num}")
+          f"x {vocab} gene2vec tokens, bins 0..{args.bin_num}"
+          + (f" [mesh {mesh.shape}]" if mesh is not None else ""))
     # no positional embedding: the weights do not depend on the token count,
     # so the LM loads into scBERT at any n_genes
-    lm = PerformerLM(num_tokens=args.bin_num + 2, max_seq_len=mlm_token_len(vocab + 1),
+    lm = PerformerLM(num_tokens=args.bin_num + 2,
+                     max_seq_len=mlm_token_len(vocab + 1, mesh),
                      dim=args.scbert_dim, depth=args.scbert_depth, heads=args.scbert_heads,
                      dim_head=args.scbert_dim_head, nb_features=args.scbert_features,
                      remat=args.remat, generalized_attention=not args.softmax_features)
@@ -838,7 +932,9 @@ def _cmd_pretrain_scbert(args):
         lm, token_dls, mask_id=args.bin_num + 1, mask_prob=args.mask_prob,
         learning_rate=args.lr, num_epochs=args.epochs, batch_size=args.batch_size,
         outfile=outfile, shuffle_seed=args.split_seed, redraw_every=args.redraw_every or None,
-        resume=_resume_path(args, outfile), device=args.device)
+        resume=_resume_path(args, outfile), device=args.device, mesh=mesh)
+    if not is_primary():
+        return
     save_checkpoint(outfile, state, include_opt_state=False)
     with open(os.path.join(args.out, "pretrain.json"), "w") as fh:
         json.dump({"model": "PerformerLM-MLM", "vocab": vocab, "dim": args.scbert_dim,
@@ -1638,14 +1734,17 @@ def _cmd_serve(args):
 
     from gridnext_tpu_torch.server import RegistrationService, make_server
 
-    if args.mesh is not None:
-        sys.exit(_LATER_MESH)
     try:
         if args.artifact:
+            if args.mesh is not None:
+                sys.exit("error: --mesh applies to --model serving; "
+                         "artifacts serialize the single-device path "
+                         "(re-export is not mesh-aware)")
             service = RegistrationService.from_artifact(args.artifact, device=args.device)
         else:
             service = RegistrationService.from_model_dir(
-                args.model, max_batch=args.max_batch, device=args.device)
+                args.model, max_batch=args.max_batch, device=args.device,
+                mesh=_serving_mesh(args))
     except (ValueError, FileNotFoundError) as e:
         sys.exit(f"error: {e}")
 
@@ -1687,6 +1786,13 @@ def build_parser():
     """The port's argument parser (one subparser per ported command)."""
     ap = argparse.ArgumentParser(prog="gridnext_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes (MASTER_ADDR, "
+                         "MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) before the "
+                         "command; training commands only")
+    ap.add_argument("--coordinator", default=None,
+                    help="wire the process group by hand: 'host:port,num_processes,"
+                         "process_id' (implies --multihost)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("simulate", help="fabricate pseudo-Visium data")
@@ -1728,6 +1834,10 @@ def build_parser():
                    help="image models: same-shape slides registered per "
                         "register_batch call, with decode/stage/register "
                         "overlapped (serving.register_slides)")
+    s.add_argument("--mesh", default=None,
+                   help="image models: register over the visible cards ('auto' or "
+                        "axis sizes like 'data=4,spot=2'); the flat spot axis splits "
+                        "over every mesh axis, labels as on one card")
     s.add_argument("--device", default="cuda",
                    help="where registration runs: 'cuda' (default; fails "
                         "without a card) or 'cpu' (the kernels' plain versions)")
@@ -1851,7 +1961,10 @@ def build_parser():
                         "serves either")
     s.add_argument("--redraw-every", type=int, default=1000,
                    help="FAVOR+ projection redraw interval in steps (0 disables)")
-    s.add_argument("--mesh", default=None, help="not ported yet (exits)")
+    s.add_argument("--mesh", default=None,
+                   help="multi-card mesh: 'auto' or axis sizes like 'data=8', one "
+                        "process a card (torchrun / --coordinator); batch rows shard "
+                        "over every axis ('seq', sequence-parallel MLM, is not ported)")
     s.add_argument("--split-seed", type=int, default=0,
                    help="seed for the random train/val split")
     s.add_argument("--val-arrays", nargs="+", default=None,
@@ -1987,7 +2100,10 @@ def build_parser():
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000,
                    help="0 picks a free port (printed at startup)")
-    s.add_argument("--mesh", default=None, help="not ported yet (exits)")
+    s.add_argument("--mesh", default=None,
+                   help="image models: serve over the visible cards ('auto' or axis "
+                        "sizes like 'data=4,spot=2'); the flat spot axis splits over "
+                        "every mesh axis, labels as on one card")
     s.add_argument("--warmup", nargs="+", default=None, metavar="PATH",
                    help="register one sample before listening: IMAGE SPACERANGER for "
                         "image/MM models, SPACERANGER for count models")
@@ -2036,9 +2152,14 @@ def _add_hd_args(s, corrector: str):
 
 
 def _add_train_args(s):
-    s.add_argument("--mesh", default=None, help="not ported yet (exits)")
+    s.add_argument("--mesh", default=None,
+                   help="multi-card mesh: 'auto' (data x spot over the ranks) or axis "
+                        "sizes like 'data=4,spot=2', one process a card (torchrun "
+                        "--multihost, or --coordinator); replicas start alike, batches "
+                        "shard, gradients and BatchNorm statistics reduce over the ranks")
     s.add_argument("--grid-batch-size", type=int, default=1,
-                   help="arrays per gridwise training step")
+                   help="arrays per gridwise training step (must be divisible by the "
+                        "mesh's data axis size)")
     s.add_argument("--split-seed", type=int, default=0,
                    help="seed for the random train/val split")
     s.add_argument("--val-arrays", nargs="+", default=None,
@@ -2056,20 +2177,65 @@ def _add_device_arg(s, what: str):
                         "card) or 'cpu' (the kernels' plain versions)")
 
 
+# The commands that may join a process group: the trainers, whose writers are
+# gated to the primary process (any other command would have every rank write
+# the same paths)
+_MULTIHOST_CMDS = ("_cmd_train", "_cmd_pretrain")
+
+
+def _init_multihost(args) -> None:
+    """--multihost / --coordinator: join the process group before the
+    command; the command's device becomes this process's card."""
+    from gridnext_tpu_torch.parallel.multihost import (initialize_multihost, local_device,
+                                                        process_count)
+
+    try:
+        if args.coordinator is None:
+            idx = initialize_multihost(device=args.device)
+        else:
+            try:
+                coord, num, pid = args.coordinator.rsplit(",", 2)
+                num, pid = int(num), int(pid)
+            except ValueError:
+                sys.exit("error: --coordinator must be "
+                         "'host:port,num_processes,process_id'; got "
+                         f"{args.coordinator!r}")
+            idx = initialize_multihost(coord, num, pid, device=args.device)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    args.device = local_device(args.device)
+    print(f"multihost: process {idx}/{process_count()}, device {args.device}",
+          file=sys.stderr)
+
+
 def main(argv=None):
     """Run one command; returns what it returns (the multimodal
     ``register``'s stage seconds, ``evaluate``'s metrics, ``distill``'s
     agreement info, else None). A training command that
-    SIGTERM preempts exits 75 after its batch-boundary checkpoint."""
+    SIGTERM preempts exits 75 after its batch-boundary checkpoint.
+    ``--multihost`` / ``--coordinator`` (training commands only) join a
+    process group for the command and leave it after."""
     args = build_parser().parse_args(argv)
+    multihost = args.multihost or args.coordinator is not None
+    if multihost and not args.fn.__name__.startswith(_MULTIHOST_CMDS):
+        sys.exit(
+            "error: --multihost/--coordinator is only supported for "
+            "the training subcommands (train-count, train-image, "
+            "train-mm, pretrain-scbert), whose writers are gated to "
+            "the primary process; run "
+            f"'{args.fn.__name__.removeprefix('_cmd_').replace('_', '-')}'"
+            " single-controller (it uses every local device via --mesh)")
     if not args.cmd.startswith(("train-", "pretrain-")):
         return args.fn(args)
+    from gridnext_tpu_torch.parallel.multihost import shutdown_multihost
     from gridnext_tpu_torch.serving import resolve_device
     from gridnext_tpu_torch.train.preempt import (TrainingPreempted,
                                                   install_preemption_handler,
                                                   uninstall_preemption_handler)
 
     args.device = resolve_device(args.device)
+    if multihost:
+        _init_multihost(args)
     install_preemption_handler()
     try:
         return args.fn(args)
@@ -2080,6 +2246,8 @@ def main(argv=None):
         raise SystemExit(75)
     finally:
         uninstall_preemption_handler()
+        if multihost:
+            shutdown_multihost()
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ import numpy as np
 from gridnext_tpu_torch.compat.from_jax import load_gridnet
 
 
-def image_registrar_from_meta(meta, classes, variables, device="cuda"):
+def image_registrar_from_meta(meta, classes, variables, device="cuda", mesh=None):
     """SlideRegistrar for a trained image model directory's metadata.
 
     A ``*TpuPatchClassifier`` or ``*DenseNet121`` f (f32 modules; the window
@@ -33,7 +33,9 @@ def image_registrar_from_meta(meta, classes, variables, device="cuda"):
     corrector (Visium) or, where ``grid_dims`` is set, the Cartesian
     corrector of a square ``GridNet`` whose grid is ``grid_dims`` (Visium
     HD bins, indexed by (array_row, array_col)). As in the JAX package,
-    model directories serve with ``normalize=None`` (``/255``).
+    model directories serve with ``normalize=None`` (``/255``). ``mesh``: a
+    serving mesh whose devices split the flat spot axis
+    (:class:`~gridnext_tpu_torch.serving.SlideRegistrar`).
     """
     from gridnext_tpu_torch.models import (GridNet, GridNetHex, TpuPatchClassifier,
                                            densenet121, tpu_f_arch_kwargs)
@@ -60,7 +62,7 @@ def image_registrar_from_meta(meta, classes, variables, device="cuda"):
     return SlideRegistrar.from_gridnet(
         g, patch_size=meta.get("patch_px", 128), window_size=meta.get("window_px"),
         patch_chunk=meta.get("patch_chunk", 624), normalize=None, device=device,
-        **lattice)
+        mesh=mesh, **lattice)
 
 
 def submodule_variables(variables, key: str) -> dict:

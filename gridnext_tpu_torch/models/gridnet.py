@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gridnext_tpu_torch.models.layers import BatchNorm, HexConv
 from gridnext_tpu_torch.ops.hexcorrector_cuda import fold_corrector_params
+from gridnext_tpu_torch.parallel import collectives
 
 
 class _CartesianCorrector(nn.Module):
@@ -172,7 +173,19 @@ def apply_f_grid(f: nn.Module, x: torch.Tensor, chunk: Optional[int],
                  f_dim: Optional[int] = None, what: str = "patch classifier"
                  ) -> torch.Tensor:
     """(B, H, W, *spot_shape) -> (B, H, W, f_dim): flatten, run f chunked
-    over every cell, re-grid; shared by the unimodal and MM models."""
+    over every cell, re-grid; shared by the unimodal and MM models.
+
+    On a mesh's ``spot`` axis (:func:`~gridnext_tpu_torch.parallel.
+    collectives.sharded` with a ``spot`` share that divides H) this rank
+    runs f over its rows of the grid only and the group gathers the
+    features (differentiably), so the corrector sees the whole grid."""
+    spot = collectives.spot_shard()
+    if spot is not None and x.shape[1] % spot.count == 0:
+        rows = x.shape[1] // spot.count
+        with collectives.sharded(collectives.batch_norm_group()):   # no spot share
+            local = apply_f_grid(f, x[:, spot.index * rows:(spot.index + 1) * rows],
+                                 chunk, f_dim, what)
+        return collectives.gather_rows(local, 1, spot.index, spot.count, spot.group)
     b, h, w = x.shape[:3]
     out = apply_f_chunked(f, x.reshape((b * h * w,) + tuple(x.shape[3:])), chunk)
     if f_dim is not None and out.shape[-1] != f_dim:

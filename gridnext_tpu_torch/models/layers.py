@@ -1,5 +1,5 @@
-"""Shared layers: the hex convolution, flax's BatchNorm and a dropout that
-draws from an explicit generator."""
+"""Shared layers: the hex convolution, flax's BatchNorm (over the global
+batch on a mesh) and a dropout that draws from an explicit generator."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gridnext_tpu_torch.ops.hexconv import hex_conv, num_taps
+from gridnext_tpu_torch.parallel import collectives
 
 
 class HexConv(nn.Module):
@@ -47,6 +48,15 @@ class BatchNorm(nn.Module):
     weights keep ``nn.BatchNorm``'s names (``weight``, ``bias``,
     ``running_mean``, ``running_var``), which the weight bridge maps to
     flax's ``scale``, ``bias``, ``mean`` and ``var``.
+
+    On a mesh (inside :func:`~gridnext_tpu_torch.parallel.collectives.sharded`
+    with a group of more than one rank) train mode takes the statistics of
+    the global batch: each rank's count and sum, then its sum of squared
+    deviations from the global mean (float32 or wider), are all-reduced,
+    differentiably, so every rank normalises with the global batch's mean
+    and biased variance and moves its running statistics alike
+    (``nn.SyncBatchNorm`` would move the running variance by the unbiased
+    estimate with momentum 0.1).
     """
 
     def __init__(self, num_features: int, axis: int = -1, momentum: float = 0.9,
@@ -80,8 +90,12 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             xc = self._channels_second(x)
             xc = xc.to(torch.promote_types(xc.dtype, torch.float32))
-            var, mean = torch.var_mean(xc, [d for d in range(xc.dim()) if d != 1],
-                                       correction=0)
+            group = collectives.batch_norm_group()
+            if group is not None:
+                mean, var = _global_moments(xc, group)
+            else:
+                var, mean = torch.var_mean(xc, [d for d in range(xc.dim()) if d != 1],
+                                           correction=0)
         self._moved(mean, var)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
@@ -89,7 +103,17 @@ class BatchNorm(nn.Module):
         the running ones unless ``update_stats`` is False), the running ones
         in eval mode."""
         xc = self._channels_second(x)
-        if self.training:
+        group = collectives.batch_norm_group() if self.training else None
+        if group is not None:
+            xf = xc.to(torch.promote_types(xc.dtype, torch.float32))
+            mean, var = _global_moments(xf, group)
+            shape = (1, -1) + (1,) * (xf.dim() - 2)
+            scale = torch.rsqrt(var + self.eps) * self.weight
+            y = ((xf - mean.view(shape)) * scale.view(shape)
+                 + self.bias.view(shape)).to(xc.dtype)
+            if update_stats:
+                self._moved(mean.detach(), var.detach())
+        elif self.training:
             # one reduction gives the output and the batch's mean and
             # 1 / sqrt(biased variance + eps)
             y, mean, invstd = torch.native_batch_norm(xc, self.weight, self.bias, None, None,
@@ -105,6 +129,22 @@ class BatchNorm(nn.Module):
         return y.reshape(x.shape) if axis == x.dim() - 1 else y.movedim(1, axis)
 
 
+def _global_moments(xf: torch.Tensor, group):
+    """(mean, biased variance) over every axis of ``xf`` but 1 and every
+    rank of ``group``, in two passes as one process's reduction makes them
+    (E[x^2] - E[x]^2 in float32 cancels where the mean dwarfs the spread):
+    a differentiable all-reduce of the local sums and count, then one of
+    the local sums of squared deviations from the global mean."""
+    c = xf.shape[1]
+    dims = [d for d in range(xf.dim()) if d != 1]
+    stats = collectives.all_reduce(
+        torch.cat([xf.sum(dims), xf.new_full((1,), xf.numel() // c)]), group)
+    n = stats[c]
+    mean = stats[:c] / n
+    dev = xf - mean.view((1, -1) + (1,) * (xf.dim() - 2))
+    return mean, collectives.all_reduce((dev * dev).sum(dims), group) / n
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale the kept by ``1 / (1 - rate)``; eval mode and
@@ -113,7 +153,9 @@ class Dropout(nn.Module):
     The mask is drawn from :attr:`generator` (a ``torch.Generator`` on the
     input's device, or None for torch's default one); the trainers set it
     to a generator seeded by the step (:func:`set_dropout_generator`), so a
-    resumed run draws the masks of an uninterrupted one.
+    resumed run draws the masks of an uninterrupted one; on a mesh a rank
+    takes its rows of the global batch's mask
+    (:func:`~gridnext_tpu_torch.parallel.collectives.draw_rows`).
     """
 
     def __init__(self, rate: float = 0.0):
@@ -127,7 +169,9 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=self.generator)
+        mask = collectives.draw_rows(
+            lambda shape: torch.empty(shape, device=x.device).bernoulli_(
+                keep, generator=self.generator), x.shape)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

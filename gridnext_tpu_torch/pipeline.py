@@ -11,8 +11,9 @@ linear). :func:`patch_grid` builds an array's ``(H, W, P, P, 3)`` float
 grid on the slide's device, as the JAX package's ``grid_from_wsi_visium``
 builds it on the host. :func:`augment_patches` draws one of the 8
 flips/rotations per patch on the card for training (``--augment``).
-:func:`distance_um_to_px` converts a distance on the tissue to pixels of
-an array's fullres image (the patch size of ``patch_size_um``).
+:func:`remove_color_cast` is SpaCell's colour-cast removal of a slide on
+the host. :func:`distance_um_to_px` converts a distance on the tissue to
+pixels of an array's fullres image (the patch size of ``patch_size_um``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from gridnext_tpu_torch import geometry
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
+from gridnext_tpu_torch.parallel.collectives import draw_rows
 
 # Crops resized at a time in crop_grid (a chunk's float intermediates stay
 # near 0.6 GB at 160-px windows).
@@ -296,6 +298,25 @@ def patch_grid(wsi: torch.Tensor, positions, patch_size: int, window_size=None,
     return crop_grid(edge_pad(wsi, w // 2), oy, ox, y_px, x_px, w, patch_size, h_st, w_st)
 
 
+def remove_color_cast(img: np.ndarray) -> np.ndarray:
+    """SpaCell colour-cast removal: scale each RGB channel so its 99th
+    percentile maps to white, truncating as PIL's ``Image.point`` does.
+    (H, W, >=3) uint8 in, uint8 out; channels past RGB (e.g. PNG alpha)
+    pass through untouched. Raises ValueError on any other shape (a 2-D
+    image would otherwise treat its first three columns as channels).
+    The JAX package's ``pipeline.remove_color_cast``, in numpy on the host."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[-1] < 3:
+        raise ValueError(f"expected an (H, W, >=3) RGB image; got shape "
+                         f"{img.shape}")
+    out = img.copy()
+    for c in range(3):
+        p = np.percentile(img[..., c].ravel(), q=99)
+        out[..., c] = np.minimum(img[..., c].astype(np.float64) * (255.0 / p),
+                                 255).astype(np.uint8)
+    return out
+
+
 def _dihedral(patches: torch.Tensor, transpose, flip_r, flip_c) -> torch.Tensor:
     """Per-patch (transpose?, flip rows?, flip columns?) of ``(..., P, P, C)``
     patches, the bits broadcast over the leading axes, applied in that
@@ -329,15 +350,20 @@ def augment_patches(generator: torch.Generator, patches: torch.Tensor, *,
     off) from ``generator`` (a generator on the patches' device), and
     optionally a brightness shift ``u * brightness`` and a contrast scale
     ``1 + u * contrast`` around the patch mean, u ~ U[-1, 1]. The JAX
-    package's ``augment_patches``; torch draws other bits than JAX."""
+    package's ``augment_patches``; torch draws other bits than JAX. On a
+    mesh a rank draws its rows of the global batch's draws
+    (:func:`~gridnext_tpu_torch.parallel.collectives.draw_rows`)."""
     if patches.dim() < 3 or patches.shape[-2] != patches.shape[-3]:
         raise ValueError("augment_patches wants (..., P, P, C) square "
                          f"patches; got shape {tuple(patches.shape)}")
     lead = tuple(patches.shape[:-3])
     dev = patches.device
 
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
     def coin():
-        return torch.rand(lead, generator=generator, device=dev) < 0.5
+        return draw_rows(rand, lead) < 0.5
 
     zeros = torch.zeros(lead, dtype=torch.bool, device=dev)
     transpose = flip_r = flip_c = zeros
@@ -346,7 +372,8 @@ def augment_patches(generator: torch.Generator, patches: torch.Tensor, *,
     elif flips:
         flip_r, flip_c = coin(), coin()
     elif rotations:
-        k90 = torch.randint(0, 4, lead, generator=generator, device=dev)
+        k90 = draw_rows(lambda shape: torch.randint(0, 4, shape, generator=generator,
+                                                    device=dev), lead)
         transpose, flip_r, flip_c = k90 % 2 == 1, k90 >= 2, (k90 == 1) | (k90 == 2)
     out = _dihedral(patches, transpose, flip_r, flip_c)
 
@@ -354,10 +381,10 @@ def augment_patches(generator: torch.Generator, patches: torch.Tensor, *,
         return v[(...,) + (None,) * 3].to(out.dtype)
 
     if brightness:
-        u = torch.rand(lead, generator=generator, device=dev) * 2 - 1
+        u = draw_rows(rand, lead) * 2 - 1
         out = out + expand(u * brightness)
     if contrast:
-        u = torch.rand(lead, generator=generator, device=dev) * 2 - 1
+        u = draw_rows(rand, lead) * 2 - 1
         mean = out.mean(dim=(-1, -2, -3), keepdim=True)
         out = (out - mean) * expand(1.0 + u * contrast) + mean
     return out

@@ -305,13 +305,15 @@ class RegistrationService:
         return svc
 
     @classmethod
-    def from_model_dir(cls, model_dir, max_batch: int = 8, device="cuda"):
+    def from_model_dir(cls, model_dir, max_batch: int = 8, device="cuda", mesh=None):
         """Resident service for a trained model directory (``model.json`` +
         ``g_state.msgpack``): image models through a ``SlideRegistrar``
-        (requests micro-batched up to ``max_batch`` slides a dispatch),
-        count models through the grid model's forward, multimodal models
-        through ``register_mm_grid`` (their grids built per request from
-        the validated count caches). Graph models do not serve."""
+        (requests micro-batched up to ``max_batch`` slides a dispatch; a
+        serving ``mesh`` splits its spot axis over devices), count models
+        through the grid model's forward, multimodal models through
+        ``register_mm_grid`` (their grids built per request from the
+        validated count caches). Graph models do not serve; a mesh serves
+        image models only (ValueError otherwise)."""
         from gridnext_tpu_torch.compat.from_jax import load_model_dir
         from gridnext_tpu_torch.serving import resolve_device
 
@@ -321,10 +323,16 @@ class RegistrationService:
         if name.endswith(("DenseNet121", "TpuPatchClassifier")):
             from gridnext_tpu_torch.modeldir import image_registrar_from_meta
 
-            registrar = image_registrar_from_meta(meta, classes, variables, device=device)
+            registrar = image_registrar_from_meta(meta, classes, variables, device=device,
+                                                  mesh=mesh)
             return cls.from_registrar(registrar, classes, model=name,
                                       hd_binning=meta.get("hd_binning"),
                                       max_batch=max_batch)
+        if mesh is not None:
+            # a count / multimodal forward is one small dispatch: an ignored
+            # mesh would misreport the serving topology
+            raise ValueError(f"mesh serving applies to image models; "
+                             f"{name!r} serves single-device")
         if name in ("GridNetHexMM", "GridNetMM"):
             return cls._mm_service(meta, classes, variables, device)
         if name.endswith("CountMLP"):

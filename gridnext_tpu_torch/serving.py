@@ -80,6 +80,16 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _mesh_device(mesh, device) -> torch.device:
+    """A registrar's device: ``device``, or a serving mesh's first."""
+    if mesh is None:
+        return resolve_device(device)
+    if not mesh.devices:
+        raise ValueError("a registrar's mesh lists devices (parallel.make_mesh("
+                         "shape, devices=[...])); training meshes span processes")
+    return resolve_device(mesh.devices[0])
+
+
 def _clamp_centers(y_px, x_px, wsi_shape, window_size: int,
                    pad_offset: int = 0):
     """Offset + clamp spot centers so the crop window stays in bounds.
@@ -296,6 +306,13 @@ class SlideRegistrar:
         W, C)`` logits, in place of the hex-corrector kernels (the
         Cartesian conv corrector of square ``GridNet`` models).
       device: where registration runs; 'cuda' (default) raises without CUDA.
+      mesh: a serving mesh (``parallel.make_mesh(shape, devices=[...])``)
+        to split the flat spot axis over: padded to a multiple of its
+        size, each shard's crop (one gather launch) and f run on its own
+        device, the features move to the first device, where the
+        corrector runs once (``device`` becomes the first device). f must
+        be a module to run on another device (a copy there). The labels
+        are the single-device ones.
     """
 
     def __init__(self, f_apply: Callable, corrector_kernels=None, corrector_biases=None,
@@ -305,8 +322,10 @@ class SlideRegistrar:
                  patch_chunk: Optional[int] = 624,
                  h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
                  hex_coords: bool = True, corrector_apply: Optional[Callable] = None,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, device)
+        self._shards = {}             # device -> (f_apply, resize matrices) of a shard
         if corrector_apply is None and not corrector_kernels:
             raise ValueError("the hex corrector needs corrector_kernels/"
                              "corrector_biases (fold_corrector_params or "
@@ -343,7 +362,7 @@ class SlideRegistrar:
         """
         from gridnext_tpu_torch.models.gridnet import _CartesianCorrector
 
-        device = resolve_device(device)
+        device = _mesh_device(kw.get("mesh"), device)
         f = model.patch_classifier.to(device).eval()
         if isinstance(model.corrector, _CartesianCorrector):
             kw.setdefault("hex_coords", False)
@@ -367,13 +386,80 @@ class SlideRegistrar:
         w = self.window_size
         return gather_patches(wsis, y_c - w // 2, x_c - w // 2, w, slide)
 
-    def _apply_f(self, crops: torch.Tensor) -> torch.Tensor:
+    def _apply_f(self, crops: torch.Tensor, shard=None) -> torch.Tensor:
         """uint8 window crops -> (N, f_dim); resizes, normalizes and runs f
         chunk by chunk, so only one chunk of float patches is alive at a
-        time."""
+        time. ``shard``: a mesh device's (f_apply, resize matrices)
+        (default this registrar's)."""
+        f_apply, resize = shard or (self.f_apply, self._resize)
         chunk = self.patch_chunk or crops.shape[0]
-        return map_chunks(lambda part: self.f_apply(self._normalize(
-            resize_patches(part, self.patch_size, self._resize))), crops, chunk)
+        return map_chunks(lambda part: f_apply(self._normalize(
+            resize_patches(part, self.patch_size, resize))), crops, chunk)
+
+    # -- the mesh's spot shards ---------------------------------------------
+
+    def _shard(self, device: torch.device):
+        """(f_apply, resize matrices) on a mesh device: this registrar's on
+        its own device, a copy of the f module elsewhere (made once)."""
+        if device == self.device:
+            return self.f_apply, self._resize
+        if device not in self._shards:
+            import copy
+
+            if not isinstance(self.f_apply, torch.nn.Module):
+                raise ValueError("a mesh over several devices needs f as a module "
+                                 f"(got {type(self.f_apply).__name__})")
+            resize = (None if self._resize is None else resize_matrices(
+                self.window_size, self.window_size, self.patch_size, device))
+            self._shards[device] = (copy.deepcopy(self.f_apply).to(device).eval(), resize)
+        return self._shards[device]
+
+    def _sharded(self, n: int):
+        """(shard length, [(device, rows)]) of a flat axis of ``n`` padded to
+        a multiple of the mesh's size."""
+        per = -(-n // self.mesh.size)
+        return per, [(d, slice(i * per, (i + 1) * per))
+                     for i, d in enumerate(self.mesh.devices)]
+
+    def _feats_flat(self, wsis, y_c, x_c, slide):
+        """Flat spot centers -> (N, f_dim) features on ``self.device``.
+        Over a mesh the spot axis pads to a multiple of the mesh's size
+        (padding spots crop slide 0's corner and are cut off after), and
+        each shard crops its spots with one gather launch and runs f on
+        its device; the features move to the first device. Off-mesh this
+        is plain crop + f."""
+        if self.mesh is None:
+            return self._apply_f(self._extract_flat(wsis, y_c, x_c, slide))
+        n = y_c.shape[0]
+        per, shards = self._sharded(n)
+        pad = per * self.mesh.size - n
+        if pad:
+            p2 = self.window_size // 2
+            y_c = torch.cat([y_c, y_c.new_full((pad,), p2)])
+            x_c = torch.cat([x_c, x_c.new_full((pad,), p2)])
+            slide = torch.cat([slide, slide.new_zeros((pad,))])
+        feats = []
+        for dev, rows in shards:
+            w = wsis if wsis.device == dev else wsis.to(dev)
+            crops = self._extract_flat(w, y_c[rows].to(dev), x_c[rows].to(dev),
+                                       slide[rows].to(dev))
+            feats.append(self._apply_f(crops, self._shard(dev)).to(self.device))
+        return torch.cat(feats)[:n]
+
+    def _apply_f_sharded(self, patches: torch.Tensor) -> torch.Tensor:
+        """:meth:`_apply_f` over the mesh's shards of a flat patch axis (the
+        dense resample path: each device runs f on its shard; the features
+        move to the first device). Off-mesh this is plain :meth:`_apply_f`."""
+        if self.mesh is None:
+            return self._apply_f(patches)
+        n = patches.shape[0]
+        per, shards = self._sharded(n)
+        feats = []
+        for dev, rows in shards:
+            part = patches[rows]
+            if part.shape[0]:
+                feats.append(self._apply_f(part.to(dev), self._shard(dev)).to(self.device))
+        return torch.cat(feats)
 
     def _bg_vec(self) -> torch.Tensor:
         # Background cells carry f(zero patch): in training grids background
@@ -396,8 +482,8 @@ class SlideRegistrar:
         f-output grid, (B, h_st, w_st) int32 fg mask)."""
         b, s = oy.shape
         slide = torch.arange(b, device=self.device).repeat_interleave(s)
-        crops = self._extract_flat(wsis, y_px.reshape(-1), x_px.reshape(-1), slide)
-        return self._scatter(self._apply_f(crops).reshape(b, s, -1), oy, ox)
+        feats = self._feats_flat(wsis, y_px.reshape(-1), x_px.reshape(-1), slide)
+        return self._scatter(feats.reshape(b, s, -1), oy, ox)
 
     def _scatter(self, feats, oy, ox):
         """(B, S, f_dim) spot features at (B, S) grid cells -> ((B, h_st,
@@ -506,7 +592,8 @@ class SlideRegistrar:
             keep = np.flatnonzero(inside[r0:r0 + patches.shape[0]])
             r0 += patches.shape[0]
             if len(keep):
-                feats.append(self._apply_f(patches[torch.as_tensor(keep, device=wsi.device)]))
+                feats.append(self._apply_f_sharded(
+                    patches[torch.as_tensor(keep, device=wsi.device)]))
         oy, ox = (torch.as_tensor(a, device=self.device)[None]
                   for a in np.nonzero(inside.reshape(ey, ex)))
         grid, fg = self._scatter(torch.cat(feats)[None], oy, ox)
@@ -682,6 +769,7 @@ class SlideRegistrar:
         int32 spots (:meth:`spot_inputs`). The artifact runs on this
         registrar's device only (``platforms`` naming another raises).
         """
+        self._check_no_mesh()
         check_export_platforms(self.device, platforms)
         if len(wsi_shape) != 3 or wsi_shape[-1] != 3:
             raise ValueError(f"wsi_shape must be (H, W, 3); got {wsi_shape}")
@@ -693,6 +781,11 @@ class SlideRegistrar:
         return _export(lambda wsi, oy, ox, y, x: self._register(
             wsi, oy.long(), ox.long(), y.long(), x.long()),
             (self.f_apply, self.corrector_apply), args)
+
+    def _check_no_mesh(self) -> None:
+        if self.mesh is not None:
+            raise ValueError("export serializes the single-device path; "
+                             "build the registrar with mesh=None")
 
     def _register_dense(self, wsi, oy0, ox0, fg, ey: int, ex: int):
         """An exact integer-pitch lattice: the ``(ey, ex)`` extent's bins
@@ -717,6 +810,7 @@ class SlideRegistrar:
         fg, ey, ex)``). The loaded program takes ``(wsi, oy0, ox0, fg)``:
         the slide, the top-left pixel of bin (0, 0) as int32 scalars, and
         the (h_st, w_st) int32 in-tissue mask."""
+        self._check_no_mesh()
         check_export_platforms(self.device, platforms)
         if self.hex_coords:
             raise ValueError("export_dense needs a square-lattice registrar "

@@ -29,6 +29,13 @@ PyTorch, step for step.
   the end, ``outfile`` and ``outfile.latest`` written every epoch end by a
   background writer, ``resume`` from a ``.latest`` and a SIGTERM guard
   polled at batch boundaries (``train/preempt.py``).
+* ``mesh`` / ``mesh_shape`` (the JAX trainers' arguments) train over a
+  process group, one process a card (:mod:`gridnext_tpu_torch.parallel`):
+  the replicas start from rank 0's weights, each rank builds its rows of
+  every padded global batch, the loss's count, the gradients and the
+  metrics sum over the ranks (global-batch BatchNorm inside the step),
+  a SIGTERM on any rank stops every rank at the same batch, and only rank 0
+  writes files.
 * Checkpoints are the JAX package's msgpack payload: ``params``,
   ``batch_stats``, ``extra_vars``, ``step`` and ``opt_state`` in the
   layout ``flax.serialization.to_state_dict`` gives the optax state the
@@ -43,6 +50,7 @@ explicit generator (``train/init.py``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -350,22 +358,31 @@ def _at_least_f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+def _total(n: torch.Tensor, reduce_count: Optional[Callable]) -> torch.Tensor:
+    """The loss's denominator: ``n``, or on a mesh its sum over the ranks
+    (``reduce_count``), so the ranks' losses add up to the global mean."""
+    return (n if reduce_count is None else reduce_count(n)).clamp_min(1)
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         reduce_count: Optional[Callable] = None):
     """Foreground-masked CE over ``(..., C)`` logits and ``(...)`` labels
     (0 background, 1..C foreground): (mean CE over foreground, n_correct,
-    n_foreground)."""
+    n_foreground). ``reduce_count``: the mesh's sum of the foreground count
+    over the ranks (the mean is over the global batch's foreground)."""
     logits = _at_least_f32(logits.reshape(-1, logits.shape[-1]))
     labels = labels.reshape(-1)
     mask = labels > 0
     fg = (labels - 1).clamp_min(0)
     ce = F.cross_entropy(logits, fg, reduction="none")
     n = mask.sum()
-    loss = torch.where(mask, ce, torch.zeros_like(ce)).sum() / n.clamp_min(1)
+    loss = torch.where(mask, ce, torch.zeros_like(ce)).sum() / _total(n, reduce_count)
     n_correct = (mask & (logits.argmax(-1) == fg)).sum()
     return loss, n_correct, n
 
 
-def _spot_loss(logits: torch.Tensor, labels: torch.Tensor):
+def _spot_loss(logits: torch.Tensor, labels: torch.Tensor,
+               reduce_count: Optional[Callable] = None):
     """Plain CE; labels < 0 mark padding rows, excluded from loss and
     accuracy."""
     logits = _at_least_f32(logits)
@@ -373,19 +390,21 @@ def _spot_loss(logits: torch.Tensor, labels: torch.Tensor):
     safe = labels.clamp_min(0)
     ce = F.cross_entropy(logits, safe, reduction="none")
     n = mask.sum()
-    loss = torch.where(mask, ce, torch.zeros_like(ce)).sum() / n.clamp_min(1)
+    loss = torch.where(mask, ce, torch.zeros_like(ce)).sum() / _total(n, reduce_count)
     n_correct = (mask & (logits.argmax(-1) == safe)).sum()
     return loss, n_correct, n
 
 
-def _spot_mse(preds: torch.Tensor, targets: torch.Tensor):
+def _spot_mse(preds: torch.Tensor, targets: torch.Tensor,
+              reduce_count: Optional[Callable] = None):
     """Regression objective; non-finite target rows mark padding."""
     finite = torch.isfinite(targets)
     row_valid = finite.reshape(finite.shape[0], -1).all(1)
     safe = torch.where(finite, targets, torch.zeros_like(targets))
     per_row = ((_at_least_f32(preds) - safe) ** 2).reshape(preds.shape[0], -1).mean(1)
     n = row_valid.sum()
-    mse = torch.where(row_valid, per_row, torch.zeros_like(per_row)).sum() / n.clamp_min(1)
+    mse = torch.where(row_valid, per_row, torch.zeros_like(per_row)).sum() / _total(
+        n, reduce_count)
     return mse, torch.zeros((), dtype=torch.int64, device=preds.device), n
 
 
@@ -403,7 +422,51 @@ def _device_of(x) -> torch.device:
     return (x[0] if isinstance(x, (tuple, list)) else x).device
 
 
-def make_steps(state: TrainState, loss_kind: str, augment: Optional[Callable] = None):
+class _MeshStep:
+    """What a step does on a training mesh: the sharding context around the
+    forward and backward (global-batch BatchNorm over every rank, the
+    ``spot`` share of grid rows, this rank's rows for the random draws),
+    the loss's denominator summed over the ranks, the gradients summed
+    after the backward, and the metrics summed for the report."""
+
+    def __init__(self, rows: np.ndarray, batch_size: int, copies: int = 1):
+        from gridnext_tpu_torch.parallel import collectives
+
+        self.c = collectives
+        # rows: the indices of this rank's (contiguous) rows of the batch
+        self.rows = collectives.RowShard(int(rows[0]), int(rows[-1]) + 1, batch_size)
+        self.copies = copies      # ranks that hold the same rows (a spot group)
+        self.spot = None          # set a grid batch at a time (mesh.spot_rows)
+
+    def context(self):
+        import torch.distributed as dist
+
+        return self.c.sharded(dist.group.WORLD, self.spot, self.rows)
+
+    def reduce_count(self, n: torch.Tensor) -> torch.Tensor:
+        return self.c.all_reduce_(n.clone())
+
+    def reduce_grads(self, params) -> None:
+        self.c.all_reduce_grads(params)
+
+    def reduce_metrics(self, loss, n_correct, n) -> dict:
+        vals = self.c.all_reduce_(torch.stack([loss.detach().double(), n_correct.double(),
+                                               n.double()]))
+        # the copies of a spot group count their rows once each; their
+        # losses already split the global one
+        return {"loss": vals[0].to(loss.dtype), "n_correct": vals[1].long() // self.copies,
+                "n": vals[2].long() // self.copies}
+
+
+def _step_metrics(ms: Optional[_MeshStep], loss, n_correct, n) -> dict:
+    """A step's device metrics, the global batch's on a mesh."""
+    if ms is not None:
+        return ms.reduce_metrics(loss, n_correct, n)
+    return {"loss": loss.detach(), "n_correct": n_correct, "n": n}
+
+
+def make_steps(state: TrainState, loss_kind: str, augment: Optional[Callable] = None,
+               mesh_step: Optional[_MeshStep] = None):
     """(train_step, eval_step) closures over ``state``: ``train_step(x, y)``
     runs one optimiser step in train mode and returns the device metrics
     ``{loss, n_correct, n}``; ``eval_step(x, y)`` the metrics in eval mode,
@@ -412,28 +475,36 @@ def make_steps(state: TrainState, loss_kind: str, augment: Optional[Callable] = 
     ``augment``: optional ``fn(generator, x) -> x`` applied to the train
     batch only, with a generator seeded by the step
     (``pipeline.make_train_augment``). Dropout draws from a generator seeded
-    by the step too.
+    by the step too. ``mesh_step``: this rank's part of a mesh's step (the
+    trainers build it from ``mesh``); the metrics are then the global
+    batch's.
     """
     loss_fn = _LOSSES[loss_kind]
     model = state.model
+    ms = mesh_step
+    context = ms.context if ms is not None else contextlib.nullcontext
+    reduce_count = ms.reduce_count if ms is not None else None
 
     def train_step(x, y):
         dev = _device_of(x)
         model.train()
         set_dropout_generator(model, _step_generator(_DROPOUT_SEED, state.step, dev))
-        if augment is not None:
-            x = augment(_step_generator(_AUGMENT_SEED, state.step, dev), x)
-        loss, n_correct, n = loss_fn(model(x), y)
-        loss.backward()
+        with context():
+            if augment is not None:
+                x = augment(_step_generator(_AUGMENT_SEED, state.step, dev), x)
+            loss, n_correct, n = loss_fn(model(x), y, reduce_count)
+            loss.backward()
+        if ms is not None:
+            ms.reduce_grads(state.optimizer.trainable)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "n_correct": n_correct, "n": n}
+        return _step_metrics(ms, loss, n_correct, n)
 
     def eval_step(x, y):
         model.eval()
-        with torch.no_grad():
-            loss, n_correct, n = loss_fn(model(x), y)
-        return {"loss": loss, "n_correct": n_correct, "n": n}
+        with torch.no_grad(), context():
+            loss, n_correct, n = loss_fn(model(x), y, reduce_count)
+        return _step_metrics(ms, loss, n_correct, n)
 
     return train_step, eval_step
 
@@ -444,7 +515,8 @@ def _mlm_mask(generator: torch.Generator, shape, mask_prob: float, device) -> to
     return torch.rand(tuple(shape), generator=generator, device=device) < mask_prob
 
 
-def mlm_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+def mlm_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+             reduce_count: Optional[Callable] = None):
     """Masked-LM CE over ``(B, n, V)`` logits at the corrupted positions
     ``mask`` whose clean token ``y`` is not padding (-1): (mean CE,
     n_correct, n)."""
@@ -454,12 +526,13 @@ def mlm_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1),
                          reduction="none").reshape(y.shape)
     n = valid.sum()
-    loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / n.clamp_min(1)
+    loss = torch.where(valid, ce, torch.zeros_like(ce)).sum() / _total(n, reduce_count)
     n_correct = (valid & (logits.argmax(-1) == safe)).sum()
     return loss, n_correct, n
 
 
-def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15):
+def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15,
+                   mesh_step: Optional[_MeshStep] = None):
     """(train_step, eval_step) for masked-LM pretraining: the JAX
     package's ``make_mlm_steps``.
 
@@ -470,31 +543,40 @@ def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15):
     of the clean token at the corrupted positions. The train mask is drawn
     from a generator seeded by the step, the eval mask from a fixed one
     (:func:`_mlm_mask` draws both), so validation losses compare across
-    epochs.
+    epochs. ``mesh_step`` as in :func:`make_steps`.
     """
+    from gridnext_tpu_torch.parallel.collectives import draw_rows
+
     model = state.model
+    ms = mesh_step
+    context = ms.context if ms is not None else contextlib.nullcontext
+    reduce_count = ms.reduce_count if ms is not None else None
 
     def corrupt(generator, y):
-        mask = _mlm_mask(generator, y.shape, mask_prob, y.device)
+        mask = draw_rows(lambda shape: _mlm_mask(generator, shape, mask_prob, y.device),
+                         y.shape)
         return torch.where(mask, torch.full_like(y, mask_id), y.clamp_min(0)).long(), mask
 
     def train_step(x, y):
         dev = y.device
         model.train()
         set_dropout_generator(model, _step_generator(_DROPOUT_SEED, state.step, dev))
-        tokens, mask = corrupt(_step_generator(_MLM_SEED, state.step, dev), y)
-        loss, n_correct, n = mlm_loss(model(tokens), y, mask)
-        loss.backward()
+        with context():
+            tokens, mask = corrupt(_step_generator(_MLM_SEED, state.step, dev), y)
+            loss, n_correct, n = mlm_loss(model(tokens), y, mask, reduce_count)
+            loss.backward()
+        if ms is not None:
+            ms.reduce_grads(state.optimizer.trainable)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "n_correct": n_correct, "n": n}
+        return _step_metrics(ms, loss, n_correct, n)
 
     def eval_step(x, y):
         model.eval()
-        tokens, mask = corrupt(_step_generator(_MLM_EVAL_SEED, 0, y.device), y)
-        with torch.no_grad():
-            loss, n_correct, n = mlm_loss(model(tokens), y, mask)
-        return {"loss": loss, "n_correct": n_correct, "n": n}
+        with torch.no_grad(), context():
+            tokens, mask = corrupt(_step_generator(_MLM_EVAL_SEED, 0, y.device), y)
+            loss, n_correct, n = mlm_loss(model(tokens), y, mask, reduce_count)
+        return _step_metrics(ms, loss, n_correct, n)
 
     return train_step, eval_step
 
@@ -512,17 +594,29 @@ def _stack(parts):
     return torch.stack(parts) if torch.is_tensor(parts[0]) else np.stack(parts)
 
 
-def _pad_batch(x, y, batch_size: int, loss_kind: str):
-    """Pad a partial (x, y) minibatch to ``batch_size``: inputs repeat the
-    final item (BatchNorm sees the pads as in the JAX loop), labels mark
-    the pads for the masked losses (0 for grid CE, -1 for spot CE, NaN
-    targets for MSE). Casts as the JAX loop does: MSE targets to float32,
-    unsigned spot labels to int32."""
+def _cast_labels(y, loss_kind: str):
+    """The JAX loop's label casts: MSE targets to float32, unsigned spot
+    labels to int32."""
     if loss_kind == "spot_mse" and not np.issubdtype(y.dtype, np.floating):
         y = y.astype(np.float32)
     if (loss_kind not in ("grid", "spot_mse")
             and np.issubdtype(y.dtype, np.unsignedinteger)):
         y = y.astype(np.int32)
+    return y
+
+
+def _pad_fill(loss_kind: str):
+    """The label of a padding item: 0 for grid CE, -1 for spot CE, NaN
+    targets for MSE."""
+    return np.nan if loss_kind == "spot_mse" else (0 if loss_kind == "grid" else -1)
+
+
+def _pad_batch(x, y, batch_size: int, loss_kind: str):
+    """Pad a partial (x, y) minibatch to ``batch_size``: inputs repeat the
+    final item (BatchNorm sees the pads as in the JAX loop), labels mark
+    the pads for the masked losses (:func:`_pad_fill`), cast as the JAX
+    loop casts them (:func:`_cast_labels`)."""
+    y = _cast_labels(y, loss_kind)
     n_pad = batch_size - len(y)
     if n_pad <= 0:
         return x, y
@@ -533,13 +627,13 @@ def _pad_batch(x, y, batch_size: int, loss_kind: str):
         return np.concatenate([a, np.repeat(a[-1:], n_pad, axis=0)])
 
     x = tuple(pad_x(a) for a in x) if isinstance(x, tuple) else pad_x(x)
-    fill = np.nan if loss_kind == "spot_mse" else (0 if loss_kind == "grid" else -1)
-    y = np.concatenate([y, np.full((n_pad,) + y.shape[1:], fill, y.dtype)])
+    y = np.concatenate([y, np.full((n_pad,) + y.shape[1:], _pad_fill(loss_kind), y.dtype)])
     return x, y
 
 
 def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
-                  pad_kind: Optional[str] = None, skip: int = 0):
+                  pad_kind: Optional[str] = None, skip: int = 0,
+                  shard: Optional[Callable] = None):
     """Yield (x, y, n_real) minibatches in the JAX loop's order.
 
     ``data``: an (inputs, labels) pair (``inputs`` an array or tensor, or a
@@ -548,6 +642,10 @@ def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
     one gather launch), else its items are stacked. ``rng`` draws the
     epoch's permutation (None: file order); ``skip`` drops the first
     ``skip`` batches after the draw; ``pad_kind`` pads partial batches.
+    ``shard``: on a mesh, :func:`_mesh_placement`'s function; only this
+    rank's rows of each padded global batch are built (padding rows repeat
+    the last item and carry the padding label), and ``n_real`` stays the
+    global batch's.
     """
 
     def finish(x, y):
@@ -556,33 +654,37 @@ def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
             x, y = _pad_batch(x, y, batch_size, pad_kind)
         return x, y, n_real
 
-    if _is_dataset(data):
-        n = len(data)
-        order = rng.permutation(n) if rng is not None else np.arange(n)
-        for i in range(skip * batch_size, n, batch_size):
-            idx = order[i:i + batch_size]
-            if hasattr(data, "batch"):
-                x, y = data.batch(idx)
-                yield finish(x, np.asarray(y))
-                continue
-            items = [data[int(j)] for j in idx]
-            xs = [it[0] for it in items]
-            ys = np.stack([np.asarray(it[1]) for it in items])
-            if isinstance(xs[0], (tuple, list)):
-                yield finish(tuple(_stack(list(z)) for z in zip(*xs)), ys)
-            else:
-                yield finish(_stack(xs), ys)
-        return
-    inputs, labels = data
-    multi = isinstance(inputs, (tuple, list))
-    n = len(labels)
+    def fetch(idx):
+        if not _is_dataset(data):
+            inputs, labels = data
+            if isinstance(inputs, (tuple, list)):
+                return tuple(_take(a, idx) for a in inputs), np.asarray(labels)[idx]
+            return _take(inputs, idx), np.asarray(labels)[idx]
+        if hasattr(data, "batch"):
+            x, y = data.batch(idx)
+            return x, np.asarray(y)
+        items = [data[int(j)] for j in idx]
+        xs = [it[0] for it in items]
+        ys = np.stack([np.asarray(it[1]) for it in items])
+        if isinstance(xs[0], (tuple, list)):
+            return tuple(_stack(list(z)) for z in zip(*xs)), ys
+        return _stack(xs), ys
+
+    n = len(data) if _is_dataset(data) else len(data[1])
     order = rng.permutation(n) if rng is not None else np.arange(n)
     for i in range(skip * batch_size, n, batch_size):
         idx = order[i:i + batch_size]
-        if multi:
-            yield finish(tuple(_take(a, idx) for a in inputs), np.asarray(labels)[idx])
-        else:
-            yield finish(_take(inputs, idx), np.asarray(labels)[idx])
+        if shard is None:
+            yield finish(*fetch(idx))
+            continue
+        n_real = len(idx)
+        full = np.concatenate([idx, np.repeat(idx[-1:], batch_size - n_real)])
+        local, pad = shard((full, np.arange(batch_size) >= n_real))
+        x, y = fetch(local)
+        y = _cast_labels(np.array(y), pad_kind)
+        if pad.any():
+            y[pad] = _pad_fill(pad_kind)
+        yield x, y, n_real
 
 
 def _take(a, idx):
@@ -731,16 +833,81 @@ def _snapshot(model: nn.Module) -> dict:
 # -- the epoch loop --------------------------------------------------------------
 
 
+def _resolve_mesh(mesh, mesh_shape):
+    """Public trainers accept ``mesh`` (a :class:`~gridnext_tpu_torch.
+    parallel.Mesh`) or ``mesh_shape`` (e.g. {'data': 4, 'spot': 2}, or
+    'auto' for the default data x spot factorization over the ranks)."""
+    if isinstance(mesh, (str, dict)):
+        if mesh_shape is not None:
+            raise ValueError("pass mesh= (a gridnext_tpu_torch.parallel.Mesh) OR "
+                             f"mesh_shape=, not both (got mesh={mesh!r} "
+                             f"and mesh_shape={mesh_shape!r})")
+        # mesh='auto' / mesh={'data': 4} is a natural slip for mesh_shape=...
+        mesh, mesh_shape = None, mesh
+    if mesh is not None:
+        return mesh
+    if mesh_shape is None:
+        return None
+    from gridnext_tpu_torch.parallel.mesh import default_mesh_shape, training_mesh
+    from gridnext_tpu_torch.parallel.multihost import process_count
+
+    if isinstance(mesh_shape, str):
+        if mesh_shape != "auto":
+            raise ValueError(f"mesh_shape must be a dict or 'auto'; got {mesh_shape!r}")
+        mesh_shape = default_mesh_shape(process_count())
+    return training_mesh(mesh_shape)
+
+
+def _mesh_placement(mesh, loss_kind, batch_size) -> Callable:
+    """This rank's rows of every padded global batch: a function taking a
+    tree of arrays (the batch's item indices) to this rank's rows. Grid
+    batches shard over ``data`` (:func:`~gridnext_tpu_torch.parallel.mesh.
+    shard_grid_batch`; the ``spot`` axis splits each grid's rows inside the
+    grid model); spot and MLM batches shard their item axis over every mesh
+    axis (``shard_spot_batch``). Padding to a fixed ``batch_size`` keeps
+    the batch axis shardable; the masked losses ignore the pad items."""
+    from gridnext_tpu_torch.parallel.mesh import SEQ_LATER, shard_grid_batch, shard_spot_batch
+
+    axis_sizes = dict(mesh.shape)
+    if "seq" in axis_sizes:
+        raise NotImplementedError(SEQ_LATER)
+    div = axis_sizes.get("data", 1) if loss_kind == "grid" else mesh.size
+    if batch_size % div:
+        raise ValueError(
+            f"batch_size {batch_size} is not divisible by the mesh's batch "
+            f"sharding factor {div} (mesh axes {axis_sizes}); pick a batch "
+            "size divisible by it")
+    shard = shard_grid_batch if loss_kind == "grid" else shard_spot_batch
+    return lambda tree: shard(tree, mesh)
+
+
 def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_size,
                   outfile, shuffle_seed, verbose, device, metrics_logger=None,
                   resume=None, augment=None, redraw_every: Optional[int] = None,
-                  mlm: Optional[Mapping] = None):
+                  mlm: Optional[Mapping] = None, mesh=None):
     from gridnext_tpu_torch.models.performer import fast_attentions, redraw_projections
 
+    # On a training mesh each rank builds its rows of every padded global
+    # batch, the step sums the loss's count, the gradients and the metrics
+    # over the ranks (global-batch BatchNorm inside), and only the primary
+    # writes files
+    shard = ms = None
+    distributed = mesh is not None and mesh.distributed
+    if distributed:
+        from gridnext_tpu_torch.parallel import collectives, is_primary, replicate
+        from gridnext_tpu_torch.parallel.mesh import spot_rows
+        from gridnext_tpu_torch.parallel.multihost import host_group
+
+        shard = _mesh_placement(mesh, loss_kind, batch_size)
+        ms = _MeshStep(shard(np.arange(batch_size)), batch_size,
+                       copies=mesh.size // mesh.axis_size("data") if loss_kind == "grid" else 1)
+        if not is_primary():
+            metrics_logger, verbose = None, False
+    mesh_kw = {} if ms is None else {"mesh_step": ms}
     if loss_kind == "mlm":
-        train_step, eval_step = make_mlm_steps(state, **(mlm or {}))
+        train_step, eval_step = make_mlm_steps(state, **(mlm or {}), **mesh_kw)
     else:
-        train_step, eval_step = make_steps(state, loss_kind, augment=augment)
+        train_step, eval_step = make_steps(state, loss_kind, augment=augment, **mesh_kw)
     rng = np.random.default_rng(shuffle_seed)
     redraws = bool(redraw_every) and bool(fast_attentions(state.model))
 
@@ -774,8 +941,10 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
             done = payload.get("redraws_done")
             redraws_done = int(state.step) // redraw_every if done is None else int(done)
 
+    if distributed:
+        replicate(state.model, mesh)      # every replica starts from rank 0's
     ckpt_writer = None
-    if outfile is not None:
+    if outfile is not None and (not distributed or is_primary()):
         from gridnext_tpu_torch.train.async_ckpt import AsyncCheckpointWriter
 
         ckpt_writer = AsyncCheckpointWriter()
@@ -828,10 +997,12 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                 batches = _prefetch_to_device(
                     _iter_batches(dataloaders[phase], batch_size,
                                   rng if phase == "train" else None, pad_kind=loss_kind,
-                                  skip=epoch_skip if phase == "train" else 0),
+                                  skip=epoch_skip if phase == "train" else 0, shard=shard),
                     device)
                 step_fn = train_step if phase == "train" else eval_step
                 for x, y, n_real in batches:
+                    if ms is not None and loss_kind == "grid":
+                        ms.spot = spot_rows(y.shape[1], mesh)
                     m = step_fn(x, y)
                     if (phase == "train" and redraws
                             and state.step % redraw_every == 0):
@@ -849,7 +1020,12 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                         losses[lag] = float(losses[lag])
                         corrs[lag] = int(corrs[lag])
                         ns[lag] = int(ns[lag])
-                    if guard is not None and guard.triggered:
+                    stop = guard is not None and guard.triggered
+                    if distributed:
+                        # every rank stops at the same batch, or the next
+                        # collective would wait for the ones that stopped
+                        stop = collectives.any_rank(stop, host_group())
+                    if stop:
                         preempt_checkpoint(epoch, epoch_skip + len(losses)
                                            if phase == "train" else n_train_total)
                 losses = np.asarray([float(v) for v in losses], dtype=float)
@@ -913,7 +1089,7 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
                    generator: Optional[torch.Generator] = None, shuffle_seed: int = 0,
                    verbose: bool = True, redraw_every: Optional[int] = None,
                    loss: str = "ce", metrics_logger=None,
-                   resume=None, augment=None, device="cuda"):
+                   resume=None, augment=None, device="cuda", mesh=None, mesh_shape=None):
     """Train a spot classifier f: the JAX package's ``train_spotwise``.
 
     ``dataloaders`` maps 'train'/'val' to (inputs, labels) array pairs with
@@ -925,10 +1101,21 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
     ``ortho_scaling``). ``resume=<outfile>.latest`` continues
     an interrupted run (``num_epochs`` is the total). Runs on ``device``
     (default CUDA). Returns (state, val_history, train_history).
+
+    Several cards: pass ``mesh`` (a :class:`~gridnext_tpu_torch.parallel.
+    Mesh`) or ``mesh_shape`` (e.g. {'data': 8}, or 'auto') in every process
+    of a process group (one a card; ``parallel.initialize_multihost``). The
+    replicas start from rank 0's weights, each batch's item axis shards
+    over every mesh axis (``batch_size`` divisible by the world size),
+    partial batches pad with loss-masked items, BatchNorm normalises over
+    the global batch, the gradients sum over the ranks, and only rank 0
+    writes files: the trajectory is the single-process one within float
+    rounding.
     """
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(device)
+    mesh = _resolve_mesh(mesh, mesh_shape)
     if state is None:
         state = create_train_state(model, tx or make_adam(learning_rate),
                                    generator=generator, device=device)
@@ -937,7 +1124,8 @@ def train_spotwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
     kind = {"ce": "spot", "mse": "spot_mse"}[loss]
     return _run_training(state, dataloaders, kind, num_epochs, batch_size, outfile,
                          shuffle_seed, verbose, device, metrics_logger=metrics_logger,
-                         resume=resume, augment=augment, redraw_every=redraw_every)
+                         resume=resume, augment=augment, redraw_every=redraw_every,
+                         mesh=mesh)
 
 
 def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: float = 1e-3,
@@ -946,7 +1134,7 @@ def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
                    state: Optional[TrainState] = None, tx: Optional[OptimizerSpec] = None,
                    generator: Optional[torch.Generator] = None, shuffle_seed: int = 0,
                    verbose: bool = True, metrics_logger=None, resume=None, augment=None,
-                   device="cuda"):
+                   device="cuda", mesh=None, mesh_shape=None):
     """Train a grid model g with the foreground-masked CE: the JAX
     package's ``train_gridwise``.
 
@@ -955,10 +1143,18 @@ def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
     ``(N, H, W)`` with 0 background, or to map-style datasets. ``f_lr``
     trains f with its own Adam; otherwise f is frozen (and runs without
     gradients). Other arguments as :func:`train_spotwise`.
+
+    On a mesh (``mesh`` / ``mesh_shape``, e.g. {'data': 4, 'spot': 2}) the
+    grid batch shards over ``data`` (``batch_size`` divisible by its size)
+    and the ranks of a ``spot`` group split each grid's rows for f and
+    gather its features (a grid H the axis does not divide warns and runs
+    f on every row); g runs on the whole grids with BatchNorm over the
+    global batch.
     """
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(device)
+    mesh = _resolve_mesh(mesh, mesh_shape)
     if state is None:
         state = create_train_state(
             model, tx or make_gridwise_optimizer(learning_rate, f_lr, accum_iters),
@@ -967,16 +1163,20 @@ def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
         state.model.to(device)
     return _run_training(state, dataloaders, "grid", num_epochs, batch_size, outfile,
                          shuffle_seed, verbose, device, metrics_logger=metrics_logger,
-                         resume=resume, augment=augment)
+                         resume=resume, augment=augment, mesh=mesh)
 
 
-def mlm_token_len(n_tokens: int, mesh_shape=None) -> int:
-    """The token-axis length ``train_mlm`` runs: ``n_tokens`` (the JAX
-    package pads it for a sequence-parallel mesh; meshes are not ported,
-    ``ROADMAP.md`` Queue 1 item 9)."""
-    if mesh_shape is not None:
-        raise NotImplementedError("device meshes are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
+def mlm_token_len(n_tokens: int, mesh=None, mesh_shape=None) -> int:
+    """The token-axis length ``train_mlm`` runs: ``n_tokens``. A ``seq``
+    mesh axis (sequence-parallel MLM, for which the JAX package pads the
+    axis) raises: it is not ported (``ROADMAP.md`` Queue 1 item 9, its
+    remainder)."""
+    from gridnext_tpu_torch.parallel.mesh import SEQ_LATER
+
+    shape = mesh.shape if mesh is not None and not isinstance(mesh, (str, dict)) else (
+        mesh if isinstance(mesh, dict) else mesh_shape)
+    if isinstance(shape, dict) and "seq" in shape:
+        raise NotImplementedError(SEQ_LATER)
     return int(n_tokens)
 
 
@@ -985,7 +1185,7 @@ def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
               batch_size: int = 4, outfile=None, state: Optional[TrainState] = None,
               tx: Optional[OptimizerSpec] = None, generator: Optional[torch.Generator] = None,
               shuffle_seed: int = 0, verbose: bool = True, redraw_every: Optional[int] = None,
-              metrics_logger=None, resume=None, device="cuda"):
+              metrics_logger=None, resume=None, device="cuda", mesh=None, mesh_shape=None):
     """Masked-LM pretraining of a token LM: the JAX package's ``train_mlm``.
 
     ``dataloaders`` maps 'train'/'val' to clean integer token arrays
@@ -994,12 +1194,14 @@ def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
     step corrupts a fresh ``mask_prob`` share of the tokens
     (:func:`make_mlm_steps`); ``redraw_every`` redraws the FAVOR+
     projections every that many steps. Resume, preemption and the best-val
-    snapshot (projections included) as in :func:`train_spotwise`. Returns
-    (state, val_history, train_history).
+    snapshot (projections included) as in :func:`train_spotwise`, and so is
+    a mesh: the rows shard over every axis (a ``seq`` axis raises).
+    Returns (state, val_history, train_history).
     """
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(device)
+    mesh = _resolve_mesh(mesh, mesh_shape)
 
     def as_pair(tokens):
         if tokens is None or isinstance(tokens, tuple) or _is_dataset(tokens):
@@ -1016,7 +1218,7 @@ def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
     return _run_training(state, pairs, "mlm", num_epochs, batch_size, outfile, shuffle_seed,
                          verbose, device, metrics_logger=metrics_logger, resume=resume,
                          redraw_every=redraw_every,
-                         mlm={"mask_id": mask_id, "mask_prob": mask_prob})
+                         mlm={"mask_id": mask_id, "mask_prob": mask_prob}, mesh=mesh)
 
 
 __all__ = ["Optimizer", "OptimizerSpec", "TrainState", "create_train_state",

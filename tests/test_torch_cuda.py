@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card
+(and the card's PCA fit against float64, the mesh registrar's launches).
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels have no CPU mode. This file imports neither JAX nor the JAX
@@ -487,3 +488,55 @@ def test_exported_scbert_grid_forward_launches_favor(dev):
     with torch.no_grad():
         logits = g((imgs, counts)).cpu().numpy()
     label_parity_report(logits.argmax(-1)[0] + 1, got[0], logits[0])
+
+
+def test_fit_pca_on_the_card_matches_float64(dev):
+    """cuSOLVER's default (Jacobi) driver left components 4e-4 off unit
+    norm at this shape; the fit must reach float32's precision."""
+    from gridnext_tpu_torch.workflows import fit_pca, pca_transform
+
+    rng = np.random.default_rng(0)
+    n, g = 1500, 600
+    X = (rng.normal(size=(n, g)) * (10 * 0.9 ** np.arange(g) + 0.5)) @ \
+        np.linalg.qr(rng.normal(size=(g, g)))[0].T
+    _, s64, vt64 = np.linalg.svd(X - X.mean(0), full_matrices=False)
+    pca = fit_pca(torch.as_tensor(X, dtype=torch.float32, device=dev))
+    assert pca.components_.device.type == "cuda"
+    comp = pca.components_.double().cpu().numpy()[:5]
+    np.testing.assert_allclose(np.abs(np.sum(comp * vt64[:5], 1)), 1, atol=1e-4)
+    np.testing.assert_allclose(pca.explained_variance_ratio_.double().cpu().numpy(),
+                               s64 ** 2 / (s64 ** 2).sum(), rtol=0, atol=1e-5)
+    # an array projects on the card by default, as fit_pca fits there
+    proj = pca_transform(X[:7].astype(np.float32), pca.components_, pca.mean_, 5)
+    assert proj.device.type == "cuda" and proj.shape == (7, 5)
+    np.testing.assert_allclose(proj.cpu().numpy(), (X[:7] - X.mean(0)) @ comp.T,
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_mesh_registrar_launches_a_gather_a_shard(dev):
+    """Two spot shards on the card: one gather launch a shard, the features
+    those of the unsharded registrar (odd spot count: the shards pad)."""
+    from gridnext_tpu_torch.models import GridNetHex, TpuPatchClassifier
+    from gridnext_tpu_torch.parallel import make_mesh
+    from gridnext_tpu_torch.serving import SlideRegistrar
+    from gridnext_tpu_torch.train.init import flax_init_
+
+    g = GridNetHex(TpuPatchClassifier(n_classes=3, stages=((64, 1),), stem_patch=8), 3, 3)
+    flax_init_(g, torch.Generator().manual_seed(0))
+    kw = dict(patch_size=32, normalize=None, patch_chunk=256, device=dev)
+    single = SlideRegistrar.from_gridnet(g, **kw)
+    sharded = SlideRegistrar.from_gridnet(g, mesh=make_mesh({"spot": 2}, devices=[dev, dev]),
+                                          **kw)
+    rng = np.random.default_rng(1)
+    wsis = torch.as_tensor(rng.integers(0, 256, (2, 900, 800, 3), dtype=np.uint8), device=dev)
+    y = np.repeat(np.arange(60, 840, 12), 60)[:1999]
+    x = np.tile(np.arange(60, 780, 12), 40)[:1999]
+    yx = torch.as_tensor(np.stack([y, x]), device=dev)
+    slide = torch.as_tensor(rng.integers(0, 2, 1999), device=dev)
+    n = gather.launches
+    with torch.inference_mode():
+        got = sharded._feats_flat(wsis, yx[0], yx[1], slide)
+        want = single._feats_flat(wsis, yx[0], yx[1], slide)
+    torch.cuda.synchronize()
+    assert gather.launches - n == 3                     # 2 shards + the single pass
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -16,7 +16,8 @@ tissue mask). Also: the exported graph holds the custom ops and one
 ``map`` over f's chunks; the refusals; the ``export`` and
 ``serve-artifact`` commands, whose CSVs equal the JAX ``register``
 command's; each package's loader refuses the other's artifact; ``serve
---mesh`` exits.
+--mesh`` exits on an artifact (as JAX's does) and on a ``seq`` axis, and
+serves an image directory over the mesh's shards.
 """
 
 import io
@@ -404,6 +405,27 @@ def test_export_count_and_mm_dirs_write_jax_sidecars(tmp_path):
     assert got["grid_shapes"] == [[78, 64, PATCH, PATCH, 3], [78, 64, len(genes)]]
 
 
-def test_serve_mesh_exits(image_dir):
+def test_serve_mesh_exits(image_dir, tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="item 9"):
-        cli.main(["serve", "--model", image_dir, "--mesh", "data=2", "--device", "cpu"])
+        cli.main(["serve", "--model", image_dir, "--mesh", "data=1,seq=2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="artifacts serialize the single-device path"):
+        cli.main(["serve", "--artifact", str(tmp_path / "a.pt2"), "--mesh", "data=2",
+                  "--device", "cpu"])
+
+    class Httpd:                      # the served registrar, without listening
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    from gridnext_tpu_torch import server
+
+    made = []
+    monkeypatch.setattr(server, "make_server",
+                        lambda service, *a, **k: made.append(service) or Httpd())
+    cli.main(["serve", "--model", image_dir, "--mesh", "data=2", "--device", "cpu"])
+    assert "serving over mesh {'data': 2}" in capsys.readouterr().out
+    assert made[0].batcher.registrar.mesh.devices == [torch.device("cpu")] * 2

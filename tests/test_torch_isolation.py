@@ -1,15 +1,17 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
+scikit-learn, pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
 (the slide decoder, never called on the card) and inside the image writers
 of ``data/simulate.py`` (``simulate_spaceranger_dir(image=True)`` and
 ``pseudo_visium_from_image``), as the JAX package writes its fixtures. The
 training commands that need no image (``pretrain-scbert``, ``train-graph``)
 run end to end with ``--device cpu`` in a process that imports none of
-them, and without a card their default ``cuda`` raises. Also here: the
-port's own geometry equals the JAX package's.
+them, and without a card their default ``cuda`` raises; so do the cohort
+workflows (HVG, the scaler, PCA, CV) and ``config``, and ``train-count``
+over a 1-rank gloo process group (``--coordinator``, ``--mesh``). Also
+here: the port's own geometry equals the JAX package's.
 """
 
 import ast
@@ -26,7 +28,8 @@ from gridnext_tpu_torch import geometry
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gridnext_tpu_torch"
-FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu",
+             "sklearn")
 # (file, function) pairs that may import PIL lazily
 PIL_ALLOWED = {("ingest.py", "decode_slide"), ("simulate.py", "simulate_spaceranger_dir"),
                ("simulate.py", "pseudo_visium_from_image")}
@@ -45,7 +48,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', "
-            "'msgpack'))\n"
+            "'msgpack', 'sklearn'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -144,3 +147,36 @@ def test_training_commands_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
     assert not any(tmp_path.iterdir())
+
+
+def test_workflows_and_mesh_training_run_without_jax(tmp_path):
+    """The cohort workflows and a 1-rank ``--mesh`` ``train-count`` in one
+    process that fails if any forbidden module is imported."""
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "from gridnext_tpu_torch import cli, config, workflows\n"
+            "cli.main(['simulate', '--out', 'sim', '--arrays', '2', '--genes', '30'])\n"
+            "cli.main(['prepare', '--spaceranger', 'sim/a0', 'sim/a1'])\n"
+            "caches = ['sim/a0/a0.unified.tsv.gz', 'sim/a1/a1.unified.tsv.gz']\n"
+            "genes = workflows.select_hvgs_from_count_files(caches, n_top_genes=10)\n"
+            "out = workflows.preprocess_cohorts(caches[:1], caches, device='cpu')\n"
+            "assert len(genes) == 10 and out['n_pcs'] >= 1\n"
+            "parts = workflows.grouped_partitions(['a', 'b', 'c'], 3)\n"
+            "config.save_config(config.DenseNetConfig(), 'cfg.json')\n"
+            "cli.main(['--coordinator', '127.0.0.1:%d,1,0', 'train-count', '--spaceranger',\n"
+            "          'sim/a0', 'sim/a1', '--annots', 'sim/a0/a0_annotations.csv',\n"
+            "          'sim/a1/a1_annotations.csv', '--out', 'm', '--epochs', '1',\n"
+            "          '--device', 'cpu', '--mesh', 'data=1'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('PIL',)!r})\n"
+            "assert not bad, bad\n")
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code % port], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "[mesh {'data': 1}]" in res.stdout and "saved model to m" in res.stdout

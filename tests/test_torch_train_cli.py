@@ -19,8 +19,9 @@ grid, up to near-ties of JAX's logits:
 - ``train-mm --count-f mlp --f tpu``, and ``--count-f scbert`` (a tiny
   scBERT) on a cohort named with gene2vec symbols;
 - ``train-image --dense-ingest`` on a square Visium HD lattice;
-- ``--mesh`` exits naming the Queue 1 item that ports it (``train-mm`` and
-  ``pretrain-scbert``).
+- a ``seq`` mesh axis exits naming the Queue 1 item that ports it
+  (``train-mm`` and ``pretrain-scbert``; the other axes run, as
+  ``test_torch_parallel.py`` holds).
 """
 
 import json
@@ -241,11 +242,13 @@ def test_train_image_dense_ingest_square(tmp_path):
 
 @pytest.mark.parametrize("cmd,item", [("train-mm", "item 9"), ("pretrain-scbert", "item 9")])
 def test_unported_training_flags_exit(cohort, tmp_path, cmd, item):
-    """``--mesh`` exits naming its Queue 1 item (``--scbert-ckpt`` is
-    ported: ``test_torch_pretrain.py``)."""
+    """A ``seq`` mesh axis (sequence-parallel MLM) exits naming its Queue 1
+    item (``--scbert-ckpt`` is ported: ``test_torch_pretrain.py``; the
+    ``data`` and ``spot`` axes: ``test_torch_parallel.py``)."""
     with pytest.raises(SystemExit, match=item):
         if cmd == "train-mm":
-            _train(cmd, cohort, tmp_path / "m", "--count-f", "scbert", "--mesh", "data=2")
+            _train(cmd, cohort, tmp_path / "m", "--count-f", "scbert", "--mesh",
+                   "data=1,seq=2")
         else:
             cli.main([cmd, "--spaceranger", *cohort["dirs"], "--out", str(tmp_path / "m"),
-                      "--device", "cpu", "--mesh", "data=2"])
+                      "--device", "cpu", "--mesh", "data=1,seq=2"])
