@@ -330,7 +330,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     both losses within 1e-5, the step-1 gradients within 1e-3 of each
     tensor's largest and the projections equal; FAVOR launched once a
     layer a step on each rank (a gloo refusal of a CUDA collective is
-    printed and leaves (b) out); (c) in phase 10's directory, phase 4's
+    printed and fails the run); (c) in phase 10's directory, phase 4's
     model directory as a ``SlideRegistrar(mesh=...)`` with 2 spot shards on
     the card over the 4 slides: one gather launch a shard and one labels
     corrector, labels phase 4's up to ``label_parity_report``'s near-ties,
@@ -341,12 +341,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
     components' cosines at least 1 - 1e-4 and ``explained_variance_ratio_``
     within 1e-5, each step's seconds; every number beside the card's name
     and power limit;
-20. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+20. sequence parallelism, ``--profile-dir`` and a reference checkpoint:
+    (a) ``train_mlm`` on ``{'data': 1, 'seq': 2}``, 2 gloo ranks sharing
+    the card, against one process on the same card (3 processes at once):
+    a PerformerLM at scBERT's widths (dim 200, 10 heads, dim_head 64, m
+    266, depth cut to ``SEQ_MLM_DEPTH`` = 2), 4 rows of 16,906 + 1 tokens
+    padded to 16,908 with a -1 column (the reference trains the padded
+    corpus), ``SEQ_MLM_STEPS`` = 2 steps with a redraw after each: the
+    ranks' weights bit-equal, the losses within 1e-5 relative and the
+    step-1 gradients within 1e-3 of each tensor's largest of the
+    reference's, the projections equal; each rank launches
+    ``favor_accumulate_f32`` and ``favor_apply_f32`` once a layer a step
+    and the fused entry never, the reference the fused entry only; then,
+    in this process at a rank's shape (B 4, H 10, N 8,454, d 64, m 266),
+    the accumulate followed by the apply without a sum bit-equal to the
+    fused entry at the same split plan, ctx and ksum within 2e-5 + 2e-4 x
+    the largest |plain value| and the apply within FAVOR's tolerance of
+    their plain versions on the same inputs, each entry and the fused call
+    timed (events) against its bound; (b) in phase 10's directory,
+    ``cli.main(["--profile-dir", DIR, "register", ...])`` over slide 0 with
+    phase 4's model directory: the Chrome trace under DIR holds CUDA kernel
+    events of the gather and of the labels corrector, their counts set to
+    0 just before and read just after; (c) phase 6's DenseNet-121 weights
+    written as a reference-layout ``.pth`` (``torch.save`` of the
+    reference's state-dict names), read back through
+    ``read_torch_checkpoint`` and ``densenet_from_torch`` and registered on
+    slide 0: labels equal to the ``from_jax`` route's, the gather and the
+    labels corrector launched;
+21. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
-    ``launches_artifact``, phase 18's, and ``launches_mesh``, phase 19's),
-    then the last line ``{"ok": true, "device": {...}}``.
+    ``launches_artifact``, phase 18's, and ``launches_mesh``, phase 19's;
+    the gather and labels-corrector rows ``launches_profile_register`` and
+    ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s; the rows of
+    FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
+    phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
+    true, "device": {...}}``.
 
 Parity phases run with TF32 off for cuDNN and matmuls. Imports only the
 port, torch and numpy.
@@ -4609,7 +4640,8 @@ def mesh_spot_worker(argv) -> int:
     (:func:`mesh_mlm_steps`). Saves the losses, the kernels' launches, the
     first step's summed gradients and the final variables in
     ``out_dir/result_<tag>.npz`` (tag ``r<rank>``, ``ref`` or ``wit``).
-    Exit 3: gloo refused a CUDA collective (printed)."""
+    Exit 3: gloo refused a CUDA collective (printed), which fails the
+    phase."""
     import torch
     import torch.distributed as dist
 
@@ -4896,9 +4928,6 @@ def phase_mesh_ranks(torch, card, tmp, cohort) -> dict:
             if p.poll() is None:
                 p.kill()
     codes = [p.returncode for p in procs]
-    if codes[2:] == [3, 3]:
-        log(f"(b) left out: {outs[2].strip().splitlines()[-1]}")
-        return {"refused": outs[2].strip().splitlines()[-1]}
     if codes != [0, 0, 0, 0]:
         raise AssertionError(f"(b) workers exited {codes}:\n"
                              + "\n".join(o[-3000:] for o in outs))
@@ -5133,6 +5162,348 @@ def phase_mesh_count_tier(torch, card, tmp, tier, dev) -> dict:
     return out
 
 
+# -- phase 20: sequence parallelism, --profile-dir, a reference checkpoint -----------
+
+SEQ_MLM_DEPTH = 2             # (a)'s PerformerLM layers at scBERT's widths (cut from 6)
+SEQ_MLM_STEPS = 2             # (a)'s MLM steps of PRETRAIN_BATCH rows, a redraw after each
+SEQ_WORLD = 2                 # (a)'s gloo ranks on the 'seq' axis
+
+
+def _seq_lm(torch, tl, models, dev):
+    """(a PerformerLM at scBERT's widths, depth ``SEQ_MLM_DEPTH``, its
+    state from a seed, ``PRETRAIN_BATCH`` rows of random bins over the
+    16,907 tokens, the dict its optimizer's first step fills with the
+    gradients)."""
+    lm = models.PerformerLM(num_tokens=7,
+                            max_seq_len=tl.mlm_token_len(MM_VOCAB + 1, {"seq": SEQ_WORLD}),
+                            dim=MM_DIM, depth=SEQ_MLM_DEPTH, heads=MM_HEADS,
+                            dim_head=MM_DIM_HEAD, nb_features=266, generalized_attention=True)
+    state = tl.create_train_state(lm, tl.make_adam(1e-4),
+                                  generator=torch.Generator().manual_seed(SEED + 3), device=dev)
+    tokens = np.random.default_rng(SEED + 3).integers(0, 6, (PRETRAIN_BATCH, MM_VOCAB + 1))
+    grads = {}
+    apply = state.optimizer.step
+
+    def capture():
+        if not grads:
+            grads.update({f"grad0/{n}": p.grad.detach().cpu().numpy()
+                          for n, p in lm.named_parameters() if p.grad is not None})
+        apply()
+
+    state.optimizer.step = capture
+    return lm, state, tokens, grads
+
+
+def seq_mlm_worker(argv) -> int:
+    """Phase 20 (a)'s process: ``coordinator world rank out_dir``. ``world``
+    2: one of two gloo ranks on ``{'data': 1, 'seq': 2}`` (``train_mlm``
+    pads the 16,907 tokens to 16,908 with a -1 column); 0: the one-process
+    reference on the padded corpus. Saves the losses, the first step's
+    gradients, the final weights and FAVOR's three counts (set to 0 just
+    before ``train_mlm``, read just after) in ``out_dir/result_<tag>.npz``.
+    A gloo refusal of a CUDA collective raises, and fails the phase."""
+    import torch
+    import torch.distributed as dist
+
+    from gridnext_tpu_torch import models
+    from gridnext_tpu_torch.ops import favor_cuda
+    from gridnext_tpu_torch.parallel import collectives, initialize_multihost
+    from gridnext_tpu_torch.train import loops as tl
+
+    coord, world, rank, out_dir = argv
+    world, rank = int(world), int(rank)
+    tag = "ref" if world == 0 else f"r{rank}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if world:
+        initialize_multihost(coord, world, rank, backend="gloo", device=dev, timeout=300)
+    lm, state, tokens, grads = _seq_lm(torch, tl, models, dev)
+    if not world:
+        tokens = np.concatenate([tokens, np.full((len(tokens), 1), -1, tokens.dtype)], axis=1)
+    favor_cuda.launches = favor_cuda.accumulate_launches = favor_cuda.apply_launches = 0
+    collectives.reset_counts()
+    _, _, losses = tl.train_mlm(lm, {"train": tokens}, mask_id=6, num_epochs=SEQ_MLM_STEPS,
+                                batch_size=PRETRAIN_BATCH, state=state, redraw_every=1,
+                                verbose=False, device=dev,
+                                mesh_shape={"data": 1, "seq": world} if world else None)
+    torch.cuda.synchronize()
+    counts = {"fused": favor_cuda.launches, "accumulate": favor_cuda.accumulate_launches,
+              "apply": favor_cuda.apply_launches, "seq_sums": collectives.COUNTS["favor_seq"]}
+    weights = {f"w/{k}": v.detach().cpu().numpy() for k, v in lm.state_dict().items()}
+    np.savez(os.path.join(out_dir, f"result_{tag}.npz"), losses=np.asarray(losses),
+             **{f"count/{k}": v for k, v in counts.items()}, **grads, **weights)
+    if world:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_seq_ranks(torch, card, tmp) -> dict:
+    """Phase 20 (a): 2 gloo ranks on the 'seq' axis and the one-process
+    reference, three processes at once on the card."""
+    log(f"== phase 20 (a): train_mlm on {{'data': 1, 'seq': {SEQ_WORLD}}} (2 gloo ranks "
+        f"sharing the card) against one process: PerformerLM at scBERT's widths, depth "
+        f"{SEQ_MLM_DEPTH}, {PRETRAIN_BATCH} rows x {MM_VOCAB + 1} tokens (padded to "
+        f"{MM_VOCAB + 2}), {SEQ_MLM_STEPS} steps")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()           # the workers share the card
+    out_dir = os.path.join(tmp, "seq_a")
+    os.makedirs(out_dir)
+    coord = f"127.0.0.1:{free_port()}"
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.seq_mlm_worker(sys.argv[1:]))"
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", code, coord, str(world), str(rank),
+                               out_dir], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for world, rank in ((0, 0), (SEQ_WORLD, 0), (SEQ_WORLD, 1))]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0, 0]:
+        raise AssertionError(f"(a) workers exited {codes}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    ref, r0, r1 = (dict(np.load(os.path.join(out_dir, f"result_{t}.npz")))
+                   for t in ("ref", "r0", "r1"))
+    if sorted(r0) != sorted(r1) or any(not np.array_equal(r0[k], r1[k]) for k in r0
+                                       if k.startswith(("w/", "losses"))):
+        raise AssertionError("(a) the two ranks' weights or losses differ")
+    per_step = SEQ_MLM_DEPTH * SEQ_MLM_STEPS
+    counts = {t: {k.split("/")[1]: int(r[k]) for k in r if k.startswith("count/")}
+              for t, r in (("ref", ref), ("r0", r0), ("r1", r1))}
+    want = {"ref": {"fused": per_step, "accumulate": 0, "apply": 0, "seq_sums": 0},
+            "r0": {"fused": 0, "accumulate": per_step, "apply": per_step,
+                   "seq_sums": per_step}}
+    want["r1"] = want["r0"]
+    if counts != want:
+        raise AssertionError(f"(a) FAVOR counts {counts}, want {want} (one launch of each "
+                             "half and one (ctx, ksum) sum a layer a step on a rank; the "
+                             "fused entry alone in one process)")
+    loss_rel = float(np.max(np.abs(r0["losses"] / ref["losses"] - 1)))
+    grad_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith("grad0/")])
+    projs = [k for k in ref if k.endswith("fast_attention.projection")]
+    same_proj = len(projs) == SEQ_MLM_DEPTH and all(np.array_equal(r0[k], ref[k])
+                                                    for k in projs)
+    w_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith("w/")
+                                      and k not in projs])
+    log(f"(a) losses {np.round(ref['losses'], 5).tolist()} (one process); 2 ranks: losses "
+        f"within {loss_rel:.2e} relative, step-1 gradients within {grad_rel:.2e} of each "
+        f"tensor's largest, final weights within {w_rel:.2e} of each tensor's largest, "
+        f"projections after the redraws equal: {same_proj}; the ranks bit-equal; FAVOR "
+        f"counts {json.dumps(counts)}; {time.perf_counter() - t0:.1f} s [{card}]")
+    if loss_rel > 1e-5 or grad_rel > 1e-3 or not same_proj:
+        raise AssertionError("(a) the 2-rank seq steps left the single-process ones")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "weights_rel": w_rel,
+            "launches": {"favor_accumulate": SEQ_WORLD * per_step,
+                         "favor_apply": SEQ_WORLD * per_step},
+            "s": time.perf_counter() - t0}
+
+
+def phase_favor_split(torch, favor_cuda, dev) -> dict:
+    """Phase 20 (a), the entries at one rank's shape: the seam bit-equal to
+    the fused entry, each half against its plain version, each timed."""
+    from gridnext_tpu_torch.ops.favor import orthogonal_gaussian_matrix
+
+    b, h, d, m = PRETRAIN_BATCH, MM_HEADS, MM_DIM_HEAD, 266
+    n = (MM_VOCAB + 2) // SEQ_WORLD
+    rng = np.random.default_rng(SEED + 6)
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, n, d), dtype=np.float32),
+                               device=dev) for _ in range(3))
+    proj = orthogonal_gaussian_matrix(m, d, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    fused = favor_cuda.fused_generalized_linear_attention(q, k, v, proj)
+    ctx, ksum = favor_cuda.favor_accumulate_op(k, v, proj)
+    seam = favor_cuda.favor_apply_op(q, proj, ctx, ksum)
+    torch.cuda.synchronize()
+    if not torch.equal(seam, fused):
+        raise AssertionError("favor_accumulate then favor_apply differs from the fused "
+                             f"entry by {float((seam - fused).abs().max())}")
+    p_ctx, p_ksum = favor_cuda.favor_accumulate_plain(k, v, proj)
+    acc_err = max(float((ctx - p_ctx).abs().max()), float((ksum - p_ksum).abs().max()))
+    acc_worst = max(float((got - want).abs().max()
+                          / (FAVOR_ATOL + FAVOR_RTOL * want.abs().max()))
+                    for got, want in ((ctx, p_ctx), (ksum, p_ksum)))
+    p_out = favor_cuda.favor_apply_plain(q, proj, ctx, ksum)
+    diff = (seam - p_out).abs()
+    app_err = float(diff.max())
+    app_worst = float((diff / (FAVOR_ATOL + FAVOR_RTOL * p_out.abs())).max())
+    log(f"favor halves B={b} H={h} N={n} d={d} m={m}: accumulate then apply bit-equal to the "
+        f"fused entry; accumulate vs plain max abs err {acc_err:.3g} ({acc_worst:.3g} x "
+        f"(atol + rtol max |plain|)), apply vs plain on the same ctx/ksum max abs err "
+        f"{app_err:.3g} ({app_worst:.3g} x the elementwise tolerance)")
+    if not (acc_worst <= 1.0 and app_worst <= 1.0 and bool(torch.isfinite(seam).all())):
+        raise AssertionError("a FAVOR half differs from its plain version")
+    del p_ctx, p_ksum, p_out, diff
+    calls = {"favor_accumulate": (lambda: favor_cuda.favor_accumulate_op(k, v, proj),
+                                  lambda: favor_cuda.favor_accumulate_plain(k, v, proj),
+                                  ("favor_accum_kernel", "favor_reduce_kernel")),
+             "favor_apply": (lambda: favor_cuda.favor_apply_op(q, proj, ctx, ksum),
+                             lambda: favor_cuda.favor_apply_plain(q, proj, ctx, ksum),
+                             ("favor_apply_kernel",))}
+    # each half: two of the four products, split TF32 (three TF32 products
+    # a product); moves two (B, H, N, d) tensors (k and v read, or q read and
+    # out written), and proj, ctx and ksum once
+    flops = 2 * 2 * b * h * n * d * m + b * h * n * m
+    nbytes = 4 * (2 * b * h * n * d + m * d + b * h * m * (d + 1))
+    res = {}
+    for name, (kernel, plain, symbols) in calls.items():
+        ms, host_ms = cuda_ms(torch, kernel, iters=20)
+        dev_ms, parts = kernel_line(device_ms(torch, kernel, 10, symbols))
+        plain_ms, _ = cuda_ms(torch, plain, iters=5, warmup=1)
+        t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"max_abs_err": acc_err if name == "favor_accumulate" else app_err,
+                     "ms": ms, "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": None}
+        log(f"{name} B={b} H={h} N={n}: {ms:.4f} ms per call (events; host {host_ms:.4f} ms), "
+            f"device {dev_ms:.4f} ms ({parts}), plain {plain_ms:.4f} ms, bound "
+            f"{res[name]['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP split TF32 "
+            f"{t_ops:.4f} ms; {nbytes / 1e9:.3f} GB -> {t_bytes:.4f} ms)")
+    fused_ms, _ = cuda_ms(torch, lambda: favor_cuda.fused_generalized_linear_attention(
+        q, k, v, proj), iters=20)
+    log(f"fused entry at the same local N: {fused_ms:.4f} ms per call (events), against "
+        f"{res['favor_accumulate']['ms'] + res['favor_apply']['ms']:.4f} ms for the two "
+        "halves in turn")
+    res["fused_ms_local_n"] = fused_ms
+    return res
+
+
+def phase_profile_register(torch, port, card, tmp, image, dirs_masks) -> dict:
+    """Phase 20 (b): ``--profile-dir`` around the ``register`` command of
+    phase 4's model directory over slide 0. A trace whose kernel records
+    were lost (see :func:`profiled`) is taken again, at most 3 times."""
+    from gridnext_tpu_torch import cli, ingest
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 20 (b): --profile-dir around register on the card")
+    dev = torch.device("cuda")
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        for attempt in range(1, 4):
+            trace_dir = os.path.join(tmp, f"profile_{attempt}")
+            out = os.path.join(tmp, f"profile_{attempt}.csv")
+            gather.launches = 0
+            for key in corr.launches:
+                corr.launches[key] = 0
+            t0 = time.perf_counter()
+            cli.main(["--profile-dir", trace_dir, "register", "--model", image["model_dir"],
+                      "--images", image["files"][0], "--spaceranger", dirs_masks[0][0],
+                      "--out", out, "--device", str(dev)])
+            seconds = time.perf_counter() - t0
+            launches = {"gather_patches": gather.launches,
+                        "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+            files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+            with open(os.path.join(trace_dir, files[0])) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            found = {name: sum(any(sym in kname for sym in KERNEL_SYMBOLS[name])
+                               for kname in kernels) for name in launches}
+            if all(found.values()) or attempt == 3:
+                break
+            log(f"trace {attempt} of 3 lost kernel records ({found}), tracing again")
+    finally:
+        ingest.decode_slide = decode
+    n_rows = sum(1 for _ in open(out)) - 1
+    log(f"(b) register under --profile-dir: {seconds:.2f} s, {len(events)} trace events "
+        f"({os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6:.1f} MB), kernel "
+        f"events {json.dumps(found)}, launches {json.dumps(launches)}, {n_rows} CSV rows "
+        f"[{card}]")
+    if len(files) != 1 or not all(found.values()) or min(launches.values()) <= 0:
+        raise AssertionError(f"(b) the trace lacks the gather's or the labels corrector's "
+                             f"kernel events ({found}, launches {launches}, files {files})")
+    if n_rows != int(dirs_masks[0][1].sum()):
+        raise AssertionError(f"(b) {n_rows} CSV rows for {int(dirs_masks[0][1].sum())} spots")
+    return {"launches": launches, "kernel_events": found, "s": seconds}
+
+
+def reference_densenet_state_dict(torch, f_vars, block_config):
+    """The reference DenseNet's state dict (its module names,
+    densenet.py:100-138 of the reference) of a DenseNet-121's variables in
+    the JAX layout: what ``densenet_from_torch`` reads back."""
+    params, stats = f_vars["params"], f_vars["batch_stats"]
+    sd = {}
+
+    def conv(name, kernel):
+        sd[name] = torch.as_tensor(np.ascontiguousarray(np.asarray(kernel).transpose(3, 2, 0, 1)))
+
+    def bn(prefix, p, st):
+        for key, val in (("weight", p["scale"]), ("bias", p["bias"]),
+                         ("running_mean", st["mean"]), ("running_var", st["var"])):
+            sd[f"{prefix}.{key}"] = torch.as_tensor(np.asarray(val))
+
+    conv("features.conv0.weight", params["conv0"]["kernel"])
+    bn("features.norm0", params["BatchNorm_0"], stats["BatchNorm_0"])
+    layer = trans = 0
+    for bi, n_layers in enumerate(block_config, start=1):
+        for li in range(1, n_layers + 1):
+            pre, name = f"features.denseblock{bi}.denselayer{li}", f"_DenseLayer_{layer}"
+            bn(f"{pre}.norm1", params[name]["BatchNorm_0"], stats[name]["BatchNorm_0"])
+            conv(f"{pre}.conv1.weight", params[name]["Conv_0"]["kernel"])
+            bn(f"{pre}.norm2", params[name]["BatchNorm_1"], stats[name]["BatchNorm_1"])
+            conv(f"{pre}.conv2.weight", params[name]["Conv_1"]["kernel"])
+            layer += 1
+        if bi != len(block_config):
+            name = f"_Transition_{trans}"
+            bn(f"features.transition{bi}.norm", params[name]["BatchNorm_0"],
+               stats[name]["BatchNorm_0"])
+            conv(f"features.transition{bi}.conv.weight", params[name]["Conv_0"]["kernel"])
+            trans += 1
+    bn("features.norm_final", params["BatchNorm_1"], stats["BatchNorm_1"])
+    sd["classifier.weight"] = torch.as_tensor(
+        np.ascontiguousarray(np.asarray(params["classifier"]["kernel"]).T))
+    sd["classifier.bias"] = torch.as_tensor(np.asarray(params["classifier"]["bias"]))
+    return sd
+
+
+def phase_torch_checkpoint(torch, slides, positions, port, variables, meta, card) -> dict:
+    """Phase 20 (c): phase 6's DenseNet-121 as a reference-layout ``.pth``,
+    read through ``densenet_from_torch`` and registered on slide 0 against
+    the ``from_jax`` route."""
+    from gridnext_tpu_torch.compat import torch_convert
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 20 (c): a reference-layout DenseNet-121 .pth registered on the card")
+    dev = slides.device
+    classes = meta["classes"]
+    f_vars = {c: variables[c]["patch_classifier"] for c in ("params", "batch_stats")}
+    block_config = (6, 12, 24, 16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "densenet_ref.pth")
+        torch.save(reference_densenet_state_dict(torch, f_vars, block_config), path)
+        size_mb = os.path.getsize(path) / 1e6
+        converted = torch_convert.densenet_from_torch(
+            torch_convert.read_torch_checkpoint(path), block_config=block_config)
+    loaded = {c: {**variables[c], "patch_classifier": converted[c]}
+              for c in ("params", "batch_stats")}
+    want = modeldir.image_registrar_from_meta(meta, classes, variables, device=dev)(
+        slides[0], positions[0])
+    reg = modeldir.image_registrar_from_meta(meta, classes, loaded, device=dev)
+    gather.launches = 0
+    for key in corr.launches:
+        corr.launches[key] = 0
+    got = reg(slides[0], positions[0])
+    torch.cuda.synchronize()
+    launches = {"gather_patches": gather.launches,
+                "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+    same = bool(np.array_equal(got, want))
+    log(f"(c) densenet_ba44-layout .pth of {size_mb:.1f} MB: labels equal to the from_jax "
+        f"route's: {same} ({int((want > 0).sum())} spots); launches {json.dumps(launches)} "
+        f"[{card}]")
+    if not same or min(launches.values()) <= 0:
+        raise AssertionError("(c) the reference checkpoint's labels differ from the from_jax "
+                             f"route's, or a kernel was not launched ({launches})")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5200,6 +5571,7 @@ def main() -> int:
                                           port + (dense,), dn_vars, card)
     launches["fused_dense_block"] = dn_launches["fused_dense_block"]
     phase_resize(torch, slides, positions, masks, port, dn_meta, dn_vars)
+    torch_ckpt = phase_torch_checkpoint(torch, slides, positions, port, dn_vars, dn_meta, card)
     del dn_vars
     res["fused_generalized_linear_attention"] = phase_favor(torch, favor_cuda, dev)
     launches["fused_generalized_linear_attention"], mm = phase_mm(
@@ -5214,6 +5586,7 @@ def main() -> int:
         t18.append(phase_serve(torch, slides, port, card, tmp, dirs_masks, image_dir, batch4,
                                served))
         mesh_c = phase_mesh_register(torch, slides, port, card, image_dir, dirs_masks, batch4)
+        profile_reg = phase_profile_register(torch, port, card, tmp, image_dir, dirs_masks)
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
@@ -5245,12 +5618,19 @@ def main() -> int:
     # shards ((a) and (d) launch no kernel: train-count crops nothing, PCA is
     # a library call)
     mesh_launches = {"gather_patches": mesh_c["launches"]["gather_patches"]
-                     + 2 * mesh_b.get("gather_launches_per_rank", 0),
+                     + 2 * mesh_b["gather_launches_per_rank"],
                      "fused_hex_corrector_labels": mesh_c["launches"]["fused_hex_corrector_labels"],
                      "fused_generalized_linear_attention":
-                         2 * mesh_b.get("favor_launches_per_rank", 0)}
+                         2 * mesh_b["favor_launches_per_rank"]}
     log(f"phase 19: {json.dumps({'a': mesh_ad['a'], 'b': mesh_b, 'c': mesh_c, 'd': mesh_ad['d']})}"
         f"; launches {json.dumps(mesh_launches)} [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:   # the ranks' results
+        seq = phase_seq_ranks(torch, card, tmp)
+    res.update(phase_favor_split(torch, favor_cuda, dev))
+    launches.update(seq["launches"])
+    log(f"phase 20: (a) {seq['s']:.1f} s, (b) {profile_reg['s']:.1f} s; (b) launches "
+        f"{json.dumps(profile_reg['launches'])}, (c) launches "
+        f"{json.dumps(torch_ckpt['launches'])} [{card}]")
 
     meta = {
         "gather_patches": ("gridnext_tpu_torch/csrc/patch_gather.cu",
@@ -5263,6 +5643,11 @@ def main() -> int:
                               "gridnext_tpu/ops/denseblock_pallas.py:116"),
         "fused_generalized_linear_attention": ("gridnext_tpu_torch/csrc/favor.cu",
                                                "gridnext_tpu/ops/favor_pallas.py:110"),
+        # FAVOR's halves, launched apart on a 'seq' axis (phase 20 (a))
+        "favor_accumulate": ("gridnext_tpu_torch/csrc/favor.cu",
+                             "gridnext_tpu/ops/favor_pallas.py:142"),
+        "favor_apply": ("gridnext_tpu_torch/csrc/favor.cu",
+                        "gridnext_tpu/ops/favor_pallas.py:161"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
@@ -5275,9 +5660,12 @@ def main() -> int:
                 # softmax attention of a fused attention call)
                 "library_ms": res[name].get("library_ms")}
                for name, (src, rep) in meta.items()]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["fused_generalized_linear_attention"]["ms_local_n_seq"] = res["fused_ms_local_n"]
     # phase 16's path: pretrain-scbert's FAVOR calls, its counts set to 0 just
     # before the command and read just after
-    kernels[-1]["launches_pretrain_scbert"] = pretrain["pretrain"]["favor_launches"]
+    by_name["fused_generalized_linear_attention"]["launches_pretrain_scbert"] = \
+        pretrain["pretrain"]["favor_launches"]
     # phase 17's paths: every evaluate and distill command's launches, each
     # command's counts set to 0 just before it and read just after
     for k in kernels:
@@ -5290,6 +5678,10 @@ def main() -> int:
                 k[f"launches_{path}"] = served[path].get(k["name"], 0)
             # phase 19's paths: the mesh's ranks and shards
             k["launches_mesh"] = mesh_launches[k["name"]]
+        # phase 20 (b)'s and (c)'s paths: the traced command, the reference .pth
+        if k["name"] in ("gather_patches", "fused_hex_corrector_labels"):
+            k["launches_profile_register"] = profile_reg["launches"][k["name"]]
+            k["launches_torch_checkpoint"] = torch_ckpt["launches"][k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,12 @@ several cards, one process a card over ``torch.distributed``: launch with
 --mesh data=N ...`` or wire each process with ``--coordinator
 host:port,N,rank`` (NCCL on the card, gloo under ``--device cpu``); the
 replicas start from rank 0's weights, the batches shard over the ranks,
-BatchNorm normalises over the global batch, and only rank 0 writes.
+BatchNorm normalises over the global batch, and only rank 0 writes. A
+``seq`` axis (``pretrain-scbert --mesh data=1,seq=2``) shards the MLM
+corpus's gene tokens over its ranks (sequence-parallel MLM; the corpus is
+padded with ``-1`` tokens to a multiple of it), FAVOR summing its context
+over them; other commands treat it as JAX's do (spot batches over every
+axis, grid batches over ``data``).
 
 Registration: the ``register`` command of the JAX package's CLI, on the card: a trained
 model directory (``model.json`` + ``g_state.msgpack``, as the JAX package's
@@ -93,8 +98,10 @@ through an artifact with no model code and writes Loupe CSVs. An artifact
 runs on the device type it was exported on.
 
 ``--device`` (default ``cuda``) is where a command runs; ``--device cpu``
-takes the kernels' plain versions. Exits and messages follow the JAX
-package's commands.
+takes the kernels' plain versions. ``--profile-dir DIR`` (before the
+subcommand) traces the whole command with ``torch.profiler`` into a Chrome
+trace JSON under DIR (the JAX package writes a TensorBoard xplane). Exits
+and messages follow the JAX package's commands.
 """
 
 from __future__ import annotations
@@ -346,10 +353,6 @@ def _register_graph(args, meta, classes, variables):
 
 # -- training ----------------------------------------------------------------------
 
-_LATER_MESH = ("error: the 'seq' mesh axis (sequence-parallel MLM) is not ported yet "
-               "(ROADMAP.md Queue 1 item 9, its remainder)")
-
-
 def _parse_mesh(args):
     """--mesh 'data=4,spot=2' | 'auto' -> the trainers' mesh_shape value."""
     spec = getattr(args, "mesh", None)
@@ -368,8 +371,6 @@ def _parse_mesh(args):
     except ValueError:
         sys.exit(f"error: --mesh must be 'auto' or like 'data=4,spot=2' "
                  f"(positive axis sizes); got {spec!r}")
-    if "seq" in shape:
-        sys.exit(_LATER_MESH)
     return shape
 
 
@@ -410,6 +411,10 @@ def _serving_mesh(args):
     import torch
 
     from gridnext_tpu_torch.parallel import default_mesh_shape, make_mesh
+    from gridnext_tpu_torch.parallel.mesh import SEQ_SERVING
+
+    if "seq" in mesh_shape:
+        sys.exit(f"error: {SEQ_SERVING}")
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(args.device)
@@ -1786,6 +1791,11 @@ def build_parser():
     """The port's argument parser (one subparser per ported command)."""
     ap = argparse.ArgumentParser(prog="gridnext_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="trace the whole command with torch.profiler into DIR (a Chrome "
+                         "trace JSON: host ops, and the card's kernels under CUDA; open it "
+                         "in chrome://tracing or ui.perfetto.dev); goes BEFORE the "
+                         "subcommand: gridnext_tpu_torch --profile-dir /tmp/tr register ...")
     ap.add_argument("--multihost", action="store_true",
                     help="join the process group torchrun describes (MASTER_ADDR, "
                          "MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) before the "
@@ -1962,9 +1972,11 @@ def build_parser():
     s.add_argument("--redraw-every", type=int, default=1000,
                    help="FAVOR+ projection redraw interval in steps (0 disables)")
     s.add_argument("--mesh", default=None,
-                   help="multi-card mesh: 'auto' or axis sizes like 'data=8', one "
-                        "process a card (torchrun / --coordinator); batch rows shard "
-                        "over every axis ('seq', sequence-parallel MLM, is not ported)")
+                   help="multi-card mesh: 'auto' or axis sizes like 'data=8' (pure DP) or "
+                        "'data=2,seq=4' (sequence-parallel: the gene-token axis and its "
+                        "FAVOR sums shard over 'seq', the rows over 'data'), one process "
+                        "a card (torchrun / --coordinator); without 'seq' batch rows shard "
+                        "over every axis")
     s.add_argument("--split-seed", type=int, default=0,
                    help="seed for the random train/val split")
     s.add_argument("--val-arrays", nargs="+", default=None,
@@ -2226,7 +2238,7 @@ def main(argv=None):
             f"'{args.fn.__name__.removeprefix('_cmd_').replace('_', '-')}'"
             " single-controller (it uses every local device via --mesh)")
     if not args.cmd.startswith(("train-", "pretrain-")):
-        return args.fn(args)
+        return _dispatch(args)
     from gridnext_tpu_torch.parallel.multihost import shutdown_multihost
     from gridnext_tpu_torch.serving import resolve_device
     from gridnext_tpu_torch.train.preempt import (TrainingPreempted,
@@ -2238,7 +2250,7 @@ def main(argv=None):
         _init_multihost(args)
     install_preemption_handler()
     try:
-        return args.fn(args)
+        return _dispatch(args)
     except TrainingPreempted as e:
         print(f"preempted: {e}", file=sys.stderr)
         if e.checkpoint is not None:
@@ -2248,6 +2260,19 @@ def main(argv=None):
         uninstall_preemption_handler()
         if multihost:
             shutdown_multihost()
+
+
+def _dispatch(args):
+    """Run the command, under ``--profile-dir`` inside a profiler trace."""
+    if not args.profile_dir:
+        return args.fn(args)
+    from gridnext_tpu_torch.observability import profile_trace
+
+    with profile_trace(args.profile_dir):
+        out = args.fn(args)
+    print(f"profiler trace written to {args.profile_dir} (a Chrome trace JSON: open it "
+          "in chrome://tracing or ui.perfetto.dev)")
+    return out
 
 
 if __name__ == "__main__":

@@ -71,6 +71,12 @@
 // ascending in phi, rows ascending within a split and splits ascending in
 // ctx/ksum, features ascending in the output; a call gives the same bits
 // every time.
+// Entry points: favor_attention_f32 runs the three launches back to back.
+// favor_accumulate_f32 (launches 1 and 2, then ctx and ksum copied out at
+// m rows) and favor_apply_f32 (ctx and ksum copied back in, padded, then
+// launch 3) split it at the one point where a sequence sharded over ranks
+// must sum ctx and ksum over the ranks; without that sum, the two in turn
+// give the fused entry's bits at the same splits.
 // q, k and v may be strided views (the heads split of a (B, N, H d)
 // projection): their element strides over b, h and n are arguments, the
 // last dimension must be contiguous, and the strides multiples of 4.
@@ -630,10 +636,32 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 
 int m_padded(int m) { return (m + kFeatTile - 1) / kFeatTile * kFeatTile; }
 
+int sm_count() {
+  int device = 0, sms = 132;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+// The reduce pass: part_ctx/part_ks (bh, splits, m_pad, d) -> ctx (bh, m_pad, d), ksum (bh, m_pad).
+cudaError_t reduce(const float* part_ctx, const float* part_ks, int bh, int splits, int m_pad,
+                   int d, float* ctx, float* ksum, cudaStream_t stream) {
+  const int64_t items = static_cast<int64_t>(bh) * m_pad * (d + 1);
+  const int64_t want = (items + 255) / 256;
+  const int sms = sm_count();
+  const int reduce_blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
+  favor_reduce_kernel<<<reduce_blocks, 256, 0, stream>>>(part_ctx, part_ks, bh, splits, m_pad,
+                                                         d, ctx, ksum);
+  return cudaGetLastError();
+}
+
+// Accumulate and reduce: ctx (bh, m_pad, D) and ksum (bh, m_pad) at the end of `work`,
+// whose head holds the partials.
 template <int D>
-int launch(const float* q, const int64_t* qs, const float* k, const int64_t* ks_,
-           const float* v, const int64_t* vs, int batch, int heads, int n, const float* proj,
-           int m, int splits, float scale, float* work, float* out, cudaStream_t stream) {
+cudaError_t accumulate(const float* k, const int64_t* ks_, const float* v, const int64_t* vs,
+                       int batch, int heads, int n, const float* proj, int m, int splits,
+                       float scale, float* work, float** ctx, float** ksum,
+                       cudaStream_t stream) {
   constexpr int PD = D + 4;
   const int m_tiles = (m + kFeatTile - 1) / kFeatTile;
   const int m_pad = m_padded(m);
@@ -644,39 +672,36 @@ int launch(const float* q, const int64_t* qs, const float* k, const int64_t* ks_
   const int tiles_per_split = (tiles + splits - 1) / splits;
   float* part_ctx = work;
   float* part_ks = part_ctx + static_cast<int64_t>(bh) * splits * m_pad * D;
-  float* ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
-  float* ksum = ctx + static_cast<int64_t>(bh) * m_pad * D;
+  *ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
+  *ksum = *ctx + static_cast<int64_t>(bh) * m_pad * D;
 
   const size_t smem_accum = sizeof(float) * 2 * 2 * kRows * PD;
-  const size_t smem_apply = sizeof(float) * 2 * (2 * kFeat * PD + kFeat);
   if (cudaError_t err = set_smem(favor_accum_kernel<D>, smem_accum)) return err;
-  if (cudaError_t err = set_smem(favor_apply_kernel<D>, smem_apply)) return err;
-
   favor_accum_kernel<D><<<groups * splits * bh, warps * 32, smem_accum, stream>>>(
       k, ks_[0], ks_[1], ks_[2], v, vs[0], vs[1], vs[2], heads, proj, n, m, groups, splits,
       tiles_per_split, scale, part_ctx, part_ks);
   if (cudaError_t err = cudaGetLastError()) return err;
+  return reduce(part_ctx, part_ks, bh, splits, m_pad, D, *ctx, *ksum, stream);
+}
 
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int64_t items = static_cast<int64_t>(bh) * m_pad * (D + 1);
-  const int64_t want = (items + 255) / 256;
-  const int reduce_blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
-  favor_reduce_kernel<<<reduce_blocks, 256, 0, stream>>>(part_ctx, part_ks, bh, splits, m_pad,
-                                                         D, ctx, ksum);
-  if (cudaError_t err = cudaGetLastError()) return err;
-
+// The apply pass over ctx (bh, m_pad, D) and ksum (bh, m_pad), rows >= m zero.
+template <int D>
+cudaError_t apply(const float* q, const int64_t* qs, int batch, int heads, int n,
+                  const float* proj, int m, const float* ctx, const float* ksum, float scale,
+                  float* out, cudaStream_t stream) {
+  constexpr int PD = D + 4;
+  const size_t smem_apply = sizeof(float) * 2 * (2 * kFeat * PD + kFeat);
+  if (cudaError_t err = set_smem(favor_apply_kernel<D>, smem_apply)) return err;
   const int apply_tiles = (n + kApplyRows - 1) / kApplyRows;
-  favor_apply_kernel<D><<<apply_tiles * bh, kApplyWarps * 32, smem_apply, stream>>>(
-      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_pad, scale, out);
+  favor_apply_kernel<D><<<apply_tiles * batch * heads, kApplyWarps * 32, smem_apply, stream>>>(
+      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_padded(m), scale, out);
   return cudaGetLastError();
 }
 
-int launch_general(const float* q, const int64_t* qs, const float* k, const int64_t* ks_,
-                   const float* v, const int64_t* vs, int batch, int heads, int n, int d,
-                   const float* proj, int m, int splits, float scale, float* work, float* out,
-                   cudaStream_t stream) {
+cudaError_t accumulate_general(const float* k, const int64_t* ks_, const float* v,
+                               const int64_t* vs, int batch, int heads, int n, int d,
+                               const float* proj, int m, int splits, float scale, float* work,
+                               float** ctx, float** ksum, cudaStream_t stream) {
   const int m_pad = m_padded(m);
   const int bh = batch * heads;
   const int fblocks = (m_pad + kGenFeat - 1) / kGenFeat;
@@ -685,28 +710,60 @@ int launch_general(const float* q, const int64_t* qs, const float* k, const int6
   const int tiles_per_split = (tiles + splits - 1) / splits;
   float* part_ctx = work;
   float* part_ks = part_ctx + static_cast<int64_t>(bh) * splits * m_pad * d;
-  float* ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
-  float* ksum = ctx + static_cast<int64_t>(bh) * m_pad * d;
+  *ctx = part_ks + static_cast<int64_t>(bh) * splits * m_pad;
+  *ksum = *ctx + static_cast<int64_t>(bh) * m_pad * d;
 
   favor_accum_general_kernel<<<fblocks * vchunks * splits * bh, kGenThreads, 0, stream>>>(
       k, ks_[0], ks_[1], ks_[2], v, vs[0], vs[1], vs[2], heads, proj, n, m, m_pad, d, fblocks,
       vchunks, splits, tiles_per_split, scale, part_ctx, part_ks);
   if (cudaError_t err = cudaGetLastError()) return err;
+  return reduce(part_ctx, part_ks, bh, splits, m_pad, d, *ctx, *ksum, stream);
+}
 
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int64_t items = static_cast<int64_t>(bh) * m_pad * (d + 1);
-  const int64_t want = (items + 255) / 256;
-  const int reduce_blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
-  favor_reduce_kernel<<<reduce_blocks, 256, 0, stream>>>(part_ctx, part_ks, bh, splits, m_pad,
-                                                         d, ctx, ksum);
-  if (cudaError_t err = cudaGetLastError()) return err;
-
+cudaError_t apply_general(const float* q, const int64_t* qs, int batch, int heads, int n, int d,
+                          const float* proj, int m, const float* ctx, const float* ksum,
+                          float scale, float* out, cudaStream_t stream) {
+  const int vchunks = (d + kGenVal - 1) / kGenVal;
   const int apply_tiles = (n + kGenApplyRows - 1) / kGenApplyRows;
-  favor_apply_general_kernel<<<apply_tiles * vchunks * bh, kGenThreads, 0, stream>>>(
-      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_pad, d, vchunks, scale, out);
+  favor_apply_general_kernel<<<apply_tiles * vchunks * batch * heads, kGenThreads, 0, stream>>>(
+      q, qs[0], qs[1], qs[2], heads, proj, ctx, ksum, n, m, m_padded(m), d, vchunks, scale, out);
   return cudaGetLastError();
+}
+
+cudaError_t accumulate_any(const float* k, const int64_t* ks_, const float* v, const int64_t* vs,
+                           int batch, int heads, int n, int d, const float* proj, int m,
+                           int splits, float scale, float* work, float** ctx, float** ksum,
+                           cudaStream_t st) {
+  switch (d) {
+    case 16:
+      return accumulate<16>(k, ks_, v, vs, batch, heads, n, proj, m, splits, scale, work, ctx,
+                            ksum, st);
+    case 32:
+      return accumulate<32>(k, ks_, v, vs, batch, heads, n, proj, m, splits, scale, work, ctx,
+                            ksum, st);
+    case 48:
+      return accumulate<48>(k, ks_, v, vs, batch, heads, n, proj, m, splits, scale, work, ctx,
+                            ksum, st);
+    case 64:
+      return accumulate<64>(k, ks_, v, vs, batch, heads, n, proj, m, splits, scale, work, ctx,
+                            ksum, st);
+    default:
+      return accumulate_general(k, ks_, v, vs, batch, heads, n, d, proj, m, splits, scale, work,
+                                ctx, ksum, st);
+  }
+}
+
+cudaError_t apply_any(const float* q, const int64_t* qs, int batch, int heads, int n, int d,
+                      const float* proj, int m, const float* ctx, const float* ksum, float scale,
+                      float* out, cudaStream_t st) {
+  switch (d) {
+    case 16: return apply<16>(q, qs, batch, heads, n, proj, m, ctx, ksum, scale, out, st);
+    case 32: return apply<32>(q, qs, batch, heads, n, proj, m, ctx, ksum, scale, out, st);
+    case 48: return apply<48>(q, qs, batch, heads, n, proj, m, ctx, ksum, scale, out, st);
+    case 64: return apply<64>(q, qs, batch, heads, n, proj, m, ctx, ksum, scale, out, st);
+    default:
+      return apply_general(q, qs, batch, heads, n, d, proj, m, ctx, ksum, scale, out, st);
+  }
 }
 
 }  // namespace
@@ -746,17 +803,79 @@ extern "C" int favor_attention_f32(const void* q, long long q_sb, long long q_sh
   auto* wf = static_cast<float*>(work);
   auto* of = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16:
-      return launch<16>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
-    case 32:
-      return launch<32>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
-    case 48:
-      return launch<48>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
-    case 64:
-      return launch<64>(qf, qs, kf, ks, vf, vs, batch, heads, n, pf, m, splits, scale, wf, of, st);
-    default:
-      return launch_general(qf, qs, kf, ks, vf, vs, batch, heads, n, d, pf, m, splits, scale, wf,
-                            of, st);
+  float* ctx = nullptr;
+  float* ksum = nullptr;
+  if (cudaError_t err = accumulate_any(kf, ks, vf, vs, batch, heads, n, d, pf, m, splits, scale,
+                                       wf, &ctx, &ksum, st))
+    return static_cast<int>(err);
+  return static_cast<int>(apply_any(qf, qs, batch, heads, n, d, pf, m, ctx, ksum, scale, of, st));
+}
+
+// The accumulate half of favor_attention_f32, for callers that sum ctx and
+// ksum over the ranks holding the other rows of the sequence before the
+// apply half: the same accumulate and reduce launches, then ctx (batch *
+// heads, m, d) and ksum (batch * heads, m), contiguous f32, copied out of
+// `work` (favor_workspace_floats(batch * heads, splits, m, d) floats).
+extern "C" int favor_accumulate_f32(const void* k, long long k_sb, long long k_sh,
+                                    long long k_sn, const void* v, long long v_sb,
+                                    long long v_sh, long long v_sn, int batch, int heads, int n,
+                                    int d, const void* proj, int m, int splits, float scale,
+                                    void* work, void* ctx, void* ksum, void* stream) {
+  if (batch < 1 || heads < 1 || n < 1 || m < 1 || d < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t ks[3] = {k_sb, k_sh, k_sn}, vs[3] = {v_sb, v_sh, v_sn};
+  auto st = static_cast<cudaStream_t>(stream);
+  float* ctx_w = nullptr;
+  float* ksum_w = nullptr;
+  if (cudaError_t err = accumulate_any(static_cast<const float*>(k), ks,
+                                       static_cast<const float*>(v), vs, batch, heads, n, d,
+                                       static_cast<const float*>(proj), m, splits, scale,
+                                       static_cast<float*>(work), &ctx_w, &ksum_w, st))
+    return static_cast<int>(err);
+  const size_t f = sizeof(float), pad = m_padded(m), bh = static_cast<size_t>(batch) * heads;
+  if (cudaError_t err = cudaMemcpy2DAsync(ctx, f * m * d, ctx_w, f * pad * d, f * m * d, bh,
+                                          cudaMemcpyDeviceToDevice, st))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpy2DAsync(ksum, f * m, ksum_w, f * pad, f * m, bh,
+                                            cudaMemcpyDeviceToDevice, st));
+}
+
+// Floats of scratch that favor_apply_f32 needs: ctx and ksum with m padded.
+extern "C" long long favor_apply_workspace_floats(int bh, int m, int d) {
+  return static_cast<long long>(bh) * m_padded(m) * (d + 1);
+}
+
+// The apply half: out (batch, heads, n, d) contiguous f32 from q (strided as
+// in favor_attention_f32), proj (m, d) and ctx (batch * heads, m, d), ksum
+// (batch * heads, m), contiguous f32 (favor_accumulate_f32's layout, summed
+// over ranks or not). ctx and ksum are copied into `work`
+// (favor_apply_workspace_floats floats) with the features padded by zero
+// rows, the layout the apply kernels read.
+extern "C" int favor_apply_f32(const void* q, long long q_sb, long long q_sh, long long q_sn,
+                               int batch, int heads, int n, int d, const void* proj, int m,
+                               const void* ctx, const void* ksum, float scale, void* work,
+                               void* out, void* stream) {
+  if (batch < 1 || heads < 1 || n < 1 || m < 1 || d < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t qs[3] = {q_sb, q_sh, q_sn};
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t f = sizeof(float), pad = m_padded(m), bh = static_cast<size_t>(batch) * heads;
+  float* ctx_w = static_cast<float*>(work);
+  float* ksum_w = ctx_w + bh * pad * d;
+  if (pad > static_cast<size_t>(m)) {
+    if (cudaError_t err = cudaMemset2DAsync(ctx_w + static_cast<size_t>(m) * d, f * pad * d, 0,
+                                            f * (pad - m) * d, bh, st))
+      return static_cast<int>(err);
+    if (cudaError_t err = cudaMemset2DAsync(ksum_w + m, f * pad, 0, f * (pad - m), bh, st))
+      return static_cast<int>(err);
   }
+  if (cudaError_t err = cudaMemcpy2DAsync(ctx_w, f * pad * d, ctx, f * m * d, f * m * d, bh,
+                                          cudaMemcpyDeviceToDevice, st))
+    return static_cast<int>(err);
+  if (cudaError_t err = cudaMemcpy2DAsync(ksum_w, f * pad, ksum, f * m, f * m, bh,
+                                          cudaMemcpyDeviceToDevice, st))
+    return static_cast<int>(err);
+  return static_cast<int>(apply_any(static_cast<const float*>(q), qs, batch, heads, n, d,
+                                    static_cast<const float*>(proj), m, ctx_w, ksum_w, scale,
+                                    static_cast<float*>(out), st));
 }

@@ -59,6 +59,24 @@ def pseudo_to_true_hex(col, row):
     return x, y
 
 
+def hex_neighbor_table(h_st: int = VISIUM_H_ST, w_st: int = VISIUM_W_ST):
+    """Dense neighbor index table of the odd-right lattice: ``(neighbors,
+    valid)``, ``neighbors`` int32 ``(h_st, w_st, 6)`` holding the flat index
+    ``y * w_st + x`` of each of the 6 hex neighbors (in
+    :data:`HEX_TAPS_R1`'s order, -1 outside the array) and ``valid`` the
+    bool mask of the neighbors inside it."""
+    rows = np.arange(h_st)[:, None, None]
+    cols = np.arange(w_st)[None, :, None]
+    taps = np.array(HEX_TAPS_R1[1:], dtype=np.int64)  # (6, 3), the centre left out
+    dr = taps[:, 0][None, None, :]
+    dc = np.where((rows % 2) == 0, taps[:, 1][None, None, :], taps[:, 2][None, None, :])
+    nr = rows + dr
+    nc = cols + dc
+    valid = (nr >= 0) & (nr < h_st) & (nc >= 0) & (nc < w_st)
+    neighbors = np.where(valid, nr * w_st + nc, -1).astype(np.int32)
+    return neighbors, valid
+
+
 def pairwise_distances(points) -> np.ndarray:
     """Condensed upper-triangle pairwise Euclidean distances of (n, d)
     points, in (i < j) row-major order."""

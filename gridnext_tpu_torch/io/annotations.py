@@ -26,17 +26,12 @@ from typing import Optional, Sequence
 import numpy as np
 
 from gridnext_tpu_torch import geometry
-from gridnext_tpu_torch.io.spaceranger import read_positions_file
+from gridnext_tpu_torch.io.spaceranger import coord_string, read_positions_file
 from gridnext_tpu_torch.io.unify import read_count_matrix
 
 # pandas.read_csv's default missing-value strings
 _NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
        "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"}
-
-
-def coord_string(array_col, array_row) -> str:
-    """The ``'{array_col}_{array_row}'`` spot key of the unified caches."""
-    return f"{int(array_col)}_{int(array_row)}"
 
 
 def _is_number(v: str) -> bool:

@@ -49,6 +49,23 @@ class Positions:
         return self.columns[name]
 
 
+def coord_string(array_col, array_row) -> str:
+    """The ``'{array_col}_{array_row}'`` spot key of the unified caches,
+    the one formatter of the key every annotation and count join matches
+    on."""
+    return f"{int(array_col)}_{int(array_row)}"
+
+
+def positions_to_coord_strings(positions: Positions, barcodes) -> list:
+    """Barcodes -> ``'{array_col}_{array_row}'`` coordinate strings of
+    their rows of ``positions`` (a ``KeyError`` for a barcode without a
+    row, as the JAX package's ``positions.loc`` raises)."""
+    where = {b: i for i, b in enumerate(positions.barcodes)}
+    idx = np.asarray([where[b] for b in barcodes], np.int64)
+    return [coord_string(c, r) for c, r in zip(positions["array_col"][idx].tolist(),
+                                               positions["array_row"][idx].tolist())]
+
+
 def find_position_file(spaceranger_dir, hd_binning: Optional[str] = None) -> str:
     """Locate the tissue-positions file of a Spaceranger directory.
 

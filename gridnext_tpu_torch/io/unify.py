@@ -16,7 +16,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from gridnext_tpu_torch.io.spaceranger import read_feature_matrix, read_positions
+from gridnext_tpu_torch.io.spaceranger import (positions_to_coord_strings, read_feature_matrix,
+                                               read_positions)
 from gridnext_tpu_torch.io.tsv_codec import read_row_names, read_tsv_matrix, write_tsv_matrix
 
 
@@ -106,11 +107,7 @@ def check_unified_gene_axis(count_files: Sequence) -> list:
 def _coord_columns(srd, barcodes, hd_binning) -> list:
     """The ``{array_col}_{array_row}`` names of ``barcodes`` (KeyError for a
     barcode without a position row, as ``positions.loc`` raises)."""
-    pos = read_positions(srd, hd_binning)
-    where = {b: i for i, b in enumerate(pos.barcodes)}
-    idx = np.asarray([where[b] for b in barcodes], np.int64)
-    cols, rows = pos["array_col"][idx], pos["array_row"][idx]
-    return [f"{int(c)}_{int(r)}" for c, r in zip(cols.tolist(), rows.tolist())]
+    return positions_to_coord_strings(read_positions(srd, hd_binning), barcodes)
 
 
 def prepare_count_files(spaceranger_dirs: Sequence, suffix: Optional[str] = None,

@@ -4,9 +4,10 @@ Port of ``gridnext_tpu/models/densenet.py``: the same blocks, bottleneck
 widths, compression, stem variants (``small_inputs``) and ``classify=False``
 mode (the pooled features instead of logits). DenseNet-121
 (:func:`densenet121`) is the checkpoint-parity f: the reference's trained
-``densenet_ba44_p128.pth`` converts to the JAX package's tree with
-``compat/torch_convert.densenet_from_torch``, and that tree loads here with
-:func:`gridnext_tpu_torch.compat.from_jax.load_densenet`.
+``densenet_ba44_p128.pth`` loads here through
+:func:`gridnext_tpu_torch.compat.torch_convert.densenet_from_torch` and
+:func:`gridnext_tpu_torch.compat.from_jax.load_densenet`
+(``torch_convert.load_torch_checkpoint`` does both).
 
 Layouts follow the JAX package at the module boundary: patches are
 ``(N, P, P, 3)`` channels-last floats; the module converts to NCHW inside.

@@ -154,7 +154,8 @@ class Dropout(nn.Module):
     input's device, or None for torch's default one); the trainers set it
     to a generator seeded by the step (:func:`set_dropout_generator`), so a
     resumed run draws the masks of an uninterrupted one; on a mesh a rank
-    takes its rows of the global batch's mask
+    takes its rows of the global batch's mask, and on a ``seq`` axis the
+    columns of its tokens
     (:func:`~gridnext_tpu_torch.parallel.collectives.draw_rows`).
     """
 
@@ -169,9 +170,11 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
+        # (B, N, ...) activations: on a seq axis the rank's tokens of the mask
         mask = collectives.draw_rows(
             lambda shape: torch.empty(shape, device=x.device).bernoulli_(
-                keep, generator=self.generator), x.shape)
+                keep, generator=self.generator), x.shape,
+            token_dim=1 if x.dim() >= 3 else None)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

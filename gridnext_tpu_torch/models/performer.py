@@ -23,6 +23,17 @@ the rotary embeddings are plain torch (XLA in the JAX package).
 
 flax's ``LayerNorm`` epsilon is 1e-6 (torch's default is 1e-5) and its
 GELU here is the exact (erf) one; both are set explicitly.
+
+Sequence parallelism (the ``seq`` mesh axis): :func:`shard_sequence` gives
+the modules a :class:`~gridnext_tpu_torch.parallel.collectives.TokenShard`
+(this rank's columns of the token axis and the group of ranks holding the
+rest). FAVOR then sums its ctx and ksum over the group between its
+accumulate and apply halves, on the kernel and the plain route alike, and
+the positional embeddings and rotary angles take the rank's positions. The
+token-mixing operations the port does not shard raise a ``ValueError``
+under a shard: local heads, the causal scan, softmax features,
+``no_projection`` and ``sow_attention`` (JAX's partitioner runs them;
+``ROADMAP.md`` Queue 3).
 """
 
 from __future__ import annotations
@@ -38,10 +49,11 @@ from torch.utils.checkpoint import checkpoint
 from gridnext_tpu_torch.models.layers import Dropout
 from gridnext_tpu_torch.ops.favor import (causal_linear_attention,
                                           generalized_kernel_features,
-                                          implicit_attention_weights, linear_attention,
+                                          implicit_attention_weights, linear_apply,
+                                          linear_attention, linear_context,
                                           orthogonal_gaussian_matrix,
                                           softmax_kernel_features)
-from gridnext_tpu_torch.ops.favor_cuda import fused_generalized_linear_attention
+from gridnext_tpu_torch.ops.favor_cuda import fused_generalized_linear_attention, seq_sum
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm's default
 REZERO_INIT = 1e-3      # the ReZero gain's initial value
@@ -56,6 +68,21 @@ def _is_relu(fn: Callable) -> bool:
     return fn is torch.relu or fn is F.relu
 
 
+def _unsharded(what: str):
+    return ValueError(f"{what} mixes tokens across the 'seq' mesh axis, which the port "
+                      "does not shard; train it without a 'seq' axis")
+
+
+def shard_sequence(model: nn.Module, shard) -> None:
+    """Give every module of ``model`` that reads it the token shard
+    ``shard`` (a :class:`~gridnext_tpu_torch.parallel.collectives.TokenShard`,
+    or None for a whole sequence): FAVOR then sums ctx and ksum over
+    ``shard.group``. The trainers set it around a sequence-parallel run."""
+    for m in model.modules():
+        if hasattr(type(m), "seq_shard"):
+            m.seq_shard = shard
+
+
 class FastAttention(nn.Module):
     """FAVOR+ attention core over ``(B, H, N, dh)`` q/k/v.
 
@@ -65,8 +92,11 @@ class FastAttention(nn.Module):
     O(N^2) memory. ``ortho_scaling`` is the projection's row scaling (see
     :func:`~gridnext_tpu_torch.ops.favor.orthogonal_gaussian_matrix`).
     ``dtype`` is a storage hint only, as in the JAX module: the feature
-    maps stay float32.
+    maps stay float32. ``seq_shard`` (set by :func:`shard_sequence`): the
+    rows of each sequence are split over its group's ranks.
     """
+
+    seq_shard = None
 
     def __init__(self, dim_head: int, nb_features: Optional[int] = None,
                  causal: bool = False, generalized_attention: bool = False,
@@ -98,7 +128,26 @@ class FastAttention(nn.Module):
         return (softmax_kernel_features(q, proj, is_query=True),
                 softmax_kernel_features(k, proj, is_query=False))
 
+    def _sharded(self, q, k, v):
+        """The attention of a sequence whose other rows lie on the ranks of
+        ``seq_shard.group``."""
+        for what, bad in (("the causal scan", self.causal),
+                          ("no_projection's softmax over keys", self.no_projection),
+                          ("softmax FAVOR features (their key maximum)",
+                           not self.generalized_attention),
+                          ("sow_attention's attention weights", self.sow_attention)):
+            if bad:
+                raise _unsharded(what)
+        group = self.seq_shard.group
+        if _is_relu(self.kernel_fn) and q.device.type == "cuda":
+            return fused_generalized_linear_attention(q, k, v, self.projection,
+                                                      seq_group=group)
+        qf, kf = self._features(q, k)
+        return linear_apply(qf, *seq_sum(*linear_context(kf, v), group))
+
     def forward(self, q, k, v):
+        if self.seq_shard is not None:
+            return self._sharded(q, k, v)
         kernel = (not self.causal and not self.no_projection and self.generalized_attention
                   and _is_relu(self.kernel_fn) and q.device.type == "cuda")
         if kernel and not self.sow_attention:
@@ -136,12 +185,13 @@ def apply_rotary_pos_emb(q, k, freqs):
     return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
-def interleaved_rotary_angles(n: int, dim: int, dtype=torch.float32, device=None
-                              ) -> torch.Tensor:
+def interleaved_rotary_angles(n: int, dim: int, dtype=torch.float32, device=None,
+                              offset: int = 0) -> torch.Tensor:
     """Rotary angles of the interleaved (GPT-J) convention, ``(n, dim // 2)``:
-    one angle per adjacent (2i, 2i+1) pair."""
+    one angle per adjacent (2i, 2i+1) pair, at positions ``offset`` ..
+    ``offset + n - 1``."""
     inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=dtype, device=device) / dim))
-    return torch.arange(n, dtype=dtype, device=device)[:, None] * inv[None, :]
+    return torch.arange(offset, offset + n, dtype=dtype, device=device)[:, None] * inv[None, :]
 
 
 def _rotate_every_two(x):
@@ -223,6 +273,8 @@ class SelfAttention(nn.Module):
     positions and masks the local heads' keys.
     """
 
+    seq_shard = None
+
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  local_heads: int = 0, local_window_size: int = 256,
                  local_rel_pos: bool = True, rotary: bool = False, causal: bool = False,
@@ -256,13 +308,17 @@ class SelfAttention(nn.Module):
 
         q, k, v = heads(self.to_q(x)), heads(self.to_k(x)), heads(self.to_v(x))
         outs = []
+        if self.local_heads > 0 and self.seq_shard is not None:
+            raise _unsharded("local attention heads (their windows)")
         if gh > 0:
             qg, kg, vg = q[:, :gh], k[:, :gh], v[:, :gh]
             if mask is not None:
                 vg = vg * mask[:, None, :, None].to(vg.dtype)
             if self.rotary:
+                offset = 0 if self.seq_shard is None else self.seq_shard.start
                 qg, kg = apply_rotary_interleaved(
-                    qg, kg, interleaved_rotary_angles(n, self.dim_head, device=x.device))
+                    qg, kg, interleaved_rotary_angles(n, self.dim_head, device=x.device,
+                                                      offset=offset))
             outs.append(self.fast_attention(qg, kg, vg))
         if self.local_heads > 0:
             outs.append(local_block_attention(
@@ -422,14 +478,15 @@ class Performer(nn.Module):
 
 
 class AbsolutePositionalEmbedding(nn.Module):
-    """A learned ``(max_seq_len, dim)`` table; returns its first N rows."""
+    """A learned ``(max_seq_len, dim)`` table; returns its rows from
+    ``offset`` on, one a token of ``x``."""
 
     def __init__(self, dim: int, max_seq_len: int):
         super().__init__()
         self.embedding = nn.Parameter(torch.randn(max_seq_len, dim) * 0.02)
 
-    def forward(self, x):
-        return self.embedding[: x.shape[1]]
+    def forward(self, x, offset: int = 0):
+        return self.embedding[offset:offset + x.shape[1]]
 
 
 class PerformerLM(nn.Module):
@@ -441,8 +498,12 @@ class PerformerLM(nn.Module):
     ``pos_emb_kind``: 'gene2vec' (``g2v_weights`` ``(n, dim)``, a zero row
     appended, added as a fixed table), 'absolute' (a learned table) or
     'none'. ``forward(x, return_encodings=False, mask=None)``: with
-    ``return_encodings`` the normed encodings ``(B, N, dim)``.
+    ``return_encodings`` the normed encodings ``(B, N, dim)``. Under a
+    ``seq_shard`` (:func:`shard_sequence`), ``x`` holds the shard's
+    columns of the token axis.
     """
+
+    seq_shard = None
 
     def __init__(self, num_tokens: int, max_seq_len: int, dim: int, depth: int,
                  heads: int, dim_head: int = 64,
@@ -488,14 +549,19 @@ class PerformerLM(nn.Module):
                        if head_module is None and not tie_embed else None)
 
     def forward(self, x, return_encodings: bool = False, mask=None):
-        if x.shape[1] > self.max_seq_len:
-            raise ValueError(f"{x.shape[1]} tokens exceed max_seq_len "
+        shard = self.seq_shard
+        n_total, offset = (x.shape[1], 0) if shard is None else (shard.total, shard.start)
+        if shard is not None and x.shape[1] != shard.stop - shard.start:
+            raise ValueError(f"{x.shape[1]} tokens, but the token shard holds columns "
+                             f"[{shard.start}, {shard.stop})")
+        if n_total > self.max_seq_len:
+            raise ValueError(f"{n_total} tokens exceed max_seq_len "
                              f"{self.max_seq_len}")
         h = self.token_emb(x)
         if self.pos_emb_kind == "gene2vec":
-            h = h + self.g2v[: x.shape[1]]
+            h = h + self.g2v[offset:offset + x.shape[1]]
         elif self.pos_emb is not None:
-            h = h + self.pos_emb(x)
+            h = h + self.pos_emb(x, offset)
         h = self.norm(self.performer(self.emb_dropout(h), mask=mask))
         if return_encodings:
             return h

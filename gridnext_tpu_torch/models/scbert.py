@@ -11,6 +11,7 @@ gene2vec vocabulary, kept in the port's own copy
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Sequence
 
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from gridnext_tpu_torch.models.layers import Dropout
-from gridnext_tpu_torch.models.performer import PerformerLM
+from gridnext_tpu_torch.models.performer import PerformerLM, shard_sequence
 
 SCBERT_N_GENES = 16906  # gene2vec vocabulary size
 GENE2VEC_NAMES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -29,7 +30,12 @@ GENE2VEC_NAMES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__
 class AttentionClassifier(nn.Module):
     """Token-embedding pooling head: Dense(dim -> 1) over each token, then
     an MLP over the ``seq_len`` token scores (fc1 -> 512 -> ``h_dim`` ->
-    ``out_dim``, ReLUs between, ``dropout`` after the first two)."""
+    ``out_dim``, ReLUs between, ``dropout`` after the first two). Under a
+    ``seq_shard`` the tokens are the shard's columns: fc1's partial product
+    over them is summed over the shard's group, as JAX's partitioner sums
+    a Dense over a sharded axis, and every rank gets the whole logits."""
+
+    seq_shard = None
 
     def __init__(self, dim: int, seq_len: int = SCBERT_N_GENES + 1, h_dim: int = 128,
                  out_dim: int = 10, dropout: float = 0.0):
@@ -42,11 +48,20 @@ class AttentionClassifier(nn.Module):
         self.fc3 = nn.Linear(h_dim, out_dim)
 
     def forward(self, x):
-        if x.shape[1] != self.seq_len:
+        shard = self.seq_shard
+        n = x.shape[1] if shard is None else shard.total
+        if n != self.seq_len:
             raise ValueError(f"AttentionClassifier built for seq_len={self.seq_len} "
-                             f"but got {x.shape[1]} tokens")
+                             f"but got {n} tokens")
         h = torch.relu(self.conv1(x)[..., 0])        # (B, seq_len)
-        h = self.dropout(torch.relu(self.fc1(h)))
+        if shard is None:
+            h = self.fc1(h)
+        else:
+            from gridnext_tpu_torch.parallel.collectives import all_reduce
+
+            w = self.fc1.weight[:, shard.start:shard.stop]
+            h = all_reduce(h @ w.T, shard.group) + self.fc1.bias
+        h = self.dropout(torch.relu(h))
         h = self.dropout(torch.relu(self.fc2(h)))
         return self.fc3(h)
 
@@ -63,8 +78,12 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
     ``remat`` and ``sow_attention`` as in
     :class:`~gridnext_tpu_torch.models.performer.PerformerLM`.
     ``ff_dropout`` and ``attn_dropout`` act in train mode, as the JAX
-    module's.
+    module's. Under a ``seq_shard`` (``performer.shard_sequence``) ``x``
+    holds the shard's columns of the gene axis; the rank that holds the
+    last genes appends the zero token.
     """
+
+    seq_shard = None
 
     def __init__(self, n_genes: int = SCBERT_N_GENES, bin_num: int = 5, dim: int = 200,
                  depth: int = 6, heads: int = 10, dim_head: int = 64,
@@ -88,6 +107,14 @@ class scBERT(nn.Module):  # noqa: N801 (the JAX package's name)
     def forward(self, x):
         tokens = torch.clamp(x, max=self.bin_num).to(torch.int64)   # truncation
         cls = torch.zeros((tokens.shape[0], 1), dtype=torch.int64, device=x.device)
+        genes = self.seq_shard
+        if genes is not None:
+            # the LM's token axis is the gene axis and the zero token, on the last rank
+            last = genes.stop == genes.total
+            shard_sequence(self.performer_lm, dataclasses.replace(
+                genes, stop=genes.stop + last, total=genes.total + 1))
+            if not last:
+                return self.performer_lm(tokens)
         return self.performer_lm(torch.cat([tokens, cls], dim=-1))
 
 

@@ -75,6 +75,16 @@ SIGNATURES = {
         "favor_attention_f32": ([_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _VP, _LL,
                                  _LL, _LL, _I, _I, _I, _I, _VP, _I, _I, _F, _VP,
                                  _VP, _VP], _I),
+        # k, k strides, v, v strides, batch, heads, n, d, proj, m, splits,
+        # scale, work, ctx, ksum, stream
+        "favor_accumulate_f32": ([_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _I, _I,
+                                  _I, _VP, _I, _I, _F, _VP, _VP, _VP, _VP], _I),
+        # bh, m, d
+        "favor_apply_workspace_floats": ([_I, _I, _I], _LL),
+        # q, q strides, batch, heads, n, d, proj, m, ctx, ksum, scale, work,
+        # out, stream
+        "favor_apply_f32": ([_VP, _LL, _LL, _LL, _I, _I, _I, _I, _VP, _I, _VP, _VP,
+                             _F, _VP, _VP, _VP], _I),
     },
 }
 

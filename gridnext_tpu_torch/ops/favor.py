@@ -78,16 +78,30 @@ def generalized_kernel_features(data: torch.Tensor, projection=None,
     return kernel_fn(data_dash) + kernel_epsilon
 
 
+def linear_context(k: torch.Tensor, v: torch.Tensor):
+    """The key side of non-causal linear attention: ``(context (..., r, d),
+    k_sum (..., r))``, sums over the sequence of ``k``'s ``(..., n, r)``
+    feature maps and ``v`` ``(..., n, d)``, float32. Both are sums over
+    rows, so a sequence split over ranks adds its parts' results."""
+    k, v = k.float(), v.float()
+    return torch.einsum("...nd,...ne->...de", k, v), k.sum(dim=-2)
+
+
+def linear_apply(q: torch.Tensor, context: torch.Tensor, k_sum: torch.Tensor) -> torch.Tensor:
+    """The query side: ``(q @ context) / (q . k_sum)`` for ``q``'s
+    ``(..., n, r)`` feature maps, float32."""
+    q = q.float()
+    d_inv = 1.0 / torch.einsum("...nd,...d->...n", q, k_sum)
+    return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)
+
+
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal linear attention over feature maps, float32 throughout.
+    """Non-causal linear attention over feature maps, float32 throughout:
+    :func:`linear_apply` of :func:`linear_context`.
 
     q, k: ``(..., n, r)`` feature maps; v: ``(..., n, d)``.
     """
-    q, k, v = q.float(), k.float(), v.float()
-    k_sum = k.sum(dim=-2)                                        # (..., r)
-    d_inv = 1.0 / torch.einsum("...nd,...d->...n", q, k_sum)
-    context = torch.einsum("...nd,...ne->...de", k, v)           # (..., r, d)
-    return torch.einsum("...de,...nd,...n->...ne", context, q, d_inv)
+    return linear_apply(q, *linear_context(k, v))
 
 
 def implicit_attention_weights(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,21 @@ Only the forward is a kernel. The call is the custom op
 ``gridnext::favor_attention``, whose registered backward differentiates
 the plain version, as the JAX op's custom VJP differentiates its einsum
 path.
+
+A sequence sharded over ranks (the ``seq`` mesh axis of sequence-parallel
+MLM) needs ctx and ksum summed over the ranks between the two halves, as
+the TPU kernel's two ``pallas_call``s (accumulate ``:142``, apply ``:161``)
+are apart: with ``seq_group``, :func:`fused_generalized_linear_attention`
+runs the custom op ``gridnext::favor_accumulate`` (the accumulate and
+reduce launches, C entry ``favor_accumulate_f32``), sums (ctx, ksum) over
+the group (:func:`seq_sum`, whose backward sums the gradients too), then
+``gridnext::favor_apply`` (the apply launch, ``favor_apply_f32``). Each
+half is counted in its own counter (:data:`accumulate_launches`,
+:data:`apply_launches`) and has the plain version's VJP as its backward.
+The accumulate pass sizes its splits (:func:`_splits`) from the rank's own
+rows, so a sharded sequence sums its float32 partials in another order
+than one process does (``ROADMAP.md`` Queue 3 item 19). Without a group
+the one-process path calls ``favor_attention_f32`` alone, as before.
 """
 
 from __future__ import annotations
@@ -47,12 +62,17 @@ from __future__ import annotations
 import torch
 
 from gridnext_tpu_torch.ops import _cuda
-from gridnext_tpu_torch.ops.favor import generalized_kernel_features, linear_attention
+from gridnext_tpu_torch.ops.favor import (generalized_kernel_features, linear_apply,
+                                          linear_context)
 
 # Calls of the C entry point made by fused_generalized_linear_attention (one
 # per call, three kernels each); a plain integer that a run resets and reads
 # to show the kernel was used.
 launches = 0
+# Calls of favor_accumulate_f32 (two kernels) and favor_apply_f32 (one
+# kernel): the halves a seq group runs apart.
+accumulate_launches = 0
+apply_launches = 0
 
 HEAD_DIMS = (16, 32, 48, 64)   # head widths the tensor-core kernels are compiled for
 _ROWS = 32                 # csrc/favor.cu kRows: sequence rows per accumulate tile
@@ -66,10 +86,22 @@ def favor_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           proj: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ReLU-FAVOR attention (the JAX module's
     ``_einsum_reference``): ``(B, H, N, d)`` float32."""
-    q, k, v, proj = (t.float() for t in (q, k, v, proj))
-    qf = generalized_kernel_features(q, proj, torch.relu)
-    kf = generalized_kernel_features(k, proj, torch.relu)
-    return linear_attention(qf, kf, v)
+    return favor_apply_plain(q, proj, *favor_accumulate_plain(k, v, proj))
+
+
+def favor_accumulate_plain(k: torch.Tensor, v: torch.Tensor, proj: torch.Tensor):
+    """The accumulate half of :func:`favor_attention_plain`: ``(ctx (B, H,
+    m, d), ksum (B, H, m))`` float32, sums over the sequence."""
+    kf = generalized_kernel_features(k.float(), proj.float(), torch.relu)
+    return linear_context(kf, v)
+
+
+def favor_apply_plain(q: torch.Tensor, proj: torch.Tensor, ctx: torch.Tensor,
+                      ksum: torch.Tensor) -> torch.Tensor:
+    """The apply half: ``(B, H, N, d)`` float32 from q and the (summed)
+    ``ctx`` and ``ksum``."""
+    qf = generalized_kernel_features(q.float(), proj.float(), torch.relu)
+    return linear_apply(qf, ctx.float(), ksum.float())
 
 
 def _check_shapes(q, k, v, proj):
@@ -123,18 +155,25 @@ def _splits(bh: int, n: int, m: int, d: int, device) -> int:
     return max(-(-tiles // _SPLIT_TILES), min(tiles, want))
 
 
-def _launch(q, k, v, proj):
-    global launches
-    b, h, n, d = q.shape
+def _prologue(x, proj, *others):
+    """(b, h, n, d, m, width, proj as the kernels read it) of a launch
+    over ``x`` ``(B, H, N, d)``; raises on an empty call or operands on
+    several devices."""
+    b, h, n, d = x.shape
     m = proj.shape[0]
     if n == 0 or m == 0 or b * h == 0 or d == 0:
-        raise ValueError(f"empty FAVOR call: q {tuple(q.shape)}, proj {tuple(proj.shape)}")
-    dev = q.device
-    if any(t.device != dev for t in (k, v, proj)):
-        raise ValueError("q, k, v and proj must be on one device")
+        raise ValueError(f"empty FAVOR call: q {tuple(x.shape)}, proj {tuple(proj.shape)}")
+    if any(t.device != x.device for t in (proj, *others)):
+        raise ValueError("q, k, v, proj (and ctx, ksum) must be on one device")
     width = kernel_width(d)
+    return b, h, n, d, m, width, _kernel_operand(proj.contiguous(), width).contiguous()
+
+
+def _launch(q, k, v, proj):
+    global launches
+    b, h, n, d, m, width, proj = _prologue(q, proj, k, v)
+    dev = q.device
     q, k, v = (_kernel_operand(t, width) for t in (q, k, v))
-    proj = _kernel_operand(proj.contiguous(), width).contiguous()
     lib = _cuda.library("favor")
     splits = _splits(b * h, n, m, width, dev)
     work = torch.empty(int(lib.favor_workspace_floats(b * h, splits, m, width)),
@@ -160,29 +199,114 @@ favor_attention_op = _cuda.custom_op(
     fake=lambda q, k, v, proj: q.new_empty(tuple(q.shape), dtype=torch.float32))
 
 
+def _accumulate_launch(k, v, proj):
+    global accumulate_launches
+    b, h, n, d, m, width, proj = _prologue(k, proj, v)
+    dev = k.device
+    k, v = (_kernel_operand(t, width) for t in (k, v))
+    lib = _cuda.library("favor")
+    splits = _splits(b * h, n, m, width, dev)
+    work = torch.empty(int(lib.favor_workspace_floats(b * h, splits, m, width)),
+                       dtype=torch.float32, device=dev)
+    ctx = torch.empty((b, h, m, width), dtype=torch.float32, device=dev)
+    ksum = torch.empty((b, h, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.favor_accumulate_f32(
+            k.data_ptr(), *k.stride()[:3], v.data_ptr(), *v.stride()[:3], b, h, n, width,
+            proj.data_ptr(), m, splits, float(d) ** -0.25, work.data_ptr(), ctx.data_ptr(),
+            ksum.data_ptr(), stream)
+    _cuda.check(lib, err, "favor_accumulate")
+    accumulate_launches += 1
+    return (ctx if width == d else ctx[..., :d].contiguous()), ksum
+
+
+def _apply_launch(q, proj, ctx, ksum):
+    global apply_launches
+    b, h, n, d, m, width, proj = _prologue(q, proj, ctx, ksum)
+    if tuple(ctx.shape) != (b, h, m, d) or tuple(ksum.shape) != (b, h, m):
+        raise ValueError(f"ctx {tuple(ctx.shape)} / ksum {tuple(ksum.shape)} are not "
+                         f"{(b, h, m, d)} / {(b, h, m)}")
+    dev = q.device
+    q = _kernel_operand(q, width)
+    ctx = _kernel_operand(ctx, width).contiguous()
+    ksum = ksum.float().contiguous()
+    lib = _cuda.library("favor")
+    work = torch.empty(int(lib.favor_apply_workspace_floats(b * h, m, width)),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, n, width), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.favor_apply_f32(
+            q.data_ptr(), *q.stride()[:3], b, h, n, width, proj.data_ptr(), m, ctx.data_ptr(),
+            ksum.data_ptr(), float(d) ** -0.25, work.data_ptr(), out.data_ptr(), stream)
+    _cuda.check(lib, err, "favor_apply")
+    apply_launches += 1
+    return out if width == d else out[..., :d].contiguous()
+
+
+# The two halves as the custom ops ``gridnext::favor_accumulate`` and
+# ``gridnext::favor_apply``.
+favor_accumulate_op = _cuda.custom_op(
+    "favor_accumulate", "(Tensor k, Tensor v, Tensor proj) -> (Tensor, Tensor)",
+    cpu=favor_accumulate_plain, cuda=_accumulate_launch,
+    fake=lambda k, v, proj: (k.new_empty(tuple(k.shape[:2]) + (proj.shape[0], k.shape[3]),
+                                         dtype=torch.float32),
+                             k.new_empty(tuple(k.shape[:2]) + (proj.shape[0],),
+                                         dtype=torch.float32)))
+favor_apply_op = _cuda.custom_op(
+    "favor_apply", "(Tensor q, Tensor proj, Tensor ctx, Tensor ksum) -> Tensor",
+    cpu=favor_apply_plain, cuda=_apply_launch,
+    fake=lambda q, proj, ctx, ksum: q.new_empty(tuple(q.shape), dtype=torch.float32))
+
+
 def _save_inputs(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
-def _plain_vjp(ctx, grad):
-    """The backward: the plain version's VJP at the saved inputs, as the
-    JAX op's custom VJP differentiates its einsum path."""
-    needs = ctx.needs_input_grad
-    with torch.enable_grad():
-        ins = [t.detach().float().requires_grad_(need)
-               for t, need in zip(ctx.saved_tensors, needs)]
-        out = favor_attention_plain(*ins)
-        grads = iter(torch.autograd.grad(
-            out, [t for t, need in zip(ins, needs) if need], grad.float()))
-    return tuple(next(grads) if need else None for need in needs)
+def _plain_vjp_of(plain):
+    """The backward of an op whose plain version is ``plain``: its VJP at
+    the saved inputs, as the JAX op's custom VJP differentiates its einsum
+    path."""
+    def vjp(ctx, *grads):
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            outs = plain(*ins)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g.float()) for o, g in zip(outs, grads) if g is not None]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t, need in zip(ins, needs) if need],
+                [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if need else None for need in needs)
+
+    return vjp
 
 
-favor_attention_op.register_autograd(_plain_vjp, setup_context=_save_inputs)
+favor_attention_op.register_autograd(_plain_vjp_of(favor_attention_plain),
+                                     setup_context=_save_inputs)
+favor_accumulate_op.register_autograd(_plain_vjp_of(favor_accumulate_plain),
+                                      setup_context=_save_inputs)
+favor_apply_op.register_autograd(_plain_vjp_of(favor_apply_plain), setup_context=_save_inputs)
+
+
+def seq_sum(ctx: torch.Tensor, ksum: torch.Tensor, group):
+    """(ctx, ksum) summed over the ranks of ``group`` (a ``seq`` axis), one
+    all-reduce of both, counted in ``collectives.COUNTS["favor_seq"]``.
+    Differentiable: each rank's ctx and ksum reach every rank's queries,
+    so the backward sums the gradients over the group too
+    (``collectives.all_reduce``)."""
+    from gridnext_tpu_torch.parallel import collectives
+
+    collectives.COUNTS["favor_seq"] += 1
+    flat = collectives.all_reduce(torch.cat([ctx.reshape(-1), ksum.reshape(-1)]).float(), group)
+    return flat[:ctx.numel()].view(ctx.shape), flat[ctx.numel():].view(ksum.shape)
 
 
 def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
-                                       v: torch.Tensor, proj: torch.Tensor
-                                       ) -> torch.Tensor:
+                                       v: torch.Tensor, proj: torch.Tensor,
+                                       seq_group=None) -> torch.Tensor:
     """ReLU-FAVOR linear attention: ``(B, H, N, d)`` float32.
 
     Args:
@@ -190,6 +314,9 @@ def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
         dtype (cast to float32); on CUDA they may be strided views, read in
         place where the kernel takes their layout and copied otherwise.
       proj: ``(m, d)`` projection (a FastAttention's ``projection``).
+      seq_group: the process group of the ranks that hold the other rows
+        of each sequence (a ``seq`` mesh axis), or None: one process holds
+        every row and the fused entry runs alone.
 
     CUDA tensors launch the kernels of ``csrc/favor.cu`` (and raise on an
     empty call or mismatched shapes); CPU tensors run
@@ -202,4 +329,7 @@ def fused_generalized_linear_attention(q: torch.Tensor, k: torch.Tensor,
     registers (module docstring).
     """
     _check_shapes(q, k, v, proj)
-    return favor_attention_op(q, k, v, proj)
+    if seq_group is None:
+        return favor_attention_op(q, k, v, proj)
+    ctx, ksum = seq_sum(*favor_accumulate_op(k, v, proj), seq_group)
+    return favor_apply_op(q, proj, ctx, ksum)

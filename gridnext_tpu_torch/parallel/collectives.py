@@ -16,8 +16,10 @@ Only ``all_reduce`` and ``broadcast`` are used, the two collectives every
 
 :data:`COUNTS` counts every collective launched, by name (set them to 0
 with :func:`reset_counts`): ``all_reduce`` and ``broadcast`` count every
-call, ``grads`` the gradient all-reduces among them and ``stop_flag`` the
-host flags.
+call, ``grads`` the gradient all-reduces among them, ``stop_flag`` the
+host flags and ``favor_seq`` FAVOR's forward sums of (ctx, ksum) over a
+``seq`` group (``ops/favor_cuda.seq_sum``; its backward's sums count as
+``all_reduce`` only).
 
 :func:`sharded` is the context the trainers set around a step on a mesh:
 the group over which train-mode ``BatchNorm`` reduces its statistics
@@ -25,7 +27,9 @@ the group over which train-mode ``BatchNorm`` reduces its statistics
 f (``models/gridnet.apply_f_grid``), and this rank's rows of the global
 batch, from which the random draws of dropout, augmentation and the MLM
 mask take their rows (:func:`draw_rows`), so a sharded step draws what
-one process draws for the whole batch.
+one process draws for the whole batch. On a ``seq`` axis the context also
+holds this rank's columns of the token axis (:class:`TokenShard`), which
+the token-shaped draws take too.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_reduce": 0, "broadcast": 0, "grads": 0, "stop_flag": 0}
+COUNTS = {"all_reduce": 0, "broadcast": 0, "grads": 0, "stop_flag": 0, "favor_seq": 0}
 
 
 def reset_counts() -> None:
@@ -156,11 +160,22 @@ class RowShard:
     total: int
 
 
+@dataclasses.dataclass(frozen=True)
+class TokenShard:
+    """This rank's columns ``[start, stop)`` of a token axis of ``total``,
+    the other columns held by the ranks of ``group`` (a ``seq`` axis)."""
+    group: object
+    start: int
+    stop: int
+    total: int
+
+
 @dataclasses.dataclass
 class _Context:
     batch_group: object = None
     spot: Optional[SpotShard] = None
     rows: Optional[RowShard] = None
+    tokens: Optional[TokenShard] = None
 
 
 _CONTEXT = _Context()
@@ -168,13 +183,15 @@ _CONTEXT = _Context()
 
 @contextlib.contextmanager
 def sharded(batch_group=None, spot: Optional[SpotShard] = None,
-            rows: Optional[RowShard] = None):
+            rows: Optional[RowShard] = None, tokens: Optional[TokenShard] = None):
     """Within the block, train-mode BatchNorm reduces over ``batch_group``
     (when it spans more than one rank), grid models split f over ``spot``
-    and random draws take ``rows`` of the global batch's."""
+    and random draws take ``rows`` of the global batch's (and, along a
+    token axis, the ``tokens`` columns)."""
     global _CONTEXT
     saved = _CONTEXT
-    _CONTEXT = _Context(batch_group if group_size(batch_group) > 1 else None, spot, rows)
+    _CONTEXT = _Context(batch_group if group_size(batch_group) > 1 else None, spot, rows,
+                        tokens)
     try:
         yield
     finally:
@@ -190,12 +207,22 @@ def spot_shard() -> Optional[SpotShard]:
     return _CONTEXT.spot
 
 
-def draw_rows(draw: Callable, shape) -> torch.Tensor:
+def draw_rows(draw: Callable, shape, token_dim: Optional[int] = None) -> torch.Tensor:
     """``draw(shape)``, or, inside :func:`sharded` with ``rows`` whose
     count is ``shape[0]``, this rank's rows of ``draw`` over the global
-    batch (the same generator state gives one process's draw)."""
-    rows = _CONTEXT.rows
-    shape = tuple(shape)
-    if rows is None or not shape or shape[0] != rows.stop - rows.start:
-        return draw(shape)
-    return draw((rows.total,) + shape[1:])[rows.start:rows.stop]
+    batch (the same generator state gives one process's draw). With
+    ``token_dim`` (the dim of ``shape`` that is a token axis) and
+    ``tokens`` in the context whose count is ``shape[token_dim]``, the draw
+    covers the global token axis too and this rank takes its columns."""
+    rows, tokens = _CONTEXT.rows, _CONTEXT.tokens
+    shape = list(shape)
+    index = [slice(None)] * len(shape)
+    if rows is not None and shape and shape[0] == rows.stop - rows.start:
+        shape[0], index[0] = rows.total, slice(rows.start, rows.stop)
+    if (tokens is not None and token_dim is not None and len(shape) > token_dim
+            and shape[token_dim] == tokens.stop - tokens.start):
+        shape[token_dim] = tokens.total
+        index[token_dim] = slice(tokens.start, tokens.stop)
+    if all(i == slice(None) for i in index):
+        return draw(tuple(shape))
+    return draw(tuple(shape))[tuple(index)]

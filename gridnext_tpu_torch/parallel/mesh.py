@@ -6,11 +6,17 @@ Axes, as in the JAX package:
   all-reduce);
 * ``spot`` -- a grid's rows. f applies per spot, so the ranks of one
   ``spot`` group split a grid's rows for f and gather the features; the
-  corrector g then runs on the whole grid.
+  corrector g then runs on the whole grid;
+* ``seq`` -- the token axis of MLM batches (sequence-parallel MLM over
+  scBERT's 16,907 gene tokens): the batch shards over ``data``, the tokens
+  over ``seq`` (:func:`shard_token_batch`), and FAVOR sums its ctx and
+  ksum over the ``seq`` group between its accumulate and apply halves,
+  where JAX's SPMD partitioner inserts the psums.
 
-Spot batches (spotwise training, MLM) shard their item axis over every
-mesh axis, so a ``{'data': 4, 'spot': 2}`` mesh acts as 8-way data
-parallelism there. The ``seq`` axis (sequence-parallel MLM) is not ported.
+Spot batches (spotwise training, MLM without a ``seq`` axis) shard their
+item axis over every mesh axis, so a ``{'data': 4, 'spot': 2}`` mesh acts
+as 8-way data parallelism there. A serving mesh has no ``seq`` axis
+(:data:`SEQ_SERVING`).
 
 A training mesh (:func:`make_mesh` inside a process group) lays the ranks
 out in the mesh's axis order, each rank one device, with a sub-group a
@@ -31,8 +37,9 @@ import torch.distributed as dist
 from gridnext_tpu_torch.parallel import collectives
 from gridnext_tpu_torch.parallel.multihost import group_timeout, local_shard_indices
 
-SEQ_LATER = ("the 'seq' mesh axis (sequence-parallel MLM) is not ported yet "
-             "(ROADMAP.md Queue 1 item 9, its remainder)")
+SEQ_SERVING = ("a serving mesh has no 'seq' axis: 'seq' shards the gene tokens of "
+               "sequence-parallel MLM training (ROADMAP.md Queue 1 item 9); serving "
+               "splits spots over 'data' and 'spot'")
 
 
 class Mesh:
@@ -99,14 +106,17 @@ def make_mesh(mesh_shape: Optional[Mapping[str, int]] = None,
     """Build a mesh; the default is 1-D ``data`` over every rank (or device).
 
     Inside a process group and without ``devices``: :func:`training_mesh`
-    (so is a mesh of size 1 outside one). Otherwise a serving mesh over
-    ``devices`` (default: the visible CUDA cards), which must hold at least
-    the mesh's size.
+    (so is a mesh of size 1 outside one, and any mesh with a ``seq``
+    axis). Otherwise a serving mesh over ``devices`` (default: the visible
+    CUDA cards), which must hold at least the mesh's size and has no
+    ``seq`` axis.
     """
     if devices is None and dist.is_initialized():
         return training_mesh(mesh_shape)
     if "seq" in (mesh_shape or {}):
-        raise NotImplementedError(SEQ_LATER)
+        if devices is not None:
+            raise ValueError(SEQ_SERVING)
+        return training_mesh(mesh_shape)    # a 'seq' axis trains: one process a rank
     if devices is None:
         n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
         shape = dict(mesh_shape) if mesh_shape is not None else {"data": max(n_cuda, 1)}
@@ -129,8 +139,6 @@ def training_mesh(mesh_shape: Optional[Mapping[str, int]] = None) -> Mesh:
     the world size (default 1-D ``data``). Outside a process group, a mesh
     of size 1 is one rank on this process's card (the CPU without one);
     any other size raises with the launch line."""
-    if "seq" in (mesh_shape or {}):
-        raise NotImplementedError(SEQ_LATER)
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape = dict(mesh_shape) if mesh_shape is not None else {"data": world}
     n = _size(shape)
@@ -216,6 +224,24 @@ def spot_rows(h: int, mesh: Mesh, spot_axis: str = "spot") -> Optional[collectiv
     return collectives.SpotShard(mesh.group(spot_axis), mesh.coords[spot_axis], spot_n)
 
 
+def token_columns(n_tokens: int, mesh: Mesh, data_axis: Optional[str] = "data",
+                  token_axis: str = "seq") -> Optional[slice]:
+    """This rank's columns of an ``n_tokens`` token axis over
+    ``token_axis``, or None where the mesh has no such axis; an axis that
+    does not divide ``n_tokens`` warns (JAX's words) and shares nothing
+    (the tokens replicate over it)."""
+    if token_axis not in mesh.shape:
+        return None
+    token_n = mesh.axis_size(token_axis)
+    if n_tokens % token_n:
+        warnings.warn(
+            f"token dim {n_tokens} is not divisible by mesh axis "
+            f"'{token_axis}'={token_n}; sharding this array over "
+            f"'{data_axis}' only (tokens replicate)", stacklevel=3)
+        return None
+    return _rows(n_tokens, mesh.coords[token_axis], token_n)
+
+
 def _take_rows(tree, rows: slice):
     if isinstance(tree, dict):
         return {k: _take_rows(v, rows) for k, v in tree.items()}
@@ -251,6 +277,29 @@ def shard_grid_batch(tree, mesh: Mesh, data_axis: str = "data",
     return _take_rows(tree, rows)
 
 
+def shard_token_batch(tree, mesh: Mesh, data_axis: Optional[str] = "data",
+                      token_axis: str = "seq"):
+    """This rank's part of ``(B, N, ...)`` token batches: the batch over
+    ``data``, the tokens over ``token_axis`` -- the sequence-parallel layout
+    of scBERT's 16,907-gene axis (JAX's ``shard_token_batch``). An array
+    whose token axis ``token_axis`` does not divide warns and keeps every
+    token (sharded over ``data`` only)."""
+    def place(x):
+        if data_axis in mesh.shape:
+            x = x[grid_batch_rows(x.shape[0], mesh, data_axis)]
+        if x.ndim >= 2:
+            cols = token_columns(x.shape[1], mesh, data_axis, token_axis)
+            if cols is not None:
+                x = x[:, cols]
+        return x
+
+    if isinstance(tree, dict):
+        return {k: shard_token_batch(v, mesh, data_axis, token_axis) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(shard_token_batch(v, mesh, data_axis, token_axis) for v in tree)
+    return place(tree)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -276,6 +325,6 @@ def replicate(tree, mesh: Mesh):
     return tree
 
 
-__all__ = ["Mesh", "SEQ_LATER", "default_mesh_shape", "grid_batch_rows", "make_mesh",
-           "replicate", "shard_grid_batch", "shard_spot_batch", "spot_batch_rows",
-           "spot_rows", "training_mesh"]
+__all__ = ["Mesh", "SEQ_SERVING", "default_mesh_shape", "grid_batch_rows", "make_mesh",
+           "replicate", "shard_grid_batch", "shard_spot_batch", "shard_token_batch",
+           "spot_batch_rows", "spot_rows", "token_columns", "training_mesh"]

@@ -437,11 +437,12 @@ class _MeshStep:
         self.rows = collectives.RowShard(int(rows[0]), int(rows[-1]) + 1, batch_size)
         self.copies = copies      # ranks that hold the same rows (a spot group)
         self.spot = None          # set a grid batch at a time (mesh.spot_rows)
+        self.tokens = None        # this rank's token columns (a seq axis), a phase at a time
 
     def context(self):
         import torch.distributed as dist
 
-        return self.c.sharded(dist.group.WORLD, self.spot, self.rows)
+        return self.c.sharded(dist.group.WORLD, self.spot, self.rows, self.tokens)
 
     def reduce_count(self, n: torch.Tensor) -> torch.Tensor:
         return self.c.all_reduce_(n.clone())
@@ -543,7 +544,8 @@ def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15,
     of the clean token at the corrupted positions. The train mask is drawn
     from a generator seeded by the step, the eval mask from a fixed one
     (:func:`_mlm_mask` draws both), so validation losses compare across
-    epochs. ``mesh_step`` as in :func:`make_steps`.
+    epochs. ``mesh_step`` as in :func:`make_steps`; on a ``seq`` axis a
+    rank's mask is its rows and token columns of the global batch's.
     """
     from gridnext_tpu_torch.parallel.collectives import draw_rows
 
@@ -554,7 +556,7 @@ def make_mlm_steps(state: TrainState, *, mask_id: int, mask_prob: float = 0.15,
 
     def corrupt(generator, y):
         mask = draw_rows(lambda shape: _mlm_mask(generator, shape, mask_prob, y.device),
-                         y.shape)
+                         y.shape, token_dim=1)
         return torch.where(mask, torch.full_like(y, mask_id), y.clamp_min(0)).long(), mask
 
     def train_step(x, y):
@@ -633,7 +635,7 @@ def _pad_batch(x, y, batch_size: int, loss_kind: str):
 
 def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
                   pad_kind: Optional[str] = None, skip: int = 0,
-                  shard: Optional[Callable] = None):
+                  shard: Optional[Callable] = None, columns: Optional[slice] = None):
     """Yield (x, y, n_real) minibatches in the JAX loop's order.
 
     ``data``: an (inputs, labels) pair (``inputs`` an array or tensor, or a
@@ -645,7 +647,8 @@ def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
     ``shard``: on a mesh, :func:`_mesh_placement`'s function; only this
     rank's rows of each padded global batch are built (padding rows repeat
     the last item and carry the padding label), and ``n_real`` stays the
-    global batch's.
+    global batch's. ``columns``: this rank's token columns of the labels
+    (a ``seq`` axis).
     """
 
     def finish(x, y):
@@ -684,6 +687,8 @@ def _iter_batches(data, batch_size, rng: Optional[np.random.Generator],
         y = _cast_labels(np.array(y), pad_kind)
         if pad.any():
             y[pad] = _pad_fill(pad_kind)
+        if columns is not None:
+            y = np.ascontiguousarray(y[:, columns])
         yield x, y, n_real
 
 
@@ -865,27 +870,52 @@ def _mesh_placement(mesh, loss_kind, batch_size) -> Callable:
     shard_grid_batch`; the ``spot`` axis splits each grid's rows inside the
     grid model); spot and MLM batches shard their item axis over every mesh
     axis (``shard_spot_batch``). Padding to a fixed ``batch_size`` keeps
-    the batch axis shardable; the masked losses ignore the pad items."""
-    from gridnext_tpu_torch.parallel.mesh import SEQ_LATER, shard_grid_batch, shard_spot_batch
+    the batch axis shardable; the masked losses ignore the pad items. MLM
+    batches on a mesh with a ``seq`` axis go sequence-parallel: the rows
+    over ``data`` (here), the token columns over ``seq``
+    (:func:`_token_shard`)."""
+    from gridnext_tpu_torch.parallel.mesh import shard_grid_batch, shard_spot_batch
 
     axis_sizes = dict(mesh.shape)
-    if "seq" in axis_sizes:
-        raise NotImplementedError(SEQ_LATER)
-    div = axis_sizes.get("data", 1) if loss_kind == "grid" else mesh.size
+    seq = loss_kind == "mlm" and "seq" in axis_sizes
+    div = axis_sizes.get("data", 1) if loss_kind == "grid" or seq else mesh.size
     if batch_size % div:
         raise ValueError(
             f"batch_size {batch_size} is not divisible by the mesh's batch "
             f"sharding factor {div} (mesh axes {axis_sizes}); pick a batch "
             "size divisible by it")
+    if seq:
+        return lambda tree: shard_grid_batch(tree, mesh, spot_axis=None)
     shard = shard_grid_batch if loss_kind == "grid" else shard_spot_batch
     return lambda tree: shard(tree, mesh)
+
+
+def _token_len(data) -> int:
+    """The token count of an MLM phase's rows (labels ``(N, n)``)."""
+    return len(np.asarray(data[0][1])) if _is_dataset(data) else np.shape(data[1])[1]
+
+
+def _token_shard(mesh, n_tokens: int):
+    """(this rank's :class:`~gridnext_tpu_torch.parallel.collectives.
+    TokenShard` of ``n_tokens``, or None where the tokens replicate; the
+    ranks that hold the same rows and tokens) on a mesh with a ``seq``
+    axis."""
+    from gridnext_tpu_torch.parallel.collectives import TokenShard
+    from gridnext_tpu_torch.parallel.mesh import token_columns
+
+    cols = token_columns(n_tokens, mesh)
+    if cols is None or mesh.axis_size("seq") == 1:
+        return None, mesh.size // mesh.axis_size("data")
+    return (TokenShard(mesh.group("seq"), cols.start, cols.stop, n_tokens),
+            mesh.size // (mesh.axis_size("data") * mesh.axis_size("seq")))
 
 
 def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_size,
                   outfile, shuffle_seed, verbose, device, metrics_logger=None,
                   resume=None, augment=None, redraw_every: Optional[int] = None,
                   mlm: Optional[Mapping] = None, mesh=None):
-    from gridnext_tpu_torch.models.performer import fast_attentions, redraw_projections
+    from gridnext_tpu_torch.models.performer import (fast_attentions, redraw_projections,
+                                                     shard_sequence)
 
     # On a training mesh each rank builds its rows of every padded global
     # batch, the step sums the loss's count, the gradients and the metrics
@@ -982,6 +1012,7 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
             guard.reset()          # the trigger belongs to this run
         raise preempt.TrainingPreempted(ckpt)
 
+    seq = distributed and loss_kind == "mlm" and "seq" in mesh.shape
     try:
         for epoch in range(start_epoch, num_epochs):
             epoch_skip = start_batch if epoch == start_epoch else 0
@@ -994,10 +1025,19 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                 # metrics stay on the device; the one from _PIPELINE_DEPTH
                 # steps back is read each step (bounding the steps in flight)
                 losses, corrs, ns, bszs = [], [], [], []
+                columns = None
+                if seq:
+                    # this phase's token columns: FAVOR sums over the seq
+                    # group, and ranks that hold the same tokens count once
+                    ms.tokens, ms.copies = _token_shard(mesh, _token_len(dataloaders[phase]))
+                    shard_sequence(state.model, ms.tokens)
+                    if ms.tokens is not None:
+                        columns = slice(ms.tokens.start, ms.tokens.stop)
                 batches = _prefetch_to_device(
                     _iter_batches(dataloaders[phase], batch_size,
                                   rng if phase == "train" else None, pad_kind=loss_kind,
-                                  skip=epoch_skip if phase == "train" else 0, shard=shard),
+                                  skip=epoch_skip if phase == "train" else 0, shard=shard,
+                                  columns=columns),
                     device)
                 step_fn = train_step if phase == "train" else eval_step
                 for x, y, n_real in batches:
@@ -1060,6 +1100,8 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                     "epochs_done": epoch + 1, "redraws_done": redraws_done,
                     "best_val_loss": best_meta()})
     except BaseException:
+        if seq:
+            shard_sequence(state.model, None)
         # drain enqueued writes (the best-val file may hold what the user
         # wants back) without masking the exception in flight
         if ckpt_writer is not None:
@@ -1069,6 +1111,8 @@ def _run_training(state: TrainState, dataloaders, loss_kind, num_epochs, batch_s
                 print(f"warning: background checkpoint write failed: {e}", file=sys.stderr)
         raise
 
+    if seq:
+        shard_sequence(state.model, None)     # the returned model holds whole sequences
     if verbose:
         dt = time.time() - since
         print(f"Training complete in {dt // 60:.0f}m {dt % 60:.0f}s", flush=True)
@@ -1167,17 +1211,19 @@ def train_gridwise(model: nn.Module, dataloaders: Mapping, *, learning_rate: flo
 
 
 def mlm_token_len(n_tokens: int, mesh=None, mesh_shape=None) -> int:
-    """The token-axis length ``train_mlm`` runs: ``n_tokens``. A ``seq``
-    mesh axis (sequence-parallel MLM, for which the JAX package pads the
-    axis) raises: it is not ported (``ROADMAP.md`` Queue 1 item 9, its
-    remainder)."""
-    from gridnext_tpu_torch.parallel.mesh import SEQ_LATER
+    """The token-axis length ``train_mlm`` will actually run under a mesh.
 
+    Sequence-parallel meshes (a ``seq`` axis) need the token axis divisible
+    by the axis size; ``train_mlm`` pads indivisible array corpora with
+    ``-1`` columns (ignored by the masked loss; map-style datasets pass
+    through unpadded and replicate their tokens with a warning). Size
+    length-sensitive model fields (``PerformerLM.max_seq_len``) with this
+    so the padded batch passes the model's bounds check.
+    """
     shape = mesh.shape if mesh is not None and not isinstance(mesh, (str, dict)) else (
         mesh if isinstance(mesh, dict) else mesh_shape)
-    if isinstance(shape, dict) and "seq" in shape:
-        raise NotImplementedError(SEQ_LATER)
-    return int(n_tokens)
+    s = shape.get("seq", 1) if isinstance(shape, dict) else 1
+    return int(n_tokens) + (-int(n_tokens)) % s
 
 
 def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
@@ -1195,18 +1241,30 @@ def train_mlm(model: nn.Module, dataloaders: Mapping, *, mask_id: int,
     (:func:`make_mlm_steps`); ``redraw_every`` redraws the FAVOR+
     projections every that many steps. Resume, preemption and the best-val
     snapshot (projections included) as in :func:`train_spotwise`, and so is
-    a mesh: the rows shard over every axis (a ``seq`` axis raises).
+    a mesh: the rows shard over every axis, or, with a ``seq`` axis, over
+    ``data`` with the tokens over ``seq`` (sequence-parallel: FAVOR sums its
+    ctx and ksum over the ``seq`` group). There array corpora whose token
+    axis ``seq`` does not divide are padded with ``-1`` columns, which the
+    masked loss ignores (unsigned corpora are widened to int32 first, so
+    the pad stays negative): :func:`mlm_token_len` gives the padded length.
     Returns (state, val_history, train_history).
     """
     from gridnext_tpu_torch.serving import resolve_device
 
     device = resolve_device(device)
     mesh = _resolve_mesh(mesh, mesh_shape)
+    seq_n = mesh.axis_size("seq") if mesh is not None else 1
 
     def as_pair(tokens):
         if tokens is None or isinstance(tokens, tuple) or _is_dataset(tokens):
             return tokens
         tokens = np.asarray(tokens)
+        pad = (-tokens.shape[1]) % seq_n
+        if pad:
+            if tokens.dtype.kind == "u":
+                tokens = tokens.astype(np.int32)     # a -1 pad must stay negative
+            tokens = np.concatenate([tokens, np.full((len(tokens), pad), -1, tokens.dtype)],
+                                    axis=1)
         return np.zeros((len(tokens), 1), np.int8), tokens
 
     pairs = {k: as_pair(v) for k, v in dataloaders.items()}

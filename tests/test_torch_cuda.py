@@ -415,6 +415,60 @@ def test_favor_kernel_refuses_what_it_does_not_take(dev, d):
     assert favor.launches == before + 4
 
 
+
+@pytest.mark.parametrize("b,h,n,d,m", [(4, 10, 8454, 64, 266), (2, 3, 700, 16, 37),
+                                       (2, 3, 333, 8, 70), (2, 3, 333, 48, 70),
+                                       (2, 3, 333, 128, 70), (2, 3, 1, 64, 266)],
+                         ids=["seq-rank", "d16-m37", "d8", "d48", "d128", "n1"])
+def test_favor_halves_match_fused_and_plain(dev, b, h, n, d, m):
+    """``favor_accumulate_f32`` then ``favor_apply_f32`` without a sum: the
+    fused entry's bits at the same split plan; each half within FAVOR's
+    tolerance of its plain version (ctx and ksum against their largest
+    value: sums over N, whose elements may cancel)."""
+    q, k, v, proj = _favor_case(dev, b, h, n, d, m, seed=n + d)
+    counts = favor.launches, favor.accumulate_launches, favor.apply_launches
+    fused = favor.fused_generalized_linear_attention(q, k, v, proj)
+    ctx, ksum = favor.favor_accumulate_op(k, v, proj)
+    seam = favor.favor_apply_op(q, proj, ctx, ksum)
+    torch.cuda.synchronize()
+    assert (favor.launches, favor.accumulate_launches, favor.apply_launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    assert ctx.shape == (b, h, m, d) and ksum.shape == (b, h, m)
+    assert torch.equal(seam, fused)
+    p_ctx, p_ksum = favor.favor_accumulate_plain(k, v, proj)
+    for got, want in ((ctx, p_ctx), (ksum, p_ksum)):
+        assert float((got - want).abs().max()) <= 2e-5 + 2e-4 * float(want.abs().max())
+    torch.testing.assert_close(seam, favor.favor_apply_plain(q, proj, ctx, ksum),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_favor_halves_gradients_and_a_one_rank_seq_group(dev):
+    """The halves' backward is the plain version's VJP; over a 1-rank gloo
+    group (CUDA tensors through gloo) the seq route gives the fused bits."""
+    import socket
+
+    import torch.distributed as dist
+
+    q, k, v, proj = _favor_case(dev, 2, 3, 260, 16, 20, seed=4)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    qp = [t.clone().requires_grad_() for t in (q, k, v)]
+    ctx, ksum = favor.favor_accumulate_op(qk[1], qk[2], proj)
+    (favor.favor_apply_op(qk[0], proj, ctx, ksum) ** 2).sum().backward()
+    (favor.favor_attention_plain(*qp, proj) ** 2).sum().backward()
+    for a, b in zip(qk, qp):
+        torch.testing.assert_close(a.grad, b.grad, rtol=2e-4, atol=2e-5)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        got = favor.fused_generalized_linear_attention(q, k, v, proj,
+                                                       seq_group=dist.group.WORLD)
+        assert torch.equal(got, favor.fused_generalized_linear_attention(q, k, v, proj))
+    finally:
+        dist.destroy_process_group()
+
 # -- exported artifacts: the kernels inside torch.export programs --------------------
 
 

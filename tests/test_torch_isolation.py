@@ -10,8 +10,10 @@ training commands that need no image (``pretrain-scbert``, ``train-graph``)
 run end to end with ``--device cpu`` in a process that imports none of
 them, and without a card their default ``cuda`` raises; so do the cohort
 workflows (HVG, the scaler, PCA, CV) and ``config``, and ``train-count``
-over a 1-rank gloo process group (``--coordinator``, ``--mesh``). Also
-here: the port's own geometry equals the JAX package's.
+over a 1-rank gloo process group (``--coordinator``, ``--mesh``), and
+``--profile-dir``, the reference-checkpoint converters and the small
+public leftovers. Also here: the port's own geometry equals the JAX
+package's.
 """
 
 import ast
@@ -180,3 +182,40 @@ def test_workflows_and_mesh_training_run_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "[mesh {'data': 1}]" in res.stdout and "saved model to m" in res.stdout
+
+
+def test_profile_dir_converters_and_leftovers_run_without_jax(tmp_path):
+    """``--profile-dir`` around a command, a reference ``.pth`` through
+    ``compat.torch_convert``, ``hex_neighbor_table`` and
+    ``positions_to_coord_strings`` in one process that fails if any
+    forbidden module is imported."""
+    code = ("import glob, sys\n"
+            "import torch\n"
+            "from gridnext_tpu_torch import cli, geometry\n"
+            "from gridnext_tpu_torch.compat import count_mlp_from_torch, load_torch_checkpoint\n"
+            "from gridnext_tpu_torch.io import positions_to_coord_strings, read_positions\n"
+            "from gridnext_tpu_torch.models import CountMLP\n"
+            "cli.main(['--profile-dir', 'tr', 'simulate', '--out', 'sim', '--arrays', '1',\n"
+            "          '--genes', '10'])\n"
+            "assert len(glob.glob('tr/*.json')) == 1\n"
+            "seq = torch.nn.Sequential(torch.nn.Linear(10, 500), torch.nn.Linear(500, 100),\n"
+            "    torch.nn.BatchNorm1d(100), torch.nn.ReLU(), torch.nn.Linear(100, 100),\n"
+            "    torch.nn.Linear(100, 50), torch.nn.BatchNorm1d(50), torch.nn.ReLU(),\n"
+            "    torch.nn.Linear(50, 3)).eval()\n"
+            "torch.save(seq.state_dict(), 'mlp.pth')\n"
+            "f = load_torch_checkpoint(CountMLP(10, 3), 'mlp.pth', count_mlp_from_torch).eval()\n"
+            "x = torch.randn(4, 10)\n"
+            "with torch.no_grad():\n"
+            "    torch.testing.assert_close(f(x), seq(x), rtol=1e-5, atol=1e-5)\n"
+            "nb, ok = geometry.hex_neighbor_table()\n"
+            "assert nb.shape == (78, 64, 6) and ok.sum() > 0\n"
+            "pos = read_positions('sim/a0')\n"
+            "assert len(positions_to_coord_strings(pos, pos.barcodes[:5])) == 5\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('PIL',)!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "profiler trace written to tr" in res.stdout

@@ -27,7 +27,8 @@ batch:
 
 Also: the mesh factorization, the balanced shard split, the divisibility
 errors and the odd-H warning word for word, the contiguous-ranks check,
-the ``seq`` refusals, the commands' mesh and multihost refusals, and
+the ``seq`` axis's token length and its serving refusal, the commands'
+mesh and multihost refusals, and
 ``SlideRegistrar(mesh=...)`` over 2 CPU shards against the unsharded
 registrar and JAX's registrar on its 8-device CPU mesh.
 """
@@ -179,12 +180,19 @@ def test_contiguous_ranks_check():
 
 
 def test_seq_axis_and_process_count_refusals():
-    for fn in (lambda: tl.mlm_token_len(10, mesh_shape={"data": 1, "seq": 2}),
-               lambda: tl.mlm_token_len(10, {"seq": 2}),
-               lambda: make_mesh({"data": 1, "seq": 2}),
+    # a 'seq' axis trains (one process a rank; tests/test_torch_seq.py runs
+    # it): the token length pads as JAX's, a mesh needs its ranks, and only
+    # a serving mesh refuses the axis
+    for shape in ({"data": 1, "seq": 2}, {"seq": 3}):
+        assert tl.mlm_token_len(10, mesh_shape=shape) == \
+            jax_loops.mlm_token_len(10, mesh_shape=shape)
+    assert tl.mlm_token_len(10, {"seq": 2}) == 10 and tl.mlm_token_len(11, {"seq": 2}) == 12
+    for fn in (lambda: make_mesh({"data": 1, "seq": 2}),
                lambda: tl._resolve_mesh(None, {"seq": 2})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9, its remainder"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 -m gridnext_tpu_torch"):
             fn()
+    with pytest.raises(ValueError, match="a serving mesh has no 'seq' axis"):
+        make_mesh({"data": 1, "seq": 2}, devices=["cpu"] * 2)
     assert tl.mlm_token_len(10, mesh_shape={"data": 2}) == 10
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 -m gridnext_tpu_torch"):
         tl._resolve_mesh(None, {"data": 2})
@@ -223,8 +231,8 @@ def test_cli_mesh_and_multihost_refusals(tmp_path, capsys, monkeypatch):
             exit_message(jax_cli._parse_mesh, argparse.Namespace(mesh=spec))
     assert cli._parse_mesh(argparse.Namespace(mesh="Data=4,spot=2")) == \
         jax_cli._parse_mesh(argparse.Namespace(mesh="Data=4,spot=2"))
-    assert exit_message(cli._parse_mesh, argparse.Namespace(mesh="data=1,seq=2")) == \
-        cli._LATER_MESH
+    assert cli._parse_mesh(argparse.Namespace(mesh="data=1,seq=2")) == \
+        jax_cli._parse_mesh(argparse.Namespace(mesh="data=1,seq=2")) == {"data": 1, "seq": 2}
     base = ["train-count", "--spaceranger", "s", "--annots", "a", "--out",
             str(tmp_path / "o"), "--device", "cpu"]
     assert "needs 2 processes" in exit_message(

@@ -19,9 +19,9 @@ grid, up to near-ties of JAX's logits:
 - ``train-mm --count-f mlp --f tpu``, and ``--count-f scbert`` (a tiny
   scBERT) on a cohort named with gene2vec symbols;
 - ``train-image --dense-ingest`` on a square Visium HD lattice;
-- a ``seq`` mesh axis exits naming the Queue 1 item that ports it
-  (``train-mm`` and ``pretrain-scbert``; the other axes run, as
-  ``test_torch_parallel.py`` holds).
+- ``train-mm`` and ``pretrain-scbert`` on 2 gloo ranks of a ``data=1,
+  seq=2`` mesh against one process (``pretrain-scbert`` sequence-parallel;
+  the other axes: ``test_torch_parallel.py``).
 """
 
 import json
@@ -240,15 +240,111 @@ def test_train_image_dense_ingest_square(tmp_path):
     _registers_alike(tmp_path / "m", cohort["dirs"][0], tmp_path, cohort["images"][0])
 
 
+def _two_ranks(argv, cwd, one: bool, timeout=240):
+    """``python -m gridnext_tpu_torch --coordinator ... <argv>`` as 2 gloo
+    ranks (one torch thread each) and, with ``one``, the same command in one
+    process, all at once: their stdouts."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]),
+               OMP_NUM_THREADS="1")
+    run = [sys.executable, "-m", "gridnext_tpu_torch"]
+    procs = [subprocess.Popen(cmd, cwd=str(cwd), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in ([*run, "--coordinator", f"{coord},2,0", *argv, "--out", "two",
+                          "--mesh", "data=1,seq=2"],
+                         [*run, "--coordinator", f"{coord},2,1", *argv, "--out", "two_r1",
+                          "--mesh", "data=1,seq=2"],
+                         [*run, *argv, "--out", "one"])[:3 if one else 2]]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
+def _loss_lines(log):
+    return [(line.split()[0], float(line.split()[2])) for line in log.splitlines()
+            if line.startswith(("train Loss", "val Loss"))]
+
+
+@pytest.fixture(scope="module")
+def small_cohort(tmp_path_factory):
+    """Two arrays of few spots named with gene2vec symbols."""
+    from gridnext_tpu.models.scbert import load_gene2vec_names
+
+    root = tmp_path_factory.mktemp("small")
+    names = list(load_gene2vec_names()[:20])
+    sims = [simulate_spaceranger_dir(root / f"s{i}", seed=i, n_genes=20, n_classes=3,
+                                     image=True, spot_spacing_px=20, tissue_fraction=0.1,
+                                     gene_names=names) for i in range(2)]
+    dirs = [s["spaceranger_dir"] for s in sims]
+    prepare_count_files(dirs, ".unified.tsv.gz", 0.0)
+    return {"dirs": dirs, "annots": [s["annot_file"] for s in sims],
+            "images": [s["image_file"] for s in sims], "root": root}
+
+
 @pytest.mark.parametrize("cmd,item", [("train-mm", "item 9"), ("pretrain-scbert", "item 9")])
-def test_unported_training_flags_exit(cohort, tmp_path, cmd, item):
-    """A ``seq`` mesh axis (sequence-parallel MLM) exits naming its Queue 1
-    item (``--scbert-ckpt`` is ported: ``test_torch_pretrain.py``; the
-    ``data`` and ``spot`` axes: ``test_torch_parallel.py``)."""
-    with pytest.raises(SystemExit, match=item):
-        if cmd == "train-mm":
-            _train(cmd, cohort, tmp_path / "m", "--count-f", "scbert", "--mesh",
-                   "data=1,seq=2")
-        else:
-            cli.main([cmd, "--spaceranger", *cohort["dirs"], "--out", str(tmp_path / "m"),
-                      "--device", "cpu", "--mesh", "data=1,seq=2"])
+def test_unported_training_flags_exit(small_cohort, tmp_path, cmd, item):
+    """A ``seq`` mesh axis (Queue 1 ``item``, sequence-parallel MLM) runs:
+    the command on 2 gloo ranks ``--mesh data=1,seq=2`` against one
+    process. ``pretrain-scbert`` shards its 60 tokens over ``seq`` (FAVOR
+    sums over the group): its losses within 1e-3 and the LM's weights within
+    Adam's sign-step bound (2 lr a step, ROADMAP Queue 3 item 5) of one
+    process's. ``train-mm`` shards its spot batches over every axis and its
+    grid batches over ``data`` (the ``seq`` ranks hold copies), as JAX's
+    does: its model directory registers as JAX's ``register`` does. Only
+    rank 0 writes (``--scbert-ckpt`` and the ``data`` and ``spot`` axes:
+    ``test_torch_pretrain.py``, ``test_torch_parallel.py``)."""
+    c = small_cohort
+    if cmd == "train-mm":
+        argv = [cmd, "--spaceranger", *c["dirs"], "--annots", *c["annots"], "--images",
+                *c["images"], "--device", "cpu", "--epochs", "1", "--f", "tpu",
+                "--patch-px", "32", "--batch-size", "32", "--patch-chunk", "2048"]
+    else:
+        argv = [cmd, "--spaceranger", *c["dirs"], "--device", "cpu", "--epochs", "1",
+                "--batch-size", "8", "--scbert-vocab", "59", "--scbert-dim", "16",
+                "--scbert-depth", "1", "--scbert-heads", "2", "--scbert-dim-head", "8",
+                "--scbert-features", "8", "--redraw-every", "0"]
+    two, rank1, *one = _two_ranks(argv, tmp_path, one=cmd != "train-mm")
+    assert "[mesh {'data': 1, 'seq': 2}]" in two and "Loss" not in rank1
+    assert not (tmp_path / "two_r1").exists() or not any((tmp_path / "two_r1").iterdir())
+    if cmd == "train-mm":
+        for name in ("f_count_state", "f_image_state", "g_state"):
+            assert (tmp_path / "two" / f"{name}.msgpack").exists()
+        _registers_alike(tmp_path / "two", c["dirs"][0], tmp_path, c["images"][0])
+        return
+    one = one[0]
+    assert sorted(p.name for p in (tmp_path / "two").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "one").iterdir())
+    got, want = _loss_lines(two), _loss_lines(one)
+    assert [p for p, _ in got] == [p for p, _ in want] == ["train", "val"]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want], rtol=0, atol=1e-3)
+    steps = -(-int(two.split("MLM corpus: ")[1].split()[0]) // 8)
+    a = load_checkpoint(tmp_path / "two" / "scbert_lm.msgpack")
+    b = load_checkpoint(tmp_path / "one" / "scbert_lm.msgpack")
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", np.asarray(v)
+
+    la, lb = dict(leaves(a["params"])), dict(leaves(b["params"]))
+    assert sorted(la) == sorted(lb)
+    for k, v in lb.items():
+        np.testing.assert_allclose(la[k], v, rtol=0, atol=2 * 1e-4 * steps, err_msg=k)
