@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. setup: the card's name and power limit, versions, and an ``nvcc`` build
-   of every kernel in ``gridnext_tpu_torch/csrc/`` (all started together);
+   of every kernel in ``gridnext_tpu_torch/csrc/`` (all started together,
+   beside the ``g++`` build of the host JPEG codec);
    the FAVOR library's SASS must hold tensor-core (HMMA) instructions and
    the dense-block library's warpgroup (HGMMA) ones; ptxas's register and
    spill report of the dense-layer kernel is logged;
@@ -368,13 +369,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``read_torch_checkpoint`` and ``densenet_from_torch`` and registered on
     slide 0: labels equal to the ``from_jax`` route's, the gather and the
     labels corrector launched;
-21. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+21. the JPEG patch caches without PIL: (a) the port's codec
+    (``io/jpeg.py``, host C++ built with g++) against the committed Pillow
+    fixtures (``tools/make_jpeg_fixtures.py``: decoded bit-equal on 1 and
+    all threads, encoded byte-equal), and slide 0 at full width encoded at
+    quality 95 and decoded on 1 thread and on all, equal pixels, its PSNR
+    above ``JPEG_PSNR_FLOOR``; (b) ``prepare --images`` of slide 0's array
+    at 128 px and with ``--window-px 160`` on the card, the gather's count
+    set to 0 just before each and required to be 1, each cache byte-equal
+    to the same writer with CPU tensors (the gather's plain version,
+    Pillow's resample on the host), read back through
+    ``PatchGridDataset`` and ``PatchSpotDataset`` (the spots' patches equal
+    the grid's cells, the cells the tissue), the decode, crop, resample
+    and encode seconds printed; (c) ``register`` of phase 10's model
+    directory on the JPEG slide (``decode_slide`` through the codec), its
+    labels those of the registrar on the decoded array up to near-ties,
+    the gather's and the labels corrector's counts set to 0 just before
+    and read just after; then ``train-image --f tpu --epochs 1`` through
+    the factory's cache route (``PatchSpotDataset``, ``PatchGridDataset``),
+    its losses finite, and ``register`` of the directory it writes;
+22. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
     ``launches_artifact``, phase 18's, and ``launches_mesh``, phase 19's;
     the gather and labels-corrector rows ``launches_profile_register`` and
-    ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s; the rows of
+    ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s, and
+    ``launches_jpeg_register``, phase 21 (c)'s; the gather's row
+    ``launches_prepare_images``, phase 21 (b)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
     phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
     true, "device": {...}}``.
@@ -5504,6 +5526,297 @@ def phase_torch_checkpoint(torch, slides, positions, port, variables, meta, card
     return {"launches": launches}
 
 
+JPEG_SLIDE_QUALITY = 95       # the slide's JPEG: simulate --image's quality
+# (a)'s floor, set before the first run on the card: quality 95 with 4:2:0
+# chroma on half-amplitude uniform noise gave 18.6 dB on a 2,000 x 2,000
+# numpy draw of the same distribution (the port's codec, on the CPU)
+JPEG_PSNR_FLOOR = 18.0
+JPEG_GENES = 20               # (b)'s MEX: prepare writes a count cache beside the patches
+
+
+def jpeg_fixtures() -> dict:
+    """The committed Pillow fixtures (``tools/make_jpeg_fixtures.py``'s
+    ``load``, which needs no PIL)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "make_jpeg_fixtures.py")
+    spec = importlib.util.spec_from_file_location("make_jpeg_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load()
+
+
+def psnr_db(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def same_files(a: str, b: str) -> int:
+    """Number of files of directory ``a``; raises unless ``b`` holds the
+    same names with the same bytes."""
+    import filecmp
+
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        raise AssertionError(f"{a} and {b} hold different file names")
+    _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    if mismatch or errors:
+        raise AssertionError(f"{len(mismatch)} files of {a} differ from {b}'s: {mismatch[:3]}")
+    return len(names)
+
+
+def phase_jpeg(torch, slides, port, card, tmp, image) -> dict:
+    """Phase 21: the port's JPEG codec, ``prepare --images`` and the patch
+    caches on the card, without PIL. (a) the codec against the committed
+    Pillow fixtures, and slide 0 at full width encoded at quality 95 and
+    decoded on 1 thread and on all; (b) ``prepare --images`` of slide 0's
+    array at 128 px and with ``--window-px 160``, one gather launch each,
+    the caches byte-equal to the same writer with CPU tensors and read back
+    through ``PatchGridDataset`` and ``PatchSpotDataset``; (c) ``register``
+    of phase 10's model directory on the JPEG slide (``decode_slide``
+    through the codec), then ``train-image --f tpu --epochs 1`` through the
+    factory's cache route and ``register`` of the directory it writes.
+    Returns the launches of (b)'s and (c)'s paths and the phase's seconds."""
+    from gridnext_tpu_torch import cli, ingest, pipeline
+    from gridnext_tpu_torch import data as port_data
+    from gridnext_tpu_torch.io import jpeg
+    from gridnext_tpu_torch.observability import StageTimer
+    from gridnext_tpu_torch.train import loops as tl
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 21: the JPEG codec, prepare --images and the patch caches (no PIL)")
+    dev = slides.device
+    t_phase = time.perf_counter()
+    threads = os.cpu_count()
+
+    # (a) the codec: Pillow's recorded output, then a full-width slide
+    t0 = time.perf_counter()
+    jpeg.encode_jpeg(np.zeros((8, 8, 3), np.uint8))
+    build_s = time.perf_counter() - t0
+    fixtures = jpeg_fixtures()
+    n_enc = 0
+    for name, f in fixtures.items():
+        for n_threads in (1, 0):
+            if not np.array_equal(jpeg.decode_jpeg(f["jpeg"], n_threads=n_threads),
+                                  f["decoded"]):
+                raise AssertionError(f"(a) fixture {name} decodes to other pixels than Pillow's")
+        if f["subsampling"] == "4:2:0" and not f["restart_blocks"]:
+            if jpeg.encode_jpeg(f["pixels"], quality=f["quality"]) != f["jpeg"]:
+                raise AssertionError(f"(a) fixture {name} encodes to other bytes than Pillow's")
+            n_enc += 1
+    wsi = slides[0].cpu().numpy()
+    h, w = wsi.shape[:2]
+    t0 = time.perf_counter()
+    data = jpeg.encode_jpeg(wsi, quality=JPEG_SLIDE_QUALITY)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = jpeg.decode_jpeg(data, n_threads=1)
+    dec1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded_n = jpeg.decode_jpeg(data)
+    decn_s = time.perf_counter() - t0
+    if not np.array_equal(decoded, decoded_n):
+        raise AssertionError(f"(a) slide 0 decodes differently on 1 and {threads} threads")
+    psnr = psnr_db(decoded, wsi)
+    mp = h * w / 1e6
+    log(f"(a) codec loaded in {build_s:.2f} s; {len(fixtures)} Pillow fixtures "
+        f"decoded bit-equal (1 and {threads} threads), {n_enc} encoded byte-equal; slide 0 "
+        f"({h} x {w} x 3, {wsi.nbytes / 1e9:.2f} GB) at quality {JPEG_SLIDE_QUALITY}: "
+        f"{len(data) / 1e6:.1f} MB, encode {enc_s:.3f} s ({mp / enc_s:.1f} MP/s, {threads} "
+        f"threads), decode {dec1_s:.3f} s on 1 thread ({mp / dec1_s:.1f} MP/s) and "
+        f"{decn_s:.3f} s on {threads} ({mp / decn_s:.1f} MP/s), equal pixels; PSNR "
+        f"{psnr:.3f} dB (floor {JPEG_PSNR_FLOOR}) [{card}]")
+    if psnr < JPEG_PSNR_FLOOR:
+        raise AssertionError(f"(a) slide 0's PSNR {psnr:.3f} dB is under {JPEG_PSNR_FLOOR}")
+    del wsi, decoded_n
+    root = os.path.join(tmp, "jpeg")
+    srd, mask = write_spaceranger_dir(root, geometry, TISSUE_FRACTIONS[0], 0)
+    jpg = os.path.join(root, "slide0.jpg")
+    with open(jpg, "wb") as fh:
+        fh.write(data)
+    del data
+    pos = io.read_positions(srd)
+    keep = pos["in_tissue"] == 1
+    rng = np.random.default_rng(SEED + 21)
+    write_mex(os.path.join(srd, "outs", "filtered_feature_bc_matrix"),
+              [f"ENSG{i:011d}" for i in range(JPEG_GENES)], [f"G{i}" for i in range(JPEG_GENES)],
+              [b for b, k in zip(pos.barcodes, keep) if k],
+              rng.integers(0, 4, (JPEG_GENES, int(keep.sum()))))
+
+    # (b) prepare --images on the card, its stages timed, against CPU tensors
+    timer = StageTimer()
+    save = pipeline.save_visium_patches
+    runs, caches = {}, {}
+    pipeline.save_visium_patches = functools.partial(save, timer=timer)
+    try:
+        for window in (None, WINDOW):
+            flags = ["--patch-px", str(PATCH)] + (["--window-px", str(window)] if window else [])
+            timer.totals.clear()
+            torch.cuda.synchronize()
+            gather.launches = 0
+            t0 = time.perf_counter()
+            cli.main(["prepare", "--spaceranger", srd, "--images", jpg, *flags, "--device",
+                      str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = gather.launches
+            if launches != 1:
+                raise AssertionError(f"(b) prepare --images {flags}: {launches} gather launches")
+            stages = {k: round(v, 4) for k, v in timer.totals.items()}
+            cache = os.path.join(srd, "slide0" + pipeline.patch_cache_suffix(
+                patch_size_px=PATCH, window_size_px=window))
+            # the same writer with CPU tensors (the gather's plain version,
+            # Pillow's resample on the host), decode swapped for (a)'s pixels
+            decode = ingest.decode_slide
+            ingest.decode_slide = lambda f: decoded
+            try:
+                t0 = time.perf_counter()
+                save(jpg, srd, cache + "_cpu", patch_size=PATCH, window_size=window,
+                     device="cpu")
+                cpu_s = time.perf_counter() - t0
+            finally:
+                ingest.decode_slide = decode
+            n_files = same_files(cache, cache + "_cpu")
+            key = f"window {window or PATCH}"
+            runs[key] = {"files": n_files, "launches": launches, "wall_s": round(wall, 3),
+                         "stages_s": stages, "cpu_route_s": round(cpu_s, 3)}
+            caches[key] = cache
+            log(f"(b) prepare --images {' '.join(flags)}: {n_files} files byte-equal to the "
+                f"CPU route's, 1 gather launch; {wall:.3f} s with the count cache, stages "
+                f"{json.dumps(stages)}; CPU route {cpu_s:.3f} s [{card}]")
+    finally:
+        pipeline.save_visium_patches = save
+    n_spots = int(mask.sum())
+    if runs[f"window {PATCH}"]["files"] != n_spots:
+        raise AssertionError(f"(b) {runs[f'window {PATCH}']['files']} files for {n_spots} spots")
+    rt = StageTimer()
+    grids = port_data.create_visium_dataset([srd], use_count=False, patch_size_px=PATCH,
+                                            device=dev, timer=rt)
+    spots = port_data.create_visium_dataset([srd], use_count=False, spatial=False,
+                                            patch_size_px=PATCH, device=dev, timer=rt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, _ = grids[0]
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid_decode_s = rt.totals["decode"]
+    t0 = time.perf_counter()
+    x, _ = spots.materialize()
+    torch.cuda.synchronize()
+    spot_s = time.perf_counter() - t0
+    cells = torch.as_tensor(np.stack(geometry.pseudo_hex_to_oddr(
+        *np.array([k.split("_") for k in spots.keys], np.int64).T)), device=dev)
+    if len(spots) != n_spots or not torch.equal(grid[cells[1], cells[0]], x):
+        raise AssertionError("(b) PatchSpotDataset's patches differ from PatchGridDataset's")
+    fg = (grid.flatten(2).amax(-1) > 0).cpu().numpy()
+    if not np.array_equal(fg, mask > 0):
+        raise AssertionError("(b) the cache's cells differ from the tissue mask")
+    lossless = pipeline.patch_grid(torch.from_numpy(decoded).to(dev), pos, PATCH)
+    cache_psnr = psnr_db(grid[fg].cpu().numpy() * 255, lossless[fg].cpu().numpy() * 255)
+    del grid, x, lossless
+    log(f"(b) read back: PatchGridDataset {grid_s:.3f} s an array (decode {grid_decode_s:.3f} "
+        f"s, {n_spots / grid_decode_s:.0f} patches/s), PatchSpotDataset.materialize "
+        f"{spot_s:.3f} s, its patches equal the grid's cells; the cache's PSNR against the "
+        f"lossless crops {cache_psnr:.2f} dB (quality 75) [{card}]")
+
+    # (c) register on the JPEG slide, then train through the cache route
+    out = os.path.join(root, "slide0_jpeg.csv")         # one slide: --out is the CSV
+    torch.cuda.synchronize()
+    gather.launches = 0
+    for k in corr.launches:
+        corr.launches[k] = 0
+    t0 = time.perf_counter()
+    cli.main(["register", "--model", image["model_dir"], "--images", jpg, "--spaceranger", srd,
+              "--out", out, "--device", str(dev)])
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    reg_launches = {"gather_patches": gather.launches,
+                    "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+    if min(reg_launches.values()) <= 0:
+        raise AssertionError(f"(c) register launched {reg_launches}")
+    reg = image["registrar"]
+    slide = torch.from_numpy(decoded).to(dev)
+    want = reg(slide, pos)
+    logits, _ = reg.register_logits(slide, pos)
+    del slide
+    got, n_rows = loupe_grid(out, mask.shape, image["classes"])
+    flips = serving.label_parity_report(want, got, logits)
+    if n_rows != n_spots:
+        raise AssertionError(f"(c) register wrote {n_rows} rows for {n_spots} spots")
+    log(f"(c) register on the JPEG slide: {reg_s:.2f} s with the decode; labels those of the "
+        f"registrar on the decoded array up to {flips} near-tie flips; launches "
+        f"{json.dumps(reg_launches)} [{card}]")
+    rows, cols, _, _ = lattice(geometry)
+    cx, cy = geometry.oddr_to_cartesian(cols, rows)
+    sector = ((np.arctan2(cy - cy.mean(), cx - cx.mean()) + np.pi)
+              / (2 * np.pi) * N_CLASSES).astype(np.int64) % N_CLASSES
+    annots = os.path.join(root, "slide0_annotations.csv")
+    with open(annots, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["Barcode", "AARs"])
+        writer.writerows([b, f"Class_{sector[j] + 1}"]
+                         for j, (b, k) in enumerate(zip(pos.barcodes, keep)) if k)
+    losses, routes = [], []
+    make_steps, factory = tl.make_steps, port_data.create_visium_dataset
+
+    def steps(state, loss_kind, augment=None):
+        train_step, eval_step = make_steps(state, loss_kind, augment=augment)
+
+        def train(xb, yb):
+            m = train_step(xb, yb)
+            losses.append((loss_kind, float(m["loss"])))
+            return m
+
+        return train, eval_step
+
+    def cache_route(*a, **kw):
+        kw["fullres_image_files"] = None
+        ds = factory(*a, **kw)
+        routes.append(type(ds).__name__)
+        return ds
+
+    model_out = os.path.join(root, "model_cache_route")
+    tl.make_steps, port_data.create_visium_dataset = steps, cache_route
+    try:
+        t0 = time.perf_counter()
+        cli.main(["train-image", "--spaceranger", srd, "--annots", annots, "--images", jpg,
+                  "--out", model_out, "--f", "tpu", "--patch-px", str(PATCH), "--epochs", "1",
+                  "--device", str(dev)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        tl.make_steps, port_data.create_visium_dataset = make_steps, factory
+    kinds = sorted({k for k, _ in losses})
+    if routes != ["PatchSpotDataset", "PatchGridDataset"] or len(kinds) != 2 or not all(
+            np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"(c) train-image through the cache route: datasets {routes}, "
+                             f"losses {losses[:4]}...")
+    # the trained directory on the same pixels, decode swapped for (a)'s
+    # (the first register above read the JPEG through the codec)
+    out2 = os.path.join(root, "slide0_trained.csv")
+    decode = ingest.decode_slide
+    ingest.decode_slide = lambda f: decoded
+    try:
+        cli.main(["register", "--model", model_out, "--images", jpg, "--spaceranger", srd,
+                  "--out", out2, "--device", str(dev)])
+    finally:
+        ingest.decode_slide = decode
+    _, n_rows2 = loupe_grid(out2, mask.shape,
+                            sorted(f"Class_{c + 1}" for c in range(N_CLASSES)))
+    if n_rows2 != n_spots:
+        raise AssertionError(f"(c) the trained directory registered {n_rows2} of {n_spots}")
+    per_kind = {k: sum(1 for kk, _ in losses if kk == k) for k in kinds}
+    seconds = time.perf_counter() - t_phase
+    log(f"(c) train-image --f tpu --epochs 1 through the cache route ({' then '.join(routes)}): "
+        f"{train_s:.2f} s, train steps {json.dumps(per_kind)}, losses finite (first "
+        f"{losses[0][1]:.4f}, last {losses[-1][1]:.4f}); its directory registered all "
+        f"{n_spots} spots")
+    log(f"phase 21: {seconds:.1f} s; (b) {json.dumps(runs)} [{card}]")
+    return {"launches": {"prepare_images": sum(r["launches"] for r in runs.values()),
+                         "register": reg_launches}, "s": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -5524,7 +5837,14 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    built = _cuda.build()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gridnext_tpu_torch.ops import _host
+
+    with ThreadPoolExecutor(1) as pool:       # the host codec's g++ beside the nvcc builds
+        codec = pool.submit(lambda: (_host.build("jpeg_codec"), time.perf_counter() - t0))
+        built = _cuda.build()
+        log(f"built jpeg_codec.cpp (g++, host) in {codec.result()[1]:.1f} s")
     for name, info in built.items():
         log(f"built {name}.cu in {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -5587,6 +5907,7 @@ def main() -> int:
                                served))
         mesh_c = phase_mesh_register(torch, slides, port, card, image_dir, dirs_masks, batch4)
         profile_reg = phase_profile_register(torch, port, card, tmp, image_dir, dirs_masks)
+        jpeg_res = phase_jpeg(torch, slides, port, card, tmp, image_dir)
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
@@ -5682,6 +6003,10 @@ def main() -> int:
         if k["name"] in ("gather_patches", "fused_hex_corrector_labels"):
             k["launches_profile_register"] = profile_reg["launches"][k["name"]]
             k["launches_torch_checkpoint"] = torch_ckpt["launches"][k["name"]]
+            # phase 21 (c)'s path: register on the JPEG slide
+            k["launches_jpeg_register"] = jpeg_res["launches"]["register"][k["name"]]
+    # phase 21 (b)'s path: prepare --images, one launch an array
+    by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

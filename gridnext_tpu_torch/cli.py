@@ -1,11 +1,16 @@
 """Command line of the port: ``python -m gridnext_tpu_torch <command> ...``.
 
-Data (``simulate``, ``prepare``): the JAX package's commands on the host.
+Data (``simulate``, ``prepare``): the JAX package's commands.
 ``simulate`` writes Spaceranger-shaped fixtures (positions, MEX counts,
-Loupe annotations, optionally a fullres JPEG with PIL); ``prepare`` writes
-each directory's unified count cache over the cohort's union gene axis
-(``--images``, the JPEG patch caches, is not ported: the port crops
-patches from the slides on the card).
+Loupe annotations, optionally a fullres JPEG by the port's own encoder);
+``prepare`` writes each directory's unified count cache over the cohort's
+union gene axis on the host, and with ``--images`` each array's JPEG patch
+cache (``<dir>/<name>_patches{px}px[_w{px}]``, byte-equal to the JAX
+command's): the crop by the gather kernel on ``--device`` (default the
+card), Pillow's resample where ``--window-px`` differs from ``--patch-px``,
+the encoding on the host. The training commands read such caches through
+the dataset factory's cache route but crop from ``--images`` on the card
+themselves.
 
 Training (``train-count``, ``train-image``, ``train-mm``,
 ``train-graph``, ``pretrain-scbert``): the JAX package's commands with its
@@ -162,6 +167,32 @@ def _cmd_prepare(args):
                                   hd_binning=args.hd_binning)
     for w in written:
         print(f"wrote {w}")
+    if args.images:
+        from gridnext_tpu_torch.io.unify import array_name
+        from gridnext_tpu_torch.pipeline import patch_cache_suffix, save_visium_patches
+        from gridnext_tpu_torch.serving import resolve_device
+
+        # validate before the extraction: a cache train-image would refuse
+        # (patch < 32, window < patch) must not be built
+        _check_image_args(args)
+        device = resolve_device(args.device)
+        h_st = w_st = None
+        if args.hd_binning is not None:
+            # the cohort's lattice, as the factory's grid_dims='auto' names
+            # its caches
+            from gridnext_tpu_torch.io.spaceranger import cohort_hd_lattice_dims
+
+            h_st, w_st = cohort_hd_lattice_dims(args.spaceranger, args.hd_binning)
+        suffix = patch_cache_suffix(patch_size_px=args.patch_px, window_size_px=args.window_px,
+                                    hd_binning=args.hd_binning,
+                                    hd_dims=(h_st, w_st) if args.hd_binning is not None
+                                    else None)
+        for srd, im in zip(args.spaceranger, args.images):
+            pdir = os.path.join(srd, array_name(srd) + suffix)
+            save_visium_patches(im, srd, pdir, patch_size=args.patch_px,
+                                window_size=args.window_px, hd_binning=args.hd_binning,
+                                h_st=h_st, w_st=w_st, device=device)
+            print(f"wrote {pdir}")
 
 
 def _require_one_image_per_dir(images, spaceranger_dirs):
@@ -1826,12 +1857,21 @@ def build_parser():
                    help="binning name for --hd-grid output layout")
     s.set_defaults(fn=_cmd_simulate)
 
-    s = sub.add_parser("prepare", help="generate the unified count caches")
+    s = sub.add_parser("prepare", help="generate unified counts / patch caches")
     s.add_argument("--spaceranger", nargs="+", required=True)
+    s.add_argument("--images", nargs="*", default=None)
+    s.add_argument("--patch-px", type=int, default=128)
+    s.add_argument("--window-px", type=int, default=None,
+                   help="crop window side; resized down to --patch-px "
+                        "(cache dirs get a _w{px} suffix)")
     s.add_argument("--min-detection", type=float, default=None,
                    help="gene detection-rate filter (default 0.02)")
     s.add_argument("--hd-binning", default=None,
                    help="Visium HD binned output to read (e.g. square_008um)")
+    s.add_argument("--device", default="cuda",
+                   help="where --images crops the patches: 'cuda' (default; fails "
+                        "without a card) or 'cpu' (the gather's plain version); the "
+                        "count caches and the JPEG encoding run on the host")
     s.set_defaults(fn=_cmd_prepare)
 
     s = sub.add_parser("register", help="write Loupe CSVs from a trained model")

@@ -1,0 +1,1390 @@
+// Baseline JPEG codec on the host, self-contained (no libjpeg, no PIL).
+//
+// It reproduces libjpeg-turbo's default integer path as Pillow drives it, bit
+// for bit: what ``Image.save(..., "JPEG", quality=q)`` writes and what
+// ``np.asarray(Image.open(path))`` decodes.
+//
+// Encoder: RGB -> YCbCr in 16-bit fixed point, 2x2 chroma downsampling
+// (Pillow's default 4:2:0) with libjpeg's alternating rounding bias, edge replication to
+// whole blocks and DC-only dummy blocks to whole MCUs, the ``islow`` forward
+// DCT, quantisation by libjpeg-turbo's reciprocal multiply, the IJG quality
+// scaling of the Annex K tables, the Annex K Huffman tables (Pillow's
+// default ``optimize=False``) and a JFIF APP0 header.
+//
+// Decoder: SOF0 and SOF1 (8-bit Huffman sequential), 1 or 3 components,
+// chroma subsampled 1x1, 2x1 or 2x2, interleaved or one scan a component,
+// DRI and restart markers, the ``islow`` inverse DCT with libjpeg's range
+// limit, fancy (triangle) upsampling and fixed-point YCbCr -> RGB. Anything
+// else (progressive, arithmetic, lossless, 12-bit, CMYK, other sampling)
+// is refused with a message.
+//
+// Plain C interface for ctypes; every entry returns 0 on success or writes a
+// message into ``err``. Threads: a slide decodes its entropy data on one
+// thread and runs the inverse DCT and colour conversion on ``n_threads``
+// (its pixels do not depend on the count); batches run one image a thread.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <thread>
+#include <vector>
+
+namespace {
+
+struct JpegError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw JpegError(msg); }
+
+// Zigzag position -> natural (row-major) position; 16 extra entries keep a
+// corrupt run inside the block, as libjpeg's table does.
+const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// ITU-T T.81 Annex K tables, natural order
+const int kLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const int kChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// ---------------------------------------------------------------- DCTs --
+// jfdctint.c / jidctint.c: 13-bit constants, 2 extra bits between passes.
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+                  FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
+                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137,
+                  FIX_1_961570560 = 16069, FIX_2_053119869 = 16819,
+                  FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+
+// libjpeg computes these products in 64-bit ``long``
+using jl = int64_t;
+
+inline jl descale(jl x, int n) { return (x + (jl(1) << (n - 1))) >> n; }
+
+// In place on an 8x8 block of (sample - 128); outputs scaled up by 8.
+void fdct_islow(jl* d) {
+  for (int r = 0; r < 8; ++r) {
+    jl* p = d + 8 * r;
+    jl tmp0 = p[0] + p[7], tmp7 = p[0] - p[7];
+    jl tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    jl tmp2 = p[2] + p[5], tmp5 = p[2] - p[5];
+    jl tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (tmp10 + tmp11) * (1 << kPass1Bits);
+    p[4] = (tmp10 - tmp11) * (1 << kPass1Bits);
+    jl z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[2] = descale(z1 + tmp13 * FIX_0_765366865, kConstBits - kPass1Bits);
+    p[6] = descale(z1 + tmp12 * -FIX_1_847759065, kConstBits - kPass1Bits);
+    z1 = tmp4 + tmp7;
+    jl z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    jl z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[7] = descale(tmp4 + z1 + z3, kConstBits - kPass1Bits);
+    p[5] = descale(tmp5 + z2 + z4, kConstBits - kPass1Bits);
+    p[3] = descale(tmp6 + z2 + z3, kConstBits - kPass1Bits);
+    p[1] = descale(tmp7 + z1 + z4, kConstBits - kPass1Bits);
+  }
+  for (int c = 0; c < 8; ++c) {
+    jl* p = d + c;
+    jl tmp0 = p[0] + p[56], tmp7 = p[0] - p[56];
+    jl tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    jl tmp2 = p[16] + p[40], tmp5 = p[16] - p[40];
+    jl tmp3 = p[24] + p[32], tmp4 = p[24] - p[32];
+    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = descale(tmp10 + tmp11, kPass1Bits);
+    p[32] = descale(tmp10 - tmp11, kPass1Bits);
+    jl z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[16] = descale(z1 + tmp13 * FIX_0_765366865, kConstBits + kPass1Bits);
+    p[48] = descale(z1 + tmp12 * -FIX_1_847759065, kConstBits + kPass1Bits);
+    z1 = tmp4 + tmp7;
+    jl z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    jl z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[56] = descale(tmp4 + z1 + z3, kConstBits + kPass1Bits);
+    p[40] = descale(tmp5 + z2 + z4, kConstBits + kPass1Bits);
+    p[24] = descale(tmp6 + z2 + z3, kConstBits + kPass1Bits);
+    p[8] = descale(tmp7 + z1 + z4, kConstBits + kPass1Bits);
+  }
+}
+
+// libjpeg's post-IDCT range limit: index (x & 1023), x centred on 0.
+struct RangeLimit {
+  uint8_t t[1024];
+  RangeLimit() {
+    for (int i = 0; i < 1024; ++i) {
+      int x = i < 512 ? i : i - 1024;
+      t[i] = static_cast<uint8_t>(std::min(255, std::max(0, x + 128)));
+    }
+  }
+};
+const RangeLimit kRange;
+
+// Dequantise and inverse-transform one block into 8 rows of ``out``.
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int64_t stride) {
+  jl ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    jl* wp = ws + c;
+    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 &&
+        ip[48] == 0 && ip[56] == 0) {
+      jl dc = jl(ip[0] * qp[0]) * (1 << kPass1Bits);
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    jl z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+    jl z1 = (z2 + z3) * FIX_0_541196100;
+    jl tmp2 = z1 + z3 * -FIX_1_847759065;
+    jl tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = ip[0] * qp[0];
+    z3 = ip[32] * qp[32];
+    jl tmp0 = (z2 + z3) * (1 << kConstBits);
+    jl tmp1 = (z2 - z3) * (1 << kConstBits);
+    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = ip[56] * qp[56];
+    tmp1 = ip[40] * qp[40];
+    tmp2 = ip[24] * qp[24];
+    tmp3 = ip[8] * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    jl z4 = tmp1 + tmp3;
+    jl z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int n = kConstBits - kPass1Bits;
+    wp[0] = descale(tmp10 + tmp3, n);
+    wp[56] = descale(tmp10 - tmp3, n);
+    wp[8] = descale(tmp11 + tmp2, n);
+    wp[48] = descale(tmp11 - tmp2, n);
+    wp[16] = descale(tmp12 + tmp1, n);
+    wp[40] = descale(tmp12 - tmp1, n);
+    wp[24] = descale(tmp13 + tmp0, n);
+    wp[32] = descale(tmp13 - tmp0, n);
+  }
+  const int n = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    const jl* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    jl z2 = wp[2], z3 = wp[6];
+    jl z1 = (z2 + z3) * FIX_0_541196100;
+    jl tmp2 = z1 + z3 * -FIX_1_847759065;
+    jl tmp3 = z1 + z2 * FIX_0_765366865;
+    jl tmp0 = (wp[0] + wp[4]) * (1 << kConstBits);
+    jl tmp1 = (wp[0] - wp[4]) * (1 << kConstBits);
+    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    jl z4 = tmp1 + tmp3;
+    jl z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    op[0] = kRange.t[static_cast<int>(descale(tmp10 + tmp3, n)) & 1023];
+    op[7] = kRange.t[static_cast<int>(descale(tmp10 - tmp3, n)) & 1023];
+    op[1] = kRange.t[static_cast<int>(descale(tmp11 + tmp2, n)) & 1023];
+    op[6] = kRange.t[static_cast<int>(descale(tmp11 - tmp2, n)) & 1023];
+    op[2] = kRange.t[static_cast<int>(descale(tmp12 + tmp1, n)) & 1023];
+    op[5] = kRange.t[static_cast<int>(descale(tmp12 - tmp1, n)) & 1023];
+    op[3] = kRange.t[static_cast<int>(descale(tmp13 + tmp0, n)) & 1023];
+    op[4] = kRange.t[static_cast<int>(descale(tmp13 - tmp0, n)) & 1023];
+  }
+}
+
+// ------------------------------------------------------ colour tables --
+constexpr int kScaleBits = 16;
+constexpr int32_t kOneHalf = 1 << (kScaleBits - 1);
+constexpr int32_t fix(double x) { return static_cast<int32_t>(x * (1 << kScaleBits) + 0.5); }
+
+struct ColorTables {
+  // encoder (jccolor.c)
+  int32_t ry[256], gy[256], by[256], rcb[256], gcb[256], bcb[256], gcr[256], bcr[256];
+  // decoder (jdcolor.c)
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  ColorTables() {
+    const int32_t cbcr_offset = 128 << kScaleBits;
+    for (int i = 0; i < 256; ++i) {
+      ry[i] = fix(0.29900) * i;
+      gy[i] = fix(0.58700) * i;
+      by[i] = fix(0.11400) * i + kOneHalf;
+      rcb[i] = -fix(0.16874) * i;
+      gcb[i] = -fix(0.33126) * i;
+      bcb[i] = fix(0.50000) * i + cbcr_offset + kOneHalf - 1;  // also R's Cr term
+      gcr[i] = -fix(0.41869) * i;
+      bcr[i] = -fix(0.08131) * i;
+      int x = i - 128;
+      cr_r[i] = (fix(1.40200) * x + kOneHalf) >> kScaleBits;
+      cb_b[i] = (fix(1.77200) * x + kOneHalf) >> kScaleBits;
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + kOneHalf;
+    }
+  }
+};
+const ColorTables kColor;
+
+inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// Run fn(i) for i in [0, n) on up to n_threads threads (0: all cores). A
+// failure stops the hand-out of further i; the one of the lowest i is
+// rethrown (indices go out in order, so no lower one was left untried).
+template <class F>
+void parallel_for(int64_t n, int n_threads, F fn) {
+  if (n_threads <= 0) {
+    n_threads = static_cast<int>(std::thread::hardware_concurrency());
+    if (n_threads <= 0) n_threads = 1;
+  }
+  if (static_cast<int64_t>(n_threads) > n) n_threads = static_cast<int>(n);
+  if (n_threads <= 1) {
+    for (int64_t i = 0; i < n; ++i) fn(i);
+    return;
+  }
+  std::atomic<int64_t> next(0);
+  std::atomic<bool> failed(false);
+  std::vector<std::thread> ts;
+  std::vector<std::pair<int64_t, std::string>> errors(n_threads, {n, ""});
+  ts.reserve(n_threads);
+  for (int t = 0; t < n_threads; ++t) {
+    ts.emplace_back([&, t]() {
+      for (;;) {
+        if (failed.load(std::memory_order_relaxed)) return;
+        const int64_t i = next.fetch_add(1);
+        if (i >= n) return;
+        try {
+          fn(i);
+        } catch (const std::exception& e) {
+          errors[t] = {i, e.what()};
+          failed.store(true);
+          return;
+        }
+      }
+    });
+  }
+  for (auto& th : ts) th.join();
+  const auto first = std::min_element(errors.begin(), errors.end());
+  if (first->first < n) fail(first->second);
+}
+
+// ------------------------------------------------------------ decoder --
+
+constexpr int kLookBits = 10;  // Huffman lookahead (codes up to 10 bits in one probe)
+
+struct HuffDecoder {
+  bool defined = false;
+  uint8_t look_len[1 << kLookBits];  // code length of the lookahead (0: longer code)
+  uint8_t look_val[1 << kLookBits];
+  // AC tables: code and magnitude bits together within the lookahead, as
+  // value * 65536 + run * 256 + bits used (0: take the general path)
+  int32_t fast_ac[1 << kLookBits];
+  int32_t maxcode[18];    // largest code of each length, -1 if none
+  int32_t valoffset[18];  // symbol index = code + valoffset[length]
+  uint8_t vals[256];
+
+  void build(const uint8_t* bits, const uint8_t* symbols, int n_symbols, bool ac) {
+    std::memset(look_len, 0, sizeof(look_len));
+    std::memset(fast_ac, 0, sizeof(fast_ac));
+    std::memcpy(vals, symbols, n_symbols);
+    int32_t code = 0;
+    int k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      valoffset[len] = k - code;
+      for (int i = 0; i < bits[len - 1]; ++i, ++k, ++code) {
+        if (code >= (1 << len)) fail("bad Huffman table");
+        if (len > kLookBits) continue;
+        const int shift = kLookBits - len;
+        const int rs = symbols[k], run = rs >> 4, size = rs & 15;
+        for (int j = 0; j < (1 << shift); ++j) {
+          const int idx = (code << shift) | j;
+          look_len[idx] = static_cast<uint8_t>(len);
+          look_val[idx] = static_cast<uint8_t>(rs);
+          if (ac && size && len + size <= kLookBits) {
+            const uint32_t extra = static_cast<uint32_t>(j >> (shift - size)) & ((1u << size) - 1);
+            const int v = extra < (1u << (size - 1)) ? static_cast<int>(extra) - (1 << size) + 1
+                                                     : static_cast<int>(extra);
+            fast_ac[idx] = v * 65536 + run * 256 + len + size;
+          }
+        }
+      }
+      maxcode[len] = bits[len - 1] ? code - 1 : -1;
+      code <<= 1;
+    }
+    maxcode[17] = 0x7fffffff;  // sentinel: ends the slow search
+    defined = true;
+  }
+};
+
+struct BitReader {
+  const uint8_t* data;
+  int64_t size;
+  int64_t pos;          // next byte of entropy data (at a marker: its 0xFF)
+  uint64_t buf = 0;     // ``bits`` unread bits in the low end
+  int bits = 0;
+  int64_t fake = 0;     // zero bytes fed after the segment ended
+  bool at_marker = false;
+
+  void fill() {
+    while (bits <= 56) {
+      // 8 bytes at a time while none of them is 0xFF (no stuffing, no marker)
+      if (!at_marker && pos + 8 <= size) {
+        uint64_t x;
+        std::memcpy(&x, data + pos, 8);
+        x = __builtin_bswap64(x);
+        const uint64_t nx = ~x;
+        if (!((nx - 0x0101010101010101ull) & ~nx & 0x8080808080808080ull)) {
+          const int n = (64 - bits) >> 3;
+          buf = n == 8 ? x : (buf << (8 * n)) | (x >> (64 - 8 * n));
+          bits += 8 * n;
+          pos += n;
+          continue;
+        }
+      }
+      uint32_t byte = 0;
+      if (at_marker) {
+        ++fake;
+      } else if (pos >= size) {
+        at_marker = true;
+        ++fake;
+      } else {
+        byte = data[pos];
+        if (byte == 0xFF) {
+          uint8_t next = pos + 1 < size ? data[pos + 1] : 0xD9;
+          if (next == 0x00) {
+            pos += 2;
+          } else {       // a marker (or fill bytes before one) ends the segment
+            at_marker = true;
+            ++fake;
+            byte = 0;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      buf = (buf << 8) | byte;
+      bits += 8;
+    }
+  }
+  // at least 32 unread bits: a code and its magnitude bits need no more
+  inline void need32() {
+    if (bits < 32) fill();
+  }
+  inline uint32_t show(int n) const {
+    return static_cast<uint32_t>(buf >> (bits - n)) & ((1u << n) - 1);
+  }
+  // One Huffman symbol; at least 16 bits unread.
+  inline int decode(const HuffDecoder& h) {
+    const uint32_t look = show(16);
+    int len = h.look_len[look >> (16 - kLookBits)];
+    if (len) {
+      bits -= len;
+      return h.look_val[look >> (16 - kLookBits)];
+    }
+    len = kLookBits + 1;
+    int32_t code = static_cast<int32_t>(look >> (16 - len));
+    while (code > h.maxcode[len]) {
+      ++len;
+      code = static_cast<int32_t>(look >> (16 - len));
+    }
+    if (len > 16) fail("corrupt JPEG data: bad Huffman code");
+    bits -= len;
+    return h.vals[(code + h.valoffset[len]) & 0xFF];
+  }
+  // s magnitude bits as the coefficient they code; at least s bits unread
+  inline int value(int s) {
+    if (s == 0) return 0;
+    const uint32_t v = show(s);
+    bits -= s;
+    return v < (1u << (s - 1)) ? static_cast<int>(v) - (1 << s) + 1 : static_cast<int>(v);
+  }
+  // Raise if the data consumed ran past the segment's end.
+  void check() const {
+    if (static_cast<int64_t>(bits) < 8 * fake)
+      fail("corrupt JPEG data: premature end of entropy-coded segment");
+  }
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dw = 0, dh = 0;             // samples of the component (downsampled)
+  int wib = 0, hib = 0;           // blocks holding them
+  int bw = 0, bh = 0;             // blocks allocated (MCU-padded)
+  uint16_t qt[64];                // latched quantisation table, natural order
+  bool qt_latched = false;
+  std::vector<int16_t> coef;      // bh * bw blocks of 64, natural order
+  std::vector<uint8_t> plane;     // bh*8 rows of bw*8 samples
+};
+
+const char* sof_name(int m) {
+  switch (m) {
+    case 0xC2: return "progressive DCT (SOF2)";
+    case 0xC3: return "lossless (SOF3)";
+    case 0xC5: return "differential sequential (SOF5)";
+    case 0xC6: return "differential progressive (SOF6)";
+    case 0xC7: return "differential lossless (SOF7)";
+    case 0xC9: return "arithmetic-coded sequential (SOF9)";
+    case 0xCA: return "arithmetic-coded progressive (SOF10)";
+    case 0xCB: return "arithmetic-coded lossless (SOF11)";
+    case 0xCD: return "arithmetic-coded differential sequential (SOF13)";
+    case 0xCE: return "arithmetic-coded differential progressive (SOF14)";
+    case 0xCF: return "arithmetic-coded differential lossless (SOF15)";
+    default: return nullptr;
+  }
+}
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* data, int64_t size) : d_(data), n_(size) {}
+
+  // Header only: up to the frame header.
+  void probe() { parse(false); }
+
+  // Full decode into ``out`` (height * width * out_components bytes).
+  void decode(uint8_t* out, int n_threads) {
+    parse(true);
+    for (auto& c : comps_)
+      if (c.coef.empty()) fail("no scan holds component " + std::to_string(c.id));
+    // inverse DCT, a block row of a component per task
+    std::vector<std::pair<int, int>> rows;
+    for (int ci = 0; ci < static_cast<int>(comps_.size()); ++ci) {
+      comps_[ci].plane.assign(static_cast<size_t>(comps_[ci].hib) * 8 * comps_[ci].bw * 8, 0);
+      for (int r = 0; r < comps_[ci].hib; ++r) rows.emplace_back(ci, r);
+    }
+    parallel_for(static_cast<int64_t>(rows.size()), n_threads, [&](int64_t i) {
+      Component& c = comps_[rows[i].first];
+      int r = rows[i].second;
+      int64_t stride = static_cast<int64_t>(c.bw) * 8;
+      for (int b = 0; b < c.wib; ++b)
+        idct_islow(&c.coef[(static_cast<size_t>(r) * c.bw + b) * 64], c.qt,
+                   &c.plane[static_cast<size_t>(r) * 8 * stride + b * 8], stride);
+    });
+    for (auto& c : comps_) std::vector<int16_t>().swap(c.coef);
+    // upsampling and colour conversion, 16 output rows per task
+    const int64_t bands = (height_ + 15) / 16;
+    parallel_for(bands, n_threads, [&](int64_t band) {
+      std::vector<uint8_t> up(comps_.size() * (static_cast<size_t>(width_) + 2));
+      std::vector<int> colsum(width_ + 2);
+      for (int y = static_cast<int>(band * 16); y < std::min<int64_t>(height_, band * 16 + 16);
+           ++y) {
+        for (size_t ci = 0; ci < comps_.size(); ++ci)
+          upsample_row(comps_[ci], y, &up[ci * (width_ + 2)], colsum.data());
+        uint8_t* o = out + static_cast<int64_t>(y) * width_ * out_components();
+        if (comps_.size() == 1) {
+          std::memcpy(o, up.data(), width_);
+        } else if (!rgb_) {
+          const uint8_t* yy = up.data();
+          const uint8_t* cb = yy + width_ + 2;
+          const uint8_t* cr = cb + width_ + 2;
+          for (int x = 0; x < width_; ++x) {
+            int l = yy[x];
+            o[3 * x] = clamp255(l + kColor.cr_r[cr[x]]);
+            o[3 * x + 1] = clamp255(l + ((kColor.cb_g[cb[x]] + kColor.cr_g[cr[x]]) >> kScaleBits));
+            o[3 * x + 2] = clamp255(l + kColor.cb_b[cb[x]]);
+          }
+        } else {
+          for (int x = 0; x < width_; ++x)
+            for (int c = 0; c < 3; ++c) o[3 * x + c] = up[c * (width_ + 2) + x];
+        }
+      }
+    });
+  }
+
+  int width() const { return width_; }
+  int height() const { return height_; }
+  int components() const { return static_cast<int>(comps_.size()); }
+  int out_components() const { return comps_.size() == 1 ? 1 : 3; }
+  int sof() const { return sof_; }
+
+ private:
+  const uint8_t* d_;
+  int64_t n_;
+  int64_t pos_ = 0;
+  int width_ = 0, height_ = 0, sof_ = -1;
+  int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int restart_interval_ = 0;
+  bool saw_jfif_ = false, saw_adobe_ = false, rgb_ = false;
+  int adobe_transform_ = 0;
+  uint16_t qt_[4][64];
+  bool qt_defined_[4] = {false, false, false, false};
+  HuffDecoder dc_[4], ac_[4];
+  std::vector<Component> comps_;
+
+  uint8_t byte() {
+    if (pos_ >= n_) fail("truncated JPEG: ends inside a marker segment");
+    return d_[pos_++];
+  }
+  int word() {
+    int hi = byte();
+    return (hi << 8) | byte();
+  }
+
+  void parse(bool decode_scans) {
+    if (n_ < 4 || d_[0] != 0xFF || d_[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
+    pos_ = 2;
+    for (;;) {
+      // next marker: skip anything up to 0xFF, then fill bytes
+      while (pos_ < n_ && d_[pos_] != 0xFF) ++pos_;
+      while (pos_ < n_ && d_[pos_] == 0xFF) ++pos_;
+      if (pos_ >= n_) {
+        if (decode_scans || sof_ < 0) fail("truncated JPEG: no EOI marker");
+        return;
+      }
+      int m = d_[pos_++];
+      if (m == 0xD9) {
+        if (sof_ < 0) fail("JPEG has no frame header");
+        return;
+      }
+      if (m == 0xC0 || m == 0xC1) {
+        read_sof(m);
+        if (!decode_scans) return;
+        continue;
+      }
+      if (const char* name = sof_name(m))
+        fail(std::string("unsupported JPEG: ") + name + "; only baseline and extended "
+             "sequential Huffman (SOF0, SOF1) are decoded");
+      if (m == 0xC8 || m == 0xCC) fail("unsupported JPEG: arithmetic coding (DAC/JPG marker)");
+      if (m >= 0xD0 && m <= 0xD7) continue;  // a stray RSTn: nothing to skip
+      if (m == 0x01) continue;               // TEM
+      int64_t len = word();
+      if (len < 2 || pos_ + len - 2 > n_) fail("truncated JPEG: bad marker length");
+      int64_t end = pos_ + len - 2;
+      switch (m) {
+        case 0xC4: read_dht(end); break;
+        case 0xDB: read_dqt(end); break;
+        case 0xDD:
+          if (len != 4) fail("bad DRI marker");
+          restart_interval_ = word();
+          break;
+        case 0xDA:
+          if (sof_ < 0) fail("JPEG scan before its frame header");
+          if (!decode_scans) return;
+          read_scan(end);
+          continue;  // pos_ is past the scan's data
+        case 0xDC: fail("unsupported JPEG: DNL marker");
+        case 0xE0:
+          if (len >= 7 && std::memcmp(d_ + pos_, "JFIF\0", 5) == 0) saw_jfif_ = true;
+          break;
+        case 0xEE:
+          if (len >= 14 && std::memcmp(d_ + pos_, "Adobe", 5) == 0) {
+            saw_adobe_ = true;
+            adobe_transform_ = d_[pos_ + 11];
+          }
+          break;
+        default: break;  // APPn, COM and the like
+      }
+      pos_ = end;
+    }
+  }
+
+  void read_sof(int m) {
+    if (sof_ >= 0) fail("JPEG has two frame headers");
+    int len = word();
+    int precision = byte();
+    if (precision != 8)
+      fail("unsupported JPEG: " + std::to_string(precision) + "-bit samples (only 8-bit)");
+    height_ = word();
+    width_ = word();
+    int nc = byte();
+    if (height_ == 0) fail("unsupported JPEG: height defined by a DNL marker");
+    if (width_ == 0) fail("bad JPEG: width 0");
+    if (nc == 4) fail("unsupported JPEG: 4 components (CMYK/YCCK)");
+    if (nc != 1 && nc != 3)
+      fail("unsupported JPEG: " + std::to_string(nc) + " components (only 1 or 3)");
+    if (len != 8 + 3 * nc) fail("bad JPEG frame header length");
+    comps_.resize(nc);
+    for (auto& c : comps_) {
+      c.id = byte();
+      int hv = byte();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = byte();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail("bad JPEG frame header");
+      hmax_ = std::max(hmax_, c.h);
+      vmax_ = std::max(vmax_, c.v);
+    }
+    if (nc == 1) {
+      comps_[0].h = comps_[0].v = 1;  // one component: its MCU is one block
+      hmax_ = vmax_ = 1;
+    } else {
+      for (auto& c : comps_) {
+        int hr = hmax_ / c.h, vr = vmax_ / c.v;
+        bool ok = hmax_ % c.h == 0 && vmax_ % c.v == 0 &&
+                  ((hr == 1 && vr == 1) || (hr == 2 && vr == 1) || (hr == 2 && vr == 2));
+        if (!ok)
+          fail("unsupported JPEG: sampling factors " + std::to_string(c.h) + "x" +
+               std::to_string(c.v) + " of " + std::to_string(hmax_) + "x" +
+               std::to_string(vmax_) + " (only 1x1, 2x1 and 2x2 chroma)");
+      }
+    }
+    sof_ = m - 0xC0;
+    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
+    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    for (auto& c : comps_) {
+      c.dw = static_cast<int>((static_cast<int64_t>(width_) * c.h + hmax_ - 1) / hmax_);
+      c.dh = static_cast<int>((static_cast<int64_t>(height_) * c.v + vmax_ - 1) / vmax_);
+      c.wib = (c.dw + 7) / 8;
+      c.hib = (c.dh + 7) / 8;
+      c.bw = mcux_ * c.h;
+      c.bh = mcuy_ * c.v;
+    }
+    if (nc == 3) {
+      if (saw_jfif_) {
+        rgb_ = false;
+      } else if (saw_adobe_) {
+        rgb_ = adobe_transform_ == 0;
+      } else {
+        rgb_ = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+      }
+    }
+  }
+
+  void read_dqt(int64_t end) {
+    while (pos_ < end) {
+      int pq = byte();
+      int tq = pq & 15, prec = pq >> 4;
+      if (tq > 3 || prec > 1) fail("bad DQT marker");
+      for (int i = 0; i < 64; ++i)
+        qt_[tq][kNatural[i]] = static_cast<uint16_t>(prec ? word() : byte());
+      qt_defined_[tq] = true;
+    }
+    if (pos_ != end) fail("bad DQT marker length");
+  }
+
+  void read_dht(int64_t end) {
+    while (pos_ < end) {
+      int tc = byte();
+      int th = tc & 15, cls = tc >> 4;
+      if (th > 3 || cls > 1) fail("bad DHT marker");
+      uint8_t bits[16], vals[256];
+      int count = 0;
+      for (int i = 0; i < 16; ++i) count += bits[i] = byte();
+      if (count > 256) fail("bad DHT marker: more than 256 codes");
+      for (int i = 0; i < count; ++i) vals[i] = byte();
+      (cls ? ac_ : dc_)[th].build(bits, vals, count, cls == 1);
+    }
+    if (pos_ != end) fail("bad DHT marker length");
+  }
+
+  void read_scan(int64_t header_end) {
+    int ns = byte();
+    if (ns < 1 || ns > 4 || ns > static_cast<int>(comps_.size())) fail("bad SOS marker");
+    std::vector<int> in_scan(ns), td(ns), ta(ns);
+    for (int i = 0; i < ns; ++i) {
+      int id = byte(), t = byte();
+      int ci = -1;
+      for (size_t k = 0; k < comps_.size(); ++k)
+        if (comps_[k].id == id) ci = static_cast<int>(k);
+      if (ci < 0) fail("SOS names an unknown component");
+      in_scan[i] = ci;
+      td[i] = t >> 4;
+      ta[i] = t & 15;
+      if (td[i] > 3 || ta[i] > 3 || !dc_[td[i]].defined || !ac_[ta[i]].defined)
+        fail("SOS uses an undefined Huffman table");
+    }
+    int ss = byte(), se = byte(), ahal = byte();
+    if (ss != 0 || se != 63 || ahal != 0) fail("bad SOS parameters for a sequential JPEG");
+    if (pos_ != header_end) fail("bad SOS marker length");
+    for (int ci : in_scan) {
+      Component& c = comps_[ci];
+      if (!c.coef.empty()) fail("component in two scans of a sequential JPEG");
+      if (!qt_defined_[c.tq]) fail("component uses an undefined quantisation table");
+      std::memcpy(c.qt, qt_[c.tq], sizeof(c.qt));
+      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+    }
+    // MCU layout: interleaved scans use the frame's MCUs, a single
+    // component's scan one block per MCU over its own blocks
+    int mx = mcux_, my = mcuy_;
+    if (ns == 1) {
+      mx = comps_[in_scan[0]].wib;
+      my = comps_[in_scan[0]].hib;
+    }
+    BitReader br{d_, n_, pos_};
+    int last_dc[4] = {0, 0, 0, 0};
+    int64_t total = static_cast<int64_t>(mx) * my;
+    int next_rst = 0;
+    for (int64_t mcu = 0; mcu < total; ++mcu) {
+      if (restart_interval_ && mcu > 0 && mcu % restart_interval_ == 0) {
+        br.check();
+        // skip to the marker, which must be the next RSTn
+        int64_t p = br.pos;
+        while (p < n_ && !(d_[p] == 0xFF && p + 1 < n_ && d_[p + 1] != 0x00 && d_[p + 1] != 0xFF))
+          ++p;
+        if (p + 1 >= n_ || d_[p + 1] != 0xD0 + next_rst)
+          fail("corrupt JPEG data: missing restart marker RST" + std::to_string(next_rst));
+        next_rst = (next_rst + 1) & 7;
+        br = BitReader{d_, n_, p + 2};
+        std::memset(last_dc, 0, sizeof(last_dc));
+      }
+      int mcu_x = static_cast<int>(mcu % mx), mcu_y = static_cast<int>(mcu / mx);
+      for (int i = 0; i < ns; ++i) {
+        Component& c = comps_[in_scan[i]];
+        const HuffDecoder& dc = dc_[td[i]];
+        const HuffDecoder& ac = ac_[ta[i]];
+        int bh = ns == 1 ? 1 : c.v, bwm = ns == 1 ? 1 : c.h;
+        for (int by = 0; by < bh; ++by) {
+          for (int bx = 0; bx < bwm; ++bx) {
+            int row = ns == 1 ? mcu_y : mcu_y * c.v + by;
+            int col = ns == 1 ? mcu_x : mcu_x * c.h + bx;
+            int16_t* blk = &c.coef[(static_cast<size_t>(row) * c.bw + col) * 64];
+            br.need32();
+            int s = br.decode(dc);
+            if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
+            last_dc[i] += br.value(s);
+            blk[0] = static_cast<int16_t>(last_dc[i]);
+            for (int k = 1; k < 64; ++k) {
+              br.need32();
+              const int32_t fast = ac.fast_ac[br.show(kLookBits)];
+              if (fast) {
+                k += (fast >> 8) & 0xFF;
+                br.bits -= fast & 0xFF;
+                if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+                blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
+                continue;
+              }
+              const int rs = br.decode(ac);
+              const int r = rs >> 4;
+              s = rs & 15;
+              if (s) {
+                k += r;
+                if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+                blk[kNatural[k]] = static_cast<int16_t>(br.value(s));
+              } else {
+                if (r != 15) break;
+                k += 15;
+              }
+            }
+          }
+        }
+      }
+    }
+    br.check();
+    pos_ = br.pos;
+  }
+
+  // Row y of component c at full resolution, as libjpeg's upsamplers produce
+  // it: fancy (triangle) 2x1 and 2x2 where the component is wider than 2
+  // samples, replication otherwise. ``out`` holds width_ + 2 samples (a
+  // fancy row fills 2 * dw <= width_ + 1 of them).
+  void upsample_row(const Component& c, int y, uint8_t* out, int* colsum) const {
+    const int64_t stride = static_cast<int64_t>(c.bw) * 8;
+    const int hr = hmax_ / c.h, vr = vmax_ / c.v;
+    if (hr == 1 && vr == 1) {
+      std::memcpy(out, &c.plane[y * stride], width_);
+      return;
+    }
+    const int dw = c.dw;
+    if (hr == 2 && vr == 1) {
+      const uint8_t* in = &c.plane[y * stride];
+      if (dw <= 2) {
+        for (int x = 0; x < width_; ++x) out[x] = in[x >> 1];
+        return;
+      }
+      out[0] = in[0];
+      out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
+      for (int i = 1; i < dw - 1; ++i) {
+        int v = in[i] * 3;
+        out[2 * i] = static_cast<uint8_t>((v + in[i - 1] + 1) >> 2);
+        out[2 * i + 1] = static_cast<uint8_t>((v + in[i + 1] + 2) >> 2);
+      }
+      out[2 * dw - 2] = static_cast<uint8_t>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      out[2 * dw - 1] = in[dw - 1];
+      return;
+    }
+    // 2x2
+    const int inrow = y >> 1;
+    if (dw <= 2) {
+      const uint8_t* in = &c.plane[inrow * stride];
+      for (int x = 0; x < width_; ++x) out[x] = in[x >> 1];
+      return;
+    }
+    int other = (y & 1) ? std::min(inrow + 1, c.dh - 1) : std::max(inrow - 1, 0);
+    const uint8_t* in0 = &c.plane[inrow * stride];
+    const uint8_t* in1 = &c.plane[other * stride];
+    for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
+    out[0] = static_cast<uint8_t>((colsum[0] * 4 + 8) >> 4);
+    out[1] = static_cast<uint8_t>((colsum[0] * 3 + colsum[1] + 7) >> 4);
+    for (int i = 1; i < dw - 1; ++i) {
+      out[2 * i] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i - 1] + 8) >> 4);
+      out[2 * i + 1] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i + 1] + 7) >> 4);
+    }
+    out[2 * dw - 2] = static_cast<uint8_t>((colsum[dw - 1] * 3 + colsum[dw - 2] + 8) >> 4);
+    out[2 * dw - 1] = static_cast<uint8_t>((colsum[dw - 1] * 4 + 7) >> 4);
+  }
+};
+
+// ------------------------------------------------------------ encoder --
+
+struct HuffEncoder {
+  uint16_t code[256];
+  uint8_t size[256];
+  HuffEncoder(const uint8_t* bits, const uint8_t* vals) {
+    std::memset(size, 0, sizeof(size));
+    uint32_t c = 0;
+    int k = 0;
+    for (int len = 1; len <= 16; ++len, c <<= 1)
+      for (int i = 0; i < bits[len - 1]; ++i, ++k, ++c) {
+        code[vals[k]] = static_cast<uint16_t>(c);
+        size[vals[k]] = static_cast<uint8_t>(len);
+      }
+  }
+};
+
+const HuffEncoder kDcLuma(kDcLumaBits, kDcVals), kAcLuma(kAcLumaBits, kAcLumaVals);
+const HuffEncoder kDcChroma(kDcChromaBits, kDcVals), kAcChroma(kAcChromaBits, kAcChromaVals);
+
+class BitWriter {
+ public:
+  explicit BitWriter(std::vector<uint8_t>& out) : out_(out), pos_(out.size()) {
+    out_.resize(pos_ + 65536);
+  }
+  inline void put(uint32_t code, int size) {
+    acc_ = (acc_ << size) | (code & ((1u << size) - 1));
+    n_ += size;
+    if (n_ >= 32) {
+      n_ -= 32;
+      emit32(static_cast<uint32_t>(acc_ >> n_));
+    }
+  }
+  // pad the last byte with 1 bits; the output ends at the last byte written
+  void flush() {
+    while (n_ >= 8) {
+      n_ -= 8;
+      emit(static_cast<uint8_t>(acc_ >> n_));
+    }
+    if (n_ > 0) emit(static_cast<uint8_t>((acc_ << (8 - n_)) | (0xFF >> n_)));
+    n_ = 0;
+    out_.resize(pos_);
+  }
+
+ private:
+  std::vector<uint8_t>& out_;
+  size_t pos_;
+  uint64_t acc_ = 0;
+  int n_ = 0;
+  inline void emit(uint8_t b) {
+    if (pos_ + 2 > out_.size()) out_.resize(out_.size() * 2);
+    out_[pos_++] = b;
+    if (b == 0xFF) out_[pos_++] = 0;
+  }
+  // four bytes, each 0xFF followed by a stuffed 0x00
+  inline void emit32(uint32_t w) {
+    if (pos_ + 8 > out_.size()) out_.resize(out_.size() * 2);
+    const uint32_t nw = ~w;
+    if (!((nw - 0x01010101u) & ~nw & 0x80808080u)) {
+      const uint32_t be = __builtin_bswap32(w);
+      std::memcpy(&out_[pos_], &be, 4);
+      pos_ += 4;
+      return;
+    }
+    for (int sh = 24; sh >= 0; sh -= 8) {
+      const uint8_t b = static_cast<uint8_t>(w >> sh);
+      out_[pos_++] = b;
+      if (b == 0xFF) out_[pos_++] = 0;
+    }
+  }
+};
+
+inline int nbits(int v) { return v ? 32 - __builtin_clz(static_cast<unsigned>(v)) : 0; }
+
+void encode_block(BitWriter& bw, const int16_t* blk, int& last_dc, const HuffEncoder& dc,
+                  const HuffEncoder& ac) {
+  int t = blk[0] - last_dc, t2 = t;
+  last_dc = blk[0];
+  if (t < 0) {
+    t = -t;
+    --t2;
+  }
+  int nb = nbits(t);
+  if (nb > 11) fail("JPEG encoder: DC coefficient out of range");
+  // the code and the magnitude bits in one put (at most 16 + 11 bits)
+  const uint32_t mask = (1u << nb) - 1;
+  bw.put((static_cast<uint32_t>(dc.code[nb]) << nb) | (static_cast<uint32_t>(t2) & mask),
+         dc.size[nb] + nb);
+  int r = 0;
+  for (int k = 1; k < 64; ++k) {
+    int v = blk[kNatural[k]];
+    if (v == 0) {
+      ++r;
+      continue;
+    }
+    while (r > 15) {
+      bw.put(ac.code[0xF0], ac.size[0xF0]);
+      r -= 16;
+    }
+    int v2 = v;
+    if (v < 0) {
+      v = -v;
+      --v2;
+    }
+    nb = nbits(v);
+    if (nb > 10) fail("JPEG encoder: AC coefficient out of range");
+    const int sym = (r << 4) + nb;
+    const uint32_t bits = static_cast<uint32_t>(v2) & ((1u << nb) - 1);
+    bw.put((static_cast<uint32_t>(ac.code[sym]) << nb) | bits, ac.size[sym] + nb);
+    r = 0;
+  }
+  if (r > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+// libjpeg-turbo's quantiser for 16-bit DCT elements: round half away from
+// zero of x / divisor by a reciprocal multiply (jcdctmgr.c).
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+  explicit Divisor(uint32_t d = 8) {
+    int b = 31 - __builtin_clz(d);
+    int r = 16 + b;
+    uint64_t fq = (uint64_t(1) << r) / d, fr = (uint64_t(1) << r) % d;
+    uint32_t c = d / 2;
+    if (fr == 0) {
+      fq >>= 1;
+      --r;
+    } else if (fr <= d / 2) {
+      ++c;
+    } else {
+      ++fq;
+    }
+    recip = static_cast<uint32_t>(fq);
+    corr = c;
+    shift = r;
+  }
+  inline int16_t operator()(int64_t x) const {
+    if (x < 0)
+      return static_cast<int16_t>(-static_cast<int64_t>(((uint64_t(-x) + corr) * recip) >> shift));
+    return static_cast<int16_t>(((uint64_t(x) + corr) * recip) >> shift);
+  }
+};
+
+// IJG quality scaling of an Annex K table (jcparam.c, force_baseline).
+void scaled_table(const int* basic, int quality, uint16_t* out) {
+  quality = std::max(1, std::min(100, quality));
+  long scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = (static_cast<long>(basic[i]) * scale + 50L) / 100L;
+    out[i] = static_cast<uint16_t>(std::max(1L, std::min(255L, t)));
+  }
+}
+
+struct EncComponent {
+  int id, h, v, tq;
+  int wib, hib, bw, bh;
+  std::vector<uint8_t> samples;  // hib*8 rows of wib*8 (edge-replicated)
+  std::vector<int16_t> coef;     // bh * bw blocks
+};
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back(static_cast<uint8_t>(v >> 8));
+  o.push_back(static_cast<uint8_t>(v & 0xFF));
+}
+
+void put_dht(std::vector<uint8_t>& o, int index, const uint8_t* bits, const uint8_t* vals) {
+  int n = 0;
+  for (int i = 0; i < 16; ++i) n += bits[i];
+  o.push_back(0xFF);
+  o.push_back(0xC4);
+  put16(o, 2 + 1 + 16 + n);
+  o.push_back(static_cast<uint8_t>(index));
+  o.insert(o.end(), bits, bits + 16);
+  o.insert(o.end(), vals, vals + n);
+}
+
+// (h, w, c) uint8 pixels (c = 1 gray, 3 RGB) -> JFIF bytes appended to out,
+// colour with Pillow's default 4:2:0 sampling (luma 2x2, chroma 1x1).
+void encode_image(const uint8_t* px, int h, int w, int c, int quality, int n_threads,
+                  std::vector<uint8_t>& out) {
+  if (h <= 0 || w <= 0 || h > 65535 || w > 65535) fail("JPEG sides must be in 1..65535");
+  if (c != 1 && c != 3) fail("JPEG encoder takes 1 (gray) or 3 (RGB) channels");
+  uint16_t q[2][64];
+  scaled_table(kLumaQuant, quality, q[0]);
+  scaled_table(kChromaQuant, quality, q[1]);
+  Divisor div[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) div[t][i] = Divisor(q[t][i] * 8u);
+
+  const int hmax = c == 3 ? 2 : 1, vmax = hmax;
+  const int mcux = (w + 8 * hmax - 1) / (8 * hmax), mcuy = (h + 8 * vmax - 1) / (8 * vmax);
+  std::vector<EncComponent> comps;
+  if (c == 1) {
+    comps.push_back({1, 1, 1, 0, 0, 0, 0, 0, {}, {}});
+  } else {
+    comps.push_back({1, 2, 2, 0, 0, 0, 0, 0, {}, {}});
+    comps.push_back({2, 1, 1, 1, 0, 0, 0, 0, {}, {}});
+    comps.push_back({3, 1, 1, 1, 0, 0, 0, 0, {}, {}});
+  }
+  const int hpad = (h + vmax - 1) / vmax * vmax;  // rows after the prep's bottom padding
+  for (auto& cp : comps) {
+    int dw = static_cast<int>((static_cast<int64_t>(w) * cp.h + hmax - 1) / hmax);
+    int dh = static_cast<int>((static_cast<int64_t>(h) * cp.v + vmax - 1) / vmax);
+    cp.wib = (dw + 7) / 8;
+    cp.hib = (dh + 7) / 8;
+    cp.bw = c == 1 ? cp.wib : mcux * cp.h;
+    cp.bh = c == 1 ? cp.hib : mcuy * cp.v;
+    cp.samples.assign(static_cast<size_t>(cp.hib) * 8 * cp.wib * 8, 0);
+    cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+  }
+  auto value = [&](int ci, int y, int x) -> int {
+    y = std::min(y, h - 1);
+    x = std::min(x, w - 1);
+    const uint8_t* p = px + (static_cast<int64_t>(y) * w + x) * c;
+    if (c == 1) return p[0];
+    const ColorTables& t = kColor;
+    if (ci == 0) return (t.ry[p[0]] + t.gy[p[1]] + t.by[p[2]]) >> kScaleBits;
+    if (ci == 1) return (t.rcb[p[0]] + t.gcb[p[1]] + t.bcb[p[2]]) >> kScaleBits;
+    return (t.bcb[p[0]] + t.gcr[p[1]] + t.bcr[p[2]]) >> kScaleBits;
+  };
+  // colour conversion, downsampling and edge replication: one sample row per
+  // task; rows past the downsampled image repeat its last row
+  std::vector<std::pair<int, int>> rows;
+  for (int ci = 0; ci < static_cast<int>(comps.size()); ++ci)
+    for (int y = 0; y < comps[ci].hib * 8; ++y) rows.emplace_back(ci, y);
+  parallel_for(static_cast<int64_t>(rows.size()), n_threads, [&](int64_t i) {
+    const int ci = rows[i].first;
+    EncComponent& cp = comps[ci];
+    const int hr = hmax / cp.h, vr = vmax / cp.v;
+    const int real_rows = hpad / vr;
+    const int y = std::min(rows[i].second, real_rows - 1);
+    const int cols = cp.wib * 8;
+    uint8_t* o = &cp.samples[static_cast<size_t>(rows[i].second) * cols];
+    for (int x = 0; x < cols; ++x) {
+      if (hr == 1) {
+        o[x] = static_cast<uint8_t>(value(ci, y, x));
+      } else {            // libjpeg's h2v2 downsample: bias 1, 2, 1, 2, ...
+        o[x] = static_cast<uint8_t>((value(ci, 2 * y, 2 * x) + value(ci, 2 * y, 2 * x + 1) +
+                                     value(ci, 2 * y + 1, 2 * x) +
+                                     value(ci, 2 * y + 1, 2 * x + 1) + 1 + (x & 1)) >> 2);
+      }
+    }
+  });
+  // forward DCT and quantisation of the real blocks, a block row per task
+  rows.clear();
+  for (int ci = 0; ci < static_cast<int>(comps.size()); ++ci)
+    for (int r = 0; r < comps[ci].hib; ++r) rows.emplace_back(ci, r);
+  parallel_for(static_cast<int64_t>(rows.size()), n_threads, [&](int64_t i) {
+    EncComponent& cp = comps[rows[i].first];
+    const int r = rows[i].second;
+    const int64_t stride = static_cast<int64_t>(cp.wib) * 8;
+    const Divisor* dv = div[cp.tq];
+    jl ws[64];
+    for (int b = 0; b < cp.wib; ++b) {
+      const uint8_t* s = &cp.samples[static_cast<size_t>(r) * 8 * stride + b * 8];
+      for (int yy = 0; yy < 8; ++yy)
+        for (int xx = 0; xx < 8; ++xx) ws[8 * yy + xx] = s[yy * stride + xx] - 128;
+      fdct_islow(ws);
+      int16_t* blk = &cp.coef[(static_cast<size_t>(r) * cp.bw + b) * 64];
+      for (int k = 0; k < 64; ++k) blk[k] = dv[k](ws[k]);
+    }
+  });
+  for (auto& cp : comps) std::vector<uint8_t>().swap(cp.samples);
+  // dummy blocks filling the last MCUs: the DC of the block to their left
+  // (right edge) or of the MCU's last block above (bottom edge), no AC
+  for (auto& cp : comps) {
+    for (int by = 0; by < cp.bh; ++by)
+      for (int bx = 0; bx < cp.bw; ++bx) {
+        if (bx < cp.wib && by < cp.hib) continue;
+        int16_t* blk = &cp.coef[(static_cast<size_t>(by) * cp.bw + bx) * 64];
+        const int16_t* src = by < cp.hib
+            ? blk - 64
+            : &cp.coef[(static_cast<size_t>(by - 1) * cp.bw + (bx / cp.h) * cp.h + cp.h - 1) * 64];
+        blk[0] = src[0];
+      }
+  }
+
+  // headers: SOI, JFIF APP0, DQT, SOF0, DHT, SOS
+  const uint8_t head[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00,
+                          0x01, 0x01, 0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
+  out.insert(out.end(), head, head + sizeof(head));
+  for (int t = 0; t < (c == 1 ? 1 : 2); ++t) {
+    out.push_back(0xFF);
+    out.push_back(0xDB);
+    put16(out, 67);
+    out.push_back(static_cast<uint8_t>(t));
+    for (int i = 0; i < 64; ++i) out.push_back(static_cast<uint8_t>(q[t][kNatural[i]]));
+  }
+  out.push_back(0xFF);
+  out.push_back(0xC0);
+  put16(out, 8 + 3 * c);
+  out.push_back(8);
+  put16(out, h);
+  put16(out, w);
+  out.push_back(static_cast<uint8_t>(c));
+  for (auto& cp : comps) {
+    out.push_back(static_cast<uint8_t>(cp.id));
+    out.push_back(static_cast<uint8_t>((cp.h << 4) | cp.v));
+    out.push_back(static_cast<uint8_t>(cp.tq));
+  }
+  put_dht(out, 0x00, kDcLumaBits, kDcVals);
+  put_dht(out, 0x10, kAcLumaBits, kAcLumaVals);
+  if (c == 3) {
+    put_dht(out, 0x01, kDcChromaBits, kDcVals);
+    put_dht(out, 0x11, kAcChromaBits, kAcChromaVals);
+  }
+  out.push_back(0xFF);
+  out.push_back(0xDA);
+  put16(out, 6 + 2 * c);
+  out.push_back(static_cast<uint8_t>(c));
+  for (auto& cp : comps) {
+    out.push_back(static_cast<uint8_t>(cp.id));
+    out.push_back(static_cast<uint8_t>(cp.tq ? 0x11 : 0x00));
+  }
+  out.push_back(0);
+  out.push_back(63);
+  out.push_back(0);
+
+  BitWriter bw(out);
+  int last_dc[3] = {0, 0, 0};
+  if (c == 1) {
+    EncComponent& cp = comps[0];
+    for (size_t b = 0; b < static_cast<size_t>(cp.bw) * cp.bh; ++b)
+      encode_block(bw, &cp.coef[b * 64], last_dc[0], kDcLuma, kAcLuma);
+  } else {
+    for (int my = 0; my < mcuy; ++my)
+      for (int mx = 0; mx < mcux; ++mx)
+        for (int ci = 0; ci < 3; ++ci) {
+          EncComponent& cp = comps[ci];
+          const HuffEncoder& dc = ci ? kDcChroma : kDcLuma;
+          const HuffEncoder& ac = ci ? kAcChroma : kAcLuma;
+          for (int by = 0; by < cp.v; ++by)
+            for (int bx = 0; bx < cp.h; ++bx)
+              encode_block(
+                  bw, &cp.coef[(static_cast<size_t>(my * cp.v + by) * cp.bw + mx * cp.h + bx) * 64],
+                  last_dc[ci], dc, ac);
+        }
+  }
+  bw.flush();
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+}
+
+std::vector<uint8_t> read_file(const char* path) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) fail(std::string("cannot open ") + path);
+  std::vector<uint8_t> data;
+  uint8_t chunk[1 << 16];
+  size_t got;
+  while ((got = std::fread(chunk, 1, sizeof(chunk), f)) > 0)
+    data.insert(data.end(), chunk, chunk + got);
+  bool bad = std::ferror(f);
+  std::fclose(f);
+  if (bad) fail(std::string("cannot read ") + path);
+  return data;
+}
+
+void write_file(const char* path, const std::vector<uint8_t>& data) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) fail(std::string("cannot create ") + path);
+  size_t put = std::fwrite(data.data(), 1, data.size(), f);
+  bool bad = put != data.size() || std::fclose(f) != 0;
+  if (bad) fail(std::string("cannot write ") + path);
+}
+
+void set_error(char* err, int errlen, const std::string& msg) {
+  if (err && errlen > 0) {
+    std::strncpy(err, msg.c_str(), errlen - 1);
+    err[errlen - 1] = '\0';
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// info: width, height, components in the file, SOF kind (0 or 1), output
+// channels (1 gray, 3 RGB).
+int jpeg_probe(const uint8_t* data, int64_t size, int32_t* info, char* err, int errlen) {
+  try {
+    Decoder d(data, size);
+    d.probe();
+    info[0] = d.width();
+    info[1] = d.height();
+    info[2] = d.components();
+    info[3] = d.sof();
+    info[4] = d.out_components();
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// Decode into out (height * width * channels bytes, from jpeg_probe).
+int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size,
+                int n_threads, char* err, int errlen) {
+  try {
+    Decoder d(data, size);
+    d.probe();
+    if (static_cast<int64_t>(d.width()) * d.height() * d.out_components() != out_size)
+      fail("output buffer does not match the image");
+    Decoder full(data, size);
+    full.decode(out, n_threads);
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// Decode n files of side x side RGB into out (n, side, side, 3), one file a
+// thread. On failure names the first failing file.
+int jpeg_decode_files(const char** paths, int64_t n, int64_t side, uint8_t* out, int n_threads,
+                      char* err, int errlen) {
+  try {
+    parallel_for(n, n_threads, [&](int64_t i) {
+      try {
+        std::vector<uint8_t> data = read_file(paths[i]);
+        Decoder d(data.data(), static_cast<int64_t>(data.size()));
+        d.probe();
+        if (d.width() != side || d.height() != side || d.out_components() != 3)
+          fail("is " + std::to_string(d.width()) + "x" + std::to_string(d.height()) + "x" +
+               std::to_string(d.out_components()) + ", not " + std::to_string(side) + "x" +
+               std::to_string(side) + "x3");
+        Decoder full(data.data(), static_cast<int64_t>(data.size()));
+        full.decode(out + i * side * side * 3, 1);
+      } catch (const std::exception& e) {
+        fail(std::string(paths[i]) + ": " + e.what());
+      }
+    });
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// Encode (h, w, c) pixels; *out is malloc'ed (free with jpeg_free). Returns
+// the byte count, or -1.
+int64_t jpeg_encode(const uint8_t* px, int h, int w, int c, int quality, int n_threads,
+                    uint8_t** out, char* err, int errlen) {
+  try {
+    std::vector<uint8_t> bytes;
+    encode_image(px, h, w, c, quality, n_threads, bytes);
+    *out = static_cast<uint8_t*>(std::malloc(bytes.size()));
+    if (!*out) fail("out of memory");
+    std::memcpy(*out, bytes.data(), bytes.size());
+    return static_cast<int64_t>(bytes.size());
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return -1;
+  }
+}
+
+void jpeg_free(uint8_t* p) { std::free(p); }
+
+// Encode n images (n, h, w, c) to n files, one image a thread.
+int jpeg_encode_files(const uint8_t* px, int64_t n, int h, int w, int c, const char** paths,
+                      int quality, int n_threads, char* err, int errlen) {
+  try {
+    const int64_t each = static_cast<int64_t>(h) * w * c;
+    parallel_for(n, n_threads, [&](int64_t i) {
+      try {
+        std::vector<uint8_t> bytes;
+        bytes.reserve(static_cast<size_t>(each / 4 + 1024));
+        encode_image(px + i * each, h, w, c, quality, 1, bytes);
+        write_file(paths[i], bytes);
+      } catch (const std::exception& e) {
+        fail(std::string(paths[i]) + ": " + e.what());
+      }
+    });
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+}  // extern "C"

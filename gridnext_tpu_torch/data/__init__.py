@@ -2,6 +2,7 @@
 
 from gridnext_tpu_torch.data.datasets import (CountGridDataset, CountSpotDataset,
                                               MMSpotDataset, MMStackDataset,
+                                              PatchGridDataset, PatchSpotDataset,
                                               SlideGridDataset, SlideSpotDataset, Subset,
                                               create_visium_dataset, load_count_dataset,
                                               load_count_grid_dataset)
@@ -10,6 +11,6 @@ from gridnext_tpu_torch.data.simulate import (lattice_positions, pseudo_visium_f
                                               simulate_spaceranger_dir)
 
 __all__ = ["CountGridDataset", "CountSpotDataset", "DenseWSIGridDataset", "MMSpotDataset",
-           "MMStackDataset", "SlideGridDataset", "SlideSpotDataset", "Subset",
+           "MMStackDataset", "PatchGridDataset", "PatchSpotDataset", "SlideGridDataset", "SlideSpotDataset", "Subset",
            "create_visium_dataset", "lattice_positions", "load_count_dataset",
            "load_count_grid_dataset", "pseudo_visium_from_image", "simulate_spaceranger_dir"]

@@ -8,16 +8,22 @@ The counterparts of the JAX package's ``data/datasets.py``:
   1..N the classes of the cohort's annotations);
 * :class:`CountSpotDataset` -- the annotated spots' ``(n_genes,)`` count
   vectors with labels in ``[0, N)``;
-* :class:`SlideGridDataset` and :class:`SlideSpotDataset` -- the patch
-  grids and annotated spot patches the JAX package reads from its
-  ``_patches*`` JPEG caches (``PatchGridDataset``, ``PatchSpotDataset``),
-  cropped losslessly from the fullres slides on the card by the gather
-  kernel instead: a grid in one launch, a batch of spots in one launch
-  (:meth:`SlideSpotDataset.batch`). No file is written;
+* :class:`PatchGridDataset` and :class:`PatchSpotDataset` -- the patch
+  grids and spot patches of the ``_patches*`` JPEG caches
+  (``{array}_{col}_{row}.jpg``), decoded on the host by the port's codec
+  to Pillow's pixels and moved to the device: what the JAX package's
+  classes of those names read;
+* :class:`SlideGridDataset` and :class:`SlideSpotDataset` -- the same
+  grids and annotated spot patches cropped losslessly from the fullres
+  slides on the card by the gather kernel instead: a grid in one launch, a
+  batch of spots in one launch (:meth:`SlideSpotDataset.batch`). No file
+  is written;
 * :class:`MMStackDataset` pairs an image and a count grid dataset,
-  :class:`MMSpotDataset` an annotated spot's patch and count vector,
-  :class:`Subset` is a split's view, and :func:`create_visium_dataset`
-  is the factory, which writes missing count caches (``prepare``);
+  :class:`MMSpotDataset` an annotated spot's patch (from a cache or a
+  slide) and count vector, :class:`Subset` is a split's view, and
+  :func:`create_visium_dataset` is the factory, which writes missing count
+  caches (``prepare``) and, on its cache route, missing patch caches
+  (``prepare --images``);
 * :func:`load_count_dataset` and :func:`load_count_grid_dataset` load
   Splotch-annotated spots and grids eagerly.
 
@@ -43,14 +49,16 @@ from gridnext_tpu_torch import geometry, ingest
 from gridnext_tpu_torch.io.annotations import (encode_annot_grid, encode_labels,
                                                read_annotated_starray, read_annotfile,
                                                union_classes)
+from gridnext_tpu_torch.io.jpeg import decode_jpeg, decode_jpeg_batch, jpeg_info
 from gridnext_tpu_torch.io.spaceranger import find_position_file, read_positions
 from gridnext_tpu_torch.io.tsv_codec import read_tsv_matrix
 from gridnext_tpu_torch.io.unify import (array_name, assert_gene_axis_match,
                                          check_unified_gene_axis, prepare_count_files,
                                          unified_count_suffix)
 from gridnext_tpu_torch.observability import stage
-from gridnext_tpu_torch.pipeline import (edge_pad, patch_grid, resize_matrices,
-                                         resize_patches, spot_pixel_arrays)
+from gridnext_tpu_torch.pipeline import (edge_pad, patch_cache_suffix, patch_grid,
+                                         resize_matrices, resize_patches, save_visium_patches,
+                                         spot_pixel_arrays)
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
 
 _MATRICES = collections.OrderedDict()
@@ -90,9 +98,15 @@ def _count_matrix(path):
     return matrix
 
 
-def _annot_codes(annot_file, position_file, classes) -> dict:
-    """{'{col}_{row}': class code} of one array's Loupe annotations."""
-    coords, names = read_annotfile(annot_file, position_file=position_file)
+def _annot_codes(annot_file, position_file, classes, afile_delim: str = ",") -> dict:
+    """{'{col}_{row}': class code} of one array's annotations: a Loupe CSV
+    joined to its positions (codes in ``classes``), or without a position
+    file Splotch's one-hot matrix (its argmax)."""
+    if position_file is None:
+        coords, codes = read_annotfile(annot_file, Visium=False, afile_delim=afile_delim)
+        return dict(zip(coords, codes))
+    coords, names = read_annotfile(annot_file, position_file=position_file,
+                                   afile_delim=afile_delim)
     return dict(zip(coords, encode_labels(names, classes) if len(names) else names))
 
 
@@ -410,36 +424,260 @@ class SlideSpotDataset:
         return self.batch(np.arange(len(self)))
 
 
+_PATCH_RXP_TMPL = r".*_(\d+)_(\d+)\.%s"
+
+
+def _matched_patch_files(imdir: str, img_ext: str):
+    """(names, coords) of the patch-cache files in ``imdir``: the sorted
+    listing of the ``*_{col}_{row}.{ext}`` file names (fullmatch, so stray
+    ``...jpg.bak`` files are never patches) and their parsed coordinates."""
+    rxp = re.compile(_PATCH_RXP_TMPL % re.escape(img_ext))
+    names, coords = [], []
+    for f in sorted(os.listdir(imdir)):
+        m = rxp.fullmatch(f)
+        if m is not None:
+            names.append(f)
+            coords.append((int(m.group(1)), int(m.group(2))))
+    return names, coords
+
+
+def _is_jpeg_name(path) -> bool:
+    return str(path).lower().endswith((".jpg", ".jpeg"))
+
+
+def _decode_patch_batch(paths) -> Optional[np.ndarray]:
+    """(n, P, P, 3) uint8 of a batch of square RGB JPEG patches, decoded
+    into one buffer across a thread pool
+    (:func:`~gridnext_tpu_torch.io.jpeg.decode_jpeg_batch`, the JAX
+    package's ``native/patchio.cpp`` route); None when the first file is not
+    a square RGB JPEG (the caller then decodes file by file)."""
+    if not paths or not _is_jpeg_name(paths[0]):
+        return None
+    info = jpeg_info(paths[0])
+    if info["components"] != 3 or info["width"] != info["height"]:
+        return None
+    return decode_jpeg_batch(paths, info["width"])
+
+
+def _read_patch(path) -> np.ndarray:
+    """One cache file's uint8 pixels: a JPEG by the port's codec, another
+    image by :func:`~gridnext_tpu_torch.ingest.decode_slide` (PIL, RGB)."""
+    return decode_jpeg(path, n_threads=1) if _is_jpeg_name(path) else ingest.decode_slide(path)
+
+
+def _load_patches(paths, transform: Optional[Callable], device) -> torch.Tensor:
+    """Cache files -> ``(n, ...)`` float32 tensor on ``device``: the pixels
+    ``/ 255`` (as the JAX package scales them), then ``transform`` of the
+    whole batch."""
+    raw = _decode_patch_batch(paths)
+    if raw is None:
+        raw = np.stack([_read_patch(p) for p in paths])
+    x = torch.from_numpy(raw).to(device).float() / 255.0
+    return transform(x) if transform is not None else x
+
+
+def _check_lengths(files, annot_files, position_files, Visium):
+    if annot_files is not None and len(files) != len(annot_files):
+        raise ValueError("Length of data files and annot_files must match.")
+    if Visium and annot_files is not None and position_files is None:
+        raise ValueError(
+            "Must provide Spaceranger position files mapping barcodes to array locations.")
+    if (annot_files is not None and position_files is not None
+            and len(position_files) != len(annot_files)):
+        raise ValueError(
+            "Number of Spaceranger position files does not match number of annotation files.")
+
+
+class PatchGridDataset(_GridBase):
+    """Per-array ``(H, W, P, P, 3)`` float32 patch grids on ``device`` read
+    from ``_patches*`` JPEG caches, with ``(H, W)`` int64 label grids: the
+    JAX package's ``PatchGridDataset`` (``data/datasets.py:368-449``).
+
+    Each directory's ``*_{array_col}_{array_row}.{img_ext}`` files decode
+    on the host (one thread pool call, Pillow's pixels), move to the device
+    and scale to [0, 1]; ``img_transforms`` maps the ``(n, P, P, 3)`` batch
+    of an array's patches (the JAX package calls it a patch at a time).
+    Each patch lands at its odd-right cell (``Visium=True``) or at (row,
+    col) directly; empty cells are zero. Labels: ``annot_files`` joined to
+    ``position_files`` (Loupe, classes the sorted union, code + 1 at each
+    patch's cell), or without position files Splotch's one-hot TSVs
+    (``afile_delim``); zeros without annotations. ``timer`` times
+    ``"decode"`` and ``"grid"``.
+    """
+
+    def __init__(self, img_dirs: Sequence, annot_files: Optional[Sequence] = None,
+                 position_files: Optional[Sequence] = None, Visium: bool = True,
+                 img_transforms: Optional[Callable] = None, afile_delim: str = ",",
+                 img_ext: str = "jpg", h_st: int = geometry.VISIUM_H_ST,
+                 w_st: int = geometry.VISIUM_W_ST, device="cuda", timer=None):
+        _check_lengths(img_dirs, annot_files, position_files, Visium)
+        self.img_dirs = [str(d) for d in img_dirs]
+        self.annot_files = list(annot_files) if annot_files is not None else None
+        self.position_files = list(position_files) if position_files is not None else None
+        self.Visium = Visium
+        self.transform = img_transforms
+        self.afile_delim = afile_delim
+        self.img_ext = img_ext
+        self.h_st, self.w_st = int(h_st), int(w_st)
+        self.device = torch.device(device)
+        self.timer = timer
+        self.classes = None
+        if self.annot_files is not None and self.position_files is not None:
+            self.classes = union_classes(self.annot_files, self.position_files, afile_delim)
+
+    def source_ids(self):
+        return list(self.img_dirs)
+
+    def _files(self, idx):
+        names, coords = _matched_patch_files(self.img_dirs[idx], self.img_ext)
+        if not names:
+            raise ValueError(f"No patches found in {self.img_dirs[idx]}")
+        return [os.path.join(self.img_dirs[idx], f) for f in names], coords
+
+    def __getitem__(self, idx):
+        paths, coords = self._files(idx)
+        codes = None
+        if self.annot_files is not None:
+            pf = self.position_files[idx] if self.position_files is not None else None
+            codes = _annot_codes(self.annot_files[idx], pf, self.classes, self.afile_delim)
+        with stage(self.timer, "decode", self.device):
+            x = _load_patches(paths, self.transform, self.device)
+        a_x = np.asarray([c[0] for c in coords])
+        a_y = np.asarray([c[1] for c in coords])
+        xs, ys = geometry.pseudo_hex_to_oddr(a_x, a_y) if self.Visium else (a_x, a_y)
+        with stage(self.timer, "grid", self.device):
+            grid = torch.zeros((self.h_st, self.w_st) + tuple(x.shape[1:]), dtype=torch.float32,
+                               device=self.device)
+            grid[torch.as_tensor(np.asarray(ys), dtype=torch.int64, device=self.device),
+                 torch.as_tensor(np.asarray(xs), dtype=torch.int64, device=self.device)] = x
+        labels = np.zeros((self.h_st, self.w_st), np.int64)
+        if codes is not None:
+            for (cx, cy), y, x_ in zip(coords, np.atleast_1d(ys), np.atleast_1d(xs)):
+                code = codes.get(f"{cx}_{cy}")
+                if code is not None:
+                    labels[y, x_] = int(code) + 1      # 0 is the background
+        return grid, labels
+
+    def sample_item(self) -> torch.Tensor:
+        """A zero grid of the items' shape on the device, from one decoded
+        patch (its shape after ``img_transforms``) instead of an array's
+        thousands: the cheap model-init sample."""
+        paths, _ = self._files(0)
+        x = _load_patches(paths[:1], self.transform, self.device)
+        return torch.zeros((self.h_st, self.w_st) + tuple(x.shape[1:]), dtype=torch.float32,
+                           device=self.device)
+
+
+class PatchSpotDataset:
+    """Individual spot patches from ``_patches*`` JPEG caches: ``(P, P, 3)``
+    float32 tensors on ``device`` with int64 labels in ``[0, N)``, the JAX
+    package's ``PatchSpotDataset`` (``data/datasets.py:452-510``). Items in
+    each directory's sorted file order; with ``annot_files`` only the
+    annotated spots (Loupe CSVs joined to ``position_files``, or Splotch
+    TSVs without them), else every cache file, label 0. :meth:`batch`
+    decodes a batch on a thread pool in one call and applies
+    ``img_transforms`` to the ``(n, P, P, 3)`` batch."""
+
+    def __init__(self, img_dirs: Sequence, annot_files: Optional[Sequence] = None,
+                 position_files: Optional[Sequence] = None, Visium: bool = True,
+                 img_transforms: Optional[Callable] = None, afile_delim: str = ",",
+                 img_ext: str = "jpg", device="cuda", timer=None):
+        _check_lengths(img_dirs, annot_files, position_files, Visium)
+        self.transform = img_transforms
+        self.device = torch.device(device)
+        self.timer = timer
+        self.imgpath_mapping, self.annotations = [], []
+        self.keys, slide = [], []                  # each item's '{col}_{row}', array
+        self.classes = None
+        if annot_files is not None and Visium:
+            self.classes = union_classes(annot_files, position_files, afile_delim)
+        for i, imdir in enumerate(img_dirs):
+            codes = None
+            if annot_files is not None:
+                pf = position_files[i] if Visium else None
+                codes = _annot_codes(annot_files[i], pf, self.classes, afile_delim)
+            names, coords = _matched_patch_files(str(imdir), img_ext)
+            for name, (cx, cy) in zip(names, coords):
+                key = f"{cx}_{cy}"
+                if codes is not None:
+                    if key not in codes:
+                        continue
+                    self.annotations.append(int(codes[key]))
+                self.imgpath_mapping.append(os.path.join(str(imdir), name))
+                self.keys.append(key)
+                slide.append(i)
+        self.slide = np.asarray(slide, np.int64)
+
+    def __len__(self):
+        return len(self.imgpath_mapping)
+
+    def batch(self, indices):
+        """``((n, P, P, 3) float32 patches on the device, (n,) int64 labels)``
+        of the items ``indices``."""
+        idx = np.asarray(indices, np.int64)
+        with stage(self.timer, "decode", self.device):
+            x = _load_patches([self.imgpath_mapping[i] for i in idx.tolist()], self.transform,
+                              self.device)
+        y = (np.asarray(self.annotations, np.int64)[idx] if self.annotations
+             else np.zeros(len(idx), np.int64))
+        return x, y
+
+    def __getitem__(self, idx):
+        x, y = self.batch([idx])
+        return x[0], y[0]
+
+    def materialize(self):
+        return self.batch(np.arange(len(self)))
+
+    def source_ids(self):
+        return list(self.imgpath_mapping)
+
+
 class MMSpotDataset:
     """Spot-level multimodal items ``((x_image, x_count), y)``: each
-    annotated spot's ``(P, P, 3)`` float32 patch on the device, cropped from
-    the fullres slide as :class:`SlideSpotDataset` crops it, beside its
+    annotated spot's ``(P, P, 3)`` float32 patch on the device beside its
     ``(n_genes,)`` float32 count vector from the array's unified cache (a
     numpy array), and its int64 label in ``[0, N)``.
 
     The JAX package's ``MMSpotDataset`` (``data/datasets.py:512-618``):
     spots are keyed on their ``'{array_col}_{array_row}'`` string per
-    array, and only keys present in both the slide's in-tissue spots and
-    the cache's columns (and annotated, with ``annot_files``) are items, in
-    :class:`SlideSpotDataset`'s order. The caches must share a gene axis
-    unless ``select_genes`` is given. :meth:`batch` crops a batch of spots
-    in one gather launch.
+    array, and only keys present in both the image side and the cache's
+    columns (and annotated, with ``annot_files``) are items, in the image
+    side's order. The caches must share a gene axis unless
+    ``select_genes`` is given. :meth:`batch` builds a batch in one call.
+
+    Two forms of the image side: the patch caches (``img_dirs``, one
+    ``_patches*`` directory per count file, with ``position_files``, as the
+    JAX package reads them: a :class:`PatchSpotDataset`), or the fullres
+    slides cropped on the card (``image_files`` and ``spaceranger_dirs``:
+    a :class:`SlideSpotDataset`, one gather launch a batch).
     """
 
-    def __init__(self, count_files: Sequence, image_files: Sequence,
-                 spaceranger_dirs: Sequence, *, patch_size: int,
+    def __init__(self, count_files: Sequence, image_files: Optional[Sequence] = None,
+                 spaceranger_dirs: Optional[Sequence] = None, *,
+                 patch_size: Optional[int] = None,
                  window_size: Optional[int] = None, annot_files: Optional[Sequence] = None,
                  select_genes: Optional[Sequence[str]] = None, hd_binning: Optional[str] = None,
                  h_st: int = geometry.VISIUM_H_ST, w_st: int = geometry.VISIUM_W_ST,
-                 device="cuda", timer=None):
-        if len(count_files) != len(image_files):
-            raise ValueError("need one image file per count file")
+                 device="cuda", timer=None, img_dirs: Optional[Sequence] = None,
+                 position_files: Optional[Sequence] = None, Visium: bool = True,
+                 img_transforms: Optional[Callable] = None, img_ext: str = "jpg",
+                 afile_delim: str = ","):
         self.count_files = [str(c) for c in count_files]
         self.select_genes = select_genes
-        self.images = SlideSpotDataset(image_files, spaceranger_dirs, patch_size=patch_size,
-                                       window_size=window_size, annot_files=annot_files,
-                                       hd_binning=hd_binning, h_st=h_st, w_st=w_st,
-                                       device=device, timer=timer)
+        if img_dirs is not None:
+            if len(count_files) != len(img_dirs):
+                raise ValueError("need one patch dir per count file")
+            self.images = PatchSpotDataset(img_dirs, annot_files, position_files, Visium,
+                                           img_transforms, afile_delim, img_ext,
+                                           device=device, timer=timer)
+        else:
+            if image_files is None or len(count_files) != len(image_files):
+                raise ValueError("need one image file per count file")
+            self.images = SlideSpotDataset(image_files, spaceranger_dirs,
+                                           patch_size=patch_size, window_size=window_size,
+                                           annot_files=annot_files, hd_binning=hd_binning,
+                                           h_st=h_st, w_st=w_st, device=device, timer=timer)
         self.classes = self.images.classes
         columns, genes0 = [], None
         for cf in self.count_files:
@@ -562,14 +800,16 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
                           select_genes: Optional[Sequence[str]] = None,
                           count_suffix: str = ".unified.tsv.gz",
                           minimum_detection_rate: Optional[float] = 0.02,
-                          patch_size_um: Optional[float] = 100.0):
+                          patch_size_um: Optional[float] = 100.0,
+                          img_transforms: Optional[Callable] = None,
+                          save_patches_to=None):
     """The datasets of a cohort: the JAX package's factory
-    (``data/datasets.py:720-893``).
+    (``data/datasets.py:717-893``).
 
     ``spatial=True`` (grids): a :class:`MMStackDataset` of image and count
-    grids, or the :class:`SlideGridDataset` (``use_count=False``) or the
+    grids, or the image grids (``use_count=False``) or the
     :class:`CountGridDataset` (``use_image=False``). ``spatial=False``
-    (spots): the :class:`MMSpotDataset`, the :class:`SlideSpotDataset`
+    (spots): the :class:`MMSpotDataset`, the image spots
     (``use_count=False``) or the :class:`CountSpotDataset`
     (``use_image=False``). ``annot_files``: one Loupe CSV per directory.
     ``grid_dims`` (``(h, w)`` or ``'auto'``, with ``hd_binning``) indexes
@@ -581,9 +821,25 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
     ``minimum_detection_rate``; caches that exist must share a gene axis
     (``ValueError`` otherwise). The patch size is ``patch_size_px``, else
     ``patch_size_um`` converted per array by
-    :func:`~gridnext_tpu_torch.pipeline.distance_um_to_px`. Image grids and
-    spots are cropped from the slides on ``device``; no ``_patches*`` JPEG
-    cache is written or read.
+    :func:`~gridnext_tpu_torch.pipeline.distance_um_to_px`.
+
+    The image side takes one of two routes:
+
+    * the JPEG patch caches, as the JAX package's factory reads them, when
+      ``save_patches_to`` is given (the caches live there, and missing ones
+      are written first by
+      :func:`~gridnext_tpu_torch.pipeline.save_visium_patches` on
+      ``device`` from ``fullres_image_files``) or ``fullres_image_files`` is
+      None (the caches beside each Spaceranger directory, which must
+      exist: ``ValueError`` otherwise). Directories are named by
+      :func:`~gridnext_tpu_torch.pipeline.patch_cache_suffix`; the datasets
+      are :class:`PatchGridDataset`, :class:`PatchSpotDataset` and the cache
+      form of :class:`MMSpotDataset`, with ``img_transforms``;
+    * otherwise (``fullres_image_files`` and no ``save_patches_to``) the
+      patches are cropped from the slides on ``device`` and no file is
+      written or read: :class:`SlideGridDataset`, :class:`SlideSpotDataset`
+      and the crop form of :class:`MMSpotDataset`, which take no
+      ``img_transforms`` (``ValueError``).
     """
     if not (use_count or use_image):
         raise ValueError("Must utilize at least one data modality")
@@ -598,7 +854,6 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
     spaceranger_dirs = [str(s) for s in spaceranger_dirs]
     square = grid_dims is not None
     h_st, w_st = _lattice_dims(spaceranger_dirs, hd_binning, grid_dims)
-    position_files = [find_position_file(s, hd_binning) for s in spaceranger_dirs]
     count_files = None
     if use_count:
         suffix = unified_count_suffix(hd_binning, count_suffix)
@@ -609,17 +864,37 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
                                 hd_binning=hd_binning)
         elif len(count_files) > 1:
             check_unified_gene_axis(count_files)
-        if not use_image:
-            if not spatial:
-                return CountSpotDataset(count_files, annot_files, position_files,
-                                        select_genes)
-            return CountGridDataset(count_files, Visium=not square, select_genes=select_genes,
-                                    h_st=h_st, w_st=w_st, timer=timer,
-                                    annot_files=annot_files,
-                                    position_files=position_files if annot_files else None,
-                                    check_gene_axis=False)
-    if fullres_image_files is None:
-        raise ValueError("Must provide fullres_image_files to extract image patches")
+    patch_dirs = None
+    if use_image and (save_patches_to is not None or fullres_image_files is None):
+        patch_dirs = _patch_caches(spaceranger_dirs, fullres_image_files, save_patches_to,
+                                   patch_size_px, patch_size_um, window_size_px, hd_binning,
+                                   (h_st, w_st) if square else None, device)
+    position_files = [find_position_file(s, hd_binning) for s in spaceranger_dirs]
+    counts = None
+    if use_count:
+        if not spatial and not use_image:
+            return CountSpotDataset(count_files, annot_files, position_files, select_genes)
+        if spatial:
+            counts = CountGridDataset(count_files, Visium=not square, select_genes=select_genes,
+                                      h_st=h_st, w_st=w_st, timer=timer,
+                                      annot_files=annot_files,
+                                      position_files=position_files if annot_files else None,
+                                      check_gene_axis=False)
+            if not use_image:
+                return counts
+    if patch_dirs is not None:
+        kw = dict(img_transforms=img_transforms, device=device, timer=timer)
+        if spatial:
+            images = PatchGridDataset(patch_dirs, annot_files, position_files,
+                                      Visium=not square, h_st=h_st, w_st=w_st, **kw)
+            return images if counts is None else MMStackDataset(images, counts)
+        if use_count:
+            return MMSpotDataset(count_files, img_dirs=patch_dirs, annot_files=annot_files,
+                                 position_files=position_files, select_genes=select_genes, **kw)
+        return PatchSpotDataset(patch_dirs, annot_files, position_files, **kw)
+    if img_transforms is not None:
+        raise ValueError("img_transforms applies to the patch caches (save_patches_to, or "
+                         "fullres_image_files=None); the slide crops take none")
     for imfile in fullres_image_files:
         if not os.path.exists(imfile):
             raise ValueError(f"Could not find image file: {imfile}")
@@ -643,13 +918,43 @@ def create_visium_dataset(spaceranger_dirs: Sequence, use_image: bool = True,
                                 h_st=h_st, w_st=w_st, **kw)
     images = SlideGridDataset(fullres_image_files, spaceranger_dirs, hd_binning=hd_binning,
                               h_st=h_st, w_st=w_st, **kw)
-    if not use_count:
-        return images
-    counts = CountGridDataset(count_files, Visium=not square, select_genes=select_genes,
-                              h_st=h_st, w_st=w_st, timer=timer, annot_files=annot_files,
-                              position_files=position_files if annot_files else None,
-                              check_gene_axis=False)
-    return MMStackDataset(images, counts)
+    return images if counts is None else MMStackDataset(images, counts)
+
+
+def _patch_caches(spaceranger_dirs, fullres_image_files, save_patches_to, patch_size_px,
+                  patch_size_um, window_size_px, hd_binning, hd_dims, device) -> list:
+    """The cohort's ``_patches*`` directories, the missing ones written
+    first from ``fullres_image_files`` (the JAX package's factory,
+    ``data/datasets.py:821-860``)."""
+    suffix = patch_cache_suffix(patch_size_px=patch_size_px, patch_size_um=patch_size_um,
+                                window_size_px=window_size_px, hd_binning=hd_binning,
+                                hd_dims=hd_dims)
+    root = None
+    if save_patches_to is not None:
+        root = str(save_patches_to)
+        os.makedirs(root, exist_ok=True)
+    dirs = [os.path.join(root or srd, array_name(srd) + suffix) for srd in spaceranger_dirs]
+    missing = [i for i, d in enumerate(dirs) if not os.path.exists(d)]
+    if missing:
+        print(f"No extracted image patches detected for {len(missing)} "
+              f"array(s) (*{suffix}) -- generating...")
+        if fullres_image_files is None:
+            raise ValueError("Must provide fullres_image_files to extract image patches")
+        for i in missing:
+            imfile = fullres_image_files[i]
+            if not os.path.exists(imfile):
+                raise ValueError(f"Could not find image file: {imfile}")
+            if patch_size_px is not None:
+                ps = patch_size_px
+            else:
+                from gridnext_tpu_torch.pipeline import distance_um_to_px
+
+                ps = distance_um_to_px(spaceranger_dirs[i], patch_size_um, hd_binning=hd_binning)
+            save_visium_patches(imfile, spaceranger_dirs[i], dirs[i], patch_size=ps,
+                                window_size=window_size_px, hd_binning=hd_binning,
+                                h_st=hd_dims[0] if hd_dims else None,
+                                w_st=hd_dims[1] if hd_dims else None, device=device)
+    return dirs
 
 
 def load_count_dataset(count_files, annot_files=None, select_genes=None):

@@ -2,8 +2,8 @@
 
 The port of the JAX package's ``data/simulate.py``, file for file: the
 same seeds give the same positions, scalefactors, MEX matrix, Loupe
-annotations and (with PIL) fullres image. The full 78 x 64 lattice (or a
-square Visium HD bin grid) is generated: synthetic or real Visium v1
+annotations and fullres JPEG (the port's encoder, Pillow's bytes). The
+full 78 x 64 lattice (or a square Visium HD bin grid) is generated: synthetic or real Visium v1
 barcodes, v1/v2 positions CSVs or an HD positions parquet
 (:func:`~gridnext_tpu_torch.io.parquet.write_parquet`), and a MEX count
 matrix. At full transcriptome width (16,906 genes) the simulated counts
@@ -90,7 +90,8 @@ def simulate_spaceranger_dir(dest_dir, *, n_genes: int = 60, n_classes: int = 4,
     ``barcodes='visium_v1'`` stamps the real Visium v1 whitelist
     (:mod:`~gridnext_tpu_torch.data.template`) onto the lattice.
     ``gene_names``: the symbols of ``features.tsv.gz`` (IDs are
-    ``ENSG{i:05d}``). ``image=True`` writes a fullres JPEG with PIL.
+    ``ENSG{i:05d}``). ``image=True`` writes a fullres JPEG at Pillow's quality
+    95 (:func:`~gridnext_tpu_torch.io.jpeg.encode_jpeg`, no PIL).
 
     Returns a dict with the paths, the (h, w) ground-truth ``label_grid``,
     the class names and ``n_genes``.
@@ -203,11 +204,7 @@ def simulate_spaceranger_dir(dest_dir, *, n_genes: int = 60, n_classes: int = 4,
 
     img_path = None
     if image:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise ImportError("simulate's image=True writes the fullres JPEG with PIL, "
-                              "which is not installed") from e
+        from gridnext_tpu_torch.io.jpeg import encode_jpeg
 
         W = int(px_col.max() + margin)
         H = int(px_row.max() + margin)
@@ -220,7 +217,7 @@ def simulate_spaceranger_dir(dest_dir, *, n_genes: int = 60, n_classes: int = 4,
         for x0, y0, lab in zip(px_col[keep], px_row[keep], labels[keep]):
             img[max(0, y0 - rad):y0 + rad, max(0, x0 - rad):x0 + rad] = palette[lab - 1]
         img_path = dest / f"{dest.name}_fullres.jpg"
-        Image.fromarray(img).save(img_path, "JPEG", quality=95)
+        img_path.write_bytes(encode_jpeg(img, quality=95))
 
     label_grid = np.zeros((h_st, w_st), dtype=np.int64)
     if hd_grid is not None:
@@ -242,16 +239,21 @@ def pseudo_visium_from_image(fullres_roi, dest_dir, image_width_mm: float = 8,
     (``data/simulate.py:247-323``). ``template='visium_v1'``: the real
     slide template's barcodes, in-tissue pattern and scalefactors (spot
     and fiducial diameters rescaled to ``spot_width_um``);
-    ``'synthetic'``: ``SYN`` barcodes, every spot in tissue. Reads the
-    image with PIL. Returns the created directory."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("pseudo_visium_from_image reads the image with PIL, "
-                          "which is not installed") from e
+    ``'synthetic'``: ``SYN`` barcodes, every spot in tissue. Reads a JPEG's
+    header with the port's codec and any other image with PIL. Returns the
+    created directory."""
+    from gridnext_tpu_torch.io.jpeg import is_jpeg_file, jpeg_info
 
-    img = np.asarray(Image.open(fullres_roi))
-    w_px = img.shape[0]        # the first dimension, as the reference takes it
+    if is_jpeg_file(fullres_roi):
+        w_px = jpeg_info(fullres_roi)["height"]   # the first dimension, as the
+    else:                                         # reference takes it
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError("pseudo_visium_from_image reads images other than JPEG "
+                              "with PIL, which is not installed") from e
+
+        w_px = np.asarray(Image.open(fullres_roi)).shape[0]
     px_per_mm = w_px / image_width_mm
     spot_width_px = px_per_mm * spot_width_um / 1000
     spot_space_px = px_per_mm * spot_spacing_um / 1000

@@ -50,9 +50,26 @@ from gridnext_tpu_torch.observability import StageTimer
 
 
 def decode_slide(image_file, convert: str = "RGB") -> np.ndarray:
-    """Decode one slide to (H, W, 3) uint8 (PIL; RGBA and grayscale slides
-    convert: the gather expects 3 channels)."""
-    from PIL import Image
+    """Decode one slide to (H, W, 3) uint8 (RGBA and grayscale slides
+    convert: the gather expects 3 channels).
+
+    A JPEG (by its first bytes) decodes with the port's codec
+    (:func:`gridnext_tpu_torch.io.jpeg.decode_jpeg`, Pillow's pixels, no
+    PIL), a grayscale one repeated to 3 channels as ``convert("RGB")``
+    repeats it; a JPEG the codec refuses (progressive, CMYK, ...) raises
+    ``ValueError``. Other formats (TIFF, PNG, ...) decode with PIL, and
+    without PIL raise ``ImportError``.
+    """
+    from gridnext_tpu_torch.io.jpeg import decode_jpeg, is_jpeg_file
+
+    if convert == "RGB" and is_jpeg_file(image_file):
+        img = decode_jpeg(image_file)
+        return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{image_file}: slides other than JPEG decode with PIL, which "
+                          "is not installed") from e
 
     Image.MAX_IMAGE_PIXELS = None
     with Image.open(image_file) as im:

@@ -1,5 +1,6 @@
 """Patch preprocessing: ImageNet normalization, the window resize, the
-lattice resample, spot pixel boxes and the patch grids of whole slides.
+lattice resample, spot pixel boxes, the patch grids of whole slides and
+the JPEG patch caches.
 
 The crop itself is :mod:`gridnext_tpu_torch.ops.patch_gather_cuda`; when
 the crop window differs from the patch size, :func:`resize_patches`
@@ -14,14 +15,29 @@ flips/rotations per patch on the card for training (``--augment``).
 :func:`remove_color_cast` is SpaCell's colour-cast removal of a slide on
 the host. :func:`distance_um_to_px` converts a distance on the tissue to
 pixels of an array's fullres image (the patch size of ``patch_size_um``).
+
+The JPEG patch caches (``<array>_patches{N}px/{array}_{col}_{row}.jpg``):
+:func:`save_visium_patches` writes one array's, byte-equal to the JAX
+package's writer: the crop by the gather kernel on the slide's device,
+Pillow's bicubic resample (:func:`pil_resample`, exact on either device)
+where the window differs from the patch size, and the port's JPEG encoder
+(:mod:`gridnext_tpu_torch.io.jpeg`) at Pillow's quality 75.
+:func:`patch_cache_suffix` names the cache directories and
+:func:`make_imagenet_transform` is the image tutorial's Resize ->
+CenterCrop -> Normalize for the cache readers' ``img_transforms``.
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from gridnext_tpu_torch import geometry
+from gridnext_tpu_torch.observability import stage
 from gridnext_tpu_torch.ops.patch_gather_cuda import gather_patches
 from gridnext_tpu_torch.parallel.collectives import draw_rows
 
@@ -81,6 +97,103 @@ def imagenet_normalize(img):
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
     std = torch.as_tensor(IMAGENET_STD, device=img.device)
     return (img - mean) / std
+
+
+# Pillow's resample (libImaging/Resample.c): filter support and kernel, and
+# the fixed-point precision of its 8-bit coefficients
+_PIL_FILTERS = {"bilinear": 1.0, "bicubic": 2.0}
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_kernel(name: str, x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    if name == "bilinear":
+        return np.where(x < 1.0, 1.0 - x, 0.0)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def pil_resample_coefficients(in_size: int, out_size: int, filter: str = "bicubic") -> np.ndarray:
+    """``(out_size, in_size)`` int64 matrix of Pillow's fixed-point resample
+    coefficients along one axis (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc``): output pixel ``i`` samples the input at
+    ``(i + 1/2) * scale`` with the filter's support widened by ``scale``
+    when downsampling, over the input pixels ``[xmin, xmin + n)`` that
+    Pillow picks by rounding, its float64 weights normalised to sum to 1
+    and rounded half away from zero to 22 fractional bits."""
+    if filter not in _PIL_FILTERS:
+        raise ValueError(f"filter must be one of {sorted(_PIL_FILTERS)}; got {filter!r}")
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _PIL_FILTERS[filter] * filterscale
+    out = np.zeros((out_size, in_size), np.int64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = _pil_kernel(filter, (np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
+        ww = 0.0
+        for v in w:                    # Pillow's left-to-right float64 sum
+            ww += v
+        if ww != 0.0:
+            w = w / ww
+        fixed = w * (1 << _PIL_PRECISION_BITS)
+        out[i, xmin:xmin + xmax] = np.where(w < 0, fixed - 0.5, fixed + 0.5).astype(np.int64)
+    return out
+
+
+def _pil_pass(x: torch.Tensor, coeff: np.ndarray, dim: int) -> torch.Tensor:
+    """One axis of :func:`pil_resample`: float64 products of the integer
+    coefficients (exact: every partial sum stays below 2**40), then
+    Pillow's rounding (add half, shift right by 22) and clip to 0..255."""
+    k = torch.as_tensor(coeff, dtype=torch.float64, device=x.device)
+    y = torch.tensordot(x, k, dims=([dim], [1])).movedim(-1, dim)
+    y = torch.floor((y + (1 << (_PIL_PRECISION_BITS - 1))) / (1 << _PIL_PRECISION_BITS))
+    return y.clamp_(0, 255)
+
+
+def pil_resample(img: torch.Tensor, size, filter: str = "bicubic") -> torch.Tensor:
+    """``(..., H, W, C)`` uint8 images -> ``(..., oh, ow, C)`` uint8, bit for
+    bit what Pillow's ``Image.resize((ow, oh), filter)`` gives each image
+    (``"bicubic"``, a = -0.5, its default, or ``"bilinear"``): the
+    horizontal pass first, clipped to uint8, then the vertical, each with
+    :func:`pil_resample_coefficients`, on the images' device. An axis that
+    keeps its size is not resampled, as Pillow skips it."""
+    oh, ow = (int(v) for v in size)
+    h, w = img.shape[-3], img.shape[-2]
+    out = img.to(torch.float64)
+    if ow != w:
+        out = _pil_pass(out, pil_resample_coefficients(w, ow, filter), img.dim() - 2)
+    if oh != h:
+        out = _pil_pass(out, pil_resample_coefficients(h, oh, filter), img.dim() - 3)
+    return out.to(torch.uint8)
+
+
+def make_imagenet_transform(resize: int = 256, crop: int = 224):
+    """The image tutorial's per-patch transform, Resize(``resize``) ->
+    CenterCrop(``crop``) -> Normalize(ImageNet): the JAX package's
+    ``make_imagenet_transform`` for the cache readers' ``img_transforms``.
+
+    Takes float [0, 1] channels-last patches ``(..., P, P, 3)`` (a batch
+    or one patch) on any device and returns float32: each is truncated to
+    uint8 (``clip(x * 255)``), its shorter side resized to ``resize``
+    keeping the aspect (Pillow's bilinear, :func:`pil_resample`), centre
+    cropped to ``crop`` and ImageNet-normalised.
+    """
+    def transform(img: torch.Tensor) -> torch.Tensor:
+        u8 = torch.clamp(img * 255.0, 0, 255).to(torch.uint8)
+        h, w = u8.shape[-3], u8.shape[-2]
+        if w <= h:
+            new_w, new_h = resize, int(round(h * resize / w))
+        else:
+            new_w, new_h = int(round(w * resize / h)), resize
+        out = pil_resample(u8, (new_h, new_w), "bilinear")
+        top, left = (new_h - crop) // 2, (new_w - crop) // 2
+        out = out[..., top:top + crop, left:left + crop, :]
+        return imagenet_normalize(out.to(torch.float32) / 255.0)
+
+    return transform
 
 
 def cubic_resize_weights(in_size: int, out_size: int) -> np.ndarray:
@@ -234,15 +347,24 @@ def _spot_pixel_boxes(positions, window: int, hex_coords: bool = True):
 
 
 def spot_pixel_arrays(positions, h_st: int = geometry.VISIUM_H_ST,
-                      w_st: int = geometry.VISIUM_W_ST, hex_coords: bool = True):
+                      w_st: int = geometry.VISIUM_W_ST, hex_coords: bool = True,
+                      warn: bool = False):
     """Positions -> (oddr_y, oddr_x, y_px, x_px) arrays over in-tissue spots
     inside the lattice (pixel coords not yet offset for padding).
     ``hex_coords=False`` (Visium HD square bins) indexes the grid directly
-    by (array_row, array_col)."""
+    by (array_row, array_col). ``warn`` prints the JAX package's one line
+    (``grid_from_wsi_visium``) about the spots dropped outside the lattice,
+    in the positions file's (array_col, array_row)."""
     ox, oy, x_px, y_px = _spot_pixel_boxes(positions, window=0, hex_coords=hex_coords)
     # lower bounds too: a malformed-parity spot's odd-right x of -1 must not
     # land on the last grid column
     keep = (oy >= 0) & (ox >= 0) & (oy < h_st) & (ox < w_st)
+    if warn and not keep.all():
+        bx, by = ox[~keep], oy[~keep]
+        ac, ar = geometry.oddr_to_pseudo_hex(bx, by) if hex_coords else (bx, by)
+        first = list(zip(np.atleast_1d(ac)[:5].tolist(), np.atleast_1d(ar)[:5].tolist()))
+        print(f"Warning: {int((~keep).sum())} spots outside the {h_st}x{w_st} grid dropped "
+              f"(first (array_col, array_row): {first})")
     return (oy[keep], ox[keep],
             y_px[keep].astype(np.int32), x_px[keep].astype(np.int32))
 
@@ -257,24 +379,39 @@ def edge_pad(wsi: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def crop_grid(wsi: torch.Tensor, oy, ox, y0, x0, window: int, patch_size: int,
-              h_st: int, w_st: int) -> torch.Tensor:
-    """(h_st, w_st, P, P, 3) float32 grid on the slide's device: the
-    ``window`` crop at each corner (y0, x0) of the (H, W, 3) uint8 slide
+              h_st: int, w_st: int, *, dtype=torch.float32, pil_filter: Optional[str] = None,
+              timer=None) -> torch.Tensor:
+    """(h_st, w_st, P, P, 3) grid on the slide's device: the ``window`` crop
+    at each corner (y0, x0) of the (H, W, 3) uint8 slide
     (:func:`~gridnext_tpu_torch.ops.patch_gather_cuda.gather_patches`),
-    resized to ``patch_size`` where they differ (:func:`resize_patches`,
-    requantised to uint8), ``/255`` at its cell (oy, ox), zeros elsewhere.
+    resized to ``patch_size`` where they differ, at its cell (oy, ox),
+    zeros elsewhere.
+
+    ``dtype`` float32 (the trainers' and registrars' grids): ``/255``.
+    ``dtype`` uint8 (the patch caches): the pixels as they are. The resize
+    is :func:`resize_patches` (the JAX package's cubic, requantised to
+    uint8), or with ``pil_filter`` Pillow's (:func:`pil_resample`).
+    ``timer`` times ``"crop"``, ``"resample"`` and ``"grid"``.
     """
     dev = wsi.device
-    crops = gather_patches(wsi, torch.as_tensor(y0, device=dev),
-                           torch.as_tensor(x0, device=dev), window)
+    with stage(timer, "crop", dev):
+        crops = gather_patches(wsi, torch.as_tensor(y0, device=dev),
+                               torch.as_tensor(x0, device=dev), window)
     if window != patch_size:
-        mats = resize_matrices(window, window, patch_size, dev)
-        crops = torch.cat([resize_patches(part, patch_size, mats)
-                           for part in torch.split(crops, _RESIZE_CHUNK)])
-    grid = torch.zeros((h_st, w_st, patch_size, patch_size, 3), dtype=torch.float32,
-                       device=dev)
-    grid[torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)] = \
-        crops.float() / 255.0
+        with stage(timer, "resample", dev):
+            if pil_filter is None:
+                mats = resize_matrices(window, window, patch_size, dev)
+                parts = (resize_patches(part, patch_size, mats)
+                         for part in torch.split(crops, _RESIZE_CHUNK))
+            else:
+                parts = (pil_resample(part, (patch_size, patch_size), pil_filter)
+                         for part in torch.split(crops, _RESIZE_CHUNK))
+            crops = torch.cat(list(parts))
+    with stage(timer, "grid", dev):
+        grid = torch.zeros((h_st, w_st, patch_size, patch_size, 3), dtype=dtype, device=dev)
+        grid[torch.as_tensor(oy, device=dev, dtype=torch.int64),
+             torch.as_tensor(ox, device=dev, dtype=torch.int64)] = \
+            crops if dtype == torch.uint8 else crops.float() / 255.0
     return grid
 
 
@@ -296,6 +433,117 @@ def patch_grid(wsi: torch.Tensor, positions, patch_size: int, window_size=None,
     oy, ox, y_px, x_px = spot_pixel_arrays(positions, h_st, w_st, hex_coords)
     # padded by w // 2, the slide's window around a center starts at it
     return crop_grid(edge_pad(wsi, w // 2), oy, ox, y_px, x_px, w, patch_size, h_st, w_st)
+
+
+def patch_cache_suffix(patch_size_px: Optional[int] = None,
+                       patch_size_um: Optional[float] = None,
+                       window_size_px: Optional[int] = None,
+                       hd_binning: Optional[str] = None,
+                       hd_dims: Optional[tuple] = None) -> str:
+    """The patch-cache directory suffix, shared by the dataset factory and
+    ``prepare --images`` (a mismatch orphans a prepared cache):
+    ``_patches{px}px`` or ``_patches{um}um``, ``_w{px}`` for a resized
+    window, and for Visium HD ``_{binning}_{h}x{w}`` in front (the writer
+    drops spots outside the lattice, so a cache is dims-specific). The JAX
+    package's ``pipeline.patch_cache_suffix``."""
+    s = (f"_patches{patch_size_px}px" if patch_size_px is not None
+         else f"_patches{int(patch_size_um)}um")
+    if window_size_px is not None:
+        s += f"_w{window_size_px}"
+    if hd_binning is not None:
+        if hd_dims is None:
+            raise ValueError("HD patch caches are dims-specific: "
+                             "patch_cache_suffix needs hd_dims with "
+                             "hd_binning")
+        s = f"_{hd_binning}_{hd_dims[0]}x{hd_dims[1]}{s}"
+    return s
+
+
+def save_visium_patches(img_file, spaceranger_dir, dest_dir, patch_size: int = 256,
+                        window_size=None, hd_binning: Optional[str] = None,
+                        h_st: Optional[int] = None, w_st: Optional[int] = None, *,
+                        device="cuda", timer=None) -> int:
+    """Write one array's JPEG patch cache: ``{array}_{col}_{row}.jpg`` under
+    ``dest_dir``, one file a spot whose patch has a nonzero pixel, byte-equal
+    to the JAX package's ``save_visium_patches``. Returns the file count.
+
+    The slide decodes on the host (:func:`gridnext_tpu_torch.ingest.decode_slide`)
+    and moves to ``device``, where it is edge-padded by ``window // 2``
+    (``window_size``: pixels, a float share of the slide's width, or None
+    for ``patch_size``), every in-tissue spot inside the lattice is cropped
+    from its rounded centre in one gather launch and, where the window
+    differs from ``patch_size``, resampled by Pillow's bicubic
+    (:func:`pil_resample`) -- all uint8 (:func:`crop_grid`). Spots outside
+    the lattice are dropped with the JAX package's warning. File names carry
+    pseudo-hex (array_col, array_row), or the direct coordinates for Visium
+    HD (``hd_binning``; the lattice defaults to the array's
+    ``hd_lattice_dims``). The patches are encoded on the host's cores at
+    quality 75 (:func:`~gridnext_tpu_torch.io.jpeg.encode_jpeg_batch`) into
+    a temporary directory renamed to ``dest_dir`` at the end, so an
+    interrupted run leaves no partial cache (an existing ``dest_dir`` is
+    replaced). ``timer`` times ``"decode"``, ``"crop"``, ``"resample"``,
+    ``"grid"`` and ``"encode"``.
+    """
+    from gridnext_tpu_torch import ingest
+    from gridnext_tpu_torch.io.jpeg import encode_jpeg_batch
+    from gridnext_tpu_torch.io.spaceranger import hd_lattice_dims, read_positions
+
+    if hd_binning is not None and (h_st is None or w_st is None):
+        dims = hd_lattice_dims(spaceranger_dir, hd_binning)
+        h_st = dims[0] if h_st is None else h_st
+        w_st = dims[1] if w_st is None else w_st
+    h_st = geometry.VISIUM_H_ST if h_st is None else int(h_st)
+    w_st = geometry.VISIUM_W_ST if w_st is None else int(w_st)
+    dev = torch.device(device)
+    with stage(timer, "decode"):
+        wsi = ingest.decode_slide(img_file)
+    if window_size is None:
+        window = patch_size
+    elif isinstance(window_size, float):
+        window = int(window_size * wsi.shape[1])
+    elif isinstance(window_size, int):
+        window = window_size
+    else:
+        raise ValueError("Window size must be a float or int")
+    hex_coords = hd_binning is None
+    oy, ox, y_px, x_px = spot_pixel_arrays(read_positions(spaceranger_dir, hd_binning), h_st,
+                                           w_st, hex_coords, warn=True)
+    slide = torch.from_numpy(np.require(wsi, requirements="W")).to(dev)
+    del wsi
+    # padded by window // 2, the slide's window around a centre starts at it
+    grid = crop_grid(edge_pad(slide, window // 2), oy, ox, y_px, x_px, window, patch_size,
+                     h_st, w_st, dtype=torch.uint8, pil_filter="bicubic", timer=timer)
+    del slide
+    with stage(timer, "encode"):
+        fg = (grid.reshape(h_st, w_st, -1).amax(-1) > 0).nonzero().cpu().numpy()
+        patches = grid[torch.as_tensor(fg[:, 0], device=dev),
+                       torch.as_tensor(fg[:, 1], device=dev)].cpu().numpy()
+        del grid
+        fy, fx = fg[:, 0], fg[:, 1]
+        cols, rows = geometry.oddr_to_pseudo_hex(fx, fy) if hex_coords else (fx, fy)
+        name = str(Path(spaceranger_dir).stem)
+        tmp_dir = f"{dest_dir}.tmp-{os.getpid()}"
+        os.makedirs(tmp_dir, exist_ok=True)
+        encode_jpeg_batch(patches, [os.path.join(tmp_dir, f"{name}_{int(c)}_{int(r)}.jpg")
+                                    for c, r in zip(np.atleast_1d(cols), np.atleast_1d(rows))],
+                          quality=75)
+        if os.path.isdir(str(dest_dir)):   # the caller asked to (re)write this cache
+            import shutil
+
+            shutil.rmtree(str(dest_dir))
+        os.replace(tmp_dir, str(dest_dir))
+    return len(fg)
+
+
+def save_visium_patches_all(wsi_files, spaceranger_dirs, dest_dir, patch_size: int = 256,
+                            window_size=None, *, device="cuda"):
+    """:func:`save_visium_patches` of several arrays, each into
+    ``dest_dir/<image stem>`` (the JAX package's ``save_visium_patches_all``)."""
+    os.makedirs(dest_dir, exist_ok=True)
+    for img_file, srd in zip(wsi_files, spaceranger_dirs):
+        print(f"{img_file} : {srd} ...")
+        save_visium_patches(img_file, srd, os.path.join(str(dest_dir), str(Path(img_file).stem)),
+                            patch_size, window_size, device=device)
 
 
 def remove_color_cast(img: np.ndarray) -> np.ndarray:

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card
-(and the card's PCA fit against float64, the mesh registrar's launches).
+(and the card's PCA fit against float64, the mesh registrar's launches, the
+JPEG codec against the committed Pillow fixtures and the patch-cache
+writer's crop on the card against its plain route).
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels have no CPU mode. This file imports neither JAX nor the JAX
@@ -594,3 +596,57 @@ def test_mesh_registrar_launches_a_gather_a_shard(dev):
     torch.cuda.synchronize()
     assert gather.launches - n == 3                     # 2 shards + the single pass
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _jpeg_fixtures():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "make_jpeg_fixtures.py"
+    spec = importlib.util.spec_from_file_location("make_jpeg_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load()          # the committed files: no PIL needed
+
+
+def test_jpeg_codec_holds_to_the_committed_fixtures(dev):
+    """The card machine's codec against Pillow's recorded output: each
+    fixture decodes to Pillow's pixels and the 4:2:0 and gray ones' pixels
+    encode to Pillow's bytes (``tools/make_jpeg_fixtures.py``)."""
+    from gridnext_tpu_torch.io import jpeg
+
+    fixtures = _jpeg_fixtures()
+    assert len(fixtures) >= 6
+    for name, f in fixtures.items():
+        np.testing.assert_array_equal(jpeg.decode_jpeg(f["jpeg"], n_threads=1), f["decoded"],
+                                      err_msg=name)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(f["jpeg"]), f["decoded"], err_msg=name)
+        if f["subsampling"] == "4:2:0" and not f["restart_blocks"]:
+            assert jpeg.encode_jpeg(f["pixels"], quality=f["quality"]) == f["jpeg"], name
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_cache_writer_crop_on_the_card_matches_plain_route(dev, tmp_path, window):
+    """``save_visium_patches`` with the crop on the card (one gather launch)
+    writes the same files as with CPU tensors (the gather's plain version,
+    Pillow's resample on the host)."""
+    import filecmp
+
+    from gridnext_tpu_torch.data.simulate import simulate_spaceranger_dir
+    from gridnext_tpu_torch.pipeline import save_visium_patches
+
+    sim = simulate_spaceranger_dir(tmp_path / "a0", n_genes=5, n_classes=3, image=True,
+                                   seed=20, spot_spacing_px=20, tissue_fraction=0.3)
+    kw = dict(patch_size=32, window_size=window)
+    n = gather.launches
+    count = save_visium_patches(sim["image_file"], sim["spaceranger_dir"], tmp_path / "card",
+                                device=dev, **kw)
+    assert gather.launches - n == 1
+    save_visium_patches(sim["image_file"], sim["spaceranger_dir"], tmp_path / "plain",
+                        device="cpu", **kw)
+    names = sorted(p.name for p in (tmp_path / "card").iterdir())
+    assert len(names) == count > 100
+    assert names == sorted(p.name for p in (tmp_path / "plain").iterdir())
+    _, mismatch, errors = filecmp.cmpfiles(tmp_path / "card", tmp_path / "plain", names,
+                                           shallow=False)
+    assert not mismatch and not errors

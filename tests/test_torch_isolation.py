@@ -3,9 +3,8 @@
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
 scikit-learn, pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
-(the slide decoder, never called on the card) and inside the image writers
-of ``data/simulate.py`` (``simulate_spaceranger_dir(image=True)`` and
-``pseudo_visium_from_image``), as the JAX package writes its fixtures. The
+and ``data/simulate.py``'s ``pseudo_visium_from_image``, for images other
+than JPEG only (a JPEG goes through the port's codec, ``io/jpeg.py``). The
 training commands that need no image (``pretrain-scbert``, ``train-graph``)
 run end to end with ``--device cpu`` in a process that imports none of
 them, and without a card their default ``cuda`` raises; so do the cohort
@@ -33,8 +32,7 @@ PKG = REPO / "gridnext_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu",
              "sklearn")
 # (file, function) pairs that may import PIL lazily
-PIL_ALLOWED = {("ingest.py", "decode_slide"), ("simulate.py", "simulate_spaceranger_dir"),
-               ("simulate.py", "pseudo_visium_from_image")}
+PIL_ALLOWED = {("ingest.py", "decode_slide"), ("simulate.py", "pseudo_visium_from_image")}
 
 
 def _modules():
