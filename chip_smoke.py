@@ -133,11 +133,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (``cli.main(["register", ...])``, decode swapped for ``np.load``),
     the gather's and FAVOR's counts set to 0 just before each command and
     read just after: (a) phase 9's scBERT + DenseNet-121 directory with
-    its scBERT cut to ``MM_STEP_DEPTH`` = 2 of its 6 layers (phase 9 runs
+    its scBERT cut to ``MM_STEP_DEPTH`` = 1 of its 6 layers (phase 9 runs
     all 6; the cut keeps the script inside its time limit) over slide 0's
     Spaceranger directory (phase 4's positions, a unified cache of phase
     9's raw counts under feature IDs, a MEX whose ``features.tsv.gz`` maps
-    them to the gene2vec symbols): 1 gather launch, 1,248 FAVOR launches,
+    them to the gene2vec symbols): 1 gather launch, 624 FAVOR launches,
     the CSV naming the labels of the same model's direct forward on phase
     9's request inputs up to near-ties; (b) a CountMLP + TpuPatchClassifier directory at
     ``window_px`` 160 with ``log1p``, the labels those of a direct forward
@@ -188,8 +188,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (``favor_gradient_gate``); then
     one ``train_gridwise`` step of phase 9's GridNetHexMM (scBERT +
     DenseNet-121, both frozen) over a full grid with its scBERT cut to
-    ``MM_STEP_DEPTH`` = 2 of its 6 layers (phase 9 runs all 6 on the same
-    weights; the cut keeps the script inside its time limit), 1,248 FAVOR
+    ``MM_STEP_DEPTH`` = 1 of its 6 layers (phase 9 runs all 6 on the same
+    weights; the cut keeps the script inside its time limit), 624 FAVOR
     calls; the phase's seconds and peak device memory, each number beside
     the card's name and power limit;
 15. the count data tier at full transcriptome width: (a) the ``simulate``
@@ -259,9 +259,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     labels-corrector launches; ``register`` of the student directory (the
     CSVs its registrar's labels up to near-ties) and ``evaluate`` of both
     directories (consensus); (c) ``distill`` of phase 13 (a)'s scBERT (depth
-    ``MM_STEP_DEPTH`` = 2) + DenseNet-121 directory over array 0's
+    ``MM_STEP_DEPTH`` = 1) + DenseNet-121 directory over array 0's
     16,906-gene cache, 50 steps of batch 64 (cut from 2,000 of 256): FAVOR's
-    count 2 x the teacher forwards (steps + the holdout's batches of 64), the
+    count 1 x the teacher forwards (steps + the holdout's batches of 64), the
     written directory ``count_f: "mlp"`` with its image f and corrector
     bit-equal to the teacher's; the teacher on a 64-row chunk of the pool
     through the FAVOR kernel and through its plain version (its first
@@ -271,7 +271,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and one 256-row chunk (the default ``--batch-size``, which also sets
     the holdout chunk) through the kernel, its peak memory and its first
     64 rows against the plain route; ``evaluate`` of teacher + student over
-    array 0 (1,248 FAVOR calls); every number beside the card's name and
+    array 0 (624 FAVOR calls); every number beside the card's name and
     power limit;
 18. the serving surfaces, each path with the counts of the gather, the
     labels corrector and FAVOR set to 0 just before it and read just after:
@@ -388,14 +388,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and read just after; then ``train-image --f tpu --epochs 1`` through
     the factory's cache route (``PatchSpotDataset``, ``PatchGridDataset``),
     its losses finite, and ``register`` of the directory it writes;
-22. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+22. TIFF and PNG slides through the port's readers, without PIL (``io/tiff.py``,
+    ``io/png.py``, ``csrc/raster_codec.cpp``): (a) the committed Pillow
+    fixtures of ``tools/make_tiff_fixtures.py`` bit-equal; (b) slide 0 at
+    full width written by the script's own small writers as a Deflate TIFF
+    (Predictor 2, 16-row strips), a BigTIFF of 256-px JPEG tiles (YCbCr)
+    and a Sub-filtered PNG, each decoded on 1 thread and on all (MP/s)
+    equal to its source (the tiles: their own ``decode_jpeg``); (c)
+    ``register`` of phase 10's model directory on the two TIFFs, one gather
+    and one labels-corrector launch each, the labels equal (0 flips) to the
+    registrar's on the same pixels;
+23. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
     ``launches_artifact``, phase 18's, and ``launches_mesh``, phase 19's;
     the gather and labels-corrector rows ``launches_profile_register`` and
     ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s, and
-    ``launches_jpeg_register``, phase 21 (c)'s; the gather's row
+    ``launches_jpeg_register``, phase 21 (c)'s, and
+    ``launches_tiff_register``, phase 22 (c)'s; the gather's row
     ``launches_prepare_images``, phase 21 (b)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
     phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
@@ -2753,9 +2764,9 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
 TRAIN_BATCH = 32              # train-image's --batch-size
 TRAIN_LR = 1e-3               # train-image's --f-lr and --g-lr
 TRAIN_TRACE_BATCHES = 8       # spotwise batches in the traced epoch (256 spots; cut from 20)
-TRAIN_TIMED_BATCHES = 64      # spotwise batches timed untraced (cut from the epoch's 213)
+TRAIN_TIMED_BATCHES = 32      # spotwise batches timed untraced (cut from the epoch's 213)
 SCBERT_BATCH, SCBERT_STEPS = 8, 8
-MM_STEP_DEPTH = 2             # scBERT layers in (c)'s GridNetHexMM grid step (cut from 6)
+MM_STEP_DEPTH = 1             # scBERT layers in (c)'s GridNetHexMM grid step (cut from 6)
 TRAIN_TINT = 48               # +- intensity of a class's colour tint in its spots' windows
 TRAIN_NOISE = 0.1             # share of spots whose annotation is another class
 GRID_WINDOW = (24, 16)        # top-left cell of (b)'s 32 x 32 grid window
@@ -5817,6 +5828,276 @@ def phase_jpeg(torch, slides, port, card, tmp, image) -> dict:
                          "register": reg_launches}, "s": seconds}
 
 
+# -- phase 22: TIFF and PNG slides without PIL ---------------------------------
+
+TIFF_ROWS_PER_STRIP = 16      # (b)'s Deflate TIFF: 16-row strips (0.43 MB of pixels each)
+TIFF_TILE = 256               # (b)'s BigTIFF: 256-px JPEG tiles, as scanners write them
+TIFF_JPEG_QUALITY = 75        # the tiles' quality (Pillow's default)
+RASTER_ZLIB_LEVEL = 1         # the writer's Deflate level (the reader's speed does not
+                              # depend on it much; the writer's does)
+
+
+def raster_fixtures() -> dict:
+    """The committed Pillow fixtures of the TIFF and PNG readers
+    (``tools/make_tiff_fixtures.py``'s ``load``, which needs no PIL)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "make_tiff_fixtures.py")
+    spec = importlib.util.spec_from_file_location("make_tiff_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load()
+
+
+def tiff_file(shape, segments, *, compression: int, photometric: int, tile=None,
+              rows_per_strip=None, predictor: int = 1, bigtiff: bool = False,
+              ycbcr=None) -> bytes:
+    """A little-endian one-page TIFF (or BigTIFF) of ``shape`` (h, w, c)
+    whose strips or tiles (``tile`` = side) are the encoded ``segments``."""
+    import struct
+
+    h, w, c = shape
+    off_type, off_fmt, count_fmt, n_fmt, inline = (
+        (16, "Q", "Q", "Q", 8) if bigtiff else (4, "I", "I", "H", 4))
+    data = bytearray(b"II" + (struct.pack("<HHHQ", 43, 8, 0, 0) if bigtiff
+                              else struct.pack("<HI", 42, 0)))
+    offsets, counts = [], []
+    for seg in segments:
+        offsets.append(len(data))
+        counts.append(len(seg))
+        data += seg
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * c), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [c]), 284: (3, [1])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if ycbcr:
+        tags[530] = (3, list(ycbcr))
+    if tile:
+        tags.update({322: (3, [tile]), 323: (3, [tile]), 324: (off_type, offsets),
+                     325: (off_type, counts)})
+    else:
+        tags.update({273: (off_type, offsets), 278: (4, [rows_per_strip]),
+                     279: (off_type, counts)})
+    fmt = {3: "H", 4: "I", 16: "Q"}
+    entries = []
+    for tag in sorted(tags):
+        ftype, values = tags[tag]
+        raw = struct.pack("<" + fmt[ftype] * len(values), *values)
+        if len(raw) > inline:
+            ref = len(data)
+            data += raw
+            raw = struct.pack("<" + off_fmt, ref)
+        entries.append(struct.pack("<HH" + count_fmt, tag, ftype, len(values))
+                       + raw.ljust(inline, b"\0"))
+    ifd = len(data)
+    data += struct.pack("<" + n_fmt, len(entries)) + b"".join(entries) + bytes(inline)
+    struct.pack_into("<" + off_fmt, data, 8 if bigtiff else 4, ifd)
+    return bytes(data)
+
+
+def zlib_stream(data, pool, parts: int) -> bytes:
+    """One zlib stream of ``data``, deflated in ``parts`` pieces on ``pool``
+    (as pigz does: each piece raw Deflate ending on a byte boundary, the last
+    one final; the header and the Adler-32 of the whole around them)."""
+    import zlib
+
+    view = memoryview(data)
+    step = -(-len(view) // parts)
+
+    def piece(i):
+        c = zlib.compressobj(RASTER_ZLIB_LEVEL, zlib.DEFLATED, -15)
+        last = i + step >= len(view)
+        return c.compress(view[i:i + step]) + c.flush(zlib.Z_FINISH if last
+                                                      else zlib.Z_SYNC_FLUSH)
+
+    body = b"".join(pool.map(piece, range(0, len(view), step)))
+    return b"\x78\x01" + body + zlib.adler32(view).to_bytes(4, "big")
+
+
+def png_file(pixels: np.ndarray, pool, parts: int) -> bytes:
+    """An RGB PNG of ``pixels`` ((h, w, 3) uint8), every row Sub-filtered,
+    its image data deflated on ``pool`` (:func:`zlib_stream`)."""
+    import struct
+    import zlib
+
+    h, w, _ = pixels.shape
+    rows = np.empty((h, 1 + w * 3), np.uint8)
+    rows[:, 0] = 1
+    flat = pixels.reshape(h, w * 3)
+    rows[:, 1:4] = flat[:, :3]
+    np.subtract(flat[:, 3:], flat[:, :-3], out=rows[:, 4:])     # uint8 wraps, as PNG's
+
+    def chunk(ctype, payload):
+        return (struct.pack(">I", len(payload)) + ctype + payload
+                + struct.pack(">I", zlib.crc32(payload, zlib.crc32(ctype))))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib_stream(rows, pool, parts))
+            + chunk(b"IEND", b""))
+
+
+def phase_tiff(torch, slides, port, card, tmp, image) -> dict:
+    """Phase 22: TIFF and PNG slides through the port's own readers, without
+    PIL. (a) the committed Pillow fixtures decode bit-equal on 1 thread and
+    on all; (b) slide 0 at full width written three ways by the writers
+    above (a classic TIFF of Deflate strips under Predictor 2; a BigTIFF of
+    256-px JPEG tiles, Photometric YCbCr, each tile padded to the full tile
+    and encoded by the port's encoder (``encode_jpeg_batch``, one tile a
+    thread); a PNG of Sub-filtered rows),
+    the TIFFs decoded on 1 thread and on all and the PNG (one zlib stream)
+    once, MP/s printed, each equal to its source pixels or, for the JPEG
+    tiles, to each tile's own decode (``decode_jpeg_batch``); (c)
+    ``register`` (the command) of phase 10's model directory on the Deflate
+    TIFF and on the JPEG BigTIFF, the gather's and the labels corrector's
+    counts set to 0 just before each and read just after (one launch each),
+    the labels equal, with 0 flips, to the registrar's on slide 0's array
+    (the ``.npy`` route's pixels) and on the tiles' decoded pixels.
+    Returns the launches of (c)'s two commands and the phase's seconds."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.io import jpeg, png, tiff
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 22: TIFF and PNG slides through the port's readers (no PIL)")
+    dev = slides.device
+    t_phase = time.perf_counter()
+    threads = os.cpu_count()
+
+    # (a) Pillow's recorded pixels
+    fixtures = raster_fixtures()
+    for name, f in fixtures.items():
+        decodes = ([tiff.decode_tiff(f["data"], n_threads=n) for n in (1, 0)]
+                   if name.endswith(".tif") else [png.decode_png(f["data"])])
+        if not all(np.array_equal(d, f["decoded"]) for d in decodes):
+            raise AssertionError(f"(a) fixture {name} ({f['what']}) decodes to other pixels "
+                                 "than Pillow's")
+    log(f"(a) {len(fixtures)} Pillow fixtures (TIFF: none, LZW, Deflate, PackBits, JPEG RGB "
+        f"and YCbCr, tiles, BigTIFF, big-endian, planes, palette, gray, RGBA; PNG: every "
+        f"filter, palette, gray, RGBA) decoded bit-equal, TIFFs on 1 and {threads} threads")
+
+    # (b) slide 0 written three ways, then decoded
+    wsi = slides[0].cpu().numpy()
+    h, w = wsi.shape[:2]
+    mp = h * w / 1e6
+    root = os.path.join(tmp, "tiff")
+    srd, mask = write_spaceranger_dir(root, geometry, TISSUE_FRACTIONS[0], 0)
+    files, wants, write_s = {}, {}, {}
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        diff = wsi.copy()
+        np.subtract(wsi[:, 1:], wsi[:, :-1], out=diff[:, 1:])      # Predictor 2
+        strips = list(pool.map(
+            lambda y: zlib.compress(diff[y:y + TIFF_ROWS_PER_STRIP].tobytes(),
+                                    RASTER_ZLIB_LEVEL), range(0, h, TIFF_ROWS_PER_STRIP)))
+        del diff
+        files["deflate"] = tiff_file(wsi.shape, strips, compression=8, photometric=2,
+                                     rows_per_strip=TIFF_ROWS_PER_STRIP, predictor=2)
+        del strips
+        wants["deflate"] = wsi
+        write_s["deflate"] = time.perf_counter() - t0
+        # the tiles, padded to the full tile, encoded one a thread and read back
+        t0 = time.perf_counter()
+        ty, tx = -(-h // TIFF_TILE), -(-w // TIFF_TILE)
+        padded = np.zeros((ty * TIFF_TILE, tx * TIFF_TILE, 3), np.uint8)
+        padded[:h, :w] = wsi
+        stack = np.ascontiguousarray(padded.reshape(ty, TIFF_TILE, tx, TIFF_TILE, 3)
+                                     .transpose(0, 2, 1, 3, 4)
+                                     .reshape(-1, TIFF_TILE, TIFF_TILE, 3))
+        tile_dir = os.path.join(root, "tiles")
+        os.makedirs(tile_dir)
+        names = [os.path.join(tile_dir, f"{k}.jpg") for k in range(len(stack))]
+        jpeg.encode_jpeg_batch(stack, names, quality=TIFF_JPEG_QUALITY)
+        tiles = []
+        for name in names:
+            with open(name, "rb") as fh:
+                tiles.append(fh.read())
+        files["jpeg"] = tiff_file(wsi.shape, tiles, compression=7, photometric=6,
+                                  tile=TIFF_TILE, bigtiff=True, ycbcr=(2, 2))
+        write_s["jpeg"] = time.perf_counter() - t0
+        # the pixels the tiles decode to, each on its own
+        padded[:] = (jpeg.decode_jpeg_batch(names, TIFF_TILE)
+                     .reshape(ty, tx, TIFF_TILE, TIFF_TILE, 3).transpose(0, 2, 1, 3, 4)
+                     .reshape(padded.shape))
+        wants["jpeg"] = np.ascontiguousarray(padded[:h, :w])
+        del tiles, stack, padded
+        t0 = time.perf_counter()
+        files["png"] = png_file(wsi, pool, 4 * threads)
+        wants["png"] = wsi
+        write_s["png"] = time.perf_counter() - t0
+    paths, rates = {}, {}
+    for kind, data in files.items():
+        paths[kind] = os.path.join(root, f"slide0.{'png' if kind == 'png' else 'tif'}")
+        if kind == "jpeg":
+            paths[kind] = os.path.join(root, "slide0_jpeg_tiles.tif")
+        with open(paths[kind], "wb") as fh:
+            fh.write(data)
+        size_mb = len(data) / 1e6
+        del data
+        runs = {}
+        for n_threads in ((1, 0) if kind != "png" else (1,)):     # a PNG: one stream
+            t0 = time.perf_counter()
+            got = (png.decode_png(paths[kind]) if kind == "png"
+                   else tiff.decode_tiff(paths[kind], n_threads=n_threads))
+            runs[n_threads or threads] = time.perf_counter() - t0
+            if not np.array_equal(got, wants[kind]):
+                raise AssertionError(f"(b) the {kind} slide decodes to other pixels than its "
+                                     f"source's ({n_threads or threads} threads)")
+            del got
+        rates[kind] = {"file_mb": round(size_mb, 1), "write_s": round(write_s[kind], 3),
+                       **{f"decode_s_{n}": round(v, 4) for n, v in runs.items()},
+                       **{f"mp_per_s_{n}": round(mp / v, 1) for n, v in runs.items()}}
+        log(f"(b) {kind}: {size_mb:.1f} MB written in {write_s[kind]:.2f} s; decode "
+            + ", ".join(f"{v:.3f} s on {n} thread{'s' if n > 1 else ''} ({mp / v:.1f} MP/s)"
+                        for n, v in runs.items())
+            + f"; equal to its source's pixels [{card}]")
+    files.clear()
+    del wsi
+
+    # (c) register of the lossless and the JPEG slide through the command
+    pos = io.read_positions(srd)
+    n_spots = int(mask.sum())
+    reg = image["registrar"]
+    launches = {"gather_patches": 0, "fused_hex_corrector_labels": 0}
+    reg_s = {}
+    for kind in ("deflate", "jpeg"):
+        out = os.path.join(root, f"slide0_{kind}.csv")
+        torch.cuda.synchronize()
+        gather.launches = 0
+        for k in corr.launches:
+            corr.launches[k] = 0
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", image["model_dir"], "--images", paths[kind],
+                  "--spaceranger", srd, "--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        reg_s[kind] = time.perf_counter() - t0
+        got_launches = {"gather_patches": gather.launches,
+                        "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+        if got_launches != {"gather_patches": 1, "fused_hex_corrector_labels": 1}:
+            raise AssertionError(f"(c) register of the {kind} slide launched {got_launches}")
+        for k, v in got_launches.items():
+            launches[k] += v
+        slide = torch.from_numpy(wants[kind]).to(dev)
+        want = reg(slide, pos)
+        logits, _ = reg.register_logits(slide, pos)
+        del slide
+        got, n_rows = loupe_grid(out, mask.shape, image["classes"])
+        flips = serving.label_parity_report(want, got, logits)
+        if flips or n_rows != n_spots or not np.array_equal(np.asarray(want), got):
+            raise AssertionError(f"(c) register of the {kind} slide: {flips} flips, {n_rows} "
+                                 f"rows for {n_spots} spots")
+        log(f"(c) register of the {kind} slide: {reg_s[kind]:.2f} s with the decode; labels "
+            f"equal to the registrar's on the "
+            f"{'array (the .npy route)' if kind == 'deflate' else 'tiles decoded one by one'}, "
+            f"0 flips; launches {json.dumps(got_launches)} [{card}]")
+    wants.clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 22: {seconds:.1f} s; (b) {json.dumps(rates)} [{card}]")
+    return {"launches": launches, "s": seconds, "rates": rates}
+
+
 def main() -> int:
     import torch
 
@@ -5841,10 +6122,12 @@ def main() -> int:
 
     from gridnext_tpu_torch.ops import _host
 
-    with ThreadPoolExecutor(1) as pool:       # the host codec's g++ beside the nvcc builds
-        codec = pool.submit(lambda: (_host.build("jpeg_codec"), time.perf_counter() - t0))
+    with ThreadPoolExecutor(2) as pool:       # the host codecs' g++ beside the nvcc builds
+        host = {name: pool.submit(lambda n: (_host.build(n), time.perf_counter() - t0), name)
+                for name in ("jpeg_codec", "raster_codec")}
         built = _cuda.build()
-        log(f"built jpeg_codec.cpp (g++, host) in {codec.result()[1]:.1f} s")
+        for name, job in host.items():
+            log(f"built {name}.cpp (g++, host) in {job.result()[1]:.1f} s")
     for name, info in built.items():
         log(f"built {name}.cu in {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -5908,6 +6191,7 @@ def main() -> int:
         mesh_c = phase_mesh_register(torch, slides, port, card, image_dir, dirs_masks, batch4)
         profile_reg = phase_profile_register(torch, port, card, tmp, image_dir, dirs_masks)
         jpeg_res = phase_jpeg(torch, slides, port, card, tmp, image_dir)
+        tiff_res = phase_tiff(torch, slides, port, card, tmp, image_dir)
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
@@ -6005,6 +6289,8 @@ def main() -> int:
             k["launches_torch_checkpoint"] = torch_ckpt["launches"][k["name"]]
             # phase 21 (c)'s path: register on the JPEG slide
             k["launches_jpeg_register"] = jpeg_res["launches"]["register"][k["name"]]
+            # phase 22 (c)'s path: register on the Deflate TIFF and the JPEG BigTIFF
+            k["launches_tiff_register"] = tiff_res["launches"][k["name"]]
     # phase 21 (b)'s path: prepare --images, one launch an array
     by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
     print(card)

@@ -1843,7 +1843,7 @@ def build_parser():
     s.add_argument("--classes", type=int, default=4)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--image", action="store_true",
-                   help="also write a fullres JPEG a directory (needs PIL)")
+                   help="also write a fullres JPEG a directory (the port's JPEG encoder)")
     s.add_argument("--gene2vec-names", action="store_true",
                    help="name the simulated genes from the gene2vec vocabulary "
                         "(so the cohort feeds scBERT count models)")

@@ -591,13 +591,18 @@ class Decoder {
   int out_components() const { return comps_.size() == 1 ? 1 : 3; }
   int sof() const { return sof_; }
 
+  // Three components as stored (1: RGB, libtiff's JCS_UNKNOWN for a TIFF of
+  // Photometric RGB) or as YCbCr (0), whatever the markers say; -1 (the
+  // default) picks by libjpeg's rule.
+  void set_colour(int colour) { colour_ = colour; }
+
  private:
   const uint8_t* d_;
   int64_t n_;
   int64_t pos_ = 0;
   int width_ = 0, height_ = 0, sof_ = -1;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
-  int restart_interval_ = 0;
+  int restart_interval_ = 0, colour_ = -1;
   bool saw_jfif_ = false, saw_adobe_ = false, rgb_ = false;
   int adobe_transform_ = 0;
   uint16_t qt_[4][64];
@@ -723,7 +728,11 @@ class Decoder {
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
     }
-    if (nc == 3) {
+    if (nc == 3 && colour_ >= 0) {
+      rgb_ = colour_ == 1;
+      if (rgb_ && (hmax_ != 1 || vmax_ != 1))
+        fail("unsupported JPEG: RGB components (no colour transform) with subsampled chroma");
+    } else if (nc == 3) {
       if (saw_jfif_) {
         rgb_ = false;
       } else if (saw_adobe_) {
@@ -1337,6 +1346,65 @@ int jpeg_decode_files(const char** paths, int64_t n, int64_t side, uint8_t* out,
         full.decode(out + i * side * side * 3, 1);
       } catch (const std::exception& e) {
         fail(std::string(paths[i]) + ": " + e.what());
+      }
+    });
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// Decode n abbreviated JPEG streams (a TIFF's JPEG strips or tiles) into out
+// (H, W, oc), one stream a thread. Stream i is base[offsets[i], offsets[i] +
+// counts[i]); with tables (a TIFF's JPEGTables, tables_len > 0) it decodes
+// as the tables without their EOI followed by the stream without its SOI.
+// geom[4 i ..]: y0, x0, rows, cols, the part of the stream's image inside
+// out. colour: as Decoder::set_colour. kind names a stream in messages.
+int jpeg_decode_segments(const uint8_t* tables, int64_t tables_len, const uint8_t* base,
+                         const int64_t* offsets, const int64_t* counts, const int32_t* geom,
+                         int64_t n, int colour, uint8_t* out, int W, int oc, const char* kind,
+                         int n_threads, char* err, int errlen) {
+  try {
+    int64_t head = tables_len;
+    if (head >= 2 && tables[head - 2] == 0xFF && tables[head - 1] == 0xD9) head -= 2;
+    parallel_for(n, n_threads, [&](int64_t i) {
+      try {
+        const uint8_t* seg = base + offsets[i];
+        int64_t len = counts[i];
+        std::vector<uint8_t> spliced;
+        if (tables_len > 0) {
+          if (len >= 2 && seg[0] == 0xFF && seg[1] == 0xD8) {
+            seg += 2;
+            len -= 2;
+          }
+          spliced.resize(static_cast<size_t>(head + len));
+          std::memcpy(spliced.data(), tables, static_cast<size_t>(head));
+          std::memcpy(spliced.data() + head, seg, static_cast<size_t>(len));
+          seg = spliced.data();
+          len = static_cast<int64_t>(spliced.size());
+        }
+        Decoder d(seg, len);
+        d.set_colour(colour);
+        d.probe();
+        const int32_t* g = geom + 4 * i;
+        if (d.out_components() != oc)
+          fail("holds " + std::to_string(d.components()) + " components, not " +
+               std::to_string(oc));
+        if (d.width() < g[3] || d.height() < g[2])
+          fail("is " + std::to_string(d.width()) + "x" + std::to_string(d.height()) +
+               ", smaller than its " + std::to_string(g[3]) + "x" + std::to_string(g[2]) +
+               " pixels");
+        std::vector<uint8_t> px(static_cast<size_t>(d.width()) * d.height() * oc);
+        Decoder full(seg, len);
+        full.set_colour(colour);
+        full.decode(px.data(), 1);
+        const int64_t row = static_cast<int64_t>(d.width()) * oc;
+        for (int r = 0; r < g[2]; ++r)
+          std::memcpy(out + (static_cast<int64_t>(g[0] + r) * W + g[1]) * oc, &px[r * row],
+                      static_cast<size_t>(g[3]) * oc);
+      } catch (const std::exception& e) {
+        fail(std::string(kind) + " " + std::to_string(i) + ": " + e.what());
       }
     });
     return 0;

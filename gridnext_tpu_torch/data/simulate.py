@@ -239,19 +239,26 @@ def pseudo_visium_from_image(fullres_roi, dest_dir, image_width_mm: float = 8,
     (``data/simulate.py:247-323``). ``template='visium_v1'``: the real
     slide template's barcodes, in-tissue pattern and scalefactors (spot
     and fiducial diameters rescaled to ``spot_width_um``);
-    ``'synthetic'``: ``SYN`` barcodes, every spot in tissue. Reads a JPEG's
-    header with the port's codec and any other image with PIL. Returns the
-    created directory."""
+    ``'synthetic'``: ``SYN`` barcodes, every spot in tissue. Reads a JPEG's,
+    TIFF's or PNG's header with the port's readers and any other image with
+    PIL. Returns the created directory."""
     from gridnext_tpu_torch.io.jpeg import is_jpeg_file, jpeg_info
+    from gridnext_tpu_torch.io.png import is_png_file, png_info
+    from gridnext_tpu_torch.io.tiff import is_tiff_file, tiff_info
 
+    # the first dimension (the height), as the reference takes it
     if is_jpeg_file(fullres_roi):
-        w_px = jpeg_info(fullres_roi)["height"]   # the first dimension, as the
-    else:                                         # reference takes it
+        w_px = jpeg_info(fullres_roi)["height"]
+    elif is_tiff_file(fullres_roi):
+        w_px = tiff_info(fullres_roi)["height"]
+    elif is_png_file(fullres_roi):
+        w_px = png_info(fullres_roi)["height"]
+    else:
         try:
             from PIL import Image
         except ImportError as e:
-            raise ImportError("pseudo_visium_from_image reads images other than JPEG "
-                              "with PIL, which is not installed") from e
+            raise ImportError("pseudo_visium_from_image reads images other than JPEG, TIFF "
+                              "and PNG with PIL, which is not installed") from e
 
         w_px = np.asarray(Image.open(fullres_roi)).shape[0]
     px_per_mm = w_px / image_width_mm

@@ -50,26 +50,38 @@ from gridnext_tpu_torch.observability import StageTimer
 
 
 def decode_slide(image_file, convert: str = "RGB") -> np.ndarray:
-    """Decode one slide to (H, W, 3) uint8 (RGBA and grayscale slides
-    convert: the gather expects 3 channels).
+    """Decode one slide to (H, W, 3) uint8 (RGBA, palette and grayscale
+    slides convert: the gather expects 3 channels).
 
-    A JPEG (by its first bytes) decodes with the port's codec
-    (:func:`gridnext_tpu_torch.io.jpeg.decode_jpeg`, Pillow's pixels, no
-    PIL), a grayscale one repeated to 3 channels as ``convert("RGB")``
-    repeats it; a JPEG the codec refuses (progressive, CMYK, ...) raises
-    ``ValueError``. Other formats (TIFF, PNG, ...) decode with PIL, and
+    The file's first bytes pick the reader: a JPEG decodes with the port's
+    codec (:func:`gridnext_tpu_torch.io.jpeg.decode_jpeg`), a TIFF or BigTIFF
+    with :func:`gridnext_tpu_torch.io.tiff.decode_tiff` and a PNG with
+    :func:`gridnext_tpu_torch.io.png.decode_png`, each giving the pixels
+    ``np.asarray(Image.open(f).convert("RGB"))`` gives, without PIL; a file
+    of those formats that its reader refuses (a progressive JPEG, a 16-bit
+    TIFF, an interlaced PNG, ...) raises ``ValueError`` naming the file, and
+    never reaches PIL. Other formats (BMP, WebP, ...) decode with PIL, and
     without PIL raise ``ImportError``.
     """
-    from gridnext_tpu_torch.io.jpeg import decode_jpeg, is_jpeg_file
+    from gridnext_tpu_torch.io.jpeg import decode_jpeg
+    from gridnext_tpu_torch.io.png import SIGNATURE, decode_png
+    from gridnext_tpu_torch.io.tiff import HEADERS, decode_tiff
 
-    if convert == "RGB" and is_jpeg_file(image_file):
-        img = decode_jpeg(image_file)
-        return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
+    if convert == "RGB":
+        with open(image_file, "rb") as fh:
+            head = fh.read(8)
+        if head[:3] == b"\xff\xd8\xff":
+            img = decode_jpeg(image_file)
+            return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
+        if head[:4] in HEADERS:
+            return decode_tiff(image_file)
+        if head == SIGNATURE:
+            return decode_png(image_file)
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{image_file}: slides other than JPEG decode with PIL, which "
-                          "is not installed") from e
+        raise ImportError(f"{image_file}: slides other than JPEG, TIFF and PNG decode with "
+                          "PIL, which is not installed") from e
 
     Image.MAX_IMAGE_PIXELS = None
     with Image.open(image_file) as im:

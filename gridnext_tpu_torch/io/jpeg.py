@@ -37,6 +37,10 @@ _SIGNATURES = (
     ("jpeg_free", (_VP,), None),
     # px, n, h, w, c, paths, quality, n_threads, err, errlen
     ("jpeg_encode_files", (_VP, _LL, _I, _I, _I, _VP, _I, _I, ctypes.c_char_p, _I), _I),
+    # tables, tables_len, base, offsets, counts, geom, n, colour, out, W, oc,
+    # kind, n_threads, err, errlen
+    ("jpeg_decode_segments", (_VP, _LL, _VP, _VP, _VP, _VP, _LL, _I, _VP, _I, _I,
+                              ctypes.c_char_p, _I, ctypes.c_char_p, _I), _I),
 )
 _SOF = {0: "baseline", 1: "extended sequential"}
 _ERRLEN = 1024
@@ -119,6 +123,28 @@ def decode_jpeg_batch(paths: Sequence, side: int, n_threads: int = 0) -> np.ndar
                                 int(n_threads), err, _ERRLEN):
         raise ValueError(err.value.decode())
     return out
+
+
+def decode_jpeg_segments(tables: bytes, base: np.ndarray, offsets: np.ndarray,
+                         counts: np.ndarray, geom: np.ndarray, out: np.ndarray, colour: int,
+                         kind: str, name: str, n_threads: int = 0) -> None:
+    """Decode a TIFF's JPEG strips or tiles into ``out`` (``(H, W, oc)``
+    uint8), one a thread over ``n_threads`` threads (0: all cores). Segment
+    ``i`` is ``base[offsets[i]:offsets[i] + counts[i]]``, an abbreviated
+    stream decoded after ``tables`` (the JPEGTables, without their EOI; may
+    be empty); its top-left ``geom[i, 2] x geom[i, 3]`` pixels land at
+    ``(geom[i, 0], geom[i, 1])``. ``colour`` 1 takes three components as
+    stored (Photometric RGB), 0 as YCbCr. Raises ``ValueError`` naming
+    ``name`` and the segment."""
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    counts = np.ascontiguousarray(counts, np.int64)
+    geom = np.ascontiguousarray(geom[:, :4], np.int32)
+    err = _err()
+    if _lib().jpeg_decode_segments(tables, len(tables), base.ctypes.data, offsets.ctypes.data,
+                                   counts.ctypes.data, geom.ctypes.data, len(offsets),
+                                   int(colour), out.ctypes.data, out.shape[1], out.shape[2],
+                                   kind.encode(), int(n_threads), err, _ERRLEN):
+        raise ValueError(f"{name}: {err.value.decode()}")
 
 
 def _pixels(img) -> np.ndarray:

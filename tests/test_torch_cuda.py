@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card
 (and the card's PCA fit against float64, the mesh registrar's launches, the
-JPEG codec against the committed Pillow fixtures and the patch-cache
-writer's crop on the card against its plain route).
+JPEG codec and the TIFF and PNG readers against the committed Pillow
+fixtures, the patch-cache writer's crop on the card against its plain
+route, and ``register`` of a TIFF slide launching each kernel once).
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
 kernels have no CPU mode. This file imports neither JAX nor the JAX
@@ -650,3 +651,78 @@ def test_cache_writer_crop_on_the_card_matches_plain_route(dev, tmp_path, window
     _, mismatch, errors = filecmp.cmpfiles(tmp_path / "card", tmp_path / "plain", names,
                                            shallow=False)
     assert not mismatch and not errors
+
+
+def _tool(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_raster_readers_hold_to_the_committed_fixtures(dev):
+    """The card machine's TIFF and PNG readers (it has no PIL) against
+    Pillow's recorded pixels (``tools/make_tiff_fixtures.py``), through
+    ``decode_slide`` and on 1 thread and many."""
+    from pathlib import Path
+
+    from gridnext_tpu_torch import ingest
+    from gridnext_tpu_torch.io import tiff
+
+    root = Path(__file__).resolve().parents[1] / "tests" / "data" / "tiff"
+    fixtures = _tool("make_tiff_fixtures").load()
+    assert len(fixtures) >= 20
+    for name, f in fixtures.items():
+        np.testing.assert_array_equal(ingest.decode_slide(str(root / name)), f["decoded"],
+                                      err_msg=name)
+        if name.endswith(".tif"):
+            np.testing.assert_array_equal(tiff.decode_tiff(f["data"], n_threads=1),
+                                          f["decoded"], err_msg=name)
+
+
+def test_register_of_a_tiff_slide_launches_each_kernel_once(dev, tmp_path, monkeypatch):
+    """``register`` of a Deflate TIFF (Predictor 2, 8-row strips): one gather
+    and one labels-corrector launch, and the CSV of a register of the same
+    pixels handed over as an array."""
+    import zlib
+
+    from gridnext_tpu_torch import ingest, models
+    from gridnext_tpu_torch.cli import main
+    from gridnext_tpu_torch.compat import from_jax
+    from gridnext_tpu_torch.data.simulate import simulate_spaceranger_dir
+    from gridnext_tpu_torch.io import jpeg
+
+    tool = _tool("make_tiff_fixtures")
+    sim = simulate_spaceranger_dir(tmp_path / "a0", n_genes=5, n_classes=3, image=True,
+                                   seed=21, spot_spacing_px=20, tissue_fraction=0.3)
+    pixels = jpeg.decode_jpeg(sim["image_file"])
+    diff = pixels.copy()
+    diff[:, 1:] -= pixels[:, :-1]
+    strips = [zlib.compress(diff[y:y + 8].tobytes()) for y in range(0, pixels.shape[0], 8)]
+    slide = tmp_path / "slide.tif"
+    slide.write_bytes(tool.assemble_tiff(pixels.shape, strips, compression=8, photometric=2,
+                                         rows_per_strip=8, predictor=2))
+    torch.manual_seed(0)
+    f = models.TpuPatchClassifier(n_classes=3, stages=((32, 1),), stem_patch=8)
+    g = models.GridNetHex(f, n_classes=3, f_dim=3, use_bn=True)
+    meta = {"model": "GridNetHex+TpuPatchClassifier", "classes": ["A", "B", "C"],
+            "tpu_f": {"stages": [[32, 1]], "stem_patch": 8, "norm": "rms"}, "patch_px": 16,
+            "patch_chunk": 256}
+    model = tmp_path / "model"
+    from_jax.save_model_dir(str(model), meta, from_jax.jax_variables(g))
+    args = ["register", "--model", str(model), "--images", str(slide), "--spaceranger",
+            sim["spaceranger_dir"], "--device", "cuda"]
+    torch.cuda.synchronize()
+    n_gather, n_labels = gather.launches, corr.launches["fused_hex_corrector_labels"]
+    main(args + ["--out", str(tmp_path / "tiff.csv")])
+    torch.cuda.synchronize()
+    assert gather.launches - n_gather == 1
+    assert corr.launches["fused_hex_corrector_labels"] - n_labels == 1
+    monkeypatch.setattr(ingest, "decode_slide", lambda path: pixels)
+    main(args + ["--out", str(tmp_path / "array.csv")])
+    csv = (tmp_path / "tiff.csv").read_bytes()
+    assert csv.count(b"\n") > 50 and csv == (tmp_path / "array.csv").read_bytes()

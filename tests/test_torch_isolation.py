@@ -4,7 +4,8 @@ The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
 scikit-learn, pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
 and ``data/simulate.py``'s ``pseudo_visium_from_image``, for images other
-than JPEG only (a JPEG goes through the port's codec, ``io/jpeg.py``). The
+than JPEG, TIFF and PNG only (those go through the port's readers,
+``io/jpeg.py``, ``io/tiff.py`` and ``io/png.py``). The
 training commands that need no image (``pretrain-scbert``, ``train-graph``)
 run end to end with ``--device cpu`` in a process that imports none of
 them, and without a card their default ``cuda`` raises; so do the cohort

@@ -339,15 +339,17 @@ def test_decode_slide_and_simulate_without_pil(cohort, tmp_path, monkeypatch):
     Image.open(rgb).convert("L").save(gray, "JPEG", quality=90)
     png = tmp_path / "slide.png"
     Image.open(rgb).save(png)
-    want = [np.asarray(Image.open(p).convert("RGB")) for p in (rgb, gray)]
+    bmp = tmp_path / "slide.bmp"
+    Image.open(rgb).save(bmp)
+    want = [np.asarray(Image.open(p).convert("RGB")) for p in (rgb, gray, png)]
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
-    for p, w in zip((rgb, gray), want):
+    for p, w in zip((rgb, gray, png), want):
         got = ingest.decode_slide(p)
         assert got.shape == w.shape and got.dtype == np.uint8
         np.testing.assert_array_equal(got, w)
-    with pytest.raises(ImportError, match="slides other than JPEG decode with PIL"):
-        ingest.decode_slide(png)
+    with pytest.raises(ImportError, match="slides other than JPEG, TIFF and PNG decode with PIL"):
+        ingest.decode_slide(bmp)
     sim = port_simulate.simulate_spaceranger_dir(tmp_path / "nopil" / "a0", n_genes=5, image=True,
                                                  seed=20, spot_spacing_px=20,
                                                  tissue_fraction=0.2, n_classes=3)

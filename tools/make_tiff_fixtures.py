@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Write the TIFF and PNG readers' fixtures: small seeded slides, written
+by Pillow or assembled here, and the pixels Pillow decodes from them.
+
+    python tools/make_tiff_fixtures.py        # writes tests/data/tiff/
+
+The port's readers (``gridnext_tpu_torch/io/tiff.py``, ``io/png.py``) are
+held to Pillow where Pillow is absent (a GPU machine) through these
+files: ``chip_smoke.py`` phase 22 (a) and ``tests/test_torch_cuda.py``
+decode each file to its ``decoded_<name>``, which is
+``np.asarray(Image.open(f).convert("RGB"))``. ``tests/test_torch_tiff.py``
+runs :func:`fixtures` again and checks the committed files still equal
+it.
+
+Pillow writes stripped TIFF (none, LZW, Deflate, PackBits, JPEG with
+JPEGTables, BigTIFF) and PNG with its own filter choice. What Pillow
+cannot write is assembled by :func:`assemble_tiff` from segments that
+Pillow's libtiff encodes (:func:`pillow_segment`: one strip of a file
+Pillow writes), and every assembled file is read back by Pillow before it
+is kept: tiles (64 px, edge tiles cropped), a big-endian file, YCbCr JPEG
+tiles with shared JPEGTables, the old Deflate code 32946, one plane a
+sample, a MinIsWhite page and an Orientation tag. :func:`assemble_png`
+writes PNGs whose rows cycle through all five filter types.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                   "data", "tiff")
+
+
+def image(shape, seed: int) -> np.ndarray:
+    """A seeded uint8 test image of ``(h, w)`` or ``(h, w, c)`` (c up to 4):
+    gradients plus uniform noise."""
+    rng = np.random.default_rng(seed)
+    h, w = shape[:2]
+    y, x = np.mgrid[0:h, 0:w]
+    base = np.stack([(x * 7 + y * 3) % 256, (x * x // 5 + y) % 256, (y * 11) % 256,
+                     (x * 13 + 40) % 256], -1)
+    img = ((base + rng.integers(0, 64, (h, w, 4))) % 256).astype(np.uint8)
+    return img[..., 0] if len(shape) == 2 else np.ascontiguousarray(img[..., :shape[2]])
+
+
+# ---- TIFF ----------------------------------------------------------------
+
+_PIL_COMPRESSION = {1: "raw", 5: "tiff_lzw", 8: "tiff_adobe_deflate", 32773: "packbits",
+                    7: "jpeg"}
+
+
+def pillow_segment(pixels: np.ndarray, compression: int, predictor: int = 1,
+                   quality: int = 75) -> tuple:
+    """``(bytes, jpegtables or None)``: ``pixels`` ((h, w) or (h, w, c))
+    encoded by Pillow's libtiff as the one strip of a file, to be placed as
+    a strip or a tile of an assembled file."""
+    from PIL import Image
+
+    if pixels.ndim == 3 and pixels.shape[2] == 1:
+        pixels = pixels[..., 0]
+    mode = "L" if pixels.ndim == 2 else {3: "RGB", 4: "RGBA"}[pixels.shape[2]]
+    info = {278: pixels.shape[0]}
+    if predictor != 1:
+        info[317] = predictor
+    buf = io.BytesIO()
+    kw = {"quality": quality} if compression == 7 else {}
+    Image.fromarray(pixels, mode).save(buf, "TIFF", compression=_PIL_COMPRESSION[compression],
+                                       tiffinfo=info, **kw)
+    with Image.open(io.BytesIO(buf.getvalue())) as im:
+        (off,), (count,) = im.tag_v2[273], im.tag_v2[279]
+        if im.tag_v2.get(317, 1) != predictor:
+            raise RuntimeError("Pillow did not write the predictor")
+        tables = im.tag_v2.get(347)
+    return buf.getvalue()[off:off + count], tables
+
+
+def assemble_tiff(shape, segments, *, compression: int, photometric: int, tile=None,
+                  rows_per_strip=None, bigtiff: bool = False, byteorder: str = "<",
+                  extra=(), predictor: int = 1, planar: int = 1, colormap=None,
+                  jpegtables=None, ycbcr_subsampling=None, orientation=None,
+                  bits: int = 8, sample_format=None) -> bytes:
+    """The bytes of a one-page TIFF of ``shape`` ((h, w, samples)) whose
+    strips (``rows_per_strip``) or tiles (``tile`` = (width, length)) are
+    ``segments`` in order (per plane for ``planar`` 2), each already
+    encoded. Classic or BigTIFF, ``"<"`` (II) or ``">"`` (MM)."""
+    h, w, spp = shape
+    o = byteorder
+    off_type, off_code = (16, "Q") if bigtiff else (4, "I")
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in colormap])
+    if jpegtables is not None:
+        tags[347] = (7, jpegtables)
+    if ycbcr_subsampling is not None:
+        tags[530] = (3, list(ycbcr_subsampling))
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
+    header = (b"II" if o == "<" else b"MM") + (
+        struct.pack(o + "HHHQ", 43, 8, 0, 0) if bigtiff else struct.pack(o + "HI", 42, 0))
+    data = bytearray(header)
+    offsets, counts = [], []
+    for seg in segments:
+        offsets.append(len(data))
+        counts.append(len(seg))
+        data += seg
+        if len(data) % 2:
+            data += b"\0"
+    if tile is not None:
+        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: (off_type, offsets),
+                     325: (off_type, counts)})
+    else:
+        tags.update({273: (off_type, offsets), 278: (4, [rows_per_strip or h]),
+                     279: (off_type, counts)})
+    code = {3: "H", 4: "I", 16: "Q"}
+    inline = 8 if bigtiff else 4
+    entries = []
+    for tag in sorted(tags):
+        ftype, values = tags[tag]
+        raw = bytes(values) if ftype == 7 else struct.pack(o + code[ftype] * len(values),
+                                                           *values)
+        if len(raw) > inline:
+            ref = len(data)
+            data += raw + (b"\0" if len(raw) % 2 else b"")
+            raw = struct.pack(o + off_code, ref)
+        entries.append((tag, ftype, len(values), raw.ljust(inline, b"\0")))
+    ifd = len(data)
+    count_fmt, n_fmt = ("Q", "Q") if bigtiff else ("I", "H")
+    data += struct.pack(o + n_fmt, len(entries))
+    for tag, ftype, count, raw in entries:
+        data += struct.pack(o + "HH" + count_fmt, tag, ftype, count) + raw
+    data += struct.pack(o + off_code, 0)
+    struct.pack_into(o + off_code, data, 8 if bigtiff else 4, ifd)
+    return bytes(data)
+
+
+def tiles_of(pixels: np.ndarray, tw: int, th: int):
+    """Row-major tiles of ``pixels`` (h, w, c), edge tiles zero-padded to
+    tw x th (as libtiff pads them)."""
+    h, w = pixels.shape[:2]
+    for y in range(0, h, th):
+        for x in range(0, w, tw):
+            t = np.zeros((th, tw) + pixels.shape[2:], np.uint8)
+            part = pixels[y:y + th, x:x + tw]
+            t[:part.shape[0], :part.shape[1]] = part
+            yield t
+
+
+def split_jpeg_tables(stream: bytes) -> tuple:
+    """``(tables, abbreviated)`` of a JFIF stream: its DQT and DHT segments
+    as a tables-only stream (SOI ... EOI), and the stream without them and
+    without APPn segments (SOI, SOF, SOS, data, EOI)."""
+    tables, rest = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    pos = 2
+    while True:
+        marker = stream[pos + 1]
+        length = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        seg = stream[pos:pos + 2 + length]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        pos += 2 + length
+        if marker == 0xDA:
+            rest += stream[pos:]
+            return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+def jpeg_tiles(pixels: np.ndarray, tw: int, th: int, quality: int = 75) -> tuple:
+    """``(jpegtables, segments)``: each tile of ``pixels`` as a 4:2:0 YCbCr
+    JPEG by Pillow, its tables moved to one shared JPEGTables (Pillow's
+    standard tables: equal across tiles)."""
+    from PIL import Image
+
+    tables, segs = None, []
+    for t in tiles_of(pixels, tw, th):
+        buf = io.BytesIO()
+        Image.fromarray(t).save(buf, "JPEG", quality=quality)
+        tab, seg = split_jpeg_tables(buf.getvalue())
+        if tables not in (None, tab):
+            raise RuntimeError("tiles with different JPEG tables")
+        tables = tab
+        segs.append(seg)
+    return tables, segs
+
+
+# ---- PNG -----------------------------------------------------------------
+
+def _chunk(ctype: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + ctype + payload
+            + struct.pack(">I", zlib.crc32(payload, zlib.crc32(ctype))))
+
+
+def png_filter(rows: np.ndarray, bpp: int, filters) -> bytes:
+    """PNG scanlines of ``rows`` ((h, row_bytes) uint8), row y filtered with
+    ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    h, n = rows.shape
+    x = rows.astype(np.int32)
+    out = bytearray()
+    for y in range(h):
+        cur = x[y]
+        up = x[y - 1] if y else np.zeros(n, np.int32)
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            pred = np.zeros(n, np.int32)
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) // 2
+        else:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        out.append(f)
+        out += ((cur - pred) % 256).astype(np.uint8).tobytes()
+    return bytes(out)
+
+
+def assemble_png(pixels: np.ndarray, colour: int, filters=(0, 1, 2, 3, 4), palette=None,
+                 trns=None, depth: int = 8, interlace: int = 0, idat_parts: int = 2) -> bytes:
+    """A PNG of ``pixels`` ((h, w) or (h, w, c) uint8) of colour type
+    ``colour``, its rows cycling through ``filters``, the zlib stream split
+    over ``idat_parts`` IDAT chunks; PLTE from ``palette`` ((n, 3)), a tRNS
+    chunk of ``trns`` bytes. ``depth`` and ``interlace`` are only written
+    to the header (to make files the reader refuses)."""
+    h, w = pixels.shape[:2]
+    c = 1 if pixels.ndim == 2 else pixels.shape[2]
+    data = zlib.compress(png_filter(pixels.reshape(h, w * c), c, filters), 6)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                                               0, 0, interlace))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    step = -(-len(data) // idat_parts)
+    for i in range(0, len(data), step):
+        out += _chunk(b"IDAT", data[i:i + step])
+    return out + _chunk(b"IEND", b"")
+
+
+# ---- the fixtures ----------------------------------------------------------
+
+def _pillow_tiff(pixels, mode, compression, info=None, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    im = Image.fromarray(pixels, mode)
+    if mode == "P":
+        im.putpalette(list(image((16, 48), 99).reshape(-1)))
+    im.save(buf, "TIFF", compression=compression, tiffinfo=info or {}, **kw)
+    return buf.getvalue()
+
+
+def _pillow_png(pixels, mode) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(pixels, mode).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def _cases() -> dict:
+    """{name: (file bytes, what it holds)}."""
+    cases = {}
+    rgb = image((33, 33, 3), 1)
+    odd = image((17, 40, 3), 2)
+    cases["rgb17x40_raw.tif"] = (_pillow_tiff(odd, "RGB", "raw", {278: 5}),
+                                 "RGB, uncompressed, 5-row strips (the last short)")
+    cases["rgb33_lzw.tif"] = (_pillow_tiff(rgb, "RGB", "tiff_lzw"), "RGB, LZW, one strip")
+    cases["rgb33_lzw_pred.tif"] = (_pillow_tiff(rgb, "RGB", "tiff_lzw", {317: 2, 278: 8}),
+                                   "RGB, LZW, Predictor 2, 8-row strips")
+    cases["rgb17x40_deflate.tif"] = (_pillow_tiff(odd, "RGB", "tiff_adobe_deflate", {278: 4}),
+                                     "RGB, Adobe Deflate (8), 4-row strips")
+    cases["rgb40x17_packbits.tif"] = (
+        _pillow_tiff(np.ascontiguousarray(odd.transpose(1, 0, 2)), "RGB", "packbits",
+                     {278: 7}), "RGB, PackBits, 7-row strips")
+    cases["rgb48x40_jpeg.tif"] = (
+        _pillow_tiff(image((48, 40, 3), 3), "RGB", "jpeg", {278: 16}, quality=80),
+        "JPEG, Photometric RGB, JPEGTables, 16-row strips")
+    cases["gray45x31_lzw.tif"] = (_pillow_tiff(image((45, 31), 4), "L", "tiff_lzw", {278: 10}),
+                                  "gray, LZW, 10-row strips")
+    cases["rgba33_deflate.tif"] = (_pillow_tiff(image((33, 33, 4), 5), "RGBA",
+                                                "tiff_adobe_deflate"),
+                                   "RGBA (unassociated alpha), Deflate")
+    cases["pal33_packbits.tif"] = (_pillow_tiff(image((33, 33), 6), "P", "packbits"),
+                                   "palette (16-bit ColorMap), PackBits")
+    cases["big33_lzw.tif"] = (_pillow_tiff(rgb, "RGB", "tiff_lzw", {278: 11}, big_tiff=True),
+                              "BigTIFF, RGB, LZW")
+    # assembled: tiles, the other byte order, YCbCr JPEG tiles, 32946, planes
+    tiled = image((90, 100, 3), 7)
+    segs = [pillow_segment(t, 5, predictor=2)[0] for t in tiles_of(tiled, 64, 64)]
+    cases["rgb90x100_tiled_lzw_pred.tif"] = (
+        assemble_tiff(tiled.shape, segs, compression=5, photometric=2, tile=(64, 64),
+                      predictor=2), "RGB, 64-px tiles (edge tiles cropped), LZW, Predictor 2")
+    segs = [zlib.compress(t.tobytes()) for t in tiles_of(tiled[:70], 64, 64)]
+    cases["big70x100_tiled_deflate.tif"] = (
+        assemble_tiff((70, 100, 3), segs, compression=32946, photometric=2, tile=(64, 64),
+                      bigtiff=True), "BigTIFF, 64-px tiles, Deflate (32946)")
+    mm = image((33, 33, 3), 8)
+    segs = [pillow_segment(mm[y:y + 12], 5)[0] for y in range(0, 33, 12)]
+    cases["rgb33_bigendian_lzw.tif"] = (
+        assemble_tiff(mm.shape, segs, compression=5, photometric=2, rows_per_strip=12,
+                      byteorder=">"), "big-endian (MM), RGB, LZW, 12-row strips")
+    ycc = image((100, 90, 3), 9)
+    tables, segs = jpeg_tiles(ycc, 64, 64)
+    cases["ycbcr100x90_jpeg_tiled.tif"] = (
+        assemble_tiff(ycc.shape, segs, compression=7, photometric=6, tile=(64, 64),
+                      jpegtables=tables, ycbcr_subsampling=(2, 2)),
+        "JPEG, Photometric YCbCr 4:2:0, 64-px tiles, shared JPEGTables")
+    planes = image((21, 26, 3), 10)
+    segs = [zlib.compress(planes[y:y + 8, :, c].tobytes())
+            for c in range(3) for y in range(0, 21, 8)]
+    cases["rgb21x26_planar_deflate.tif"] = (
+        assemble_tiff(planes.shape, segs, compression=8, photometric=2, rows_per_strip=8,
+                      planar=2), "RGB, one plane a sample (PlanarConfiguration 2), Deflate")
+    white = image((19, 23), 11)
+    cases["gray19x23_miniswhite.tif"] = (
+        assemble_tiff((19, 23, 1), [white.tobytes()], compression=1, photometric=0),
+        "gray MinIsWhite, uncompressed")
+    turned = image((24, 37, 3), 12)
+    cases["rgb24x37_orient6.tif"] = (
+        assemble_tiff(turned.shape, [zlib.compress(turned.tobytes())], compression=8,
+                      photometric=2, orientation=6), "RGB, Deflate, Orientation 6")
+    # PNG: every filter type, and Pillow's own
+    cases["gray17x40.png"] = (assemble_png(image((17, 40), 13), 0), "gray, filters 0-4")
+    cases["rgb33.png"] = (assemble_png(image((33, 33, 3), 14), 2), "RGB, filters 0-4")
+    cases["rgba33.png"] = (assemble_png(image((33, 33, 4), 15), 6, filters=(4, 3, 2, 1, 0)),
+                           "RGBA, filters 4-0")
+    cases["graya20x21.png"] = (assemble_png(image((20, 21, 2), 16), 4), "gray + alpha")
+    pal = image((60, 3), 17)
+    idx = image((33, 33), 18)                        # indices past the 60 entries occur
+    cases["pal33.png"] = (assemble_png(idx, 3, palette=pal, trns=bytes(range(10))),
+                          "palette of 60 entries (indices past it), tRNS, filters 0-4")
+    cases["rgb31x29_pillow.png"] = (_pillow_png(image((31, 29, 3), 19), "RGB"),
+                                    "RGB, Pillow's filters")
+    return cases
+
+
+def fixtures() -> dict:
+    """``{name: {"data": bytes, "decoded": Pillow's RGB pixels, "what"}}``;
+    raises if Pillow does not read an assembled file."""
+    import warnings
+
+    from PIL import Image
+
+    out = {}
+    for name, (data, what) in _cases().items():
+        with Image.open(io.BytesIO(data)) as im, warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # the palette PNG's tRNS
+            decoded = np.asarray(im.convert("RGB"))
+        out[name] = {"data": data, "decoded": decoded, "what": what}
+    return out
+
+
+def load(directory: str = OUT) -> dict:
+    """The committed fixtures, in :func:`fixtures`' form (no PIL needed)."""
+    with open(os.path.join(directory, "cases.json")) as fh:
+        cases = json.load(fh)
+    arrays = np.load(os.path.join(directory, "pixels.npz"))
+    out = {}
+    for name, what in cases.items():
+        with open(os.path.join(directory, name), "rb") as fh:
+            out[name] = {"data": fh.read(), "decoded": arrays[f"decoded_{name}"], "what": what}
+    return out
+
+
+def main() -> int:
+    os.makedirs(OUT, exist_ok=True)
+    fx = fixtures()
+    for name, f in fx.items():
+        with open(os.path.join(OUT, name), "wb") as fh:
+            fh.write(f["data"])
+    np.savez_compressed(os.path.join(OUT, "pixels.npz"),
+                        **{f"decoded_{name}": f["decoded"] for name, f in fx.items()})
+    with open(os.path.join(OUT, "cases.json"), "w") as fh:
+        json.dump({name: f["what"] for name, f in fx.items()}, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    print(f"wrote {len(fx)} fixtures to {OUT}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
