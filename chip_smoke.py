@@ -9,7 +9,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. setup: the card's name and power limit, versions, and an ``nvcc`` build
    of every kernel in ``gridnext_tpu_torch/csrc/`` (all started together,
-   beside the ``g++`` build of the host JPEG codec);
+   beside the ``g++`` builds of the host JPEG, raster and Parquet codecs);
    the FAVOR library's SASS must hold tensor-core (HMMA) instructions and
    the dense-block library's warpgroup (HGMMA) ones; ptxas's register and
    spill report of the dense-layer kernel is logged;
@@ -398,7 +398,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``register`` of phase 10's model directory on the two TIFFs, one gather
     and one labels-corrector launch each, the labels equal (0 flips) to the
     registrar's on the same pixels;
-23. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+23. compressed Visium HD parquets through the port's own codecs
+    (``io/parquet.py``, ``csrc/parquet_codec.cpp``; no pyarrow), right
+    after phase 12 and in its directory: (a) every small fixture of
+    ``tools/make_parquet_fixtures.py`` (each codec, page version,
+    dictionary or plain; the DELTA and BYTE_STREAM_SPLIT encodings; FLOAT
+    and BOOLEAN columns; hand-made codec-5 pages) read equal to the values
+    pandas read from it (its ``.npz``); (b) slide E's full-width table as
+    pyarrow wrote it with ZSTD, BROTLI and LZ4_RAW pages read equal, column
+    for column, to the table phase 12 wrote, each file's page decode (ms,
+    MB/s of decoded bytes) and whole read timed on the host; (c)
+    ``register`` (the command) of phase 12's window-32 model directory on
+    slide E through the ZSTD and then the BROTLI positions, the gather's
+    count set to 0 just before each and read just after (one launch or
+    more each), the CSV's labels equal to phase 12's exact-plan labels;
+24. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
@@ -407,7 +421,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s, and
     ``launches_jpeg_register``, phase 21 (c)'s, and
     ``launches_tiff_register``, phase 22 (c)'s; the gather's row
-    ``launches_prepare_images``, phase 21 (b)'s; the rows of
+    ``launches_prepare_images``, phase 21 (b)'s, and
+    ``launches_parquet_register``, phase 23 (c)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
     phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
     true, "device": {...}}``.
@@ -2477,6 +2492,158 @@ def phase_hd(torch, port, card, tmp, dev) -> dict:
         ingest.decode_slide = decode
     return {"model_dir": dir_e, "srd": srd_e, "wsi": wsi_e, "labels": labels_e,
             "logits": logits_e, "registrar": reg_e, "plan": plan_e, "positions": pos_e}
+
+
+# -- phase 23: compressed Visium HD parquets ------------------------------------
+
+PARQUET_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                "parquet")
+PARQUET_HD_CODECS = ("zstd", "brotli", "lz4_raw")
+
+
+def parquet_tool():
+    """``tools/make_parquet_fixtures.py`` (its readers of the ``.npz``
+    files need no pandas)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "make_parquet_fixtures.py")
+    spec = importlib.util.spec_from_file_location("make_parquet_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parquet_pages(pqt, path) -> list:
+    """(codec id, compressed bytes, decompressed size) of every page of a
+    flat file (data page v2: the compressed part after its levels)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    meta = pqt._CompactReader(data, len(data) - 8 - int.from_bytes(data[-8:-4], "little")
+                              ).struct()
+    pages = []
+    for group in meta[4]:
+        for chunk in group[1]:
+            cm = chunk[3]
+            pos = min(o for o in (cm.get(9), cm.get(11)) if o is not None and o > 0)
+            seen = 0
+            while seen < cm[5]:
+                reader = pqt._CompactReader(data, pos)
+                header = reader.struct()
+                body = memoryview(data)[reader.pos:reader.pos + header[3]]
+                pos = reader.pos + header[3]
+                size = header[2]
+                if header[1] == pqt.DATA_PAGE:
+                    seen += header[5][1]
+                elif header[1] == pqt.DATA_PAGE_V2:
+                    levels = header[8].get(5, 0) + header[8].get(6, 0)
+                    body, size = body[levels:], size - levels
+                    seen += header[8][1]
+                pages.append((cm.get(4, 0), body, size))
+    return pages
+
+
+def same_table(got: dict, want: dict) -> bool:
+    return list(got) == list(want) and all(
+        got[c] == v if isinstance(v, list) else
+        (got[c].dtype == v.dtype and np.array_equal(got[c], v)) for c, v in want.items())
+
+
+def phase_parquet(torch, port, card, tmp, hd) -> dict:
+    """Phase 23: compressed Visium HD parquets through the port's own
+    decoders (``csrc/parquet_codec.cpp``). (a) every small fixture read
+    equal to pandas' values; (b) slide E's table in ZSTD, BROTLI and LZ4_RAW
+    read equal to phase 12's, decode and read timed; (c) ``register`` of
+    slide E through the ZSTD and the BROTLI positions, labels equal to
+    phase 12's exact-plan labels. Returns (c)'s gather launches and the
+    phase's seconds."""
+    import shutil
+
+    from gridnext_tpu_torch import cli, ingest
+    from gridnext_tpu_torch.io import parquet as pqt
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 23: compressed Visium HD parquets through the port's own codecs (no "
+        "pyarrow, pandas or codec library)")
+    t_phase = time.perf_counter()
+    tool = parquet_tool()
+
+    # (a) pandas' recorded values
+    with open(os.path.join(PARQUET_FIXTURES, "cases.json")) as fh:
+        cases = json.load(fh)
+    for name, what in sorted(cases.items()):
+        got = pqt.read_parquet(os.path.join(PARQUET_FIXTURES, f"{name}.parquet"))
+        with np.load(os.path.join(PARQUET_FIXTURES, f"{name}.npz")) as npz:
+            want = tool.expected_columns(npz)
+        if not same_table(got, want):
+            raise AssertionError(f"(a) fixture {name} ({json.dumps(what)}) reads other values "
+                                 "than pandas")
+    log(f"(a) {len(cases)} fixtures (UNCOMPRESSED, SNAPPY, GZIP, BROTLI, ZSTD, LZ4_RAW x page "
+        f"v1/v2 x dictionary/plain; DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, "
+        f"DELTA_BYTE_ARRAY, BYTE_STREAM_SPLIT, RLE booleans; FLOAT and BOOLEAN columns; "
+        f"codec-5 LZ4 in Hadoop's framing and as one block) read equal to pandas' values")
+
+    # (b) slide E's full-width table, three codecs, against phase 12's file
+    want = pqt.read_parquet(io.find_position_file(hd["srd"], HD_BINNING))
+    rates = {}
+    for codec in PARQUET_HD_CODECS:
+        path = os.path.join(PARQUET_FIXTURES, f"hd384_{codec}.parquet")
+        if not same_table(pqt.read_parquet(path), want):
+            raise AssertionError(f"(b) {os.path.basename(path)} reads other values than "
+                                 "phase 12's table")
+        pages = parquet_pages(pqt, path)
+        decoded = sum(size for _, _, size in pages)
+        decode_ms = host_ms(lambda pages=pages: [pqt.decompress(c, b, n)
+                                                  for c, b, n in pages])[0]
+        read_ms = host_ms(lambda path=path: pqt.read_parquet(path))[0]
+        rates[codec] = {"file_kb": round(os.path.getsize(path) / 1024, 1),
+                        "pages": len(pages), "decoded_mb": round(decoded / 1e6, 3),
+                        "decode_ms": round(decode_ms, 3),
+                        "decode_mb_per_s": round(decoded / decode_ms / 1e3, 1),
+                        "read_ms": round(read_ms, 3)}
+    log(f"(b) slide E's table ({HD_BINS * HD_BINS} rows) in {', '.join(PARQUET_HD_CODECS)} "
+        f"reads equal to phase 12's, column for column; host CPU, median of 3: "
+        f"{json.dumps(rates)} [{card}]")
+
+    # (c) register of slide E through the ZSTD and the BROTLI positions
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    e_file = os.path.join(tmp, "hdE.npy")
+    launches, reg_s = 0, {}
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        for codec in ("zstd", "brotli"):
+            srd = os.path.join(tmp, f"hdE_{codec}")
+            spatial = os.path.join(srd, "outs", "binned_outputs", HD_BINNING, "spatial")
+            os.makedirs(spatial)
+            shutil.copy(os.path.join(PARQUET_FIXTURES, f"hd384_{codec}.parquet"),
+                        os.path.join(spatial, "tissue_positions.parquet"))
+            out = os.path.join(tmp, f"hdE_{codec}_loupe.csv")
+            torch.cuda.synchronize()
+            gather.launches = 0
+            t0 = time.perf_counter()
+            cli.main(["register", "--model", hd["model_dir"], "--images", e_file,
+                      "--spaceranger", srd, "--out", out, "--device", "cuda"])
+            torch.cuda.synchronize()
+            reg_s[codec] = round(time.perf_counter() - t0, 3)
+            n = gather.launches
+            grid, n_rows = hd_grid_from_csv(out, classes)
+            if n < 1 or n_rows != int((hd["labels"] > 0).sum()) or \
+                    not np.array_equal(grid, np.asarray(hd["labels"])):
+                raise AssertionError(f"(c) register through the {codec} positions: {n} gather "
+                                     f"launches, {n_rows} rows, labels "
+                                     f"{int((grid != np.asarray(hd['labels'])).sum())} bins off "
+                                     "phase 12's")
+            launches += n
+            log(f"(c) register of slide E through the {codec.upper()} positions: "
+                f"{reg_s[codec]:.2f} s with the model load; labels equal to phase 12's "
+                f"exact-plan labels ({n_rows} bins); gather launches {n} [{card}]")
+    finally:
+        ingest.decode_slide = decode
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 23: {seconds:.1f} s; (b) {json.dumps(rates)}; (c) {json.dumps(reg_s)} s "
+        f"[{card}]")
+    return {"launches": launches, "s": seconds, "rates": rates, "register_s": reg_s}
 
 
 # -- phase 13: the register command for every model kind --------------------------
@@ -6122,9 +6289,9 @@ def main() -> int:
 
     from gridnext_tpu_torch.ops import _host
 
-    with ThreadPoolExecutor(2) as pool:       # the host codecs' g++ beside the nvcc builds
+    with ThreadPoolExecutor(3) as pool:       # the host codecs' g++ beside the nvcc builds
         host = {name: pool.submit(lambda n: (_host.build(n), time.perf_counter() - t0), name)
-                for name in ("jpeg_codec", "raster_codec")}
+                for name in ("jpeg_codec", "raster_codec", "parquet_codec")}
         built = _cuda.build()
         for name, job in host.items():
             log(f"built {name}.cpp (g++, host) in {job.result()[1]:.1f} s")
@@ -6197,6 +6364,7 @@ def main() -> int:
         t0 = time.perf_counter()
         hd = phase_hd(torch, port, card, tmp, dev)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+        parquet_res = phase_parquet(torch, port, card, tmp, hd)
         t18.append(phase_export_dense(torch, port, card, tmp, hd, served))
         del hd
     with tempfile.TemporaryDirectory() as tmp:   # Spaceranger dirs, caches, model dirs
@@ -6293,6 +6461,8 @@ def main() -> int:
             k["launches_tiff_register"] = tiff_res["launches"][k["name"]]
     # phase 21 (b)'s path: prepare --images, one launch an array
     by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
+    # phase 23 (c)'s path: register of slide E through ZSTD and BROTLI positions
+    by_name["gather_patches"]["launches_parquet_register"] = parquet_res["launches"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Parquet files in the standard library and numpy: Visium HD positions.
+"""Parquet files in the standard library, numpy and the port's own codecs:
+Visium HD positions.
 
 Spaceranger writes a Visium HD array's bin positions as
 ``outs/binned_outputs/<binning>/spatial/tissue_positions.parquet``. The
@@ -11,15 +12,26 @@ nesting):
 * the ``PAR1`` footer and the Thrift compact protocol of ``FileMetaData``
   and ``PageHeader`` (fields this reader does not use are skipped);
 * dictionary pages and data pages v1 and v2, over several row groups;
-* the PLAIN, PLAIN_DICTIONARY and RLE_DICTIONARY encodings, with
-  RLE/bit-packed definition levels for optional columns (pandas writes
-  every column as optional);
-* the physical types INT32, INT64, DOUBLE and BYTE_ARRAY (UTF-8 strings
-  where the schema says so, else ``bytes``);
-* the UNCOMPRESSED, SNAPPY (:func:`snappy_decompress`) and GZIP codecs.
+* the encodings PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE (BOOLEAN),
+  DELTA_BINARY_PACKED (INT32, INT64), DELTA_LENGTH_BYTE_ARRAY and
+  DELTA_BYTE_ARRAY (BYTE_ARRAY) and BYTE_STREAM_SPLIT (FLOAT, DOUBLE,
+  INT32, INT64), with RLE/bit-packed definition levels for optional
+  columns (pandas writes every column as optional);
+* the physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY
+  (UTF-8 strings where the schema says so, else ``bytes``);
+* the codecs UNCOMPRESSED, GZIP (``zlib``) and, through the host C++
+  library ``csrc/parquet_codec.cpp`` (no zstd, lz4, brotli or snappy
+  library), SNAPPY, BROTLI, ZSTD, LZ4_RAW and the deprecated LZ4 (Hadoop's
+  framing or one raw block, as Arrow reads it). Brotli's static
+  dictionary is the committed ``assets/brotli_dictionary.bin`` (RFC 7932
+  Appendix A), checked against its SHA-256 when it is loaded.
 
-Anything else (ZSTD, LZ4 or BROTLI pages, other encodings, nested or
-repeated columns) raises an error that names it, and so does a null value.
+Anything else raises an error that names it: a null value, nested or
+repeated columns, INT96 and FIXED_LEN_BYTE_ARRAY columns, LZO pages (which
+pyarrow does not read either), a ZSTD frame that names a dictionary and a
+Brotli stream with the large-window extension.
+:func:`snappy_decompress` is the plain Python version of the SNAPPY
+decoder that the tests hold the C++ one against.
 
 :func:`write_parquet` writes one row group of required columns, PLAIN and
 UNCOMPRESSED, which pandas and pyarrow read back.
@@ -27,6 +39,10 @@ UNCOMPRESSED, which pandas and pyarrow read back.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
+import os
 import struct
 import zlib
 
@@ -44,11 +60,13 @@ _ENCODING_NAMES = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE", 4: "BIT_PACKED",
                    5: "DELTA_BINARY_PACKED", 6: "DELTA_LENGTH_BYTE_ARRAY",
                    7: "DELTA_BYTE_ARRAY", 8: "RLE_DICTIONARY", 9: "BYTE_STREAM_SPLIT"}
 PLAIN, PLAIN_DICTIONARY, RLE, RLE_DICTIONARY = 0, 2, 3, 8
+DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY = 5, 6, 7
+BYTE_STREAM_SPLIT = 9
 DATA_PAGE, INDEX_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = range(4)
 REQUIRED, OPTIONAL, REPEATED = range(3)
 UTF8 = 0                       # ConvertedType
 
-_PLAIN_DTYPES = {INT32: "<i4", INT64: "<i8", DOUBLE: "<f8"}
+_PLAIN_DTYPES = {INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}
 
 # Thrift compact protocol type ids
 _T_STOP, _T_TRUE, _T_FALSE, _T_BYTE, _T_I16, _T_I32, _T_I64 = range(7)
@@ -234,18 +252,82 @@ def snappy_decompress(buf) -> bytes:
     return bytes(out)
 
 
-def _decompress(codec: int, body, size: int):
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+_SIGNATURES = (
+    ("pq_last_error", (ctypes.c_char_p, ctypes.c_int), ctypes.c_int),
+    ("pq_snappy", (_VP, _LL, _VP, _LL), _LL),
+    ("pq_lz4_raw", (_VP, _LL, _VP, _LL), _LL),
+    ("pq_lz4_hadoop", (_VP, _LL, _VP, _LL), _LL),
+    ("pq_zstd", (_VP, _LL, _VP, _LL), _LL),
+    ("pq_brotli", (_VP, _LL, _VP, _LL), _LL),
+    ("pq_brotli_dictionary", (_VP, _LL), ctypes.c_int),
+    ("pq_delta_binary_packed", (_VP, _LL, _LL, ctypes.c_int, _VP, ctypes.POINTER(_LL)), _LL),
+    ("pq_delta_byte_array", (_VP, _LL, _VP, _LL, _LL, _VP, _LL), _LL),
+)
+# codec id -> the C library's decoder
+_NATIVE_CODECS = {1: "pq_snappy", 4: "pq_brotli", 5: "pq_lz4_hadoop", 6: "pq_zstd",
+                  7: "pq_lz4_raw"}
+_FAILURES = {-1: "truncated", -2: "corrupt", -3: "output larger than the page header says",
+             -4: "refused"}
+BROTLI_DICTIONARY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                 "assets", "brotli_dictionary.bin")
+BROTLI_DICTIONARY_SHA256 = "20e42eb1b511c21806d4d227d07e5dd06877d8ce7b3a817f378f313653f35c70"
+BROTLI_DICTIONARY_SIZE = 122784
+
+
+@functools.lru_cache(maxsize=None)
+def _codecs():
+    """The C library, built first if needed, with RFC 7932's dictionary
+    (checked against its SHA-256) handed to it; returns (library, the
+    dictionary's buffer, kept alive here)."""
+    from gridnext_tpu_torch.ops import _host
+
+    lib = _host.library("parquet_codec", _SIGNATURES)
+    with open(BROTLI_DICTIONARY, "rb") as fh:
+        data = fh.read()
+    if len(data) != BROTLI_DICTIONARY_SIZE or \
+            hashlib.sha256(data).hexdigest() != BROTLI_DICTIONARY_SHA256:
+        raise RuntimeError(f"{BROTLI_DICTIONARY} is not RFC 7932's static dictionary "
+                           f"({len(data)} bytes; want {BROTLI_DICTIONARY_SIZE} with SHA-256 "
+                           f"{BROTLI_DICTIONARY_SHA256})")
+    buf = ctypes.create_string_buffer(data, len(data))
+    if lib.pq_brotli_dictionary(ctypes.addressof(buf), len(data)):
+        raise RuntimeError("the codec library refused the Brotli dictionary")
+    return lib, buf
+
+
+def _failed(lib, code: int, what: str) -> ParquetError:
+    msg = ctypes.create_string_buffer(256)
+    lib.pq_last_error(msg, 256)
+    return ParquetError(f"{what}: {_FAILURES.get(code, code)}: {msg.value.decode()}")
+
+
+def decompress(codec: int, body, size: int):
+    """One page body of Parquet codec id ``codec`` decompressed to exactly
+    ``size`` bytes, as a memoryview (UNCOMPRESSED: ``body`` itself). Raises
+    :class:`ParquetError` naming the codec and what went wrong."""
+    name = _CODEC_NAMES.get(codec, codec)
     if codec == 0:
-        return body
-    if codec == 1:
-        out = snappy_decompress(body)
-    elif codec == 2:
-        out = zlib.decompressobj(wbits=47).decompress(bytes(body))  # gzip or zlib
+        return memoryview(body)
+    if codec == 2:
+        try:
+            out = memoryview(zlib.decompressobj(wbits=47).decompress(bytes(body)))  # gzip or zlib
+        except zlib.error as err:
+            raise ParquetError(f"GZIP page: corrupt: {err}") from None
+    elif codec in _NATIVE_CODECS:
+        lib, _ = _codecs()
+        src = np.frombuffer(body, np.uint8)
+        dst = np.empty(size, np.uint8)
+        got = getattr(lib, _NATIVE_CODECS[codec])(src.ctypes.data, len(src), dst.ctypes.data,
+                                                   size)
+        if got < 0:
+            raise _failed(lib, got, f"{name} page")
+        out = memoryview(dst)[:got]
     else:
-        raise ParquetError(f"parquet codec {_CODEC_NAMES.get(codec, codec)} is not "
-                           "supported (UNCOMPRESSED, SNAPPY and GZIP are)")
+        raise ParquetError(f"parquet codec {name} is not supported (UNCOMPRESSED, SNAPPY, "
+                           "GZIP, BROTLI, LZ4, ZSTD and LZ4_RAW are)")
     if len(out) != size:
-        raise ParquetError(f"page decompressed to {len(out)} bytes, header says {size}")
+        raise ParquetError(f"{name} page decompressed to {len(out)} bytes, header says {size}")
     return out
 
 
@@ -312,11 +394,61 @@ def _fixed_byte_arrays(buf, count: int):
 def _plain(buf, ptype: int, count: int, column: str):
     if ptype in _PLAIN_DTYPES:
         return np.frombuffer(buf, _PLAIN_DTYPES[ptype], count).copy()
+    if ptype == BOOLEAN:                               # bit-packed, first value in bit 0
+        bits = np.unpackbits(np.frombuffer(buf, np.uint8, (count + 7) // 8), bitorder="little")
+        return bits[:count].astype(bool)
     if ptype == BYTE_ARRAY:
         vals = _fixed_byte_arrays(buf, count)
         return _byte_arrays(buf, count) if vals is None else vals
     raise ParquetError(f"column {column!r}: physical type {_TYPE_NAMES[ptype]} is not "
-                       "supported")
+                       "supported (BOOLEAN, INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY are)")
+
+
+def _delta_binary_packed(buf, count: int, width: int, column: str):
+    """``count`` DELTA_BINARY_PACKED values (int64, wrapping at ``width``
+    bits) and the bytes they took, decoded by the C library."""
+    lib, _ = _codecs()
+    src = np.frombuffer(buf, np.uint8)
+    out = np.empty(count, np.int64)
+    used = ctypes.c_longlong(0)
+    got = lib.pq_delta_binary_packed(src.ctypes.data, len(src), count, width, out.ctypes.data,
+                                     ctypes.byref(used))
+    if got < 0:
+        raise _failed(lib, got, f"column {column!r}: DELTA_BINARY_PACKED values")
+    return out, used.value
+
+
+def _split_values(buf, lengths: np.ndarray, column: str) -> list:
+    """The byte strings of ``lengths`` laid end to end in ``buf``."""
+    if len(lengths) and (lengths.min() < 0 or int(lengths.sum()) > len(buf)):
+        raise ParquetError(f"column {column!r}: value lengths past the page")
+    if len(lengths) and (lengths == lengths[0]).all():   # one length: HD barcodes
+        ln = int(lengths[0])
+        flat = bytes(buf[:ln * len(lengths)])
+        return [flat[i:i + ln] for i in range(0, len(flat), ln)] if ln else [b""] * len(lengths)
+    ends = np.cumsum(lengths)
+    flat = bytes(buf[:int(ends[-1])]) if len(ends) else b""
+    return [flat[a:b] for a, b in zip((ends - lengths).tolist(), ends.tolist())]
+
+
+def _delta_byte_array(buf, count: int, column: str) -> list:
+    """DELTA_BYTE_ARRAY: prefix lengths and suffixes (DELTA_LENGTH_BYTE_ARRAY),
+    each value the first prefix bytes of the one before it and its suffix,
+    joined by the C library."""
+    prefix, used = _delta_binary_packed(buf, count, 32, column)
+    suffix, more = _delta_binary_packed(memoryview(buf)[used:], count, 32, column)
+    tail = np.frombuffer(buf, np.uint8)[used + more:]
+    lengths = prefix + suffix
+    if count and (prefix[0] != 0 or (prefix < 0).any() or (suffix < 0).any()
+                  or (prefix[1:] > lengths[:-1]).any() or int(suffix.sum()) > len(tail)):
+        raise ParquetError(f"column {column!r}: corrupt DELTA_BYTE_ARRAY prefixes or suffixes")
+    lib, _ = _codecs()
+    out = np.empty(int(lengths.sum()) if count else 0, np.uint8)
+    got = lib.pq_delta_byte_array(prefix.ctypes.data, suffix.ctypes.data, tail.ctypes.data,
+                                  len(tail), count, out.ctypes.data, len(out))
+    if got < 0:
+        raise _failed(lib, got, f"column {column!r}: DELTA_BYTE_ARRAY values")
+    return _split_values(memoryview(out), lengths, column)
 
 
 def _take(values, idx: np.ndarray):
@@ -349,9 +481,25 @@ class _Column:
                                    "without a dictionary page")
             idx = _rle_hybrid(memoryview(buf)[1:], buf[0], count)
             return _take(dictionary, idx)
-        raise ParquetError(f"column {self.name!r}: encoding "
-                           f"{_ENCODING_NAMES.get(encoding, encoding)} is not supported "
-                           "(PLAIN, PLAIN_DICTIONARY and RLE_DICTIONARY are)")
+        ptype, name = self.ptype, self.name
+        if encoding == RLE and ptype == BOOLEAN:       # a 4-byte length, then 1-bit runs
+            ln = int.from_bytes(bytes(buf[:4]), "little")
+            return _rle_hybrid(memoryview(buf)[4:4 + ln], 1, count).astype(bool)
+        if encoding == DELTA_BINARY_PACKED and ptype in (INT32, INT64):
+            vals, _ = _delta_binary_packed(buf, count, 32 if ptype == INT32 else 64, name)
+            return vals.astype(np.int32) if ptype == INT32 else vals
+        if encoding == DELTA_LENGTH_BYTE_ARRAY and ptype == BYTE_ARRAY:
+            lengths, used = _delta_binary_packed(buf, count, 32, name)
+            return _split_values(memoryview(buf)[used:], lengths, name)
+        if encoding == DELTA_BYTE_ARRAY and ptype == BYTE_ARRAY:
+            return _delta_byte_array(buf, count, name)
+        if encoding == BYTE_STREAM_SPLIT and ptype in (INT32, INT64, FLOAT, DOUBLE):
+            dtype = np.dtype(_PLAIN_DTYPES[ptype])     # byte k of every value, then k + 1
+            raw = np.frombuffer(buf, np.uint8, count * dtype.itemsize)
+            return raw.reshape(dtype.itemsize, count).T.copy().view(dtype).reshape(count)
+        raise ParquetError(f"column {name!r}: encoding "
+                           f"{_ENCODING_NAMES.get(encoding, encoding)} of "
+                           f"{_TYPE_NAMES[ptype]} values is not supported")
 
     def check_levels(self, levels):
         if (levels != self.max_def).any():
@@ -376,12 +524,12 @@ class _Column:
                 if dph.get(2, PLAIN) not in (PLAIN, PLAIN_DICTIONARY):
                     raise ParquetError(f"column {self.name!r}: dictionary encoding "
                                        f"{_ENCODING_NAMES.get(dph[2], dph[2])}")
-                dictionary = _plain(_decompress(codec, body, size), self.ptype, dph[1],
+                dictionary = _plain(decompress(codec, body, size), self.ptype, dph[1],
                                     self.name)
             elif ptype == DATA_PAGE:
                 dph = header[5]
                 n = dph[1]
-                raw = _decompress(codec, body, size)
+                raw = decompress(codec, body, size)
                 off = 0
                 if self.max_def:
                     if dph.get(3, RLE) != RLE:
@@ -402,7 +550,7 @@ class _Column:
                     self.check_levels(_rle_hybrid(body[rl:rl + dl], 1, n))
                 vals = body[rl + dl:]
                 if dph.get(7, True):
-                    vals = _decompress(codec, vals, size - rl - dl)
+                    vals = decompress(codec, vals, size - rl - dl)
                 parts.append(self.values(vals, dph[4], n, dictionary))
                 seen += n
             elif ptype != INDEX_PAGE:
@@ -420,8 +568,9 @@ def _joined(parts, utf8: bool):
 def read_parquet(path, columns=None) -> dict:
     """Read a flat Parquet table: ``{column name: values}`` in schema order.
 
-    Numeric columns come back as numpy arrays of their physical type
-    (INT32 int32, INT64 int64, DOUBLE float64), string columns as lists of
+    Numeric columns come back as numpy arrays of the dtype pandas gives
+    their physical type (BOOLEAN bool, INT32 int32, INT64 int64, FLOAT
+    float32, DOUBLE float64), string columns as lists of
     ``str`` (other BYTE_ARRAY columns as lists of ``bytes``), each in file
     order over every row group.
     ``columns``: read only these (default all).

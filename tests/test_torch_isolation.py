@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-scikit-learn, pyarrow, PIL or msgpack. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
+scikit-learn, pyarrow, PIL, msgpack or zstd / lz4 / brotli modules. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
 timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
 and ``data/simulate.py``'s ``pseudo_visium_from_image``, for images other
 than JPEG, TIFF and PNG only (those go through the port's readers,
@@ -31,7 +31,7 @@ from gridnext_tpu_torch import geometry
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gridnext_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu",
-             "sklearn")
+             "sklearn", "zstandard", "brotli", "lz4")
 # (file, function) pairs that may import PIL lazily
 PIL_ALLOWED = {("ingest.py", "decode_slide"), ("simulate.py", "pseudo_visium_from_image")}
 
@@ -49,7 +49,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', "
-            "'msgpack', 'sklearn'))\n"
+            "'msgpack', 'sklearn', 'zstandard', 'brotli', 'lz4'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -218,3 +218,39 @@ def test_profile_dir_converters_and_leftovers_run_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "profiler trace written to tr" in res.stdout
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cpp")), ids=lambda p: p.name)
+def test_host_codecs_name_no_codec_library(path):
+    """The host C++ libraries include the C++ standard library only: no
+    zstd, lz4, brotli, snappy or zlib header, and no ``dlopen``."""
+    src = path.read_text()
+    includes = [line.split()[1] for line in src.splitlines() if line.startswith("#include")]
+    assert includes and all(h.startswith("<c") or h in ("<algorithm>", "<atomic>", "<stdexcept>",
+                                                        "<string>", "<thread>", "<vector>")
+                            for h in includes), includes
+    for word in ("dlopen", "zstd.h", "lz4.h", "lz4frame", "brotli/", "snappy.h", "snappy-c.h",
+                 "zlib.h", "libzstd", "liblz4", "libbrotli", "libsnappy"):
+        assert word not in src, word
+
+
+def test_parquet_reader_loads_no_codec_library():
+    """Reading every committed Parquet fixture (ZSTD, Brotli, LZ4, SNAPPY,
+    GZIP pages) imports no codec module and maps no system codec library."""
+    code = ("import glob, sys\n"
+            "from gridnext_tpu_torch.io.parquet import read_parquet\n"
+            "files = sorted(glob.glob('tests/data/parquet/*.parquet'))\n"
+            "assert len(files) > 30, files\n"
+            "for f in files:\n"
+            "    read_parquet(f)\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "bad = [n for n in ('libzstd', 'liblz4', 'libbrotli', 'libsnappy') if n in maps]\n"
+            "assert not bad, bad\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('pyarrow', 'pandas', "
+            "'zstandard', 'brotli', 'lz4', 'snappy', 'jax', 'gridnext_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

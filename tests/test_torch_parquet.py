@@ -1,15 +1,29 @@
 """The port's Parquet reader and writer against pandas and pyarrow.
 
 The card has neither, so the port reads Visium HD positions with
-``gridnext_tpu_torch.io.parquet`` (the standard library and numpy). Here,
-files that ``DataFrame.to_parquet`` writes in every layout a positions file
-may take (snappy, the default; gzip; uncompressed; no dictionary; several
-row groups; data page v2; a 384 x 384 HD table) must read back equal to
-``pd.read_parquet``; the port's writer must read back equal in pandas; a
-zstd file, a null value and a nested column must raise errors that name
-them. This is the only test file that imports pandas and pyarrow for the
-port.
+``gridnext_tpu_torch.io.parquet`` (the standard library, numpy and the
+port's own codecs, ``csrc/parquet_codec.cpp``). Here, files that
+``DataFrame.to_parquet`` and ``pq.write_table`` write in every layout a
+positions file may take (snappy, the default; gzip; uncompressed; zstd,
+brotli and lz4, each with page v1 and v2, dictionary or plain; several row
+groups; the DELTA and BYTE_STREAM_SPLIT encodings; FLOAT and BOOLEAN
+columns; a 384 x 384 HD table) must read back equal to
+``pd.read_parquet``, and so must every committed fixture of
+``tools/make_parquet_fixtures.py`` (against pandas and its ``.npz``); the
+port's writer must read back equal in pandas; an LZO chunk, a ZSTD frame
+that names a dictionary, INT96 and FIXED_LEN_BYTE_ARRAY columns, a null
+value and a nested column must raise errors that name them; and an HD
+directory with ZSTD positions must read and register as in the JAX
+package. ``tests/test_torch_parquet_codecs.py`` holds the decoders
+themselves. These two files and the fixture tool are the only ones that
+import pandas and pyarrow for the port.
 """
+
+import csv
+import importlib.util
+import json
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pandas as pd
@@ -23,6 +37,31 @@ from gridnext_tpu_torch.io import (cohort_hd_lattice_dims, find_position_file,
                                    hd_lattice_dims, read_positions, read_positions_file)
 from gridnext_tpu_torch.io.parquet import (ParquetError, read_parquet, snappy_decompress,
                                            write_parquet)
+
+REPO = Path(__file__).resolve().parents[1]
+FIXTURES = REPO / "tests" / "data" / "parquet"
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_parquet_fixtures", REPO / "tools" / "make_parquet_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TOOL = _tool()
+CODEC_IDS = {"snappy": 1, "gzip": 2, "brotli": 4, "zstd": 6, "lz4_raw": 7}
+
+
+def _codec_ids(path) -> set:
+    """The codec ids of a file's column chunks, from its footer (pyarrow's
+    metadata names LZ4_RAW "LZ4")."""
+    from gridnext_tpu_torch.io.parquet import _CompactReader
+
+    data = Path(path).read_bytes()
+    meta = _CompactReader(data, len(data) - 8 - int.from_bytes(data[-8:-4], "little")).struct()
+    return {chunk[3].get(4, 0) for group in meta[4] for chunk in group[1]}
 
 COLUMNS = ("barcode", "in_tissue", "array_row", "array_col", "pxl_row_in_fullres",
            "pxl_col_in_fullres")
@@ -61,8 +100,13 @@ def assert_read_equal(path):
     {"row_group_size": 97},
     {"data_page_version": "2.0"},
     {"data_page_version": "2.0", "compression": "gzip", "row_group_size": 130},
-], ids=["snappy", "gzip", "uncompressed", "plain", "row_groups", "page_v2",
-        "page_v2_gzip_row_groups"])
+] + [{"compression": codec, "data_page_version": version, "use_dictionary": dictionary}
+     for codec in ("zstd", "brotli", "lz4") for version in ("1.0", "2.0")
+     for dictionary in (True, False)],
+    ids=["snappy", "gzip", "uncompressed", "plain", "row_groups", "page_v2",
+         "page_v2_gzip_row_groups"] + [
+        f"{codec}_v{version}_{kind}" for codec in ("zstd", "brotli", "lz4")
+        for version in (1, 2) for kind in ("dict", "plain")])
 def test_pandas_files_read_equal(tmp_path, kw):
     df = positions_frame(23, 19, seed=1)
     # several data pages a column chunk too
@@ -87,8 +131,9 @@ def test_hd_capture_area_table(tmp_path):
 
 def test_mixed_types_and_strings(tmp_path):
     """INT32, bytes, strings of several lengths and non-ASCII text (the
-    general BYTE_ARRAY path), optional and required; other physical types
-    raise, naming the type."""
+    general BYTE_ARRAY path), optional and required; FLOAT and BOOLEAN read
+    as pandas reads them; INT96 and FIXED_LEN_BYTE_ARRAY raise, naming the
+    type."""
     table = pa.table({
         "i32": pa.array([3, -7, 2 ** 30, 0], pa.int32()),
         "raw": pa.array([b"\x00\x01", b"", b"abc", b"\xff"], pa.binary()),
@@ -106,9 +151,16 @@ def test_mixed_types_and_strings(tmp_path):
         np.testing.assert_array_equal(got["req"], [1, 2, 3, 4])
     assert list(read_parquet(tmp_path / "t.parquet", columns=("text", "i32"))) == \
         ["text", "i32"]
-    for name, column in (("FLOAT", pa.array([1.5], pa.float32())),
-                         ("BOOLEAN", pa.array([True]))):
+    for column in (pa.array([1.5, -2.25, 3e38], pa.float32()),
+                   pa.array([True, False, True, True, False, False, False, True, True])):
         pq.write_table(pa.table({"x": column}), tmp_path / "o.parquet")
+        assert_read_equal(tmp_path / "o.parquet")
+    for name, table, kw in (
+            ("INT96", pa.table({"t": pa.array([0, 10 ** 9], pa.timestamp("ns"))}),
+             {"use_deprecated_int96_timestamps": True}),
+            ("FIXED_LEN_BYTE_ARRAY", pa.table({"f": pa.array([b"ab", b"cd"], pa.binary(2))}),
+             {})):
+        pq.write_table(table, tmp_path / "o.parquet", **kw)
         with pytest.raises(ParquetError, match=name):
             read_parquet(tmp_path / "o.parquet")
 
@@ -133,8 +185,20 @@ def test_writer_reads_back_in_pandas(tmp_path):
 def test_refusals_name_what_they_refuse(tmp_path):
     df = positions_frame(5, 4)
     df.to_parquet(tmp_path / "z.parquet", index=False, compression="zstd")
-    with pytest.raises(ParquetError, match="ZSTD"):
-        read_parquet(tmp_path / "z.parquet")
+    columns = {c: (df[c].tolist() if c == "barcode" else df[c].to_numpy()) for c in df.columns}
+    TOOL.write_pages(tmp_path / "lzo.parquet", columns, 3, lambda plain: plain)   # LZO's id
+    with pytest.raises(OSError):
+        pd.read_parquet(tmp_path / "lzo.parquet")
+    with pytest.raises(ParquetError, match="codec LZO is not supported"):
+        read_parquet(tmp_path / "lzo.parquet")
+
+    def zstd_with_dictionary(plain):        # one raw block in a frame naming dictionary 42
+        return ((0xFD2FB528).to_bytes(4, "little") + bytes([0x01, 0x00, 42])
+                + (1 | (len(plain) << 3)).to_bytes(3, "little") + plain)
+
+    TOOL.write_pages(tmp_path / "zd.parquet", columns, 6, zstd_with_dictionary)
+    with pytest.raises(ParquetError, match="ZSTD page: refused: .*dictionary ID 42"):
+        read_parquet(tmp_path / "zd.parquet")
     nulls = df.astype({"in_tissue": "float64"})
     nulls.loc[3, "in_tissue"] = np.nan
     for version in ("1.0", "2.0"):
@@ -189,3 +253,164 @@ def test_hd_positions_and_lattice_dims_match_jax(tmp_path):
     assert cohort_hd_lattice_dims(dirs, "square_016um") == (12, 14)
     with pytest.raises(ValueError, match="square_008um"):
         find_position_file(dirs[0], "square_008um")
+
+
+@pytest.mark.parametrize("version", ["1.0", "2.0"])
+@pytest.mark.parametrize("encodings", sorted(TOOL.ENCODINGS))
+def test_encodings_read_equal(encodings, version, tmp_path):
+    """DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY,
+    BYTE_STREAM_SPLIT and RLE booleans, over INT32, INT64, FLOAT, DOUBLE,
+    BOOLEAN, string and bytes columns, several pages a chunk."""
+    path = tmp_path / "e.parquet"
+    for n, compression in ((300, None), (1, "zstd"), (2000, "snappy")):
+        pq.write_table(TOOL.typed_table(n, seed=n), path, use_dictionary=False,
+                       column_encoding=TOOL.ENCODINGS[encodings], data_page_version=version,
+                       compression=compression, data_page_size=700)
+        meta = pq.ParquetFile(path).metadata.row_group(0)
+        used = {meta.column(i).path_in_schema: meta.column(i).encodings
+                for i in range(meta.num_columns)}
+        assert all(enc in used[col] for col, enc in TOOL.ENCODINGS[encodings].items())
+        assert_read_equal(path)
+    pq.write_table(pa.table({"x": pa.array([1, None, 3], pa.int32())}), path,
+                   use_dictionary=False, column_encoding={"x": "DELTA_BINARY_PACKED"},
+                   data_page_version=version)
+    with pytest.raises(ParquetError, match="null"):
+        read_parquet(path)
+
+
+def _fixture_names():
+    return sorted(json.loads((FIXTURES / "cases.json").read_text()))
+
+
+@pytest.mark.parametrize("name", _fixture_names())
+def test_committed_fixtures_read_equal(name):
+    """Each committed fixture reads equal to pandas and to the ``.npz`` the
+    fixture tool wrote beside it (what the card checks in chip_smoke's phase
+    23 (a))."""
+    path = FIXTURES / f"{name}.parquet"
+    assert_read_equal(path)
+    got = read_parquet(path)
+    want = TOOL.expected_columns(np.load(FIXTURES / f"{name}.npz"))
+    assert list(got) == list(want)
+    for col, values in want.items():
+        if isinstance(values, list):
+            assert got[col] == values, col
+        else:
+            assert got[col].dtype == values.dtype, col
+            np.testing.assert_array_equal(got[col], values)
+
+
+def test_hd_fixture_tables_equal_the_writers(tmp_path):
+    """``hd384_{zstd,brotli,lz4_raw}.parquet`` read equal, column for column,
+    to the table chip_smoke's ``write_hd_dir`` writes for slide E."""
+    import chip_smoke
+
+    srd, _ = chip_smoke.write_hd_dir(str(tmp_path), "hdE", chip_smoke.HD_PITCH_E,
+                                     chip_smoke.HD_MARGIN_E)
+    want = read_parquet(find_position_file(srd, chip_smoke.HD_BINNING))
+    for codec in TOOL.HD_CODECS:
+        path = FIXTURES / f"hd384_{codec}.parquet"
+        assert _codec_ids(path) == {CODEC_IDS[codec]}
+        got = read_parquet(path)
+        assert list(got) == list(want) and got["barcode"] == want["barcode"]
+        for col in list(want)[1:]:
+            assert got[col].dtype == want[col].dtype
+            np.testing.assert_array_equal(got[col], want[col])
+
+
+def _zstd_positions(srd, boolean_tissue=True):
+    """Rewrite an HD directory's positions with ZSTD pages (and a BOOLEAN
+    ``in_tissue``, as some writers store it)."""
+    path = Path(find_position_file(srd, "square_016um"))
+    df = pd.read_parquet(path)
+    if boolean_tissue:
+        df["in_tissue"] = df["in_tissue"].astype(bool)
+    df.to_parquet(path, index=False, compression="zstd")
+    assert _codec_ids(path) == {CODEC_IDS["zstd"]}
+
+
+def test_hd_zstd_positions_and_register_match_jax(tmp_path):
+    """An HD directory whose positions parquet has ZSTD pages and a BOOLEAN
+    ``in_tissue``: ``read_positions`` equals the JAX package's, and
+    ``register --device cpu`` of a JAX-written HD model directory (24 x 24
+    bins) writes the Loupe CSV that the JAX package's ``register`` writes."""
+    import jax
+    import jax.numpy as jnp
+
+    from gridnext_tpu.cli import main as jax_main
+    from gridnext_tpu.data import simulate_spaceranger_dir
+    from gridnext_tpu.models import GridNet as JaxGridNet
+    from gridnext_tpu.models import TpuPatchClassifier as JaxTpuF
+    from gridnext_tpu.train import save_checkpoint
+    from gridnext_tpu_torch.cli import main as port_main
+
+    sim = simulate_spaceranger_dir(tmp_path / "hd", seed=4, n_genes=4, n_classes=3,
+                                   spaceranger_version="hd", hd_grid=(24, 24),
+                                   hd_binning="square_016um", image=True, spot_spacing_px=12)
+    srd = sim["spaceranger_dir"]
+    _zstd_positions(srd)
+    pos = read_positions(srd, "square_016um")
+    want = jax_read_positions(srd, hd_binning="square_016um")
+    assert want["in_tissue"].dtype == bool
+    assert pos.barcodes == list(want.index)
+    for name in COLUMNS[1:]:
+        np.testing.assert_array_equal(pos[name], want[name].to_numpy())
+    assert hd_lattice_dims(srd, "square_016um") == jax_hd_dims(srd, "square_016um") == (24, 24)
+
+    jg = JaxGridNet(patch_classifier=JaxTpuF(n_classes=3, stages=((16, 1),), stem_patch=4),
+                    n_classes=3)
+    rng = np.random.default_rng(1)
+
+    def fill(path, leaf):                  # numpy weights; BatchNorm variances positive
+        if str(getattr(path[-1], "key", "")) == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(leaf.dtype)
+        return (0.3 * rng.standard_normal(leaf.shape)).astype(leaf.dtype)
+
+    variables = jax.tree_util.tree_map_with_path(fill, jax.eval_shape(
+        jg.init, jax.random.key(0), jnp.zeros((1, 2, 2, 8, 8, 3))))
+    model = tmp_path / "model"
+    model.mkdir()
+    # the trainers' checkpoint payload, without an optimizer state
+    save_checkpoint(str(model / "g_state.msgpack"), SimpleNamespace(
+        params=variables["params"], batch_stats=variables.get("batch_stats", {}),
+        extra_vars={}, step=0), include_opt_state=False)
+    (model / "model.json").write_text(json.dumps({
+        "classes": ["A", "B", "C"], "patch_px": 8, "window_px": 12,
+        "model": "GridNet+TpuPatchClassifier",
+        "tpu_f": {"stages": [[16, 1]], "stem_patch": 4, "norm": "rms"}, "image_f": "tpu",
+        "hd_binning": "square_016um", "grid_dims": [24, 24], "patch_chunk": 64}))
+    args = ["register", "--model", str(model), "--spaceranger", srd, "--images",
+            sim["image_file"]]
+    jax_main(args + ["--out", str(tmp_path / "jax.csv")])
+    port_main(args + ["--out", str(tmp_path / "port.csv"), "--device", "cpu"])
+    rows = []
+    for name in ("jax.csv", "port.csv"):
+        with open(tmp_path / name, newline="") as fh:
+            rows.append(list(csv.reader(fh)))
+    assert rows[0][0] == ["Barcode", "AARs"] and len(rows[0]) == int(want["in_tissue"].sum()) + 1
+    assert rows[1] == rows[0]
+
+
+def test_delta_decoders_refuse_corrupt_pages():
+    """Hand-made DELTA pages: a prefix longer than the value before it, a
+    suffix past the page and an oversized block raise ``ParquetError``."""
+    from gridnext_tpu_torch.io import parquet
+
+    def deltas(values):           # one block of 128 in 4 miniblocks, every delta equal
+        step = values[1] - values[0] if len(values) > 1 else 0
+        assert all(b - a == step for a, b in zip(values, values[1:]))
+        zz = lambda v: v * 2 if v >= 0 else -v * 2 - 1  # noqa: E731
+        head = bytes([0x80, 0x01, 4, len(values), zz(values[0])])
+        return head + (bytes([zz(step), 0, 0, 0, 0]) if len(values) > 1 else b"")
+
+    good = deltas([0, 1]) + deltas([1, 1]) + b"ab"
+    assert parquet._delta_byte_array(good, 2, "c") == [b"a", b"ab"]
+    with pytest.raises(ParquetError, match="corrupt DELTA_BYTE_ARRAY"):
+        parquet._delta_byte_array(deltas([0, 5]) + deltas([1, 1]) + b"ab", 2, "c")
+    with pytest.raises(ParquetError, match="corrupt DELTA_BYTE_ARRAY"):
+        parquet._delta_byte_array(deltas([0, 1]) + deltas([1, 1]) + b"a", 2, "c")
+    huge = bytes([0x80, 0x80, 0x80, 0x01, 1, 2, 0])            # a block of 2 ** 21 values
+    with pytest.raises(ParquetError, match="DELTA_BINARY_PACKED values: corrupt: a block"):
+        parquet._delta_binary_packed(huge, 2, 64, "c")
+    with pytest.raises(ParquetError, match="truncated"):
+        parquet._delta_binary_packed(deltas([3, 4, 5])[:-2], 3, 64, "c")
