@@ -76,13 +76,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    f32-FMA bound and the bytes bound;
 9. one multimodal request at full width: a ``GridNetHexMM`` model
    directory (scBERT over the 16,906 gene2vec genes at its checkpoint
-   widths, count_chunk 8, and DenseNet-121, f32) with random weights from
+   widths, depth cut to ``MM_REQUEST_DEPTH`` = 3 of 6, count_chunk 8, and
+   DenseNet-121, f32) with random weights from
    a numpy seed through the weight bridge (orthogonal Gaussian FAVOR
    projections) registers slide 0: its image grid (``/255`` crops at the
    spots, zeros elsewhere) and a sparse Poisson count grid over the
    gene2vec genes go through ``modeldir.scbert_transform`` and
    ``serving.register_mm_grid``, the FAVOR count set to 0 just before and
-   required to be 3,744 just after (624 count chunks x 6 layers); the
+   required to be 1,872 just after (624 count chunks x 3 layers); the
    foreground must equal the mask, the labels the plain-version route's
    (the same model with FastAttention through the kernel's plain version)
    up to near-ties, and the count f's logits on three chunks must lie
@@ -159,8 +160,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     spot batch and per grid; the written directory registered by the
     ``register`` command, its labels equal (up to near-ties) to a CPU
     forward of the same weights, and ``g_state.msgpack`` read back
-    bit-equal; the epoch's first 64 spotwise steps timed (cut from the
-    epoch's 213 for the time limit), and a traced epoch of 8 batches (cut
+    bit-equal; the epoch's first 16 spotwise steps timed (cut from the
+    epoch's 213 for the time limit), and a traced epoch of 4 batches (cut
     from 20) for the device time a step of the crop, forward + backward and
     the optimiser (each kernel by the range its launch fell in) and the busy
     time a step, which split the untraced steps (the device's idle time
@@ -412,7 +413,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
     slide E through the ZSTD and then the BROTLI positions, the gather's
     count set to 0 just before each and read just after (one launch or
     more each), the CSV's labels equal to phase 12's exact-plan labels;
-24. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+24. every slide Pillow decodes, through the port's readers (no PIL),
+    right after phase 22 in phase 10's directory: (a) every committed
+    fixture of ``tools/make_jpeg_fixtures.py`` and
+    ``tools/make_tiff_fixtures.py`` bit-equal to Pillow's recorded pixels
+    on 1 thread and on all (progressive JPEGs, smoothed ones among them,
+    CMYK, YCCK, every sampling; 1- to 32-bit, float, CMYK, CCITT and
+    FillOrder 2 TIFFs; PNGs of every depth and Adam7); (b) slide 0 at full
+    width as phase 21's baseline JPEG rewritten progressive by the
+    coefficient-level transcoder of ``tools/jpeg_transcode.cpp`` (equal to
+    the baseline file's pixels) and as a 16-bit RGB TIFF of Deflate strips
+    under Predictor 2, ``v << 8 | noise`` (equal to slide 0), each decoded
+    on 1 thread and on all (MP/s); (c) ``register`` of phase 10's model
+    directory on both, the gather's and the labels corrector's counts set
+    to 0 just before each and read just after (one launch each), the
+    labels equal, with 0 flips, to the registrar's on the same pixels;
+25. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
@@ -420,7 +436,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the gather and labels-corrector rows ``launches_profile_register`` and
     ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s, and
     ``launches_jpeg_register``, phase 21 (c)'s, and
-    ``launches_tiff_register``, phase 22 (c)'s; the gather's row
+    ``launches_tiff_register``, phase 22 (c)'s, and
+    ``launches_slide_formats_register``, phase 24 (c)'s; the gather's row
     ``launches_prepare_images``, phase 21 (b)'s, and
     ``launches_parquet_register``, phase 23 (c)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
@@ -467,6 +484,7 @@ GROWTH = 32
 # attention, m = 266 features), over the 16,906 gene2vec genes
 MM_VOCAB = 16906
 MM_DIM, MM_DEPTH, MM_HEADS, MM_DIM_HEAD = 200, 6, 10, 64
+MM_REQUEST_DEPTH = 3          # phase 9's scBERT layers, kernel and plain routes (cut from 6)
 COUNT_CHUNK = 8               # train-mm's count_chunk for an scBERT count f
 COUNT_RATE = 0.05             # Poisson mean per gene of the count grid (~845 a spot)
 B_ROWS = 9000                 # rows of the cut slides of phase 10's mixed-shape cohort
@@ -1525,7 +1543,7 @@ def phase_mm(torch, slides, positions, masks, port, card):
 
     geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
     log(f"== phase 9: multimodal registration at full width: scBERT over {MM_VOCAB} "
-        f"genes (dim {MM_DIM}, depth {MM_DEPTH}, heads {MM_HEADS}, dim_head "
+        f"genes (dim {MM_DIM}, depth {MM_REQUEST_DEPTH}, heads {MM_HEADS}, dim_head "
         f"{MM_DIM_HEAD}, count_chunk {COUNT_CHUNK}) + DenseNet-121, f32, TF32 off")
     dev = slides.device
     h_st, w_st = geometry.VISIUM_H_ST, geometry.VISIUM_W_ST
@@ -1533,12 +1551,12 @@ def phase_mm(torch, slides, positions, masks, port, card):
     meta = {"model": "GridNetHexMM", "classes": classes, "patch_px": PATCH,
             "window_px": None, "patch_chunk": CHUNK, "count_chunk": COUNT_CHUNK,
             "log1p": False, "count_f": "scbert", "scbert_vocab": MM_VOCAB,
-            "scbert_dim": MM_DIM, "scbert_depth": MM_DEPTH, "scbert_heads": MM_HEADS,
+            "scbert_dim": MM_DIM, "scbert_depth": MM_REQUEST_DEPTH, "scbert_heads": MM_HEADS,
             "scbert_dim_head": MM_DIM_HEAD, "scbert_features": None, "hd_binning": None,
             "grid_dims": None, "image_f": "densenet", "dense_ingest": False}
     template = models.GridNetHexMM(
         models.densenet121(num_classes=N_CLASSES),
-        models.scBERT(n_genes=MM_VOCAB, dim=MM_DIM, depth=MM_DEPTH, heads=MM_HEADS,
+        models.scBERT(n_genes=MM_VOCAB, dim=MM_DIM, depth=MM_REQUEST_DEPTH, heads=MM_HEADS,
                       dim_head=MM_DIM_HEAD, n_classes=N_CLASSES,
                       generalized_attention=True), N_CLASSES)
     variables = random_variables(models, from_jax, seed=SEED + 6, model=template)
@@ -1572,9 +1590,9 @@ def phase_mm(torch, slides, positions, masks, port, card):
     labels = serving.register_mm_grid(model, x_image, raw, transform, device=dev)
     t_kernel = time.perf_counter() - t0
     launches = favor_cuda.launches
-    want_launches = -(-h_st * w_st // COUNT_CHUNK) * MM_DEPTH
+    want_launches = -(-h_st * w_st // COUNT_CHUNK) * MM_REQUEST_DEPTH
     log(f"multimodal register_mm_grid: {launches} FAVOR launches "
-        f"({want_launches} expected: {h_st * w_st} cells / {COUNT_CHUNK} x {MM_DEPTH} "
+        f"({want_launches} expected: {h_st * w_st} cells / {COUNT_CHUNK} x {MM_REQUEST_DEPTH} "
         f"layers)")
     if launches != want_launches:
         raise AssertionError(f"FAVOR launched {launches} times, not {want_launches}")
@@ -1603,7 +1621,7 @@ def phase_mm(torch, slides, positions, masks, port, card):
     count_err, count_scale, wants = 0.0, 0.0, []
     for start in (0, len(oy) // 2, len(oy) - COUNT_CHUNK):
         got, want = count_f_routes(torch, model.count_classifier,
-                                   cells[start:start + COUNT_CHUNK], MM_DEPTH)
+                                   cells[start:start + COUNT_CHUNK], MM_REQUEST_DEPTH)
         count_err = max(count_err, float((got - want).abs().max().item()))
         count_scale = max(count_scale, float(want.abs().max().item()))
         wants.append(want)
@@ -1641,8 +1659,8 @@ def phase_mm(torch, slides, positions, masks, port, card):
     fav_ms, parts = kernel_line(traced)
     log(f"count-chunk trace ({COUNT_CHUNK} cells, mean of 2 chunks): device {total:.4f} ms, "
         f"FAVOR kernels {fav_ms:.4f} ms ({fav_ms / total * 100:.1f} %; {parts})")
-    if any(n != MM_DEPTH for n, _ in traced.values()):
-        raise AssertionError(f"the count-chunk trace holds {traced}, not {MM_DEPTH} "
+    if any(n != MM_REQUEST_DEPTH for n, _ in traced.values()):
+        raise AssertionError(f"the count-chunk trace holds {traced}, not {MM_REQUEST_DEPTH} "
                              f"launches of each FAVOR kernel per chunk")
     return launches, {"meta": meta, "variables": variables, "raw": raw,
                       "ms": t_kernel * 1e3}
@@ -2788,7 +2806,7 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
                                         logits_a)
     log(f"(a): the CSV names the same model's direct forward on phase 9's request inputs up "
         f"to {flips} near-tie flips of {n_rows} spots; phase 9's request (depth "
-        f"{MM_DEPTH}) {mm['ms']:.2f} ms")
+        f"{MM_REQUEST_DEPTH}) {mm['ms']:.2f} ms")
 
     # (b) CountMLP + TpuPatchClassifier at window 160, log1p, the same
     # directory. The reference: the plain crop of the edge-padded slide, the
@@ -2930,8 +2948,8 @@ def phase_kinds(torch, slides, mask, port, card, tmp, mm):
 
 TRAIN_BATCH = 32              # train-image's --batch-size
 TRAIN_LR = 1e-3               # train-image's --f-lr and --g-lr
-TRAIN_TRACE_BATCHES = 8       # spotwise batches in the traced epoch (256 spots; cut from 20)
-TRAIN_TIMED_BATCHES = 32      # spotwise batches timed untraced (cut from the epoch's 213)
+TRAIN_TRACE_BATCHES = 4       # spotwise batches in the traced epoch (128 spots; cut from 20)
+TRAIN_TIMED_BATCHES = 16      # spotwise batches timed untraced (cut from the epoch's 213)
 SCBERT_BATCH, SCBERT_STEPS = 8, 8
 MM_STEP_DEPTH = 1             # scBERT layers in (c)'s GridNetHexMM grid step (cut from 6)
 TRAIN_TINT = 48               # +- intensity of a class's colour tint in its spots' windows
@@ -5712,17 +5730,21 @@ JPEG_PSNR_FLOOR = 18.0
 JPEG_GENES = 20               # (b)'s MEX: prepare writes a count cache beside the patches
 
 
+def tool_module(name: str):
+    """``tools/<name>.py`` as a module (its ``load`` needs no PIL)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def jpeg_fixtures() -> dict:
     """The committed Pillow fixtures (``tools/make_jpeg_fixtures.py``'s
     ``load``, which needs no PIL)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "make_jpeg_fixtures.py")
-    spec = importlib.util.spec_from_file_location("make_jpeg_fixtures", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.load()
+    return tool_module("make_jpeg_fixtures").load()
 
 
 def psnr_db(a, b) -> float:
@@ -5992,7 +6014,7 @@ def phase_jpeg(torch, slides, port, card, tmp, image) -> dict:
         f"{n_spots} spots")
     log(f"phase 21: {seconds:.1f} s; (b) {json.dumps(runs)} [{card}]")
     return {"launches": {"prepare_images": sum(r["launches"] for r in runs.values()),
-                         "register": reg_launches}, "s": seconds}
+                         "register": reg_launches}, "s": seconds, "slide": jpg}
 
 
 # -- phase 22: TIFF and PNG slides without PIL ---------------------------------
@@ -6007,21 +6029,15 @@ RASTER_ZLIB_LEVEL = 1         # the writer's Deflate level (the reader's speed d
 def raster_fixtures() -> dict:
     """The committed Pillow fixtures of the TIFF and PNG readers
     (``tools/make_tiff_fixtures.py``'s ``load``, which needs no PIL)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "make_tiff_fixtures.py")
-    spec = importlib.util.spec_from_file_location("make_tiff_fixtures", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.load()
+    return tool_module("make_tiff_fixtures").load()
 
 
 def tiff_file(shape, segments, *, compression: int, photometric: int, tile=None,
               rows_per_strip=None, predictor: int = 1, bigtiff: bool = False,
-              ycbcr=None) -> bytes:
-    """A little-endian one-page TIFF (or BigTIFF) of ``shape`` (h, w, c)
-    whose strips or tiles (``tile`` = side) are the encoded ``segments``."""
+              ycbcr=None, bits: int = 8) -> bytes:
+    """A little-endian one-page TIFF (or BigTIFF) of ``shape`` (h, w, c) at
+    ``bits`` a sample whose strips or tiles (``tile`` = side) are the
+    encoded ``segments``."""
     import struct
 
     h, w, c = shape
@@ -6034,7 +6050,7 @@ def tiff_file(shape, segments, *, compression: int, photometric: int, tile=None,
         offsets.append(len(data))
         counts.append(len(seg))
         data += seg
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * c), 259: (3, [compression]),
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]),
             262: (3, [photometric]), 277: (3, [c]), 284: (3, [1])}
     if predictor != 1:
         tags[317] = (3, [predictor])
@@ -6265,6 +6281,167 @@ def phase_tiff(torch, slides, port, card, tmp, image) -> dict:
     return {"launches": launches, "s": seconds, "rates": rates}
 
 
+# -- phase 24: every slide Pillow decodes ----------------------------------------
+
+PROG_SCRIPT = 1               # (b)'s transcode: libjpeg's simple progression (Pillow's)
+WIDE_ROWS_PER_STRIP = 8       # (b)'s 16-bit TIFF: 8-row strips (0.45 MB of samples each)
+
+
+def phase_slide_formats(torch, slides, port, card, tmp, image, jpeg_slide) -> dict:
+    """Phase 24: the slide formats beyond baseline, through the port's own
+    readers. (a) every committed fixture of ``tools/make_jpeg_fixtures.py``
+    and ``tools/make_tiff_fixtures.py`` (progressive, CMYK and YCCK JPEGs,
+    every sampling; 1-, 2-, 4-, 12-, 16- and 32-bit, CMYK, CCITT and
+    FillOrder 2 TIFFs; PNGs of every depth and Adam7) decodes bit-equal to
+    Pillow's recorded pixels, on 1 thread and on all; (b) slide 0 at full
+    width two ways: phase 21's baseline JPEG rewritten progressive by the
+    coefficient-level transcoder (``tools/jpeg_transcode.cpp``), which must
+    decode equal to the baseline file, and a 16-bit RGB TIFF of Deflate
+    strips under Predictor 2, each sample ``v << 8 | noise``, which must
+    decode equal to slide 0; each decoded on 1 thread and on all (MP/s);
+    (c) ``register`` (the command) of phase 10's model directory on both,
+    the gather's and the labels corrector's counts set to 0 just before
+    each and read just after (one launch each), the labels equal, with 0
+    flips, to the registrar's on the decoded pixels (slide 0's array for
+    the TIFF). Returns (c)'s launches, (b)'s rates and the phase's seconds."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.io import jpeg, png, tiff
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 24: every slide Pillow decodes, through the port's readers (no PIL)")
+    dev = slides.device
+    t_phase = time.perf_counter()
+    threads = os.cpu_count()
+    jt = tool_module("make_jpeg_fixtures")
+
+    # (a) Pillow's recorded pixels
+    jfx, rfx = jt.load(), raster_fixtures()
+    for name, f in jfx.items():
+        if not all(np.array_equal(jpeg.decode_jpeg(f["jpeg"], n_threads=n), f["decoded"])
+                   for n in (1, 0)):
+            raise AssertionError(f"(a) JPEG fixture {name} decodes to other pixels than Pillow's")
+    for name, f in rfx.items():
+        decodes = ([tiff.decode_tiff(f["data"], n_threads=n) for n in (1, 0)]
+                   if name.endswith(".tif") else [png.decode_png(f["data"])])
+        if not all(np.array_equal(d, f["decoded"]) for d in decodes):
+            raise AssertionError(f"(a) fixture {name} ({f['what']}) decodes to other pixels "
+                                 "than Pillow's")
+    log(f"(a) {len(jfx)} JPEG fixtures ({sum(1 for f in jfx.values() if not f['quality'])} "
+        f"beyond baseline: progressive and smoothed, CMYK, YCCK, h1v2 / h4v1 / h4v2) and "
+        f"{len(rfx)} TIFF / PNG fixtures (1- to 32-bit, float, CMYK, CCITT, FillOrder 2, "
+        f"progressive tiles; PNG at every depth, Adam7) decoded bit-equal to Pillow's, on 1 "
+        f"and {threads} threads")
+
+    # (b) slide 0 at full width: progressive JPEG and 16-bit TIFF
+    wsi = slides[0].cpu().numpy()
+    h, w = wsi.shape[:2]
+    mp = h * w / 1e6
+    root = os.path.join(tmp, "formats")
+    srd, mask = write_spaceranger_dir(root, geometry, TISSUE_FRACTIONS[0], 0)
+    with open(jpeg_slide, "rb") as fh:
+        base = fh.read()
+    t0 = time.perf_counter()
+    prog = jt.transcode(base, PROG_SCRIPT)
+    transcode_s = time.perf_counter() - t0
+    baseline = jpeg.decode_jpeg(base)
+    wants, paths, write_s, sizes = {"progressive": baseline, "tiff16": wsi}, {}, {}, {}
+    paths["progressive"] = os.path.join(root, "slide0_progressive.jpg")
+    with open(paths["progressive"], "wb") as fh:
+        fh.write(prog)
+    sizes["progressive"], write_s["progressive"] = len(prog), transcode_s
+    if jpeg.jpeg_info(prog)["sof"] != "progressive":
+        raise AssertionError("(b) the transcoded slide is not progressive")
+    del prog, base
+    t0 = time.perf_counter()
+    noise = np.frombuffer(np.random.default_rng(SEED + 24).bytes(wsi.size), np.uint8)
+    diff = (wsi.astype(np.uint16) << 8) | noise.reshape(wsi.shape)
+    del noise
+    np.subtract(diff[:, 1:], diff[:, :-1].copy(), out=diff[:, 1:])     # Predictor 2
+    diff = diff.astype("<u2", copy=False)
+    with ThreadPoolExecutor(threads) as pool:
+        strips = list(pool.map(
+            lambda y: zlib.compress(diff[y:y + WIDE_ROWS_PER_STRIP].tobytes(),
+                                    RASTER_ZLIB_LEVEL), range(0, h, WIDE_ROWS_PER_STRIP)))
+    del diff
+    data = tiff_file(wsi.shape, strips, compression=8, photometric=2,
+                     rows_per_strip=WIDE_ROWS_PER_STRIP, predictor=2, bits=16)
+    del strips
+    paths["tiff16"] = os.path.join(root, "slide0_rgb16.tif")
+    with open(paths["tiff16"], "wb") as fh:
+        fh.write(data)
+    sizes["tiff16"], write_s["tiff16"] = len(data), time.perf_counter() - t0
+    del data
+    rates = {}
+    for kind, path in paths.items():
+        runs = {}
+        for n_threads in (1, 0):
+            t0 = time.perf_counter()
+            got = (jpeg.decode_jpeg(path, n_threads=n_threads) if kind == "progressive"
+                   else tiff.decode_tiff(path, n_threads=n_threads))
+            runs[n_threads or threads] = time.perf_counter() - t0
+            if not np.array_equal(got, wants[kind]):
+                source = "its baseline file" if kind == "progressive" else "slide 0"
+                raise AssertionError(f"(b) the {kind} slide decodes to other pixels than "
+                                     f"{source} ({n_threads or threads} threads)")
+            del got
+        rates[kind] = {"file_mb": round(sizes[kind] / 1e6, 1),
+                       "write_s": round(write_s[kind], 3),
+                       **{f"decode_s_{n}": round(v, 4) for n, v in runs.items()},
+                       **{f"mp_per_s_{n}": round(mp / v, 1) for n, v in runs.items()}}
+        log(f"(b) {kind}: {sizes[kind] / 1e6:.1f} MB "
+            f"{'transcoded' if kind == 'progressive' else 'written'} in {write_s[kind]:.2f} s; "
+            "decode " + ", ".join(f"{v:.3f} s on {n} thread{'s' if n > 1 else ''} "
+                                  f"({mp / v:.1f} MP/s)" for n, v in runs.items())
+            + f"; equal to {'the baseline file' if kind == 'progressive' else 'slide 0'}'s "
+            f"pixels [{card}]")
+    del wsi
+
+    # (c) register of both slides through the command
+    pos = io.read_positions(srd)
+    n_spots = int(mask.sum())
+    reg = image["registrar"]
+    launches = {"gather_patches": 0, "fused_hex_corrector_labels": 0}
+    reg_s = {}
+    for kind, path in paths.items():
+        out = os.path.join(root, f"slide0_{kind}.csv")
+        torch.cuda.synchronize()
+        gather.launches = 0
+        for k in corr.launches:
+            corr.launches[k] = 0
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", image["model_dir"], "--images", path,
+                  "--spaceranger", srd, "--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        reg_s[kind] = round(time.perf_counter() - t0, 3)
+        got_launches = {"gather_patches": gather.launches,
+                        "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+        if got_launches != {"gather_patches": 1, "fused_hex_corrector_labels": 1}:
+            raise AssertionError(f"(c) register of the {kind} slide launched {got_launches}")
+        for k, v in got_launches.items():
+            launches[k] += v
+        slide = torch.from_numpy(wants[kind]).to(dev)
+        want = reg(slide, pos)
+        logits, _ = reg.register_logits(slide, pos)
+        del slide
+        got, n_rows = loupe_grid(out, mask.shape, image["classes"])
+        flips = serving.label_parity_report(want, got, logits)
+        if flips or n_rows != n_spots or not np.array_equal(np.asarray(want), got):
+            raise AssertionError(f"(c) register of the {kind} slide: {flips} flips, {n_rows} "
+                                 f"rows for {n_spots} spots")
+        log(f"(c) register of the {kind} slide: {reg_s[kind]:.2f} s with the decode; labels "
+            f"equal to the registrar's on "
+            f"{'the baseline file' if kind == 'progressive' else 'slide 0'}'s array, 0 flips; "
+            f"launches {json.dumps(got_launches)} [{card}]")
+    wants.clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 24: {seconds:.1f} s; (b) {json.dumps(rates)}; (c) {json.dumps(reg_s)} s "
+        f"[{card}]")
+    return {"launches": launches, "s": seconds, "rates": rates}
+
+
 def main() -> int:
     import torch
 
@@ -6289,9 +6466,11 @@ def main() -> int:
 
     from gridnext_tpu_torch.ops import _host
 
-    with ThreadPoolExecutor(3) as pool:       # the host codecs' g++ beside the nvcc builds
+    with ThreadPoolExecutor(4) as pool:       # the host codecs' g++ beside the nvcc builds
         host = {name: pool.submit(lambda n: (_host.build(n), time.perf_counter() - t0), name)
                 for name in ("jpeg_codec", "raster_codec", "parquet_codec")}
+        host["jpeg_transcode (tools/)"] = pool.submit(
+            lambda: (tool_module("make_jpeg_fixtures").transcoder(), time.perf_counter() - t0))
         built = _cuda.build()
         for name, job in host.items():
             log(f"built {name}.cpp (g++, host) in {job.result()[1]:.1f} s")
@@ -6359,6 +6538,8 @@ def main() -> int:
         profile_reg = phase_profile_register(torch, port, card, tmp, image_dir, dirs_masks)
         jpeg_res = phase_jpeg(torch, slides, port, card, tmp, image_dir)
         tiff_res = phase_tiff(torch, slides, port, card, tmp, image_dir)
+        formats_res = phase_slide_formats(torch, slides, port, card, tmp, image_dir,
+                                          jpeg_res["slide"])
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
@@ -6459,6 +6640,8 @@ def main() -> int:
             k["launches_jpeg_register"] = jpeg_res["launches"]["register"][k["name"]]
             # phase 22 (c)'s path: register on the Deflate TIFF and the JPEG BigTIFF
             k["launches_tiff_register"] = tiff_res["launches"][k["name"]]
+            # phase 24 (c)'s path: register on the progressive JPEG and the 16-bit TIFF
+            k["launches_slide_formats_register"] = formats_res["launches"][k["name"]]
     # phase 21 (b)'s path: prepare --images, one launch an array
     by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
     # phase 23 (c)'s path: register of slide E through ZSTD and BROTLI positions

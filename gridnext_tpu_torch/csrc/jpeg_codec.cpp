@@ -11,12 +11,19 @@
 // scaling of the Annex K tables, the Annex K Huffman tables (Pillow's
 // default ``optimize=False``) and a JFIF APP0 header.
 //
-// Decoder: SOF0 and SOF1 (8-bit Huffman sequential), 1 or 3 components,
-// chroma subsampled 1x1, 2x1 or 2x2, interleaved or one scan a component,
-// DRI and restart markers, the ``islow`` inverse DCT with libjpeg's range
-// limit, fancy (triangle) upsampling and fixed-point YCbCr -> RGB. Anything
-// else (progressive, arithmetic, lossless, 12-bit, CMYK, other sampling)
-// is refused with a message.
+// Decoder: SOF0, SOF1 (8-bit Huffman sequential) and SOF2 (progressive
+// Huffman: DC and AC first and refinement scans, spectral selection and
+// successive approximation in any order a scan script allows, EOB runs),
+// 1, 3 or 4 components, every integral sampling factor of 1 to 4 per axis,
+// interleaved or one scan a component, DRI and restart markers, the ``islow``
+// inverse DCT with libjpeg's range limit, libjpeg-turbo's upsamplers (fancy
+// h2v1 and h2v2 where the component is wider than 2 samples, fancy h1v2,
+// replication for every other factor) and fixed-point YCbCr -> RGB and
+// YCCK -> CMYK. A progressive file whose scans leave any of the first nine
+// AC coefficients of a component unsent or unrefined is smoothed between
+// blocks at output as libjpeg-turbo 2.1+ does (jdcoefct.c,
+// decompress_smooth_data). Anything else (arithmetic, lossless, 12-bit,
+// hierarchical) is refused with a message.
 //
 // Plain C interface for ctypes; every entry returns 0 on success or writes a
 // message into ``err``. Threads: a slide decodes its entropy data on one
@@ -493,6 +500,13 @@ struct BitReader {
     bits -= s;
     return v < (1u << (s - 1)) ? static_cast<int>(v) - (1 << s) + 1 : static_cast<int>(v);
   }
+  // n (1 to 16) raw bits, refilling as needed
+  inline uint32_t get(int n) {
+    if (bits < n) fill();
+    const uint32_t v = show(n);
+    bits -= n;
+    return v;
+  }
   // Raise if the data consumed ran past the segment's end.
   void check() const {
     if (static_cast<int64_t>(bits) < 8 * fake)
@@ -507,13 +521,19 @@ struct Component {
   int bw = 0, bh = 0;             // blocks allocated (MCU-padded)
   uint16_t qt[64];                // latched quantisation table, natural order
   bool qt_latched = false;
+  bool scanned = false;           // in a scan already
+  int coef_bits[64];              // progressive: the Al of each zigzag coefficient, -1 unsent
   std::vector<int16_t> coef;      // bh * bw blocks of 64, natural order
-  std::vector<uint8_t> plane;     // bh*8 rows of bw*8 samples
+  std::vector<uint8_t> plane;     // hib*8 rows of bw*8 samples
+
+  int16_t* block(int row, int col) { return &coef[(static_cast<size_t>(row) * bw + col) * 64]; }
+  const int16_t* block(int row, int col) const {
+    return &coef[(static_cast<size_t>(row) * bw + col) * 64];
+  }
 };
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC2: return "progressive DCT (SOF2)";
     case 0xC3: return "lossless (SOF3)";
     case 0xC5: return "differential sequential (SOF5)";
     case 0xC6: return "differential progressive (SOF6)";
@@ -528,6 +548,20 @@ const char* sof_name(int m) {
   }
 }
 
+// Natural positions of the first nine AC coefficients in zigzag order
+// (libjpeg's Q01 Q10 Q20 Q11 Q02 Q03 Q12 Q21 Q30), for block smoothing.
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// libjpeg's prediction of one AC coefficient from ``num`` (Q00 times a
+// combination of DC values): round(num / (q * 256)), at most 2^Al - 1 in
+// magnitude when Al > 0.
+inline int16_t smooth_pred(jl num, jl q, int al) {
+  const jl mag = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+  int pred = static_cast<int>(mag);
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return static_cast<int16_t>(num >= 0 ? pred : -pred);
+}
+
 class Decoder {
  public:
   Decoder(const uint8_t* data, int64_t size) : d_(data), n_(size) {}
@@ -539,7 +573,8 @@ class Decoder {
   void decode(uint8_t* out, int n_threads) {
     parse(true);
     for (auto& c : comps_)
-      if (c.coef.empty()) fail("no scan holds component " + std::to_string(c.id));
+      if (!c.scanned) fail("no scan holds component " + std::to_string(c.id));
+    const bool smooth = smoothing();
     // inverse DCT, a block row of a component per task
     std::vector<std::pair<int, int>> rows;
     for (int ci = 0; ci < static_cast<int>(comps_.size()); ++ci) {
@@ -550,13 +585,17 @@ class Decoder {
       Component& c = comps_[rows[i].first];
       int r = rows[i].second;
       int64_t stride = static_cast<int64_t>(c.bw) * 8;
-      for (int b = 0; b < c.wib; ++b)
-        idct_islow(&c.coef[(static_cast<size_t>(r) * c.bw + b) * 64], c.qt,
-                   &c.plane[static_cast<size_t>(r) * 8 * stride + b * 8], stride);
+      uint8_t* o = &c.plane[static_cast<size_t>(r) * 8 * stride];
+      if (smooth) {
+        smooth_row(c, r, o, stride);
+        return;
+      }
+      for (int b = 0; b < c.wib; ++b) idct_islow(c.block(r, b), c.qt, o + b * 8, stride);
     });
     for (auto& c : comps_) std::vector<int16_t>().swap(c.coef);
     // upsampling and colour conversion, 16 output rows per task
     const int64_t bands = (height_ + 15) / 16;
+    const int nc = static_cast<int>(comps_.size());
     parallel_for(bands, n_threads, [&](int64_t band) {
       std::vector<uint8_t> up(comps_.size() * (static_cast<size_t>(width_) + 2));
       std::vector<int> colsum(width_ + 2);
@@ -565,21 +604,32 @@ class Decoder {
         for (size_t ci = 0; ci < comps_.size(); ++ci)
           upsample_row(comps_[ci], y, &up[ci * (width_ + 2)], colsum.data());
         uint8_t* o = out + static_cast<int64_t>(y) * width_ * out_components();
-        if (comps_.size() == 1) {
-          std::memcpy(o, up.data(), width_);
-        } else if (!rgb_) {
-          const uint8_t* yy = up.data();
-          const uint8_t* cb = yy + width_ + 2;
-          const uint8_t* cr = cb + width_ + 2;
+        const uint8_t* p0 = up.data();
+        const uint8_t* p1 = p0 + width_ + 2;
+        const uint8_t* p2 = p1 + width_ + 2;
+        if (nc == 1) {
+          std::memcpy(o, p0, width_);
+        } else if (transform_) {    // YCbCr -> RGB, or YCCK -> CMYK (K as stored)
+          const int oc = nc;
           for (int x = 0; x < width_; ++x) {
-            int l = yy[x];
-            o[3 * x] = clamp255(l + kColor.cr_r[cr[x]]);
-            o[3 * x + 1] = clamp255(l + ((kColor.cb_g[cb[x]] + kColor.cr_g[cr[x]]) >> kScaleBits));
-            o[3 * x + 2] = clamp255(l + kColor.cb_b[cb[x]]);
+            const int l = p0[x], cb = p1[x], cr = p2[x];
+            const int r = clamp255(l + kColor.cr_r[cr]);
+            const int g = clamp255(l + ((kColor.cb_g[cb] + kColor.cr_g[cr]) >> kScaleBits));
+            const int b = clamp255(l + kColor.cb_b[cb]);
+            if (nc == 3) {
+              o[3 * x] = static_cast<uint8_t>(r);
+              o[3 * x + 1] = static_cast<uint8_t>(g);
+              o[3 * x + 2] = static_cast<uint8_t>(b);
+            } else {
+              o[oc * x] = static_cast<uint8_t>(255 - r);
+              o[oc * x + 1] = static_cast<uint8_t>(255 - g);
+              o[oc * x + 2] = static_cast<uint8_t>(255 - b);
+              o[oc * x + 3] = p2[width_ + 2 + x];
+            }
           }
-        } else {
+        } else {                    // RGB or CMYK as stored
           for (int x = 0; x < width_; ++x)
-            for (int c = 0; c < 3; ++c) o[3 * x + c] = up[c * (width_ + 2) + x];
+            for (int c = 0; c < nc; ++c) o[nc * x + c] = up[c * (width_ + 2) + x];
         }
       }
     });
@@ -588,7 +638,7 @@ class Decoder {
   int width() const { return width_; }
   int height() const { return height_; }
   int components() const { return static_cast<int>(comps_.size()); }
-  int out_components() const { return comps_.size() == 1 ? 1 : 3; }
+  int out_components() const { return static_cast<int>(comps_.size()); }
   int sof() const { return sof_; }
 
   // Three components as stored (1: RGB, libtiff's JCS_UNKNOWN for a TIFF of
@@ -603,7 +653,7 @@ class Decoder {
   int width_ = 0, height_ = 0, sof_ = -1;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0, colour_ = -1;
-  bool saw_jfif_ = false, saw_adobe_ = false, rgb_ = false;
+  bool saw_jfif_ = false, saw_adobe_ = false, transform_ = false, progressive_ = false;
   int adobe_transform_ = 0;
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
@@ -635,14 +685,14 @@ class Decoder {
         if (sof_ < 0) fail("JPEG has no frame header");
         return;
       }
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         read_sof(m);
         if (!decode_scans) return;
         continue;
       }
       if (const char* name = sof_name(m))
-        fail(std::string("unsupported JPEG: ") + name + "; only baseline and extended "
-             "sequential Huffman (SOF0, SOF1) are decoded");
+        fail(std::string("unsupported JPEG: ") + name + "; only baseline, extended "
+             "sequential and progressive Huffman (SOF0, SOF1, SOF2) are decoded");
       if (m == 0xC8 || m == 0xCC) fail("unsupported JPEG: arithmetic coding (DAC/JPG marker)");
       if (m >= 0xD0 && m <= 0xD7) continue;  // a stray RSTn: nothing to skip
       if (m == 0x01) continue;               // TEM
@@ -688,9 +738,8 @@ class Decoder {
     int nc = byte();
     if (height_ == 0) fail("unsupported JPEG: height defined by a DNL marker");
     if (width_ == 0) fail("bad JPEG: width 0");
-    if (nc == 4) fail("unsupported JPEG: 4 components (CMYK/YCCK)");
-    if (nc != 1 && nc != 3)
-      fail("unsupported JPEG: " + std::to_string(nc) + " components (only 1 or 3)");
+    if (nc != 1 && nc != 3 && nc != 4)
+      fail("unsupported JPEG: " + std::to_string(nc) + " components (only 1, 3 or 4)");
     if (len != 8 + 3 * nc) fail("bad JPEG frame header length");
     comps_.resize(nc);
     for (auto& c : comps_) {
@@ -702,22 +751,25 @@ class Decoder {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) fail("bad JPEG frame header");
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     if (nc == 1) {
       comps_[0].h = comps_[0].v = 1;  // one component: its MCU is one block
       hmax_ = vmax_ = 1;
     } else {
+      int blocks = 0;
       for (auto& c : comps_) {
-        int hr = hmax_ / c.h, vr = vmax_ / c.v;
-        bool ok = hmax_ % c.h == 0 && vmax_ % c.v == 0 &&
-                  ((hr == 1 && vr == 1) || (hr == 2 && vr == 1) || (hr == 2 && vr == 2));
-        if (!ok)
+        // libjpeg's upsamplers take integral ratios only
+        if (hmax_ % c.h || vmax_ % c.v)
           fail("unsupported JPEG: sampling factors " + std::to_string(c.h) + "x" +
                std::to_string(c.v) + " of " + std::to_string(hmax_) + "x" +
-               std::to_string(vmax_) + " (only 1x1, 2x1 and 2x2 chroma)");
+               std::to_string(vmax_) + " (a fractional ratio)");
+        blocks += c.h * c.v;
       }
+      if (blocks > 10) fail("bad JPEG: more than 10 blocks in an MCU");
     }
     sof_ = m - 0xC0;
+    progressive_ = m == 0xC2;
     mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comps_) {
@@ -728,18 +780,22 @@ class Decoder {
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
     }
+    // colour transform of the decoded components (libjpeg's
+    // default_decompress_parms): 3 components YCbCr -> RGB, 4 YCCK -> CMYK
     if (nc == 3 && colour_ >= 0) {
-      rgb_ = colour_ == 1;
-      if (rgb_ && (hmax_ != 1 || vmax_ != 1))
+      transform_ = colour_ == 0;
+      if (!transform_ && (hmax_ != 1 || vmax_ != 1))
         fail("unsupported JPEG: RGB components (no colour transform) with subsampled chroma");
     } else if (nc == 3) {
       if (saw_jfif_) {
-        rgb_ = false;
+        transform_ = true;
       } else if (saw_adobe_) {
-        rgb_ = adobe_transform_ == 0;
+        transform_ = adobe_transform_ != 0;
       } else {
-        rgb_ = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
+        transform_ = !(comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
       }
+    } else if (nc == 4) {
+      transform_ = saw_adobe_ && adobe_transform_ != 0;
     }
   }
 
@@ -783,18 +839,43 @@ class Decoder {
       in_scan[i] = ci;
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3 || !dc_[td[i]].defined || !ac_[ta[i]].defined)
+      if (td[i] > 3 || ta[i] > 3) fail("SOS names a Huffman table past 3");
+    }
+    const int ss = byte(), se = byte(), ahal = byte();
+    const int ah = ahal >> 4, al = ahal & 15;
+    if (pos_ != header_end) fail("bad SOS marker length");
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ahal != 0) fail("bad SOS parameters for a sequential JPEG");
+    } else {
+      // jdphuff.c's checks: a DC band is Ss = Se = 0; an AC band one
+      // component and Ss <= Se < 64; a refinement Al = Ah - 1; Al <= 13
+      const bool bad = (ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+                       (ah != 0 && al != ah - 1) || al > 13;
+      if (bad)
+        fail("bad progression: Ss " + std::to_string(ss) + ", Se " + std::to_string(se) +
+             ", Ah " + std::to_string(ah) + ", Al " + std::to_string(al));
+    }
+    const bool dc_scan = ss == 0, refine = ah != 0;
+    for (int i = 0; i < ns; ++i) {
+      // sequential scans use both tables; progressive DC first scans the
+      // DC table, AC scans the AC table, DC refinements none
+      const bool need_dc = !progressive_ || (dc_scan && !refine);
+      const bool need_ac = !progressive_ || !dc_scan;
+      if ((need_dc && !dc_[td[i]].defined) || (need_ac && !ac_[ta[i]].defined))
         fail("SOS uses an undefined Huffman table");
     }
-    int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) fail("bad SOS parameters for a sequential JPEG");
-    if (pos_ != header_end) fail("bad SOS marker length");
     for (int ci : in_scan) {
       Component& c = comps_[ci];
-      if (!c.coef.empty()) fail("component in two scans of a sequential JPEG");
-      if (!qt_defined_[c.tq]) fail("component uses an undefined quantisation table");
-      std::memcpy(c.qt, qt_[c.tq], sizeof(c.qt));
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      if (!progressive_ && c.scanned) fail("component in two scans of a sequential JPEG");
+      if (!c.qt_latched) {     // libjpeg latches a table at the component's first scan
+        if (!qt_defined_[c.tq]) fail("component uses an undefined quantisation table");
+        std::memcpy(c.qt, qt_[c.tq], sizeof(c.qt));
+        c.qt_latched = true;
+      }
+      if (c.coef.empty()) c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      c.scanned = true;
+      if (progressive_)
+        for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
     }
     // MCU layout: interleaved scans use the frame's MCUs, a single
     // component's scan one block per MCU over its own blocks
@@ -805,6 +886,7 @@ class Decoder {
     }
     BitReader br{d_, n_, pos_};
     int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int64_t total = static_cast<int64_t>(mx) * my;
     int next_rst = 0;
     for (int64_t mcu = 0; mcu < total; ++mcu) {
@@ -819,6 +901,7 @@ class Decoder {
         next_rst = (next_rst + 1) & 7;
         br = BitReader{d_, n_, p + 2};
         std::memset(last_dc, 0, sizeof(last_dc));
+        eobrun = 0;
       }
       int mcu_x = static_cast<int>(mcu % mx), mcu_y = static_cast<int>(mcu / mx);
       for (int i = 0; i < ns; ++i) {
@@ -830,33 +913,21 @@ class Decoder {
           for (int bx = 0; bx < bwm; ++bx) {
             int row = ns == 1 ? mcu_y : mcu_y * c.v + by;
             int col = ns == 1 ? mcu_x : mcu_x * c.h + bx;
-            int16_t* blk = &c.coef[(static_cast<size_t>(row) * c.bw + col) * 64];
-            br.need32();
-            int s = br.decode(dc);
-            if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
-            last_dc[i] += br.value(s);
-            blk[0] = static_cast<int16_t>(last_dc[i]);
-            for (int k = 1; k < 64; ++k) {
+            int16_t* blk = c.block(row, col);
+            if (!progressive_) {
+              sequential_block(br, dc, ac, blk, last_dc[i]);
+            } else if (dc_scan && !refine) {
               br.need32();
-              const int32_t fast = ac.fast_ac[br.show(kLookBits)];
-              if (fast) {
-                k += (fast >> 8) & 0xFF;
-                br.bits -= fast & 0xFF;
-                if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
-                blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
-                continue;
-              }
-              const int rs = br.decode(ac);
-              const int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
-                blk[kNatural[k]] = static_cast<int16_t>(br.value(s));
-              } else {
-                if (r != 15) break;
-                k += 15;
-              }
+              const int s = br.decode(dc);
+              if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
+              last_dc[i] += br.value(s);
+              blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[i]) << al);
+            } else if (dc_scan) {
+              if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+            } else if (!refine) {
+              ac_first(br, ac, blk, ss, se, al, eobrun);
+            } else {
+              ac_refine(br, ac, blk, ss, se, al, eobrun);
             }
           }
         }
@@ -866,10 +937,230 @@ class Decoder {
     pos_ = br.pos;
   }
 
-  // Row y of component c at full resolution, as libjpeg's upsamplers produce
-  // it: fancy (triangle) 2x1 and 2x2 where the component is wider than 2
-  // samples, replication otherwise. ``out`` holds width_ + 2 samples (a
-  // fancy row fills 2 * dw <= width_ + 1 of them).
+  void sequential_block(BitReader& br, const HuffDecoder& dc, const HuffDecoder& ac,
+                        int16_t* blk, int& last_dc) {
+    br.need32();
+    int s = br.decode(dc);
+    if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
+    last_dc += br.value(s);
+    blk[0] = static_cast<int16_t>(last_dc);
+    for (int k = 1; k < 64; ++k) {
+      br.need32();
+      const int32_t fast = ac.fast_ac[br.show(kLookBits)];
+      if (fast) {
+        k += (fast >> 8) & 0xFF;
+        br.bits -= fast & 0xFF;
+        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+        blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
+        continue;
+      }
+      const int rs = br.decode(ac);
+      const int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+        blk[kNatural[k]] = static_cast<int16_t>(br.value(s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_first
+  static void ac_first(BitReader& br, const HuffDecoder& ac, int16_t* blk, int ss, int se,
+                       int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      br.need32();
+      const int32_t fast = ac.fast_ac[br.show(kLookBits)];
+      if (fast) {                      // a short code and its magnitude bits at once
+        k += (fast >> 8) & 0xFF;
+        br.bits -= fast & 0xFF;
+        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(fast >> 16) << al);
+        continue;
+      }
+      const int rs = br.decode(ac);
+      int r = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(br.value(s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += static_cast<int>(br.get(r));
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine
+  static void ac_refine(BitReader& br, const HuffDecoder& ac, int16_t* blk, int ss, int se,
+                        int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        br.need32();
+        const int rs = br.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt JPEG data: a refinement coefficient of size " +
+                           std::to_string(s));
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += static_cast<int>(br.get(r));
+          break;
+        }
+        // pass over nonzero coefficients (a correction bit each) and r zero ones
+        for (; k <= se; ++k) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            if (br.get(1) && (*coef & p1) == 0)
+              *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (s) {
+          if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
+          blk[kNatural[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0 && br.get(1) && (*coef & p1) == 0)
+          *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+      }
+      --eobrun;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: a progressive file with every DC known and some
+  // of the first nine AC coefficients of a component unsent or unrefined
+  bool smoothing() const {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (const auto& c : comps_) {
+      for (int k = 0; k < 10; ++k)
+        if (c.qt[kSmoothPos[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+) for block row r
+  // of c: each block's still-zero, not fully known first AC coefficients
+  // estimated from the DC values of a 5x5 neighbourhood (DC too, where no
+  // AC coefficient was sent), then the inverse DCT.
+  void smooth_row(const Component& c, int r, uint8_t* out, int64_t stride) const {
+    // neighbouring block rows as libjpeg picks them within its iMCU rows
+    const int total = mcuy_, imcu = r / c.v, in_row = r % c.v;
+    int block_rows = c.v;
+    if (imcu == total - 1 && c.hib % c.v) block_rows = c.hib % c.v;
+    const int ibr = imcu * block_rows + in_row, ibrs = block_rows * total;
+    const int prev = ibr > 0 ? r - 1 : r;
+    const int pprev = ibr > 1 ? r - 2 : prev;
+    const int next = ibr < ibrs - 1 ? r + 1 : r;
+    const int nnext = ibr < ibrs - 2 ? r + 2 : next;
+    const int rws[5] = {pprev, prev, r, next, nnext};
+    const int* bits = c.coef_bits;
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                           bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                           bits[9] == -1;
+    const jl Q00 = c.qt[0], Q01 = c.qt[1], Q10 = c.qt[8], Q20 = c.qt[16], Q11 = c.qt[9],
+             Q02 = c.qt[2], Q03 = c.qt[3], Q12 = c.qt[10], Q21 = c.qt[17], Q30 = c.qt[24];
+    const int last = c.wib - 1;
+    // DC[5 * row + col], rows pprev..nnext, columns b - 2 .. b + 2 (libjpeg's
+    // DC01..DC25 sliding registers, edge columns repeated as it does)
+    int dc[25];
+    for (int i = 0; i < 5; ++i)
+      for (int j = 0; j < 5; ++j) dc[5 * i + j] = c.block(rws[i], 0)[0];
+    int16_t ws[64];
+    for (int b = 0; b <= last; ++b) {
+      std::memcpy(ws, c.block(r, b), sizeof(ws));
+      if (b == 0 && b < last)
+        for (int i = 0; i < 5; ++i) dc[5 * i + 3] = dc[5 * i + 4] = c.block(rws[i], 1)[0];
+      if (b + 1 < last)
+        for (int i = 0; i < 5; ++i) dc[5 * i + 4] = c.block(rws[i], b + 2)[0];
+      const int DC01 = dc[0], DC02 = dc[1], DC03 = dc[2], DC04 = dc[3], DC05 = dc[4],
+                DC06 = dc[5], DC07 = dc[6], DC08 = dc[7], DC09 = dc[8], DC10 = dc[9],
+                DC11 = dc[10], DC12 = dc[11], DC13 = dc[12], DC14 = dc[13], DC15 = dc[14],
+                DC16 = dc[15], DC17 = dc[16], DC18 = dc[17], DC19 = dc[18], DC20 = dc[19],
+                DC21 = dc[20], DC22 = dc[21], DC23 = dc[22], DC24 = dc[23], DC25 = dc[24];
+      int al;
+      if ((al = bits[1]) != 0 && ws[1] == 0)       // AC01
+        ws[1] = smooth_pred(Q00 * (change_dc ?
+            (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+             3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+             13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+            (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), Q01, al);
+      if ((al = bits[2]) != 0 && ws[8] == 0)       // AC10
+        ws[8] = smooth_pred(Q00 * (change_dc ?
+            (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+             13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+             3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+            (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), Q10, al);
+      if ((al = bits[3]) != 0 && ws[16] == 0)      // AC20
+        ws[16] = smooth_pred(Q00 * (change_dc ?
+            (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+             2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+            (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)), Q20, al);
+      if ((al = bits[4]) != 0 && ws[9] == 0)       // AC11
+        ws[9] = smooth_pred(Q00 * (change_dc ?
+            (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+            (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 -
+             DC06 + 10 * DC07 - 10 * DC09)), Q11, al);
+      if ((al = bits[5]) != 0 && ws[2] == 0)       // AC02
+        ws[2] = smooth_pred(Q00 * (change_dc ?
+            (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 +
+             DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19) :
+            (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)), Q02, al);
+      if (change_dc) {
+        if ((al = bits[6]) != 0 && ws[3] == 0)     // AC03
+          ws[3] = smooth_pred(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+        if ((al = bits[7]) != 0 && ws[10] == 0)    // AC12
+          ws[10] = smooth_pred(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12,
+                               al);
+        if ((al = bits[8]) != 0 && ws[17] == 0)    // AC21
+          ws[17] = smooth_pred(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21,
+                               al);
+        if ((al = bits[9]) != 0 && ws[24] == 0)    // AC30
+          ws[24] = smooth_pred(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30,
+                               al);
+        // DC, from a Gaussian-like kernel over the 25 DC values
+        ws[0] = smooth_pred(Q00 * (
+            -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+            42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+            42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+            2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), Q00, 0);
+      }
+      idct_islow(ws, c.qt, out + b * 8, stride);
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 4; ++j) dc[5 * i + j] = dc[5 * i + j + 1];
+    }
+  }
+
+  // Row y of component c at full resolution, as libjpeg-turbo's upsamplers
+  // produce it (jdsample.c): fancy (triangle) h2v1 and h2v2 where the
+  // component is wider than 2 samples, fancy h1v2, replication otherwise.
+  // ``out`` holds width_ + 2 samples (a fancy row fills 2 * dw <= width_ + 1
+  // of them). Rows past the component's last take that row, as libjpeg's
+  // context rows do.
   void upsample_row(const Component& c, int y, uint8_t* out, int* colsum) const {
     const int64_t stride = static_cast<int64_t>(c.bw) * 8;
     const int hr = hmax_ / c.h, vr = vmax_ / c.v;
@@ -878,12 +1169,8 @@ class Decoder {
       return;
     }
     const int dw = c.dw;
-    if (hr == 2 && vr == 1) {
+    if (hr == 2 && vr == 1 && dw > 2) {
       const uint8_t* in = &c.plane[y * stride];
-      if (dw <= 2) {
-        for (int x = 0; x < width_; ++x) out[x] = in[x >> 1];
-        return;
-      }
       out[0] = in[0];
       out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
       for (int i = 1; i < dw - 1; ++i) {
@@ -895,25 +1182,32 @@ class Decoder {
       out[2 * dw - 1] = in[dw - 1];
       return;
     }
-    // 2x2
     const int inrow = y >> 1;
-    if (dw <= 2) {
-      const uint8_t* in = &c.plane[inrow * stride];
-      for (int x = 0; x < width_; ++x) out[x] = in[x >> 1];
+    const int other = (y & 1) ? std::min(inrow + 1, c.dh - 1) : std::max(inrow - 1, 0);
+    if (hr == 1 && vr == 2) {
+      const uint8_t* in0 = &c.plane[inrow * stride];
+      const uint8_t* in1 = &c.plane[other * stride];
+      const int bias = (y & 1) ? 2 : 1;
+      for (int i = 0; i < dw; ++i) out[i] = static_cast<uint8_t>((in0[i] * 3 + in1[i] + bias) >> 2);
       return;
     }
-    int other = (y & 1) ? std::min(inrow + 1, c.dh - 1) : std::max(inrow - 1, 0);
-    const uint8_t* in0 = &c.plane[inrow * stride];
-    const uint8_t* in1 = &c.plane[other * stride];
-    for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
-    out[0] = static_cast<uint8_t>((colsum[0] * 4 + 8) >> 4);
-    out[1] = static_cast<uint8_t>((colsum[0] * 3 + colsum[1] + 7) >> 4);
-    for (int i = 1; i < dw - 1; ++i) {
-      out[2 * i] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i - 1] + 8) >> 4);
-      out[2 * i + 1] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i + 1] + 7) >> 4);
+    if (hr == 2 && vr == 2 && dw > 2) {
+      const uint8_t* in0 = &c.plane[inrow * stride];
+      const uint8_t* in1 = &c.plane[other * stride];
+      for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
+      out[0] = static_cast<uint8_t>((colsum[0] * 4 + 8) >> 4);
+      out[1] = static_cast<uint8_t>((colsum[0] * 3 + colsum[1] + 7) >> 4);
+      for (int i = 1; i < dw - 1; ++i) {
+        out[2 * i] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i - 1] + 8) >> 4);
+        out[2 * i + 1] = static_cast<uint8_t>((colsum[i] * 3 + colsum[i + 1] + 7) >> 4);
+      }
+      out[2 * dw - 2] = static_cast<uint8_t>((colsum[dw - 1] * 3 + colsum[dw - 2] + 8) >> 4);
+      out[2 * dw - 1] = static_cast<uint8_t>((colsum[dw - 1] * 4 + 7) >> 4);
+      return;
     }
-    out[2 * dw - 2] = static_cast<uint8_t>((colsum[dw - 1] * 3 + colsum[dw - 2] + 8) >> 4);
-    out[2 * dw - 1] = static_cast<uint8_t>((colsum[dw - 1] * 4 + 7) >> 4);
+    // int_upsample (and the narrow h2v1 / h2v2 cases): replication
+    const uint8_t* in = &c.plane[(y / vr) * stride];
+    for (int x = 0; x < width_; ++x) out[x] = in[x / hr];
   }
 };
 

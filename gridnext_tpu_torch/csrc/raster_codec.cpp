@@ -1,16 +1,19 @@
 // Host raster codecs of the port's TIFF and PNG readers (io/tiff.py,
-// io/png.py): TIFF's LZW and PackBits, the horizontal predictor, and PNG's
-// row filters. No libtiff, no libpng, no zlib: the readers inflate Deflate
+// io/png.py): TIFF's LZW, PackBits and CCITT fax (Modified Huffman, Group 3
+// 1-D and 2-D, Group 4), the horizontal predictor, and PNG's row filters. No libtiff, no libpng, no zlib: the readers inflate Deflate
 // with Python's zlib and hand the inflated bytes here.
 //
 // Plain C interface for ctypes, built at first use by ops/_host.py:
 //
 //   raster_decode   n TIFF strips or tiles of one codec (none, LZW,
-//                   PackBits), each decoded, its predictor undone and its
-//                   rows placed into the caller's (H, W, oc) uint8 array,
-//                   one segment a task over n_threads threads
+//                   PackBits, CCITT), each decoded (its bits first reversed for
+//                   FillOrder 2), its predictor undone and its rows placed
+//                   into the caller's raster of stored bytes (rows of
+//                   samples as the file packs them, any bit depth, one
+//                   plane after another for PlanarConfiguration 2), one
+//                   segment a task over n_threads threads
 //   png_unfilter    rows of PNG scanlines (a filter byte each) undone into
-//                   the caller's (rows, W, oc) array, with the previous row
+//                   the caller's rows of bytes, with the previous row
 //                   carried across calls
 //
 // Decoding follows libtiff 4.x, which Pillow reads TIFF through:
@@ -22,8 +25,12 @@
 //    than its rows is refused; bytes past its rows are dropped.
 //  * PackBits: a header n in 0..127 copies n + 1 bytes, -127..-1 repeats
 //    the next byte 1 - n times, -128 is skipped.
-//  * Predictor 2 (8-bit samples): each sample adds the same sample of the
-//    pixel to its left, along each stored row (a tile's full width).
+//  * Predictor 2 (8-, 16- and 32-bit samples): each sample adds the same
+//    sample of the pixel to its left, along each stored row (a tile's full
+//    width), in the file's byte order (libtiff swaps to the host's order,
+//    adds and keeps the sum modulo the sample's range).
+//  * FillOrder 2: libtiff reverses the bits of each byte of a segment's
+//    stored bytes before its codec sees them (for every codec but JPEG).
 
 #include <algorithm>
 #include <atomic>
@@ -197,33 +204,59 @@ void packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t want) 
 
 // ---- predictor and placement ----------------------------------------------
 
-void undo_horizontal(uint8_t* data, int64_t rows, int64_t row_bytes, int spp) {
+uint8_t kReversed[256];
+struct ReversedInit {
+  ReversedInit() {
+    for (int i = 0; i < 256; ++i) {
+      int r = 0;
+      for (int b = 0; b < 8; ++b) r |= ((i >> b) & 1) << (7 - b);
+      kReversed[i] = static_cast<uint8_t>(r);
+    }
+  }
+} kReversedInit;
+
+template <int N>
+inline uint32_t load(const uint8_t* p, bool big) {
+  uint32_t v = 0;
+  for (int i = 0; i < N; ++i) v |= static_cast<uint32_t>(p[big ? N - 1 - i : i]) << (8 * i);
+  return v;
+}
+
+template <int N>
+inline void store(uint8_t* p, uint32_t v, bool big) {
+  for (int i = 0; i < N; ++i) p[big ? N - 1 - i : i] = static_cast<uint8_t>(v >> (8 * i));
+}
+
+// Predictor 2 on samples of N bytes, spp of them a pixel, in the file's order.
+template <int N>
+void undo_horizontal_n(uint8_t* data, int64_t rows, int64_t row_bytes, int spp, bool big) {
+  const int64_t stride = static_cast<int64_t>(spp) * N;
   for (int64_t r = 0; r < rows; ++r) {
     uint8_t* row = data + r * row_bytes;
-    for (int64_t i = spp; i < row_bytes; ++i) row[i] = static_cast<uint8_t>(row[i] + row[i - spp]);
+    for (int64_t i = stride; i + N <= row_bytes; i += N)
+      store<N>(row + i, load<N>(row + i, big) + load<N>(row + i - stride, big), big);
   }
 }
 
-// Copy rows x cols pixels of a segment (stored rows of stored_w pixels of
-// seg_spp samples) to out (H, W, oc) at (y0, x0): the first oc samples of a
-// pixel, or for a plane (planar configuration 2, seg_spp 1) its one sample
-// into channel ``plane``.
-void place(const uint8_t* src, int stored_w, int seg_spp, int y0, int x0, int rows, int cols,
-           int plane, uint8_t* out, int W, int oc) {
-  const int64_t src_row = static_cast<int64_t>(stored_w) * seg_spp;
-  for (int r = 0; r < rows; ++r) {
-    const uint8_t* s = src + r * src_row;
-    uint8_t* o = out + (static_cast<int64_t>(y0 + r) * W + x0) * oc;
-    if (plane >= 0) {
-      if (plane >= oc) return;
-      for (int x = 0; x < cols; ++x) o[x * oc + plane] = s[x];
-    } else if (seg_spp == oc) {
-      std::memcpy(o, s, static_cast<size_t>(cols) * oc);
-    } else {
-      for (int x = 0; x < cols; ++x)
-        for (int c = 0; c < oc; ++c) o[x * oc + c] = s[x * seg_spp + c];
-    }
+void undo_horizontal(uint8_t* data, int64_t rows, int64_t row_bytes, int spp, int sample_bytes,
+                     bool big) {
+  switch (sample_bytes) {
+    case 1: undo_horizontal_n<1>(data, rows, row_bytes, spp, big); break;
+    case 2: undo_horizontal_n<2>(data, rows, row_bytes, spp, big); break;
+    case 4: undo_horizontal_n<4>(data, rows, row_bytes, spp, big); break;
+    default: fail("Predictor 2 on " + std::to_string(8 * sample_bytes) + "-bit samples");
   }
+}
+
+// Copy ``rows`` rows of ``cols`` bytes of a segment (stored rows of
+// stored_row bytes) to out (rows of out_row bytes; plane p starts at
+// p * plane_bytes) at row y0, byte x0.
+void place(const uint8_t* src, int64_t stored_row, int y0, int64_t x0, int rows, int64_t cols,
+           int plane, uint8_t* out, int64_t out_row, int64_t plane_bytes) {
+  uint8_t* base = out + (plane > 0 ? plane * plane_bytes : 0);
+  for (int r = 0; r < rows; ++r)
+    std::memcpy(base + static_cast<int64_t>(y0 + r) * out_row + x0, src + r * stored_row,
+                static_cast<size_t>(cols));
 }
 
 // ---- PNG ----------------------------------------------------------------
@@ -262,47 +295,442 @@ void unfilter_row(int type, const uint8_t* f, const uint8_t* prev, uint8_t* cur,
   }
 }
 
+// ---- CCITT fax (compressions 2, 3 and 4) ------------------------------------
+//
+// ITU-T T.4 (Group 3: Modified Huffman rows, each after an EOL, or 2-D READ
+// rows with a tag bit after the EOL) and T.6 (Group 4: 2-D rows, no EOL),
+// and TIFF's compression 2 (Modified Huffman rows, each starting on a byte,
+// no EOL), decoded as libtiff 4.x does (tif_fax3.c, tif_fax3.h), which
+// Pillow reads fax through:
+//  * a decoded row has 1 bits for black runs and 0 for white ones, whatever
+//    the photometric interpretation (the reader maps bits as Pillow does);
+//  * bits are fetched as libtiff's NeedBits8 / NeedBits16 fetch them: a code
+//    is looked up in 12 (white), 13 (black) or 7 (2-D mode) bits, and where
+//    the segment ends inside that window libtiff counts the missing bits as
+//    zeros it has read. Compression 2 then aligns each row end to libtiff's
+//    count of bits held, so a row that follows such a window loses bits
+//    exactly as it does in Pillow;
+//  * a 1-D row whose runs do not sum to its width is mended as libtiff's
+//    CLEANUP_RUNS mends it (the runs past the width dropped, the rest
+//    white); an EOL ends a 1-D row (the 11 zero bits; the 1 after them is
+//    taken with the next row's EOL search);
+//  * each strip or tile starts from an all-white reference row; a segment
+//    that ends before its rows raises.
+
+enum FaxState : uint8_t { kNull, kTerm, kMakeUp, kEolCode, kPassCode, kHorizCode, kVert, kExt };
+
+struct FaxCode {
+  const char* bits;
+  int value;
+};
+
+// Modified Huffman terminating and make-up codes (T.4 tables 2 and 3)
+const FaxCode kWhiteCodes[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4}, {"1100", 5},
+    {"1110", 6}, {"1111", 7}, {"10011", 8}, {"10100", 9}, {"00111", 10}, {"01000", 11},
+    {"001000", 12}, {"000011", 13}, {"110100", 14}, {"110101", 15}, {"101010", 16},
+    {"101011", 17}, {"0100111", 18}, {"0001100", 19}, {"0001000", 20}, {"0010111", 21},
+    {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25}, {"0010011", 26},
+    {"0100100", 27}, {"0011000", 28}, {"00000010", 29}, {"00000011", 30}, {"00011010", 31},
+    {"00011011", 32}, {"00010010", 33}, {"00010011", 34}, {"00010100", 35}, {"00010101", 36},
+    {"00010110", 37}, {"00010111", 38}, {"00101000", 39}, {"00101001", 40}, {"00101010", 41},
+    {"00101011", 42}, {"00101100", 43}, {"00101101", 44}, {"00000100", 45}, {"00000101", 46},
+    {"00001010", 47}, {"00001011", 48}, {"01010010", 49}, {"01010011", 50}, {"01010100", 51},
+    {"01010101", 52}, {"00100100", 53}, {"00100101", 54}, {"01011000", 55}, {"01011001", 56},
+    {"01011010", 57}, {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61},
+    {"00110011", 62}, {"00110100", 63}, {"11011", 64}, {"10010", 128}, {"010111", 192},
+    {"0110111", 256}, {"00110110", 320}, {"00110111", 384}, {"01100100", 448},
+    {"01100101", 512}, {"01101000", 576}, {"01100111", 640}, {"011001100", 704},
+    {"011001101", 768}, {"011010010", 832}, {"011010011", 896}, {"011010100", 960},
+    {"011010101", 1024}, {"011010110", 1088}, {"011010111", 1152}, {"011011000", 1216},
+    {"011011001", 1280}, {"011011010", 1344}, {"011011011", 1408}, {"010011000", 1472},
+    {"010011001", 1536}, {"010011010", 1600}, {"011000", 1664}, {"010011011", 1728}};
+const FaxCode kBlackCodes[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4}, {"0011", 5},
+    {"0010", 6}, {"00011", 7}, {"000101", 8}, {"000100", 9}, {"0000100", 10},
+    {"0000101", 11}, {"0000111", 12}, {"00000100", 13}, {"00000111", 14}, {"000011000", 15},
+    {"0000010111", 16}, {"0000011000", 17}, {"0000001000", 18}, {"00001100111", 19},
+    {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22}, {"00000101000", 23},
+    {"00000010111", 24}, {"00000011000", 25}, {"000011001010", 26}, {"000011001011", 27},
+    {"000011001100", 28}, {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31},
+    {"000001101010", 32}, {"000001101011", 33}, {"000011010010", 34}, {"000011010011", 35},
+    {"000011010100", 36}, {"000011010101", 37}, {"000011010110", 38}, {"000011010111", 39},
+    {"000001101100", 40}, {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43},
+    {"000001010100", 44}, {"000001010101", 45}, {"000001010110", 46}, {"000001010111", 47},
+    {"000001100100", 48}, {"000001100101", 49}, {"000001010010", 50}, {"000001010011", 51},
+    {"000000100100", 52}, {"000000110111", 53}, {"000000111000", 54}, {"000000100111", 55},
+    {"000000101000", 56}, {"000001011000", 57}, {"000001011001", 58}, {"000000101011", 59},
+    {"000000101100", 60}, {"000001011010", 61}, {"000001100110", 62}, {"000001100111", 63},
+    {"0000001111", 64}, {"000011001000", 128}, {"000011001001", 192}, {"000001011011", 256},
+    {"000000110011", 320}, {"000000110100", 384}, {"000000110101", 448},
+    {"0000001101100", 512}, {"0000001101101", 576}, {"0000001001010", 640},
+    {"0000001001011", 704}, {"0000001001100", 768}, {"0000001001101", 832},
+    {"0000001110010", 896}, {"0000001110011", 960}, {"0000001110100", 1024},
+    {"0000001110101", 1088}, {"0000001110110", 1152}, {"0000001110111", 1216},
+    {"0000001010010", 1280}, {"0000001010011", 1344}, {"0000001010100", 1408},
+    {"0000001010101", 1472}, {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728}};
+// make-up codes of either colour (T.4 table 3, extended)
+const FaxCode kExtendedCodes[] = {
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920},
+    {"000000010010", 1984}, {"000000010011", 2048}, {"000000010100", 2112},
+    {"000000010101", 2176}, {"000000010110", 2240}, {"000000010111", 2304},
+    {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560}};
+
+struct FaxEntry {
+  uint8_t width = 0;
+  uint8_t state = kNull;
+  int16_t param = 0;
+};
+
+// A lookup of ``bits`` bits (the next bits of the stream, first bit the
+// most significant) -> the code they start with.
+struct FaxTable {
+  int bits;
+  std::vector<FaxEntry> t;
+  explicit FaxTable(int b) : bits(b), t(size_t(1) << b) {}
+  void add(const char* code, uint8_t state, int param) {
+    const int len = static_cast<int>(std::strlen(code));
+    uint32_t c = 0;
+    for (int k = 0; k < len; ++k) c = c << 1 | (code[k] == '1');
+    const uint32_t lo = c << (bits - len), hi = lo + (1u << (bits - len));
+    for (uint32_t e = lo; e < hi; ++e) {
+      if (t[e].state != kNull) fail("CCITT code tables clash");   // a typo in a table
+      t[e] = FaxEntry{static_cast<uint8_t>(len), state, static_cast<int16_t>(param)};
+    }
+  }
+};
+
+// libtiff's white (12-bit) and black (13-bit) tables: the run codes, the
+// extended make-up codes and EOL as 11 zero bits (mkg3states.c's EOLH)
+FaxTable run_table(bool black) {
+  FaxTable t(black ? 13 : 12);
+  for (const FaxCode& c : black ? kBlackCodes : kWhiteCodes)
+    t.add(c.bits, c.value < 64 ? kTerm : kMakeUp, c.value);
+  for (const FaxCode& c : kExtendedCodes) t.add(c.bits, kMakeUp, c.value);
+  t.add("00000000000", kEolCode, 0);
+  return t;
+}
+
+// libtiff's main (7-bit) table of 2-D modes (T.4 table 4), EOL as 7 zeros
+FaxTable mode_table() {
+  FaxTable t(7);
+  t.add("1", kVert, 0);
+  t.add("011", kVert, 1);
+  t.add("000011", kVert, 2);
+  t.add("0000011", kVert, 3);
+  t.add("010", kVert, -1);
+  t.add("000010", kVert, -2);
+  t.add("0000010", kVert, -3);
+  t.add("001", kHorizCode, 0);
+  t.add("0001", kPassCode, 0);
+  t.add("0000001", kExt, 0);
+  t.add("0000000", kEolCode, 0);
+  return t;
+}
+
+const FaxTable& white_codes() {
+  static const FaxTable t = run_table(false);
+  return t;
+}
+const FaxTable& black_codes() {
+  static const FaxTable t = run_table(true);
+  return t;
+}
+const FaxTable& mode_codes() {
+  static const FaxTable t = mode_table();
+  return t;
+}
+
+// libtiff's fax bit reader: ``held`` bits fetched a byte at a time; at the
+// segment's end a fetch of n bits that finds some held counts n held (the
+// rest zeros), and one that finds none is the end of the data.
+class FaxBits {
+ public:
+  FaxBits(const uint8_t* d, int64_t n) : d_(d), n_(n) {}
+  bool need8(int k) {
+    if (held() < k) {
+      if (bytes_ >= n_) {
+        if (held() == 0) return false;
+        end_ = pos_ + k;
+      } else {
+        ++bytes_;
+        end_ += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int k) {
+    if (held() < k) {
+      if (bytes_ >= n_) {
+        if (held() == 0) return false;
+        end_ = pos_ + k;
+      } else {
+        ++bytes_;
+        end_ += 8;
+        if (held() < k) {
+          if (bytes_ >= n_) {
+            end_ = pos_ + k;
+          } else {
+            ++bytes_;
+            end_ += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t get(int k) const {            // the next k bits; zeros past those held
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      const int64_t p = pos_ + i;
+      v = v << 1 | (p < end_ && p < 8 * n_ ? (d_[p >> 3] >> (7 - (p & 7))) & 1 : 0);
+    }
+    return v;
+  }
+  void clear(int k) { pos_ += k; }
+  int64_t held() const { return end_ - pos_; }
+  // One code of table t, or a null entry at the end of the data.
+  bool lookup(const FaxTable& t, FaxEntry& e) {
+    if (!(t.bits > 8 ? need16(t.bits) : need8(t.bits))) return false;
+    e = t.t[get(t.bits)];
+    clear(e.width);
+    return true;
+  }
+
+ private:
+  const uint8_t* d_;
+  int64_t n_, pos_ = 0, end_ = 0, bytes_ = 0;
+};
+
+[[noreturn]] void fax_eof() { fail("CCITT data ends before its rows"); }
+
+// tif_fax3.h SYNC_EOL: unless the last row ended on an EOL, find 11 zero
+// bits; then pass zero bytes and zero bits, and the EOL's 1.
+void fax_sync_eol(FaxBits& br, bool& eol) {
+  if (!eol) {
+    for (;;) {
+      if (!br.need16(11)) fax_eof();
+      if (br.get(11) == 0) break;
+      br.clear(1);
+    }
+  }
+  for (;;) {
+    if (!br.need8(8)) fax_eof();
+    if (br.get(8)) break;
+    br.clear(8);
+  }
+  while (br.get(1) == 0) br.clear(1);
+  br.clear(1);
+  eol = false;
+}
+
+// tif_fax3.h EXPAND1D and CLEANUP_RUNS: the runs (white first) of one
+// Modified Huffman row of ``width`` pixels.
+void fax_row_1d(FaxBits& br, int width, std::vector<int>& runs, bool& eol) {
+  runs.clear();
+  int64_t a0 = 0, pending = 0;
+  auto set = [&](int64_t x) {
+    runs.push_back(static_cast<int>(pending + x));
+    a0 += x;
+    pending = 0;
+  };
+  FaxEntry e;
+  bool done = false;
+  while (!done) {
+    for (int colour = 0; colour < 2 && !done; ++colour) {
+      for (;;) {
+        if (!br.lookup(colour ? black_codes() : white_codes(), e)) fax_eof();
+        if (e.state == kEolCode) {
+          eol = true;
+          done = true;
+        } else if (e.state == kTerm) {
+          set(e.param);
+        } else if (e.state == kMakeUp) {
+          a0 += e.param;
+          pending += e.param;
+          continue;
+        } else {
+          done = true;                       // libtiff: "bad code", the row ends
+        }
+        break;
+      }
+      if (a0 >= width) done = true;
+    }
+    if (!done && runs.size() >= 2 && runs[runs.size() - 1] == 0 && runs[runs.size() - 2] == 0)
+      runs.resize(runs.size() - 2);
+  }
+  if (pending) set(0);
+  if (a0 != width) {                         // mend a row of the wrong length
+    while (a0 > width && !runs.empty()) {
+      a0 -= runs.back();
+      runs.pop_back();
+    }
+    if (a0 < width) {
+      if (a0 < 0) a0 = 0;
+      if (runs.size() & 1) set(0);
+      set(width - a0);
+    } else if (a0 > width) {
+      set(width);
+      set(0);
+    }
+  }
+}
+
+// A 2-D row against the reference row's changing elements ``ref`` (then
+// width three times): its changing elements.
+void fax_row_2d(FaxBits& br, int width, const std::vector<int>& ref, std::vector<int>& cur) {
+  cur.clear();
+  int a0 = -1;
+  bool black = false;
+  size_t bi = 0;
+  FaxEntry e;
+  auto run = [&](bool b) {
+    int total = 0;
+    for (;;) {
+      if (!br.lookup(b ? black_codes() : white_codes(), e)) fax_eof();
+      if (e.state == kMakeUp) {
+        total += e.param;
+      } else if (e.state == kTerm) {
+        return total + e.param;
+      } else {
+        fail("corrupt CCITT data: bad run code in a 2-D row");
+      }
+    }
+  };
+  while (a0 < width) {
+    // b1: the first changing element past a0 of the colour opposite a0's
+    // (black elements at even indices); b2 the next one
+    bi = bi >= 2 ? bi - 2 : 0;
+    while (ref[bi] <= a0 || (bi & 1) != static_cast<size_t>(black)) ++bi;
+    const int b1 = ref[bi], b2 = ref[bi + 1];
+    if (!br.lookup(mode_codes(), e)) fax_eof();
+    if (e.state == kPassCode) {
+      a0 = b2;
+    } else if (e.state == kHorizCode) {
+      const int start = std::max(a0, 0);
+      const int a1 = start + run(black);
+      const int a2 = a1 + run(!black);
+      if (a2 > width) fail("corrupt CCITT data: runs past the row");
+      cur.push_back(a1);
+      cur.push_back(a2);
+      a0 = a2;
+    } else if (e.state == kVert) {
+      const int a1 = b1 + e.param;
+      if (a1 < std::max(a0, 0) || a1 > width)
+        fail("corrupt CCITT data: a vertical code off the row");
+      cur.push_back(a1);
+      a0 = a1;
+      black = !black;
+    } else {
+      fail(e.state == kExt ? "unsupported CCITT data: an extension (uncompressed) code"
+                           : "corrupt CCITT data: an EOL or a bad code inside a 2-D row");
+    }
+  }
+}
+
+// Set the bits of the black spans [x0, x1) of a row.
+void fax_black(uint8_t* row, int x0, int x1) {
+  for (int x = x0; x < x1; ++x) row[x >> 3] = static_cast<uint8_t>(row[x >> 3] | (0x80 >> (x & 7)));
+}
+
+// Decode ``rows`` rows of ``width`` pixels of compression 2, 3 (options:
+// TIFF's T4Options) or 4 into dst (rows of row_bytes, zeroed here).
+void fax_decode(int codec, int options, const uint8_t* src, int64_t n, uint8_t* dst, int rows,
+                int width, int64_t row_bytes) {
+  if (codec == 3 && (options & 2)) fail("unsupported CCITT Group 3: uncompressed mode");
+  std::memset(dst, 0, static_cast<size_t>(rows * row_bytes));
+  FaxBits br(src, n);
+  std::vector<int> ref(3, width), cur, runs;
+  bool eol = false;
+  for (int y = 0; y < rows; ++y) {
+    uint8_t* row = dst + y * row_bytes;
+    bool two_d = codec == 4;
+    if (codec == 3) {
+      fax_sync_eol(br, eol);
+      if (options & 1) {           // after the EOL a tag bit: 1 a 1-D row, 0 a 2-D row
+        if (!br.need8(1)) fax_eof();
+        two_d = br.get(1) == 0;
+        br.clear(1);
+      }
+    }
+    if (two_d) {
+      fax_row_2d(br, width, ref, cur);
+      for (size_t i = 0; i < cur.size(); i += 2)
+        fax_black(row, std::min(cur[i], width), i + 1 < cur.size() ? std::min(cur[i + 1], width)
+                                                                  : width);
+    } else {
+      fax_row_1d(br, width, runs, eol);
+      cur.clear();
+      int x = 0;
+      for (size_t i = 0; i < runs.size(); ++i) {
+        const int x1 = std::min(x + runs[i], width);
+        if (i & 1) fax_black(row, x, x1);
+        x = x1;
+        cur.push_back(x);
+      }
+      if (codec == 2) br.clear(static_cast<int>(br.held() & 7));   // libtiff's byte align
+    }
+    ref = cur;
+    ref.insert(ref.end(), 3, width);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// codec: 1 none, 5 LZW, 32773 PackBits. Segment i's bytes are base[offsets[i],
-// offsets[i] + counts[i]); geom[6 i ..]: y0, x0, rows, cols (the part inside
-// the image), plane (-1 for interleaved samples), stored rows. kind names a
+// codec: 1 none, 2 / 3 / 4 CCITT (fax_options: T4Options for 3; rows of
+// fax_width pixels), 5 LZW, 32773 PackBits. Segment i's bytes are base[offsets[i],
+// offsets[i] + counts[i]); geom[6 i ..]: y0, x0 (in bytes), rows, cols (in
+// bytes; the part inside the image), plane (-1 for interleaved samples),
+// stored rows. A segment holds stored rows of stored_row bytes; predictor 2
+// works on samples of sample_bytes bytes, spp a pixel, big-endian when
+// ``big``; ``reverse`` reverses each stored byte's bits first. kind names a
 // segment in messages ("strip" or "tile").
 int raster_decode(int codec, const uint8_t* base, const int64_t* offsets, const int64_t* counts,
-                  const int32_t* geom, int64_t n, int stored_w, int seg_spp, int predictor,
-                  uint8_t* out, int W, int oc, const char* kind, int n_threads, char* err,
-                  int errlen) {
+                  const int32_t* geom, int64_t n, int64_t stored_row, int sample_bytes, int spp,
+                  int predictor, int big, int reverse, int fax_options, int fax_width,
+                  uint8_t* out, int64_t out_row, int64_t plane_bytes, const char* kind,
+                  int n_threads, char* err, int errlen) {
   try {
-    if (codec != 1 && codec != 5 && codec != 32773)
+    if (codec != 1 && codec != 2 && codec != 3 && codec != 4 && codec != 5 && codec != 32773)
       fail("raster_decode: codec " + std::to_string(codec));
     parallel_for(n, n_threads, [&](int64_t i) {
       try {
         const int32_t* g = geom + 6 * i;
-        const int64_t row_bytes = static_cast<int64_t>(stored_w) * seg_spp;
-        const int64_t want = row_bytes * g[5];
+        const int64_t want = stored_row * g[5];
         const uint8_t* src = base + offsets[i];
+        int64_t count = counts[i];
+        std::vector<uint8_t> flipped;
+        if (reverse) {
+          flipped.resize(static_cast<size_t>(count));
+          for (int64_t k = 0; k < count; ++k) flipped[k] = kReversed[src[k]];
+          src = flipped.data();
+        }
         const uint8_t* pixels = src;
         std::vector<uint8_t> buf;
         if (codec == 1) {
-          if (counts[i] < want)
-            fail("holds " + std::to_string(counts[i]) + " bytes of " + std::to_string(want));
+          if (count < want)
+            fail("holds " + std::to_string(count) + " bytes of " + std::to_string(want));
           if (predictor == 2) buf.assign(src, src + want);
         } else {
           buf.resize(static_cast<size_t>(want));
           if (codec == 5) {
             LzwDecoder lzw;
-            lzw.decode(src, counts[i], buf.data(), want);
+            lzw.decode(src, count, buf.data(), want);
+          } else if (codec <= 4) {
+            fax_decode(codec, fax_options, src, count, buf.data(), g[5], fax_width, stored_row);
           } else {
-            packbits_decode(src, counts[i], buf.data(), want);
+            packbits_decode(src, count, buf.data(), want);
           }
         }
         if (!buf.empty()) {
-          if (predictor == 2) undo_horizontal(buf.data(), g[5], row_bytes, seg_spp);
+          if (predictor == 2) undo_horizontal(buf.data(), g[5], stored_row, spp, sample_bytes, big);
           pixels = buf.data();
         }
-        place(pixels, stored_w, seg_spp, g[0], g[1], g[2], g[3], g[4], out, W, oc);
+        place(pixels, stored_row, g[0], g[1], g[2], g[3], g[4], out, out_row, plane_bytes);
       } catch (const std::exception& e) {
         fail(std::string(kind) + " " + std::to_string(i) + ": " + e.what());
       }
@@ -315,27 +743,19 @@ int raster_decode(int codec, const uint8_t* base, const int64_t* offsets, const 
 }
 
 // Undo the filters of ``rows`` scanlines (a filter byte, then row_bytes bytes
-// each) of src, pixels of ``channels`` bytes (bpp = channels), into out: the
-// first oc bytes of each pixel, rows of row_bytes / channels * oc bytes.
-// prev holds the unfiltered row above the first (zeros for the image's
-// first row) and is left holding the last.
-int png_unfilter(const uint8_t* src, int64_t src_len, int64_t rows, int64_t row_bytes,
-                 int channels, uint8_t* prev, uint8_t* out, int oc, char* err, int errlen) {
+// each) of src, ``bpp`` bytes a filter unit (PNG's bytes a complete pixel,
+// at least 1), into out (rows of row_bytes). prev holds the unfiltered row
+// above the first (zeros for a pass's first row) and is left holding the
+// last.
+int png_unfilter(const uint8_t* src, int64_t src_len, int64_t rows, int64_t row_bytes, int bpp,
+                 uint8_t* prev, uint8_t* out, char* err, int errlen) {
   try {
     if (src_len < rows * (row_bytes + 1)) fail("PNG image data is truncated");
-    std::vector<uint8_t> cur(static_cast<size_t>(row_bytes));
-    const int64_t width = row_bytes / channels;
     for (int64_t r = 0; r < rows; ++r) {
       const uint8_t* f = src + r * (row_bytes + 1);
-      unfilter_row(f[0], f + 1, prev, cur.data(), row_bytes, channels);
-      uint8_t* o = out + r * width * oc;
-      if (oc == channels) {
-        std::memcpy(o, cur.data(), static_cast<size_t>(row_bytes));
-      } else {
-        for (int64_t x = 0; x < width; ++x)
-          for (int c = 0; c < oc; ++c) o[x * oc + c] = cur[x * channels + c];
-      }
-      std::memcpy(prev, cur.data(), static_cast<size_t>(row_bytes));
+      uint8_t* cur = out + r * row_bytes;
+      unfilter_row(f[0], f + 1, prev, cur, row_bytes, bpp);
+      std::memcpy(prev, cur, static_cast<size_t>(row_bytes));
     }
     return 0;
   } catch (const std::exception& e) {

@@ -50,33 +50,37 @@ from gridnext_tpu_torch.observability import StageTimer
 
 
 def decode_slide(image_file, convert: str = "RGB") -> np.ndarray:
-    """Decode one slide to (H, W, 3) uint8 (RGBA, palette and grayscale
-    slides convert: the gather expects 3 channels).
+    """Decode one slide to (H, W, 3) uint8 (every mode converts: the gather
+    expects 3 channels).
 
     The file's first bytes pick the reader: a JPEG decodes with the port's
-    codec (:func:`gridnext_tpu_torch.io.jpeg.decode_jpeg`), a TIFF or BigTIFF
-    with :func:`gridnext_tpu_torch.io.tiff.decode_tiff` and a PNG with
-    :func:`gridnext_tpu_torch.io.png.decode_png`, each giving the pixels
-    ``np.asarray(Image.open(f).convert("RGB"))`` gives, without PIL; a file
-    of those formats that its reader refuses (a progressive JPEG, a 16-bit
-    TIFF, an interlaced PNG, ...) raises ``ValueError`` naming the file, and
-    never reaches PIL. Other formats (BMP, WebP, ...) decode with PIL, and
+    codec (:func:`gridnext_tpu_torch.io.jpeg.read_jpeg`: baseline or
+    progressive, gray, YCbCr, RGB, CMYK or YCCK, any chroma sampling), a
+    TIFF or BigTIFF with :func:`gridnext_tpu_torch.io.tiff.read_tiff` (1- to
+    16-bit and float gray, 8- and 16-bit RGB, RGBA and CMYK, palette, ...)
+    and a PNG with :func:`gridnext_tpu_torch.io.png.read_png` (every depth,
+    Adam7); each gives Pillow's mode and array, converted once by
+    :func:`gridnext_tpu_torch.io.pillow_modes.to_rgb`, so the pixels are
+    ``np.asarray(Image.open(f).convert("RGB"))``'s, without PIL. A file of
+    those formats that its reader refuses (an arithmetic-coded JPEG, a Lab
+    TIFF, ...) raises ``ValueError`` naming the file, and never
+    reaches PIL. Other formats (BMP, WebP, ...) decode with PIL, and
     without PIL raise ``ImportError``.
     """
-    from gridnext_tpu_torch.io.jpeg import decode_jpeg
-    from gridnext_tpu_torch.io.png import SIGNATURE, decode_png
-    from gridnext_tpu_torch.io.tiff import HEADERS, decode_tiff
+    from gridnext_tpu_torch.io import pillow_modes
+    from gridnext_tpu_torch.io.jpeg import read_jpeg
+    from gridnext_tpu_torch.io.png import SIGNATURE, read_png
+    from gridnext_tpu_torch.io.tiff import HEADERS, read_tiff
 
     if convert == "RGB":
         with open(image_file, "rb") as fh:
             head = fh.read(8)
         if head[:3] == b"\xff\xd8\xff":
-            img = decode_jpeg(image_file)
-            return np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img
+            return pillow_modes.to_rgb(*read_jpeg(image_file))
         if head[:4] in HEADERS:
-            return decode_tiff(image_file)
+            return pillow_modes.to_rgb(*read_tiff(image_file))
         if head == SIGNATURE:
-            return decode_png(image_file)
+            return pillow_modes.to_rgb(*read_png(image_file))
     try:
         from PIL import Image
     except ImportError as e:

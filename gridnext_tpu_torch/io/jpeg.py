@@ -1,4 +1,4 @@
-"""Baseline JPEG on the host without libjpeg or PIL (``csrc/jpeg_codec.cpp``).
+"""JPEG on the host without libjpeg or PIL (``csrc/jpeg_codec.cpp``).
 
 The JAX package reads and writes JPEG through libjpeg: Pillow's
 ``Image.save(..., "JPEG")`` writes its patch caches and simulated slides,
@@ -6,11 +6,15 @@ and ``native/patchio.cpp`` decodes the caches. The card's machine has
 neither, so the port carries a codec of its own, held to Pillow bit for
 bit: :func:`encode_jpeg` writes Pillow's bytes at a quality (4:2:0, the
 standard tables, a JFIF header) and :func:`decode_jpeg` gives the pixels
-``np.asarray(Image.open(path))`` gives for baseline and extended
-sequential Huffman files (1 or 3 components, chroma 1x1, 2x1 or 2x2,
-restart markers). Any other JPEG (progressive, arithmetic, lossless,
-12-bit, CMYK, other sampling) raises ``ValueError`` naming the file and
-what it holds.
+``np.asarray(Image.open(path))`` gives for baseline, extended sequential
+and progressive Huffman files: 1, 3 or 4 components (gray, YCbCr or RGB,
+CMYK or YCCK), any integral chroma sampling of 1 to 4 per axis, restart
+markers, libjpeg-turbo's block smoothing of progressive files whose scans
+leave low coefficients unrefined. A 4-component file gives Pillow's
+``CMYK`` array: Pillow reads every CMYK JPEG as Adobe writes it, inverted
+(its ``CMYK;I`` raw mode), and so does :func:`read_jpeg`. Any other JPEG
+(arithmetic, lossless, 12-bit, hierarchical) raises ``ValueError`` naming
+the file and what it holds.
 
 The library builds at first use with the host C++ compiler
 (:mod:`gridnext_tpu_torch.ops._host`); a failed build raises.
@@ -23,6 +27,8 @@ import os
 from typing import Sequence
 
 import numpy as np
+
+from gridnext_tpu_torch.io import pillow_modes
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = (
@@ -42,7 +48,7 @@ _SIGNATURES = (
     ("jpeg_decode_segments", (_VP, _LL, _VP, _VP, _VP, _VP, _LL, _I, _VP, _I, _I,
                               ctypes.c_char_p, _I, ctypes.c_char_p, _I), _I),
 )
-_SOF = {0: "baseline", 1: "extended sequential"}
+_SOF = {0: "baseline", 1: "extended sequential", 2: "progressive"}
 _ERRLEN = 1024
 
 
@@ -85,28 +91,42 @@ def is_jpeg_file(path) -> bool:
 
 def jpeg_info(path_or_bytes) -> dict:
     """A header probe: ``{"width", "height", "components", "sof"}`` (sof
-    ``"baseline"`` or ``"extended sequential"``). Raises ``ValueError`` on a
-    JPEG the codec does not decode."""
+    ``"baseline"``, ``"extended sequential"`` or ``"progressive"``). Raises
+    ``ValueError`` on a JPEG the codec does not decode."""
     data, name = _read(path_or_bytes)
     info = _probe(data, name)
     return {"width": int(info[0]), "height": int(info[1]), "components": int(info[2]),
             "sof": _SOF[int(info[3])]}
 
 
-def decode_jpeg(path_or_bytes, n_threads: int = 0) -> np.ndarray:
-    """Decode a JPEG file (a path or its bytes) to ``(H, W, 3)`` uint8 RGB,
-    or ``(H, W)`` for a grayscale file: the pixels Pillow decodes. The
-    inverse DCT and colour conversion run on ``n_threads`` threads (0: all
-    cores); the pixels do not depend on the count."""
+_MODES = {1: "L", 3: "RGB"}
+
+
+def read_jpeg(path_or_bytes, n_threads: int = 0) -> tuple:
+    """``(mode, pixels)`` of a JPEG file (a path or its bytes), as Pillow
+    opens it: ``"L"`` ``(H, W)``, ``"RGB"`` ``(H, W, 3)`` or ``"CMYK"``
+    ``(H, W, 4)`` uint8. The inverse DCT and colour conversion run on
+    ``n_threads`` threads (0: all cores); the pixels do not depend on the
+    count."""
     data, name = _read(path_or_bytes)
     info = _probe(data, name)
-    shape = (int(info[1]), int(info[0])) + ((3,) if info[4] == 3 else ())
+    oc = int(info[4])
+    shape = (int(info[1]), int(info[0])) + ((oc,) if oc > 1 else ())
     out = np.empty(shape, np.uint8)
     err = _err()
     if _lib().jpeg_decode(data, len(data), out.ctypes.data, out.size, int(n_threads), err,
                           _ERRLEN):
         raise ValueError(f"{name}: {err.value.decode()}")
-    return out
+    if oc == 4:                 # Pillow reads every CMYK JPEG as Adobe's inverted CMYK
+        return pillow_modes.unpack("CMYK;I", out)
+    return _MODES[oc], out
+
+
+def decode_jpeg(path_or_bytes, n_threads: int = 0) -> np.ndarray:
+    """Decode a JPEG file (a path or its bytes) to ``(H, W, 3)`` uint8 RGB,
+    ``(H, W)`` for a grayscale file or ``(H, W, 4)`` CMYK for a
+    4-component one: the pixels Pillow decodes (:func:`read_jpeg`)."""
+    return read_jpeg(path_or_bytes, n_threads)[1]
 
 
 def decode_jpeg_batch(paths: Sequence, side: int, n_threads: int = 0) -> np.ndarray:

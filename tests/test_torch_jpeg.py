@@ -9,8 +9,10 @@ Covered, all bit for bit:
 - encoding to ``Image.save(..., "JPEG")``'s bytes (4:2:0 and grayscale)
   at the default quality and at ``quality=95`` on the same sides, and at
   qualities 1 to 100 on tiny images;
-- progressive and CMYK files refused with a ``ValueError`` naming the
-  file; a failed build raising;
+- progressive and CMYK files decoded to Pillow's pixels (the progressive,
+  CMYK and sampling cases at large are ``tests/test_torch_slide_formats.py``);
+  arithmetic-coded and 12-bit files refused with a ``ValueError`` naming
+  the file; a failed build raising;
 - ``decode_jpeg_batch`` with 1 thread and with many, ``encode_jpeg_batch``
   against ``encode_jpeg``, a slide's decode on 1 thread and on many;
 - ``pil_resample`` against ``Image.resize`` (bicubic 160 -> 128, 97 -> 32,
@@ -109,16 +111,18 @@ def test_tiny_and_extreme_images_match_pil():
 
 
 def test_unsupported_files_raise_naming_the_file(tmp_path):
-    prog = tmp_path / "prog.jpg"
-    Image.fromarray(_image(32, 32, 0)).save(prog, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match=r"prog\.jpg.*progressive"):
-        jpeg.decode_jpeg(prog)
-    with pytest.raises(ValueError, match="progressive"):
-        jpeg.jpeg_info(prog)
-    cmyk = tmp_path / "cmyk.jpg"
-    Image.fromarray(_image(32, 32, 1)).convert("CMYK").save(cmyk, "JPEG")
-    with pytest.raises(ValueError, match=r"cmyk\.jpg.*4 components"):
-        jpeg.decode_jpeg(cmyk)
+    data = _pil_jpeg(_image(32, 32, 0))
+    sof = data.index(b"\xff\xc0")
+    arith = tmp_path / "arith.jpg"
+    arith.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
+    with pytest.raises(ValueError, match=r"arith\.jpg.*arithmetic-coded progressive"):
+        jpeg.decode_jpeg(arith)
+    with pytest.raises(ValueError, match="arithmetic-coded"):
+        jpeg.jpeg_info(arith)
+    bits12 = tmp_path / "bits12.jpg"
+    bits12.write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
+    with pytest.raises(ValueError, match=r"bits12\.jpg.*12-bit samples"):
+        jpeg.decode_jpeg(bits12)
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_jpeg(b"\x89PNG not a jpeg")
     data = _pil_jpeg(_image(64, 64, 2))
@@ -126,6 +130,20 @@ def test_unsupported_files_raise_naming_the_file(tmp_path):
         jpeg.decode_jpeg(data[:len(data) // 2])
     assert jpeg.jpeg_info(data) == {"width": 64, "height": 64, "components": 3,
                                     "sof": "baseline"}
+
+
+def test_progressive_and_cmyk_files_decode_as_pillow(tmp_path):
+    """The progressive and CMYK files once refused decode to Pillow's pixels
+    (the CMYK one to Pillow's inverted CMYK array)."""
+    prog = tmp_path / "prog.jpg"
+    Image.fromarray(_image(32, 32, 0)).save(prog, "JPEG", progressive=True)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(prog), _pil_pixels(prog.read_bytes()))
+    assert jpeg.jpeg_info(prog)["sof"] == "progressive"
+    cmyk = tmp_path / "cmyk.jpg"
+    Image.fromarray(_image(32, 32, 1)).convert("CMYK").save(cmyk, "JPEG")
+    got = jpeg.decode_jpeg(cmyk)
+    assert got.shape == (32, 32, 4) and jpeg.read_jpeg(cmyk)[0] == "CMYK"
+    np.testing.assert_array_equal(got, _pil_pixels(cmyk.read_bytes()))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

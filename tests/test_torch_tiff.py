@@ -13,8 +13,10 @@ port decodes:
   associated alpha, tiles in both byte orders and BigTIFF, Pillow-made
   JPEG tiles in both colour interpretations;
 - 1 thread and many give equal pixels;
-- every refused case raises ``ValueError`` naming the file, and a TIFF or
-  PNG never reaches PIL even where PIL is installed; other formats do;
+- every refused case raises ``ValueError`` naming the file (the cases once
+  refused that Pillow decodes now decode to the JAX package's pixels), and
+  a TIFF or PNG never reaches PIL even where PIL is installed; other
+  formats do;
 - ``tiff_info`` / ``png_info`` against Pillow's size; a failed build raises;
 - ``pseudo_visium_from_image`` on a TIFF writes what the JAX package's
   writes, and ``register`` of a TIFF slide through both packages' commands.
@@ -258,18 +260,11 @@ def _pil_file(img: Image.Image, fmt: str = "TIFF", **kw) -> bytes:
 
 
 def _refused_cases():
-    """{name: (bytes, message pattern)}."""
+    """{name: (bytes, message pattern)}: files Pillow fails on too (and Lab,
+    which Pillow converts through LittleCMS)."""
     a = TOOL.image((16, 16, 3), 500)
     rgb = Image.fromarray(a)
-    wide = Image.fromarray(np.arange(256, dtype=np.uint16).reshape(16, 16) * 200)
-    out = {"bits16.tif": (_pil_file(wide), "16-bit samples"),
-           "bits1.tif": (_pil_file(rgb.convert("1"), compression="group4"),
-                         "compression 4 "),
-           "bits1_raw.tif": (_pil_file(rgb.convert("1")), "1-bit samples"),
-           "float.tif": (_pil_file(Image.fromarray(np.ones((8, 8), np.float32), "F")),
-                         "32-bit samples"),
-           "cmyk.tif": (_pil_file(rgb.convert("CMYK")), r"CMYK \(separated\)"),
-           "lab.tif": (_pil_file(rgb.convert("LAB")), "CIELab")}
+    out = {"lab.tif": (_pil_file(rgb.convert("LAB")), "CIELab")}
     out["signed.tif"] = (TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1,
                                             photometric=2, sample_format=2), "SampleFormat")
     out["pred3.tif"] = (TOOL.assemble_tiff(a.shape, [zlib.compress(a.tobytes())],
@@ -286,10 +281,6 @@ def _refused_cases():
     out["ycbcr_raw.tif"] = (TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1,
                                                photometric=6), "YCbCr samples outside JPEG")
     raw = TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1, photometric=2)
-    out["fillorder2.tif"] = (_fillorder2(raw), "FillOrder 2")
-    out["progressive_tile.tif"] = (
-        TOOL.assemble_tiff(a.shape, [_pil_file(rgb, "JPEG", progressive=True)], compression=7,
-                           photometric=6, tile=(16, 16)), "tile 0: unsupported JPEG: progressive")
     lzw = TOOL.pillow_segment(a, 5)[0]
     out["truncated_lzw.tif"] = (TOOL.assemble_tiff(a.shape, [lzw[:len(lzw) // 2]],
                                                    compression=5, photometric=2),
@@ -297,15 +288,8 @@ def _refused_cases():
     out["old_lzw.tif"] = (TOOL.assemble_tiff(a.shape, [b"\x00\x01" + lzw[2:]], compression=5,
                                              photometric=2), "old-style")
     out["cut.tif"] = (raw[:100], "truncated TIFF")
-    pal = Image.fromarray(a[..., 0] % 4, "P")
-    pal.putpalette([0, 0, 0, 90, 90, 90, 180, 180, 180, 255, 255, 255])
     good = TOOL.assemble_png(a, 2)
     out.update({
-        "adam7.png": (TOOL.assemble_png(a, 2, interlace=1), r"interlaced \(Adam7\)"),
-        "png1.png": (_pil_file(rgb.convert("1"), "PNG"), "bit depth 1"),
-        "png2.png": (_pil_file(pal, "PNG"), "bit depth 2"),
-        "png4.png": (TOOL.assemble_png(a[..., 0], 0, depth=4), "bit depth 4"),
-        "png16.png": (_pil_file(wide, "PNG"), "bit depth 16"),
         "badcrc.png": (good[:40] + bytes([good[40] ^ 1]) + good[41:], "bad CRC"),
         "cut.png": (good[:len(good) // 2], "truncated PNG")})
     return out
@@ -321,6 +305,46 @@ def test_refused_files_raise_naming_the_file(name, tmp_path, monkeypatch):
     path = _write(tmp_path, name, data)
     with pytest.raises(ValueError, match=rf"{name}.*({pattern})"):
         _port(path)
+
+
+def _formerly_refused_cases():
+    """{name: bytes}: the files this test once held refused that Pillow
+    decodes, now held to the JAX package's pixels (16-bit, 1-bit, float,
+    CMYK, FillOrder 2, a progressive JPEG tile; 1-, 2-, 4- and 16-bit and
+    Adam7 PNGs, the last two now valid files)."""
+    a = TOOL.image((16, 16, 3), 500)
+    rgb = Image.fromarray(a)
+    wide = Image.fromarray(np.arange(256, dtype=np.uint16).reshape(16, 16) * 200)
+    raw = TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1, photometric=2)
+    pal = Image.fromarray(a[..., 0] % 4, "P")
+    pal.putpalette([0, 0, 0, 90, 90, 90, 180, 180, 180, 255, 255, 255])
+    return {"bits16.tif": _pil_file(wide),
+            "bits1.tif": _pil_file(rgb.convert("1"), compression="group4"),
+            "bits1_raw.tif": _pil_file(rgb.convert("1")),
+            "float.tif": _pil_file(Image.fromarray(np.ones((8, 8), np.float32), "F")),
+            "cmyk.tif": _pil_file(rgb.convert("CMYK")),
+            "fillorder2.tif": _fillorder2(raw),
+            "progressive_tile.tif": TOOL.assemble_tiff(
+                a.shape, [_pil_file(rgb, "JPEG", progressive=True)], compression=7,
+                photometric=6, tile=(16, 16)),
+            "adam7.png": TOOL.assemble_png(a, 2, interlace=1),
+            "png1.png": _pil_file(rgb.convert("1"), "PNG"),
+            "png2.png": _pil_file(pal, "PNG"),
+            "png4.png": TOOL.assemble_png(a[..., 0] >> 4, 0, depth=4),
+            "png16.png": _pil_file(wide, "PNG")}
+
+
+FORMERLY_REFUSED = sorted(_formerly_refused_cases())
+
+
+@pytest.mark.parametrize("name", FORMERLY_REFUSED)
+def test_formerly_refused_files_decode_as_jax(name, tmp_path, monkeypatch):
+    path = _write(tmp_path, name, _formerly_refused_cases()[name])
+    want = jax_decode_slide(str(path))
+    _block_pil(monkeypatch)
+    got = _port(path)
+    assert got.dtype == np.uint8 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
 
 
 def test_tiff_and_png_never_reach_pil(tmp_path, monkeypatch):
@@ -362,7 +386,8 @@ def test_info_matches_pillow_size(name):
     info = (tiff.tiff_info if name.endswith(".tif") else png.png_info)(path)
     assert (info["height"], info["width"]) == (h, w)
     assert info["samples"] >= 1 and (info["samples"] == samples or name.endswith(".tif"))
-    assert info["compression"] in ("none", "lzw", "deflate", "packbits", "jpeg")
+    assert info["compression"] in ("none", "lzw", "deflate", "packbits", "jpeg",
+                                   "ccitt rle", "ccitt group 3", "ccitt group 4")
     assert (tiff.is_tiff_file(path), png.is_png_file(path)) == \
         (name.endswith(".tif"), name.endswith(".png"))
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Write the JPEG codec's fixtures: small JPEGs encoded by Pillow, the
-pixels they encode and the pixels Pillow decodes from them.
+"""Write the JPEG codec's fixtures: small JPEGs encoded by Pillow or made
+here, the pixels they encode and the pixels Pillow decodes from them.
 
     python tools/make_jpeg_fixtures.py        # writes tests/data/jpeg/
 
@@ -14,19 +14,34 @@ each ``<name>.jpg`` to its ``decoded_<name>`` and encode the
 :func:`fixtures` again and checks the committed files still equal
 Pillow's output. The images are seeded numpy patterns: smooth gradients
 under noise, so every DCT band and Huffman code length occurs.
+
+Pillow writes baseline and progressive files (libjpeg's simple
+progression) at 4:4:4, 4:2:2 and 4:2:0, gray and CMYK. The rest is made
+by ``tools/jpeg_transcode.cpp`` (built with ``g++`` at first use into
+``tools/_build/``): :func:`write_coefficients` entropy-codes quantised
+DCT coefficients that :func:`coefficients` computes here (sampling factors
+h1v2, h4v1, h4v2, YCCK and RGB under an Adobe marker), and
+:func:`transcode` rewrites a file's own coefficients under another scan
+script (unrefined and DC-only scripts, spectral selection with one DC
+scan a component and restart markers), as ``jpegtran`` does. Pillow's
+decode of every file is recorded beside it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import io
 import json
 import os
+import shutil
+import subprocess
 import sys
 
 import numpy as np
 
-OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
-                   "data", "jpeg")
+TOOLS = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(os.path.dirname(TOOLS), "tests", "data", "jpeg")
 
 # name, shape, quality, subsampling (the codec's name; Pillow's number),
 # restart_marker_blocks (0: none)
@@ -51,10 +66,241 @@ def image(shape, seed: int) -> np.ndarray:
     return img if len(shape) == 3 else img[..., 0]
 
 
+# ---- the coefficient writer and transcoder (tools/jpeg_transcode.cpp) ----
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def transcoder():
+    """The loaded ``tools/jpeg_transcode.cpp``, built with ``$CXX`` or
+    ``g++`` into ``tools/_build/`` at first use (the name carries a hash of
+    the source)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = os.path.join(TOOLS, "jpeg_transcode.cpp")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    build = os.path.join(TOOLS, "_build")
+    lib = os.path.join(build, f"libjpeg_transcode-{digest}.so")
+    if not os.path.exists(lib):
+        os.makedirs(build, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
+        res = subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o",
+                              tmp, src],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"build of jpeg_transcode.cpp failed:\n{res.stderr}")
+        os.replace(tmp, lib)
+    _LIB = ctypes.CDLL(lib)
+    _LIB.jt_transcode.argtypes = [_VP, _LL, _I, _I, _VP, _VP, ctypes.c_char_p, _I]
+    _LIB.jt_write.argtypes = [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
+                              _I, _VP, _VP, ctypes.c_char_p, _I]
+    _LIB.jt_free.argtypes = [_VP]
+    return _LIB
+
+
+_LIB = None
+
+
+def _bytes_of(lib, status, out, n, err) -> bytes:
+    if status:
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.jt_free(out)
+
+
+def transcode(data: bytes, script: int, restart: int = 0) -> bytes:
+    """A sequential Huffman JPEG's coefficients rewritten under scan
+    ``script`` (``tools/jpeg_transcode.cpp``: 0 sequential, 1 libjpeg's
+    simple progression, 2 unrefined, 3 DC only below AC 10, 4 spectral
+    selection with one DC scan a component) with a restart marker every
+    ``restart`` MCUs: the same pixels, other bytes."""
+    lib = transcoder()
+    out, n, err = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(512)
+    status = lib.jt_transcode(data, len(data), script, restart, ctypes.byref(out),
+                              ctypes.byref(n), err, 512)
+    return _bytes_of(lib, status, out, n, err)
+
+
+def adobe_segment(transform: int) -> bytes:
+    """An APP14 Adobe segment (version 100, no flags) naming ``transform``
+    (0 none: RGB or CMYK; 1 YCbCr; 2 YCCK)."""
+    return b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([transform])
+
+
+JFIF = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
+           41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
+           23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+         57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+         55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+         100, 103, 99)
+_CHROMA = (17, 18, 24, 47) + (99,) * 4 + (18, 21, 26, 66) + (99,) * 4 + (24, 26, 56) + \
+    (99,) * 5 + (47, 66) + (99,) * 38
+
+
+def quant_table(basic, quality: int) -> np.ndarray:
+    """An Annex K table (natural order) under the IJG quality scaling."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((np.asarray(basic, np.int64) * scale + 50) // 100, 1, 255).astype(np.uint16)
+
+
+def coefficients(planes, factors, tables, tq) -> list:
+    """Quantised DCT blocks of full-resolution component ``planes`` (each
+    (H, W) of sample values 0-255) at sampling ``factors`` ((h, v) each):
+    each component box-downsampled, edge-replicated to whole MCUs, the
+    orthonormal 8x8 DCT of (sample - 128) divided by its table ``tables[tq[c]]``
+    and rounded. Returns the components as ``write_coefficients`` takes
+    them."""
+    H, W = planes[0].shape
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    if len(planes) == 1:
+        hmax = vmax = 1
+        factors = [(1, 1)]
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    k = np.arange(8)
+    basis = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * np.where(
+        k[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))
+    comps = []
+    for c, (plane, (h, v)) in enumerate(zip(planes, factors)):
+        sy, sx = vmax // v, hmax // h
+        dh, dw = -(-H * v // vmax), -(-W * h // hmax)
+        padded = np.pad(np.asarray(plane, np.float64), ((0, dh * sy - H), (0, dw * sx - W)),
+                        mode="edge")
+        small = padded.reshape(dh, sy, dw, sx).mean(axis=(1, 3))
+        bh, bw = mcuy * v, mcux * h
+        full = np.pad(small, ((0, bh * 8 - dh), (0, bw * 8 - dw)), mode="edge") - 128
+        blocks = full.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        dct = np.einsum("ui,abij,vj->abuv", basis, blocks, basis)
+        q = tables[tq[c]].reshape(8, 8).astype(np.float64)
+        comps.append({"id": c + 1, "h": h, "v": v, "tq": tq[c],
+                      "coef": np.rint(dct / q).astype(np.int16).reshape(bh, bw, 64)})
+    return comps
+
+
+def write_coefficients(width: int, height: int, comps, tables, app: bytes = JFIF,
+                       script: int = 0, restart: int = 0) -> bytes:
+    """A JPEG of ``comps`` (dicts of ``id``, ``h``, ``v``, ``tq`` and
+    ``coef``, ``(bh, bw, 64)`` int16 in natural order) under ``tables``
+    ({table number: 64 values, natural order}), ``app`` copied after SOI,
+    written under scan ``script`` (as :func:`transcode`)."""
+    lib = transcoder()
+    n = len(comps)
+    ints = lambda key: np.array([c[key] for c in comps], np.int32)  # noqa: E731
+    ids, h, v, tq = ints("id"), ints("h"), ints("v"), ints("tq")
+    coefs = [np.ascontiguousarray(c["coef"], np.int16) for c in comps]
+    ptrs = (ctypes.c_void_p * n)(*[a.ctypes.data for a in coefs])
+    qt = np.zeros((4, 64), np.uint16)
+    used = np.zeros(4, np.int32)
+    for t, table in tables.items():
+        qt[t] = table
+        used[t] = 1
+    out, size, err = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(512)
+    status = lib.jt_write(width, height, n, ids.ctypes.data, h.ctypes.data, v.ctypes.data,
+                          tq.ctypes.data, ptrs, qt.ctypes.data, used.ctypes.data, app, len(app),
+                          script, restart, ctypes.byref(out), ctypes.byref(size), err, 512)
+    return _bytes_of(lib, status, out, size, err)
+
+
+def ycbcr(rgb: np.ndarray) -> list:
+    """JFIF's YCbCr planes (float) of an (H, W, 3) image."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    return [0.299 * r + 0.587 * g + 0.114 * b,
+            -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+            0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+
+
+def _made(shape, seed, factors, quality, colour="ycbcr", script=0, restart=0) -> tuple:
+    """(bytes, source pixels) of a file this tool writes: ``colour``
+    "ycbcr" (JFIF), "rgb" (Adobe 0), "cmyk" (Adobe 0) or "ycck" (Adobe 2)."""
+    c = 4 if colour in ("cmyk", "ycck") else 3
+    pixels = image(shape[:2] + (3,), seed)
+    if c == 4:
+        pixels = np.concatenate([pixels, image(shape[:2], seed + 1)[..., None]], -1)
+    if colour == "ycbcr":
+        planes, app = ycbcr(pixels), JFIF
+    elif colour == "ycck":       # YCbCr of the inverted C, M, Y, and K
+        planes, app = ycbcr(255 - pixels[..., :3]) + [pixels[..., 3]], adobe_segment(2)
+    else:
+        planes, app = [pixels[..., i] for i in range(c)], adobe_segment(0)
+    tables = {0: quant_table(_LUMA, quality), 1: quant_table(_CHROMA, quality)}
+    tq = [0] + [1] * (c - 1) if colour in ("ycbcr", "ycck") else [0] * c
+    if colour == "ycck":
+        tq[3] = 0
+    comps = coefficients(planes, factors, tables, tq)
+    return write_coefficients(shape[1], shape[0], comps, {t: tables[t] for t in set(tq)}, app,
+                              script, restart), pixels
+
+
+def _pillow(pixels, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(pixels).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _more_cases() -> dict:
+    """{name: (bytes, source pixels, what)}: the files beyond baseline
+    YCbCr and gray."""
+    from PIL import Image
+
+    out = {}
+    rgb = image((40, 48, 3), 20)
+    out["prog_rgb40x48_q80"] = (_pillow(rgb, quality=80, progressive=True), rgb,
+                                "progressive (Pillow: simple progression), 4:2:0")
+    gray = image((33, 35), 21)
+    out["prog_gray33x35_q75"] = (_pillow(gray, progressive=True), gray, "progressive gray")
+    odd = image((35, 29, 3), 22)
+    out["prog_rgb35x29_444_rst2"] = (
+        _pillow(odd, quality=90, subsampling=0, progressive=True, restart_marker_blocks=2),
+        odd, "progressive 4:4:4, restart markers every 2 MCUs")
+    cmyk = np.asarray(Image.fromarray(image((24, 30, 3), 23)).convert("CMYK"))
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=85)
+    out["cmyk24x30_q85"] = (buf.getvalue(), cmyk, "CMYK (Pillow: Adobe, inverted)")
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=70, progressive=True)
+    out["prog_cmyk24x30_q70"] = (buf.getvalue(), cmyk, "progressive CMYK")
+    for name, shape, factors in (("h1v2_rgb37x30", (37, 30), [(1, 2), (1, 1), (1, 1)]),
+                                 ("h4v1_rgb19x45", (19, 45), [(4, 1), (1, 1), (1, 1)]),
+                                 ("h4v2_rgb35x41", (35, 41), [(4, 2), (1, 1), (1, 1)]),
+                                 ("h2v2_cb1x2_rgb26x34", (26, 34), [(2, 2), (1, 2), (2, 1)])):
+        data, px = _made(shape, len(out) + 30, factors, 80)
+        out[name] = (data, px, f"YCbCr, sampling {factors} (written here)")
+    data, px = _made((30, 26), 40, [(2, 2), (1, 1), (1, 1), (2, 2)], 85, "ycck")
+    out["ycck_h2v2_30x26"] = (data, px, "YCCK (Adobe 2), Y and K 2x2 (written here)")
+    data, px = _made((21, 27), 41, [(1, 1)] * 4, 90, "cmyk", script=1)
+    out["prog_cmyk_adobe_21x27"] = (data, px, "progressive CMYK, Adobe 0 (written here)")
+    data, px = _made((25, 33), 42, [(2, 1), (1, 1), (1, 1)], 85, "rgb")
+    out["rgb_adobe0_h2v1_25x33"] = (data, px, "RGB components (Adobe 0), 2x1 (written here)")
+    data, px = _made((35, 41), 43, [(4, 2), (1, 1), (1, 1)], 75, script=1)
+    out["prog_h4v2_rgb35x41"] = (data, px, "progressive, sampling 4x2 (written here)")
+    base = _pillow(image((48, 56, 3), 44), quality=75)
+    px = image((48, 56, 3), 44)
+    out["unrefined_rgb48x56"] = (transcode(base, 2), px,
+                                 "progressive, AC 1-5 left at Al 1: block smoothing")
+    out["dconly_rgb48x56"] = (transcode(base, 3), px,
+                              "progressive, AC 1-9 never sent: smoothing with DC interpolation")
+    out["spectral_rst_rgb48x56"] = (
+        transcode(base, 4, restart=3), px,
+        "progressive, spectral selection only, a DC scan a component, restart every 3 MCUs")
+    g = _pillow(image((41, 39), 45), quality=60)
+    out["unrefined_gray41x39"] = (transcode(g, 2, restart=5), image((41, 39), 45),
+                                  "progressive gray, unrefined, restart every 5 MCUs")
+    return out
+
+
 def fixtures() -> dict:
     """``{name: {"jpeg": bytes, "pixels": ..., "decoded": ..., "quality",
     "subsampling", "restart_blocks"}}``, Pillow's encoding and decoding of
-    each case."""
+    each case; the files beyond Pillow's baseline YCbCr and gray ones carry
+    what they hold under "subsampling", quality 0 and no source pixels."""
     from PIL import Image
 
     out = {}
@@ -71,6 +317,10 @@ def fixtures() -> dict:
         decoded = np.asarray(Image.open(io.BytesIO(data)))
         out[name] = {"jpeg": data, "pixels": pixels, "decoded": decoded, "quality": quality,
                      "subsampling": sub, "restart_blocks": rst}
+    for name, (data, _, what) in _more_cases().items():     # source pixels not kept
+        decoded = np.asarray(Image.open(io.BytesIO(data)))
+        out[name] = {"jpeg": data, "pixels": None, "decoded": decoded, "quality": 0,
+                     "subsampling": what, "restart_blocks": 0}
     return out
 
 
@@ -83,8 +333,9 @@ def load(directory: str = OUT) -> dict:
     for name, meta in cases.items():
         with open(os.path.join(directory, f"{name}.jpg"), "rb") as fh:
             data = fh.read()
-        out[name] = {"jpeg": data, "pixels": arrays[f"pixels_{name}"],
-                     "decoded": arrays[f"decoded_{name}"], **meta}
+        pixels = arrays[f"pixels_{name}"] if f"pixels_{name}" in arrays else None
+        out[name] = {"jpeg": data, "pixels": pixels, "decoded": arrays[f"decoded_{name}"],
+                     **meta}
     return out
 
 
@@ -95,7 +346,8 @@ def main() -> int:
     for name, f in fx.items():
         with open(os.path.join(OUT, f"{name}.jpg"), "wb") as fh:
             fh.write(f["jpeg"])
-        arrays[f"pixels_{name}"] = f["pixels"]
+        if f["pixels"] is not None:
+            arrays[f"pixels_{name}"] = f["pixels"]
         arrays[f"decoded_{name}"] = f["decoded"]
     np.savez_compressed(os.path.join(OUT, "pixels.npz"), **arrays)
     with open(os.path.join(OUT, "cases.json"), "w") as fh:

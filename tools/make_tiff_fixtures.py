@@ -19,8 +19,13 @@ Pillow's libtiff encodes (:func:`pillow_segment`: one strip of a file
 Pillow writes), and every assembled file is read back by Pillow before it
 is kept: tiles (64 px, edge tiles cropped), a big-endian file, YCbCr JPEG
 tiles with shared JPEGTables, the old Deflate code 32946, one plane a
-sample, a MinIsWhite page and an Orientation tag. :func:`assemble_png`
-writes PNGs whose rows cycle through all five filter types.
+sample, a MinIsWhite page and an Orientation tag; and, held to Pillow's
+other modes, 1-, 2-, 4- and 16-bit, signed, float and CMYK samples in
+either byte order (:func:`pack_samples`, :func:`horizontal_differences`,
+:func:`packbits`), FillOrder 2 and progressive JPEG tiles.
+:func:`assemble_png` writes PNGs of every colour type and depth whose rows
+cycle through all five filter types, Adam7-interlaced on request (Pillow
+cannot write Adam7).
 """
 
 from __future__ import annotations
@@ -36,6 +41,81 @@ import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
                    "data", "tiff")
+
+
+def wide(shape, seed: int, dtype=np.uint16) -> np.ndarray:
+    """A seeded 16- or 32-bit test image: ``image`` in the high byte and
+    noise below (so both the ``>> 8`` and the clipping conversions show),
+    with a corner of small values (0 to 300, where clipping and ``>> 8``
+    differ most)."""
+    rng = np.random.default_rng(seed)
+    hi = image(shape, seed).astype(np.int64)
+    if np.dtype(dtype).kind == "f":
+        out = (hi * 1.6 - 60 + rng.random(hi.shape)).astype(dtype)
+    else:
+        out = hi << 8 | rng.integers(0, 256, hi.shape)
+        if np.dtype(dtype).kind == "i":
+            out = out - 32768
+    out = out.astype(dtype)
+    corner = (np.arange(8).reshape(2, 4) * 43)[:out.shape[0], :out.shape[1]]
+    out[:2, :4] = corner[(...,) + (None,) * (out.ndim - 2)]
+    return out
+
+
+def pack_samples(samples: np.ndarray, bits: int, order: str = "<") -> np.ndarray:
+    """Rows of stored bytes ((h, row bytes) uint8) of ``samples`` ((h, w) or
+    (h, w, c)) at ``bits`` a sample: sub-byte samples packed MSB first,
+    each row starting on a byte (also 12-bit ones); 16- and 32-bit ones in
+    byte ``order``."""
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1)
+    if bits not in (8, 16, 32):
+        b = (flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        return np.packbits(b.reshape(h, -1).astype(np.uint8), axis=1)
+    if bits == 8:
+        return np.ascontiguousarray(flat, np.uint8)
+    return np.ascontiguousarray(flat.astype(flat.dtype.newbyteorder(order))).view(np.uint8)
+
+
+def horizontal_differences(samples: np.ndarray) -> np.ndarray:
+    """TIFF Predictor 2 of integer ``samples`` ((h, w, c)): each sample minus
+    the one to its left, modulo its range."""
+    out = samples.copy()
+    out[:, 1:] = samples[:, 1:] - samples[:, :-1]
+    return out
+
+
+def ycbcr_units(samples: np.ndarray, hs: int, vs: int) -> bytes:
+    """TIFF's subsampled YCbCr data units of ``samples`` ((h, w, 3): Y, Cb,
+    Cr): for each hs x vs block, row-major, its hs * vs Y samples and the
+    block's first Cb and Cr, the image edge-padded to whole blocks."""
+    h, w = samples.shape[:2]
+    p = np.pad(samples, ((0, -h % vs), (0, -w % hs), (0, 0)), mode="edge")
+    rows, cols = p.shape[0] // vs, p.shape[1] // hs
+    blocks = p.reshape(rows, vs, cols, hs, 3).transpose(0, 2, 1, 3, 4)
+    units = np.concatenate([blocks[..., 0].reshape(rows, cols, vs * hs),
+                            blocks[:, :, 0, 0, 1:]], -1)
+    return units.astype(np.uint8).tobytes()
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits (TIFF 32773) of ``data``: runs of 3 or more equal bytes
+    repeated, the rest as literals of at most 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
 
 
 def image(shape, seed: int) -> np.ndarray:
@@ -85,7 +165,7 @@ def assemble_tiff(shape, segments, *, compression: int, photometric: int, tile=N
                   rows_per_strip=None, bigtiff: bool = False, byteorder: str = "<",
                   extra=(), predictor: int = 1, planar: int = 1, colormap=None,
                   jpegtables=None, ycbcr_subsampling=None, orientation=None,
-                  bits: int = 8, sample_format=None) -> bytes:
+                  bits: int = 8, sample_format=None, fill_order=None, more_tags=None) -> bytes:
     """The bytes of a one-page TIFF of ``shape`` ((h, w, samples)) whose
     strips (``rows_per_strip``) or tiles (``tile`` = (width, length)) are
     ``segments`` in order (per plane for ``planar`` 2), each already
@@ -109,6 +189,9 @@ def assemble_tiff(shape, segments, *, compression: int, photometric: int, tile=N
         tags[274] = (3, [orientation])
     if sample_format is not None:
         tags[339] = (3, [sample_format] * spp)
+    if fill_order is not None:
+        tags[266] = (3, [fill_order])
+    tags.update(more_tags or {})         # {tag: (type, values)}; RATIONAL (5) as pairs
     header = (b"II" if o == "<" else b"MM") + (
         struct.pack(o + "HHHQ", 43, 8, 0, 0) if bigtiff else struct.pack(o + "HI", 42, 0))
     data = bytearray(header)
@@ -125,13 +208,13 @@ def assemble_tiff(shape, segments, *, compression: int, photometric: int, tile=N
     else:
         tags.update({273: (off_type, offsets), 278: (4, [rows_per_strip or h]),
                      279: (off_type, counts)})
-    code = {3: "H", 4: "I", 16: "Q"}
+    code = {3: "H", 4: "I", 5: "II", 16: "Q"}
     inline = 8 if bigtiff else 4
     entries = []
     for tag in sorted(tags):
         ftype, values = tags[tag]
-        raw = bytes(values) if ftype == 7 else struct.pack(o + code[ftype] * len(values),
-                                                           *values)
+        flat = [v for pair in values for v in pair] if ftype == 5 else values
+        raw = bytes(values) if ftype == 7 else struct.pack(o + code[ftype] * len(values), *flat)
         if len(raw) > inline:
             ref = len(data)
             data += raw + (b"\0" if len(raw) % 2 else b"")
@@ -145,6 +228,20 @@ def assemble_tiff(shape, segments, *, compression: int, photometric: int, tile=N
     data += struct.pack(o + off_code, 0)
     struct.pack_into(o + off_code, data, 8 if bigtiff else 4, ifd)
     return bytes(data)
+
+
+def set_short_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A classic little-endian TIFF with the first page's SHORT ``tag`` (one
+    value, already present) set to ``value``."""
+    ifd = struct.unpack("<I", data[4:8])[0]
+    n = struct.unpack("<H", data[ifd:ifd + 2])[0]
+    out = bytearray(data)
+    for k in range(n):
+        at = ifd + 2 + 12 * k
+        if struct.unpack("<HHI", data[at:at + 8]) == (tag, 3, 1):
+            struct.pack_into("<H", out, at + 8, value)
+            return bytes(out)
+    raise KeyError(f"no SHORT tag {tag}")
 
 
 def tiles_of(pixels: np.ndarray, tw: int, th: int):
@@ -233,16 +330,30 @@ def png_filter(rows: np.ndarray, bpp: int, filters) -> bytes:
     return bytes(out)
 
 
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
+
+
 def assemble_png(pixels: np.ndarray, colour: int, filters=(0, 1, 2, 3, 4), palette=None,
                  trns=None, depth: int = 8, interlace: int = 0, idat_parts: int = 2) -> bytes:
-    """A PNG of ``pixels`` ((h, w) or (h, w, c) uint8) of colour type
-    ``colour``, its rows cycling through ``filters``, the zlib stream split
-    over ``idat_parts`` IDAT chunks; PLTE from ``palette`` ((n, 3)), a tRNS
-    chunk of ``trns`` bytes. ``depth`` and ``interlace`` are only written
-    to the header (to make files the reader refuses)."""
+    """A PNG of ``pixels`` ((h, w) or (h, w, c) samples: uint8 up to 8 bits,
+    uint16 at 16) of colour type ``colour`` at ``depth`` bits, its rows
+    cycling through ``filters`` (each Adam7 pass anew when ``interlace``),
+    the zlib stream split over ``idat_parts`` IDAT chunks; PLTE from
+    ``palette`` ((n, 3)), a tRNS chunk of ``trns`` bytes."""
     h, w = pixels.shape[:2]
     c = 1 if pixels.ndim == 2 else pixels.shape[2]
-    data = zlib.compress(png_filter(pixels.reshape(h, w * c), c, filters), 6)
+    bpp = max(1, c * depth // 8)
+
+    def scanlines(px):
+        return png_filter(pack_samples(px, depth, ">"), bpp, filters)
+
+    if interlace:
+        raw = b"".join(scanlines(pixels[y0::dy, x0::dx]) for y0, x0, dy, dx in ADAM7
+                       if h > y0 and w > x0)
+    else:
+        raw = scanlines(pixels)
+    data = zlib.compress(raw, 6)
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
                                                                0, 0, interlace))
     if palette is not None:
@@ -261,7 +372,9 @@ def _pillow_tiff(pixels, mode, compression, info=None, **kw) -> bytes:
     from PIL import Image
 
     buf = io.BytesIO()
-    im = Image.fromarray(pixels, mode)
+    im = Image.fromarray(pixels)
+    if im.mode != mode:
+        im = Image.fromarray(pixels, mode)
     if mode == "P":
         im.putpalette(list(image((16, 48), 99).reshape(-1)))
     im.save(buf, "TIFF", compression=compression, tiffinfo=info or {}, **kw)
@@ -272,7 +385,8 @@ def _pillow_png(pixels, mode) -> bytes:
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(pixels, mode).save(buf, "PNG")
+    im = Image.fromarray(pixels)
+    (im if im.mode == mode else Image.fromarray(pixels, mode)).save(buf, "PNG")
     return buf.getvalue()
 
 
@@ -350,6 +464,170 @@ def _cases() -> dict:
                           "palette of 60 entries (indices past it), tRNS, filters 0-4")
     cases["rgb31x29_pillow.png"] = (_pillow_png(image((31, 29, 3), 19), "RGB"),
                                     "RGB, Pillow's filters")
+    cases.update(_mode_cases())
+    return cases
+
+
+def _tiff_of(samples, bits, *, compression=1, photometric, order="<", predictor=1, extra=(),
+             sample_format=None, fill_order=None, rows_per_strip=None, tile=None,
+             colormap=None) -> bytes:
+    """An assembled TIFF of ``samples`` ((h, w, c)) at ``bits``: raw,
+    PackBits or Deflate strips (or tiles), the predictor and FillOrder
+    applied to the stored bytes as a writer would."""
+    h, w, c = samples.shape
+    if predictor == 2:
+        samples = horizontal_differences(samples)
+    parts = ([(0, h, samples)] if tile is None and rows_per_strip is None else
+             [(y, y + rows_per_strip, samples[y:y + rows_per_strip])
+              for y in range(0, h, rows_per_strip)] if tile is None else None)
+    if tile is not None:
+        padded = np.zeros((-(-h // tile[1]) * tile[1], -(-w // tile[0]) * tile[0], c),
+                          samples.dtype)
+        padded[:h, :w] = samples
+        pieces = [padded[y:y + tile[1], x:x + tile[0]] for y in range(0, h, tile[1])
+                  for x in range(0, w, tile[0])]
+    else:
+        pieces = [p for _, _, p in parts]
+    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+    segs = []
+    for piece in pieces:
+        raw = pack_samples(piece, bits, order).tobytes()
+        seg = {1: raw, 8: zlib.compress(raw), 32773: packbits(raw)}[compression]
+        if fill_order == 2:
+            seg = rev[np.frombuffer(seg, np.uint8)].tobytes()
+        segs.append(seg)
+    return assemble_tiff((h, w, c), segs, compression=compression, photometric=photometric,
+                         byteorder=order, predictor=predictor, extra=extra, bits=bits,
+                         sample_format=sample_format, fill_order=fill_order,
+                         rows_per_strip=rows_per_strip, tile=tile, colormap=colormap)
+
+
+def _mode_cases() -> dict:
+    """The files of Pillow's other modes: bit depths 1 to 32, CMYK, FillOrder
+    2, progressive JPEG tiles; PNG at every depth and Adam7."""
+    from PIL import Image
+
+    cases = {}
+    g16 = wide((23, 30), 40)
+    cases["gray16_raw.tif"] = (_pillow_tiff(g16, "I;16", "raw"), "16-bit gray (I;16), raw")
+    cases["gray16_lzw_pred.tif"] = (_pillow_tiff(g16, "I;16", "tiff_lzw", {317: 2, 278: 8}),
+                                    "16-bit gray, LZW, Predictor 2")
+    cases["gray16_be_deflate_pred.tif"] = (
+        _tiff_of(g16[..., None], 16, compression=8, photometric=1, order=">", predictor=2,
+                 rows_per_strip=7), "16-bit gray big-endian (I;16B), Deflate, Predictor 2")
+    cases["gray16_signed_be.tif"] = (
+        _tiff_of(wide((17, 21), 41, np.int16)[..., None], 16, photometric=1, order=">",
+                 sample_format=2), "16-bit signed gray big-endian (I;16BS), raw")
+    f32 = wide((19, 26), 42, np.float32)
+    cases["float32_lzw.tif"] = (_pillow_tiff(f32, "F", "tiff_lzw"), "32-bit float gray, LZW")
+    cases["float32_be.tif"] = (_tiff_of(f32[..., None], 32, photometric=1, order=">",
+                                        sample_format=3), "32-bit float gray big-endian, raw")
+    cases["gray32_uint.tif"] = (_tiff_of(wide((9, 13), 43, np.uint32)[..., None], 32,
+                                         photometric=1), "32-bit unsigned gray (I;32N), raw")
+    cases["gray8_signed.tif"] = (_tiff_of(image((9, 14, 1), 44), 8, photometric=1,
+                                          sample_format=2), "8-bit signed gray (read as L)")
+    rgb16 = wide((21, 33, 3), 45)
+    cases["rgb16_deflate_pred.tif"] = (
+        _tiff_of(rgb16, 16, compression=8, photometric=2, predictor=2, rows_per_strip=5),
+        "16-bit RGB, Deflate, Predictor 2, 5-row strips")
+    cases["rgb16_be_packbits_tiled.tif"] = (
+        _tiff_of(rgb16, 16, compression=32773, photometric=2, order=">", tile=(16, 16)),
+        "16-bit RGB big-endian, PackBits, 16-px tiles")
+    rgba16 = wide((18, 20, 4), 46)
+    cases["rgba16_raw.tif"] = (_tiff_of(rgba16, 16, photometric=2, extra=(2,)),
+                               "16-bit RGBA (unassociated), raw")
+    cases["rgba16_assoc_be_deflate.tif"] = (
+        _tiff_of(rgba16, 16, compression=8, photometric=2, order=">", extra=(1,)),
+        "16-bit RGBA associated alpha, big-endian, Deflate")
+    cmyk = np.asarray(Image.fromarray(image((20, 27, 3), 47)).convert("CMYK"))
+    cases["cmyk_lzw.tif"] = (_pillow_tiff(cmyk, "CMYK", "tiff_lzw"), "CMYK, LZW")
+    cases["cmyk16_be_deflate.tif"] = (
+        _tiff_of(wide((15, 19, 4), 48), 16, compression=8, photometric=5, order=">"),
+        "16-bit CMYK big-endian, Deflate")
+    bilevel = image((27, 37), 49) > 127
+    cases["bilevel_raw.tif"] = (_pillow_tiff(bilevel, "1", "raw"), "1-bit, raw")
+    cases["bilevel_white_packbits.tif"] = (
+        _tiff_of(bilevel[..., None].astype(np.uint8), 1, compression=32773, photometric=0,
+                 rows_per_strip=10), "1-bit MinIsWhite, PackBits, 10-row strips")
+    cases["bilevel_deflate_fill2.tif"] = (
+        _tiff_of(bilevel[..., None].astype(np.uint8), 1, compression=8, photometric=1,
+                 fill_order=2), "1-bit, Deflate, FillOrder 2")
+    cases["gray2_deflate.tif"] = (_tiff_of(image((13, 22, 1), 50) >> 6, 2, compression=8,
+                                           photometric=1), "2-bit gray, Deflate")
+    cases["gray4_white_raw.tif"] = (_tiff_of(image((13, 23, 1), 51) >> 4, 4, photometric=0),
+                                    "4-bit gray MinIsWhite, raw")
+    pal = image((16, 3), 52).astype(np.uint16) * 257
+    cases["pal4_packbits.tif"] = (
+        _tiff_of(image((17, 19, 1), 53) >> 4, 4, compression=32773, photometric=3,
+                 colormap=pal.T.reshape(-1)), "4-bit palette (16-entry ColorMap), PackBits")
+    cases["rgb_fill2_raw.tif"] = (_tiff_of(image((11, 14, 3), 54), 8, photometric=2,
+                                           fill_order=2), "RGB, raw, FillOrder 2")
+    cases["gray_fill2_deflate.tif"] = (
+        _tiff_of(image((12, 15, 1), 55), 8, compression=8, photometric=1, fill_order=2),
+        "gray, Deflate, FillOrder 2")
+    prog = image((70, 90, 3), 56)
+    tiles = []
+    for t in tiles_of(prog, 32, 32):
+        buf = io.BytesIO()
+        Image.fromarray(t).save(buf, "JPEG", quality=80, progressive=True)
+        tiles.append(buf.getvalue())
+    cases["ycbcr_prog_jpeg_tiles.tif"] = (
+        assemble_tiff(prog.shape, tiles, compression=7, photometric=6, tile=(32, 32),
+                      ycbcr_subsampling=(2, 2)), "JPEG, YCbCr, progressive 32-px tiles")
+    fax = image((45, 61), 73) > 110
+    for comp, info, name, what in (
+            ("group4", {}, "bilevel_g4.tif", "1-bit, CCITT Group 4"),
+            ("group3", {278: 16}, "bilevel_g3.tif", "1-bit, CCITT Group 3 1-D, 16-row strips"),
+            ("group3", {292: 5}, "bilevel_g3_2d.tif",
+             "1-bit, CCITT Group 3 2-D, EOLs byte-aligned"),
+            ("tiff_ccitt", {}, "bilevel_ccitt_rle.tif", "1-bit, CCITT Modified Huffman (2)"),
+            ("group4", {266: 2}, "bilevel_g4_fill2.tif", "1-bit, CCITT Group 4, FillOrder 2")):
+        cases[name] = (_pillow_tiff(fax, "1", comp, info), what)
+    cases["bilevel_g4_white.tif"] = (
+        set_short_tag(_pillow_tiff(fax, "1", "group4"), 262, 0),
+        "1-bit MinIsWhite, CCITT Group 4 (bits as decoded: 1 black)")
+    ycc = image((29, 37, 3), 74)
+    cases["ycbcr22_deflate.tif"] = (
+        assemble_tiff(ycc.shape, [zlib.compress(ycbcr_units(ycc[y:y + 8], 2, 2))
+                                  for y in range(0, 29, 8)], compression=8, photometric=6,
+                      rows_per_strip=8, ycbcr_subsampling=(2, 2)),
+        "YCbCr 2x2 outside JPEG (libtiff's RGBA route), Deflate, 8-row strips")
+    tiles = [packbits(ycbcr_units(t, 4, 4)) for t in tiles_of(ycc, 16, 16)]
+    cases["ycbcr44_tiled_packbits.tif"] = (
+        assemble_tiff(ycc.shape, tiles, compression=32773, photometric=6, tile=(16, 16),
+                      ycbcr_subsampling=(4, 4)),
+        "YCbCr 4x4, PackBits, 16-px tiles (libtiff's skew of the right edge tiles)")
+    # PNG at every depth, and Adam7
+    cases["gray1_pillow.png"] = (_pillow_png(bilevel, "1"), "1-bit gray (Pillow)")
+    p2 = Image.fromarray(image((19, 21), 57) % 4, "P")
+    p2.putpalette([0, 0, 0, 90, 30, 200, 180, 180, 40, 255, 255, 255])
+    buf = io.BytesIO()
+    p2.save(buf, "PNG")
+    cases["pal2_pillow.png"] = (buf.getvalue(), "2-bit palette (Pillow)")
+    cases["gray2.png"] = (assemble_png(image((11, 13), 58) >> 6, 0, depth=2), "2-bit gray")
+    cases["gray4.png"] = (assemble_png(image((16, 16), 59) >> 4, 0, depth=4), "4-bit gray")
+    cases["pal4_trns.png"] = (assemble_png(image((14, 17), 60) >> 4, 3, depth=4,
+                                           palette=image((12, 3), 61), trns=b"\0\x80"),
+                              "4-bit palette of 12 (indices past it), tRNS")
+    cases["gray16_pillow.png"] = (_pillow_png(wide((15, 18), 62), "I;16"),
+                                  "16-bit gray (Pillow's I;16: clipped)")
+    cases["rgb16.png"] = (assemble_png(wide((13, 17, 3), 63), 2, depth=16), "16-bit RGB")
+    cases["rgba16.png"] = (assemble_png(wide((12, 15, 4), 64), 6, depth=16), "16-bit RGBA")
+    cases["graya16.png"] = (assemble_png(wide((14, 11, 2), 65), 4, depth=16),
+                            "16-bit gray + alpha (Pillow: RGBA)")
+    cases["adam7_rgb.png"] = (assemble_png(image((16, 16, 3), 66), 2, interlace=1),
+                              "RGB, Adam7")
+    cases["adam7_gray1_5x9.png"] = (assemble_png(image((5, 9), 67) >> 7, 0, depth=1,
+                                                 interlace=1), "1-bit gray, Adam7, 5x9")
+    cases["adam7_pal4.png"] = (assemble_png(image((21, 19), 68) >> 4, 3, depth=4, interlace=1,
+                                            palette=image((16, 3), 69)),
+                               "4-bit palette, Adam7")
+    cases["adam7_rgba16_10x7.png"] = (assemble_png(wide((10, 7, 4), 70), 6, depth=16,
+                                                   interlace=1), "16-bit RGBA, Adam7")
+    cases["adam7_graya_1x1.png"] = (assemble_png(image((1, 1, 2), 71), 4, interlace=1),
+                                    "gray + alpha, Adam7, 1x1 (six empty passes)")
+    cases["adam7_gray16_3x2.png"] = (assemble_png(wide((3, 2), 72), 0, depth=16, interlace=1),
+                                     "16-bit gray, Adam7, 3x2")
     return cases
 
 
