@@ -360,7 +360,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
     fused entry at the same split plan, ctx and ksum within 2e-5 + 2e-4 x
     the largest |plain value| and the apply within FAVOR's tolerance of
     their plain versions on the same inputs, each entry and the fused call
-    timed (events) against its bound; (b) in phase 10's directory,
+    timed (events) against its bound; (a2) in the same three processes
+    after (a), the same ``train_mlm`` with softmax features (scBERT's
+    default) and the same gates, no FAVOR kernel launched (JAX has none
+    for softmax features) and, per layer a step on a rank, one key-maximum
+    gather (``collectives.COUNTS["token_mix"]``) and one (ctx, ksum) sum;
+    (a3) then one forward and backward of three LMs at scBERT's dim, heads
+    and dim_head, depth 1, 2 rows (``SEQ_OPS``): causal ReLU features with
+    rotary and 2 local heads of window 256 (``rel_pos``) and causal
+    ``no_projection``, each at 16,908 tokens, and non-causal ReLU with
+    ``sow_attention`` at 1,026 tokens: the ranks' logits within FAVOR's
+    tolerance and their gradients within 1e-3 of each tensor's largest of
+    one process's, the joined sow maps within FAVOR's tolerance, the sow
+    route's ranks launching ``favor_accumulate_f32`` and
+    ``favor_apply_f32`` once each (the kernels line's
+    ``launches_seq_sow``); (b) in phase 10's directory,
     ``cli.main(["--profile-dir", DIR, "register", ...])`` over slide 0 with
     phase 4's model directory: the Chrome trace under DIR holds CUDA kernel
     events of the gather and of the labels corrector, their counts set to
@@ -5385,17 +5399,26 @@ def phase_mesh_count_tier(torch, card, tmp, tier, dev) -> dict:
 SEQ_MLM_DEPTH = 2             # (a)'s PerformerLM layers at scBERT's widths (cut from 6)
 SEQ_MLM_STEPS = 2             # (a)'s MLM steps of PRETRAIN_BATCH rows, a redraw after each
 SEQ_WORLD = 2                 # (a)'s gloo ranks on the 'seq' axis
+SEQ_OPS_ROWS = 2              # (a3)'s rows
+# (a3)'s LMs at scBERT's dim, heads and dim_head, depth 1: (name, PerformerLM options,
+# tokens); the sow map is O(N^2), so its LM takes 1,026 tokens
+SEQ_OPS = (("causal_local", {"causal": True, "rotary": True, "local_attn_heads": 2,
+                             "local_window_size": 256, "generalized_attention": True},
+            MM_VOCAB + 2),
+           ("causal_no_projection", {"causal": True, "no_projection": True}, MM_VOCAB + 2),
+           ("sow", {"sow_attention": True, "generalized_attention": True}, 1026))
 
 
-def _seq_lm(torch, tl, models, dev):
-    """(a PerformerLM at scBERT's widths, depth ``SEQ_MLM_DEPTH``, its
-    state from a seed, ``PRETRAIN_BATCH`` rows of random bins over the
-    16,907 tokens, the dict its optimizer's first step fills with the
-    gradients)."""
+def _seq_lm(torch, tl, models, dev, softmax: bool = False):
+    """(a PerformerLM at scBERT's widths, depth ``SEQ_MLM_DEPTH``, ReLU or
+    (``softmax``) softmax features, its state from a seed,
+    ``PRETRAIN_BATCH`` rows of random bins over the 16,907 tokens, the dict
+    its optimizer's first step fills with the gradients)."""
     lm = models.PerformerLM(num_tokens=7,
                             max_seq_len=tl.mlm_token_len(MM_VOCAB + 1, {"seq": SEQ_WORLD}),
                             dim=MM_DIM, depth=SEQ_MLM_DEPTH, heads=MM_HEADS,
-                            dim_head=MM_DIM_HEAD, nb_features=266, generalized_attention=True)
+                            dim_head=MM_DIM_HEAD, nb_features=266,
+                            generalized_attention=not softmax)
     state = tl.create_train_state(lm, tl.make_adam(1e-4),
                                   generator=torch.Generator().manual_seed(SEED + 3), device=dev)
     tokens = np.random.default_rng(SEED + 3).integers(0, 6, (PRETRAIN_BATCH, MM_VOCAB + 1))
@@ -5412,14 +5435,55 @@ def _seq_lm(torch, tl, models, dev):
     return lm, state, tokens, grads
 
 
+def _seq_ops_step(torch, models, collectives, name, kw, n, world, rank, dev) -> dict:
+    """(a3): one forward and backward of ``name``'s LM over ``SEQ_OPS_ROWS``
+    rows of ``n`` tokens, whole (``world`` 0) or this rank's columns of a
+    ``seq`` group of ``world``; the loss a fixed random weighting of the
+    logits, the gradients summed over the ranks. Returns the logits, the
+    gradients, the sow maps and FAVOR's counts of this step."""
+    from gridnext_tpu_torch.models.performer import shard_sequence
+    from gridnext_tpu_torch.ops import favor_cuda
+    import torch.distributed as dist
+
+    torch.manual_seed(SEED + 7)
+    lm = models.PerformerLM(num_tokens=7, max_seq_len=n, dim=MM_DIM, depth=1, heads=MM_HEADS,
+                            dim_head=MM_DIM_HEAD, nb_features=266, **kw).to(dev)
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.as_tensor(rng.integers(0, 6, (SEQ_OPS_ROWS, n)), device=dev)
+    w = torch.as_tensor(rng.standard_normal((SEQ_OPS_ROWS, n, 7), dtype=np.float32), device=dev)
+    cols = slice(0, n)
+    if world:
+        cols = slice(rank * n // world, (rank + 1) * n // world)
+        shard_sequence(lm, collectives.TokenShard(dist.group.WORLD, cols.start, cols.stop, n))
+    favor_cuda.launches = favor_cuda.accumulate_launches = favor_cuda.apply_launches = 0
+    logits = lm(x[:, cols])
+    (logits * w[:, cols]).sum().backward()
+    if world:
+        collectives.all_reduce_grads(list(lm.parameters()))
+    torch.cuda.synchronize()
+    out = {f"a3/{name}/out": logits.detach().cpu().numpy(),
+           f"a3/{name}/count/fused": favor_cuda.launches,
+           f"a3/{name}/count/accumulate": favor_cuda.accumulate_launches,
+           f"a3/{name}/count/apply": favor_cuda.apply_launches}
+    out.update({f"a3/{name}/grad/{k}": p.grad.cpu().numpy()
+                for k, p in lm.named_parameters()})
+    if kw.get("sow_attention"):
+        out[f"a3/{name}/map"] = lm.performer.attns[0].fast_attention.attention.detach().cpu().numpy()
+    shard_sequence(lm, None)
+    return out
+
+
 def seq_mlm_worker(argv) -> int:
     """Phase 20 (a)'s process: ``coordinator world rank out_dir``. ``world``
     2: one of two gloo ranks on ``{'data': 1, 'seq': 2}`` (``train_mlm``
     pads the 16,907 tokens to 16,908 with a -1 column); 0: the one-process
-    reference on the padded corpus. Saves the losses, the first step's
-    gradients, the final weights and FAVOR's three counts (set to 0 just
-    before ``train_mlm``, read just after) in ``out_dir/result_<tag>.npz``.
-    A gloo refusal of a CUDA collective raises, and fails the phase."""
+    reference on the padded corpus. (a) ``train_mlm`` with ReLU features,
+    (a2) the same with softmax features, (a3) one step of each ``SEQ_OPS``
+    LM. Saves the losses, the first step's gradients, the final weights,
+    FAVOR's three counts and the token-mixing collectives (each set to 0
+    just before its run, read just after) and (a3)'s logits, gradients and
+    sow map in ``out_dir/result_<tag>.npz``. A gloo refusal of a CUDA
+    collective raises, and fails the phase."""
     import torch
     import torch.distributed as dist
 
@@ -5436,21 +5500,32 @@ def seq_mlm_worker(argv) -> int:
     dev = torch.device("cuda", 0)
     if world:
         initialize_multihost(coord, world, rank, backend="gloo", device=dev, timeout=300)
-    lm, state, tokens, grads = _seq_lm(torch, tl, models, dev)
-    if not world:
-        tokens = np.concatenate([tokens, np.full((len(tokens), 1), -1, tokens.dtype)], axis=1)
-    favor_cuda.launches = favor_cuda.accumulate_launches = favor_cuda.apply_launches = 0
-    collectives.reset_counts()
-    _, _, losses = tl.train_mlm(lm, {"train": tokens}, mask_id=6, num_epochs=SEQ_MLM_STEPS,
-                                batch_size=PRETRAIN_BATCH, state=state, redraw_every=1,
-                                verbose=False, device=dev,
-                                mesh_shape={"data": 1, "seq": world} if world else None)
-    torch.cuda.synchronize()
-    counts = {"fused": favor_cuda.launches, "accumulate": favor_cuda.accumulate_launches,
-              "apply": favor_cuda.apply_launches, "seq_sums": collectives.COUNTS["favor_seq"]}
-    weights = {f"w/{k}": v.detach().cpu().numpy() for k, v in lm.state_dict().items()}
-    np.savez(os.path.join(out_dir, f"result_{tag}.npz"), losses=np.asarray(losses),
-             **{f"count/{k}": v for k, v in counts.items()}, **grads, **weights)
+    result = {}
+    for prefix, softmax in (("", False), ("sm/", True)):
+        lm, state, tokens, grads = _seq_lm(torch, tl, models, dev, softmax=softmax)
+        if not world:
+            tokens = np.concatenate([tokens, np.full((len(tokens), 1), -1, tokens.dtype)],
+                                    axis=1)
+        favor_cuda.launches = favor_cuda.accumulate_launches = favor_cuda.apply_launches = 0
+        collectives.reset_counts()
+        _, _, losses = tl.train_mlm(lm, {"train": tokens}, mask_id=6,
+                                    num_epochs=SEQ_MLM_STEPS, batch_size=PRETRAIN_BATCH,
+                                    state=state, redraw_every=1, verbose=False, device=dev,
+                                    mesh_shape={"data": 1, "seq": world} if world else None)
+        torch.cuda.synchronize()
+        counts = {"fused": favor_cuda.launches, "accumulate": favor_cuda.accumulate_launches,
+                  "apply": favor_cuda.apply_launches,
+                  "seq_sums": collectives.COUNTS["favor_seq"],
+                  "token_mix": collectives.COUNTS["token_mix"]}
+        result.update({f"{prefix}losses": np.asarray(losses),
+                       **{f"{prefix}count/{k}": v for k, v in counts.items()},
+                       **{prefix + k: v for k, v in grads.items()},
+                       **{f"{prefix}w/{k}": v.detach().cpu().numpy()
+                          for k, v in lm.state_dict().items()}})
+        del lm, state
+    for name, kw, n in SEQ_OPS:
+        result.update(_seq_ops_step(torch, models, collectives, name, kw, n, world, rank, dev))
+    np.savez(os.path.join(out_dir, f"result_{tag}.npz"), **result)
     if world:
         dist.destroy_process_group()
     return 0
@@ -5462,7 +5537,8 @@ def phase_seq_ranks(torch, card, tmp) -> dict:
     log(f"== phase 20 (a): train_mlm on {{'data': 1, 'seq': {SEQ_WORLD}}} (2 gloo ranks "
         f"sharing the card) against one process: PerformerLM at scBERT's widths, depth "
         f"{SEQ_MLM_DEPTH}, {PRETRAIN_BATCH} rows x {MM_VOCAB + 1} tokens (padded to "
-        f"{MM_VOCAB + 2}), {SEQ_MLM_STEPS} steps")
+        f"{MM_VOCAB + 2}), {SEQ_MLM_STEPS} steps, ReLU (a) then softmax features (a2); "
+        f"(a3) one step of each of {[name for name, _, _ in SEQ_OPS]}")
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()           # the workers share the card
@@ -5490,38 +5566,85 @@ def phase_seq_ranks(torch, card, tmp) -> dict:
                              + "\n".join(o[-3000:] for o in outs))
     ref, r0, r1 = (dict(np.load(os.path.join(out_dir, f"result_{t}.npz")))
                    for t in ("ref", "r0", "r1"))
-    if sorted(r0) != sorted(r1) or any(not np.array_equal(r0[k], r1[k]) for k in r0
-                                       if k.startswith(("w/", "losses"))):
-        raise AssertionError("(a) the two ranks' weights or losses differ")
     per_step = SEQ_MLM_DEPTH * SEQ_MLM_STEPS
-    counts = {t: {k.split("/")[1]: int(r[k]) for k in r if k.startswith("count/")}
-              for t, r in (("ref", ref), ("r0", r0), ("r1", r1))}
-    want = {"ref": {"fused": per_step, "accumulate": 0, "apply": 0, "seq_sums": 0},
-            "r0": {"fused": 0, "accumulate": per_step, "apply": per_step,
-                   "seq_sums": per_step}}
-    want["r1"] = want["r0"]
-    if counts != want:
-        raise AssertionError(f"(a) FAVOR counts {counts}, want {want} (one launch of each "
-                             "half and one (ctx, ksum) sum a layer a step on a rank; the "
-                             "fused entry alone in one process)")
-    loss_rel = float(np.max(np.abs(r0["losses"] / ref["losses"] - 1)))
-    grad_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith("grad0/")])
-    projs = [k for k in ref if k.endswith("fast_attention.projection")]
-    same_proj = len(projs) == SEQ_MLM_DEPTH and all(np.array_equal(r0[k], ref[k])
-                                                    for k in projs)
-    w_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith("w/")
-                                      and k not in projs])
-    log(f"(a) losses {np.round(ref['losses'], 5).tolist()} (one process); 2 ranks: losses "
-        f"within {loss_rel:.2e} relative, step-1 gradients within {grad_rel:.2e} of each "
-        f"tensor's largest, final weights within {w_rel:.2e} of each tensor's largest, "
-        f"projections after the redraws equal: {same_proj}; the ranks bit-equal; FAVOR "
-        f"counts {json.dumps(counts)}; {time.perf_counter() - t0:.1f} s [{card}]")
-    if loss_rel > 1e-5 or grad_rel > 1e-3 or not same_proj:
-        raise AssertionError("(a) the 2-rank seq steps left the single-process ones")
-    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "weights_rel": w_rel,
-            "launches": {"favor_accumulate": SEQ_WORLD * per_step,
-                         "favor_apply": SEQ_WORLD * per_step},
-            "s": time.perf_counter() - t0}
+    relu = {"fused": 0, "accumulate": per_step, "apply": per_step, "seq_sums": per_step,
+            "token_mix": 0}
+    # softmax features: no FAVOR kernel (JAX has none for them); a key-maximum
+    # gather and a (ctx, ksum) sum a layer a forward
+    softmax = {"fused": 0, "accumulate": 0, "apply": 0, "seq_sums": per_step,
+               "token_mix": per_step}
+    out = {"launches": {"favor_accumulate": SEQ_WORLD * per_step,
+                        "favor_apply": SEQ_WORLD * per_step}}
+    for part, prefix, want_rank, want_ref in (
+            ("a", "", relu, {**relu, "fused": per_step, "accumulate": 0, "apply": 0,
+                             "seq_sums": 0}),
+            ("a2", "sm/", softmax, {k: 0 for k in softmax})):
+        if any(not np.array_equal(r0[k], r1[k]) for k in r0
+               if k.startswith((prefix + "w/", prefix + "losses"))):
+            raise AssertionError(f"({part}) the two ranks' weights or losses differ")
+        counts = {t: {k.split("/")[-1]: int(r[k]) for k in r
+                      if k.startswith(prefix + "count/")}
+                  for t, r in (("ref", ref), ("r0", r0), ("r1", r1))}
+        want = {"ref": want_ref, "r0": want_rank, "r1": want_rank}
+        if counts != want:
+            raise AssertionError(f"({part}) FAVOR and token-mixing counts {counts}, want "
+                                 f"{want} (per layer a step on a rank: (a) one launch of "
+                                 "each half and one (ctx, ksum) sum; (a2) one key-maximum "
+                                 "gather and one sum; the fused entry alone in one process)")
+        loss_rel = float(np.max(np.abs(r0[prefix + "losses"] / ref[prefix + "losses"] - 1)))
+        grad_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith(prefix + "grad0/")])
+        projs = [k for k in ref if k.startswith(prefix + "w/")
+                 and k.endswith("fast_attention.projection")]
+        same_proj = len(projs) == SEQ_MLM_DEPTH and all(np.array_equal(r0[k], ref[k])
+                                                        for k in projs)
+        w_rel = _rel_to_largest(r0, ref, [k for k in ref if k.startswith(prefix + "w/")
+                                          and k not in projs])
+        log(f"({part}) {'softmax' if prefix else 'ReLU'} features: losses "
+            f"{np.round(ref[prefix + 'losses'], 5).tolist()} (one process); 2 ranks: losses "
+            f"within {loss_rel:.2e} relative, step-1 gradients within {grad_rel:.2e} of each "
+            f"tensor's largest, final weights within {w_rel:.2e} of each tensor's largest, "
+            f"projections after the redraws equal: {same_proj}; the ranks bit-equal; "
+            f"counts {json.dumps(counts)} [{card}]")
+        if loss_rel > 1e-5 or grad_rel > 1e-3 or not same_proj:
+            raise AssertionError(f"({part}) the 2-rank seq steps left the single-process ones")
+        out[part] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "weights_rel": w_rel}
+    # (a3): each LM's logits and sow map joined over the ranks' columns
+    for name, _, n in SEQ_OPS:
+        key = f"a3/{name}/"
+        got = np.concatenate([r0[key + "out"], r1[key + "out"]], axis=1)
+        want = ref[key + "out"]
+        out_worst = float((np.abs(got - want) / (FAVOR_ATOL + FAVOR_RTOL * np.abs(want))).max())
+        grads = [k for k in ref if k.startswith(key + "grad/")]
+        grad_rel = _rel_to_largest(r0, ref, grads)
+        same_grads = all(np.array_equal(r0[k], r1[k]) for k in grads)
+        map_worst = 0.0
+        if key + "map" in ref:
+            got_map = np.concatenate([r0[key + "map"], r1[key + "map"]], axis=1)
+            map_worst = float((np.abs(got_map - ref[key + "map"])
+                               / (FAVOR_ATOL + FAVOR_RTOL * np.abs(ref[key + "map"]))).max())
+        counts = {t: {c: int(r[f"{key}count/{c}"]) for c in ("fused", "accumulate", "apply")}
+                  for t, r in (("ref", ref), ("r0", r0), ("r1", r1))}
+        sow = key + "map" in ref
+        want_counts = {"ref": {"fused": int(sow), "accumulate": 0, "apply": 0},
+                       "r0": {"fused": 0, "accumulate": int(sow), "apply": int(sow)}}
+        want_counts["r1"] = want_counts["r0"]
+        log(f"(a3) {name} ({SEQ_OPS_ROWS} rows x {n} tokens, depth 1): 2 ranks' logits within "
+            f"{out_worst:.3g} x FAVOR's elementwise tolerance of one process's, gradients "
+            f"within {grad_rel:.2e} of each tensor's largest (the ranks' equal: "
+            f"{same_grads}){f', the joined sow map within {map_worst:.3g} x' if sow else ''}; "
+            f"FAVOR counts {json.dumps(counts)} [{card}]")
+        if out_worst > 1.0 or grad_rel > 1e-3 or map_worst > 1.0 or not same_grads:
+            raise AssertionError(f"(a3) {name} on 2 ranks left the single-process step")
+        if counts != want_counts:
+            raise AssertionError(f"(a3) {name}: FAVOR counts {counts}, want {want_counts}")
+        out[f"a3_{name}"] = {"out_worst": out_worst, "grad_rel": grad_rel,
+                             "map_worst": map_worst}
+    out["launches_seq_sow"] = {
+        f"favor_{c}": int(r0[f"a3/sow/count/{c}"]) + int(r1[f"a3/sow/count/{c}"])
+        for c in ("accumulate", "apply")}
+    out["s"] = time.perf_counter() - t0
+    log(f"(a)-(a3) {out['s']:.1f} s [{card}]")
+    return out
 
 
 def phase_favor_split(torch, favor_cuda, dev) -> dict:
@@ -6646,6 +6769,10 @@ def main() -> int:
     by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
     # phase 23 (c)'s path: register of slide E through ZSTD and BROTLI positions
     by_name["gather_patches"]["launches_parquet_register"] = parquet_res["launches"]
+    # phase 20 (a3)'s sow route: each rank's step, its counts set to 0 just
+    # before it and read just after
+    for name in ("favor_accumulate", "favor_apply"):
+        by_name[name]["launches_seq_sow"] = seq["launches_seq_sow"][name]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

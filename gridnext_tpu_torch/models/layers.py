@@ -156,7 +156,9 @@ class Dropout(nn.Module):
     resumed run draws the masks of an uninterrupted one; on a mesh a rank
     takes its rows of the global batch's mask, and on a ``seq`` axis the
     columns of its tokens
-    (:func:`~gridnext_tpu_torch.parallel.collectives.draw_rows`).
+    (:func:`~gridnext_tpu_torch.parallel.collectives.draw_rows`; ``span``
+    ``(dim, total, start)``: ``x`` holds the part from ``start`` of an axis
+    of ``total``, and the mask is one process's part there).
     """
 
     def __init__(self, rate: float = 0.0):
@@ -164,7 +166,7 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, span: Optional[tuple] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
@@ -174,7 +176,7 @@ class Dropout(nn.Module):
         mask = collectives.draw_rows(
             lambda shape: torch.empty(shape, device=x.device).bernoulli_(
                 keep, generator=self.generator), x.shape,
-            token_dim=1 if x.dim() >= 3 else None)
+            token_dim=1 if x.dim() >= 3 else None, span=span)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

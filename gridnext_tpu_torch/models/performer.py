@@ -27,13 +27,28 @@ GELU here is the exact (erf) one; both are set explicitly.
 Sequence parallelism (the ``seq`` mesh axis): :func:`shard_sequence` gives
 the modules a :class:`~gridnext_tpu_torch.parallel.collectives.TokenShard`
 (this rank's columns of the token axis and the group of ranks holding the
-rest). FAVOR then sums its ctx and ksum over the group between its
-accumulate and apply halves, on the kernel and the plain route alike, and
-the positional embeddings and rotary angles take the rank's positions. The
-token-mixing operations the port does not shard raise a ``ValueError``
-under a shard: local heads, the causal scan, softmax features,
-``no_projection`` and ``sow_attention`` (JAX's partitioner runs them;
-``ROADMAP.md`` Queue 3).
+rest), and every token-mixing operation computes what one process computes
+on the whole sequence, through all-reduce SUMs over the group
+(:mod:`~gridnext_tpu_torch.parallel.collectives`):
+
+* FAVOR sums its ctx and ksum over the group between its accumulate and
+  apply halves, on the kernel and the plain route alike (one all-reduce);
+* softmax features first gather each rank's ``(B, H)`` key maximum and
+  take the largest (the gradient reaches the rank that holds it);
+* the causal scan gathers every rank's (ctx, ksum) totals and starts from
+  the sum of the lower ranks';
+* ``no_projection`` takes its softmax over tokens across the group (the
+  maximum gathered, the sum all-reduced); its causal key side subtracts
+  the maximum of the whole global tensor, over the group that spans the
+  global batch's rows too (``collectives.batch_norm_group``) where a
+  trainer sets one;
+* the local heads gather their keys, values and key mask over the group
+  and compute only the query blocks of the rank's tokens, with global
+  rotary positions and one process's attention-dropout mask;
+* ``sow_attention`` gathers the key features: :attr:`FastAttention.
+  attention` holds the rank's query rows over every key;
+
+and the positional embeddings and rotary angles take the rank's positions.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gridnext_tpu_torch.models.layers import Dropout
+from gridnext_tpu_torch.parallel import collectives
 from gridnext_tpu_torch.ops.favor import (causal_linear_attention,
                                           generalized_kernel_features,
                                           implicit_attention_weights, linear_apply,
@@ -68,16 +84,12 @@ def _is_relu(fn: Callable) -> bool:
     return fn is torch.relu or fn is F.relu
 
 
-def _unsharded(what: str):
-    return ValueError(f"{what} mixes tokens across the 'seq' mesh axis, which the port "
-                      "does not shard; train it without a 'seq' axis")
-
-
 def shard_sequence(model: nn.Module, shard) -> None:
     """Give every module of ``model`` that reads it the token shard
     ``shard`` (a :class:`~gridnext_tpu_torch.parallel.collectives.TokenShard`,
-    or None for a whole sequence): FAVOR then sums ctx and ksum over
-    ``shard.group``. The trainers set it around a sequence-parallel run."""
+    or None for a whole sequence): every token-mixing operation then
+    reduces over ``shard.group`` (the module docstring says how). The
+    trainers set it around a sequence-parallel run."""
     for m in model.modules():
         if hasattr(type(m), "seq_shard"):
             m.seq_shard = shard
@@ -93,7 +105,16 @@ class FastAttention(nn.Module):
     :func:`~gridnext_tpu_torch.ops.favor.orthogonal_gaussian_matrix`).
     ``dtype`` is a storage hint only, as in the JAX module: the feature
     maps stay float32. ``seq_shard`` (set by :func:`shard_sequence`): the
-    rows of each sequence are split over its group's ranks.
+    rows of each sequence are split over its group's ranks, and each
+    reduction over them spans the group: (ctx, ksum) are summed (one
+    all-reduce; ``favor_seq``); softmax features gather each rank's
+    ``(B, H)`` key maximum; the causal scan gathers each rank's (ctx,
+    ksum) totals and starts from the lower ranks' sum; ``no_projection``
+    gathers the keys' maximum over tokens and sums their exponentials
+    (causal: the maximum of the whole tensor, over the trainers' batch
+    group where one is set); ``sow_attention`` gathers the key features,
+    and :attr:`attention` holds ``(B, n_local, N)``, this rank's query
+    rows over every key (each ``token_mix``).
     """
 
     seq_shard = None
@@ -117,49 +138,61 @@ class FastAttention(nn.Module):
             self.register_buffer("projection",
                                  orthogonal_gaussian_matrix(nb, dim_head, ortho_scaling))
 
-    def _features(self, q, k):
+    def _features(self, q, k, group):
+        """(query, key) feature maps; ``group``: the ranks holding the
+        sequence's other rows, or None."""
         if self.no_projection:
-            kf = torch.exp(k - k.max()) if self.causal else torch.softmax(k, dim=-2)
-            return torch.softmax(q, dim=-1), kf
+            qf = torch.softmax(q, dim=-1)
+            if self.causal:
+                # jnp.max(k) in the JAX module: every row and token of the global tensor
+                wide = collectives.batch_norm_group()
+                wide = group if wide is None else wide
+                top = k.max() if wide is None else collectives.rank_max(k.max(), wide)
+                return qf, torch.exp(k - top)
+            if group is None:
+                return qf, torch.softmax(k, dim=-2)
+            # the softmax over tokens across the group; its maximum only stabilises
+            top = collectives.rank_max(k.detach().amax(dim=-2, keepdim=True), group)
+            e = torch.exp(k - top)
+            return qf, e / collectives.token_sum(e.sum(dim=-2, keepdim=True), group)
         proj = self.projection
         if self.generalized_attention:
             return (generalized_kernel_features(q, proj, self.kernel_fn),
                     generalized_kernel_features(k, proj, self.kernel_fn))
+        key_max = None if group is None else (lambda m: collectives.rank_max(m, group))
         return (softmax_kernel_features(q, proj, is_query=True),
-                softmax_kernel_features(k, proj, is_query=False))
+                softmax_kernel_features(k, proj, is_query=False, key_max=key_max))
 
-    def _sharded(self, q, k, v):
-        """The attention of a sequence whose other rows lie on the ranks of
-        ``seq_shard.group``."""
-        for what, bad in (("the causal scan", self.causal),
-                          ("no_projection's softmax over keys", self.no_projection),
-                          ("softmax FAVOR features (their key maximum)",
-                           not self.generalized_attention),
-                          ("sow_attention's attention weights", self.sow_attention)):
-            if bad:
-                raise _unsharded(what)
-        group = self.seq_shard.group
-        if _is_relu(self.kernel_fn) and q.device.type == "cuda":
-            return fused_generalized_linear_attention(q, k, v, self.projection,
-                                                      seq_group=group)
-        qf, kf = self._features(q, k)
-        return linear_apply(qf, *seq_sum(*linear_context(kf, v), group))
+    def _kernel(self, q, k, v, group):
+        # a whole sequence keeps the wrapper's four-argument call, which
+        # callers may swap for the plain version
+        if group is None:
+            return fused_generalized_linear_attention(q, k, v, self.projection)
+        return fused_generalized_linear_attention(q, k, v, self.projection, seq_group=group)
 
     def forward(self, q, k, v):
-        if self.seq_shard is not None:
-            return self._sharded(q, k, v)
+        shard = self.seq_shard
+        group = None if shard is None else shard.group
         kernel = (not self.causal and not self.no_projection and self.generalized_attention
                   and _is_relu(self.kernel_fn) and q.device.type == "cuda")
         if kernel and not self.sow_attention:
-            return fused_generalized_linear_attention(q, k, v, self.projection)
-        qf, kf = self._features(q, k)
+            return self._kernel(q, k, v, group)
+        qf, kf = self._features(q, k, group)
         if self.sow_attention and not self.causal:
-            self.attention = implicit_attention_weights(qf, kf).abs().mean(dim=-3)
+            keys = kf if shard is None else collectives.gather_tokens(kf.detach(), -2, shard)
+            self.attention = implicit_attention_weights(qf, keys).abs().mean(dim=-3)
         if kernel:
-            return fused_generalized_linear_attention(q, k, v, self.projection)
-        if self.causal:
-            return causal_linear_attention(qf, kf, v)
-        return linear_attention(qf, kf, v)
+            return self._kernel(q, k, v, group)
+        if shard is None:
+            return (causal_linear_attention if self.causal else linear_attention)(qf, kf, v)
+        ctx, ksum = linear_context(kf, v)
+        if not self.causal:
+            return linear_apply(qf, *seq_sum(ctx, ksum, group))
+        # the scan starts from the totals of the tokens on the lower ranks
+        flat = collectives.lower_ranks_sum(torch.cat([ctx.reshape(-1), ksum.reshape(-1)]),
+                                           group)
+        init = flat[:ctx.numel()].view(ctx.shape), flat[ctx.numel():].view(ksum.shape)
+        return causal_linear_attention(qf, kf, v, init=init)
 
 
 # -- rotary embeddings -----------------------------------------------------------
@@ -178,11 +211,14 @@ def _rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+def _rotary_half(t, freqs):
+    return t * freqs.cos() + _rotate_half(t) * freqs.sin()
+
+
 def apply_rotary_pos_emb(q, k, freqs):
     """Half-rotation rotary on q and k ``(..., N, d)`` with angles ``freqs``
     ``(N, d)`` (the local heads' convention)."""
-    cos, sin = freqs.cos(), freqs.sin()
-    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+    return _rotary_half(q, freqs), _rotary_half(k, freqs)
 
 
 def interleaved_rotary_angles(n: int, dim: int, dtype=torch.float32, device=None,
@@ -210,9 +246,9 @@ def apply_rotary_interleaved(q, k, angles):
 
 
 def local_block_attention(q, k, v, window: int, causal: bool = False, mask=None,
-                          rel_pos: bool = False,
-                          attn_dropout: Optional[Callable] = None) -> torch.Tensor:
-    """Blockwise local softmax attention over ``(B, H, N, d)`` q/k/v.
+                          rel_pos: bool = False, attn_dropout: Optional[Dropout] = None,
+                          q_start: int = 0) -> torch.Tensor:
+    """Blockwise local softmax attention over ``(B, H, N, d)`` k/v.
 
     The sequence is padded to whole blocks of ``window``; each block attends
     to itself and the block before it (and after it, unless ``causal``).
@@ -221,46 +257,57 @@ def local_block_attention(q, k, v, window: int, causal: bool = False, mask=None,
     beyond either end and (causal) later positions are masked too, and a
     query whose keys are all masked gets zeros. ``attn_dropout`` acts on
     the softmax weights.
+
+    ``q`` ``(B, H, n, d)`` holds the queries at positions ``q_start`` ..
+    ``q_start + n - 1`` (by default all N): only the blocks that hold them
+    are computed, and ``attn_dropout`` takes these blocks of one process's
+    mask (a rank's tokens on a ``seq`` axis, k and v gathered).
     """
-    b, h, n, d = q.shape
+    b, h, nq, d = q.shape
+    n = k.shape[2]
     pad = (-n) % window
+    nb = (n + pad) // window
     if mask is not None:
         mask = mask.to(torch.bool)
         if pad:
             mask = F.pad(mask, (0, pad))
     if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        k, v = (F.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    g0, g1 = q_start // window, -(-(q_start + nq) // window)   # the query blocks
+    lead = q_start - g0 * window
+    q = F.pad(q, (0, 0, lead, g1 * window - q_start - nq))
     if rel_pos:
-        q, k = apply_rotary_pos_emb(q, k, sinusoidal_rotary_freqs(q.shape[2], d, q.dtype,
-                                                                  q.device))
-    nb = q.shape[2] // window
-    qb, kb, vb = (t.reshape(b, h, nb, window, d) for t in (q, k, v))
+        freqs = sinusoidal_rotary_freqs(nb * window, d, q.dtype, q.device)
+        q, k = _rotary_half(q, freqs[g0 * window:g1 * window]), _rotary_half(k, freqs)
+    dev = q.device
+    blk = torch.arange(g0, g1, device=dev)
+    qb = q.reshape(b, h, g1 - g0, window, d)
+    kb, vb = (t.reshape(b, h, nb, window, d) for t in (k, v))
     offs = [-1, 0] + ([] if causal else [1])
-    kcat = torch.cat([torch.roll(kb, -o, dims=2) for o in offs], dim=3)
-    vcat = torch.cat([torch.roll(vb, -o, dims=2) for o in offs], dim=3)
+    near = [(blk + o).clamp(0, nb - 1) for o in offs]      # blocks beyond either end: masked
+    kcat = torch.cat([kb[:, :, i] for i in near], dim=3)
+    vcat = torch.cat([vb[:, :, i] for i in near], dim=3)
     scores = torch.einsum("bhgnd,bhgmd->bhgnm", qb, kcat) / math.sqrt(d)
 
-    dev = q.device
-    blk = torch.arange(nb, device=dev)
     within = torch.arange(window, device=dev)
-    seq_pos = blk[:, None] * window + within[None, :]                     # (nb, w)
-    valid = torch.cat([((blk + o >= 0) & (blk + o < nb))[:, None].expand(nb, window)
-                       for o in offs], dim=1)                              # (nb, k w)
+    seq_pos = blk[:, None] * window + within[None, :]                     # (G, w)
+    valid = torch.cat([((blk + o >= 0) & (blk + o < nb))[:, None].expand(len(blk), window)
+                       for o in offs], dim=1)                              # (G, k w)
     col_pos = torch.cat([(blk + o)[:, None] * window + within[None, :] for o in offs], dim=1)
     m = valid[None, None, :, None, :] & (col_pos < n)[None, None, :, None, :]
     if causal:
         m = m & (col_pos[None, None, :, None, :] <= seq_pos[None, None, :, :, None])
     if mask is not None:
-        key_mask = mask[:, col_pos.clamp(0, mask.shape[1] - 1)]            # (B, nb, k w)
+        key_mask = mask[:, col_pos.clamp(0, mask.shape[1] - 1)]            # (B, G, k w)
         m = m & key_mask[:, None, :, None, :]
     m = m.expand(scores.shape)
     scores = scores.masked_fill(~m, torch.finfo(scores.dtype).min)
     attn = torch.softmax(scores, dim=-1)
     attn = torch.where(m.any(dim=-1, keepdim=True), attn, torch.zeros_like(attn))
     if attn_dropout is not None:
-        attn = attn_dropout(attn)
-    out = torch.einsum("bhgnm,bhgmd->bhgnd", attn, vcat).reshape(b, h, nb * window, d)
-    return out[:, :, :n]
+        attn = attn_dropout(attn, span=(2, nb, g0))
+    out = torch.einsum("bhgnm,bhgmd->bhgnd", attn, vcat).reshape(b, h, -1, d)
+    return out[:, :, lead:lead + nq]
 
 
 class SelfAttention(nn.Module):
@@ -302,28 +349,36 @@ class SelfAttention(nn.Module):
     def forward(self, x, mask=None):
         b, n, _ = x.shape
         gh = self.heads - self.local_heads
+        shard = self.seq_shard
 
         def heads(t):   # (B, N, H dh) -> (B, H, N, dh), a view
             return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
         q, k, v = heads(self.to_q(x)), heads(self.to_k(x)), heads(self.to_v(x))
         outs = []
-        if self.local_heads > 0 and self.seq_shard is not None:
-            raise _unsharded("local attention heads (their windows)")
         if gh > 0:
             qg, kg, vg = q[:, :gh], k[:, :gh], v[:, :gh]
             if mask is not None:
                 vg = vg * mask[:, None, :, None].to(vg.dtype)
             if self.rotary:
-                offset = 0 if self.seq_shard is None else self.seq_shard.start
                 qg, kg = apply_rotary_interleaved(
                     qg, kg, interleaved_rotary_angles(n, self.dim_head, device=x.device,
-                                                      offset=offset))
+                                                      offset=0 if shard is None else
+                                                      shard.start))
             outs.append(self.fast_attention(qg, kg, vg))
         if self.local_heads > 0:
+            kl, vl, key_mask, start = k[:, gh:], v[:, gh:], mask, 0
+            if shard is not None:
+                # every rank's keys, values and key mask; this rank's queries
+                kv = collectives.gather_tokens(torch.cat([kl, vl], dim=1), 2, shard)
+                kl, vl = kv.split(self.local_heads, dim=1)
+                if mask is not None:
+                    key_mask = collectives.gather_tokens(mask.float(), 1, shard) > 0
+                start = shard.start
             outs.append(local_block_attention(
-                q[:, gh:], k[:, gh:], v[:, gh:], self.local_window_size, causal=self.causal,
-                mask=mask, rel_pos=self.local_rel_pos, attn_dropout=self.local_attn_drop))
+                q[:, gh:], kl, vl, self.local_window_size, causal=self.causal,
+                mask=key_mask, rel_pos=self.local_rel_pos, attn_dropout=self.local_attn_drop,
+                q_start=start))
         out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         return self.dropout(self.to_out(out.to(x.dtype)))

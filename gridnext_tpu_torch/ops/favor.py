@@ -7,6 +7,8 @@ attention weights, all accumulated in float32. Shapes are ``(..., heads,
 seq, dim)`` throughout. The ReLU-feature composition that the CUDA kernel
 fuses is :func:`gridnext_tpu_torch.ops.favor_cuda.favor_attention_plain`;
 the causal scan has no kernel (XLA in the JAX package, plain torch here).
+The hooks ``key_max`` and ``init`` let a sequence split over ranks (the
+``seq`` mesh axis, ``models/performer.py``) compute what one process does.
 """
 
 from __future__ import annotations
@@ -49,11 +51,15 @@ def orthogonal_gaussian_matrix(nb_rows: int, nb_columns: int, scaling: int = 0,
 
 def softmax_kernel_features(data: torch.Tensor, projection: torch.Tensor,
                             is_query: bool, normalize_data: bool = True,
-                            eps: float = 1e-4) -> torch.Tensor:
+                            eps: float = 1e-4,
+                            key_max: Optional[Callable] = None) -> torch.Tensor:
     """Positive random features phi(x) approximating the softmax kernel.
 
     Queries subtract a per-row max, keys a max over each (batch, head)
-    slice, for numerical stability (as the JAX package does).
+    slice, for numerical stability (as the JAX package does). ``key_max``
+    takes the keys' local ``(..., 1, 1)`` max to the max over a sequence
+    whose other rows lie elsewhere (a ``seq`` axis); it is differentiated,
+    as the JAX package's max is.
     """
     data_normalizer = data.shape[-1] ** -0.25 if normalize_data else 1.0
     ratio = projection.shape[0] ** -0.5
@@ -63,6 +69,8 @@ def softmax_kernel_features(data: torch.Tensor, projection: torch.Tensor,
         stab = data_dash.amax(dim=-1, keepdim=True)
     else:
         stab = data_dash.amax(dim=(-2, -1), keepdim=True)
+        if key_max is not None:
+            stab = key_max(stab)
     return ratio * (torch.exp(data_dash - diag_data - stab) + eps)
 
 
@@ -115,7 +123,8 @@ def implicit_attention_weights(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tens
 
 
 def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            chunk_size: int = 128, eps: float = 1e-6) -> torch.Tensor:
+                            chunk_size: int = 128, eps: float = 1e-6,
+                            init: Optional[tuple] = None) -> torch.Tensor:
     """Causal linear attention as a chunked prefix scan.
 
     The sequence is zero-padded to whole chunks of ``chunk_size``; within a
@@ -123,7 +132,9 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     running context ``sum k v^T`` and key sum of the chunks before it are
     carried in float32. ``out_n = (q_n . sum_{m<=n} k_m v_m^T) / (q_n .
     sum_{m<=n} k_m + eps)``. q, k: ``(..., n, r)`` feature maps; v:
-    ``(..., n, d)``. O(n) memory.
+    ``(..., n, d)``. O(n) memory. ``init``: the carry ``(context (..., r,
+    d), k_sum (..., r))`` of the rows before ``q``'s first (the lower
+    ranks' :func:`linear_context` totals on a ``seq`` axis), else zeros.
     """
     q, k, v = q.float(), k.float(), v.float()
     n = q.shape[-2]
@@ -137,8 +148,11 @@ def causal_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qc, kc, vc = chunked(q), chunked(k), chunked(v)
     tri = torch.tril(torch.ones((chunk_size, chunk_size), dtype=torch.bool, device=q.device))
-    ctx = q.new_zeros(q.shape[:-2] + (q.shape[-1], v.shape[-1]))
-    ksum = q.new_zeros(q.shape[:-2] + (q.shape[-1],))
+    if init is None:
+        ctx = q.new_zeros(q.shape[:-2] + (q.shape[-1], v.shape[-1]))
+        ksum = q.new_zeros(q.shape[:-2] + (q.shape[-1],))
+    else:
+        ctx, ksum = (t.float() for t in init)
     outs = []
     for c in range(n_chunks):
         qi, ki, vi = qc[..., c, :, :], kc[..., c, :, :], vc[..., c, :, :]

@@ -8,7 +8,14 @@ Only ``all_reduce`` and ``broadcast`` are used, the two collectives every
   share (the BatchNorm statistics of the global batch, the gathered
   features of the ``spot`` axis);
 * :func:`gather_rows` gathers a group's slices of one axis as the
-  all-reduce of a zero-padded buffer (differentiable through it);
+  all-reduce of a zero-padded buffer (differentiable through it), and
+  :func:`gather_span` slices of any widths placed by their start;
+* :func:`rank_stack`, :func:`rank_max` and :func:`lower_ranks_sum` give
+  every rank of a group each rank's tensor, their elementwise MAX and the
+  SUM of the lower ranks' (one gather each; a MAX as the ``amax`` of a
+  gathered SUM, so its gradient reaches the rank that holds the maximum);
+  :func:`gather_tokens` and :func:`token_sum` gather a sharded token axis
+  and sum over it;
 * :func:`all_reduce_grads` sums a list of gradients in one call a dtype;
 * :func:`any_rank` is a MAX over the host group of a flag (the SIGTERM
   stop flag the trainers check at each batch);
@@ -17,9 +24,13 @@ Only ``all_reduce`` and ``broadcast`` are used, the two collectives every
 :data:`COUNTS` counts every collective launched, by name (set them to 0
 with :func:`reset_counts`): ``all_reduce`` and ``broadcast`` count every
 call, ``grads`` the gradient all-reduces among them, ``stop_flag`` the
-host flags and ``favor_seq`` FAVOR's forward sums of (ctx, ksum) over a
-``seq`` group (``ops/favor_cuda.seq_sum``; its backward's sums count as
-``all_reduce`` only).
+host flags, ``favor_seq`` FAVOR's forward sums of (ctx, ksum) over a
+``seq`` group (``ops/favor_cuda.seq_sum``) and ``token_mix`` the forward
+collectives of the other token-mixing operations of a sharded sequence
+(``models/performer.py``: softmax features' key maximum, the causal scan's
+lower-rank totals, ``no_projection``'s maximum and sum over tokens, the
+local heads' keys, values and key mask, ``sow_attention``'s key features);
+the backward's sums of both count as ``all_reduce`` only.
 
 :func:`sharded` is the context the trainers set around a step on a mesh:
 the group over which train-mode ``BatchNorm`` reduces its statistics
@@ -41,7 +52,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_reduce": 0, "broadcast": 0, "grads": 0, "stop_flag": 0, "favor_seq": 0}
+COUNTS = {"all_reduce": 0, "broadcast": 0, "grads": 0, "stop_flag": 0, "favor_seq": 0,
+          "token_mix": 0}
 
 
 def reset_counts() -> None:
@@ -79,19 +91,68 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     return all_reduce_(t.clone(), group)
 
 
+def gather_span(local: torch.Tensor, dim: int, start: int, total: int,
+                group) -> torch.Tensor:
+    """The ``total``-long axis ``dim`` of which each rank of ``group`` holds
+    a slice (this rank's from ``start``): the all-reduce of a buffer zero
+    outside each rank's slice. Differentiable: each slice takes the SUM
+    over ranks of its gradient."""
+    before = list(local.shape)
+    before[dim] = start
+    after = list(local.shape)
+    after[dim] = total - start - local.shape[dim]
+    full = torch.cat([local.new_zeros(before), local, local.new_zeros(after)], dim=dim)
+    return all_reduce(full, group)
+
+
 def gather_rows(local: torch.Tensor, dim: int, index: int, count: int,
                 group) -> torch.Tensor:
     """Concatenate ``count`` ranks' equal slices along ``dim`` (this rank's
-    is slice ``index``): the all-reduce of a buffer zero outside each
-    rank's slice. Differentiable: each slice takes the SUM over ranks of
-    its gradient."""
+    is slice ``index``): :func:`gather_span`."""
     n = local.shape[dim]
-    before = list(local.shape)
-    before[dim] = index * n
-    after = list(local.shape)
-    after[dim] = (count - index - 1) * n
-    full = torch.cat([local.new_zeros(before), local, local.new_zeros(after)], dim=dim)
-    return all_reduce(full, group)
+    return gather_span(local, dim, index * n, count * n, group)
+
+
+def gather_tokens(local: torch.Tensor, dim: int, shard) -> torch.Tensor:
+    """The whole token axis ``dim`` of which ``local`` holds the columns of
+    ``shard`` (a :class:`TokenShard`): :func:`gather_span` over its group,
+    counted as ``token_mix``."""
+    if group_size(shard.group) == 1:
+        return local
+    COUNTS["token_mix"] += 1
+    return gather_span(local, dim % local.dim(), shard.start, shard.total, shard.group)
+
+
+def token_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce` of a sum over a sequence's tokens, counted as
+    ``token_mix``."""
+    COUNTS["token_mix"] += 1
+    return all_reduce(t, group)
+
+
+def rank_stack(t: torch.Tensor, group) -> torch.Tensor:
+    """``(count, *t.shape)``: every rank's ``t``, in the group's rank order
+    (one gather, counted as ``token_mix``; differentiable)."""
+    count = group_size(group)
+    if count == 1:
+        return t[None]
+    COUNTS["token_mix"] += 1
+    return gather_rows(t[None], 0, dist.get_rank(group), count, group)
+
+
+def rank_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise MAX of ``t`` over ``group``: the ``amax`` of
+    :func:`rank_stack`, so its gradient reaches the rank (and element) that
+    holds the maximum, split between ties as ``amax`` splits it."""
+    return rank_stack(t, group).amax(dim=0)
+
+
+def lower_ranks_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The SUM of ``t`` over the ranks of ``group`` below this one (zeros on
+    the first): a sequence's totals before this rank's tokens, the group's
+    ranks holding the tokens in rank order."""
+    stack = rank_stack(t, group)
+    return stack[:dist.get_rank(group)].sum(0) if len(stack) > 1 else torch.zeros_like(t)
 
 
 def all_reduce_grads(params: Sequence[torch.Tensor], group=None) -> None:
@@ -163,7 +224,8 @@ class RowShard:
 @dataclasses.dataclass(frozen=True)
 class TokenShard:
     """This rank's columns ``[start, stop)`` of a token axis of ``total``,
-    the other columns held by the ranks of ``group`` (a ``seq`` axis)."""
+    the other columns held by the ranks of ``group`` (a ``seq`` axis), in
+    the group's rank order."""
     group: object
     start: int
     stop: int
@@ -207,19 +269,26 @@ def spot_shard() -> Optional[SpotShard]:
     return _CONTEXT.spot
 
 
-def draw_rows(draw: Callable, shape, token_dim: Optional[int] = None) -> torch.Tensor:
+def draw_rows(draw: Callable, shape, token_dim: Optional[int] = None,
+              span: Optional[tuple] = None) -> torch.Tensor:
     """``draw(shape)``, or, inside :func:`sharded` with ``rows`` whose
     count is ``shape[0]``, this rank's rows of ``draw`` over the global
     batch (the same generator state gives one process's draw). With
     ``token_dim`` (the dim of ``shape`` that is a token axis) and
     ``tokens`` in the context whose count is ``shape[token_dim]``, the draw
-    covers the global token axis too and this rank takes its columns."""
+    covers the global token axis too and this rank takes its columns.
+    ``span`` ``(dim, total, start)`` says it outright: ``shape[dim]`` is
+    the part from ``start`` of an axis of ``total`` (the local heads'
+    query blocks), and the token context is not read."""
     rows, tokens = _CONTEXT.rows, _CONTEXT.tokens
     shape = list(shape)
     index = [slice(None)] * len(shape)
     if rows is not None and shape and shape[0] == rows.stop - rows.start:
         shape[0], index[0] = rows.total, slice(rows.start, rows.stop)
-    if (tokens is not None and token_dim is not None and len(shape) > token_dim
+    if span is not None:
+        dim, total, start = span
+        shape[dim], index[dim] = total, slice(start, start + shape[dim])
+    elif (tokens is not None and token_dim is not None and len(shape) > token_dim
             and shape[token_dim] == tokens.stop - tokens.start):
         shape[token_dim] = tokens.total
         index[token_dim] = slice(tokens.start, tokens.stop)

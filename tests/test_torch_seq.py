@@ -18,11 +18,19 @@ tests do:
   one process's;
 - ``mlm_token_len``, the -1 padding and ``shard_token_batch``'s warning
   against JAX's, for 16,907 and 1,025 tokens over ``seq`` 2, 3 and 4;
-- a small scBERT's forward (ReLU features, 1,024 genes, the zero token on
-  the last rank, the ``AttentionClassifier`` head's fc1 summed over the
-  group) under ``seq`` 2 against JAX's ``model.apply``;
-- the ``ValueError`` of each token-mixing operation the port does not
-  shard.
+- a small scBERT's forward (1,024 genes, the zero token on the last
+  rank, the ``AttentionClassifier`` head's fc1 summed over the group)
+  under ``seq`` 2 against JAX's ``model.apply``, with ReLU features and
+  with JAX's default softmax features;
+- each token-mixing operation (``VARIANTS``: softmax features, with
+  remat, the causal scan with rotary, a local head whose block straddles
+  the ranks with attention dropout, ``no_projection``, causal
+  ``no_projection``, ``sow_attention``) on 2 ranks against one process:
+  the eval forward, one train step's gradients, the sow rows, the
+  collectives a layer;
+- causal ``no_projection`` on 2 ranks of ``data`` against one process
+  (its key maximum spans the global batch);
+- the ``ValueError`` of a token batch that is not the shard's columns.
 """
 
 import faulthandler
@@ -55,6 +63,24 @@ GROUP_TIMEOUT = 60       # seconds a worker's collective waits for the other ran
 MODULE_TIMEOUT = 300     # seconds the whole module may take
 FAVOR_RTOL, FAVOR_ATOL = 2e-4, 2e-5
 N_GENES = 1024           # the scBERT forward's genes (1,025 tokens with the zero token)
+# the token-mixing operations of a PerformerLM (dim 16, depth 2, 2 heads of 8, m 12) over
+# 16 tokens split at 8: with the local window 5, block [5, 10) straddles the ranks
+VARIANTS = {
+    "softmax": {},
+    "softmax_remat": {"remat": True},
+    "causal_rotary": {"causal": True, "rotary": True, "generalized_attention": True},
+    "local_dropout": {"local_attn_heads": 1, "local_window_size": 5, "attn_dropout": 0.1,
+                      "generalized_attention": True},
+    "no_projection": {"no_projection": True},
+    "causal_no_projection": {"causal": True, "no_projection": True},
+    "sow": {"sow_attention": True, "generalized_attention": True},
+}
+# (favor_seq, token_mix) collectives of one eval forward on a rank: a layer each of
+# FAVOR's (ctx, ksum) sum and the key maximum / lower totals / local keys and values /
+# softmax maximum and sum / key features
+VARIANT_COUNTS = {"softmax": (2, 2), "softmax_remat": (2, 2), "causal_rotary": (0, 2),
+                  "local_dropout": (2, 2), "no_projection": (2, 4),
+                  "causal_no_projection": (0, 4), "sow": (2, 2)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -76,12 +102,14 @@ WORKER = r'''
 import json, sys
 import numpy as np, torch
 from gridnext_tpu_torch.compat.from_jax import load_checkpoint, load_variables
+import torch.distributed as dist
 from gridnext_tpu_torch.models import PerformerLM, scBERT
-from gridnext_tpu_torch.models.performer import shard_sequence
+from gridnext_tpu_torch.models.layers import set_dropout_generator
+from gridnext_tpu_torch.models.performer import FastAttention, shard_sequence
 from gridnext_tpu_torch.parallel import collectives, initialize_multihost, shard_token_batch
 from gridnext_tpu_torch.parallel.mesh import token_columns
 from gridnext_tpu_torch.train import loops as tl
-coord, world, rank, timeout, ckpt, n_genes = sys.argv[1:7]
+coord, world, rank, timeout, ckpt, n_genes, ckpt_softmax = sys.argv[1:8]
 world, rank, n_genes = int(world), int(rank), int(n_genes)
 torch.manual_seed(0)
 if world:
@@ -130,22 +158,68 @@ out["mlm"] = {"train": train, "val": val, "grads": steps, "seq_sums": collective
               "shard_after": lm.performer.attns[0].fast_attention.seq_shard is None,
               "after": {k: v.detach().numpy().ravel().tolist()
                         for k, v in lm.state_dict().items()}}
-# a small scBERT forward (JAX's weights) over its gene axis
-sc = scBERT(n_genes=n_genes, dim=32, depth=2, heads=4, n_classes=4,
-            generalized_attention=True)
-payload = load_checkpoint(ckpt)
-load_variables(sc, {"params": payload["params"], **payload["extra_vars"]})
-sc.eval()
-xs = np.random.default_rng(0).integers(0, 6, size=(2, n_genes)).astype(np.float32)
-with torch.no_grad():
+# a small scBERT forward (JAX's weights) over its gene axis: ReLU and softmax features
+for key, path, relu in (("scbert", ckpt, True), ("scbert_softmax", ckpt_softmax, False)):
+    sc = scBERT(n_genes=n_genes, dim=32, depth=2, heads=4, n_classes=4,
+                generalized_attention=relu)
+    payload = load_checkpoint(path)
+    load_variables(sc, {"params": payload["params"], **payload["extra_vars"]})
+    sc.eval()
+    xs = np.random.default_rng(0).integers(0, 6, size=(2, n_genes)).astype(np.float32)
+    with torch.no_grad():
+        if world:
+            cols = token_columns(n_genes, mesh)
+            shard_sequence(sc, collectives.TokenShard(mesh.group("seq"), cols.start,
+                                                      cols.stop, n_genes))
+            local = shard_token_batch(xs, mesh)
+            out[key] = sc(torch.as_tensor(local)).numpy().tolist()
+        else:
+            out[key] = sc(torch.as_tensor(xs)).numpy().tolist()
+# every token-mixing operation: an eval forward and one train step's gradients
+x16 = torch.as_tensor(np.random.default_rng(5).integers(0, 6, size=(4, 16)))
+w16 = torch.as_tensor(np.random.default_rng(4).standard_normal((4, 16, 7)), dtype=torch.float32)
+vshard, cols = None, slice(0, 16)
+if world:
+    cols = token_columns(16, mesh)
+    vshard = collectives.TokenShard(mesh.group("seq"), cols.start, cols.stop, 16)
+out["variants"] = {}
+for name, kw in json.loads(sys.argv[8]).items():
+    torch.manual_seed(10)
+    lm = PerformerLM(num_tokens=7, max_seq_len=16, dim=16, depth=2, heads=2, dim_head=8,
+                     nb_features=12, **kw)
+    res = {}
+    shard_sequence(lm, vshard)
+    collectives.reset_counts()
+    lm.eval()
+    with torch.no_grad():
+        res["forward"] = lm(x16[:, cols]).numpy().tolist()
+    res["counts"] = {k: collectives.COUNTS[k] for k in ("favor_seq", "token_mix")}
+    if kw.get("sow_attention"):
+        res["sow"] = [a.fast_attention.attention.numpy().tolist() for a in lm.performer.attns]
+    lm.train()
+    set_dropout_generator(lm, torch.Generator().manual_seed(7))
+    with collectives.sharded(tokens=vshard):
+        (lm(x16[:, cols]) * w16[:, cols]).sum().backward()
     if world:
-        cols = token_columns(n_genes, mesh)
-        shard_sequence(sc, collectives.TokenShard(mesh.group("seq"), cols.start, cols.stop,
-                                                  n_genes))
-        local = shard_token_batch(xs, mesh)
-        out["scbert"] = sc(torch.as_tensor(local)).numpy().tolist()
-    else:
-        out["scbert"] = sc(torch.as_tensor(xs)).numpy().tolist()
+        collectives.all_reduce_grads(list(lm.parameters()), mesh.group("seq"))
+    res["grads"] = {n: p.grad.numpy().ravel().tolist() for n, p in lm.named_parameters()}
+    shard_sequence(lm, None)
+    out["variants"][name] = res
+# causal no_projection's key maximum over the global batch on a 'data' axis (one
+# rank's rows shifted by +30)
+rng = np.random.default_rng(6)
+q, k, v, g = (torch.as_tensor(rng.standard_normal((4, 2, 16, 8)), dtype=torch.float32)
+              for _ in range(4))
+k[2:] += 30
+rows = slice(2 * rank, 2 * rank + 2) if world else slice(0, 4)
+q, k, v = (t[rows].clone().requires_grad_() for t in (q, k, v))
+fa = FastAttention(8, causal=True, no_projection=True)
+with collectives.sharded(dist.group.WORLD if world else None,
+                         rows=collectives.RowShard(rows.start, rows.stop, 4)):
+    o = fa(q, k, v)
+    (o * g[rows]).sum().backward()
+out["data_causal_np"] = {"out": o.detach().numpy().tolist(),
+                         "grads": [t.grad.numpy().tolist() for t in (q, k, v)]}
 print(json.dumps(out))
 '''
 
@@ -181,13 +255,17 @@ def ranks(tmp_path_factory):
     from gridnext_tpu_torch.models import PerformerLM
 
     root = tmp_path_factory.mktemp("seq")
-    model = JaxScBERT(n_genes=N_GENES, dim=32, depth=2, heads=4, n_classes=4,
-                      generalized_attention=True)
     x = np.random.default_rng(0).integers(0, 6, size=(2, N_GENES)).astype(np.float32)
-    variables = model.init({"params": jax.random.key(0), "favor": jax.random.key(1)},
-                           jnp.asarray(x[:1]))
-    ckpt = str(root / "scbert.msgpack")
-    save_checkpoint(ckpt, jax.tree_util.tree_map(np.asarray, unfreeze(variables)))
+    ckpts, applied = {}, {}
+    for relu in (True, False):          # ReLU features, then JAX's default (softmax)
+        model = JaxScBERT(n_genes=N_GENES, dim=32, depth=2, heads=4, n_classes=4,
+                          generalized_attention=relu)
+        variables = model.init({"params": jax.random.key(0), "favor": jax.random.key(1)},
+                               jnp.asarray(x[:1]))
+        ckpts[relu] = str(root / f"scbert_{'relu' if relu else 'softmax'}.msgpack")
+        save_checkpoint(ckpts[relu], jax.tree_util.tree_map(np.asarray, unfreeze(variables)))
+        applied[relu] = (model, variables)
+    ckpt = ckpts[True]
     torch.manual_seed(3)
     lm = PerformerLM(num_tokens=7, max_seq_len=16, dim=16, depth=2, heads=2, dim_head=8,
                      nb_features=12, generalized_attention=True, emb_dropout=0.1,
@@ -196,11 +274,14 @@ def ranks(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     coord = f"127.0.0.1:{_free_port()}"
     procs = [subprocess.Popen([sys.executable, "-c", WORKER, coord, str(w), str(r),
-                               str(GROUP_TIMEOUT), ckpt, str(N_GENES)], cwd=str(root), env=env,
+                               str(GROUP_TIMEOUT), ckpt, str(N_GENES), ckpts[False],
+                               json.dumps(VARIANTS)], cwd=str(root), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for w, r in ((0, 0), (2, 0), (2, 1))]
     runs = _Ranks(procs)
-    runs.jax_scbert = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
+    runs.jax_scbert, runs.jax_scbert_softmax = (
+        np.asarray(m.apply(v, jnp.asarray(x), train=False))
+        for m, v in (applied[True], applied[False]))
     yield runs
     for p in procs:
         if p.poll() is None:
@@ -301,25 +382,11 @@ def test_draw_rows_takes_the_token_columns():
 
 
 def test_unsharded_operations_raise():
-    from gridnext_tpu_torch.models.performer import (FastAttention, PerformerLM,
-                                                     SelfAttention, shard_sequence)
+    """Every token-mixing operation runs under a shard (the two-rank tests
+    below); what still raises is a token batch that is not the shard's."""
+    from gridnext_tpu_torch.models.performer import PerformerLM, shard_sequence
 
     shard = collectives.TokenShard(None, 0, 4, 8)
-    q = torch.zeros((1, 2, 4, 8))
-    for kw, what in (({"causal": True, "generalized_attention": True}, "causal scan"),
-                     ({"no_projection": True}, "no_projection"),
-                     ({}, "softmax FAVOR features"),
-                     ({"generalized_attention": True, "sow_attention": True},
-                      "sow_attention")):
-        fa = FastAttention(8, 12, **kw)
-        fa.seq_shard = shard
-        with pytest.raises(ValueError, match=what):
-            fa(q, q, q)
-    attn = SelfAttention(16, heads=2, dim_head=8, local_heads=1, local_window_size=4,
-                         generalized_attention=True)
-    shard_sequence(attn, shard)
-    with pytest.raises(ValueError, match="local attention heads"):
-        attn(torch.zeros((1, 4, 16)))
     lm = PerformerLM(num_tokens=7, max_seq_len=8, dim=16, depth=1, heads=2, dim_head=8,
                      generalized_attention=True)
     shard_sequence(lm, shard)
@@ -366,3 +433,51 @@ def test_seq_scbert_forward_matches_jax(ranks):
     assert r0["scbert"] == r1["scbert"]
     np.testing.assert_allclose(np.asarray(r0["scbert"]), want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(np.asarray(one["scbert"]), want, rtol=1e-4, atol=1e-5)
+
+
+def test_seq_scbert_softmax_features_match_jax(ranks):
+    """JAX's scBERT default (softmax features: the key maximum gathered over
+    the group) under ``seq`` 2, as JAX's own
+    ``test_scbert_sequence_parallel_matches_single_device`` runs it."""
+    one, r0, r1 = ranks.result()
+    want = ranks.jax_scbert_softmax
+    assert r0["scbert_softmax"] == r1["scbert_softmax"]
+    np.testing.assert_allclose(np.asarray(r0["scbert_softmax"]), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(one["scbert_softmax"]), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_seq_token_mixing_matches_one_process(ranks, variant):
+    """Each token-mixing operation on 2 ranks of ``seq`` against one process:
+    the eval forward within FAVOR's tolerance, one train step's gradients
+    (dropout drawn as one process draws it) within 1e-3 of each tensor's
+    largest, the sow maps' rows joined, and the collectives a layer."""
+    one, r0, r1 = (r["variants"][variant] for r in ranks.result())
+    got = np.concatenate([np.asarray(r0["forward"]), np.asarray(r1["forward"])], axis=1)
+    np.testing.assert_allclose(got, np.asarray(one["forward"]), rtol=FAVOR_RTOL,
+                               atol=FAVOR_ATOL)
+    for k, g in one["grads"].items():
+        g = np.asarray(g)
+        assert r0["grads"][k] == r1["grads"][k], k
+        np.testing.assert_allclose(r0["grads"][k], g, rtol=0, atol=1e-3 * np.abs(g).max(),
+                                   err_msg=k)
+    if "sow" in one:
+        for a, b, want in zip(r0["sow"], r1["sow"], one["sow"]):
+            np.testing.assert_allclose(np.concatenate([a, b], axis=1), want,
+                                       rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
+    for r in (r0, r1):
+        assert (r["counts"]["favor_seq"], r["counts"]["token_mix"]) == VARIANT_COUNTS[variant]
+    assert one["counts"] == {"favor_seq": 0, "token_mix": 0}
+
+
+def test_data_axis_causal_no_projection_matches_one_process(ranks):
+    """Causal ``no_projection`` subtracts ``jnp.max(k)`` of the global
+    tensor: on 2 ranks of ``data`` (one rank's keys 30 higher) the maximum
+    spans both ranks' rows, so each rank's rows equal one process's."""
+    one, r0, r1 = (r["data_causal_np"] for r in ranks.result())
+    got = np.concatenate([np.asarray(r0["out"]), np.asarray(r1["out"])], axis=0)
+    np.testing.assert_allclose(got, np.asarray(one["out"]), rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
+    for a, b, want in zip(r0["grads"], r1["grads"], one["grads"]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(np.concatenate([a, b], axis=0), want, rtol=0,
+                                   atol=1e-3 * np.abs(want).max())

@@ -301,8 +301,10 @@ def small_cohort(tmp_path_factory):
 def test_unported_training_flags_exit(small_cohort, tmp_path, cmd, item):
     """A ``seq`` mesh axis (Queue 1 ``item``, sequence-parallel MLM) runs:
     the command on 2 gloo ranks ``--mesh data=1,seq=2`` against one
-    process. ``pretrain-scbert`` shards its 60 tokens over ``seq`` (FAVOR
-    sums over the group): its losses within 1e-3 and the LM's weights within
+    process. ``pretrain-scbert --softmax-features`` shards its 60 tokens
+    over ``seq`` (the keys' maximum gathered and FAVOR's sums over the
+    group; ReLU features: ``test_torch_seq.py``): its losses within 1e-3
+    and the LM's weights within
     Adam's sign-step bound (2 lr a step, ROADMAP Queue 3 item 5) of one
     process's. ``train-mm`` shards its spot batches over every axis and its
     grid batches over ``data`` (the ``seq`` ranks hold copies), as JAX's
@@ -318,7 +320,7 @@ def test_unported_training_flags_exit(small_cohort, tmp_path, cmd, item):
         argv = [cmd, "--spaceranger", *c["dirs"], "--device", "cpu", "--epochs", "1",
                 "--batch-size", "8", "--scbert-vocab", "59", "--scbert-dim", "16",
                 "--scbert-depth", "1", "--scbert-heads", "2", "--scbert-dim-head", "8",
-                "--scbert-features", "8", "--redraw-every", "0"]
+                "--scbert-features", "8", "--redraw-every", "0", "--softmax-features"]
     two, rank1, *one = _two_ranks(argv, tmp_path, one=cmd != "train-mm")
     assert "[mesh {'data': 1, 'seq': 2}]" in two and "Loss" not in rank1
     assert not (tmp_path / "two_r1").exists() or not any((tmp_path / "two_r1").iterdir())
