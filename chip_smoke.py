@@ -442,7 +442,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     directory on both, the gather's and the labels corrector's counts set
     to 0 just before each and read just after (one launch each), the
     labels equal, with 0 flips, to the registrar's on the same pixels;
-25. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+25. the last inputs the port once refused where the JAX package
+    computes, (a)-(c) right after phase 24 in phase 10's directory and (d)
+    right after phase 23 in phase 12's: (a) every arithmetic-coded,
+    lossless and damaged JPEG fixture and every CIELab TIFF fixture
+    bit-equal to Pillow's recorded pixels on 1 thread and on all, each
+    JPEG Pillow refuses raising, every null / INT96 / FIXED_LEN_BYTE_ARRAY
+    parquet fixture equal to pandas' values; (b) slide 0 at full width as
+    phase 21's baseline JPEG rewritten arithmetic-coded by the
+    transcoder (equal to the baseline file's pixels) and as an 8-bit
+    CIELab TIFF (equal to the port's conversion of its samples), each
+    decoded on 1 thread and on all (MP/s); (c) ``register`` of phase 10's
+    model directory on both, one gather and one labels-corrector launch
+    each, the labels equal (0 flips) to the registrar's; (d) ``register``
+    of slide E through its positions rewritten as OPTIONAL columns over v1
+    and v2 pages beside nulls, INT96 and FIXED_LEN_BYTE_ARRAY columns, one
+    gather launch, labels equal to phase 12's;
+26. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
@@ -451,9 +467,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``launches_torch_checkpoint``, phase 20 (b)'s and (c)'s, and
     ``launches_jpeg_register``, phase 21 (c)'s, and
     ``launches_tiff_register``, phase 22 (c)'s, and
-    ``launches_slide_formats_register``, phase 24 (c)'s; the gather's row
-    ``launches_prepare_images``, phase 21 (b)'s, and
-    ``launches_parquet_register``, phase 23 (c)'s; the rows of
+    ``launches_slide_formats_register``, phase 24 (c)'s, and
+    ``launches_last_inputs_register``, phase 25 (c)'s; the gather's row
+    ``launches_prepare_images``, phase 21 (b)'s,
+    ``launches_parquet_register``, phase 23 (c)'s, and
+    ``launches_optional_positions_register``, phase 25 (d)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
     phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
     true, "device": {...}}``.
@@ -469,6 +487,7 @@ import csv
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2576,9 +2595,10 @@ def parquet_pages(pqt, path) -> list:
 
 
 def same_table(got: dict, want: dict) -> bool:
-    return list(got) == list(want) and all(
-        got[c] == v if isinstance(v, list) else
-        (got[c].dtype == v.dtype and np.array_equal(got[c], v)) for c, v in want.items())
+    """Column for column equal (``make_parquet_fixtures.same_column``: a
+    NaN, NaT or missing value equal to its like)."""
+    same = tool_module("make_parquet_fixtures").same_column
+    return list(got) == list(want) and all(same(got[c], v) for c, v in want.items())
 
 
 def phase_parquet(torch, port, card, tmp, hd) -> dict:
@@ -6565,6 +6585,248 @@ def phase_slide_formats(torch, slides, port, card, tmp, image, jpeg_slide) -> di
     return {"launches": launches, "s": seconds, "rates": rates}
 
 
+# -- phase 25: the last inputs the port refused -----------------------------------
+
+LAB_ROWS_PER_STRIP = 16       # (b)'s Lab TIFF: 16-row strips of 8-bit samples
+
+
+def phase_last_inputs(torch, slides, port, card, tmp, image, jpeg_slide) -> dict:
+    """Phase 25 (a)-(c): the inputs the port once refused where the JAX
+    package computes. (a) every arithmetic-coded (SOF9, SOF10, DAC),
+    lossless (SOF3) and damaged JPEG fixture and every CIELab TIFF fixture
+    decodes bit-equal to Pillow's recorded pixels on 1 thread and on all;
+    each file Pillow refuses (truncated, SOF11, SOF13, lossless YCbCr,
+    12-bit) raises; every null, INT96 and FIXED_LEN_BYTE_ARRAY parquet
+    fixture reads equal to pandas' values. (b) slide 0 at full width two
+    ways: phase 21's baseline JPEG rewritten arithmetic-coded (SOF9, a
+    restart marker every MCU row) by the coefficient-level transcoder,
+    which must decode equal to the baseline file, and slide 0 as an 8-bit
+    CIELab TIFF (``make_tiff_fixtures.rgb_to_lab``, Deflate strips), which
+    must decode equal to the port's conversion of the same samples; each
+    decoded on 1 thread and on all (MP/s). (c) ``register`` (the command)
+    of phase 10's model directory on both, the gather's and the labels
+    corrector's counts set to 0 just before each and read just after (one
+    launch each), the labels equal, with 0 flips, to the registrar's on the
+    decoded pixels. Returns (c)'s launches, (b)'s rates and the phase's
+    seconds."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gridnext_tpu_torch import cli
+    from gridnext_tpu_torch.io import jpeg, pillow_modes, tiff
+    from gridnext_tpu_torch.io import parquet as pqt
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    log("== phase 25: arithmetic and lossless JPEGs, Lab TIFFs, parquet nulls, INT96 and "
+        "FLBA (no PIL, no pandas)")
+    dev = slides.device
+    t_phase = time.perf_counter()
+    threads = os.cpu_count()
+    jt, tt = tool_module("make_jpeg_fixtures"), tool_module("make_tiff_fixtures")
+    pt = tool_module("make_parquet_fixtures")
+
+    # (a) the committed fixtures
+    groups = {"arith_": 0, "lossless_": 0, "cut_": 0, "garbled_": 0}
+    for name, f in jt.load().items():
+        group = next((g for g in groups if name.startswith(g)), None)
+        if group is None:
+            continue
+        groups[group] += 1
+        if not all(np.array_equal(jpeg.decode_jpeg(f["jpeg"], n_threads=n), f["decoded"])
+                   for n in (1, 0)):
+            raise AssertionError(f"(a) JPEG fixture {name} ({f['subsampling']}) decodes to "
+                                 "other pixels than Pillow's")
+    refused = jt.load_refused()
+    for name, (data, pattern) in refused.items():
+        try:
+            jpeg.decode_jpeg(data)
+        except ValueError as e:
+            if not re.search(pattern, str(e)):
+                raise AssertionError(f"(a) {name} raised {e!r}, not {pattern!r}") from None
+        else:
+            raise AssertionError(f"(a) {name} decoded; Pillow refuses it")
+    labs = {n: f for n, f in tt.load().items() if n.startswith("lab_")}
+    for name, f in labs.items():
+        if not all(np.array_equal(tiff.decode_tiff(f["data"], n_threads=n), f["decoded"])
+                   for n in (1, 0)):
+            raise AssertionError(f"(a) TIFF fixture {name} ({f['what']}) decodes to other "
+                                 "pixels than Pillow's")
+    with open(os.path.join(PARQUET_FIXTURES, "cases.json")) as fh:
+        names = [n for n in json.load(fh) if n.startswith(("nulls_", "int96_", "positions_"))]
+    for name in names:
+        got = pqt.read_parquet(os.path.join(PARQUET_FIXTURES, f"{name}.parquet"))
+        with np.load(os.path.join(PARQUET_FIXTURES, f"{name}.npz")) as npz:
+            if not same_table(got, pt.expected_columns(npz)):
+                raise AssertionError(f"(a) parquet fixture {name} reads other values than "
+                                     "pandas")
+    log(f"(a) JPEG fixtures bit-equal to Pillow's on 1 and {threads} threads: "
+        f"{json.dumps(groups)} (arithmetic SOF9/SOF10 with DAC, restarts, gray, CMYK; "
+        f"lossless predictors 1-7, Pt 0/1; cut and overwritten data); {len(refused)} files "
+        f"Pillow refuses raised ({', '.join(sorted(refused))}); {len(labs)} CIELab TIFFs "
+        f"equal to Pillow's LittleCMS conversion; {len(names)} parquet fixtures with nulls, "
+        f"INT96, FLBA and DECIMAL equal to pandas' values")
+
+    # (b) slide 0 at full width: an arithmetic-coded JPEG and a Lab TIFF
+    wsi = slides[0].cpu().numpy()
+    h, w = wsi.shape[:2]
+    mp = h * w / 1e6
+    root = os.path.join(tmp, "last_inputs")
+    srd, mask = write_spaceranger_dir(root, geometry, TISSUE_FRACTIONS[0], 0)
+    with open(jpeg_slide, "rb") as fh:
+        base = fh.read()
+    info = jpeg.jpeg_info(base)
+    t0 = time.perf_counter()
+    arith = jt.transcode(base, 0, restart=-(-info["width"] // 16), arith=True)
+    write_s = {"arith": time.perf_counter() - t0}
+    if jpeg.jpeg_info(arith)["sof"] != "arithmetic sequential":
+        raise AssertionError("(b) the transcoded slide is not arithmetic-coded")
+    paths = {"arith": os.path.join(root, "slide0_arith.jpg"),
+             "lab": os.path.join(root, "slide0_lab.tif")}
+    with open(paths["arith"], "wb") as fh:
+        fh.write(arith)
+    sizes = {"arith": len(arith)}
+    del arith
+    wants = {"arith": jpeg.decode_jpeg(base)}
+    del base
+    t0 = time.perf_counter()
+    bands = range(0, h, 512)
+    with ThreadPoolExecutor(threads) as pool:
+        lab = np.concatenate(list(pool.map(lambda y: tt.rgb_to_lab(wsi[y:y + 512]), bands)))
+        strips = list(pool.map(
+            lambda y: zlib.compress(lab[y:y + LAB_ROWS_PER_STRIP].tobytes(),
+                                    RASTER_ZLIB_LEVEL), range(0, h, LAB_ROWS_PER_STRIP)))
+    data = tiff_file(wsi.shape, strips, compression=8, photometric=8,
+                     rows_per_strip=LAB_ROWS_PER_STRIP)
+    del strips, wsi
+    with open(paths["lab"], "wb") as fh:
+        fh.write(data)
+    sizes["lab"], write_s["lab"] = len(data), time.perf_counter() - t0
+    del data
+    wants["lab"] = pillow_modes.lab_to_rgb(lab)
+    del lab
+    rates = {}
+    for kind, path in paths.items():
+        runs = {}
+        for n_threads in (1, 0):
+            t0 = time.perf_counter()
+            got = (jpeg.decode_jpeg(path, n_threads=n_threads) if kind == "arith"
+                   else tiff.decode_tiff(path, n_threads=n_threads))
+            runs[n_threads or threads] = time.perf_counter() - t0
+            if not np.array_equal(got, wants[kind]):
+                source = "its baseline file" if kind == "arith" else "the Lab samples' conversion"
+                raise AssertionError(f"(b) the {kind} slide decodes to other pixels than "
+                                     f"{source} ({n_threads or threads} threads)")
+            del got
+        rates[kind] = {"file_mb": round(sizes[kind] / 1e6, 1),
+                       "write_s": round(write_s[kind], 3),
+                       **{f"decode_s_{n}": round(v, 4) for n, v in runs.items()},
+                       **{f"mp_per_s_{n}": round(mp / v, 1) for n, v in runs.items()}}
+        log(f"(b) {kind}: {sizes[kind] / 1e6:.1f} MB "
+            f"{'transcoded' if kind == 'arith' else 'written'} in {write_s[kind]:.2f} s; "
+            "decode " + ", ".join(f"{v:.3f} s on {n} thread{'s' if n > 1 else ''} "
+                                  f"({mp / v:.1f} MP/s)" for n, v in runs.items())
+            + "; equal to " + ("the baseline file's pixels" if kind == "arith"
+                               else "the conversion of its samples") + f" [{card}]")
+
+    # (c) register of both slides through the command
+    pos = io.read_positions(srd)
+    n_spots = int(mask.sum())
+    reg = image["registrar"]
+    launches = {"gather_patches": 0, "fused_hex_corrector_labels": 0}
+    reg_s = {}
+    for kind, path in paths.items():
+        out = os.path.join(root, f"slide0_{kind}.csv")
+        torch.cuda.synchronize()
+        gather.launches = 0
+        for k in corr.launches:
+            corr.launches[k] = 0
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", image["model_dir"], "--images", path,
+                  "--spaceranger", srd, "--out", out, "--device", str(dev)])
+        torch.cuda.synchronize()
+        reg_s[kind] = round(time.perf_counter() - t0, 3)
+        got_launches = {"gather_patches": gather.launches,
+                        "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+        if got_launches != {"gather_patches": 1, "fused_hex_corrector_labels": 1}:
+            raise AssertionError(f"(c) register of the {kind} slide launched {got_launches}")
+        for k, v in got_launches.items():
+            launches[k] += v
+        slide = torch.from_numpy(wants[kind]).to(dev)
+        want = reg(slide, pos)
+        logits, _ = reg.register_logits(slide, pos)
+        del slide
+        got, n_rows = loupe_grid(out, mask.shape, image["classes"])
+        flips = serving.label_parity_report(want, got, logits)
+        if flips or n_rows != n_spots or not np.array_equal(np.asarray(want), got):
+            raise AssertionError(f"(c) register of the {kind} slide: {flips} flips, {n_rows} "
+                                 f"rows for {n_spots} spots")
+        log(f"(c) register of the {kind} slide: {reg_s[kind]:.2f} s with the decode; labels "
+            f"equal to the registrar's on the decoded pixels, 0 flips; launches "
+            f"{json.dumps(got_launches)} [{card}]")
+    wants.clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 25 (a)-(c): {seconds:.1f} s; (b) {json.dumps(rates)}; (c) {json.dumps(reg_s)} "
+        f"s [{card}]")
+    return {"launches": launches, "s": seconds, "rates": rates}
+
+
+def phase_optional_positions(torch, port, card, tmp, hd) -> dict:
+    """Phase 25 (d): ``register`` of phase 12's slide E through its
+    positions rewritten by ``make_parquet_fixtures.write_optional`` (numpy
+    only): OPTIONAL columns over v1 and v2 pages, beside an extra DOUBLE
+    column with nulls, an INT96 and a FIXED_LEN_BYTE_ARRAY column. One
+    gather launch (counts set to 0 just before, read just after) and labels
+    equal to phase 12's. Returns the launches and the seconds."""
+    from gridnext_tpu_torch import cli, ingest
+    from gridnext_tpu_torch.io import parquet as pqt
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    t_phase = time.perf_counter()
+    pt = tool_module("make_parquet_fixtures")
+    table = pqt.read_parquet(io.find_position_file(hd["srd"], HD_BINNING))
+    srd = os.path.join(tmp, "hdE_optional")
+    spatial = os.path.join(srd, "outs", "binned_outputs", HD_BINNING, "spatial")
+    os.makedirs(spatial)
+    path = os.path.join(spatial, "tissue_positions.parquet")
+    t0 = time.perf_counter()
+    pt.write_optional(path, pt.optional_positions(table, seed=SEED), page_rows=20_000)
+    write_s = time.perf_counter() - t0
+    got = pqt.read_parquet(path)
+    if not same_table({c: got[c] for c in table}, table) or \
+            got["acquired"].dtype != np.dtype("datetime64[ns]") or \
+            not np.isnan(got["qc_score"]).any() or not isinstance(got["bin_id"][0], bytes):
+        raise AssertionError("(d) the rewritten positions read other values")
+    classes = [f"Class_{i + 1}" for i in range(N_CLASSES)]
+    out = os.path.join(tmp, "hdE_optional_loupe.csv")
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    try:
+        torch.cuda.synchronize()
+        gather.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["register", "--model", hd["model_dir"], "--images",
+                  os.path.join(tmp, "hdE.npy"), "--spaceranger", srd, "--out", out,
+                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        reg_s = time.perf_counter() - t0
+        n = gather.launches
+    finally:
+        ingest.decode_slide = decode
+    grid, n_rows = hd_grid_from_csv(out, classes)
+    if n != 1 or n_rows != int((hd["labels"] > 0).sum()) or \
+            not np.array_equal(grid, np.asarray(hd["labels"])):
+        raise AssertionError(f"(d) register through the OPTIONAL positions: {n} gather "
+                             f"launches, {n_rows} rows, labels "
+                             f"{int((grid != np.asarray(hd['labels'])).sum())} bins off phase "
+                             "12's")
+    seconds = time.perf_counter() - t_phase
+    log(f"(d) register of slide E through OPTIONAL positions in v1 and v2 pages with nulls, "
+        f"INT96 and FLBA columns ({len(table['barcode'])} rows written in {write_s:.2f} s): "
+        f"{reg_s:.2f} s with the model load; labels equal to phase 12's ({n_rows} bins); "
+        f"gather launches {n}; phase 25 (d): {seconds:.1f} s [{card}]")
+    return {"launches": n, "s": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -6663,12 +6925,15 @@ def main() -> int:
         tiff_res = phase_tiff(torch, slides, port, card, tmp, image_dir)
         formats_res = phase_slide_formats(torch, slides, port, card, tmp, image_dir,
                                           jpeg_res["slide"])
+        last_res = phase_last_inputs(torch, slides, port, card, tmp, image_dir,
+                                     jpeg_res["slide"])
         del image_dir
     with tempfile.TemporaryDirectory() as tmp:   # HD model dirs, parquets, slides, CSVs
         t0 = time.perf_counter()
         hd = phase_hd(torch, port, card, tmp, dev)
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
         parquet_res = phase_parquet(torch, port, card, tmp, hd)
+        optional_res = phase_optional_positions(torch, port, card, tmp, hd)
         t18.append(phase_export_dense(torch, port, card, tmp, hd, served))
         del hd
     with tempfile.TemporaryDirectory() as tmp:   # Spaceranger dirs, caches, model dirs
@@ -6765,10 +7030,14 @@ def main() -> int:
             k["launches_tiff_register"] = tiff_res["launches"][k["name"]]
             # phase 24 (c)'s path: register on the progressive JPEG and the 16-bit TIFF
             k["launches_slide_formats_register"] = formats_res["launches"][k["name"]]
+            # phase 25 (c)'s path: register on the arithmetic JPEG and the Lab TIFF
+            k["launches_last_inputs_register"] = last_res["launches"][k["name"]]
     # phase 21 (b)'s path: prepare --images, one launch an array
     by_name["gather_patches"]["launches_prepare_images"] = jpeg_res["launches"]["prepare_images"]
     # phase 23 (c)'s path: register of slide E through ZSTD and BROTLI positions
     by_name["gather_patches"]["launches_parquet_register"] = parquet_res["launches"]
+    # phase 25 (d)'s path: register of slide E through OPTIONAL positions
+    by_name["gather_patches"]["launches_optional_positions_register"] = optional_res["launches"]
     # phase 20 (a3)'s sow route: each rank's step, its counts set to 0 just
     # before it and read just after
     for name in ("favor_accumulate", "favor_apply"):

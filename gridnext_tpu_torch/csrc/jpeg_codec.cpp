@@ -13,17 +13,26 @@
 //
 // Decoder: SOF0, SOF1 (8-bit Huffman sequential) and SOF2 (progressive
 // Huffman: DC and AC first and refinement scans, spectral selection and
-// successive approximation in any order a scan script allows, EOB runs),
+// successive approximation in any order a scan script allows, EOB runs);
+// SOF9 and SOF10, the same coefficients arithmetic-coded (ITU T.81 Annex D's
+// QM decoder, the statistics areas and DAC conditioning of Annexes F and G,
+// as libjpeg's jdarith.c decodes them); SOF3, lossless (Annex H: predictors
+// 1-7, point transforms, restarts, as libjpeg-turbo 3's jdlossls.c);
 // 1, 3 or 4 components, every integral sampling factor of 1 to 4 per axis,
 // interleaved or one scan a component, DRI and restart markers, the ``islow``
-// inverse DCT with libjpeg's range limit, libjpeg-turbo's upsamplers (fancy
-// h2v1 and h2v2 where the component is wider than 2 samples, fancy h1v2,
-// replication for every other factor) and fixed-point YCbCr -> RGB and
-// YCCK -> CMYK. A progressive file whose scans leave any of the first nine
-// AC coefficients of a component unsent or unrefined is smoothed between
-// blocks at output as libjpeg-turbo 2.1+ does (jdcoefct.c,
-// decompress_smooth_data). Anything else (arithmetic, lossless, 12-bit,
-// hierarchical) is refused with a message.
+// inverse DCT as libjpeg-turbo's SIMD code computes it, libjpeg-turbo's
+// upsamplers (fancy h2v1 and h2v2 where the component is wider than 2
+// samples, fancy h1v2, replication for every other factor) and fixed-point
+// YCbCr -> RGB and YCCK -> CMYK. A progressive file whose scans leave any of
+// the first nine AC coefficients of a component unsent or unrefined is
+// smoothed between blocks at output as libjpeg-turbo 2.1+ does (jdcoefct.c,
+// decompress_smooth_data). Damaged data decodes as libjpeg decodes it: a
+// Huffman segment that ends at a marker gives zeros to the end of its
+// restart interval, an arithmetic one reads zero bytes, a bad code reads as
+// symbol 0. Refused with a message: what Pillow refuses (12-bit samples,
+// SOF11, hierarchical files (SOF5-7, SOF13-15), lossless with a colour
+// transform, a file that ends inside its data) and lossless files with
+// subsampled components.
 //
 // Plain C interface for ctypes; every entry returns 0 on success or writes a
 // message into ``err``. Threads: a slide decodes its entropy data on one
@@ -183,118 +192,75 @@ void fdct_islow(jl* d) {
   }
 }
 
-// libjpeg's post-IDCT range limit: index (x & 1023), x centred on 0.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int x = i < 512 ? i : i - 1024;
-      t[i] = static_cast<uint8_t>(std::min(255, std::max(0, x + 128)));
-    }
-  }
-};
-const RangeLimit kRange;
+// Dequantise and inverse-transform one block into 8 rows of ``out``, as
+// libjpeg-turbo's SIMD ``islow`` IDCT (jidctint-sse2/-avx2, what Pillow runs
+// on x86-64) computes it: the products coefficient * quantiser and the sums
+// in0 + in4, in0 - in4, in7 + in3 and in5 + in1 in 16-bit lanes (wrapping),
+// the rotations in 32-bit lanes, each pass's outputs saturated to 16 bits,
+// the samples to -128..127. Inside 16 bits (every well-formed file) this is
+// jidctint.c's arithmetic exactly; a corrupt file's extreme coefficients
+// wrap and saturate as Pillow's do.
+inline int16_t wrap16(int64_t v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+inline int32_t wrap32(int64_t v) { return static_cast<int32_t>(static_cast<uint32_t>(v)); }
+inline int16_t sat16(int64_t v) {
+  return static_cast<int16_t>(v < -32768 ? -32768 : (v > 32767 ? 32767 : v));
+}
 
-// Dequantise and inverse-transform one block into 8 rows of ``out``.
+// One 1-D pass over d[0..7] (stride ``step``), outputs (x + 2^(n-1)) >> n
+// saturated to 16 bits.
+inline void idct_1d(const int16_t* d, int step, int n, int16_t* o, int ostep) {
+  const jl z2 = d[2 * step], z3 = d[6 * step];
+  const jl tmp2 = z2 * FIX_0_541196100 + z3 * (FIX_0_541196100 - FIX_1_847759065);
+  const jl tmp3 = z2 * (FIX_0_541196100 + FIX_0_765366865) + z3 * FIX_0_541196100;
+  const jl tmp0 = jl(wrap16(jl(d[0]) + d[4 * step])) * (1 << kConstBits);
+  const jl tmp1 = jl(wrap16(jl(d[0]) - d[4 * step])) * (1 << kConstBits);
+  const jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const jl t0 = d[7 * step], t1 = d[5 * step], t2 = d[3 * step], t3 = d[step];
+  const jl s3 = wrap16(t0 + t2), s4 = wrap16(t1 + t3);
+  const jl z3r = s3 * (FIX_1_175875602 - FIX_1_961570560) + s4 * FIX_1_175875602;
+  const jl z4r = s3 * FIX_1_175875602 + s4 * (FIX_1_175875602 - FIX_0_390180644);
+  const jl o0 = t0 * (FIX_0_298631336 - FIX_0_899976223) + t3 * -FIX_0_899976223 + z3r;
+  const jl o1 = t1 * (FIX_2_053119869 - FIX_2_562915447) + t2 * -FIX_2_562915447 + z4r;
+  const jl o2 = t1 * -FIX_2_562915447 + t2 * (FIX_3_072711026 - FIX_2_562915447) + z3r;
+  const jl o3 = t0 * -FIX_0_899976223 + t3 * (FIX_1_501321110 - FIX_0_899976223) + z4r;
+  const jl half = jl(1) << (n - 1);
+  auto put = [&](int i, jl v) { o[i * ostep] = sat16(wrap32(v + half) >> n); };
+  put(0, tmp10 + o3);
+  put(7, tmp10 - o3);
+  put(1, tmp11 + o2);
+  put(6, tmp11 - o2);
+  put(2, tmp12 + o1);
+  put(5, tmp12 - o1);
+  put(3, tmp13 + o0);
+  put(4, tmp13 - o0);
+}
+
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int64_t stride) {
-  jl ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    jl* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 &&
-        ip[48] == 0 && ip[56] == 0) {
-      jl dc = jl(ip[0] * qp[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
-      continue;
+  int16_t dq[64], ws[64], px[64];
+  bool ac_zero = true;                 // rows 1-7 all zero: DC only, 16-bit shift
+  for (int i = 8; i < 64; ++i) ac_zero &= in[i] == 0;
+  for (int i = 0; i < 64; ++i) dq[i] = wrap16(jl(in[i]) * q[i]);
+  if (ac_zero) {
+    for (int c = 0; c < 8; ++c)
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = wrap16(jl(dq[c]) * (1 << kPass1Bits));
+  } else {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t* d = dq + c;
+      if (d[8] == 0 && d[16] == 0 && d[24] == 0 && d[32] == 0 && d[40] == 0 && d[48] == 0 &&
+          d[56] == 0) {                // what idct_1d gives a column of zero AC
+        const int16_t v = sat16(jl(d[0]) * (1 << kPass1Bits));
+        for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
+      } else {
+        idct_1d(d, 8, kConstBits - kPass1Bits, ws + c, 8);
+      }
     }
-    jl z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    jl z1 = (z2 + z3) * FIX_0_541196100;
-    jl tmp2 = z1 + z3 * -FIX_1_847759065;
-    jl tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    jl tmp0 = (z2 + z3) * (1 << kConstBits);
-    jl tmp1 = (z2 - z3) * (1 << kConstBits);
-    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    jl z4 = tmp1 + tmp3;
-    jl z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = kConstBits - kPass1Bits;
-    wp[0] = descale(tmp10 + tmp3, n);
-    wp[56] = descale(tmp10 - tmp3, n);
-    wp[8] = descale(tmp11 + tmp2, n);
-    wp[48] = descale(tmp11 - tmp2, n);
-    wp[16] = descale(tmp12 + tmp1, n);
-    wp[40] = descale(tmp12 - tmp1, n);
-    wp[24] = descale(tmp13 + tmp0, n);
-    wp[32] = descale(tmp13 - tmp0, n);
   }
-  const int n = kConstBits + kPass1Bits + 3;
-  for (int r = 0; r < 8; ++r) {
-    const jl* wp = ws + 8 * r;
-    uint8_t* op = out + r * stride;
-    jl z2 = wp[2], z3 = wp[6];
-    jl z1 = (z2 + z3) * FIX_0_541196100;
-    jl tmp2 = z1 + z3 * -FIX_1_847759065;
-    jl tmp3 = z1 + z2 * FIX_0_765366865;
-    jl tmp0 = (wp[0] + wp[4]) * (1 << kConstBits);
-    jl tmp1 = (wp[0] - wp[4]) * (1 << kConstBits);
-    jl tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    jl tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    jl z4 = tmp1 + tmp3;
-    jl z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    op[0] = kRange.t[static_cast<int>(descale(tmp10 + tmp3, n)) & 1023];
-    op[7] = kRange.t[static_cast<int>(descale(tmp10 - tmp3, n)) & 1023];
-    op[1] = kRange.t[static_cast<int>(descale(tmp11 + tmp2, n)) & 1023];
-    op[6] = kRange.t[static_cast<int>(descale(tmp11 - tmp2, n)) & 1023];
-    op[2] = kRange.t[static_cast<int>(descale(tmp12 + tmp1, n)) & 1023];
-    op[5] = kRange.t[static_cast<int>(descale(tmp12 - tmp1, n)) & 1023];
-    op[3] = kRange.t[static_cast<int>(descale(tmp13 + tmp0, n)) & 1023];
-    op[4] = kRange.t[static_cast<int>(descale(tmp13 - tmp0, n)) & 1023];
-  }
+  for (int r = 0; r < 8; ++r) idct_1d(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, px + 8 * r, 1);
+  for (int r = 0; r < 8; ++r)
+    for (int c = 0; c < 8; ++c) {
+      const int v = px[8 * r + c];
+      out[r * stride + c] = static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
 }
 
 // ------------------------------------------------------ colour tables --
@@ -426,6 +392,7 @@ struct BitReader {
   int bits = 0;
   int64_t fake = 0;     // zero bytes fed after the segment ended
   bool at_marker = false;
+  bool eof = false;     // the data ended without a marker (a truncated file)
 
   void fill() {
     while (bits <= 56) {
@@ -447,7 +414,7 @@ struct BitReader {
       if (at_marker) {
         ++fake;
       } else if (pos >= size) {
-        at_marker = true;
+        at_marker = eof = true;
         ++fake;
       } else {
         byte = data[pos];
@@ -475,7 +442,9 @@ struct BitReader {
   inline uint32_t show(int n) const {
     return static_cast<uint32_t>(buf >> (bits - n)) & ((1u << n) - 1);
   }
-  // One Huffman symbol; at least 16 bits unread.
+  // One Huffman symbol; at least 17 bits unread. A code that no table
+  // entry matches takes 17 bits and reads as symbol 0, as libjpeg reads it
+  // (jpeg_huff_decode, after its "corrupt JPEG data" warning).
   inline int decode(const HuffDecoder& h) {
     const uint32_t look = show(16);
     int len = h.look_len[look >> (16 - kLookBits)];
@@ -483,15 +452,15 @@ struct BitReader {
       bits -= len;
       return h.look_val[look >> (16 - kLookBits)];
     }
-    len = kLookBits + 1;
-    int32_t code = static_cast<int32_t>(look >> (16 - len));
-    while (code > h.maxcode[len]) {
-      ++len;
-      code = static_cast<int32_t>(look >> (16 - len));
+    for (len = kLookBits + 1; len <= 16; ++len) {
+      const int32_t code = static_cast<int32_t>(look >> (16 - len));
+      if (code <= h.maxcode[len]) {
+        bits -= len;
+        return h.vals[(code + h.valoffset[len]) & 0xFF];
+      }
     }
-    if (len > 16) fail("corrupt JPEG data: bad Huffman code");
-    bits -= len;
-    return h.vals[(code + h.valoffset[len]) & 0xFF];
+    bits -= 17;
+    return 0;
   }
   // s magnitude bits as the coefficient they code; at least s bits unread
   inline int value(int s) {
@@ -507,11 +476,112 @@ struct BitReader {
     bits -= n;
     return v;
   }
-  // Raise if the data consumed ran past the segment's end.
-  void check() const {
-    if (static_cast<int64_t>(bits) < 8 * fake)
-      fail("corrupt JPEG data: premature end of entropy-coded segment");
+  // Whether the data consumed ran past the segment's end (into the zero
+  // bits fed after it). Past a marker libjpeg warns "premature end of data
+  // segment" and decodes the rest of the restart interval as zeros; past
+  // the end of the file it cannot go on, and Pillow raises "image file is
+  // truncated".
+  bool over() const {
+    if (static_cast<int64_t>(bits) >= 8 * fake) return false;
+    if (eof) fail("truncated JPEG: the file ends inside its entropy-coded data");
+    return true;
   }
+};
+
+// ITU-T T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS. Entry 113 is the
+// fixed bin of probability 0.5 (signs and refinement bits).
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
+// The QM decoder of T.81 Annex D as libjpeg's jdarith.c runs it. Reaching a
+// marker is legal in arithmetic coding: zero bytes are read after it.
+struct ArithDecoder {
+  const uint8_t* data;
+  int64_t size;
+  int64_t pos;               // next byte
+  int64_t c = 0, a = 0;      // the C and A registers
+  int ct = -16;              // -16: two bytes to read first; -1: a decoding error (decode no more)
+  int marker = 0;            // the marker that ended the data, 0 none yet
+  int64_t marker_pos = -1;   // its 0xFF
+
+  int next_byte() {
+    if (marker) return 0;
+    if (pos >= size) fail("truncated JPEG: the file ends inside its entropy-coded data");
+    int b = data[pos++];
+    if (b != 0xFF) return b;
+    do {
+      if (pos >= size) fail("truncated JPEG: the file ends inside its entropy-coded data");
+      b = data[pos++];
+    } while (b == 0xFF);
+    if (b == 0) return 0xFF;   // a stuffed zero
+    marker = b;
+    marker_pos = pos - 2;
+    return 0;
+  }
+
+  // One binary decision in context ``st`` (D.2.4-D.2.6), its statistics
+  // bin updated
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {              // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// The statistics areas of an arithmetic-coded scan or restart interval,
+// one a table, cleared at its start
+struct ArithStats {
+  uint8_t dc[16][64];
+  uint8_t ac[16][256];
 };
 
 struct Component {
@@ -525,6 +595,7 @@ struct Component {
   int coef_bits[64];              // progressive: the Al of each zigzag coefficient, -1 unsent
   std::vector<int16_t> coef;      // bh * bw blocks of 64, natural order
   std::vector<uint8_t> plane;     // hib*8 rows of bw*8 samples
+  std::vector<uint8_t> samples;   // lossless: dh rows of dw samples, as the scan left them
 
   int16_t* block(int row, int col) { return &coef[(static_cast<size_t>(row) * bw + col) * 64]; }
   const int16_t* block(int row, int col) const {
@@ -534,12 +605,9 @@ struct Component {
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC3: return "lossless (SOF3)";
     case 0xC5: return "differential sequential (SOF5)";
     case 0xC6: return "differential progressive (SOF6)";
     case 0xC7: return "differential lossless (SOF7)";
-    case 0xC9: return "arithmetic-coded sequential (SOF9)";
-    case 0xCA: return "arithmetic-coded progressive (SOF10)";
     case 0xCB: return "arithmetic-coded lossless (SOF11)";
     case 0xCD: return "arithmetic-coded differential sequential (SOF13)";
     case 0xCE: return "arithmetic-coded differential progressive (SOF14)";
@@ -571,11 +639,13 @@ class Decoder {
 
   // Full decode into ``out`` (height * width * out_components bytes).
   void decode(uint8_t* out, int n_threads) {
+    threads_ = n_threads;
     parse(true);
     for (auto& c : comps_)
       if (!c.scanned) fail("no scan holds component " + std::to_string(c.id));
     const bool smooth = smoothing();
-    // inverse DCT, a block row of a component per task
+    // inverse DCT, a block row of a component per task (lossless: the
+    // scans' samples as they are)
     std::vector<std::pair<int, int>> rows;
     for (int ci = 0; ci < static_cast<int>(comps_.size()); ++ci) {
       comps_[ci].plane.assign(static_cast<size_t>(comps_[ci].hib) * 8 * comps_[ci].bw * 8, 0);
@@ -586,6 +656,11 @@ class Decoder {
       int r = rows[i].second;
       int64_t stride = static_cast<int64_t>(c.bw) * 8;
       uint8_t* o = &c.plane[static_cast<size_t>(r) * 8 * stride];
+      if (lossless_) {
+        for (int y = 8 * r; y < std::min(8 * r + 8, c.dh); ++y)
+          std::memcpy(o + (y - 8 * r) * stride, &c.samples[static_cast<size_t>(y) * c.dw], c.dw);
+        return;
+      }
       if (smooth) {
         smooth_row(c, r, o, stride);
         return;
@@ -652,9 +727,12 @@ class Decoder {
   int64_t pos_ = 0;
   int width_ = 0, height_ = 0, sof_ = -1;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
-  int restart_interval_ = 0, colour_ = -1;
+  int restart_interval_ = 0, colour_ = -1, threads_ = 1;
   bool saw_jfif_ = false, saw_adobe_ = false, transform_ = false, progressive_ = false;
+  bool arith_ = false, lossless_ = false;
   int adobe_transform_ = 0;
+  // arithmetic conditioning (DAC; libjpeg's defaults L 0, U 1, Kx 5)
+  uint8_t dac_l_[16], dac_u_[16], dac_k_[16];
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   HuffDecoder dc_[4], ac_[4];
@@ -672,28 +750,35 @@ class Decoder {
   void parse(bool decode_scans) {
     if (n_ < 4 || d_[0] != 0xFF || d_[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
     pos_ = 2;
+    std::fill(dac_l_, dac_l_ + 16, 0);
+    std::fill(dac_u_, dac_u_ + 16, 1);
+    std::fill(dac_k_, dac_k_ + 16, 5);
     for (;;) {
-      // next marker: skip anything up to 0xFF, then fill bytes
-      while (pos_ < n_ && d_[pos_] != 0xFF) ++pos_;
-      while (pos_ < n_ && d_[pos_] == 0xFF) ++pos_;
-      if (pos_ >= n_) {
+      // next marker (libjpeg's next_marker): skip anything up to 0xFF, then
+      // fill bytes; a stuffed 0xFF 0x00 is data, not a marker
+      int m = 0;
+      while (m == 0 && pos_ < n_) {
+        while (pos_ < n_ && d_[pos_] != 0xFF) ++pos_;
+        while (pos_ < n_ && d_[pos_] == 0xFF) ++pos_;
+        if (pos_ < n_) m = d_[pos_++];
+      }
+      if (m == 0) {
         if (decode_scans || sof_ < 0) fail("truncated JPEG: no EOI marker");
         return;
       }
-      int m = d_[pos_++];
       if (m == 0xD9) {
         if (sof_ < 0) fail("JPEG has no frame header");
         return;
       }
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
         read_sof(m);
         if (!decode_scans) return;
         continue;
       }
       if (const char* name = sof_name(m))
-        fail(std::string("unsupported JPEG: ") + name + "; only baseline, extended "
-             "sequential and progressive Huffman (SOF0, SOF1, SOF2) are decoded");
-      if (m == 0xC8 || m == 0xCC) fail("unsupported JPEG: arithmetic coding (DAC/JPG marker)");
+        fail(std::string("unsupported JPEG: ") + name + "; Huffman (SOF0-SOF3) and "
+             "arithmetic-coded sequential and progressive (SOF9, SOF10) files are decoded");
+      if (m == 0xC8) fail("unsupported JPEG: JPG marker (a reserved frame type)");
       if (m >= 0xD0 && m <= 0xD7) continue;  // a stray RSTn: nothing to skip
       if (m == 0x01) continue;               // TEM
       int64_t len = word();
@@ -701,6 +786,7 @@ class Decoder {
       int64_t end = pos_ + len - 2;
       switch (m) {
         case 0xC4: read_dht(end); break;
+        case 0xCC: read_dac(end); break;
         case 0xDB: read_dqt(end); break;
         case 0xDD:
           if (len != 4) fail("bad DRI marker");
@@ -769,7 +855,11 @@ class Decoder {
       if (blocks > 10) fail("bad JPEG: more than 10 blocks in an MCU");
     }
     sof_ = m - 0xC0;
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m >= 0xC9;
+    lossless_ = m == 0xC3;
+    if (lossless_ && (hmax_ != 1 || vmax_ != 1))
+      fail("unsupported JPEG: lossless with subsampled components");
     mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comps_) {
@@ -791,12 +881,16 @@ class Decoder {
         transform_ = true;
       } else if (saw_adobe_) {
         transform_ = adobe_transform_ != 0;
+      } else if (lossless_) {     // libjpeg-turbo 3 guesses RGB for a lossless file
+        transform_ = false;
       } else {
         transform_ = !(comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B');
       }
     } else if (nc == 4) {
       transform_ = saw_adobe_ && adobe_transform_ != 0;
     }
+    if (lossless_ && transform_)   // libjpeg-turbo 3 converts no lossless colour
+      fail("unsupported JPEG: lossless with a colour transform (YCbCr or YCCK components)");
   }
 
   void read_dqt(int64_t end) {
@@ -826,6 +920,44 @@ class Decoder {
     if (pos_ != end) fail("bad DHT marker length");
   }
 
+  // DAC: the conditioning of arithmetic DC (L, U) and AC (Kx) tables
+  void read_dac(int64_t end) {
+    while (pos_ < end) {
+      const int index = byte(), value = byte();
+      if (index >= 32) fail("bad DAC marker: table " + std::to_string(index));
+      if (index >= 16) {
+        dac_k_[index - 16] = static_cast<uint8_t>(value);
+      } else {
+        dac_l_[index] = static_cast<uint8_t>(value & 15);
+        dac_u_[index] = static_cast<uint8_t>(value >> 4);
+        if (dac_l_[index] > dac_u_[index]) fail("bad DAC marker: L > U");
+      }
+    }
+    if (pos_ != end) fail("bad DAC marker length");
+  }
+
+  // Index of the 0xFF of the first marker at or after p (libjpeg's
+  // next_marker: other bytes and stuffed zeros are skipped)
+  int64_t marker_at(int64_t p) const {
+    for (;;) {
+      while (p < n_ && d_[p] != 0xFF) ++p;
+      int64_t q = p;
+      while (q < n_ && d_[q] == 0xFF) ++q;
+      if (q >= n_) fail("truncated JPEG: the file ends inside its entropy-coded data");
+      if (d_[q] != 0) return q - 1;
+      p = q + 1;
+    }
+  }
+
+  // The restart marker RSTn due at the marker found from p; the data after it
+  int64_t restart_at(int64_t p, int& next_rst) const {
+    p = marker_at(p);
+    if (d_[p + 1] != 0xD0 + next_rst)
+      fail("corrupt JPEG data: missing restart marker RST" + std::to_string(next_rst));
+    next_rst = (next_rst + 1) & 7;
+    return p + 2;
+  }
+
   void read_scan(int64_t header_end) {
     int ns = byte();
     if (ns < 1 || ns > 4 || ns > static_cast<int>(comps_.size())) fail("bad SOS marker");
@@ -839,12 +971,17 @@ class Decoder {
       in_scan[i] = ci;
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3) fail("SOS names a Huffman table past 3");
+      if (!arith_ && (td[i] > 3 || ta[i] > 3)) fail("SOS names a Huffman table past 3");
     }
     const int ss = byte(), se = byte(), ahal = byte();
     const int ah = ahal >> 4, al = ahal & 15;
     if (pos_ != header_end) fail("bad SOS marker length");
-    if (!progressive_) {
+    if (lossless_) {
+      // jdlossls.c: predictor 1-7, Se 0, Ah 0, point transform below the precision
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7)
+        fail("bad lossless scan: predictor " + std::to_string(ss) + ", Se " +
+             std::to_string(se) + ", Ah " + std::to_string(ah) + ", Pt " + std::to_string(al));
+    } else if (!progressive_) {
       if (ss != 0 || se != 63 || ahal != 0) fail("bad SOS parameters for a sequential JPEG");
     } else {
       // jdphuff.c's checks: a DC band is Ss = Se = 0; an AC band one
@@ -856,84 +993,365 @@ class Decoder {
              ", Ah " + std::to_string(ah) + ", Al " + std::to_string(al));
     }
     const bool dc_scan = ss == 0, refine = ah != 0;
-    for (int i = 0; i < ns; ++i) {
+    for (int i = 0; !arith_ && i < ns; ++i) {
       // sequential scans use both tables; progressive DC first scans the
-      // DC table, AC scans the AC table, DC refinements none
+      // DC table, AC scans the AC table, DC refinements none; lossless the DC table
       const bool need_dc = !progressive_ || (dc_scan && !refine);
-      const bool need_ac = !progressive_ || !dc_scan;
+      const bool need_ac = !lossless_ && (!progressive_ || !dc_scan);
       if ((need_dc && !dc_[td[i]].defined) || (need_ac && !ac_[ta[i]].defined))
         fail("SOS uses an undefined Huffman table");
     }
     for (int ci : in_scan) {
       Component& c = comps_[ci];
       if (!progressive_ && c.scanned) fail("component in two scans of a sequential JPEG");
+      c.scanned = true;
+      if (lossless_) continue;
       if (!c.qt_latched) {     // libjpeg latches a table at the component's first scan
         if (!qt_defined_[c.tq]) fail("component uses an undefined quantisation table");
         std::memcpy(c.qt, qt_[c.tq], sizeof(c.qt));
         c.qt_latched = true;
       }
       if (c.coef.empty()) c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
-      c.scanned = true;
       if (progressive_)
         for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
     }
     // MCU layout: interleaved scans use the frame's MCUs, a single
-    // component's scan one block per MCU over its own blocks
+    // component's scan one block per MCU over its own blocks (lossless:
+    // one sample a block)
     int mx = mcux_, my = mcuy_;
-    if (ns == 1) {
+    if (lossless_) {
+      mx = width_;
+      my = height_;
+    } else if (ns == 1) {
       mx = comps_[in_scan[0]].wib;
       my = comps_[in_scan[0]].hib;
     }
+    if (lossless_) {
+      lossless_scan(in_scan, td, ss, al);
+    } else if (arith_) {
+      arith_scan(in_scan, td, ta, ss, se, ah, al, mx, my);
+    } else {
+      huffman_scan(in_scan, td, ta, ss, se, ah, al, mx, my);
+    }
+  }
+
+  // The blocks of one MCU of a scan: fn(scan index, block)
+  template <class F>
+  void mcu_blocks(const std::vector<int>& in_scan, int mx, int64_t mcu, F fn) {
+    const int ns = static_cast<int>(in_scan.size());
+    const int mcu_x = static_cast<int>(mcu % mx), mcu_y = static_cast<int>(mcu / mx);
+    for (int i = 0; i < ns; ++i) {
+      Component& c = comps_[in_scan[i]];
+      const int bh = ns == 1 ? 1 : c.v, bwm = ns == 1 ? 1 : c.h;
+      for (int by = 0; by < bh; ++by)
+        for (int bx = 0; bx < bwm; ++bx)
+          fn(i, c.block(ns == 1 ? mcu_y : mcu_y * c.v + by, ns == 1 ? mcu_x : mcu_x * c.h + bx));
+    }
+  }
+
+  // A Huffman scan (jdhuff.c, jdphuff.c). Where the data of a restart
+  // interval ends early (a marker where more bits were due), libjpeg warns
+  // and decodes that MCU on zero bits and the rest of the interval as no
+  // data: zero coefficients (sequential) or unchanged ones (progressive).
+  void huffman_scan(const std::vector<int>& in_scan, const std::vector<int>& td,
+                    const std::vector<int>& ta, int ss, int se, int ah, int al, int mx, int my) {
+    const bool dc_scan = ss == 0, refine = ah != 0;
     BitReader br{d_, n_, pos_};
     int last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0;
-    int64_t total = static_cast<int64_t>(mx) * my;
+    bool no_data = false;
+    const int64_t total = static_cast<int64_t>(mx) * my;
     int next_rst = 0;
     for (int64_t mcu = 0; mcu < total; ++mcu) {
       if (restart_interval_ && mcu > 0 && mcu % restart_interval_ == 0) {
-        br.check();
-        // skip to the marker, which must be the next RSTn
-        int64_t p = br.pos;
-        while (p < n_ && !(d_[p] == 0xFF && p + 1 < n_ && d_[p + 1] != 0x00 && d_[p + 1] != 0xFF))
-          ++p;
-        if (p + 1 >= n_ || d_[p + 1] != 0xD0 + next_rst)
-          fail("corrupt JPEG data: missing restart marker RST" + std::to_string(next_rst));
-        next_rst = (next_rst + 1) & 7;
-        br = BitReader{d_, n_, p + 2};
+        br = BitReader{d_, n_, restart_at(br.pos, next_rst)};
         std::memset(last_dc, 0, sizeof(last_dc));
         eobrun = 0;
+        no_data = false;
       }
-      int mcu_x = static_cast<int>(mcu % mx), mcu_y = static_cast<int>(mcu / mx);
-      for (int i = 0; i < ns; ++i) {
-        Component& c = comps_[in_scan[i]];
-        const HuffDecoder& dc = dc_[td[i]];
-        const HuffDecoder& ac = ac_[ta[i]];
-        int bh = ns == 1 ? 1 : c.v, bwm = ns == 1 ? 1 : c.h;
-        for (int by = 0; by < bh; ++by) {
-          for (int bx = 0; bx < bwm; ++bx) {
-            int row = ns == 1 ? mcu_y : mcu_y * c.v + by;
-            int col = ns == 1 ? mcu_x : mcu_x * c.h + bx;
-            int16_t* blk = c.block(row, col);
-            if (!progressive_) {
-              sequential_block(br, dc, ac, blk, last_dc[i]);
-            } else if (dc_scan && !refine) {
-              br.need32();
-              const int s = br.decode(dc);
-              if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
-              last_dc[i] += br.value(s);
-              blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[i]) << al);
-            } else if (dc_scan) {
-              if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
-            } else if (!refine) {
-              ac_first(br, ac, blk, ss, se, al, eobrun);
-            } else {
-              ac_refine(br, ac, blk, ss, se, al, eobrun);
-            }
+      if (no_data) continue;
+      mcu_blocks(in_scan, mx, mcu, [&](int i, int16_t* blk) {
+        if (!progressive_) {
+          sequential_block(br, dc_[td[i]], ac_[ta[i]], blk, last_dc[i]);
+        } else if (dc_scan && !refine) {
+          br.need32();
+          const int s = br.decode(dc_[td[i]]);
+          if (s > 16) fail("corrupt JPEG data: bad DC coefficient size");
+          last_dc[i] += br.value(s);
+          blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[i]) << al);
+        } else if (dc_scan) {
+          if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+        } else if (!refine) {
+          ac_first(br, ac_[ta[i]], blk, ss, se, al, eobrun);
+        } else {
+          ac_refine(br, ac_[ta[i]], blk, ss, se, al, eobrun);
+        }
+      });
+      no_data = br.over();
+    }
+    pos_ = br.pos;
+  }
+
+  // An arithmetic-coded scan (jdarith.c): sequential, or a progressive DC
+  // first or refinement scan or AC first or refinement scan. Each scan and
+  // restart interval starts with cleared statistics and a fresh decoder, so
+  // where the scan's restart markers all stand in order its intervals decode
+  // on threads_ threads, bit-equal to one after another.
+  void arith_scan(const std::vector<int>& in_scan, const std::vector<int>& td,
+                  const std::vector<int>& ta, int ss, int se, int ah, int al, int mx, int my) {
+    const int64_t total = static_cast<int64_t>(mx) * my;
+    const int64_t every = restart_interval_ ? restart_interval_ : total;
+    const int64_t intervals = (total + every - 1) / every;
+    auto interval = [&](int64_t k, int64_t p) {
+      return arith_interval(in_scan, td, ta, ss, se, ah, al, mx, k * every,
+                            std::min(total, (k + 1) * every), p);
+    };
+    std::vector<int64_t> starts;
+    int64_t end = 0;
+    if (intervals > 1 && threads_ != 1 && restart_starts(intervals, starts, end)) {
+      parallel_for(intervals, threads_, [&](int64_t k) { interval(k, starts[k]); });
+      pos_ = end;
+      return;
+    }
+    int64_t p = pos_;
+    int next_rst = 0;
+    for (int64_t k = 0; k < intervals; ++k) p = interval(k, k ? restart_at(p, next_rst) : p);
+    pos_ = marker_at(p);
+  }
+
+  // Where each of ``intervals`` restart intervals of the scan at pos_
+  // starts, and the 0xFF of the marker that ends the scan, when the scan's
+  // data holds RST0, RST1, ... in order and no other marker; else false.
+  bool restart_starts(int64_t intervals, std::vector<int64_t>& starts, int64_t& end) const {
+    starts.assign(1, pos_);
+    for (int64_t p = pos_;;) {
+      const void* ff = std::memchr(d_ + p, 0xFF, static_cast<size_t>(n_ - p));
+      if (!ff) return false;
+      int64_t q = static_cast<const uint8_t*>(ff) - d_;
+      while (q < n_ && d_[q] == 0xFF) ++q;
+      if (q >= n_) return false;
+      const int m = d_[q];
+      p = q + 1;
+      if (m == 0) continue;                      // a stuffed zero
+      if (m < 0xD0 || m > 0xD7) {
+        end = q - 1;
+        return static_cast<int64_t>(starts.size()) == intervals;
+      }
+      if (m != 0xD0 + static_cast<int>((starts.size() - 1) & 7) ||
+          static_cast<int64_t>(starts.size()) >= intervals)
+        return false;
+      starts.push_back(p);
+    }
+  }
+
+  // MCUs [m0, m1) of an arithmetic-coded scan, their data from byte p with
+  // cleared statistics; returns where the data ended (the 0xFF of the marker
+  // that stopped the decoder, or the next byte it would read).
+  int64_t arith_interval(const std::vector<int>& in_scan, const std::vector<int>& td,
+                         const std::vector<int>& ta, int ss, int se, int ah, int al, int mx,
+                         int64_t m0, int64_t m1, int64_t p) {
+    const bool dc_scan = ss == 0, refine = ah != 0;
+    ArithStats st;
+    std::memset(&st, 0, sizeof(st));
+    ArithDecoder ad{d_, n_, p};
+    int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+    for (int64_t mcu = m0; mcu < m1; ++mcu) {
+      if (ad.ct == -1 && !(progressive_ && dc_scan && refine)) continue;  // after an error
+      mcu_blocks(in_scan, mx, mcu, [&](int i, int16_t* blk) {
+        if (!progressive_) {
+          if (!arith_dc(ad, st, td[i], last_dc[i], context[i])) return;
+          blk[0] = static_cast<int16_t>(last_dc[i]);
+          arith_ac(ad, st, ta[i], blk, 1, 63, 0);
+        } else if (dc_scan && !refine) {
+          if (!arith_dc(ad, st, td[i], last_dc[i], context[i])) return;
+          blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[i]) << al);
+        } else if (dc_scan) {
+          uint8_t fixed = 113;
+          if (ad.decode(&fixed)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+        } else if (!refine) {
+          arith_ac(ad, st, ta[i], blk, ss, se, al);
+        } else {
+          arith_ac_refine(ad, st, ta[i], blk, ss, se, al);
+        }
+      });
+    }
+    return ad.marker ? ad.marker_pos : ad.pos;
+  }
+
+  // One DC difference (F.1.4.4.1, Figures F.19-F.24) added to last_dc;
+  // false on a magnitude overflow, which stops the decoder (ct -1)
+  bool arith_dc(ArithDecoder& ad, ArithStats& areas, int tbl, int& last_dc, int& context) {
+    if (ad.ct == -1) return false;
+    uint8_t* stats = areas.dc[tbl];
+    uint8_t* st = stats + context;
+    if (ad.decode(st) == 0) {
+      context = 0;
+      return true;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m != 0) {
+      st = stats + 20;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ad.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    // the conditioning category of the next difference
+    if (m < ((1 << dac_l_[tbl]) >> 1))
+      context = 0;
+    else if (m > ((1 << dac_u_[tbl]) >> 1))
+      context = 12 + sign * 4;
+    else
+      context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc = (last_dc + v) & 0xFFFF;
+    return true;
+  }
+
+  // AC coefficients ss..se (F.1.4.4.2, Figure F.20), each shifted by al
+  void arith_ac(ArithDecoder& ad, ArithStats& areas, int tbl, int16_t* blk, int ss, int se,
+                int al) {
+    if (ad.ct == -1) return;
+    uint8_t* stats = areas.ac[tbl];
+    uint8_t fixed = 113;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ad.decode(st)) break;                // end of block
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {                        // a run past the band
+          ad.ct = -1;
+          return;
+        }
+      }
+      const int sign = ad.decode(&fixed);
+      st += 2;
+      int m = ad.decode(st);
+      if (m != 0 && ad.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k_[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ad.ct = -1;
+            return;
           }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ad.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+  }
+
+  // An AC refinement scan's bits for one block (G.1.3.3)
+  void arith_ac_refine(ArithDecoder& ad, ArithStats& areas, int tbl, int16_t* blk, int ss,
+                       int se, int al) {
+    uint8_t* stats = areas.ac[tbl];
+    uint8_t fixed = 113;
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;                              // the previous stage's end of block
+    while (kex > 0 && blk[kNatural[kex]] == 0) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {                           // a correction bit
+          if (ad.decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {               // newly nonzero
+          *coef = static_cast<int16_t>(ad.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ad.ct = -1;
+          return;
         }
       }
     }
-    br.check();
+  }
+
+  // A lossless scan (libjpeg-turbo 3's jdlhuff.c, jddiffct.c and
+  // jdlossls.c): Huffman-coded differences a row at a time, undifferenced
+  // by predictor ``psv``; a scan's first row, and the first row after each
+  // restart (restart intervals are whole rows), predicts its first sample
+  // as 2^(7 - Pt) and the others from the left, and every later row its
+  // first sample from the one above. Samples leave as (x << Pt) mod 256.
+  void lossless_scan(const std::vector<int>& in_scan, const std::vector<int>& td, int psv,
+                     int pt) {
+    const int ns = static_cast<int>(in_scan.size()), w = width_;
+    if (restart_interval_ % w)
+      fail("bad JPEG: lossless restart interval " + std::to_string(restart_interval_) +
+           " is not a multiple of the " + std::to_string(w) + " samples of a row");
+    std::vector<int32_t> diff(static_cast<size_t>(ns) * w), prev(diff.size()), cur(diff.size());
+    for (int ci : in_scan) comps_[ci].samples.assign(static_cast<size_t>(w) * height_, 0);
+    BitReader br{d_, n_, pos_};
+    const int rows_per_interval = restart_interval_ / w;
+    int rows_to_go = rows_per_interval, next_rst = 0;
+    bool first = true;
+    for (int y = 0; y < height_; ++y) {
+      if (restart_interval_ && rows_to_go == 0) {
+        br = BitReader{d_, n_, restart_at(br.pos, next_rst)};
+        rows_to_go = rows_per_interval;
+        first = true;
+      }
+      for (int x = 0; x < w; ++x)
+        for (int i = 0; i < ns; ++i) {
+          br.need32();
+          const int s = br.decode(dc_[td[i]]);
+          if (s > 16) fail("corrupt JPEG data: bad difference size");
+          diff[static_cast<size_t>(i) * w + x] = s == 16 ? 32768 : br.value(s);
+        }
+      if (br.over())
+        fail("corrupt JPEG data: premature end of a lossless scan (not decoded)");
+      --rows_to_go;
+      for (int i = 0; i < ns; ++i) {
+        const int32_t* d = &diff[static_cast<size_t>(i) * w];
+        const int32_t* up = &prev[static_cast<size_t>(i) * w];
+        int32_t* o = &cur[static_cast<size_t>(i) * w];
+        if (first) {
+          o[0] = (d[0] + (1 << (7 - pt))) & 0xFFFF;
+          for (int x = 1; x < w; ++x) o[x] = (d[x] + o[x - 1]) & 0xFFFF;
+        } else {
+          o[0] = (d[0] + up[0]) & 0xFFFF;
+          for (int x = 1; x < w; ++x) {
+            const int64_t ra = o[x - 1], rb = up[x], rc = up[x - 1];
+            int64_t p;
+            switch (psv) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1; break;
+            }
+            o[x] = static_cast<int32_t>((d[x] + p) & 0xFFFF);
+          }
+        }
+        uint8_t* row = &comps_[in_scan[i]].samples[static_cast<size_t>(y) * w];
+        for (int x = 0; x < w; ++x) row[x] = static_cast<uint8_t>(o[x] << pt);
+      }
+      std::swap(prev, cur);
+      first = false;
+    }
     pos_ = br.pos;
   }
 
@@ -950,7 +1368,6 @@ class Decoder {
       if (fast) {
         k += (fast >> 8) & 0xFF;
         br.bits -= fast & 0xFF;
-        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
         blk[kNatural[k]] = static_cast<int16_t>(fast >> 16);
         continue;
       }
@@ -959,7 +1376,6 @@ class Decoder {
       s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
         blk[kNatural[k]] = static_cast<int16_t>(br.value(s));
       } else {
         if (r != 15) break;
@@ -981,7 +1397,6 @@ class Decoder {
       if (fast) {                      // a short code and its magnitude bits at once
         k += (fast >> 8) & 0xFF;
         br.bits -= fast & 0xFF;
-        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
         blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(fast >> 16) << al);
         continue;
       }
@@ -990,7 +1405,6 @@ class Decoder {
       const int s = rs & 15;
       if (s) {
         k += r;
-        if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
         blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(br.value(s)) << al);
       } else if (r == 15) {
         k += 15;
@@ -1014,9 +1428,7 @@ class Decoder {
         const int rs = br.decode(ac);
         int r = rs >> 4, s = rs & 15;
         if (s) {
-          if (s != 1) fail("corrupt JPEG data: a refinement coefficient of size " +
-                           std::to_string(s));
-          s = br.get(1) ? p1 : m1;
+          s = br.get(1) ? p1 : m1;   // a size other than 1: libjpeg warns and reads on
         } else if (r != 15) {
           eobrun = 1 << r;
           if (r) eobrun += static_cast<int>(br.get(r));
@@ -1033,8 +1445,7 @@ class Decoder {
           }
         }
         if (s) {
-          if (k > 63) fail("corrupt JPEG data: AC coefficients run past the block");
-          blk[kNatural[k]] = static_cast<int16_t>(s);
+            blk[kNatural[k]] = static_cast<int16_t>(s);
         }
       }
     }

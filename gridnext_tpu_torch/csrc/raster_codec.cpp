@@ -15,6 +15,9 @@
 //   png_unfilter    rows of PNG scanlines (a filter byte each) undone into
 //                   the caller's rows of bytes, with the previous row
 //                   carried across calls
+//   lab_to_rgb      Pillow's LAB pixels to RGB through LittleCMS's
+//                   resampled Lab -> sRGB table (io/pillow_modes.py builds
+//                   the 33^3 nodes), a block of pixels a task
 //
 // Decoding follows libtiff 4.x, which Pillow reads TIFF through:
 //  * LZW is the "new-style" code (TIFF 6.0): codes MSB-first, 9 to 12 bits,
@@ -176,6 +179,47 @@ class LzwDecoder {
     return want;
   }
 };
+
+// LittleCMS's 16-bit tetrahedral interpolation (cmsintrp.c
+// TetrahedralInterp16) of a 33^3 table of 3 outputs, at 8-bit inputs v * 257
+// (v: L, and a* and b* offset by 128 from the two's-complement bytes of
+// ``in``), each output then reduced to 8 bits as lcms's FROM_16_TO_8.
+void lab_pixel(const uint8_t* in, const uint16_t* table, uint8_t* out) {
+  constexpr int kGrid = 33;
+  constexpr int32_t kOpta[3] = {3 * kGrid * kGrid, 3 * kGrid, 3};
+  int32_t base = 0, r[3], step[3];
+  for (int c = 0; c < 3; ++c) {
+    const int32_t v = (in[c] ^ (c ? 0x80 : 0)) * 257;
+    const int32_t a = v * (kGrid - 1);
+    const int32_t f = a + (a + 0x7FFF) / 0xFFFF;     // _cmsToFixedDomain
+    base += kOpta[c] * (f >> 16);
+    r[c] = f & 0xFFFF;
+    step[c] = v == 0xFFFF ? 0 : kOpta[c];
+  }
+  const int32_t rx = r[0], ry = r[1], rz = r[2];
+  int32_t o1, o2, o3;           // offsets of the tetrahedron's other three corners
+  int32_t w1, w2, w3;           // and the weights of its edges
+  if (rx >= ry && ry >= rz) {
+    o1 = step[0]; o2 = o1 + step[1]; o3 = o2 + step[2]; w1 = rx; w2 = ry; w3 = rz;
+  } else if (rx >= ry && rz >= rx) {
+    o1 = step[2]; o2 = o1 + step[0]; o3 = o2 + step[1]; w1 = rz; w2 = rx; w3 = ry;
+  } else if (rx >= ry) {
+    o1 = step[0]; o2 = o1 + step[2]; o3 = o2 + step[1]; w1 = rx; w2 = rz; w3 = ry;
+  } else if (rx >= rz) {
+    o1 = step[1]; o2 = o1 + step[0]; o3 = o2 + step[2]; w1 = ry; w2 = rx; w3 = rz;
+  } else if (ry >= rz) {
+    o1 = step[1]; o2 = o1 + step[2]; o3 = o2 + step[0]; w1 = ry; w2 = rz; w3 = rx;
+  } else {
+    o1 = step[2]; o2 = o1 + step[1]; o3 = o2 + step[0]; w1 = rz; w2 = ry; w3 = rx;
+  }
+  const uint16_t* t = table + base;
+  for (int k = 0; k < 3; ++k) {
+    const int32_t c0 = t[k], c1 = t[o1 + k], c2 = t[o2 + k], c3 = t[o3 + k];
+    const int32_t rest = (c1 - c0) * w1 + (c2 - c1) * w2 + (c3 - c2) * w3 + 0x8001;
+    const uint32_t v16 = static_cast<uint16_t>(c0 + ((rest + (rest >> 16)) >> 16));
+    out[k] = static_cast<uint8_t>(((v16 * 65281u + 8388608u) >> 24) & 0xFF);
+  }
+}
 
 // ---- PackBits -------------------------------------------------------------
 
@@ -757,6 +801,24 @@ int png_unfilter(const uint8_t* src, int64_t src_len, int64_t rows, int64_t row_
       unfilter_row(f[0], f + 1, prev, cur, row_bytes, bpp);
       std::memcpy(prev, cur, static_cast<size_t>(row_bytes));
     }
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// n Lab pixels (L, then a* and b* as two's-complement bytes: Pillow's LAB
+// array) to RGB through the 33^3 x 3 table of 16-bit nodes, 2^16 pixels a
+// task.
+int lab_to_rgb(const uint8_t* lab, int64_t n, const uint16_t* table, uint8_t* rgb,
+               int n_threads, char* err, int errlen) {
+  try {
+    constexpr int64_t kBlock = 1 << 16;
+    parallel_for((n + kBlock - 1) / kBlock, n_threads, [&](int64_t b) {
+      for (int64_t i = b * kBlock; i < std::min(n, (b + 1) * kBlock); ++i)
+        lab_pixel(lab + 3 * i, table, rgb + 3 * i);
+    });
     return 0;
   } catch (const std::exception& e) {
     set_error(err, errlen, e.what());

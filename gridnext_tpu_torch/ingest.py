@@ -54,17 +54,18 @@ def decode_slide(image_file, convert: str = "RGB") -> np.ndarray:
     expects 3 channels).
 
     The file's first bytes pick the reader: a JPEG decodes with the port's
-    codec (:func:`gridnext_tpu_torch.io.jpeg.read_jpeg`: baseline or
-    progressive, gray, YCbCr, RGB, CMYK or YCCK, any chroma sampling), a
-    TIFF or BigTIFF with :func:`gridnext_tpu_torch.io.tiff.read_tiff` (1- to
-    16-bit and float gray, 8- and 16-bit RGB, RGBA and CMYK, palette, ...)
-    and a PNG with :func:`gridnext_tpu_torch.io.png.read_png` (every depth,
-    Adam7); each gives Pillow's mode and array, converted once by
+    codec (:func:`gridnext_tpu_torch.io.jpeg.read_jpeg`: baseline,
+    progressive or lossless, Huffman- or arithmetic-coded, gray, YCbCr,
+    RGB, CMYK or YCCK, any chroma sampling), a TIFF or BigTIFF with
+    :func:`gridnext_tpu_torch.io.tiff.read_tiff` (1- to 16-bit and float
+    gray, 8- and 16-bit RGB, RGBA and CMYK, CIELab, palette, ...) and a PNG
+    with :func:`gridnext_tpu_torch.io.png.read_png` (every depth, Adam7);
+    each gives Pillow's mode and array, converted once by
     :func:`gridnext_tpu_torch.io.pillow_modes.to_rgb`, so the pixels are
     ``np.asarray(Image.open(f).convert("RGB"))``'s, without PIL. A file of
-    those formats that its reader refuses (an arithmetic-coded JPEG, a Lab
-    TIFF, ...) raises ``ValueError`` naming the file, and never
-    reaches PIL. Other formats (BMP, WebP, ...) decode with PIL, and
+    those formats that its reader refuses (as Pillow refuses it: a 12-bit
+    or hierarchical JPEG, an ICCLab TIFF, a truncated file, ...) raises
+    ``ValueError`` naming the file, and never reaches PIL. Other formats (BMP, WebP, ...) decode with PIL, and
     without PIL raise ``ImportError``.
     """
     from gridnext_tpu_torch.io import pillow_modes

@@ -7,14 +7,20 @@ neither, so the port carries a codec of its own, held to Pillow bit for
 bit: :func:`encode_jpeg` writes Pillow's bytes at a quality (4:2:0, the
 standard tables, a JFIF header) and :func:`decode_jpeg` gives the pixels
 ``np.asarray(Image.open(path))`` gives for baseline, extended sequential
-and progressive Huffman files: 1, 3 or 4 components (gray, YCbCr or RGB,
-CMYK or YCCK), any integral chroma sampling of 1 to 4 per axis, restart
-markers, libjpeg-turbo's block smoothing of progressive files whose scans
-leave low coefficients unrefined. A 4-component file gives Pillow's
+and progressive files, Huffman- or arithmetic-coded (SOF0-2, SOF9-10, DAC
+conditioning), and for lossless files (SOF3, predictors 1-7, point
+transforms): 1, 3 or 4 components (gray, YCbCr or RGB, CMYK or YCCK), any
+integral chroma sampling of 1 to 4 per axis, restart markers, libjpeg-turbo's
+block smoothing of progressive files whose scans leave low coefficients
+unrefined. A 4-component file gives Pillow's
 ``CMYK`` array: Pillow reads every CMYK JPEG as Adobe writes it, inverted
-(its ``CMYK;I`` raw mode), and so does :func:`read_jpeg`. Any other JPEG
-(arithmetic, lossless, 12-bit, hierarchical) raises ``ValueError`` naming
-the file and what it holds.
+(its ``CMYK;I`` raw mode), and so does :func:`read_jpeg`. A data segment
+that ends early at a marker decodes as libjpeg decodes it (zeros for the
+rest of the restart interval; an arithmetic decoder reads zero bytes), and
+a corrupt one through the same arithmetic as Pillow's SIMD inverse DCT.
+What Pillow refuses raises ``ValueError`` naming the file and what it
+holds: 12-bit, arithmetic lossless (SOF11), hierarchical (SOF5-7, SOF13-15),
+lossless with a colour transform, and a file that ends inside its data.
 
 The library builds at first use with the host C++ compiler
 (:mod:`gridnext_tpu_torch.ops._host`); a failed build raises.
@@ -48,7 +54,8 @@ _SIGNATURES = (
     ("jpeg_decode_segments", (_VP, _LL, _VP, _VP, _VP, _VP, _LL, _I, _VP, _I, _I,
                               ctypes.c_char_p, _I, ctypes.c_char_p, _I), _I),
 )
-_SOF = {0: "baseline", 1: "extended sequential", 2: "progressive"}
+_SOF = {0: "baseline", 1: "extended sequential", 2: "progressive", 3: "lossless",
+        9: "arithmetic sequential", 10: "arithmetic progressive"}
 _ERRLEN = 1024
 
 
@@ -91,7 +98,9 @@ def is_jpeg_file(path) -> bool:
 
 def jpeg_info(path_or_bytes) -> dict:
     """A header probe: ``{"width", "height", "components", "sof"}`` (sof
-    ``"baseline"``, ``"extended sequential"`` or ``"progressive"``). Raises
+    ``"baseline"``, ``"extended sequential"``, ``"progressive"``,
+    ``"lossless"``, ``"arithmetic sequential"`` or ``"arithmetic
+    progressive"``). Raises
     ``ValueError`` on a JPEG the codec does not decode."""
     data, name = _read(path_or_bytes)
     info = _probe(data, name)

@@ -17,8 +17,15 @@ nesting):
   DELTA_BYTE_ARRAY (BYTE_ARRAY) and BYTE_STREAM_SPLIT (FLOAT, DOUBLE,
   INT32, INT64), with RLE/bit-packed definition levels for optional
   columns (pandas writes every column as optional);
-* the physical types BOOLEAN, INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY
-  (UTF-8 strings where the schema says so, else ``bytes``);
+* the physical types BOOLEAN, INT32, INT64, INT96 (Julian-day timestamps,
+  as ``datetime64[ns]``), FLOAT, DOUBLE, BYTE_ARRAY (UTF-8 strings where the
+  schema says so, else ``bytes``) and FIXED_LEN_BYTE_ARRAY (``bytes``), and
+  the DECIMAL logical type (``decimal.Decimal``);
+* null values: the definition levels of optional columns in v1 and v2
+  pages place the encoded values, and a column that holds a null comes back
+  as pandas gives it (integers as float64 with NaN, floats with NaN,
+  timestamps with NaT, booleans, bytes and decimals as objects with None,
+  strings with NaN);
 * the codecs UNCOMPRESSED, GZIP (``zlib``) and, through the host C++
   library ``csrc/parquet_codec.cpp`` (no zstd, lz4, brotli or snappy
   library), SNAPPY, BROTLI, ZSTD, LZ4_RAW and the deprecated LZ4 (Hadoop's
@@ -26,10 +33,9 @@ nesting):
   dictionary is the committed ``assets/brotli_dictionary.bin`` (RFC 7932
   Appendix A), checked against its SHA-256 when it is loaded.
 
-Anything else raises an error that names it: a null value, nested or
-repeated columns, INT96 and FIXED_LEN_BYTE_ARRAY columns, LZO pages (which
-pyarrow does not read either), a ZSTD frame that names a dictionary and a
-Brotli stream with the large-window extension.
+Anything else raises an error that names it: nested or repeated columns,
+LZO pages (which pyarrow does not read either), a ZSTD frame that names a
+dictionary and a Brotli stream with the large-window extension.
 :func:`snappy_decompress` is the plain Python version of the SNAPPY
 decoder that the tests hold the C++ one against.
 
@@ -40,6 +46,7 @@ UNCOMPRESSED, which pandas and pyarrow read back.
 from __future__ import annotations
 
 import ctypes
+import decimal
 import functools
 import hashlib
 import os
@@ -64,7 +71,7 @@ DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY = 5, 6, 7
 BYTE_STREAM_SPLIT = 9
 DATA_PAGE, INDEX_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = range(4)
 REQUIRED, OPTIONAL, REPEATED = range(3)
-UTF8 = 0                       # ConvertedType
+UTF8, DECIMAL = 0, 5            # ConvertedType
 
 _PLAIN_DTYPES = {INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}
 
@@ -391,7 +398,16 @@ def _fixed_byte_arrays(buf, count: int):
     return [flat[i:i + ln] for i in range(0, count * ln, ln)]
 
 
-def _plain(buf, ptype: int, count: int, column: str):
+def _fixed(buf, width: int, count: int) -> list:
+    """``count`` values of ``width`` bytes each, laid end to end."""
+    flat = bytes(buf[:width * count])
+    if len(flat) != width * count:
+        raise ParquetError(f"{count} values of {width} bytes run past the page")
+    return [flat[i:i + width] for i in range(0, len(flat), width)] if width else [b""] * count
+
+
+def _plain(buf, column, count: int):
+    ptype = column.ptype
     if ptype in _PLAIN_DTYPES:
         return np.frombuffer(buf, _PLAIN_DTYPES[ptype], count).copy()
     if ptype == BOOLEAN:                               # bit-packed, first value in bit 0
@@ -400,8 +416,17 @@ def _plain(buf, ptype: int, count: int, column: str):
     if ptype == BYTE_ARRAY:
         vals = _fixed_byte_arrays(buf, count)
         return _byte_arrays(buf, count) if vals is None else vals
-    raise ParquetError(f"column {column!r}: physical type {_TYPE_NAMES[ptype]} is not "
-                       "supported (BOOLEAN, INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY are)")
+    if ptype == INT96:                                 # kept as 12 raw bytes a value
+        return np.frombuffer(buf, np.uint8, 12 * count).reshape(count, 12).copy()
+    return _fixed(buf, column.width, count)            # FIXED_LEN_BYTE_ARRAY
+
+
+def _int96_datetimes(raw: np.ndarray) -> np.ndarray:
+    """INT96 timestamps (nanoseconds of the day, then the Julian day, little
+    endian) as ``datetime64[ns]``, as pyarrow hands them to pandas."""
+    nanos = raw[:, :8].copy().view("<i8")[:, 0]
+    days = raw[:, 8:].copy().view("<i4")[:, 0].astype(np.int64)
+    return ((days - 2440588) * 86_400_000_000_000 + nanos).view("datetime64[ns]")
 
 
 def _delta_binary_packed(buf, count: int, width: int, column: str):
@@ -469,17 +494,24 @@ class _Column:
         if rep == REPEATED:
             raise ParquetError(f"column {self.name!r} is repeated; only flat tables are read")
         self.max_def = int(rep == OPTIONAL)
+        self.width = element.get(2, 0)                  # FIXED_LEN_BYTE_ARRAY's length
         logical = element.get(10) or {}
         self.utf8 = element.get(6) == UTF8 or 1 in logical
+        self.scale = None                               # DECIMAL's scale, else None
+        if 5 in logical:
+            self.scale = logical[5].get(1, 0)
+        elif element.get(6) == DECIMAL:
+            self.scale = element.get(7, 0)
 
     def values(self, buf, encoding: int, count: int, dictionary):
         if encoding == PLAIN:
-            return _plain(buf, self.ptype, count, self.name)
+            return _plain(buf, self, count)
         if encoding in (PLAIN_DICTIONARY, RLE_DICTIONARY):
             if dictionary is None:
                 raise ParquetError(f"column {self.name!r}: dictionary-encoded page "
                                    "without a dictionary page")
-            idx = _rle_hybrid(memoryview(buf)[1:], buf[0], count)
+            idx = (_rle_hybrid(memoryview(buf)[1:], buf[0], count) if count
+                   else np.zeros(0, np.int64))
             return _take(dictionary, idx)
         ptype, name = self.ptype, self.name
         if encoding == RLE and ptype == BOOLEAN:       # a 4-byte length, then 1-bit runs
@@ -491,24 +523,30 @@ class _Column:
         if encoding == DELTA_LENGTH_BYTE_ARRAY and ptype == BYTE_ARRAY:
             lengths, used = _delta_binary_packed(buf, count, 32, name)
             return _split_values(memoryview(buf)[used:], lengths, name)
-        if encoding == DELTA_BYTE_ARRAY and ptype == BYTE_ARRAY:
+        if encoding == DELTA_BYTE_ARRAY and ptype in (BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY):
             return _delta_byte_array(buf, count, name)
-        if encoding == BYTE_STREAM_SPLIT and ptype in (INT32, INT64, FLOAT, DOUBLE):
-            dtype = np.dtype(_PLAIN_DTYPES[ptype])     # byte k of every value, then k + 1
-            raw = np.frombuffer(buf, np.uint8, count * dtype.itemsize)
-            return raw.reshape(dtype.itemsize, count).T.copy().view(dtype).reshape(count)
+        if encoding == BYTE_STREAM_SPLIT and ptype in (INT32, INT64, FLOAT, DOUBLE,
+                                                       FIXED_LEN_BYTE_ARRAY):
+            # byte k of every value, then byte k + 1
+            width = (self.width if ptype == FIXED_LEN_BYTE_ARRAY
+                     else np.dtype(_PLAIN_DTYPES[ptype]).itemsize)
+            raw = np.frombuffer(buf, np.uint8, count * width).reshape(width, count).T.copy()
+            if ptype == FIXED_LEN_BYTE_ARRAY:
+                return _fixed(raw.tobytes(), width, count)
+            return raw.view(_PLAIN_DTYPES[ptype]).reshape(count)
         raise ParquetError(f"column {name!r}: encoding "
                            f"{_ENCODING_NAMES.get(encoding, encoding)} of "
                            f"{_TYPE_NAMES[ptype]} values is not supported")
 
-    def check_levels(self, levels):
-        if (levels != self.max_def).any():
-            raise ParquetError(f"column {self.name!r} holds "
-                               f"{int((levels != self.max_def).sum())} null values; "
-                               "positions must have none")
+    def levels(self, buf, count: int):
+        """The defined slots of an optional column's page, from its
+        definition levels, as a bool mask; None where every slot is."""
+        defined = _rle_hybrid(buf, 1, count) == self.max_def
+        return None if defined.all() else defined
 
     def chunk(self, data, meta: dict) -> list:
-        """The values of one column chunk, page by page."""
+        """One column chunk, page by page: ``(values, mask)``, ``mask`` the
+        page's defined slots (None: all) and ``values`` theirs."""
         codec = meta.get(4, 0)
         total = meta[5]
         pos = min(o for o in (meta.get(9), meta.get(11)) if o is not None and o > 0)
@@ -524,45 +562,69 @@ class _Column:
                 if dph.get(2, PLAIN) not in (PLAIN, PLAIN_DICTIONARY):
                     raise ParquetError(f"column {self.name!r}: dictionary encoding "
                                        f"{_ENCODING_NAMES.get(dph[2], dph[2])}")
-                dictionary = _plain(decompress(codec, body, size), self.ptype, dph[1],
-                                    self.name)
+                dictionary = _plain(decompress(codec, body, size), self, dph[1])
             elif ptype == DATA_PAGE:
                 dph = header[5]
                 n = dph[1]
                 raw = decompress(codec, body, size)
-                off = 0
+                off, mask = 0, None
                 if self.max_def:
                     if dph.get(3, RLE) != RLE:
                         raise ParquetError(f"column {self.name!r}: definition levels "
                                            f"encoded {_ENCODING_NAMES.get(dph[3], dph[3])}")
                     ln = int.from_bytes(raw[:4], "little")
-                    self.check_levels(_rle_hybrid(memoryview(raw)[4:4 + ln], 1, n))
+                    mask = self.levels(memoryview(raw)[4:4 + ln], n)
                     off = 4 + ln
-                parts.append(self.values(memoryview(raw)[off:], dph[2], n, dictionary))
+                defined = n if mask is None else int(mask.sum())
+                parts.append((self.values(memoryview(raw)[off:], dph[2], defined, dictionary),
+                              mask))
                 seen += n
             elif ptype == DATA_PAGE_V2:
                 dph = header[8]
                 n, nulls, rl, dl = dph[1], dph.get(2, 0), dph.get(6, 0), dph.get(5, 0)
-                if nulls:
-                    raise ParquetError(f"column {self.name!r} holds {nulls} null values; "
-                                       "positions must have none")
-                if self.max_def:
-                    self.check_levels(_rle_hybrid(body[rl:rl + dl], 1, n))
+                mask = self.levels(body[rl:rl + dl], n) if self.max_def else None
+                defined = n if mask is None else int(mask.sum())
+                if n - defined != nulls:
+                    raise ParquetError(f"column {self.name!r}: the page's definition levels "
+                                       f"hold {n - defined} nulls, its header {nulls}")
                 vals = body[rl + dl:]
                 if dph.get(7, True):
                     vals = decompress(codec, vals, size - rl - dl)
-                parts.append(self.values(vals, dph[4], n, dictionary))
+                parts.append((self.values(vals, dph[4], defined, dictionary), mask))
                 seen += n
             elif ptype != INDEX_PAGE:
                 raise ParquetError(f"column {self.name!r}: unknown page type {ptype}")
         return parts
 
-
-def _joined(parts, utf8: bool):
-    if parts and isinstance(parts[0], list):
-        out = [v for part in parts for v in part]
-        return [v.decode("utf-8") for v in out] if utf8 else out
-    return np.concatenate(parts) if parts else np.zeros(0)
+    def joined(self, parts):
+        """The chunks' pages as one column, as pandas gives it."""
+        values = [v for v, _ in parts]
+        if values and isinstance(values[0], list):
+            values = [x for part in values for x in part]
+            if self.utf8:
+                values = [x.decode("utf-8") for x in values]
+        elif values:
+            values = np.concatenate(values)
+        else:
+            values = np.zeros(0, _PLAIN_DTYPES.get(self.ptype, np.float64))
+        if self.scale is not None:                     # unscaled two's-complement integers
+            values = [decimal.Decimal(int.from_bytes(x, "big", signed=True)
+                                      if isinstance(x, bytes) else int(x)).scaleb(-self.scale)
+                      for x in values]
+        elif self.ptype == INT96:
+            values = _int96_datetimes(values.reshape(-1, 12))
+        if all(m is None for _, m in parts):
+            return values
+        mask = np.concatenate([np.ones(len(v), bool) if m is None else m for v, m in parts])
+        if isinstance(values, list) or values.dtype == bool:   # objects with a missing value
+            missing = float("nan") if self.utf8 else None
+            it = iter(values if isinstance(values, list) else values.tolist())
+            return [next(it) if d else missing for d in mask.tolist()]
+        kind = values.dtype.kind
+        out = np.full(len(mask), np.datetime64("NaT") if kind == "M" else np.nan,
+                      values.dtype if kind in "fM" else np.float64)
+        out[mask] = values
+        return out
 
 
 def read_parquet(path, columns=None) -> dict:
@@ -570,9 +632,13 @@ def read_parquet(path, columns=None) -> dict:
 
     Numeric columns come back as numpy arrays of the dtype pandas gives
     their physical type (BOOLEAN bool, INT32 int32, INT64 int64, FLOAT
-    float32, DOUBLE float64), string columns as lists of
-    ``str`` (other BYTE_ARRAY columns as lists of ``bytes``), each in file
-    order over every row group.
+    float32, DOUBLE float64, INT96 datetime64[ns]), string columns as lists
+    of ``str``, other BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY columns as lists
+    of ``bytes`` and DECIMAL columns as lists of ``decimal.Decimal``, each
+    in file order over every row group. A column with a null comes back as
+    pandas' numpy backend gives it: INT32 and INT64 as float64 with NaN,
+    FLOAT and DOUBLE with NaN, INT96 with NaT, BOOLEAN as a list with None,
+    strings with NaN and bytes and decimals with None.
     ``columns``: read only these (default all).
     """
     with open(path, "rb") as fh:
@@ -598,7 +664,7 @@ def read_parquet(path, columns=None) -> dict:
                     raise ParquetError("column chunks in other files are not read")
                 parts[leaf.name] += leaf.chunk(data, chunk[3])
     by_name = dict(zip(names, leaves))
-    return {c: _joined(parts[c], by_name[c].utf8) for c in want}
+    return {c: by_name[c].joined(parts[c]) for c in want}
 
 
 # -- writer -----------------------------------------------------------------------

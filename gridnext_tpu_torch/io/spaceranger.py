@@ -94,9 +94,8 @@ def read_positions_file(position_file) -> Positions:
     :class:`Positions`."""
     if str(position_file).endswith(".parquet"):
         table = read_parquet(str(position_file), ("barcode",) + _V1_COLUMNS)
-        columns = {name: np.asarray(table[name],
-                                    np.int64 if name in _INT_COLUMNS else np.float64)
-                   for name in _V1_COLUMNS}
+        columns = {name: np.asarray(table[name], np.float64) for name in _V1_COLUMNS}
+        _integral(columns, position_file)
         return Positions(list(table["barcode"]), columns)
     with open(str(position_file), newline="") as fh:
         rows = [r for r in csv.reader(fh) if r]
@@ -113,6 +112,20 @@ def read_positions_file(position_file) -> Positions:
                          if name in _INT_COLUMNS
                          else np.asarray([float(v) for v in vals], np.float64))
     return Positions(barcodes, columns)
+
+
+def _integral(columns: dict, path) -> None:
+    """Cast a parquet's integer columns to int64 in place. A null there
+    raises a ``ValueError`` naming the column, as the JAX route's pandas
+    ``astype(int)`` raises on it (``in_tissue`` wherever positions are
+    filtered, ``array_row`` / ``array_col`` in ``hd_lattice_dims``). Null
+    pixel coordinates stay NaN."""
+    for name in _INT_COLUMNS:
+        null = int(np.isnan(columns[name]).sum())
+        if null:
+            raise ValueError(f"{path}: column {name!r} holds {null} null values: cannot "
+                             "convert non-finite values (NA or inf) to integer")
+        columns[name] = columns[name].astype(np.int64)
 
 
 def read_positions(spaceranger_dir, hd_binning: Optional[str] = None) -> Positions:

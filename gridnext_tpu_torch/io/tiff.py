@@ -38,11 +38,13 @@ pixels Pillow gives:
 :func:`decode_tiff` its RGB conversion. Anything else raises
 ``ValueError`` naming the file and what it holds: layouts Pillow has no
 mode for (signed RGB, big-endian 12-bit, ...) or fails on (uncompressed
-YCbCr; uncompressed FillOrder 2 of some layouts), CIELab (Pillow converts
-it through LittleCMS), uncompressed planes of more than 8 bits (Pillow
-reads them as 8-bit samples), YCbCr under Predictor 2 or an Orientation,
-Predictor 3, old-style JPEG (6), JPEG 2000 and other compressions, and
-JPEG strips the codec refuses (arithmetic, lossless, 12-bit, ...).
+YCbCr; uncompressed FillOrder 2 of some layouts), ICCLab and ITULab
+(Photometric 9 and 10, which Pillow has no mode for), uncompressed planes
+of more than 8 bits (Pillow reads them as 8-bit samples), YCbCr under
+Predictor 2 or an Orientation, Predictor 3, old-style JPEG (6), JPEG 2000
+and other compressions, and JPEG strips the codec refuses (12-bit,
+hierarchical, ...). CIELab (Photometric 8) reads as Pillow's ``LAB`` and
+converts as LittleCMS does (``io/pillow_modes.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ _SIGNATURES = (
     # plane_bytes, kind, n_threads, err, errlen
     ("raster_decode", (_I, _VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _VP, _LL,
                        _LL, ctypes.c_char_p, _I, ctypes.c_char_p, _I), _I),
+    # lab, n, table, rgb, n_threads, err, errlen
+    ("lab_to_rgb", (_VP, _LL, _VP, _VP, _I, ctypes.c_char_p, _I), _I),
 )
 _ERRLEN = 1024
 HEADERS = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")   # classic, BigTIFF; II, MM
@@ -149,7 +153,7 @@ _open_info(5, (1,), (1,), (8,) * 6, (0, 0), "CMYK")
 _open_info(5, (1,), (1,), (16,) * 4, (), "CMYK;16")
 _open_info(6, (1,), (1,), (8,), (), "L")                   # one-sample YCbCr: gray
 _open_info(6, (1,), (1,), (8, 8, 8), (), "YCbCr")          # JPEG only (libtiff converts)
-_open_info(8, (1,), (1,), (8, 8, 8), (), "LAB")            # refused: LittleCMS
+_open_info(8, (1,), (1,), (8, 8, 8), (), "LAB")
 # Pillow reads an uncompressed planar (PlanarConfiguration 2) file with its
 # own decoder, each plane unpacked by one letter of the raw mode: right for
 # these 8-bit layouts only (16-bit planes, say, read as 8-bit samples)
@@ -357,7 +361,7 @@ def decode_tiff(path, n_threads: int = 0) -> np.ndarray:
     """Decode a TIFF's first page (a path or its bytes) to ``(H, W, 3)``
     uint8: ``np.asarray(Image.open(path).convert("RGB"))``'s pixels
     (:func:`read_tiff`, then ``pillow_modes.to_rgb``)."""
-    return pillow_modes.to_rgb(*read_tiff(path, n_threads))
+    return pillow_modes.to_rgb(*read_tiff(path, n_threads), n_threads=n_threads)
 
 
 def _format(page: _Page, name: str) -> dict:
@@ -399,9 +403,6 @@ def _format(page: _Page, name: str) -> dict:
     if compression == 1 and planar == 2 and rawmode not in _RAW_PLANAR_OK:
         raise ValueError(f"{name}: unsupported TIFF: uncompressed PlanarConfiguration 2 of "
                          f"{bps} samples (Pillow reads each plane as 8-bit samples)")
-    if rawmode == "LAB":
-        raise ValueError(f"{name}: unsupported TIFF: CIELab samples (Pillow converts Lab "
-                         "through LittleCMS, which the port does not reproduce)")
     if planar not in (1, 2):
         raise ValueError(f"{name}: bad TIFF PlanarConfiguration {planar}")
     if compression == 7:

@@ -11,8 +11,12 @@ Covered, all bit for bit:
   qualities 1 to 100 on tiny images;
 - progressive and CMYK files decoded to Pillow's pixels (the progressive,
   CMYK and sampling cases at large are ``tests/test_torch_slide_formats.py``);
-  arithmetic-coded and 12-bit files refused with a ``ValueError`` naming
-  the file; a failed build raising;
+  arithmetic-coded files (SOF9, SOF10, DAC) decoded as their Huffman twins
+  and as Pillow; lossless files (SOF3, predictors 1-7, point transforms,
+  restarts) as Pillow; data segments cut short or overwritten as Pillow
+  decodes them; the files Pillow refuses (12-bit, SOF11, SOF13, lossless
+  YCbCr, truncated) refused with a ``ValueError`` naming the file; a
+  failed build raising;
 - ``decode_jpeg_batch`` with 1 thread and with many, ``encode_jpeg_batch``
   against ``encode_jpeg``, a slide's decode on 1 thread and on many;
 - ``pil_resample`` against ``Image.resize`` (bicubic 160 -> 128, 97 -> 32,
@@ -110,26 +114,89 @@ def test_tiny_and_extreme_images_match_pil():
         assert jpeg.encode_jpeg(img) == _pil_jpeg(img)
 
 
+def _pil_refuses(data: bytes) -> bool:
+    try:
+        Image.open(io.BytesIO(data)).load()
+    except (OSError, SyntaxError):
+        return True
+    return False
+
+
 def test_unsupported_files_raise_naming_the_file(tmp_path):
+    """The arithmetic-coded progressive file once refused decodes as Pillow;
+    12-bit samples, SOF11 and a file cut in half raise naming the file, as
+    Pillow refuses them."""
     data = _pil_jpeg(_image(32, 32, 0))
     sof = data.index(b"\xff\xc0")
     arith = tmp_path / "arith.jpg"
-    arith.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
-    with pytest.raises(ValueError, match=r"arith\.jpg.*arithmetic-coded progressive"):
-        jpeg.decode_jpeg(arith)
-    with pytest.raises(ValueError, match="arithmetic-coded"):
-        jpeg.jpeg_info(arith)
+    arith.write_bytes(_tool().transcode(data, 1, arith=True))
+    assert arith.read_bytes()[sof:sof + 2] == b"\xff\xca"
+    np.testing.assert_array_equal(jpeg.decode_jpeg(arith), _pil_pixels(arith.read_bytes()))
+    assert jpeg.jpeg_info(arith)["sof"] == "arithmetic progressive"
     bits12 = tmp_path / "bits12.jpg"
     bits12.write_bytes(data[:sof + 4] + b"\x0c" + data[sof + 5:])
     with pytest.raises(ValueError, match=r"bits12\.jpg.*12-bit samples"):
         jpeg.decode_jpeg(bits12)
+    sof11 = tmp_path / "sof11.jpg"
+    sof11.write_bytes(_tool().write_lossless(_image(16, 24, 1), 1).replace(b"\xff\xc3",
+                                                                           b"\xff\xcb", 1))
+    with pytest.raises(ValueError, match=r"sof11\.jpg.*arithmetic-coded lossless"):
+        jpeg.jpeg_info(sof11)
+    assert _pil_refuses(bits12.read_bytes()) and _pil_refuses(sof11.read_bytes())
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_jpeg(b"\x89PNG not a jpeg")
     data = _pil_jpeg(_image(64, 64, 2))
-    with pytest.raises(ValueError, match="premature end|truncated"):
+    with pytest.raises(ValueError, match="truncated"):
         jpeg.decode_jpeg(data[:len(data) // 2])
+    assert _pil_refuses(data[:len(data) // 2])
     assert jpeg.jpeg_info(data) == {"width": 64, "height": 64, "components": 3,
                                     "sof": "baseline"}
+
+
+@pytest.mark.parametrize("script", range(5))
+def test_arithmetic_files_decode_as_their_huffman_twins(script):
+    """Each scan script of the transcoder, arithmetic-coded with libjpeg's
+    default and with other DAC conditioning, with and without restarts, on a
+    4:2:0, a 4:4:4 and a gray file: the Huffman twin's pixels and Pillow's."""
+    tool = _tool()
+    img = _image(37, 45, 70 + script)
+    for base in (_pil_jpeg(img, quality=85), _pil_jpeg(img, quality=60, subsampling=0),
+                 _pil_jpeg(img[..., 2], quality=70)):
+        for restart, dac in ((0, True), (2, tool.DAC_WIDE), (5, (0, 0, 63, 15, 15, 1))):
+            data = tool.transcode(base, script, restart, arith=dac)
+            want = jpeg.decode_jpeg(tool.transcode(base, script, restart))
+            for n_threads in (0, 1):     # restart intervals on threads, and in turn
+                np.testing.assert_array_equal(jpeg.decode_jpeg(data, n_threads), want)
+            np.testing.assert_array_equal(_pil_pixels(data), want)
+
+
+@pytest.mark.parametrize("pt", [0, 1, 3])
+def test_lossless_files_decode_as_pillow(pt):
+    """Predictors 1-7 at point transform ``pt``, interleaved or a scan a
+    component, with restarts, in RGB, gray and CMYK: Pillow's pixels."""
+    tool = _tool()
+    rgb = _image(19, 26, 80 + pt)
+    cmyk = np.concatenate([rgb, rgb[..., :1] ^ 0x3C], -1)
+    for psv in range(1, 8):
+        for px, kw in ((rgb, {}), (rgb[..., 0], {"restart_rows": 3}),
+                       (rgb, {"interleaved": False, "restart_rows": 2}), (cmyk, {})):
+            data = tool.write_lossless(px, psv, pt, **kw)
+            want = _pil_pixels(data)
+            np.testing.assert_array_equal(jpeg.decode_jpeg(data), want, err_msg=f"{psv} {kw}")
+            if px.ndim == 2 or px.shape[2] == 3:    # Pillow gives the samples themselves
+                np.testing.assert_array_equal(want, (px >> pt) << pt)
+    assert jpeg.jpeg_info(tool.write_lossless(rgb, 1))["sof"] == "lossless"
+
+
+def test_refused_fixtures_raise_as_pillow_refuses_them():
+    """The committed files Pillow refuses (truncated data, SOF11, SOF13,
+    lossless YCbCr, 12-bit samples): the port raises naming what it found."""
+    refused = _tool().load_refused()
+    assert len(refused) == 7
+    for name, (data, pattern) in refused.items():
+        assert _pil_refuses(data), name
+        with pytest.raises(ValueError, match=pattern):
+            jpeg.decode_jpeg(data)
 
 
 def test_progressive_and_cmyk_files_decode_as_pillow(tmp_path):

@@ -81,15 +81,17 @@ def positions_frame(h, w, seed=0, pitch=58.46):
 
 
 def assert_read_equal(path):
+    """``read_parquet`` equals ``pd.read_parquet`` column for column: dtype
+    and values of numeric and datetime columns (NaN and NaT where pandas
+    has them), the objects of the others (NaN or None where pandas has
+    them)."""
     got = read_parquet(path)
     want = pd.read_parquet(path)
     assert list(got) == list(want.columns)
     for name in want.columns:
-        if want[name].dtype.kind in "iufb":
-            assert got[name].dtype == want[name].dtype, name
-            np.testing.assert_array_equal(got[name], want[name].to_numpy())
-        else:
-            assert got[name] == want[name].tolist(), name
+        col = want[name]
+        expect = col.to_numpy() if col.dtype.kind in "iufbM" else col.tolist()
+        assert TOOL.same_column(got[name], expect), name
 
 
 @pytest.mark.parametrize("kw", [
@@ -132,8 +134,8 @@ def test_hd_capture_area_table(tmp_path):
 def test_mixed_types_and_strings(tmp_path):
     """INT32, bytes, strings of several lengths and non-ASCII text (the
     general BYTE_ARRAY path), optional and required; FLOAT and BOOLEAN read
-    as pandas reads them; INT96 and FIXED_LEN_BYTE_ARRAY raise, naming the
-    type."""
+    as pandas reads them; INT96 and FIXED_LEN_BYTE_ARRAY, once refused,
+    read as pandas reads them."""
     table = pa.table({
         "i32": pa.array([3, -7, 2 ** 30, 0], pa.int32()),
         "raw": pa.array([b"\x00\x01", b"", b"abc", b"\xff"], pa.binary()),
@@ -161,8 +163,8 @@ def test_mixed_types_and_strings(tmp_path):
             ("FIXED_LEN_BYTE_ARRAY", pa.table({"f": pa.array([b"ab", b"cd"], pa.binary(2))}),
              {})):
         pq.write_table(table, tmp_path / "o.parquet", **kw)
-        with pytest.raises(ParquetError, match=name):
-            read_parquet(tmp_path / "o.parquet")
+        assert pq.ParquetFile(tmp_path / "o.parquet").schema.column(0).physical_type == name
+        assert_read_equal(tmp_path / "o.parquet")
 
 
 def test_writer_reads_back_in_pandas(tmp_path):
@@ -201,10 +203,10 @@ def test_refusals_name_what_they_refuse(tmp_path):
         read_parquet(tmp_path / "zd.parquet")
     nulls = df.astype({"in_tissue": "float64"})
     nulls.loc[3, "in_tissue"] = np.nan
-    for version in ("1.0", "2.0"):
+    for version in ("1.0", "2.0"):        # nulls, once refused: pandas' NaN
         nulls.to_parquet(tmp_path / "n.parquet", index=False, data_page_version=version)
-        with pytest.raises(ParquetError, match="null"):
-            read_parquet(tmp_path / "n.parquet")
+        assert_read_equal(tmp_path / "n.parquet")
+        assert np.isnan(read_parquet(tmp_path / "n.parquet")["in_tissue"][3])
     pq.write_table(pa.table({"s": pa.array([{"a": 1}, {"a": 2}])}), tmp_path / "s.parquet")
     with pytest.raises(ParquetError, match="nested"):
         read_parquet(tmp_path / "s.parquet")
@@ -274,8 +276,8 @@ def test_encodings_read_equal(encodings, version, tmp_path):
     pq.write_table(pa.table({"x": pa.array([1, None, 3], pa.int32())}), path,
                    use_dictionary=False, column_encoding={"x": "DELTA_BINARY_PACKED"},
                    data_page_version=version)
-    with pytest.raises(ParquetError, match="null"):
-        read_parquet(path)
+    assert_read_equal(path)
+    np.testing.assert_array_equal(read_parquet(path)["x"], [1, np.nan, 3])
 
 
 def _fixture_names():
@@ -293,11 +295,7 @@ def test_committed_fixtures_read_equal(name):
     want = TOOL.expected_columns(np.load(FIXTURES / f"{name}.npz"))
     assert list(got) == list(want)
     for col, values in want.items():
-        if isinstance(values, list):
-            assert got[col] == values, col
-        else:
-            assert got[col].dtype == values.dtype, col
-            np.testing.assert_array_equal(got[col], values)
+        assert TOOL.same_column(got[col], values), col
 
 
 def test_hd_fixture_tables_equal_the_writers(tmp_path):
@@ -329,11 +327,110 @@ def _zstd_positions(srd, boolean_tissue=True):
     assert _codec_ids(path) == {CODEC_IDS["zstd"]}
 
 
+def _optional_positions(srd):
+    """Rewrite an HD directory's positions with ``write_optional``: OPTIONAL
+    columns in v1 and v2 pages, an extra column with nulls, an INT96 and a
+    FIXED_LEN_BYTE_ARRAY column."""
+    path = Path(find_position_file(srd, "square_016um"))
+    TOOL.write_optional(path, TOOL.optional_positions(read_parquet(path)), page_rows=100)
+    md = pq.ParquetFile(path).metadata
+    assert {md.schema.column(i).physical_type for i in range(md.num_columns)} >= {
+        "INT96", "FIXED_LEN_BYTE_ARRAY"}
+    assert pd.read_parquet(path)["qc_score"].isna().any()
+
+
 def test_hd_zstd_positions_and_register_match_jax(tmp_path):
     """An HD directory whose positions parquet has ZSTD pages and a BOOLEAN
     ``in_tissue``: ``read_positions`` equals the JAX package's, and
     ``register --device cpu`` of a JAX-written HD model directory (24 x 24
     bins) writes the Loupe CSV that the JAX package's ``register`` writes."""
+    _hd_register_matches_jax(tmp_path, _zstd_positions, bool)
+
+
+def test_hd_optional_positions_with_int96_and_flba_register_match_jax(tmp_path):
+    """The same with positions in OPTIONAL columns over v1 and v2 pages,
+    beside an extra column with nulls, an INT96 and a FIXED_LEN_BYTE_ARRAY
+    column (``write_optional``)."""
+    _hd_register_matches_jax(tmp_path, _optional_positions, np.int64)
+
+
+def test_null_in_tissue_raises_as_jax(tmp_path):
+    """A null ``in_tissue`` or ``array_row``: JAX's route raises from pandas'
+    ``astype(int)`` (a ``ValueError``: placing the in-tissue bins, and
+    ``hd_lattice_dims``), and the port's ``read_positions`` raises a
+    ``ValueError`` naming the column. A null in an extra column reads."""
+    from gridnext_tpu import pipeline as jax_pipeline
+    from gridnext_tpu.data import simulate_spaceranger_dir
+
+    sim = simulate_spaceranger_dir(tmp_path / "hd", seed=4, n_genes=4, n_classes=3,
+                                   spaceranger_version="hd", hd_grid=(8, 9),
+                                   hd_binning="square_016um")
+    srd = sim["spaceranger_dir"]
+    path = Path(find_position_file(srd, "square_016um"))
+    table = read_parquet(path)
+    columns = TOOL.optional_positions(table)
+    TOOL.write_optional(path, columns, page_rows=30)
+    assert hd_lattice_dims(srd, "square_016um") == jax_hd_dims(srd, "square_016um") == (8, 9)
+    defined = np.arange(len(table["barcode"])) != 5
+    columns["array_row"] = (table["array_row"], defined)
+    TOOL.write_optional(path, columns, page_rows=30)
+    with pytest.raises(ValueError):
+        jax_hd_dims(srd, "square_016um")
+    with pytest.raises(ValueError, match="'array_row' holds 1 null"):
+        read_positions(srd, "square_016um")
+    columns["array_row"] = (table["array_row"], None)
+    columns["in_tissue"] = (table["in_tissue"], defined)
+    TOOL.write_optional(path, columns, page_rows=30)
+    with pytest.raises(ValueError):
+        jax_pipeline._spot_pixel_boxes(jax_read_positions(srd, hd_binning="square_016um"), 8,
+                                       hex_coords=False)
+    with pytest.raises(ValueError, match="'in_tissue' holds 1 null"):
+        read_positions(srd, "square_016um")
+
+
+@pytest.mark.parametrize("version", ["1.0", "2.0"])
+@pytest.mark.parametrize("layout", ["dictionary", "plain", "delta"])
+def test_nulls_read_as_pandas(layout, version, tmp_path):
+    """Columns with nulls of every type in v1 and v2 pages, PLAIN,
+    dictionary and DELTA / BYTE_STREAM_SPLIT encoded, over three codecs:
+    pandas' dtypes and values, NaN and None where pandas has them."""
+    table = TOOL.null_typed_table(500, seed=len(layout) + int(version[0]))
+    kw = {"dictionary": {}, "plain": {"use_dictionary": False},
+          "delta": {"use_dictionary": False, "column_encoding": TOOL.ENCODINGS["enc_split"]}}
+    for codec in ("snappy", "zstd", None):
+        pq.write_table(table, tmp_path / "n.parquet", data_page_version=version,
+                       compression=codec, data_page_size=600, **kw[layout])
+        assert_read_equal(tmp_path / "n.parquet")
+    got = read_parquet(tmp_path / "n.parquet")
+    assert got["i32"].dtype == np.float64 and np.isnan(got["i32"]).any()
+    assert None in got["flag"] and None in got["raw"]
+
+
+def test_int96_flba_and_decimals_read_as_pandas(tmp_path):
+    """INT96 timestamps (``datetime64[ns]``, NaT for nulls),
+    FIXED_LEN_BYTE_ARRAY (``bytes``) and DECIMAL over FLBA, INT32 and INT64
+    (``decimal.Decimal``), dictionary or plain, in v1 and v2 pages; and
+    ``write_optional``'s hand-made OPTIONAL pages."""
+    table = TOOL.wide_types_table(300, seed=3)
+    for kw in ({}, {"use_dictionary": False, "data_page_version": "2.0"},
+               {"store_decimal_as_integer": True, "compression": "zstd"}):
+        pq.write_table(table, tmp_path / "w.parquet", use_deprecated_int96_timestamps=True,
+                       data_page_size=500, **kw)
+        assert_read_equal(tmp_path / "w.parquet")
+    got = read_parquet(tmp_path / "w.parquet")
+    assert got["when"].dtype == np.dtype("datetime64[ns]") and np.isnat(got["when"]).any()
+    positions = {c: (v.tolist() if c == "barcode" else v.to_numpy())
+                 for c, v in positions_frame(7, 9, seed=4).items()}
+    TOOL.write_optional(tmp_path / "o.parquet", TOOL.optional_positions(positions),
+                        page_rows=11)
+    assert_read_equal(tmp_path / "o.parquet")
+
+
+def _hd_register_matches_jax(tmp_path, rewrite, tissue_dtype):
+    """``read_positions`` of a simulated HD directory whose positions
+    ``rewrite`` rewrote equals the JAX package's, and ``register --device
+    cpu`` of a JAX-written HD model directory (24 x 24 bins) writes the
+    Loupe CSV that the JAX package's ``register`` writes."""
     import jax
     import jax.numpy as jnp
 
@@ -348,10 +445,10 @@ def test_hd_zstd_positions_and_register_match_jax(tmp_path):
                                    spaceranger_version="hd", hd_grid=(24, 24),
                                    hd_binning="square_016um", image=True, spot_spacing_px=12)
     srd = sim["spaceranger_dir"]
-    _zstd_positions(srd)
+    rewrite(srd)
     pos = read_positions(srd, "square_016um")
     want = jax_read_positions(srd, hd_binning="square_016um")
-    assert want["in_tissue"].dtype == bool
+    assert want["in_tissue"].dtype == tissue_dtype
     assert pos.barcodes == list(want.index)
     for name in COLUMNS[1:]:
         np.testing.assert_array_equal(pos[name], want[name].to_numpy())

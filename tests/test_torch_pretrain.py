@@ -51,6 +51,16 @@ LM_KW = dict(num_tokens=7, max_seq_len=N, dim=DIM, depth=DEPTH, heads=HEADS, dim
 LR = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    machine's cores, and multi-threaded small CPU ops contend badly there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -72,6 +72,17 @@ from gridnext_tpu_torch.data import DenseWSIGridDataset, SlideGridDataset
 from gridnext_tpu_torch.pipeline import patch_grid
 from gridnext_tpu_torch.serving import label_parity_report
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    machine's cores, and multi-threaded small CPU ops contend badly there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N_CLASSES, PATCH, GENES, VOCAB = 3, 16, 30, 40
 CLASSES = ["A", "B", "C"]
 TPU_F = {"stages": [[32, 1]], "stem_patch": 8, "norm": "rms"}

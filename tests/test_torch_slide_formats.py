@@ -27,8 +27,11 @@ Covered:
 - YCbCr outside JPEG under every subsampling libtiff converts, as Pillow
   reads it through libtiff's RGBA route (libtiff's arithmetic, its short
   reads of 4x4 strips and its skew of 4x4 edge tiles);
-- the formats that stay refused (Lab, JPEG arithmetic coding) raise
-  ``ValueError`` naming the file, and none of these files reaches PIL;
+- CIELab TIFFs through LittleCMS's transform (``pillow_modes.lab_to_rgb``,
+  on a lattice of Lab triplets), arithmetic-coded and lossless JPEGs; the
+  formats that stay refused (ICCLab, ITULab, 12-bit and hierarchical
+  JPEG) raise ``ValueError`` naming the file, as Pillow refuses them, and
+  none of these files reaches PIL;
 - ``register`` (both packages' commands) of one array whose slide is a
   progressive JPEG and a 16-bit TIFF: equal Loupe CSVs.
 """
@@ -205,16 +208,25 @@ def test_transcoded_scripts_match_pillow():
                                       jpeg.decode_jpeg(base))
 
 
-def test_refused_jpegs_raise_naming_the_file(tmp_path):
-    base = _pil(Image.fromarray(TT.image((16, 16, 3), 820)), "JPEG")
+def test_refused_jpegs_raise_naming_the_file(tmp_path, monkeypatch):
+    """The arithmetic-coded and lossless slides once refused decode as
+    JAX's ``decode_slide`` (Pillow) does; what Pillow refuses (12-bit,
+    hierarchical, lossless YCbCr) raises naming the file."""
+    rgb = TT.image((16, 16, 3), 820)
+    base = _pil(Image.fromarray(rgb), "JPEG")
     sof = base.index(b"\xff\xc0")
-    cases = {"arith.jpg": (base[:sof + 1] + b"\xc9" + base[sof + 2:], "arithmetic-coded"),
-             "lossless.jpg": (base[:sof + 1] + b"\xc3" + base[sof + 2:], r"lossless \(SOF3\)"),
-             "bits12.jpg": (base[:sof + 4] + b"\x0c" + base[sof + 5:], "12-bit samples")}
+    arith = JT.transcode(base, 0, arith=True)
+    _hold_to_jax({"arith.jpg": arith, "lossless.jpg": JT.write_lossless(rgb, 4)}, tmp_path,
+                 monkeypatch)
+    cases = {"bits12.jpg": (base[:sof + 4] + b"\x0c" + base[sof + 5:], "12-bit samples"),
+             "sof13.jpg": (arith.replace(b"\xff\xc9", b"\xff\xcd", 1), r"\(SOF13\)"),
+             "ycbcr.jpg": (JT.write_lossless(rgb, 1, app=JT.JFIF), "lossless with a colour")}
     for name, (data, pattern) in cases.items():
         (tmp_path / name).write_bytes(data)
         with pytest.raises(ValueError, match=rf"{name}.*{pattern}"):
             ingest.decode_slide(str(tmp_path / name))
+        with pytest.raises((OSError, SyntaxError)):
+            Image.open(io.BytesIO(data)).load()
 
 
 # ---- TIFF --------------------------------------------------------------------
@@ -343,12 +355,17 @@ def test_ycbcr_outside_jpeg_as_libtiff_converts_it(tmp_path, monkeypatch):
     _hold_to_jax(cases, tmp_path, monkeypatch)
 
 
-def test_refused_tiffs_raise_naming_the_file(tmp_path):
-    """Lab (Pillow converts it through LittleCMS) and layouts Pillow has no
-    mode for stay refused, naming the file."""
+def test_refused_tiffs_raise_naming_the_file(tmp_path, monkeypatch):
+    """The CIELab files once refused decode as JAX's ``decode_slide``
+    (Pillow, through LittleCMS) does; ICCLab, ITULab and the layouts Pillow
+    has no mode for stay refused, naming the file, and Pillow refuses them."""
     rgb = Image.fromarray(TT.image((16, 16, 3), 950))
-    cases = {"lab.tif": (_pil(rgb.convert("LAB"), "TIFF"), "CIELab"),
-             "lab_lzw.tif": (_pil(rgb.convert("LAB"), "TIFF", compression="tiff_lzw"), "CIELab"),
+    _hold_to_jax({"lab.tif": _pil(rgb.convert("LAB"), "TIFF"),
+                  "lab_lzw.tif": _pil(rgb.convert("LAB"), "TIFF", compression="tiff_lzw")},
+                 tmp_path, monkeypatch)
+    lab = TT.image((8, 8, 3), 957)
+    cases = {"icclab.tif": (TT._tiff_of(lab, 8, photometric=9), r"photometric 9 \(ICCLab\)"),
+             "itulab.tif": (TT._tiff_of(lab, 8, photometric=10), r"photometric 10 \(ITULab\)"),
              "rgba_fill2.tif": (TT._tiff_of(TT.image((8, 8, 4), 951), 8, photometric=2,
                                             fill_order=2), "FillOrder 2"),
              "gray16_white_be.tif": (TT._tiff_of(TT.wide((8, 8, 1), 952), 16, photometric=0,
@@ -371,6 +388,23 @@ def test_refused_tiffs_raise_naming_the_file(tmp_path):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(ValueError, match=rf"{name}.*{pattern}"):
             ingest.decode_slide(str(tmp_path / name))
+    for name in ("icclab.tif", "itulab.tif"):
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(cases[name][0])).load()
+
+
+@pytest.mark.parametrize("step", [17])
+def test_lab_conversion_matches_pillow_on_a_lattice(step):
+    """``pillow_modes.lab_to_rgb`` against Pillow's ``convert("RGB")`` (its
+    LittleCMS transform) on every ``step``-th 8-bit (L, a*, b*) triplet and
+    the cube's faces (``tools/check_lab_conversion.py`` runs all 2^24)."""
+    v = np.unique(np.r_[np.arange(0, 256, step), 1, 127, 128, 129, 254, 255]).astype(np.uint8)
+    lab = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1)
+    want = np.asarray(Image.fromarray(lab.reshape(-1, len(v), 3), "LAB").convert("RGB"))
+    got = pillow_modes.lab_to_rgb(lab.reshape(-1, len(v), 3))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pillow_modes.lab_to_rgb(lab, n_threads=1).reshape(got.shape),
+                                  want)
 
 
 # ---- PNG ---------------------------------------------------------------------
@@ -408,7 +442,12 @@ def test_slide_formats_never_reach_pil(tmp_path, monkeypatch):
              "g16.tif": _pil(Image.fromarray(TT.wide((20, 24), 991)), "TIFF"),
              "g4.tif": _pil(Image.fromarray(rgb[..., 0] > 99), "TIFF", compression="group4"),
              "f.tif": _pil(Image.fromarray(TT.wide((20, 24), 992, np.float32)), "TIFF"),
-             "adam7.png": TT.assemble_png(TT.wide((20, 24, 3), 993), 2, depth=16, interlace=1)}
+             "adam7.png": TT.assemble_png(TT.wide((20, 24, 3), 993), 2, depth=16, interlace=1),
+             "arith.jpg": JT.transcode(_pil(Image.fromarray(rgb), "JPEG"), 1, arith=True),
+             "lossless.jpg": JT.write_lossless(rgb, 7, pt=1),
+             "cut.jpg": JT.cut_scan(JT.transcode(_pil(Image.fromarray(rgb), "JPEG"), 0,
+                                                 arith=True), 0.5),
+             "lab.tif": TT._tiff_of(TT.rgb_to_lab(rgb), 8, compression=8, photometric=8)}
     wants = {}
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
@@ -424,31 +463,28 @@ def test_slide_formats_never_reach_pil(tmp_path, monkeypatch):
 
 # ---- register ----------------------------------------------------------------
 
-def test_register_progressive_jpeg_and_16bit_tiff_slides_match_jax(tmp_path):
-    """One ``register`` through both packages' commands of one array twice:
-    its slide as a progressive JPEG and as a 16-bit RGB TIFF (Deflate,
-    Predictor 2, ``v << 8 | noise``). Equal Loupe CSVs."""
+def _simulated_array(tmp_path):
+    """(Spaceranger outs directory, slide pixels) of one simulated array."""
+    from gridnext_tpu.data import simulate_spaceranger_dir
+
+    sim = simulate_spaceranger_dir(tmp_path / "a0", seed=3, n_genes=5, n_classes=3, image=True,
+                                   spot_spacing_px=10, tissue_fraction=0.4)
+    return (str(Path(sim["spaceranger_dir"]) / "outs"),
+            np.asarray(Image.open(sim["image_file"]).convert("RGB")))
+
+
+def _register_both(tmp_path, srd: str, slides) -> None:
+    """``register`` through both packages' commands of the array ``srd``
+    once a slide of ``slides``, with one seeded image model directory:
+    equal Loupe CSVs."""
     import jax
     import jax.numpy as jnp
 
     from gridnext_tpu.cli import main as jax_main
-    from gridnext_tpu.data import simulate_spaceranger_dir
     from gridnext_tpu.models import GridNetHex, TpuPatchClassifier
     from gridnext_tpu.train import create_train_state, make_gridwise_optimizer, save_checkpoint
     from gridnext_tpu_torch.cli import main as port_main
 
-    sim = simulate_spaceranger_dir(tmp_path / "a0", seed=3, n_genes=5, n_classes=3, image=True,
-                                   spot_spacing_px=10, tissue_fraction=0.4)
-    srd = str(Path(sim["spaceranger_dir"]) / "outs")
-    pixels = np.asarray(Image.open(sim["image_file"]).convert("RGB"))
-    prog = tmp_path / "slide_prog.jpg"
-    prog.write_bytes(_pil(Image.fromarray(pixels), "JPEG", quality=90, progressive=True))
-    noise = np.random.default_rng(9).integers(0, 256, pixels.shape)
-    wide = TT._tiff_of(pixels.astype(np.uint16) << 8 | noise.astype(np.uint16), 16,
-                       compression=8, photometric=2, predictor=2, rows_per_strip=16)
-    slide16 = tmp_path / "slide16.tif"
-    slide16.write_bytes(wide)
-    assert np.array_equal(ingest.decode_slide(str(slide16)), pixels)
     g = GridNetHex(patch_classifier=TpuPatchClassifier(n_classes=3, stages=((32, 1),),
                                                        stem_patch=8), n_classes=3)
     state = create_train_state(g, jax.random.key(0), jnp.zeros((1, 2, 2, 16, 16, 3)),
@@ -467,16 +503,51 @@ def test_register_progressive_jpeg_and_16bit_tiff_slides_match_jax(tmp_path):
             "tpu_f": {"stages": [[32, 1]], "stem_patch": 8, "norm": "rms"}, "image_f": "tpu",
             "hd_binning": None, "grid_dims": None, "patch_chunk": 256, "dense_ingest": False}
     (model / "model.json").write_text(json.dumps(meta))
-    args = ["register", "--model", str(model), "--images", str(prog), str(slide16),
-            "--spaceranger", srd, srd]
+    args = ["register", "--model", str(model), "--images", *map(str, slides),
+            "--spaceranger", *[srd] * len(slides)]
     jax_main(args + ["--out", str(tmp_path / "jax")])
     port_main(args + ["--out", str(tmp_path / "port"), "--device", "cpu"])
     csvs = sorted(p.name for p in (tmp_path / "jax").iterdir())
-    assert len(csvs) == 2 and sorted(p.name for p in (tmp_path / "port").iterdir()) == csvs
+    assert len(csvs) == len(slides)
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == csvs
     for name in csvs:
         jax_csv = (tmp_path / "jax" / name).read_bytes()
         assert jax_csv.count(b"\n") > 100
         assert (tmp_path / "port" / name).read_bytes() == jax_csv, name
+
+
+def test_register_progressive_jpeg_and_16bit_tiff_slides_match_jax(tmp_path):
+    """One ``register`` through both packages' commands of one array twice:
+    its slide as a progressive JPEG and as a 16-bit RGB TIFF (Deflate,
+    Predictor 2, ``v << 8 | noise``). Equal Loupe CSVs."""
+    srd, pixels = _simulated_array(tmp_path)
+    prog = tmp_path / "slide_prog.jpg"
+    prog.write_bytes(_pil(Image.fromarray(pixels), "JPEG", quality=90, progressive=True))
+    noise = np.random.default_rng(9).integers(0, 256, pixels.shape)
+    wide = TT._tiff_of(pixels.astype(np.uint16) << 8 | noise.astype(np.uint16), 16,
+                       compression=8, photometric=2, predictor=2, rows_per_strip=16)
+    slide16 = tmp_path / "slide16.tif"
+    slide16.write_bytes(wide)
+    assert np.array_equal(ingest.decode_slide(str(slide16)), pixels)
+    _register_both(tmp_path, srd, [prog, slide16])
+
+
+def test_register_arithmetic_lossless_jpeg_and_lab_tiff_slides_match_jax(tmp_path):
+    """The same with three slides of the array: an arithmetic-coded
+    progressive JPEG (the transcoder's rewrite of a quality-90 file), a
+    lossless JPEG (predictor 4) and a CIELab TIFF (``rgb_to_lab``,
+    Deflate). Equal Loupe CSVs."""
+    srd, pixels = _simulated_array(tmp_path)
+    arith = tmp_path / "slide_arith.jpg"
+    arith.write_bytes(JT.transcode(_pil(Image.fromarray(pixels), "JPEG", quality=90), 1,
+                                   arith=True))
+    lossless = tmp_path / "slide_lossless.jpg"
+    lossless.write_bytes(JT.write_lossless(pixels, 4))
+    lab = tmp_path / "slide_lab.tif"
+    lab.write_bytes(TT._tiff_of(TT.rgb_to_lab(pixels), 8, compression=8, photometric=8,
+                                rows_per_strip=16))
+    assert np.array_equal(ingest.decode_slide(str(lossless)), pixels)
+    _register_both(tmp_path, srd, [arith, lossless, lab])
 
 
 def test_png_info_counts_pillow_bands():

@@ -260,11 +260,12 @@ def _pil_file(img: Image.Image, fmt: str = "TIFF", **kw) -> bytes:
 
 
 def _refused_cases():
-    """{name: (bytes, message pattern)}: files Pillow fails on too (and Lab,
-    which Pillow converts through LittleCMS)."""
+    """{name: (bytes, message pattern)}: files Pillow fails on too ("lab.tif"
+    is ICCLab, Photometric 9: the CIELab file it once held now decodes, in
+    :func:`_formerly_refused_cases`)."""
     a = TOOL.image((16, 16, 3), 500)
-    rgb = Image.fromarray(a)
-    out = {"lab.tif": (_pil_file(rgb.convert("LAB")), "CIELab")}
+    out = {"lab.tif": (TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1,
+                                          photometric=9), "ICCLab")}
     out["signed.tif"] = (TOOL.assemble_tiff(a.shape, [a.tobytes()], compression=1,
                                             photometric=2, sample_format=2), "SampleFormat")
     out["pred3.tif"] = (TOOL.assemble_tiff(a.shape, [zlib.compress(a.tobytes())],
@@ -328,6 +329,7 @@ def _formerly_refused_cases():
                 a.shape, [_pil_file(rgb, "JPEG", progressive=True)], compression=7,
                 photometric=6, tile=(16, 16)),
             "adam7.png": TOOL.assemble_png(a, 2, interlace=1),
+            "lab.tif": _pil_file(rgb.convert("LAB")),
             "png1.png": _pil_file(rgb.convert("1"), "PNG"),
             "png2.png": _pil_file(pal, "PNG"),
             "png4.png": TOOL.assemble_png(a[..., 0] >> 4, 0, depth=4),

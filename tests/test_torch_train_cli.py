@@ -28,12 +28,23 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from gridnext_tpu import cli as jax_cli
 from gridnext_tpu.data import simulate_spaceranger_dir
 from gridnext_tpu.io import prepare_count_files
 from gridnext_tpu_torch import cli
 from gridnext_tpu_torch.compat.from_jax import load_checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    machine's cores, and multi-threaded small CPU ops contend badly there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -655,7 +655,517 @@ void write_scan(Image& im, const Scan& sc, bool progressive, int restart,
   }
 }
 
-void write_image(Image& im, int script, int restart, std::vector<uint8_t>& out) {
+// ---- arithmetic coding (ITU T.81 Annex D, as libjpeg's jcarith.c codes) ----
+
+// Table D.2 packed as libjpeg's jaricom.c packs it: Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the
+// fixed bin of probability 0.5.
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+// The QM coder of one scan: bytes go straight to ``out`` (it stuffs its
+// own zeros after 0xFF).
+struct ArithWriter {
+  std::vector<uint8_t>& out;
+  int64_t c = 0, a = 0x10000, sc = 0, zc = 0;   // stacked 0xFF / pending 0x00 bytes
+  int ct = 11, buffer = -1;
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed = 113;
+  int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+
+  explicit ArithWriter(std::vector<uint8_t>& o) : out(o) {}
+
+  void start() {
+    c = 0;
+    a = 0x10000;
+    sc = zc = 0;
+    ct = 11;
+    buffer = -1;
+  }
+  void zeros() {
+    for (; zc; --zc) out.push_back(0x00);
+  }
+  void stacked() {
+    if (sc) {
+      zeros();
+      for (; sc; --sc) {
+        out.push_back(0xFF);
+        out.push_back(0x00);
+      }
+    }
+  }
+  void put_buffer(int b) {
+    zeros();
+    out.push_back(static_cast<uint8_t>(b));
+    if (b == 0xFF) out.push_back(0x00);
+  }
+
+  void encode(uint8_t* st, int val) {
+    const int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    a -= qe;
+    if (val != (sv >> 7)) {              // the less probable symbol
+      if (a >= qe) {
+        c += a;
+        a = qe;
+      }
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+    } else {
+      if (a >= 0x8000) return;
+      if (a < qe) {
+        c += a;
+        a = qe;
+      }
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+    do {                                 // renormalisation and output (D.1.6)
+      a <<= 1;
+      c <<= 1;
+      if (--ct == 0) {
+        const int64_t temp = c >> 19;
+        if (temp > 0xFF) {               // a carry over the stacked 0xFF bytes
+          if (buffer >= 0) put_buffer(buffer + 1);
+          zc += sc;
+          sc = 0;
+          buffer = static_cast<int>(temp & 0xFF);
+        } else if (temp == 0xFF) {
+          ++sc;
+        } else {
+          if (buffer == 0) {
+            ++zc;
+          } else if (buffer >= 0) {
+            put_buffer(buffer);
+          }
+          stacked();
+          buffer = static_cast<int>(temp & 0xFF);
+        }
+        c &= 0x7FFFF;
+        ct += 8;
+      }
+    } while (a < 0x8000);
+  }
+
+  // Termination (D.1.8): the shortest tail that stays inside the interval
+  void finish() {
+    int64_t temp = (a - 1 + c) & 0xFFFF0000LL;
+    c = temp < c ? temp + 0x8000 : temp;
+    c <<= ct;
+    if (c & 0xF8000000LL) {
+      if (buffer >= 0) put_buffer(buffer + 1);
+      zc += sc;
+      sc = 0;
+    } else {
+      if (buffer == 0) {
+        ++zc;
+      } else if (buffer >= 0) {
+        put_buffer(buffer);
+      }
+      stacked();
+    }
+    if (c & 0x7FFF800LL) {
+      zeros();
+      const int b1 = static_cast<int>((c >> 19) & 0xFF);
+      out.push_back(static_cast<uint8_t>(b1));
+      if (b1 == 0xFF) out.push_back(0x00);
+      if (c & 0x7F800LL) {
+        const int b2 = static_cast<int>((c >> 11) & 0xFF);
+        out.push_back(static_cast<uint8_t>(b2));
+        if (b2 == 0xFF) out.push_back(0x00);
+      }
+    }
+  }
+
+  // The magnitude category and bits of v - 1 > 0 after the sign (F.8, F.9):
+  // ``st`` the first magnitude bin, ``x2`` the bins from the second on
+  void magnitude(uint8_t* st, uint8_t* x2, int v, bool ac) {
+    int m = 0;
+    if (v -= 1) {
+      encode(st, 1);
+      m = 1;
+      int v2 = v;
+      if (ac) {
+        if (v2 >>= 1) {
+          encode(st, 1);
+          m <<= 1;
+          st = x2;
+          while (v2 >>= 1) {
+            encode(st, 1);
+            m <<= 1;
+            ++st;
+          }
+        }
+      } else {
+        st = x2;
+        while (v2 >>= 1) {
+          encode(st, 1);
+          m <<= 1;
+          ++st;
+        }
+      }
+    }
+    encode(st, 0);
+    mag_ = m;
+    st_ = st;
+    v_ = v;
+  }
+  void bits() {
+    uint8_t* st = st_ + 14;
+    for (int m = mag_; m >>= 1;) encode(st, (m & v_) ? 1 : 0);
+  }
+  int mag_ = 0, v_ = 0;
+  uint8_t* st_ = nullptr;
+
+  // a DC difference (F.1.4.1) of component i in table tbl; L, U its DAC
+  void dc(int i, int tbl, int value, int L, int U) {
+    uint8_t* st = dc_stats[tbl] + context[i];
+    int v = value - last_dc[i];
+    if (v == 0) {
+      encode(st, 0);
+      context[i] = 0;
+      return;
+    }
+    last_dc[i] = value;
+    encode(st, 1);
+    if (v > 0) {
+      encode(st + 1, 0);
+      st += 2;
+      context[i] = 4;
+    } else {
+      v = -v;
+      encode(st + 1, 1);
+      st += 3;
+      context[i] = 8;
+    }
+    magnitude(st, dc_stats[tbl] + 20, v, false);
+    if (mag_ < ((1 << L) >> 1))
+      context[i] = 0;
+    else if (mag_ > ((1 << U) >> 1))
+      context[i] += 8;
+    bits();
+  }
+
+  // AC coefficients ss..se of a block, each divided by 2^al (F.1.4.2)
+  void ac(const int16_t* blk, int tbl, int ss, int se, int al, int K) {
+    auto shifted = [&](int k) {
+      const int v = blk[kNatural[k]];
+      return v >= 0 ? v >> al : -((-v) >> al);
+    };
+    int ke = se;
+    while (ke > 0 && shifted(ke) == 0) --ke;
+    int k = ss;
+    for (; k <= ke; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      encode(st, 0);                   // not the end of the block
+      int v;
+      while ((v = shifted(k)) == 0) {
+        encode(st + 1, 0);
+        st += 3;
+        ++k;
+      }
+      encode(st + 1, 1);
+      encode(&fixed, v < 0 ? 1 : 0);
+      if (v < 0) v = -v;
+      magnitude(st + 2, ac_stats[tbl] + (k <= K ? 189 : 217), v, true);
+      bits();
+    }
+    if (k <= se) encode(ac_stats[tbl] + 3 * (k - 1), 1);
+  }
+
+  // An AC refinement scan's bits of a block (G.1.3.3)
+  void ac_refine(const int16_t* blk, int tbl, int ss, int se, int ah, int al) {
+    auto mag = [&](int k, int shift) {
+      const int v = blk[kNatural[k]];
+      return (v >= 0 ? v : -v) >> shift;
+    };
+    int ke = se;
+    while (ke > 0 && mag(ke, al) == 0) --ke;
+    int kex = ke;
+    while (kex > 0 && mag(kex, ah) == 0) --kex;
+    int k = ss;
+    for (; k <= ke; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex) encode(st, 0);
+      for (;;) {
+        const int v = mag(k, al);
+        if (v) {
+          if (v >> 1) {
+            encode(st + 2, v & 1);
+          } else {
+            encode(st + 1, 1);
+            encode(&fixed, blk[kNatural[k]] < 0 ? 1 : 0);
+          }
+          break;
+        }
+        encode(st + 1, 0);
+        st += 3;
+        ++k;
+      }
+    }
+    if (k <= se) encode(ac_stats[tbl] + 3 * (k - 1), 1);
+  }
+};
+
+// One scan's DAC, SOS and arithmetic-coded data, appended to ``out``.
+// Component 0 takes statistics tables 0, the others 1; dac holds (L, U, Kx)
+// of table 0, then of table 1.
+void write_scan_arith(Image& im, const Scan& sc, bool progressive, int restart,
+                      const int32_t* dac, std::vector<uint8_t>& out) {
+  const int ns = static_cast<int>(sc.comps.size());
+  const bool dc = sc.ss == 0, refine = sc.ah != 0;
+  int mx = im.mcux, my = im.mcuy;
+  if (ns == 1) {
+    mx = im.comps[sc.comps[0]].wib;
+    my = im.comps[sc.comps[0]].hib;
+  }
+  auto table = [&](int i) { return sc.comps[i] == 0 ? 0 : 1; };
+  std::vector<uint8_t> conditioning;          // DAC, as libjpeg's emit_dac writes it
+  for (int t = 0; t < 2; ++t) {
+    bool dc_used = false, ac_used = false;
+    for (int i = 0; i < ns; ++i)
+      if (table(i) == t) {
+        dc_used |= dc && !refine;
+        ac_used |= sc.se != 0;
+      }
+    if (dc_used) {
+      conditioning.push_back(static_cast<uint8_t>(t));
+      conditioning.push_back(static_cast<uint8_t>(dac[3 * t] + (dac[3 * t + 1] << 4)));
+    }
+    if (ac_used) {
+      conditioning.push_back(static_cast<uint8_t>(t + 16));
+      conditioning.push_back(static_cast<uint8_t>(dac[3 * t + 2]));
+    }
+  }
+  if (!conditioning.empty()) {
+    out.push_back(0xFF);
+    out.push_back(0xCC);
+    put16(out, 2 + static_cast<int>(conditioning.size()));
+    out.insert(out.end(), conditioning.begin(), conditioning.end());
+  }
+  out.push_back(0xFF);
+  out.push_back(0xDA);
+  put16(out, 6 + 2 * ns);
+  out.push_back(static_cast<uint8_t>(ns));
+  for (int i = 0; i < ns; ++i) {
+    out.push_back(static_cast<uint8_t>(im.comps[sc.comps[i]].id));
+    out.push_back(static_cast<uint8_t>(table(i) * 0x11));
+  }
+  out.push_back(static_cast<uint8_t>(sc.ss));
+  out.push_back(static_cast<uint8_t>(sc.se));
+  out.push_back(static_cast<uint8_t>((sc.ah << 4) | sc.al));
+  // each restart interval starts afresh: its bytes are coded apart, on
+  // threads, and joined with the RSTn markers between them
+  const int64_t total = static_cast<int64_t>(mx) * my;
+  const int64_t every = restart ? restart : total;
+  const int64_t intervals = (total + every - 1) / every;
+  std::vector<std::vector<uint8_t>> parts(intervals);
+  auto code = [&](int64_t k) {
+    ArithWriter w(parts[k]);
+    std::memset(w.dc_stats, 0, sizeof(w.dc_stats));
+    std::memset(w.ac_stats, 0, sizeof(w.ac_stats));
+    for (int64_t mcu = k * every; mcu < std::min(total, (k + 1) * every); ++mcu) {
+      const int x = static_cast<int>(mcu % mx), y = static_cast<int>(mcu / mx);
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = im.comps[sc.comps[i]];
+        const int t = table(i);
+        const int bv = ns == 1 ? 1 : c.v, bh = ns == 1 ? 1 : c.h;
+        for (int by = 0; by < bv; ++by)
+          for (int bx = 0; bx < bh; ++bx) {
+            const int16_t* blk = ns == 1 ? c.block(y, x) : c.block(y * c.v + by, x * c.h + bx);
+            if (!progressive) {
+              w.dc(i, t, blk[0], dac[3 * t], dac[3 * t + 1]);
+              w.ac(blk, t, 1, 63, 0, dac[3 * t + 2]);
+            } else if (dc && !refine) {     // an arithmetic right shift of the DC
+              w.dc(i, t, blk[0] >> sc.al, dac[3 * t], dac[3 * t + 1]);
+            } else if (dc) {
+              w.encode(&w.fixed, (blk[0] >> sc.al) & 1);
+            } else if (!refine) {
+              w.ac(blk, t, sc.ss, sc.se, sc.al, dac[3 * t + 2]);
+            } else {
+              w.ac_refine(blk, t, sc.ss, sc.se, sc.ah, sc.al);
+            }
+          }
+      }
+    }
+    w.finish();
+  };
+  std::atomic<int64_t> next(0);
+  auto work = [&]() {
+    for (int64_t k; (k = next.fetch_add(1)) < intervals;) code(k);
+  };
+  const int64_t n_threads = std::min<int64_t>(
+      intervals, std::max(1u, std::thread::hardware_concurrency()));
+  std::vector<std::thread> threads;
+  for (int64_t t = 1; t < n_threads; ++t) threads.emplace_back(work);
+  work();
+  for (auto& t : threads) t.join();
+  for (int64_t k = 0; k < intervals; ++k) {
+    if (k) {
+      out.push_back(0xFF);
+      out.push_back(static_cast<uint8_t>(0xD0 + ((k - 1) & 7)));
+    }
+    out.insert(out.end(), parts[k].begin(), parts[k].end());
+  }
+}
+
+// ---- lossless (SOF3) -------------------------------------------------------
+
+// (h, w, nc) 8-bit samples as a lossless Huffman JPEG (T.81 Annex H, as
+// libjpeg-turbo 3 reads it): predictor psv (1-7), point transform pt, a
+// restart marker every restart_rows rows (0: none; prediction starts over
+// after each), one interleaved scan or one scan a component, one optimal
+// table. app is copied after SOI.
+void write_lossless(const uint8_t* px, int h, int w, int nc, const int32_t* ids, int psv,
+                    int pt, int restart_rows, bool interleaved, const uint8_t* app,
+                    int64_t app_n, std::vector<uint8_t>& out) {
+  if (psv < 1 || psv > 7 || pt < 0 || pt > 7) fail("lossless: predictor 1-7, Pt 0-7");
+  if (static_cast<int64_t>(restart_rows) * w > 65535) fail("lossless: restart interval too long");
+  std::vector<std::vector<int>> scans;
+  if (interleaved) {
+    scans.emplace_back();
+    for (int c = 0; c < nc; ++c) scans.back().push_back(c);
+  } else {
+    for (int c = 0; c < nc; ++c) scans.push_back({c});
+  }
+  auto sample = [&](int y, int x, int c) { return px[(static_cast<int64_t>(y) * w + x) * nc + c] >> pt; };
+  // each scan's differences in coding order, then symbol counts
+  std::vector<std::vector<int>> diffs(scans.size());
+  int64_t freq[256] = {0};
+  for (size_t s = 0; s < scans.size(); ++s)
+    for (int y = 0; y < h; ++y) {
+      const bool first = restart_rows ? y % restart_rows == 0 : y == 0;
+      for (int x = 0; x < w; ++x)
+        for (int c : scans[s]) {
+          int p;
+          if (first) {
+            p = x ? sample(y, x - 1, c) : 1 << (7 - pt);
+          } else if (x == 0) {
+            p = sample(y - 1, 0, c);
+          } else {
+            const int ra = sample(y, x - 1, c), rb = sample(y - 1, x, c), rc = sample(y - 1, x - 1, c);
+            switch (psv) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1; break;
+            }
+          }
+          const int d = sample(y, x, c) - p;
+          diffs[s].push_back(d);
+          ++freq[d ? 32 - __builtin_clz(static_cast<unsigned>(d < 0 ? -d : d)) : 0];
+        }
+    }
+  uint8_t bits[16];
+  std::vector<uint8_t> vals;
+  optimal_table(freq, bits, vals);
+  uint16_t code[17] = {0};
+  uint8_t len[17] = {0};
+  for (int l = 1, k = 0, cd = 0; l <= 16; ++l, cd <<= 1)
+    for (int i = 0; i < bits[l - 1]; ++i, ++k, ++cd) {
+      code[vals[k]] = static_cast<uint16_t>(cd);
+      len[vals[k]] = static_cast<uint8_t>(l);
+    }
+  out = {0xFF, 0xD8};
+  out.insert(out.end(), app, app + app_n);
+  out.push_back(0xFF);
+  out.push_back(0xC3);
+  put16(out, 8 + 3 * nc);
+  out.push_back(8);
+  put16(out, h);
+  put16(out, w);
+  out.push_back(static_cast<uint8_t>(nc));
+  for (int c = 0; c < nc; ++c) {
+    out.push_back(static_cast<uint8_t>(ids[c]));
+    out.push_back(0x11);
+    out.push_back(0);
+  }
+  out.push_back(0xFF);
+  out.push_back(0xC4);
+  put16(out, 3 + 16 + static_cast<int>(vals.size()));
+  out.push_back(0x00);
+  out.insert(out.end(), bits, bits + 16);
+  out.insert(out.end(), vals.begin(), vals.end());
+  if (restart_rows) {
+    out.push_back(0xFF);
+    out.push_back(0xDD);
+    put16(out, 4);
+    put16(out, restart_rows * w);
+  }
+  for (size_t s = 0; s < scans.size(); ++s) {
+    const int ns = static_cast<int>(scans[s].size());
+    out.push_back(0xFF);
+    out.push_back(0xDA);
+    put16(out, 6 + 2 * ns);
+    out.push_back(static_cast<uint8_t>(ns));
+    for (int c : scans[s]) {
+      out.push_back(static_cast<uint8_t>(ids[c]));
+      out.push_back(0x00);
+    }
+    out.push_back(static_cast<uint8_t>(psv));
+    out.push_back(0);
+    out.push_back(static_cast<uint8_t>(pt));
+    uint32_t acc = 0;
+    int n = 0;
+    auto put = [&](uint32_t v, int nb) {
+      for (int i = nb - 1; i >= 0; --i) {
+        acc = (acc << 1) | ((v >> i) & 1);
+        if (++n == 8) {
+          out.push_back(static_cast<uint8_t>(acc));
+          if ((acc & 0xFF) == 0xFF) out.push_back(0x00);
+          acc = 0;
+          n = 0;
+        }
+      }
+    };
+    auto flush = [&]() {
+      while (n) put(1, 1);
+    };
+    const int64_t per_row = static_cast<int64_t>(w) * ns;
+    int rst = 0;
+    for (size_t i = 0; i < diffs[s].size(); ++i) {
+      if (restart_rows && i && i % (per_row * restart_rows) == 0) {
+        flush();
+        out.push_back(0xFF);
+        out.push_back(static_cast<uint8_t>(0xD0 + rst));
+        rst = (rst + 1) & 7;
+      }
+      const int d = diffs[s][i];
+      const int mag = d < 0 ? -d : d;
+      const int sz = mag ? 32 - __builtin_clz(static_cast<unsigned>(mag)) : 0;
+      put(code[sz], len[sz]);
+      if (sz) put(static_cast<uint32_t>(d > 0 ? d : d - 1) & ((1u << sz) - 1), sz);
+    }
+    flush();
+  }
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+}
+
+// The whole file: Huffman-coded (dac null) or arithmetic-coded under dac's
+// conditioning (as write_scan_arith)
+void write_image(Image& im, int script, int restart, const int32_t* dac,
+                 std::vector<uint8_t>& out) {
   const int nc = static_cast<int>(im.comps.size());
   const bool progressive = script != 0;
   out = {0xFF, 0xD8};
@@ -677,7 +1187,10 @@ void write_image(Image& im, int script, int restart, std::vector<uint8_t>& out) 
   bool wide_tables = false;
   for (int t = 0; t < 4; ++t)
     for (int i = 0; i < 64 && im.qt_used[t]; ++i) wide_tables |= im.qt[t][i] > 255;
-  out.push_back(progressive ? 0xC2 : wide_tables ? 0xC1 : 0xC0);
+  if (dac)
+    out.push_back(progressive ? 0xCA : 0xC9);
+  else
+    out.push_back(progressive ? 0xC2 : wide_tables ? 0xC1 : 0xC0);
   put16(out, 8 + 3 * nc);
   out.push_back(8);
   put16(out, im.height);
@@ -701,7 +1214,10 @@ void write_image(Image& im, int script, int restart, std::vector<uint8_t>& out) 
   auto work = [&]() {                      // the scans are independent: one a task
     for (size_t i; (i = next.fetch_add(1)) < scans.size();) {
       try {
-        write_scan(im, scans[i], progressive, restart, parts[i]);
+        if (dac)
+          write_scan_arith(im, scans[i], progressive, restart, dac, parts[i]);
+        else
+          write_scan(im, scans[i], progressive, restart, parts[i]);
       } catch (const std::exception& e) {
         errors[i] = e.what();
       }
@@ -737,13 +1253,14 @@ void set_error(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// Rewrite a sequential Huffman JPEG under ``script`` with ``restart``.
-int jt_transcode(const uint8_t* data, int64_t n, int script, int restart, uint8_t** out,
-                 int64_t* out_n, char* err, int errlen) {
+// Rewrite a sequential Huffman JPEG under ``script`` with ``restart``,
+// arithmetic-coded under ``dac`` (L, U, Kx of tables 0 and 1) unless null.
+int jt_transcode(const uint8_t* data, int64_t n, int script, int restart, const int32_t* dac,
+                 uint8_t** out, int64_t* out_n, char* err, int errlen) {
   try {
     Image im = read_sequential(data, n);
     std::vector<uint8_t> bytes;
-    write_image(im, script, restart, bytes);
+    write_image(im, script, restart, dac, bytes);
     *out = give(bytes, out_n);
     return 0;
   } catch (const std::exception& e) {
@@ -760,7 +1277,8 @@ int jt_transcode(const uint8_t* data, int64_t n, int script, int restart, uint8_
 int jt_write(int width, int height, int nc, const int32_t* ids, const int32_t* h,
              const int32_t* v, const int32_t* tq, const int16_t* const* coefs,
              const uint16_t* qt, const int32_t* used, const uint8_t* app, int64_t app_n,
-             int script, int restart, uint8_t** out, int64_t* out_n, char* err, int errlen) {
+             int script, int restart, const int32_t* dac, uint8_t** out, int64_t* out_n,
+             char* err, int errlen) {
   try {
     Image im;
     im.width = width;
@@ -775,7 +1293,23 @@ int jt_write(int width, int height, int nc, const int32_t* ids, const int32_t* h
     }
     im.app.assign(app, app + app_n);
     std::vector<uint8_t> bytes;
-    write_image(im, script, restart, bytes);
+    write_image(im, script, restart, dac, bytes);
+    *out = give(bytes, out_n);
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// A lossless JPEG of (h, w, nc) samples (write_lossless).
+int jt_write_lossless(const uint8_t* px, int h, int w, int nc, const int32_t* ids, int psv,
+                      int pt, int restart_rows, int interleaved, const uint8_t* app,
+                      int64_t app_n, uint8_t** out, int64_t* out_n, char* err, int errlen) {
+  try {
+    std::vector<uint8_t> bytes;
+    write_lossless(px, h, w, nc, ids, psv, pt, restart_rows, interleaved != 0, app, app_n,
+                   bytes);
     *out = give(bytes, out_n);
     return 0;
   } catch (const std::exception& e) {

@@ -94,9 +94,11 @@ def transcoder():
             raise RuntimeError(f"build of jpeg_transcode.cpp failed:\n{res.stderr}")
         os.replace(tmp, lib)
     _LIB = ctypes.CDLL(lib)
-    _LIB.jt_transcode.argtypes = [_VP, _LL, _I, _I, _VP, _VP, ctypes.c_char_p, _I]
+    _LIB.jt_transcode.argtypes = [_VP, _LL, _I, _I, _VP, _VP, _VP, ctypes.c_char_p, _I]
     _LIB.jt_write.argtypes = [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I,
-                              _I, _VP, _VP, ctypes.c_char_p, _I]
+                              _I, _VP, _VP, _VP, ctypes.c_char_p, _I]
+    _LIB.jt_write_lossless.argtypes = [_VP, _I, _I, _I, _VP, _I, _I, _I, _I, _VP, _LL, _VP,
+                                       _VP, ctypes.c_char_p, _I]
     _LIB.jt_free.argtypes = [_VP]
     return _LIB
 
@@ -113,16 +115,45 @@ def _bytes_of(lib, status, out, n, err) -> bytes:
         lib.jt_free(out)
 
 
-def transcode(data: bytes, script: int, restart: int = 0) -> bytes:
+#: libjpeg's default arithmetic conditioning: (L, U, Kx) of tables 0 and 1
+DAC_DEFAULT = (0, 1, 5, 0, 1, 5)
+
+
+def transcode(data: bytes, script: int, restart: int = 0, arith=None) -> bytes:
     """A sequential Huffman JPEG's coefficients rewritten under scan
     ``script`` (``tools/jpeg_transcode.cpp``: 0 sequential, 1 libjpeg's
     simple progression, 2 unrefined, 3 DC only below AC 10, 4 spectral
     selection with one DC scan a component) with a restart marker every
-    ``restart`` MCUs: the same pixels, other bytes."""
+    ``restart`` MCUs: the same pixels, other bytes. ``arith``: arithmetic
+    coding (SOF9 or SOF10, as ``jpegtran -arithmetic`` writes) with
+    :data:`DAC_DEFAULT` (True) or the given (L, U, Kx) of tables 0 and 1
+    (component 0 codes with table 0, the others with table 1)."""
     lib = transcoder()
     out, n, err = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(512)
-    status = lib.jt_transcode(data, len(data), script, restart, ctypes.byref(out),
+    dac = np.ascontiguousarray(DAC_DEFAULT if arith is True else (arith or DAC_DEFAULT),
+                               np.int32)
+    status = lib.jt_transcode(data, len(data), script, restart,
+                              dac.ctypes.data if arith else None, ctypes.byref(out),
                               ctypes.byref(n), err, 512)
+    return _bytes_of(lib, status, out, n, err)
+
+
+def write_lossless(pixels: np.ndarray, predictor: int, pt: int = 0, restart_rows: int = 0,
+                   interleaved: bool = True, ids=None, app: bytes = b"") -> bytes:
+    """A lossless (SOF3) JPEG of (H, W) or (H, W, C) uint8 ``pixels``
+    (``tools/jpeg_transcode.cpp``'s own writer: libjpeg-turbo 2.1 cannot
+    write one): ``predictor`` 1-7, point transform ``pt``, a restart every
+    ``restart_rows`` rows, one scan or one a component, component ``ids``
+    (default 1, 2, ...), ``app`` after SOI."""
+    lib = transcoder()
+    px = np.ascontiguousarray(pixels, np.uint8)
+    h, w = px.shape[:2]
+    nc = 1 if px.ndim == 2 else px.shape[2]
+    ids = np.ascontiguousarray(ids or range(1, nc + 1), np.int32)
+    out, n, err = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(512)
+    status = lib.jt_write_lossless(px.ctypes.data, h, w, nc, ids.ctypes.data, predictor, pt,
+                                   restart_rows, int(interleaved), app, len(app),
+                                   ctypes.byref(out), ctypes.byref(n), err, 512)
     return _bytes_of(lib, status, out, n, err)
 
 
@@ -184,11 +215,11 @@ def coefficients(planes, factors, tables, tq) -> list:
 
 
 def write_coefficients(width: int, height: int, comps, tables, app: bytes = JFIF,
-                       script: int = 0, restart: int = 0) -> bytes:
+                       script: int = 0, restart: int = 0, arith=None) -> bytes:
     """A JPEG of ``comps`` (dicts of ``id``, ``h``, ``v``, ``tq`` and
     ``coef``, ``(bh, bw, 64)`` int16 in natural order) under ``tables``
     ({table number: 64 values, natural order}), ``app`` copied after SOI,
-    written under scan ``script`` (as :func:`transcode`)."""
+    written under scan ``script`` and ``arith`` (as :func:`transcode`)."""
     lib = transcoder()
     n = len(comps)
     ints = lambda key: np.array([c[key] for c in comps], np.int32)  # noqa: E731
@@ -201,9 +232,12 @@ def write_coefficients(width: int, height: int, comps, tables, app: bytes = JFIF
         qt[t] = table
         used[t] = 1
     out, size, err = ctypes.c_void_p(), ctypes.c_longlong(), ctypes.create_string_buffer(512)
+    dac = np.ascontiguousarray(DAC_DEFAULT if arith is True else (arith or DAC_DEFAULT),
+                               np.int32)
     status = lib.jt_write(width, height, n, ids.ctypes.data, h.ctypes.data, v.ctypes.data,
                           tq.ctypes.data, ptrs, qt.ctypes.data, used.ctypes.data, app, len(app),
-                          script, restart, ctypes.byref(out), ctypes.byref(size), err, 512)
+                          script, restart, dac.ctypes.data if arith else None,
+                          ctypes.byref(out), ctypes.byref(size), err, 512)
     return _bytes_of(lib, status, out, size, err)
 
 
@@ -293,7 +327,135 @@ def _more_cases() -> dict:
     g = _pillow(image((41, 39), 45), quality=60)
     out["unrefined_gray41x39"] = (transcode(g, 2, restart=5), image((41, 39), 45),
                                   "progressive gray, unrefined, restart every 5 MCUs")
+    out.update(_arithmetic_cases())
+    out.update(_lossless_cases())
+    out.update(_damaged_cases())
     return out
+
+
+#: non-default DAC conditioning: (L, U, Kx) of tables 0 and 1
+DAC_WIDE = (2, 4, 2, 1, 3, 30)
+
+
+def _arithmetic_cases() -> dict:
+    """Arithmetic-coded files (SOF9, SOF10): the coefficients of Huffman
+    files rewritten by the transcoder (each decodes as its Huffman twin)."""
+    out = {}
+    px = image((32, 40, 3), 50)
+    b420 = _pillow(px, quality=80)
+    b444 = _pillow(px, quality=70, subsampling=0)
+    gray = _pillow(px[..., 1], quality=75)
+    cases = (("arith_seq_420", b420, 0, 0, True, "sequential, 4:2:0"),
+             ("arith_prog_420", b420, 1, 0, True, "progressive (simple progression), 4:2:0"),
+             ("arith_seq_444_rst2", b444, 0, 2, True, "sequential, 4:4:4, restart every 2 MCUs"),
+             ("arith_prog_444_rst3", b444, 1, 3, True, "progressive, 4:4:4, restart every 3"),
+             ("arith_seq_gray_dac", gray, 0, 0, DAC_WIDE, "sequential gray, DAC L 2 U 4 Kx 2"),
+             ("arith_prog_420_dac", b420, 1, 0, DAC_WIDE, "progressive, DAC on both tables"),
+             ("arith_unrefined_gray_rst5", gray, 2, 5, True,
+              "progressive gray, unrefined (block smoothing), restart every 5"),
+             ("arith_spectral_420_rst3", b420, 4, 3, DAC_WIDE,
+              "progressive, spectral selection, a DC scan a component, restart every 3"))
+    for name, base, script, restart, arith, what in cases:
+        out[name] = (transcode(base, script, restart, arith), px, f"arithmetic {what}")
+    data, cmyk = _made((24, 30), 51, [(1, 1)] * 4, 85, "cmyk")
+    for script, kind in ((0, "seq"), (1, "prog")):
+        out[f"arith_{kind}_cmyk"] = (transcode(data, script, 0, True), cmyk,
+                                     f"arithmetic {kind} CMYK, Adobe 0 (written here)")
+    return out
+
+
+def _lossless_cases() -> dict:
+    """Lossless (SOF3) files of the transcoder's own writer: predictors 1-7,
+    point transforms, restarts, one scan a component, gray, RGB by
+    component ids and CMYK."""
+    out = {}
+    rgb = image((24, 30, 3), 60)
+    for psv in range(1, 8):
+        out[f"lossless_p{psv}_rgb"] = (write_lossless(rgb, psv), rgb,
+                                       f"lossless, predictor {psv}, RGB (ids 1 2 3)")
+    gray = image((27, 22), 61)
+    out["lossless_p4_pt1_gray"] = (write_lossless(gray, 4, pt=1), gray,
+                                   "lossless gray, predictor 4, Pt 1")
+    out["lossless_p7_pt1_rst4"] = (write_lossless(rgb, 7, pt=1, restart_rows=4), rgb,
+                                   "lossless, predictor 7, Pt 1, restart every 4 rows")
+    out["lossless_p6_scans_rgbids"] = (
+        write_lossless(rgb, 6, interleaved=False, ids=[82, 71, 66]), rgb,
+        "lossless, predictor 6, a scan a component, ids R G B")
+    cmyk = image((20, 18, 3), 62)
+    cmyk = np.concatenate([cmyk, cmyk[..., :1] ^ 0x5A], -1)
+    out["lossless_p5_cmyk"] = (write_lossless(cmyk, 5, restart_rows=3), cmyk,
+                               "lossless CMYK, predictor 5, restart every 3 rows")
+    return out
+
+
+def cut_scan(data: bytes, fraction: float, last: bool = True) -> bytes:
+    """``data`` with the entropy-coded data of its last (or first) scan cut
+    at ``fraction`` and the rest of the file kept from the next marker on:
+    a data segment that ends early, which libjpeg decodes with a warning."""
+    sos = data.rindex(b"\xff\xda") if last else data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    end = start
+    while not (data[end] == 0xFF and data[end + 1] not in (0x00, 0xFF)):
+        end += 1
+    return data[:start + int((end - start) * fraction)] + data[end:]
+
+
+def garbled(data: bytes, fraction: float, n: int = 12, value: int = 0x13) -> bytes:
+    """``data`` with ``n`` bytes of its last scan's data overwritten."""
+    sos = data.rindex(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    i = start + int((len(data) - 2 - start) * fraction)
+    return data[:i] + bytes([value]) * n + data[i + n:]
+
+
+def _damaged_cases() -> dict:
+    """Files whose entropy-coded data ends early at a marker or is
+    overwritten: Pillow decodes them (libjpeg warns) and so must the port."""
+    px = image((32, 40, 3), 50)
+    b420 = _pillow(px, quality=80)
+    prog = _pillow(px, quality=80, progressive=True)
+    rst = _pillow(px, quality=80, restart_marker_blocks=2)
+    arith = transcode(b420, 0, 0, True)
+    arith_prog = transcode(b420, 1, 0, True)
+    arith_rst = transcode(b420, 0, 2, True)
+    first = rst.index(b"\xff\xd1")
+    arith_first = arith_rst.index(b"\xff\xd1")
+    cases = (("cut_huffman", cut_scan(b420, 0.6), "Huffman data cut at 60 %, then EOI"),
+             ("cut_huffman_rst", rst[:first - 9] + rst[first:],
+              "Huffman restart interval cut short before RST1"),
+             ("cut_progressive_first", cut_scan(prog, 0.5, last=False),
+              "progressive, the first scan cut at 50 %"),
+             ("cut_arith", cut_scan(arith, 0.6), "arithmetic data cut at 60 %, then EOI"),
+             ("cut_arith_rst", arith_rst[:arith_first - 20] + arith_rst[arith_first:],
+              "arithmetic restart interval cut short before RST1"),
+             ("cut_arith_prog_first", cut_scan(arith_prog, 0.5, last=False),
+              "arithmetic progressive, the first scan cut at 50 %"),
+             ("garbled_huffman", garbled(b420, 0.5), "12 Huffman data bytes overwritten"),
+             ("garbled_arith", garbled(arith, 0.5), "12 arithmetic data bytes overwritten"))
+    return {name: (data, px, what) for name, data, what in cases}
+
+
+def refused() -> dict:
+    """``{name: (bytes, pattern)}``: files Pillow refuses too, and what the
+    port's message must say: truncated files (no EOI: Pillow's "image file
+    is truncated" or "broken data stream"), arithmetic lossless (SOF11),
+    hierarchical (SOF13), lossless YCbCr and 12-bit samples."""
+    px = image((32, 40, 3), 50)
+    b420 = _pillow(px, quality=80)
+    arith = transcode(b420, 0, 0, True)
+    lossless = write_lossless(px, 1)
+    sof = b420.index(b"\xff\xc0")
+    return {
+        "truncated_huffman": (cut_scan(b420, 0.6)[:-2], "truncated"),
+        "truncated_arith": (cut_scan(arith, 0.6)[:-2], "truncated"),
+        "truncated_no_eoi": (b420[:-2], "no EOI"),
+        "sof11_arith_lossless": (lossless.replace(b"\xff\xc3", b"\xff\xcb", 1),
+                                 r"arithmetic-coded lossless \(SOF11\)"),
+        "sof13_hierarchical": (arith.replace(b"\xff\xc9", b"\xff\xcd", 1),
+                               r"differential sequential \(SOF13\)"),
+        "lossless_ycbcr": (write_lossless(px, 1, app=JFIF), "lossless with a colour transform"),
+        "bits12": (b420[:sof + 4] + b"\x0c" + b420[sof + 5:], "12-bit samples"),
+    }
 
 
 def fixtures() -> dict:
@@ -339,6 +501,17 @@ def load(directory: str = OUT) -> dict:
     return out
 
 
+def load_refused(directory: str = OUT) -> dict:
+    """The committed refused files: ``{name: (bytes, pattern)}``."""
+    with open(os.path.join(directory, "refused.json")) as fh:
+        patterns = json.load(fh)
+    out = {}
+    for name, pattern in patterns.items():
+        with open(os.path.join(directory, f"{name}.jpg"), "rb") as fh:
+            out[name] = (fh.read(), pattern)
+    return out
+
+
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     fx = fixtures()
@@ -354,7 +527,15 @@ def main() -> int:
         json.dump({name: {k: f[k] for k in ("quality", "subsampling", "restart_blocks")}
                    for name, f in fx.items()}, fh, indent=1, sort_keys=True)
         fh.write("\n")
-    print(f"wrote {len(fx)} fixtures to {OUT}")
+    bad = refused()
+    for name, (data, _) in bad.items():
+        with open(os.path.join(OUT, f"{name}.jpg"), "wb") as fh:
+            fh.write(data)
+    with open(os.path.join(OUT, "refused.json"), "w") as fh:
+        json.dump({name: pattern for name, (_, pattern) in bad.items()}, fh, indent=1,
+                  sort_keys=True)
+        fh.write("\n")
+    print(f"wrote {len(fx)} fixtures and {len(bad)} refused files to {OUT}")
     return 0
 
 

@@ -628,6 +628,52 @@ def _mode_cases() -> dict:
                                     "gray + alpha, Adam7, 1x1 (six empty passes)")
     cases["adam7_gray16_3x2.png"] = (assemble_png(wide((3, 2), 72), 0, depth=16, interlace=1),
                                      "16-bit gray, Adam7, 3x2")
+    cases.update(_lab_cases())
+    return cases
+
+
+def rgb_to_lab(rgb: np.ndarray) -> np.ndarray:
+    """8-bit CIELab samples of sRGB pixels as a TIFF stores them (L * 255 /
+    100, then a* and b* as two's-complement bytes): the sRGB curve (a
+    table), the D50-adapted sRGB matrix and CIE's Lab formula in float32,
+    rounding. Any encoder serves: what is held is the readers' conversion
+    of these samples."""
+    c = np.arange(256) / 255.0
+    curve = np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4).astype(np.float32)
+    m = np.array([[0.4360747, 0.3850649, 0.1430804], [0.2225045, 0.7168786, 0.0606169],
+                  [0.0139322, 0.0971045, 0.7141733]]) / np.array([[0.9642], [1.0], [0.8249]])
+    xyz = curve[rgb.reshape(-1, 3)] @ m.T.astype(np.float32)
+    f = np.where(xyz > np.float32(216 / 24389), np.cbrt(xyz),
+                 (np.float32(24389 / 27) * xyz + 16) / 116)
+    out = np.empty(xyz.shape, np.uint8)
+    out[:, 0] = np.clip(np.rint((116 * f[:, 1] - 16) * np.float32(2.55)), 0, 255)
+    ab = np.stack([500 * (f[:, 0] - f[:, 1]), 200 * (f[:, 1] - f[:, 2])], -1)
+    out[:, 1:] = np.clip(np.rint(ab), -128, 127).astype(np.int8).view(np.uint8)
+    return out.reshape(rgb.shape)
+
+
+def _lab_cases() -> dict:
+    """CIELab (Photometric 8) files: random samples over the whole cube
+    (out of gamut too), Pillow's own Lab TIFF, Predictor 2, tiles, and a
+    smooth image through :func:`rgb_to_lab`."""
+    from PIL import Image
+
+    cases = {}
+    cube = image((23, 29, 3), 75)
+    cases["lab_raw.tif"] = (_tiff_of(cube, 8, photometric=8), "CIELab, uncompressed")
+    buf = io.BytesIO()
+    Image.fromarray(image((26, 21, 3), 76), "LAB").save(buf, "TIFF",
+                                                       compression="tiff_adobe_deflate")
+    cases["lab_pillow_deflate.tif"] = (buf.getvalue(), "CIELab written by Pillow, Deflate")
+    cases["lab_deflate_pred.tif"] = (
+        _tiff_of(image((19, 31, 3), 77), 8, compression=8, photometric=8, predictor=2,
+                 rows_per_strip=7), "CIELab, Deflate, Predictor 2, 7-row strips")
+    cases["lab_tiled_packbits_be.tif"] = (
+        _tiff_of(image((40, 37, 3), 78), 8, compression=32773, photometric=8, order=">",
+                 tile=(16, 16)), "CIELab, big-endian, PackBits, 16-px tiles")
+    cases["lab_from_rgb.tif"] = (_tiff_of(rgb_to_lab(image((32, 32, 3), 79)), 8,
+                                          compression=8, photometric=8),
+                                 "CIELab of an RGB image (rgb_to_lab), Deflate")
     return cases
 
 
