@@ -458,7 +458,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of slide E through its positions rewritten as OPTIONAL columns over v1
     and v2 pages beside nulls, INT96 and FIXED_LEN_BYTE_ARRAY columns, one
     gather launch, labels equal to phase 12's;
-26. a ``{"kernels": [...]}`` line (FAVOR's row also carries
+26. orbax checkpoints and the AnnData tier, after phase 19 (b) in phase
+    14's directory, with its cohort and trained ``train-image`` directory
+    (DenseNet-121 f, GridNetHex g, full width) and cuDNN's deterministic
+    algorithms: (a) the directory loaded into a ``TrainState`` on the card
+    with ``make_gridwise_optimizer(f_lr=TRAIN_LR)``, ``ORBAX_STEPS``
+    gridwise steps over the cohort's grid dataset, ``save_checkpoint_orbax``
+    with ``block=True`` and again with ``block=False`` across one more
+    step, both restored into fresh templates (every leaf bit-equal to the
+    state at the saves, every tensor on the card), one step from the
+    restored state bit-equal to the live one, and ``register`` of slide 3
+    with the restored and the live model (0 flips); the save and restore
+    seconds and the checkpoint's bytes printed; (b) the JAX package's
+    checkpoint ``tests/data/orbax/`` (``tools/make_orbax_fixture.py``)
+    restored on the card and its slide registered: labels equal to JAX's;
+    (c) ``assemble_visium_frames`` over ``ANNDATA_ARRAYS`` arrays of the
+    cohort (a MEX matrix of ``ANNDATA_GENES`` genes written beside each),
+    ``resolve_imgpatch_dirs`` at 128 px (one gather launch an array; array
+    0's cache byte-equal to the CPU route's), ``attach_imgpaths``,
+    ``concat_visium_frames``, then ``anndata_mm_to_grid_arrays`` and
+    ``anndata_to_grid_arrays`` over a stand-in AnnData: image grids within
+    1e-6 of the factory's cache route, labels equal to its, counts equal to
+    the MEX matrices; the gather's and the labels corrector's counts set to
+    0 before (a) and the gather's before (c), read after (b) and (c);
+27. a ``{"kernels": [...]}`` line (FAVOR's row also carries
     ``launches_pretrain_scbert``, phase 16 (a)'s count; the gather,
     labels-corrector and FAVOR rows ``launches_evaluate`` and
     ``launches_distill``, phase 17's counts, ``launches_serve`` and
@@ -471,7 +494,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``launches_last_inputs_register``, phase 25 (c)'s; the gather's row
     ``launches_prepare_images``, phase 21 (b)'s,
     ``launches_parquet_register``, phase 23 (c)'s, and
-    ``launches_optional_positions_register``, phase 25 (d)'s; the rows of
+    ``launches_optional_positions_register``, phase 25 (d)'s; the gather
+    and labels-corrector rows ``launches_orbax``, phase 26 (a)-(b)'s, and
+    the gather's ``launches_anndata``, phase 26 (c)'s; the rows of
     FAVOR's two halves, ``favor_accumulate`` and ``favor_apply``, carry
     phase 20 (a)'s launches on both ranks), then the last line ``{"ok":
     true, "device": {...}}``.
@@ -6827,6 +6852,257 @@ def phase_optional_positions(torch, port, card, tmp, hd) -> dict:
     return {"launches": n, "s": seconds}
 
 
+ORBAX_STEPS = 2               # (a)'s gridwise steps before the saves
+ANNDATA_ARRAYS = 2            # (c)'s arrays of phase 14's cohort (cut from 4)
+ANNDATA_GENES = 24            # (c)'s genes of each array's MEX matrix
+
+
+class AnnDataStandIn:
+    """What the port's AnnData consumers read of an AnnData (the card has no
+    anndata): ``X``, ``obs[name]`` (a :class:`~gridnext_tpu_torch.io.anndata_io.Frame`),
+    ``obsm``, ``len`` and boolean-mask rows."""
+
+    def __init__(self, X, obs):
+        self.X, self.obs, self.obsm = X, obs, {}
+
+    def __len__(self):
+        return self.X.shape[0]
+
+    def __getitem__(self, mask):
+        return AnnDataStandIn(self.X[mask], self.obs.take(mask))
+
+
+def payload_equal(got: dict, want: dict) -> int:
+    """Leaves of two host checkpoint payloads; raises unless both trees hold
+    the same paths with bit-equal arrays."""
+    a, b = dict(tree_leaves(got)), dict(tree_leaves(want))
+    if a.keys() != b.keys():
+        raise AssertionError(f"payload paths differ: {sorted(set(a) ^ set(b))[:4]}")
+    for path, x in b.items():
+        y = a[path]
+        if x is None or y is None or np.isscalar(x) or np.isscalar(y):
+            same = x == y
+        else:
+            x, y = np.asarray(x), np.asarray(y)
+            same = x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        if not same:
+            raise AssertionError(f"payload leaf {'/'.join(path)} differs")
+    return len(b)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_checkpoints_anndata(torch, port, card, tmp, cohort, dev) -> dict:
+    """Phase 26 (module docstring), in phase 14's directory with its cohort
+    and trained ``train-image`` directory: slides read from ``.npy``
+    (``decode_slide`` swapped for ``np.load``), cuDNN's deterministic
+    algorithms on. Returns the launches of (a)-(b) and of (c), and the
+    seconds."""
+    from gridnext_tpu_torch import ingest
+
+    decode = ingest.decode_slide
+    ingest.decode_slide = np.load
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return checkpoints_anndata_phase(torch, port, card, tmp, cohort, dev)
+    finally:
+        ingest.decode_slide = decode
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def checkpoints_anndata_phase(torch, port, card, tmp, cohort, dev) -> dict:
+    from gridnext_tpu_torch.data import create_visium_dataset
+    from gridnext_tpu_torch.io import anndata_io
+    from gridnext_tpu_torch.train import loops as tl
+    from gridnext_tpu_torch.train import orbax_io
+
+    geometry, io, models, from_jax, modeldir, evaluate, serving, gather, corr = port
+    t_phase = time.perf_counter()
+    log("== phase 26: orbax checkpoints without orbax or tensorstore, and the AnnData tier")
+    dirs, npys, csvs = cohort["dirs"], cohort["npys"], cohort["csvs"]
+    meta, classes, variables = from_jax.load_model_dir(cohort["model"])
+
+    def fresh():
+        model = modeldir.grid_model_from_meta(meta, classes, variables, device=dev)
+        return tl.create_train_state(model, tl.make_gridwise_optimizer(TRAIN_LR, f_lr=TRAIN_LR),
+                                     device=dev, init=False)
+
+    def payload(state):
+        return tl._host_tree(tl._payload_tree(state))
+
+    # (a) steps, a blocking and an async save, restores, a resumed step, register
+    torch.cuda.synchronize()
+    gather.launches = 0
+    corr.launches["fused_hex_corrector_labels"] = 0
+    grids = create_visium_dataset(dirs, use_count=False, annot_files=csvs,
+                                  fullres_image_files=npys, patch_size_px=PATCH, device=dev)
+
+    def batch(i):
+        x, y = grids[i % len(grids)]
+        return x[None], torch.as_tensor(y[None], device=dev)
+
+    state = fresh()
+    step, _ = tl.make_steps(state, "grid")
+    losses = [float(step(*batch(i))["loss"]) for i in range(ORBAX_STEPS)]
+    torch.cuda.synchronize()
+    at_save = payload(state)
+    paths = {"block": os.path.join(tmp, "orbax_block"), "async": os.path.join(tmp, "orbax_async")}
+    t0 = time.perf_counter()
+    orbax_io.save_checkpoint_orbax(paths["block"], state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = orbax_io.save_checkpoint_orbax(paths["async"], state, block=False)
+    call_s = time.perf_counter() - t0
+    xb, yb = batch(ORBAX_STEPS)
+    losses.append(float(step(xb, yb)["loss"]))         # the live state moves on
+    torch.cuda.synchronize()
+    handle.wait_until_finished()
+    handle.close()
+    async_s = time.perf_counter() - t0
+    restored, restore_s = {}, {}
+    for name, path in paths.items():
+        template = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored[name] = orbax_io.restore_checkpoint_orbax(path, template)
+        torch.cuda.synchronize()
+        restore_s[name] = time.perf_counter() - t0
+        n_leaves = payload_equal(payload(restored[name]), at_save)
+        moments = [t for st in restored[name].optimizer.adam.state.values()
+                   for t in (st["exp_avg"], st["exp_avg_sq"])]
+        if not moments or any(t.device.type != dev.type for t in moments) or any(
+                p.device.type != dev.type for p in restored[name].model.parameters()):
+            raise AssertionError(f"(a) the {name} restore left tensors off the card")
+    ckpt_bytes = dir_bytes(paths["block"])
+    resumed = restored["block"]
+    rstep, _ = tl.make_steps(resumed, "grid")
+    if float(rstep(xb, yb)["loss"]) != losses[-1]:
+        raise AssertionError("(a) the resumed step's loss differs from the live step's")
+    n_after = payload_equal(payload(resumed), payload(state))
+    pos3 = io.read_positions(dirs[3])
+    wsi3 = torch.from_numpy(np.load(npys[3])).to(dev)
+    labels = [modeldir.image_registrar_from_meta(meta, classes, from_jax.jax_variables(s.model),
+                                                 device=dev)(wsi3, pos3)
+              for s in (resumed, state)]
+    torch.cuda.synchronize()
+    flips = int((labels[0] != labels[1]).sum())
+    if flips or not (labels[0] > 0).any():
+        raise AssertionError(f"(a) register with the restored model: {flips} flips")
+    del grids, wsi3, restored, resumed, state
+    t_a = time.perf_counter() - t_phase
+    log(f"(a) {ORBAX_STEPS} gridwise steps ({meta['model']}, f_lr {TRAIN_LR}: f trained, "
+        f"chunk {meta.get('patch_chunk')}; losses "
+        f"{[round(v, 4) for v in losses]}); save (block) {save_s:.2f} s, "
+        f"{ckpt_bytes / 1e6:.1f} MB; async save: {call_s:.3f} s to return, "
+        f"{async_s:.2f} s to wait_until_finished across one more step; restores "
+        f"{restore_s['block']:.2f} s and {restore_s['async']:.2f} s, {n_leaves} leaves each "
+        f"bit-equal to the state at the saves, every tensor on the card; one step from the "
+        f"restored state bit-equal to the live step ({n_after} leaves, cuDNN deterministic); "
+        f"register of slide 3: 0 flips against the live model [{card}]")
+
+    # (b) the JAX package's checkpoint (tests/data/orbax/) and JAX's labels
+    fx = tool_module("make_orbax_fixture")
+    fixture = fx.load()
+    n = len(fixture["classes"])
+    g = models.GridNetHex(models.TpuPatchClassifier(
+        n_classes=n, **models.tpu_f_arch_kwargs(fixture["tpu_f"])), n_classes=n, f_dim=n)
+    jstate = tl.create_train_state(g, tl.make_gridwise_optimizer(
+        fixture["lr"], f_lr=fixture["f_lr"]), device=dev, init=False)
+    t0 = time.perf_counter()
+    jstate = orbax_io.restore_checkpoint_orbax(fixture["checkpoint"], jstate)
+    jrestore_s = time.perf_counter() - t0
+    if jstate.step != fixture["step"] or not jstate.optimizer.adam.state:
+        raise AssertionError(f"(b) the JAX checkpoint restored step {jstate.step}")
+    reg = serving.SlideRegistrar.from_gridnet(jstate.model, patch_size=fixture["patch_px"],
+                                              normalize=None, device=dev)
+    jpos = io.read_positions(fx.write_spaceranger_dir(tmp))
+    jlabels = reg(torch.from_numpy(fx.slide()).to(dev), jpos)
+    torch.cuda.synchronize()
+    jflips = int((jlabels != fixture["labels"]).sum())
+    if jflips or not (jlabels > 0).any():
+        raise AssertionError(f"(b) labels of the JAX checkpoint: {jflips} cells off JAX's")
+    launches_orbax = {"gather_patches": gather.launches,
+                      "fused_hex_corrector_labels": corr.launches["fused_hex_corrector_labels"]}
+    if min(launches_orbax.values()) < 1:
+        raise AssertionError(f"(a)-(b) launches {launches_orbax}")
+    log(f"(b) the JAX package's orbax checkpoint ({dir_bytes(fixture['checkpoint'])} bytes, "
+        f"GridNetHex + TpuPatchClassifier, Adam) restored on the card in {jrestore_s:.3f} s; "
+        f"register: labels equal to JAX's on {int((jlabels > 0).sum())} spots (JAX's "
+        f"smallest top-2 gap {fixture['smallest_top2_gap']:.2e}); (a)-(b) launches "
+        f"{json.dumps(launches_orbax)} [{card}]")
+    del reg, jstate, g
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # (c) the AnnData tier over ANNDATA_ARRAYS arrays of the cohort
+    sub = slice(0, ANNDATA_ARRAYS)
+    rng = np.random.default_rng(SEED + 26)
+    ids = [f"ENSG{j:011d}" for j in range(ANNDATA_GENES)]
+    mex = []
+    for srd in dirs[sub]:
+        pos = io.read_positions(srd)
+        counts = np.minimum(rng.poisson(1.5, (ANNDATA_GENES, len(pos.barcodes))), 9)
+        write_mex(os.path.join(srd, "outs", "filtered_feature_bc_matrix"), ids,
+                  [f"Gene{j}" for j in range(ANNDATA_GENES)], pos.barcodes, counts)
+        mex.append((pos, counts))
+    torch.cuda.synchronize()
+    gather.launches = 0
+    t0 = time.perf_counter()
+    frames = anndata_io.assemble_visium_frames(dirs[sub], annot_files=csvs[sub])
+    pdirs = anndata_io.resolve_imgpatch_dirs(dirs[sub], npys[sub], patch_size_px=PATCH,
+                                             device=dev)
+    torch.cuda.synchronize()
+    resolve_s = time.perf_counter() - t0
+    launches_anndata = {"gather_patches": gather.launches}
+    if gather.launches != ANNDATA_ARRAYS:
+        raise AssertionError(f"(c) resolve_imgpatch_dirs: {gather.launches} gather launches")
+    cpu_dir = anndata_io.resolve_imgpatch_dirs(
+        dirs[:1], npys[:1], patch_size_px=PATCH, save_patches_to=os.path.join(tmp, "cpu_route"),
+        device="cpu")[0]
+    n_files = same_files(pdirs[0], cpu_dir)
+    X, obs, var = anndata_io.concat_visium_frames(anndata_io.attach_imgpaths(frames, pdirs))
+    adata = AnnDataStandIn(X.values, obs)
+    t0 = time.perf_counter()
+    (xi, xc), y, cls = anndata_io.anndata_mm_to_grid_arrays(adata, "annotation", "array",
+                                                            device=dev)
+    torch.cuda.synchronize()
+    mm_s = time.perf_counter() - t0
+    xg, yg, cls_g = anndata_io.anndata_to_grid_arrays(adata, "annotation", "array")
+    if list(cls) != classes or list(cls_g) != classes or not np.array_equal(yg, y) or \
+            not np.array_equal(xg, xc):
+        raise AssertionError(f"(c) the grid arrays disagree (classes {list(cls)})")
+    ds = create_visium_dataset(dirs[sub], use_count=False, annot_files=csvs[sub],
+                               patch_size_px=PATCH, device=dev)
+    img_err = 0.0
+    for i, (pos, counts) in enumerate(mex):
+        x_f, y_f = ds[i]
+        img_err = max(img_err, float((xi[i] - x_f).abs().max()))
+        if not np.array_equal(np.asarray(y_f), y[i]):
+            raise AssertionError(f"(c) array {i}: labels differ from the factory's")
+        oy, ox, _, _ = serving.spot_pixel_arrays(pos)
+        keep = np.asarray(pos["in_tissue"]) == 1
+        want = np.zeros((geometry.VISIUM_H_ST, geometry.VISIUM_W_ST, ANNDATA_GENES), np.float32)
+        want[oy, ox] = counts[:, keep].T
+        if not np.array_equal(y[i] > 0, cohort["masks"][i] > 0) or \
+                not np.array_equal(xc[i], want):
+            raise AssertionError(f"(c) array {i}: spots or counts differ from the tissue's "
+                                 "MEX matrix")
+    if not img_err <= 1e-6:
+        raise AssertionError(f"(c) image grids differ from the factory's by {img_err}")
+    seconds = time.perf_counter() - t_phase
+    log(f"(c) AnnData tier over {ANNDATA_ARRAYS} arrays ({len(obs)} spots, "
+        f"{len(var)} genes): frames + patch caches ({PATCH} px) {resolve_s:.2f} s, "
+        f"{json.dumps(launches_anndata)} launches; array 0's cache byte-equal to the CPU "
+        f"route's ({n_files} files); anndata_mm_to_grid_arrays {mm_s:.2f} s, image grids "
+        f"within {img_err:.1e} of the factory's cache route, labels and counts equal; "
+        f"phase 26: {seconds:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+        f"{seconds - t_a - t_b:.1f} s) [{card}]")
+    return {"launches_orbax": launches_orbax, "launches_anndata": launches_anndata,
+            "s": seconds, "save_s": save_s, "restore_s": restore_s, "bytes": ckpt_bytes}
+
+
 def main() -> int:
     import torch
 
@@ -6946,6 +7222,7 @@ def main() -> int:
         cohort = phase_train(torch, slides, port, card, tmp, mm)
         evald = phase_eval_distill(torch, port, card, tmp, cohort, mm, dev)
         mesh_b = phase_mesh_ranks(torch, card, tmp, cohort)
+        ckpt_ad = phase_checkpoints_anndata(torch, port, card, tmp, cohort, dev)
     del mm, cohort
     with tempfile.TemporaryDirectory() as tmp:   # cohort, caches, model dirs, CSVs
         tier = phase_count_tier(torch, card, tmp, dev)
@@ -7038,6 +7315,11 @@ def main() -> int:
     by_name["gather_patches"]["launches_parquet_register"] = parquet_res["launches"]
     # phase 25 (d)'s path: register of slide E through OPTIONAL positions
     by_name["gather_patches"]["launches_optional_positions_register"] = optional_res["launches"]
+    # phase 26's paths: (a)-(b) the orbax checkpoints' steps and registers,
+    # (c) the AnnData tier's patch caches, each counted from 0 just before
+    for name in ("gather_patches", "fused_hex_corrector_labels"):
+        by_name[name]["launches_orbax"] = ckpt_ad["launches_orbax"][name]
+    by_name["gather_patches"]["launches_anndata"] = ckpt_ad["launches_anndata"]["gather_patches"]
     # phase 20 (a3)'s sow route: each rank's step, its counts set to 0 just
     # before it and read just after
     for name in ("favor_accumulate", "favor_apply"):

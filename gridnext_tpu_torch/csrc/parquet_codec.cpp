@@ -27,6 +27,9 @@
 //   pq_delta_binary_packed   DELTA_BINARY_PACKED values into int64
 //   pq_delta_byte_array      DELTA_BYTE_ARRAY's prefixes and suffixes
 //                            joined into one buffer
+//   pq_crc32c            CRC-32C (Castagnoli, reflected 0x82F63B78), the
+//                        checksum of OCDBT's manifests and nodes
+//                        (io/ocdbt.py), continued from a previous value
 
 #include <cstdarg>
 #include <cstdint>
@@ -1550,6 +1553,34 @@ long long pq_delta_byte_array(const long long* prefix, const long long* suffix_l
     }
     return (long long)pos;
   });
+}
+
+// CRC-32C, slicing by 8 (tables built once, on first use)
+uint32_t pq_crc32c(const uint8_t* src, long long n, uint32_t crc) {
+  static uint32_t table[8][256];
+  static bool ready = [] {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1u)));
+      table[0][i] = c;
+    }
+    for (int t = 1; t < 8; ++t)
+      for (int i = 0; i < 256; ++i)
+        table[t][i] = (table[t - 1][i] >> 8) ^ table[0][table[t - 1][i] & 0xFF];
+    return true;
+  }();
+  (void)ready;
+  crc = ~crc;
+  size_t i = 0, len = n > 0 ? size_t(n) : 0;
+  for (; i + 8 <= len; i += 8) {
+    uint32_t lo = crc ^ (uint32_t(src[i]) | uint32_t(src[i + 1]) << 8 |
+                         uint32_t(src[i + 2]) << 16 | uint32_t(src[i + 3]) << 24);
+    crc = table[7][lo & 0xFF] ^ table[6][(lo >> 8) & 0xFF] ^ table[5][(lo >> 16) & 0xFF] ^
+          table[4][lo >> 24] ^ table[3][src[i + 4]] ^ table[2][src[i + 5]] ^
+          table[1][src[i + 6]] ^ table[0][src[i + 7]];
+  }
+  for (; i < len; ++i) crc = (crc >> 8) ^ table[0][(crc ^ src[i]) & 0xFF];
+  return ~crc;
 }
 
 }  // extern "C"

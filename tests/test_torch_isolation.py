@@ -1,11 +1,14 @@
 """The port stands alone: no JAX, no JAX package, nothing the card lacks.
 
 The card machine has PyTorch, numpy and scipy but no JAX, flax, pandas,
-scikit-learn, pyarrow, PIL, msgpack or zstd / lz4 / brotli modules. The package, ``chip_smoke.py`` and the ``tools/time_*.py``
-timers import none of them, except ``PIL`` inside ``ingest.decode_slide``
-and ``data/simulate.py``'s ``pseudo_visium_from_image``, for images other
-than JPEG, TIFF and PNG only (those go through the port's readers,
-``io/jpeg.py``, ``io/tiff.py`` and ``io/png.py``). The
+scikit-learn, pyarrow, PIL, msgpack, orbax, tensorstore, anndata or zstd /
+lz4 / brotli modules. The package, ``chip_smoke.py`` and the
+``tools/time_*.py`` timers import none of them, except ``PIL`` inside
+``ingest.decode_slide`` and ``data/simulate.py``'s
+``pseudo_visium_from_image``, for images other than JPEG, TIFF and PNG only
+(those go through the port's readers, ``io/jpeg.py``, ``io/tiff.py`` and
+``io/png.py``), and ``anndata`` and the ``pandas`` it brings inside the
+AnnData builders' gate (``io/anndata_io.py``). The
 training commands that need no image (``pretrain-scbert``, ``train-graph``)
 run end to end with ``--device cpu`` in a process that imports none of
 them, and without a card their default ``cuda`` raises; so do the cohort
@@ -31,9 +34,13 @@ from gridnext_tpu_torch import geometry
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "gridnext_tpu_torch"
 FORBIDDEN = ("jax", "flax", "optax", "pandas", "pyarrow", "msgpack", "gridnext_tpu",
-             "sklearn", "zstandard", "brotli", "lz4")
+             "sklearn", "zstandard", "brotli", "lz4", "orbax", "tensorstore", "anndata")
 # (file, function) pairs that may import PIL lazily
 PIL_ALLOWED = {("ingest.py", "decode_slide"), ("simulate.py", "pseudo_visium_from_image")}
+# the anndata gate of io/anndata_io.py: anndata, and the pandas it brings,
+# imported only by the AnnData builders' gate
+GATED = {("anndata_io.py", "_require_anndata", "anndata"),
+         ("anndata_io.py", "_anndata_of", "pandas")}
 
 
 def _modules():
@@ -49,7 +56,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'gridnext_tpu', 'pandas', 'pyarrow', 'PIL', "
-            "'msgpack', 'sklearn', 'zstandard', 'brotli', 'lz4'))\n"
+            "'msgpack', 'sklearn', 'zstandard', 'brotli', 'lz4', 'orbax', 'tensorstore', "
+            "'anndata'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -85,6 +93,8 @@ def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), str(path))
     for name, func in _imports(tree):
         top = name.split(".")[0]
+        if (path.name, func, top) in GATED:
+            continue
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
         if top == "PIL":
             assert (path.name, func) in PIL_ALLOWED, \
